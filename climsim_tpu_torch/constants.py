@@ -1,0 +1,21 @@
+"""E3SM physical constants used by the ported path.
+
+A copy of the values in ``climsim_tpu/constants.py`` (E3SM
+``share/util/shr_const_mod.F90`` as used by ClimSim), kept here so the
+port imports nothing of the JAX package.
+"""
+
+GRAV = 9.80616        # acceleration of gravity            [m s-2]
+CP = 1.00464e3        # specific heat of dry air           [J kg-1 K-1]
+LV = 2.501e6          # latent heat of evaporation         [J kg-1]
+LF = 3.337e5          # latent heat of fusion              [J kg-1]
+LSUB = LV + LF        # latent heat of sublimation         [J kg-1]
+
+EARTH_RADIUS = 6.37122e6  # SHR_CONST_REARTH                       [m]
+
+P0 = 1.0e5            # hybrid-coordinate reference pressure       [Pa]
+DT_STEP = 1200.0      # E3SM-MMF coupling timestep (20 minutes)    [s]
+
+NCOL_LOWRES = 384     # ne4pg2 grid columns (low-res ClimSim)
+NCOL_HIGHRES = 21600  # high-res real-geography columns
+NLEV = 60             # vertical levels

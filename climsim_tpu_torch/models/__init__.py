@@ -1,0 +1,5 @@
+from .rnn import RNNAutoreg
+from .convert import from_flax_params
+from .common import Policy, F32, BF16
+
+__all__ = ["RNNAutoreg", "from_flax_params", "Policy", "F32", "BF16"]

@@ -1,0 +1,8 @@
+from .advection import (build_proxy_grid, to_grid, to_columns,
+                        fv_advect_2d_sphere, conservation_fixer,
+                        SphericalMetric, spherical_metric)
+from .host_loop import HybridLoop, HostLoopConfig
+
+__all__ = ["build_proxy_grid", "to_grid", "to_columns",
+           "fv_advect_2d_sphere", "conservation_fixer", "SphericalMetric",
+           "spherical_metric", "HybridLoop", "HostLoopConfig"]

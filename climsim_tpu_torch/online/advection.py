@@ -1,0 +1,243 @@
+"""Finite-volume tracer transport on the spherical proxy grid.
+
+Counterpart of ``climsim_tpu/online/advection.py`` for the path the
+coupled step takes: the proxy-grid mapping (``build_proxy_grid``,
+``to_grid``, ``to_columns``), the spherical metric, the MC-limited
+flux-form FV step on the sphere and the multiplicative conservation
+fixer. The flat raster, semi-Lagrangian transport, ``diagnose_omega`` and
+``vertical_advect_column`` are not ported yet.
+
+ClimSim's unstructured columns are mapped once to a structured
+[nlat, nlon] proxy grid (latitude bands, then longitude within a band).
+Transport then works on [..., nlat, nlon] fields: every function here
+broadcasts over leading (tracer, level) axes, where JAX vmaps.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import EARTH_RADIUS
+
+
+@dataclass(frozen=True)
+class SphericalMetric:
+    """Per-row metric factors for flux-form FV transport on the sphere.
+
+    Arrays (numpy float32, static per loop):
+      dtdx   [nlat]    dt / (a cos(phi_i) dlon)      (zonal courant / m/s)
+      dtdy   [nlat]    dt / (a dphi_i)               (merid. courant / m/s)
+      cf_fac [nlat+1]  dt / (a dphi_face)            (merid. courant / m/s)
+      wf     [nlat+1]  cos(phi_face) * dphi_face     (face flux weight)
+      wc     [nlat]    1 / (cos(phi_i) * dphi_i)     (cell update weight)
+      cosc   [nlat]    cos(phi_i)                    (center cosine)
+      cell_w [nlat]    cos(phi_i) * dphi_i * dlon    (relative cell area)
+
+    Pole faces have cos(+-90 deg) = 0, so pole-crossing fluxes vanish.
+    Courant numbers are clamped to +-cfl_max inside the sweeps.
+    """
+    dtdx: np.ndarray
+    dtdy: np.ndarray
+    cf_fac: np.ndarray
+    wf: np.ndarray
+    wc: np.ndarray
+    cosc: np.ndarray
+    cell_w: np.ndarray
+    cfl_max: float = 0.9
+
+    @property
+    def nlat(self) -> int:
+        return self.dtdx.shape[0]
+
+
+def spherical_metric(band_lats_deg: np.ndarray, nlon: int, dt: float,
+                     radius: float = EARTH_RADIUS,
+                     cfl_max: float = 0.9) -> SphericalMetric:
+    """Build the metric from the proxy grid's band-mean latitudes
+    (ascending, degrees). Face latitudes are midpoints between band
+    centers with the poles closing the ends."""
+    lat = np.asarray(band_lats_deg, np.float64)
+    if not np.all(np.diff(lat) > 0):
+        raise ValueError("band latitudes must be ascending")
+    phi = np.deg2rad(lat)
+    phi_f = np.concatenate([[-np.pi / 2], 0.5 * (phi[:-1] + phi[1:]),
+                            [np.pi / 2]])
+    dphi = np.diff(phi_f)
+    # face-local dphi for courant numbers (edge faces reuse the edge
+    # cell's dphi; their flux is zeroed by cos(+-90) anyway)
+    dphi_f = np.concatenate([[dphi[0]], np.diff(phi), [dphi[-1]]])
+    dlon = 2.0 * np.pi / nlon
+    cosc = np.cos(phi)
+    cosf = np.cos(phi_f)
+    cosf[0] = cosf[-1] = 0.0                            # exact pole closure
+    f32 = lambda a: np.asarray(a, np.float32)
+    return SphericalMetric(
+        dtdx=f32(dt / (radius * cosc * dlon)),
+        dtdy=f32(dt / (radius * dphi)),
+        cf_fac=f32(dt / (radius * dphi_f)),
+        wf=f32(cosf * dphi_f),
+        wc=f32(1.0 / (cosc * dphi)),
+        cosc=f32(cosc),
+        cell_w=f32(cosc * dphi * dlon),
+        cfl_max=cfl_max)
+
+
+def build_proxy_grid(lat: np.ndarray, lon: np.ndarray, nlat: int,
+                     nlon: int):
+    """Assign each unstructured column to a [nlat, nlon] cell.
+
+    Returns numpy (gather_idx [nlat*nlon] column index per cell,
+    scatter_idx [ncol] cell index per column). Columns are sorted into
+    nlat latitude bands of equal count, then by longitude within each
+    band; requires ncol == nlat*nlon.
+    """
+    lat = np.asarray(lat)
+    lon = np.asarray(lon)
+    ncol = lat.shape[0]
+    if ncol != nlat * nlon:
+        raise ValueError(f"ncol {ncol} != nlat*nlon {nlat}*{nlon}")
+    order = np.argsort(lat, kind="stable")
+    gather = np.empty(ncol, np.int64)
+    for b in range(nlat):
+        band = order[b * nlon:(b + 1) * nlon]
+        band = band[np.argsort(lon[band], kind="stable")]
+        gather[b * nlon:(b + 1) * nlon] = band
+    scatter = np.empty(ncol, np.int64)
+    scatter[gather] = np.arange(ncol)
+    return gather, scatter
+
+
+def to_grid(x_col: torch.Tensor, gather_idx: torch.Tensor, nlat: int,
+            nlon: int) -> torch.Tensor:
+    """[ncol, ...] -> [nlat, nlon, ...]."""
+    return x_col[gather_idx].reshape((nlat, nlon) + tuple(x_col.shape[1:]))
+
+
+def to_columns(x_grid: torch.Tensor,
+               scatter_idx: torch.Tensor) -> torch.Tensor:
+    """[nlat, nlon, ...] -> [ncol, ...]."""
+    flat = x_grid.reshape((-1,) + tuple(x_grid.shape[2:]))
+    return flat[scatter_idx]
+
+
+def _mc_limited_slope(qm, q0, qp):
+    """Monotonized-central (van Leer) slope limiter."""
+    dqc = 0.5 * (qp - qm)
+    dqp = qp - q0
+    dqm = q0 - qm
+    mag = torch.minimum(dqc.abs(),
+                        2.0 * torch.minimum(dqp.abs(), dqm.abs()))
+    return torch.where(dqp * dqm > 0.0, torch.sign(dqc) * mag,
+                       torch.zeros_like(mag))
+
+
+def _courant_flux_1d(q, c):
+    """Periodic van-Leer interface fluxes in Courant units along the last
+    axis: c[..., i] is the (clamped) Courant number at the left face of
+    cell i; returns Fc[..., i] = c * q_face."""
+    qm = torch.roll(q, 1, -1)
+    qmm = torch.roll(q, 2, -1)
+    qp = torch.roll(q, -1, -1)
+    slope_m = _mc_limited_slope(qmm, qm, q)
+    slope_0 = _mc_limited_slope(qm, q, qp)
+    q_face_pos = qm + 0.5 * (1.0 - c) * slope_m
+    q_face_neg = q - 0.5 * (1.0 + c) * slope_0
+    return torch.where(c >= 0.0, c * q_face_pos, c * q_face_neg)
+
+
+class MetricRows(NamedTuple):
+    """The per-row metric factors the FV step reads, as float32 tensors on
+    one device (dtdx/wc [nlat], cf_fac/wf [nlat+1]). Built once per loop
+    so that a step copies nothing from the host."""
+    dtdx: torch.Tensor
+    cf_fac: torch.Tensor
+    wf: torch.Tensor
+    wc: torch.Tensor
+    cfl_max: float
+
+
+def metric_rows(m, device) -> MetricRows:
+    """``m`` (a :class:`SphericalMetric`, or MetricRows already) as
+    MetricRows on ``device``."""
+    if isinstance(m, MetricRows):
+        return m
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=device)
+    return MetricRows(t(m.dtdx), t(m.cf_fac), t(m.wf), t(m.wc),
+                      float(m.cfl_max))
+
+
+def fv_advect_2d_sphere_halo(q_ext: torch.Tensor, u_ext: torch.Tensor,
+                             v_ext: torch.Tensor, m, row0: int = 0,
+                             halo: int = 2) -> torch.Tensor:
+    """Halo-aware spherical flux-form FV step on [..., nlat_local + 2*halo,
+    nlon] fields (winds in m/s); returns the interior rows. ``row0`` is
+    the global index of the first interior row; ``m`` is a
+    :class:`SphericalMetric` or its :class:`MetricRows`."""
+    rows = metric_rows(m, q_ext.device)
+    n_ext = q_ext.shape[-2]
+    n = n_ext - 2 * halo
+    cfl = rows.cfl_max
+    nlat = rows.dtdx.shape[0]
+    # extended local row r is global row row0 - halo + r, edge-clamped
+    ext_idx = (torch.arange(n_ext, device=q_ext.device) + row0
+               - halo).clamp(0, nlat - 1)
+    dtdx_ext = rows.dtdx[ext_idx][:, None]
+    cf_fac = rows.cf_fac[row0:row0 + n + 1][:, None]
+    wf = rows.wf[row0:row0 + n + 1][:, None]
+    wc = rows.wc[row0:row0 + n][:, None]
+
+    # zonal sweep on every row incl. ghosts, per-row courant; advective
+    # form: the constant-field flux is c itself
+    c = torch.clamp(u_ext * dtdx_ext, -cfl, cfl)
+    Fc = _courant_flux_1d(q_ext, c)
+    q_ext = q_ext - ((torch.roll(Fc, -1, -1) - Fc)
+                     - q_ext * (torch.roll(c, -1, -1) - c))
+
+    # meridional faces j = 0..n between interior rows j-1 and j
+    qmm = q_ext[..., halo - 2:halo + n - 1, :]
+    qm = q_ext[..., halo - 1:halo + n, :]
+    q0 = q_ext[..., halo:halo + n + 1, :]
+    qp = q_ext[..., halo + 1:halo + n + 2, :]
+    vf = v_ext[..., halo:halo + n + 1, :]
+    slope_m = _mc_limited_slope(qmm, qm, q0)
+    slope_0 = _mc_limited_slope(qm, q0, qp)
+    c = torch.clamp(vf * cf_fac, -cfl, cfl)
+    q_face_pos = qm + 0.5 * (1.0 - c) * slope_m
+    q_face_neg = q0 - 0.5 * (1.0 + c) * slope_0
+    faces = torch.where(c >= 0.0, c * q_face_pos, c * q_face_neg)
+    flux = wf * faces
+    fluxc = wf * c
+    interior = q_ext[..., halo:halo + n, :]
+    return interior - wc * ((flux[..., 1:, :] - flux[..., :-1, :])
+                            - interior * (fluxc[..., 1:, :]
+                                          - fluxc[..., :-1, :]))
+
+
+def _clamped_ghosts(a: torch.Tensor) -> torch.Tensor:
+    """Two copies of the edge row on each side of the row axis (-2)."""
+    return torch.cat([a[..., :1, :], a[..., :1, :], a, a[..., -1:, :],
+                      a[..., -1:, :]], dim=-2)
+
+
+def fv_advect_2d_sphere(q: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        m) -> torch.Tensor:
+    """Single-device spherical FV step on [..., nlat, nlon]: the halo path
+    with clamped ghost rows."""
+    return fv_advect_2d_sphere_halo(_clamped_ghosts(q), _clamped_ghosts(u),
+                                    _clamped_ghosts(v), m, 0)
+
+
+def conservation_fixer(q_new: torch.Tensor, q_old: torch.Tensor,
+                       weights: torch.Tensor | None = None,
+                       eps: float = 1e-30) -> torch.Tensor:
+    """Multiplicative global fixer: rescale the (non-negative) field so its
+    weighted integral matches the pre-step integral."""
+    w = torch.ones_like(q_new) if weights is None else weights
+    q_new = torch.clamp(q_new, min=0.0)
+    tot_old = torch.sum(q_old * w)
+    tot_new = torch.sum(q_new * w)
+    return q_new * (tot_old / torch.clamp(tot_new, min=eps))

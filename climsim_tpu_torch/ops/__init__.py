@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions.
+
+Dispatch goes by the tensor's device, with no fallback: a CPU tensor runs
+the plain version, a CUDA tensor launches the kernel or raises. Each
+wrapper counts its kernel launches in a plain integer attribute,
+``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .pallas_rnn import (fused_bigru_heads_init_cm,
+                         bigru_heads_init_cm_reference)
+from .pallas_stencil import (fv_advect_tracers_sphere,
+                             fv_tracers_sphere_reference)
+
+__all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
+           "fv_advect_tracers_sphere", "fv_tracers_sphere_reference",
+           "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``"cuda"``, and
+    asking for CUDA without a CUDA device raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev

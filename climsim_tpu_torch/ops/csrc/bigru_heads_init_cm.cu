@@ -1,0 +1,322 @@
+// v6 fused emulator forward: initial MLP + split up-projection + up GRU
+// sweep + down GRU sweep + latent/output heads, channel-major [L, C, B].
+//
+// Replaces the TPU kernel climsim_tpu/ops/pallas_rnn.py::
+// _bigru_heads_init_cm_kernel (wrapper _bigru_heads_init_cm_pallas).
+//
+// What it computes, per column (dt = the input type, f32 or bf16; every
+// sum is accumulated in f32):
+//   xi_l  = dt(tanh(dt(Winit feat_l + binit)))
+//   up sweep l = L-1 .. 0:
+//     xp  = dt(W1h xi_l + W1m mem_l + b1)
+//     hh  = Whh_up dt(h) + bhh_up;  r = s(xp_r + hh_r), z = s(xp_z + hh_z)
+//     n   = tanh(xp_n + r hh_n);   h = (1 - z) n + z h;   up_l = dt(h)
+//   down sweep l = 0 .. L-1:
+//     xp2 = dt(W2 up_l + b2); the same GRU step with Whh_dn on h2
+//     mem_l = dt(Wlat dt(h2) + blat); out_l = dt(Wout mem_l + bout)
+//     outmem[l] = [mem_l; out_l]
+//   lasth = dt(h2)
+//
+// What bounds it on an H100 at the flagship shapes (L 60, nf 6, nm 16,
+// ny 6, H 192, B 21,600): 455,904 multiply-adds per column and level
+// (1,152 init + 119,808 up projection + 3 x 110,592 recurrences and down
+// projection + 3,072 + 96 heads) = 1.18 TFLOP per call, 1.19 ms at the
+// 989 TFLOP/s dense bf16 tensor-core peak; the bytes it must move (feat,
+// mem_in, h0s in; outmem, lasth out; bf16) are ~0.14 GB, 0.04 ms at
+// 3.35 TB/s. So it is bound by operations.
+//
+// What this first design does about it: it is a CUDA-core FMA kernel
+// (f32 accumulation of dt products), not a tensor-core one, so its floor
+// is the card's ~67 TFLOP/s f32 FMA rate, ~18 ms, not 1.19 ms. Columns
+// are independent, so each block owns a tile of BT columns and walks all
+// L levels of both sweeps in an in-kernel loop (the TPU's sequential
+// grid). The 120 dependent GRU steps are serial per tile, so 675 tiles
+// at B 21,600 keep 2 blocks on each of the 132 SMs. Hopper cannot hold a
+// [576, 192] recurrent weight (216 KB bf16) per block next to the state,
+// so weights are read k-major ([in, out], flax's own layout) straight
+// from global memory, where the 0.9 MB of bf16 weights stay resident in
+// the 50 MB L2: for a fixed k the threads of a warp read 32 neighbouring
+// outputs, one coalesced 64-byte load. The state h (f32), dt(h) and the
+// level's input live in shared memory as f32; the up stream [L, H, B]
+// that the down sweep reads goes to a scratch tensor the wrapper
+// allocates. B is ragged: the last tile masks its columns itself.
+// Tensor cores (mma.sync / wgmma) and cluster-resident weights are later
+// work. Built without --use_fast_math: expf/tanhf keep the 60-level
+// recurrence within tolerance of the plain version.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BT = 32;          // columns per block
+constexpr int CG = 16;          // columns per thread in the GRU phase
+constexpr int NCG = BT / CG;
+constexpr int NTH = 384;        // threads per block (H 192 x NCG 2)
+
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
+  unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+// plain loads for data this kernel writes itself (the up stream)
+__device__ __forceinline__ float ldp(const float* p) { return *p; }
+__device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// round an f32 value to dt and back
+template <typename T> __device__ __forceinline__ float rnd(float x);
+template <> __device__ __forceinline__ float rnd<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+struct Params {
+  const void *feat, *mem_in, *h0u, *h0d;
+  const void *winit, *binit, *win1h, *win1m, *bin1, *whh_up, *bhh_up;
+  const void *win2, *bin2, *whh_dn, *bhh_dn, *wlat, *blat, *wout, *bout;
+  void *outmem, *lasth, *up;
+  int L, nf, nm_in, H, nm, ny, B;
+};
+
+// a{0,1,2}[c] += sum_k W[k][g*H + j] * X[k][c0 + c] for the three gate
+// rows g = 0, 1, 2 of hidden unit j; W k-major [K][3H], X [K][BT] f32.
+template <typename T>
+__device__ __forceinline__ void gate_mv(float (&a0)[CG], float (&a1)[CG],
+                                        float (&a2)[CG],
+                                        const T* __restrict__ W, int K,
+                                        int H, int j, const float* X,
+                                        int c0) {
+  const int ld = 3 * H;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const T* w = W + static_cast<size_t>(k) * ld + j;
+    const float w0 = ldw(w), w1 = ldw(w + H), w2 = ldw(w + 2 * H);
+    const float4* x4 = reinterpret_cast<const float4*>(X + k * BT + c0);
+#pragma unroll
+    for (int q = 0; q < CG / 4; ++q) {
+      const float4 x = x4[q];
+      a0[4 * q + 0] = fmaf(w0, x.x, a0[4 * q + 0]);
+      a0[4 * q + 1] = fmaf(w0, x.y, a0[4 * q + 1]);
+      a0[4 * q + 2] = fmaf(w0, x.z, a0[4 * q + 2]);
+      a0[4 * q + 3] = fmaf(w0, x.w, a0[4 * q + 3]);
+      a1[4 * q + 0] = fmaf(w1, x.x, a1[4 * q + 0]);
+      a1[4 * q + 1] = fmaf(w1, x.y, a1[4 * q + 1]);
+      a1[4 * q + 2] = fmaf(w1, x.z, a1[4 * q + 2]);
+      a1[4 * q + 3] = fmaf(w1, x.w, a1[4 * q + 3]);
+      a2[4 * q + 0] = fmaf(w2, x.x, a2[4 * q + 0]);
+      a2[4 * q + 1] = fmaf(w2, x.y, a2[4 * q + 1]);
+      a2[4 * q + 2] = fmaf(w2, x.z, a2[4 * q + 2]);
+      a2[4 * q + 3] = fmaf(w2, x.w, a2[4 * q + 3]);
+    }
+  }
+}
+
+// One GRU level for every (hidden unit, column group) of the tile.
+// X1 [K1][BT] with W1 [K1][3H] and X2 [K2][BT] with W2 [K2][3H] form the
+// input projection (K2 = 0 for the down sweep); xh = dt(h) [H][BT] is the
+// recurrent operand; hc [H][BT] the f32 state, updated in place (each
+// element is read and written by one thread); xh_new receives dt(h_new).
+template <typename T>
+__device__ __forceinline__ void gru_level(
+    const T* __restrict__ W1, const float* X1, int K1,
+    const T* __restrict__ W2, const float* X2, int K2,
+    const T* __restrict__ bin, const T* __restrict__ whh,
+    const T* __restrict__ bhh, const float* xh, float* hc, float* xh_new,
+    int H) {
+  for (int item = threadIdx.x; item < H * NCG; item += NTH) {
+    const int j = item % H;
+    const int c0 = (item / H) * CG;
+    float ar[CG], az[CG], an[CG], hn[CG];
+#pragma unroll
+    for (int q = 0; q < CG; ++q) ar[q] = az[q] = an[q] = hn[q] = 0.0f;
+    gate_mv<T>(ar, az, an, W1, K1, H, j, X1, c0);
+    if (K2 > 0) gate_mv<T>(ar, az, an, W2, K2, H, j, X2, c0);
+    const float br = ldw(bin + j), bz = ldw(bin + H + j),
+                bn = ldw(bin + 2 * H + j);
+#pragma unroll
+    for (int q = 0; q < CG; ++q) {
+      ar[q] = rnd<T>(ar[q] + br);     // the projection is stored in dt
+      az[q] = rnd<T>(az[q] + bz);
+      an[q] = rnd<T>(an[q] + bn);
+    }
+    // r and z take x + hh: accumulate the recurrent product onto x
+    gate_mv<T>(ar, az, hn, whh, H, H, j, xh, c0);
+    const float cr = ldw(bhh + j), cz = ldw(bhh + H + j),
+                cn = ldw(bhh + 2 * H + j);
+#pragma unroll
+    for (int q = 0; q < CG; ++q) {
+      const float r = sigmoidf_(ar[q] + cr);
+      const float z = sigmoidf_(az[q] + cz);
+      const float n = tanhf(an[q] + r * (hn[q] + cn));
+      const int e = j * BT + c0 + q;
+      const float h = (1.0f - z) * n + z * hc[e];
+      hc[e] = h;
+      xh_new[e] = rnd<T>(h);
+    }
+  }
+}
+
+// dst[r][c] = src[r][col0 + c] for r < rows, zero past the ragged edge
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int rows, int B, int col0) {
+  for (int e = threadIdx.x; e < rows * BT; e += NTH) {
+    const int r = e / BT, c = e % BT, col = col0 + c;
+    dst[e] = col < B ? ldp(src + static_cast<size_t>(r) * B + col) : 0.0f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, 2)
+bigru_heads_init_cm_kernel(Params p) {
+  const T* feat = static_cast<const T*>(p.feat);
+  const T* mem_in = static_cast<const T*>(p.mem_in);
+  const T* winit = static_cast<const T*>(p.winit);
+  const T* binit = static_cast<const T*>(p.binit);
+  const T* blat = static_cast<const T*>(p.blat);
+  const T* wlat = static_cast<const T*>(p.wlat);
+  const T* wout = static_cast<const T*>(p.wout);
+  const T* bout = static_cast<const T*>(p.bout);
+  T* outmem = static_cast<T*>(p.outmem);
+  T* lasth = static_cast<T*>(p.lasth);
+  T* up = static_cast<T*>(p.up);
+  const int L = p.L, nf = p.nf, nmi = p.nm_in, H = p.H, nm = p.nm,
+            ny = p.ny, B = p.B;
+  const int col0 = blockIdx.x * BT;
+  const int tid = threadIdx.x;
+
+  extern __shared__ float4 smem4[];
+  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
+  float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
+  float* s_x = xh_nxt + H * BT;                     // [H + nm_in][BT]
+  float* s_feat = s_x + (H + nmi) * BT;             // [nf][BT]
+  float* s_mem = s_feat + nf * BT;                  // [nm][BT]
+
+  // ---- up sweep, surface (l = L-1) to top
+  load_tile(s_hc, static_cast<const T*>(p.h0u), H, B, col0);
+  load_tile(xh_cur, static_cast<const T*>(p.h0u), H, B, col0);
+  for (int l = L - 1; l >= 0; --l) {
+    load_tile(s_feat, feat + static_cast<size_t>(l) * nf * B, nf, B, col0);
+    load_tile(s_x + H * BT, mem_in + static_cast<size_t>(l) * nmi * B, nmi,
+              B, col0);
+    __syncthreads();
+    // initial MLP: the pre-activation is rounded to dt before the tanh
+    for (int e = tid; e < H * BT; e += NTH) {
+      const int j = e / BT, c = e % BT;
+      float a = 0.0f;
+      for (int f = 0; f < nf; ++f)
+        a = fmaf(ldw(winit + f * H + j), s_feat[f * BT + c], a);
+      s_x[e] = rnd<T>(tanhf(rnd<T>(a + ldw(binit + j))));
+    }
+    __syncthreads();
+    gru_level<T>(static_cast<const T*>(p.win1h), s_x, H,
+                 static_cast<const T*>(p.win1m), s_x + H * BT, nmi,
+                 static_cast<const T*>(p.bin1),
+                 static_cast<const T*>(p.whh_up),
+                 static_cast<const T*>(p.bhh_up), xh_cur, s_hc, xh_nxt, H);
+    __syncthreads();
+    float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
+    T* up_l = up + static_cast<size_t>(l) * H * B;
+    for (int e = tid; e < H * BT; e += NTH) {
+      const int j = e / BT, c = e % BT, col = col0 + c;
+      if (col < B) up_l[static_cast<size_t>(j) * B + col] = from_f<T>(xh_cur[e]);
+    }
+  }
+
+  // ---- down sweep, top (l = 0) to surface
+  __syncthreads();
+  load_tile(s_hc, static_cast<const T*>(p.h0d), H, B, col0);
+  load_tile(xh_cur, static_cast<const T*>(p.h0d), H, B, col0);
+  const int nmo = nm + ny;
+  for (int l = 0; l < L; ++l) {
+    load_tile(s_x, up + static_cast<size_t>(l) * H * B, H, B, col0);
+    __syncthreads();
+    gru_level<T>(static_cast<const T*>(p.win2), s_x, H,
+                 static_cast<const T*>(p.win2), s_x, 0,
+                 static_cast<const T*>(p.bin2),
+                 static_cast<const T*>(p.whh_dn),
+                 static_cast<const T*>(p.bhh_dn), xh_cur, s_hc, xh_nxt, H);
+    __syncthreads();
+    float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
+    T* om = outmem + static_cast<size_t>(l) * nmo * B;
+    // latent memory head on dt(h2)
+    for (int e = tid; e < nm * BT; e += NTH) {
+      const int m = e / BT, c = e % BT, col = col0 + c;
+      float a = 0.0f;
+      for (int k = 0; k < H; ++k)
+        a = fmaf(ldw(wlat + k * nm + m), xh_cur[k * BT + c], a);
+      const float v = rnd<T>(a + ldw(blat + m));
+      s_mem[e] = v;
+      if (col < B) om[static_cast<size_t>(m) * B + col] = from_f<T>(v);
+    }
+    __syncthreads();
+    // output head on the (dt-rounded) memory
+    for (int e = tid; e < ny * BT; e += NTH) {
+      const int o = e / BT, c = e % BT, col = col0 + c;
+      float a = 0.0f;
+      for (int m = 0; m < nm; ++m)
+        a = fmaf(ldw(wout + m * ny + o), s_mem[m * BT + c], a);
+      if (col < B)
+        om[static_cast<size_t>(nm + o) * B + col] =
+            from_f<T>(a + ldw(bout + o));
+    }
+  }
+  for (int e = tid; e < H * BT; e += NTH) {
+    const int j = e / BT, c = e % BT, col = col0 + c;
+    if (col < B) lasth[static_cast<size_t>(j) * B + col] = from_f<T>(xh_cur[e]);
+  }
+}
+
+template <typename T>
+int launch(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * BT *
+      (4 * static_cast<size_t>(p.H) + p.nm_in + p.nf + p.nm);
+  cudaError_t err = cudaFuncSetAttribute(
+      bigru_heads_init_cm_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (p.B + BT - 1) / BT;
+  bigru_heads_init_cm_kernel<T><<<blocks, NTH, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Weights are k-major ([in, out]),
+// biases flat; activations channel-major [L, C, B] / [H, B], contiguous.
+// up is a [L, H, B] scratch of the input type. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int bigru_heads_init_cm(
+    int dtype, const void* feat, const void* mem_in, const void* h0u,
+    const void* h0d, const void* winit, const void* binit,
+    const void* win1h, const void* win1m, const void* bin1,
+    const void* whh_up, const void* bhh_up, const void* win2,
+    const void* bin2, const void* whh_dn, const void* bhh_dn,
+    const void* wlat, const void* blat, const void* wout, const void* bout,
+    void* outmem, void* lasth, void* up, int L, int nf, int nm_in, int H,
+    int nm, int ny, int B, void* stream) {
+  Params p{feat, mem_in, h0u, h0d, winit, binit, win1h, win1m, bin1,
+           whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout,
+           bout, outmem, lasth, up, L, nf, nm_in, H, nm, ny, B};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(p, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,81 @@
+"""Ground rules of the PyTorch port: it imports nothing of JAX or of the
+JAX package, its entry points default to the card, and importing it needs
+neither nvcc nor triton."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "climsim_tpu_torch"
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    for want in ("chip_smoke.py", "climsim_tpu_torch/ops/pallas_rnn.py",
+                 "climsim_tpu_torch/ops/pallas_stencil.py",
+                 "climsim_tpu_torch/online/host_loop.py",
+                 "climsim_tpu_torch/models/rnn.py"):
+        assert want in names
+    for cu in ("bigru_heads_init_cm.cu", "fv_tracers_sphere.cu"):
+        assert (PORT / "ops" / "csrc" / cu).is_file()
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    for mod in _imported_roots(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "optax", "climsim_tpu"), \
+            f"{path.name} imports {mod}"
+
+
+def test_entry_points_default_to_cuda():
+    from climsim_tpu_torch import Grid, HostLoopConfig, HybridLoop, RNNAutoreg
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    kw = dict(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(8, 8), nh_mem=4,
+              add_pres=False, use_pallas=True, fuse_heads=True,
+              fuse_init=True, level_major=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RNNAutoreg(**kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridLoop(None, Grid.synthetic(24, 4),
+                   HostLoopConfig(nlat=4, nlon=6, emulator_level_major=True))
+    assert RNNAutoreg(device="cpu", **kw).device.type == "cpu"
+
+
+def test_import_needs_no_nvcc_or_triton(tmp_path):
+    """Import the package in a fresh interpreter where neither nvcc nor
+    triton can be found."""
+    code = ("import sys; sys.modules['triton'] = None\n"
+            "had_jax = 'jax' in sys.modules\n"
+            "import climsim_tpu_torch, climsim_tpu_torch.ops\n"
+            "assert had_jax or 'jax' not in sys.modules, 'jax was imported'\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+    env["PATH"] = str(tmp_path)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
