@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-The main path is the online hybrid coupled step that ``bench.py`` builds
-for the JAX package: the flagship BiGRU emulator (``RNNAutoreg``, nx 6,
-nneur 192/192, nh_mem 16, bf16 policy, the fused channel-major kernel)
-inside ``HybridLoop`` (spherical FV transport through the fused
-multi-tracer stencil, water and energy fixers) on a 120 x 180 proxy grid
-of 21,600 columns and 60 levels. Weights are random, from a seed.
+Two paths, each at full width with random weights from a seed:
+
+* serving: the online hybrid coupled step that ``bench.py`` builds for
+  the JAX package: the flagship BiGRU emulator (``RNNAutoreg``, nx 6,
+  nneur 192/192, nh_mem 16, bf16 policy, the fused channel-major kernel)
+  inside ``HybridLoop`` (spherical FV transport through the fused
+  multi-tracer stencil, water and energy fixers) on a 120 x 180 proxy grid
+  of 21,600 columns and 60 levels;
+* training: rollout training of the same model through ``RolloutTrainer``
+  as ``bench.py::build_train`` configures it (W 4 BPTT window, remat on
+  each window step, MSE loss, Adam at 1e-4, 21,600 columns): B1 runs
+  forward and in the remat recompute, the backward kernel B3 once per
+  step.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
      per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (and a ragged batch);
+     main paths' shapes (and a ragged batch);
   3. 20 coupled steps at 21,600 columns, with the launch counters set to
-     0 just before and read just after: each kernel must launch 20 times;
+     0 just before and read just after: each serving kernel must launch
+     20 times;
   4. 3 coupled steps at 384 columns on the card and on the CPU (plain
      versions), compared;
-  5. timings with CUDA events (median of 5 repeats);
-  6. a JSON line of the kernels, the card line, and the result line.
+  5. gradients through the differentiable fused layer at 384 columns, on
+     the card (B1 + B3) and on the CPU, compared;
+  6. the training path: one chunk of 16 steps (4 updates) at 21,600
+     columns, counters set to 0 just before and read just after: B3 must
+     launch W times and B1 2W times per update; finite loss and memory,
+     parameters changed; then one update at 384 columns on the card and on
+     the CPU, compared;
+  7. timings with CUDA events (median of 5 repeats) and peak memory;
+  8. a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -46,6 +61,7 @@ PEAK_BYTES = 3.35e12        # B/s, HBM3
 NLAT, NLON, NLEV = 120, 180, 60          # 21,600 columns
 LO_NLAT, LO_NLON = 16, 24                # 384 columns
 N_STEPS, REPEATS = 20, 5
+W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
 # operations per element of one tracer and level in the FV step: two face
@@ -241,6 +257,283 @@ def check_b2(loop, card):
     return e, (qs, u, v, rows)
 
 
+def b3_args(model, B, dtype, seed):
+    """Residuals and cotangents of the backward at the training shapes:
+    the model's weights as the fused layer passes them, a tanh stream x
+    [L, H, B] (the initial MLP's output), random memory and h0s."""
+    layer = model.bigru_fused
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, L = layer.hidden, NLEV
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    tw = lambda t: t.detach().to(dtype).t()
+    tb = lambda t: t.detach().to(dtype)[:, None]
+    CH = layer.init_width
+    nm = layer.nh_mem
+    res = (torch.tanh(r(L, H, B)), 0.5 * r(L, nm, B), torch.tanh(r(H, B)),
+           torch.tanh(r(H, B)), tw(layer.win1[:CH]), tw(layer.win1[CH:]),
+           tb(layer.bin1), tw(layer.whh_up), tb(layer.bhh_up),
+           tw(layer.win2), tb(layer.bin2), tw(layer.whh_dn),
+           tb(layer.bhh_dn), tw(layer.wlat), tb(layer.blat),
+           tw(layer.wout), tb(layer.bout))
+    return res, r(L, nm + layer.ny, B), r(H, B)
+
+
+B3_NAMES = ("dx", "dmem", "dh0u", "dh0d", "dwin1h", "dwin1m", "dbin1",
+            "dwhh_up", "dbhh_up", "dwin2", "dbin2", "dwhh_dn", "dbhh_dn",
+            "dwlat", "dblat", "dwout", "dbout")
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| relative to the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def bf16_ok(got, want, want32):
+    """check_b1's bf16 check, per tensor: the difference from the plain
+    bf16 result may be 4x the plain version's own bf16-vs-f32 difference,
+    plus 1e-3 of the tensor's scale (a quarter of a bf16 ulp) for a tensor
+    whose own difference happens to be tiny. Returns (ok, err, own)."""
+    own = (want.float() - want32.float()).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= 4.0 * own + 1e-3 * want32.float().abs().max().item(), \
+        err, own
+
+
+def check_b3(model, card):
+    """B3 against its plain version on the card at the training shapes, at
+    21,600 columns and at a ragged 1,000, every one of its 17 outputs. f32:
+    2e-5 of each output's largest magnitude (summation order over 240
+    recurrent levels and the 1.3 M-term gradient sums; measured on an H100:
+    5.2e-6 at 21,600 columns); bf16: as check_b1, per output."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_bwd as kern,
+                                       bigru_heads_cm_bwd_reference as ref)
+    errs = []
+    for B in (NLAT * NLON, 1000):
+        res, dom, dlh = b3_args(model, B, torch.float32, seed=B)
+        got, want = kern(res, dom, dlh), ref(res, dom, dlh)
+        rel = [rel_err(g, w) for g, w in zip(got, want)]
+        worst = int(np.argmax(rel))
+        print(f"B3 f32 B={B}: worst relative error {rel[worst]:.3e} "
+              f"({B3_NAMES[worst]}); tolerance 2e-5 of each output's "
+              f"scale [{card}]")
+        for name, e in zip(B3_NAMES, rel):
+            check(e <= 2e-5, f"B3 f32 B={B} {name}: {e:.3e}")
+        errs.append(max_err(got, want))
+        del got, want
+        r16 = tuple(t.to(torch.bfloat16) for t in res)
+        d16 = (dom.to(torch.bfloat16), dlh.to(torch.bfloat16))
+        got16, want16 = kern(r16, *d16), ref(r16, *d16)
+        want32 = ref(tuple(t.float() for t in r16), *(t.float() for t in d16))
+        ratio = 0.0
+        for name, g, w, w32 in zip(B3_NAMES, got16, want16, want32):
+            ok, e16, own = bf16_ok(g, w, w32)
+            check(ok, f"B3 bf16 B={B} {name}: {e16:.3e} > 4 x {own:.3e}")
+            ratio = max(ratio, e16 / max(own, 1e-30))
+        print(f"B3 bf16 B={B}: difference up to {ratio:.3f} x the plain "
+              f"version's own bf16-vs-f32 error (tolerance 4x) [{card}]")
+        errs.append(max_err(got16, want16))
+        del got16, want16, want32
+    return max(errs)
+
+
+def b3_bound(res):
+    """Least time for B3's work from its shapes: multiply-adds of phases A
+    (replay), B (heads + down BPTT + their weight gradients) and C (up
+    BPTT + its weight gradients) at the bf16 tensor-core peak, against
+    each input read once and each output written once."""
+    x, mem_in = res[0], res[1]
+    L, CH, B = x.shape
+    nm_in, H = mem_in.shape[1], res[7].shape[1]
+    nm, ny = res[13].shape[0], res[15].shape[0]
+    macs = (3 * H * (CH + nm_in) + 9 * H * H                  # A
+            + 12 * H * H + 3 * nm * H + 2 * ny * nm          # B
+            + 6 * H * H + 6 * H * (CH + nm_in))              # C
+    flops = 2.0 * macs * L * B
+    n_in = sum(t.numel() for t in res) + L * (nm + ny) * B + H * B
+    n_out = x.numel() + mem_in.numel() + 2 * H * B \
+        + sum(t.numel() for t in res[4:])
+    nbytes = float(x.element_size() * (n_in + n_out))
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops > t_bytes else "bytes", flops, nbytes
+
+
+def b3_split(args) -> dict:
+    """Device ms of one B3 call by kernel, from torch.profiler: the main
+    kernel (replay + BPTT) against the weight-gradient reductions."""
+    from torch.profiler import ProfilerActivity, profile
+    from climsim_tpu_torch.ops import bigru_heads_cm_bwd
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bigru_heads_cm_bwd(*args)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        for k in ("bigru_heads_cm_bwd_kernel", "outer_sum_kernel",
+                  "sum_parts_kernel", "row_sum_kernel"):
+            if k in ev.key:
+                split[k] = split.get(k, 0.0) + ev.device_time_total / 1e3
+    return split
+
+
+def check_vjp_384(card):
+    """Gradients of all 19 inputs through the differentiable
+    fused_bigru_heads_init_cm at 384 columns: B1 forward and B3 backward
+    on the card against the plain versions on the CPU, f32 to 1e-4 of each
+    gradient's scale, bf16 as check_b3."""
+    from climsim_tpu_torch.models import F32
+    from climsim_tpu_torch.ops import fused_bigru_heads_init_cm
+    a = b1_args(make_model(F32, "cpu"), LO_NLAT * LO_NLON, torch.float32,
+                seed=9)
+
+    def grads(dev, dt):
+        x = [t.to(dev, dt, copy=True).requires_grad_(True) for t in a]
+        with torch.enable_grad():
+            om, lh = fused_bigru_heads_init_cm(*x)
+            ((om.float() ** 2).sum() + (lh.float() ** 2).sum()).backward()
+        return [t.grad.float().cpu() for t in x]
+
+    cpu32 = grads("cpu", torch.float32)
+    worst = max(rel_err(g, w) for g, w in zip(grads("cuda", torch.float32),
+                                              cpu32))
+    print(f"v6 VJP, 384 columns, f32: card vs CPU worst relative "
+          f"difference {worst:.3e} over 19 gradients (tolerance 1e-4) "
+          f"[{card}]")
+    check(worst <= 1e-4, f"v6 VJP f32: {worst:.3e}")
+    ratio = 0.0
+    for i, (g, w, w32) in enumerate(zip(grads("cuda", torch.bfloat16),
+                                        grads("cpu", torch.bfloat16),
+                                        cpu32)):
+        ok, err, own = bf16_ok(g, w, w32)
+        check(ok, f"v6 VJP bf16 gradient {i}: {err:.3e} > 4 x {own:.3e}")
+        ratio = max(ratio, err / max(own, 1e-30))
+    print(f"v6 VJP, 384 columns, bf16: card vs CPU difference up to "
+          f"{ratio:.3f} x the CPU's own bf16-vs-f32 difference "
+          f"(tolerance 4x) [{card}]")
+
+
+def train_chunk(T, ncol, device, seed=3):
+    """bench.py::build_train's data (np.random.default_rng(3), scale 0.3)
+    in the trainer's layout; sp is unused by the MSE loss."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.as_tensor(rng.normal(0, 0.3, s).astype(np.float32))
+    chunk = {"x_lev": r(T, ncol, NLEV, 6), "x_sfc": r(T, ncol, 24),
+             "y_lev": r(T, ncol, NLEV, 6), "y_sfc": r(T, ncol, 8),
+             "sp": torch.full((T, ncol), 1e5)}
+    return {k: v.to(device) for k, v in chunk.items()}
+
+
+def make_trainer(model, device):
+    """bench.py::build_train's update: W 4 window, remat, MSE, Adam 1e-4,
+    with the channel-major model behind the trainer's [B, L, C] layout."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
+                                         channel_major_apply)
+    grid = Grid.synthetic(4, NLEV)
+    cfg = RolloutConfig(rollout_schedule={0: W_TRAIN}, loss="mse", lr=LR,
+                        optimizer="adam", remat=True)
+    return RolloutTrainer(model, cfg, grid.hyai.numpy(), grid.hybi.numpy(),
+                          apply_fn=channel_major_apply, device=device)
+
+
+def compare_train_384(card):
+    """One update (W 4) at 384 columns on the card and on the CPU from the
+    same seeded model and data. f32: loss to 1e-5, memory and gradients to
+    1e-4 of their scale, parameters to 1e-5 of their size plus 2% of one
+    Adam step (lr): Adam's first step moves a parameter by lr g/(|g| +
+    eps), which amplifies the last bits of a gradient near zero by lr/eps
+    (the tests hold the CPU update to the JAX one to the same 2%). bf16:
+    loss, memory, gradients and each parameter's change to 4x the CPU's
+    own bf16-vs-f32 difference, as check_b3."""
+    from climsim_tpu_torch.models import BF16, F32
+    out = {}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        for dev in ("cuda", "cpu"):
+            model = make_model(policy, dev)
+            p0 = {n: p.detach().float().cpu().clone()
+                  for n, p in model.named_parameters()}
+            tr = make_trainer(model, dev)
+            with torch.enable_grad():
+                mem, rec = tr.run_epoch(
+                    None, [train_chunk(W_TRAIN, LO_NLAT * LO_NLON, dev, 4)], 0)
+            check(rec["updates"] == 1 and np.isfinite(rec["loss"]),
+                  f"384 update {name} {dev}: {rec}")
+            prm = {n: p.detach().float().cpu()
+                   for n, p in model.named_parameters()}
+            out[name, dev] = {
+                "loss": torch.tensor([rec["loss"]]), "mem": mem.float().cpu(),
+                "params": prm, "steps": {n: prm[n] - p0[n] for n in prm},
+                "grads": {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()}}
+    c, p = out["f32", "cuda"], out["f32", "cpu"]
+    check(rel_err(c["loss"], p["loss"]) <= 1e-5,
+          f"384 update f32 loss {c['loss']} vs {p['loss']}")
+    check(rel_err(c["mem"], p["mem"]) <= 1e-4, "384 update f32 memory")
+    worst_g = max(rel_err(c["grads"][n], p["grads"][n]) for n in p["grads"])
+    worst_p = max(((c["params"][n] - p["params"][n]).abs()
+                   - 1e-5 * p["params"][n].abs()).max().item() / LR
+                  for n in p["params"])
+    check(worst_g <= 1e-4, f"384 update f32 gradients {worst_g:.3e}")
+    check(worst_p <= 2e-2, f"384 update f32 parameters {worst_p:.3e} lr")
+    print(f"384 columns, one update, f32: card vs CPU loss "
+          f"{c['loss'].item():.7f} vs {p['loss'].item():.7f}; gradients "
+          f"worst relative {worst_g:.3e} (tolerance 1e-4); parameters within "
+          f"{max(worst_p, 0.0):.3e} lr beyond 1e-5 relative (tolerance "
+          f"2e-2 lr) [{card}]")
+    ratio = 0.0
+    c16, p16, p32 = out["bf16", "cuda"], out["bf16", "cpu"], out["f32", "cpu"]
+    for key in ("loss", "mem", "steps", "grads"):
+        if isinstance(p32[key], dict):
+            pairs = [(c16[key][n], p16[key][n], p32[key][n])
+                     for n in p32[key]]
+        else:
+            pairs = [(c16[key], p16[key], p32[key])]
+        for g, w, w32 in pairs:
+            ok, err, own = bf16_ok(g, w, w32)
+            check(ok, f"384 update bf16 {key}: {err:.3e} > 4 x {own:.3e}")
+            ratio = max(ratio, err / max(own, 1e-30))
+    print(f"384 columns, one update, bf16: card vs CPU difference up to "
+          f"{ratio:.3f} x the CPU's own bf16-vs-f32 difference over loss, "
+          f"memory, parameter steps and gradients (tolerance 4x) [{card}]")
+
+
+def run_training(model, card):
+    """The training path at 21,600 columns: one chunk of T_CHUNK steps,
+    i.e. T_CHUNK / W updates, with the counters set to 0 just before and
+    read just after. Returns (trainer, chunk, launches, updates)."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_bwd,
+                                       fused_bigru_heads_init_cm)
+    ncol = NLAT * NLON
+    trainer = make_trainer(model, None)          # device=None: the card
+    chunk = train_chunk(T_CHUNK, ncol, "cuda")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    fused_bigru_heads_init_cm.launches = 0
+    bigru_heads_cm_bwd.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        mem, rec = trainer.run_epoch(None, [chunk], epoch=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"b1": fused_bigru_heads_init_cm.launches,
+                "b3": bigru_heads_cm_bwd.launches}
+    n = rec["updates"]
+    print(f"training path: {n} updates (W {W_TRAIN}, {ncol} columns) in "
+          f"{wall:.3f} s (first run), loss {rec['loss']:.6f}; launches "
+          f"{launches} [{card}]")
+    check(n == T_CHUNK // W_TRAIN, f"{n} updates")
+    check(launches == {"b1": 2 * W_TRAIN * n, "b3": W_TRAIN * n},
+          f"per update B1 must launch {2 * W_TRAIN} times (forward + remat "
+          f"recompute) and B3 {W_TRAIN} times, got {launches} in {n}")
+    check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
+    check(mem.shape == (ncol, NLEV, 16) and bool(torch.isfinite(mem).all()),
+          "training memory")
+    for name, p in model.named_parameters():
+        check(not torch.equal(p.detach(), before[name]),
+              f"{name} did not change")
+    return trainer, chunk, launches, n
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -301,7 +594,9 @@ def main() -> int:
     from climsim_tpu_torch.ops import (_build, fused_bigru_heads_init_cm,
                                        fv_advect_tracers_sphere,
                                        bigru_heads_init_cm_reference,
-                                       fv_tracers_sphere_reference)
+                                       fv_tracers_sphere_reference,
+                                       bigru_heads_cm_bwd,
+                                       bigru_heads_cm_bwd_reference)
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import BF16
 
@@ -329,6 +624,7 @@ def main() -> int:
     # ---- 2. each kernel against its plain version
     b1_err = check_b1(model, card)
     b2_err, b2_inputs = check_b2(loop, card)
+    b3_err = check_b3(model, card)
 
     # ---- 3. the main path at 21,600 columns
     state, mem, x_sfc = initial_state(ncol, NLEV, dev)
@@ -359,7 +655,15 @@ def main() -> int:
     # ---- 4. the main path at 384 columns, card against CPU
     compare_384(card)
 
-    # ---- 5. timings
+    # ---- 5. gradients through the fused layer, card against CPU
+    check_vjp_384(card)
+
+    # ---- 6. the training path at 21,600 columns; one update at 384
+    tmodel = make_model(BF16, None)
+    trainer, chunk, t_launches, n_upd = run_training(tmodel, card)
+    compare_train_384(card)
+
+    # ---- 7. timings
     def step_ms(lp, s, m, x):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
                          queue_ahead=False) / N_STEPS
@@ -413,7 +717,34 @@ def main() -> int:
           f"{b2_plain:.4f} ms, bound {b2_bound:.4f} ms "
           f"({b2_bytes / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
 
-    # ---- 6. the kernels line, the card line, the result
+    def train_epoch():
+        with torch.enable_grad():
+            trainer.run_epoch(None, [chunk], epoch=0)
+
+    upd_ms = median_ms(train_epoch, 1, queue_ahead=False) / n_upd
+    torch.cuda.reset_peak_memory_stats()
+    train_epoch()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"training update (W {W_TRAIN}, remat, MSE, Adam, {ncol} columns, "
+          f"bf16): {upd_ms:.4f} ms/update, "
+          f"{ncol * W_TRAIN / upd_ms * 1e3:,.0f} column-steps/s; peak memory "
+          f"{peak_gb:.3f} GB [{card}]")
+    a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
+    b3_ms = median_ms(lambda: bigru_heads_cm_bwd(*a3), 3)
+    b3_plain = median_ms(lambda: bigru_heads_cm_bwd_reference(*a3), 1)
+    b3_bnd, b3_by, b3_flops, b3_bytes = b3_bound(a3[0])
+    print(f"B3 bf16 (L {NLEV}, H {a3[0][7].shape[1]}, B {ncol}): kernel "
+          f"{b3_ms:.4f} ms, plain {b3_plain:.4f} ms, bound {b3_bnd:.4f} ms "
+          f"({b3_flops / 1e12:.3f} TFLOP at 989 TFLOP/s; "
+          f"{b3_bytes / 1e6:.1f} MB) [{card}]")
+    split = b3_split(a3)
+    print("B3 bf16 by kernel, one call (torch.profiler device time): "
+          + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+             or "the profiler saw no device time: not measured")
+          + f" [{card}]")
+
+    # ---- 8. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -427,6 +758,12 @@ def main() -> int:
          "launches": launches["b2"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
+        {"name": "bigru_heads_cm_bwd", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_heads_cm_bwd.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:1281",
+         "launches": t_launches["b3"], "max_abs_err": b3_err,
+         "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bnd,
+         "bound_by": b3_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

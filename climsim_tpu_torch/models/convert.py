@@ -4,7 +4,9 @@ The port's modules keep flax's names and flax's ``[in, out]`` kernel
 layout (``FusedBiGRUHeadsLayer`` transposes at call, as
 ``climsim_tpu/models/cells.py`` does), so the mapping is one key per
 leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
-``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``.
+``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``. An optax Adam state
+(its moments are trees of the same shape) carries across the same way,
+so a JAX training run can be resumed in the port.
 """
 from __future__ import annotations
 
@@ -48,3 +50,22 @@ def from_flax_params(tree: Mapping, model: nn.Module) -> dict:
                              f"{tuple(ref.shape)}")
         out[k] = torch.tensor(np.asarray(a, np.float32))
     return out
+
+
+def from_optax_adam(mu: Mapping, nu: Mapping, count: int, model: nn.Module,
+                    optimizer: torch.optim.Optimizer) -> dict:
+    """The ``state_dict`` of ``optimizer`` (a ``torch.optim.Adam`` or
+    ``AdamW`` over ``model``'s parameters) holding an optax Adam state:
+    the first and second moments ``mu``/``nu`` as flax trees and the
+    update ``count``. optax's and torch's Adam apply the same update from
+    these (bias corrections 1 - b**count), so a run resumed from the
+    result continues the JAX run."""
+    mu_t, nu_t = from_flax_params(mu, model), from_flax_params(nu, model)
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": mu_t[name_of[id(p)]],
+                       "exp_avg_sq": nu_t[name_of[id(p)]]}
+                   for i, p in enumerate(params)}
+    return sd

@@ -10,11 +10,13 @@ from __future__ import annotations
 import torch
 
 from .pallas_rnn import (fused_bigru_heads_init_cm,
-                         bigru_heads_init_cm_reference)
+                         bigru_heads_init_cm_reference, bigru_heads_cm_bwd,
+                         bigru_heads_cm_bwd_reference)
 from .pallas_stencil import (fv_advect_tracers_sphere,
                              fv_tracers_sphere_reference)
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
+           "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
            "fv_advect_tracers_sphere", "fv_tracers_sphere_reference",
            "resolve_device"]
 

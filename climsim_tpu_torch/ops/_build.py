@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
-``nvcc`` for ``sm_90a`` into ``<checkout>/build/kernels/`` (listed in
+Each ``csrc/<name>.cu`` exposes a plain C interface (the device helpers
+the sources share live in ``csrc/*.cuh``) and is compiled with ``nvcc``
+for ``sm_90a`` into ``<checkout>/build/kernels/`` (listed in
 ``.gitignore``) the first time it is needed, then loaded with ``ctypes``.
-The library's file name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs
-at import time: importing the package needs neither ``nvcc`` nor a GPU.
+The library's file name carries a hash of its source and the headers, so
+an edited source is rebuilt and a stale library is never loaded. Nothing
+here runs at import time: importing the package needs neither ``nvcc``
+nor a GPU.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources with a C entry point; one shared library each
-SOURCES = ("bigru_heads_init_cm", "fv_tracers_sphere")
+SOURCES = ("bigru_heads_init_cm", "bigru_heads_cm_bwd", "fv_tracers_sphere")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

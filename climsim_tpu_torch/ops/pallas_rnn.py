@@ -1,7 +1,8 @@
-"""The v6 fused emulator forward: the CUDA kernel and its plain PyTorch
-version (counterpart of ``climsim_tpu/ops/pallas_rnn.py``'s
-``fused_bigru_heads_init_cm``; the kernel is
-``csrc/bigru_heads_init_cm.cu``).
+"""The v6 fused emulator: its forward and backward CUDA kernels and their
+plain PyTorch versions (counterpart of ``climsim_tpu/ops/pallas_rnn.py``'s
+``fused_bigru_heads_init_cm`` and ``_bigru_heads_cm_bwd_pallas``; the
+kernels are ``csrc/bigru_heads_init_cm.cu`` and
+``csrc/bigru_heads_cm_bwd.cu``).
 
 Channel-major contract, as in JAX: feat [L, nf, B] raw features, mem_in
 [L, nm_in, B], h0_up/h0_dn [H, B]; weights pre-transposed [out, in] and
@@ -9,6 +10,11 @@ biases [ch, 1] -> (outmem [L, nm+ny, B] = mem || out, lasth [H, B]).
 Every sum is accumulated in float32; the input type (float32 or
 bfloat16) is the storage type of xi, the projections, the up stream, the
 heads and the outputs, where the TPU kernel stores them.
+
+``fused_bigru_heads_init_cm`` is differentiable: its backward recomputes
+the initial-MLP stream, runs ``bigru_heads_cm_bwd`` (replay, heads and
+down-sweep BPTT, up-sweep BPTT, weight gradients) and applies the
+initial MLP's VJP, as JAX's ``_heads_init_cm_bwd`` does.
 """
 from __future__ import annotations
 
@@ -18,11 +24,17 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference"]
+__all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
+           "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference"]
 
 _ARGS = ("feat", "mem_in", "h0_up", "h0_dn", "winit_t", "binit", "win1h_t",
          "win1m_t", "bin1", "whh_up_t", "bhh_up", "win2_t", "bin2",
          "whh_dn_t", "bhh_dn", "wlat_t", "blat", "wout_t", "bout")
+# the backward's residuals: the forward's arguments with feat replaced
+# by the initial-MLP stream x = xi [L, CH, B] and without winit/binit
+_RES = ("x",) + _ARGS[1:4] + _ARGS[6:]
+# column splits of the weight-gradient reductions in the backward kernel
+_SPLITS = 32
 
 
 def _mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -31,24 +43,58 @@ def _mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(w.float(), x.float())
 
 
-def _gru_step_cm(h, xp, whh_t, bhh, H: int):
+def _tmm(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """w [K, M] contracted over dim 0 with d [K, B] rounded to w's type
+    -> [M, B] float32 (JAX's ``_tcontract0``)."""
+    return torch.matmul(w.float().t(), d.to(w.dtype).float())
+
+
+def _outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, B] x b [N, B] -> [M, N] float32, contracting the columns."""
+    return torch.matmul(a.float(), b.float().t())
+
+
+def _gru_step_gates_cm(h, xp, whh_t, bhh, H: int):
     """Channel-major GRU update with gates [r; z; n]: h [H, B] float32,
-    xp [3H, B] (input bias included) -> new h (float32). The recurrent
-    product takes h rounded to the weight type."""
+    xp [3H, B] (input bias included) -> (new h, (r, z, n, hn)), all
+    float32; the gates are what the backward stores (JAX's
+    ``_gru_fwd_store_cm``). The recurrent product takes h rounded to the
+    weight type."""
     hh = _mm(whh_t, h.to(whh_t.dtype)) + bhh.float()
     xr, xz, xn = xp.float().split(H)
     hr, hz, hn = hh.split(H)
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)
     n = torch.tanh(xn + r * hn)
-    return (1.0 - z) * n + z * h
+    return (1.0 - z) * n + z * h, (r, z, n, hn)
+
+
+def _gru_step_cm(h, xp, whh_t, bhh, H: int):
+    """``_gru_step_gates_cm`` without the gates: the new h (float32)."""
+    return _gru_step_gates_cm(h, xp, whh_t, bhh, H)[0]
+
+
+def _gru_bwd_step_cm(dh, gates, h_prev, whh_t, H: int):
+    """One channel-major GRU backward step (JAX's ``_gru_bwd_step_cm``):
+    dh/h_prev [H, B] float32, gates [4H, B] as stored -> (d_xp [3H, B],
+    dh_prev [H, B], d_hh [3H, B]), all float32."""
+    r, z, n, hn = gates.float().split(H)
+    dz = dh * (h_prev - n)
+    dan = dh * (1.0 - z) * (1.0 - n * n)
+    dar = dan * hn * r * (1.0 - r)
+    daz = dz * z * (1.0 - z)
+    dhn = dan * r
+    d_hh = torch.cat([dar, daz, dhn])
+    d_xp = torch.cat([dar, daz, dan])
+    return d_xp, dh * z + _tmm(whh_t, d_hh), d_hh
 
 
 def bigru_heads_init_cm_reference(feat, mem_in, h0_up, h0_dn, winit_t,
                                   binit, win1h_t, win1m_t, bin1, whh_up_t,
                                   bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
                                   wlat_t, blat, wout_t, bout):
-    """Plain version of the kernel: the same arithmetic, level by level."""
+    """Plain version of the forward kernel: the same arithmetic, level by
+    level."""
     dt = feat.dtype
     L = feat.shape[0]
     H = whh_up_t.shape[1]
@@ -73,38 +119,148 @@ def bigru_heads_init_cm_reference(feat, mem_in, h0_up, h0_dn, winit_t,
     return torch.stack(outmem), h2.to(dt)
 
 
-def _validate(args) -> tuple[int, ...]:
-    """Check dtype, device, shapes and contiguity of the wrapper's
-    arguments (on every device, so the CPU tests catch what the kernel
-    would refuse); returns (L, nf, nm_in, H, nm, ny, B)."""
-    named = dict(zip(_ARGS, args))
-    feat = named["feat"]
-    dt, dev = feat.dtype, feat.device
+def bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth):
+    """Plain version of the backward kernel, phase by phase and level by
+    level as the TPU kernel's body: (A) replay both sweeps storing h and
+    the gates in the input type, the up projection in float32 without
+    rounding; (B) heads and down-sweep BPTT; (C) up-sweep BPTT. Weight
+    gradients are float32 sums of products whose left factor is rounded to
+    the weight type, cast to each weight's type at the end.
+
+    Returns (dx, dmem, dh0u, dh0d, dwin1h, dwin1m, dbin1, dwhh_up, dbhh_up,
+    dwin2, dbin2, dwhh_dn, dbhh_dn, dwlat, dblat, dwout, dbout)."""
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = res
+    dt, wdt = x.dtype, whh_up_t.dtype
+    L, H, nm = x.shape[0], whh_up_t.shape[1], wlat_t.shape[0]
+    # phase A: replay, up sweep (surface to top), then down sweep
+    up_h, gates_u = [None] * L, [None] * L
+    h = h0_up.float()
+    for l in range(L - 1, -1, -1):
+        xp = _mm(win1h_t, x[l]) + _mm(win1m_t, mem_in[l]) + bin1.float()
+        h, g = _gru_step_gates_cm(h, xp, whh_up_t, bhh_up, H)
+        up_h[l], gates_u[l] = h.to(dt), torch.cat(g).to(dt)
+    g_h, gates_d = [None] * L, [None] * L
+    h2 = h0_dn.float()
+    for l in range(L):
+        xp2 = _mm(win2_t, up_h[l]) + bin2.float()
+        h2, g = _gru_step_gates_cm(h2, xp2, whh_dn_t, bhh_dn, H)
+        g_h[l], gates_d[l] = h2.to(dt), torch.cat(g).to(dt)
+
+    # phase B: heads + down sweep backward (surface to top)
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=x.device)
+             for k, p in zip(_RES[4:], res[4:])}
+    dup = [None] * L
+    dg = d_lasth.float()
+    for l in range(L - 1, -1, -1):
+        dmo = d_outmem[l].float()
+        dmem_head, dout = dmo[:nm], dmo[nm:]
+        hd = g_h[l].to(wlat_t.dtype)
+        mem_l = (_mm(wlat_t, hd) + blat.float()).to(dt)
+        grads["wout_t"] += _outer(dout.to(wdt), mem_l)
+        grads["bout"] += dout.sum(1, keepdim=True)
+        dmem_tot = dmem_head + _tmm(wout_t, dout)
+        grads["wlat_t"] += _outer(dmem_tot.to(wdt), hd)
+        grads["blat"] += dmem_tot.sum(1, keepdim=True)
+        dg = dg + _tmm(wlat_t, dmem_tot)
+        g_prev = (h0_dn if l == 0 else g_h[l - 1]).float()
+        dxp2, dg, d_hh = _gru_bwd_step_cm(dg, gates_d[l], g_prev, whh_dn_t,
+                                          H)
+        dup[l] = _tmm(win2_t, dxp2)
+        grads["win2_t"] += _outer(dxp2.to(wdt), up_h[l])
+        grads["bin2"] += dxp2.sum(1, keepdim=True)
+        grads["whh_dn_t"] += _outer(d_hh.to(wdt), g_prev.to(wdt))
+        grads["bhh_dn"] += d_hh.sum(1, keepdim=True)
+    dh0d = dg.to(h0_dn.dtype)
+
+    # phase C: up sweep backward (top to surface)
+    dx, dmem = torch.empty_like(x), torch.empty_like(mem_in)
+    du = torch.zeros_like(dg)
+    for l in range(L):
+        du = du + dup[l]
+        h_prev = (h0_up if l == L - 1 else up_h[l + 1]).float()
+        d_xp, du, d_hh = _gru_bwd_step_cm(du, gates_u[l], h_prev, whh_up_t,
+                                          H)
+        dx[l] = _tmm(win1h_t, d_xp).to(dx.dtype)
+        dmem[l] = _tmm(win1m_t, d_xp).to(dmem.dtype)
+        grads["win1h_t"] += _outer(d_xp.to(wdt), x[l])
+        grads["win1m_t"] += _outer(d_xp.to(wdt), mem_in[l])
+        grads["bin1"] += d_xp.sum(1, keepdim=True)
+        grads["whh_up_t"] += _outer(d_hh.to(wdt), h_prev.to(wdt))
+        grads["bhh_up"] += d_hh.sum(1, keepdim=True)
+    dh0u = du.to(h0_up.dtype)
+    return (dx, dmem, dh0u, dh0d) + tuple(
+        grads[k].to(p.dtype) for k, p in zip(_RES[4:], res[4:]))
+
+
+def _check(named: dict, shapes: dict, contiguous) -> None:
+    """Raise ``ValueError`` unless every tensor has the first one's dtype
+    (float32 or bfloat16) and device, the given shape, and, for the names
+    in ``contiguous``, contiguous storage."""
+    first = next(iter(named.values()))
+    dt, dev = first.dtype, first.device
     if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"feat: {dt}; the kernel takes float32 or bfloat16")
+        raise ValueError(f"{dt}: the kernels take float32 or bfloat16")
     for k, t in named.items():
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{k}: {t.dtype} on {t.device}, the kernel "
                              f"takes every tensor as {dt} on {dev}")
-    L, nf, B = feat.shape
+        if tuple(t.shape) != shapes[k]:
+            raise ValueError(f"{k}: shape {tuple(t.shape)}, want "
+                             f"{shapes[k]}")
+    for k in contiguous:
+        if not named[k].is_contiguous():
+            raise ValueError(f"{k} must be contiguous")
+
+
+def _weight_shapes(H: int, CH: int, nm_in: int, nm: int, ny: int) -> dict:
+    return {"win1h_t": (3 * H, CH), "win1m_t": (3 * H, nm_in),
+            "bin1": (3 * H, 1), "whh_up_t": (3 * H, H),
+            "bhh_up": (3 * H, 1), "win2_t": (3 * H, H), "bin2": (3 * H, 1),
+            "whh_dn_t": (3 * H, H), "bhh_dn": (3 * H, 1), "wlat_t": (nm, H),
+            "blat": (nm, 1), "wout_t": (ny, nm), "bout": (ny, 1)}
+
+
+def _validate(args) -> tuple[int, ...]:
+    """Check dtype, device, shapes and contiguity of the forward's
+    arguments (on every device, so the CPU tests catch what the kernel
+    would refuse); returns (L, nf, nm_in, H, nm, ny, B)."""
+    named = dict(zip(_ARGS, args))
+    L, nf, B = named["feat"].shape
     nm_in, H = named["mem_in"].shape[1], named["whh_up_t"].shape[1]
     nm, ny = named["wlat_t"].shape[0], named["wout_t"].shape[0]
     shapes = {"feat": (L, nf, B), "mem_in": (L, nm_in, B), "h0_up": (H, B),
               "h0_dn": (H, B), "winit_t": (H, nf), "binit": (H, 1),
-              "win1h_t": (3 * H, H), "win1m_t": (3 * H, nm_in),
-              "bin1": (3 * H, 1), "whh_up_t": (3 * H, H),
-              "bhh_up": (3 * H, 1), "win2_t": (3 * H, H),
-              "bin2": (3 * H, 1), "whh_dn_t": (3 * H, H),
-              "bhh_dn": (3 * H, 1), "wlat_t": (nm, H), "blat": (nm, 1),
-              "wout_t": (ny, nm), "bout": (ny, 1)}
-    for k, want in shapes.items():
-        if tuple(named[k].shape) != want:
-            raise ValueError(f"{k}: shape {tuple(named[k].shape)}, want "
-                             f"{want}")
-    for k in ("feat", "mem_in", "h0_up", "h0_dn"):
-        if not named[k].is_contiguous():
-            raise ValueError(f"{k} must be contiguous")
+              **_weight_shapes(H, H, nm_in, nm, ny)}
+    _check(named, shapes, ("feat", "mem_in", "h0_up", "h0_dn"))
     return L, nf, nm_in, H, nm, ny, B
+
+
+def _validate_bwd(res, d_outmem, d_lasth) -> tuple[int, ...]:
+    """The backward's counterpart of ``_validate``; returns
+    (L, CH, nm_in, H, nm, ny, B)."""
+    named = {**dict(zip(_RES, res)), "d_outmem": d_outmem,
+             "d_lasth": d_lasth}
+    L, CH, B = named["x"].shape
+    nm_in, H = named["mem_in"].shape[1], named["whh_up_t"].shape[1]
+    nm, ny = named["wlat_t"].shape[0], named["wout_t"].shape[0]
+    shapes = {"x": (L, CH, B), "mem_in": (L, nm_in, B), "h0_up": (H, B),
+              "h0_dn": (H, B), **_weight_shapes(H, CH, nm_in, nm, ny),
+              "d_outmem": (L, nm + ny, B), "d_lasth": (H, B)}
+    _check(named, shapes, ("x", "mem_in", "h0_up", "h0_dn", "d_outmem",
+                           "d_lasth"))
+    return L, CH, nm_in, H, nm, ny, B
+
+
+# the kernels read weights k-major ([in, out], flax's layout): free when
+# the caller passes transposed views of such storage, as
+# FusedBiGRUHeadsLayer does
+def _kmaj(w: torch.Tensor) -> torch.Tensor:
+    return w.t().contiguous()
+
+
+def _flat(b: torch.Tensor) -> torch.Tensor:
+    return b.reshape(-1).contiguous()
 
 
 def _launch(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
@@ -113,19 +269,14 @@ def _launch(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
      bout) = args
     L, nf, nm_in, H, nm, ny, B = dims
     dt, dev = feat.dtype, feat.device
-    # the kernel reads weights k-major ([in, out], flax's layout): free
-    # when the caller passes transposed views of such storage, as
-    # FusedBiGRUHeadsLayer does
-    kmaj = lambda w: w.t().contiguous()
-    flat = lambda b: b.reshape(-1).contiguous()
     outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
     lasth = torch.empty((H, B), dtype=dt, device=dev)
     up = torch.empty((L, H, B), dtype=dt, device=dev)   # up-stream scratch
-    ptrs = [feat, mem_in, h0_up, h0_dn, kmaj(winit_t), flat(binit),
-            kmaj(win1h_t), kmaj(win1m_t), flat(bin1), kmaj(whh_up_t),
-            flat(bhh_up), kmaj(win2_t), flat(bin2), kmaj(whh_dn_t),
-            flat(bhh_dn), kmaj(wlat_t), flat(blat), kmaj(wout_t),
-            flat(bout), outmem, lasth, up]
+    ptrs = [feat, mem_in, h0_up, h0_dn, _kmaj(winit_t), _flat(binit),
+            _kmaj(win1h_t), _kmaj(win1m_t), _flat(bin1), _kmaj(whh_up_t),
+            _flat(bhh_up), _kmaj(win2_t), _flat(bin2), _kmaj(whh_dn_t),
+            _flat(bhh_dn), _kmaj(wlat_t), _flat(blat), _kmaj(wout_t),
+            _flat(bout), outmem, lasth, up]
     lib = _build.load("bigru_heads_init_cm")
     fn = lib.bigru_heads_init_cm
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 22 \
@@ -139,27 +290,112 @@ def _launch(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return outmem, lasth
 
 
+def _launch_bwd(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = res
+    L, CH, nm_in, H, nm, ny, B = dims
+    dt, dev = x.dtype, x.device
+    new = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    f32 = torch.float32
+    grads = [new(*p.shape) for p in res[4:]]
+    outs = [new(L, CH, B), new(L, nm_in, B), new(H, B), new(H, B)]
+    # scratch the TPU kernel kept in VMEM: h and the gates of both sweeps
+    # and the recomputed latent head (input type); d_up and the per-level
+    # gradient streams the weight-gradient reductions read (float32); the
+    # reductions' per-split partial sums of the largest weight
+    largest = max(3 * H * max(CH, H, nm_in), nm * H, ny * nm)
+    scratch = [new(L, H, B), new(L, H, B), new(L, 4 * H, B),
+               new(L, 4 * H, B), new(L, nm, B), new(L, H, B, dtype=f32),
+               new(L, 4 * H, B, dtype=f32), new(L, 4 * H, B, dtype=f32),
+               new(L, nm, B, dtype=f32), new(_SPLITS * largest, dtype=f32)]
+    # the slot order of csrc/bigru_heads_cm_bwd.cu's enum Slot
+    ptrs = [x, mem_in, h0_up, h0_dn,
+            _kmaj(win1h_t), _kmaj(win1m_t), _kmaj(whh_up_t), _kmaj(win2_t),
+            _kmaj(whh_dn_t), _kmaj(wlat_t),
+            *(w.contiguous() for w in (win1h_t, win1m_t, whh_up_t, win2_t,
+                                       whh_dn_t, wlat_t, wout_t)),
+            *(_flat(b) for b in (bin1, bhh_up, bin2, bhh_dn, blat)),
+            d_outmem, d_lasth, *outs, *grads, *scratch]
+    table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    lib = _build.load("bigru_heads_cm_bwd")
+    fn = lib.bigru_heads_cm_bwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(0 if dt == torch.float32 else 1, len(ptrs), table, L, CH,
+            nm_in, H, nm, ny, B, _SPLITS, stream)
+    _build.check_status(rc, "bigru_heads_cm_bwd")
+    bigru_heads_cm_bwd.launches += 1
+    return tuple(outs) + tuple(grads)
+
+
+def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
+    """Channel-major BiGRU + heads backward (JAX's
+    ``_bigru_heads_cm_bwd_pallas``): ``res`` = (x [L, CH, B], mem_in,
+    h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up, win2_t, bin2,
+    whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout), the cotangents of
+    (outmem, lasth) -> (dx, dmem, dh0u, dh0d, 13 weight/bias gradients in
+    the weights' type). A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    dims = _validate_bwd(res, d_outmem, d_lasth)
+    dev = res[0].device
+    if dev.type == "cpu":
+        return bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return _launch_bwd(res, d_outmem, d_lasth, dims)
+
+
+class _FusedHeadsInitCM(torch.autograd.Function):
+    """Forward: the B1 kernel (or its plain version on the CPU), saving
+    only the inputs, as JAX's residuals are. Backward: the initial-MLP
+    recompute, ``bigru_heads_cm_bwd``, and the initial MLP's VJP, which
+    JAX leaves to XLA einsums outside the kernel."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        dims = _validate(args)
+        ctx.save_for_backward(*args)
+        if args[0].device.type == "cpu":
+            return bigru_heads_init_cm_reference(*args)
+        if args[0].device.type != "cuda":
+            raise ValueError(f"no kernel for device {args[0].device}")
+        return _launch(args, dims)
+
+    @staticmethod
+    def backward(ctx, d_outmem, d_lasth):
+        args = ctx.saved_tensors
+        feat, mem_in, h0_up, h0_dn, winit_t, binit = args[:6]
+        dt, f32 = feat.dtype, torch.float32
+        pre = (torch.einsum("hf,lfb->lhb", winit_t.float(), feat.float())
+               + binit.float()).to(dt)
+        xi = torch.tanh(pre.float()).to(dt).contiguous()
+        dxi, dmem, dh0u, dh0d, *wgrads = bigru_heads_cm_bwd(
+            (xi, mem_in, h0_up, h0_dn) + tuple(args[6:]),
+            d_outmem.to(dt).contiguous(), d_lasth.to(dt).contiguous())
+        dpre = dxi.to(f32) * (1.0 - xi.to(f32) ** 2)
+        dfeat = torch.einsum("hf,lhb->lfb", winit_t.float(),
+                             dpre).to(feat.dtype)
+        dwinit = torch.einsum("lhb,lfb->hf", dpre,
+                              feat.float()).to(winit_t.dtype)
+        dbinit = dpre.sum(dim=(0, 2))[:, None].to(binit.dtype)
+        return (dfeat, dmem, dh0u, dh0d, dwinit, dbinit, *wgrads)
+
+
 def fused_bigru_heads_init_cm(feat, mem_in, h0_up, h0_dn, winit_t, binit,
                               win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
                               win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,
                               wout_t, bout):
-    """v6 channel-major fused initial-MLP + BiGRU + heads. A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises.
-    Forward only: the training backward kernel is not ported yet, so a
-    CUDA call that would need gradients raises."""
-    args = (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t,
-            bin1, whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t,
-            blat, wout_t, bout)
-    dims = _validate(args)
-    if feat.device.type == "cpu":
-        return bigru_heads_init_cm_reference(*args)
-    if feat.device.type != "cuda":
-        raise ValueError(f"no kernel for device {feat.device}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "the backward of the fused BiGRU kernel is not ported yet "
-            "(ROADMAP B3); call under torch.no_grad()")
-    return _launch(args, dims)
+    """v6 channel-major fused initial-MLP + BiGRU + heads, differentiable
+    in all 19 arguments. A CPU tensor runs the plain versions; a CUDA
+    tensor launches the forward kernel (and, for gradients, the backward
+    kernel) or raises."""
+    return _FusedHeadsInitCM.apply(feat, mem_in, h0_up, h0_dn, winit_t,
+                                   binit, win1h_t, win1m_t, bin1, whh_up_t,
+                                   bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
+                                   wlat_t, blat, wout_t, bout)
 
 
 fused_bigru_heads_init_cm.launches = 0
+bigru_heads_cm_bwd.launches = 0

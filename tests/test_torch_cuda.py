@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from climsim_tpu_torch.online.advection import spherical_metric
-from climsim_tpu_torch.ops import (bigru_heads_init_cm_reference,
+from climsim_tpu_torch.ops import (bigru_heads_cm_bwd,
+                                   bigru_heads_cm_bwd_reference,
+                                   bigru_heads_init_cm_reference,
                                    fused_bigru_heads_init_cm,
                                    fv_advect_tracers_sphere,
                                    fv_tracers_sphere_reference)
@@ -65,12 +67,131 @@ def test_b1_kernel_matches_plain_bf16(cuda):
     torch.testing.assert_close(lh.float(), ref_lh.float(), rtol=0, atol=2e-2)
 
 
+def _b3_inputs(L, H, B, dtype, device, seed=4):
+    """Residuals of the backward (x a tanh stream [L, H, B]) and the
+    cotangents of (outmem, lasth)."""
+    nm_in, nm, ny = 8, 8, 6
+    rng = np.random.default_rng(seed)
+    shapes = [(L, H, B), (L, nm_in, B), (H, B), (H, B), (3 * H, H),
+              (3 * H, nm_in), (3 * H, 1), (3 * H, H), (3 * H, 1),
+              (3 * H, H), (3 * H, 1), (3 * H, H), (3 * H, 1), (nm, H),
+              (nm, 1), (ny, nm), (ny, 1), (L, nm + ny, B), (H, B)]
+    t = [torch.as_tensor(0.25 * rng.standard_normal(s), dtype=torch.float32)
+         for s in shapes]
+    t[0] = torch.tanh(4 * t[0])
+    t = [a.to(device, dtype) for a in t]
+    return t[:17], t[17], t[18]
+
+
+def _rel_err(got, want):
+    """Largest |got - want| over one output, relative to its magnitude."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
 @pytest.mark.cuda
-def test_b1_refuses_gradients(cuda):
-    a = _b1_inputs(4, 16, 16, torch.float32, cuda)
-    a[6].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B3"):
-        fused_bigru_heads_init_cm(*a)
+@pytest.mark.parametrize("B", [16, 150])
+def test_b3_kernel_matches_plain_f32(cuda, B):
+    """f32, ragged B (150 is not a multiple of the 32-column tile): every
+    one of the 17 outputs to 1e-4 of its largest magnitude (summation
+    order over 2 x 20 recurrent levels and the L x B gradient sums)."""
+    res, dom, dlh = _b3_inputs(20, 16, B, torch.float32, cuda)
+    before = bigru_heads_cm_bwd.launches
+    got = bigru_heads_cm_bwd(res, dom, dlh)
+    want = bigru_heads_cm_bwd_reference(res, dom, dlh)
+    assert bigru_heads_cm_bwd.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert _rel_err(g, w) <= 1e-4, (i, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_b3_kernel_matches_plain_bf16(cuda):
+    """bf16: kernel and plain version store h, the gates and the outputs in
+    bf16 at the same points; each output may differ from the plain
+    version by 4x the plain version's own bf16-vs-f32 error."""
+    res, dom, dlh = _b3_inputs(20, 16, 150, torch.bfloat16, cuda)
+    got = bigru_heads_cm_bwd(res, dom, dlh)
+    want = bigru_heads_cm_bwd_reference(res, dom, dlh)
+    want32 = bigru_heads_cm_bwd_reference([a.float() for a in res],
+                                          dom.float(), dlh.float())
+    for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        own = (w.float() - w32).abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 4 * own + 1e-3 * w32.abs().max().item(), (i, err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_on_card_matches_cpu(cuda, dtype):
+    """Gradients of all 19 inputs through the differentiable
+    fused_bigru_heads_init_cm: B1 forward and B3 backward on the card
+    against the plain versions on the CPU. f32 to 1e-4 of each gradient's
+    scale; bf16 to 4x the CPU's own bf16-vs-f32 difference."""
+    a = _b1_inputs(20, 16, 150, torch.float32, "cpu")
+
+    def grads(dev, dt):
+        x = [t.to(dev, dt, copy=True).requires_grad_(True) for t in a]
+        om, lh = fused_bigru_heads_init_cm(*x)
+        ((om.float() ** 2).sum() + (lh.float() ** 2).sum()).backward()
+        return [t.grad.float().cpu() for t in x]
+
+    b1, b3 = fused_bigru_heads_init_cm.launches, bigru_heads_cm_bwd.launches
+    card = grads(cuda, dtype)
+    assert fused_bigru_heads_init_cm.launches == b1 + 1
+    assert bigru_heads_cm_bwd.launches == b3 + 1
+    cpu = grads("cpu", dtype)
+    cpu32 = grads("cpu", torch.float32)
+    for i, (g, w, w32) in enumerate(zip(card, cpu, cpu32)):
+        if dtype == torch.float32:
+            assert _rel_err(g, w) <= 1e-4, (i, _rel_err(g, w))
+        else:
+            own = (w - w32).abs().max().item()
+            err = (g - w).abs().max().item()
+            assert err <= 4 * own + 1e-3 * w32.abs().max().item(), \
+                (i, err, own)
+
+
+@pytest.mark.cuda
+def test_trainer_update_on_card(cuda):
+    """One RolloutTrainer update (W 2, remat) of a small flagship-shaped
+    model on the card: B1 launches twice per step (forward and the
+    recompute), B3 once; the loss and the gradients agree with the same
+    update on the CPU (f32: 1e-4 of each gradient's scale)."""
+    from climsim_tpu_torch.models import F32, RNNAutoreg
+    from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
+                                         channel_major_apply)
+    L, B, W = 12, 40, 2
+    rng = np.random.default_rng(5)
+    r = lambda *s: rng.normal(0, 0.3, s).astype(np.float32)
+    chunk = {"x_lev": r(W, B, L, 6), "x_sfc": r(W, B, 24),
+             "y_lev": r(W, B, L, 6), "y_sfc": r(W, B, 8),
+             "sp": np.full((W, B), 1e5, np.float32)}
+    hy = np.linspace(0.0, 1.0, L + 1).astype(np.float32)
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(16, 16),
+                           nh_mem=4, add_pres=False, policy=F32,
+                           use_pallas=True, fuse_heads=True, fuse_init=True,
+                           level_major=True, device=dev, seed=1)
+        cfg = RolloutConfig(rollout_schedule={0: W}, loss="mse", lr=1e-4,
+                            remat=True)
+        tr = RolloutTrainer(model, cfg, hy, hy,
+                            apply_fn=channel_major_apply, device=dev)
+        fused_bigru_heads_init_cm.launches = 0
+        bigru_heads_cm_bwd.launches = 0
+        mem, rec = tr.run_epoch(None, [chunk], epoch=0)
+        launches = (fused_bigru_heads_init_cm.launches,
+                    bigru_heads_cm_bwd.launches)
+        assert launches == ((2 * W, W) if dev.type == "cuda" else (0, 0))
+        assert rec["updates"] == 1 and np.isfinite(rec["loss"])
+        results[dev.type] = (rec["loss"], {n: p.grad.cpu() for n, p in
+                                           model.named_parameters()})
+    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    assert lc == pytest.approx(lp, rel=1e-5)
+    for n in gp:
+        assert _rel_err(gc[n], gp[n]) <= 1e-4, n
 
 
 @pytest.mark.cuda

@@ -33,9 +33,12 @@ def test_port_sources_exist():
     for want in ("chip_smoke.py", "climsim_tpu_torch/ops/pallas_rnn.py",
                  "climsim_tpu_torch/ops/pallas_stencil.py",
                  "climsim_tpu_torch/online/host_loop.py",
-                 "climsim_tpu_torch/models/rnn.py"):
+                 "climsim_tpu_torch/models/rnn.py",
+                 "climsim_tpu_torch/train/rollout.py",
+                 "climsim_tpu_torch/physics/conservation.py"):
         assert want in names
-    for cu in ("bigru_heads_init_cm.cu", "fv_tracers_sphere.cu"):
+    for cu in ("bigru_heads_init_cm.cu", "bigru_heads_cm_bwd.cu",
+               "fv_tracers_sphere.cu"):
         assert (PORT / "ops" / "csrc" / cu).is_file()
 
 
