@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two paths, each at full width with random weights from a seed:
+Three paths, each at full width with random weights from a seed:
 
 * serving: the online hybrid coupled step that ``bench.py`` builds for
   the JAX package: the flagship BiGRU emulator (``RNNAutoreg``, nx 6,
@@ -15,13 +15,21 @@ Two paths, each at full width with random weights from a seed:
   as ``bench.py::build_train`` configures it (W 4 BPTT window, remat on
   each window step, MSE loss, Adam at 1e-4, 21,600 columns): B1 runs
   forward and in the remat recompute, the backward kernel B3 once per
-  step.
+  step;
+* evaluation of the physics-constrained emulator: ``PhysicalRNNAutoreg``
+  in ``conf/autoreg_physrnn.yaml``'s configuration (nneur 128/128, nh_mem
+  16, nreg 8, McICA, qv variability, stored precipitation, ice
+  sedimentation, physical radiation with ng 8/8, the fused trunk, f32)
+  through ``RolloutTrainer.run_epoch(train=False)`` with the raw state
+  (``pass_x_raw``) on one W 3 window of 21,600 columns: per model step the
+  v2 BiGRU B7 runs the trunk and B12 and B11 the LW and SW solvers.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
      per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes (and a ragged batch);
+     main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
+     and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
   3. 20 coupled steps at 21,600 columns, with the launch counters set to
      0 just before and read just after: each serving kernel must launch
      20 times;
@@ -34,8 +42,14 @@ Phases (any failure exits non-zero):
      launch W times and B1 2W times per update; finite loss and memory,
      parameters changed; then one update at 384 columns on the card and on
      the CPU, compared;
-  7. timings with CUDA events (median of 5 repeats) and peak memory;
-  8. a JSON line of the kernels, the card line, and the result line.
+  7. the physics evaluation window at 21,600 columns, counters set to 0
+     just before and read just after: B7, B11 and B12 must launch W times
+     each; finite loss, outputs and memory, non-negative stored and
+     surface precipitation; then the same window at 384 columns on the
+     card and on the CPU, compared after counting the McICA sample
+     indices that differ;
+  8. timings with CUDA events (median of 5 repeats) and peak memory;
+  9. a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -55,6 +69,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # published peaks of one H100 SXM at its 700 W limit (dense)
 PEAK_BF16 = 989e12          # FLOP/s, tensor cores
+PEAK_TF32 = 495e12          # FLOP/s, tensor cores (not used by f32 code)
 PEAK_F32 = 67e12            # FLOP/s, outside the tensor cores
 PEAK_BYTES = 3.35e12        # B/s, HBM3
 
@@ -68,6 +83,16 @@ YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
 # fluxes (two MC slopes of ~14 operations and ~6 for the upwind value)
 # and the update, per sweep
 FV_OPS_PER_ELEMENT = 80
+# the physics evaluation path: conf/autoreg_physrnn.yaml's last window, and
+# the output scales of tests/test_phys_rnn.py
+PHYS_W = 3
+PHYS_YSCALE = dict(yscale_t=1e5, yscale_qv=1e8, yscale_qn=1e8,
+                   yscale_precc=1e7)
+# operations per (column, g-point, level) of the radiation solvers,
+# counting a division as one: SW 13 in the up sweep and 13 in the down
+# sweep, LW 2 in each accumulation
+SW_OPS_PER_ELEMENT = 26
+LW_OPS_PER_ELEMENT = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -584,6 +609,315 @@ def compare_384(card):
           f"(tolerance 4x) [{card}]")
 
 
+# ------------------------------------------------------------ physics path
+
+
+def make_phys_model(device, seed=0):
+    """conf/autoreg_physrnn.yaml's model at full width (nx 15, nx_sfc 24 as
+    tests/test_phys_rnn.py; the trunk on the 50 CRM levels), the fused
+    trunk switched on as cli/train_rollout.py:294 reads it, hybrid
+    coefficients from Grid.synthetic, f32."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    g = Grid.synthetic(4, NLEV)
+    tt = lambda a: tuple(a.tolist())
+    return PhysicalRNNAutoreg(
+        nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(128, 128), nh_mem=16,
+        nreg=8, store_precip=True, ice_sedimentation=True, use_physrad=True,
+        use_mcica=True, use_tc=False, use_qv_variability=True,
+        learned_cloud_optics=False, ng_lw=8, ng_sw=8, use_pallas=True,
+        pallas_acc32=True, hyai=tt(g.hyai), hybi=tt(g.hybi),
+        hyam=tt(g.hyam), hybm=tt(g.hybm), sp_mean=9.8e4, sp_div=1e3,
+        **PHYS_YSCALE, device=device, seed=seed)
+
+
+def phys_chunk(T, ncol, device, seed=5):
+    """Synthetic data from a seeded numpy generator in the trainer's layout:
+    normalized inputs and targets, and the raw state x_lev_raw in physical
+    ranges (T 200-300 K, small positive q, as tests/test_phys_rnn.py)."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    xd = np.zeros((T, ncol, NLEV, 6), np.float32)
+    xd[..., 0] = rng.uniform(200, 300, (T, ncol, NLEV))
+    xd[..., 2] = np.abs(1e-5 * n(T, ncol, NLEV))
+    xd[..., 3] = np.abs(1e-5 * n(T, ncol, NLEV))
+    xd[..., 5] = np.abs(1e-3 + 3e-4 * n(T, ncol, NLEV))
+    chunk = {"x_lev": n(T, ncol, NLEV, 15), "x_sfc": n(T, ncol, 24),
+             "y_lev": 0.3 * n(T, ncol, NLEV, 5), "y_sfc": 0.3 * n(T, ncol, 8),
+             "sp": np.full((T, ncol), 1e5, np.float32), "x_lev_raw": xd}
+    return {k: torch.as_tensor(v).to(device) for k, v in chunk.items()}
+
+
+def make_phys_trainer(model, device, record=None):
+    """The evaluation path as cli/train_rollout.py wires the physics model:
+    pass_x_raw (and pass_y_true, which evaluation does not use), the
+    physics memory shape, huber loss, the yaml's W 3 window. With
+    ``record`` (a list) every model call appends its outputs, memory and
+    area fractions."""
+    from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
+                                         phys_apply, phys_mem_shape)
+
+    def recording_apply(m, xl, xs, mem, xr, yt=None):
+        res = phys_apply(m, xl, xs, mem, xr, yt)
+        record.append((res[0], res[1], res[2], res[3]["area_frac"]))
+        return res
+
+    cfg = RolloutConfig(rollout_schedule={0: PHYS_W}, loss="huber",
+                        pass_x_raw=True, pass_y_true=True)
+    return RolloutTrainer(model, cfg, model.hyai.cpu().numpy(),
+                          model.hybi.cpu().numpy(),
+                          apply_fn=phys_apply if record is None
+                          else recording_apply,
+                          mem_shape=phys_mem_shape(model), device=device)
+
+
+def b7_args(model, B, dtype, seed):
+    """The trunk's v2 inputs at the physics path's shapes: xp = x win1 +
+    bin1 of a random feature stream [B, 50, 144] with the model's
+    (lecun-normal) weights, tanh initial states."""
+    layer = model.bigru_fused
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, H = NLEV - model.ilev_crm, layer.hidden
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    x = torch.tanh(r(B, L, layer.win1.shape[0]))
+    xp = torch.matmul(x.transpose(0, 1), layer.win1) + layer.bin1
+    w = lambda t: t.detach().to(dtype)
+    return (w(xp), w(torch.tanh(r(B, H))), w(torch.tanh(r(B, H))),
+            w(layer.whh_up), w(layer.bhh_up), w(layer.win2), w(layer.bin2),
+            w(layer.whh_dn), w(layer.bhh_dn))
+
+
+def check_b7(model, card):
+    """B7 against its plain version on the card at (L 50, B 21,600,
+    H 128) and a ragged 1,000 columns (not a multiple of the 32-column
+    tile). f32 to 1e-5 + 1e-5*|x| (summation order only, through 100
+    recurrent levels; the states are of order 1); bf16 to 4x the plain
+    version's own bf16-vs-f32 error on the same inputs, as check_b1."""
+    from climsim_tpu_torch.ops import (bigru_reference_lbh as ref,
+                                       fused_bigru_lbh as kern)
+    errs = []
+    for B in (NLAT * NLON, 1000):
+        a32 = b7_args(model, B, torch.float32, seed=B)
+        got, want = kern(*a32), ref(*a32)
+        e = max_err(got, want)
+        print(f"B7 f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
+              f"1e-5*|x| [{card}]")
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        errs.append(e)
+        a16 = tuple(t.to(torch.bfloat16) for t in a32)
+        got16, want16 = kern(*a16), ref(*a16)
+        e16 = max_err(got16, want16)
+        own = max_err(want16, ref(*(t.float() for t in a16)))
+        print(f"B7 bf16 B={B}: max_abs_err {e16:.3e}, plain bf16-vs-f32 "
+              f"{own:.3e}; tolerance 4x that [{card}]")
+        check(e16 <= 4.0 * own, f"B7 bf16 B={B}: {e16} > 4 x {own}")
+        errs.append(e16)
+        del a32, got, want, a16, got16, want16
+    return max(errs)
+
+
+def radiation_args(ncol, device, seed=3):
+    """Solver inputs at the physics path's shapes (ncol, 60, 8) through
+    the plain optics: SW two-stream coefficients of random optical
+    properties (tau spanning clear to thick cloud), LW Pade sources of
+    random Planck terms. Returns (sw args, lw args)."""
+    from climsim_tpu_torch.physics import radiation as R
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(
+        s, generator=g, device=device)
+    shape = (ncol, NLEV, 8)
+    layers = R.calc_ref_trans_sw(u(0.05, 1.0, ncol, 1, 1),
+                                 torch.exp(u(-6.0, 4.0, *shape)),
+                                 u(0.3, 0.999, *shape), u(0.0, 0.85, *shape))
+    sw = (u(0.0, 300.0, ncol, 8), u(0.05, 0.8, ncol, 8),
+          u(0.05, 0.8, ncol, 8)) + tuple(layers)
+    sup, sdn, trans = R.reftrans_lw(u(1.0, 60.0, *shape),
+                                    u(1.0, 60.0, *shape),
+                                    torch.exp(u(-6.0, 3.0, *shape)))
+    lw = (trans, sdn, sup, u(10.0, 60.0, ncol, 8), torch.ones(
+        (ncol, 8), device=device))
+    return sw, lw
+
+
+def check_radiation(card):
+    """B11 and B12 against their plain versions on the card at
+    (21,600, 60, 8) f32, each of the five fluxes to 1e-5 of its largest
+    magnitude (nvcc contracts a*b+c into FMAs; the recurrences carry the
+    rounding through 60 levels and the SW up sweep's divisions)."""
+    from climsim_tpu_torch.ops import adding_sw_fast, lw_solver_noscat_fast
+    from climsim_tpu_torch.physics.radiation import (adding_sw,
+                                                     lw_solver_noscat)
+    sw, lw = radiation_args(NLAT * NLON, "cuda")
+    errs = {}
+    for name, kern, ref, args, outs in (
+            ("B11", adding_sw_fast, adding_sw, sw, ("fup", "fdiff", "fdir")),
+            ("B12", lw_solver_noscat_fast, lw_solver_noscat, lw,
+             ("fdn", "fup"))):
+        got, want = kern(*args), ref(*args)
+        rel = {o: rel_err(g, w) for o, g, w in zip(outs, got, want)}
+        errs[name] = max_err(got, want)
+        print(f"{name} f32 ({NLAT * NLON}, {NLEV}, 8): max_abs_err "
+              f"{errs[name]:.3e}; relative to each flux's scale "
+              + ", ".join(f"{o} {e:.2e}" for o, e in rel.items())
+              + f" (tolerance 1e-5) [{card}]")
+        for o, e in rel.items():
+            check(e <= 1e-5, f"{name} {o}: {e:.3e}")
+            check(bool(torch.isfinite(got[outs.index(o)]).all()),
+                  f"{name} {o} not finite")
+    return errs
+
+
+def run_phys_eval(model, card):
+    """The physics evaluation path at 21,600 columns: one W 3 window
+    through RolloutTrainer.run_epoch(train=False) with pass_x_raw, the
+    counters set to 0 just before and read just after."""
+    from climsim_tpu_torch.ops import (adding_sw_fast, fused_bigru_lbh,
+                                       lw_solver_noscat_fast)
+    ncol = NLAT * NLON
+    record = []
+    trainer = make_phys_trainer(model, None, record)   # None: the card
+    chunk = phys_chunk(PHYS_W, ncol, "cuda")
+    fused_bigru_lbh.launches = 0
+    adding_sw_fast.launches = 0
+    lw_solver_noscat_fast.launches = 0
+    t0 = time.perf_counter()
+    mem, rec = trainer.run_epoch(None, [chunk], 0, train=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"b7": fused_bigru_lbh.launches,
+                "b11": adding_sw_fast.launches,
+                "b12": lw_solver_noscat_fast.launches}
+    print(f"physics evaluation: {rec['updates']} window of W {PHYS_W} at "
+          f"{ncol} columns in {wall:.3f} s (first run), loss "
+          f"{rec['loss']:.6f}; launches {launches} [{card}]")
+    check(rec["updates"] == 1, f"{rec['updates']} windows")
+    check(launches == {"b7": PHYS_W, "b11": PHYS_W, "b12": PHYS_W},
+          f"B7, B11 and B12 must each launch {PHYS_W} times, got "
+          f"{launches}")
+    check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
+    Lc = NLEV - model.ilev_crm
+    check(mem.shape == (ncol, Lc, model.nh_mem + 1)
+          and bool(torch.isfinite(mem).all()), "physics memory")
+    check(bool((mem[..., -1] >= 0).all()), "stored precipitation < 0")
+    check(len(record) == PHYS_W, f"{len(record)} model calls")
+    for out, out_sfc, _, _ in record:
+        check(out.shape == (ncol, NLEV, 5) and out_sfc.shape == (ncol, 8),
+              "physics output shapes")
+        check(bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(out_sfc).all()),
+              "physics outputs not finite")
+        check(bool((out_sfc[:, 2:4] >= 0).all()),
+              "surface precipitation (PRECSC, PRECC) < 0")
+    print(f"physics evaluation: stored precipitation in "
+          f"[{mem[..., -1].min().item():.4e}, {mem[..., -1].max().item():.4e}]"
+          f", PRECC up to {record[-1][1][:, 3].max().item():.4e} [{card}]")
+    return launches
+
+
+def compare_phys_384(card):
+    """The physics window (W 3) at 384 columns on the card and on the CPU
+    from the same seeded model and data. McICA's stratified sampling turns
+    each layer's area fractions into g-point indices; a last-ulp difference
+    in a fraction can move an index, and with it that column's cloud in
+    every later step. So the check first counts the indices that differ,
+    then compares the outputs and memory of the columns whose indices all
+    agree (they must be at least 99% of the columns) to 1e-4 of each
+    field's scale (f32 summation order through a 128-wide GRU's 100 levels
+    and the radiation; the CPU tests hold the plain versions to JAX at the
+    same widths to 2.9e-5), and the loss to 1e-4 when no index differs."""
+    from climsim_tpu_torch.physics.radiation import stratified_sample
+    ncol = LO_NLAT * LO_NLON
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = make_phys_model(dev)
+        record = []
+        trainer = make_phys_trainer(model, dev, record)
+        mem, rec = trainer.run_epoch(
+            None, [phys_chunk(PHYS_W, ncol, dev, seed=6)], 0, train=False)
+        runs[dev] = (rec["loss"], mem.cpu(),
+                     [tuple(t.cpu() for t in r) for r in record], model)
+    (lc, mc, rc, model), (lp, mp, rp, _) = runs["cuda"], runs["cpu"]
+    nreg, Lc = model.nreg, NLEV - model.ilev_crm
+    n_diff, n_idx = 0, 0
+    bad = torch.zeros(ncol, dtype=torch.bool)
+    for (_, _, _, af_c), (_, _, _, af_p) in zip(rc, rp):
+        for G in (model.ng_sw, model.ng_lw):
+            ic = stratified_sample(af_c.cuda().reshape(-1, nreg), G).cpu()
+            ip = stratified_sample(af_p.reshape(-1, nreg), G)
+            d = (ic != ip).reshape(ncol, Lc * G)
+            n_diff += int(d.sum())
+            n_idx += d.numel()
+            bad |= d.any(1)
+    keep = ~bad
+    print(f"physics 384 columns, W {PHYS_W}: {n_diff} of {n_idx} McICA "
+          f"sample indices differ card vs CPU, in {int(bad.sum())} columns "
+          f"[{card}]")
+    check(keep.float().mean().item() >= 0.99,
+          f"McICA indices differ in {int(bad.sum())} of {ncol} columns")
+    worst = 0.0
+    pairs = [("mem", mc, mp)] + [
+        (f"step {i} {k}", c[j], p[j]) for i, (c, p) in enumerate(zip(rc, rp))
+        for j, k in ((0, "out"), (1, "out_sfc"), (2, "mem"))]
+    for name, c, p in pairs:
+        check(bool(torch.isfinite(c).all()), f"384 physics {name} not finite")
+        e = rel_err(c[keep], p[keep])
+        check(e <= 1e-4, f"384 physics {name}: card vs CPU {e:.3e}")
+        worst = max(worst, e)
+    if n_diff == 0:
+        check(abs(lc - lp) <= 1e-4 * abs(lp),
+              f"384 physics loss {lc} vs {lp}")
+    print(f"physics 384 columns: card vs CPU worst relative difference "
+          f"{worst:.3e} over {int(keep.sum())} columns (tolerance 1e-4); "
+          f"loss {lc:.7f} vs {lp:.7f} [{card}]")
+
+
+def phys_profile(trainer, chunk, top=8):
+    """One evaluation window under torch.profiler: the device time of
+    every kernel summed (busy ms), and the kernels with the most device
+    time. Returns (busy ms, [(name, ms), ...]). Only the device-side
+    events count: an operator's own event repeats its kernels' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run_epoch(None, [chunk], 0, train=False)
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.self_device_time_total / 1e3)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    kernels.sort(key=lambda kv: -kv[1])
+    return sum(ms for _, ms in kernels), kernels[:top]
+
+
+def phys_bounds(a7, sw, lw):
+    """Least times of B7, B11 and B12 from this run's inputs: operations
+    at the card's f32 rate (the f32 policy rules out TF32) against each
+    input read once and each output written once."""
+    xp = a7[0]
+    L, B, H3 = xp.shape
+    H = H3 // 3
+    n_in = sum(t.numel() for t in a7)
+    b7_flops = 2.0 * 3 * H3 * H * L * B
+    b7_bytes = float(xp.element_size() * (n_in + L * B * H + B * H))
+    out = {"b7": (b7_flops, b7_bytes)}
+    for key, args, n_out, ops in (("b11", sw, 3, SW_OPS_PER_ELEMENT),
+                                  ("b12", lw, 2, LW_OPS_PER_ELEMENT)):
+        Bc, nlev, ng = args[3 if key == "b11" else 0].shape
+        nbytes = 4.0 * (sum(t.numel() for t in args)
+                        + n_out * Bc * (nlev + 1) * ng)
+        out[key] = (float(ops * Bc * nlev * ng), nbytes)
+    res = {}
+    for key, (flops, nbytes) in out.items():
+        t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+        res[key] = (max(t_ops, t_bytes) * 1e3,
+                    "operations" if t_ops > t_bytes else "bytes", flops,
+                    nbytes)
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -625,6 +959,9 @@ def main() -> int:
     b1_err = check_b1(model, card)
     b2_err, b2_inputs = check_b2(loop, card)
     b3_err = check_b3(model, card)
+    pmodel = make_phys_model(None)            # device=None: the card
+    b7_err = check_b7(pmodel, card)
+    rad_errs = check_radiation(card)
 
     # ---- 3. the main path at 21,600 columns
     state, mem, x_sfc = initial_state(ncol, NLEV, dev)
@@ -663,7 +1000,11 @@ def main() -> int:
     trainer, chunk, t_launches, n_upd = run_training(tmodel, card)
     compare_train_384(card)
 
-    # ---- 7. timings
+    # ---- 7. the physics evaluation path at 21,600 columns; 384 vs CPU
+    p_launches = run_phys_eval(pmodel, card)
+    compare_phys_384(card)
+
+    # ---- 8. timings
     def step_ms(lp, s, m, x):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
                          queue_ahead=False) / N_STEPS
@@ -744,7 +1085,58 @@ def main() -> int:
              or "the profiler saw no device time: not measured")
           + f" [{card}]")
 
-    # ---- 8. the kernels line, the card line, the result
+    # the physics path's inputs are made here, after the training peak, so
+    # that peak counts what it counted before this path existed
+    sw_args, lw_args = radiation_args(ncol, "cuda")
+    phys_chunk_hi = phys_chunk(PHYS_W, ncol, "cuda")
+    ptrainer = make_phys_trainer(pmodel, None)
+    phys_ms = median_ms(lambda: ptrainer.run_epoch(
+        None, [phys_chunk_hi], 0, train=False), 1, queue_ahead=False) / PHYS_W
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ptrainer.run_epoch(None, [phys_chunk_hi], 0, train=False)
+    torch.cuda.synchronize()
+    phys_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"physics evaluation (W {PHYS_W}, {ncol} columns, f32): "
+          f"{phys_ms:.4f} ms per model step, "
+          f"{ncol / phys_ms * 1e3:,.0f} column-steps/s; peak memory "
+          f"{phys_peak:.3f} GB ({resident:.3f} GB resident before the "
+          f"window) [{card}]")
+    busy, top = phys_profile(ptrainer, phys_chunk_hi)
+    window = phys_ms * PHYS_W
+    print("physics evaluation window by kernel (torch.profiler device "
+          + (f"time): busy {busy:.4f} ms of the window's {window:.4f} ms "
+             f"unprofiled, idle share {max(0.0, 1 - busy / window):.3f}; "
+             + "; ".join(f"{k[:48]} {ms:.4f} ms" for k, ms in top)
+             if busy > 0 else "time): the profiler saw no device time: "
+             "not measured") + f" [{card}]")
+    from climsim_tpu_torch.ops import (adding_sw_fast, bigru_reference_lbh,
+                                       fused_bigru_lbh,
+                                       lw_solver_noscat_fast)
+    from climsim_tpu_torch.physics.radiation import (adding_sw,
+                                                     lw_solver_noscat)
+    a7 = b7_args(pmodel, ncol, torch.float32, seed=13)
+    b7_ms = median_ms(lambda: fused_bigru_lbh(*a7), 3)
+    b7_plain = median_ms(lambda: bigru_reference_lbh(*a7), 1)
+    sw_ms = median_ms(lambda: adding_sw_fast(*sw_args), 50)
+    sw_plain = median_ms(lambda: adding_sw(*sw_args), 3)
+    lw_ms = median_ms(lambda: lw_solver_noscat_fast(*lw_args), 50)
+    lw_plain = median_ms(lambda: lw_solver_noscat(*lw_args), 3)
+    pb = phys_bounds(a7, sw_args, lw_args)
+    L7, B7, H7 = a7[0].shape[0], a7[0].shape[1], a7[0].shape[2] // 3
+    print(f"B7 f32 (L {L7}, H {H7}, B {B7}): kernel {b7_ms:.4f} ms, plain "
+          f"{b7_plain:.4f} ms, bound {pb['b7'][0]:.4f} ms "
+          f"({pb['b7'][2] / 1e12:.4f} TFLOP at 67 TFLOP/s f32, "
+          f"{pb['b7'][2] / PEAK_TF32 * 1e3:.4f} ms at the 495 TFLOP/s TF32 "
+          f"rate the f32 policy does not permit; {pb['b7'][3] / 1e6:.1f} MB)"
+          f" [{card}]")
+    for key, name, ms, plain in (("b11", "B11", sw_ms, sw_plain),
+                                 ("b12", "B12", lw_ms, lw_plain)):
+        print(f"{name} f32 ({ncol}, {NLEV}, 8): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {pb[key][0]:.4f} ms "
+              f"({pb[key][3] / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
+
+    # ---- 9. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -764,6 +1156,24 @@ def main() -> int:
          "launches": t_launches["b3"], "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bnd,
          "bound_by": b3_by, "library_ms": None},
+        {"name": "bigru_lbh", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_lbh.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:98",
+         "launches": p_launches["b7"], "max_abs_err": b7_err,
+         "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": pb["b7"][0],
+         "bound_by": pb["b7"][1], "library_ms": None},
+        {"name": "adding_sw", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/adding_sw.cu",
+         "replaces": "climsim_tpu/ops/pallas_radiation.py:30",
+         "launches": p_launches["b11"], "max_abs_err": rad_errs["B11"],
+         "ms": sw_ms, "plain_ms": sw_plain, "bound_ms": pb["b11"][0],
+         "bound_by": pb["b11"][1], "library_ms": None},
+        {"name": "lw_noscat", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/lw_noscat.cu",
+         "replaces": "climsim_tpu/ops/pallas_radiation.py:123",
+         "launches": p_launches["b12"], "max_abs_err": rad_errs["B12"],
+         "ms": lw_ms, "plain_ms": lw_plain, "bound_ms": pb["b12"][0],
+         "bound_by": pb["b12"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,11 @@
 """climsim_tpu_torch — the PyTorch + CUDA port of ``climsim_tpu``.
 
 The port runs the online hybrid coupled step (flagship BiGRU emulator +
-spherical finite-volume transport + water/energy fixers) and the rollout
-training of the flagship emulator (``train.RolloutTrainer``) on an NVIDIA
-Hopper GPU. Ground rules:
+spherical finite-volume transport + water/energy fixers), the rollout
+training of the flagship emulator (``train.RolloutTrainer``) and the
+forward of the physics-constrained emulator with differentiable radiation
+(``PhysicalRNNAutoreg``, evaluated by the trainer) on an NVIDIA Hopper
+GPU. Ground rules:
 
 * The JAX package ``climsim_tpu`` is the reference and stays as it is.
   This package mirrors its module paths and public names
@@ -15,9 +17,10 @@ Hopper GPU. Ground rules:
 * This package imports ``torch`` and never ``jax``, ``flax`` or anything
   of ``climsim_tpu``; it keeps its own copy of what it needs (see
   ``constants.py``). Only the tests import both packages.
-* Entry points (``RNNAutoreg``, ``HybridLoop``, ``RolloutTrainer``) take
-  ``device=None``, which means ``"cuda"``; without a CUDA device they
-  raise unless the caller passes ``device="cpu"``.
+* Entry points (``RNNAutoreg``, ``PhysicalRNNAutoreg``, ``HybridLoop``,
+  ``RolloutTrainer``) take ``device=None``, which means ``"cuda"``;
+  without a CUDA device they raise unless the caller passes
+  ``device="cpu"``.
 * Every Pallas kernel on the ported path has a hand-written CUDA C++
   kernel for ``sm_90a`` under ``ops/csrc/``. Its wrapper dispatches by the
   tensor's device with no fallback: a CPU tensor runs the plain PyTorch
@@ -30,9 +33,9 @@ from .grid import Grid
 # online before ops: online.advection holds the stencil's plain version,
 # which ops.pallas_stencil imports, and online.host_loop imports ops
 from .online import HybridLoop, HostLoopConfig
-from .models import RNNAutoreg, from_flax_params
+from .models import PhysicalRNNAutoreg, RNNAutoreg, from_flax_params
 from . import train
 
 __version__ = "0.1.0"
 __all__ = ["constants", "Grid", "HybridLoop", "HostLoopConfig",
-           "RNNAutoreg", "from_flax_params", "train"]
+           "PhysicalRNNAutoreg", "RNNAutoreg", "from_flax_params", "train"]

@@ -11,6 +11,12 @@ LV = 2.501e6          # latent heat of evaporation         [J kg-1]
 LF = 3.337e5          # latent heat of fusion              [J kg-1]
 LSUB = LV + LF        # latent heat of sublimation         [J kg-1]
 
+RD = 287.0            # specific gas constant, dry air     [J kg-1 K-1]
+RV = 461.0            # specific gas constant, water vapor [J kg-1 K-1]
+
+T0_FREEZE = 273.16    # freezing temperature (triple point)        [K]
+T_ICE_RAMP = 253.16   # below this: pure-ice saturation / ramp low [K]
+
 EARTH_RADIUS = 6.37122e6  # SHR_CONST_REARTH                       [m]
 
 P0 = 1.0e5            # hybrid-coordinate reference pressure       [Pa]

@@ -1,7 +1,8 @@
-"""Recurrent layers of the ported path (counterpart of
-``climsim_tpu/models/cells.py``). Only the channel-major fused BiGRU +
-heads layer with the initial MLP inside the kernel (the v6 path) is
-ported; the other cells wait for ROADMAP A.12.
+"""Recurrent layers of the ported paths (counterpart of
+``climsim_tpu/models/cells.py``): the channel-major fused BiGRU + heads
+layer with the initial MLP inside the kernel (the v6 path of the flagship)
+and the v2 fused BiGRU layer (the physics trunk). The other cells wait
+for ROADMAP A.12.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops import fused_bigru_heads_init_cm
+from ..ops import fused_bigru_heads_init_cm, fused_bigru_lbh
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -30,6 +31,49 @@ def flax_param(shape, generator: torch.Generator | None) -> nn.Parameter:
     if len(shape) == 2 and generator is not None:
         lecun_normal_(w, shape[0], generator)
     return nn.Parameter(w)
+
+
+class FusedBiGRULayer(nn.Module):
+    """Both column sweeps as one fused kernel (v2, ``fused_bigru_lbh``):
+    the up sweep surface -> TOA, the down sweep TOA -> surface with its
+    input projection inside the kernel.
+
+    Called as ``(x [B, L, nx], h0_up [B, H], h0_dn [B, H])`` ->
+    ``(down [B, L, H], last_h [B, H])`` in x's type. Parameters keep
+    flax's names and [in, out] layout (``win1, bin1, whh_up, bhh_up, win2,
+    bin2, whh_dn, bhh_dn``). The up-sweep projection xp = x win1 + bin1 is
+    hoisted out of the kernel as one matmul, level-major, as JAX computes
+    it.
+    """
+
+    def __init__(self, nx: int, hidden: int, acc32: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if not acc32:
+            raise NotImplementedError(
+                "FusedBiGRULayer acc32=False (gates in the input type) is "
+                "not ported yet (ROADMAP A.11)")
+        H = hidden
+        self.hidden = H
+        p = lambda *s: flax_param(s, generator)
+        self.win1 = p(nx, 3 * H)
+        self.bin1 = p(3 * H)
+        self.whh_up = p(H, 3 * H)
+        self.bhh_up = p(3 * H)
+        self.win2 = p(H, 3 * H)
+        self.bin2 = p(3 * H)
+        self.whh_dn = p(H, 3 * H)
+        self.bhh_dn = p(3 * H)
+
+    def forward(self, x, h0_up, h0_dn):
+        dt = x.dtype
+        xp = torch.matmul(x.transpose(0, 1), self.win1.to(dt)) \
+            + self.bin1.to(dt)                               # [L, B, 3H]
+        down, lasth = fused_bigru_lbh(
+            xp, h0_up.to(dt).contiguous(), h0_dn.to(dt).contiguous(),
+            self.whh_up.to(dt), self.bhh_up.to(dt), self.win2.to(dt),
+            self.bin2.to(dt), self.whh_dn.to(dt), self.bhh_dn.to(dt))
+        return down.transpose(0, 1), lasth
 
 
 class FusedBiGRUHeadsLayer(nn.Module):

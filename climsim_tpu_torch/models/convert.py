@@ -4,7 +4,10 @@ The port's modules keep flax's names and flax's ``[in, out]`` kernel
 layout (``FusedBiGRUHeadsLayer`` transposes at call, as
 ``climsim_tpu/models/cells.py`` does), so the mapping is one key per
 leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
-``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``. An optax Adam state
+``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``, and for
+``PhysicalRNNAutoreg`` ``radiation/gas_lw/h0/kernel`` ->
+``radiation.gas_lw.h0.kernel`` and the scalar ``radiation/gas_sw/sigma``
+-> ``radiation.gas_sw.sigma``. An optax Adam state
 (its moments are trees of the same shape) carries across the same way,
 so a JAX training run can be resumed in the port.
 """

@@ -122,3 +122,16 @@ class RNNAutoreg(nn.Module):
             out = out * mask
         return pol.cast_out(out), pol.cast_out(out_sfc), \
             pol.cast_out(new_mem)
+
+
+# microphysics postprocessing (Base_RNN_autoreg.postprocessing, :273-339)
+
+def temperature_scaling(T_raw: torch.Tensor) -> torch.Tensor:
+    """Liquid fraction ramp (T-253.16)*0.05 clamped to [0,1]
+    (models.py:260-266)."""
+    return torch.clamp((T_raw - 253.16) * 0.05, 0.0, 1.0)
+
+
+def temperature_scaling_precip(t_sfc: torch.Tensor) -> torch.Tensor:
+    """Snow fraction (283.3-T)/14.6 clamped to [0,1] (models.py:268-271)."""
+    return torch.clamp((283.3 - t_sfc) / 14.6, 0.0, 1.0)

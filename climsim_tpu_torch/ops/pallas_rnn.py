@@ -1,8 +1,9 @@
-"""The v6 fused emulator: its forward and backward CUDA kernels and their
-plain PyTorch versions (counterpart of ``climsim_tpu/ops/pallas_rnn.py``'s
-``fused_bigru_heads_init_cm`` and ``_bigru_heads_cm_bwd_pallas``; the
-kernels are ``csrc/bigru_heads_init_cm.cu`` and
-``csrc/bigru_heads_cm_bwd.cu``).
+"""The fused BiGRU kernels and their plain PyTorch versions (counterpart of
+``climsim_tpu/ops/pallas_rnn.py``): the v6 fused emulator's forward and
+backward (``fused_bigru_heads_init_cm``, ``_bigru_heads_cm_bwd_pallas``;
+kernels ``csrc/bigru_heads_init_cm.cu`` and ``csrc/bigru_heads_cm_bwd.cu``)
+and, at the end of this module, the v2 level-major forward of the
+physics trunk (``fused_bigru_lbh``; kernel ``csrc/bigru_lbh.cu``).
 
 Channel-major contract, as in JAX: feat [L, nf, B] raw features, mem_in
 [L, nm_in, B], h0_up/h0_dn [H, B]; weights pre-transposed [out, in] and
@@ -25,7 +26,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
-           "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference"]
+           "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
+           "fused_bigru_lbh", "bigru_reference_lbh"]
 
 _ARGS = ("feat", "mem_in", "h0_up", "h0_dn", "winit_t", "binit", "win1h_t",
          "win1m_t", "bin1", "whh_up_t", "bhh_up", "win2_t", "bin2",
@@ -399,3 +401,144 @@ def fused_bigru_heads_init_cm(feat, mem_in, h0_up, h0_dn, winit_t, binit,
 
 fused_bigru_heads_init_cm.launches = 0
 bigru_heads_cm_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# v2 level-major fused BiGRU forward (B7, csrc/bigru_lbh.cu): the trunk of
+# the physics-constrained emulator, JAX's ``fused_bigru_lbh``
+# --------------------------------------------------------------------------
+
+_ARGS_LBH = ("xp", "h0_up", "h0_dn", "whh_up", "bhh_up", "win2", "bin2",
+             "whh_dn", "bhh_dn")
+
+
+def _gru_step_lbh(h, xp, whh, bhh, H: int):
+    """One GRU update, batch-major (JAX's ``_gru_step``): h [B, H] float32,
+    xp [B, 3H] float32 with the input bias included -> new h float32. The
+    recurrent product takes h rounded to the weight type and adds the
+    recurrent bias before the gates."""
+    hh = torch.matmul(h.to(whh.dtype).float(), whh.float()) + bhh.float()
+    xr, xz, xn = xp.split(H, dim=-1)
+    hr, hz, hn = hh.split(H, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def bigru_reference_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
+                        whh_dn, bhh_dn):
+    """Plain version of B7 (JAX's ``_bigru_reference_lbh``): xp [L, B, 3H]
+    -> (down [L, B, H], last_h [B, H]) in xp's type. The carries are
+    float32; the up states are stored in xp's type and the down sweep's
+    input projection reads them rounded, in float32 without rounding its
+    result."""
+    dt = xp.dtype
+    L, H = xp.shape[0], h0_up.shape[-1]
+    h = h0_up.float()
+    up = [None] * L
+    for l in range(L - 1, -1, -1):
+        h = _gru_step_lbh(h, xp[l].float(), whh_up, bhh_up, H)
+        up[l] = h.to(dt)
+    h2 = h0_dn.float()
+    down = []
+    for l in range(L):
+        xp2 = torch.matmul(up[l].to(win2.dtype).float(), win2.float()) \
+            + bin2.float()
+        h2 = _gru_step_lbh(h2, xp2, whh_dn, bhh_dn, H)
+        down.append(h2.to(dt))
+    return torch.stack(down), h2.to(dt)
+
+
+def _validate_lbh(args) -> tuple[int, int, int]:
+    """Check the v2 arguments on every device; returns (L, B, H)."""
+    named = dict(zip(_ARGS_LBH, args))
+    L, B, H3 = named["xp"].shape
+    H = H3 // 3
+    w, b = (H, 3 * H), (3 * H,)
+    shapes = {"xp": (L, B, 3 * H), "h0_up": (B, H), "h0_dn": (B, H),
+              "whh_up": w, "bhh_up": b, "win2": w, "bin2": b, "whh_dn": w,
+              "bhh_dn": b}
+    _check(named, shapes, ("xp", "h0_up", "h0_dn"))
+    return L, B, H
+
+
+def _launch_lbh(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    xp = args[0]
+    L, B, H = dims
+    dt, dev = xp.dtype, xp.device
+    down = torch.empty((L, B, H), dtype=dt, device=dev)
+    lasth = torch.empty((B, H), dtype=dt, device=dev)
+    # weights are [in, out] (flax's layout), the k-major order the kernel
+    # reads; biases flat
+    ptrs = [a.contiguous() for a in args] + [down, lasth]
+    lib = _build.load("bigru_lbh")
+    fn = lib.bigru_lbh
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
+            L, H, B, stream)
+    _build.check_status(rc, "bigru_lbh")
+    fused_bigru_lbh.launches += 1
+    return down, lasth
+
+
+def _on_card_backward(kernel: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the backward of {kernel} on a CUDA tensor is a kernel that is not "
+        f"ported yet ({item}); on the CPU it differentiates the plain "
+        f"version")
+
+
+def plain_vjp(fn, args, cts, needs):
+    """Gradients of ``fn(*args)`` for the cotangents ``cts`` with autograd
+    through the plain version, for the arguments flagged in ``needs`` (None
+    for the others): what JAX's custom VJPs do off the TPU."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_(bool(n)) for a, n in zip(args, needs)]
+        outs = fn(*xs)
+        wrt = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wrt, cts, allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _FusedBiGRULBH(torch.autograd.Function):
+    """Forward: B7 (or its plain version on the CPU), saving the inputs, as
+    JAX's residuals are. Backward: autograd through the plain version on
+    the CPU; on the card it is kernel B8, not ported yet."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        dims = _validate_lbh(args)
+        ctx.save_for_backward(*args)
+        dev = args[0].device
+        if dev.type == "cpu":
+            return bigru_reference_lbh(*args)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        return _launch_lbh(args, dims)
+
+    @staticmethod
+    def backward(ctx, d_down, d_lasth):
+        args = ctx.saved_tensors
+        if args[0].device.type != "cpu":
+            raise _on_card_backward("fused_bigru_lbh (B8)",
+                                    "ROADMAP A.11, slice 4 training")
+        return plain_vjp(bigru_reference_lbh, args, (d_down, d_lasth),
+                         ctx.needs_input_grad)
+
+
+def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
+                    bhh_dn):
+    """v2 fused bidirectional GRU, level-major: xp [L, B, 3H] (the hoisted
+    up-sweep projection, input bias included), h0_up/h0_dn [B, H], weights
+    [H, 3H] and biases [3H], all float32 or all bfloat16 -> (down
+    [L, B, H], last_h [B, H]). A CPU tensor runs the plain version; a CUDA
+    tensor launches kernel B7 or raises."""
+    return _FusedBiGRULBH.apply(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
+                                bin2, whh_dn, bhh_dn)
+
+
+fused_bigru_lbh.launches = 0

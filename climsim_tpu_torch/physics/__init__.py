@@ -1,5 +1,6 @@
-"""Physics invariants used by the training losses (counterpart of
-``climsim_tpu/physics``; only ``conservation`` is ported)."""
-from . import conservation
+"""Physics of the ported paths (counterpart of ``climsim_tpu/physics``):
+conservation residuals of the training loss, saturation thermodynamics,
+the radiation solvers and their helpers, and E3SM cloud optics."""
+from . import cloud_optics, conservation, radiation, thermo
 
-__all__ = ["conservation"]
+__all__ = ["cloud_optics", "conservation", "radiation", "thermo"]

@@ -12,7 +12,11 @@ of ``climsim_tpu/train/rollout.py``).
   precipitation, GEL-precipitation and bias terms;
 * the curriculum ``rollout_schedule`` maps epoch -> W;
 * ``remat`` checkpoints each window step (activations are recomputed in
-  the backward pass).
+  the backward pass);
+* with ``pass_x_raw`` the raw level state rides along to ``apply_fn``
+  (the physics-constrained model reads it: ``phys_apply``,
+  ``phys_mem_shape``), and with ``pass_y_true`` the true tendencies do in
+  training updates.
 
 The model's parameters and the optimizer are state of the trainer and are
 updated in place; ``run_epoch`` returns the carried memory and a record.
@@ -87,10 +91,14 @@ class RolloutConfig:
     replay_slice: tuple = (15, 20)   # input channels holding prev tendencies
     pred_slice: tuple = (0, 5)       # output channels substituted in
     gradual_mixing_end_epoch: int = 10
-    # semi-online training, raw state and teacher-forced radiation: not
-    # ported
+    # semi-online training: not ported
     semi_online: bool = False
+    # the raw level state: windows carry 'x_lev_raw' [W, B, L, C], passed
+    # to apply_fn as x_raw (the physics model reads it)
     pass_x_raw: bool = False
+    # the true normalized tendencies go to the model as y_true in training
+    # updates (teacher-forced radiation state); apply_fn takes a 6th
+    # argument
     pass_y_true: bool = False
     n_prog: int = 6
     # stochastic/ensemble training: not ported (ensemble_size 1 only)
@@ -164,6 +172,20 @@ def make_optimizer(cfg: RolloutConfig, params) -> torch.optim.Optimizer:
     raise ValueError(cfg.optimizer)
 
 
+def phys_apply(model, x_lev, x_sfc, mem, x_raw, y_true=None):
+    """``apply_fn`` for ``PhysicalRNNAutoreg``: the raw state (and, in a
+    teacher-forced update, the true tendencies) go to the model, and the
+    trainer reads the first three of its four outputs."""
+    return model(x_lev, x_sfc, mem, x_raw, y_true)
+
+
+def phys_mem_shape(model):
+    """``mem_shape`` for ``PhysicalRNNAutoreg``: the latent memory on the
+    CRM levels plus the stored-precipitation slot, (B, L - ilev_crm,
+    nh_mem + 1), as cli/train_rollout.py:397-398 gives it."""
+    return lambda B, nlev: (B, nlev - model.ilev_crm, model.nh_mem + 1)
+
+
 def channel_major_apply(model, x_lev, x_sfc, mem, x_raw=None):
     """``apply_fn`` for a channel-major model (``RNNAutoreg`` with
     ``level_major=True``): the trainer's [B, L, C] inputs, memory and
@@ -176,13 +198,14 @@ def channel_major_apply(model, x_lev, x_sfc, mem, x_raw=None):
 class RolloutTrainer:
     """Drives window updates of an RNNAutoreg-style model.
 
-    ``apply_fn(model, x_lev, x_sfc, mem, x_raw) -> (out [B, L, ny],
-    out_sfc [B, ny_sfc], new_mem)``; the default calls
+    ``apply_fn(model, x_lev, x_sfc, mem, x_raw[, y_true]) -> (out
+    [B, L, ny], out_sfc [B, ny_sfc], new_mem, ...)``; the default calls
     ``model(x_lev, x_sfc, mem)``. ``mem_shape(B, nlev)`` gives the
     per-batch memory shape, by default [B, nlev, model.nh_mem]. Data
     windows are dicts of arrays or tensors with a leading window axis W:
     x_lev [W, B, L, nx], x_sfc [W, B, ns], y_lev [W, B, L, ny], y_sfc
-    [W, B, nys], sp [W, B] raw surface pressure.
+    [W, B, nys], sp [W, B] raw surface pressure, and with ``pass_x_raw``
+    x_lev_raw [W, B, L, C] the raw level state.
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     the model's parameters must already live on that device.
@@ -195,9 +218,6 @@ class RolloutTrainer:
         if cfg.semi_online or any(a is not None for a in (
                 xmean_prog, xdiv_prog, lbd_qc, lbd_qi)):
             raise _unported("semi-online training", "A.7")
-        if cfg.pass_x_raw or cfg.pass_y_true:
-            raise _unported("raw-state input (pass_x_raw/pass_y_true)",
-                            "A.7")
         for w in ("w_rh", "w_qvpos", "w_qnpos", "w_precip_neg", "w_det"):
             if getattr(cfg, w) > 0:
                 raise _unported(f"loss term {w}", "A.7")
@@ -282,7 +302,8 @@ class RolloutTrainer:
             return L.weighted_loss(out, y_lev, w_lev, kind=cfg.loss) \
                 + L.weighted_loss(out_sfc, y_sfc, w_sfc, kind=cfg.loss)
 
-        def step(mem, prev_out, have_prev, x_lev, x_sfc, y_lev, y_sfc, sp):
+        def step(mem, prev_out, have_prev, x_lev, x_sfc, y_lev, y_sfc, sp,
+                 x_raw):
             if cfg.replay in ("full", "mixed"):
                 use = have_prev * (mix_mask[:, None, None]
                                    if cfg.replay == "mixed" else 1.0)
@@ -290,8 +311,12 @@ class RolloutTrainer:
                     + (1.0 - use) * x_lev[..., r0:r1]
                 x_lev = torch.cat([x_lev[..., :r0], repl, x_lev[..., r1:]],
                                   dim=-1)
-            out, out_sfc, mem = self._apply(self.model, x_lev, x_sfc, mem,
-                                            None)[:3]
+            if cfg.pass_y_true and train:
+                res = self._apply(self.model, x_lev, x_sfc, mem, x_raw,
+                                  y_lev)
+            else:
+                res = self._apply(self.model, x_lev, x_sfc, mem, x_raw)
+            out, out_sfc, mem = res[:3]
             loss = cfg.w_main * main_loss(out, y_lev, out_sfc, y_sfc)
             if cfg.w_energy > 0 or cfg.w_water > 0 or cfg.w_cld > 0:
                 ys, yss = self.yscale_lev, self.yscale_sca
@@ -326,7 +351,8 @@ class RolloutTrainer:
             mem, prev_out, out_sfc, loss = run(
                 mem, prev_out, have_prev, window["x_lev"][i],
                 window["x_sfc"][i], window["y_lev"][i], window["y_sfc"][i],
-                window["sp"][i])
+                window["sp"][i],
+                window["x_lev_raw"][i] if cfg.pass_x_raw else None)
             have_prev = 1.0
             step_losses.append(loss)
             outs.append(prev_out)

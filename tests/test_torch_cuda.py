@@ -229,3 +229,121 @@ def test_b2_backward_matches_plain(cuda):
     fv_advect_tracers_sphere(q1, u, v, m).square().sum().backward()
     fv_tracers_sphere_reference(q2, u, v, m).square().sum().backward()
     torch.testing.assert_close(q1.grad, q2.grad, rtol=1e-4, atol=1e-5)
+
+
+def _b7_inputs(L, H, B, dtype, device, seed=7):
+    rng = np.random.default_rng(seed)
+    shapes = [(L, B, 3 * H), (B, H), (B, H), (H, 3 * H), (3 * H,),
+              (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,)]
+    return [torch.as_tensor(0.3 * rng.standard_normal(s), dtype=dtype,
+                            device=device) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 150])
+def test_b7_kernel_matches_plain_f32(cuda, B):
+    """f32, ragged B (150 is not a multiple of the 32-column tile):
+    summation order only through 2 x 24 recurrent levels."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+    a = _b7_inputs(24, 32, B, torch.float32, cuda)
+    before = fused_bigru_lbh.launches
+    with torch.no_grad():
+        got = fused_bigru_lbh(*a)
+        want = bigru_reference_lbh(*a)
+    assert fused_bigru_lbh.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_b7_kernel_matches_plain_bf16(cuda):
+    """bf16: 4x the plain version's own bf16-vs-f32 error, as for B1."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+    a = _b7_inputs(24, 32, 150, torch.bfloat16, cuda)
+    with torch.no_grad():
+        got = fused_bigru_lbh(*a)
+        want = bigru_reference_lbh(*a)
+        want32 = bigru_reference_lbh(*(t.float() for t in a))
+    for g, w, w32 in zip(got, want, want32):
+        assert g.dtype == torch.bfloat16
+        own = (w.float() - w32).abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= 4 * own
+
+
+@pytest.mark.cuda
+def test_b7_backward_on_card_raises(cuda):
+    """The v2 backward on the card is kernel B8, not ported: it raises
+    instead of running the plain version there."""
+    from climsim_tpu_torch.ops import fused_bigru_lbh
+    a = _b7_inputs(8, 32, 16, torch.float32, cuda)
+    a[0].requires_grad_(True)
+    down, _ = fused_bigru_lbh(*a)
+    with pytest.raises(NotImplementedError, match="B8"):
+        down.sum().backward()
+
+
+def _radiation_inputs(device, B=150, nlev=60, ng=8, seed=8):
+    from climsim_tpu_torch.physics import radiation as R
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    lay = (B, nlev, ng)
+    sw = (t(rng.uniform(0, 1300, (B, ng))), t(rng.uniform(0.05, 0.8, (B, ng))),
+          t(rng.uniform(0.05, 0.8, (B, ng)))) + R.calc_ref_trans_sw(
+        t(rng.uniform(0.05, 1, (B, 1, 1))), t(np.exp(rng.uniform(-6, 4, lay))),
+        t(rng.uniform(0.3, 0.999, lay)), t(rng.uniform(0, 0.85, lay)))
+    lw = R.reftrans_lw(t(rng.uniform(1, 60, lay)), t(rng.uniform(1, 60, lay)),
+                       t(np.exp(rng.uniform(-6, 3, lay))))
+    lw = (lw[2], lw[1], lw[0], t(rng.uniform(10, 60, (B, ng))),
+          t(rng.uniform(0.9, 1.0, (B, ng))))
+    return sw, lw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["sw", "lw"])
+def test_radiation_kernels_match_plain(cuda, solver):
+    """B11 and B12 against their plain versions: each flux to 1e-5 of its
+    scale (FMA contraction through 60-level recurrences)."""
+    from climsim_tpu_torch.ops import adding_sw_fast, lw_solver_noscat_fast
+    from climsim_tpu_torch.physics.radiation import (adding_sw,
+                                                     lw_solver_noscat)
+    sw, lw = _radiation_inputs(cuda)
+    kern, ref, args = ((adding_sw_fast, adding_sw, sw) if solver == "sw"
+                       else (lw_solver_noscat_fast, lw_solver_noscat, lw))
+    before = kern.launches
+    with torch.no_grad():
+        got, want = kern(*args), ref(*args)
+    assert kern.launches == before + 1
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_phys_model_on_card_matches_cpu(cuda):
+    """A small PhysicalRNNAutoreg (yaml options, nneur 32) on the card
+    (B7, B11, B12) against the same seeded model on the CPU: 1e-4 of each
+    output's scale, with every McICA index the same on both."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    g = Grid.synthetic(4, 60)
+    tt = lambda a: tuple(a.tolist())
+    kw = dict(nx=15, nx_sfc=24, nneur=(32, 32), nh_mem=8, use_physrad=True,
+              use_mcica=True, use_qv_variability=True, use_pallas=True,
+              hyai=tt(g.hyai), hybi=tt(g.hybi), hyam=tt(g.hyam),
+              hybm=tt(g.hybm), sp_mean=9.8e4, yscale_t=1e5, yscale_qv=1e8,
+              yscale_qn=1e8, yscale_precc=1e7)
+    rng = np.random.default_rng(9)
+    B = 40
+    xd = np.zeros((B, 60, 6), np.float32)
+    xd[..., 0] = rng.uniform(200, 300, (B, 60))
+    xd[..., 5] = np.abs(rng.normal(1e-3, 3e-4, (B, 60)))
+    xd[..., 2] = np.abs(rng.normal(0, 1e-5, (B, 60)))
+    args = [rng.normal(0, 1, (B, 60, 15)), rng.normal(0, 1, (B, 24)),
+            np.abs(rng.normal(0, 0.1, (B, 50, 9))), xd]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = PhysicalRNNAutoreg(**kw, device=dev)
+        with torch.no_grad():
+            outs[dev.type] = [t.cpu() for t in m(*[torch.as_tensor(
+                np.asarray(a, np.float32), device=dev) for a in args])[:3]]
+    for c, p in zip(outs["cuda"], outs["cpu"]):
+        assert _rel_err(c, p) <= 1e-4

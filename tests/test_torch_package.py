@@ -35,10 +35,14 @@ def test_port_sources_exist():
                  "climsim_tpu_torch/online/host_loop.py",
                  "climsim_tpu_torch/models/rnn.py",
                  "climsim_tpu_torch/train/rollout.py",
-                 "climsim_tpu_torch/physics/conservation.py"):
+                 "climsim_tpu_torch/physics/conservation.py",
+                 "climsim_tpu_torch/physics/radiation.py",
+                 "climsim_tpu_torch/ops/pallas_radiation.py",
+                 "climsim_tpu_torch/models/phys_rnn.py"):
         assert want in names
     for cu in ("bigru_heads_init_cm.cu", "bigru_heads_cm_bwd.cu",
-               "fv_tracers_sphere.cu"):
+               "fv_tracers_sphere.cu", "bigru_lbh.cu", "adding_sw.cu",
+               "lw_noscat.cu"):
         assert (PORT / "ops" / "csrc" / cu).is_file()
 
 
