@@ -22,7 +22,13 @@ Three paths, each at full width with random weights from a seed:
   sedimentation, physical radiation with ng 8/8, the fused trunk, f32)
   through ``RolloutTrainer.run_epoch(train=False)`` with the raw state
   (``pass_x_raw``) on one W 3 window of 21,600 columns: per model step the
-  v2 BiGRU B7 runs the trunk and B12 and B11 the LW and SW solvers.
+  v2 BiGRU B7 runs the trunk and B12 and B11 the LW and SW solvers;
+* training of the physics-constrained emulator: the same model through
+  ``RolloutTrainer.update`` with the yaml's loss and optimizer (huber,
+  w_hcon 5e-6, w_wcon 3e7, Adam 5e-4, the curriculum's last window W 3,
+  teacher-forced radiation state, no remat, f32), as
+  cli/train_rollout.py wires ``type: physrnn``: per step B7, B11 and B12
+  forward, and their backward kernels B8, B13 and B14.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -48,8 +54,17 @@ Phases (any failure exits non-zero):
      surface precipitation; then the same window at 384 columns on the
      card and on the CPU, compared after counting the McICA sample
      indices that differ;
-  8. timings with CUDA events (median of 5 repeats) and peak memory;
-  9. a JSON line of the kernels, the card line, and the result line.
+  8. physics training: B8 (f32 and bf16 at 21,600 and 1,000 columns),
+     B13 and B14 (21,600 x 60 x 8) against their plain versions; one
+     chunk of 6 steps (2 updates of W 3) at 21,600 columns, counters set
+     to 0 just before and read just after: B7, B8, B11, B12, B13 and B14
+     must each launch W times per update; finite loss and memory,
+     non-negative stored precipitation, every parameter with a gradient
+     changed; then one update at 384 columns on the card and on the CPU,
+     compared after counting the McICA sample indices that differ;
+  9. timings with CUDA events (median of 5 repeats), peak memory and
+     profiler splits;
+ 10. a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -93,6 +108,23 @@ PHYS_YSCALE = dict(yscale_t=1e5, yscale_qv=1e8, yscale_qn=1e8,
 # sweep, LW 2 in each accumulation
 SW_OPS_PER_ELEMENT = 26
 LW_OPS_PER_ELEMENT = 4
+# their backward kernels (B13, B14), counted from the sources the same way:
+# SW replay 23, down-sweep backward 41, up-sweep backward 50; LW replay 4,
+# up backward 3, down backward 4
+SW_BWD_OPS_PER_ELEMENT = 114
+LW_BWD_OPS_PER_ELEMENT = 11
+# physics training: conf/autoreg_physrnn.yaml's loss and optimizer as
+# cli/train_rollout.py:251-403 wires type: physrnn (w_hcon, w_wcon at
+# :352-353), one chunk of 6 steps (2 updates of the schedule's last W), and
+# per-channel output scales matching PHYS_YSCALE, passed to the trainer as
+# cli/train_rollout.py:401-402 does: levels (T, qv, qn, u, v) and surface
+# (NETSW, FLWDS, PRECSC, PRECC, SOLS, SOLL, SOLSD, SOLLD)
+PHYS_LR = 5e-4
+PHYS_TRAIN = dict(w_main=1.0, w_energy=5e-6, w_water=3e7, optimizer="adam",
+                  lr=PHYS_LR)
+PHYS_T_TRAIN = 6
+PHYS_YSCALE_LEV = [1e5, 1e8, 1e8, 1e5, 1e5]
+PHYS_YSCALE_SFC = [1e-2, 1e-2, 1e7, 1e7, 1e-2, 1e-2, 1e-2, 1e-2]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -648,12 +680,14 @@ def phys_chunk(T, ncol, device, seed=5):
     return {k: torch.as_tensor(v).to(device) for k, v in chunk.items()}
 
 
-def make_phys_trainer(model, device, record=None):
+def make_phys_trainer(model, device, record=None, train=False):
     """The evaluation path as cli/train_rollout.py wires the physics model:
     pass_x_raw (and pass_y_true, which evaluation does not use), the
     physics memory shape, huber loss, the yaml's W 3 window. With
-    ``record`` (a list) every model call appends its outputs, memory and
-    area fractions."""
+    ``train`` the training path: the yaml's energy and water terms and
+    Adam (PHYS_TRAIN) and the per-channel output scales. With ``record``
+    (a list) every model call appends its outputs, memory and area
+    fractions."""
     from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
                                          phys_apply, phys_mem_shape)
 
@@ -663,12 +697,17 @@ def make_phys_trainer(model, device, record=None):
         return res
 
     cfg = RolloutConfig(rollout_schedule={0: PHYS_W}, loss="huber",
-                        pass_x_raw=True, pass_y_true=True)
+                        pass_x_raw=True, pass_y_true=True,
+                        **(PHYS_TRAIN if train else {}))
+    scales = dict(yscale_lev=np.array(PHYS_YSCALE_LEV, np.float32)[None, None],
+                  yscale_sca=np.array(PHYS_YSCALE_SFC, np.float32)) \
+        if train else {}
     return RolloutTrainer(model, cfg, model.hyai.cpu().numpy(),
                           model.hybi.cpu().numpy(),
                           apply_fn=phys_apply if record is None
                           else recording_apply,
-                          mem_shape=phys_mem_shape(model), device=device)
+                          mem_shape=phys_mem_shape(model), device=device,
+                          **scales)
 
 
 def b7_args(model, B, dtype, seed):
@@ -873,16 +912,18 @@ def compare_phys_384(card):
           f"loss {lc:.7f} vs {lp:.7f} [{card}]")
 
 
-def phys_profile(trainer, chunk, top=8):
-    """One evaluation window under torch.profiler: the device time of
-    every kernel summed (busy ms), and the kernels with the most device
-    time. Returns (busy ms, [(name, ms), ...]). Only the device-side
-    events count: an operator's own event repeats its kernels' time."""
+def phys_profile(trainer, chunk, top=8, train=False):
+    """One evaluation window (or, with ``train``, the updates of ``chunk``)
+    under torch.profiler: the device time of every kernel summed (busy
+    ms), and the kernels with the most device time. Returns (busy ms,
+    [(name, ms), ...]). Only the device-side events count: an operator's
+    own event repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.run_epoch(None, [chunk], 0, train=False)
+                             ProfilerActivity.CUDA]) as prof, \
+            torch.set_grad_enabled(train):
+        trainer.run_epoch(None, [chunk], 0, train=train)
         torch.cuda.synchronize()
     kernels = [(ev.key, ev.self_device_time_total / 1e3)
                for ev in prof.key_averages()
@@ -916,6 +957,287 @@ def phys_bounds(a7, sw, lw):
                     "operations" if t_ops > t_bytes else "bytes", flops,
                     nbytes)
     return res
+
+
+# ------------------------------------------------------------ physics training
+
+
+B8_NAMES = ("d_xp", "dh0_up", "dh0_dn", "dwhh_up", "dbhh_up", "dwin2",
+            "dbin2", "dwhh_dn", "dbhh_dn")
+PHYS_KERNELS = ("b7", "b8", "b11", "b12", "b13", "b14")
+
+
+def phys_wrappers() -> dict:
+    """The physics path's kernel wrappers, by id, for their launch
+    counters."""
+    from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_fast,
+                                       bigru_bwd_lbh, fused_bigru_lbh,
+                                       lw_solver_noscat_bwd,
+                                       lw_solver_noscat_fast)
+    return dict(zip(PHYS_KERNELS, (fused_bigru_lbh, bigru_bwd_lbh,
+                                   adding_sw_fast, lw_solver_noscat_fast,
+                                   adding_sw_bwd, lw_solver_noscat_bwd)))
+
+
+def b8_args(model, B, dtype, seed):
+    """B8's residuals (B7's inputs at the physics path's shapes) and
+    random cotangents of (down, last_h)."""
+    res = b7_args(model, B, dtype, seed)
+    L, H = res[0].shape[0], res[1].shape[1]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    return res, r(L, B, H), r(B, H)
+
+
+def check_b8(model, card):
+    """B8 against its plain version on the card at (L 50, B 21,600, H 128)
+    and a ragged 1,000 columns, every one of its nine outputs. f32: 2e-5 of
+    each output's largest magnitude, as B3 (summation order over 2 x 50
+    levels of BPTT and the 1.08 M-term gradient sums); bf16: as check_b3,
+    per output."""
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh as kern,
+                                       bigru_bwd_reference_lbh as ref)
+    errs = []
+    for B in (NLAT * NLON, 1000):
+        res, dd, dl = b8_args(model, B, torch.float32, seed=B + 1)
+        got, want = kern(res, dd, dl), ref(res, dd, dl)
+        rel = [rel_err(g, w) for g, w in zip(got, want)]
+        worst = int(np.argmax(rel))
+        print(f"B8 f32 B={B}: worst relative error {rel[worst]:.3e} "
+              f"({B8_NAMES[worst]}); tolerance 2e-5 of each output's scale "
+              f"[{card}]")
+        for name, e in zip(B8_NAMES, rel):
+            check(e <= 2e-5, f"B8 f32 B={B} {name}: {e:.3e}")
+        errs.append(max_err(got, want))
+        del got, want
+        r16 = [t.to(torch.bfloat16) for t in res]
+        d16 = (dd.to(torch.bfloat16), dl.to(torch.bfloat16))
+        got16, want16 = kern(r16, *d16), ref(r16, *d16)
+        want32 = ref([t.float() for t in r16], *(t.float() for t in d16))
+        ratio = 0.0
+        for name, g, w, w32 in zip(B8_NAMES, got16, want16, want32):
+            ok, e16, own = bf16_ok(g, w, w32)
+            check(ok, f"B8 bf16 B={B} {name}: {e16:.3e} > 4 x {own:.3e}")
+            ratio = max(ratio, e16 / max(own, 1e-30))
+        print(f"B8 bf16 B={B}: difference up to {ratio:.3f} x the plain "
+              f"version's own bf16-vs-f32 error (tolerance 4x) [{card}]")
+        errs.append(max_err(got16, want16))
+        del got16, want16, want32, res, r16
+        torch.cuda.empty_cache()
+    return max(errs)
+
+
+def radiation_cts(args, n_out, seed=4):
+    """Seeded cotangents [B, nlev+1, ng] of a solver's n_out fluxes."""
+    B, nlev, ng = args[3 if n_out == 3 else 0].shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, nlev + 1, ng), generator=g, device="cuda")
+            for _ in range(n_out)]
+
+
+def check_radiation_bwd(card):
+    """B13 and B14 against their plain versions on the card at
+    (21,600, 60, 8) f32 on radiation_args' inputs: each gradient to 1e-5
+    of its largest magnitude (FMA contraction through the replay and both
+    backward sweeps, the SW ones through 240 divisions)."""
+    from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
+                                       lw_solver_noscat_bwd,
+                                       lw_solver_noscat_bwd_reference)
+    sw, lw = radiation_args(NLAT * NLON, "cuda")
+    errs = {}
+    for name, kern, ref, args, n_out in (
+            ("B13", adding_sw_bwd, adding_sw_bwd_reference, sw, 3),
+            ("B14", lw_solver_noscat_bwd, lw_solver_noscat_bwd_reference, lw,
+             2)):
+        cts = radiation_cts(args, n_out)
+        got, want = kern(args, cts), ref(args, cts)
+        rel = [rel_err(g, w) for g, w in zip(got, want)]
+        errs[name] = max_err(got, want)
+        print(f"{name} f32 ({NLAT * NLON}, {NLEV}, 8): max_abs_err "
+              f"{errs[name]:.3e}; worst relative to a gradient's scale "
+              f"{max(rel):.2e} (tolerance 1e-5) [{card}]")
+        for i, (e, g) in enumerate(zip(rel, got)):
+            check(e <= 1e-5, f"{name} gradient {i}: {e:.3e}")
+            check(bool(torch.isfinite(g).all()), f"{name} gradient {i}")
+    return errs
+
+
+def run_phys_training(card):
+    """The physics training path at 21,600 columns: one chunk of
+    PHYS_T_TRAIN steps, PHYS_T_TRAIN / W updates, with the counters set to
+    0 just before and read just after. Returns (trainer, chunk, launches,
+    updates)."""
+    ncol = NLAT * NLON
+    model = make_phys_model(None)              # device=None: the card
+    trainer = make_phys_trainer(model, None, train=True)
+    chunk = phys_chunk(PHYS_T_TRAIN, ncol, "cuda", seed=7)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    wrappers = phys_wrappers()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        mem, rec = trainer.run_epoch(None, [chunk], 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n = rec["updates"]
+    print(f"physics training: {n} updates (W {PHYS_W}, {ncol} columns) in "
+          f"{wall:.3f} s (first run), loss {rec['loss']:.6e}; launches "
+          f"{launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({resident:.3f} "
+          f"GB resident before) [{card}]")
+    check(n == PHYS_T_TRAIN // PHYS_W, f"{n} updates")
+    check(launches == {k: PHYS_W * n for k in PHYS_KERNELS},
+          f"B7, B8, B11, B12, B13 and B14 must each launch {PHYS_W} times "
+          f"per update, got {launches} in {n}")
+    check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
+    Lc = NLEV - model.ilev_crm
+    check(mem.shape == (ncol, Lc, model.nh_mem + 1)
+          and bool(torch.isfinite(mem).all()), "physics training memory")
+    check(bool((mem[..., -1] >= 0).all()), "stored precipitation < 0")
+    # the surface-output head feeds only channels that the physics
+    # overwrites (precipitation and the radiative scalars), so its
+    # gradient is zero and Adam leaves it; every other parameter moves
+    still = sorted(n for n, p in model.named_parameters()
+                   if torch.equal(p.detach(), before[n]))
+    no_grad = sorted(n for n, p in model.named_parameters()
+                     if not bool(p.grad.any()))
+    check(still == no_grad == ["mlp_surface_output.bias",
+                               "mlp_surface_output.kernel"],
+          f"unchanged {still}, without gradient {no_grad}")
+    return trainer, chunk, launches, n
+
+
+def compare_phys_train_384(card):
+    """One physics training update (W 3) at 384 columns on the card and on
+    the CPU from the same seeded model and data. The McICA sample indices
+    that differ are counted first (compare_phys_384). When none differ:
+    the loss to 1e-5; each gradient to 1e-4 of its scale (f32 order of
+    summation through the BPTT, the radiation and the gradient sums) plus
+    4x the farthest the CPU's own gradient moves when the parameters are
+    scaled by 1 + 1e-6 N(0, 1), over three draws. With random weights and
+    PHYS_YSCALE every stored-precipitation pool hits its cap, so the
+    precipitation release no longer changes the outputs: its gradient is
+    exactly zero, and what is computed is the float32 residue of g wn -
+    g wn (tests/test_torch_phys_train.py), which such a draw moves by more
+    than 10% of its size (well-conditioned gradients move by less than
+    1%). Such a residue is held to 4x the largest the CPU's runs give it.
+    Each parameter to 1e-5 of its size
+    plus 2% of one Adam step (lr), as compare_train_384, plus the
+    difference that Adam's first step lr g / (|g| + eps) makes of the two
+    gradients (up to 2 lr where a residue's sign differs). When some
+    differ: the count is printed, and finite values and the loss to 1e-3
+    are required."""
+    from climsim_tpu_torch.physics.radiation import stratified_sample
+    ncol = LO_NLAT * LO_NLON
+    runs = {}
+    for key, dev, seed in (("cuda", "cuda", None), ("cpu", "cpu", None),
+                           ("moved9", "cpu", 9), ("moved10", "cpu", 10),
+                           ("moved11", "cpu", 11)):
+        model = make_phys_model(dev)
+        if seed is not None:
+            g = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+        record = []
+        trainer = make_phys_trainer(model, dev, record, train=True)
+        with torch.enable_grad():
+            mem, rec = trainer.run_epoch(
+                None, [phys_chunk(PHYS_W, ncol, dev, seed=8)], 0)
+        prm = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        runs[key] = {"loss": rec["loss"], "mem": mem.cpu(),
+                     "af": [r[3].detach().cpu() for r in record],
+                     "grads": {n: p.grad.cpu()
+                               for n, p in model.named_parameters()},
+                     "params": prm}
+        check(rec["updates"] == 1, f"384 physics update {key}: {rec}")
+        nreg, ngs = model.nreg, (model.ng_sw, model.ng_lw)
+        del model, trainer, record
+    c, p = runs["cuda"], runs["cpu"]
+    moved = [runs[f"moved{s}"]["grads"] for s in (9, 10, 11)]
+    n_diff = n_idx = 0
+    for af_c, af_p in zip(c["af"], p["af"]):
+        for G in ngs:
+            ic = stratified_sample(af_c.cuda().reshape(-1, nreg), G).cpu()
+            ip = stratified_sample(af_p.reshape(-1, nreg), G)
+            n_diff += int((ic != ip).sum())
+            n_idx += ic.numel()
+    print(f"physics training 384 columns, W {PHYS_W}: {n_diff} of {n_idx} "
+          f"McICA sample indices differ card vs CPU [{card}]")
+    check(np.isfinite(c["loss"]) and bool(torch.isfinite(c["mem"]).all())
+          and all(bool(torch.isfinite(g).all()) for g in c["grads"].values()),
+          "384 physics update: non-finite values on the card")
+    lrel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    if n_diff:
+        check(lrel <= 1e-3, f"384 physics update loss {c['loss']} vs "
+              f"{p['loss']}")
+        print(f"physics training 384 columns: McICA indices differ; loss "
+              f"{c['loss']:.7e} vs {p['loss']:.7e} (tolerance 1e-3) "
+              f"[{card}]")
+        return
+    check(lrel <= 1e-5, f"384 physics update loss {c['loss']} vs "
+          f"{p['loss']}")
+    worst_g = worst_p = 0.0
+    residue = []
+    for n in p["grads"]:
+        g_c, g_p = c["grads"][n], p["grads"][n]
+        scale = g_p.abs().max().item()
+        move = max((g[n] - g_p).abs().max().item() for g in moved)
+        if move > 0.1 * scale:
+            residue.append(n)
+            size = max([scale] + [g[n].abs().max().item() for g in moved])
+            check(g_c.abs().max().item() <= 4 * size,
+                  f"384 physics update gradient {n}: residue "
+                  f"{g_c.abs().max().item():.3e} > 4 x {size:.3e}")
+            continue
+        err = (g_c - g_p).abs().max().item()
+        tol = 1e-4 * scale + 4 * move
+        check(err <= tol, f"384 physics update gradient {n}: {err:.3e} > "
+              f"{tol:.3e}")
+        worst_g = max(worst_g, err / max(tol, 1e-30))
+        adam = lambda g: g / (g.abs() + 1e-8)       # the first step / lr
+        err = ((c["params"][n] - p["params"][n]).abs()
+               - 1e-5 * p["params"][n].abs()
+               - PHYS_LR * (adam(g_c) - adam(g_p)).abs()).max().item()
+        check(err <= 0.02 * PHYS_LR, f"384 physics update parameter {n}: "
+              f"{err:.3e} > 2e-2 lr beyond its tolerance")
+        worst_p = max(worst_p, err / (0.02 * PHYS_LR))
+    print(f"physics training 384 columns, one update: card vs CPU loss "
+          f"{c['loss']:.7e} vs {p['loss']:.7e}; gradients within "
+          f"{worst_g:.3f} and parameters within {max(worst_p, 0.0):.3f} of "
+          f"their tolerances; rounding-residue gradients {residue} [{card}]")
+
+
+def phys_bwd_bounds(a8, sw, lw):
+    """Least times of B8, B13 and B14 from this run's inputs: operations at
+    the card's f32 rate against each input read once and each output
+    written once. B8: 27 H^2 multiply-adds per column and level (the
+    replay 9 H^2, the two BPTT sweeps' transposed products 9 H^2, the
+    three weight gradients 9 H^2)."""
+    res, dd, dl = a8
+    L, B, H3 = res[0].shape
+    H = H3 // 3
+    n_in = sum(t.numel() for t in res) + dd.numel() + dl.numel()
+    n_out = res[0].numel() + 2 * B * H + sum(t.numel() for t in res[3:])
+    out = {"b8": (2.0 * 27 * H * H * L * B,
+                  float(res[0].element_size() * (n_in + n_out)))}
+    for key, args, n_ct, ops in (("b13", sw, 3, SW_BWD_OPS_PER_ELEMENT),
+                                 ("b14", lw, 2, LW_BWD_OPS_PER_ELEMENT)):
+        Bc, nlev, ng = args[3 if key == "b13" else 0].shape
+        n_args = sum(t.numel() for t in args)
+        out[key] = (float(ops * Bc * nlev * ng),
+                    4.0 * (2 * n_args + n_ct * Bc * (nlev + 1) * ng))
+    res_ = {}
+    for key, (flops, nbytes) in out.items():
+        t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+        res_[key] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops > t_bytes else "bytes", flops,
+                     nbytes)
+    return res_
 
 
 # ------------------------------------------------------------ main
@@ -1004,7 +1326,15 @@ def main() -> int:
     p_launches = run_phys_eval(pmodel, card)
     compare_phys_384(card)
 
-    # ---- 8. timings
+    # ---- 8. physics training: B8, B13 and B14 against their plain
+    # versions; 2 updates at 21,600 columns; one update at 384 vs CPU
+    b8_err = check_b8(pmodel, card)
+    rad_bwd_errs = check_radiation_bwd(card)
+    torch.cuda.empty_cache()
+    ptrainer, pchunk, pt_launches, n_pupd = run_phys_training(card)
+    compare_phys_train_384(card)
+
+    # ---- 9. timings
     def step_ms(lp, s, m, x):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
                          queue_ahead=False) / N_STEPS
@@ -1089,12 +1419,12 @@ def main() -> int:
     # that peak counts what it counted before this path existed
     sw_args, lw_args = radiation_args(ncol, "cuda")
     phys_chunk_hi = phys_chunk(PHYS_W, ncol, "cuda")
-    ptrainer = make_phys_trainer(pmodel, None)
-    phys_ms = median_ms(lambda: ptrainer.run_epoch(
+    etrainer = make_phys_trainer(pmodel, None)
+    phys_ms = median_ms(lambda: etrainer.run_epoch(
         None, [phys_chunk_hi], 0, train=False), 1, queue_ahead=False) / PHYS_W
     resident = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    ptrainer.run_epoch(None, [phys_chunk_hi], 0, train=False)
+    etrainer.run_epoch(None, [phys_chunk_hi], 0, train=False)
     torch.cuda.synchronize()
     phys_peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"physics evaluation (W {PHYS_W}, {ncol} columns, f32): "
@@ -1102,7 +1432,7 @@ def main() -> int:
           f"{ncol / phys_ms * 1e3:,.0f} column-steps/s; peak memory "
           f"{phys_peak:.3f} GB ({resident:.3f} GB resident before the "
           f"window) [{card}]")
-    busy, top = phys_profile(ptrainer, phys_chunk_hi)
+    busy, top = phys_profile(etrainer, phys_chunk_hi)
     window = phys_ms * PHYS_W
     print("physics evaluation window by kernel (torch.profiler device "
           + (f"time): busy {busy:.4f} ms of the window's {window:.4f} ms "
@@ -1136,7 +1466,66 @@ def main() -> int:
               f"{plain:.4f} ms, bound {pb[key][0]:.4f} ms "
               f"({pb[key][3] / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
 
-    # ---- 9. the kernels line, the card line, the result
+    # the physics training update: its time, peak memory and profiler split.
+    # Its peak needs most of the card, so the earlier phases' inputs go
+    # first (the solvers' inputs are made again, from their seed, for the
+    # backward kernels' timings)
+    del a1, a1_lo, a3, trainer, chunk, a7, sw_args, lw_args, phys_chunk_hi
+    del etrainer
+    torch.cuda.empty_cache()
+
+    def phys_train_epoch():
+        with torch.enable_grad():
+            ptrainer.run_epoch(None, [pchunk], 0)
+
+    ptrain_ms = median_ms(phys_train_epoch, 1, queue_ahead=False) / n_pupd
+    resident_t = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    phys_train_epoch()
+    torch.cuda.synchronize()
+    ptrain_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"physics training update (W {PHYS_W}, huber + energy + water, "
+          f"Adam, {ncol} columns, f32): {ptrain_ms:.4f} ms/update, "
+          f"{ncol * PHYS_W / ptrain_ms * 1e3:,.0f} column-steps/s; peak "
+          f"memory {ptrain_peak:.3f} GB ({resident_t:.3f} GB resident before "
+          f"the epoch) [{card}]")
+    busy_t, top_t = phys_profile(ptrainer, {k: v[:PHYS_W] for k, v in
+                                            pchunk.items()}, top=12,
+                                 train=True)
+    print("physics training update by kernel (torch.profiler device "
+          + (f"time): busy {busy_t:.4f} ms of the update's {ptrain_ms:.4f} "
+             f"ms unprofiled, idle share "
+             f"{max(0.0, 1 - busy_t / ptrain_ms):.3f}; "
+             + "; ".join(f"{k[:48]} {ms:.4f} ms" for k, ms in top_t)
+             if busy_t > 0 else "time): the profiler saw no device time: "
+             "not measured") + f" [{card}]")
+    from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
+                                       bigru_bwd_lbh, bigru_bwd_reference_lbh,
+                                       lw_solver_noscat_bwd,
+                                       lw_solver_noscat_bwd_reference)
+    sw_args, lw_args = radiation_args(ncol, "cuda")
+    a8 = b8_args(pmodel, ncol, torch.float32, seed=17)
+    b8_ms = median_ms(lambda: bigru_bwd_lbh(*a8), 3)
+    b8_plain = median_ms(lambda: bigru_bwd_reference_lbh(*a8), 1)
+    sw_cts, lw_cts = radiation_cts(sw_args, 3), radiation_cts(lw_args, 2)
+    b13_ms = median_ms(lambda: adding_sw_bwd(sw_args, sw_cts), 50)
+    b13_plain = median_ms(lambda: adding_sw_bwd_reference(sw_args, sw_cts), 3)
+    b14_ms = median_ms(lambda: lw_solver_noscat_bwd(lw_args, lw_cts), 50)
+    b14_plain = median_ms(lambda: lw_solver_noscat_bwd_reference(lw_args,
+                                                                 lw_cts), 3)
+    pbb = phys_bwd_bounds(a8, sw_args, lw_args)
+    print(f"B8 f32 (L {L7}, H {H7}, B {B7}): kernel {b8_ms:.4f} ms, plain "
+          f"{b8_plain:.4f} ms, bound {pbb['b8'][0]:.4f} ms "
+          f"({pbb['b8'][2] / 1e12:.4f} TFLOP at 67 TFLOP/s f32; "
+          f"{pbb['b8'][3] / 1e6:.1f} MB) [{card}]")
+    for key, name, ms, plain in (("b13", "B13", b13_ms, b13_plain),
+                                 ("b14", "B14", b14_ms, b14_plain)):
+        print(f"{name} f32 ({ncol}, {NLEV}, 8): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {pbb[key][0]:.4f} ms "
+              f"({pbb[key][3] / 1e6:.1f} MB at 3.35 TB/s; "
+              f"{pbb[key][2] / 1e9:.3f} GFLOP) [{card}]")
+
+    # ---- 10. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -1174,6 +1563,24 @@ def main() -> int:
          "launches": p_launches["b12"], "max_abs_err": rad_errs["B12"],
          "ms": lw_ms, "plain_ms": lw_plain, "bound_ms": pb["b12"][0],
          "bound_by": pb["b12"][1], "library_ms": None},
+        {"name": "bigru_lbh_bwd", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_lbh_bwd.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:391",
+         "launches": pt_launches["b8"], "max_abs_err": b8_err,
+         "ms": b8_ms, "plain_ms": b8_plain, "bound_ms": pbb["b8"][0],
+         "bound_by": pbb["b8"][1], "library_ms": None},
+        {"name": "adding_sw_bwd", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/adding_sw_bwd.cu",
+         "replaces": "climsim_tpu/ops/pallas_radiation.py:189",
+         "launches": pt_launches["b13"], "max_abs_err": rad_bwd_errs["B13"],
+         "ms": b13_ms, "plain_ms": b13_plain, "bound_ms": pbb["b13"][0],
+         "bound_by": pbb["b13"][1], "library_ms": None},
+        {"name": "lw_noscat_bwd", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/lw_noscat_bwd.cu",
+         "replaces": "climsim_tpu/ops/pallas_radiation.py:336",
+         "launches": pt_launches["b14"], "max_abs_err": rad_bwd_errs["B14"],
+         "ms": b14_ms, "plain_ms": b14_plain, "bound_ms": pbb["b14"][0],
+         "bound_by": pbb["b14"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -73,7 +73,9 @@ class FusedBiGRULayer(nn.Module):
             xp, h0_up.to(dt).contiguous(), h0_dn.to(dt).contiguous(),
             self.whh_up.to(dt), self.bhh_up.to(dt), self.win2.to(dt),
             self.bin2.to(dt), self.whh_dn.to(dt), self.bhh_dn.to(dt))
-        return down.transpose(0, 1), lasth
+        # batch-major once: a transposed view would be copied, and the
+        # copy kept for the backward, by every Dense head that reads it
+        return down.transpose(0, 1).contiguous(), lasth
 
 
 class FusedBiGRUHeadsLayer(nn.Module):

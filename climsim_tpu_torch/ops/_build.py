@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources with a C entry point; one shared library each
 SOURCES = ("bigru_heads_init_cm", "bigru_heads_cm_bwd", "fv_tracers_sphere",
-           "bigru_lbh", "adding_sw", "lw_noscat")
+           "bigru_lbh", "bigru_lbh_bwd", "adding_sw", "adding_sw_bwd",
+           "lw_noscat", "lw_noscat_bwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

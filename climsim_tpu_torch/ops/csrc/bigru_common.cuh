@@ -1,7 +1,9 @@
-// Device helpers shared by the v6 fused emulator's forward
-// (bigru_heads_init_cm.cu) and backward (bigru_heads_cm_bwd.cu) kernels:
-// the column tile, loads of f32 or bf16 weights and activations into f32,
-// rounding to the storage type, and the gate products of a GRU level.
+// Device helpers shared by the BiGRU kernels: the v6 fused emulator's
+// forward (bigru_heads_init_cm.cu) and backward (bigru_heads_cm_bwd.cu),
+// and through bigru_lbh.cuh the v2 forward and backward (bigru_lbh.cu,
+// bigru_lbh_bwd.cu): loads of f32 or bf16 weights and activations into
+// f32, rounding to the storage type, the v6 column tile and gate products,
+// and the last pass of the weight-gradient reductions.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,6 +89,17 @@ __device__ __forceinline__ void load_tile(float* dst, const S* src,
     const int r = e / BT, c = e % BT, col = col0 + c;
     dst[e] = col < B ? ldp(src + static_cast<size_t>(r) * B + col) : 0.0f;
   }
+}
+
+// out[i] = dt(sum_s part[s][i]), the splits added in order (the last pass
+// of a weight-gradient reduction split over S column ranges)
+template <typename T>
+__global__ void sum_parts_kernel(const float* part, int S, int MN, T* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float a = 0.0f;
+  for (int s = 0; s < S; ++s) a += part[static_cast<size_t>(s) * MN + i];
+  out[i] = from_f<T>(a);
 }
 
 }  // namespace bigru

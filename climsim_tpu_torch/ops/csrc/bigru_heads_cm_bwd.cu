@@ -493,16 +493,6 @@ outer_sum_kernel(OuterJob jb, int L, int B, int S, float* part) {
     }
 }
 
-// out[i] = dt(sum_s part[s][i]), the splits added in order
-template <typename T>
-__global__ void sum_parts_kernel(const float* part, int S, int MN, T* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float a = 0.0f;
-  for (int s = 0; s < S; ++s) a += part[static_cast<size_t>(s) * MN + i];
-  out[i] = from_f<T>(a);
-}
-
 // out[m] = dt(sum_{l, b} left[l][row(m)][b]), unrounded left (the bias
 // gradients); one block per row, a fixed-order tree
 template <typename TA, typename T>

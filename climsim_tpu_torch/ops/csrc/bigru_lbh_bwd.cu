@@ -1,0 +1,466 @@
+// v2 fused BiGRU backward, level-major [L, B, .]: replay of both sweeps,
+// the down-sweep BPTT, the up-sweep BPTT, and the weight gradients. The
+// training backward of the physics-constrained emulator's trunk.
+//
+// Replaces the TPU kernel climsim_tpu/ops/pallas_rnn.py::_bigru_bwd_kernel
+// (wrapper _bigru_bwd_pallas_lbh).
+//
+// What it computes, per column (dt = the input type, f32 or bf16; every
+// sum is accumulated in f32; "dt(v)" rounds v to dt):
+//   phase A, replay: the up sweep (l = L-1 .. 0) on xp, then the down
+//     sweep on x2 = W2 up_l + b2 (f32, not rounded), as the forward (B7);
+//     h and the gate bundle [r; z; n; hn] of every level are stored in dt.
+//   phase B1, l = L-1 .. 0: dh2 += d_down_l; the GRU backward step gives
+//     (dar, daz, dan, dhn) from the stored gates and h2_{l-1}; dh2 <- dh2 z
+//     + Whh_dn dt([dar; daz; dhn]); d_up_l = W2 dt([dar; daz; dan]) (f32).
+//   phase B2, l = 0 .. L-1: du += d_up_l; the same step on the up sweep
+//     with h_{l+1}; d_xp_l = dt([dar; daz; dan]); du <- du z + Whh_up
+//     dt([dar; daz; dhn]).
+//   weight gradients, sums over levels and columns: dWin2 = sum dt(up_l)
+//     dt(dxp2_l)^T, dWhh_dn = sum dt(h2_{l-1}) dt(d_hh_dn,l)^T, dWhh_up =
+//     sum dt(h_{l+1}) dt(d_hh_up,l)^T (h0_dn, h0_up at the edges); the
+//     biases the f32 sums of the unrounded bundles; cast to dt at the end.
+//
+// What bounds it on an H100 at the physics trunk's shapes (L 50, H 128,
+// B 21,600): 27 H^2 = 442,368 multiply-adds per column and level (the
+// replay's three products 9 H^2, the two BPTT sweeps' transposed products
+// 9 H^2, the three weight gradients 9 H^2) = 0.955 TFLOP per call, 14.3 ms
+// at the 67 TFLOP/s f32 rate (the f32 policy rules out TF32); the bytes it
+// must move (xp, d_down, h0s, d_lasth in; d_xp, dh0s, the gradients out)
+// are ~3.9 GB in f32, 1.16 ms at 3.35 TB/s. So it is bound by operations.
+//
+// What this first design does about it: it runs on the CUDA cores (f32
+// accumulation of dt products), like B7 and B3. The work splits in two:
+//   1. bigru_lbh_bwd_kernel: one block per tile of BT columns walks the
+//      three phases in in-kernel loops (the TPU's sequential grid). Phase
+//      A is B7's level (bigru_lbh.cuh) with the gate bundle stored. The
+//      state and the level's rounded gradient bundle live in shared memory
+//      as f32 (80 KB at H 128, two blocks per SM). The TPU kept the tile's
+//      [L, Bt, .] replay state in VMEM (~256 KB a column in f32), beyond an
+//      SM's 227 KB; here h and the gates of both sweeps, d_up and the
+//      per-level f32 gradient streams (d_hh of each sweep and dxp2, [L, B,
+//      3H]) go to device scratch that the wrapper allocates: ~11 GB at
+//      21,600 columns in f32 (up_h and g_h 0.55 GB each, the gates 2.2 GB
+//      each, d_up 0.55 GB, the streams 1.66 GB each). Weights stay in L2:
+//      k-major ([in, out]) for the replay, [out, in] copies for the
+//      transposed products, so a warp reads 32 neighbouring values either
+//      way.
+//   2. The TPU accumulated the weight gradients across its sequential
+//      grid in revisiting output blocks; CUDA blocks run at once. So
+//      outer_sum_kernel reduces each gradient over the L x B rows as a
+//      tiled product (64 x 64 output tiles, 32-row chunks) split into S row
+//      ranges writing f32 partial sums, col_sum_kernel does the bias sums
+//      the same way, and sum_parts_kernel adds the partials in a fixed
+//      order and casts. Deterministic: no atomics.
+// The ragged last tile is masked: a pad column reads zero inputs and zero
+// cotangents and nothing of it is stored (the TPU wrapper pads instead).
+// Tensor cores are later work.
+// Built without --use_fast_math: expf/tanhf keep the 100-level recurrence
+// within tolerance of the plain version.
+#include "bigru_lbh.cuh"
+
+namespace {
+
+using namespace bigru_v2;
+using bigru::sum_parts_kernel;
+
+constexpr int RT = 64;          // output tile of the gradient reductions
+constexpr int RK = 32;          // rows per reduction chunk
+constexpr int RTH = 256;        // threads per reduction block
+
+// pointer slots, in the order the wrapper passes them
+enum Slot {
+  XP, H0U, H0D,
+  WHHU_K, WIN2_K, WHHD_K,       // [H, 3H] k-major, for the replay
+  WHHU_T, WIN2_T, WHHD_T,       // [3H, H], for the transposed products
+  BHHU, BIN2, BHHD,
+  DDOWN, DLASTH,
+  DXP, DH0U, DH0D,
+  DWHHU, DBHHU, DWIN2, DBIN2, DWHHD, DBHHD,
+  // scratch: dt [L, B, H] x2, [L, B, 4H] x2; f32 [L, B, H], [L, B, 3H] x3,
+  // the reductions' partial sums
+  UP_H, G_H, GATES_U, GATES_D, DUP, DHHU, DHHD, DXP2, WORK,
+  NSLOT
+};
+
+struct Params {
+  void* p[NSLOT];
+  int L, H, B;
+};
+
+// p[i] where the column is inside the batch, zero past the ragged edge
+template <typename S>
+__device__ __forceinline__ float ldm(const S* p, size_t i, bool ok) {
+  return ok ? ldp(p + i) : 0.0f;
+}
+
+// a[q] += sum_{o < n} W[o*H + k] * D[o][c0 + q]: a product with a [3H, H]
+// ([out, in]) weight contracting its out axis; W starts at the caller's
+// first row, D [n][BT] f32 in shared memory
+template <typename T>
+__device__ __forceinline__ void mvt(float (&a)[CG], const T* __restrict__ W,
+                                    int H, int k, int n, const float* D,
+                                    int c0) {
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float w = ldw(W + static_cast<size_t>(o) * H + k);
+    const float4* d4 = reinterpret_cast<const float4*>(D + o * BT + c0);
+#pragma unroll
+    for (int v = 0; v < CG / 4; ++v) {
+      const float4 d = d4[v];
+      a[4 * v + 0] = fmaf(w, d.x, a[4 * v + 0]);
+      a[4 * v + 1] = fmaf(w, d.y, a[4 * v + 1]);
+      a[4 * v + 2] = fmaf(w, d.z, a[4 * v + 2]);
+      a[4 * v + 3] = fmaf(w, d.w, a[4 * v + 3]);
+    }
+  }
+}
+
+// a += Whh dt(d_hh) with d_hh = [dar; daz; dhn]: rows 0..2H-1 of the
+// [3H, H] weight against D's rows 0..2H-1, row block 2H.. against D's
+// rows 3H..4H-1
+template <typename T>
+__device__ __forceinline__ void add_whh(float (&a)[CG],
+                                        const T* __restrict__ whh_t, int H,
+                                        int k, const float* D, int c0) {
+  mvt<T>(a, whh_t, H, k, 2 * H, D, c0);
+  mvt<T>(a, whh_t + static_cast<size_t>(2) * H * H, H, k, H,
+         D + 3 * H * BT, c0);
+}
+
+// The GRU backward step of one level for every (hidden unit, column
+// group): dh [H][BT] f32 in shared memory, plus the addend add_l [B][H]
+// (d_down in dt, or d_up in f32) when given; the stored gates gs [B][4H]
+// and the previous state hp [B][H] in dt. Writes the rounded bundle
+// dt([dar; daz; dan; dhn]) to D [4H][BT], d_hh = [dar; daz; dhn] to
+// dhh [B][3H] (f32), d_xp = [dar; daz; dan] to dxp_f [B][3H] (f32) or
+// dxp_t [B][3H] (dt) when given, and dh z back to dh (the first term of
+// dh_prev).
+template <typename T, typename A>
+__device__ __forceinline__ void gru_bwd_level(
+    float* dh, const A* add_l, const T* gs, const T* hp, float* D,
+    float* dhh, float* dxp_f, T* dxp_t, int H, int B, int col0) {
+  const size_t H3 = 3 * static_cast<size_t>(H), H4 = 4 * H;
+  for (int item = threadIdx.x; item < H * NCG; item += NTH) {
+    const int j = item % H;
+    const int c0 = (item / H) * CG;
+#pragma unroll 2
+    for (int q = 0; q < CG; ++q) {
+      const int c = c0 + q, col = col0 + c, e = j * BT + c;
+      const bool ok = col < B;
+      const size_t cs = static_cast<size_t>(col);
+      float g = dh[e];
+      if (add_l != nullptr) g += ldm(add_l, cs * H + j, ok);
+      const float r = ldm(gs, cs * H4 + j, ok);
+      const float z = ldm(gs, cs * H4 + H + j, ok);
+      const float n = ldm(gs, cs * H4 + 2 * H + j, ok);
+      const float hn = ldm(gs, cs * H4 + 3 * H + j, ok);
+      const float h_prev = ldm(hp, cs * H + j, ok);
+      const float dz = g * (h_prev - n);
+      const float dan = g * (1.0f - z) * (1.0f - n * n);
+      const float dar = dan * hn * r * (1.0f - r);
+      const float daz = dz * z * (1.0f - z);
+      const float dhn = dan * r;
+      D[e] = rnd<T>(dar);
+      D[H * BT + e] = rnd<T>(daz);
+      D[2 * H * BT + e] = rnd<T>(dan);
+      D[3 * H * BT + e] = rnd<T>(dhn);
+      if (ok) {
+        float* hh = dhh + cs * H3 + j;
+        hh[0] = dar;
+        hh[H] = daz;
+        hh[2 * H] = dhn;
+        if (dxp_f != nullptr) {
+          float* x = dxp_f + cs * H3 + j;
+          x[0] = dar;
+          x[H] = daz;
+          x[2 * H] = dan;
+        }
+        if (dxp_t != nullptr) {
+          T* x = dxp_t + cs * H3 + j;
+          x[0] = from_f<T>(dar);
+          x[H] = from_f<T>(daz);
+          x[2 * H] = from_f<T>(dan);
+        }
+      }
+      dh[e] = g * z;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, 2) bigru_lbh_bwd_kernel(Params p) {
+  const int L = p.L, H = p.H, B = p.B;
+  const size_t lvl = static_cast<size_t>(B) * H;       // a [B][H] level
+  const int col0 = blockIdx.x * BT;
+  auto in = [&](int s) { return static_cast<const T*>(p.p[s]); };
+  T* up_h = static_cast<T*>(p.p[UP_H]);
+  T* g_h = static_cast<T*>(p.p[G_H]);
+  T* gates_u = static_cast<T*>(p.p[GATES_U]);
+  T* gates_d = static_cast<T*>(p.p[GATES_D]);
+  float* dup = static_cast<float*>(p.p[DUP]);
+  float* dhhu = static_cast<float*>(p.p[DHHU]);
+  float* dhhd = static_cast<float*>(p.p[DHHD]);
+  float* dxp2 = static_cast<float*>(p.p[DXP2]);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+
+  // ---- phase A: replay the up sweep (surface to top), then the down
+  {
+    float* s_hc = sm;                       // [H][BT] f32 state
+    float* xh_cur = s_hc + H * BT;          // [H][BT] dt(h)
+    float* xh_nxt = xh_cur + H * BT;        // [H][BT]
+    float* s_x = xh_nxt + H * BT;           // [H][BT] dt(up_l)
+    load_level(s_hc, in(H0U), H, B, col0);
+    load_level(xh_cur, in(H0U), H, B, col0);
+    __syncthreads();
+    for (int l = L - 1; l >= 0; --l) {
+      gru_level<T, true>(in(XP) + 3 * l * lvl, nullptr, nullptr, nullptr,
+                         in(WHHU_K), in(BHHU), xh_cur, s_hc, xh_nxt,
+                         up_h + l * lvl, gates_u + 4 * l * lvl, H, B, col0);
+      __syncthreads();
+      float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
+    }
+    load_level(s_hc, in(H0D), H, B, col0);
+    load_level(xh_cur, in(H0D), H, B, col0);
+    for (int l = 0; l < L; ++l) {
+      load_level(s_x, up_h + l * lvl, H, B, col0);
+      __syncthreads();
+      gru_level<T, true>(nullptr, in(WIN2_K), in(BIN2), s_x, in(WHHD_K),
+                         in(BHHD), xh_cur, s_hc, xh_nxt, g_h + l * lvl,
+                         gates_d + 4 * l * lvl, H, B, col0);
+      __syncthreads();
+      float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
+    }
+  }
+
+  float* s_dh = sm;                         // [H][BT] carry gradient, f32
+  float* s_D = s_dh + H * BT;               // [4H][BT] rounded bundle
+
+  // ---- phase B1: down-sweep BPTT (surface to top)
+  load_level(s_dh, in(DLASTH), H, B, col0);
+  __syncthreads();
+  for (int l = L - 1; l >= 0; --l) {
+    gru_bwd_level<T, T>(s_dh, in(DDOWN) + l * lvl, gates_d + 4 * l * lvl,
+                        l > 0 ? g_h + (l - 1) * lvl : in(H0D), s_D,
+                        dhhd + 3 * l * lvl, dxp2 + 3 * l * lvl, nullptr, H,
+                        B, col0);
+    __syncthreads();
+    // dh2_prev = dh2 z + Whh_dn dt(d_hh); d_up = W2 dt(d_xp)
+    float* dup_l = dup + l * lvl;
+    for (int item = threadIdx.x; item < H * NCG; item += NTH) {
+      const int k = item % H, c0 = (item / H) * CG;
+      float ah[CG], au[CG];
+#pragma unroll
+      for (int q = 0; q < CG; ++q) ah[q] = au[q] = 0.0f;
+      add_whh<T>(ah, in(WHHD_T), H, k, s_D, c0);
+      mvt<T>(au, in(WIN2_T), H, k, 3 * H, s_D, c0);
+#pragma unroll
+      for (int q = 0; q < CG; ++q) {
+        const int c = c0 + q, col = col0 + c;
+        s_dh[k * BT + c] += ah[q];
+        if (col < B) dup_l[static_cast<size_t>(col) * H + k] = au[q];
+      }
+    }
+    __syncthreads();
+  }
+  store_level(static_cast<T*>(p.p[DH0D]), s_dh, H, B, col0);
+  __syncthreads();
+
+  // ---- phase B2: up-sweep BPTT (top to surface) from a zero carry
+  for (int e = threadIdx.x; e < H * BT; e += NTH) s_dh[e] = 0.0f;
+  __syncthreads();
+  T* dxp = static_cast<T*>(p.p[DXP]);
+  for (int l = 0; l < L; ++l) {
+    gru_bwd_level<T, float>(s_dh, dup + l * lvl, gates_u + 4 * l * lvl,
+                            l < L - 1 ? up_h + (l + 1) * lvl : in(H0U), s_D,
+                            dhhu + 3 * l * lvl, nullptr, dxp + 3 * l * lvl,
+                            H, B, col0);
+    __syncthreads();
+    // du_prev = du z + Whh_up dt(d_hh)
+    for (int item = threadIdx.x; item < H * NCG; item += NTH) {
+      const int k = item % H, c0 = (item / H) * CG;
+      float a[CG];
+#pragma unroll
+      for (int q = 0; q < CG; ++q) a[q] = 0.0f;
+      add_whh<T>(a, in(WHHU_T), H, k, s_D, c0);
+#pragma unroll
+      for (int q = 0; q < CG; ++q) s_dh[k * BT + c0 + q] += a[q];
+    }
+    __syncthreads();
+  }
+  store_level(static_cast<T*>(p.p[DH0U]), s_dh, H, B, col0);
+}
+
+// ---------------------------------------------------------------- reductions
+
+// A weight gradient over the L x B rows r = l*B + b: out [M, N] = sum_r
+// a_r[m] * dt(g_r[n]), where a_r is row l + shift of the state a [L][B][M]
+// (dt), or the edge state [B][M] (the initial state) when l + shift falls
+// outside 0..L-1, and g the f32 stream [L*B][N].
+struct OuterJob {
+  const void* a; int shift; const void* edge;
+  const float* g;
+  void* out; int M, N;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(RTH)
+outer_sum_kernel(OuterJob jb, int L, int B, int S, float* part) {
+  __shared__ __align__(16) float As[RK][RT + 4];
+  __shared__ __align__(16) float Gs[RK][RT + 4];
+  const int ntn = (jb.N + RT - 1) / RT;
+  const int m0 = (blockIdx.x / ntn) * RT, n0 = (blockIdx.x % ntn) * RT;
+  const int s = blockIdx.y;
+  const int rows = L * B;
+  const long nch = (rows + RK - 1) / RK;
+  const long first = nch * s / S, last = nch * (s + 1) / S;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const T* A = static_cast<const T*>(jb.a);
+  const T* E = static_cast<const T*>(jb.edge);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (long ch = first; ch < last; ++ch) {
+    for (int e = tid; e < RK * RT; e += RTH) {
+      const int kk = e / RT, i = e % RT;
+      const int r = static_cast<int>(ch) * RK + kk;
+      float av = 0.0f, gv = 0.0f;
+      if (r < rows) {
+        const int l = r / B, b = r - l * B, ls = l + jb.shift;
+        const int m = m0 + i, n = n0 + i;
+        if (m < jb.M) {
+          const T* row = (ls >= 0 && ls < L)
+                             ? A + (static_cast<size_t>(ls) * B + b) * jb.M
+                             : E + static_cast<size_t>(b) * jb.M;
+          av = ldw(row + m);
+        }
+        if (n < jb.N)
+          gv = rnd<T>(__ldg(jb.g + static_cast<size_t>(r) * jb.N + n));
+      }
+      As[kk][i] = av;
+      Gs[kk][i] = gv;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < RK; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 g4 = *reinterpret_cast<const float4*>(&Gs[k][tx * 4]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m < jb.M && n < jb.N)
+        part[(static_cast<size_t>(s) * jb.M + m) * jb.N + n] = acc[i][j];
+    }
+}
+
+// part[s][n] = sum of g[r][n] over the rows r of split s (the bias
+// gradients: the unrounded f32 stream), one block per split
+__global__ void col_sum_kernel(const float* g, int rows, int N, int S,
+                               float* part) {
+  const int s = blockIdx.x;
+  const int first = static_cast<int>(static_cast<long>(rows) * s / S);
+  const int last = static_cast<int>(static_cast<long>(rows) * (s + 1) / S);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float a = 0.0f;
+#pragma unroll 8
+    for (int r = first; r < last; ++r)
+      a += __ldg(g + static_cast<size_t>(r) * N + n);
+    part[static_cast<size_t>(s) * N + n] = a;
+  }
+}
+
+template <typename T>
+int outer_sum(const OuterJob& jb, int L, int B, int S, float* work,
+              cudaStream_t st) {
+  const int tiles = ((jb.M + RT - 1) / RT) * ((jb.N + RT - 1) / RT);
+  outer_sum_kernel<T><<<dim3(tiles, S), RTH, 0, st>>>(jb, L, B, S, work);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int MN = jb.M * jb.N;
+  sum_parts_kernel<T><<<(MN + RTH - 1) / RTH, RTH, 0, st>>>(
+      work, S, MN, static_cast<T*>(jb.out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int col_sum(const float* g, int rows, int N, int S, float* work, void* out,
+            cudaStream_t st) {
+  const int threads = N < 1024 ? (N + 31) / 32 * 32 : 1024;
+  col_sum_kernel<<<S, threads, 0, st>>>(g, rows, N, S, work);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_parts_kernel<T><<<(N + RTH - 1) / RTH, RTH, 0, st>>>(
+      work, S, N, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& p, int S, cudaStream_t st) {
+  const int L = p.L, H = p.H, B = p.B;
+  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(H) * BT;
+  cudaError_t err = cudaFuncSetAttribute(
+      bigru_lbh_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bigru_lbh_bwd_kernel<T><<<(B + BT - 1) / BT, NTH, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  float* work = static_cast<float*>(p.p[WORK]);
+  const float* dhhu = static_cast<const float*>(p.p[DHHU]);
+  const float* dhhd = static_cast<const float*>(p.p[DHHD]);
+  const float* dxp2 = static_cast<const float*>(p.p[DXP2]);
+  const OuterJob outer[] = {
+      {p.p[UP_H], 0, nullptr, dxp2, p.p[DWIN2], H, 3 * H},
+      {p.p[G_H], -1, p.p[H0D], dhhd, p.p[DWHHD], H, 3 * H},
+      {p.p[UP_H], 1, p.p[H0U], dhhu, p.p[DWHHU], H, 3 * H},
+  };
+  for (const OuterJob& jb : outer) {
+    const int rc = outer_sum<T>(jb, L, B, S, work, st);
+    if (rc != 0) return rc;
+  }
+  // the bias sums split 4x finer: they read as many bytes for far fewer
+  // operations (the wrapper's WORK holds S x H x 3H floats)
+  const struct { const float* g; void* out; } bias[] = {
+      {dxp2, p.p[DBIN2]}, {dhhd, p.p[DBHHD]}, {dhhu, p.p[DBHHU]}};
+  for (const auto& bj : bias) {
+    const int rc = col_sum<T>(bj.g, L * B, 3 * H, 4 * S, work, bj.out, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. ptrs: nslot device pointers in the
+// order of enum Slot (inputs, k-major and [out, in] weights, biases,
+// cotangents, outputs, gradients in the weights' layouts, scratch), all
+// contiguous; activations level-major [L, B, C] / [B, H]. S: row splits of
+// the weight-gradient reductions (WORK holds S x H x 3H floats). Returns
+// the cudaError_t of the launches (0 on success).
+extern "C" int bigru_lbh_bwd(int dtype, int nslot, void* const* ptrs, int L,
+                             int H, int B, int S, void* stream) {
+  if (nslot != NSLOT || S < 1 || H < 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  for (int i = 0; i < NSLOT; ++i) p.p[i] = ptrs[i];
+  p.L = L; p.H = H; p.B = B;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(p, S, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, S, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,15 +1,18 @@
 """The radiation solvers' CUDA kernels (counterpart of
-``climsim_tpu/ops/pallas_radiation.py``'s ``adding_sw_fast`` and
-``lw_solver_noscat_fast``): B11, the SW two-stream adding solver
-(``csrc/adding_sw.cu``), and B12, the LW no-scattering solver
-(``csrc/lw_noscat.cu``).
+``climsim_tpu/ops/pallas_radiation.py``): B11, the SW two-stream adding
+solver (``csrc/adding_sw.cu``), and B12, the LW no-scattering solver
+(``csrc/lw_noscat.cu``), behind the differentiable ``adding_sw_fast`` and
+``lw_solver_noscat_fast``; and their backward kernels B13
+(``csrc/adding_sw_bwd.cu``, ``adding_sw_bwd``) and B14
+(``csrc/lw_noscat_bwd.cu``, ``lw_solver_noscat_bwd``).
 
-Both take the solver-standard layout, layers [B, nlev, ng] and surface
-[B, ng], float32, and return half-level fluxes [B, nlev+1, ng]. Their
-plain versions are ``physics/radiation.py``'s level loops. Each wrapper
-is a ``torch.autograd.Function``: on the CPU its backward differentiates
-the plain version, as JAX's does off the TPU; on the card the backward
-is a kernel not ported yet (B13, B14) and raises.
+All take the solver-standard layout, layers [B, nlev, ng] and surface
+[B, ng], float32; fluxes and their cotangents are half-level
+[B, nlev+1, ng]. The forwards' plain versions are ``physics/radiation.py``'s
+level loops; the backwards' are ``adding_sw_bwd_reference`` and
+``lw_solver_noscat_bwd_reference`` here, which follow the TPU bodies
+level by level. Each forward wrapper is a ``torch.autograd.Function``
+whose backward calls the backward wrapper on every device.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ import torch
 
 from ..physics.radiation import adding_sw, lw_solver_noscat
 from . import _build
-from .pallas_rnn import _on_card_backward, plain_vjp
 
-__all__ = ["adding_sw_fast", "lw_solver_noscat_fast"]
+__all__ = ["adding_sw_fast", "lw_solver_noscat_fast", "adding_sw_bwd",
+           "adding_sw_bwd_reference", "lw_solver_noscat_bwd",
+           "lw_solver_noscat_bwd_reference"]
 
 _SW_ARGS = ("incoming_toa", "albedo_surf_diffuse", "albedo_surf_direct",
             "R", "T", "ref_dir", "T_dir_diff", "T_dir_dir")
@@ -31,60 +35,229 @@ _SW_SFC = (True,) * 3 + (False,) * 5
 _LW_SFC = (False,) * 3 + (True,) * 2
 
 
-def _validate(names, args, is_sfc) -> None:
+def _validate(names, args, is_sfc, cts=()) -> tuple[int, int, int]:
     """Raise ``ValueError`` unless every argument is float32 on one device,
-    the surface arguments (``is_sfc``) [B, ng] and the layer arguments
-    [B, nlev, ng] (checked on every device, so a CPU run catches what the
-    kernel would refuse)."""
+    the surface arguments (``is_sfc``) [B, ng], the layer arguments
+    [B, nlev, ng] and the cotangents ``cts`` [B, nlev+1, ng] (checked on
+    every device, so a CPU run catches what the kernel would refuse);
+    returns (B, nlev, ng)."""
     B, nlev, ng = args[is_sfc.index(False)].shape
     dev = args[0].device
-    for k, a, sfc in zip(names, args, is_sfc):
+    named = list(zip(names, args, is_sfc)) + [
+        (f"cotangent {i}", c, None) for i, c in enumerate(cts)]
+    for k, a, sfc in named:
         if a.dtype != torch.float32 or a.device != dev:
             raise ValueError(f"{k}: {a.dtype} on {a.device}, the kernel "
                              f"takes float32 tensors on {dev}")
-        want = (B, ng) if sfc else (B, nlev, ng)
+        want = (B, nlev + 1, ng) if sfc is None else \
+            (B, ng) if sfc else (B, nlev, ng)
         if tuple(a.shape) != want:
             raise ValueError(f"{k}: shape {tuple(a.shape)}, want {want}")
+    return B, nlev, ng
 
 
-def _launch(name: str, args, outs) -> None:
+def _launch(name: str, ptrs, dims, extra=()) -> None:
+    """Call ``csrc/<name>.cu``'s entry point with the tensors ``ptrs``
+    (made contiguous), ``extra`` device buffers, then (B, nlev, ng) and the
+    current stream."""
     lib = _build.load(name)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * (len(args) + len(outs)) \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ptrs = [a.contiguous() for a in ptrs] + list(extra)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    B, nlev, ng = outs[0].shape[0], outs[0].shape[1] - 1, outs[0].shape[2]
-    stream = torch.cuda.current_stream(outs[0].device).cuda_stream
-    ptrs = [a.contiguous() for a in args] + list(outs)
-    rc = fn(*[t.data_ptr() for t in ptrs], B, nlev, ng, stream)
+    stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
+    rc = fn(*[t.data_ptr() for t in ptrs], *dims, stream)
     _build.check_status(rc, name)
 
 
-def _dispatch(args, plain, launch):
+def _dispatch(args, plain, launch, *more):
     dev = args[0].device
     if dev.type == "cpu":
-        return plain(*args)
+        return plain(args, *more)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return launch(args)
+    return launch(args, *more)
+
+
+def _empty(dev, *shapes):
+    return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
 
 
 def _launch_sw(args):
     B, nlev, ng = args[3].shape
-    outs = [torch.empty((B, nlev + 1, ng), dtype=torch.float32,
-                        device=args[0].device) for _ in range(3)]
-    _launch("adding_sw", args, outs)
+    outs = _empty(args[0].device, *[(B, nlev + 1, ng)] * 3)
+    _launch("adding_sw", list(args) + outs, (B, nlev, ng))
     adding_sw_fast.launches += 1
     return tuple(outs)
 
 
 def _launch_lw(args):
     B, nlev, ng = args[0].shape
-    outs = [torch.empty((B, nlev + 1, ng), dtype=torch.float32,
-                        device=args[0].device) for _ in range(2)]
-    _launch("lw_noscat", args, outs)
+    outs = _empty(args[0].device, *[(B, nlev + 1, ng)] * 2)
+    _launch("lw_noscat", list(args) + outs, (B, nlev, ng))
     lw_solver_noscat_fast.launches += 1
     return tuple(outs)
+
+
+def adding_sw_bwd_reference(args, cts):
+    """Plain version of kernel B13 (JAX's ``_adding_sw_bwd_kernel``), level
+    by level as the TPU body: replay both sweeps, the half-level albedo
+    gradients from fup = fdir albdir + fdiff alb, the down sweep's backward
+    (the gradient on the constant fdiff[0] is dropped), then the up
+    sweep's. ``args`` = the forward's eight arguments, ``cts`` = the
+    cotangents of (flux_up, flux_dn_diffuse, flux_dn_direct); returns the
+    eight gradients in the arguments' order."""
+    toa, ad, adir, R, T, rd, tdd, tdir = args
+    dfup, dfdiff, dfdir = cts
+    nlev = R.shape[1]
+    # replay the up sweep (albedos below every half-level)
+    alb, albdir = ad, adir
+    albs, albdirs = [alb] * (nlev + 1), [albdir] * (nlev + 1)
+    for j in range(nlev - 1, -1, -1):
+        Rj, Tj = R[:, j], T[:, j]
+        inv = 1.0 / (1.0 - alb * Rj)
+        albdir = rd[:, j] + (tdir[:, j] * albdir + tdd[:, j] * alb) * Tj * inv
+        alb = Rj + Tj * Tj * alb * inv
+        albs[j], albdirs[j] = alb, albdir
+    # replay the down sweep (direct and diffuse downwelling fluxes)
+    fdir, fdiff = [toa], [torch.zeros_like(toa)]
+    for j in range(nlev):
+        Rj, Tj, tdj = R[:, j], T[:, j], tdir[:, j]
+        fdiff.append((Tj * fdiff[j] + fdir[j] * (tdj * albdirs[j + 1] * Rj
+                                                 + tdd[:, j]))
+                     / (1.0 - Rj * albs[j + 1]))
+        fdir.append(fdir[j] * tdj)
+    # half-level albedo gradients from fup[j] = fdir[j] albdir[j] + fdiff[j]
+    # alb[j]
+    galb = [dfup[:, j] * fdiff[j] for j in range(nlev + 1)]
+    galbdir = [dfup[:, j] * fdir[j] for j in range(nlev + 1)]
+    dR, dT, drd, dtdd, dtdir = ([None] * nlev for _ in range(5))
+    # down sweep backward; the carry holds the total gradients on
+    # (fdir[j+1], fdiff[j+1])
+    gdir = dfdir[:, nlev] + dfup[:, nlev] * albdirs[nlev]
+    gdiff = dfdiff[:, nlev] + dfup[:, nlev] * albs[nlev]
+    for j in range(nlev - 1, -1, -1):
+        Rj, Tj, tdj, tddj = R[:, j], T[:, j], tdir[:, j], tdd[:, j]
+        alb1, adir1 = albs[j + 1], albdirs[j + 1]
+        denom = 1.0 - Rj * alb1
+        fdirj, fdiffj, fdiff1 = fdir[j], fdiff[j], fdiff[j + 1]
+        K = tdj * adir1 * Rj + tddj
+        dN = gdiff / denom
+        dT[j] = dN * fdiffj
+        dtdd[j] = dN * fdirj
+        dtdir[j] = gdir * fdirj + dN * fdirj * adir1 * Rj
+        dR[j] = dN * fdirj * tdj * adir1 + gdiff * fdiff1 * alb1 / denom
+        galb[j + 1] = galb[j + 1] + gdiff * fdiff1 * Rj / denom
+        galbdir[j + 1] = galbdir[j + 1] + dN * fdirj * tdj * Rj
+        gdir, gdiff = (gdir * tdj + dN * K + dfdir[:, j]
+                       + dfup[:, j] * albdirs[j],
+                       dN * Tj + dfdiff[:, j] + dfup[:, j] * albs[j])
+    dtoa = gdir
+    # up sweep backward; the carry holds the total gradients on (alb[j],
+    # albdir[j])
+    ga, gd = galb[0], galbdir[0]
+    for j in range(nlev):
+        Rj, Tj, tdj, tddj = R[:, j], T[:, j], tdir[:, j], tdd[:, j]
+        A1, Adir1 = albs[j + 1], albdirs[j + 1]
+        inv = 1.0 / (1.0 - A1 * Rj)
+        M = tdj * Adir1 + tddj * A1
+        drd[j] = gd
+        dtdir[j] = dtdir[j] + gd * Adir1 * Tj * inv
+        dtdd[j] = dtdd[j] + gd * A1 * Tj * inv
+        dT[j] = dT[j] + (ga * 2.0 * Tj * A1 * inv + gd * M * inv)
+        TAinv = Tj * A1 * inv
+        dR[j] = dR[j] + (ga * (1.0 + TAinv * TAinv)
+                         + gd * M * Tj * A1 * inv * inv)
+        Tinv = Tj * inv
+        gA1 = ga * Tj * Tinv * inv + gd * (tddj * Tinv + M * Tinv * Rj * inv)
+        gAdir1 = gd * tdj * Tinv
+        ga, gd = gA1 + galb[j + 1], gAdir1 + galbdir[j + 1]
+    lay = lambda xs: torch.stack(xs, dim=1)
+    return (dtoa, ga, gd, lay(dR), lay(dT), lay(drd), lay(dtdd),
+            lay(dtdir))
+
+
+def lw_solver_noscat_bwd_reference(args, cts):
+    """Plain version of kernel B14 (JAX's ``_lw_noscat_bwd_kernel``), level
+    by level as the TPU body: replay both accumulations, the up
+    accumulation's backward, the surface terms, the down accumulation's
+    backward (the gradient on the constant fdn[0] is dropped). ``args`` =
+    the forward's five arguments, ``cts`` = the cotangents of (flux_dn,
+    flux_up); returns the five gradients in the arguments' order."""
+    trans, sdn, sup, ssfc, emis = args
+    dfdn, dfup = cts
+    nlev = trans.shape[1]
+    fdn = [torch.zeros_like(ssfc)]
+    for j in range(nlev):
+        fdn.append(trans[:, j] * fdn[j] + sdn[:, j])
+    fup = [None] * (nlev + 1)
+    fup[nlev] = emis * ssfc + (1.0 - emis) * fdn[nlev]
+    for j in range(nlev - 1, -1, -1):
+        fup[j] = trans[:, j] * fup[j + 1] + sup[:, j]
+    dtrans, dsdn, dsup = ([None] * nlev for _ in range(3))
+    # up accumulation backward (ascending)
+    g = dfup[:, 0]
+    for j in range(nlev):
+        dsup[j] = g
+        dtrans[j] = g * fup[j + 1]
+        g = dfup[:, j + 1] + g * trans[:, j]
+    demis = g * (ssfc - fdn[nlev])
+    dssfc = g * emis
+    # down accumulation backward (descending)
+    h = dfdn[:, nlev] + g * (1.0 - emis)
+    for j in range(nlev - 1, -1, -1):
+        dsdn[j] = h
+        dtrans[j] = dtrans[j] + h * fdn[j]
+        h = dfdn[:, j] + h * trans[:, j]
+    lay = lambda xs: torch.stack(xs, dim=1)
+    return lay(dtrans), lay(dsdn), lay(dsup), dssfc, demis
+
+
+def _launch_sw_bwd(args, cts):
+    B, nlev, ng = args[3].shape
+    dev = args[0].device
+    grads = _empty(dev, *[(B, ng)] * 3, *[(B, nlev, ng)] * 5)
+    # the replay's albedos and fluxes, which the TPU kept in VMEM
+    scratch = torch.empty((4, B, nlev + 1, ng), dtype=torch.float32,
+                          device=dev)
+    _launch("adding_sw_bwd", list(args) + list(cts) + grads, (B, nlev, ng),
+            extra=[scratch])
+    adding_sw_bwd.launches += 1
+    return tuple(grads)
+
+
+def _launch_lw_bwd(args, cts):
+    B, nlev, ng = args[0].shape
+    grads = _empty(args[0].device, *[(B, nlev, ng)] * 3, *[(B, ng)] * 2)
+    _launch("lw_noscat_bwd", list(args) + list(cts) + grads, (B, nlev, ng))
+    lw_solver_noscat_bwd.launches += 1
+    return tuple(grads)
+
+
+def adding_sw_bwd(args, cts):
+    """SW adding solver backward (JAX's ``adding_sw_bwd_fused``): ``args`` =
+    the forward's eight arguments, ``cts`` = the cotangents of (flux_up,
+    flux_dn_diffuse, flux_dn_direct) [B, nlev+1, ng] -> the eight
+    gradients. A CPU tensor runs the plain version; a CUDA tensor launches
+    kernel B13 or raises."""
+    _validate(_SW_ARGS, args, _SW_SFC, cts)
+    return _dispatch(args, adding_sw_bwd_reference, _launch_sw_bwd, cts)
+
+
+def lw_solver_noscat_bwd(args, cts):
+    """LW no-scattering solver backward (JAX's
+    ``lw_solver_noscat_bwd_fused``): ``args`` = the forward's five
+    arguments, ``cts`` = the cotangents of (flux_dn, flux_up)
+    [B, nlev+1, ng] -> the five gradients. A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel B14 or raises."""
+    _validate(_LW_ARGS, args, _LW_SFC, cts)
+    return _dispatch(args, lw_solver_noscat_bwd_reference, _launch_lw_bwd,
+                     cts)
+
+
+def _needed(grads, needs):
+    return tuple(g if n else None for g, n in zip(grads, needs))
 
 
 class _AddingSW(torch.autograd.Function):
@@ -92,15 +265,13 @@ class _AddingSW(torch.autograd.Function):
     def forward(ctx, *args):
         _validate(_SW_ARGS, args, _SW_SFC)
         ctx.save_for_backward(*args)
-        return _dispatch(args, adding_sw, _launch_sw)
+        return _dispatch(args, lambda a: adding_sw(*a), _launch_sw)
 
     @staticmethod
     def backward(ctx, *cts):
-        args = ctx.saved_tensors
-        if args[0].device.type != "cpu":
-            raise _on_card_backward("adding_sw_fast (B13)",
-                                    "ROADMAP A.11, slice 4 training")
-        return plain_vjp(adding_sw, args, cts, ctx.needs_input_grad)
+        return _needed(adding_sw_bwd(ctx.saved_tensors,
+                                     [c.contiguous() for c in cts]),
+                       ctx.needs_input_grad)
 
 
 class _LWNoScat(torch.autograd.Function):
@@ -108,15 +279,13 @@ class _LWNoScat(torch.autograd.Function):
     def forward(ctx, *args):
         _validate(_LW_ARGS, args, _LW_SFC)
         ctx.save_for_backward(*args)
-        return _dispatch(args, lw_solver_noscat, _launch_lw)
+        return _dispatch(args, lambda a: lw_solver_noscat(*a), _launch_lw)
 
     @staticmethod
     def backward(ctx, *cts):
-        args = ctx.saved_tensors
-        if args[0].device.type != "cpu":
-            raise _on_card_backward("lw_solver_noscat_fast (B14)",
-                                    "ROADMAP A.11, slice 4 training")
-        return plain_vjp(lw_solver_noscat, args, cts, ctx.needs_input_grad)
+        return _needed(lw_solver_noscat_bwd(ctx.saved_tensors,
+                                            [c.contiguous() for c in cts]),
+                       ctx.needs_input_grad)
 
 
 def adding_sw_fast(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
@@ -124,8 +293,8 @@ def adding_sw_fast(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
     """SW two-stream adding solver, differentiable: surface arguments
     [B, ng], layer arguments [B, nlev, ng] -> (flux_up, flux_dn_diffuse,
     flux_dn_direct) [B, nlev+1, ng]. A CPU tensor runs
-    ``physics.radiation.adding_sw``; a CUDA tensor launches kernel B11 or
-    raises."""
+    ``physics.radiation.adding_sw`` (and ``adding_sw_bwd_reference`` for
+    gradients); a CUDA tensor launches kernel B11 (and B13) or raises."""
     return _AddingSW.apply(incoming_toa, albedo_surf_diffuse,
                            albedo_surf_direct, R, T, ref_dir, T_dir_diff,
                            T_dir_dir)
@@ -135,11 +304,14 @@ def lw_solver_noscat_fast(trans_lw, source_dn, source_up, source_sfc,
                           emissivity_surf):
     """LW no-scattering solver, differentiable: layer arguments
     [B, nlev, ng], surface [B, ng] -> (flux_dn, flux_up) [B, nlev+1, ng].
-    A CPU tensor runs ``physics.radiation.lw_solver_noscat``; a CUDA tensor
-    launches kernel B12 or raises."""
+    A CPU tensor runs ``physics.radiation.lw_solver_noscat`` (and
+    ``lw_solver_noscat_bwd_reference`` for gradients); a CUDA tensor
+    launches kernel B12 (and B14) or raises."""
     return _LWNoScat.apply(trans_lw, source_dn, source_up, source_sfc,
                            emissivity_surf)
 
 
 adding_sw_fast.launches = 0
 lw_solver_noscat_fast.launches = 0
+adding_sw_bwd.launches = 0
+lw_solver_noscat_bwd.launches = 0

@@ -2,8 +2,9 @@
 ``climsim_tpu/ops/pallas_rnn.py``): the v6 fused emulator's forward and
 backward (``fused_bigru_heads_init_cm``, ``_bigru_heads_cm_bwd_pallas``;
 kernels ``csrc/bigru_heads_init_cm.cu`` and ``csrc/bigru_heads_cm_bwd.cu``)
-and, at the end of this module, the v2 level-major forward of the
-physics trunk (``fused_bigru_lbh``; kernel ``csrc/bigru_lbh.cu``).
+and, at the end of this module, the v2 level-major forward and backward
+of the physics trunk (``fused_bigru_lbh``, ``bigru_bwd_lbh``; kernels
+``csrc/bigru_lbh.cu`` and ``csrc/bigru_lbh_bwd.cu``).
 
 Channel-major contract, as in JAX: feat [L, nf, B] raw features, mem_in
 [L, nm_in, B], h0_up/h0_dn [H, B]; weights pre-transposed [out, in] and
@@ -27,7 +28,8 @@ from . import _build
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
-           "fused_bigru_lbh", "bigru_reference_lbh"]
+           "fused_bigru_lbh", "bigru_reference_lbh", "bigru_bwd_lbh",
+           "bigru_bwd_reference_lbh"]
 
 _ARGS = ("feat", "mem_in", "h0_up", "h0_dn", "winit_t", "binit", "win1h_t",
          "win1m_t", "bin1", "whh_up_t", "bhh_up", "win2_t", "bin2",
@@ -404,17 +406,19 @@ bigru_heads_cm_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------
-# v2 level-major fused BiGRU forward (B7, csrc/bigru_lbh.cu): the trunk of
-# the physics-constrained emulator, JAX's ``fused_bigru_lbh``
+# v2 level-major fused BiGRU forward (B7, csrc/bigru_lbh.cu) and backward
+# (B8, csrc/bigru_lbh_bwd.cu): the trunk of the physics-constrained
+# emulator, JAX's ``fused_bigru_lbh``
 # --------------------------------------------------------------------------
 
 _ARGS_LBH = ("xp", "h0_up", "h0_dn", "whh_up", "bhh_up", "win2", "bin2",
              "whh_dn", "bhh_dn")
 
 
-def _gru_step_lbh(h, xp, whh, bhh, H: int):
-    """One GRU update, batch-major (JAX's ``_gru_step``): h [B, H] float32,
-    xp [B, 3H] float32 with the input bias included -> new h float32. The
+def _gru_step_gates_lbh(h, xp, whh, bhh, H: int):
+    """One GRU update, batch-major (JAX's ``_gru_step`` and, with the gate
+    bundle, ``_gru_fwd_store``): h [B, H] float32, xp [B, 3H] float32 with
+    the input bias included -> (new h, [r, z, n, hn] [B, 4H]), float32. The
     recurrent product takes h rounded to the weight type and adds the
     recurrent bias before the gates."""
     hh = torch.matmul(h.to(whh.dtype).float(), whh.float()) + bhh.float()
@@ -423,7 +427,30 @@ def _gru_step_lbh(h, xp, whh, bhh, H: int):
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)
     n = torch.tanh(xn + r * hn)
-    return (1.0 - z) * n + z * h
+    return (1.0 - z) * n + z * h, torch.cat([r, z, n, hn], dim=-1)
+
+
+def _gru_step_lbh(h, xp, whh, bhh, H: int):
+    """``_gru_step_gates_lbh`` without the gates: the new h (float32)."""
+    return _gru_step_gates_lbh(h, xp, whh, bhh, H)[0]
+
+
+def _gru_bwd_step_lbh(dh, gates, h_prev, whh, H: int):
+    """One batch-major GRU backward step (JAX's ``_gru_bwd_step``): dh and
+    h_prev [B, H] float32, gates [B, 4H] as stored -> (d_xp [B, 3H],
+    dh_prev [B, H], d_hh [B, 3H]), float32; dh_prev = dh z + dt(d_hh)
+    Whh^T with dt the weight type."""
+    r, z, n, hn = gates.float().split(H, dim=-1)
+    dz = dh * (h_prev - n)
+    dan = dh * (1.0 - z) * (1.0 - n * n)
+    dar = dan * hn * r * (1.0 - r)
+    daz = dz * z * (1.0 - z)
+    dhn = dan * r
+    d_hh = torch.cat([dar, daz, dhn], dim=-1)
+    d_xp = torch.cat([dar, daz, dan], dim=-1)
+    dh_prev = dh * z + torch.matmul(d_hh.to(whh.dtype).float(),
+                                    whh.float().t())
+    return d_xp, dh_prev, d_hh
 
 
 def bigru_reference_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
@@ -485,29 +512,150 @@ def _launch_lbh(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return down, lasth
 
 
-def _on_card_backward(kernel: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the backward of {kernel} on a CUDA tensor is a kernel that is not "
-        f"ported yet ({item}); on the CPU it differentiates the plain "
-        f"version")
+def bigru_bwd_reference_lbh(res, d_down, d_lasth):
+    """Plain version of kernel B8 (JAX's ``_bigru_bwd_kernel``), phase by
+    phase and level by level as the TPU body: (A) replay both sweeps,
+    storing h and the gate bundle [r, z, n, hn] in xp's type, the down
+    sweep's projection reading the up states rounded and staying float32;
+    (B1) the down-sweep BPTT from d_lasth, adding d_down[l] before each
+    step, giving d_up in float32; (B2) the up-sweep BPTT from a zero carry,
+    giving d_xp in xp's type. Weight gradients are float32 sums of products
+    whose factors are rounded to the weight type, bias gradients the sums
+    of the unrounded bundles, each cast to its weight's type at the end.
+
+    ``res`` = (xp [L, B, 3H], h0_up, h0_dn [B, H], whh_up, bhh_up, win2,
+    bin2, whh_dn, bhh_dn); d_down [L, B, H], d_lasth [B, H]. Returns
+    (d_xp, dh0_up, dh0_dn, dwhh_up, dbhh_up, dwin2, dbin2, dwhh_dn,
+    dbhh_dn), the order of JAX's ``_bigru_bwd_pallas_lbh``."""
+    xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn = res
+    dt, wdt = xp.dtype, whh_up.dtype
+    L, H = xp.shape[0], h0_up.shape[-1]
+    # ---- phase A: replay the up sweep (surface to top), then the down
+    up_h, gates_u = [None] * L, [None] * L
+    h = h0_up.float()
+    for l in range(L - 1, -1, -1):
+        h, g = _gru_step_gates_lbh(h, xp[l].float(), whh_up, bhh_up, H)
+        up_h[l], gates_u[l] = h.to(dt), g.to(dt)
+    g_h, gates_d = [None] * L, [None] * L
+    h2 = h0_dn.float()
+    for l in range(L):
+        xp2 = torch.matmul(up_h[l].float(), win2.float()) + bin2.float()
+        h2, g = _gru_step_gates_lbh(h2, xp2, whh_dn, bhh_dn, H)
+        g_h[l], gates_d[l] = h2.to(dt), g.to(dt)
+
+    def outer(a, b):        # a [B, M], b [B, N] -> [M, N], factors in wdt
+        return torch.matmul(a.to(wdt).float().t(), b.to(wdt).float())
+
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=xp.device)
+    dwhh_up, dbhh_up, dwin2, dbin2, dwhh_dn, dbhh_dn = map(
+        zeros, (whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn))
+    # ---- phase B1: down-sweep BPTT (surface to top)
+    dup = [None] * L
+    dg = d_lasth.float()
+    for l in range(L - 1, -1, -1):
+        dg = dg + d_down[l].float()
+        g_prev = (h0_dn if l == 0 else g_h[l - 1]).float()
+        dxp2, dg, d_hh = _gru_bwd_step_lbh(dg, gates_d[l], g_prev, whh_dn,
+                                           H)
+        dup[l] = torch.matmul(dxp2.to(wdt).float(), win2.float().t())
+        dwin2 += outer(up_h[l], dxp2)
+        dbin2 += dxp2.sum(0)
+        dwhh_dn += outer(g_prev, d_hh)
+        dbhh_dn += d_hh.sum(0)
+    dh0_dn = dg.to(h0_dn.dtype)
+    # ---- phase B2: up-sweep BPTT (top to surface); the up sweep's final
+    # carry is not an output, so its gradient starts at zero
+    d_xp = torch.empty_like(xp)
+    du = torch.zeros_like(dg)
+    for l in range(L):
+        du = du + dup[l]
+        h_prev = (h0_up if l == L - 1 else up_h[l + 1]).float()
+        dxl, du, d_hh = _gru_bwd_step_lbh(du, gates_u[l], h_prev, whh_up, H)
+        d_xp[l] = dxl.to(dt)
+        dwhh_up += outer(h_prev, d_hh)
+        dbhh_up += d_hh.sum(0)
+    dh0_up = du.to(h0_up.dtype)
+    return (d_xp, dh0_up, dh0_dn) + tuple(
+        g.to(p.dtype) for g, p in ((dwhh_up, whh_up), (dbhh_up, bhh_up),
+                                   (dwin2, win2), (dbin2, bin2),
+                                   (dwhh_dn, whh_dn), (dbhh_dn, bhh_dn)))
 
 
-def plain_vjp(fn, args, cts, needs):
-    """Gradients of ``fn(*args)`` for the cotangents ``cts`` with autograd
-    through the plain version, for the arguments flagged in ``needs`` (None
-    for the others): what JAX's custom VJPs do off the TPU."""
-    with torch.enable_grad():
-        xs = [a.detach().requires_grad_(bool(n)) for a, n in zip(args, needs)]
-        outs = fn(*xs)
-        wrt = [x for x in xs if x.requires_grad]
-        grads = iter(torch.autograd.grad(outs, wrt, cts, allow_unused=True))
-    return tuple(next(grads) if n else None for n in needs)
+def _validate_bwd_lbh(res, d_down, d_lasth) -> tuple[int, int, int]:
+    """The backward's counterpart of ``_validate_lbh``: the residuals as the
+    forward's arguments, and the cotangents d_down [L, B, H] and d_lasth
+    [B, H] of the same type, contiguous; returns (L, B, H)."""
+    L, B, H = _validate_lbh(res)
+    _check({"xp": res[0], "d_down": d_down, "d_lasth": d_lasth},
+           {"xp": (L, B, 3 * H), "d_down": (L, B, H), "d_lasth": (B, H)},
+           ("d_down", "d_lasth"))
+    return L, B, H
+
+
+# column splits of B8's weight-gradient reductions
+_SPLITS_LBH = 64
+
+
+def _launch_bwd_lbh(res, d_down, d_lasth, dims) -> tuple[torch.Tensor, ...]:
+    xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn = res
+    L, B, H = dims
+    dt, dev = xp.dtype, xp.device
+    new = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    f32 = torch.float32
+    outs = [new(L, B, 3 * H), new(B, H), new(B, H)]
+    grads = [new(*p.shape) for p in res[3:]]
+    # scratch the TPU kernel kept in VMEM: h and the gate bundles of both
+    # sweeps (xp's type) and d_up (f32); the per-level f32 gradient streams
+    # the weight-gradient reductions read (d_hh of the up and the down
+    # sweep, dxp2); the reductions' per-split partial sums. At L 50, B
+    # 21,600, H 128 in f32 that is ~11 GB (csrc/bigru_lbh_bwd.cu).
+    scratch = [new(L, B, H), new(L, B, H), new(L, B, 4 * H),
+               new(L, B, 4 * H), new(L, B, H, dtype=f32),
+               new(L, B, 3 * H, dtype=f32), new(L, B, 3 * H, dtype=f32),
+               new(L, B, 3 * H, dtype=f32),
+               new(_SPLITS_LBH * H * 3 * H, dtype=f32)]
+    # the slot order of csrc/bigru_lbh_bwd.cu's enum Slot: k-major weights
+    # ([in, out], flax's layout) for the replay, [out, in] copies for the
+    # transposed products of the BPTT
+    ptrs = [xp, h0_up, h0_dn, *(w.contiguous() for w in (whh_up, win2,
+                                                         whh_dn)),
+            *(w.t().contiguous() for w in (whh_up, win2, whh_dn)),
+            *(b.contiguous() for b in (bhh_up, bin2, bhh_dn)),
+            d_down, d_lasth, *outs, *grads, *scratch]
+    table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    lib = _build.load("bigru_lbh_bwd")
+    fn = lib.bigru_lbh_bwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(0 if dt == torch.float32 else 1, len(ptrs), table, L, H, B,
+            _SPLITS_LBH, stream)
+    _build.check_status(rc, "bigru_lbh_bwd")
+    bigru_bwd_lbh.launches += 1
+    return tuple(outs) + tuple(grads)
+
+
+def bigru_bwd_lbh(res, d_down, d_lasth):
+    """v2 BiGRU backward (JAX's ``_bigru_bwd_pallas_lbh``): ``res`` = the
+    forward's nine arguments, the cotangents of (down, last_h) in xp's type
+    -> (d_xp, dh0_up, dh0_dn, dwhh_up, dbhh_up, dwin2, dbin2, dwhh_dn,
+    dbhh_dn). A CPU tensor runs the plain version; a CUDA tensor launches
+    kernel B8 or raises."""
+    dims = _validate_bwd_lbh(res, d_down, d_lasth)
+    dev = res[0].device
+    if dev.type == "cpu":
+        return bigru_bwd_reference_lbh(res, d_down, d_lasth)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return _launch_bwd_lbh(res, d_down, d_lasth, dims)
 
 
 class _FusedBiGRULBH(torch.autograd.Function):
     """Forward: B7 (or its plain version on the CPU), saving the inputs, as
-    JAX's residuals are. Backward: autograd through the plain version on
-    the CPU; on the card it is kernel B8, not ported yet."""
+    JAX's residuals are. Backward: ``bigru_bwd_lbh``, kernel B8 on the card
+    and its plain version on the CPU."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -523,11 +671,11 @@ class _FusedBiGRULBH(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_down, d_lasth):
         args = ctx.saved_tensors
-        if args[0].device.type != "cpu":
-            raise _on_card_backward("fused_bigru_lbh (B8)",
-                                    "ROADMAP A.11, slice 4 training")
-        return plain_vjp(bigru_reference_lbh, args, (d_down, d_lasth),
-                         ctx.needs_input_grad)
+        dt = args[0].dtype
+        grads = bigru_bwd_lbh(args, d_down.to(dt).contiguous(),
+                              d_lasth.to(dt).contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
@@ -535,10 +683,12 @@ def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
     """v2 fused bidirectional GRU, level-major: xp [L, B, 3H] (the hoisted
     up-sweep projection, input bias included), h0_up/h0_dn [B, H], weights
     [H, 3H] and biases [3H], all float32 or all bfloat16 -> (down
-    [L, B, H], last_h [B, H]). A CPU tensor runs the plain version; a CUDA
-    tensor launches kernel B7 or raises."""
+    [L, B, H], last_h [B, H]); differentiable in all nine. A CPU tensor
+    runs the plain versions; a CUDA tensor launches kernel B7 (and, for
+    gradients, B8) or raises."""
     return _FusedBiGRULBH.apply(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
                                 bin2, whh_dn, bhh_dn)
 
 
 fused_bigru_lbh.launches = 0
+bigru_bwd_lbh.launches = 0

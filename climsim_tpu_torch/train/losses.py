@@ -1,12 +1,14 @@
 """Training losses (counterpart of ``climsim_tpu/train/losses.py``): the
-huber/mse/mae menu, the per-feature weighted loss, the GEL loss on
-window-accumulated precipitation and the absolute batch-mean bias.
-``block_weights`` (variable sets), ``gel_loss`` and
-``rh_consistency_loss`` (raw state) wait for ROADMAP A.7/A.8."""
+huber/mse/mae menu, the per-feature weighted loss, the Clausius-Clapeyron
+RH-consistency term on the raw state, the GEL loss on window-accumulated
+precipitation and the absolute batch-mean bias. ``block_weights``
+(variable sets) and ``gel_loss`` wait for ROADMAP A.7/A.8."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..physics import thermo
 
 
 def huber(pred, target, delta: float = 1.0):
@@ -40,6 +42,18 @@ def weighted_loss(pred, target, feature_w, kind: str = "huber",
         quad = torch.clamp(a, max=delta)
         per = 0.5 * quad ** 2 + delta * (a - quad)
     return torch.mean(per * feature_w)
+
+
+def rh_consistency_loss(dqv_raw, dT_raw, qv_old, T_old, pmid,
+                        dt: float = 1200.0, rh_max: float = 1.05):
+    """Penalty on predicted states that become supersaturated: the mean
+    square of RH above ``rh_max`` after one step of ``dt`` seconds
+    (rnn/metrics.py:318-476). All arguments in raw units: tendencies,
+    state and pmid [Pa] of one shape, e.g. [B, L]."""
+    qv_new = torch.clamp(qv_old + dt * dqv_raw, min=0.0)
+    T_new = torch.clamp(T_old + dt * dT_raw, min=100.0)
+    rh = thermo.specific_to_relative_humidity_cc(qv_new, T_new, pmid)
+    return torch.mean(torch.square(torch.clamp(rh - rh_max, min=0.0)))
 
 
 def gel_precip_loss(true_sfc, pred_sfc, timesteps: int, lam: float = 1.0,

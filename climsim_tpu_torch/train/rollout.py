@@ -9,7 +9,8 @@ of ``climsim_tpu/train/rollout.py``).
   into the previous-physics input channels ('mixed' for a random column
   subset whose fraction ramps with ``gradual_mixing_end_epoch``);
 * the loss = weighted huber/mse/mae + energy, water, cloud-water-path,
-  precipitation, GEL-precipitation and bias terms;
+  precipitation, GEL-precipitation and bias terms, and with the raw state
+  the negative-precipitation, positivity and RH-consistency terms;
 * the curriculum ``rollout_schedule`` maps epoch -> W;
 * ``remat`` checkpoints each window step (activations are recomputed in
   the backward pass);
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..constants import DT_STEP
 from ..ops import resolve_device
 from ..physics import conservation
 from . import losses as L
@@ -57,7 +59,9 @@ class RolloutConfig:
     gel_lambda: float = 1.0
     # absolute batch-mean bias penalty over the window outputs
     w_bias: float = 0.0
-    # raw-state terms (RH consistency, positivity): not ported
+    # raw-state terms (need pass_x_raw): RH consistency, qv and qn
+    # positivity after one DT_STEP; mp_mode 1/-1 reads dqn from output 2,
+    # otherwise outputs 2 + 3
     w_rh: float = 0.0
     rh_max: float = 1.05
     w_qvpos: float = 0.0
@@ -65,7 +69,8 @@ class RolloutConfig:
     mp_mode: int = 1
     # cloud-water-path MSE between predicted and true tendencies
     w_cld: float = 0.0
-    # flux-model and ensemble terms: not ported
+    # the physics model's negative-precipitation penalty (its aux
+    # 'prec_negative'); the ensemble term w_det is not ported
     w_precip_neg: float = 0.0
     w_det: float = 0.0
     # static loss-weight factors: heating tendencies in the top
@@ -218,9 +223,8 @@ class RolloutTrainer:
         if cfg.semi_online or any(a is not None for a in (
                 xmean_prog, xdiv_prog, lbd_qc, lbd_qi)):
             raise _unported("semi-online training", "A.7")
-        for w in ("w_rh", "w_qvpos", "w_qnpos", "w_precip_neg", "w_det"):
-            if getattr(cfg, w) > 0:
-                raise _unported(f"loss term {w}", "A.7")
+        if cfg.w_det > 0:
+            raise _unported("loss term w_det", "A.7")
         if cfg.ensemble_size > 1:
             raise _unported("ensemble training (ensemble_size > 1)", "A.7")
         self.device = resolve_device(device)
@@ -317,8 +321,18 @@ class RolloutTrainer:
             else:
                 res = self._apply(self.model, x_lev, x_sfc, mem, x_raw)
             out, out_sfc, mem = res[:3]
-            loss = cfg.w_main * main_loss(out, y_lev, out_sfc, y_sfc)
-            if cfg.w_energy > 0 or cfg.w_water > 0 or cfg.w_cld > 0:
+            aux = res[3] if len(res) > 3 else None
+            # the extra terms are summed apart and added to the weighted
+            # main loss last, in the JAX trainer's order
+            extra = 0.0
+            if aux is not None and cfg.w_precip_neg > 0 \
+                    and "prec_negative" in aux:
+                extra = extra + cfg.w_precip_neg * torch.mean(
+                    torch.square(aux["prec_negative"]))
+            raw_terms = x_raw is not None and (
+                cfg.w_qvpos > 0 or cfg.w_qnpos > 0 or cfg.w_rh > 0)
+            if cfg.w_energy > 0 or cfg.w_water > 0 or cfg.w_cld > 0 \
+                    or raw_terms:
                 ys, yss = self.yscale_lev, self.yscale_sca
                 od = out / ys if ys is not None else out
                 osd = out_sfc / yss if yss is not None else out_sfc
@@ -326,18 +340,21 @@ class RolloutTrainer:
                 tsd = y_sfc / yss if yss is not None else y_sfc
                 hy = (self.hyai, self.hybi)
                 if cfg.w_energy > 0:
-                    loss = loss + cfg.w_energy \
+                    extra = extra + cfg.w_energy \
                         * conservation.energy_conservation_mse(
                             td, tsd, od, osd, sp, *hy)
                 if cfg.w_water > 0:
-                    loss = loss + cfg.w_water \
+                    extra = extra + cfg.w_water \
                         * conservation.water_conservation_mse(
                             od, osd, sp, *hy)
                 if cfg.w_cld > 0:
                     cwp_p = conservation.cloud_water_path(od, sp, *hy)
                     cwp_t = conservation.cloud_water_path(td, sp, *hy)
-                    loss = loss + cfg.w_cld * torch.mean(
+                    extra = extra + cfg.w_cld * torch.mean(
                         torch.square(cwp_p - cwp_t))
+                if raw_terms:
+                    extra = extra + self._raw_state_terms(od, x_raw, sp)
+            loss = cfg.w_main * main_loss(out, y_lev, out_sfc, y_sfc) + extra
             return mem, out, out_sfc, loss
 
         run = step
@@ -379,6 +396,31 @@ class RolloutTrainer:
             loss = loss + cfg.w_precip * torch.mean(
                 torch.square(prec_pred - prec_true)) / (W * W)
         return loss, mem
+
+    def _raw_state_terms(self, od, x_raw, sp):
+        """The weighted raw-state terms of one step: the positivity of qv
+        and of qn = qc + qi, and the RH consistency, after one DT_STEP of
+        the raw tendencies ``od`` [B, L, ny] from the raw state ``x_raw``
+        [B, L, C] with channels [T, qv, qc, qi, ...]."""
+        cfg = self.cfg
+        extra = 0.0
+        if cfg.w_qvpos > 0:
+            qv_new = x_raw[..., 1] + DT_STEP * od[..., 1]
+            extra = extra + cfg.w_qvpos * torch.mean(
+                torch.square(torch.relu(-qv_new)))
+        if cfg.w_qnpos > 0:
+            dqn = od[..., 2] if cfg.mp_mode in (1, -1) \
+                else od[..., 2] + od[..., 3]
+            qn_new = x_raw[..., 2] + x_raw[..., 3] + DT_STEP * dqn
+            extra = extra + cfg.w_qnpos * torch.mean(
+                torch.square(torch.relu(-qn_new)))
+        if cfg.w_rh > 0:
+            p_int = 1e5 * self.hyai[None] + self.hybi[None] * sp[:, None]
+            pmid = 0.5 * (p_int[:, 1:] + p_int[:, :-1])
+            extra = extra + cfg.w_rh * L.rh_consistency_loss(
+                od[..., 1], od[..., 0], x_raw[..., 1], x_raw[..., 0], pmid,
+                rh_max=cfg.rh_max)
+        return extra
 
     def update(self, window, mem, mix_mask):
         """One optimizer update on one window: (detached new memory,

@@ -270,16 +270,70 @@ def test_b7_kernel_matches_plain_bf16(cuda):
         assert (g.float() - w.float()).abs().max().item() <= 4 * own
 
 
+def _b8_inputs(L, H, B, dtype, device, seed=7):
+    """The residuals of the v2 backward (as _b7_inputs) and the cotangents
+    of (down, last_h)."""
+    a = _b7_inputs(L, H, B, torch.float32, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    ct = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                          device=device) for s in ((L, B, H), (B, H))]
+    return [t.to(dtype) for t in a], ct[0].to(dtype), ct[1].to(dtype)
+
+
 @pytest.mark.cuda
-def test_b7_backward_on_card_raises(cuda):
-    """The v2 backward on the card is kernel B8, not ported: it raises
-    instead of running the plain version there."""
-    from climsim_tpu_torch.ops import fused_bigru_lbh
-    a = _b7_inputs(8, 32, 16, torch.float32, cuda)
-    a[0].requires_grad_(True)
-    down, _ = fused_bigru_lbh(*a)
-    with pytest.raises(NotImplementedError, match="B8"):
-        down.sum().backward()
+@pytest.mark.parametrize("B", [16, 150])
+def test_b8_kernel_matches_plain_f32(cuda, B):
+    """f32, ragged B (150 is not a multiple of the 32-column tile): each
+    of the nine outputs to 2e-5 of its scale (summation order over 2 x 24
+    levels of BPTT and the L x B gradient sums)."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, bigru_bwd_reference_lbh
+    res, dd, dl = _b8_inputs(24, 32, B, torch.float32, cuda)
+    before = bigru_bwd_lbh.launches
+    got = bigru_bwd_lbh(res, dd, dl)
+    want = bigru_bwd_reference_lbh(res, dd, dl)
+    assert bigru_bwd_lbh.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert _rel_err(g, w) <= 2e-5, (i, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_b8_kernel_matches_plain_bf16(cuda):
+    """bf16: each output may differ from the plain version by 4x the plain
+    version's own bf16-vs-f32 error, plus 1e-3 of its scale."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, bigru_bwd_reference_lbh
+    res, dd, dl = _b8_inputs(24, 32, 150, torch.bfloat16, cuda)
+    got = bigru_bwd_lbh(res, dd, dl)
+    want = bigru_bwd_reference_lbh(res, dd, dl)
+    want32 = bigru_bwd_reference_lbh([a.float() for a in res], dd.float(),
+                                     dl.float())
+    for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        own = (w.float() - w32).abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 4 * own + 1e-3 * w32.abs().max().item(), (i, err, own)
+
+
+@pytest.mark.cuda
+def test_b7_autograd_launches_b8(cuda):
+    """The v2 layer's gradients on the card: B7 forward and B8 backward,
+    one launch each, against autograd of the same inputs on the CPU (f32,
+    1e-4 of each gradient's scale)."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, fused_bigru_lbh
+    a = _b7_inputs(12, 32, 40, torch.float32, "cpu")
+
+    def grads(dev):
+        x = [t.to(dev, copy=True).requires_grad_(True) for t in a]
+        down, lasth = fused_bigru_lbh(*x)
+        ((down ** 2).sum() + (lasth ** 2).sum()).backward()
+        return [t.grad.cpu() for t in x]
+
+    b7, b8 = fused_bigru_lbh.launches, bigru_bwd_lbh.launches
+    card = grads(cuda)
+    assert (fused_bigru_lbh.launches, bigru_bwd_lbh.launches) == (b7 + 1,
+                                                                   b8 + 1)
+    for i, (g, w) in enumerate(zip(card, grads("cpu"))):
+        assert _rel_err(g, w) <= 1e-4, (i, _rel_err(g, w))
 
 
 def _radiation_inputs(device, B=150, nlev=60, ng=8, seed=8):
@@ -347,3 +401,92 @@ def test_phys_model_on_card_matches_cpu(cuda):
                 np.asarray(a, np.float32), device=dev) for a in args])[:3]]
     for c, p in zip(outs["cuda"], outs["cpu"]):
         assert _rel_err(c, p) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["sw", "lw"])
+def test_radiation_bwd_kernels_match_plain(cuda, solver):
+    """B13 and B14 against their plain versions: each gradient to 1e-5 of
+    its scale (FMA contraction through the replay and both backward
+    sweeps); one launch each."""
+    from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
+                                       lw_solver_noscat_bwd,
+                                       lw_solver_noscat_bwd_reference)
+    sw, lw = _radiation_inputs(cuda)
+    kern, ref, args = ((adding_sw_bwd, adding_sw_bwd_reference, sw)
+                       if solver == "sw" else
+                       (lw_solver_noscat_bwd, lw_solver_noscat_bwd_reference,
+                        lw))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, nlev, ng = args[3].shape if solver == "sw" else args[0].shape
+    cts = [torch.randn((B, nlev + 1, ng), generator=g, device=cuda)
+           for _ in range(3 if solver == "sw" else 2)]
+    before = kern.launches
+    got, want = kern(args, cts), ref(args, cts)
+    assert kern.launches == before + 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        assert _rel_err(a, b) <= 1e-5, (i, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+def test_phys_update_on_card_matches_cpu(cuda):
+    """One W 2 training update of a small PhysicalRNNAutoreg (yaml
+    options, nneur 32) with the yaml's loss on the card (B7, B8, B11-B14,
+    each launched W times) against the same update on the CPU: the loss to
+    1e-5, and every gradient to 1e-4 of its scale (f32 order of summation).
+    The precipitation scale 1e12 keeps the stored pools under their cap,
+    so that every gradient is a real one (tests/test_torch_phys_train.py)."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_fast,
+                                       bigru_bwd_lbh, fused_bigru_lbh,
+                                       lw_solver_noscat_bwd,
+                                       lw_solver_noscat_fast)
+    from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
+                                         phys_apply, phys_mem_shape)
+    g = Grid.synthetic(4, 60)
+    tt = lambda a: tuple(a.tolist())
+    kw = dict(nx=15, nx_sfc=24, nneur=(32, 32), nh_mem=8, use_physrad=True,
+              use_mcica=True, use_qv_variability=True, use_pallas=True,
+              hyai=tt(g.hyai), hybi=tt(g.hybi), hyam=tt(g.hyam),
+              hybm=tt(g.hybm), sp_mean=9.8e4, yscale_t=1e5, yscale_qv=1e8,
+              yscale_qn=1e8, yscale_precc=1e12)
+    W, B = 2, 40
+    rng = np.random.default_rng(10)
+    xd = np.zeros((W, B, 60, 6), np.float32)
+    xd[..., 0] = rng.uniform(200, 300, (W, B, 60))
+    xd[..., 5] = np.abs(rng.normal(1e-3, 3e-4, (W, B, 60)))
+    xd[..., 2] = np.abs(rng.normal(0, 1e-5, (W, B, 60)))
+    n = lambda *s: rng.normal(0, 1, s).astype(np.float32)
+    chunk = {"x_lev": n(W, B, 60, 15), "x_sfc": n(W, B, 24),
+             "y_lev": 0.3 * n(W, B, 60, 5), "y_sfc": 0.3 * n(W, B, 8),
+             "sp": np.full((W, B), 1e5, np.float32), "x_lev_raw": xd}
+    cfg = RolloutConfig(rollout_schedule={0: W}, loss="huber", lr=5e-4,
+                        w_energy=5e-6, w_water=3e7, pass_x_raw=True,
+                        pass_y_true=True)
+    wrappers = (fused_bigru_lbh, bigru_bwd_lbh, adding_sw_fast,
+                lw_solver_noscat_fast, adding_sw_bwd, lw_solver_noscat_bwd)
+
+    def update(dev):
+        m = PhysicalRNNAutoreg(**kw, device=dev)
+        tr = RolloutTrainer(m, cfg, g.hyai.numpy(), g.hybi.numpy(),
+                            yscale_lev=np.array([1e5, 1e8, 1e8, 1e5, 1e5],
+                                                np.float32)[None, None],
+                            yscale_sca=np.array([1e-2, 1e-2, 1e12, 1e12,
+                                                 1e-2, 1e-2, 1e-2, 1e-2],
+                                                np.float32),
+                            apply_fn=phys_apply, mem_shape=phys_mem_shape(m),
+                            device=dev)
+        before = [w.launches for w in wrappers]
+        _, rec = tr.run_epoch(None, [chunk], 0)
+        launches = [w.launches - b for w, b in zip(wrappers, before)]
+        return rec["loss"], launches, {k: p.grad.cpu()
+                                       for k, p in m.named_parameters()}
+
+    lc, nc, gc = update(cuda)
+    lp, np_, gp = update("cpu")
+    assert nc == [W] * 6 and np_ == [0] * 6
+    assert np.isfinite(lc) and lc == pytest.approx(lp, rel=1e-5)
+    for k in gp:
+        assert _rel_err(gc[k], gp[k]) <= 1e-4, (k, _rel_err(gc[k], gp[k]))

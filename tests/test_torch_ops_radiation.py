@@ -96,8 +96,8 @@ def test_wrappers_take_plain_path_on_cpu():
 
 @pytest.mark.parametrize("solver", ["sw", "lw"])
 def test_autograd_matches_jax_vjp(solver):
-    """The wrappers' CPU backward differentiates the plain version: every
-    input's gradient agrees with jax.vjp of the scan solver (what the
+    """The wrappers' CPU backward (the plain versions of B13 and B14):
+    every input's gradient agrees with jax.vjp of the scan solver (what the
     custom VJP does off the TPU) to 1e-5 of its scale."""
     if solver == "sw":
         a, fast, ref = _sw_inputs(10, 4, seed=2), adding_sw_fast, \

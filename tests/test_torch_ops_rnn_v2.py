@@ -91,7 +91,7 @@ def test_cpu_wrapper_takes_plain_path():
 
 
 def test_autograd_matches_jax_vjp():
-    """The wrapper's CPU backward differentiates the plain version: the
+    """The wrapper's CPU backward (the plain version of B8): the
     gradients of all nine inputs agree with jax.vjp of the scan reference
     (what the Pallas op's custom VJP does off the TPU) to 1e-4 of each
     gradient's scale (f32 summation order through 48 levels of BPTT)."""

@@ -394,8 +394,7 @@ def test_init_gives_zero_memory_and_fresh_optimizer():
     assert not tt.opt.state
 
 
-UNPORTED = [dict(semi_online=True), dict(w_rh=1.0), dict(w_qvpos=1.0),
-            dict(w_qnpos=1.0), dict(w_precip_neg=1.0), dict(w_det=1.0),
+UNPORTED = [dict(semi_online=True), dict(w_det=1.0),
             dict(ensemble_size=2), dict(optimizer="soap"),
             dict(optimizer="muon"), dict(optimizer="schedulefree")]
 
