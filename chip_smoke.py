@@ -28,7 +28,14 @@ Three paths, each at full width with random weights from a seed:
   w_hcon 5e-6, w_wcon 3e7, Adam 5e-4, the curriculum's last window W 3,
   teacher-forced radiation state, no remat, f32), as
   cli/train_rollout.py wires ``type: physrnn``: per step B7, B11 and B12
-  forward, and their backward kernels B8, B13 and B14.
+  forward, and their backward kernels B8, B13 and B14;
+* the coupled step's other serving arms (ARMS below) at the same width and
+  grid: the four other emulator arms that bench.py times (v5 channel-major
+  with kernel B4, v2 batch-major with B7 at H 192, the scan with the fused
+  stencil and with the per-field plain stencil), and the flagship on the
+  other transport configurations (flat FV through the fused B5 and one
+  field at a time through B6, semi-Lagrangian transport on the sphere with
+  vertical advection).
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -36,13 +43,17 @@ Phases (any failure exits non-zero):
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
      and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
+     then B4 (f32 and bf16, projections hoisted and not, at 21,600 and
+     1,000 columns), B5 (6, 60, 120, 180), B6 (60, 120, 180) and B7 at
+     the flagship's H 192 (f32 and bf16);
   3. 20 coupled steps at 21,600 columns, with the launch counters set to
      0 just before and read just after: each serving kernel must launch
-     20 times;
+     20 times; then the same for each other serving arm, whose kernels
+     must each launch their count per step and no other kernel at all;
   4. 3 coupled steps at 384 columns on the card and on the CPU (plain
-     versions), compared;
-  5. gradients through the differentiable fused layer at 384 columns, on
-     the card (B1 + B3) and on the CPU, compared;
+     versions), compared, for every serving arm;
+  5. gradients through the differentiable fused layers (v6: B1 + B3; v5:
+     B4 + B3) at 384 columns, on the card and on the CPU, compared;
   6. the training path: one chunk of 16 steps (4 updates) at 21,600
      columns, counters set to 0 just before and read just after: B3 must
      launch W times and B1 2W times per update; finite loss and memory,
@@ -63,7 +74,8 @@ Phases (any failure exits non-zero):
      changed; then one update at 384 columns on the card and on the CPU,
      compared after counting the McICA sample indices that differ;
   9. timings with CUDA events (median of 5 repeats), peak memory and
-     profiler splits;
+     profiler splits; every serving arm's coupled step with its device
+     idle share, B4, B5, B6 and B7 at H 192;
  10. a JSON line of the kernels, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -125,6 +137,34 @@ PHYS_TRAIN = dict(w_main=1.0, w_energy=5e-6, w_water=3e7, optimizer="adam",
 PHYS_T_TRAIN = 6
 PHYS_YSCALE_LEV = [1e5, 1e8, 1e8, 1e5, 1e5]
 PHYS_YSCALE_SFC = [1e-2, 1e-2, 1e7, 1e7, 1e-2, 1e-2, 1e-2, 1e-2]
+# the coupled step's serving arms: the RNNAutoreg flags on top of the
+# flagship's (use_pallas, bf16), the HostLoopConfig fields on top of the
+# production step's (sphere FV through the fused stencil, both fixers,
+# channel-major), and the kernels each launches per coupled step. "v6" is
+# the main path of phase 3; v5, v2, scan and scan_xla are the other arms
+# bench.py:341-345 times; the last three run the flagship on the other
+# transport configurations. A flat raster takes the proxy grid's mean
+# spacing as its cell size (flat_spacing). With vertical advection the
+# winds start smooth (initial_state): bench.py's white-noise winds of
+# 10 m/s give a divergence of ~1 per step next to the poles of the 2-degree
+# grid and, through 60 layers of 1,000 Pa, vertical Courant numbers of ~8,
+# beyond what the first-order upwind transport (which has no clip, in JAX
+# as here) keeps stable.
+V6_FLAGS = dict(fuse_heads=True, fuse_init=True, level_major=True)
+BATCH_MAJOR = dict(emulator_level_major=False)
+ARMS = {
+    "v6": (V6_FLAGS, {}, {"b1": 1, "b2": 1}),
+    "v5": (dict(fuse_heads=True, level_major=True), {}, {"b4": 1, "b2": 1}),
+    "v2": ({}, BATCH_MAJOR, {"b7": 1, "b2": 1}),
+    "scan": (dict(use_pallas=False), BATCH_MAJOR, {"b2": 1}),
+    "scan_xla": (dict(use_pallas=False), dict(BATCH_MAJOR, use_pallas=False),
+                 {}),
+    "v6_flat": (V6_FLAGS, dict(geometry="flat"), {"b1": 1, "b5": 1}),
+    "v6_sl_vertical": (V6_FLAGS, dict(scheme="semi_lagrangian",
+                                      vertical_advection=True), {"b1": 1}),
+    "v6_flat_per_field": (V6_FLAGS, dict(geometry="flat", use_pallas=False),
+                          {"b1": 1, "b6": 6}),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -186,34 +226,53 @@ class ProxyGrid:
         return torch.full((ps.shape[0], self.nlev), 1e3, device=ps.device)
 
 
-def make_model(policy, device, seed=0):
+def make_model(policy, device, seed=0, arm="v6"):
+    """bench.py's emulator (nx 6, nneur 192/192, nh_mem 16) with the
+    arm's flags."""
     from climsim_tpu_torch.models import RNNAutoreg
+    flags = {"use_pallas": True, **ARMS[arm][0]}
     return RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(192, 192),
                       nh_mem=16, add_pres=False, policy=policy,
-                      use_pallas=True, fuse_heads=True, fuse_init=True,
-                      level_major=True, device=device, seed=seed)
+                      device=device, seed=seed, **flags)
 
 
-def make_loop(model, grid, nlat, nlon, device):
-    """bench.py's production step: normalise -> model -> scale, inside the
-    hybrid loop with the fused stencil and both fixers."""
+def flat_spacing(nlat, nlon):
+    """A flat raster's cell sizes (dx, dy) in m: the proxy grid's mean
+    zonal and meridional spacing, 2 pi a / nlon and pi a / nlat."""
+    from climsim_tpu_torch.constants import EARTH_RADIUS
+    return 2 * np.pi * EARTH_RADIUS / nlon, np.pi * EARTH_RADIUS / nlat
+
+
+def make_loop(model, grid, nlat, nlon, device, arm="v6"):
+    """bench.py's step: normalise -> model -> scale, inside the hybrid
+    loop in the arm's configuration (by default the production step: the
+    fused spherical stencil and both fixers)."""
     from climsim_tpu_torch.online import HostLoopConfig, HybridLoop
     dev = next(model.parameters()).device
-    xsc = torch.tensor(XSCALE, device=dev)[:, None]
-    ysc = torch.tensor(YSCALE, device=dev)[:, None]
+    over = dict(ARMS[arm][1])
+    if over.get("geometry") == "flat":
+        over["dx"], over["dy"] = flat_spacing(nlat, nlon)
+    cfg = HostLoopConfig(**{**dict(nlat=nlat, nlon=nlon, scheme="fv",
+                                   geometry="sphere", use_pallas=True,
+                                   fix_water=True, fix_energy=True,
+                                   emulator_level_major=True), **over})
+    col = (lambda t: t[:, None]) if cfg.emulator_level_major else \
+        (lambda t: t)
+    xsc = col(torch.tensor(XSCALE, device=dev))
+    ysc = col(torch.tensor(YSCALE, device=dev))
 
     def emulator(x_main_raw, x_sfc_raw, mem):
         out, out_sfc, mem = model(x_main_raw / xsc, x_sfc_raw, mem)
         return out * ysc, out_sfc, mem
 
-    cfg = HostLoopConfig(nlat=nlat, nlon=nlon, scheme="fv",
-                         geometry="sphere", use_pallas=True, fix_water=True,
-                         fix_energy=True, emulator_level_major=True)
     return HybridLoop(emulator, grid, cfg, device=device)
 
 
-def initial_state(ncol, nlev, device):
-    """bench.py's initial state (np.random.default_rng(1))."""
+def initial_state(ncol, nlev, device, level_major=True, lat=None):
+    """bench.py's initial state (np.random.default_rng(1)); the memory in
+    the emulator contract's layout. Given the columns' latitudes ``lat``
+    (degrees), the winds are a smooth flow instead: a zonal jet u = 10 m/s
+    cos(lat) and a Hadley-like meridional cell v = 3 m/s sin(2 lat)."""
     rng = np.random.default_rng(1)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     state = {
@@ -224,10 +283,74 @@ def initial_state(ncol, nlev, device):
         "u": t(rng.normal(0, 10, (ncol, nlev))),
         "v": t(rng.normal(0, 3, (ncol, nlev))),
     }
-    mem = torch.zeros((nlev, 16, ncol), device=device)
+    if lat is not None:
+        phi = np.deg2rad(np.asarray(lat, np.float64))[:, None]
+        state["u"] = t(np.repeat(10 * np.cos(phi), nlev, axis=1))
+        state["v"] = t(np.repeat(3 * np.sin(2 * phi), nlev, axis=1))
+    mem = torch.zeros((nlev, 16, ncol) if level_major else
+                      (ncol, nlev, 16), device=device)
     x_sfc = torch.cat([torch.full((ncol, 1), 1e5), torch.ones((ncol, 23))],
                       dim=1).to(device)
     return state, mem, x_sfc
+
+
+def smooth_lat(arm, grid):
+    """The columns' latitudes where the arm's winds start smooth (with
+    vertical advection), else None."""
+    if not ARMS[arm][1].get("vertical_advection"):
+        return None
+    lat = grid.lat
+    return lat.cpu().numpy() if isinstance(lat, torch.Tensor) else lat
+
+
+def all_wrappers() -> dict:
+    """Every kernel wrapper of the port, by id, for its launch counter."""
+    from climsim_tpu_torch import ops
+    return {"b1": ops.fused_bigru_heads_init_cm,
+            "b2": ops.fv_advect_tracers_sphere, "b3": ops.bigru_heads_cm_bwd,
+            "b4": ops.fused_bigru_heads_cm, "b5": ops.fv_advect_tracers,
+            "b6": ops.fv_advect_levels, "b7": ops.fused_bigru_lbh,
+            "b8": ops.bigru_bwd_lbh, "b11": ops.adding_sw_fast,
+            "b12": ops.lw_solver_noscat_fast, "b13": ops.adding_sw_bwd,
+            "b14": ops.lw_solver_noscat_bwd}
+
+
+def run_arm(arm, card):
+    """One serving arm at 21,600 columns: N_STEPS coupled steps with every
+    launch counter set to 0 just before and read just after. Each of the
+    arm's kernels must launch its count per step and no other kernel at
+    all; the state must stay finite with mean T in [150, 350] K. Returns
+    (loop, inputs, launches)."""
+    from climsim_tpu_torch.models import BF16
+    ncol = NLAT * NLON
+    dev = torch.device("cuda")
+    model = make_model(BF16, None, arm=arm)     # device=None: the card
+    grid = ProxyGrid(NLAT, NLON, NLEV, dev)
+    loop = make_loop(model, grid, NLAT, NLON, None, arm)
+    inputs = initial_state(ncol, NLEV, dev, model.level_major,
+                           smooth_lat(arm, grid))
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    st, mem, diags = loop.rollout(*inputs, N_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    want = {k: n * N_STEPS for k, n in ARMS[arm][2].items()}
+    print(f"serving arm {arm} ({model.arm} emulator): {N_STEPS} coupled "
+          f"steps at {ncol} columns in {wall:.3f} s (first run); launches "
+          f"{launches} [{card}]")
+    check(launches == want, f"arm {arm}: launches {launches}, want {want}")
+    for k, v in st.items():
+        check(bool(torch.isfinite(v).all()), f"arm {arm}: state {k}")
+    check(bool(torch.isfinite(mem).all()), f"arm {arm}: mem not finite")
+    mean_t = diags["mean_T"].cpu()
+    check(bool(((mean_t > 150) & (mean_t < 350)).all()),
+          f"arm {arm}: mean_T out of [150, 350] K: {mean_t.tolist()}")
+    print(f"serving arm {arm}: mean_T {mean_t[0].item():.4f} -> "
+          f"{mean_t[-1].item():.4f} K")
+    return loop, inputs, launches
 
 
 # ------------------------------------------------------------ phase 2
@@ -434,38 +557,126 @@ def b3_split(args) -> dict:
     return split
 
 
-def check_vjp_384(card):
-    """Gradients of all 19 inputs through the differentiable
-    fused_bigru_heads_init_cm at 384 columns: B1 forward and B3 backward
-    on the card against the plain versions on the CPU, f32 to 1e-4 of each
-    gradient's scale, bf16 as check_b3."""
+def b4_args(model, B, dtype, seed):
+    """B4's arguments at the v5 arm's shapes: a tanh stream x [L, 192, B]
+    (the initial MLP's output), random memory and h0s, and the v5 model's
+    (lecun-normal) weights in the layout the fused layer passes."""
+    layer = model.bigru_fused
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, L, CH = layer.hidden, NLEV, layer.ch
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    tw = lambda t: t.detach().to(dtype).t()
+    tb = lambda t: t.detach().to(dtype)[:, None]
+    return (torch.tanh(r(L, CH, B)), 0.5 * r(L, layer.nm_in, B),
+            torch.tanh(r(H, B)), torch.tanh(r(H, B)), tw(layer.win1[:CH]),
+            tw(layer.win1[CH:]), tb(layer.bin1), tw(layer.whh_up),
+            tb(layer.bhh_up), tw(layer.win2), tb(layer.bin2),
+            tw(layer.whh_dn), tb(layer.bhh_dn), tw(layer.wlat),
+            tb(layer.blat), tw(layer.wout), tb(layer.bout))
+
+
+def check_b4(model, card):
+    """B4 against its plain version on the card at the v5 arm's shapes,
+    at 21,600 and a ragged 1,000 columns, with the projections hoisted
+    (rounded to the storage type, the serving default) and not (f32). f32
+    to 1e-5 + 1e-5*|x| as B1 (in f32 the two variants are one function);
+    bf16 to 4x the plain version's own bf16-vs-f32 error, as check_b1."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference as ref,
+                                       fused_bigru_heads_cm as kern)
+    errs = []
+    for B in (NLAT * NLON, 1000):
+        a32 = b4_args(model, B, torch.float32, seed=B + 2)
+        a16 = tuple(t.to(torch.bfloat16) for t in a32)
+        for hoist in (True, False):
+            got = kern(*a32, hoist_proj=hoist)
+            want = ref(*a32, hoist_proj=hoist)
+            e = max_err(got, want)
+            print(f"B4 f32 B={B} hoist_proj={hoist}: max_abs_err {e:.3e}; "
+                  f"tolerance 1e-5 + 1e-5*|x| [{card}]")
+            for x, y in zip(got, want):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+            errs.append(e)
+            got16 = kern(*a16, hoist_proj=hoist)
+            want16 = ref(*a16, hoist_proj=hoist)
+            e16 = max_err(got16, want16)
+            own = max_err(want16, ref(*(t.float() for t in a16),
+                                      hoist_proj=hoist))
+            print(f"B4 bf16 B={B} hoist_proj={hoist}: max_abs_err "
+                  f"{e16:.3e}, plain bf16-vs-f32 {own:.3e}; tolerance 4x "
+                  f"that [{card}]")
+            check(e16 <= 4.0 * own, f"B4 bf16 B={B} hoist {hoist}: {e16} "
+                  f"> 4 x {own}")
+            errs.append(e16)
+        del a32, a16, got, want, got16, want16
+    return max(errs)
+
+
+def check_flat(card):
+    """B5 at (6, 60, 120, 180) and B6 at (60, 120, 180), f32, against their
+    plain version on the card, on the flat arm's raster (flat_spacing,
+    dt 1200 s) with winds of 60 and 40 m/s rms, whose Courant numbers
+    reach past 1 (the flat stencil has no clip). nvcc contracts a*b+c into
+    FMAs: tolerance 1e-5 + 1e-5*|x|, as B2. Returns (errors, inputs)."""
+    from climsim_tpu_torch.constants import DT_STEP
+    from climsim_tpu_torch.ops import (fv_advect_levels, fv_advect_tracers,
+                                       fv_tracers_reference as ref)
+    dx, dy = flat_spacing(NLAT, NLON)
+    dt_dx, dt_dy = DT_STEP / dx, DT_STEP / dy
+    g = torch.Generator(device="cuda").manual_seed(21)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    qs = 1 + 0.3 * r(6, NLEV, NLAT, NLON)
+    u, v = 60 * r(NLEV, NLAT, NLON), 40 * r(NLEV, NLAT, NLON)
+    courant = max((u * dt_dx).abs().max().item(),
+                  (v * dt_dy).abs().max().item())
+    errs = {}
+    for name, kern, q in (("B5", fv_advect_tracers, qs),
+                          ("B6", fv_advect_levels, qs[0].contiguous())):
+        got, want = kern(q, u, v, dt_dx, dt_dy), ref(q, u, v, dt_dx, dt_dy)
+        errs[name] = (got - want).abs().max().item()
+        print(f"{name} {tuple(q.shape)}: max_abs_err {errs[name]:.3e}; "
+              f"Courant numbers up to {courant:.2f} [{card}]")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return errs, (qs, u, v, dt_dx, dt_dy)
+
+
+def check_vjp_384(card, arm="v6"):
+    """Gradients of every input through the arm's differentiable fused
+    layer at 384 columns: for v6 fused_bigru_heads_init_cm (B1 forward,
+    B3 backward), for v5 fused_bigru_heads_cm (B4 forward, B3 backward),
+    on the card against the plain versions on the CPU, f32 to 1e-4 of
+    each gradient's scale, bf16 as check_b3."""
     from climsim_tpu_torch.models import F32
-    from climsim_tpu_torch.ops import fused_bigru_heads_init_cm
-    a = b1_args(make_model(F32, "cpu"), LO_NLAT * LO_NLON, torch.float32,
-                seed=9)
+    from climsim_tpu_torch.ops import (fused_bigru_heads_cm,
+                                       fused_bigru_heads_init_cm)
+    model = make_model(F32, "cpu", arm=arm)
+    args_fn, op = ((b1_args, fused_bigru_heads_init_cm) if arm == "v6"
+                   else (b4_args, fused_bigru_heads_cm))
+    a = args_fn(model, LO_NLAT * LO_NLON, torch.float32, seed=9)
 
     def grads(dev, dt):
         x = [t.to(dev, dt, copy=True).requires_grad_(True) for t in a]
         with torch.enable_grad():
-            om, lh = fused_bigru_heads_init_cm(*x)
+            om, lh = op(*x)
             ((om.float() ** 2).sum() + (lh.float() ** 2).sum()).backward()
         return [t.grad.float().cpu() for t in x]
 
     cpu32 = grads("cpu", torch.float32)
     worst = max(rel_err(g, w) for g, w in zip(grads("cuda", torch.float32),
                                               cpu32))
-    print(f"v6 VJP, 384 columns, f32: card vs CPU worst relative "
-          f"difference {worst:.3e} over 19 gradients (tolerance 1e-4) "
-          f"[{card}]")
-    check(worst <= 1e-4, f"v6 VJP f32: {worst:.3e}")
+    print(f"{arm} VJP, 384 columns, f32: card vs CPU worst relative "
+          f"difference {worst:.3e} over {len(a)} gradients (tolerance "
+          f"1e-4) [{card}]")
+    check(worst <= 1e-4, f"{arm} VJP f32: {worst:.3e}")
     ratio = 0.0
     for i, (g, w, w32) in enumerate(zip(grads("cuda", torch.bfloat16),
                                         grads("cpu", torch.bfloat16),
                                         cpu32)):
         ok, err, own = bf16_ok(g, w, w32)
-        check(ok, f"v6 VJP bf16 gradient {i}: {err:.3e} > 4 x {own:.3e}")
+        check(ok, f"{arm} VJP bf16 gradient {i}: {err:.3e} > 4 x "
+              f"{own:.3e}")
         ratio = max(ratio, err / max(own, 1e-30))
-    print(f"v6 VJP, 384 columns, bf16: card vs CPU difference up to "
+    print(f"{arm} VJP, 384 columns, bf16: card vs CPU difference up to "
           f"{ratio:.3f} x the CPU's own bf16-vs-f32 difference "
           f"(tolerance 4x) [{card}]")
 
@@ -594,23 +805,26 @@ def run_training(model, card):
 # ------------------------------------------------------------ phase 4
 
 
-def compare_384(card):
-    """3 coupled steps at 384 columns (Grid.synthetic, 16 x 24) on the card
-    and on the CPU, where the wrappers take the plain versions. In f32
-    the two agree to summation order: tolerance 1e-5 of each field's
-    largest magnitude. In bf16 the card-vs-CPU difference is held to
-    4x the CPU's own bf16-vs-f32 difference, field by field (as for B1:
-    a one-ulp flip of a bf16 output is 2x its half-ulp rounding)."""
+def compare_384(card, arm="v6"):
+    """3 coupled steps of a serving arm at 384 columns (Grid.synthetic,
+    16 x 24) on the card and on the CPU, where the wrappers take the plain
+    versions. In f32 the two agree to summation order: tolerance 1e-5 of
+    each field's largest magnitude. In bf16 the card-vs-CPU difference is
+    held to 4x the CPU's own bf16-vs-f32 difference, field by field (as
+    for B1: a one-ulp flip of a bf16 output is 2x its half-ulp
+    rounding)."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import BF16, F32
     ncol = LO_NLAT * LO_NLON
     results = {}
     for name, policy in (("f32", F32), ("bf16", BF16)):
         for dev in ("cuda", "cpu"):
-            model = make_model(policy, dev)
+            model = make_model(policy, dev, arm=arm)
             grid = Grid.synthetic(ncol, NLEV, device=dev)
-            loop = make_loop(model, grid, LO_NLAT, LO_NLON, dev)
-            state, mem, x_sfc = initial_state(ncol, NLEV, dev)
+            loop = make_loop(model, grid, LO_NLAT, LO_NLON, dev, arm)
+            state, mem, x_sfc = initial_state(ncol, NLEV, dev,
+                                              model.level_major,
+                                              smooth_lat(arm, grid))
             st, mem, diags = loop.rollout(state, mem, x_sfc, 3)
             flat = {**{f"state.{k}": v for k, v in st.items()}, "mem": mem,
                     **{f"diag.{k}": v for k, v in diags.items()}}
@@ -618,25 +832,27 @@ def compare_384(card):
     worst = 0.0
     for key, want in results["f32", "cpu"].items():
         got = results["f32", "cuda"][key]
-        check(bool(torch.isfinite(got).all()), f"384 f32 {key} not finite")
+        check(bool(torch.isfinite(got).all()),
+              f"{arm} 384 f32 {key} not finite")
         scale = max(want.abs().max().item(), 1e-30)
         err = (got - want).abs().max().item()
-        check(err <= 1e-5 * scale,
-              f"384 f32 {key}: card vs CPU {err:.3e} (scale {scale:.3e})")
+        check(err <= 1e-5 * scale, f"{arm} 384 f32 {key}: card vs CPU "
+              f"{err:.3e} (scale {scale:.3e})")
         worst = max(worst, err / scale)
-    print(f"384 columns, 3 steps, f32: card vs CPU worst relative "
+    print(f"{arm}, 384 columns, 3 steps, f32: card vs CPU worst relative "
           f"difference {worst:.3e} (tolerance 1e-5) [{card}]")
     worst = 0.0
     for key, want in results["bf16", "cpu"].items():
         got = results["bf16", "cuda"][key]
-        check(bool(torch.isfinite(got).all()), f"384 bf16 {key} not finite")
+        check(bool(torch.isfinite(got).all()),
+              f"{arm} 384 bf16 {key} not finite")
         own = (want - results["f32", "cpu"][key]).abs().max().item()
         err = (got - want).abs().max().item()
         tiny = 1e-6 * want.abs().max().item()
-        check(err <= 4.0 * own + tiny,
-              f"384 bf16 {key}: card vs CPU {err:.3e} > 4 x {own:.3e}")
+        check(err <= 4.0 * own + tiny, f"{arm} 384 bf16 {key}: card vs "
+              f"CPU {err:.3e} > 4 x {own:.3e}")
         worst = max(worst, err / max(own, tiny, 1e-30))
-    print(f"384 columns, 3 steps, bf16: card vs CPU difference up to "
+    print(f"{arm}, 384 columns, 3 steps, bf16: card vs CPU difference up to "
           f"{worst:.3f} x the CPU's own bf16-vs-f32 difference "
           f"(tolerance 4x) [{card}]")
 
@@ -710,14 +926,17 @@ def make_phys_trainer(model, device, record=None, train=False):
                           **scales)
 
 
-def b7_args(model, B, dtype, seed):
-    """The trunk's v2 inputs at the physics path's shapes: xp = x win1 +
-    bin1 of a random feature stream [B, 50, 144] with the model's
-    (lecun-normal) weights, tanh initial states."""
+def b7_args(model, B, dtype, seed, L=None):
+    """The trunk's v2 inputs at the physics path's shapes (L 50; or L
+    levels): xp = x win1 + bin1 of a random feature stream [B, L, nx] with
+    the model's (lecun-normal) weights, tanh initial states. For the
+    flagship's v2 arm nx is 208 (the initial MLP's 192 and the memory's
+    16)."""
     layer = model.bigru_fused
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
-    L, H = NLEV - model.ilev_crm, layer.hidden
+    L = NLEV - model.ilev_crm if L is None else L
+    H = layer.hidden
     r = lambda *s: torch.randn(s, generator=g, device=dev)
     x = torch.tanh(r(B, L, layer.win1.shape[0]))
     xp = torch.matmul(x.transpose(0, 1), layer.win1) + layer.bin1
@@ -727,20 +946,23 @@ def b7_args(model, B, dtype, seed):
             w(layer.whh_dn), w(layer.bhh_dn))
 
 
-def check_b7(model, card):
+def check_b7(model, card, L=None):
     """B7 against its plain version on the card at (L 50, B 21,600,
-    H 128) and a ragged 1,000 columns (not a multiple of the 32-column
-    tile). f32 to 1e-5 + 1e-5*|x| (summation order only, through 100
-    recurrent levels; the states are of order 1); bf16 to 4x the plain
-    version's own bf16-vs-f32 error on the same inputs, as check_b1."""
+    H 128), or with ``L`` at the flagship v2 arm's (L 60, H 192, where a
+    block takes 96 KB of shared memory), and a ragged 1,000 columns (not
+    a multiple of the 32-column tile). f32 to 1e-5 + 1e-5*|x| (summation
+    order only, through 2L recurrent levels; the states are of order 1);
+    bf16 to 4x the plain version's own bf16-vs-f32 error on the same
+    inputs, as check_b1."""
     from climsim_tpu_torch.ops import (bigru_reference_lbh as ref,
                                        fused_bigru_lbh as kern)
     errs = []
+    label = "B7" if L is None else f"B7 H {model.bigru_fused.hidden}"
     for B in (NLAT * NLON, 1000):
-        a32 = b7_args(model, B, torch.float32, seed=B)
+        a32 = b7_args(model, B, torch.float32, seed=B, L=L)
         got, want = kern(*a32), ref(*a32)
         e = max_err(got, want)
-        print(f"B7 f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
+        print(f"{label} f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
               f"1e-5*|x| [{card}]")
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
@@ -749,9 +971,9 @@ def check_b7(model, card):
         got16, want16 = kern(*a16), ref(*a16)
         e16 = max_err(got16, want16)
         own = max_err(want16, ref(*(t.float() for t in a16)))
-        print(f"B7 bf16 B={B}: max_abs_err {e16:.3e}, plain bf16-vs-f32 "
-              f"{own:.3e}; tolerance 4x that [{card}]")
-        check(e16 <= 4.0 * own, f"B7 bf16 B={B}: {e16} > 4 x {own}")
+        print(f"{label} bf16 B={B}: max_abs_err {e16:.3e}, plain "
+              f"bf16-vs-f32 {own:.3e}; tolerance 4x that [{card}]")
+        check(e16 <= 4.0 * own, f"{label} bf16 B={B}: {e16} > 4 x {own}")
         errs.append(e16)
         del a32, got, want, a16, got16, want16
     return max(errs)
@@ -912,18 +1134,16 @@ def compare_phys_384(card):
           f"loss {lc:.7f} vs {lp:.7f} [{card}]")
 
 
-def phys_profile(trainer, chunk, top=8, train=False):
-    """One evaluation window (or, with ``train``, the updates of ``chunk``)
-    under torch.profiler: the device time of every kernel summed (busy
-    ms), and the kernels with the most device time. Returns (busy ms,
-    [(name, ms), ...]). Only the device-side events count: an operator's
-    own event repeats its kernels' time."""
+def profile_kernels(fn, top=8):
+    """``fn()`` under torch.profiler: the device time of every kernel
+    summed (busy ms), and the kernels with the most device time. Returns
+    (busy ms, [(name, ms), ...]). Only the device-side events count: an
+    operator's own event repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
-            torch.set_grad_enabled(train):
-        trainer.run_epoch(None, [chunk], 0, train=train)
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [(ev.key, ev.self_device_time_total / 1e3)
                for ev in prof.key_averages()
@@ -931,6 +1151,31 @@ def phys_profile(trainer, chunk, top=8, train=False):
                and ev.self_device_time_total > 0]
     kernels.sort(key=lambda kv: -kv[1])
     return sum(ms for _, ms in kernels), kernels[:top]
+
+
+def phys_profile(trainer, chunk, top=8, train=False):
+    """profile_kernels of one evaluation window (or, with ``train``, the
+    updates of ``chunk``)."""
+    def run():
+        with torch.set_grad_enabled(train):
+            trainer.run_epoch(None, [chunk], 0, train=train)
+    return profile_kernels(run, top)
+
+
+def arm_split(loop, inputs, step_ms, card, label):
+    """Device busy time per coupled step of a serving arm (torch.profiler
+    over 3 steps) against its unprofiled step time: the idle share, and
+    the four kernels with the most device time."""
+    busy, top = profile_kernels(lambda: loop.rollout(*inputs, 3), top=4)
+    if busy <= 0:
+        print(f"{label} by kernel: the profiler saw no device time: not "
+              f"measured [{card}]")
+        return
+    print(f"{label} by kernel (torch.profiler device time, per step): busy "
+          f"{busy / 3:.4f} ms of {step_ms:.4f} ms, idle share "
+          f"{max(0.0, 1 - busy / 3 / step_ms):.3f}; "
+          + "; ".join(f"{k[:40]} {ms / 3:.4f} ms" for k, ms in top)
+          + f" [{card}]")
 
 
 def phys_bounds(a7, sw, lw):
@@ -1240,6 +1485,40 @@ def phys_bwd_bounds(a8, sw, lw):
     return res_
 
 
+def serving_bounds(a4, flat, q6, a7h) -> dict:
+    """Least times of B4, B5, B6 and B7 at H 192 from this run's inputs,
+    each the larger of its operations over the card's peak rate for their
+    type and its bytes (each input read once, each output written once)
+    over 3.35 TB/s. B4: 3H (CH + nm_in + 3H) + nm H + ny nm multiply-adds
+    per column and level; B5 and B6: FV_OPS_PER_ELEMENT per element of
+    every field; B7: 9 H^2 per column and level, as phys_bounds."""
+    x, mem_in = a4[0], a4[1]
+    L, CH, B = x.shape
+    nm_in, H = mem_in.shape[1], a4[7].shape[1]
+    nm, ny = a4[13].shape[0], a4[15].shape[0]
+    macs = 3 * H * (CH + nm_in + 3 * H) + nm * H + ny * nm
+    out = {"b4": (2.0 * macs * L * B, PEAK_BF16,
+                  float(x.element_size() * (sum(t.numel() for t in a4)
+                                            + L * (nm + ny) * B + H * B)))}
+    qs, u, v = flat
+    for key, q in (("b5", qs), ("b6", q6)):
+        out[key] = (float(FV_OPS_PER_ELEMENT * q.numel()), PEAK_F32,
+                    4.0 * (2 * q.numel() + u.numel() + v.numel()))
+    xp = a7h[0]
+    L7, B7, H3 = xp.shape
+    out["b7h"] = (2.0 * 3 * H3 * (H3 // 3) * L7 * B7, PEAK_BF16,
+                  float(xp.element_size() * (sum(t.numel() for t in a7h)
+                                             + L7 * B7 * H3 // 3
+                                             + B7 * H3 // 3)))
+    res = {}
+    for key, (flops, peak, nbytes) in out.items():
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        res[key] = (max(t_ops, t_bytes) * 1e3,
+                    "operations" if t_ops > t_bytes else "bytes", flops,
+                    nbytes)
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1252,7 +1531,8 @@ def main() -> int:
                                        bigru_heads_init_cm_reference,
                                        fv_tracers_sphere_reference,
                                        bigru_heads_cm_bwd,
-                                       bigru_heads_cm_bwd_reference)
+                                       bigru_heads_cm_bwd_reference,
+                                       bigru_reference_lbh, fused_bigru_lbh)
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import BF16
 
@@ -1284,6 +1564,11 @@ def main() -> int:
     pmodel = make_phys_model(None)            # device=None: the card
     b7_err = check_b7(pmodel, card)
     rad_errs = check_radiation(card)
+    v5model = make_model(BF16, None, arm="v5")
+    b4_err = check_b4(v5model, card)
+    flat_errs, flat_inputs = check_flat(card)
+    v2model = make_model(BF16, None, arm="v2")
+    b7h_err = check_b7(v2model, card, L=NLEV)
 
     # ---- 3. the main path at 21,600 columns
     state, mem, x_sfc = initial_state(ncol, NLEV, dev)
@@ -1310,12 +1595,17 @@ def main() -> int:
     print(f"main path: mean_T {mean_t[0].item():.4f} -> "
           f"{mean_t[-1].item():.4f} K, energy_int "
           f"{diags['energy_int'][-1].item():.6e}")
+    # the other serving arms, each with every counter set to 0 just before
+    arm_runs = {arm: run_arm(arm, card) for arm in ARMS if arm != "v6"}
+    arm_launches = {arm: run[2] for arm, run in arm_runs.items()}
 
-    # ---- 4. the main path at 384 columns, card against CPU
-    compare_384(card)
+    # ---- 4. every serving arm at 384 columns, card against CPU
+    for arm in ARMS:
+        compare_384(card, arm)
 
-    # ---- 5. gradients through the fused layer, card against CPU
+    # ---- 5. gradients through the fused layers, card against CPU
     check_vjp_384(card)
+    check_vjp_384(card, "v5")
 
     # ---- 6. the training path at 21,600 columns; one update at 384
     tmodel = make_model(BF16, None)
@@ -1347,8 +1637,15 @@ def main() -> int:
     lo_ms = step_ms(lo_loop, lo_state, lo_mem, lo_x)
     print(f"coupled step, {ncol} columns: {hi_ms:.4f} ms, "
           f"{ncol / hi_ms * 1e3:,.0f} columns/s [{card}]")
+    arm_split(loop, (state, mem, x_sfc), hi_ms, card, "coupled step, arm v6")
     print(f"coupled step, {lo_ncol} columns: {lo_ms:.4f} ms, "
           f"{lo_ncol / lo_ms * 1e3:,.0f} columns/s [{card}]")
+    for arm, (aloop, ainputs, _) in arm_runs.items():
+        ms = step_ms(aloop, *ainputs)
+        print(f"coupled step, {ncol} columns, arm {arm}: {ms:.4f} ms, "
+              f"{ncol / ms * 1e3:,.0f} columns/s [{card}]")
+        arm_split(aloop, ainputs, ms, card, f"coupled step, arm {arm}")
+    del arm_runs, aloop, ainputs
 
     a1 = b1_args(model, ncol, torch.bfloat16, seed=7)
     b1_ms = median_ms(lambda: fused_bigru_heads_init_cm(*a1), 3)
@@ -1387,12 +1684,12 @@ def main() -> int:
     print(f"B2 f32 {tuple(qs.shape)}: kernel {b2_ms:.4f} ms, plain "
           f"{b2_plain:.4f} ms, bound {b2_bound:.4f} ms "
           f"({b2_bytes / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
-
     def train_epoch():
         with torch.enable_grad():
             trainer.run_epoch(None, [chunk], epoch=0)
 
     upd_ms = median_ms(train_epoch, 1, queue_ahead=False) / n_upd
+    resident_u = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     train_epoch()
     torch.cuda.synchronize()
@@ -1400,7 +1697,8 @@ def main() -> int:
     print(f"training update (W {W_TRAIN}, remat, MSE, Adam, {ncol} columns, "
           f"bf16): {upd_ms:.4f} ms/update, "
           f"{ncol * W_TRAIN / upd_ms * 1e3:,.0f} column-steps/s; peak memory "
-          f"{peak_gb:.3f} GB [{card}]")
+          f"{peak_gb:.3f} GB ({resident_u:.3f} GB resident before the "
+          f"epoch) [{card}]")
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
     b3_ms = median_ms(lambda: bigru_heads_cm_bwd(*a3), 3)
     b3_plain = median_ms(lambda: bigru_heads_cm_bwd_reference(*a3), 1)
@@ -1414,6 +1712,46 @@ def main() -> int:
           + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
              or "the profiler saw no device time: not measured")
           + f" [{card}]")
+
+    # B4, B5, B6 and B7 at H 192 (after the training peak, so that peak
+    # counts what it counted before these inputs existed)
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm,
+                                       fv_advect_levels, fv_advect_tracers,
+                                       fv_tracers_reference)
+    a4 = b4_args(v5model, ncol, torch.bfloat16, seed=23)
+    b4_ms = median_ms(lambda: fused_bigru_heads_cm(*a4), 3)
+    b4_f32xp_ms = median_ms(lambda: fused_bigru_heads_cm(
+        *a4, hoist_proj=False), 3)
+    b4_plain = median_ms(lambda: bigru_heads_cm_reference(*a4), 1)
+    q5, u5, v5, dtx, dty = flat_inputs
+    q6 = q5[0].contiguous()
+    b5_ms = median_ms(lambda: fv_advect_tracers(q5, u5, v5, dtx, dty), 50)
+    b5_plain = median_ms(lambda: fv_tracers_reference(q5, u5, v5, dtx, dty),
+                         5)
+    b6_ms = median_ms(lambda: fv_advect_levels(q6, u5, v5, dtx, dty), 50)
+    b6_plain = median_ms(lambda: fv_tracers_reference(q6, u5, v5, dtx, dty),
+                         5)
+    a7h = b7_args(v2model, ncol, torch.bfloat16, seed=29, L=NLEV)
+    b7h_ms = median_ms(lambda: fused_bigru_lbh(*a7h), 3)
+    b7h_plain = median_ms(lambda: bigru_reference_lbh(*a7h), 1)
+    sb = serving_bounds(a4, (q5, u5, v5), q6, a7h)
+    print(f"B4 bf16 (L {NLEV}, CH {a4[0].shape[1]}, H {a4[7].shape[1]}, "
+          f"B {ncol}): kernel {b4_ms:.4f} ms (projections rounded, the "
+          f"serving default; {b4_f32xp_ms:.4f} ms with f32 projections), "
+          f"plain {b4_plain:.4f} ms, bound {sb['b4'][0]:.4f} ms "
+          f"({sb['b4'][2] / 1e12:.3f} TFLOP at 989 TFLOP/s; "
+          f"{sb['b4'][3] / 1e6:.1f} MB) [{card}]")
+    for key, name, ms, plain, shape in (
+            ("b5", "B5", b5_ms, b5_plain, tuple(q5.shape)),
+            ("b6", "B6", b6_ms, b6_plain, tuple(q6.shape))):
+        print(f"{name} f32 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, bound {sb[key][0]:.4f} ms ({sb[key][3] / 1e6:.1f} MB at "
+              f"3.35 TB/s) [{card}]")
+    print(f"B7 bf16 (L {NLEV}, H {a7h[1].shape[1]}, B {ncol}, the v2 arm): "
+          f"kernel {b7h_ms:.4f} ms, plain {b7h_plain:.4f} ms, bound "
+          f"{sb['b7h'][0]:.4f} ms ({sb['b7h'][2] / 1e12:.4f} TFLOP at 989 "
+          f"TFLOP/s; {sb['b7h'][3] / 1e6:.1f} MB) [{card}]")
 
     # the physics path's inputs are made here, after the training peak, so
     # that peak counts what it counted before this path existed
@@ -1440,9 +1778,7 @@ def main() -> int:
              + "; ".join(f"{k[:48]} {ms:.4f} ms" for k, ms in top)
              if busy > 0 else "time): the profiler saw no device time: "
              "not measured") + f" [{card}]")
-    from climsim_tpu_torch.ops import (adding_sw_fast, bigru_reference_lbh,
-                                       fused_bigru_lbh,
-                                       lw_solver_noscat_fast)
+    from climsim_tpu_torch.ops import adding_sw_fast, lw_solver_noscat_fast
     from climsim_tpu_torch.physics.radiation import (adding_sw,
                                                      lw_solver_noscat)
     a7 = b7_args(pmodel, ncol, torch.float32, seed=13)
@@ -1471,7 +1807,7 @@ def main() -> int:
     # first (the solvers' inputs are made again, from their seed, for the
     # backward kernels' timings)
     del a1, a1_lo, a3, trainer, chunk, a7, sw_args, lw_args, phys_chunk_hi
-    del etrainer
+    del etrainer, a4, a7h, flat_inputs, q5, u5, v5, q6
     torch.cuda.empty_cache()
 
     def phys_train_epoch():
@@ -1581,6 +1917,26 @@ def main() -> int:
          "launches": pt_launches["b14"], "max_abs_err": rad_bwd_errs["B14"],
          "ms": b14_ms, "plain_ms": b14_plain, "bound_ms": pbb["b14"][0],
          "bound_by": pbb["b14"][1], "library_ms": None},
+        {"name": "bigru_heads_cm", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_heads_cm.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:887",
+         "launches": arm_launches["v5"]["b4"], "max_abs_err": b4_err,
+         "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": sb["b4"][0],
+         "bound_by": sb["b4"][1], "library_ms": None},
+        {"name": "fv_tracers_flat", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/fv_tracers_flat.cu",
+         "replaces": "climsim_tpu/ops/pallas_stencil.py:108",
+         "launches": arm_launches["v6_flat"]["b5"],
+         "max_abs_err": flat_errs["B5"], "ms": b5_ms, "plain_ms": b5_plain,
+         "bound_ms": sb["b5"][0], "bound_by": sb["b5"][1],
+         "library_ms": None},
+        {"name": "fv_levels_flat", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/fv_tracers_flat.cu",
+         "replaces": "climsim_tpu/ops/pallas_stencil.py:35",
+         "launches": arm_launches["v6_flat_per_field"]["b6"],
+         "max_abs_err": flat_errs["B6"], "ms": b6_ms, "plain_ms": b6_plain,
+         "bound_ms": sb["b6"][0], "bound_by": sb["b6"][1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,11 +1,12 @@
 """climsim_tpu_torch — the PyTorch + CUDA port of ``climsim_tpu``.
 
-The port runs the online hybrid coupled step (flagship BiGRU emulator +
-spherical finite-volume transport + water/energy fixers), the rollout
-training of the flagship emulator (``train.RolloutTrainer``) and the
-forward of the physics-constrained emulator with differentiable radiation
-(``PhysicalRNNAutoreg``, evaluated by the trainer) on an NVIDIA Hopper
-GPU. Ground rules:
+The port runs the online hybrid coupled step (the BiGRU emulator in its
+v6, v5, batch-major v2 or scan arm + spherical or flat finite-volume,
+semi-Lagrangian and vertical transport + water/energy fixers), the
+rollout training of the flagship emulator (``train.RolloutTrainer``) and
+the physics-constrained emulator with differentiable radiation
+(``PhysicalRNNAutoreg``, evaluated and trained by the trainer) on an
+NVIDIA Hopper GPU. Ground rules:
 
 * The JAX package ``climsim_tpu`` is the reference and stays as it is.
   This package mirrors its module paths and public names

@@ -1,8 +1,9 @@
 """Recurrent layers of the ported paths (counterpart of
-``climsim_tpu/models/cells.py``): the channel-major fused BiGRU + heads
-layer with the initial MLP inside the kernel (the v6 path of the flagship)
-and the v2 fused BiGRU layer (the physics trunk). The other cells wait
-for ROADMAP A.12.
+``climsim_tpu/models/cells.py``): the GRU cell and the scanned
+``RNNLayer`` (the flagship's unfused path), the channel-major fused BiGRU
++ heads layer with the initial MLP inside the kernel (v6) or outside it
+(v5), and the v2 fused BiGRU layer (the physics trunk and the batch-major
+flagship). The other cells wait for ROADMAP A.12.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops import fused_bigru_heads_init_cm, fused_bigru_lbh
+from ..ops import (fused_bigru_heads_cm, fused_bigru_heads_init_cm,
+                   fused_bigru_lbh)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -31,6 +33,79 @@ def flax_param(shape, generator: torch.Generator | None) -> nn.Parameter:
     if len(shape) == 2 and generator is not None:
         lecun_normal_(w, shape[0], generator)
     return nn.Parameter(w)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with a compute dtype: ``kernel`` [in, out] and
+    ``bias`` [out] in float32, applied as x @ kernel + bias in ``dtype``."""
+
+    def __init__(self, nin: int, nout: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = flax_param((nin, nout), generator)
+        self.bias = flax_param((nout,), generator)
+
+    def forward(self, x):
+        dt = self.dtype
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+
+
+class GRUCell(nn.Module):
+    """flax's ``GRUCell`` of ``climsim_tpu/models/cells.py``: the recurrent
+    projection ``hh`` (a Dense H -> 3H in the compute dtype) and the gates
+    [r; z; n] on a precomputed input projection (bias included). Every
+    step runs in the projection's dtype, bf16 under the BF16 policy."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.hidden = hidden
+        self.hh = Dense(hidden, 3 * hidden, dtype, generator)
+
+    def forward(self, h, x_proj):
+        hh = self.hh(h)
+        xr, xz, xn = x_proj.split(self.hidden, dim=-1)
+        hr, hz, hn = hh.split(self.hidden, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1.0 - z) * n + z * h
+
+
+def needs_cell_state(kind: str) -> bool:
+    return kind in ("lstm", "ln_lstm", "slstm")
+
+
+class RNNLayer(nn.Module):
+    """One directional RNN over the level axis: the hoisted input
+    projection ``input_proj`` and the cell ``cell`` stepped level by level
+    (JAX's ``nn.scan``). Input [B, L, nx] -> (outputs [B, L, hidden],
+    final carry). ``reverse=True`` steps from the last level (the surface,
+    since TOA is level 0) upward. The carry is cast to the projection's
+    dtype, as JAX unifies it for its scan. Only the GRU cell is ported;
+    the others wait for ROADMAP A.12."""
+
+    def __init__(self, nx: int, hidden: int, kind: str = "gru",
+                 reverse: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if kind != "gru":
+            raise NotImplementedError(f"RNNLayer kind={kind!r} is not "
+                                      "ported yet (ROADMAP A.12)")
+        self.reverse = reverse
+        self.input_proj = Dense(nx, 3 * hidden, dtype, generator)
+        self.cell = GRUCell(hidden, dtype, generator)
+
+    def forward(self, xs, h0):
+        xs_proj = self.input_proj(xs)                  # [B, L, 3H]
+        h = h0.to(xs_proj.dtype)
+        L = xs.shape[1]
+        ys = [None] * L
+        for l in (range(L - 1, -1, -1) if self.reverse else range(L)):
+            h = self.cell(h, xs_proj[:, l])
+            ys[l] = h
+        return torch.stack(ys, dim=1), h
 
 
 class FusedBiGRULayer(nn.Module):
@@ -79,36 +154,46 @@ class FusedBiGRULayer(nn.Module):
 
 
 class FusedBiGRUHeadsLayer(nn.Module):
-    """Initial tanh MLP + split up-projection + up/down GRU sweeps +
-    latent-memory and output heads in one kernel, channel-major.
+    """Split up-projection + up/down GRU sweeps + latent-memory and output
+    heads in one kernel, channel-major; with ``init_width > 0`` the
+    initial tanh MLP runs inside the kernel too (v6,
+    ``fused_bigru_heads_init_cm``), else x is its output (v5,
+    ``fused_bigru_heads_cm``).
 
-    Called as ``(x [L, nx, B] raw features, h0_up [B, H], h0_dn [B, H],
-    mem [L, nm_in, B])`` -> ``(out [L, ny, B], mem [L, nh_mem, B],
-    last_h [B, H])``. Parameters keep flax's names and [in, out] layout
-    (``bigru_fused/{w_init, b_init, win1, ...}``), so a flax checkpoint
-    loads unchanged; they are transposed at call as views, which the
-    kernel wrapper turns back into k-major storage without a copy.
+    Called as ``(x [L, nx, B], h0_up [B, H], h0_dn [B, H], mem [L, nm_in,
+    B] or None)`` -> ``(out [L, ny, B], mem [L, nh_mem, B], last_h [B,
+    H])``: x holds the raw features (v6) or the initial-MLP stream (v5);
+    v5 takes ``nm_in = 0`` and ``mem=None`` as a zero-width memory.
+    Parameters keep flax's names and [in, out] layout (``bigru_fused/
+    {w_init, b_init, win1, ...}``; win1 is [x width + nm_in, 3H] in either
+    case), so a flax checkpoint loads unchanged; they are transposed at
+    call as views, which the kernel wrapper turns back into k-major
+    storage without a copy. ``hoist_proj`` (v5 only) picks the TPU body
+    whose roundings the kernel reproduces.
     """
 
     def __init__(self, nx: int, nm_in: int, hidden: int, nh_mem: int,
                  ny: int, init_width: int = 0, level_major: bool = False,
+                 hoist_proj: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
         if not level_major:
             raise NotImplementedError(
-                "batch-major FusedBiGRUHeadsLayer is not ported yet "
-                "(ROADMAP A.2, batch-major layout)")
-        if init_width <= 0 or nm_in <= 0:
+                "batch-major FusedBiGRUHeadsLayer (the v3/v4 kernels B9, "
+                "B10) is not ported yet (ROADMAP A.2)")
+        if init_width > 0 and nm_in <= 0:
             raise NotImplementedError(
-                "only the v6 path (init_width > 0 with memory) is ported; "
-                "the v5 kernel is ROADMAP B4")
+                "the v6 path (init_width > 0) needs the memory input")
         H = hidden
         self.hidden, self.nh_mem, self.ny = H, nh_mem, ny
-        self.init_width = init_width
+        self.init_width, self.nm_in = init_width, nm_in
+        self.hoist_proj = hoist_proj
         p = lambda *s: flax_param(s, generator)
-        self.w_init = p(nx, init_width)
-        self.b_init = p(init_width)
-        self.win1 = p(init_width + nm_in, 3 * H)
+        if init_width > 0:
+            self.w_init = p(nx, init_width)
+            self.b_init = p(init_width)
+        self.ch = init_width if init_width > 0 else nx
+        self.win1 = p(self.ch + nm_in, 3 * H)
         self.bin1 = p(3 * H)
         self.whh_up = p(H, 3 * H)
         self.bhh_up = p(3 * H)
@@ -121,18 +206,27 @@ class FusedBiGRUHeadsLayer(nn.Module):
         self.wout = p(nh_mem, ny)
         self.bout = p(ny)
 
-    def forward(self, x, h0_up, h0_dn, mem):
+    def forward(self, x, h0_up, h0_dn, mem=None):
         dt = x.dtype
         tw = lambda t: t.to(dt).t()              # [out, in] view
         tb = lambda t: t.to(dt)[:, None]         # [ch, 1]
-        CH = self.init_width
-        outmem, lasth = fused_bigru_heads_init_cm(
-            x.contiguous(), mem.to(dt).contiguous(),
-            h0_up.to(dt).t().contiguous(),
-            h0_dn.to(dt).t().contiguous(), tw(self.w_init),
-            tb(self.b_init), tw(self.win1[:CH]), tw(self.win1[CH:]),
-            tb(self.bin1), tw(self.whh_up), tb(self.bhh_up), tw(self.win2),
-            tb(self.bin2), tw(self.whh_dn), tb(self.bhh_dn), tw(self.wlat),
-            tb(self.blat), tw(self.wout), tb(self.bout))
+        CH = self.ch
+        if (mem is None) != (self.nm_in == 0):
+            raise ValueError(f"the layer was built for nm_in={self.nm_in}, "
+                             f"got mem {None if mem is None else mem.shape}")
+        mem_in = x.new_zeros((x.shape[0], 0, x.shape[2])) if mem is None \
+            else mem.to(dt).contiguous()
+        args = (x.contiguous(), mem_in, h0_up.to(dt).t().contiguous(),
+                h0_dn.to(dt).t().contiguous(), tw(self.win1[:CH]),
+                tw(self.win1[CH:]), tb(self.bin1), tw(self.whh_up),
+                tb(self.bhh_up), tw(self.win2), tb(self.bin2),
+                tw(self.whh_dn), tb(self.bhh_dn), tw(self.wlat),
+                tb(self.blat), tw(self.wout), tb(self.bout))
+        if self.init_width > 0:
+            outmem, lasth = fused_bigru_heads_init_cm(
+                *args[:4], tw(self.w_init), tb(self.b_init), *args[4:])
+        else:
+            outmem, lasth = fused_bigru_heads_cm(*args,
+                                                 hoist_proj=self.hoist_proj)
         nm = self.nh_mem
         return outmem[:, nm:, :], outmem[:, :nm, :], lasth.t()

@@ -1,30 +1,55 @@
 """Autoregressive bidirectional vertical RNN with latent convective memory
 (counterpart of ``climsim_tpu/models/rnn.py::RNNAutoreg``).
 
-Only the flagship serving path is ported: the gru cell with the fused,
-channel-major kernel that also evaluates the initial MLP
-(``use_pallas=fuse_heads=fuse_init=level_major=True``), latent memory
-whose width differs from the RNN's, no pressure feature, no separate
-radiation and no stochastic layer. Step contract (channel-major):
+Four trunks of the gru cell are ported, each on the flax parameter tree of
+the JAX model with the same flags:
+
+* v6, channel-major (``use_pallas=fuse_heads=fuse_init=level_major=True``):
+  the initial MLP, both sweeps and the heads in one kernel (B1);
+* v5, channel-major (the same with ``fuse_init=False``): the initial MLP
+  as a channel Dense + tanh, then the sweeps and heads in one kernel (B4)
+  with the memory as a separate input;
+* v2, batch-major (``use_pallas=True``, ``fuse_heads=False``): the initial
+  MLP and the memory concat, the fused BiGRU (B7), then the latent and
+  output heads as Dense layers;
+* the scan (``use_pallas=False``): the same with two ``RNNLayer`` sweeps
+  (``rnn_up`` from the surface, ``rnn_down``) in place of the kernel.
+
+``add_pres`` (the normalized sqrt-pressure feature from ``hyam``,
+``hybm``, ``sp_mean``, ``sp_div``) works in both layouts. Step contract,
+channel-major:
 
     (x_main [L, nx, B], x_sfc [B, nx_sfc], mem [L, nh_mem, B])
         -> (out [L, ny, B], out_sfc [B, ny_sfc], new_mem [L, nh_mem, B])
+
+and batch-major ``x_main [B, L, nx]``, ``mem`` and the outputs
+``[B, L, .]``. The batch-major fused heads (v3/v4, kernels B9 and B10)
+wait for ROADMAP A.2; the other cells, the stochastic layer,
+``separate_radiation`` and ``use_memory=False`` for A.12.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Sequence
 
 import torch
 from torch import nn
 
 from ..ops import resolve_device
-from .cells import FusedBiGRUHeadsLayer, flax_param
+from .cells import (Dense, FusedBiGRUHeadsLayer, FusedBiGRULayer, RNNLayer,
+                    flax_param)
 from .common import Policy, F32
 
+__all__ = ["RNNAutoreg", "Dense", "ChannelDense", "params_unfused_to_fused",
+           "params_fused_to_unfused", "temperature_scaling",
+           "temperature_scaling_precip"]
 
-class Dense(nn.Module):
-    """flax ``nn.Dense`` with a compute dtype: ``kernel`` [in, out] and
-    ``bias`` [out] in float32, applied as x @ kernel + bias in ``dtype``."""
+
+class ChannelDense(nn.Module):
+    """Dense over the channel axis of [L, C, B] activations with
+    ``nn.Dense``'s parameters (``kernel`` [C, F], ``bias`` [F]), JAX's
+    ``_ChannelDense``: x [L, C, B] -> [L, F, B] in ``dtype``, produced
+    contiguous (one batched product, no permuted einsum result)."""
 
     def __init__(self, nin: int, nout: int, dtype: torch.dtype,
                  generator: torch.Generator | None = None):
@@ -35,7 +60,8 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        return torch.matmul(self.kernel.to(dt).t(), x.to(dt)) \
+            + self.bias.to(dt)[:, None]
 
 
 def _unported(what: str, item: str):
@@ -44,10 +70,11 @@ def _unported(what: str, item: str):
 
 
 class RNNAutoreg(nn.Module):
-    """Bi-directional vertical RNN emulator with latent convective memory,
-    flagship serving configuration. Keyword names and defaults follow the
-    flax module; options outside the ported path raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    """Bi-directional vertical RNN emulator with latent convective memory.
+    Keyword names and defaults follow the flax module; options outside the
+    ported trunks raise ``NotImplementedError`` naming the ROADMAP item
+    that ports them. ``arm`` says which trunk the flags selected ("v6",
+    "v5", "v2" or "scan").
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     parameters get flax's init (lecun-normal kernels, zero biases) from a
@@ -62,66 +89,174 @@ class RNNAutoreg(nn.Module):
                  separate_radiation: bool = False,
                  add_stochastic_layer: bool = False,
                  use_pallas: bool = False, fuse_heads: bool = False,
-                 fuse_init: bool = False, level_major: bool = False,
+                 fuse_init: bool = False,
+                 pallas_hoist_proj: bool = True, level_major: bool = False,
+                 hyam: Sequence[float] = (), hybm: Sequence[float] = (),
+                 sp_mean: float = 0.0, sp_div: float = 1.0,
                  policy: Policy = F32, device=None, seed: int = 0):
         super().__init__()
         nh1, nh2 = nneur[0], nneur[1]
-        if add_pres:
-            raise _unported("add_pres", "A.12")
         if separate_radiation:
             raise _unported("separate_radiation", "A.12")
         if add_stochastic_layer:
             raise _unported("add_stochastic_layer", "A.12")
-        if cell != "gru":
-            raise _unported(f"cell={cell!r}", "A.12")
         if not use_memory:
             raise _unported("memory=None (use_memory=False)", "A.12")
-        if nh_mem == nh2 or nh1 != nh2 or len(nneur) != 2:
-            raise _unported("with nh_mem == nneur[-1] or unequal widths",
-                            "A.12")
-        if not use_initial_mlp:
-            raise _unported("without the initial MLP", "A.12")
-        if not (use_pallas and fuse_heads and fuse_init):
-            raise _unported("outside the fused v6 kernel path "
-                            "(use_pallas=fuse_heads=fuse_init=True)",
-                            "A.2/B4")
-        if not level_major:
-            raise _unported("batch-major layout (level_major=False)",
+        if cell != "gru":
+            raise _unported(f"cell={cell!r}", "A.12")
+        # the JAX model's choice of trunk (rnn.py:196-236)
+        fused_heads = use_pallas and fuse_heads and nh1 == nh2 \
+            and nh_mem != nh2
+        if level_major and not fused_heads:
+            raise ValueError("level_major requires the fused-heads path "
+                             "(use_pallas + fuse_heads with gru cell)")
+        if fused_heads and not level_major:
+            raise _unported("batch-major fused heads (level_major=False "
+                            "with fuse_heads, the v3/v4 kernels B9, B10)",
                             "A.2")
+        if fused_heads:
+            self.arm = "v6" if use_initial_mlp and fuse_init else "v5"
+        else:
+            self.arm = "v2" if use_pallas and nh1 == nh2 else "scan"
         self.device = resolve_device(device)
         self.ny, self.ny_sfc, self.nh_mem = ny, ny_sfc, nh_mem
+        self.level_major = level_major
+        self.use_initial_mlp = use_initial_mlp
+        self.add_pres = add_pres
+        self.sp_mean, self.sp_div = sp_mean, sp_div
         self.output_prune = output_prune
         self.policy = policy
+        # the hybrid coefficients as given (float64), rounded once to the
+        # compute dtype at call; buffers outside the state_dict, so the
+        # flax parameter tree maps one to one
+        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64)
+        self.register_buffer("hyam", f64(hyam), persistent=False)
+        self.register_buffer("hybm", f64(hybm), persistent=False)
         g = torch.Generator().manual_seed(seed)
         cdt = policy.compute_dtype
+        nx_in = nx + (1 if add_pres else 0)
+        nh_in = nh1 if use_initial_mlp else nx_in
         # creation order = flax's module order (init streams differ from
         # JAX's anyway; from_flax_params carries JAX weights across)
-        self.bigru_fused = FusedBiGRUHeadsLayer(
-            nx, nh_mem, nh1, nh_mem, ny, init_width=nh1, level_major=True,
-            generator=g)
+        if use_initial_mlp and self.arm != "v6":
+            dense = ChannelDense if level_major else Dense
+            self.mlp_initial = dense(nx_in, nh1, cdt, g)
         self.mlp_surface1 = Dense(nx_sfc, nh1, cdt, g)
         self.mlp_toa1 = Dense(2, nh2, cdt, g)
+        if self.arm == "v6":
+            self.bigru_fused = FusedBiGRUHeadsLayer(
+                nx_in, nh_mem, nh1, nh_mem, ny, init_width=nh1,
+                level_major=True, generator=g)
+        elif self.arm == "v5":
+            self.bigru_fused = FusedBiGRUHeadsLayer(
+                nh_in, nh_mem, nh1, nh_mem, ny, level_major=True,
+                hoist_proj=pallas_hoist_proj, generator=g)
+        elif self.arm == "v2":
+            self.bigru_fused = FusedBiGRULayer(nh_in + nh_mem, nh1,
+                                               generator=g)
+        else:
+            self.rnn_up = RNNLayer(nh_in + nh_mem, nh1, reverse=True,
+                                   dtype=cdt, generator=g)
+            self.rnn_down = RNNLayer(nh1, nh2, dtype=cdt, generator=g)
+        if self.arm in ("v2", "scan"):
+            # the latent head exists only when the memory width differs
+            # from the last RNN's (rnn.py:326-337)
+            self.mlp_latent = Dense(nh2, nh_mem, cdt, g) \
+                if nh_mem != nh2 else None
+            self.mlp_output = Dense(nh_mem, ny, cdt, g)
         self.mlp_surface_output = Dense(nh2, ny_sfc, cdt, g)
         self.to(self.device)
 
     def forward(self, x_main, x_sfc, mem):
-        L = x_main.shape[0]
+        lm = self.level_major
+        L = x_main.shape[0] if lm else x_main.shape[1]
         pol = self.policy
         x_main = pol.cast_in(x_main)
         x_sfc = pol.cast_in(x_sfc)
         mem = pol.cast_in(mem)
+        if self.add_pres:
+            # normalized sqrt-pressure feature, the last input channel
+            sp = x_sfc[:, 0] * self.sp_div + self.sp_mean
+            hyam = self.hyam.to(x_main.dtype)
+            hybm = self.hybm.to(x_main.dtype)
+            if lm:
+                pres = hyam[:, None] * 1.0e5 + sp[None, :] * hybm[:, None]
+                pres = torch.sqrt(pres) / 314.0
+                x_main = torch.cat([x_main, pres[:, None, :]], dim=1)
+            else:
+                pres = hyam * 1.0e5 + sp[:, None] * hybm
+                pres = torch.sqrt(pres) / 314.0
+                x_main = torch.cat([x_main, pres[..., None]], dim=-1)
         hx1 = torch.tanh(self.mlp_surface1(x_sfc))
         hx2 = self.mlp_toa1(x_sfc[:, [1, 6]])
-        out, new_mem, last_h = self.bigru_fused(x_main, hx1, hx2, mem)
+        h = x_main
+        if self.use_initial_mlp and self.arm != "v6":
+            h = torch.tanh(self.mlp_initial(h))
+        if self.arm in ("v6", "v5"):
+            out, new_mem, last_h = self.bigru_fused(h, hx1, hx2, mem)
+        else:
+            h = torch.cat([h, mem], dim=-1)
+            if self.arm == "v2":
+                down_out, last_h = self.bigru_fused(h, hx1, hx2)
+            else:
+                up_out, _ = self.rnn_up(h, hx1)
+                down_out, last_h = self.rnn_down(up_out, hx2)
+            new_mem = down_out if self.mlp_latent is None \
+                else self.mlp_latent(down_out)
+            out = self.mlp_output(new_mem)
         out_sfc = self.mlp_surface_output(last_h)
         if self.output_prune:
             # only dT is nonzero in the top 12 levels (rnn.py:348-356)
-            mask = torch.ones((L, self.ny, 1), dtype=out.dtype,
-                              device=out.device)
-            mask[:12, 1:, :] = 0.0
+            if lm:
+                mask = torch.ones((L, self.ny, 1), dtype=out.dtype,
+                                  device=out.device)
+                mask[:12, 1:, :] = 0.0
+            else:
+                mask = torch.ones((1, L, self.ny), dtype=out.dtype,
+                                  device=out.device)
+                mask[:, :12, 1:] = 0.0
             out = out * mask
         return pol.cast_out(out), pol.cast_out(out_sfc), \
             pol.cast_out(new_mem)
+
+
+# fused <-> unfused checkpoint conversion (rnn.py:407-450): ``fuse_heads``
+# moves the latent/output heads (and with ``fuse_init`` the initial MLP)
+# into the fused layer's ``bigru_fused`` subtree
+
+
+def params_unfused_to_fused(params: Mapping, fuse_init: bool = False):
+    """Remap a ``fuse_heads=False`` flax parameter tree (nested mappings)
+    to the ``fuse_heads=True`` layout (optionally ``fuse_init=True``)."""
+    wrapped = "params" in params
+    inner = dict(params["params"]) if wrapped else dict(params)
+    fused = dict(inner["bigru_fused"])
+    lat = inner.pop("mlp_latent")
+    out = inner.pop("mlp_output")
+    fused["wlat"], fused["blat"] = lat["kernel"], lat["bias"]
+    fused["wout"], fused["bout"] = out["kernel"], out["bias"]
+    if fuse_init:
+        ini = inner.pop("mlp_initial")
+        fused["w_init"], fused["b_init"] = ini["kernel"], ini["bias"]
+    inner["bigru_fused"] = fused
+    return {"params": inner} if wrapped else inner
+
+
+def params_fused_to_unfused(params: Mapping):
+    """Inverse of :func:`params_unfused_to_fused` (the v3/v5 and the
+    v4/v6 fused layouts)."""
+    wrapped = "params" in params
+    inner = dict(params["params"]) if wrapped else dict(params)
+    fused = dict(inner["bigru_fused"])
+    inner["mlp_latent"] = {"kernel": fused.pop("wlat"),
+                           "bias": fused.pop("blat")}
+    inner["mlp_output"] = {"kernel": fused.pop("wout"),
+                           "bias": fused.pop("bout")}
+    if "w_init" in fused:
+        inner["mlp_initial"] = {"kernel": fused.pop("w_init"),
+                                "bias": fused.pop("b_init")}
+    inner["bigru_fused"] = fused
+    return {"params": inner} if wrapped else inner
 
 
 # microphysics postprocessing (Base_RNN_autoreg.postprocessing, :273-339)

@@ -1,8 +1,12 @@
 from .advection import (build_proxy_grid, to_grid, to_columns,
-                        fv_advect_2d_sphere, conservation_fixer,
-                        SphericalMetric, spherical_metric)
+                        fv_advect_2d, fv_advect_2d_sphere,
+                        semi_lagrangian_2d, vertical_advect_column,
+                        diagnose_omega, conservation_fixer, SphericalMetric,
+                        spherical_metric)
 from .host_loop import HybridLoop, HostLoopConfig
 
-__all__ = ["build_proxy_grid", "to_grid", "to_columns",
-           "fv_advect_2d_sphere", "conservation_fixer", "SphericalMetric",
-           "spherical_metric", "HybridLoop", "HostLoopConfig"]
+__all__ = ["build_proxy_grid", "to_grid", "to_columns", "fv_advect_2d",
+           "fv_advect_2d_sphere", "semi_lagrangian_2d",
+           "vertical_advect_column", "diagnose_omega", "conservation_fixer",
+           "SphericalMetric", "spherical_metric", "HybridLoop",
+           "HostLoopConfig"]

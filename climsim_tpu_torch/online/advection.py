@@ -1,11 +1,15 @@
-"""Finite-volume tracer transport on the spherical proxy grid.
+"""Finite-volume and semi-Lagrangian tracer transport on the proxy grid.
 
-Counterpart of ``climsim_tpu/online/advection.py`` for the path the
-coupled step takes: the proxy-grid mapping (``build_proxy_grid``,
-``to_grid``, ``to_columns``), the spherical metric, the MC-limited
-flux-form FV step on the sphere and the multiplicative conservation
-fixer. The flat raster, semi-Lagrangian transport, ``diagnose_omega`` and
-``vertical_advect_column`` are not ported yet.
+Counterpart of ``climsim_tpu/online/advection.py``'s single-device
+operators: the proxy-grid mapping (``build_proxy_grid``, ``to_grid``,
+``to_columns``), the spherical metric, the MC-limited flux-form FV step on
+the flat raster (``fv_advect_2d``, ``fv_advect_2d_halo``) and on the
+sphere (``fv_advect_2d_sphere``, ``fv_advect_2d_sphere_halo``),
+semi-Lagrangian transport (``semi_lagrangian_2d``) and its halo monitor,
+the omega-diagnosed vertical transport (``diagnose_omega``,
+``vertical_advect_column``) and the multiplicative conservation fixer.
+``semi_lagrangian_2d_halo`` serves only the sharded step and waits for it
+(ROADMAP A.10).
 
 ClimSim's unstructured columns are mapped once to a structured
 [nlat, nlon] proxy grid (latitude bands, then longitude within a band).
@@ -148,15 +152,168 @@ def _courant_flux_1d(q, c):
     return torch.where(c >= 0.0, c * q_face_pos, c * q_face_neg)
 
 
+def _flux_1d(q, u, dt_dx):
+    """Upwind van-Leer flux at the interfaces of a periodic last axis:
+    u[..., i] is the velocity at the left face of cell i; returns F[..., i]
+    = u * q_face across that face."""
+    qm = torch.roll(q, 1, -1)
+    qmm = torch.roll(q, 2, -1)
+    qp = torch.roll(q, -1, -1)
+    slope_m = _mc_limited_slope(qmm, qm, q)
+    slope_0 = _mc_limited_slope(qm, q, qp)
+    c = u * dt_dx
+    q_face_pos = qm + 0.5 * (1.0 - c) * slope_m
+    q_face_neg = q - 0.5 * (1.0 + c) * slope_0
+    return torch.where(u >= 0.0, u * q_face_pos, u * q_face_neg)
+
+
+def fv_advect_2d_halo(q_ext: torch.Tensor, u_ext: torch.Tensor,
+                      v_ext: torch.Tensor, dt_dx: float, dt_dy: float,
+                      is_south, is_north, halo: int = 2) -> torch.Tensor:
+    """Halo-aware flat-raster FV step on [..., nlat_local + 2*halo, nlon]
+    fields; returns the interior rows. ``dt_dx``/``dt_dy`` are the
+    constant Courant numbers at unit speed; ``is_south``/``is_north`` mark
+    a domain that owns a pole edge, where the meridional flux is zeroed."""
+    # zonal sweep on every row incl. ghosts; advective form: subtract q
+    # times the constant-field flux divergence
+    F = _flux_1d(q_ext, u_ext, dt_dx)
+    q_ext = q_ext - dt_dx * ((torch.roll(F, -1, -1) - F)
+                             - q_ext * (torch.roll(u_ext, -1, -1) - u_ext))
+
+    # meridional faces j = 0..n between interior rows j-1 and j; the face
+    # velocity comes from the cell below
+    n = q_ext.shape[-2] - 2 * halo
+    qmm = q_ext[..., halo - 2:halo + n - 1, :]
+    qm = q_ext[..., halo - 1:halo + n, :]
+    q0 = q_ext[..., halo:halo + n + 1, :]
+    qp = q_ext[..., halo + 1:halo + n + 2, :]
+    v = v_ext[..., halo:halo + n + 1, :]
+    slope_m = _mc_limited_slope(qmm, qm, q0)
+    slope_0 = _mc_limited_slope(qm, q0, qp)
+    c = v * dt_dy
+    q_face_pos = qm + 0.5 * (1.0 - c) * slope_m
+    q_face_neg = q0 - 0.5 * (1.0 + c) * slope_0
+    faces = torch.where(v >= 0.0, v * q_face_pos, v * q_face_neg)
+    # zero pole-crossing fluxes on edge domains (the constant-field flux,
+    # the face velocity itself, carries the same closure)
+    smask, nmask = (0.0 if is_south else 1.0), (0.0 if is_north else 1.0)
+    edges = lambda a: torch.cat([a[..., :1, :] * smask, a[..., 1:-1, :],
+                                 a[..., -1:, :] * nmask], dim=-2)
+    faces, vmasked = edges(faces), edges(v)
+    interior = q_ext[..., halo:halo + n, :]
+    return interior - dt_dy * ((faces[..., 1:, :] - faces[..., :-1, :])
+                               - interior * (vmasked[..., 1:, :]
+                                             - vmasked[..., :-1, :]))
+
+
+def fv_advect_2d(q: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 dt_dx: float, dt_dy: float) -> torch.Tensor:
+    """One dimensionally-split FV step on [..., nlat, nlon] (u zonal,
+    periodic; v meridional, zero flux at the poles): the halo path with
+    clamped ghost rows."""
+    return fv_advect_2d_halo(_clamped_ghosts(q), _clamped_ghosts(u),
+                             _clamped_ghosts(v), dt_dx, dt_dy,
+                             is_south=True, is_north=True)
+
+
+def semi_lagrangian_2d(q: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       dt_dx, dt_dy) -> torch.Tensor:
+    """Semi-Lagrangian transport on [..., nlat, nlon]: back-trajectory
+    departure points and bilinear interpolation, periodic in longitude and
+    clamped in latitude. ``dt_dx``/``dt_dy`` are scalars (flat raster) or
+    per-row factors [nlat, 1] (the sphere)."""
+    nlat, nlon = q.shape[-2:]
+    f32 = torch.float32
+    i = torch.arange(nlat, dtype=f32, device=q.device)[:, None]
+    j = torch.arange(nlon, dtype=f32, device=q.device)
+    dep_i = i - v * dt_dy
+    dep_j = j - u * dt_dx
+    i0f = torch.clamp(torch.floor(dep_i), 0, nlat - 1)
+    fi = torch.clamp(dep_i - i0f, 0.0, 1.0)
+    j0f = torch.floor(dep_j)
+    fj = dep_j - j0f
+    i0 = i0f.to(torch.int64)
+    i1 = torch.clamp(i0 + 1, 0, nlat - 1)
+    j0 = torch.remainder(j0f.to(torch.int64), nlon)     # floor-mod
+    j1 = torch.remainder(j0 + 1, nlon)
+    flat = q.reshape(q.shape[:-2] + (nlat * nlon,))
+
+    def at(ii, jj):
+        idx = (ii * nlon + jj).expand(q.shape).reshape(flat.shape)
+        return torch.gather(flat, -1, idx).reshape(q.shape)
+
+    return ((1 - fi) * ((1 - fj) * at(i0, j0) + fj * at(i0, j1))
+            + fi * ((1 - fj) * at(i1, j0) + fj * at(i1, j1)))
+
+
+def semi_lagrangian_halo_clip_fraction(v, dt_dy, halo: int = 2):
+    """Fraction of points whose meridional back-trajectory leaves the
+    halo-parity window (|v|*dt_dy > halo - 1), where a latitude-sharded
+    semi-Lagrangian step would clamp to its outermost ghost row. ``dt_dy``
+    is a scalar or per-row factors broadcastable against ``v``."""
+    disp = torch.abs(v * dt_dy)
+    return torch.mean((disp > (halo - 1)).to(torch.float32))
+
+
+def vertical_advect_column(q: torch.Tensor, w: torch.Tensor,
+                           dp: torch.Tensor, dt: float) -> torch.Tensor:
+    """Conservative first-order upwind vertical transport per column, in
+    the advective form, with zero flux at TOA and surface: q [B, L], w
+    [B, L+1] pressure velocity at the interfaces (positive downward), dp
+    [B, L] layer thickness."""
+    w_in = w[:, 1:-1]                     # interior interfaces [B, L-1]
+    flux = torch.where(w_in >= 0.0, w_in * q[:, :-1], w_in * q[:, 1:])
+    zero = torch.zeros_like(flux[:, :1])
+    flux_full = torch.cat([zero, flux, zero], dim=1)     # [B, L+1]
+    w_full = torch.cat([zero, w_in, zero], dim=1)
+    return q - dt * ((flux_full[:, 1:] - flux_full[:, :-1])
+                     - q * (w_full[:, 1:] - w_full[:, :-1])) / dp
+
+
+def diagnose_omega(u, v, dt_dx, dt_dy, dp, gather_idx, scatter_idx,
+                   nlat: int, nlon: int, metric=None) -> torch.Tensor:
+    """Diagnostic pressure velocity from the horizontal divergence:
+    omega(l+1/2) = -sum_{k<=l} div_k dp_k. u/v [ncol, L]; with
+    ``metric=None`` they are in Courant units per step and dt_dx/dt_dy the
+    flat raster's constant factors; with a :class:`SphericalMetric` (or
+    its MetricRows) they are in m/s and the divergence carries the
+    spherical terms. Returns omega at the interfaces [ncol, L+1] in Pa per
+    step, for :func:`vertical_advect_column` at dt = 1."""
+    ug = to_grid(u, gather_idx, nlat, nlon)               # [nlat, nlon, L]
+    vg = to_grid(v, gather_idx, nlat, nlon)
+    clampdiff = lambda a: (torch.cat([a[1:], a[-1:]], dim=0)
+                           - torch.cat([a[:1], a[:-1]], dim=0)) * 0.5
+    zonal = torch.roll(ug, -1, 1) - torch.roll(ug, 1, 1)
+    if metric is not None:
+        rows = metric_rows(metric, u.device)
+        ex = lambda a: a[:, None, None]
+        dudx = zonal * 0.5 * ex(rows.dtdx)
+        # (1/cos phi) d(v cos phi)/dphi, one-sided at the pole rows
+        dvdy = clampdiff(vg * ex(rows.cosc)) * ex(rows.dtdy) \
+            / ex(rows.cosc)
+    else:
+        # centered divergence on the flat raster (periodic lon, clamped)
+        dudx = zonal * 0.5 * dt_dx
+        dvdy = clampdiff(vg) * dt_dy
+    div = to_columns(dudx + dvdy, scatter_idx)            # [ncol, L]
+    col_int = torch.cumsum(div * dp, dim=1)
+    zero = torch.zeros_like(col_int[:, :1])
+    return -torch.cat([zero, col_int], dim=1)             # [ncol, L+1]
+
+
 class MetricRows(NamedTuple):
-    """The per-row metric factors the FV step reads, as float32 tensors on
-    one device (dtdx/wc [nlat], cf_fac/wf [nlat+1]). Built once per loop
-    so that a step copies nothing from the host."""
+    """The per-row metric factors the transport reads, as float32 tensors
+    on one device (dtdx/wc/dtdy/cosc [nlat], cf_fac/wf [nlat+1]): the FV
+    step's first, then those of the semi-Lagrangian step and of
+    ``diagnose_omega``. Built once per loop so that a step copies nothing
+    from the host."""
     dtdx: torch.Tensor
     cf_fac: torch.Tensor
     wf: torch.Tensor
     wc: torch.Tensor
     cfl_max: float
+    dtdy: torch.Tensor | None = None
+    cosc: torch.Tensor | None = None
 
 
 def metric_rows(m, device) -> MetricRows:
@@ -167,7 +324,7 @@ def metric_rows(m, device) -> MetricRows:
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                   device=device)
     return MetricRows(t(m.dtdx), t(m.cf_fac), t(m.wf), t(m.wc),
-                      float(m.cfl_max))
+                      float(m.cfl_max), t(m.dtdy), t(m.cosc))
 
 
 def fv_advect_2d_sphere_halo(q_ext: torch.Tensor, u_ext: torch.Tensor,

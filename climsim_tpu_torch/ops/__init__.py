@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from .pallas_rnn import (fused_bigru_heads_init_cm,
-                         bigru_heads_init_cm_reference, bigru_heads_cm_bwd,
+                         bigru_heads_init_cm_reference, fused_bigru_heads_cm,
+                         bigru_heads_cm_reference, bigru_heads_cm_bwd,
                          bigru_heads_cm_bwd_reference, fused_bigru_lbh,
                          bigru_reference_lbh, bigru_bwd_lbh,
                          bigru_bwd_reference_lbh)
@@ -19,16 +20,19 @@ from .pallas_radiation import (adding_sw_fast, lw_solver_noscat_fast,
                                lw_solver_noscat_bwd,
                                lw_solver_noscat_bwd_reference)
 from .pallas_stencil import (fv_advect_tracers_sphere,
-                             fv_tracers_sphere_reference)
+                             fv_tracers_sphere_reference, fv_advect_tracers,
+                             fv_tracers_reference, fv_advect_levels)
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
+           "fused_bigru_heads_cm", "bigru_heads_cm_reference",
            "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
            "fused_bigru_lbh", "bigru_reference_lbh", "bigru_bwd_lbh",
            "bigru_bwd_reference_lbh", "adding_sw_fast",
            "lw_solver_noscat_fast", "adding_sw_bwd", "adding_sw_bwd_reference",
            "lw_solver_noscat_bwd", "lw_solver_noscat_bwd_reference",
            "fv_advect_tracers_sphere",
-           "fv_tracers_sphere_reference", "resolve_device"]
+           "fv_tracers_sphere_reference", "fv_advect_tracers",
+           "fv_tracers_reference", "fv_advect_levels", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:

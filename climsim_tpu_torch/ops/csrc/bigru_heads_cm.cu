@@ -1,0 +1,141 @@
+// v5 fused emulator forward: split up-projection of the initial-MLP
+// stream and the memory + up GRU sweep + down GRU sweep + latent/output
+// heads, channel-major [L, C, B].
+//
+// Replaces the TPU kernels climsim_tpu/ops/pallas_rnn.py::
+// _bigru_heads_cm_kernel and _bigru_heads_cm_hoist_kernel (wrapper
+// _bigru_heads_cm_pallas; hoist_proj picks the second).
+//
+// What it computes, per column (dt = the input type, f32 or bf16; every
+// sum is accumulated in f32; R = dt when the projections are hoisted, the
+// identity when not, as the two TPU bodies store them):
+//   up sweep l = L-1 .. 0:
+//     xp  = R(W1h x_l + W1m mem_l + b1)
+//     hh  = Whh_up dt(h) + bhh_up;  r = s(xp_r + hh_r), z = s(xp_z + hh_z)
+//     n   = tanh(xp_n + r hh_n);   h = (1 - z) n + z h;   up_l = dt(h)
+//   down sweep l = 0 .. L-1:
+//     xp2 = R(W2 up_l + b2); the same GRU step with Whh_dn on h2
+//     mem_l = dt(Wlat dt(h2) + blat); out_l = dt(Wout mem_l + bout)
+//     outmem[l] = [mem_l; out_l]
+//   lasth = dt(h2)
+// The TPU's hoisted body computes a block of 15 levels' projections ahead
+// of their chain steps; the values, and so the result, are the same as
+// computing each level's projection just before its step, which this
+// kernel does for both variants.
+//
+// What bounds it on an H100 at the flagship's v5 shapes (L 60, CH 192,
+// nm_in 16, H 192, nm 16, ny 6, B 21,600): 3H (CH + nm_in + 3H) + nm H +
+// ny nm = 454,752 multiply-adds per column and level (119,808 up
+// projection, 3 x 110,592 recurrences and down projection, 3,168 heads) =
+// 1.18 TFLOP per call, 1.19 ms at the 989 TFLOP/s dense bf16 tensor-core
+// peak; the bytes it must move (x, mem_in, h0s in; outmem, lasth out;
+// bf16) are ~0.62 GB, 0.19 ms at 3.35 TB/s. So it is bound by operations.
+//
+// What this first design does about it: it is B1's design
+// (bigru_heads_init_cm.cu), with the initial MLP replaced by a load of the
+// level's x: a CUDA-core FMA kernel whose floor is the card's ~67 TFLOP/s
+// f32 FMA rate (~18 ms), one block per 32-column tile walking all L levels
+// of both sweeps, weights read k-major from L2, the state in shared memory,
+// the up stream in a scratch tensor, the ragged last tile masked. The GRU
+// level and the down sweep with the heads are B1's (bigru_heads_cm.cuh),
+// with the rounding of the projections a template flag.
+#include "bigru_heads_cm.cuh"
+
+namespace {
+
+using namespace bigru;
+
+struct Params {
+  const void *x, *mem_in, *h0u, *h0d;
+  const void *win1h, *win1m, *bin1, *whh_up, *bhh_up;
+  const void *win2, *bin2, *whh_dn, *bhh_dn, *wlat, *blat, *wout, *bout;
+  void *outmem, *lasth, *up;
+  int L, CH, nm_in, H, nm, ny, B;
+};
+
+template <typename T, bool kHoist>
+__global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
+  const T* x = static_cast<const T*>(p.x);
+  const T* mem_in = static_cast<const T*>(p.mem_in);
+  T* up = static_cast<T*>(p.up);
+  const int L = p.L, CH = p.CH, nmi = p.nm_in, H = p.H, B = p.B;
+  const int col0 = blockIdx.x * BT;
+
+  extern __shared__ float4 smem4[];
+  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
+  float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
+  float* s_x = xh_nxt + H * BT;                     // [x rows][BT]
+  float* s_mem = s_x + max(CH + nmi, H) * BT;       // [nm][BT]
+
+  // ---- up sweep, surface (l = L-1) to top
+  load_tile(s_hc, static_cast<const T*>(p.h0u), H, B, col0);
+  load_tile(xh_cur, static_cast<const T*>(p.h0u), H, B, col0);
+  for (int l = L - 1; l >= 0; --l) {
+    load_tile(s_x, x + static_cast<size_t>(l) * CH * B, CH, B, col0);
+    load_tile(s_x + CH * BT, mem_in + static_cast<size_t>(l) * nmi * B, nmi,
+              B, col0);
+    __syncthreads();
+    gru_level<T, kHoist>(static_cast<const T*>(p.win1h), s_x, CH,
+                         static_cast<const T*>(p.win1m), s_x + CH * BT, nmi,
+                         static_cast<const T*>(p.bin1),
+                         static_cast<const T*>(p.whh_up),
+                         static_cast<const T*>(p.bhh_up), xh_cur, s_hc,
+                         xh_nxt, H);
+    __syncthreads();
+    float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
+    store_up(up + static_cast<size_t>(l) * H * B, xh_cur, H, B, col0);
+  }
+
+  // ---- down sweep, top (l = 0) to surface, and the heads
+  down_sweep_heads<T, kHoist>(
+      up, static_cast<const T*>(p.h0d), static_cast<const T*>(p.win2),
+      static_cast<const T*>(p.bin2), static_cast<const T*>(p.whh_dn),
+      static_cast<const T*>(p.bhh_dn), static_cast<const T*>(p.wlat),
+      static_cast<const T*>(p.blat), static_cast<const T*>(p.wout),
+      static_cast<const T*>(p.bout), static_cast<T*>(p.outmem),
+      static_cast<T*>(p.lasth), s_hc, xh_cur, xh_nxt, s_x, s_mem, L, H, p.nm,
+      p.ny, B, col0);
+}
+
+template <typename T, bool kHoist>
+int launch(const Params& p, cudaStream_t stream) {
+  const int xrows = p.CH + p.nm_in > p.H ? p.CH + p.nm_in : p.H;
+  const size_t rows = 3 * static_cast<size_t>(p.H) + xrows + p.nm;
+  const size_t smem = sizeof(float) * BT * rows;
+  cudaError_t err = cudaFuncSetAttribute(
+      bigru_heads_cm_kernel<T, kHoist>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (p.B + BT - 1) / BT;
+  bigru_heads_cm_kernel<T, kHoist><<<blocks, NTH, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; hoist: 1 rounds the sweeps' input
+// projections to dtype before the gates (the TPU's hoisted body), 0 keeps
+// them f32. Weights are k-major ([in, out]), biases flat; activations
+// channel-major [L, C, B] / [H, B], contiguous; nm_in may be 0. up is a
+// [L, H, B] scratch of the input type. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int bigru_heads_cm(
+    int dtype, int hoist, const void* x, const void* mem_in,
+    const void* h0u, const void* h0d, const void* win1h, const void* win1m,
+    const void* bin1, const void* whh_up, const void* bhh_up,
+    const void* win2, const void* bin2, const void* whh_dn,
+    const void* bhh_dn, const void* wlat, const void* blat,
+    const void* wout, const void* bout, void* outmem, void* lasth, void* up,
+    int L, int CH, int nm_in, int H, int nm, int ny, int B, void* stream) {
+  Params p{x, mem_in, h0u, h0d, win1h, win1m, bin1, whh_up, bhh_up, win2,
+           bin2, whh_dn, bhh_dn, wlat, blat, wout, bout, outmem, lasth, up,
+           L, CH, nm_in, H, nm, ny, B};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0) return hoist ? launch<float, true>(p, s)
+                               : launch<float, false>(p, s);
+  if (dtype == 1) return hoist ? launch<bf16, true>(p, s)
+                               : launch<bf16, false>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -39,11 +39,13 @@
 // outputs, one coalesced 64-byte load. The state h (f32), dt(h) and the
 // level's input live in shared memory as f32; the up stream [L, H, B]
 // that the down sweep reads goes to a scratch tensor the wrapper
-// allocates. B is ragged: the last tile masks its columns itself.
-// Tensor cores (mma.sync / wgmma) and cluster-resident weights are later
-// work. Built without --use_fast_math: expf/tanhf keep the 60-level
+// allocates. B is ragged: the last tile masks its columns itself. The GRU
+// level and the down sweep with the heads are shared with the v5 kernel
+// (bigru_heads_cm.cuh). Tensor cores (mma.sync / wgmma) and
+// cluster-resident weights are later work. Built without
+// --use_fast_math: expf/tanhf keep the 60-level
 // recurrence within tolerance of the plain version.
-#include "bigru_common.cuh"
+#include "bigru_heads_cm.cuh"
 
 namespace {
 
@@ -56,51 +58,6 @@ struct Params {
   void *outmem, *lasth, *up;
   int L, nf, nm_in, H, nm, ny, B;
 };
-
-// One GRU level for every (hidden unit, column group) of the tile.
-// X1 [K1][BT] with W1 [K1][3H] and X2 [K2][BT] with W2 [K2][3H] form the
-// input projection (K2 = 0 for the down sweep); xh = dt(h) [H][BT] is the
-// recurrent operand; hc [H][BT] the f32 state, updated in place (each
-// element is read and written by one thread); xh_new receives dt(h_new).
-template <typename T>
-__device__ __forceinline__ void gru_level(
-    const T* __restrict__ W1, const float* X1, int K1,
-    const T* __restrict__ W2, const float* X2, int K2,
-    const T* __restrict__ bin, const T* __restrict__ whh,
-    const T* __restrict__ bhh, const float* xh, float* hc, float* xh_new,
-    int H) {
-  for (int item = threadIdx.x; item < H * NCG; item += NTH) {
-    const int j = item % H;
-    const int c0 = (item / H) * CG;
-    float ar[CG], az[CG], an[CG], hn[CG];
-#pragma unroll
-    for (int q = 0; q < CG; ++q) ar[q] = az[q] = an[q] = hn[q] = 0.0f;
-    gate_mv<T>(ar, az, an, W1, K1, H, j, X1, c0);
-    if (K2 > 0) gate_mv<T>(ar, az, an, W2, K2, H, j, X2, c0);
-    const float br = ldw(bin + j), bz = ldw(bin + H + j),
-                bn = ldw(bin + 2 * H + j);
-#pragma unroll
-    for (int q = 0; q < CG; ++q) {
-      ar[q] = rnd<T>(ar[q] + br);     // the projection is stored in dt
-      az[q] = rnd<T>(az[q] + bz);
-      an[q] = rnd<T>(an[q] + bn);
-    }
-    // r and z take x + hh: accumulate the recurrent product onto x
-    gate_mv<T>(ar, az, hn, whh, H, H, j, xh, c0);
-    const float cr = ldw(bhh + j), cz = ldw(bhh + H + j),
-                cn = ldw(bhh + 2 * H + j);
-#pragma unroll
-    for (int q = 0; q < CG; ++q) {
-      const float r = sigmoidf_(ar[q] + cr);
-      const float z = sigmoidf_(az[q] + cz);
-      const float n = tanhf(an[q] + r * (hn[q] + cn));
-      const int e = j * BT + c0 + q;
-      const float h = (1.0f - z) * n + z * hc[e];
-      hc[e] = h;
-      xh_new[e] = rnd<T>(h);
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NTH, 2)
@@ -146,62 +103,25 @@ bigru_heads_init_cm_kernel(Params p) {
       s_x[e] = rnd<T>(tanhf(rnd<T>(a + ldw(binit + j))));
     }
     __syncthreads();
-    gru_level<T>(static_cast<const T*>(p.win1h), s_x, H,
-                 static_cast<const T*>(p.win1m), s_x + H * BT, nmi,
-                 static_cast<const T*>(p.bin1),
-                 static_cast<const T*>(p.whh_up),
-                 static_cast<const T*>(p.bhh_up), xh_cur, s_hc, xh_nxt, H);
+    gru_level<T, true>(static_cast<const T*>(p.win1h), s_x, H,
+                       static_cast<const T*>(p.win1m), s_x + H * BT, nmi,
+                       static_cast<const T*>(p.bin1),
+                       static_cast<const T*>(p.whh_up),
+                       static_cast<const T*>(p.bhh_up), xh_cur, s_hc, xh_nxt,
+                       H);
     __syncthreads();
     float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
-    T* up_l = up + static_cast<size_t>(l) * H * B;
-    for (int e = tid; e < H * BT; e += NTH) {
-      const int j = e / BT, c = e % BT, col = col0 + c;
-      if (col < B) up_l[static_cast<size_t>(j) * B + col] = from_f<T>(xh_cur[e]);
-    }
+    store_up(up + static_cast<size_t>(l) * H * B, xh_cur, H, B, col0);
   }
 
-  // ---- down sweep, top (l = 0) to surface
-  __syncthreads();
-  load_tile(s_hc, static_cast<const T*>(p.h0d), H, B, col0);
-  load_tile(xh_cur, static_cast<const T*>(p.h0d), H, B, col0);
-  const int nmo = nm + ny;
-  for (int l = 0; l < L; ++l) {
-    load_tile(s_x, up + static_cast<size_t>(l) * H * B, H, B, col0);
-    __syncthreads();
-    gru_level<T>(static_cast<const T*>(p.win2), s_x, H,
-                 static_cast<const T*>(p.win2), s_x, 0,
-                 static_cast<const T*>(p.bin2),
-                 static_cast<const T*>(p.whh_dn),
-                 static_cast<const T*>(p.bhh_dn), xh_cur, s_hc, xh_nxt, H);
-    __syncthreads();
-    float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
-    T* om = outmem + static_cast<size_t>(l) * nmo * B;
-    // latent memory head on dt(h2)
-    for (int e = tid; e < nm * BT; e += NTH) {
-      const int m = e / BT, c = e % BT, col = col0 + c;
-      float a = 0.0f;
-      for (int k = 0; k < H; ++k)
-        a = fmaf(ldw(wlat + k * nm + m), xh_cur[k * BT + c], a);
-      const float v = rnd<T>(a + ldw(blat + m));
-      s_mem[e] = v;
-      if (col < B) om[static_cast<size_t>(m) * B + col] = from_f<T>(v);
-    }
-    __syncthreads();
-    // output head on the (dt-rounded) memory
-    for (int e = tid; e < ny * BT; e += NTH) {
-      const int o = e / BT, c = e % BT, col = col0 + c;
-      float a = 0.0f;
-      for (int m = 0; m < nm; ++m)
-        a = fmaf(ldw(wout + m * ny + o), s_mem[m * BT + c], a);
-      if (col < B)
-        om[static_cast<size_t>(nm + o) * B + col] =
-            from_f<T>(a + ldw(bout + o));
-    }
-  }
-  for (int e = tid; e < H * BT; e += NTH) {
-    const int j = e / BT, c = e % BT, col = col0 + c;
-    if (col < B) lasth[static_cast<size_t>(j) * B + col] = from_f<T>(xh_cur[e]);
-  }
+  // ---- down sweep, top (l = 0) to surface, and the heads
+  down_sweep_heads<T, true>(up, static_cast<const T*>(p.h0d),
+                            static_cast<const T*>(p.win2),
+                            static_cast<const T*>(p.bin2),
+                            static_cast<const T*>(p.whh_dn),
+                            static_cast<const T*>(p.bhh_dn), wlat, blat,
+                            wout, bout, outmem, lasth, s_hc, xh_cur, xh_nxt,
+                            s_x, s_mem, L, H, nm, ny, B, col0);
 }
 
 template <typename T>

@@ -1,10 +1,12 @@
 """The fused BiGRU kernels and their plain PyTorch versions (counterpart of
-``climsim_tpu/ops/pallas_rnn.py``): the v6 fused emulator's forward and
-backward (``fused_bigru_heads_init_cm``, ``_bigru_heads_cm_bwd_pallas``;
-kernels ``csrc/bigru_heads_init_cm.cu`` and ``csrc/bigru_heads_cm_bwd.cu``)
+``climsim_tpu/ops/pallas_rnn.py``): the v6 and v5 fused emulator forwards
+(``fused_bigru_heads_init_cm``, ``fused_bigru_heads_cm``; kernels
+``csrc/bigru_heads_init_cm.cu`` and ``csrc/bigru_heads_cm.cu``) and their
+shared backward (``bigru_heads_cm_bwd``, ``csrc/bigru_heads_cm_bwd.cu``),
 and, at the end of this module, the v2 level-major forward and backward
-of the physics trunk (``fused_bigru_lbh``, ``bigru_bwd_lbh``; kernels
-``csrc/bigru_lbh.cu`` and ``csrc/bigru_lbh_bwd.cu``).
+(``fused_bigru_lbh``, ``bigru_bwd_lbh``; kernels ``csrc/bigru_lbh.cu`` and
+``csrc/bigru_lbh_bwd.cu``) of the physics trunk and the batch-major
+flagship.
 
 Channel-major contract, as in JAX: feat [L, nf, B] raw features, mem_in
 [L, nm_in, B], h0_up/h0_dn [H, B]; weights pre-transposed [out, in] and
@@ -17,6 +19,8 @@ heads and the outputs, where the TPU kernel stores them.
 the initial-MLP stream, runs ``bigru_heads_cm_bwd`` (replay, heads and
 down-sweep BPTT, up-sweep BPTT, weight gradients) and applies the
 initial MLP's VJP, as JAX's ``_heads_init_cm_bwd`` does.
+``fused_bigru_heads_cm`` (v5) takes that stream as its input, so its
+backward is ``bigru_heads_cm_bwd`` alone, as JAX's ``_heads_cm_bwd``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from . import _build
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
+           "fused_bigru_heads_cm", "bigru_heads_cm_reference",
            "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
            "fused_bigru_lbh", "bigru_reference_lbh", "bigru_bwd_lbh",
            "bigru_bwd_reference_lbh"]
@@ -93,34 +98,49 @@ def _gru_bwd_step_cm(dh, gates, h_prev, whh_t, H: int):
     return d_xp, dh * z + _tmm(whh_t, d_hh), d_hh
 
 
-def bigru_heads_init_cm_reference(feat, mem_in, h0_up, h0_dn, winit_t,
-                                  binit, win1h_t, win1m_t, bin1, whh_up_t,
-                                  bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
-                                  wlat_t, blat, wout_t, bout):
-    """Plain version of the forward kernel: the same arithmetic, level by
-    level."""
-    dt = feat.dtype
-    L = feat.shape[0]
+def bigru_heads_cm_reference(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t,
+                             bin1, whh_up_t, bhh_up, win2_t, bin2, whh_dn_t,
+                             bhh_dn, wlat_t, blat, wout_t, bout,
+                             hoist_proj=True):
+    """Plain version of the v5 forward kernel (B4), level by level: x
+    [L, CH, B] is the initial-MLP stream. With ``hoist_proj`` the sweeps'
+    input projections are rounded to x's type before the gates, as the
+    TPU's hoisted body stores them; without, they stay float32."""
+    dt = x.dtype
+    rnd = (lambda t: t.to(dt)) if hoist_proj else (lambda t: t)
+    L = x.shape[0]
     H = whh_up_t.shape[1]
     h = h0_up.float()
-    up = []
+    up = [None] * L
     for l in range(L - 1, -1, -1):
-        xi = torch.tanh((_mm(winit_t, feat[l]) + binit.float()).to(dt)
-                        .float()).to(dt)
-        xp = (_mm(win1h_t, xi) + _mm(win1m_t, mem_in[l])
-              + bin1.float()).to(dt)
+        xp = rnd(_mm(win1h_t, x[l]) + _mm(win1m_t, mem_in[l])
+                 + bin1.float())
         h = _gru_step_cm(h, xp, whh_up_t, bhh_up, H)
-        up.append(h.to(dt))
-    up.reverse()
+        up[l] = h.to(dt)
     h2 = h0_dn.float()
     outmem = []
     for l in range(L):
-        xp2 = (_mm(win2_t, up[l]) + bin2.float()).to(dt)
+        xp2 = rnd(_mm(win2_t, up[l]) + bin2.float())
         h2 = _gru_step_cm(h2, xp2, whh_dn_t, bhh_dn, H)
         mem_l = (_mm(wlat_t, h2.to(dt)) + blat.float()).to(dt)
         out_l = (_mm(wout_t, mem_l) + bout.float()).to(dt)
         outmem.append(torch.cat([mem_l, out_l], dim=0))
     return torch.stack(outmem), h2.to(dt)
+
+
+def bigru_heads_init_cm_reference(feat, mem_in, h0_up, h0_dn, winit_t,
+                                  binit, *weights):
+    """Plain version of the v6 forward kernel (B1): the initial MLP's
+    stream xi = dt(tanh(dt(Winit feat_l + binit))), then the v5 sweeps and
+    heads with the projections rounded, as the v6 kernel stores them.
+    ``weights`` are (win1h_t, win1m_t, bin1, whh_up_t, bhh_up, win2_t,
+    bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout)."""
+    dt = feat.dtype
+    xi = torch.stack([
+        torch.tanh((_mm(winit_t, feat[l]) + binit.float()).to(dt).float())
+        .to(dt) for l in range(feat.shape[0])])
+    return bigru_heads_cm_reference(xi, mem_in, h0_up, h0_dn, *weights,
+                                    hoist_proj=True)
 
 
 def bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth):
@@ -240,19 +260,22 @@ def _validate(args) -> tuple[int, ...]:
     return L, nf, nm_in, H, nm, ny, B
 
 
-def _validate_bwd(res, d_outmem, d_lasth) -> tuple[int, ...]:
-    """The backward's counterpart of ``_validate``; returns
-    (L, CH, nm_in, H, nm, ny, B)."""
-    named = {**dict(zip(_RES, res)), "d_outmem": d_outmem,
-             "d_lasth": d_lasth}
+def _validate_cm(res, cotangents=()) -> tuple[int, ...]:
+    """Check the v5 forward's arguments, which are the backward's
+    residuals, and with ``cotangents`` = (d_outmem, d_lasth) those of the
+    backward; returns (L, CH, nm_in, H, nm, ny, B)."""
+    named = dict(zip(_RES, res))
     L, CH, B = named["x"].shape
     nm_in, H = named["mem_in"].shape[1], named["whh_up_t"].shape[1]
     nm, ny = named["wlat_t"].shape[0], named["wout_t"].shape[0]
     shapes = {"x": (L, CH, B), "mem_in": (L, nm_in, B), "h0_up": (H, B),
-              "h0_dn": (H, B), **_weight_shapes(H, CH, nm_in, nm, ny),
-              "d_outmem": (L, nm + ny, B), "d_lasth": (H, B)}
-    _check(named, shapes, ("x", "mem_in", "h0_up", "h0_dn", "d_outmem",
-                           "d_lasth"))
+              "h0_dn": (H, B), **_weight_shapes(H, CH, nm_in, nm, ny)}
+    contiguous = ["x", "mem_in", "h0_up", "h0_dn"]
+    if cotangents:
+        named.update(d_outmem=cotangents[0], d_lasth=cotangents[1])
+        shapes.update(d_outmem=(L, nm + ny, B), d_lasth=(H, B))
+        contiguous += ["d_outmem", "d_lasth"]
+    _check(named, shapes, contiguous)
     return L, CH, nm_in, H, nm, ny, B
 
 
@@ -342,7 +365,7 @@ def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
     (outmem, lasth) -> (dx, dmem, dh0u, dh0d, 13 weight/bias gradients in
     the weights' type). A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel or raises."""
-    dims = _validate_bwd(res, d_outmem, d_lasth)
+    dims = _validate_cm(res, (d_outmem, d_lasth))
     dev = res[0].device
     if dev.type == "cpu":
         return bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth)
@@ -403,6 +426,96 @@ def fused_bigru_heads_init_cm(feat, mem_in, h0_up, h0_dn, winit_t, binit,
 
 fused_bigru_heads_init_cm.launches = 0
 bigru_heads_cm_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# v5 channel-major forward (B4, csrc/bigru_heads_cm.cu): the initial-MLP
+# stream x [L, CH, B] and the memory in, JAX's ``fused_bigru_heads_cm``;
+# its backward is B3 on the forward's own arguments
+# --------------------------------------------------------------------------
+
+
+def _launch_cm(args, dims, hoist_proj) -> tuple[torch.Tensor, torch.Tensor]:
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = args
+    L, CH, nm_in, H, nm, ny, B = dims
+    dt, dev = x.dtype, x.device
+    outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
+    lasth = torch.empty((H, B), dtype=dt, device=dev)
+    up = torch.empty((L, H, B), dtype=dt, device=dev)   # up-stream scratch
+    ptrs = [x, mem_in, h0_up, h0_dn, _kmaj(win1h_t), _kmaj(win1m_t),
+            _flat(bin1), _kmaj(whh_up_t), _flat(bhh_up), _kmaj(win2_t),
+            _flat(bin2), _kmaj(whh_dn_t), _flat(bhh_dn), _kmaj(wlat_t),
+            _flat(blat), _kmaj(wout_t), _flat(bout), outmem, lasth, up]
+    lib = _build.load("bigru_heads_cm")
+    fn = lib.bigru_heads_cm
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(0 if dt == torch.float32 else 1, int(hoist_proj),
+            *[t.data_ptr() for t in ptrs], L, CH, nm_in, H, nm, ny, B,
+            stream)
+    _build.check_status(rc, "bigru_heads_cm")
+    fused_bigru_heads_cm.launches += 1
+    return outmem, lasth
+
+
+class _FusedHeadsCM(torch.autograd.Function):
+    """Forward: the B4 kernel (or its plain version on the CPU), saving
+    only the inputs. Backward, as JAX's ``_heads_cm_bwd``: with memory
+    (nm_in > 0) ``bigru_heads_cm_bwd`` on the forward's arguments (kernel
+    B3 on the card, which replays the sweeps with float32 projections
+    whatever the forward rounded); without, autograd of the plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, hoist_proj, *args):
+        dims = _validate_cm(args)
+        ctx.save_for_backward(*args)
+        ctx.hoist_proj = hoist_proj
+        dev = args[0].device
+        if dev.type == "cpu":
+            return bigru_heads_cm_reference(*args, hoist_proj=hoist_proj)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        return _launch_cm(args, dims, hoist_proj)
+
+    @staticmethod
+    def backward(ctx, d_outmem, d_lasth):
+        args = ctx.saved_tensors
+        dt = args[0].dtype
+        if args[1].shape[1] > 0:
+            grads = bigru_heads_cm_bwd(args, d_outmem.to(dt).contiguous(),
+                                       d_lasth.to(dt).contiguous())
+        else:
+            with torch.enable_grad():
+                a = [t.detach().requires_grad_(True) for t in args]
+                out = bigru_heads_cm_reference(*a,
+                                               hoist_proj=ctx.hoist_proj)
+                grads = torch.autograd.grad(out, a, (d_outmem, d_lasth),
+                                            allow_unused=True)
+        return (None, *grads)
+
+
+def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
+                         whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
+                         wlat_t, blat, wout_t, bout, hoist_proj=True):
+    """v5 channel-major fused BiGRU + heads with the split up projection:
+    x [L, CH, B] (the initial-MLP stream), mem_in [L, nm_in, B] (nm_in may
+    be 0), h0_up/h0_dn [H, B], weights [out, in], biases [ch, 1] ->
+    (outmem [L, nm+ny, B] = mem || out, lasth [H, B]); differentiable in
+    all 17. ``hoist_proj`` picks the TPU body whose roundings the kernel
+    reproduces (see ``bigru_heads_cm_reference``). A CPU tensor runs the
+    plain versions; a CUDA tensor launches kernel B4 (and, for gradients,
+    B3) or raises."""
+    return _FusedHeadsCM.apply(bool(hoist_proj), x, mem_in, h0_up, h0_dn,
+                               win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+                               win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,
+                               wout_t, bout)
+
+
+fused_bigru_heads_cm.launches = 0
 
 
 # --------------------------------------------------------------------------

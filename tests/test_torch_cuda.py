@@ -490,3 +490,126 @@ def test_phys_update_on_card_matches_cpu(cuda):
     assert np.isfinite(lc) and lc == pytest.approx(lp, rel=1e-5)
     for k in gp:
         assert _rel_err(gc[k], gp[k]) <= 1e-4, (k, _rel_err(gc[k], gp[k]))
+
+
+def _b4_inputs(L, H, B, dtype, device, nm_in=8, seed=11):
+    """B4's arguments: a tanh stream x [L, H, B] (the initial MLP's
+    output) and the v5 weights."""
+    res, _, _ = _b3_inputs(L, H, B, torch.float32, "cpu", seed)
+    res = list(res)
+    if nm_in != res[1].shape[1]:
+        g = torch.Generator().manual_seed(seed)
+        res[1] = 0.25 * torch.randn((L, nm_in, B), generator=g)
+        res[5] = 0.25 * torch.randn((3 * H, nm_in), generator=g)
+    return [t.to(device, dtype) for t in res]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoist", [False, True])
+@pytest.mark.parametrize("B", [16, 150])
+def test_b4_kernel_matches_plain_f32(cuda, B, hoist):
+    """f32, ragged B: summation order only (tolerance as B1's)."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm)
+    a = _b4_inputs(20, 16, B, torch.float32, cuda)
+    before = fused_bigru_heads_cm.launches
+    with torch.no_grad():
+        got = fused_bigru_heads_cm(*a, hoist_proj=hoist)
+        want = bigru_heads_cm_reference(*a, hoist_proj=hoist)
+    assert fused_bigru_heads_cm.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoist", [False, True])
+def test_b4_kernel_matches_plain_bf16(cuda, hoist):
+    """bf16: 4x the plain version's own bf16-vs-f32 error, as for B1; the
+    zero-width memory of the layer without memory runs too."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm)
+    for nm_in in (8, 0):
+        a = _b4_inputs(20, 16, 150, torch.bfloat16, cuda, nm_in)
+        with torch.no_grad():
+            got = fused_bigru_heads_cm(*a, hoist_proj=hoist)
+            want = bigru_heads_cm_reference(*a, hoist_proj=hoist)
+            want32 = bigru_heads_cm_reference(*(t.float() for t in a),
+                                              hoist_proj=hoist)
+        for g, w, w32 in zip(got, want, want32):
+            assert g.dtype == torch.bfloat16
+            own = (w.float() - w32).abs().max().item()
+            assert (g.float() - w.float()).abs().max().item() <= 4 * own
+
+
+@pytest.mark.cuda
+def test_b4_autograd_launches_b3(cuda):
+    """Gradients of all 17 inputs through fused_bigru_heads_cm on the card
+    (B4 forward, B3 backward, one launch each) against the CPU (f32, 1e-4
+    of each gradient's scale)."""
+    from climsim_tpu_torch.ops import bigru_heads_cm_bwd, fused_bigru_heads_cm
+    a = _b4_inputs(20, 16, 150, torch.float32, "cpu")
+
+    def grads(dev):
+        x = [t.to(dev, copy=True).requires_grad_(True) for t in a]
+        om, lh = fused_bigru_heads_cm(*x)
+        ((om ** 2).sum() + (lh ** 2).sum()).backward()
+        return [t.grad.cpu() for t in x]
+
+    b4, b3 = fused_bigru_heads_cm.launches, bigru_heads_cm_bwd.launches
+    card = grads(cuda)
+    assert (fused_bigru_heads_cm.launches, bigru_heads_cm_bwd.launches) \
+        == (b4 + 1, b3 + 1)
+    for i, (g, w) in enumerate(zip(card, grads("cpu"))):
+        assert _rel_err(g, w) <= 1e-4, (i, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["tracers", "levels"])
+def test_b5_b6_kernels_match_plain(cuda, op):
+    """The flat stencil (B5 all tracers, B6 one field) against its plain
+    version: FMA contraction only, a few ulps on fields of order 1; the
+    backward differentiates the plain version."""
+    from climsim_tpu_torch.ops import (fv_advect_levels, fv_advect_tracers,
+                                       fv_tracers_reference)
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    qs = t(rng.normal(1, 0.3, (3, 4, 16, 24)))
+    u, v = t(rng.normal(0, 1, (4, 16, 24))), t(rng.normal(0, 1, (4, 16, 24)))
+    kern = fv_advect_tracers if op == "tracers" else fv_advect_levels
+    q = qs if op == "tracers" else qs[0].contiguous()
+    before = kern.launches
+    with torch.no_grad():
+        got = kern(q, u, v, 0.4, 0.3)
+    assert kern.launches == before + 1
+    torch.testing.assert_close(got, fv_tracers_reference(q, u, v, 0.4, 0.3),
+                               rtol=1e-5, atol=1e-5)
+    q1, q2 = (q.clone().requires_grad_(True) for _ in range(2))
+    kern(q1, u, v, 0.4, 0.3).square().sum().backward()
+    fv_tracers_reference(q2, u, v, 0.4, 0.3).square().sum().backward()
+    torch.testing.assert_close(q1.grad, q2.grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_b7_kernel_at_h192_bf16(cuda):
+    """B7 at the flagship's width (H 192, 96 KB of shared memory per
+    block), as the batch-major v2 arm runs it: bf16 to 4x the plain
+    version's own bf16-vs-f32 error, f32 to summation order. The weights
+    have the lecun-normal scale 1/sqrt(H) of the model's (at 0.3, H 192
+    makes the recurrence chaotic, and summation order alone then moves
+    the states by 6e-4)."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+    for dtype in (torch.float32, torch.bfloat16):
+        a = _b7_inputs(24, 192, 150, torch.float32, cuda)
+        for i in (3, 5, 7):
+            a[i] = a[i] / (0.3 * np.sqrt(192))
+        a = [t.to(dtype) for t in a]
+        with torch.no_grad():
+            got = fused_bigru_lbh(*a)
+            want = bigru_reference_lbh(*a)
+            want32 = bigru_reference_lbh(*(t.float() for t in a))
+        for g, w, w32 in zip(got, want, want32):
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            else:
+                own = (w.float() - w32).abs().max().item()
+                assert (g.float() - w.float()).abs().max().item() <= 4 * own

@@ -1,7 +1,10 @@
 """The port's online hybrid loop against the JAX package's HybridLoop on the
-CPU: proxy-grid mapping, spherical metric, fixers, and a 3-step rollout of
+CPU: proxy-grid mapping, spherical metric, fixers, a 3-step rollout of
 the production configuration (sphere FV through the fused stencil, the
-channel-major fused emulator, both fixers)."""
+channel-major fused emulator, both fixers), and 3-step rollouts of the
+other single-device configurations (flat geometry, semi-Lagrangian and
+no transport, vertical advection, the batch-major contract with the scan
+emulator, a feature builder)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,22 +106,30 @@ def test_conservation_fixer_matches_jax(weighted):
                                atol=0)
 
 
-def _emulators():
+def _emulators(level_major=True):
     """The JAX and the port emulator on the same flax parameters, wrapped
-    as bench.py wraps them: normalise -> model -> scale."""
+    as bench.py wraps them: normalise -> model -> scale. Channel-major:
+    the v6 fused flagship; batch-major: the scan arm."""
     kw = dict(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(16, 16), nh_mem=4,
-              add_pres=False, use_pallas=True, fuse_heads=True,
-              fuse_init=True, level_major=True)
+              add_pres=False)
+    if level_major:
+        kw.update(use_pallas=True, fuse_heads=True, fuse_init=True,
+                  level_major=True)
+        shapes = ((NLEV, 6, NCOL), (NLEV, 4, NCOL))
+        col = lambda a: a[:, None]
+    else:
+        shapes = ((NCOL, NLEV, 6), (NCOL, NLEV, 4))
+        col = lambda a: a
     jm = JaxRNNAutoreg(policy=jcommon.F32, **kw)
     params = jm.init(jax.random.PRNGKey(0),
-                     jnp.ones((NLEV, 6, NCOL), jnp.float32) * 0.1,
+                     jnp.ones(shapes[0], jnp.float32) * 0.1,
                      jnp.ones((NCOL, 24), jnp.float32) * 0.1,
-                     jnp.zeros((NLEV, 4, NCOL), jnp.float32))
+                     jnp.zeros(shapes[1], jnp.float32))
     tm = RNNAutoreg(policy=F32, device="cpu", **kw)
     tm.load_state_dict(from_flax_params(
         jax.tree_util.tree_map(np.asarray, params), tm))
-    jxs, jys = jnp.asarray(XSCALE)[:, None], jnp.asarray(YSCALE)[:, None]
-    txs, tys = torch.as_tensor(XSCALE)[:, None], torch.as_tensor(YSCALE)[:, None]
+    jxs, jys = col(jnp.asarray(XSCALE)), col(jnp.asarray(YSCALE))
+    txs, tys = col(torch.as_tensor(XSCALE)), col(torch.as_tensor(YSCALE))
 
     def jax_emulator(x_main_raw, x_sfc_raw, mem):
         out, out_sfc, mem = jm.apply(params, x_main_raw / jxs, x_sfc_raw, mem)
@@ -131,27 +142,36 @@ def _emulators():
     return jax_emulator, port_emulator
 
 
-def test_rollout_matches_jax_production_config():
-    """3 coupled steps. Tolerances: the state is float32 at ~250 K, and
-    the energy fixer's shift (e_pre - e_post) / (cp sum w) cancels two
-    moist-energy integrals of ~1e9 in f32, an absolute error of ~1e-5 K
-    per step, hence atol 1e-4 on T; the water fixer's ratio is a ratio of
-    f32 sums (rtol 1e-5); energy_resid is a mean of f32 column sums of
-    cancelling terms (rtol 1e-4 of its scale)."""
-    jax_emu, port_emu = _emulators()
+def _rollouts(cfg: dict, level_major=True, builders=(None, None)):
+    """3 coupled steps of the JAX loop and of the port's (plain versions)
+    in the same configuration from the same state."""
+    jax_emu, port_emu = _emulators(level_major)
     jg, tg = JaxGrid.synthetic(NCOL, nlev=NLEV), Grid.synthetic(NCOL, NLEV)
-    jloop = JaxLoop(jax_emu, jg, JaxConfig(**PROD))
-    tloop = HybridLoop(port_emu, tg, HostLoopConfig(**PROD), device="cpu")
+    jloop = JaxLoop(jax_emu, jg, JaxConfig(**cfg), feature_builder=builders[0])
+    tloop = HybridLoop(port_emu, tg, HostLoopConfig(**cfg),
+                       feature_builder=builders[1], device="cpu")
     st, xs = _state(), _x_sfc()
-    mem0 = np.zeros((NLEV, 4, NCOL), np.float32)
+    mem0 = np.zeros((NLEV, 4, NCOL) if level_major else (NCOL, NLEV, 4),
+                    np.float32)
     js, jmem, jd = jloop.rollout({k: jnp.asarray(v) for k, v in st.items()},
                                  jnp.asarray(mem0), jnp.asarray(xs), 3)
     with torch.no_grad():
         ts, tmem, td = tloop.rollout(
             {k: torch.as_tensor(v) for k, v in st.items()},
             torch.as_tensor(mem0), torch.as_tensor(xs), 3)
+    return (js, jmem, jd), (ts, tmem, td)
+
+
+def _assert_rollouts_agree(jax_run, port_run):
+    """Tolerances: the state is float32 at ~250 K, and the energy fixer's
+    shift (e_pre - e_post) / (cp sum w) cancels two moist-energy integrals
+    of ~1e9 in f32, an absolute error of ~1e-5 K per step, hence atol 1e-4
+    on T; the water fixer's ratio is a ratio of f32 sums (rtol 1e-5);
+    energy_resid is a mean of f32 column sums of cancelling terms (rtol
+    1e-4 of its scale)."""
+    (js, jmem, jd), (ts, tmem, td) = jax_run, port_run
     tol = {"T": (1e-6, 1e-4), "u": (1e-5, 1e-5), "v": (1e-5, 1e-5)}
-    for k in st:
+    for k in js:
         rtol, atol = tol.get(k, (1e-5, 1e-12))
         np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
                                    rtol=rtol, atol=atol, err_msg=k)
@@ -159,13 +179,66 @@ def test_rollout_matches_jax_production_config():
                                atol=1e-6)
     assert set(td) == set(jd)
     for k in ("mean_T", "energy_int", "precc", "sfc_fluxes"):
-        np.testing.assert_allclose(td[k].numpy(), np.asarray(jd[k]),
-                                   rtol=1e-5, atol=1e-6, err_msg=k)
-    er = np.asarray(jd["energy_resid"])
-    np.testing.assert_allclose(td["energy_resid"].numpy(), er, rtol=0,
-                               atol=1e-4 * np.abs(er).max(),
-                               err_msg="energy_resid")
+        if k in jd:
+            np.testing.assert_allclose(td[k].numpy(), np.asarray(jd[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+    if "energy_resid" in jd:
+        er = np.asarray(jd["energy_resid"])
+        np.testing.assert_allclose(td["energy_resid"].numpy(), er, rtol=0,
+                                   atol=1e-4 * np.abs(er).max(),
+                                   err_msg="energy_resid")
     assert td["mean_T"].shape == (3,)
+
+
+def test_rollout_matches_jax_production_config():
+    """3 coupled steps of the production configuration."""
+    _assert_rollouts_agree(*_rollouts(PROD))
+
+
+# the other single-device configurations; a flat raster of 100 km cells
+# (Courant numbers ~0.1-0.4 at 10-30 m/s) and, for semi-Lagrangian
+# transport on it, of 10 km cells, so that departures cross cells
+NEW_CONFIGS = {
+    "flat_fused": dict(PROD, geometry="flat", dx=1e5, dy=1e5),
+    "flat_per_field": dict(PROD, geometry="flat", use_pallas=False,
+                           dx=1e5, dy=1e5),
+    "sl_sphere": dict(PROD, scheme="semi_lagrangian"),
+    "sl_flat": dict(PROD, scheme="semi_lagrangian", geometry="flat",
+                    dx=1e4, dy=1e4),
+    "vertical_sphere": dict(PROD, vertical_advection=True),
+    "vertical_flat": dict(PROD, geometry="flat", vertical_advection=True,
+                          dx=1e5, dy=1e5),
+    "no_transport": dict(PROD, scheme="none", vertical_advection=True),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_CONFIGS))
+def test_rollout_matches_jax_ported_configs(name):
+    """3 coupled steps of each configuration with the channel-major
+    flagship, as the production test."""
+    _assert_rollouts_agree(*_rollouts(NEW_CONFIGS[name]))
+
+
+def test_rollout_matches_jax_batch_major_scan():
+    """The batch-major contract (x_main [B, L, 6], ptend[:, :, j]) with
+    the scan emulator, sphere FV per field."""
+    cfg = dict(PROD, emulator_level_major=False, use_pallas=False)
+    _assert_rollouts_agree(*_rollouts(cfg, level_major=False))
+
+
+def test_rollout_matches_jax_feature_builder():
+    """A caller's feature builder: total water in channel 1, the surface
+    pressure raised by 1%, channel-major."""
+    def builder(xp):
+        def build(state, x_sfc_raw):
+            fields = (state["T"], state["qv"] + state["qc"] + state["qi"],
+                      state["qc"], state["qi"], state["u"], state["v"])
+            x_sfc = xp.concatenate([x_sfc_raw[:, :1] * 1.01,
+                                    x_sfc_raw[:, 1:]], 1)
+            return xp.stack([f.T for f in fields], 1), x_sfc
+        return build
+    _assert_rollouts_agree(*_rollouts(PROD, builders=(builder(jnp),
+                                                      builder(torch))))
 
 
 def test_fused_and_per_field_transport_agree():
@@ -183,10 +256,17 @@ def test_fused_and_per_field_transport_agree():
 
 
 def test_unported_configs_raise():
+    """The configurations that waited for this port now build (their
+    rollouts are held against JAX above); only names outside the JAX
+    configuration's choices are refused."""
     tg = Grid.synthetic(NCOL, NLEV)
     for over in ({"geometry": "flat"}, {"scheme": "semi_lagrangian"},
-                 {"vertical_advection": True},
+                 {"scheme": "none"}, {"vertical_advection": True},
                  {"emulator_level_major": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        loop = HybridLoop(None, tg, HostLoopConfig(**{**PROD, **over}),
+                          device="cpu")
+        assert (loop.metric is None) == (loop.cfg.geometry == "flat")
+    for over in ({"geometry": "torus"}, {"scheme": "spectral"}):
+        with pytest.raises(ValueError):
             HybridLoop(None, tg, HostLoopConfig(**{**PROD, **over}),
                        device="cpu")

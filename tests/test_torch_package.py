@@ -42,8 +42,13 @@ def test_port_sources_exist():
         assert want in names
     for cu in ("bigru_heads_init_cm.cu", "bigru_heads_cm_bwd.cu",
                "fv_tracers_sphere.cu", "bigru_lbh.cu", "adding_sw.cu",
-               "lw_noscat.cu"):
+               "lw_noscat.cu", "bigru_lbh_bwd.cu", "adding_sw_bwd.cu",
+               "lw_noscat_bwd.cu", "bigru_heads_cm.cu",
+               "fv_tracers_flat.cu"):
         assert (PORT / "ops" / "csrc" / cu).is_file()
+    from climsim_tpu_torch.ops import _build
+    assert {p.stem for p in (PORT / "ops" / "csrc").glob("*.cu")} \
+        == set(_build.SOURCES)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -68,6 +73,45 @@ def test_entry_points_default_to_cuda():
         HybridLoop(None, Grid.synthetic(24, 4),
                    HostLoopConfig(nlat=4, nlon=6, emulator_level_major=True))
     assert RNNAutoreg(device="cpu", **kw).device.type == "cpu"
+
+
+ARMS = {"v5": dict(use_pallas=True, fuse_heads=True, level_major=True),
+        "v2": dict(use_pallas=True), "scan": {}}
+CONFIGS = {"flat": dict(geometry="flat", use_pallas=True),
+           "semi_lagrangian": dict(scheme="semi_lagrangian"),
+           "vertical": dict(vertical_advection=True),
+           "none": dict(scheme="none"),
+           "batch_major": dict(emulator_level_major=False)}
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_new_arms_default_to_cuda(arm):
+    """RNNAutoreg in each arm this slice ports runs on the card unless
+    the caller asks for the CPU."""
+    from climsim_tpu_torch import RNNAutoreg
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    kw = dict(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(8, 8), nh_mem=4,
+              add_pres=False, **ARMS[arm])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RNNAutoreg(**kw)
+    model = RNNAutoreg(device="cpu", **kw)
+    assert model.arm == arm and model.device.type == "cpu"
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_new_configs_default_to_cuda(config):
+    """HybridLoop in each configuration this slice ports runs on the card
+    unless the caller asks for the CPU."""
+    from climsim_tpu_torch import Grid, HostLoopConfig, HybridLoop
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = HostLoopConfig(**{"nlat": 4, "nlon": 6,
+                            "emulator_level_major": True, **CONFIGS[config]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridLoop(None, Grid.synthetic(24, 4), cfg)
+    loop = HybridLoop(None, Grid.synthetic(24, 4), cfg, device="cpu")
+    assert loop.device.type == "cpu"
 
 
 def test_import_needs_no_nvcc_or_triton(tmp_path):
