@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths, each at full width with random weights from a seed:
+The paths, each at full width with random weights from a seed:
 
 * serving: the online hybrid coupled step that ``bench.py`` builds for
   the JAX package: the flagship BiGRU emulator (``RNNAutoreg``, nx 6,
@@ -15,26 +15,32 @@ Three paths, each at full width with random weights from a seed:
   as ``bench.py::build_train`` configures it (W 4 BPTT window, remat on
   each window step, MSE loss, Adam at 1e-4, 21,600 columns): B1 runs
   forward and in the remat recompute, the backward kernel B3 once per
-  step;
+  step; and the same training of the batch-major scan arm (which
+  ``conf/autoreg_gru.yaml`` trains) and of the v4 arm (B10 forward and
+  recompute, its backward through B7 and B8);
 * evaluation of the physics-constrained emulator: ``PhysicalRNNAutoreg``
   in ``conf/autoreg_physrnn.yaml``'s configuration (nneur 128/128, nh_mem
   16, nreg 8, McICA, qv variability, stored precipitation, ice
-  sedimentation, physical radiation with ng 8/8, the fused trunk, f32)
-  through ``RolloutTrainer.run_epoch(train=False)`` with the raw state
-  (``pass_x_raw``) on one W 3 window of 21,600 columns: per model step the
-  v2 BiGRU B7 runs the trunk and B12 and B11 the LW and SW solvers;
-* training of the physics-constrained emulator: the same model through
+  sedimentation, physical radiation with ng 8/8, f32) with the trunk the
+  yaml builds (the scan: two ``RNNLayer`` sweeps, the yaml setting no
+  ``use_pallas``) and beside it the fused trunk (kernel B7), through
+  ``RolloutTrainer.run_epoch(train=False)`` with the raw state
+  (``pass_x_raw``) on one W 3 window of 21,600 columns: per model step
+  B12 and B11 run the LW and SW solvers;
+* training of the physics-constrained emulator: the same models through
   ``RolloutTrainer.update`` with the yaml's loss and optimizer (huber,
   w_hcon 5e-6, w_wcon 3e7, Adam 5e-4, the curriculum's last window W 3,
   teacher-forced radiation state, no remat, f32), as
-  cli/train_rollout.py wires ``type: physrnn``: per step B7, B11 and B12
-  forward, and their backward kernels B8, B13 and B14;
+  cli/train_rollout.py wires ``type: physrnn``: per step B11 and B12
+  forward and their backward kernels B13 and B14, with the fused trunk
+  also B7 and B8;
 * the coupled step's other serving arms (ARMS below) at the same width and
   grid: the four other emulator arms that bench.py times (v5 channel-major
   with kernel B4, v2 batch-major with B7 at H 192, the scan with the fused
-  stencil and with the per-field plain stencil), and the flagship on the
-  other transport configurations (flat FV through the fused B5 and one
-  field at a time through B6, semi-Lagrangian transport on the sphere with
+  stencil and with the per-field plain stencil), the batch-major fused
+  arms v3 (kernel B9) and v4 (kernel B10), and the flagship on the other
+  transport configurations (flat FV through the fused B5 and one field at
+  a time through B6, semi-Lagrangian transport on the sphere with
   vertical advection).
 
 Phases (any failure exits non-zero):
@@ -44,44 +50,54 @@ Phases (any failure exits non-zero):
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
      and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
      then B4 (f32 and bf16, projections hoisted and not, at 21,600 and
-     1,000 columns), B5 (6, 60, 120, 180), B6 (60, 120, 180) and B7 at
-     the flagship's H 192 (f32 and bf16);
-  3. 20 coupled steps at 21,600 columns, with the launch counters set to
-     0 just before and read just after: each serving kernel must launch
-     20 times; then the same for each other serving arm, whose kernels
-     must each launch their count per step and no other kernel at all;
+     1,000 columns), B5 (6, 60, 120, 180), B6 (60, 120, 180), B7 at
+     the flagship's H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
+     21,600 and 1,000 columns);
+  3. 20 coupled steps at 21,600 columns, with every launch counter set to
+     0 just before and read just after: B1 and B2 must launch 20 times and
+     no other kernel; then the same for each other serving arm, whose
+     kernels must each launch their count per step and no other kernel;
   4. 3 coupled steps at 384 columns on the card and on the CPU (plain
      versions), compared, for every serving arm;
   5. gradients through the differentiable fused layers (v6: B1 + B3; v5:
-     B4 + B3) at 384 columns, on the card and on the CPU, compared;
-  6. the training path: one chunk of 16 steps (4 updates) at 21,600
-     columns, counters set to 0 just before and read just after: B3 must
-     launch W times and B1 2W times per update; finite loss and memory,
-     parameters changed; then one update at 384 columns on the card and on
-     the CPU, compared;
-  7. the physics evaluation window at 21,600 columns, counters set to 0
-     just before and read just after: B7, B11 and B12 must launch W times
-     each; finite loss, outputs and memory, non-negative stored and
+     B4 + B3; v3: B9 + B7 + B8; v4: B10 + B7 + B8) at 384 columns, on the
+     card and on the CPU, compared;
+  6. the training paths: one chunk of 16 steps (4 updates) at 21,600
+     columns for the v6, scan and v4 arms, every counter set to 0 just
+     before and read just after: per update B1 2W and B3 W times (v6), B10
+     2W and B7 and B8 W times (v4), no kernel (scan); finite loss and
+     memory, parameters changed; then one update of each at 384 columns on
+     the card and on the CPU, compared;
+  7. the physics evaluation window at 21,600 columns with each trunk,
+     every physics counter set to 0 just before and read just after: B11
+     and B12 (and with the fused trunk B7) must launch W times each and no
+     other; finite loss, outputs and memory, non-negative stored and
      surface precipitation; then the same window at 384 columns on the
-     card and on the CPU, compared after counting the McICA sample
-     indices that differ;
+     card and on the CPU, compared after counting the McICA sample indices
+     that differ, for each trunk;
   8. physics training: B8 (f32 and bf16 at 21,600 and 1,000 columns),
      B13 and B14 (21,600 x 60 x 8) against their plain versions; one
-     chunk of 6 steps (2 updates of W 3) at 21,600 columns, counters set
-     to 0 just before and read just after: B7, B8, B11, B12, B13 and B14
-     must each launch W times per update; finite loss and memory,
-     non-negative stored precipitation, every parameter with a gradient
-     changed; then one update at 384 columns on the card and on the CPU,
+     chunk of 6 steps (2 updates of W 3) with each trunk, counters set to
+     0 just before and read just after: B11, B12, B13 and B14 (and with
+     the fused trunk B7 and B8) must each launch W times per update; finite
+     loss and memory, non-negative stored precipitation, every parameter
+     with a gradient changed (the scan trunk at 21,600 columns, halved
+     until its update fits in the card's memory, the cut printed); then
+     one update of each trunk at 384 columns on the card and on the CPU,
      compared after counting the McICA sample indices that differ;
-  9. timings with CUDA events (median of 5 repeats), peak memory and
-     profiler splits; every serving arm's coupled step with its device
-     idle share, B4, B5, B6 and B7 at H 192;
+  9. timings with CUDA events (median of 5 repeats; 3 for the coupled
+     steps of the arms other than v3 and v4, and for the three training
+     arms), peak memory and profiler splits; every serving arm's
+     coupled step with its device idle share, the three training arms,
+     both physics trunks, B4, B5, B6, B7 at H 192, B9 and B10;
  10. a JSON line of the kernels, the card line, and the result line.
+The end of each phase prints the wall time since the start.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -102,7 +118,9 @@ PEAK_BYTES = 3.35e12        # B/s, HBM3
 
 NLAT, NLON, NLEV = 120, 180, 60          # 21,600 columns
 LO_NLAT, LO_NLON = 16, 24                # 384 columns
-N_STEPS, REPEATS = 20, 5
+# timing repeats; the coupled steps and training of earlier slices' paths
+# take fewer, to hold the run's time as the paths grow
+N_STEPS, REPEATS, OLD_REPEATS = 20, 5, 3
 W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
@@ -164,12 +182,24 @@ ARMS = {
                                       vertical_advection=True), {"b1": 1}),
     "v6_flat_per_field": (V6_FLAGS, dict(geometry="flat", use_pallas=False),
                           {"b1": 1, "b6": 6}),
+    "v3": (dict(fuse_heads=True), BATCH_MAJOR, {"b9": 1, "b2": 1}),
+    "v4": (dict(fuse_heads=True, fuse_init=True), BATCH_MAJOR,
+           {"b10": 1, "b2": 1}),
 }
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(n: int) -> None:
+    """Print the wall time since the script started, at the end of phase
+    n."""
+    print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -310,9 +340,10 @@ def all_wrappers() -> dict:
             "b2": ops.fv_advect_tracers_sphere, "b3": ops.bigru_heads_cm_bwd,
             "b4": ops.fused_bigru_heads_cm, "b5": ops.fv_advect_tracers,
             "b6": ops.fv_advect_levels, "b7": ops.fused_bigru_lbh,
-            "b8": ops.bigru_bwd_lbh, "b11": ops.adding_sw_fast,
-            "b12": ops.lw_solver_noscat_fast, "b13": ops.adding_sw_bwd,
-            "b14": ops.lw_solver_noscat_bwd}
+            "b8": ops.bigru_bwd_lbh, "b9": ops.fused_bigru_heads_lbh,
+            "b10": ops.fused_bigru_heads_init_lbh,
+            "b11": ops.adding_sw_fast, "b12": ops.lw_solver_noscat_fast,
+            "b13": ops.adding_sw_bwd, "b14": ops.lw_solver_noscat_bwd}
 
 
 def run_arm(arm, card):
@@ -612,6 +643,85 @@ def check_b4(model, card):
     return max(errs)
 
 
+def b9_args(model, B, dtype, seed):
+    """B9's arguments at the v3 arm's shapes: x [L, B, 208] = a tanh stream
+    (the initial MLP's 192 channels) || random memory (16), level-major,
+    tanh h0s, and the v3 model's (lecun-normal) weights as the fused layer
+    passes them ([in, out], flat biases)."""
+    layer = model.bigru_fused
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, nm = layer.hidden, layer.nh_mem
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    w = lambda t: t.detach().to(dtype)
+    x = torch.cat([torch.tanh(r(NLEV, B, layer.win1.shape[0] - nm)),
+                   0.5 * r(NLEV, B, nm)], dim=-1)
+    return (w(x), w(torch.tanh(r(B, H))), w(torch.tanh(r(B, H))),
+            *(w(getattr(layer, k)) for k in HEADS_WEIGHTS))
+
+
+def b10_args(model, B, dtype, seed):
+    """B10's arguments at the v4 arm's shapes: raw features [L, B, 6] and
+    memory [L, B, 16], level-major, tanh h0s, and the v4 model's weights
+    (the initial MLP's w_init [6, 192] and b_init first)."""
+    layer = model.bigru_fused
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H = layer.hidden
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    w = lambda t: t.detach().to(dtype)
+    return (w(r(NLEV, B, layer.w_init.shape[0])),
+            w(0.5 * r(NLEV, B, layer.nh_mem)), w(torch.tanh(r(B, H))),
+            w(torch.tanh(r(B, H))), w(layer.w_init), w(layer.b_init),
+            *(w(getattr(layer, k)) for k in HEADS_WEIGHTS))
+
+
+# the fused layer's weights after the up projection's input, in the order
+# the v3/v4 wrappers take them
+HEADS_WEIGHTS = ("win1", "bin1", "whh_up", "bhh_up", "win2", "bin2",
+                 "whh_dn", "bhh_dn", "wlat", "blat", "wout", "bout")
+
+
+def check_b9_b10(models, card):
+    """B9 (v3) and B10 (v4) against their plain versions on the card at the
+    arms' shapes, at 21,600 and a ragged 1,000 columns (not a multiple of
+    the 32-column tile). f32 to 1e-5 + 1e-5*|x| (summation order only,
+    through the 120 recurrent levels), bf16 to 4x the plain version's own
+    bf16-vs-f32 error, as check_b1. Returns the largest errors by id."""
+    from climsim_tpu_torch.ops import (bigru_heads_init_lbh_reference,
+                                       bigru_heads_lbh_reference,
+                                       fused_bigru_heads_init_lbh,
+                                       fused_bigru_heads_lbh)
+    errs = {}
+    for key, name, args_fn, kern, ref in (
+            ("b9", "B9", b9_args, fused_bigru_heads_lbh,
+             bigru_heads_lbh_reference),
+            ("b10", "B10", b10_args, fused_bigru_heads_init_lbh,
+             bigru_heads_init_lbh_reference)):
+        model = models[key]
+        errs[key] = 0.0
+        for B in (NLAT * NLON, 1000):
+            a32 = args_fn(model, B, torch.float32, seed=B + 3)
+            got, want = kern(*a32), ref(*a32)
+            e = max_err(got, want)
+            print(f"{name} f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
+                  f"1e-5*|x| [{card}]")
+            for x, y in zip(got, want):
+                check(x.shape == y.shape and x.is_contiguous(),
+                      f"{name} output layout")
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+            a16 = tuple(t.to(torch.bfloat16) for t in a32)
+            got16, want16 = kern(*a16), ref(*a16)
+            e16 = max_err(got16, want16)
+            own = max_err(want16, ref(*(t.float() for t in a16)))
+            print(f"{name} bf16 B={B}: max_abs_err {e16:.3e}, plain "
+                  f"bf16-vs-f32 {own:.3e}; tolerance 4x that [{card}]")
+            check(e16 <= 4.0 * own, f"{name} bf16 B={B}: {e16} > 4 x {own}")
+            errs[key] = max(errs[key], e, e16)
+            del a32, a16, got, want, got16, want16
+    return errs
+
+
 def check_flat(card):
     """B5 at (6, 60, 120, 180) and B6 at (60, 120, 180), f32, against their
     plain version on the card, on the flat arm's raster (flat_spacing,
@@ -644,21 +754,23 @@ def check_vjp_384(card, arm="v6"):
     """Gradients of every input through the arm's differentiable fused
     layer at 384 columns: for v6 fused_bigru_heads_init_cm (B1 forward,
     B3 backward), for v5 fused_bigru_heads_cm (B4 forward, B3 backward),
-    on the card against the plain versions on the CPU, f32 to 1e-4 of
+    for v3 and v4 fused_bigru_heads_lbh and fused_bigru_heads_init_lbh (B9
+    or B10 forward; the backward replays with B7 and differentiates with
+    B8), on the card against the plain versions on the CPU, f32 to 1e-4 of
     each gradient's scale, bf16 as check_b3."""
     from climsim_tpu_torch.models import F32
-    from climsim_tpu_torch.ops import (fused_bigru_heads_cm,
-                                       fused_bigru_heads_init_cm)
+    from climsim_tpu_torch import ops
     model = make_model(F32, "cpu", arm=arm)
-    args_fn, op = ((b1_args, fused_bigru_heads_init_cm) if arm == "v6"
-                   else (b4_args, fused_bigru_heads_cm))
+    args_fn, op = {"v6": (b1_args, ops.fused_bigru_heads_init_cm),
+                   "v5": (b4_args, ops.fused_bigru_heads_cm),
+                   "v3": (b9_args, ops.fused_bigru_heads_lbh),
+                   "v4": (b10_args, ops.fused_bigru_heads_init_lbh)}[arm]
     a = args_fn(model, LO_NLAT * LO_NLON, torch.float32, seed=9)
 
     def grads(dev, dt):
         x = [t.to(dev, dt, copy=True).requires_grad_(True) for t in a]
         with torch.enable_grad():
-            om, lh = op(*x)
-            ((om.float() ** 2).sum() + (lh.float() ** 2).sum()).backward()
+            sum((o.float() ** 2).sum() for o in op(*x)).backward()
         return [t.grad.float().cpu() for t in x]
 
     cpu32 = grads("cpu", torch.float32)
@@ -694,7 +806,8 @@ def train_chunk(T, ncol, device, seed=3):
 
 def make_trainer(model, device):
     """bench.py::build_train's update: W 4 window, remat, MSE, Adam 1e-4,
-    with the channel-major model behind the trainer's [B, L, C] layout."""
+    with a channel-major model behind the trainer's [B, L, C] layout (a
+    batch-major one takes it as it is)."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
                                          channel_major_apply)
@@ -702,23 +815,25 @@ def make_trainer(model, device):
     cfg = RolloutConfig(rollout_schedule={0: W_TRAIN}, loss="mse", lr=LR,
                         optimizer="adam", remat=True)
     return RolloutTrainer(model, cfg, grid.hyai.numpy(), grid.hybi.numpy(),
-                          apply_fn=channel_major_apply, device=device)
+                          apply_fn=(channel_major_apply if model.level_major
+                                    else None), device=device)
 
 
-def compare_train_384(card):
-    """One update (W 4) at 384 columns on the card and on the CPU from the
-    same seeded model and data. f32: loss to 1e-5, memory and gradients to
-    1e-4 of their scale, parameters to 1e-5 of their size plus 2% of one
-    Adam step (lr): Adam's first step moves a parameter by lr g/(|g| +
-    eps), which amplifies the last bits of a gradient near zero by lr/eps
-    (the tests hold the CPU update to the JAX one to the same 2%). bf16:
+def compare_train_384(card, arm="v6"):
+    """One update (W 4) of the arm's model at 384 columns on the card and
+    on the CPU from the same seeded model and data. f32: loss to 1e-5,
+    memory and gradients to 1e-4 of their scale, parameters to 1e-5 of
+    their size plus 2% of one Adam step (lr): Adam's first step moves a
+    parameter by lr g/(|g| + eps), which amplifies the last bits of a
+    gradient near zero by lr/eps (the tests hold the CPU update to the JAX
+    one to the same 2%). bf16:
     loss, memory, gradients and each parameter's change to 4x the CPU's
     own bf16-vs-f32 difference, as check_b3."""
     from climsim_tpu_torch.models import BF16, F32
     out = {}
     for name, policy in (("f32", F32), ("bf16", BF16)):
         for dev in ("cuda", "cpu"):
-            model = make_model(policy, dev)
+            model = make_model(policy, dev, arm=arm)
             p0 = {n: p.detach().float().cpu().clone()
                   for n, p in model.named_parameters()}
             tr = make_trainer(model, dev)
@@ -726,7 +841,7 @@ def compare_train_384(card):
                 mem, rec = tr.run_epoch(
                     None, [train_chunk(W_TRAIN, LO_NLAT * LO_NLON, dev, 4)], 0)
             check(rec["updates"] == 1 and np.isfinite(rec["loss"]),
-                  f"384 update {name} {dev}: {rec}")
+                  f"{arm} 384 update {name} {dev}: {rec}")
             prm = {n: p.detach().float().cpu()
                    for n, p in model.named_parameters()}
             out[name, dev] = {
@@ -736,15 +851,15 @@ def compare_train_384(card):
                           for n, p in model.named_parameters()}}
     c, p = out["f32", "cuda"], out["f32", "cpu"]
     check(rel_err(c["loss"], p["loss"]) <= 1e-5,
-          f"384 update f32 loss {c['loss']} vs {p['loss']}")
-    check(rel_err(c["mem"], p["mem"]) <= 1e-4, "384 update f32 memory")
+          f"{arm} 384 update f32 loss {c['loss']} vs {p['loss']}")
+    check(rel_err(c["mem"], p["mem"]) <= 1e-4, f"{arm} 384 update f32 memory")
     worst_g = max(rel_err(c["grads"][n], p["grads"][n]) for n in p["grads"])
     worst_p = max(((c["params"][n] - p["params"][n]).abs()
                    - 1e-5 * p["params"][n].abs()).max().item() / LR
                   for n in p["params"])
-    check(worst_g <= 1e-4, f"384 update f32 gradients {worst_g:.3e}")
-    check(worst_p <= 2e-2, f"384 update f32 parameters {worst_p:.3e} lr")
-    print(f"384 columns, one update, f32: card vs CPU loss "
+    check(worst_g <= 1e-4, f"{arm} 384 update f32 gradients {worst_g:.3e}")
+    check(worst_p <= 2e-2, f"{arm} 384 update f32 parameters {worst_p:.3e} lr")
+    print(f"{arm}, 384 columns, one update, f32: card vs CPU loss "
           f"{c['loss'].item():.7f} vs {p['loss'].item():.7f}; gradients "
           f"worst relative {worst_g:.3e} (tolerance 1e-4); parameters within "
           f"{max(worst_p, 0.0):.3e} lr beyond 1e-5 relative (tolerance "
@@ -759,40 +874,55 @@ def compare_train_384(card):
             pairs = [(c16[key], p16[key], p32[key])]
         for g, w, w32 in pairs:
             ok, err, own = bf16_ok(g, w, w32)
-            check(ok, f"384 update bf16 {key}: {err:.3e} > 4 x {own:.3e}")
+            check(ok, f"{arm} 384 update bf16 {key}: {err:.3e} > 4 x "
+                  f"{own:.3e}")
             ratio = max(ratio, err / max(own, 1e-30))
-    print(f"384 columns, one update, bf16: card vs CPU difference up to "
+    print(f"{arm}, 384 columns, one update, bf16: card vs CPU difference "
+          f"up to "
           f"{ratio:.3f} x the CPU's own bf16-vs-f32 difference over loss, "
           f"memory, parameter steps and gradients (tolerance 4x) [{card}]")
 
 
-def run_training(model, card):
-    """The training path at 21,600 columns: one chunk of T_CHUNK steps,
-    i.e. T_CHUNK / W updates, with the counters set to 0 just before and
-    read just after. Returns (trainer, chunk, launches, updates)."""
-    from climsim_tpu_torch.ops import (bigru_heads_cm_bwd,
-                                       fused_bigru_heads_init_cm)
+# kernels launched per window step of a training update with remat: the
+# forward kernel twice (the checkpointed forward and its recompute in the
+# backward) and the backward's once. v4's backward differentiates its
+# composition, whose recurrent core replays with B7 and differentiates with
+# B8; the scan arm launches no kernel.
+TRAIN_LAUNCHES = {"v6": {"b1": 2, "b3": 1},
+                  "v4": {"b10": 2, "b7": 1, "b8": 1}, "scan": {}}
+
+
+def run_training(card, arm="v6", chunk=None):
+    """The training path of an arm's model at 21,600 columns: one chunk of
+    T_CHUNK steps, i.e. T_CHUNK / W updates, with every launch counter set
+    to 0 just before and read just after; the arm's kernels must launch
+    TRAIN_LAUNCHES[arm] times per window step and no other kernel at all.
+    Returns (trainer, chunk, launches, updates)."""
+    from climsim_tpu_torch.models import BF16
     ncol = NLAT * NLON
-    trainer = make_trainer(model, None)          # device=None: the card
-    chunk = train_chunk(T_CHUNK, ncol, "cuda")
+    model = make_model(BF16, None, arm=arm)      # device=None: the card
+    trainer = make_trainer(model, None)
+    if chunk is None:
+        chunk = train_chunk(T_CHUNK, ncol, "cuda")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    fused_bigru_heads_init_cm.launches = 0
-    bigru_heads_cm_bwd.launches = 0
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     with torch.enable_grad():
         mem, rec = trainer.run_epoch(None, [chunk], epoch=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"b1": fused_bigru_heads_init_cm.launches,
-                "b3": bigru_heads_cm_bwd.launches}
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
     n = rec["updates"]
-    print(f"training path: {n} updates (W {W_TRAIN}, {ncol} columns) in "
-          f"{wall:.3f} s (first run), loss {rec['loss']:.6f}; launches "
-          f"{launches} [{card}]")
+    want = {k: c * W_TRAIN * n for k, c in TRAIN_LAUNCHES[arm].items()}
+    print(f"training path, arm {arm} ({model.arm} model): {n} updates "
+          f"(W {W_TRAIN}, {ncol} columns) in {wall:.3f} s (first run), loss "
+          f"{rec['loss']:.6f}; launches {launches} [{card}]")
     check(n == T_CHUNK // W_TRAIN, f"{n} updates")
-    check(launches == {"b1": 2 * W_TRAIN * n, "b3": W_TRAIN * n},
-          f"per update B1 must launch {2 * W_TRAIN} times (forward + remat "
-          f"recompute) and B3 {W_TRAIN} times, got {launches} in {n}")
+    check(launches == want, f"arm {arm}: per update the launches must be "
+          f"{ {k: c * W_TRAIN for k, c in TRAIN_LAUNCHES[arm].items()} }, "
+          f"got {launches} in {n}")
     check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
     check(mem.shape == (ncol, NLEV, 16) and bool(torch.isfinite(mem).all()),
           "training memory")
@@ -860,11 +990,13 @@ def compare_384(card, arm="v6"):
 # ------------------------------------------------------------ physics path
 
 
-def make_phys_model(device, seed=0):
+def make_phys_model(device, seed=0, use_pallas=False):
     """conf/autoreg_physrnn.yaml's model at full width (nx 15, nx_sfc 24 as
-    tests/test_phys_rnn.py; the trunk on the 50 CRM levels), the fused
-    trunk switched on as cli/train_rollout.py:294 reads it, hybrid
-    coefficients from Grid.synthetic, f32."""
+    tests/test_phys_rnn.py; the trunk on the 50 CRM levels), hybrid
+    coefficients from Grid.synthetic, f32. The yaml sets no use_pallas, so
+    cli/train_rollout.py:294 builds the scan trunk (two RNNLayer sweeps);
+    ``use_pallas=True`` is the fused trunk (kernel B7, and B8 for its
+    gradients)."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import PhysicalRNNAutoreg
     g = Grid.synthetic(4, NLEV)
@@ -873,7 +1005,7 @@ def make_phys_model(device, seed=0):
         nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(128, 128), nh_mem=16,
         nreg=8, store_precip=True, ice_sedimentation=True, use_physrad=True,
         use_mcica=True, use_tc=False, use_qv_variability=True,
-        learned_cloud_optics=False, ng_lw=8, ng_sw=8, use_pallas=True,
+        learned_cloud_optics=False, ng_lw=8, ng_sw=8, use_pallas=use_pallas,
         pallas_acc32=True, hyai=tt(g.hyai), hybi=tt(g.hybi),
         hyam=tt(g.hyam), hybm=tt(g.hybm), sp_mean=9.8e4, sp_div=1e3,
         **PHYS_YSCALE, device=device, seed=seed)
@@ -1030,33 +1162,44 @@ def check_radiation(card):
     return errs
 
 
+def trunk_of(model) -> str:
+    return "fused" if model.use_pallas else "scan"
+
+
+def phys_launches(model, train: bool, steps: int) -> dict:
+    """The physics path's launches over ``steps`` model steps: per step B11
+    and B12 (and in training their backward B13, B14), with the fused
+    trunk also B7 (and B8); the scan trunk launches no BiGRU kernel."""
+    keys = ["b11", "b12"] + (["b13", "b14"] if train else [])
+    if model.use_pallas:
+        keys += ["b7"] + (["b8"] if train else [])
+    return {k: steps for k in PHYS_KERNELS if k in keys}
+
+
 def run_phys_eval(model, card):
     """The physics evaluation path at 21,600 columns: one W 3 window
-    through RolloutTrainer.run_epoch(train=False) with pass_x_raw, the
-    counters set to 0 just before and read just after."""
-    from climsim_tpu_torch.ops import (adding_sw_fast, fused_bigru_lbh,
-                                       lw_solver_noscat_fast)
+    through RolloutTrainer.run_epoch(train=False) with pass_x_raw, every
+    physics counter set to 0 just before and read just after."""
     ncol = NLAT * NLON
     record = []
     trainer = make_phys_trainer(model, None, record)   # None: the card
     chunk = phys_chunk(PHYS_W, ncol, "cuda")
-    fused_bigru_lbh.launches = 0
-    adding_sw_fast.launches = 0
-    lw_solver_noscat_fast.launches = 0
+    wrappers = phys_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     mem, rec = trainer.run_epoch(None, [chunk], 0, train=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"b7": fused_bigru_lbh.launches,
-                "b11": adding_sw_fast.launches,
-                "b12": lw_solver_noscat_fast.launches}
-    print(f"physics evaluation: {rec['updates']} window of W {PHYS_W} at "
-          f"{ncol} columns in {wall:.3f} s (first run), loss "
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    trunk = trunk_of(model)
+    print(f"physics evaluation, {trunk} trunk: {rec['updates']} window of W "
+          f"{PHYS_W} at {ncol} columns in {wall:.3f} s (first run), loss "
           f"{rec['loss']:.6f}; launches {launches} [{card}]")
     check(rec["updates"] == 1, f"{rec['updates']} windows")
-    check(launches == {"b7": PHYS_W, "b11": PHYS_W, "b12": PHYS_W},
-          f"B7, B11 and B12 must each launch {PHYS_W} times, got "
-          f"{launches}")
+    want = phys_launches(model, False, PHYS_W)
+    check(launches == want, f"{trunk} trunk: launches {launches}, want "
+          f"{want}")
     check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
     Lc = NLEV - model.ilev_crm
     check(mem.shape == (ncol, Lc, model.nh_mem + 1)
@@ -1071,15 +1214,16 @@ def run_phys_eval(model, card):
               "physics outputs not finite")
         check(bool((out_sfc[:, 2:4] >= 0).all()),
               "surface precipitation (PRECSC, PRECC) < 0")
-    print(f"physics evaluation: stored precipitation in "
+    print(f"physics evaluation, {trunk} trunk: stored precipitation in "
           f"[{mem[..., -1].min().item():.4e}, {mem[..., -1].max().item():.4e}]"
           f", PRECC up to {record[-1][1][:, 3].max().item():.4e} [{card}]")
     return launches
 
 
-def compare_phys_384(card):
-    """The physics window (W 3) at 384 columns on the card and on the CPU
-    from the same seeded model and data. McICA's stratified sampling turns
+def compare_phys_384(card, use_pallas=False):
+    """The physics window (W 3) of the model with the scan (or, with
+    ``use_pallas``, the fused) trunk at 384 columns on the card and on the
+    CPU from the same seeded model and data. McICA's stratified sampling turns
     each layer's area fractions into g-point indices; a last-ulp difference
     in a fraction can move an index, and with it that column's cloud in
     every later step. So the check first counts the indices that differ,
@@ -1092,7 +1236,7 @@ def compare_phys_384(card):
     ncol = LO_NLAT * LO_NLON
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = make_phys_model(dev)
+        model = make_phys_model(dev, use_pallas=use_pallas)
         record = []
         trainer = make_phys_trainer(model, dev, record)
         mem, rec = trainer.run_epoch(
@@ -1112,9 +1256,10 @@ def compare_phys_384(card):
             n_idx += d.numel()
             bad |= d.any(1)
     keep = ~bad
-    print(f"physics 384 columns, W {PHYS_W}: {n_diff} of {n_idx} McICA "
-          f"sample indices differ card vs CPU, in {int(bad.sum())} columns "
-          f"[{card}]")
+    trunk = trunk_of(model)
+    print(f"physics 384 columns, {trunk} trunk, W {PHYS_W}: {n_diff} of "
+          f"{n_idx} McICA sample indices differ card vs CPU, in "
+          f"{int(bad.sum())} columns [{card}]")
     check(keep.float().mean().item() >= 0.99,
           f"McICA indices differ in {int(bad.sum())} of {ncol} columns")
     worst = 0.0
@@ -1122,16 +1267,17 @@ def compare_phys_384(card):
         (f"step {i} {k}", c[j], p[j]) for i, (c, p) in enumerate(zip(rc, rp))
         for j, k in ((0, "out"), (1, "out_sfc"), (2, "mem"))]
     for name, c, p in pairs:
-        check(bool(torch.isfinite(c).all()), f"384 physics {name} not finite")
+        check(bool(torch.isfinite(c).all()),
+              f"384 physics {trunk} {name} not finite")
         e = rel_err(c[keep], p[keep])
-        check(e <= 1e-4, f"384 physics {name}: card vs CPU {e:.3e}")
+        check(e <= 1e-4, f"384 physics {trunk} {name}: card vs CPU {e:.3e}")
         worst = max(worst, e)
     if n_diff == 0:
         check(abs(lc - lp) <= 1e-4 * abs(lp),
-              f"384 physics loss {lc} vs {lp}")
-    print(f"physics 384 columns: card vs CPU worst relative difference "
-          f"{worst:.3e} over {int(keep.sum())} columns (tolerance 1e-4); "
-          f"loss {lc:.7f} vs {lp:.7f} [{card}]")
+              f"384 physics {trunk} loss {lc} vs {lp}")
+    print(f"physics 384 columns, {trunk} trunk: card vs CPU worst relative "
+          f"difference {worst:.3e} over {int(keep.sum())} columns "
+          f"(tolerance 1e-4); loss {lc:.7f} vs {lp:.7f} [{card}]")
 
 
 def profile_kernels(fn, top=8):
@@ -1307,13 +1453,34 @@ def check_radiation_bwd(card):
     return errs
 
 
-def run_phys_training(card):
-    """The physics training path at 21,600 columns: one chunk of
-    PHYS_T_TRAIN steps, PHYS_T_TRAIN / W updates, with the counters set to
-    0 just before and read just after. Returns (trainer, chunk, launches,
-    updates)."""
+def run_phys_training(card, use_pallas=False):
+    """The physics training path of the model with the scan (or, with
+    ``use_pallas``, the fused) trunk: one chunk of PHYS_T_TRAIN steps,
+    PHYS_T_TRAIN / W updates, with every physics counter set to 0 just
+    before and read just after, at 21,600 columns. The scan trunk keeps
+    every level's activations for its backward; where the W 3 update does
+    not fit in the card's memory, the columns are halved until it does,
+    and the cut is printed. Returns (trainer, chunk, launches, updates,
+    columns)."""
     ncol = NLAT * NLON
-    model = make_phys_model(None)              # device=None: the card
+    trunk = "fused" if use_pallas else "scan"
+    while True:
+        try:
+            return _phys_training_at(card, use_pallas, ncol)
+        except torch.cuda.OutOfMemoryError as err:
+            reason = str(err).splitlines()[0][:160]
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(ncol >= 2 * 1000, f"physics training, {trunk} trunk: does "
+              f"not fit at {ncol} columns")
+        print(f"physics training, {trunk} trunk: the W {PHYS_W} update does "
+              f"not fit in the card's memory at {ncol} columns ({reason}); "
+              f"CUT to {ncol // 2} columns [{card}]")
+        ncol //= 2
+
+
+def _phys_training_at(card, use_pallas, ncol):
+    model = make_phys_model(None, use_pallas=use_pallas)   # None: the card
     trainer = make_phys_trainer(model, None, train=True)
     chunk = phys_chunk(PHYS_T_TRAIN, ncol, "cuda", seed=7)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1327,17 +1494,18 @@ def run_phys_training(card):
         mem, rec = trainer.run_epoch(None, [chunk], 0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
     n = rec["updates"]
-    print(f"physics training: {n} updates (W {PHYS_W}, {ncol} columns) in "
-          f"{wall:.3f} s (first run), loss {rec['loss']:.6e}; launches "
-          f"{launches}; peak memory "
+    trunk = trunk_of(model)
+    print(f"physics training, {trunk} trunk: {n} updates (W {PHYS_W}, "
+          f"{ncol} columns) in {wall:.3f} s (first run), loss "
+          f"{rec['loss']:.6e}; launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({resident:.3f} "
           f"GB resident before) [{card}]")
     check(n == PHYS_T_TRAIN // PHYS_W, f"{n} updates")
-    check(launches == {k: PHYS_W * n for k in PHYS_KERNELS},
-          f"B7, B8, B11, B12, B13 and B14 must each launch {PHYS_W} times "
-          f"per update, got {launches} in {n}")
+    want = phys_launches(model, True, PHYS_W * n)
+    check(launches == want, f"{trunk} trunk: launches {launches} in {n} "
+          f"updates, want {want}")
     check(np.isfinite(rec["loss"]), f"loss {rec['loss']}")
     Lc = NLEV - model.ilev_crm
     check(mem.shape == (ncol, Lc, model.nh_mem + 1)
@@ -1352,12 +1520,13 @@ def run_phys_training(card):
                      if not bool(p.grad.any()))
     check(still == no_grad == ["mlp_surface_output.bias",
                                "mlp_surface_output.kernel"],
-          f"unchanged {still}, without gradient {no_grad}")
-    return trainer, chunk, launches, n
+          f"{trunk} trunk: unchanged {still}, without gradient {no_grad}")
+    return trainer, chunk, launches, n, ncol
 
 
-def compare_phys_train_384(card):
-    """One physics training update (W 3) at 384 columns on the card and on
+def compare_phys_train_384(card, use_pallas=False):
+    """One physics training update (W 3) of the model with the scan (or,
+    with ``use_pallas``, the fused) trunk at 384 columns on the card and on
     the CPU from the same seeded model and data. The McICA sample indices
     that differ are counted first (compare_phys_384). When none differ:
     the loss to 1e-5; each gradient to 1e-4 of its scale (f32 order of
@@ -1378,11 +1547,12 @@ def compare_phys_train_384(card):
     are required."""
     from climsim_tpu_torch.physics.radiation import stratified_sample
     ncol = LO_NLAT * LO_NLON
+    trunk = "fused" if use_pallas else "scan"
     runs = {}
     for key, dev, seed in (("cuda", "cuda", None), ("cpu", "cpu", None),
                            ("moved9", "cpu", 9), ("moved10", "cpu", 10),
                            ("moved11", "cpu", 11)):
-        model = make_phys_model(dev)
+        model = make_phys_model(dev, use_pallas=use_pallas)
         if seed is not None:
             g = torch.Generator().manual_seed(seed)
             with torch.no_grad():
@@ -1399,7 +1569,8 @@ def compare_phys_train_384(card):
                      "grads": {n: p.grad.cpu()
                                for n, p in model.named_parameters()},
                      "params": prm}
-        check(rec["updates"] == 1, f"384 physics update {key}: {rec}")
+        check(rec["updates"] == 1,
+              f"384 physics update ({trunk}) {key}: {rec}")
         nreg, ngs = model.nreg, (model.ng_sw, model.ng_lw)
         del model, trainer, record
     c, p = runs["cuda"], runs["cpu"]
@@ -1411,20 +1582,23 @@ def compare_phys_train_384(card):
             ip = stratified_sample(af_p.reshape(-1, nreg), G)
             n_diff += int((ic != ip).sum())
             n_idx += ic.numel()
-    print(f"physics training 384 columns, W {PHYS_W}: {n_diff} of {n_idx} "
+    print(f"physics training 384 columns, {trunk} trunk, W {PHYS_W}: "
+          f"{n_diff} of {n_idx} "
           f"McICA sample indices differ card vs CPU [{card}]")
     check(np.isfinite(c["loss"]) and bool(torch.isfinite(c["mem"]).all())
           and all(bool(torch.isfinite(g).all()) for g in c["grads"].values()),
-          "384 physics update: non-finite values on the card")
+          f"384 physics update ({trunk}): non-finite values on the card")
     lrel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
     if n_diff:
-        check(lrel <= 1e-3, f"384 physics update loss {c['loss']} vs "
+        check(lrel <= 1e-3, f"384 physics update ({trunk}) loss "
+              f"{c['loss']} vs "
               f"{p['loss']}")
-        print(f"physics training 384 columns: McICA indices differ; loss "
+        print(f"physics training 384 columns, {trunk} trunk: McICA indices "
+              f"differ; loss "
               f"{c['loss']:.7e} vs {p['loss']:.7e} (tolerance 1e-3) "
               f"[{card}]")
         return
-    check(lrel <= 1e-5, f"384 physics update loss {c['loss']} vs "
+    check(lrel <= 1e-5, f"384 physics update ({trunk}) loss {c['loss']} vs "
           f"{p['loss']}")
     worst_g = worst_p = 0.0
     residue = []
@@ -1436,22 +1610,25 @@ def compare_phys_train_384(card):
             residue.append(n)
             size = max([scale] + [g[n].abs().max().item() for g in moved])
             check(g_c.abs().max().item() <= 4 * size,
-                  f"384 physics update gradient {n}: residue "
+                  f"384 physics update ({trunk}) gradient {n}: residue "
                   f"{g_c.abs().max().item():.3e} > 4 x {size:.3e}")
             continue
         err = (g_c - g_p).abs().max().item()
         tol = 1e-4 * scale + 4 * move
-        check(err <= tol, f"384 physics update gradient {n}: {err:.3e} > "
+        check(err <= tol, f"384 physics update ({trunk}) gradient {n}: "
+              f"{err:.3e} > "
               f"{tol:.3e}")
         worst_g = max(worst_g, err / max(tol, 1e-30))
         adam = lambda g: g / (g.abs() + 1e-8)       # the first step / lr
         err = ((c["params"][n] - p["params"][n]).abs()
                - 1e-5 * p["params"][n].abs()
                - PHYS_LR * (adam(g_c) - adam(g_p)).abs()).max().item()
-        check(err <= 0.02 * PHYS_LR, f"384 physics update parameter {n}: "
+        check(err <= 0.02 * PHYS_LR, f"384 physics update ({trunk}) "
+              f"parameter {n}: "
               f"{err:.3e} > 2e-2 lr beyond its tolerance")
         worst_p = max(worst_p, err / (0.02 * PHYS_LR))
-    print(f"physics training 384 columns, one update: card vs CPU loss "
+    print(f"physics training 384 columns, {trunk} trunk, one update: card "
+          f"vs CPU loss "
           f"{c['loss']:.7e} vs {p['loss']:.7e}; gradients within "
           f"{worst_g:.3f} and parameters within {max(worst_p, 0.0):.3f} of "
           f"their tolerances; rounding-residue gradients {residue} [{card}]")
@@ -1483,6 +1660,133 @@ def phys_bwd_bounds(a8, sw, lw):
                      "operations" if t_ops > t_bytes else "bytes", flops,
                      nbytes)
     return res_
+
+
+def time_training(trainer, chunk, n, arm, card, repeats=REPEATS,
+                  split=False):
+    """ms per training update of an arm at 21,600 columns (the median over
+    ``repeats`` epochs of ``chunk``, n updates each, float(loss) included)
+    with the epoch's peak memory; with ``split`` also the device idle share
+    of one update and its kernels with the most device time
+    (torch.profiler). Returns the ms per update."""
+    ncol = chunk["x_lev"].shape[1]
+
+    def epoch(c=chunk):
+        with torch.enable_grad():
+            trainer.run_epoch(None, [c], epoch=0)
+
+    ms = median_ms(epoch, 1, repeats=repeats, queue_ahead=False) / n
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    epoch()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"training update, arm {arm} (W {W_TRAIN}, remat, MSE, Adam, "
+          f"{ncol} columns, bf16): {ms:.4f} ms/update, "
+          f"{ncol * W_TRAIN / ms * 1e3:,.0f} column-steps/s; peak memory "
+          f"{peak:.3f} GB ({resident:.3f} GB resident before the epoch) "
+          f"[{card}]")
+    if split:
+        one = {k: v[:W_TRAIN] for k, v in chunk.items()}
+        busy, top = profile_kernels(lambda: epoch(one), top=6)
+        print(f"training update, arm {arm}, by kernel (torch.profiler "
+              + (f"device time): busy {busy:.4f} ms of {ms:.4f} ms, idle "
+                 f"share {max(0.0, 1 - busy / ms):.3f}; "
+                 + "; ".join(f"{k[:40]} {t:.4f} ms" for k, t in top)
+                 if busy > 0 else "device time): the profiler saw no device "
+                 "time: not measured") + f" [{card}]")
+    return ms
+
+
+def time_phys_eval(model, card):
+    """ms per model step of the physics evaluation window (W 3, 21,600
+    columns) with the model's trunk, its peak memory, and the window's
+    device idle share and largest kernels (torch.profiler). Returns the ms
+    per model step."""
+    ncol = NLAT * NLON
+    chunk = phys_chunk(PHYS_W, ncol, "cuda")
+    trainer = make_phys_trainer(model, None)
+    ms = median_ms(lambda: trainer.run_epoch(
+        None, [chunk], 0, train=False), 1, queue_ahead=False) / PHYS_W
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run_epoch(None, [chunk], 0, train=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trunk = trunk_of(model)
+    print(f"physics evaluation, {trunk} trunk (W {PHYS_W}, {ncol} columns, "
+          f"f32): {ms:.4f} ms per model step, {ncol / ms * 1e3:,.0f} "
+          f"column-steps/s; peak memory {peak:.3f} GB ({resident:.3f} GB "
+          f"resident before the window) [{card}]")
+    busy, top = phys_profile(trainer, chunk)
+    window = ms * PHYS_W
+    print(f"physics evaluation window, {trunk} trunk, by kernel "
+          + (f"(torch.profiler device time): busy {busy:.4f} ms of the "
+             f"window's {window:.4f} ms unprofiled, idle share "
+             f"{max(0.0, 1 - busy / window):.3f}; "
+             + "; ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
+             if busy > 0 else "(torch.profiler): the profiler saw no device "
+             "time: not measured") + f" [{card}]")
+    return ms
+
+
+def time_phys_update(trainer, chunk, n, ncol, card):
+    """ms per physics training update (W 3, f32) of the trainer's model on
+    ``chunk`` (n updates, ncol columns), its peak memory, and one update's
+    device idle share and largest kernels. Returns the ms per update."""
+    def epoch():
+        with torch.enable_grad():
+            trainer.run_epoch(None, [chunk], 0)
+
+    ms = median_ms(epoch, 1, queue_ahead=False) / n
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    epoch()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trunk = trunk_of(trainer.model)
+    print(f"physics training update, {trunk} trunk (W {PHYS_W}, huber + "
+          f"energy + water, Adam, {ncol} columns, f32): {ms:.4f} ms/update, "
+          f"{ncol * PHYS_W / ms * 1e3:,.0f} column-steps/s; peak memory "
+          f"{peak:.3f} GB ({resident:.3f} GB resident before the epoch) "
+          f"[{card}]")
+    busy, top = phys_profile(trainer, {k: v[:PHYS_W] for k, v in
+                                       chunk.items()}, top=12, train=True)
+    print(f"physics training update, {trunk} trunk, by kernel "
+          + (f"(torch.profiler device time): busy {busy:.4f} ms of the "
+             f"update's {ms:.4f} ms unprofiled, idle share "
+             f"{max(0.0, 1 - busy / ms):.3f}; "
+             + "; ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
+             if busy > 0 else "(torch.profiler): the profiler saw no device "
+             "time: not measured") + f" [{card}]")
+    return ms
+
+
+def lbh_bounds(a9, a10) -> dict:
+    """Least times of B9 and B10 from this run's inputs: their multiply-adds
+    per column and level (the up projection nx 3H, for B10 the initial MLP
+    nf CH and the projection (CH + nm_in) 3H; the three 3H x H products of
+    the recurrences and the down projection; the heads nm H + ny nm) at the
+    bf16 tensor-core peak, against each input read once and each output
+    (out, mem, last_h) written once."""
+    res = {}
+    for key, a in (("b9", a9), ("b10", a10)):
+        init = key == "b10"
+        L, B = a[0].shape[:2]
+        win1, whh = (a[6], a[8]) if init else (a[3], a[5])
+        wlat, wout = a[-4], a[-2]
+        H, (nm, ny) = whh.shape[0], wout.shape
+        macs = win1.numel() + 3 * whh.numel() + wlat.numel() + wout.numel() \
+            + (a[4].numel() if init else 0)
+        flops = 2.0 * macs * L * B
+        nbytes = float(a[0].element_size()
+                       * (sum(t.numel() for t in a) + L * B * (nm + ny)
+                          + B * H))
+        t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+        res[key] = (max(t_ops, t_bytes) * 1e3,
+                    "operations" if t_ops > t_bytes else "bytes", flops,
+                    nbytes)
+    return res
 
 
 def serving_bounds(a4, flat, q6, a7h) -> dict:
@@ -1549,6 +1853,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    phase_done(1)
 
     torch.set_grad_enabled(False)
     dev = torch.device("cuda")
@@ -1561,7 +1866,7 @@ def main() -> int:
     b1_err = check_b1(model, card)
     b2_err, b2_inputs = check_b2(loop, card)
     b3_err = check_b3(model, card)
-    pmodel = make_phys_model(None)            # device=None: the card
+    pmodel = make_phys_model(None, use_pallas=True)  # the fused trunk
     b7_err = check_b7(pmodel, card)
     rad_errs = check_radiation(card)
     v5model = make_model(BF16, None, arm="v5")
@@ -1569,21 +1874,26 @@ def main() -> int:
     flat_errs, flat_inputs = check_flat(card)
     v2model = make_model(BF16, None, arm="v2")
     b7h_err = check_b7(v2model, card, L=NLEV)
+    lbh_models = {"b9": make_model(BF16, None, arm="v3"),
+                  "b10": make_model(BF16, None, arm="v4")}
+    b9_b10_errs = check_b9_b10(lbh_models, card)
+    phase_done(2)
 
     # ---- 3. the main path at 21,600 columns
     state, mem, x_sfc = initial_state(ncol, NLEV, dev)
-    fused_bigru_heads_init_cm.launches = 0
-    fv_advect_tracers_sphere.launches = 0
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     st, mem1, diags = loop.rollout(state, mem, x_sfc, N_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"b1": fused_bigru_heads_init_cm.launches,
-                "b2": fv_advect_tracers_sphere.launches}
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
     print(f"main path: {N_STEPS} coupled steps at {ncol} columns in "
           f"{wall:.3f} s (first run); launches {launches} [{card}]")
     check(launches == {"b1": N_STEPS, "b2": N_STEPS},
-          f"each kernel must launch {N_STEPS} times, got {launches}")
+          f"B1 and B2 must each launch {N_STEPS} times and no other kernel, "
+          f"got {launches}")
     for k, v in st.items():
         check(bool(torch.isfinite(v).all()), f"state {k} not finite")
     check(bool(torch.isfinite(mem1).all()), "mem not finite")
@@ -1598,36 +1908,53 @@ def main() -> int:
     # the other serving arms, each with every counter set to 0 just before
     arm_runs = {arm: run_arm(arm, card) for arm in ARMS if arm != "v6"}
     arm_launches = {arm: run[2] for arm, run in arm_runs.items()}
+    phase_done(3)
 
     # ---- 4. every serving arm at 384 columns, card against CPU
     for arm in ARMS:
         compare_384(card, arm)
+    phase_done(4)
 
     # ---- 5. gradients through the fused layers, card against CPU
-    check_vjp_384(card)
-    check_vjp_384(card, "v5")
+    for arm in ("v6", "v5", "v3", "v4"):
+        check_vjp_384(card, arm)
+    phase_done(5)
 
-    # ---- 6. the training path at 21,600 columns; one update at 384
-    tmodel = make_model(BF16, None)
-    trainer, chunk, t_launches, n_upd = run_training(tmodel, card)
-    compare_train_384(card)
+    # ---- 6. the training paths at 21,600 columns (v6, and the scan and
+    # v4 arms on the same data); one update of each at 384
+    trainer, chunk, t_launches, n_upd = run_training(card)
+    arm_trainers = {arm: run_training(card, arm, chunk)
+                    for arm in ("scan", "v4")}
+    for arm in ("v6", "scan", "v4"):
+        compare_train_384(card, arm)
+    phase_done(6)
 
-    # ---- 7. the physics evaluation path at 21,600 columns; 384 vs CPU
+    # ---- 7. the physics evaluation path at 21,600 columns, with the
+    # yaml's scan trunk and the fused trunk; 384 vs CPU
+    smodel = make_phys_model(None)              # the scan trunk
+    run_phys_eval(smodel, card)
     p_launches = run_phys_eval(pmodel, card)
-    compare_phys_384(card)
+    for use_pallas in (False, True):
+        compare_phys_384(card, use_pallas)
+    phase_done(7)
 
     # ---- 8. physics training: B8, B13 and B14 against their plain
-    # versions; 2 updates at 21,600 columns; one update at 384 vs CPU
+    # versions; 2 updates at 21,600 columns with each trunk; one update of
+    # each at 384 vs CPU
     b8_err = check_b8(pmodel, card)
     rad_bwd_errs = check_radiation_bwd(card)
     torch.cuda.empty_cache()
-    ptrainer, pchunk, pt_launches, n_pupd = run_phys_training(card)
-    compare_phys_train_384(card)
+    s_ptrainer, s_pchunk, _, _, s_pcols = run_phys_training(card)
+    ptrainer, pchunk, pt_launches, n_pupd, _ = run_phys_training(card, True)
+    for use_pallas in (False, True):
+        compare_phys_train_384(card, use_pallas)
 
-    # ---- 9. timings
-    def step_ms(lp, s, m, x):
+    # ---- 9. timings; the paths of earlier slices with OLD_REPEATS
+    phase_done(8)
+
+    def step_ms(lp, s, m, x, repeats=OLD_REPEATS):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
-                         queue_ahead=False) / N_STEPS
+                         repeats=repeats, queue_ahead=False) / N_STEPS
 
     hi_ms = step_ms(loop, state, mem, x_sfc)
     lo_ncol = LO_NLAT * LO_NLON
@@ -1641,7 +1968,8 @@ def main() -> int:
     print(f"coupled step, {lo_ncol} columns: {lo_ms:.4f} ms, "
           f"{lo_ncol / lo_ms * 1e3:,.0f} columns/s [{card}]")
     for arm, (aloop, ainputs, _) in arm_runs.items():
-        ms = step_ms(aloop, *ainputs)
+        ms = step_ms(aloop, *ainputs, repeats=REPEATS if arm in ("v3", "v4")
+                     else OLD_REPEATS)
         print(f"coupled step, {ncol} columns, arm {arm}: {ms:.4f} ms, "
               f"{ncol / ms * 1e3:,.0f} columns/s [{card}]")
         arm_split(aloop, ainputs, ms, card, f"coupled step, arm {arm}")
@@ -1684,21 +2012,12 @@ def main() -> int:
     print(f"B2 f32 {tuple(qs.shape)}: kernel {b2_ms:.4f} ms, plain "
           f"{b2_plain:.4f} ms, bound {b2_bound:.4f} ms "
           f"({b2_bytes / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
-    def train_epoch():
-        with torch.enable_grad():
-            trainer.run_epoch(None, [chunk], epoch=0)
-
-    upd_ms = median_ms(train_epoch, 1, queue_ahead=False) / n_upd
-    resident_u = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    train_epoch()
-    torch.cuda.synchronize()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"training update (W {W_TRAIN}, remat, MSE, Adam, {ncol} columns, "
-          f"bf16): {upd_ms:.4f} ms/update, "
-          f"{ncol * W_TRAIN / upd_ms * 1e3:,.0f} column-steps/s; peak memory "
-          f"{peak_gb:.3f} GB ({resident_u:.3f} GB resident before the "
-          f"epoch) [{card}]")
+    time_training(trainer, chunk, n_upd, "v6", card, repeats=OLD_REPEATS)
+    # the scan arm (conf/autoreg_gru.yaml trains it) and the v4 arm on the
+    # same data, three repeats each
+    for arm, (atr, achunk, _, an) in arm_trainers.items():
+        time_training(atr, achunk, an, arm, card, repeats=3, split=True)
+    del arm_trainers, atr, achunk
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
     b3_ms = median_ms(lambda: bigru_heads_cm_bwd(*a3), 3)
     b3_plain = median_ms(lambda: bigru_heads_cm_bwd_reference(*a3), 1)
@@ -1752,32 +2071,30 @@ def main() -> int:
           f"kernel {b7h_ms:.4f} ms, plain {b7h_plain:.4f} ms, bound "
           f"{sb['b7h'][0]:.4f} ms ({sb['b7h'][2] / 1e12:.4f} TFLOP at 989 "
           f"TFLOP/s; {sb['b7h'][3] / 1e6:.1f} MB) [{card}]")
+    from climsim_tpu_torch.ops import (bigru_heads_init_lbh_reference,
+                                       bigru_heads_lbh_reference,
+                                       fused_bigru_heads_init_lbh,
+                                       fused_bigru_heads_lbh)
+    a9 = b9_args(lbh_models["b9"], ncol, torch.bfloat16, seed=31)
+    b9_ms = median_ms(lambda: fused_bigru_heads_lbh(*a9), 3)
+    b9_plain = median_ms(lambda: bigru_heads_lbh_reference(*a9), 1)
+    a10 = b10_args(lbh_models["b10"], ncol, torch.bfloat16, seed=37)
+    b10_ms = median_ms(lambda: fused_bigru_heads_init_lbh(*a10), 3)
+    b10_plain = median_ms(lambda: bigru_heads_init_lbh_reference(*a10), 1)
+    lb = lbh_bounds(a9, a10)
+    for key, name, ms, plain, a in (("b9", "B9", b9_ms, b9_plain, a9),
+                                    ("b10", "B10", b10_ms, b10_plain, a10)):
+        print(f"{name} bf16 (L {NLEV}, x {tuple(a[0].shape)}, H "
+              f"{a[2].shape[1]}, B {ncol}): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {lb[key][0]:.4f} ms "
+              f"({lb[key][2] / 1e12:.4f} TFLOP at 989 TFLOP/s; "
+              f"{lb[key][3] / 1e6:.1f} MB) [{card}]")
 
     # the physics path's inputs are made here, after the training peak, so
     # that peak counts what it counted before this path existed
     sw_args, lw_args = radiation_args(ncol, "cuda")
-    phys_chunk_hi = phys_chunk(PHYS_W, ncol, "cuda")
-    etrainer = make_phys_trainer(pmodel, None)
-    phys_ms = median_ms(lambda: etrainer.run_epoch(
-        None, [phys_chunk_hi], 0, train=False), 1, queue_ahead=False) / PHYS_W
-    resident = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    etrainer.run_epoch(None, [phys_chunk_hi], 0, train=False)
-    torch.cuda.synchronize()
-    phys_peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"physics evaluation (W {PHYS_W}, {ncol} columns, f32): "
-          f"{phys_ms:.4f} ms per model step, "
-          f"{ncol / phys_ms * 1e3:,.0f} column-steps/s; peak memory "
-          f"{phys_peak:.3f} GB ({resident:.3f} GB resident before the "
-          f"window) [{card}]")
-    busy, top = phys_profile(etrainer, phys_chunk_hi)
-    window = phys_ms * PHYS_W
-    print("physics evaluation window by kernel (torch.profiler device "
-          + (f"time): busy {busy:.4f} ms of the window's {window:.4f} ms "
-             f"unprofiled, idle share {max(0.0, 1 - busy / window):.3f}; "
-             + "; ".join(f"{k[:48]} {ms:.4f} ms" for k, ms in top)
-             if busy > 0 else "time): the profiler saw no device time: "
-             "not measured") + f" [{card}]")
+    time_phys_eval(pmodel, card)
+    time_phys_eval(smodel, card)
     from climsim_tpu_torch.ops import adding_sw_fast, lw_solver_noscat_fast
     from climsim_tpu_torch.physics.radiation import (adding_sw,
                                                      lw_solver_noscat)
@@ -1806,35 +2123,14 @@ def main() -> int:
     # Its peak needs most of the card, so the earlier phases' inputs go
     # first (the solvers' inputs are made again, from their seed, for the
     # backward kernels' timings)
-    del a1, a1_lo, a3, trainer, chunk, a7, sw_args, lw_args, phys_chunk_hi
-    del etrainer, a4, a7h, flat_inputs, q5, u5, v5, q6
+    del a1, a1_lo, a3, trainer, chunk, a7, sw_args, lw_args
+    del a4, a7h, a9, a10, flat_inputs, q5, u5, v5, q6
     torch.cuda.empty_cache()
 
-    def phys_train_epoch():
-        with torch.enable_grad():
-            ptrainer.run_epoch(None, [pchunk], 0)
-
-    ptrain_ms = median_ms(phys_train_epoch, 1, queue_ahead=False) / n_pupd
-    resident_t = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    phys_train_epoch()
-    torch.cuda.synchronize()
-    ptrain_peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"physics training update (W {PHYS_W}, huber + energy + water, "
-          f"Adam, {ncol} columns, f32): {ptrain_ms:.4f} ms/update, "
-          f"{ncol * PHYS_W / ptrain_ms * 1e3:,.0f} column-steps/s; peak "
-          f"memory {ptrain_peak:.3f} GB ({resident_t:.3f} GB resident before "
-          f"the epoch) [{card}]")
-    busy_t, top_t = phys_profile(ptrainer, {k: v[:PHYS_W] for k, v in
-                                            pchunk.items()}, top=12,
-                                 train=True)
-    print("physics training update by kernel (torch.profiler device "
-          + (f"time): busy {busy_t:.4f} ms of the update's {ptrain_ms:.4f} "
-             f"ms unprofiled, idle share "
-             f"{max(0.0, 1 - busy_t / ptrain_ms):.3f}; "
-             + "; ".join(f"{k[:48]} {ms:.4f} ms" for k, ms in top_t)
-             if busy_t > 0 else "time): the profiler saw no device time: "
-             "not measured") + f" [{card}]")
+    time_phys_update(s_ptrainer, s_pchunk, n_pupd, s_pcols, card)
+    del s_ptrainer, s_pchunk
+    torch.cuda.empty_cache()
+    time_phys_update(ptrainer, pchunk, n_pupd, ncol, card)
     from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
                                        bigru_bwd_lbh, bigru_bwd_reference_lbh,
                                        lw_solver_noscat_bwd,
@@ -1862,6 +2158,7 @@ def main() -> int:
               f"{pbb[key][2] / 1e9:.3f} GFLOP) [{card}]")
 
     # ---- 10. the kernels line, the card line, the result
+    phase_done(9)
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -1937,6 +2234,20 @@ def main() -> int:
          "max_abs_err": flat_errs["B6"], "ms": b6_ms, "plain_ms": b6_plain,
          "bound_ms": sb["b6"][0], "bound_by": sb["b6"][1],
          "library_ms": None},
+        {"name": "bigru_heads_lbh", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_heads_lbh.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:635",
+         "launches": arm_launches["v3"]["b9"],
+         "max_abs_err": b9_b10_errs["b9"], "ms": b9_ms, "plain_ms": b9_plain,
+         "bound_ms": lb["b9"][0], "bound_by": lb["b9"][1],
+         "library_ms": None},
+        {"name": "bigru_heads_init_lbh", "route": "cuda",
+         "source": "climsim_tpu_torch/ops/csrc/bigru_heads_lbh.cu",
+         "replaces": "climsim_tpu/ops/pallas_rnn.py:1650",
+         "launches": arm_launches["v4"]["b10"],
+         "max_abs_err": b9_b10_errs["b10"], "ms": b10_ms,
+         "plain_ms": b10_plain, "bound_ms": lb["b10"][0],
+         "bound_by": lb["b10"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

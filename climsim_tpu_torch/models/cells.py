@@ -1,9 +1,10 @@
 """Recurrent layers of the ported paths (counterpart of
 ``climsim_tpu/models/cells.py``): the GRU cell and the scanned
-``RNNLayer`` (the flagship's unfused path), the channel-major fused BiGRU
-+ heads layer with the initial MLP inside the kernel (v6) or outside it
-(v5), and the v2 fused BiGRU layer (the physics trunk and the batch-major
-flagship). The other cells wait for ROADMAP A.12.
+``RNNLayer`` (the flagship's unfused path and the physics model's scan
+trunk), the fused BiGRU + heads layer with the initial MLP inside the
+kernel or outside it (channel-major v6 and v5, batch-major v4 and v3),
+and the v2 fused BiGRU layer (the physics model's fused trunk and the
+batch-major flagship). The other cells wait for ROADMAP A.12.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops import (fused_bigru_heads_cm, fused_bigru_heads_init_cm,
+                   fused_bigru_heads_init_lbh, fused_bigru_heads_lbh,
                    fused_bigru_lbh)
 
 
@@ -155,21 +157,30 @@ class FusedBiGRULayer(nn.Module):
 
 class FusedBiGRUHeadsLayer(nn.Module):
     """Split up-projection + up/down GRU sweeps + latent-memory and output
-    heads in one kernel, channel-major; with ``init_width > 0`` the
-    initial tanh MLP runs inside the kernel too (v6,
-    ``fused_bigru_heads_init_cm``), else x is its output (v5,
-    ``fused_bigru_heads_cm``).
+    heads in one kernel. With ``init_width > 0`` the initial tanh MLP runs
+    inside the kernel too.
 
-    Called as ``(x [L, nx, B], h0_up [B, H], h0_dn [B, H], mem [L, nm_in,
-    B] or None)`` -> ``(out [L, ny, B], mem [L, nh_mem, B], last_h [B,
-    H])``: x holds the raw features (v6) or the initial-MLP stream (v5);
-    v5 takes ``nm_in = 0`` and ``mem=None`` as a zero-width memory.
+    Channel-major (``level_major=True``): ``(x [L, nx, B], h0_up [B, H],
+    h0_dn [B, H], mem [L, nm_in, B] or None)`` -> ``(out [L, ny, B], mem
+    [L, nh_mem, B], last_h [B, H])``: x holds the raw features (v6,
+    ``fused_bigru_heads_init_cm``) or the initial-MLP stream (v5,
+    ``fused_bigru_heads_cm``); v5 takes ``nm_in = 0`` and ``mem=None`` as
+    a zero-width memory.
+
+    Batch-major (``level_major=False``): ``(x [B, L, nx], h0_up, h0_dn,
+    mem [B, L, nm_in] or None)`` -> ``(out [B, L, ny], mem [B, L, nh_mem],
+    last_h [B, H])``: with ``init_width > 0`` x holds the raw features and
+    mem goes in separately (v4, ``fused_bigru_heads_init_lbh``); else x is
+    the model's [tanh(mlp_initial) || memory] concatenation and the layer
+    takes no memory (v3, ``fused_bigru_heads_lbh``, ``nm_in = 0``).
+
     Parameters keep flax's names and [in, out] layout (``bigru_fused/
-    {w_init, b_init, win1, ...}``; win1 is [x width + nm_in, 3H] in either
-    case), so a flax checkpoint loads unchanged; they are transposed at
-    call as views, which the kernel wrapper turns back into k-major
-    storage without a copy. ``hoist_proj`` (v5 only) picks the TPU body
-    whose roundings the kernel reproduces.
+    {w_init, b_init, win1, ...}``; win1 is [x width + nm_in, 3H], or with
+    the initial MLP [init_width + nm_in, 3H]), so a flax checkpoint loads
+    unchanged. Channel-major they are transposed at call as views, which
+    the kernel wrapper turns back into k-major storage without a copy.
+    ``hoist_proj`` (v5 only) picks the TPU body whose roundings the kernel
+    reproduces.
     """
 
     def __init__(self, nx: int, nm_in: int, hidden: int, nh_mem: int,
@@ -177,16 +188,17 @@ class FusedBiGRUHeadsLayer(nn.Module):
                  hoist_proj: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if not level_major:
-            raise NotImplementedError(
-                "batch-major FusedBiGRUHeadsLayer (the v3/v4 kernels B9, "
-                "B10) is not ported yet (ROADMAP A.2)")
         if init_width > 0 and nm_in <= 0:
             raise NotImplementedError(
-                "the v6 path (init_width > 0) needs the memory input")
+                "the fused initial MLP (init_width > 0) needs the memory "
+                "input")
+        if not level_major and init_width == 0 and nm_in != 0:
+            raise ValueError("the batch-major v3 layer takes the memory "
+                             "concatenated into x (nm_in = 0)")
         H = hidden
         self.hidden, self.nh_mem, self.ny = H, nh_mem, ny
         self.init_width, self.nm_in = init_width, nm_in
+        self.level_major = level_major
         self.hoist_proj = hoist_proj
         p = lambda *s: flax_param(s, generator)
         if init_width > 0:
@@ -208,12 +220,14 @@ class FusedBiGRUHeadsLayer(nn.Module):
 
     def forward(self, x, h0_up, h0_dn, mem=None):
         dt = x.dtype
-        tw = lambda t: t.to(dt).t()              # [out, in] view
-        tb = lambda t: t.to(dt)[:, None]         # [ch, 1]
-        CH = self.ch
         if (mem is None) != (self.nm_in == 0):
             raise ValueError(f"the layer was built for nm_in={self.nm_in}, "
                              f"got mem {None if mem is None else mem.shape}")
+        if not self.level_major:
+            return self._forward_batch_major(x, h0_up, h0_dn, mem)
+        tw = lambda t: t.to(dt).t()              # [out, in] view
+        tb = lambda t: t.to(dt)[:, None]         # [ch, 1]
+        CH = self.ch
         mem_in = x.new_zeros((x.shape[0], 0, x.shape[2])) if mem is None \
             else mem.to(dt).contiguous()
         args = (x.contiguous(), mem_in, h0_up.to(dt).t().contiguous(),
@@ -230,3 +244,22 @@ class FusedBiGRUHeadsLayer(nn.Module):
                                                  hoist_proj=self.hoist_proj)
         nm = self.nh_mem
         return outmem[:, nm:, :], outmem[:, :nm, :], lasth.t()
+
+    def _forward_batch_major(self, x, h0_up, h0_dn, mem):
+        """v3/v4: one level-major copy of each input in and of each output
+        out, contiguous (a transposed view would be copied, and the copy
+        kept for the backward, by whatever reads it)."""
+        dt = x.dtype
+        lm = lambda t: t.to(dt).transpose(0, 1).contiguous()
+        w = lambda t: t.to(dt)
+        wargs = (w(self.win1), w(self.bin1), w(self.whh_up), w(self.bhh_up),
+                 w(self.win2), w(self.bin2), w(self.whh_dn), w(self.bhh_dn),
+                 w(self.wlat), w(self.blat), w(self.wout), w(self.bout))
+        h0 = (h0_up.to(dt).contiguous(), h0_dn.to(dt).contiguous())
+        if self.init_width > 0:
+            out, mem_o, lasth = fused_bigru_heads_init_lbh(
+                lm(x), lm(mem), *h0, w(self.w_init), w(self.b_init), *wargs)
+        else:
+            out, mem_o, lasth = fused_bigru_heads_lbh(lm(x), *h0, *wargs)
+        bm = lambda t: t.transpose(0, 1).contiguous()
+        return bm(out), bm(mem_o), lasth

@@ -14,14 +14,18 @@ and the radiative surface scalars from the updated state and the sub-grid
 condensate (McICA-sampled when ``use_mcica``).
 
 Layout is batch-first [B, L, ...]; the CRM occupies the bottom
-``L - ilev_crm`` levels. The trunk is the v2 fused BiGRU (kernel B7 on the
-card), the radiation solvers kernels B11 and B12.
+``L - ilev_crm`` levels. The trunk is either two ``RNNLayer`` GRU sweeps
+(``use_pallas=False``, the default and what ``conf/autoreg_physrnn.yaml``
+builds: the JAX CLI reads ``use_pallas`` from the yaml, which sets none;
+parameters ``rnn_up``/``rnn_down``; ``nneur`` may be unequal) or the v2
+fused BiGRU (``use_pallas=True``, kernel B7 on the card; parameters
+``bigru_fused``; equal ``nneur``). The radiation solvers are kernels B11
+and B12.
 
-Ported: the ``conf/autoreg_physrnn.yaml`` configuration with every option
-of the physical-radiation path (``use_physrad=True``, ``use_pallas=True``,
-the F32 policy), and ``y_true`` teacher forcing of the radiation state.
-Options outside it raise ``NotImplementedError`` naming their ROADMAP
-item.
+Ported: every option of the physical-radiation path (``use_physrad=True``,
+either trunk, the F32 policy), and ``y_true`` teacher forcing of the
+radiation state. Options outside it raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from .. import constants as C
 from ..ops import resolve_device
 from ..physics import radiation as RAD
 from ..physics import thermo
-from .cells import FusedBiGRULayer
+from .cells import FusedBiGRULayer, RNNLayer
 from .common import F32, Policy
 from .phys_rad import RadiationModule
 from .rnn import Dense, temperature_scaling, temperature_scaling_precip
@@ -118,9 +122,8 @@ class PhysicalRNNAutoreg(nn.Module):
             raise ValueError(
                 f"use_pallas=True requires nneur[0] == nneur[1]; got "
                 f"({nh1}, {nh2}). Set use_pallas=False for unequal sweeps.")
-        if not use_pallas:
-            raise _unported("use_pallas=False (the scan RNNLayer trunk)")
         self.device = resolve_device(device)
+        self.use_pallas = use_pallas
         self.ny, self.ny_sfc, self.nh_mem, self.nreg = ny, ny_sfc, nh_mem, nreg
         self.ilev_crm, self.qv_channel = ilev_crm, qv_channel
         self.gas_channels = tuple(gas_channels)
@@ -157,8 +160,14 @@ class PhysicalRNNAutoreg(nn.Module):
         self.mlp_initial = d(n_keep, nh1)
         self.mlp_surface1 = d(nx_sfc - 5, nh1)
         self.mlp_toa1 = d(2, nh2)
-        self.bigru_fused = FusedBiGRULayer(nh1 + nh_mem, nh1,
-                                           acc32=pallas_acc32, generator=g)
+        if use_pallas:
+            self.bigru_fused = FusedBiGRULayer(nh1 + nh_mem, nh1,
+                                               acc32=pallas_acc32,
+                                               generator=g)
+        else:
+            self.rnn_up = RNNLayer(nh1 + nh_mem, nh1, reverse=True,
+                                   dtype=f32, generator=g)
+            self.rnn_down = RNNLayer(nh1, nh2, dtype=f32, generator=g)
         self.mlp_latent = d(nh2, nh_mem)
         self.mlp_output = d(nh_mem, ny)
         self.mlp_qv_crm = d(nh2, nreg)
@@ -225,7 +234,11 @@ class PhysicalRNNAutoreg(nn.Module):
         hx1 = torch.tanh(self.mlp_surface1(x_sfc_crm))
         x_toa = torch.cat([x_sfc[:, 1:2], x_sfc[:, 6:7]], dim=1)
         hx2 = self.mlp_toa1(x_toa)
-        rnn2out, last_h = self.bigru_fused(h, hx1, hx2)
+        if self.use_pallas:
+            rnn2out, last_h = self.bigru_fused(h, hx1, hx2)
+        else:
+            up, _ = self.rnn_up(h, hx1)
+            rnn2out, last_h = self.rnn_down(up, hx2)
         new_mem_lat = self.mlp_latent(rnn2out)
         out_raw = self.mlp_output(new_mem_lat)
 

@@ -1,7 +1,7 @@
 """Autoregressive bidirectional vertical RNN with latent convective memory
 (counterpart of ``climsim_tpu/models/rnn.py::RNNAutoreg``).
 
-Four trunks of the gru cell are ported, each on the flax parameter tree of
+Six trunks of the gru cell are ported, each on the flax parameter tree of
 the JAX model with the same flags:
 
 * v6, channel-major (``use_pallas=fuse_heads=fuse_init=level_major=True``):
@@ -9,6 +9,12 @@ the JAX model with the same flags:
 * v5, channel-major (the same with ``fuse_init=False``): the initial MLP
   as a channel Dense + tanh, then the sweeps and heads in one kernel (B4)
   with the memory as a separate input;
+* v4, batch-major (``use_pallas=fuse_heads=fuse_init=True``,
+  ``level_major=False``): v6's work on [B, L, C] activations in one kernel
+  (B10), the memory a separate input;
+* v3, batch-major (the same with ``fuse_init=False``): the initial MLP as
+  a Dense + tanh and the memory concat in the model, then the up
+  projection, both sweeps and the heads in one kernel (B9);
 * v2, batch-major (``use_pallas=True``, ``fuse_heads=False``): the initial
   MLP and the memory concat, the fused BiGRU (B7), then the latent and
   output heads as Dense layers;
@@ -23,9 +29,8 @@ channel-major:
         -> (out [L, ny, B], out_sfc [B, ny_sfc], new_mem [L, nh_mem, B])
 
 and batch-major ``x_main [B, L, nx]``, ``mem`` and the outputs
-``[B, L, .]``. The batch-major fused heads (v3/v4, kernels B9 and B10)
-wait for ROADMAP A.2; the other cells, the stochastic layer,
-``separate_radiation`` and ``use_memory=False`` for A.12.
+``[B, L, .]``. The other cells, the stochastic layer,
+``separate_radiation`` and ``use_memory=False`` wait for ROADMAP A.12.
 """
 from __future__ import annotations
 
@@ -64,6 +69,10 @@ class ChannelDense(nn.Module):
             + self.bias.to(dt)[:, None]
 
 
+# the arms whose fused layer evaluates the initial MLP inside its kernel
+_INIT_INSIDE = ("v6", "v4")
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(f"RNNAutoreg {what} is not ported yet "
                                f"(ROADMAP {item})")
@@ -74,7 +83,7 @@ class RNNAutoreg(nn.Module):
     Keyword names and defaults follow the flax module; options outside the
     ported trunks raise ``NotImplementedError`` naming the ROADMAP item
     that ports them. ``arm`` says which trunk the flags selected ("v6",
-    "v5", "v2" or "scan").
+    "v5", "v4", "v3", "v2" or "scan").
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     parameters get flax's init (lecun-normal kernels, zero biases) from a
@@ -110,12 +119,11 @@ class RNNAutoreg(nn.Module):
         if level_major and not fused_heads:
             raise ValueError("level_major requires the fused-heads path "
                              "(use_pallas + fuse_heads with gru cell)")
-        if fused_heads and not level_major:
-            raise _unported("batch-major fused heads (level_major=False "
-                            "with fuse_heads, the v3/v4 kernels B9, B10)",
-                            "A.2")
         if fused_heads:
-            self.arm = "v6" if use_initial_mlp and fuse_init else "v5"
+            init_inside = use_initial_mlp and fuse_init
+            self.arm = {(True, True): "v6", (True, False): "v5",
+                        (False, True): "v4",
+                        (False, False): "v3"}[level_major, init_inside]
         else:
             self.arm = "v2" if use_pallas and nh1 == nh2 else "scan"
         self.device = resolve_device(device)
@@ -138,19 +146,25 @@ class RNNAutoreg(nn.Module):
         nh_in = nh1 if use_initial_mlp else nx_in
         # creation order = flax's module order (init streams differ from
         # JAX's anyway; from_flax_params carries JAX weights across)
-        if use_initial_mlp and self.arm != "v6":
+        if use_initial_mlp and self.arm not in _INIT_INSIDE:
             dense = ChannelDense if level_major else Dense
             self.mlp_initial = dense(nx_in, nh1, cdt, g)
         self.mlp_surface1 = Dense(nx_sfc, nh1, cdt, g)
         self.mlp_toa1 = Dense(2, nh2, cdt, g)
-        if self.arm == "v6":
+        if self.arm in _INIT_INSIDE:
             self.bigru_fused = FusedBiGRUHeadsLayer(
                 nx_in, nh_mem, nh1, nh_mem, ny, init_width=nh1,
-                level_major=True, generator=g)
+                level_major=level_major, generator=g)
         elif self.arm == "v5":
             self.bigru_fused = FusedBiGRUHeadsLayer(
                 nh_in, nh_mem, nh1, nh_mem, ny, level_major=True,
                 hoist_proj=pallas_hoist_proj, generator=g)
+        elif self.arm == "v3":
+            # the memory is concatenated by the model, as JAX's
+            # batch-major v3 (rnn.py:218-247)
+            self.bigru_fused = FusedBiGRUHeadsLayer(
+                nh_in + nh_mem, 0, nh1, nh_mem, ny, level_major=False,
+                generator=g)
         elif self.arm == "v2":
             self.bigru_fused = FusedBiGRULayer(nh_in + nh_mem, nh1,
                                                generator=g)
@@ -190,10 +204,13 @@ class RNNAutoreg(nn.Module):
         hx1 = torch.tanh(self.mlp_surface1(x_sfc))
         hx2 = self.mlp_toa1(x_sfc[:, [1, 6]])
         h = x_main
-        if self.use_initial_mlp and self.arm != "v6":
+        if self.use_initial_mlp and self.arm not in _INIT_INSIDE:
             h = torch.tanh(self.mlp_initial(h))
-        if self.arm in ("v6", "v5"):
+        if self.arm in ("v6", "v5", "v4"):
             out, new_mem, last_h = self.bigru_fused(h, hx1, hx2, mem)
+        elif self.arm == "v3":
+            out, new_mem, last_h = self.bigru_fused(
+                torch.cat([h, mem], dim=-1), hx1, hx2)
         else:
             h = torch.cat([h, mem], dim=-1)
             if self.arm == "v2":

@@ -14,7 +14,10 @@ from .pallas_rnn import (fused_bigru_heads_init_cm,
                          bigru_heads_cm_reference, bigru_heads_cm_bwd,
                          bigru_heads_cm_bwd_reference, fused_bigru_lbh,
                          bigru_reference_lbh, bigru_bwd_lbh,
-                         bigru_bwd_reference_lbh)
+                         bigru_bwd_reference_lbh, fused_bigru, PallasBiGRU,
+                         fused_bigru_heads_lbh, bigru_heads_lbh_reference,
+                         fused_bigru_heads_init_lbh,
+                         bigru_heads_init_lbh_reference)
 from .pallas_radiation import (adding_sw_fast, lw_solver_noscat_fast,
                                adding_sw_bwd, adding_sw_bwd_reference,
                                lw_solver_noscat_bwd,
@@ -27,7 +30,10 @@ __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fused_bigru_heads_cm", "bigru_heads_cm_reference",
            "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
            "fused_bigru_lbh", "bigru_reference_lbh", "bigru_bwd_lbh",
-           "bigru_bwd_reference_lbh", "adding_sw_fast",
+           "bigru_bwd_reference_lbh", "fused_bigru", "PallasBiGRU",
+           "fused_bigru_heads_lbh", "bigru_heads_lbh_reference",
+           "fused_bigru_heads_init_lbh", "bigru_heads_init_lbh_reference",
+           "adding_sw_fast",
            "lw_solver_noscat_fast", "adding_sw_bwd", "adding_sw_bwd_reference",
            "lw_solver_noscat_bwd", "lw_solver_noscat_bwd_reference",
            "fv_advect_tracers_sphere",

@@ -6,7 +6,11 @@ shared backward (``bigru_heads_cm_bwd``, ``csrc/bigru_heads_cm_bwd.cu``),
 and, at the end of this module, the v2 level-major forward and backward
 (``fused_bigru_lbh``, ``bigru_bwd_lbh``; kernels ``csrc/bigru_lbh.cu`` and
 ``csrc/bigru_lbh_bwd.cu``) of the physics trunk and the batch-major
-flagship.
+flagship, with its batch-major wrapper ``fused_bigru`` and the
+``PallasBiGRU`` op; and last the batch-major v3 and v4 fused emulator
+forwards (``fused_bigru_heads_lbh``, ``fused_bigru_heads_init_lbh``;
+kernel ``csrc/bigru_heads_lbh.cu``), whose gradients go through the v2
+pair.
 
 Channel-major contract, as in JAX: feat [L, nf, B] raw features, mem_in
 [L, nm_in, B], h0_up/h0_dn [H, B]; weights pre-transposed [out, in] and
@@ -34,7 +38,9 @@ __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fused_bigru_heads_cm", "bigru_heads_cm_reference",
            "bigru_heads_cm_bwd", "bigru_heads_cm_bwd_reference",
            "fused_bigru_lbh", "bigru_reference_lbh", "bigru_bwd_lbh",
-           "bigru_bwd_reference_lbh"]
+           "bigru_bwd_reference_lbh", "fused_bigru", "PallasBiGRU",
+           "fused_bigru_heads_lbh", "bigru_heads_lbh_reference",
+           "fused_bigru_heads_init_lbh", "bigru_heads_init_lbh_reference"]
 
 _ARGS = ("feat", "mem_in", "h0_up", "h0_dn", "winit_t", "binit", "win1h_t",
          "win1m_t", "bin1", "whh_up_t", "bhh_up", "win2_t", "bin2",
@@ -805,3 +811,269 @@ def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
 
 fused_bigru_lbh.launches = 0
 bigru_bwd_lbh.launches = 0
+
+
+def fused_bigru(x_proj_up, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
+                whh_dn, bhh_dn):
+    """Batch-major v2 (JAX's ``fused_bigru``): x_proj_up [B, L, 3H] ->
+    (down [B, L, H], last_h [B, H]) through ``fused_bigru_lbh``, one
+    level-major copy in and one out."""
+    down, lasth = fused_bigru_lbh(x_proj_up.transpose(0, 1).contiguous(),
+                                  h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
+                                  whh_dn, bhh_dn)
+    return down.transpose(0, 1).contiguous(), lasth
+
+
+class PallasBiGRU:
+    """Parameters and apply of the fused v2 BiGRU (JAX's ``PallasBiGRU``):
+    the same products as two ``RNNLayer`` GRU sweeps, with the up input
+    projection hoisted (written level-major, so the kernel reads it without
+    a copy) and the recurrences in ``fused_bigru_lbh``."""
+
+    @staticmethod
+    def init_params(generator: torch.Generator, nx: int, H: int,
+                    dtype=torch.float32) -> dict:
+        """Glorot-normal weights (scale sqrt(2 / (fan in + fan out))) and
+        zero biases, as JAX draws them, from a ``torch.Generator`` in place
+        of a JAX key (so the values differ)."""
+        def glorot(*shape):
+            return torch.randn(shape, generator=generator).to(dtype) \
+                * (2.0 / sum(shape)) ** 0.5
+        z = lambda: torch.zeros(3 * H, dtype=dtype)
+        return {"win1": glorot(nx, 3 * H), "bin1": z(),
+                "whh_up": glorot(H, 3 * H), "bhh_up": z(),
+                "win2": glorot(H, 3 * H), "bin2": z(),
+                "whh_dn": glorot(H, 3 * H), "bhh_dn": z()}
+
+    @staticmethod
+    def apply(p: dict, x, h0_up, h0_dn, use_pallas: bool = True):
+        """x [B, L, nx] -> (down [B, L, H], last_h [B, H]); with
+        ``use_pallas=False`` the plain version on any device."""
+        xp = torch.matmul(x.transpose(0, 1), p["win1"]) + p["bin1"]
+        args = (xp, h0_up, h0_dn, p["whh_up"], p["bhh_up"], p["win2"],
+                p["bin2"], p["whh_dn"], p["bhh_dn"])
+        op = fused_bigru_lbh if use_pallas else bigru_reference_lbh
+        down, lasth = op(*args)
+        return down.transpose(0, 1), lasth
+
+
+# --------------------------------------------------------------------------
+# v3 and v4 batch-major fused BiGRU + heads (B9 and B10, one source
+# csrc/bigru_heads_lbh.cu with two entry points): JAX's
+# ``fused_bigru_heads_lbh`` and ``fused_bigru_heads_init_lbh``
+# --------------------------------------------------------------------------
+
+_ARGS_HEADS_LBH = ("x", "h0_up", "h0_dn", "win1", "bin1", "whh_up", "bhh_up",
+                   "win2", "bin2", "whh_dn", "bhh_dn", "wlat", "blat", "wout",
+                   "bout")
+_ARGS_HEADS_INIT_LBH = ("feat", "mem_in", "h0_up", "h0_dn", "w_init",
+                        "b_init") + _ARGS_HEADS_LBH[3:]
+
+
+def _heads_sweeps_lbh(xp_of, L, dt, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
+                      whh_dn, bhh_dn, wlat, blat, wout, bout):
+    """The v3/v4 TPU bodies' sweeps and heads level by level, batch-major:
+    ``xp_of(l)`` gives the up sweep's float32 projection [B, 3H] (bias
+    included, not rounded). The up states are stored in dt, the down
+    sweep's projection reads them and stays float32; mem_l = dt(dt(h2) Wlat
+    + blat), out_l = dt(mem_l Wout + bout). Returns (out [L, B, ny], mem
+    [L, B, nm], last_h [B, H]) in dt."""
+    H = h0_up.shape[-1]
+    f = lambda t: t.float()
+    h = f(h0_up)
+    up = [None] * L
+    for l in range(L - 1, -1, -1):
+        h = _gru_step_lbh(h, xp_of(l), whh_up, bhh_up, H)
+        up[l] = h.to(dt)
+    h2 = f(h0_dn)
+    outs, mems = [], []
+    for l in range(L):
+        xp2 = torch.matmul(f(up[l]), f(win2)) + f(bin2)
+        h2 = _gru_step_lbh(h2, xp2, whh_dn, bhh_dn, H)
+        mem_l = (torch.matmul(f(h2.to(dt)), f(wlat)) + f(blat)).to(dt)
+        outs.append((torch.matmul(f(mem_l), f(wout)) + f(bout)).to(dt))
+        mems.append(mem_l)
+    return torch.stack(outs), torch.stack(mems), h2.to(dt)
+
+
+def bigru_heads_lbh_reference(x, h0_up, h0_dn, win1, bin1, *weights):
+    """Plain version of B9 (the TPU body ``_bigru_heads_kernel``'s
+    roundings, not the composition's): x [L, B, nx] -> (out [L, B, ny],
+    mem [L, B, nm], last_h [B, H]) in x's type; the up projection x_l win1
+    + bin1 stays float32. ``weights`` are (whh_up, bhh_up, win2, bin2,
+    whh_dn, bhh_dn, wlat, blat, wout, bout), [in, out] and flat."""
+    return _heads_sweeps_lbh(
+        lambda l: torch.matmul(x[l].float(), win1.float()) + bin1.float(),
+        x.shape[0], x.dtype, h0_up, h0_dn, *weights)
+
+
+def bigru_heads_init_lbh_reference(feat, mem_in, h0_up, h0_dn, w_init,
+                                   b_init, win1, bin1, *weights):
+    """Plain version of B10 (the TPU body ``_bigru_heads_init_kernel_merged``):
+    per level xi = dt(tanh(dt(feat_l w_init + b_init))), then the up
+    projection on [xi || mem_in_l] as two products (K = init width and
+    K = nm_in, no concatenation), float32; the rest as B9. On the TPU the
+    bf16 tanh is 2 sigmoid(2x) - 1 evaluated in bf16, which differs from
+    this float32 tanh by a bf16 rounding."""
+    dt, CH = feat.dtype, w_init.shape[1]
+    f = lambda t: t.float()
+
+    def xp_of(l):
+        xi = torch.tanh(f((torch.matmul(f(feat[l]), f(w_init))
+                           + f(b_init)).to(dt))).to(dt)
+        return (torch.matmul(f(xi), f(win1[:CH]))
+                + torch.matmul(f(mem_in[l]), f(win1[CH:])) + f(bin1))
+
+    return _heads_sweeps_lbh(xp_of, feat.shape[0], dt, h0_up, h0_dn,
+                             *weights)
+
+
+def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
+    """Check the v3 (or, with ``init``, v4) arguments on every device;
+    returns (L, B, nx, ch, nm_in, H, nm, ny): nx is x's (v4: the raw
+    features') width, ch and nm_in the two parts of the up projection's
+    input (v3: nx and 0)."""
+    named = dict(zip(_ARGS_HEADS_INIT_LBH if init else _ARGS_HEADS_LBH,
+                     args))
+    H = named["whh_up"].shape[0]
+    nm, ny = named["wout"].shape
+    if init:
+        L, B, nx = named["feat"].shape
+        ch, nm_in = named["w_init"].shape[1], named["mem_in"].shape[-1]
+        shapes = {"feat": (L, B, nx), "mem_in": (L, B, nm_in),
+                  "w_init": (nx, ch), "b_init": (ch,)}
+        contiguous = ("feat", "mem_in", "h0_up", "h0_dn")
+    else:
+        L, B, nx = named["x"].shape
+        ch, nm_in = nx, 0
+        shapes = {"x": (L, B, nx)}
+        contiguous = ("x", "h0_up", "h0_dn")
+    w, b = (H, 3 * H), (3 * H,)
+    shapes.update(h0_up=(B, H), h0_dn=(B, H), win1=(ch + nm_in, 3 * H),
+                  bin1=b, whh_up=w, bhh_up=b, win2=w, bin2=b, whh_dn=w,
+                  bhh_dn=b, wlat=(H, nm), blat=(nm,), wout=(nm, ny),
+                  bout=(ny,))
+    _check(named, shapes, contiguous)
+    return L, B, nx, ch, nm_in, H, nm, ny
+
+
+def _launch_heads_lbh(args, dims, init: bool):
+    L, B, nx, ch, nm_in, H, nm, ny = dims
+    dt, dev = args[0].dtype, args[0].device
+    out = torch.empty((L, B, ny), dtype=dt, device=dev)
+    mem = torch.empty((L, B, nm), dtype=dt, device=dev)
+    lasth = torch.empty((B, H), dtype=dt, device=dev)
+    # the up-stream scratch the TPU kept in VMEM (23 KB a column in bf16 at
+    # L 60, H 192): [L, H, B], so that its stores and loads are coalesced
+    up = torch.empty((L, H, B), dtype=dt, device=dev)
+    # weights [in, out] (flax's layout) are the k-major order the kernel
+    # reads; biases flat
+    ptrs = [a.contiguous() for a in args] + [out, mem, lasth, up]
+    lib = _build.load("bigru_heads_lbh")
+    if init:
+        fn, wrapper = lib.bigru_heads_init_lbh, fused_bigru_heads_init_lbh
+        ints = (L, nx, ch, nm_in, H, nm, ny, B)
+    else:
+        fn, wrapper = lib.bigru_heads_lbh, fused_bigru_heads_lbh
+        ints = (L, nx, H, nm, ny, B)
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(ptrs) \
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
+            *ints, stream)
+    name = "bigru_heads_init_lbh" if init else "bigru_heads_lbh"
+    _build.check_status(rc, name)
+    wrapper.launches += 1
+    return out, mem, lasth
+
+
+def _heads_compose_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
+                       bin2, whh_dn, bhh_dn, wlat, blat, wout, bout):
+    """JAX's ``_heads_compose`` with the v2 kernel: the projection rounded
+    to x's type, ``fused_bigru_lbh`` (B7, and B8 for its gradients, on the
+    card), and the head products rounded to x's type. Differentiable."""
+    dt = x.dtype
+    xp = (torch.matmul(x, win1) + bin1).to(dt).contiguous()
+    down, lasth = fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
+                                  bin2, whh_dn, bhh_dn)
+    mem = (torch.matmul(down, wlat) + blat).to(dt)
+    out = (torch.matmul(mem, wout) + bout).to(dt)
+    return out, mem, lasth
+
+
+def _heads_init_compose_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
+                            *rest):
+    """JAX's ``_heads_init_compose``: the initial MLP and the memory concat,
+    then ``_heads_compose_lbh``."""
+    xi = torch.tanh((torch.matmul(feat, w_init) + b_init).to(feat.dtype))
+    return _heads_compose_lbh(torch.cat([xi, mem_in], dim=-1), h0_up, h0_dn,
+                              *rest)
+
+
+class _FusedHeadsLBH(torch.autograd.Function):
+    """Forward: B9, or with ``init`` B10 (their plain versions on the CPU),
+    saving the inputs, as JAX's residuals are. Backward, as JAX's
+    ``_heads_bwd`` / ``_heads_init_bwd``: autograd through the composition,
+    whose recurrent core replays with B7 and differentiates with B8 on the
+    card. The composition rounds the up projection to the input type
+    before the v2 kernel, so in bf16 the replay differs from the forward
+    kernel by that rounding, as on the TPU."""
+
+    @staticmethod
+    def forward(ctx, init, *args):
+        dims = _validate_heads_lbh(args, init)
+        ctx.save_for_backward(*args)
+        ctx.init = init
+        dev = args[0].device
+        if dev.type == "cpu":
+            ref = (bigru_heads_init_lbh_reference if init
+                   else bigru_heads_lbh_reference)
+            return ref(*args)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        return _launch_heads_lbh(args, dims, init)
+
+    @staticmethod
+    def backward(ctx, d_out, d_mem, d_lasth):
+        args = ctx.saved_tensors
+        compose = _heads_init_compose_lbh if ctx.init else _heads_compose_lbh
+        with torch.enable_grad():
+            a = [t.detach().requires_grad_(True) for t in args]
+            outs = compose(*a)
+            grads = torch.autograd.grad(outs, a, (d_out, d_mem, d_lasth),
+                                        allow_unused=True)
+        return (None,) + tuple(g if need else None for g, need in
+                               zip(grads, ctx.needs_input_grad[1:]))
+
+
+def fused_bigru_heads_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
+                          bin2, whh_dn, bhh_dn, wlat, blat, wout, bout):
+    """v3 fused BiGRU with the up-sweep input projection and the latent and
+    output heads inside, batch-major: x [L, B, nx], h0_up/h0_dn [B, H],
+    weights [in, out] (win1 [nx, 3H], wlat [H, nm], wout [nm, ny]) and flat
+    biases, all float32 or all bfloat16 -> (out [L, B, ny], mem [L, B, nm],
+    last_h [B, H]); differentiable in all 15. A CPU tensor runs the plain
+    versions; a CUDA tensor launches kernel B9 (and, for gradients, B7 and
+    B8) or raises."""
+    return _FusedHeadsLBH.apply(False, x, h0_up, h0_dn, win1, bin1, whh_up,
+                                bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
+                                blat, wout, bout)
+
+
+def fused_bigru_heads_init_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
+                               win1, bin1, whh_up, bhh_up, win2, bin2,
+                               whh_dn, bhh_dn, wlat, blat, wout, bout):
+    """v4: v3 with the initial tanh MLP and the memory concat inside:
+    feat [L, B, nf], mem_in [L, B, nm_in], w_init [nf, CH], b_init [CH],
+    win1 [CH + nm_in, 3H], the rest as ``fused_bigru_heads_lbh`` -> (out,
+    mem, last_h); differentiable in all 18. A CPU tensor runs the plain
+    versions; a CUDA tensor launches kernel B10 (and, for gradients, B7
+    and B8) or raises."""
+    return _FusedHeadsLBH.apply(True, feat, mem_in, h0_up, h0_dn, w_init,
+                                b_init, win1, bin1, whh_up, bhh_up, win2,
+                                bin2, whh_dn, bhh_dn, wlat, blat, wout, bout)
+
+
+fused_bigru_heads_lbh.launches = 0
+fused_bigru_heads_init_lbh.launches = 0

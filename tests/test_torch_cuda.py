@@ -613,3 +613,134 @@ def test_b7_kernel_at_h192_bf16(cuda):
             else:
                 own = (w.float() - w32).abs().max().item()
                 assert (g.float() - w.float()).abs().max().item() <= 4 * own
+
+
+def _b9_b10_inputs(init, L, H, B, dtype, device, seed=13):
+    """B9's (or, with ``init``, B10's) arguments, batch-major: x [L, B, nx]
+    (B10: feat [L, B, nf] and mem_in [L, B, nm_in]), h0s [B, H], weights
+    [in, out] of scale 0.25 and flat biases."""
+    nx, nf, nmi, nm, ny = 24, 6, 8, 8, 6
+    w = [(H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,),
+         (H, nm), (nm,), (nm, ny), (ny,)]
+    if init:
+        shapes = [(L, B, nf), (L, B, nmi), (B, H), (B, H), (nf, H), (H,),
+                  (H + nmi, 3 * H), (3 * H,)] + w
+    else:
+        shapes = [(L, B, nx), (B, H), (B, H), (nx, 3 * H), (3 * H,)] + w
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(0.25 * rng.standard_normal(s), dtype=dtype,
+                            device=device) for s in shapes]
+
+
+def _b9_b10(init):
+    from climsim_tpu_torch.ops import (bigru_heads_init_lbh_reference,
+                                       bigru_heads_lbh_reference,
+                                       fused_bigru_heads_init_lbh,
+                                       fused_bigru_heads_lbh)
+    if init:
+        return fused_bigru_heads_init_lbh, bigru_heads_init_lbh_reference
+    return fused_bigru_heads_lbh, bigru_heads_lbh_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["b9", "b10"])
+@pytest.mark.parametrize("B", [16, 150])
+def test_b9_b10_kernels_match_plain_f32(cuda, B, init):
+    """f32, ragged B (150 is not a multiple of the 32-column tile):
+    summation order only (tolerance as B1's and B4's)."""
+    kern, ref = _b9_b10(init)
+    a = _b9_b10_inputs(init, 20, 16, B, torch.float32, cuda)
+    before = kern.launches
+    with torch.no_grad():
+        got, want = kern(*a), ref(*a)
+    assert kern.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["b9", "b10"])
+def test_b9_b10_kernels_match_plain_bf16(cuda, init):
+    """bf16, ragged B: 4x the plain version's own bf16-vs-f32 error, as for
+    B1 and B4; and at the arms' width H 192 (two blocks of ~101 KB of
+    shared memory per SM) in f32 with lecun-scale recurrent weights."""
+    kern, ref = _b9_b10(init)
+    a = _b9_b10_inputs(init, 20, 16, 150, torch.bfloat16, cuda)
+    with torch.no_grad():
+        got, want = kern(*a), ref(*a)
+        want32 = ref(*(t.float() for t in a))
+    for g, w, w32 in zip(got, want, want32):
+        assert g.dtype == torch.bfloat16
+        own = (w.float() - w32).abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= 4 * own
+    a = _b9_b10_inputs(init, 12, 192, 70, torch.float32, cuda)
+    first_w = 6 if init else 3
+    for i in range(first_w, first_w + 8, 2):
+        a[i] = a[i] / (0.25 * np.sqrt(a[i].shape[0]))
+    with torch.no_grad():
+        for g, w in zip(kern(*a), ref(*a)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["b9", "b10"])
+def test_b9_b10_autograd_launches_b7_b8(cuda, init):
+    """Gradients of every input through the v3/v4 Function on the card: the
+    forward launches B9/B10 once, the backward replays the composition with
+    B7 and differentiates it with B8, once each; against the CPU (f32, 1e-4
+    of each gradient's scale)."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, fused_bigru_lbh
+    kern, _ = _b9_b10(init)
+    a = _b9_b10_inputs(init, 20, 16, 150, torch.float32, "cpu")
+
+    def grads(dev):
+        x = [t.to(dev, copy=True).requires_grad_(True) for t in a]
+        sum((o ** 2).sum() for o in kern(*x)).backward()
+        return [t.grad.cpu() for t in x]
+
+    counts = lambda: (kern.launches, fused_bigru_lbh.launches,
+                      bigru_bwd_lbh.launches)
+    before = counts()
+    card = grads(cuda)
+    assert counts() == tuple(n + 1 for n in before)
+    for i, (g, w) in enumerate(zip(card, grads("cpu"))):
+        assert _rel_err(g, w) <= 1e-4, (i, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_phys_scan_trunk_on_card_matches_cpu(cuda):
+    """The physics model with the yaml's scan trunk (use_pallas=False,
+    unequal widths) on the card: no B7 launch, B11 and B12 once each, the
+    outputs to 1e-4 of their scale against the CPU."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    from climsim_tpu_torch.ops import (adding_sw_fast, fused_bigru_lbh,
+                                       lw_solver_noscat_fast)
+    g = Grid.synthetic(4, 60)
+    tt = lambda a: tuple(a.tolist())
+    kw = dict(nx=15, nx_sfc=24, nneur=(32, 24), nh_mem=8, use_physrad=True,
+              use_mcica=True, use_qv_variability=True, use_pallas=False,
+              hyai=tt(g.hyai), hybi=tt(g.hybi), hyam=tt(g.hyam),
+              hybm=tt(g.hybm), sp_mean=9.8e4, yscale_t=1e5, yscale_qv=1e8,
+              yscale_qn=1e8, yscale_precc=1e7)
+    rng = np.random.default_rng(9)
+    B = 40
+    xd = np.zeros((B, 60, 6), np.float32)
+    xd[..., 0] = rng.uniform(200, 300, (B, 60))
+    xd[..., 5] = np.abs(rng.normal(1e-3, 3e-4, (B, 60)))
+    xd[..., 2] = np.abs(rng.normal(0, 1e-5, (B, 60)))
+    args = [rng.normal(0, 1, (B, 60, 15)), rng.normal(0, 1, (B, 24)),
+            np.abs(rng.normal(0, 0.1, (B, 50, 9))), xd]
+    outs = {}
+    wrappers = (fused_bigru_lbh, adding_sw_fast, lw_solver_noscat_fast)
+    for dev in (cuda, torch.device("cpu")):
+        m = PhysicalRNNAutoreg(**kw, device=dev)
+        before = [w.launches for w in wrappers]
+        with torch.no_grad():
+            outs[dev.type] = [t.cpu() for t in m(*[torch.as_tensor(
+                np.asarray(a, np.float32), device=dev) for a in args])[:3]]
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        assert launched == ([0, 1, 1] if dev.type == "cuda" else [0, 0, 0])
+    for c, p in zip(outs["cuda"], outs["cpu"]):
+        assert _rel_err(c, p) <= 1e-4

@@ -4,7 +4,7 @@ the production configuration (sphere FV through the fused stencil, the
 channel-major fused emulator, both fixers), and 3-step rollouts of the
 other single-device configurations (flat geometry, semi-Lagrangian and
 no transport, vertical advection, the batch-major contract with the scan
-emulator, a feature builder)."""
+and the v3 and v4 fused emulators, a feature builder)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,15 +106,24 @@ def test_conservation_fixer_matches_jax(weighted):
                                atol=0)
 
 
-def _emulators(level_major=True):
+# the emulator arms the rollouts run, as RNNAutoreg flags: the channel-major
+# v6 flagship and the batch-major arms
+EMULATOR_ARMS = {
+    "v6": dict(use_pallas=True, fuse_heads=True, fuse_init=True,
+               level_major=True),
+    "scan": {},
+    "v3": dict(use_pallas=True, fuse_heads=True),
+    "v4": dict(use_pallas=True, fuse_heads=True, fuse_init=True),
+}
+
+
+def _emulators(arm="v6"):
     """The JAX and the port emulator on the same flax parameters, wrapped
-    as bench.py wraps them: normalise -> model -> scale. Channel-major:
-    the v6 fused flagship; batch-major: the scan arm."""
+    as bench.py wraps them: normalise -> model -> scale, in the arm's
+    layout (channel-major v6, or one of the batch-major arms)."""
     kw = dict(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(16, 16), nh_mem=4,
-              add_pres=False)
-    if level_major:
-        kw.update(use_pallas=True, fuse_heads=True, fuse_init=True,
-                  level_major=True)
+              add_pres=False, **EMULATOR_ARMS[arm])
+    if kw.get("level_major"):
         shapes = ((NLEV, 6, NCOL), (NLEV, 4, NCOL))
         col = lambda a: a[:, None]
     else:
@@ -126,6 +135,7 @@ def _emulators(level_major=True):
                      jnp.ones((NCOL, 24), jnp.float32) * 0.1,
                      jnp.zeros(shapes[1], jnp.float32))
     tm = RNNAutoreg(policy=F32, device="cpu", **kw)
+    assert tm.arm == arm
     tm.load_state_dict(from_flax_params(
         jax.tree_util.tree_map(np.asarray, params), tm))
     jxs, jys = col(jnp.asarray(XSCALE)), col(jnp.asarray(YSCALE))
@@ -142,10 +152,11 @@ def _emulators(level_major=True):
     return jax_emulator, port_emulator
 
 
-def _rollouts(cfg: dict, level_major=True, builders=(None, None)):
+def _rollouts(cfg: dict, arm="v6", builders=(None, None)):
     """3 coupled steps of the JAX loop and of the port's (plain versions)
     in the same configuration from the same state."""
-    jax_emu, port_emu = _emulators(level_major)
+    jax_emu, port_emu = _emulators(arm)
+    level_major = cfg["emulator_level_major"]
     jg, tg = JaxGrid.synthetic(NCOL, nlev=NLEV), Grid.synthetic(NCOL, NLEV)
     jloop = JaxLoop(jax_emu, jg, JaxConfig(**cfg), feature_builder=builders[0])
     tloop = HybridLoop(port_emu, tg, HostLoopConfig(**cfg),
@@ -223,7 +234,17 @@ def test_rollout_matches_jax_batch_major_scan():
     """The batch-major contract (x_main [B, L, 6], ptend[:, :, j]) with
     the scan emulator, sphere FV per field."""
     cfg = dict(PROD, emulator_level_major=False, use_pallas=False)
-    _assert_rollouts_agree(*_rollouts(cfg, level_major=False))
+    _assert_rollouts_agree(*_rollouts(cfg, arm="scan"))
+
+
+@pytest.mark.parametrize("arm", ["v3", "v4"])
+def test_rollout_matches_jax_batch_major_fused(arm):
+    """The batch-major contract with the v3 and v4 fused emulators (kernels
+    B9 and B10 on the card), the production transport (the fused
+    spherical stencil), at the batch-major scan case's tolerances:
+    HybridLoop serves them unchanged."""
+    cfg = dict(PROD, emulator_level_major=False)
+    _assert_rollouts_agree(*_rollouts(cfg, arm=arm))
 
 
 def test_rollout_matches_jax_feature_builder():

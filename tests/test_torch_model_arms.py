@@ -1,7 +1,7 @@
-"""The port's RNNAutoreg in its v5, batch-major v2 and scan arms, with and
-without the pressure feature, against the JAX package's RNNAutoreg on the
-same flax parameters, on the CPU; and the fused <-> unfused parameter-tree
-converters."""
+"""The port's RNNAutoreg in its v5, batch-major v4, v3 and v2, and scan
+arms, with and without the pressure feature, against the JAX package's
+RNNAutoreg on the same flax parameters, on the CPU; and the fused <->
+unfused parameter-tree converters."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,11 +34,21 @@ ARMS = {
     "scan_pres": dict(PRES),
     "scan_no_initial_mlp": dict(add_pres=False, use_initial_mlp=False),
     "scan_mem_is_rnn": dict(add_pres=False, nh_mem=16),
+    "v3": dict(use_pallas=True, fuse_heads=True, add_pres=False),
+    "v3_pres": dict(use_pallas=True, fuse_heads=True, **PRES),
+    "v4": dict(use_pallas=True, fuse_heads=True, fuse_init=True,
+               add_pres=False),
+    "v4_pres": dict(use_pallas=True, fuse_heads=True, fuse_init=True,
+                    **PRES),
+    "v3_no_initial_mlp": dict(use_pallas=True, fuse_heads=True,
+                              fuse_init=True, use_initial_mlp=False,
+                              add_pres=False),
 }
 WANT_ARM = {"v5": "v5", "v5_unhoisted": "v5", "v5_pres": "v5",
             "v6_pres": "v6", "v2": "v2", "v2_pres": "v2", "scan": "scan",
             "scan_pres": "scan", "scan_no_initial_mlp": "scan",
-            "scan_mem_is_rnn": "scan"}
+            "scan_mem_is_rnn": "scan", "v3": "v3", "v3_pres": "v3",
+            "v4": "v4", "v4_pres": "v4", "v3_no_initial_mlp": "v3"}
 
 
 def _inputs(flags, seed=11):
@@ -88,7 +98,8 @@ def test_arm_matches_jax_f32(arm):
                                    err_msg=f"{arm} {name}")
 
 
-@pytest.mark.parametrize("arm", ["v5", "v2", "scan", "scan_pres"])
+@pytest.mark.parametrize("arm", ["v5", "v2", "scan", "scan_pres", "v3",
+                                 "v4"])
 def test_arm_matches_jax_bf16(arm):
     """BF16 policy: the activations are bf16, and in the scan arm the whole
     recurrence is (the carry takes the projection's dtype), but XLA and
@@ -192,3 +203,71 @@ def test_v5_layer_gradients_match_jax():
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
                                    rtol=2e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("arm", ["v3", "v4"])
+def test_batch_major_fused_gradients_match_jax(arm):
+    """Gradients of the v3 and v4 models' parameters (B9/B10's autograd:
+    the composition over fused_bigru_lbh, whose backward is B8's plain
+    version on the CPU) against jax.grad of the JAX model, whose batch-major
+    fused layer differentiates the same composition (rtol 2e-4 as the JAX
+    suite's v3/v4 gradient tests)."""
+    flags = ARMS[arm]
+    jm, params, tm, _ = _models(flags, "F32")
+    arrays = _inputs(flags)
+
+    def jloss(p):
+        o, s, m = jm.apply(p, *[jnp.asarray(a) for a in arrays])
+        return jnp.sum(o ** 2) + jnp.sum(s ** 2) + jnp.sum(m ** 2)
+
+    jg = jax.tree_util.tree_map(np.asarray, jax.grad(jloss)(params))
+    want = from_flax_params(jg, tm)
+    o, s, m = tm(*[torch.as_tensor(a) for a in arrays])
+    ((o ** 2).sum() + (s ** 2).sum() + (m ** 2).sum()).backward()
+    for name, p in tm.named_parameters():
+        assert p.grad.abs().max() > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=2e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("fuse_init", [False, True])
+def test_converted_checkpoint_serves_batch_major_fused_arm(fuse_init):
+    """A batch-major v2 checkpoint converted by params_unfused_to_fused
+    serves the batch-major fused arm (v3, or v4 with fuse_init) with the
+    v2 arm's outputs (f32, summation order), and params_fused_to_unfused
+    takes the fused model's own tree back to one the v2 arm loads."""
+    _, _, t2, tree = _models(ARMS["v2"], "F32")
+    flags = dict(use_pallas=True, fuse_heads=True, fuse_init=fuse_init,
+                 add_pres=False)
+    tf = RNNAutoreg(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=NNEUR,
+                    nh_mem=NH_MEM, policy=tcommon.F32, device="cpu", **flags)
+    assert tf.arm == ("v4" if fuse_init else "v3")
+    tf.load_state_dict(from_flax_params(
+        trnn.params_unfused_to_fused(tree, fuse_init), tf))
+    arrays = [torch.as_tensor(a) for a in _inputs(ARMS["v2"])]
+    with torch.no_grad():
+        want, got = t2(*arrays), tf(*arrays)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+    back = trnn.params_fused_to_unfused(
+        {k: {n: p.detach().numpy() for n, p in getattr(tf, k)
+             .named_parameters()} for k in dict(tf.named_children())})
+    t2.load_state_dict(from_flax_params(back, t2))
+    with torch.no_grad():
+        again = t2(*arrays)
+    for g, w in zip(again, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_batch_major_fused_param_tree_names_match_flax():
+    """v3 keeps the initial MLP outside its fused layer, v4 inside (as
+    w_init/b_init), both with the heads in bigru_fused."""
+    _, _, t3, _ = _models(ARMS["v3"], "F32")
+    keys = set(t3.state_dict())
+    assert {"mlp_initial.kernel", "bigru_fused.win1", "bigru_fused.wlat",
+            "bigru_fused.wout"} <= keys
+    assert t3.bigru_fused.win1.shape == (NNEUR[0] + NH_MEM, 3 * NNEUR[0])
+    _, _, t4, _ = _models(ARMS["v4"], "F32")
+    keys = set(t4.state_dict())
+    assert {"bigru_fused.w_init", "bigru_fused.b_init",
+            "bigru_fused.wout"} <= keys and "mlp_initial.kernel" not in keys

@@ -44,7 +44,7 @@ def test_port_sources_exist():
                "fv_tracers_sphere.cu", "bigru_lbh.cu", "adding_sw.cu",
                "lw_noscat.cu", "bigru_lbh_bwd.cu", "adding_sw_bwd.cu",
                "lw_noscat_bwd.cu", "bigru_heads_cm.cu",
-               "fv_tracers_flat.cu"):
+               "fv_tracers_flat.cu", "bigru_heads_lbh.cu"):
         assert (PORT / "ops" / "csrc" / cu).is_file()
     from climsim_tpu_torch.ops import _build
     assert {p.stem for p in (PORT / "ops" / "csrc").glob("*.cu")} \
@@ -76,7 +76,9 @@ def test_entry_points_default_to_cuda():
 
 
 ARMS = {"v5": dict(use_pallas=True, fuse_heads=True, level_major=True),
-        "v2": dict(use_pallas=True), "scan": {}}
+        "v2": dict(use_pallas=True), "scan": {},
+        "v3": dict(use_pallas=True, fuse_heads=True),
+        "v4": dict(use_pallas=True, fuse_heads=True, fuse_init=True)}
 CONFIGS = {"flat": dict(geometry="flat", use_pallas=True),
            "semi_lagrangian": dict(scheme="semi_lagrangian"),
            "vertical": dict(vertical_advection=True),

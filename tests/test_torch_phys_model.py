@@ -1,8 +1,12 @@
 """The port's physics-constrained emulator (``RadiationModule``,
 ``PhysicalRNNAutoreg`` in the ``conf/autoreg_physrnn.yaml`` configuration
-and its evaluation by ``RolloutTrainer`` with the raw state) against the
-JAX package's, on the CPU, on flax parameters carried across by
-``from_flax_params``.
+with either trunk, and its evaluation by ``RolloutTrainer`` with the raw
+state) against the JAX package's, on the CPU, on flax parameters carried
+across by ``from_flax_params``. The yaml sets no ``use_pallas``, so the
+reference CLI builds its model with the scan trunk (two ``RNNLayer``
+sweeps, ``rnn_up``/``rnn_down``; cli/train_rollout.py:294); the fused
+trunk (``use_pallas=True``, kernel B7 on the card) is the same model with
+another parameter tree.
 
 The JAX side runs with 64-bit types off (``jax.enable_x64(False)``): the
 suite's conftest turns them on, and the radiation's ``jnp.ones`` would
@@ -21,8 +25,8 @@ from climsim_tpu.models.phys_rnn import PhysicalRNNAutoreg as JaxPhys
 from climsim_tpu.train.rollout import (RolloutConfig as JaxConfig,
                                        RolloutTrainer as JaxTrainer)
 from climsim_tpu_torch import Grid
-from climsim_tpu_torch.models import (PhysicalRNNAutoreg, RadiationModule,
-                                      from_flax_params)
+from climsim_tpu_torch.models import (BF16, PhysicalRNNAutoreg,
+                                      RadiationModule, from_flax_params)
 from climsim_tpu_torch.ops import (adding_sw_fast, fused_bigru_lbh,
                                    lw_solver_noscat_fast)
 from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
@@ -34,14 +38,18 @@ _g = JaxGrid.synthetic(4, L)
 _tt = lambda a: tuple(float(x) for x in np.asarray(a))
 HY = dict(hyai=_tt(_g.hyai), hybi=_tt(_g.hybi), hyam=_tt(_g.hyam),
           hybm=_tt(_g.hybm))
-# conf/autoreg_physrnn.yaml's model, with the repo's switch for the fused
-# trunk (cli/train_rollout.py:294) and narrow widths
-YAML = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=(32, 32),
+# conf/autoreg_physrnn.yaml's options at narrow widths, with the fused
+# trunk; the yaml's own model is SCAN
+FUSED = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=(32, 32),
             nh_mem=8, nreg=8, store_precip=True, ice_sedimentation=True,
             use_physrad=True, use_mcica=True, use_tc=False,
             use_qv_variability=True, learned_cloud_optics=False, ng_lw=8,
             ng_sw=8, use_pallas=True, pallas_acc32=True, sp_mean=9.8e4,
             sp_div=1.0, **HY, **YS)
+# the model the reference CLI builds from the yaml (use_pallas unset):
+# the scan trunk, which also allows unequal widths
+SCAN = dict(FUSED, use_pallas=False)
+SCAN_TRUNKS = {"scan": SCAN, "scan-unequal": dict(SCAN, nneur=(32, 24))}
 # every output and the memory to this share of its largest magnitude: the
 # same float32 arithmetic up to summation order through 100 recurrent
 # levels, 120 radiation levels and the decode, which grows with the width
@@ -66,8 +74,8 @@ def _inputs(B, seed=0, nh_mem=8):
     return xm, xs, mem, xd
 
 
-def _pair(B=12, **over):
-    kw = {**YAML, **over}
+def _pair(B=12, base=FUSED, **over):
+    kw = {**base, **over}
     a = _inputs(B, nh_mem=kw["nh_mem"])
     with jax.enable_x64(False):
         jm = JaxPhys(**kw)
@@ -101,9 +109,9 @@ def _forward_parity(jm, params, tm, a, y_true=None):
 
 
 def test_from_flax_params_covers_the_phys_tree():
-    """Every leaf of the flax tree (the Dense layers, bigru_fused, the
-    radiation's gas-optics MLPs, scalars and spectral weights) maps onto
-    one port parameter with its shape."""
+    """Every leaf of the flax tree of the fused-trunk model (the Dense
+    layers, bigru_fused, the radiation's gas-optics MLPs, scalars and
+    spectral weights) maps onto one port parameter with its shape."""
     jm, params, tm, _ = _pair()
     flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
     names = {".".join(str(k.key) for k in path) for path, _ in flat}
@@ -116,14 +124,19 @@ def test_from_flax_params_covers_the_phys_tree():
 
 def test_physical_rnn_matches_jax_yaml_config():
     """The yaml configuration (McICA, qv variability, stored precip, ice
-    sedimentation, updated state for radiation): outputs, memory and every
-    aux field against the flax model."""
-    _forward_parity(*_pair())
+    sedimentation, updated state for radiation) with either trunk, the
+    yaml's scan and the fused one: outputs, memory and every aux field
+    against the flax model."""
+    for base in (SCAN, FUSED):
+        _forward_parity(*_pair(base=base))
 
 
 def test_physical_rnn_matches_jax_yaml_widths():
-    """The yaml's own widths (nneur 128/128, nh_mem 16) on 4 columns."""
-    _forward_parity(*_pair(B=4, nneur=(128, 128), nh_mem=16))
+    """The yaml's own widths (nneur 128/128, nh_mem 16) on 4 columns, with
+    either trunk."""
+    for base in (SCAN, FUSED):
+        _forward_parity(*_pair(B=4, base=base, nneur=(128, 128),
+                               nh_mem=16))
 
 
 def test_physical_rnn_teacher_forced_radiation():
@@ -149,6 +162,41 @@ def test_physical_rnn_teacher_forced_radiation():
         "liq-frac-supersat-pres"])
 def test_physical_rnn_options_match_jax(over):
     _forward_parity(*_pair(B=6, **over))
+
+
+@pytest.mark.parametrize("trunk", list(SCAN_TRUNKS))
+def test_scan_trunk_loads_the_flax_tree(trunk):
+    """The scan trunk's flax tree (rnn_up/rnn_down with input_proj and
+    cell/hh, no bigru_fused) maps onto the port's parameters one to one;
+    with unequal widths the heads take the down sweep's."""
+    _, params, tm, _ = _pair(base=SCAN_TRUNKS[trunk])
+    flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
+    names = {".".join(str(k.key) for k in path) for path, _ in flat}
+    assert names == set(tm.state_dict())
+    assert {"rnn_up.input_proj.kernel", "rnn_up.cell.hh.kernel",
+            "rnn_down.input_proj.bias", "rnn_down.cell.hh.bias"} <= names
+    assert not any(n.startswith("bigru_fused") for n in names)
+    nh2 = SCAN_TRUNKS[trunk]["nneur"][1]
+    assert tm.mlp_latent.kernel.shape[0] == nh2
+    assert tm.mlp_toa1.kernel.shape[1] == nh2
+
+
+@pytest.mark.parametrize("trunk", list(SCAN_TRUNKS))
+def test_scan_trunk_matches_jax(trunk):
+    """The yaml's model with the scan trunk, equal and unequal widths:
+    outputs, memory and every aux field, free-running and with y_true."""
+    jm, params, tm, a = _pair(base=SCAN_TRUNKS[trunk])
+    _forward_parity(jm, params, tm, a)
+    y = np.random.default_rng(9).normal(0, 1, (12, L, NY)).astype(
+        np.float32)
+    _forward_parity(jm, params, tm, a, y)
+
+
+def test_fused_trunk_needs_equal_widths():
+    """As in JAX, the fused trunk refuses unequal widths (its parameter
+    tree differs, so no silent fallback to the scan trunk)."""
+    with pytest.raises(ValueError, match="nneur"):
+        PhysicalRNNAutoreg(**{**FUSED, "nneur": (32, 24)}, device="cpu")
 
 
 def test_radiation_module_matches_jax():
@@ -225,10 +273,22 @@ def test_evaluate_window_matches_jax():
     """RolloutTrainer.run_epoch(train=False) with pass_x_raw on one chunk
     of two W 3 windows (the yaml schedule's last), memory carried from
     zero: the loss and the memory against the JAX trainer with the same
-    parameters, as cli/train_rollout.py wires the physics model."""
-    jm, params, tm, _ = _pair(B=6)
+    parameters, as cli/train_rollout.py wires the physics model (here with
+    the fused trunk)."""
+    _evaluate_window_parity(FUSED)
+
+
+@pytest.mark.parametrize("trunk", list(SCAN_TRUNKS))
+def test_evaluate_window_scan_trunk_matches_jax(trunk):
+    """test_evaluate_window_matches_jax with the yaml's scan trunk, equal
+    and unequal widths."""
+    _evaluate_window_parity(SCAN_TRUNKS[trunk])
+
+
+def _evaluate_window_parity(base):
+    jm, params, tm, _ = _pair(B=6, base=base)
     chunk = _chunk(6, 6)
-    nh = YAML["nh_mem"]
+    nh = base["nh_mem"]
     with jax.enable_x64(False):
         jt = JaxTrainer(
             jm, JaxConfig(rollout_schedule={0: 3}, pass_x_raw=True,
@@ -277,10 +337,12 @@ def test_y_true_reaches_the_model_only_in_training():
 
 @pytest.mark.parametrize("over", [
     dict(use_physrad=False), dict(use_tc=True),
-    dict(learned_cloud_optics=True), dict(use_pallas=False)])
+    dict(learned_cloud_optics=True), dict(policy=BF16)])
 def test_unported_options_raise(over):
+    """Options still to port raise naming their ROADMAP item (the scan
+    trunk, use_pallas=False, is ported: see test_scan_trunk_matches_jax)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PhysicalRNNAutoreg(**{**YAML, **over}, device="cpu")
+        PhysicalRNNAutoreg(**{**FUSED, **over}, device="cpu")
 
 
 def test_unported_radiation_options_raise():
@@ -293,7 +355,7 @@ def test_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        PhysicalRNNAutoreg(**YAML)
+        PhysicalRNNAutoreg(**SCAN)
 
 
 def test_grid_synthetic_coefficients_match():

@@ -2,9 +2,10 @@
 JAX package's, on the CPU: a teacher-forced window's loss and gradients
 and a two-update epoch of a small ``PhysicalRNNAutoreg`` in
 ``conf/autoreg_physrnn.yaml``'s configuration with the yaml's loss and
-optimizer (as cli/train_rollout.py wires ``type: physrnn``), the raw-state
-loss terms (``w_rh``, ``w_qvpos``, ``w_qnpos``, ``w_precip_neg``) and
-``rh_consistency_loss``.
+optimizer (as cli/train_rollout.py wires ``type: physrnn``), with the
+fused trunk and with the scan trunk that the yaml itself builds (equal
+and unequal widths), the raw-state loss terms (``w_rh``, ``w_qvpos``,
+``w_qnpos``, ``w_precip_neg``) and ``rh_consistency_loss``.
 
 The JAX side runs with 64-bit types off (``jax.enable_x64(False)``), as
 tests/test_torch_phys_model.py explains.
@@ -44,8 +45,8 @@ _g = JaxGrid.synthetic(4, L)
 _tt = lambda a: tuple(float(x) for x in np.asarray(a))
 HY = dict(hyai=_tt(_g.hyai), hybi=_tt(_g.hybi), hyam=_tt(_g.hyam),
           hybm=_tt(_g.hybm))
-# conf/autoreg_physrnn.yaml's model with the fused trunk
-# (cli/train_rollout.py:294), at narrow widths
+# conf/autoreg_physrnn.yaml's options with the fused trunk
+# (use_pallas=True), at narrow widths
 MODEL = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=(16, 16),
              nh_mem=4, nreg=4, store_precip=True, ice_sedimentation=True,
              use_physrad=True, use_mcica=True, use_tc=False,
@@ -53,6 +54,10 @@ MODEL = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=(16, 16),
              ng_sw=8, use_pallas=True, pallas_acc32=True, sp_mean=9.8e4,
              sp_div=1.0, yscale_t=1e5, yscale_qv=1e8, yscale_qn=1e8,
              yscale_precc=1e12, **HY)
+# the yaml's own model: the scan trunk (the yaml sets no use_pallas, and
+# cli/train_rollout.py:294 defaults it to False), equal and unequal widths
+SCAN_TRUNKS = {"scan": dict(MODEL, use_pallas=False),
+               "scan-unequal": dict(MODEL, use_pallas=False, nneur=(16, 12))}
 # per-channel output scales as cli/train_rollout.py:401-402 passes them
 YSCALE_LEV = np.array([1e5, 1e8, 1e8, 1e5, 1e5], np.float32)[None, None]
 YSCALE_SCA = np.array([1e-2, 1e-2, 1e12, 1e12, 1e-2, 1e-2, 1e-2, 1e-2],
@@ -91,18 +96,18 @@ def _chunk(T, seed):
             "x_lev_raw": np.stack([_raw_state(rng, B) for _ in range(T)])}
 
 
-def _jax_trainer(jm, cfg):
+def _jax_trainer(jm, cfg, model=MODEL):
     return JaxTrainer(jm, JaxConfig(**cfg), np.asarray(HY["hyai"]),
                       np.asarray(HY["hybi"]), yscale_lev=YSCALE_LEV,
                       yscale_sca=YSCALE_SCA,
                       apply_fn=lambda p, xl, xs, m, xr, yt=None: jm.apply(
                           p, xl, xs, m, xr, yt),
-                      mem_shape=lambda b, n: (b, L - 10, MODEL["nh_mem"] + 1))
+                      mem_shape=lambda b, n: (b, L - 10, model["nh_mem"] + 1))
 
 
-def _port(params, cfg=YAML_CFG):
+def _port(params, cfg=YAML_CFG, model=MODEL):
     """The port's model with the flax parameters, and its trainer."""
-    tm = PhysicalRNNAutoreg(**MODEL, device="cpu")
+    tm = PhysicalRNNAutoreg(**model, device="cpu")
     tm.load_state_dict(from_flax_params(
         jax.tree_util.tree_map(np.asarray, params), tm))
     tr = RolloutTrainer(tm, RolloutConfig(**cfg), HY["hyai"], HY["hybi"],
@@ -112,16 +117,26 @@ def _port(params, cfg=YAML_CFG):
     return tm, tr
 
 
-@pytest.fixture(scope="module")
-def jax_model():
+def _jax_init(model):
     chunk = _chunk(1, seed=1)
-    mem = np.zeros((B, L - 10, MODEL["nh_mem"] + 1), np.float32)
+    mem = np.zeros((B, L - 10, model["nh_mem"] + 1), np.float32)
     with jax.enable_x64(False):
-        jm = JaxPhys(**MODEL)
+        jm = JaxPhys(**model)
         params = jm.init(jax.random.PRNGKey(1), jnp.asarray(chunk["x_lev"][0]),
                          jnp.asarray(chunk["x_sfc"][0]), jnp.asarray(mem),
                          jnp.asarray(chunk["x_lev_raw"][0]))
     return jm, params
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    return _jax_init(MODEL)
+
+
+@pytest.fixture(scope="module", params=list(SCAN_TRUNKS))
+def jax_scan_model(request):
+    model = SCAN_TRUNKS[request.param]
+    return _jax_init(model) + (model,)
 
 
 def _flat(tree, prefix=""):
@@ -146,21 +161,29 @@ def test_window_loss_and_grads_match_jax(jax_model):
     memory carries a stored-precipitation pool): the loss, the new memory
     and every parameter's gradient against jax.value_and_grad of the JAX
     trainer's ``_window_loss``."""
-    jm, params = jax_model
+    _window_parity(*jax_model, MODEL)
+
+
+def test_scan_trunk_window_loss_and_grads_match_jax(jax_scan_model):
+    """test_window_loss_and_grads_match_jax with the yaml's scan trunk."""
+    _window_parity(*jax_scan_model)
+
+
+def _window_parity(jm, params, model):
     chunk = _chunk(W, seed=2)
     rng = np.random.default_rng(3)
-    mem = np.abs(rng.normal(0, 0.1, (B, L - 10, MODEL["nh_mem"] + 1))
+    mem = np.abs(rng.normal(0, 0.1, (B, L - 10, model["nh_mem"] + 1))
                  ).astype(np.float32)
     mask = np.zeros((B,), np.float32)
     with jax.enable_x64(False):
-        jt = _jax_trainer(jm, YAML_CFG)
+        jt = _jax_trainer(jm, YAML_CFG, model)
         (jl, jmem), jg = jax.value_and_grad(
             lambda p: jt._window_loss(
                 p, {k: jnp.asarray(v) for k, v in chunk.items()},
                 jnp.asarray(mem), jnp.asarray(mask)), has_aux=True)(params)
     jg = _flat(jg["params"])
 
-    tm, tr = _port(params)
+    tm, tr = _port(params, model=model)
     tl, tmem = tr._window_loss({k: torch.as_tensor(v)
                                 for k, v in chunk.items()},
                                torch.as_tensor(mem), torch.as_tensor(mask))
@@ -185,17 +208,54 @@ def test_two_updates_match_jax(jax_model):
     one Adam step (lr): where a gradient is near zero Adam's step flips
     with its last bits (tests/test_torch_train.py holds the flagship to the
     same)."""
-    jm, params = jax_model
+    _two_updates_parity(*jax_model, MODEL)
+
+
+def test_scan_trunk_two_updates_match_jax(jax_scan_model):
+    """test_two_updates_match_jax with the yaml's scan trunk, from an Adam
+    state whose moments have the scale of each parameter's gradient, as
+    training reaches (the bias-corrected second moment of the fourth step,
+    250 nu, ~4-16 times the gradient's square): it then bounds how far
+    the last bits of a gradient move a step (with the fixed 1e-7..1e-6 of
+    the test above,
+    a float32 rounding residue of a zero gradient, 1e-8 of its parameter's
+    gradient scale, moves mlp_output.bias by 8% of lr). The stored
+    precipitation after the second window is a column sum that cancels:
+    scaling JAX's own parameters by 1 + 1e-7 N(0, 1) moves it by 2e-4 of
+    its scale (unequal widths; measured), so it is held to 1e-3 of its
+    scale, the latent memory to 1e-5 as above."""
+    _two_updates_parity(*jax_scan_model, matched=True, pool_rtol=1e-3)
+
+
+def _gradient_scales(jt, params, chunk, model):
+    """max |gradient| of each parameter on the chunk's first window from
+    zero memory (JAX's), floored at 1e-3 for the parameters without one."""
+    mem = jnp.zeros((B, L - 10, model["nh_mem"] + 1), jnp.float32)
+    window = {k: jnp.asarray(v[:W]) for k, v in chunk.items()}
+    g = jax.grad(lambda p: jt._window_loss(
+        p, window, mem, jnp.zeros((B,), jnp.float32))[0])(params)
+    return jax.tree_util.tree_map(
+        lambda a: max(float(jnp.abs(a).max()), 1e-3), g)
+
+
+def _two_updates_parity(jm, params, model, matched=False, pool_rtol=1e-5):
     lr = YAML_CFG["lr"]
     rng = np.random.default_rng(12)
-    mu = jax.tree_util.tree_map(
-        lambda p: rng.normal(0, 1e-3, p.shape).astype(np.float32), params)
-    nu = jax.tree_util.tree_map(
-        lambda p: rng.uniform(1e-7, 1e-6, p.shape).astype(np.float32),
-        params)
     chunk = _chunk(4, seed=5)
     with jax.enable_x64(False):
-        jt = _jax_trainer(jm, YAML_CFG)
+        jt = _jax_trainer(jm, YAML_CFG, model)
+        if matched:
+            scale = _gradient_scales(jt, params, chunk, model)
+        else:
+            scale = jax.tree_util.tree_map(lambda p: None, params)
+        mu = jax.tree_util.tree_map(
+            lambda p, s: rng.normal(0, s or 1e-3, p.shape).astype(np.float32),
+            params, scale)
+        nu = jax.tree_util.tree_map(
+            lambda p, s: (rng.uniform(0.25, 1.0, p.shape) * (s / 4) ** 2
+                          if s
+                          else rng.uniform(1e-7, 1e-6, p.shape)).astype(
+                np.float32), params, scale)
         adam = jt.tx.init(params)
         adam = (adam[0]._replace(
             count=jnp.asarray(3, jnp.int32),
@@ -206,12 +266,14 @@ def test_two_updates_match_jax(jax_model):
             jax.tree_util.tree_map(jnp.copy, params), adam, None, [chunk], 0)
     jp = _flat(jp["params"])
 
-    tm, tr = _port(params)
+    tm, tr = _port(params, model=model)
     tr.opt.load_state_dict(from_optax_adam(mu, nu, 3, tm, tr.opt))
     tmem, trec = tr.run_epoch(None, [chunk], 0)
     assert trec["updates"] == jrec["updates"] == 2
     np.testing.assert_allclose(trec["loss"], jrec["loss"], rtol=1e-5)
-    _held(tmem.numpy(), np.asarray(jmem), 1e-5, "memory")
+    tmem, jmem = tmem.numpy(), np.asarray(jmem)
+    _held(tmem[..., :-1], jmem[..., :-1], 1e-5, "latent memory")
+    _held(tmem[..., -1], jmem[..., -1], pool_rtol, "stored precipitation")
     flat = _flat(params["params"])
     for name, p in tm.named_parameters():
         p = p.detach().numpy()
