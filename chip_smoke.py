@@ -45,7 +45,10 @@ The paths, each at full width with random weights from a seed:
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
-     per source, all started together);
+     per source, all started together), print each kernel's registers and
+     spills, and count the tensor-core instructions (HMMA/HGMMA) of the
+     bf16 designs of B1 and B3 in their SASS (cuobjdump): each must have
+     some;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
      and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
@@ -85,11 +88,17 @@ Phases (any failure exits non-zero):
      until its update fits in the card's memory, the cut printed); then
      one update of each trunk at 384 columns on the card and on the CPU,
      compared after counting the McICA sample indices that differ;
-  9. timings with CUDA events (median of 5 repeats; 3 for the coupled
-     steps of the arms other than v3 and v4, and for the three training
-     arms), peak memory and profiler splits; every serving arm's
+  9. timings with CUDA events (median of 5 repeats for the v6 coupled
+     step and training update and the kernels; 2 for the other arms'
+     coupled steps and training and the physics paths), peak memory and
+     profiler splits; every serving arm's
      coupled step with its device idle share, the three training arms,
-     both physics trunks, B4, B5, B6, B7 at H 192, B9 and B10;
+     both physics trunks, B4, B5, B6, B7 at H 192, B8 at H 192 (bf16,
+     the v4 arm's shapes), B9 and B10; B1 and B3 in bf16 as the
+     tensor-core design against the CUDA-core design (f32's, instantiated
+     in bf16 under a second C symbol that no wrapper selects), timed in
+     turns (old, new, new, old), each with every device kernel of one call
+     by name beside the call's CUDA-event time, and B1 and B3 in f32;
  10. a JSON line of the kernels, the card line, and the result line.
 The end of each phase prints the wall time since the start.
 
@@ -118,9 +127,10 @@ PEAK_BYTES = 3.35e12        # B/s, HBM3
 
 NLAT, NLON, NLEV = 120, 180, 60          # 21,600 columns
 LO_NLAT, LO_NLON = 16, 24                # 384 columns
-# timing repeats; the coupled steps and training of earlier slices' paths
-# take fewer, to hold the run's time as the paths grow
-N_STEPS, REPEATS, OLD_REPEATS = 20, 5, 3
+# timing repeats; the coupled steps and training of the arms other than
+# v6 (earlier slices' paths) take fewer, to hold the run's time as the
+# paths grow
+N_STEPS, REPEATS, OLD_REPEATS = 20, 5, 2
 W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
@@ -200,6 +210,40 @@ def phase_done(n: int) -> None:
     """Print the wall time since the script started, at the end of phase
     n."""
     print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
+
+
+# the bf16 designs that must run their products on tensor cores
+MMA_KERNELS = {"bigru_heads_init_cm": ("b1_mma_kernel",),
+               "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel")}
+
+
+def check_tensor_core_sass(card):
+    """Count the tensor-core instructions (HMMA, HGMMA) of each bf16
+    tensor-core kernel in its built library (``cuobjdump -sass``); each
+    must have some. Without cuobjdump the count is not measured."""
+    from climsim_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"tensor-core instructions: no cuobjdump, not measured "
+              f"[{card}]")
+        return
+    for name, kernels in MMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = next((k for k in kernels if k in line), None)
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                op = "HGMMA" if "HGMMA" in line else "HMMA"
+                counts[(fn, op)] = counts.get((fn, op), 0) + 1
+        print(f"tensor-core instructions in {name}: "
+              + ", ".join(f"{k} {op} x{n}" for (k, op), n in
+                          sorted(counts.items())) + f" [{card}]")
+        for k in kernels:
+            check(any(kk == k for kk, _ in counts),
+                  f"{k}: no HMMA/HGMMA instruction in its SASS")
 
 
 def card_line() -> str:
@@ -427,7 +471,8 @@ def check_b1(model, card):
         got, want = kern(*a32), ref(*a32)
         e = max_err(got, want)
         scale = max(t.abs().max().item() for t in want)
-        print(f"B1 f32 B={B}: max_abs_err {e:.3e} (outputs up to "
+        print(f"B1 f32 (CUDA-core design) B={B}: max_abs_err {e:.3e} "
+              f"(outputs up to "
               f"{scale:.3f}; tolerance 1e-5 + 1e-5*|x|) [{card}]")
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
@@ -436,7 +481,8 @@ def check_b1(model, card):
         got16, want16 = kern(*a16), ref(*a16)
         e16 = max_err(got16, want16)
         own = max_err(want16, ref(*(t.float() for t in a16)))
-        print(f"B1 bf16 B={B}: max_abs_err {e16:.3e}, plain bf16-vs-f32 "
+        print(f"B1 bf16 (tensor-core design) B={B}: max_abs_err "
+              f"{e16:.3e}, plain bf16-vs-f32 "
               f"{own:.3e}; tolerance 4x that [{card}]")
         check(e16 <= 4.0 * own, f"B1 bf16 B={B}: {e16} > 4 x {own}")
         errs.append(e16)
@@ -526,7 +572,8 @@ def check_b3(model, card):
         got, want = kern(res, dom, dlh), ref(res, dom, dlh)
         rel = [rel_err(g, w) for g, w in zip(got, want)]
         worst = int(np.argmax(rel))
-        print(f"B3 f32 B={B}: worst relative error {rel[worst]:.3e} "
+        print(f"B3 f32 (CUDA-core design) B={B}: worst relative error "
+              f"{rel[worst]:.3e} "
               f"({B3_NAMES[worst]}); tolerance 2e-5 of each output's "
               f"scale [{card}]")
         for name, e in zip(B3_NAMES, rel):
@@ -542,7 +589,8 @@ def check_b3(model, card):
             ok, e16, own = bf16_ok(g, w, w32)
             check(ok, f"B3 bf16 B={B} {name}: {e16:.3e} > 4 x {own:.3e}")
             ratio = max(ratio, e16 / max(own, 1e-30))
-        print(f"B3 bf16 B={B}: difference up to {ratio:.3f} x the plain "
+        print(f"B3 bf16 (tensor-core design) B={B}: difference up to "
+              f"{ratio:.3f} x the plain "
               f"version's own bf16-vs-f32 error (tolerance 4x) [{card}]")
         errs.append(max_err(got16, want16))
         del got16, want16, want32
@@ -571,21 +619,38 @@ def b3_bound(res):
         "operations" if t_ops > t_bytes else "bytes", flops, nbytes
 
 
-def b3_split(args) -> dict:
-    """Device ms of one B3 call by kernel, from torch.profiler: the main
-    kernel (replay + BPTT) against the weight-gradient reductions."""
+def kernel_split(fn, event_ms, card, label):
+    """Every device kernel of one call of ``fn`` by name (torch.profiler's
+    full kernel list, no name filter) and their sum beside the call's
+    CUDA-event time, so a kernel missing from the profile shows as a gap
+    between the two. The profile records device activity alone: with CPU
+    activity as well (``profile_kernels``), B3's main kernel, launched
+    from ctypes, went missing from the key averages."""
     from torch.profiler import ProfilerActivity, profile
-    from climsim_tpu_torch.ops import bigru_heads_cm_bwd
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        bigru_heads_cm_bwd(*args)
+        fn()
         torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        for k in ("bigru_heads_cm_bwd_kernel", "outer_sum_kernel",
-                  "sum_parts_kernel", "row_sum_kernel"):
-            if k in ev.key:
-                split[k] = split.get(k, 0.0) + ev.device_time_total / 1e3
-    return split
+    kernels = sorted(((ev.key, ev.device_time_total / 1e3)
+                      for ev in prof.key_averages()
+                      if ev.device_time_total > 0), key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    if busy <= 0:
+        print(f"{label} by kernel: the profiler saw no device time: not "
+              f"measured [{card}]")
+        return
+    print(f"{label} by kernel, one call (torch.profiler device time): "
+          + "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in kernels)
+          + f"; sum {busy:.4f} ms against {event_ms:.4f} ms from CUDA "
+          f"events [{card}]")
+
+
+def in_turns(old, new, launches, repeats=3):
+    """Device ms per call of two versions of one function, timed in turns
+    (old, new, new, old) with CUDA events: ([old, old], [new, new])."""
+    t = {old: [], new: []}
+    for fn in (old, new, new, old):
+        t[fn].append(median_ms(fn, launches, repeats=repeats))
+    return t[old], t[new]
 
 
 def b4_args(model, B, dtype, seed):
@@ -1634,19 +1699,27 @@ def compare_phys_train_384(card, use_pallas=False):
           f"their tolerances; rounding-residue gradients {residue} [{card}]")
 
 
+def b8_work(a8):
+    """B8's operations and bytes from its inputs: 27 H^2 multiply-adds per
+    column and level (the replay 9 H^2, the two BPTT sweeps' transposed
+    products 9 H^2, the three weight gradients 9 H^2), each input read
+    once and each output written once."""
+    res, dd, dl = a8
+    L, B, H3 = res[0].shape
+    H = H3 // 3
+    n_in = sum(t.numel() for t in res) + dd.numel() + dl.numel()
+    n_out = res[0].numel() + 2 * B * H + sum(t.numel() for t in res[3:])
+    return (2.0 * 27 * H * H * L * B,
+            float(res[0].element_size() * (n_in + n_out)))
+
+
 def phys_bwd_bounds(a8, sw, lw):
     """Least times of B8, B13 and B14 from this run's inputs: operations at
     the card's f32 rate against each input read once and each output
     written once. B8: 27 H^2 multiply-adds per column and level (the
     replay 9 H^2, the two BPTT sweeps' transposed products 9 H^2, the
     three weight gradients 9 H^2)."""
-    res, dd, dl = a8
-    L, B, H3 = res[0].shape
-    H = H3 // 3
-    n_in = sum(t.numel() for t in res) + dd.numel() + dl.numel()
-    n_out = res[0].numel() + 2 * B * H + sum(t.numel() for t in res[3:])
-    out = {"b8": (2.0 * 27 * H * H * L * B,
-                  float(res[0].element_size() * (n_in + n_out)))}
+    out = {"b8": b8_work(a8)}
     for key, args, n_ct, ops in (("b13", sw, 3, SW_BWD_OPS_PER_ELEMENT),
                                  ("b14", lw, 2, LW_BWD_OPS_PER_ELEMENT)):
         Bc, nlev, ng = args[3 if key == "b13" else 0].shape
@@ -1707,7 +1780,8 @@ def time_phys_eval(model, card):
     chunk = phys_chunk(PHYS_W, ncol, "cuda")
     trainer = make_phys_trainer(model, None)
     ms = median_ms(lambda: trainer.run_epoch(
-        None, [chunk], 0, train=False), 1, queue_ahead=False) / PHYS_W
+        None, [chunk], 0, train=False), 1, repeats=OLD_REPEATS,
+        queue_ahead=False) / PHYS_W
     resident = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     trainer.run_epoch(None, [chunk], 0, train=False)
@@ -1738,7 +1812,7 @@ def time_phys_update(trainer, chunk, n, ncol, card):
         with torch.enable_grad():
             trainer.run_epoch(None, [chunk], 0)
 
-    ms = median_ms(epoch, 1, queue_ahead=False) / n
+    ms = median_ms(epoch, 1, repeats=OLD_REPEATS, queue_ahead=False) / n
     resident = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     epoch()
@@ -1850,9 +1924,13 @@ def main() -> int:
     print(f"kernels built in {build_s:.1f} s (one nvcc per source, in "
           f"parallel)")
     for name in _build.SOURCES:
+        fn = ""
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1][-60:]
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}: {fn}: {line.strip()}")
+    check_tensor_core_sass(card)
     phase_done(1)
 
     torch.set_grad_enabled(False)
@@ -1956,28 +2034,43 @@ def main() -> int:
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
                          repeats=repeats, queue_ahead=False) / N_STEPS
 
-    hi_ms = step_ms(loop, state, mem, x_sfc)
+    hi_ms = step_ms(loop, state, mem, x_sfc, REPEATS)
     lo_ncol = LO_NLAT * LO_NLON
     lo_loop = make_loop(model, Grid.synthetic(lo_ncol, NLEV, device=dev),
                         LO_NLAT, LO_NLON, None)
     lo_state, lo_mem, lo_x = initial_state(lo_ncol, NLEV, dev)
-    lo_ms = step_ms(lo_loop, lo_state, lo_mem, lo_x)
+    lo_ms = step_ms(lo_loop, lo_state, lo_mem, lo_x, REPEATS)
     print(f"coupled step, {ncol} columns: {hi_ms:.4f} ms, "
           f"{ncol / hi_ms * 1e3:,.0f} columns/s [{card}]")
     arm_split(loop, (state, mem, x_sfc), hi_ms, card, "coupled step, arm v6")
     print(f"coupled step, {lo_ncol} columns: {lo_ms:.4f} ms, "
           f"{lo_ncol / lo_ms * 1e3:,.0f} columns/s [{card}]")
     for arm, (aloop, ainputs, _) in arm_runs.items():
-        ms = step_ms(aloop, *ainputs, repeats=REPEATS if arm in ("v3", "v4")
-                     else OLD_REPEATS)
+        ms = step_ms(aloop, *ainputs)
         print(f"coupled step, {ncol} columns, arm {arm}: {ms:.4f} ms, "
               f"{ncol / ms * 1e3:,.0f} columns/s [{card}]")
         arm_split(aloop, ainputs, ms, card, f"coupled step, arm {arm}")
     del arm_runs, aloop, ainputs
 
+    from climsim_tpu_torch.ops.pallas_rnn import (
+        cudacore_bigru_heads_cm_bwd, cudacore_bigru_heads_init_cm)
     a1 = b1_args(model, ncol, torch.bfloat16, seed=7)
-    b1_ms = median_ms(lambda: fused_bigru_heads_init_cm(*a1), 3)
+    b1_old, b1_new = in_turns(lambda: cudacore_bigru_heads_init_cm(*a1),
+                              lambda: fused_bigru_heads_init_cm(*a1), 3)
+    b1_ms = statistics.mean(b1_new)
+    print(f"B1 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
+          f"tensor-core, CUDA-core): CUDA-core design {b1_old[0]:.4f} / "
+          f"{b1_old[1]:.4f} ms, tensor-core design {b1_new[0]:.4f} / "
+          f"{b1_new[1]:.4f} ms [{card}]")
+    kernel_split(lambda: fused_bigru_heads_init_cm(*a1), b1_ms, card,
+                 "B1 bf16")
     b1_plain = median_ms(lambda: bigru_heads_init_cm_reference(*a1), 1)
+    a1_32 = tuple(t.float() for t in a1)
+    b1_f32 = median_ms(lambda: fused_bigru_heads_init_cm(*a1_32), 3,
+                       repeats=3)
+    print(f"B1 f32 (CUDA-core design) at {ncol} columns: kernel "
+          f"{b1_f32:.4f} ms [{card}]")
+    del a1_32
     a1_lo = b1_args(model, lo_ncol, torch.bfloat16, seed=8)
     b1_lo_ms = median_ms(lambda: fused_bigru_heads_init_cm(*a1_lo), 3)
     print(f"B1 bf16 at {lo_ncol} columns: kernel {b1_lo_ms:.4f} ms "
@@ -2012,25 +2105,34 @@ def main() -> int:
     print(f"B2 f32 {tuple(qs.shape)}: kernel {b2_ms:.4f} ms, plain "
           f"{b2_plain:.4f} ms, bound {b2_bound:.4f} ms "
           f"({b2_bytes / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
-    time_training(trainer, chunk, n_upd, "v6", card, repeats=OLD_REPEATS)
+    time_training(trainer, chunk, n_upd, "v6", card)
     # the scan arm (conf/autoreg_gru.yaml trains it) and the v4 arm on the
-    # same data, three repeats each
+    # same data
     for arm, (atr, achunk, _, an) in arm_trainers.items():
-        time_training(atr, achunk, an, arm, card, repeats=3, split=True)
+        time_training(atr, achunk, an, arm, card, repeats=OLD_REPEATS,
+                      split=True)
     del arm_trainers, atr, achunk
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
-    b3_ms = median_ms(lambda: bigru_heads_cm_bwd(*a3), 3)
+    b3_old, b3_new = in_turns(lambda: cudacore_bigru_heads_cm_bwd(*a3),
+                              lambda: bigru_heads_cm_bwd(*a3), 2,
+                              repeats=2)
+    b3_ms = statistics.mean(b3_new)
+    print(f"B3 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
+          f"tensor-core, CUDA-core): CUDA-core design {b3_old[0]:.4f} / "
+          f"{b3_old[1]:.4f} ms, tensor-core design {b3_new[0]:.4f} / "
+          f"{b3_new[1]:.4f} ms [{card}]")
     b3_plain = median_ms(lambda: bigru_heads_cm_bwd_reference(*a3), 1)
+    a3_32 = (tuple(t.float() for t in a3[0]), a3[1].float(), a3[2].float())
+    b3_f32 = median_ms(lambda: bigru_heads_cm_bwd(*a3_32), 1, repeats=2)
+    print(f"B3 f32 (CUDA-core design) at {ncol} columns: kernel "
+          f"{b3_f32:.4f} ms [{card}]")
+    del a3_32
     b3_bnd, b3_by, b3_flops, b3_bytes = b3_bound(a3[0])
     print(f"B3 bf16 (L {NLEV}, H {a3[0][7].shape[1]}, B {ncol}): kernel "
           f"{b3_ms:.4f} ms, plain {b3_plain:.4f} ms, bound {b3_bnd:.4f} ms "
           f"({b3_flops / 1e12:.3f} TFLOP at 989 TFLOP/s; "
           f"{b3_bytes / 1e6:.1f} MB) [{card}]")
-    split = b3_split(a3)
-    print("B3 bf16 by kernel, one call (torch.profiler device time): "
-          + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-             or "the profiler saw no device time: not measured")
-          + f" [{card}]")
+    kernel_split(lambda: bigru_heads_cm_bwd(*a3), b3_ms, card, "B3 bf16")
 
     # B4, B5, B6 and B7 at H 192 (after the training peak, so that peak
     # counts what it counted before these inputs existed)
@@ -2054,6 +2156,22 @@ def main() -> int:
     a7h = b7_args(v2model, ncol, torch.bfloat16, seed=29, L=NLEV)
     b7h_ms = median_ms(lambda: fused_bigru_lbh(*a7h), 3)
     b7h_plain = median_ms(lambda: bigru_reference_lbh(*a7h), 1)
+    # B8 at the v4 arm's shapes (L 60, H 192, bf16): its residuals are
+    # B7's inputs at H 192
+    from climsim_tpu_torch.ops import bigru_bwd_lbh
+    g8 = torch.Generator(device="cuda").manual_seed(30)
+    a8h = (a7h, torch.randn((NLEV, ncol, a7h[1].shape[1]), generator=g8,
+                            device="cuda").to(torch.bfloat16),
+           torch.randn((ncol, a7h[1].shape[1]), generator=g8,
+                       device="cuda").to(torch.bfloat16))
+    b8h_ms = median_ms(lambda: bigru_bwd_lbh(*a8h), 2, repeats=3)
+    b8h_flops, b8h_bytes = b8_work(a8h)
+    b8h_bound = max(b8h_flops / PEAK_BF16, b8h_bytes / PEAK_BYTES) * 1e3
+    print(f"B8 bf16 (L {NLEV}, H {a7h[1].shape[1]}, B {ncol}, the v4 "
+          f"arm's shapes): kernel {b8h_ms:.4f} ms, bound {b8h_bound:.4f} "
+          f"ms ({b8h_flops / 1e12:.4f} TFLOP at 989 TFLOP/s; "
+          f"{b8h_bytes / 1e6:.1f} MB) [{card}]")
+    del a8h
     sb = serving_bounds(a4, (q5, u5, v5), q6, a7h)
     print(f"B4 bf16 (L {NLEV}, CH {a4[0].shape[1]}, H {a4[7].shape[1]}, "
           f"B {ncol}): kernel {b4_ms:.4f} ms (projections rounded, the "

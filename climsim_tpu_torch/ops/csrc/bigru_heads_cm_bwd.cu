@@ -55,10 +55,12 @@
 // The ragged edge is masked in the kernels: a pad column reads zero
 // inputs and zero cotangents and nothing of it is stored, so it adds
 // nothing to the sums (the TPU pads with zeros for the same effect).
-// Tensor cores and weights resident in shared memory are later work.
-// Built without --use_fast_math: expf/tanhf keep the 60-level recurrence
-// within tolerance of the plain version.
+// This design is kept for f32 (the F32 policy rules out TF32); bf16 runs
+// the tensor-core design at the end of this file. Built without
+// --use_fast_math: expf/tanhf keep the 60-level recurrence within
+// tolerance of the plain version.
 #include "bigru_common.cuh"
+#include "bigru_mma.cuh"
 
 namespace {
 
@@ -629,4 +631,801 @@ extern "C" int bigru_heads_cm_bwd(int dtype, int nslot,
   if (dtype == 0) return launch<float>(p, S, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, S, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------ bf16: tensor-core design
+//
+// The bf16 path (the flagship policy) splits as the CUDA-core one, with
+// every product on tensor cores and the sweep's weights resident:
+//   1. b3_mma_kernel: a cluster of C CTAs owns a tile of BT columns, CTA r
+//      hidden units [r Hc, (r + 1) Hc), as in the forward (bmma notes).
+//      Phase A replays both sweeps with B1's level (xp kept f32, as the
+//      TPU replay keeps it), storing h and the gate bundle [r; z; n; hn]
+//      (bf16) and the latent head mem_l for dWout. Phases B and C run the
+//      GRU backward step at the thread's fragment positions (dh / du in
+//      registers), write the rounded bundle dt([dar; daz; dan; dhn]) to
+//      their own columns of a [BT][4H] smem tile, copy it to every CTA of
+//      the cluster (distributed shared memory), and after one cluster
+//      barrier compute the transposed products for the rows they own:
+//      Whh^T dt(d_hh) and W2^T dt(d_xp) (B), Whh_up^T dt(d_hh) and
+//      [W1h | W1m]^T dt(d_xp) (C), from [in-rows x 3H] slices of the
+//      weights that stay in shared memory for the phase. A second,
+//      split-phase cluster barrier keeps a fast CTA from writing the
+//      next level's bundle before every CTA has read this one. The
+//      rounded bundle also overwrites the gates in place (bf16): it is
+//      exactly the left factor of the weight gradients, so the f32
+//      [L, 4H, B] streams of the CUDA-core design are gone (~8 GB at
+//      21,600 columns). The bias sums take the unrounded f32 values: each
+//      thread sums its own positions over the levels, and each tile writes
+//      f32 partials [tiles, 8H + nm + ny] in a fixed order.
+//   2. wgrad_mma_kernel: each weight gradient sum_{l,b} dt(left) right as
+//      a bf16 tensor-core GEMM over the L x B contraction (128 x 64 output
+//      tiles, 32-column chunks fetched a chunk ahead, split into a fixed
+//      number of column ranges whose f32 partials sum_parts_kernel adds in
+//      order); bias_sum_kernel adds the
+//      tiles' bias partials in order. No atomics: two calls are
+//      bit-identical.
+namespace b3mma {
+
+using namespace bmma;
+// names the CUDA-core design's namespace (bigru) also declares
+using bmma::NTH;
+using bmma::rnd;
+using bmma::gru_level;
+
+struct BwdParams {
+  const bf16 *x, *mem_in, *h0u, *h0d, *dom, *dlh;
+  const bf16 *wx_up, *b1, *wh_up, *bh_up, *wx_dn, *b2, *wh_dn, *bh_dn;
+  const bf16 *wlat, *blat, *whT_dn, *w2T, *wlT, *wout, *whT_up, *w1T;
+  bf16 *dx, *dmem, *dh0u, *dh0d;
+  bf16 *up_h, *g_h, *gates_u, *gates_d, *meml, *dmt;
+  float *dup, *bpart;
+  int L, CHp, nmi, H, nm, ny, B, C, BT, KXc;
+};
+
+struct BBufs {
+  bf16 *wh, *wu, *wl, *D, *dmt;
+  float *raw, *red;
+};
+__host__ __device__ inline BBufs b_bufs(Smem& s, int Hc, int H, int BT,
+                                        int nm16, int nraw, int nm, int ny,
+                                        int KXc, bool phase_c) {
+  BBufs b;
+  const int LDT = 3 * H + PAD;
+  b.wh = s.take<bf16>(static_cast<size_t>(Hc) * LDT);
+  b.wu = s.take<bf16>(static_cast<size_t>(phase_c ? KXc : Hc) * LDT);
+  b.wl = s.take<bf16>(phase_c ? 0 : static_cast<size_t>(Hc) * (nm16 + PAD));
+  b.D = s.take<bf16>(static_cast<size_t>(BT) * (4 * H + PAD));
+  b.dmt = s.take<bf16>(phase_c ? 0 : static_cast<size_t>(BT) * (nm16 + PAD));
+  const int rows = nm + ny > nm16 ? nm + ny : nm16;
+  b.raw = s.take<float>(phase_c ? 0 : static_cast<size_t>(rows) * BT);
+  b.red = s.take<float>(static_cast<size_t>(BT / 16) * 4 * Hc);
+  (void)nraw;
+  return b;
+}
+
+__host__ __device__ inline size_t b3_smem(int H, int C, int CHp, int nmi,
+                                          int nm, int ny, int BT, int KXc) {
+  const int Hc = H / C, nm8 = (nm + 7) / 8 * 8, nm16 = (nm + 15) / 16 * 16;
+  Smem su(nullptr), sd(nullptr), sb(nullptr), sc(nullptr);
+  up_bufs(su, Hc, CHp + nmi, H, BT, 0, 0);
+  dn_bufs(sd, Hc, H, BT, nm8, nm);
+  b_bufs(sb, Hc, H, BT, nm16, nm + ny, nm, ny, KXc, false);
+  b_bufs(sc, Hc, H, BT, nm16, 0, nm, ny, KXc, true);
+  size_t m = su.off;
+  if (sd.off > m) m = sd.off;
+  if (sb.off > m) m = sb.off;
+  if (sc.off > m) m = sc.off;
+  return m;
+}
+
+// The GRU backward step of one level at the thread's fragment positions:
+// g = dh (+ dh_add [H, B] f32), the stored gates [4H, B] and h_prev
+// [H, B]; the rounded bundle dt([dar; daz; dan; dhn]) goes to the CTA's
+// columns of D [BT][ldd] and over the gates in place (inside the batch);
+// bp sums the unrounded bundle over the thread's rows; dh <- g z.
+__device__ __forceinline__ void gru_bwd(float (&dh)[MAXP][4],
+                                        const float* dh_add, bf16* gates,
+                                        const bf16* hp, bf16* D, int ldd,
+                                        float (&bp)[4][MAXP][2],
+                                        const Warp& w, const Tiles& tl,
+                                        int r, int Hc, int H, int B,
+                                        int col0) {
+  const size_t sB = B;
+  float in[MAXP][4][6];
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+      const bool ok = tl.on[i] && col < B;
+      const size_t e = j * sB + col;
+      in[i][q][0] = ok && dh_add != nullptr ? dh_add[e] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        in[i][q][1 + k] = ok ? b2f(gates[k * H * sB + e]) : 0.0f;
+      in[i][q][5] = ok ? b2f(hp[e]) : 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    if (!tl.on[i]) continue;
+    float v[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float g = dh[i][q] + in[i][q][0];
+      const float rr = in[i][q][1], zz = in[i][q][2], nn = in[i][q][3];
+      const float hnn = in[i][q][4], h_prev = in[i][q][5];
+      const float dz = g * (h_prev - nn);
+      const float dan = g * (1.0f - zz) * (1.0f - nn * nn);
+      const float dar = dan * hnn * rr * (1.0f - rr);
+      const float daz = dz * zz * (1.0f - zz);
+      const float dhn = dan * rr;
+      v[q][0] = dar;
+      v[q][1] = daz;
+      v[q][2] = dan;
+      v[q][3] = dhn;
+      dh[i][q] = g * zz;
+      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bp[k][i][q & 1] += v[q][k];
+        if (col < B)
+          gates[(k * H + j) * sB + col] = __float2bfloat16_rn(v[q][k]);
+      }
+    }
+    const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      *reinterpret_cast<uint32_t*>(D + w.row(0) * ldd + k * H + j) =
+          pack2(v[0][k], v[1][k]);
+      *reinterpret_cast<uint32_t*>(D + w.row(2) * ldd + k * H + j) =
+          pack2(v[2][k], v[3][k]);
+    }
+  }
+}
+
+// dst[i] = dt(v[i]) at the thread's fragment positions of a [H, B] tensor
+__device__ __forceinline__ void store_frag(bf16* dst, const float (&v)[MAXP][4],
+                                           const Warp& w, const Tiles& tl,
+                                           int r, int Hc, int B, int col0) {
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+      if (tl.on[i] && col < B)
+        dst[static_cast<size_t>(j) * B + col] = __float2bfloat16_rn(v[i][q]);
+    }
+}
+
+// The tile's bias partials of one sweep: bp summed over the lanes of a
+// column and then over the warps' m16 tiles in order, into
+// part[k H + r Hc + jj] for the bundle's four rows k.
+__device__ __forceinline__ void reduce_bias(const float (&bp)[4][MAXP][2],
+                                            float* red, float* part,
+                                            const Warp& w, const Tiles& tl,
+                                            int r, int Hc, int H, int BT) {
+  const int nwm = BT / 16, wm = w.m0 / 16;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = bp[k][i][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (w.g == 0 && tl.on[i])
+          red[(wm * 4 + k) * Hc + w.col(tl.nt[i] * 8, e)] = v;
+      }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 4 * Hc; e += NTH) {
+    const int k = e / Hc, jj = e % Hc;
+    float a = 0.0f;
+    for (int m = 0; m < nwm; ++m) a += red[(m * 4 + k) * Hc + jj];
+    part[k * H + r * Hc + jj] = a;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
+  const int H = p.H, Hc = H / C, L = p.L, B = p.B, CHp = p.CHp, nmi = p.nmi;
+  const int nm = p.nm, ny = p.ny, nm8 = (nm + 7) / 8 * 8;
+  const int nm16 = (nm + 15) / 16 * 16, KXc = p.KXc;
+  const int KX = CHp + nmi, LDX = KX + PAD, LDH = H + PAD;
+  const int LDT = 3 * H + PAD, LDD = 4 * H + PAD, LDL = nm16 + PAD;
+  const int tile = blockIdx.x / C, col0 = tile * BT, tid = threadIdx.x;
+  const size_t sB = B, lvH = static_cast<size_t>(H) * B;
+  const int PW = 8 * H + nm + ny;
+  float* part = p.bpart + static_cast<size_t>(tile) * PW;
+  const Warp w(BT);
+  const Tiles tl(w, Hc / 8);
+  extern __shared__ __align__(16) char smem_raw[];
+
+  // ---- phase A: replay the up sweep (surface to top), then the down
+  {
+    GruRegs R;
+    Smem s(smem_raw);
+    const UpBufs u = up_bufs(s, Hc, KX, H, BT, 0, 0);
+    load_rows(u.wx, LDX, p.wx_up + static_cast<size_t>(r) * 3 * Hc * KX,
+              3 * Hc, KX);
+    load_rows(u.wh, LDH, p.wh_up + static_cast<size_t>(r) * 3 * Hc * H,
+              3 * Hc, H);
+    load_tile_t(u.h, LDH, p.h0u, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, p.b1, p.bh_up, p.h0u, B, col0);
+    const int k0 = min(KX, r * KXc), k1 = min(KX, (r + 1) * KXc);
+    const auto x_l = [&](int l) { return p.x + static_cast<size_t>(l) * CHp * sB; };
+    const auto m_l = [&](int l) { return p.mem_in + static_cast<size_t>(l) * nmi * sB; };
+    ChunkPF cp;
+    cp.fetch(x_l(L - 1), CHp, m_l(L - 1), k0, k1, B, col0, BT);
+    cp.commit(u.x, LDX, k0, k1, BT);
+    cp_async_wait_all();
+    __syncthreads();
+    bcast_cols(cl, u.x, LDX, k0, k1 - k0, BT);
+    cl.sync();
+    int cur = 0;
+    for (int s_ = 0; s_ < L; ++s_) {
+      const int l = L - 1 - s_;
+      const bool more = l > 0;
+      bf16* hc = u.h + cur * BT * LDH;
+      bf16* hn = u.h + (cur ^ 1) * BT * LDH;
+      bf16* xc = u.x + cur * BT * LDX;
+      bf16* xn = u.x + (cur ^ 1) * BT * LDX;
+      if (more) cp.fetch(x_l(l - 1), CHp, m_l(l - 1), k0, k1, B, col0, BT);
+      if (s_ > 0)
+        store_tile_t(p.up_h + (l + 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
+                     Hc, B, col0, BT);
+      gru_level<false>(cl, R, xc, LDX, KX, u.wx, hc, u.wh, LDH, H, Hc, hn, w,
+                       tl, r, p.gates_u + l * 4 * lvH, B, col0);
+      if (more) {
+        cp.commit(xn, LDX, k0, k1, BT);
+        __syncthreads();
+        bcast_cols(cl, xn, LDX, k0, k1 - k0, BT);
+      }
+      cl.sync();
+      cur ^= 1;
+    }
+    store_tile_t(p.up_h + r * Hc * sB, u.h + cur * BT * LDH, LDH, r * Hc, Hc,
+                 B, col0, BT);
+    cl.sync();
+
+    Smem s2(smem_raw);
+    const DnBufs d = dn_bufs(s2, Hc, H, BT, nm8, nm);
+    load_rows(d.wx, LDH, p.wx_dn + static_cast<size_t>(r) * 3 * Hc * H,
+              3 * Hc, H);
+    load_rows(d.wh, LDH, p.wh_dn + static_cast<size_t>(r) * 3 * Hc * H,
+              3 * Hc, H);
+    load_rows(d.wl, LDH, p.wlat, nm8, H);
+    load_heads(d.hw, p.blat, nullptr, nullptr, nm, 0);
+    load_tile_t(d.h, LDH, p.h0d, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, p.b2, p.bh_dn, p.h0d, B, col0);
+    cp.fetch(p.up_h, H, nullptr, r * Hc, (r + 1) * Hc, B, col0, BT);
+    cp.commit(d.x, LDH, r * Hc, (r + 1) * Hc, BT);
+    cp_async_wait_all();
+    __syncthreads();
+    bcast_cols(cl, d.x, LDH, r * Hc, Hc, BT);
+    cl.sync();
+    cur = 0;
+    for (int l = 0; l < L; ++l) {
+      const bool more = l + 1 < L;
+      bf16* hc = d.h + cur * BT * LDH;
+      bf16* hn = d.h + (cur ^ 1) * BT * LDH;
+      bf16* xc = d.x + cur * BT * LDH;
+      bf16* xn = d.x + (cur ^ 1) * BT * LDH;
+      if (more)
+        cp.fetch(p.up_h + (l + 1) * lvH, H, nullptr, r * Hc, (r + 1) * Hc, B,
+                 col0, BT);
+      if (l > 0) {
+        store_tile_t(p.g_h + (l - 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
+                     Hc, B, col0, BT);
+        heads(hc, LDH, d.wl, H, nm, nm8, d.hw, 0, d.mem,
+              p.meml + static_cast<size_t>(l - 1) * nm * sB, nullptr, B,
+              col0, BT, r, C);
+      }
+      gru_level<false>(cl, R, xc, LDH, H, d.wx, hc, d.wh, LDH, H, Hc, hn, w,
+                       tl, r, p.gates_d + l * 4 * lvH, B, col0);
+      if (more) {
+        cp.commit(xn, LDH, r * Hc, (r + 1) * Hc, BT);
+        __syncthreads();
+        bcast_cols(cl, xn, LDH, r * Hc, Hc, BT);
+      }
+      cl.sync();
+      cur ^= 1;
+    }
+    bf16* hl = d.h + cur * BT * LDH;
+    store_tile_t(p.g_h + (L - 1) * lvH + r * Hc * sB, hl, LDH, r * Hc, Hc, B,
+                 col0, BT);
+    heads(hl, LDH, d.wl, H, nm, nm8, d.hw, 0, d.mem,
+          p.meml + static_cast<size_t>(L - 1) * nm * sB, nullptr, B, col0, BT,
+          r, C);
+    cl.sync();
+  }
+
+  float bp[4][MAXP][2];
+  // ---- phase B: heads + down sweep backward (surface to top)
+  {
+    Smem s(smem_raw);
+    const BBufs bb = b_bufs(s, Hc, H, BT, nm16, nm + ny, nm, ny, KXc, false);
+    load_rows(bb.wh, LDT, p.whT_dn + static_cast<size_t>(r) * Hc * 3 * H, Hc,
+              3 * H);
+    load_rows(bb.wu, LDT, p.w2T + static_cast<size_t>(r) * Hc * 3 * H, Hc,
+              3 * H);
+    load_rows(bb.wl, LDL, p.wlT + static_cast<size_t>(r) * Hc * nm16, Hc,
+              nm16);
+    float dh[MAXP][4], dtp[PF], dbo[PF];
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+        dh[i][q] = tl.on[i] && col < B ? b2f(p.dlh[j * sB + col]) : 0.0f;
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) bp[k][i][0] = bp[k][i][1] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PF; ++i) dtp[i] = dbo[i] = 0.0f;
+    const int nmo = nm + ny;
+    const auto dom_l = [&](int l) { return p.dom + static_cast<size_t>(l) * nmo * sB; };
+    RawPF pf;
+    pf.fetch(dom_l(L - 1), nmo, nullptr, nmo, B, col0, BT);
+    cp_async_wait_all();
+    __syncthreads();
+    cluster_arrive();
+    for (int l = L - 1; l >= 0; --l) {
+      pf.commit(bb.raw, nmo, BT);
+#pragma unroll
+      for (int i = 0; i < PF; ++i)      // dbout: the dout rows, unrounded
+        if ((tid + i * NTH) / BT >= nm && tid + i * NTH < nmo * BT)
+          dbo[i] += pf.v[i];
+      if (l > 0) pf.fetch(dom_l(l - 1), nmo, nullptr, nmo, B, col0, BT);
+      __syncthreads();
+      // dmem_tot = dmem_head + Wout^T dout (f32; every CTA the whole tile)
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int e = tid + i * NTH;
+        if (e >= nm16 * BT) continue;
+        const int m = e / BT, b = e % BT;
+        float a = 0.0f;
+        if (m < nm) {
+          for (int o = 0; o < ny; ++o)
+            a = fmaf(b2f(p.wout[o * nm + m]), bb.raw[(nm + o) * BT + b], a);
+          a += bb.raw[m * BT + b];
+          dtp[i] += a;
+          if (r == 0 && col0 + b < B)
+            p.dmt[(static_cast<size_t>(l) * nm + m) * sB + col0 + b] =
+                __float2bfloat16_rn(a);
+        }
+        bb.dmt[b * LDL + m] = __float2bfloat16_rn(a);
+      }
+      __syncthreads();
+      // dh2 += Wlat^T dt(dmem_tot)
+      float al[MAXP][4];
+      zero_acc(al);
+      warp_mma(al, bb.dmt, LDL, bb.wl, LDL, 0, w, tl, nm16);
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dh[i][q] += al[i][q];
+      cluster_wait();       // every CTA has read the last level's bundle
+      gru_bwd(dh, nullptr, p.gates_d + l * 4 * lvH,
+              l > 0 ? p.g_h + (l - 1) * lvH : p.h0d, bb.D, LDD, bp, w, tl, r,
+              Hc, H, B, col0);
+      __syncthreads();
+      for (int k = 0; k < 4; ++k) bcast_cols(cl, bb.D, LDD, k * H + r * Hc, Hc, BT);
+      cl.sync();
+      // dh2_prev = dh2 z + Whh_dn^T dt(d_hh); d_up = W2^T dt(d_xp)
+      float ah[MAXP][4], au[MAXP][4];
+      zero_acc(ah);
+      zero_acc(au);
+      warp_mma(ah, bb.D, LDD, bb.wh, LDT, 0, w, tl, 2 * H);
+      warp_mma(ah, bb.D + 3 * H, LDD, bb.wh + 2 * H, LDT, 0, w, tl, H);
+      warp_mma(au, bb.D, LDD, bb.wu, LDT, 0, w, tl, 3 * H);
+      float* dup_l = p.dup + l * lvH;
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dh[i][q] += ah[i][q];
+          const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+          if (tl.on[i] && col < B) dup_l[j * sB + col] = au[i][q];
+        }
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_frag(p.dh0d, dh, w, tl, r, Hc, B, col0);
+    reduce_bias(bp, bb.red, part + 4 * H, w, tl, r, Hc, H, BT);
+    if (r == 0) {       // dblat and dbout: sums over the tile's columns
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int e = tid + i * NTH;
+        if (e < nm16 * BT) bb.raw[e] = dtp[i];
+      }
+      __syncthreads();
+      for (int m = tid; m < nm; m += NTH) {
+        float a = 0.0f;
+        for (int b = 0; b < BT; ++b) a += bb.raw[m * BT + b];
+        part[8 * H + m] = a;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int e = tid + i * NTH;
+        if (e < nmo * BT) bb.raw[e] = dbo[i];
+      }
+      __syncthreads();
+      for (int o = tid; o < ny; o += NTH) {
+        float a = 0.0f;
+        for (int b = 0; b < BT; ++b) a += bb.raw[(nm + o) * BT + b];
+        part[8 * H + nm + o] = a;
+      }
+    }
+    cl.sync();
+  }
+
+  // ---- phase C: up sweep backward (top to surface)
+  {
+    Smem s(smem_raw);
+    const BBufs bc = b_bufs(s, Hc, H, BT, nm16, 0, nm, ny, KXc, true);
+    load_rows(bc.wh, LDT, p.whT_up + static_cast<size_t>(r) * Hc * 3 * H, Hc,
+              3 * H);
+    load_rows(bc.wu, LDT, p.w1T + static_cast<size_t>(r) * KXc * 3 * H, KXc,
+              3 * H);
+    float du[MAXP][4];
+    zero_acc(du);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) bp[k][i][0] = bp[k][i][1] = 0.0f;
+    cp_async_wait_all();
+    __syncthreads();
+    cluster_arrive();
+    for (int l = 0; l < L; ++l) {
+      cluster_wait();
+      gru_bwd(du, p.dup + l * lvH, p.gates_u + l * 4 * lvH,
+              l < L - 1 ? p.up_h + (l + 1) * lvH : p.h0u, bc.D, LDD, bp, w,
+              tl, r, Hc, H, B, col0);
+      __syncthreads();
+      for (int k = 0; k < 4; ++k) bcast_cols(cl, bc.D, LDD, k * H + r * Hc, Hc, BT);
+      cl.sync();
+      // du_prev = du z + Whh_up^T dt(d_hh)
+      float ah[MAXP][4];
+      zero_acc(ah);
+      warp_mma(ah, bc.D, LDD, bc.wh, LDT, 0, w, tl, 2 * H);
+      warp_mma(ah, bc.D + 3 * H, LDD, bc.wh + 2 * H, LDT, 0, w, tl, H);
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) du[i][q] += ah[i][q];
+      // [dx; dmem] rows of this CTA = dt([W1h | W1m]^T dt(d_xp))
+      const int ntx = KXc / 8;
+      for (int base = 0; base < ntx; base += w.nwn * MAXP) {
+        const Tiles tx(w, ntx, base);
+        float ax[MAXP][4];
+        zero_acc(ax);
+        warp_mma(ax, bc.D, LDD, bc.wu, LDT, 0, w, tx, 3 * H);
+#pragma unroll
+        for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int kx = r * KXc + w.col(tx.nt[i] * 8, q);
+            const int col = col0 + w.row(q);
+            if (!tx.on[i] || col >= B) continue;
+            const bf16 v = __float2bfloat16_rn(ax[i][q]);
+            if (kx < CHp)
+              p.dx[(static_cast<size_t>(l) * CHp + kx) * sB + col] = v;
+            else if (kx < KX)
+              p.dmem[(static_cast<size_t>(l) * nmi + kx - CHp) * sB + col] = v;
+          }
+      }
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_frag(p.dh0u, du, w, tl, r, Hc, B, col0);
+    reduce_bias(bp, bc.red, part, w, tl, r, Hc, H, BT);
+  }
+  cl.sync();   // no CTA leaves while another may still address its smem
+}
+
+// ---------------------------------------------------------- weight grads
+
+constexpr int GTM = 128;        // output tile rows
+constexpr int GTN = 64;         // output tile columns
+constexpr int GK = 32;          // columns per chunk
+constexpr int GTH = 256;        // threads per block (8 warps of 32 x 32)
+
+// A gradient sum over levels and columns: out [M, N] = sum_{l, b}
+// left[l][row(m)][b] right[l + shift][n][b], both bf16 (the left factor
+// already rounded), row(m) = m for m < split, m + gap after; the right
+// operand's level outside 0..L-1 is edge [N, B].
+struct GJob {
+  const bf16* a; size_t a_lvl; int split, gap;
+  const bf16* b; size_t b_lvl; int shift; const bf16* edge;
+  bf16* out; int M, N;
+};
+
+// 16 values of row src[0..] from column b0 into registers, zero past B
+__device__ __forceinline__ void fetch16(uint4 (&r)[2], const bf16* src,
+                                        int b0, int B, bool ok, bool vec) {
+  if (ok && vec && b0 + 16 <= B) {
+    r[0] = *reinterpret_cast<const uint4*>(src + b0);
+    r[1] = *reinterpret_cast<const uint4*>(src + b0 + 8);
+    return;
+  }
+  unsigned short u[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    u[k] = ok && b0 + k < B
+               ? *reinterpret_cast<const unsigned short*>(src + b0 + k) : 0;
+  r[0] = make_uint4(u[0] | (u[1] << 16), u[2] | (u[3] << 16),
+                    u[4] | (u[5] << 16), u[6] | (u[7] << 16));
+  r[1] = make_uint4(u[8] | (u[9] << 16), u[10] | (u[11] << 16),
+                    u[12] | (u[13] << 16), u[14] | (u[15] << 16));
+}
+
+__global__ void __launch_bounds__(GTH)
+wgrad_mma_kernel(GJob jb, int L, int B, int S, int vec, float* part) {
+  __shared__ __align__(16) bf16 As[GTM * (GK + PAD)];
+  __shared__ __align__(16) bf16 Bs[GTN * (GK + PAD)];
+  constexpr int LD = GK + PAD;
+  const int ntn = (jb.N + GTN - 1) / GTN;
+  const int m0 = (blockIdx.x / ntn) * GTM, n0 = (blockIdx.x % ntn) * GTN;
+  const int s = blockIdx.y;
+  const long nbc = (B + GK - 1) / GK;
+  const long total = L * nbc;
+  const long first = total * s / S, last = total * (s + 1) / S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  // thread (row, half) fetches 16 columns of A's row and, in the first
+  // 2 GTN threads, of B's
+  const int row = tid >> 1, half = (tid & 1) * 16;
+  const bool brow = row < GTN;
+  const int m = m0 + row, n = n0 + row;
+  const int arow = m < jb.split ? m : m + jb.gap;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+  // chunk ch's two 16-value rows, fetched into registers a chunk ahead
+  uint4 ra[2], rb[2];
+  const auto fetch = [&](long ch) {
+    const int l = static_cast<int>(ch / nbc);
+    const int b0 = static_cast<int>(ch % nbc) * GK + half;
+    const int lb = l + jb.shift;
+    const bf16* Bl = (lb >= 0 && lb < L) ? jb.b + lb * jb.b_lvl : jb.edge;
+    fetch16(ra, jb.a + l * jb.a_lvl + static_cast<size_t>(arow) * B, b0, B,
+            m < jb.M, vec);
+    if (brow)
+      fetch16(rb, Bl + static_cast<size_t>(n) * B, b0, B, n < jb.N, vec);
+  };
+  if (first < last) fetch(first);
+  for (long ch = first; ch < last; ++ch) {
+    uint4* da = reinterpret_cast<uint4*>(As + row * LD + half);
+    uint4* db = reinterpret_cast<uint4*>(Bs + row * LD + half);
+    da[0] = ra[0];
+    da[1] = ra[1];
+    if (brow) {
+      db[0] = rb[0];
+      db[1] = rb[1];
+    }
+    __syncthreads();
+    if (ch + 1 < last) fetch(ch + 1);
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm4(a[i], As + (wm + i * 16 + (lane & 15)) * LD + kk + ((lane >> 4) << 3));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ldsm2(b[j], Bs + (wn + j * 8 + (lane & 7)) * LD + kk +
+                        (((lane >> 3) & 1) << 3));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int mm = m0 + wm + i * 16 + g + 8 * (q >> 1);
+        const int nn = n0 + wn + j * 8 + 2 * t + (q & 1);
+        if (mm < jb.M && nn < jb.N)
+          part[(static_cast<size_t>(s) * jb.M + mm) * jb.N + nn] = acc[i][j][q];
+      }
+}
+
+// the bias gradients from the tiles' partials [tiles, 8H + nm + ny]: each
+// sum over the tiles in order
+__global__ void bias_sum_kernel(const float* part, int tiles, int H, int nm,
+                                int ny, bf16* dbin1, bf16* dbhh_up,
+                                bf16* dbin2, bf16* dbhh_dn, bf16* dblat,
+                                bf16* dbout) {
+  const int PW = 8 * H + nm + ny;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= PW) return;
+  float a = 0.0f;
+  for (int t = 0; t < tiles; ++t) a += part[static_cast<size_t>(t) * PW + i];
+  const bf16 v = __float2bfloat16_rn(a);
+  if (i < 8 * H) {
+    const int sw = i / (4 * H), k = (i % (4 * H)) / H, j = i % H;
+    bf16* dbin = sw == 0 ? dbin1 : dbin2;
+    bf16* dbhh = sw == 0 ? dbhh_up : dbhh_dn;
+    if (k < 3) dbin[k * H + j] = v;      // d_xp = [dar; daz; dan]
+    if (k < 2) dbhh[k * H + j] = v;      // d_hh = [dar; daz; dhn]
+    if (k == 3) dbhh[2 * H + j] = v;
+  } else if (i < 8 * H + nm) {
+    dblat[i - 8 * H] = v;
+  } else {
+    dbout[i - 8 * H - nm] = v;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One weight gradient: the GEMM split into S_job fixed column ranges (at
+// least S; more for a gradient of few output tiles, so that ~4 blocks a
+// SM run, within the work capacity cap = S x the largest gradient), then
+// the fixed-order sum of the partials. S_job depends on the shapes alone.
+int gemm(const GJob& jb, int L, int B, int S, size_t cap, float* work,
+         cudaStream_t st) {
+  if (jb.M == 0 || jb.N == 0) return 0;
+  const bool vec = B % 8 == 0 && aligned16(jb.a) && aligned16(jb.b) &&
+                   (jb.edge == nullptr || aligned16(jb.edge)) &&
+                   jb.a_lvl % 8 == 0 && jb.b_lvl % 8 == 0;
+  const int tiles = ((jb.M + GTM - 1) / GTM) * ((jb.N + GTN - 1) / GTN);
+  const size_t MN = static_cast<size_t>(jb.M) * jb.N;
+  int sj = (4 * 132 + tiles - 1) / tiles;
+  if (sj < S) sj = S;
+  if (static_cast<size_t>(sj) * MN > cap) sj = static_cast<int>(cap / MN);
+  S = sj;
+  wgrad_mma_kernel<<<dim3(tiles, S), GTH, 0, st>>>(jb, L, B, S, vec ? 1 : 0,
+                                                   work);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bigru::sum_parts_kernel<bf16><<<static_cast<int>((MN + 255) / 256), 256, 0,
+                                  st>>>(work, S, static_cast<int>(MN),
+                                        jb.out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gradient outputs, in the weights' padded shapes
+struct Grads {
+  bf16 *dwin1h, *dwin1m, *dbin1, *dwhh_up, *dbhh_up, *dwin2, *dbin2;
+  bf16 *dwhh_dn, *dbhh_dn, *dwlat, *dblat, *dwout, *dbout;
+};
+
+int launch_mma(const BwdParams& p, const Grads& g, float* work, int S,
+               cudaStream_t st) {
+  const int C = p.C, BT = p.BT, H = p.H, nm16 = (p.nm + 15) / 16 * 16;
+  const int KX = p.CHp + p.nmi;
+  if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
+      H % (8 * C) != 0 || p.CHp % 16 != 0 || p.nmi % 16 != 0 ||
+      p.KXc % 8 != 0 || p.KXc * C < KX || H / C / 8 > NW / (BT / 16) * MAXP ||
+      (p.nm + p.ny) * BT > PF * NTH || nm16 * BT > PF * NTH ||
+      H / C / 8 * BT > MAXI * NTH || p.KXc / 8 * BT > MAXI * NTH || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = b3_smem(H, C, p.CHp, p.nmi, p.nm, p.ny, BT, p.KXc);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      b3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (p.B + BT - 1) / BT;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, b3_mma_kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int L = p.L, B = p.B, CHp = p.CHp, nmi = p.nmi, nm = p.nm, ny = p.ny;
+  const size_t sB = B, bundle = 4 * H * sB;
+  const int xp_split = 3 * H, hh_split = 2 * H;
+  const GJob jobs[] = {
+      {p.gates_u, bundle, xp_split, 0, p.x, CHp * sB, 0, nullptr, g.dwin1h,
+       3 * H, CHp},
+      {p.gates_u, bundle, xp_split, 0, p.mem_in, nmi * sB, 0, nullptr,
+       g.dwin1m, 3 * H, nmi},
+      {p.gates_u, bundle, hh_split, H, p.up_h, H * sB, 1, p.h0u, g.dwhh_up,
+       3 * H, H},
+      {p.gates_d, bundle, xp_split, 0, p.up_h, H * sB, 0, nullptr, g.dwin2,
+       3 * H, H},
+      {p.gates_d, bundle, hh_split, H, p.g_h, H * sB, -1, p.h0d, g.dwhh_dn,
+       3 * H, H},
+      {p.dmt, nm * sB, nm, 0, p.g_h, H * sB, 0, nullptr, g.dwlat, nm, H},
+      {p.dom + nm * sB, (nm + ny) * sB, ny, 0, p.meml, nm * sB, 0, nullptr,
+       g.dwout, ny, nm},
+  };
+  size_t cap = 0;        // the work buffer: S x the largest gradient
+  for (const GJob& jb : jobs) {
+    const size_t MN = static_cast<size_t>(jb.M) * jb.N;
+    if (MN * S > cap) cap = MN * S;
+  }
+  for (const GJob& jb : jobs) {
+    const int rc = gemm(jb, L, B, S, cap, work, st);
+    if (rc != 0) return rc;
+  }
+  const int PW = 8 * H + nm + ny;
+  bias_sum_kernel<<<(PW + 255) / 256, 256, 0, st>>>(
+      p.bpart, tiles, H, nm, ny, g.dbin1, g.dbhh_up, g.dbin2, g.dbhh_dn,
+      g.dblat, g.dbout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace b3mma
+
+// The CUDA-core design in bf16 under a second name, kept to time it
+// against the tensor-core design; no wrapper selects it.
+extern "C" int bigru_heads_cm_bwd_cudacore(int nslot, void* const* ptrs,
+                                           int L, int CH, int nm_in, int H,
+                                           int nm, int ny, int B, int S,
+                                           void* stream) {
+  return bigru_heads_cm_bwd(1, nslot, ptrs, L, CH, nm_in, H, nm, ny, B, S,
+                            stream);
+}
+
+// bf16 tensor-core design. ptrs, in order (dims already padded: H to a
+// multiple of 8 C, CH and nm_in to 16; KXc = the rows of [W1h | W1m]^T
+// each CTA owns, a multiple of 8 with C KXc >= CH + nm_in):
+//   x [L, CH, B], mem_in [L, nm_in, B], h0u, h0d [H, B], d_outmem
+//   [L, nm + ny, B], d_lasth [H, B];
+//   wx_up [C][3H/C][CH + nm_in], b1 [3H], wh_up [C][3H/C][H], bh_up, wx_dn
+//   [C][3H/C][H], b2, wh_dn, bh_dn, wlat [nm8][H], blat [nm] (the forward's
+//   gate slices, [out, in]);
+//   whT_dn [C][H/C][3H], w2T [C][H/C][3H], wlT [C][H/C][nm16], wout
+//   [ny, nm], whT_up [C][H/C][3H], w1T [C][KXc][3H] (transposed slices);
+//   dx [L, CH, B], dmem [L, nm_in, B], dh0u, dh0d [H, B];
+//   scratch up_h, g_h [L, H, B], gates_u, gates_d [L, 4H, B], meml,
+//   dmt [L, nm, B] (bf16), dup [L, H, B] f32, bias partials
+//   [tiles, 8H + nm + ny] f32, work [S x the largest weight] f32;
+//   gradients dwin1h [3H, CH], dwin1m [3H, nm_in], dbin1, dwhh_up [3H, H],
+//   dbhh_up, dwin2, dbin2, dwhh_dn, dbhh_dn, dwlat [nm, H], dblat, dwout
+//   [ny, nm], dbout.
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue for
+// shapes outside the design).
+extern "C" int bigru_heads_cm_bwd_mma(int nptr, void* const* q, int L,
+                                      int CH, int nm_in, int H, int nm,
+                                      int ny, int B, int C, int BT, int KXc,
+                                      int S, void* stream) {
+  using bmma::bf16;
+  if (nptr != 48) return static_cast<int>(cudaErrorInvalidValue);
+  const auto c = [&](int i) { return static_cast<const bf16*>(q[i]); };
+  const auto m = [&](int i) { return static_cast<bf16*>(q[i]); };
+  b3mma::BwdParams p{c(0), c(1), c(2), c(3), c(4), c(5),
+                     c(6), c(7), c(8), c(9), c(10), c(11), c(12), c(13),
+                     c(14), c(15), c(16), c(17), c(18), c(19), c(20), c(21),
+                     m(22), m(23), m(24), m(25),
+                     m(26), m(27), m(28), m(29), m(30), m(31),
+                     static_cast<float*>(q[32]), static_cast<float*>(q[33]),
+                     L, CH, nm_in, H, nm, ny, B, C, BT, KXc};
+  b3mma::Grads g{m(35), m(36), m(37), m(38), m(39), m(40), m(41),
+                 m(42), m(43), m(44), m(45), m(46), m(47)};
+  return b3mma::launch_mma(p, g, static_cast<float*>(q[34]), S,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -296,7 +296,11 @@ def _flat(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(-1).contiguous()
 
 
-def _launch(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(args, dims, cudacore_bf16=False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core design of B1: f32 (the wrapper's f32 path), or with
+    ``cudacore_bf16`` its bf16 instantiation, which no wrapper selects
+    (``cudacore_bigru_heads_init_cm``) and which counts no launch."""
     (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
      whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
      bout) = args
@@ -311,19 +315,28 @@ def _launch(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
             _flat(bhh_dn), _kmaj(wlat_t), _flat(blat), _kmaj(wout_t),
             _flat(bout), outmem, lasth, up]
     lib = _build.load("bigru_heads_init_cm")
-    fn = lib.bigru_heads_init_cm
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 22 \
+    head = []
+    if cudacore_bf16:
+        fn = lib.bigru_heads_init_cm_cudacore
+    else:
+        fn = lib.bigru_heads_init_cm
+        head = [0 if dt == torch.float32 else 1]
+    fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 22 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
-            L, nf, nm_in, H, nm, ny, B, stream)
+    rc = fn(*head, *[t.data_ptr() for t in ptrs], L, nf, nm_in, H, nm, ny, B,
+            stream)
     _build.check_status(rc, "bigru_heads_init_cm")
-    fused_bigru_heads_init_cm.launches += 1
+    if not cudacore_bf16:
+        fused_bigru_heads_init_cm.launches += 1
     return outmem, lasth
 
 
-def _launch_bwd(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
+def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
+                ) -> tuple[torch.Tensor, ...]:
+    """The CUDA-core design of B3: f32, or with ``cudacore_bf16`` its bf16
+    instantiation (``cudacore_bigru_heads_cm_bwd``, no launch counted)."""
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
      win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = res
     L, CH, nm_in, H, nm, ny, B = dims
@@ -351,16 +364,313 @@ def _launch_bwd(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
             d_outmem, d_lasth, *outs, *grads, *scratch]
     table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     lib = _build.load("bigru_heads_cm_bwd")
-    fn = lib.bigru_heads_cm_bwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] \
+    head = []
+    if cudacore_bf16:
+        fn = lib.bigru_heads_cm_bwd_cudacore
+    else:
+        fn = lib.bigru_heads_cm_bwd
+        head = [0 if dt == torch.float32 else 1]
+    fn.argtypes = [ctypes.c_int] * (len(head) + 1) + [ctypes.c_void_p] \
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, len(ptrs), table, L, CH,
-            nm_in, H, nm, ny, B, _SPLITS, stream)
+    rc = fn(*head, len(ptrs), table, L, CH, nm_in, H, nm, ny, B, _SPLITS,
+            stream)
     _build.check_status(rc, "bigru_heads_cm_bwd")
-    bigru_heads_cm_bwd.launches += 1
+    if not cudacore_bf16:
+        bigru_heads_cm_bwd.launches += 1
     return tuple(outs) + tuple(grads)
+
+
+# --------------------------------------------------------------------------
+# bf16 tensor-core design of B1 and B3 (csrc/bigru_mma.cuh): the cluster
+# plan, the zero-padding of widths the tiling does not divide, and the
+# packing of weights into the CTAs' slices. The constants mirror the CUDA
+# sources.
+# --------------------------------------------------------------------------
+
+_MMA_NTH, _MMA_MAXP, _MMA_PAD, _MMA_PF, _MMA_MAXI = 384, 2, 8, 8, 2
+_SMEM_MAX = 232448
+# (cluster CTAs C, tile columns BT), in order of preference
+_MMA_CONFIGS = ((4, 64), (4, 32), (8, 64), (8, 32), (8, 16), (4, 16))
+
+
+def _ceil(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def _regions(*sizes) -> int:
+    """Bytes of shared-memory regions (count, item size), each rounded up
+    to 16 bytes (``bmma::Smem``)."""
+    return sum(_ceil(n * b, 16) for n, b in sizes)
+
+
+def _up_bytes(Hc, KX, H, BT, nraw, nf):
+    P = _MMA_PAD
+    return _regions((3 * Hc * (KX + P), 2), (3 * Hc * (H + P), 2),
+                    (2 * BT * (H + P), 2), (2 * BT * (KX + P), 2),
+                    (nraw * BT, 4), (Hc * nf, 4), (Hc if nf else 0, 4))
+
+
+def _dn_bytes(Hc, H, BT, nm8, nhw):
+    P = _MMA_PAD
+    return _regions((3 * Hc * (H + P), 2), (3 * Hc * (H + P), 2),
+                    (2 * BT * (H + P), 2), (2 * BT * (H + P), 2),
+                    (nm8 * (H + P), 2), (BT * nm8, 4), (nhw, 4))
+
+
+def _bwd_bytes(Hc, H, BT, nm, ny, KXc, phase_c):
+    P, nm16 = _MMA_PAD, _ceil(nm, 16)
+    ldt = 3 * H + P
+    rows = max(nm + ny, nm16)
+    return _regions((Hc * ldt, 2), ((KXc if phase_c else Hc) * ldt, 2),
+                    (0 if phase_c else Hc * (nm16 + P), 2),
+                    (BT * (4 * H + P), 2),
+                    (0 if phase_c else BT * (nm16 + P), 2),
+                    (0 if phase_c else rows * BT, 4), (BT // 16 * 4 * Hc, 4))
+
+
+def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
+             nf: int = 0) -> dict:
+    """The tensor-core design's tiling for B1 (``kind`` "b1") or B3
+    ("b3"): the first (C, BT) of ``_MMA_CONFIGS`` whose CTA fits in shared
+    memory and carries its state in one pass, with the padded widths (H
+    to a multiple of 8 C, CH and nm_in to 16; B1's stream is H wide) and
+    KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Raises
+    ``ValueError`` for widths no tiling holds."""
+    nmip = _ceil(nm_in, 16)
+    nw = _MMA_NTH // 32
+    PF, MAXI = _MMA_PF * _MMA_NTH, _MMA_MAXI * _MMA_NTH
+    for C, BT in _MMA_CONFIGS:
+        Hp = _ceil(H, 8 * C)
+        CHp = Hp if kind == "b1" else _ceil(CH, 16)
+        nwm = BT // 16
+        Hc, nwn = Hp // C, nw // nwm
+        KX = CHp + nmip
+        KXc = _ceil(-(-KX // C), 8)
+        if nw % nwm or Hc // 8 > nwn * _MMA_MAXP or Hc // 8 * BT > MAXI:
+            continue
+        if kind == "b1":
+            if (nf + nmip) * BT > PF:
+                continue
+            smem = max(_up_bytes(Hc, KX, Hp, BT, nf, nf),
+                       _dn_bytes(Hc, Hp, BT, _ceil(nm, 8),
+                                 nm + ny * nm + ny))
+        else:
+            if (max(nm + ny, _ceil(nm, 16)) * BT > PF
+                    or KXc // 8 * BT > MAXI):
+                continue
+            smem = max(_up_bytes(Hc, KX, Hp, BT, 0, 0),
+                       _dn_bytes(Hc, Hp, BT, _ceil(nm, 8), nm),
+                       _bwd_bytes(Hc, Hp, BT, nm, ny, KXc, False),
+                       _bwd_bytes(Hc, Hp, BT, nm, ny, KXc, True))
+        if smem <= _SMEM_MAX:
+            return dict(C=C, BT=BT, H=Hp, CH=CHp, nm_in=nmip, KXc=KXc,
+                        smem=smem)
+    raise ValueError(f"{kind}: H {H}, CH {CH}, nm_in {nm_in}, nm {nm}, ny "
+                     f"{ny}: no tiling of the bf16 tensor-core design "
+                     f"fits a CTA's shared memory")
+
+
+def _pad(t: torch.Tensor, shape) -> torch.Tensor:
+    """t zero-padded at the end of each dimension to ``shape`` (t itself
+    when it already has that shape)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _pad_gates(w: torch.Tensor, Hp: int, Kp: int | None = None):
+    """A gate-stacked [3H, K] weight (or [3H, 1] bias) padded to [3Hp, Kp]
+    per gate block."""
+    H3, K = w.shape
+    Kp = K if Kp is None else Kp
+    return _pad(w.reshape(3, H3 // 3, K), (3, Hp, Kp)).reshape(3 * Hp, Kp)
+
+
+def _unpad_gates(w: torch.Tensor, H: int, K: int) -> torch.Tensor:
+    """The real [3H, K] block of a padded gate-stacked tensor."""
+    return w.reshape(3, w.shape[0] // 3, w.shape[1])[:, :H, :K] \
+        .reshape(3 * H, K).contiguous()
+
+
+def pad_res(res, Hp: int, CHp: int, nmip: int) -> tuple:
+    """The v5/backward arguments ``res`` (x, mem_in, h0_up, h0_dn, 13
+    weights) zero-padded to hidden width Hp, stream width CHp and memory
+    width nmip. Padded hidden units stay 0 through both sweeps and their
+    weights and gradients are zero, so the real outputs do not change."""
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = res
+    L, _, B = mem_in.shape
+    return (_pad(x, (L, CHp, x.shape[2])), _pad(mem_in, (L, nmip, B)),
+            _pad(h0_up, (Hp, B)), _pad(h0_dn, (Hp, B)),
+            _pad_gates(win1h_t, Hp, CHp), _pad_gates(win1m_t, Hp, nmip),
+            _pad_gates(bin1, Hp), _pad_gates(whh_up_t, Hp, Hp),
+            _pad_gates(bhh_up, Hp), _pad_gates(win2_t, Hp, Hp),
+            _pad_gates(bin2, Hp), _pad_gates(whh_dn_t, Hp, Hp),
+            _pad_gates(bhh_dn, Hp), _pad(wlat_t, (wlat_t.shape[0], Hp)),
+            blat, wout_t, bout)
+
+
+def pad_init_args(args, Hp: int, nmip: int) -> tuple:
+    """The v6 forward's 19 arguments zero-padded as ``pad_res`` (the
+    initial MLP's rows to Hp; feat keeps its width)."""
+    feat, winit_t, binit = args[0], args[4], args[5]
+    res = pad_res((feat.new_zeros((feat.shape[0], winit_t.shape[0], 0)),)
+                  + tuple(args[1:4]) + tuple(args[6:]), Hp, Hp, nmip)
+    return (feat, *res[1:4], _pad(winit_t, (Hp, winit_t.shape[1])),
+            _pad(binit, (Hp, 1)), *res[4:])
+
+
+def unpad_grads(grads, H: int, CH: int, nm_in: int) -> tuple:
+    """``bigru_heads_cm_bwd``'s 17 outputs computed at padded widths, cut
+    back to the real ones."""
+    (dx, dmem, dh0u, dh0d, dw1h, dw1m, db1, dwhu, dbhu, dw2, db2, dwhd,
+     dbhd, dwl, dbl, dwo, dbo) = grads
+    g = _unpad_gates
+    return (dx[:, :CH].contiguous(), dmem[:, :nm_in].contiguous(),
+            dh0u[:H].contiguous(), dh0d[:H].contiguous(),
+            g(dw1h, H, CH), g(dw1m, H, nm_in), g(db1, H, 1), g(dwhu, H, H),
+            g(dbhu, H, 1), g(dw2, H, H), g(db2, H, 1), g(dwhd, H, H),
+            g(dbhd, H, 1), dwl[:, :H].contiguous(), dbl, dwo, dbo)
+
+
+def pack_rows(w: torch.Tensor, C: int) -> torch.Tensor:
+    """A padded gate-stacked [3Hp, K] weight as C CTA slices [C, 3Hc, K]:
+    slice r holds rows g Hp + r Hc + jj at g Hc + jj (the gate blocks of
+    CTA r's hidden units)."""
+    H3, K = w.shape
+    Hc = H3 // 3 // C
+    return w.reshape(3, C, Hc, K).transpose(0, 1).reshape(C, 3 * Hc, K) \
+        .contiguous()
+
+
+def unpack_rows(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_rows``."""
+    C, H3c, K = p.shape
+    return p.reshape(C, 3, H3c // 3, K).transpose(0, 1).reshape(C * H3c, K)
+
+
+def pack_t(w: torch.Tensor, C: int, rows: int, width: int | None = None
+           ) -> torch.Tensor:
+    """The transpose of an [N, K] weight as C CTA slices [C, rows, width]:
+    slice r holds w^T's rows [r rows, (r + 1) rows) (the inputs whose
+    gradient CTA r computes), K zero-padded to C rows and N to width."""
+    N, K = w.shape
+    width = N if width is None else width
+    return _pad(w.t(), (C * rows, width)).reshape(C, rows, width) \
+        .contiguous()
+
+
+def unpack_t(p: torch.Tensor, N: int, K: int) -> torch.Tensor:
+    """Inverse of ``pack_t``: the [N, K] weight."""
+    return p.reshape(-1, p.shape[2])[:K, :N].t()
+
+
+def _table(ptrs):
+    """A C array of the tensors' device pointers. The packed weights the
+    kernels copy with cp.async are fresh allocations, so 16-byte aligned;
+    the weight-gradient GEMMs check the rest before vector loads."""
+    return (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+
+
+def _launch_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 in bf16 on the tensor-core design."""
+    L, nf, nm_in, H, nm, ny, B = dims
+    pl = mma_plan("b1", H, H, nm_in, nm, ny, nf)
+    C, Hp = pl["C"], pl["H"]
+    (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
+     whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
+     bout) = pad_init_args(args, Hp, pl["nm_in"])
+    dt, dev = feat.dtype, feat.device
+    outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
+    lasth = torch.empty((Hp, B), dtype=dt, device=dev)
+    up = torch.empty((L, Hp, B), dtype=dt, device=dev)   # up-stream scratch
+    wlat8 = _pad(wlat_t, (_ceil(nm, 8), Hp)).contiguous()
+    ptrs = [feat, mem_in, h0_up, h0_dn, winit_t.contiguous(), _flat(binit),
+            pack_rows(torch.cat([win1h_t, win1m_t], 1), C), _flat(bin1),
+            pack_rows(whh_up_t, C), _flat(bhh_up), pack_rows(win2_t, C),
+            _flat(bin2), pack_rows(whh_dn_t, C), _flat(bhh_dn), wlat8,
+            _flat(blat), wout_t.contiguous(), _flat(bout), outmem, lasth, up]
+    fn = _build.load("bigru_heads_init_cm").bigru_heads_init_cm_mma
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_table(ptrs), L, nf, pl["nm_in"], Hp, nm, ny, B, C, pl["BT"],
+            stream)
+    _build.check_status(rc, "bigru_heads_init_cm_mma")
+    fused_bigru_heads_init_cm.launches += 1
+    return outmem, (lasth if Hp == H else lasth[:H].contiguous())
+
+
+def _launch_bwd_mma(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
+    """B3 in bf16 on the tensor-core design."""
+    L, CH, nm_in, H, nm, ny, B = dims
+    pl = mma_plan("b3", H, CH, nm_in, nm, ny)
+    C, BT, Hp, CHp, nmip, KXc = (pl[k] for k in
+                                 ("C", "BT", "H", "CH", "nm_in", "KXc"))
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
+     bout) = pad_res(res, Hp, CHp, nmip)
+    dt, dev = x.dtype, x.device
+    new = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    f32 = torch.float32
+    tiles = -(-B // BT)
+    w1 = torch.cat([win1h_t, win1m_t], 1)
+    weights = [pack_rows(w1, C), _flat(bin1), pack_rows(whh_up_t, C),
+               _flat(bhh_up), pack_rows(win2_t, C), _flat(bin2),
+               pack_rows(whh_dn_t, C), _flat(bhh_dn),
+               _pad(wlat_t, (_ceil(nm, 8), Hp)).contiguous(), _flat(blat),
+               pack_t(whh_dn_t, C, Hp // C), pack_t(win2_t, C, Hp // C),
+               pack_t(wlat_t, C, Hp // C, _ceil(nm, 16)),
+               wout_t.contiguous(), pack_t(whh_up_t, C, Hp // C),
+               pack_t(w1, C, KXc)]
+    outs = [new(L, CHp, B), new(L, nmip, B), new(Hp, B), new(Hp, B)]
+    # scratch the TPU kernel kept in VMEM: h and the gates of both sweeps
+    # (the gates overwritten in place by the rounded gradient bundles the
+    # weight gradients read), the latent head and dt(dmem_tot) (bf16);
+    # d_up (f32); the tiles' bias partials and the weight-gradient GEMMs'
+    # per-split partials of the largest weight (f32)
+    largest = max(3 * Hp * max(CHp, Hp, nmip), nm * Hp, ny * nm)
+    scratch = [new(L, Hp, B), new(L, Hp, B), new(L, 4 * Hp, B),
+               new(L, 4 * Hp, B), new(L, nm, B), new(L, nm, B),
+               new(L, Hp, B, dtype=f32),
+               new(tiles, 8 * Hp + nm + ny, dtype=f32),
+               new(_SPLITS * largest, dtype=f32)]
+    grads = [new(3 * Hp, CHp), new(3 * Hp, nmip), new(3 * Hp),
+             new(3 * Hp, Hp), new(3 * Hp), new(3 * Hp, Hp), new(3 * Hp),
+             new(3 * Hp, Hp), new(3 * Hp), new(nm, Hp), new(nm), new(ny, nm),
+             new(ny)]
+    # the pointer order of csrc/bigru_heads_cm_bwd.cu's bigru_heads_cm_bwd_mma
+    ptrs = [x, mem_in, h0_up, h0_dn, d_outmem, _pad(d_lasth, (Hp, B)),
+            *weights, *outs, *scratch, *grads]
+    fn = _build.load("bigru_heads_cm_bwd").bigru_heads_cm_bwd_mma
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(len(ptrs), _table(ptrs), L, CHp, nmip, Hp, nm, ny, B, C, BT, KXc,
+            _SPLITS, stream)
+    _build.check_status(rc, "bigru_heads_cm_bwd_mma")
+    bigru_heads_cm_bwd.launches += 1
+    grads = [g if g.dim() == 2 else g[:, None] for g in grads]
+    return unpad_grads(outs + grads, H, CH, nm_in)
+
+
+def cudacore_bigru_heads_init_cm(*args) -> tuple[torch.Tensor, ...]:
+    """B1's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch(args, _validate(args), cudacore_bf16=True)
+
+
+def cudacore_bigru_heads_cm_bwd(res, d_outmem, d_lasth
+                                ) -> tuple[torch.Tensor, ...]:
+    """B3's CUDA-core design in bf16, as ``cudacore_bigru_heads_init_cm``."""
+    return _launch_bwd(res, d_outmem, d_lasth,
+                       _validate_cm(res, (d_outmem, d_lasth)),
+                       cudacore_bf16=True)
 
 
 def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
@@ -377,6 +687,8 @@ def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
         return bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if res[0].dtype == torch.bfloat16:
+        return _launch_bwd_mma(res, d_outmem, d_lasth, dims)
     return _launch_bwd(res, d_outmem, d_lasth, dims)
 
 
@@ -394,6 +706,8 @@ class _FusedHeadsInitCM(torch.autograd.Function):
             return bigru_heads_init_cm_reference(*args)
         if args[0].device.type != "cuda":
             raise ValueError(f"no kernel for device {args[0].device}")
+        if args[0].dtype == torch.bfloat16:
+            return _launch_mma(args, dims)
         return _launch(args, dims)
 
     @staticmethod

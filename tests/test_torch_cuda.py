@@ -29,8 +29,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _b1_inputs(L, H, B, dtype, device, seed=3):
-    nf, nm_in, nm, ny = 6, 8, 8, 6
+def _b1_inputs(L, H, B, dtype, device, seed=3, nm_in=8):
+    nf, nm, ny = 6, 8, 6
     rng = np.random.default_rng(seed)
     shapes = [(L, nf, B), (L, nm_in, B), (H, B), (H, B),
               (H, nf), (H, 1), (3 * H, H), (3 * H, nm_in), (3 * H, 1),
@@ -40,12 +40,20 @@ def _b1_inputs(L, H, B, dtype, device, seed=3):
                             device=device) for s in shapes]
 
 
+# (H, nm_in): the tensor-core tiling's widths, and widths it pads (H 20
+# to 32, nm_in 5 to 16)
+WIDTHS = [(16, 8), (20, 5)]
+# B = 1, below one 64-column tile, ragged against it, and two tiles
+EDGES = [1, 40, 150, 144]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [16, 144])
-def test_b1_kernel_matches_plain_f32(cuda, B):
+@pytest.mark.parametrize("H,nm_in", WIDTHS)
+@pytest.mark.parametrize("B", [16] + EDGES)
+def test_b1_kernel_matches_plain_f32(cuda, B, H, nm_in):
     """f32, ragged B: summation order only (tolerance as the CPU parity
     tests of the plain version against JAX)."""
-    a = _b1_inputs(20, 16, B, torch.float32, cuda)
+    a = _b1_inputs(20, H, B, torch.float32, cuda, nm_in=nm_in)
     before = fused_bigru_heads_init_cm.launches
     with torch.no_grad():
         om, lh = fused_bigru_heads_init_cm(*a)
@@ -56,10 +64,13 @@ def test_b1_kernel_matches_plain_f32(cuda, B):
 
 
 @pytest.mark.cuda
-def test_b1_kernel_matches_plain_bf16(cuda):
-    """bf16: both round at the same points; a one-ulp flip of an output
-    of order 1 is 7.8e-3, so atol 2e-2 allows two."""
-    a = _b1_inputs(20, 16, 144, torch.bfloat16, cuda)
+@pytest.mark.parametrize("H,nm_in", WIDTHS)
+@pytest.mark.parametrize("B", EDGES)
+def test_b1_kernel_matches_plain_bf16(cuda, B, H, nm_in):
+    """bf16 (the tensor-core design, at the edges of its tiling): both
+    round at the same points; a one-ulp flip of an output of order 1 is
+    7.8e-3, so atol 2e-2 allows two."""
+    a = _b1_inputs(20, H, B, torch.bfloat16, cuda, nm_in=nm_in)
     with torch.no_grad():
         om, lh = fused_bigru_heads_init_cm(*a)
         ref_om, ref_lh = bigru_heads_init_cm_reference(*a)
@@ -67,12 +78,13 @@ def test_b1_kernel_matches_plain_bf16(cuda):
     torch.testing.assert_close(lh.float(), ref_lh.float(), rtol=0, atol=2e-2)
 
 
-def _b3_inputs(L, H, B, dtype, device, seed=4):
-    """Residuals of the backward (x a tanh stream [L, H, B]) and the
-    cotangents of (outmem, lasth)."""
-    nm_in, nm, ny = 8, 8, 6
+def _b3_inputs(L, H, B, dtype, device, seed=4, nm_in=8, CH=None):
+    """Residuals of the backward (x a tanh stream [L, CH, B], CH = H by
+    default) and the cotangents of (outmem, lasth)."""
+    nm, ny = 8, 6
+    CH = H if CH is None else CH
     rng = np.random.default_rng(seed)
-    shapes = [(L, H, B), (L, nm_in, B), (H, B), (H, B), (3 * H, H),
+    shapes = [(L, CH, B), (L, nm_in, B), (H, B), (H, B), (3 * H, CH),
               (3 * H, nm_in), (3 * H, 1), (3 * H, H), (3 * H, 1),
               (3 * H, H), (3 * H, 1), (3 * H, H), (3 * H, 1), (nm, H),
               (nm, 1), (ny, nm), (ny, 1), (L, nm + ny, B), (H, B)]
@@ -89,13 +101,19 @@ def _rel_err(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+# (H, nm_in, CH): B3's widths, and widths the tensor-core tiling pads
+B3_WIDTHS = [(16, 8, 16), (20, 5, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [16, 150])
-def test_b3_kernel_matches_plain_f32(cuda, B):
+@pytest.mark.parametrize("H,nm_in,CH", B3_WIDTHS)
+@pytest.mark.parametrize("B", [16] + EDGES)
+def test_b3_kernel_matches_plain_f32(cuda, B, H, nm_in, CH):
     """f32, ragged B (150 is not a multiple of the 32-column tile): every
     one of the 17 outputs to 1e-4 of its largest magnitude (summation
     order over 2 x 20 recurrent levels and the L x B gradient sums)."""
-    res, dom, dlh = _b3_inputs(20, 16, B, torch.float32, cuda)
+    res, dom, dlh = _b3_inputs(20, H, B, torch.float32, cuda, nm_in=nm_in,
+                               CH=CH)
     before = bigru_heads_cm_bwd.launches
     got = bigru_heads_cm_bwd(res, dom, dlh)
     want = bigru_heads_cm_bwd_reference(res, dom, dlh)
@@ -106,11 +124,15 @@ def test_b3_kernel_matches_plain_f32(cuda, B):
 
 
 @pytest.mark.cuda
-def test_b3_kernel_matches_plain_bf16(cuda):
-    """bf16: kernel and plain version store h, the gates and the outputs in
-    bf16 at the same points; each output may differ from the plain
-    version by 4x the plain version's own bf16-vs-f32 error."""
-    res, dom, dlh = _b3_inputs(20, 16, 150, torch.bfloat16, cuda)
+@pytest.mark.parametrize("H,nm_in,CH", B3_WIDTHS)
+@pytest.mark.parametrize("B", EDGES)
+def test_b3_kernel_matches_plain_bf16(cuda, B, H, nm_in, CH):
+    """bf16 (the tensor-core design, at the edges of its tiling): kernel
+    and plain version store h, the gates and the outputs in bf16 at the
+    same points; each output may differ from the plain version by 4x the
+    plain version's own bf16-vs-f32 error."""
+    res, dom, dlh = _b3_inputs(20, H, B, torch.bfloat16, cuda, nm_in=nm_in,
+                               CH=CH)
     got = bigru_heads_cm_bwd(res, dom, dlh)
     want = bigru_heads_cm_bwd_reference(res, dom, dlh)
     want32 = bigru_heads_cm_bwd_reference([a.float() for a in res],
@@ -120,6 +142,51 @@ def test_b3_kernel_matches_plain_bf16(cuda):
         own = (w.float() - w32).abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= 4 * own + 1e-3 * w32.abs().max().item(), (i, err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,nm_in,CH", B3_WIDTHS)
+def test_b3_bf16_is_deterministic(cuda, H, nm_in, CH):
+    """Two bf16 B3 calls on the same inputs are bit-identical: no gradient
+    sum uses atomics (fixed split-K partials and fixed tile order)."""
+    res, dom, dlh = _b3_inputs(20, H, 150, torch.bfloat16, cuda,
+                               nm_in=nm_in, CH=CH)
+    first = bigru_heads_cm_bwd(res, dom, dlh)
+    second = bigru_heads_cm_bwd(res, dom, dlh)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cudacore_designs_match_tensor_core_bf16(cuda):
+    """The CUDA-core bf16 designs that chip_smoke.py times against the
+    tensor-core ones agree with them to the bf16 tolerance: 4x the plain
+    version's own bf16-vs-f32 error (plus 1e-3 of the scale, as B3's
+    check)."""
+    from climsim_tpu_torch.ops.pallas_rnn import (
+        cudacore_bigru_heads_cm_bwd, cudacore_bigru_heads_init_cm)
+    a = _b1_inputs(20, 16, 150, torch.bfloat16, cuda)
+    res, dom, dlh = _b3_inputs(20, 16, 150, torch.bfloat16, cuda)
+    b1, b3 = fused_bigru_heads_init_cm.launches, bigru_heads_cm_bwd.launches
+    with torch.no_grad():
+        pairs = [(cudacore_bigru_heads_init_cm(*a),
+                  fused_bigru_heads_init_cm(*a),
+                  bigru_heads_init_cm_reference(*a),
+                  bigru_heads_init_cm_reference(*(t.float() for t in a)))]
+    pairs.append((cudacore_bigru_heads_cm_bwd(res, dom, dlh),
+                  bigru_heads_cm_bwd(res, dom, dlh),
+                  bigru_heads_cm_bwd_reference(res, dom, dlh),
+                  bigru_heads_cm_bwd_reference(
+                      [t.float() for t in res], dom.float(), dlh.float())))
+    # only the wrappers count: the CUDA-core twins launch uncounted
+    assert (fused_bigru_heads_init_cm.launches,
+            bigru_heads_cm_bwd.launches) == (b1 + 1, b3 + 1)
+    for old, new, w, w32 in pairs:
+        for i, (o, n, p, p32) in enumerate(zip(old, new, w, w32)):
+            own = (p.float() - p32.float()).abs().max().item()
+            err = (o.float() - n.float()).abs().max().item()
+            assert err <= 4 * own + 1e-3 * p32.float().abs().max().item(), \
+                (i, err, own)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,205 @@
+"""The Python around the bf16 tensor-core design of B1 and B3 on the CPU:
+the tiling plan, the zero-padding of widths the tiling does not divide,
+and the packing of weights into the cluster CTAs' slices, held against
+the plain versions and against the JAX package's Pallas kernels in
+interpret mode."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from climsim_tpu.ops.pallas_rnn import (_bigru_heads_cm_bwd_pallas,
+                                        _bigru_heads_init_cm_pallas)
+from climsim_tpu_torch.ops.pallas_rnn import (_mm, _tmm,
+                                              bigru_heads_cm_bwd_reference,
+                                              bigru_heads_init_cm_reference,
+                                              mma_plan, pack_rows, pack_t,
+                                              pad_init_args, pad_res,
+                                              unpack_rows, unpack_t,
+                                              unpad_grads)
+
+# widths the tiling does not divide: H 20 -> 32, CH 12 -> 16, nm_in 5 -> 16
+L, NF, NM_IN, H, CH, NM, NY = 12, 6, 5, 20, 12, 8, 6
+C = 4
+HP, CHP, NMIP = 32, 16, 16
+
+
+def _fwd_inputs(B, seed=3):
+    rng = np.random.default_rng(seed)
+    shapes = [(L, NF, B), (L, NM_IN, B), (H, B), (H, B), (H, NF), (H, 1),
+              (3 * H, H), (3 * H, NM_IN), (3 * H, 1), (3 * H, H),
+              (3 * H, 1), (3 * H, H), (3 * H, 1), (3 * H, H), (3 * H, 1),
+              (NM, H), (NM, 1), (NY, NM), (NY, 1)]
+    return [(0.25 * rng.standard_normal(s)).astype(np.float32)
+            for s in shapes]
+
+
+def _bwd_inputs(B, seed=9):
+    """Residuals with a stream of CH rows (the v5 layer's layout), and the
+    cotangents of (outmem, lasth)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(L, CH, B), (L, NM_IN, B), (H, B), (H, B), (3 * H, CH),
+              (3 * H, NM_IN), (3 * H, 1), (3 * H, H), (3 * H, 1),
+              (3 * H, H), (3 * H, 1), (3 * H, H), (3 * H, 1), (NM, H),
+              (NM, 1), (NY, NM), (NY, 1)]
+    res = [(0.25 * rng.standard_normal(s)).astype(np.float32)
+           for s in shapes]
+    res[0] = np.tanh(4 * res[0])
+    d_outmem = rng.standard_normal((L, NM + NY, B)).astype(np.float32)
+    d_lasth = rng.standard_normal((H, B)).astype(np.float32)
+    return res, d_outmem, d_lasth
+
+
+def _t(arrays, dtype=torch.float32):
+    return [torch.as_tensor(a).to(dtype) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a, jnp.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("kind", ["b1", "b3"])
+def test_plan_at_flagship_shapes(kind):
+    """The flagship (H 192, stream 192, memory 16, heads 16 + 6) takes
+    the design's first choice, clusters of 4 CTAs over 64-column tiles,
+    inside the 227 KB a CTA may use, and needs no padding."""
+    p = mma_plan(kind, 192, 192, 16, 16, 6, nf=6)
+    assert (p["C"], p["BT"], p["H"], p["CH"], p["nm_in"]) == \
+        (4, 64, 192, 192, 16)
+    assert p["KXc"] == 56 and p["smem"] <= 232448
+
+
+def test_plan_pads_small_widths():
+    p = mma_plan("b3", H, CH, NM_IN, NM, NY)
+    assert (p["C"], p["H"], p["CH"], p["nm_in"]) == (C, HP, CHP, NMIP)
+    assert p["KXc"] % 8 == 0 and p["KXc"] * p["C"] >= CHP + NMIP
+
+
+def test_plan_refuses_what_no_tiling_holds():
+    """H 384 leaves no (C, BT) whose weight slices fit a CTA: the wrapper
+    raises rather than run another design."""
+    with pytest.raises(ValueError, match="no tiling"):
+        mma_plan("b1", 384, 384, 16, 16, 6, nf=6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padding_leaves_forward_unchanged(dtype):
+    """The v6 plain version on the padded arguments gives the same outmem
+    and the same real rows of lasth, and zero padded rows: padded hidden
+    units start at 0 with zero weights, so r = z = 1/2, n = 0 and h stays
+    0. Exact in f32 up to summation order over the added zero terms
+    (tolerance 1e-6); in bf16 the same values are rounded at the same
+    points (tolerance 0)."""
+    a = _t(_fwd_inputs(24), dtype)
+    om, lh = bigru_heads_init_cm_reference(*a)
+    omp, lhp = bigru_heads_init_cm_reference(*pad_init_args(a, HP, NMIP))
+    tol = 1e-6 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(omp, om, rtol=tol, atol=tol)
+    torch.testing.assert_close(lhp[:H], lh, rtol=tol, atol=tol)
+    assert torch.count_nonzero(lhp[H:]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padding_leaves_gradients_unchanged(dtype):
+    """All 17 outputs of the backward's plain version on padded residuals,
+    cut back to the real widths, equal those on the real ones (f32 to
+    1e-6 of each output's scale: summation order over added zeros; bf16
+    to one bf16 ulp of each output's scale, 2**-8, where a sum over added
+    zeros lands on the other side of a rounding), and every padded
+    gradient row and column is exactly zero."""
+    res, dom, dlh = _bwd_inputs(24)
+    res, dom, dlh = _t(res, dtype), *_t([dom, dlh], dtype)
+    want = bigru_heads_cm_bwd_reference(res, dom, dlh)
+    padded = bigru_heads_cm_bwd_reference(
+        pad_res(res, HP, CHP, NMIP), dom,
+        torch.nn.functional.pad(dlh, (0, 0, 0, HP - H)))
+    got = unpad_grads(padded, H, CH, NM_IN)
+    rel = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= rel * scale
+    dx, dmem, dh0u, dh0d = padded[:4]
+    assert torch.count_nonzero(dx[:, CH:]) == 0
+    assert torch.count_nonzero(dmem[:, NM_IN:]) == 0
+    assert torch.count_nonzero(dh0u[H:]) == 0
+    assert torch.count_nonzero(dh0d[H:]) == 0
+    # gate-stacked gradients: padded rows of each gate block, padded columns
+    for gp, k in zip(padded[4:13], (CH, NM_IN, 1, H, 1, H, 1, H, 1)):
+        blocks = gp.reshape(3, HP, gp.shape[1])
+        assert torch.count_nonzero(blocks[:, H:]) == 0
+        assert torch.count_nonzero(blocks[:, :, k:]) == 0
+    assert torch.count_nonzero(padded[13][:, H:]) == 0      # dwlat
+
+
+@pytest.mark.parametrize("K", [HP, CHP + NMIP])
+def test_pack_rows_round_trip_and_product(K):
+    """pack_rows puts CTA r's gate rows g Hp + r Hc + jj at [r][g Hc + jj];
+    unpacking gives the weight back, and the per-CTA products reassembled
+    by gate equal _mm on the whole weight (exactly: the same dot
+    products)."""
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor(rng.standard_normal((3 * HP, K)), dtype=torch.float32)
+    x = torch.as_tensor(rng.standard_normal((K, 7)), dtype=torch.float32)
+    p = pack_rows(w, C)
+    Hc = HP // C
+    assert p.shape == (C, 3 * Hc, K) and p.is_contiguous()
+    assert torch.equal(unpack_rows(p), w)
+    out = torch.empty(3 * HP, 7)
+    for r in range(C):
+        y = _mm(p[r], x)
+        for g in range(3):
+            out[g * HP + r * Hc:g * HP + (r + 1) * Hc] = y[g * Hc:(g + 1) * Hc]
+    torch.testing.assert_close(out, _mm(w, x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,K,rows,width", [
+    (3 * HP, HP, HP // C, 3 * HP),          # Whh^T, W2^T slices
+    (3 * HP, CHP + NMIP, 8, 3 * HP),        # [W1h | W1m]^T, 8 rows a CTA
+    (NM, HP, HP // C, 16)])                 # Wlat^T, nm padded to 16
+def test_pack_t_round_trip_and_product(N, K, rows, width):
+    """pack_t slices w^T by input rows (CTA r computes the gradient of
+    inputs [r rows, (r + 1) rows)); unpacking gives the weight back and
+    the stacked per-CTA products equal _tmm (exact: the same sums)."""
+    rng = np.random.default_rng(2)
+    w = torch.as_tensor(rng.standard_normal((N, K)), dtype=torch.float32)
+    d = torch.as_tensor(rng.standard_normal((N, 5)), dtype=torch.float32)
+    p = pack_t(w, C, rows, width)
+    assert p.shape == (C, rows, width) and p.is_contiguous()
+    assert torch.equal(unpack_t(p, N, K), w)
+    dp = torch.nn.functional.pad(d, (0, 0, 0, width - N))
+    out = torch.cat([_mm(p[r], dp) for r in range(C)])[:K]
+    torch.testing.assert_close(out, _tmm(w, d), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B", [16, 20])
+def test_padded_plain_forward_matches_pallas_interpret(B):
+    """The v6 plain version at the padded widths, cut back, against the
+    JAX Pallas kernel (interpret mode, explicit float32) on the real
+    widths; tolerance as tests/test_torch_ops_rnn.py's f32 case."""
+    a = _fwd_inputs(B)
+    om, lh = bigru_heads_init_cm_reference(
+        *pad_init_args(_t(a), HP, NMIP))
+    jom, jlh = _bigru_heads_init_cm_pallas(*_j(a), None, True, True)
+    np.testing.assert_allclose(om.numpy(), np.asarray(jom), rtol=2e-5,
+                               atol=2e-6)
+    np.testing.assert_allclose(lh[:H].numpy(), np.asarray(jlh), rtol=2e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("B", [16, 20])
+def test_padded_plain_backward_matches_pallas_interpret(B):
+    """The backward's plain version at the padded widths, cut back, against
+    the JAX Pallas backward (interpret mode, explicit float32) on the real
+    widths; tolerance as tests/test_torch_ops_rnn_bwd.py's (the JAX
+    suite's for its backward kernels)."""
+    res, dom, dlh = _bwd_inputs(B)
+    padded = bigru_heads_cm_bwd_reference(
+        pad_res(_t(res), HP, CHP, NMIP), *_t([dom, np.pad(
+            dlh, ((0, HP - H), (0, 0)))]))
+    got = unpad_grads(padded, H, CH, NM_IN)
+    want = _bigru_heads_cm_bwd_pallas(_j(res), *_j([dom, dlh]),
+                                      interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-4,
+                                   atol=2e-5)
