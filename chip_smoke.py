@@ -47,15 +47,16 @@ Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
      per source, all started together), print each kernel's registers and
      spills, and count the tensor-core instructions (HMMA/HGMMA) of the
-     bf16 designs of B1 and B3 in their SASS (cuobjdump): each must have
-     some;
+     bf16 designs of B1, B3, B8 and B10 in their SASS (cuobjdump): each
+     must have some;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
      and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
      then B4 (f32 and bf16, projections hoisted and not, at 21,600 and
      1,000 columns), B5 (6, 60, 120, 180), B6 (60, 120, 180), B7 at
-     the flagship's H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
-     21,600 and 1,000 columns);
+     the flagship's H 192 (f32 and bf16), B8 at the v4 arm's L 60, H 192
+     (f32 and bf16), B9 and B10 (f32 and bf16 at 21,600 and 1,000
+     columns);
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
      no other kernel; then the same for each other serving arm, whose
@@ -70,7 +71,13 @@ Phases (any failure exits non-zero):
      before and read just after: per update B1 2W and B3 W times (v6), B10
      2W and B7 and B8 W times (v4), no kernel (scan); finite loss and
      memory, parameters changed; then one update of each at 384 columns on
-     the card and on the CPU, compared;
+     the card and on the CPU, compared (v4's also on the card through the
+     CUDA-core designs of B10 and B8, a witness of the rounding noise in
+     its parameter steps); then the flagship at nneur (512,
+     512), past the resident-weight design's width: B1 and B3 (weights
+     streamed) against their plain versions at 1,000 columns and timed, 3
+     coupled steps and one training update at 384 columns with their
+     launches counted;
   7. the physics evaluation window at 21,600 columns with each trunk,
      every physics counter set to 0 just before and read just after: B11
      and B12 (and with the fused trunk B7) must launch W times each and no
@@ -93,19 +100,23 @@ Phases (any failure exits non-zero):
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share, the three training arms,
-     both physics trunks, B4, B5, B6, B7 at H 192, B8 at H 192 (bf16,
-     the v4 arm's shapes), B9 and B10; B1 and B3 in bf16 as the
-     tensor-core design against the CUDA-core design (f32's, instantiated
-     in bf16 under a second C symbol that no wrapper selects), timed in
-     turns (old, new, new, old), each with every device kernel of one call
-     by name beside the call's CUDA-event time, and B1 and B3 in f32;
- 10. a JSON line of the kernels, the card line, and the result line.
+     both physics trunks, B4, B5, B6, B7 at H 192, B9; B1, B3, B8 (at
+     the v4 arm's shapes) and B10 in bf16 as the tensor-core design
+     against the CUDA-core design (f32's, instantiated in bf16 under a
+     second C symbol or called with the bf16 type by a function that no
+     wrapper selects), timed in turns (old, new, new, old), each with
+     every device kernel of one call by name beside the call's CUDA-event
+     time, and B1 and B3 in f32;
+ 10. a JSON line of the kernels (B8's entry: the bf16 tensor-core design
+     at the v4 arm's shapes, with the f32 design at the physics trunk's
+     under "f32"), the card line, and the result line.
 The end of each phase prints the wall time since the start.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -212,9 +223,12 @@ def phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
 
 
-# the bf16 designs that must run their products on tensor cores
-MMA_KERNELS = {"bigru_heads_init_cm": ("b1_mma_kernel",),
-               "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel")}
+# the bf16 designs that must run their products on tensor cores: B1 and
+# B10 (one kernel body, bigru_mma_fwd.cuh), B3 and B8 (bigru_mma_bwd.cuh)
+MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernel",),
+               "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel"),
+               "bigru_lbh_bwd": ("b8_mma_kernel", "wgrad_mma_kernel"),
+               "bigru_heads_lbh": ("mma_fwd_kernel",)}
 
 
 def check_tensor_core_sass(card):
@@ -300,12 +314,12 @@ class ProxyGrid:
         return torch.full((ps.shape[0], self.nlev), 1e3, device=ps.device)
 
 
-def make_model(policy, device, seed=0, arm="v6"):
+def make_model(policy, device, seed=0, arm="v6", H=192):
     """bench.py's emulator (nx 6, nneur 192/192, nh_mem 16) with the
-    arm's flags."""
+    arm's flags (or another hidden width H)."""
     from climsim_tpu_torch.models import RNNAutoreg
     flags = {"use_pallas": True, **ARMS[arm][0]}
-    return RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(192, 192),
+    return RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(H, H),
                       nh_mem=16, add_pres=False, policy=policy,
                       device=device, seed=seed, **flags)
 
@@ -884,6 +898,24 @@ def make_trainer(model, device):
                                     else None), device=device)
 
 
+@contextlib.contextmanager
+def cudacore_twins():
+    """Inside, bf16 B10 and B8 run their CUDA-core designs (the twins no
+    wrapper selects) in place of the tensor-core ones: a second card
+    version of the v4 update that shares no code with the designs under
+    test."""
+    from climsim_tpu_torch.ops import pallas_rnn as pr
+    saved = pr._launch_heads_init_lbh_mma, pr._launch_bwd_lbh_mma
+    pr._launch_heads_init_lbh_mma = lambda args, dims: pr._launch_heads_lbh(
+        args, dims, True, cudacore_bf16=True)
+    pr._launch_bwd_lbh_mma = lambda res, dd, dl, dims: pr._launch_bwd_lbh(
+        res, dd, dl, dims, cudacore_bf16=True)
+    try:
+        yield
+    finally:
+        pr._launch_heads_init_lbh_mma, pr._launch_bwd_lbh_mma = saved
+
+
 def compare_train_384(card, arm="v6"):
     """One update (W 4) of the arm's model at 384 columns on the card and
     on the CPU from the same seeded model and data. f32: loss to 1e-5,
@@ -893,27 +925,40 @@ def compare_train_384(card, arm="v6"):
     gradient near zero by lr/eps (the tests hold the CPU update to the JAX
     one to the same 2%). bf16:
     loss, memory, gradients and each parameter's change to 4x the CPU's
-    own bf16-vs-f32 difference, as check_b3."""
+    own bf16-vs-f32 difference, as check_b3; v4's parameter changes as
+    v4_steps holds them."""
     from climsim_tpu_torch.models import BF16, F32
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh,
+                                       fused_bigru_heads_init_lbh)
+    runs = [("f32", F32, "cuda"), ("f32", F32, "cpu"),
+            ("bf16", BF16, "cuda"), ("bf16", BF16, "cpu")]
+    if arm == "v4":
+        runs.append(("bf16", BF16, "twin"))
     out = {}
-    for name, policy in (("f32", F32), ("bf16", BF16)):
-        for dev in ("cuda", "cpu"):
-            model = make_model(policy, dev, arm=arm)
-            p0 = {n: p.detach().float().cpu().clone()
-                  for n, p in model.named_parameters()}
-            tr = make_trainer(model, dev)
-            with torch.enable_grad():
-                mem, rec = tr.run_epoch(
-                    None, [train_chunk(W_TRAIN, LO_NLAT * LO_NLON, dev, 4)], 0)
-            check(rec["updates"] == 1 and np.isfinite(rec["loss"]),
-                  f"{arm} 384 update {name} {dev}: {rec}")
-            prm = {n: p.detach().float().cpu()
-                   for n, p in model.named_parameters()}
-            out[name, dev] = {
-                "loss": torch.tensor([rec["loss"]]), "mem": mem.float().cpu(),
-                "params": prm, "steps": {n: prm[n] - p0[n] for n in prm},
-                "grads": {n: p.grad.float().cpu()
-                          for n, p in model.named_parameters()}}
+    for name, policy, key in runs:
+        dev = "cpu" if key == "cpu" else "cuda"
+        model = make_model(policy, dev, arm=arm)
+        p0 = {n: p.detach().float().cpu().clone()
+              for n, p in model.named_parameters()}
+        tr = make_trainer(model, dev)
+        fused_bigru_heads_init_lbh.launches = bigru_bwd_lbh.launches = 0
+        with torch.enable_grad(), (cudacore_twins() if key == "twin"
+                                   else contextlib.nullcontext()):
+            mem, rec = tr.run_epoch(
+                None, [train_chunk(W_TRAIN, LO_NLAT * LO_NLON, dev, 4)], 0)
+        check(rec["updates"] == 1 and np.isfinite(rec["loss"]),
+              f"{arm} 384 update {name} {key}: {rec}")
+        if key == "twin":
+            check(fused_bigru_heads_init_lbh.launches == 0
+                  and bigru_bwd_lbh.launches == 0,
+                  "the twins' update launched a tensor-core design")
+        prm = {n: p.detach().float().cpu()
+               for n, p in model.named_parameters()}
+        out[name, key] = {
+            "loss": torch.tensor([rec["loss"]]), "mem": mem.float().cpu(),
+            "params": prm, "steps": {n: prm[n] - p0[n] for n in prm},
+            "grads": {n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()}}
     c, p = out["f32", "cuda"], out["f32", "cpu"]
     check(rel_err(c["loss"], p["loss"]) <= 1e-5,
           f"{arm} 384 update f32 loss {c['loss']} vs {p['loss']}")
@@ -931,21 +976,112 @@ def compare_train_384(card, arm="v6"):
           f"2e-2 lr) [{card}]")
     ratio = 0.0
     c16, p16, p32 = out["bf16", "cuda"], out["bf16", "cpu"], out["f32", "cpu"]
+    twin = out.get(("bf16", "twin"))
     for key in ("loss", "mem", "steps", "grads"):
+        if key == "steps" and twin is not None:
+            ratio = max(ratio, v4_steps(c16, twin, p16, p32, card))
+            continue
         if isinstance(p32[key], dict):
-            pairs = [(c16[key][n], p16[key][n], p32[key][n])
+            pairs = [(c16[key][n], p16[key][n], p32[key][n], n)
                      for n in p32[key]]
         else:
-            pairs = [(c16[key], p16[key], p32[key])]
-        for g, w, w32 in pairs:
+            pairs = [(c16[key], p16[key], p32[key], None)]
+        for g, w, w32, n in pairs:
             ok, err, own = bf16_ok(g, w, w32)
-            check(ok, f"{arm} 384 update bf16 {key}: {err:.3e} > 4 x "
+            check(ok, f"{arm} 384 update bf16 {key}"
+                  f"{'' if n is None else ' ' + n}: {err:.3e} > 4 x "
                   f"{own:.3e}")
             ratio = max(ratio, err / max(own, 1e-30))
     print(f"{arm}, 384 columns, one update, bf16: card vs CPU difference "
           f"up to "
           f"{ratio:.3f} x the CPU's own bf16-vs-f32 difference over loss, "
           f"memory, parameter steps and gradients (tolerance 4x) [{card}]")
+
+
+def v4_steps(c16, twin, p16, p32, card):
+    """The v4 update's bf16 parameter steps, card against CPU. Adam's
+    first step lr g / (|g| + eps) is a whole lr either way wherever the
+    gradient's sign is rounding noise, and which of those elements a
+    version flips differs from version to version: the other arms' check
+    of every element against 4x the CPU's own bf16-vs-f32 difference in
+    its tensor passes only where the CPU's bf16 run happens to flip an
+    element of the same tensor. So the elements whose step has the other
+    sign than the CPU's bf16 one, or is zero, and lies more than lr / 2
+    from it are counted, each no larger than Adam's first step can be
+    (lr), and their count must stay within 4x the larger of two witnesses
+    that share nothing with the designs under test: the same update
+    through the CUDA-core designs of B10 and B8 on the card
+    (``cudacore_twins``), and the CPU's bf16 run against its f32 one.
+    Every other element is held as the other arms' are. Printed beside:
+    where the other arms' check and a per-element test (an element held
+    where its f32 gradient exceeds 4x the CPU's and the other card
+    version's difference) would fail for either card version, and the
+    gradients' RMS difference from the CPU's bf16. Returns the worst ratio
+    of the held steps' difference to their own."""
+    runs = {"card": c16, "twins": twin}
+    flips = dict.fromkeys(("card", "twins", "cpu"), 0)
+    every = {k: (0.0, "") for k in runs}
+    per_element = dict.fromkeys(runs, 0)
+    sq, n_el, ratio = dict.fromkeys(runs, 0.0), 0, 0.0
+    for n, s16 in p16["steps"].items():
+        s32, g16, g32 = p32["steps"][n], p16["grads"][n], p32["grads"][n]
+        tol_s = 1e-3 * s32.abs().max().item()
+        # a step of the other sign or none (a gradient that sums to an
+        # exact zero), more than lr / 2 away
+        flip = lambda t: (t * s16 <= 0) & ((t - s16).abs() > LR / 2)
+        flips["cpu"] += int(flip(s32).sum())
+        n_el += s16.numel()
+        for who, run in runs.items():
+            s, g = run["steps"][n], run["grads"][n]
+            other = runs["twins" if who == "card" else "card"]["grads"][n]
+            off = flip(s)
+            flips[who] += int(off.sum())
+            sq[who] += float(((g - g16) ** 2).sum())
+            noise = torch.maximum((g16 - g32).abs(), (other - g16).abs())
+            per_element[who] += int((off & (g32.abs() > 4 * noise)).sum())
+            _, err, own = bf16_ok(s, s16, s32)
+            r = err / max(4 * own + tol_s, 1e-30)
+            if r > every[who][0]:
+                i = int((s - s16).abs().argmax())
+                f = lambda t: t.flatten()[i].item()
+                every[who] = (r, f"{n}[{i}]: gradient {f(c16['grads'][n]):.3e} "
+                               f"/ {f(twin['grads'][n]):.3e} / {f(g16):.3e} "
+                               f"/ {f(g32):.3e}, step "
+                               f"{f(c16['steps'][n]):.3e} / "
+                               f"{f(twin['steps'][n]):.3e} / {f(s16):.3e} / "
+                               f"{f(s32):.3e}")
+        off = flip(c16["steps"][n])
+        big = c16["steps"][n][off].abs().max().item() if off.any() else 0.0
+        check(big <= 1.001 * LR, f"v4 384 update bf16 steps {n}: a step "
+              f"of {big:.3e} against Adam's first-step bound lr")
+        keep = ~off
+        if keep.any():
+            ok, err, own = bf16_ok(c16["steps"][n][keep], s16[keep],
+                                   s32[keep])
+            check(ok, f"v4 384 update bf16 steps {n}: {err:.3e} > 4 x "
+                  f"{own:.3e}")
+            ratio = max(ratio, err / max(own, 1e-30))
+    bound = 4 * max(flips["twins"], flips["cpu"])
+    check(flips["card"] <= bound, f"v4 384 update bf16: {flips['card']} "
+          f"steps of the other sign or zero > 4 x max({flips['twins']} "
+          f"with the CUDA-core twins, {flips['cpu']} of the CPU's bf16 vs "
+          f"f32)")
+    rms = {k: np.sqrt(v / n_el) for k, v in sq.items()}
+    print(f"v4, 384 columns, one update, bf16 parameter steps: "
+          f"{flips['card']} of {n_el} of the other sign than the CPU's bf16 "
+          f"ones (or zero) and more than lr / 2 away on the card (tolerance {bound}: "
+          f"4 x max({flips['twins']} with the CUDA-core twins of B10 and B8, {flips['cpu']} of the "
+          f"CPU's bf16 against its f32), the others within {ratio:.3f} x "
+          f"their own difference (tolerance 4x); the other arms' check of "
+          f"every element would reach {every['card'][0]:.3f} of its "
+          f"tolerance on the card (at {every['card'][1]}; card / twins / "
+          f"CPU bf16 / CPU f32) and {every['twins'][0]:.3f} with the twins "
+          f"(at {every['twins'][1]}); the per-element test would fail at "
+          f"{per_element['card']} elements on the card and "
+          f"{per_element['twins']} with the twins; gradients' RMS "
+          f"difference from the CPU's bf16 {rms['card']:.3e} on the card, "
+          f"{rms['twins']:.3e} with the twins [{card}]")
+    return ratio
 
 
 # kernels launched per window step of a training update with remat: the
@@ -995,6 +1131,92 @@ def run_training(card, arm="v6", chunk=None):
         check(not torch.equal(p.detach(), before[name]),
               f"{name} did not change")
     return trainer, chunk, launches, n
+
+
+WIDE_H = 512
+
+
+def check_wide(card):
+    """The flagship model at nneur (512, 512) in bf16, past the width the
+    tensor-core design holds with resident weights (its plan streams
+    them): B1 and B3 at 1,000 columns against their plain versions (as
+    check_b1 and check_b3, bf16) and timed; then the model serves (3
+    coupled steps at 384 columns: B1 once a step, B2 once) and trains (one
+    update, W 4: B1 2W, B3 W) on the card, with every counter set to 0
+    just before and read just after, finite state, loss and parameters.
+    Returns the kernels' ms."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.ops import (bigru_heads_cm_bwd,
+                                       bigru_heads_cm_bwd_reference,
+                                       bigru_heads_init_cm_reference,
+                                       fused_bigru_heads_init_cm)
+    from climsim_tpu_torch.ops.pallas_rnn import mma_plan
+    model = make_model(BF16, None, arm="v6", H=WIDE_H)
+    plans = {k: mma_plan(k, WIDE_H, WIDE_H, 16, 16, 6, 6) for k in
+             ("b1", "b3")}
+    check(all(p["stream"] for p in plans.values()),
+          f"H {WIDE_H}: the plan must stream the weights: {plans}")
+    B = 1000
+    a1 = b1_args(model, B, torch.bfloat16, seed=41)
+    got, want = fused_bigru_heads_init_cm(*a1), \
+        bigru_heads_init_cm_reference(*a1)
+    own = max_err(want, bigru_heads_init_cm_reference(
+        *(t.float() for t in a1)))
+    e1 = max_err(got, want)
+    check(e1 <= 4.0 * own, f"B1 bf16 H {WIDE_H}: {e1} > 4 x {own}")
+    a3 = b3_args(model, B, torch.bfloat16, seed=43)
+    got3, want3 = bigru_heads_cm_bwd(*a3), bigru_heads_cm_bwd_reference(*a3)
+    want32 = bigru_heads_cm_bwd_reference(
+        tuple(t.float() for t in a3[0]), a3[1].float(), a3[2].float())
+    ratio = 0.0
+    for name, g, w, w32 in zip(B3_NAMES, got3, want3, want32):
+        ok, e16, own3 = bf16_ok(g, w, w32)
+        check(ok, f"B3 bf16 H {WIDE_H} {name}: {e16:.3e} > 4 x {own3:.3e}")
+        ratio = max(ratio, e16 / max(own3, 1e-30))
+    del got3, want3, want32
+    ms1 = median_ms(lambda: fused_bigru_heads_init_cm(*a1), 3, repeats=3)
+    ms3 = median_ms(lambda: bigru_heads_cm_bwd(*a3), 2, repeats=3)
+    print(f"H {WIDE_H} bf16, {B} columns, weights streamed (B1 plan "
+          f"C {plans['b1']['C']}, BT {plans['b1']['BT']}, "
+          f"{plans['b1']['smem']} B smem; B3 C {plans['b3']['C']}, BT "
+          f"{plans['b3']['BT']}): B1 max_abs_err {e1:.3e} against the plain "
+          f"version's own bf16-vs-f32 {own:.3e} (tolerance 4x), kernel "
+          f"{ms1:.4f} ms; B3 up to {ratio:.3f} x its own error (tolerance "
+          f"4x), kernel {ms3:.4f} ms [{card}]")
+    del a1, a3
+    dev = torch.device("cuda")
+    ncol = LO_NLAT * LO_NLON
+    loop = make_loop(model, Grid.synthetic(ncol, NLEV, device=dev), LO_NLAT,
+                     LO_NLON, None)
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    st, mem, diags = loop.rollout(*initial_state(ncol, NLEV, dev), 3)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(launches == {"b1": 3, "b2": 3},
+          f"H {WIDE_H} serving: launches {launches}")
+    check(all(bool(torch.isfinite(v).all()) for v in st.values())
+          and bool(torch.isfinite(mem).all()), f"H {WIDE_H} serving state")
+    trainer = make_trainer(model, None)
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.enable_grad():
+        _, rec = trainer.run_epoch(
+            None, [train_chunk(W_TRAIN, ncol, "cuda", 4)], 0)
+    torch.cuda.synchronize()
+    tl = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(tl == {"b1": 2 * W_TRAIN, "b3": W_TRAIN},
+          f"H {WIDE_H} training: launches {tl}")
+    check(rec["updates"] == 1 and np.isfinite(rec["loss"]),
+          f"H {WIDE_H} training: {rec}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"H {WIDE_H} training: parameters")
+    print(f"H {WIDE_H} bf16 RNNAutoreg (v6): 3 coupled steps at {ncol} "
+          f"columns, launches {launches}, mean_T "
+          f"{diags['mean_T'][-1].item():.4f} K; one training update (W "
+          f"{W_TRAIN}), launches {tl}, loss {rec['loss']:.6f} [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1435,35 +1657,38 @@ def phys_wrappers() -> dict:
                                    adding_sw_bwd, lw_solver_noscat_bwd)))
 
 
-def b8_args(model, B, dtype, seed):
-    """B8's residuals (B7's inputs at the physics path's shapes) and
-    random cotangents of (down, last_h)."""
-    res = b7_args(model, B, dtype, seed)
+def b8_args(model, B, dtype, seed, L=None):
+    """B8's residuals (B7's inputs at the physics path's shapes, or with
+    L at the v2/v4 arms' L 60, H 192) and random cotangents of (down,
+    last_h)."""
+    res = b7_args(model, B, dtype, seed, L=L)
     L, H = res[0].shape[0], res[1].shape[1]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
     return res, r(L, B, H), r(B, H)
 
 
-def check_b8(model, card):
-    """B8 against its plain version on the card at (L 50, B 21,600, H 128)
-    and a ragged 1,000 columns, every one of its nine outputs. f32: 2e-5 of
-    each output's largest magnitude, as B3 (summation order over 2 x 50
-    levels of BPTT and the 1.08 M-term gradient sums); bf16: as check_b3,
-    per output."""
+def check_b8(model, card, L=None):
+    """B8 against its plain version on the card at (L 50, B 21,600, H 128),
+    or with ``L`` at the v4 arm's (L 60, H 192), and a ragged 1,000
+    columns, every one of its nine outputs. f32 (the CUDA-core design):
+    2e-5 of each output's largest magnitude, as B3 (summation order over
+    2 x 50 levels of BPTT and the 1.08 M-term gradient sums); bf16 (the
+    tensor-core design): as check_b3, per output."""
     from climsim_tpu_torch.ops import (bigru_bwd_lbh as kern,
                                        bigru_bwd_reference_lbh as ref)
     errs = []
+    label = "B8" if L is None else f"B8 H {model.bigru_fused.hidden} L {L}"
     for B in (NLAT * NLON, 1000):
-        res, dd, dl = b8_args(model, B, torch.float32, seed=B + 1)
+        res, dd, dl = b8_args(model, B, torch.float32, seed=B + 1, L=L)
         got, want = kern(res, dd, dl), ref(res, dd, dl)
         rel = [rel_err(g, w) for g, w in zip(got, want)]
         worst = int(np.argmax(rel))
-        print(f"B8 f32 B={B}: worst relative error {rel[worst]:.3e} "
+        print(f"{label} f32 B={B}: worst relative error {rel[worst]:.3e} "
               f"({B8_NAMES[worst]}); tolerance 2e-5 of each output's scale "
               f"[{card}]")
         for name, e in zip(B8_NAMES, rel):
-            check(e <= 2e-5, f"B8 f32 B={B} {name}: {e:.3e}")
+            check(e <= 2e-5, f"{label} f32 B={B} {name}: {e:.3e}")
         errs.append(max_err(got, want))
         del got, want
         r16 = [t.to(torch.bfloat16) for t in res]
@@ -1473,10 +1698,12 @@ def check_b8(model, card):
         ratio = 0.0
         for name, g, w, w32 in zip(B8_NAMES, got16, want16, want32):
             ok, e16, own = bf16_ok(g, w, w32)
-            check(ok, f"B8 bf16 B={B} {name}: {e16:.3e} > 4 x {own:.3e}")
+            check(ok, f"{label} bf16 B={B} {name}: {e16:.3e} > 4 x "
+                  f"{own:.3e}")
             ratio = max(ratio, e16 / max(own, 1e-30))
-        print(f"B8 bf16 B={B}: difference up to {ratio:.3f} x the plain "
-              f"version's own bf16-vs-f32 error (tolerance 4x) [{card}]")
+        print(f"{label} bf16 (tensor-core design) B={B}: difference up to "
+              f"{ratio:.3f} x the plain version's own bf16-vs-f32 error "
+              f"(tolerance 4x) [{card}]")
         errs.append(max_err(got16, want16))
         del got16, want16, want32, res, r16
         torch.cuda.empty_cache()
@@ -1952,6 +2179,7 @@ def main() -> int:
     flat_errs, flat_inputs = check_flat(card)
     v2model = make_model(BF16, None, arm="v2")
     b7h_err = check_b7(v2model, card, L=NLEV)
+    b8h_err = check_b8(v2model, card, L=NLEV)
     lbh_models = {"b9": make_model(BF16, None, arm="v3"),
                   "b10": make_model(BF16, None, arm="v4")}
     b9_b10_errs = check_b9_b10(lbh_models, card)
@@ -2003,8 +2231,10 @@ def main() -> int:
     trainer, chunk, t_launches, n_upd = run_training(card)
     arm_trainers = {arm: run_training(card, arm, chunk)
                     for arm in ("scan", "v4")}
+    v4_launches = arm_trainers["v4"][2]
     for arm in ("v6", "scan", "v4"):
         compare_train_384(card, arm)
+    check_wide(card)
     phase_done(6)
 
     # ---- 7. the physics evaluation path at 21,600 columns, with the
@@ -2157,20 +2387,34 @@ def main() -> int:
     b7h_ms = median_ms(lambda: fused_bigru_lbh(*a7h), 3)
     b7h_plain = median_ms(lambda: bigru_reference_lbh(*a7h), 1)
     # B8 at the v4 arm's shapes (L 60, H 192, bf16): its residuals are
-    # B7's inputs at H 192
-    from climsim_tpu_torch.ops import bigru_bwd_lbh
+    # B7's inputs at H 192; the tensor-core design in turns with the
+    # CUDA-core one, its kernels by name, and the plain version
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, bigru_bwd_reference_lbh
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_bigru_bwd_lbh
     g8 = torch.Generator(device="cuda").manual_seed(30)
     a8h = (a7h, torch.randn((NLEV, ncol, a7h[1].shape[1]), generator=g8,
                             device="cuda").to(torch.bfloat16),
            torch.randn((ncol, a7h[1].shape[1]), generator=g8,
                        device="cuda").to(torch.bfloat16))
-    b8h_ms = median_ms(lambda: bigru_bwd_lbh(*a8h), 2, repeats=3)
+    b8h_old, b8h_new = in_turns(lambda: cudacore_bigru_bwd_lbh(*a8h),
+                                lambda: bigru_bwd_lbh(*a8h), 2, repeats=2)
+    b8h_ms = statistics.mean(b8h_new)
+    b8h_plain = median_ms(lambda: bigru_bwd_reference_lbh(*a8h), 1,
+                          repeats=2)
     b8h_flops, b8h_bytes = b8_work(a8h)
     b8h_bound = max(b8h_flops / PEAK_BF16, b8h_bytes / PEAK_BYTES) * 1e3
+    b8h_by = ("operations" if b8h_flops / PEAK_BF16 > b8h_bytes / PEAK_BYTES
+              else "bytes")
+    print(f"B8 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
+          f"tensor-core, CUDA-core): CUDA-core design {b8h_old[0]:.4f} / "
+          f"{b8h_old[1]:.4f} ms, tensor-core design {b8h_new[0]:.4f} / "
+          f"{b8h_new[1]:.4f} ms [{card}]")
     print(f"B8 bf16 (L {NLEV}, H {a7h[1].shape[1]}, B {ncol}, the v4 "
-          f"arm's shapes): kernel {b8h_ms:.4f} ms, bound {b8h_bound:.4f} "
+          f"arm's shapes): kernel {b8h_ms:.4f} ms, plain {b8h_plain:.4f} "
+          f"ms, bound {b8h_bound:.4f} "
           f"ms ({b8h_flops / 1e12:.4f} TFLOP at 989 TFLOP/s; "
           f"{b8h_bytes / 1e6:.1f} MB) [{card}]")
+    kernel_split(lambda: bigru_bwd_lbh(*a8h), b8h_ms, card, "B8 bf16")
     del a8h
     sb = serving_bounds(a4, (q5, u5, v5), q6, a7h)
     print(f"B4 bf16 (L {NLEV}, CH {a4[0].shape[1]}, H {a4[7].shape[1]}, "
@@ -2197,8 +2441,19 @@ def main() -> int:
     b9_ms = median_ms(lambda: fused_bigru_heads_lbh(*a9), 3)
     b9_plain = median_ms(lambda: bigru_heads_lbh_reference(*a9), 1)
     a10 = b10_args(lbh_models["b10"], ncol, torch.bfloat16, seed=37)
-    b10_ms = median_ms(lambda: fused_bigru_heads_init_lbh(*a10), 3)
-    b10_plain = median_ms(lambda: bigru_heads_init_lbh_reference(*a10), 1)
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_bigru_heads_init_lbh
+    b10_old, b10_new = in_turns(
+        lambda: cudacore_bigru_heads_init_lbh(*a10),
+        lambda: fused_bigru_heads_init_lbh(*a10), 3)
+    b10_ms = statistics.mean(b10_new)
+    print(f"B10 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
+          f"tensor-core, CUDA-core): CUDA-core design {b10_old[0]:.4f} / "
+          f"{b10_old[1]:.4f} ms, tensor-core design {b10_new[0]:.4f} / "
+          f"{b10_new[1]:.4f} ms [{card}]")
+    kernel_split(lambda: fused_bigru_heads_init_lbh(*a10), b10_ms, card,
+                 "B10 bf16")
+    b10_plain = median_ms(lambda: bigru_heads_init_lbh_reference(*a10), 1,
+                          repeats=2)
     lb = lbh_bounds(a9, a10)
     for key, name, ms, plain, a in (("b9", "B9", b9_ms, b9_plain, a9),
                                     ("b10", "B10", b10_ms, b10_plain, a10)):
@@ -2317,9 +2572,12 @@ def main() -> int:
         {"name": "bigru_lbh_bwd", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_lbh_bwd.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:391",
-         "launches": pt_launches["b8"], "max_abs_err": b8_err,
-         "ms": b8_ms, "plain_ms": b8_plain, "bound_ms": pbb["b8"][0],
-         "bound_by": pbb["b8"][1], "library_ms": None},
+         "launches": v4_launches["b8"], "max_abs_err": b8h_err,
+         "ms": b8h_ms, "plain_ms": b8h_plain, "bound_ms": b8h_bound,
+         "bound_by": b8h_by, "library_ms": None,
+         "f32": {"launches": pt_launches["b8"], "max_abs_err": b8_err,
+                 "ms": b8_ms, "plain_ms": b8_plain,
+                 "bound_ms": pbb["b8"][0], "bound_by": pbb["b8"][1]}},
         {"name": "adding_sw_bwd", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/adding_sw_bwd.cu",
          "replaces": "climsim_tpu/ops/pallas_radiation.py:189",

@@ -60,7 +60,7 @@
 // --use_fast_math: expf/tanhf keep the 60-level recurrence within
 // tolerance of the plain version.
 #include "bigru_common.cuh"
-#include "bigru_mma.cuh"
+#include "bigru_mma_bwd.cuh"
 
 namespace {
 
@@ -636,7 +636,9 @@ extern "C" int bigru_heads_cm_bwd(int dtype, int nslot,
 // ------------------------------------------------ bf16: tensor-core design
 //
 // The bf16 path (the flagship policy) splits as the CUDA-core one, with
-// every product on tensor cores and the sweep's weights resident:
+// every product on tensor cores and the phase's weights resident (or,
+// from H ~ 320 on, streamed through a ring: bigru_mma.cuh); the pieces it
+// shares with B8 live in bigru_mma_bwd.cuh:
 //   1. b3_mma_kernel: a cluster of C CTAs owns a tile of BT columns, CTA r
 //      hidden units [r Hc, (r + 1) Hc), as in the forward (bmma notes).
 //      Phase A replays both sweeps with B1's level (xp kept f32, as the
@@ -670,7 +672,6 @@ namespace b3mma {
 using namespace bmma;
 // names the CUDA-core design's namespace (bigru) also declares
 using bmma::NTH;
-using bmma::rnd;
 using bmma::gru_level;
 
 struct BwdParams {
@@ -683,35 +684,15 @@ struct BwdParams {
   int L, CHp, nmi, H, nm, ny, B, C, BT, KXc;
 };
 
-struct BBufs {
-  bf16 *wh, *wu, *wl, *D, *dmt;
-  float *raw, *red;
-};
-__host__ __device__ inline BBufs b_bufs(Smem& s, int Hc, int H, int BT,
-                                        int nm16, int nraw, int nm, int ny,
-                                        int KXc, bool phase_c) {
-  BBufs b;
-  const int LDT = 3 * H + PAD;
-  b.wh = s.take<bf16>(static_cast<size_t>(Hc) * LDT);
-  b.wu = s.take<bf16>(static_cast<size_t>(phase_c ? KXc : Hc) * LDT);
-  b.wl = s.take<bf16>(phase_c ? 0 : static_cast<size_t>(Hc) * (nm16 + PAD));
-  b.D = s.take<bf16>(static_cast<size_t>(BT) * (4 * H + PAD));
-  b.dmt = s.take<bf16>(phase_c ? 0 : static_cast<size_t>(BT) * (nm16 + PAD));
-  const int rows = nm + ny > nm16 ? nm + ny : nm16;
-  b.raw = s.take<float>(phase_c ? 0 : static_cast<size_t>(rows) * BT);
-  b.red = s.take<float>(static_cast<size_t>(BT / 16) * 4 * Hc);
-  (void)nraw;
-  return b;
-}
-
 __host__ __device__ inline size_t b3_smem(int H, int C, int CHp, int nmi,
-                                          int nm, int ny, int BT, int KXc) {
+                                          int nm, int ny, int BT, int KXc,
+                                          bool stream) {
   const int Hc = H / C, nm8 = (nm + 7) / 8 * 8, nm16 = (nm + 15) / 16 * 16;
   Smem su(nullptr), sd(nullptr), sb(nullptr), sc(nullptr);
-  up_bufs(su, Hc, CHp + nmi, H, BT, 0, 0);
-  dn_bufs(sd, Hc, H, BT, nm8, nm);
-  b_bufs(sb, Hc, H, BT, nm16, nm + ny, nm, ny, KXc, false);
-  b_bufs(sc, Hc, H, BT, nm16, 0, nm, ny, KXc, true);
+  up_bufs(su, Hc, CHp + nmi, H, BT, 0, 0, 0, stream);
+  dn_bufs(sd, Hc, H, BT, nm8, nm, stream);
+  b_bufs(sb, Hc, H, BT, nm16, nm, ny, Hc, true, stream);
+  b_bufs(sc, Hc, H, BT, nm16, nm, ny, KXc, false, stream);
   size_t m = su.off;
   if (sd.off > m) m = sd.off;
   if (sb.off > m) m = sb.off;
@@ -719,116 +700,7 @@ __host__ __device__ inline size_t b3_smem(int H, int C, int CHp, int nmi,
   return m;
 }
 
-// The GRU backward step of one level at the thread's fragment positions:
-// g = dh (+ dh_add [H, B] f32), the stored gates [4H, B] and h_prev
-// [H, B]; the rounded bundle dt([dar; daz; dan; dhn]) goes to the CTA's
-// columns of D [BT][ldd] and over the gates in place (inside the batch);
-// bp sums the unrounded bundle over the thread's rows; dh <- g z.
-__device__ __forceinline__ void gru_bwd(float (&dh)[MAXP][4],
-                                        const float* dh_add, bf16* gates,
-                                        const bf16* hp, bf16* D, int ldd,
-                                        float (&bp)[4][MAXP][2],
-                                        const Warp& w, const Tiles& tl,
-                                        int r, int Hc, int H, int B,
-                                        int col0) {
-  const size_t sB = B;
-  float in[MAXP][4][6];
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
-      const bool ok = tl.on[i] && col < B;
-      const size_t e = j * sB + col;
-      in[i][q][0] = ok && dh_add != nullptr ? dh_add[e] : 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        in[i][q][1 + k] = ok ? b2f(gates[k * H * sB + e]) : 0.0f;
-      in[i][q][5] = ok ? b2f(hp[e]) : 0.0f;
-    }
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (!tl.on[i]) continue;
-    float v[4][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float g = dh[i][q] + in[i][q][0];
-      const float rr = in[i][q][1], zz = in[i][q][2], nn = in[i][q][3];
-      const float hnn = in[i][q][4], h_prev = in[i][q][5];
-      const float dz = g * (h_prev - nn);
-      const float dan = g * (1.0f - zz) * (1.0f - nn * nn);
-      const float dar = dan * hnn * rr * (1.0f - rr);
-      const float daz = dz * zz * (1.0f - zz);
-      const float dhn = dan * rr;
-      v[q][0] = dar;
-      v[q][1] = daz;
-      v[q][2] = dan;
-      v[q][3] = dhn;
-      dh[i][q] = g * zz;
-      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        bp[k][i][q & 1] += v[q][k];
-        if (col < B)
-          gates[(k * H + j) * sB + col] = __float2bfloat16_rn(v[q][k]);
-      }
-    }
-    const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      *reinterpret_cast<uint32_t*>(D + w.row(0) * ldd + k * H + j) =
-          pack2(v[0][k], v[1][k]);
-      *reinterpret_cast<uint32_t*>(D + w.row(2) * ldd + k * H + j) =
-          pack2(v[2][k], v[3][k]);
-    }
-  }
-}
-
-// dst[i] = dt(v[i]) at the thread's fragment positions of a [H, B] tensor
-__device__ __forceinline__ void store_frag(bf16* dst, const float (&v)[MAXP][4],
-                                           const Warp& w, const Tiles& tl,
-                                           int r, int Hc, int B, int col0) {
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
-      if (tl.on[i] && col < B)
-        dst[static_cast<size_t>(j) * B + col] = __float2bfloat16_rn(v[i][q]);
-    }
-}
-
-// The tile's bias partials of one sweep: bp summed over the lanes of a
-// column and then over the warps' m16 tiles in order, into
-// part[k H + r Hc + jj] for the bundle's four rows k.
-__device__ __forceinline__ void reduce_bias(const float (&bp)[4][MAXP][2],
-                                            float* red, float* part,
-                                            const Warp& w, const Tiles& tl,
-                                            int r, int Hc, int H, int BT) {
-  const int nwm = BT / 16, wm = w.m0 / 16;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = bp[k][i][e];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (w.g == 0 && tl.on[i])
-          red[(wm * 4 + k) * Hc + w.col(tl.nt[i] * 8, e)] = v;
-      }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 4 * Hc; e += NTH) {
-    const int k = e / Hc, jj = e % Hc;
-    float a = 0.0f;
-    for (int m = 0; m < nwm; ++m) a += red[(m * 4 + k) * Hc + jj];
-    part[k * H + r * Hc + jj] = a;
-  }
-  __syncthreads();
-}
-
+template <bool kStream>
 __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   cg::cluster_group cl = cg::this_cluster();
   const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
@@ -836,7 +708,7 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   const int nm = p.nm, ny = p.ny, nm8 = (nm + 7) / 8 * 8;
   const int nm16 = (nm + 15) / 16 * 16, KXc = p.KXc;
   const int KX = CHp + nmi, LDX = KX + PAD, LDH = H + PAD;
-  const int LDT = 3 * H + PAD, LDD = 4 * H + PAD, LDL = nm16 + PAD;
+  const int LDD = 4 * H + PAD, LDL = nm16 + PAD;
   const int tile = blockIdx.x / C, col0 = tile * BT, tid = threadIdx.x;
   const size_t sB = B, lvH = static_cast<size_t>(H) * B;
   const int PW = 8 * H + nm + ny;
@@ -849,11 +721,13 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   {
     GruRegs R;
     Smem s(smem_raw);
-    const UpBufs u = up_bufs(s, Hc, KX, H, BT, 0, 0);
-    load_rows(u.wx, LDX, p.wx_up + static_cast<size_t>(r) * 3 * Hc * KX,
-              3 * Hc, KX);
-    load_rows(u.wh, LDH, p.wh_up + static_cast<size_t>(r) * 3 * Hc * H,
-              3 * Hc, H);
+    const UpBufs u = up_bufs(s, Hc, KX, H, BT, 0, 0, 0, kStream);
+    const bf16* gx = p.wx_up + static_cast<size_t>(r) * 3 * Hc * KX;
+    const bf16* gh = p.wh_up + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(u.wx, gx, 3 * Hc, KX);
+    load_slice<kStream>(u.wh, gh, 3 * Hc, H);
+    const WSlice wxu = slice<kStream>(u.wx, gx, KX);
+    const WSlice whu = slice<kStream>(u.wh, gh, H);
     load_tile_t(u.h, LDH, p.h0u, H, B, col0, BT);
     gru_regs_init(R, w, tl, r, Hc, H, p.b1, p.bh_up, p.h0u, B, col0);
     const int k0 = min(KX, r * KXc), k1 = min(KX, (r + 1) * KXc);
@@ -878,8 +752,9 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
       if (s_ > 0)
         store_tile_t(p.up_h + (l + 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
                      Hc, B, col0, BT);
-      gru_level<false>(cl, R, xc, LDX, KX, u.wx, hc, u.wh, LDH, H, Hc, hn, w,
-                       tl, r, p.gates_u + l * 4 * lvH, B, col0);
+      gru_level<false, kStream>(cl, R, xc, LDX, KX, wxu, hc, whu, LDH, H, Hc,
+                                hn, w, tl, r, p.gates_u + l * 4 * lvH, B,
+                                col0, u.ring);
       if (more) {
         cp.commit(xn, LDX, k0, k1, BT);
         __syncthreads();
@@ -893,11 +768,13 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
     cl.sync();
 
     Smem s2(smem_raw);
-    const DnBufs d = dn_bufs(s2, Hc, H, BT, nm8, nm);
-    load_rows(d.wx, LDH, p.wx_dn + static_cast<size_t>(r) * 3 * Hc * H,
-              3 * Hc, H);
-    load_rows(d.wh, LDH, p.wh_dn + static_cast<size_t>(r) * 3 * Hc * H,
-              3 * Hc, H);
+    const DnBufs d = dn_bufs(s2, Hc, H, BT, nm8, nm, kStream);
+    const bf16* gx2 = p.wx_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    const bf16* gh2 = p.wh_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(d.wx, gx2, 3 * Hc, H);
+    load_slice<kStream>(d.wh, gh2, 3 * Hc, H);
+    const WSlice wxd = slice<kStream>(d.wx, gx2, H);
+    const WSlice whd = slice<kStream>(d.wh, gh2, H);
     load_rows(d.wl, LDH, p.wlat, nm8, H);
     load_heads(d.hw, p.blat, nullptr, nullptr, nm, 0);
     load_tile_t(d.h, LDH, p.h0d, H, B, col0, BT);
@@ -922,11 +799,12 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
         store_tile_t(p.g_h + (l - 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
                      Hc, B, col0, BT);
         heads(hc, LDH, d.wl, H, nm, nm8, d.hw, 0, d.mem,
-              p.meml + static_cast<size_t>(l - 1) * nm * sB, nullptr, B,
-              col0, BT, r, C);
+              HeadOut<false>{p.meml + static_cast<size_t>(l - 1) * nm * sB, B},
+              HeadOut<false>{nullptr, 0}, B, col0, BT, r, C);
       }
-      gru_level<false>(cl, R, xc, LDH, H, d.wx, hc, d.wh, LDH, H, Hc, hn, w,
-                       tl, r, p.gates_d + l * 4 * lvH, B, col0);
+      gru_level<false, kStream>(cl, R, xc, LDH, H, wxd, hc, whd, LDH, H, Hc,
+                                hn, w, tl, r, p.gates_d + l * 4 * lvH, B,
+                                col0, d.ring);
       if (more) {
         cp.commit(xn, LDH, r * Hc, (r + 1) * Hc, BT);
         __syncthreads();
@@ -939,8 +817,8 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
     store_tile_t(p.g_h + (L - 1) * lvH + r * Hc * sB, hl, LDH, r * Hc, Hc, B,
                  col0, BT);
     heads(hl, LDH, d.wl, H, nm, nm8, d.hw, 0, d.mem,
-          p.meml + static_cast<size_t>(L - 1) * nm * sB, nullptr, B, col0, BT,
-          r, C);
+          HeadOut<false>{p.meml + static_cast<size_t>(L - 1) * nm * sB, B},
+          HeadOut<false>{nullptr, 0}, B, col0, BT, r, C);
     cl.sync();
   }
 
@@ -948,11 +826,13 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   // ---- phase B: heads + down sweep backward (surface to top)
   {
     Smem s(smem_raw);
-    const BBufs bb = b_bufs(s, Hc, H, BT, nm16, nm + ny, nm, ny, KXc, false);
-    load_rows(bb.wh, LDT, p.whT_dn + static_cast<size_t>(r) * Hc * 3 * H, Hc,
-              3 * H);
-    load_rows(bb.wu, LDT, p.w2T + static_cast<size_t>(r) * Hc * 3 * H, Hc,
-              3 * H);
+    const BBufs bb = b_bufs(s, Hc, H, BT, nm16, nm, ny, Hc, true, kStream);
+    const bf16* gwh = p.whT_dn + static_cast<size_t>(r) * Hc * 3 * H;
+    const bf16* gwu = p.w2T + static_cast<size_t>(r) * Hc * 3 * H;
+    load_slice<kStream>(bb.wh, gwh, Hc, 3 * H);
+    load_slice<kStream>(bb.wu, gwu, Hc, 3 * H);
+    const WSlice wh = slice<kStream>(bb.wh, gwh, 3 * H);
+    const WSlice wu = slice<kStream>(bb.wu, gwu, 3 * H);
     load_rows(bb.wl, LDL, p.wlT + static_cast<size_t>(r) * Hc * nm16, Hc,
               nm16);
     float dh[MAXP][4], dtp[PF], dbo[PF];
@@ -1006,13 +886,14 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
       // dh2 += Wlat^T dt(dmem_tot)
       float al[MAXP][4];
       zero_acc(al);
-      warp_mma(al, bb.dmt, LDL, bb.wl, LDL, 0, w, tl, nm16);
+      warp_mma<false>(al, bb.dmt, LDL, WSlice{bb.wl, LDL}, 0, Hc, w, tl, nm16,
+                      nullptr);
 #pragma unroll
       for (int i = 0; i < MAXP; ++i)
 #pragma unroll
         for (int q = 0; q < 4; ++q) dh[i][q] += al[i][q];
       cluster_wait();       // every CTA has read the last level's bundle
-      gru_bwd(dh, nullptr, p.gates_d + l * 4 * lvH,
+      gru_bwd(dh, AddNone{}, p.gates_d + l * 4 * lvH,
               l > 0 ? p.g_h + (l - 1) * lvH : p.h0d, bb.D, LDD, bp, w, tl, r,
               Hc, H, B, col0);
       __syncthreads();
@@ -1022,9 +903,10 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
       float ah[MAXP][4], au[MAXP][4];
       zero_acc(ah);
       zero_acc(au);
-      warp_mma(ah, bb.D, LDD, bb.wh, LDT, 0, w, tl, 2 * H);
-      warp_mma(ah, bb.D + 3 * H, LDD, bb.wh + 2 * H, LDT, 0, w, tl, H);
-      warp_mma(au, bb.D, LDD, bb.wu, LDT, 0, w, tl, 3 * H);
+      warp_mma<kStream>(ah, bb.D, LDD, wh, 0, Hc, w, tl, 2 * H, bb.ring);
+      warp_mma<kStream>(ah, bb.D + 3 * H, LDD, wh, 2 * H, Hc, w, tl, H,
+                        bb.ring);
+      warp_mma<kStream>(au, bb.D, LDD, wu, 0, Hc, w, tl, 3 * H, bb.ring);
       float* dup_l = p.dup + l * lvH;
 #pragma unroll
       for (int i = 0; i < MAXP; ++i)
@@ -1070,11 +952,13 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   // ---- phase C: up sweep backward (top to surface)
   {
     Smem s(smem_raw);
-    const BBufs bc = b_bufs(s, Hc, H, BT, nm16, 0, nm, ny, KXc, true);
-    load_rows(bc.wh, LDT, p.whT_up + static_cast<size_t>(r) * Hc * 3 * H, Hc,
-              3 * H);
-    load_rows(bc.wu, LDT, p.w1T + static_cast<size_t>(r) * KXc * 3 * H, KXc,
-              3 * H);
+    const BBufs bc = b_bufs(s, Hc, H, BT, nm16, nm, ny, KXc, false, kStream);
+    const bf16* gwh = p.whT_up + static_cast<size_t>(r) * Hc * 3 * H;
+    const bf16* gwu = p.w1T + static_cast<size_t>(r) * KXc * 3 * H;
+    load_slice<kStream>(bc.wh, gwh, Hc, 3 * H);
+    load_slice<kStream>(bc.wu, gwu, KXc, 3 * H);
+    const WSlice wh = slice<kStream>(bc.wh, gwh, 3 * H);
+    const WSlice wu = slice<kStream>(bc.wu, gwu, 3 * H);
     float du[MAXP][4];
     zero_acc(du);
 #pragma unroll
@@ -1086,7 +970,7 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
     cluster_arrive();
     for (int l = 0; l < L; ++l) {
       cluster_wait();
-      gru_bwd(du, p.dup + l * lvH, p.gates_u + l * 4 * lvH,
+      gru_bwd(du, AddCM{p.dup + l * lvH, sB}, p.gates_u + l * 4 * lvH,
               l < L - 1 ? p.up_h + (l + 1) * lvH : p.h0u, bc.D, LDD, bp, w,
               tl, r, Hc, H, B, col0);
       __syncthreads();
@@ -1095,8 +979,9 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
       // du_prev = du z + Whh_up^T dt(d_hh)
       float ah[MAXP][4];
       zero_acc(ah);
-      warp_mma(ah, bc.D, LDD, bc.wh, LDT, 0, w, tl, 2 * H);
-      warp_mma(ah, bc.D + 3 * H, LDD, bc.wh + 2 * H, LDT, 0, w, tl, H);
+      warp_mma<kStream>(ah, bc.D, LDD, wh, 0, Hc, w, tl, 2 * H, bc.ring);
+      warp_mma<kStream>(ah, bc.D + 3 * H, LDD, wh, 2 * H, Hc, w, tl, H,
+                        bc.ring);
 #pragma unroll
       for (int i = 0; i < MAXP; ++i)
 #pragma unroll
@@ -1107,7 +992,7 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
         const Tiles tx(w, ntx, base);
         float ax[MAXP][4];
         zero_acc(ax);
-        warp_mma(ax, bc.D, LDD, bc.wu, LDT, 0, w, tx, 3 * H);
+        warp_mma<kStream>(ax, bc.D, LDD, wu, 0, KXc, w, tx, 3 * H, bc.ring);
 #pragma unroll
         for (int i = 0; i < MAXP; ++i)
 #pragma unroll
@@ -1131,179 +1016,6 @@ __global__ void __launch_bounds__(NTH, 1) b3_mma_kernel(BwdParams p) {
   cl.sync();   // no CTA leaves while another may still address its smem
 }
 
-// ---------------------------------------------------------- weight grads
-
-constexpr int GTM = 128;        // output tile rows
-constexpr int GTN = 64;         // output tile columns
-constexpr int GK = 32;          // columns per chunk
-constexpr int GTH = 256;        // threads per block (8 warps of 32 x 32)
-
-// A gradient sum over levels and columns: out [M, N] = sum_{l, b}
-// left[l][row(m)][b] right[l + shift][n][b], both bf16 (the left factor
-// already rounded), row(m) = m for m < split, m + gap after; the right
-// operand's level outside 0..L-1 is edge [N, B].
-struct GJob {
-  const bf16* a; size_t a_lvl; int split, gap;
-  const bf16* b; size_t b_lvl; int shift; const bf16* edge;
-  bf16* out; int M, N;
-};
-
-// 16 values of row src[0..] from column b0 into registers, zero past B
-__device__ __forceinline__ void fetch16(uint4 (&r)[2], const bf16* src,
-                                        int b0, int B, bool ok, bool vec) {
-  if (ok && vec && b0 + 16 <= B) {
-    r[0] = *reinterpret_cast<const uint4*>(src + b0);
-    r[1] = *reinterpret_cast<const uint4*>(src + b0 + 8);
-    return;
-  }
-  unsigned short u[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    u[k] = ok && b0 + k < B
-               ? *reinterpret_cast<const unsigned short*>(src + b0 + k) : 0;
-  r[0] = make_uint4(u[0] | (u[1] << 16), u[2] | (u[3] << 16),
-                    u[4] | (u[5] << 16), u[6] | (u[7] << 16));
-  r[1] = make_uint4(u[8] | (u[9] << 16), u[10] | (u[11] << 16),
-                    u[12] | (u[13] << 16), u[14] | (u[15] << 16));
-}
-
-__global__ void __launch_bounds__(GTH)
-wgrad_mma_kernel(GJob jb, int L, int B, int S, int vec, float* part) {
-  __shared__ __align__(16) bf16 As[GTM * (GK + PAD)];
-  __shared__ __align__(16) bf16 Bs[GTN * (GK + PAD)];
-  constexpr int LD = GK + PAD;
-  const int ntn = (jb.N + GTN - 1) / GTN;
-  const int m0 = (blockIdx.x / ntn) * GTM, n0 = (blockIdx.x % ntn) * GTN;
-  const int s = blockIdx.y;
-  const long nbc = (B + GK - 1) / GK;
-  const long total = L * nbc;
-  const long first = total * s / S, last = total * (s + 1) / S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
-  // thread (row, half) fetches 16 columns of A's row and, in the first
-  // 2 GTN threads, of B's
-  const int row = tid >> 1, half = (tid & 1) * 16;
-  const bool brow = row < GTN;
-  const int m = m0 + row, n = n0 + row;
-  const int arow = m < jb.split ? m : m + jb.gap;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-  // chunk ch's two 16-value rows, fetched into registers a chunk ahead
-  uint4 ra[2], rb[2];
-  const auto fetch = [&](long ch) {
-    const int l = static_cast<int>(ch / nbc);
-    const int b0 = static_cast<int>(ch % nbc) * GK + half;
-    const int lb = l + jb.shift;
-    const bf16* Bl = (lb >= 0 && lb < L) ? jb.b + lb * jb.b_lvl : jb.edge;
-    fetch16(ra, jb.a + l * jb.a_lvl + static_cast<size_t>(arow) * B, b0, B,
-            m < jb.M, vec);
-    if (brow)
-      fetch16(rb, Bl + static_cast<size_t>(n) * B, b0, B, n < jb.N, vec);
-  };
-  if (first < last) fetch(first);
-  for (long ch = first; ch < last; ++ch) {
-    uint4* da = reinterpret_cast<uint4*>(As + row * LD + half);
-    uint4* db = reinterpret_cast<uint4*>(Bs + row * LD + half);
-    da[0] = ra[0];
-    da[1] = ra[1];
-    if (brow) {
-      db[0] = rb[0];
-      db[1] = rb[1];
-    }
-    __syncthreads();
-    if (ch + 1 < last) fetch(ch + 1);
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm4(a[i], As + (wm + i * 16 + (lane & 15)) * LD + kk + ((lane >> 4) << 3));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldsm2(b[j], Bs + (wn + j * 8 + (lane & 7)) * LD + kk +
-                        (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int mm = m0 + wm + i * 16 + g + 8 * (q >> 1);
-        const int nn = n0 + wn + j * 8 + 2 * t + (q & 1);
-        if (mm < jb.M && nn < jb.N)
-          part[(static_cast<size_t>(s) * jb.M + mm) * jb.N + nn] = acc[i][j][q];
-      }
-}
-
-// the bias gradients from the tiles' partials [tiles, 8H + nm + ny]: each
-// sum over the tiles in order
-__global__ void bias_sum_kernel(const float* part, int tiles, int H, int nm,
-                                int ny, bf16* dbin1, bf16* dbhh_up,
-                                bf16* dbin2, bf16* dbhh_dn, bf16* dblat,
-                                bf16* dbout) {
-  const int PW = 8 * H + nm + ny;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= PW) return;
-  float a = 0.0f;
-  for (int t = 0; t < tiles; ++t) a += part[static_cast<size_t>(t) * PW + i];
-  const bf16 v = __float2bfloat16_rn(a);
-  if (i < 8 * H) {
-    const int sw = i / (4 * H), k = (i % (4 * H)) / H, j = i % H;
-    bf16* dbin = sw == 0 ? dbin1 : dbin2;
-    bf16* dbhh = sw == 0 ? dbhh_up : dbhh_dn;
-    if (k < 3) dbin[k * H + j] = v;      // d_xp = [dar; daz; dan]
-    if (k < 2) dbhh[k * H + j] = v;      // d_hh = [dar; daz; dhn]
-    if (k == 3) dbhh[2 * H + j] = v;
-  } else if (i < 8 * H + nm) {
-    dblat[i - 8 * H] = v;
-  } else {
-    dbout[i - 8 * H - nm] = v;
-  }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// One weight gradient: the GEMM split into S_job fixed column ranges (at
-// least S; more for a gradient of few output tiles, so that ~4 blocks a
-// SM run, within the work capacity cap = S x the largest gradient), then
-// the fixed-order sum of the partials. S_job depends on the shapes alone.
-int gemm(const GJob& jb, int L, int B, int S, size_t cap, float* work,
-         cudaStream_t st) {
-  if (jb.M == 0 || jb.N == 0) return 0;
-  const bool vec = B % 8 == 0 && aligned16(jb.a) && aligned16(jb.b) &&
-                   (jb.edge == nullptr || aligned16(jb.edge)) &&
-                   jb.a_lvl % 8 == 0 && jb.b_lvl % 8 == 0;
-  const int tiles = ((jb.M + GTM - 1) / GTM) * ((jb.N + GTN - 1) / GTN);
-  const size_t MN = static_cast<size_t>(jb.M) * jb.N;
-  int sj = (4 * 132 + tiles - 1) / tiles;
-  if (sj < S) sj = S;
-  if (static_cast<size_t>(sj) * MN > cap) sj = static_cast<int>(cap / MN);
-  S = sj;
-  wgrad_mma_kernel<<<dim3(tiles, S), GTH, 0, st>>>(jb, L, B, S, vec ? 1 : 0,
-                                                   work);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bigru::sum_parts_kernel<bf16><<<static_cast<int>((MN + 255) / 256), 256, 0,
-                                  st>>>(work, S, static_cast<int>(MN),
-                                        jb.out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // gradient outputs, in the weights' padded shapes
 struct Grads {
   bf16 *dwin1h, *dwin1m, *dbin1, *dwhh_up, *dbhh_up, *dwin2, *dbin2;
@@ -1311,7 +1023,7 @@ struct Grads {
 };
 
 int launch_mma(const BwdParams& p, const Grads& g, float* work, int S,
-               cudaStream_t st) {
+               int stream, cudaStream_t st) {
   const int C = p.C, BT = p.BT, H = p.H, nm16 = (p.nm + 15) / 16 * 16;
   const int KX = p.CHp + p.nmi;
   if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
@@ -1320,31 +1032,17 @@ int launch_mma(const BwdParams& p, const Grads& g, float* work, int S,
       (p.nm + p.ny) * BT > PF * NTH || nm16 * BT > PF * NTH ||
       H / C / 8 * BT > MAXI * NTH || p.KXc / 8 * BT > MAXI * NTH || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = b3_smem(H, C, p.CHp, p.nmi, p.nm, p.ny, BT, p.KXc);
+  const size_t smem = b3_smem(H, C, p.CHp, p.nmi, p.nm, p.ny, BT, p.KXc,
+                              stream != 0);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      b3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (p.B + BT - 1) / BT;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * C);
-  cfg.blockDim = dim3(NTH);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, b3_mma_kernel, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = stream ? launch_cluster(b3_mma_kernel<true>, p, C, BT, p.B,
+                                         smem, st)
+                        : launch_cluster(b3_mma_kernel<false>, p, C, BT, p.B,
+                                         smem, st);
+  if (rc != 0) return rc;
 
   const int L = p.L, B = p.B, CHp = p.CHp, nmi = p.nmi, nm = p.nm, ny = p.ny;
+  const int tiles = (B + BT - 1) / BT;
   const size_t sB = B, bundle = 4 * H * sB;
   const int xp_split = 3 * H, hh_split = 2 * H;
   const GJob jobs[] = {
@@ -1362,15 +1060,8 @@ int launch_mma(const BwdParams& p, const Grads& g, float* work, int S,
       {p.dom + nm * sB, (nm + ny) * sB, ny, 0, p.meml, nm * sB, 0, nullptr,
        g.dwout, ny, nm},
   };
-  size_t cap = 0;        // the work buffer: S x the largest gradient
-  for (const GJob& jb : jobs) {
-    const size_t MN = static_cast<size_t>(jb.M) * jb.N;
-    if (MN * S > cap) cap = MN * S;
-  }
-  for (const GJob& jb : jobs) {
-    const int rc = gemm(jb, L, B, S, cap, work, st);
-    if (rc != 0) return rc;
-  }
+  const int rg = gemms(jobs, L, B, S, work, st);
+  if (rg != 0) return rg;
   const int PW = 8 * H + nm + ny;
   bias_sum_kernel<<<(PW + 255) / 256, 256, 0, st>>>(
       p.bpart, tiles, H, nm, ny, g.dbin1, g.dbhh_up, g.dbin2, g.dbhh_dn,
@@ -1407,12 +1098,13 @@ extern "C" int bigru_heads_cm_bwd_cudacore(int nslot, void* const* ptrs,
 //   gradients dwin1h [3H, CH], dwin1m [3H, nm_in], dbin1, dwhh_up [3H, H],
 //   dbhh_up, dwin2, dbin2, dwhh_dn, dbhh_dn, dwlat [nm, H], dblat, dwout
 //   [ny, nm], dbout.
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue for
-// shapes outside the design).
+// stream: 1 for the streamed-weights instantiation. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for shapes outside
+// the design).
 extern "C" int bigru_heads_cm_bwd_mma(int nptr, void* const* q, int L,
                                       int CH, int nm_in, int H, int nm,
                                       int ny, int B, int C, int BT, int KXc,
-                                      int S, void* stream) {
+                                      int S, int stream, void* st) {
   using bmma::bf16;
   if (nptr != 48) return static_cast<int>(cudaErrorInvalidValue);
   const auto c = [&](int i) { return static_cast<const bf16*>(q[i]); };
@@ -1426,6 +1118,6 @@ extern "C" int bigru_heads_cm_bwd_mma(int nptr, void* const* q, int L,
                      L, CH, nm_in, H, nm, ny, B, C, BT, KXc};
   b3mma::Grads g{m(35), m(36), m(37), m(38), m(39), m(40), m(41),
                  m(42), m(43), m(44), m(45), m(46), m(47)};
-  return b3mma::launch_mma(p, g, static_cast<float*>(q[34]), S,
-                           static_cast<cudaStream_t>(stream));
+  return b3mma::launch_mma(p, g, static_cast<float*>(q[34]), S, stream,
+                           static_cast<cudaStream_t>(st));
 }

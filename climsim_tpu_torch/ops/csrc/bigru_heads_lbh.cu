@@ -32,8 +32,9 @@
 // out, mem, last_h out; weights) are 0.2-0.6 GB, 0.06-0.18 ms at 3.35 TB/s.
 // So it is bound by operations.
 //
-// What this first design does about it: it is B1's design (bigru_heads_
-// init_cm.cu), re-indexed batch-major: a CUDA-core FMA kernel (f32
+// What the CUDA-core design does about it (B9 in both types, B10 in f32):
+// it is B1's CUDA-core design (bigru_heads_init_cm.cu), re-indexed
+// batch-major: a CUDA-core FMA kernel (f32
 // accumulation of dt products; floor ~18 ms at the card's 67 TFLOP/s f32
 // FMA rate), one block per tile of BT columns walking all L levels of both
 // sweeps in an in-kernel loop (the TPU's sequential grid), 675 tiles at
@@ -49,7 +50,17 @@
 // its columns (zero inputs, nothing stored) instead of padding.
 // Built without --use_fast_math: expf/tanhf keep the 60-level recurrence
 // within tolerance of the plain version.
+//
+// B10 in bf16 (the v4 arm's policy) runs on tensor cores instead: the
+// kernel body of bigru_mma_fwd.cuh (B1's design) in its batch-major
+// instance, the raw inputs read and the heads written [L, B, C], both
+// sweeps' projections kept in f32 as the v4 TPU body keeps them. A CTA's
+// weight slices are resident up to H ~ 320 and streamed beyond
+// (bigru_mma.cuh). Its entry point is bigru_heads_init_lbh_mma at the end
+// of this file; the CUDA-core design's bf16 instance stays callable for
+// timing it against the tensor-core one, and no wrapper selects it.
 #include "bigru_heads_cm.cuh"
+#include "bigru_mma_fwd.cuh"
 
 namespace {
 
@@ -244,4 +255,33 @@ extern "C" int bigru_heads_init_lbh(
            bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
            out, mem, lasth, up, L, nf, ch, nm_in, H, nm, ny, B};
   return dispatch<true>(dtype, p, stream);
+}
+
+// B10 in bf16 on the tensor-core design. ptrs, in order: feat [L, B, nf],
+// mem_in [L, B, nmi], h0u, h0d [H, B] (channel-major), winit [CH][nf],
+// binit [CH], wx_up [C][3H/C][CH + nmi] (the gate slices of W1^T, [out,
+// in]), b1 [3H], wh_up [C][3H/C][H], bh_up [3H], wx_dn (W2^T) and wh_dn
+// like wh_up, b2, bh_dn [3H], wlat [nm8][H] (Wlat^T, rows past nm zero),
+// blat [nm], wout [ny, nm] (Wout^T), bout [ny], out [L, B, ny], mem [L,
+// B, nm], lasth [H, B], up [L, H, B] scratch; H, CH and nmi already padded
+// (H and CH to a multiple of 8 C, nmi to 16). stream: 1 for the
+// streamed-weights instantiation. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for shapes outside the design).
+extern "C" int bigru_heads_init_lbh_mma(void* const* ptrs, int L, int nf,
+                                        int CH, int nmi, int H, int nm,
+                                        int ny, int B, int C, int BT,
+                                        int stream, void* st) {
+  using bmma::bf16;
+  const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
+  const size_t sB = B;
+  bmma::FwdParams p{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8],
+                    c[9], c[10], c[11], c[12], c[13], c[14], c[15], c[16],
+                    c[17], static_cast<bf16*>(ptrs[19]),
+                    static_cast<bf16*>(ptrs[18]), static_cast<bf16*>(ptrs[20]),
+                    static_cast<bf16*>(ptrs[21]),
+                    static_cast<size_t>(nm) * sB, static_cast<size_t>(ny) * sB,
+                    nm, ny,
+                    L, nf, CH, nmi, H, nm, ny, B, C, BT};
+  return bmma::launch_fwd<true, false>(p, stream,
+                                       static_cast<cudaStream_t>(st));
 }

@@ -29,8 +29,9 @@
 // must move (xp, d_down, h0s, d_lasth in; d_xp, dh0s, the gradients out)
 // are ~3.9 GB in f32, 1.16 ms at 3.35 TB/s. So it is bound by operations.
 //
-// What this first design does about it: it runs on the CUDA cores (f32
-// accumulation of dt products), like B7 and B3. The work splits in two:
+// What the CUDA-core design (f32; in bf16 kept only to be timed against
+// the tensor-core one below) does about it: it runs on the CUDA cores
+// (f32 accumulation of dt products), like B7. The work splits in two:
 //   1. bigru_lbh_bwd_kernel: one block per tile of BT columns walks the
 //      three phases in in-kernel loops (the TPU's sequential grid). Phase
 //      A is B7's level (bigru_lbh.cuh) with the gate bundle stored. The
@@ -54,10 +55,18 @@
 //      order and casts. Deterministic: no atomics.
 // The ragged last tile is masked: a pad column reads zero inputs and zero
 // cotangents and nothing of it is stored (the TPU wrapper pads instead).
-// Tensor cores are later work.
 // Built without --use_fast_math: expf/tanhf keep the 100-level recurrence
 // within tolerance of the plain version.
+//
+// bf16 (the v4 arm's training backward, and the v2 arms') runs the
+// tensor-core design at the end of this file: B3's (bigru_mma_bwd.cuh)
+// without the heads. At the v4 shapes (L 60, H 192, B 21,600) its bound
+// is 27 H^2 multiply-adds per column and level at the 989 TFLOP/s bf16
+// peak, 2.6 ms; what it keeps from the CUDA-core design is the order of
+// the phases, and what it drops are the f32 [L, B, 3H] gradient streams
+// (3 x 3 GB at those shapes) and the CUDA-core reductions over them.
 #include "bigru_lbh.cuh"
+#include "bigru_mma_bwd.cuh"
 
 namespace {
 
@@ -463,4 +472,362 @@ extern "C" int bigru_lbh_bwd(int dtype, int nslot, void* const* ptrs, int L,
   if (dtype == 0) return launch<float>(p, S, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, S, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The CUDA-core design in bf16 under a second name, kept to time it
+// against the tensor-core design; no wrapper selects it.
+extern "C" int bigru_lbh_bwd_cudacore(int nslot, void* const* ptrs, int L,
+                                      int H, int B, int S, void* stream) {
+  return bigru_lbh_bwd(1, nslot, ptrs, L, H, B, S, stream);
+}
+
+// ------------------------------------------------ bf16: tensor-core design
+//
+// B3's design (bigru_heads_cm_bwd.cu) on the v2 backward, which has no
+// initial MLP, heads or input projection of the up sweep:
+//   1. b8_mma_kernel: a cluster of C CTAs owns a tile of BT columns, CTA r
+//      hidden units [r Hc, (r + 1) Hc). Phase A replays the up sweep on
+//      the given projection xp (read batch-major at the thread's fragment
+//      positions a level ahead; no product) and the down sweep with the
+//      projection W2 dt(up_l) + b2 kept f32 (gru_level<false>), storing h
+//      and the gate bundle (bf16, channel-major scratch). Phase B1 runs
+//      the down-sweep BPTT with d_down_l added to the carried gradient
+//      (read batch-major at the fragment positions) and the transposed
+//      products Whh_dn^T dt(d_hh) and W2^T dt(d_xp) (d_up, f32); phase B2
+//      the up-sweep BPTT from a zero carry, adding d_up_l, writing d_xp_l
+//      = dt([dar; daz; dan]) batch-major and forming Whh_up^T dt(d_hh).
+//      The transposed slices [Hc][3H] stay resident for the phase (or
+//      stream through the ring); the rounded bundles overwrite the gates.
+//   2. wgrad_mma_kernel: dWhh_up, dWin2 and dWhh_dn (in the [out, in]
+//      layout; the wrapper transposes the three [3H, H] results) as bf16
+//      GEMMs over the L x B contraction on the stored bundles and states,
+//      and bias_sum_kernel the three bias gradients from the tiles' f32
+//      partials. No atomics: two calls are bit-identical.
+namespace bmma {
+namespace b8 {
+
+struct Params {
+  const bf16 *xp, *h0u, *h0d, *dd, *dlh;
+  const bf16 *wh_up, *bh_up, *wx_dn, *b2, *wh_dn, *bh_dn;
+  const bf16 *whT_dn, *w2T, *whT_up;
+  bf16 *dxp, *dh0u, *dh0d;
+  bf16 *up_h, *g_h, *gates_u, *gates_d;
+  float *dup, *bpart;
+  int L, H, B, C, BT;
+};
+
+__host__ __device__ inline size_t smem_bytes(int H, int C, int BT,
+                                             bool stream) {
+  const int Hc = H / C;
+  Smem su(nullptr), sd(nullptr), sb(nullptr), sc(nullptr);
+  up_bufs(su, Hc, 0, H, BT, 0, 0, 0, stream);
+  dn_bufs(sd, Hc, H, BT, 0, 0, stream);
+  b_bufs(sb, Hc, H, BT, 0, 0, 0, Hc, false, stream);
+  b_bufs(sc, Hc, H, BT, 0, 0, 0, 0, false, stream);
+  size_t m = su.off;
+  if (sd.off > m) m = sd.off;
+  if (sb.off > m) m = sb.off;
+  if (sc.off > m) m = sc.off;
+  return m;
+}
+
+// The up sweep's projection of one level, xp_l [B, 3H] batch-major, at the
+// thread's fragment positions (pairs of neighbouring hidden units), f32,
+// zero past B: loaded into registers a level ahead of use.
+struct XpPF {
+  float v[3][MAXP][4];
+  __device__ void fetch(const bf16* xp_l, const Warp& w, const Tiles& tl,
+                        int r, int Hc, int H, int B, int col0) {
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
+        const int col = col0 + w.row(2 * h);
+        const bool ok = tl.on[i] && col < B;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          float2 f = make_float2(0.0f, 0.0f);
+          if (ok)
+            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                xp_l + static_cast<size_t>(col) * 3 * H + g * H + j));
+          v[g][i][2 * h] = f.x;
+          v[g][i][2 * h + 1] = f.y;
+        }
+      }
+  }
+};
+
+template <bool kStream>
+__global__ void __launch_bounds__(NTH, 1) b8_mma_kernel(Params p) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
+  const int H = p.H, Hc = H / C, L = p.L, B = p.B;
+  const int LDH = H + PAD, LDD = 4 * H + PAD;
+  const int tile = blockIdx.x / C, col0 = tile * BT;
+  const size_t sB = B, lvH = static_cast<size_t>(H) * B;
+  float* part = p.bpart + static_cast<size_t>(tile) * 8 * H;
+  const Warp w(BT);
+  const Tiles tl(w, Hc / 8);
+  extern __shared__ __align__(16) char smem_raw[];
+
+  // ---- phase A: replay the up sweep (surface to top), then the down
+  {
+    GruRegs R;
+    Smem s(smem_raw);
+    const UpBufs u = up_bufs(s, Hc, 0, H, BT, 0, 0, 0, kStream);
+    const bf16* gh = p.wh_up + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(u.wh, gh, 3 * Hc, H);
+    const WSlice whu = slice<kStream>(u.wh, gh, H);
+    load_tile_t(u.h, LDH, p.h0u, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, nullptr, p.bh_up, p.h0u, B, col0);
+    const auto xp_l = [&](int l) { return p.xp + static_cast<size_t>(l) * sB * 3 * H; };
+    XpPF xq;
+    xq.fetch(xp_l(L - 1), w, tl, r, Hc, H, B, col0);
+    cp_async_wait_all();
+    __syncthreads();
+    cl.sync();
+    int cur = 0;
+    for (int s_ = 0; s_ < L; ++s_) {
+      const int l = L - 1 - s_;
+      bf16* hc = u.h + cur * BT * LDH;
+      bf16* hn = u.h + (cur ^ 1) * BT * LDH;
+      float ar[MAXP][4], az[MAXP][4], an[MAXP][4];
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[i][q] = xq.v[0][i][q];
+          az[i][q] = xq.v[1][i][q];
+          an[i][q] = xq.v[2][i][q];
+        }
+      if (l > 0) xq.fetch(xp_l(l - 1), w, tl, r, Hc, H, B, col0);
+      if (s_ > 0)
+        store_tile_t(p.up_h + (l + 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
+                     Hc, B, col0, BT);
+      gru_rec<kStream>(cl, R, ar, az, an, hc, whu, LDH, H, Hc, hn, w, tl, r,
+                       p.gates_u + l * 4 * lvH, B, col0, u.ring);
+      cl.sync();
+      cur ^= 1;
+    }
+    store_tile_t(p.up_h + r * Hc * sB, u.h + cur * BT * LDH, LDH, r * Hc, Hc,
+                 B, col0, BT);
+    cl.sync();
+
+    Smem s2(smem_raw);
+    const DnBufs d = dn_bufs(s2, Hc, H, BT, 0, 0, kStream);
+    const bf16* gx2 = p.wx_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    const bf16* gh2 = p.wh_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(d.wx, gx2, 3 * Hc, H);
+    load_slice<kStream>(d.wh, gh2, 3 * Hc, H);
+    const WSlice wxd = slice<kStream>(d.wx, gx2, H);
+    const WSlice whd = slice<kStream>(d.wh, gh2, H);
+    load_tile_t(d.h, LDH, p.h0d, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, p.b2, p.bh_dn, p.h0d, B, col0);
+    ChunkPF cp;
+    cp.fetch(p.up_h, H, nullptr, r * Hc, (r + 1) * Hc, B, col0, BT);
+    cp.commit(d.x, LDH, r * Hc, (r + 1) * Hc, BT);
+    cp_async_wait_all();
+    __syncthreads();
+    bcast_cols(cl, d.x, LDH, r * Hc, Hc, BT);
+    cl.sync();
+    cur = 0;
+    for (int l = 0; l < L; ++l) {
+      const bool more = l + 1 < L;
+      bf16* hc = d.h + cur * BT * LDH;
+      bf16* hn = d.h + (cur ^ 1) * BT * LDH;
+      bf16* xc = d.x + cur * BT * LDH;
+      bf16* xn = d.x + (cur ^ 1) * BT * LDH;
+      if (more)
+        cp.fetch(p.up_h + (l + 1) * lvH, H, nullptr, r * Hc, (r + 1) * Hc, B,
+                 col0, BT);
+      if (l > 0)
+        store_tile_t(p.g_h + (l - 1) * lvH + r * Hc * sB, hc, LDH, r * Hc,
+                     Hc, B, col0, BT);
+      gru_level<false, kStream>(cl, R, xc, LDH, H, wxd, hc, whd, LDH, H, Hc,
+                                hn, w, tl, r, p.gates_d + l * 4 * lvH, B,
+                                col0, d.ring);
+      if (more) {
+        cp.commit(xn, LDH, r * Hc, (r + 1) * Hc, BT);
+        __syncthreads();
+        bcast_cols(cl, xn, LDH, r * Hc, Hc, BT);
+      }
+      cl.sync();
+      cur ^= 1;
+    }
+    store_tile_t(p.g_h + (L - 1) * lvH + r * Hc * sB, d.h + cur * BT * LDH,
+                 LDH, r * Hc, Hc, B, col0, BT);
+    cl.sync();
+  }
+
+  float bp[4][MAXP][2];
+  // ---- phase B1: down-sweep BPTT (surface to top)
+  {
+    Smem s(smem_raw);
+    const BBufs bb = b_bufs(s, Hc, H, BT, 0, 0, 0, Hc, false, kStream);
+    const bf16* gwh = p.whT_dn + static_cast<size_t>(r) * Hc * 3 * H;
+    const bf16* gwu = p.w2T + static_cast<size_t>(r) * Hc * 3 * H;
+    load_slice<kStream>(bb.wh, gwh, Hc, 3 * H);
+    load_slice<kStream>(bb.wu, gwu, Hc, 3 * H);
+    const WSlice wh = slice<kStream>(bb.wh, gwh, 3 * H);
+    const WSlice wu = slice<kStream>(bb.wu, gwu, 3 * H);
+    float dh[MAXP][4];
+    load_frag(dh, p.dlh, w, tl, r, Hc, B, col0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) bp[k][i][0] = bp[k][i][1] = 0.0f;
+    cp_async_wait_all();
+    __syncthreads();
+    cluster_arrive();
+    for (int l = L - 1; l >= 0; --l) {
+      cluster_wait();       // every CTA has read the last level's bundle
+      gru_bwd(dh, AddBM{p.dd + l * lvH, H}, p.gates_d + l * 4 * lvH,
+              l > 0 ? p.g_h + (l - 1) * lvH : p.h0d, bb.D, LDD, bp, w, tl, r,
+              Hc, H, B, col0);
+      __syncthreads();
+      for (int k = 0; k < 4; ++k) bcast_cols(cl, bb.D, LDD, k * H + r * Hc, Hc, BT);
+      cl.sync();
+      // dh2_prev = dh2 z + Whh_dn^T dt(d_hh); d_up = W2^T dt(d_xp)
+      float ah[MAXP][4], au[MAXP][4];
+      zero_acc(ah);
+      zero_acc(au);
+      warp_mma<kStream>(ah, bb.D, LDD, wh, 0, Hc, w, tl, 2 * H, bb.ring);
+      warp_mma<kStream>(ah, bb.D + 3 * H, LDD, wh, 2 * H, Hc, w, tl, H,
+                        bb.ring);
+      warp_mma<kStream>(au, bb.D, LDD, wu, 0, Hc, w, tl, 3 * H, bb.ring);
+      float* dup_l = p.dup + l * lvH;
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dh[i][q] += ah[i][q];
+          const int j = r * Hc + w.col(tl.nt[i] * 8, q), col = col0 + w.row(q);
+          if (tl.on[i] && col < B) dup_l[j * sB + col] = au[i][q];
+        }
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_frag(p.dh0d, dh, w, tl, r, Hc, B, col0);
+    reduce_bias(bp, bb.red, part + 4 * H, w, tl, r, Hc, H, BT);
+    cl.sync();
+  }
+
+  // ---- phase B2: up-sweep BPTT (top to surface) from a zero carry
+  {
+    Smem s(smem_raw);
+    const BBufs bc = b_bufs(s, Hc, H, BT, 0, 0, 0, 0, false, kStream);
+    const bf16* gwh = p.whT_up + static_cast<size_t>(r) * Hc * 3 * H;
+    load_slice<kStream>(bc.wh, gwh, Hc, 3 * H);
+    const WSlice wh = slice<kStream>(bc.wh, gwh, 3 * H);
+    float du[MAXP][4];
+    zero_acc(du);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) bp[k][i][0] = bp[k][i][1] = 0.0f;
+    cp_async_wait_all();
+    __syncthreads();
+    cluster_arrive();
+    for (int l = 0; l < L; ++l) {
+      cluster_wait();
+      gru_bwd(du, AddCM{p.dup + l * lvH, sB}, p.gates_u + l * 4 * lvH,
+              l < L - 1 ? p.up_h + (l + 1) * lvH : p.h0u, bc.D, LDD, bp, w,
+              tl, r, Hc, H, B, col0, p.dxp + l * sB * 3 * H);
+      __syncthreads();
+      // the product reads d_hh = [dar; daz; dhn]: bundle blocks 0, 1, 3
+      for (int k = 0; k < 4; ++k)
+        if (k != 2) bcast_cols(cl, bc.D, LDD, k * H + r * Hc, Hc, BT);
+      cl.sync();
+      // du_prev = du z + Whh_up^T dt(d_hh)
+      float ah[MAXP][4];
+      zero_acc(ah);
+      warp_mma<kStream>(ah, bc.D, LDD, wh, 0, Hc, w, tl, 2 * H, bc.ring);
+      warp_mma<kStream>(ah, bc.D + 3 * H, LDD, wh, 2 * H, Hc, w, tl, H,
+                        bc.ring);
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) du[i][q] += ah[i][q];
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_frag(p.dh0u, du, w, tl, r, Hc, B, col0);
+    reduce_bias(bp, bc.red, part, w, tl, r, Hc, H, BT);
+  }
+  cl.sync();   // no CTA leaves while another may still address its smem
+}
+
+struct Grads {
+  bf16 *dwhh_up, *dbhh_up, *dwin2, *dbin2, *dwhh_dn, *dbhh_dn;
+};
+
+int launch(const Params& p, const Grads& g, float* work, int S, int stream,
+           cudaStream_t st) {
+  const int C = p.C, BT = p.BT, H = p.H;
+  if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
+      H % (8 * C) != 0 || H / C / 8 > NW / (BT / 16) * MAXP ||
+      H / C / 8 * BT > MAXI * NTH || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(H, C, BT, stream != 0);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = stream ? launch_cluster(b8_mma_kernel<true>, p, C, BT, p.B,
+                                         smem, st)
+                        : launch_cluster(b8_mma_kernel<false>, p, C, BT, p.B,
+                                         smem, st);
+  if (rc != 0) return rc;
+  const int L = p.L, B = p.B, tiles = (B + BT - 1) / BT;
+  const size_t sB = B, bundle = 4 * H * sB;
+  const GJob jobs[] = {
+      {p.gates_u, bundle, 2 * H, H, p.up_h, H * sB, 1, p.h0u, g.dwhh_up,
+       3 * H, H},
+      {p.gates_d, bundle, 3 * H, 0, p.up_h, H * sB, 0, nullptr, g.dwin2,
+       3 * H, H},
+      {p.gates_d, bundle, 2 * H, H, p.g_h, H * sB, -1, p.h0d, g.dwhh_dn,
+       3 * H, H},
+  };
+  const int rg = gemms(jobs, L, B, S, work, st);
+  if (rg != 0) return rg;
+  bias_sum_kernel<<<(8 * H + 255) / 256, 256, 0, st>>>(
+      p.bpart, tiles, H, 0, 0, nullptr, g.dbhh_up, g.dbin2, g.dbhh_dn,
+      nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace b8
+}  // namespace bmma
+
+// bf16 tensor-core design. ptrs, in order (H already padded to a multiple
+// of 8 C, every tensor's gate blocks with it):
+//   xp [L, B, 3H], h0u, h0d [H, B] (channel-major), d_down [L, B, H],
+//   d_lasth [H, B] (channel-major);
+//   wh_up [C][3H/C][H] (the gate slices of Whh_up^T, [out, in]), bh_up
+//   [3H], wx_dn (W2^T) and wh_dn like wh_up, b2, bh_dn [3H];
+//   whT_dn, w2T, whT_up [C][H/C][3H] (the input-row slices of Whh_dn, W2
+//   and Whh_up, [in, out]);
+//   d_xp [L, B, 3H], dh0u, dh0d [H, B] (channel-major);
+//   scratch up_h, g_h [L, H, B], gates_u, gates_d [L, 4H, B] (bf16), d_up
+//   [L, H, B] f32, bias partials [tiles, 8H] f32, work [S x 3H x H] f32;
+//   gradients dwhh_up^T [3H, H], dbhh_up [3H], dwin2^T, dbin2, dwhh_dn^T,
+//   dbhh_dn.
+// stream: 1 for the streamed-weights instantiation. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for shapes outside
+// the design).
+extern "C" int bigru_lbh_bwd_mma(int nptr, void* const* q, int L, int H,
+                                 int B, int C, int BT, int S, int stream,
+                                 void* st) {
+  using bmma::bf16;
+  if (nptr != 30) return static_cast<int>(cudaErrorInvalidValue);
+  const auto c = [&](int i) { return static_cast<const bf16*>(q[i]); };
+  const auto m = [&](int i) { return static_cast<bf16*>(q[i]); };
+  bmma::b8::Params p{c(0), c(1), c(2), c(3), c(4),
+                     c(5), c(6), c(7), c(8), c(9), c(10),
+                     c(11), c(12), c(13),
+                     m(14), m(15), m(16),
+                     m(17), m(18), m(19), m(20),
+                     static_cast<float*>(q[21]), static_cast<float*>(q[22]),
+                     L, H, B, C, BT};
+  bmma::b8::Grads g{m(24), m(25), m(26), m(27), m(28), m(29)};
+  return bmma::b8::launch(p, g, static_cast<float*>(q[23]), S, stream,
+                          static_cast<cudaStream_t>(st));
 }

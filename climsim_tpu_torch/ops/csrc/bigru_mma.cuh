@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the bf16 v6/v5 BiGRU kernels: the v6
-// forward (bigru_heads_init_cm.cu, B1) and the channel-major backward
-// (bigru_heads_cm_bwd.cu, B3).
+// Tensor-core building blocks of the bf16 BiGRU kernels: the fused
+// forward of bigru_mma_fwd.cuh (v6, B1 in bigru_heads_init_cm.cu; v4, B10
+// in bigru_heads_lbh.cu) and the backward of bigru_mma_bwd.cuh (v6/v5, B3
+// in bigru_heads_cm_bwd.cu; v2, B8 in bigru_lbh_bwd.cu).
 //
 // A column tile of BT columns is owned by a thread-block cluster of C
 // CTAs; CTA r owns hidden units [r Hc, (r + 1) Hc), Hc = H / C. Products
@@ -20,6 +21,18 @@
 // (f32 h, or dh in the backward) sits in the fragments of those tiles,
 // so each thread keeps it in registers; the wrappers choose (C, BT) so
 // that one pass of MAXP tiles per warp covers a CTA's Hc / 8 tiles.
+//
+// Weights: a CTA's slices of a sweep's weights stay resident in shared
+// memory where they fit (kStream false; H 192: 3 x 48 x 200 bf16 each).
+// From H ~ 320 on they do not, next to the state and input tiles, so the
+// streamed mode (kStream true, chosen by the wrappers' plan from the
+// widths alone) keeps them in global memory, where every cluster reads
+// the same few MB out of L2, and each product stages its weight slice
+// through a double-buffered ring of [rows][KC] k-chunks in shared memory:
+// cp.async fills chunk c + 1 while the warps run chunk c. The state stays
+// in the fragments either way; the products, and so the results, are the
+// same sums in the same order (a streamed chunk is consumed by the same
+// k-steps as the resident slice).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -41,6 +54,7 @@ constexpr int PAD = 8;          // bf16 elements of padding per smem row
 constexpr int PF = 8;           // prefetched tile elements per thread
 constexpr int MAXI = 2;         // prefetched 8-row chunks per thread
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory per CTA
+constexpr int KC = 64;          // k-chunk of a streamed weight slice
 
 __device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float rnd(float x) {
@@ -92,6 +106,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // the two halves of a cluster barrier, for a barrier whose wait can be
 // deferred past independent work
@@ -171,39 +192,110 @@ __device__ __forceinline__ void k_loop(const bf16* A, int lda, const bf16* W,
   }
 }
 
-// acc[i] += A[m0:m0+16][0:K] W[n0 + 8 nt[i] : +8][0:K]^T for the tiles
-// that are on; A [.][lda] and W [.][ldw] bf16 in shared memory.
+// A CTA's slice of a weight, [rows][K] in the [out, in] layout: resident
+// in shared memory (row stride K + PAD), or, in the streamed mode, in
+// global memory (row stride K), staged through the ring by the products.
+struct WSlice {
+  const bf16* p;
+  int ld;
+};
+
+// rows x kc bf16 of a global [rows][ld] slice from column k0 into a ring
+// slot [rows][KC + PAD], with cp.async (kc and k0 multiples of 8)
+__device__ __forceinline__ void stage_chunk(bf16* slot, const bf16* W, int ld,
+                                            int k0, int rows, int kc) {
+  const int cpr = kc / 8;
+  for (int e = threadIdx.x; e < rows * cpr; e += NTH) {
+    const int rr = e / cpr, c = e % cpr;
+    cp_async16(slot + rr * (KC + PAD) + c * 8,
+               W + static_cast<size_t>(rr) * ld + k0 + c * 8);
+  }
+}
+
+// The k-loop of a product over K inputs (a multiple of 16): A [.][lda]
+// from column 0, the weight slice W (rows [nrows], gate g at rows g grows)
+// from column wk0. Resident: k_loop on the slice. Streamed: the slice's
+// columns [wk0, wk0 + K) in KC-wide chunks through the two ring slots,
+// chunk c + 1 loading while chunk c runs; every thread of the CTA calls
+// it (it synchronises the CTA), and no other cp.async is in flight.
+template <bool kStream, int G, typename Run>
+__device__ __forceinline__ void k_run(const bf16* A, int lda, WSlice W,
+                                      int wk0, int grows, int nrows, int K,
+                                      bf16* ring, const Warp& w,
+                                      const Tiles& tl, Run run) {
+  if constexpr (!kStream) {
+    k_loop<G>(A, lda, W.p + wk0, W.ld, grows * W.ld, w, tl, K, run);
+  } else {
+    constexpr int LDR = KC + PAD;
+    const int nch = (K + KC - 1) / KC;
+    const size_t slot = static_cast<size_t>(nrows) * LDR;
+    stage_chunk(ring, W.p, W.ld, wk0, nrows, K < KC ? K : KC);
+    cp_async_commit();
+    for (int c = 0; c < nch; ++c) {
+      const int kc = K - c * KC < KC ? K - c * KC : KC;
+      if (c + 1 < nch) {
+        const int kn = K - (c + 1) * KC < KC ? K - (c + 1) * KC : KC;
+        stage_chunk(ring + ((c + 1) & 1) * slot, W.p, W.ld,
+                    wk0 + (c + 1) * KC, nrows, kn);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      k_loop<G>(A + c * KC, lda, ring + (c & 1) * slot, LDR, grows * LDR, w,
+                tl, kc, run);
+      __syncthreads();
+    }
+  }
+}
+
+// acc[i] += A[m0:m0+16][0:K] W[8 nt[i] : +8][wk0 : wk0 + K]^T for the
+// tiles that are on; A [.][lda] bf16 in shared memory, W a slice of nrows
+// rows.
+template <bool kStream>
 __device__ __forceinline__ void warp_mma(float (&acc)[MAXP][4],
-                                         const bf16* A, int lda,
-                                         const bf16* W, int ldw, int n0,
-                                         const Warp& w, const Tiles& tl,
-                                         int K) {
-  k_loop<1>(A, lda, W + n0 * ldw, ldw, 0, w, tl, K,
-            [&](const Frag<1>& f) {
+                                         const bf16* A, int lda, WSlice W,
+                                         int wk0, int nrows, const Warp& w,
+                                         const Tiles& tl, int K, bf16* ring) {
+  k_run<kStream, 1>(A, lda, W, wk0, 0, nrows, K, ring, w, tl,
+                    [&](const Frag<1>& f) {
 #pragma unroll
-              for (int i = 0; i < MAXP; ++i)
-                if (tl.on[i]) mma(acc[i], f.a, f.b[i][0]);
-            });
+                      for (int i = 0; i < MAXP; ++i)
+                        if (tl.on[i]) mma(acc[i], f.a, f.b[i][0]);
+                    });
 }
 
 // The three gate blocks of a GRU product at once: o_g[i] += A W_g^T with
-// W_g the rows [g Hc, (g + 1) Hc) of a CTA's [3 Hc][K] weight slice.
+// W_g the rows [g Hc, (g + 1) Hc) of a CTA's [3 Hc][K] weight slice. A
+// sweep keeps its resident slices with the row stride of the activation
+// tile they multiply (K + PAD), so the resident k-loop addresses both with
+// lda: with one stride for both operands the compiler shares their
+// address arithmetic in the hot loop (PERF.md §6).
+template <bool kStream>
 __device__ __forceinline__ void warp_mma3(float (&o0)[MAXP][4],
                                           float (&o1)[MAXP][4],
                                           float (&o2)[MAXP][4],
-                                          const bf16* A, int lda,
-                                          const bf16* W, int ldw, int Hc,
-                                          const Warp& w, const Tiles& tl,
-                                          int K) {
-  k_loop<3>(A, lda, W, ldw, Hc * ldw, w, tl, K, [&](const Frag<3>& f) {
+                                          const bf16* A, int lda, WSlice W,
+                                          int Hc, const Warp& w,
+                                          const Tiles& tl, int K,
+                                          bf16* ring) {
+  if constexpr (!kStream) W.ld = lda;
+  k_run<kStream, 3>(A, lda, W, 0, Hc, 3 * Hc, K, ring, w, tl,
+                    [&](const Frag<3>& f) {
 #pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      if (!tl.on[i]) continue;
-      mma(o0[i], f.a, f.b[i][0]);
-      mma(o1[i], f.a, f.b[i][1]);
-      mma(o2[i], f.a, f.b[i][2]);
-    }
-  });
+                      for (int i = 0; i < MAXP; ++i) {
+                        if (!tl.on[i]) continue;
+                        mma(o0[i], f.a, f.b[i][0]);
+                        mma(o1[i], f.a, f.b[i][1]);
+                        mma(o2[i], f.a, f.b[i][2]);
+                      }
+                    });
+}
+
+// Elements of a ring of two [rows][KC + PAD] slots (none when resident)
+__host__ __device__ inline size_t ring_elems(bool stream, int rows) {
+  return stream ? static_cast<size_t>(2) * rows * (KC + PAD) : 0;
 }
 
 template <int N>
@@ -318,26 +410,32 @@ struct ChunkPF {
   }
 };
 
-// A [rows, B] channel-major tile of one level that stacks s1 [n1, B] over
-// s2, f32, loaded into registers ahead of use (fetch) and stored as
+// A [rows, B] tile of one level that stacks s1 [n1, B] over s2 [rows -
+// n1, B], f32, loaded into registers ahead of use (fetch) and stored as
 // [rows][BT] f32 in shared memory (commit); the launchers refuse shapes
-// with more than PF elements a thread.
+// with more than PF elements a thread. The level is channel-major, or
+// with kBM batch-major: s1 [B, n1] and s2 [B, rows - n1].
 struct RawPF {
   float v[PF];
-  __device__ static float ld(const bf16* s1, int n1, const bf16* s2, int e,
-                             int B, int col0, int BT) {
+  template <bool kBM>
+  __device__ static float ld(const bf16* s1, int n1, const bf16* s2,
+                             int rows, int e, int B, int col0, int BT) {
     const int k = e / BT, col = col0 + e % BT;
     if (col >= B) return 0.0f;
-    const bf16* p = k < n1 ? s1 + static_cast<size_t>(k) * B
-                           : s2 + static_cast<size_t>(k - n1) * B;
-    return b2f(p[col]);
+    const size_t c = col;
+    if constexpr (kBM)
+      return b2f(k < n1 ? s1[c * n1 + k] : s2[c * (rows - n1) + k - n1]);
+    else
+      return b2f(k < n1 ? s1[static_cast<size_t>(k) * B + c]
+                        : s2[static_cast<size_t>(k - n1) * B + c]);
   }
+  template <bool kBM = false>
   __device__ void fetch(const bf16* s1, int n1, const bf16* s2, int rows,
                         int B, int col0, int BT) {
 #pragma unroll
     for (int i = 0; i < PF; ++i) {
       const int e = threadIdx.x + i * NTH;
-      v[i] = e < rows * BT ? ld(s1, n1, s2, e, B, col0, BT) : 0.0f;
+      v[i] = e < rows * BT ? ld<kBM>(s1, n1, s2, rows, e, B, col0, BT) : 0.0f;
     }
   }
   __device__ void commit(float* dst, int rows, int BT) const {
@@ -376,43 +474,65 @@ struct Smem {
 
 
 // ---------------------------------------------------------------- sweeps
-// Shared-memory layouts of a forward sweep (B1, and B3's replay): the
-// CTA's weight slices, the double-buffered dt(h) [2][BT][H] and level
-// input [2][BT][KX]. The up sweep adds the f32 raw inputs of a level and
-// the CTA's initial-MLP slice (B1 only: nraw, nf > 0); the down sweep
-// the latent head's weight [nm8][H], an f32 [BT][nm8] scratch and the
-// heads' small f32 parameters [blat; wout; bout] (nhw of them).
+// Shared-memory layouts of a forward sweep (B1, B10, and B3's and B8's
+// replay): the CTA's weight slices (resident) or the ring they stream
+// through (rows 3 Hc), the double-buffered dt(h) [2][BT][H] and level
+// input [2][BT][KX] (KX 0: B8's up sweep takes its projection from global
+// memory). The up sweep adds the f32 raw inputs of a level and the CTA's
+// slice of the initial MLP (CHc of its rows; forward only: nraw, nf > 0);
+// the down sweep the latent head's weight [nm8][H], an f32 [BT][nm8]
+// scratch and the heads' small f32 parameters [blat; wout; bout] (nhw of
+// them).
 struct UpBufs {
-  bf16 *wx, *wh, *h, *x;
+  bf16 *wx, *wh, *h, *x, *ring;
   float *raw, *wi, *bi;
 };
 __host__ __device__ inline UpBufs up_bufs(Smem& s, int Hc, int KX, int H,
-                                          int BT, int nraw, int nf) {
+                                          int BT, int nraw, int nf, int CHc,
+                                          bool stream) {
   UpBufs u;
-  u.wx = s.take<bf16>(static_cast<size_t>(3 * Hc) * (KX + PAD));
-  u.wh = s.take<bf16>(static_cast<size_t>(3 * Hc) * (H + PAD));
+  const size_t res = stream ? 0 : 3 * Hc;
+  u.wx = s.take<bf16>(res * (KX > 0 ? KX + PAD : 0));
+  u.wh = s.take<bf16>(res * (H + PAD));
+  u.ring = s.take<bf16>(ring_elems(stream, 3 * Hc));
   u.h = s.take<bf16>(static_cast<size_t>(2 * BT) * (H + PAD));
-  u.x = s.take<bf16>(static_cast<size_t>(2 * BT) * (KX + PAD));
+  u.x = s.take<bf16>(static_cast<size_t>(2 * BT) * (KX > 0 ? KX + PAD : 0));
   u.raw = s.take<float>(static_cast<size_t>(nraw) * BT);
-  u.wi = s.take<float>(static_cast<size_t>(Hc) * nf);
-  u.bi = s.take<float>(nf > 0 ? Hc : 0);
+  u.wi = s.take<float>(static_cast<size_t>(CHc) * nf);
+  u.bi = s.take<float>(nf > 0 ? CHc : 0);
   return u;
 }
 struct DnBufs {
-  bf16 *wx, *wh, *h, *x, *wl;
+  bf16 *wx, *wh, *h, *x, *wl, *ring;
   float *mem, *hw;
 };
 __host__ __device__ inline DnBufs dn_bufs(Smem& s, int Hc, int H, int BT,
-                                          int nm8, int nhw) {
+                                          int nm8, int nhw, bool stream) {
   DnBufs d;
-  d.wx = s.take<bf16>(static_cast<size_t>(3 * Hc) * (H + PAD));
-  d.wh = s.take<bf16>(static_cast<size_t>(3 * Hc) * (H + PAD));
+  const size_t res = stream ? 0 : 3 * Hc;
+  d.wx = s.take<bf16>(res * (H + PAD));
+  d.wh = s.take<bf16>(res * (H + PAD));
+  d.ring = s.take<bf16>(ring_elems(stream, 3 * Hc));
   d.h = s.take<bf16>(static_cast<size_t>(2 * BT) * (H + PAD));
   d.x = s.take<bf16>(static_cast<size_t>(2 * BT) * (H + PAD));
   d.wl = s.take<bf16>(static_cast<size_t>(nm8) * (H + PAD));
   d.mem = s.take<float>(static_cast<size_t>(BT) * nm8);
   d.hw = s.take<float>(nhw);
   return d;
+}
+
+// A sweep's weight slice: the resident copy in shared memory (row stride
+// K + PAD), or in the streamed mode the global one (stride K)
+template <bool kStream>
+__device__ __forceinline__ WSlice slice(const bf16* smem, const bf16* glob,
+                                        int K) {
+  return kStream ? WSlice{glob, K} : WSlice{smem, K + PAD};
+}
+// the resident copy's load (nothing to do when streamed); the caller waits
+template <bool kStream>
+__device__ __forceinline__ void load_slice(bf16* smem, const bf16* glob,
+                                           int rows, int K) {
+  if constexpr (!kStream) load_rows(smem, K + PAD, glob, rows, K);
 }
 
 // A thread's registers over a sweep: the f32 state h and the input and
@@ -422,8 +542,8 @@ struct GruRegs {
   float bx[3][MAXP][2], bh[3][MAXP][2];
 };
 
-// h from h0 [H, B] and the biases bx, bh [3H] at the thread's fragment
-// positions of CTA r's hidden units
+// h from h0 [H, B] and the biases bx (none: zero), bh [3H] at the
+// thread's fragment positions of CTA r's hidden units
 __device__ __forceinline__ void gru_regs_init(GruRegs& R, const Warp& w,
                                               const Tiles& tl, int r, int Hc,
                                               int H, const bf16* bx,
@@ -442,49 +562,33 @@ __device__ __forceinline__ void gru_regs_init(GruRegs& R, const Warp& w,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = r * Hc + w.col(tl.nt[i] * 8, e);
-        R.bx[g][i][e] = tl.on[i] ? b2f(bx[g * H + j]) : 0.0f;
+        R.bx[g][i][e] = tl.on[i] && bx != nullptr ? b2f(bx[g * H + j]) : 0.0f;
         R.bh[g][i][e] = tl.on[i] ? b2f(bh[g * H + j]) : 0.0f;
       }
   }
 }
 
-// One GRU level of CTA r's hidden units over the tile: xp = X Wx^T + bx
-// (rounded to bf16 with kRoundXP, as the v6 forward stores it; f32 in the
-// backward's replay), r and z on xp + Whh dt(h) + bh, n = tanh(xp_n +
-// r (Whh_n dt(h) + bh_n)), h = (1 - z) n + z h in f32. dt(h_new) goes to
-// the CTA's own columns of Hnxt [BT][ldh] in every CTA of the cluster
-// (distributed shared memory); with gates (the replay) h's gate bundle
-// [r; z; n; hn] goes to gates [4H, B].
-template <bool kRoundXP>
-__device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
-                                          const bf16* X, int ldx,
-                                          int KX, const bf16* Wx,
-                                          const bf16* Hcur, const bf16* Wh,
-                                          int ldh, int H, int Hc, bf16* Hnxt,
-                                          const Warp& w, const Tiles& tl,
-                                          int r, bf16* gates, int B,
-                                          int col0) {
-  float ar[MAXP][4], az[MAXP][4], an[MAXP][4], hn[MAXP][4];
-  zero_acc(ar);
-  zero_acc(az);
-  zero_acc(an);
+// The recurrent half of a GRU level of CTA r's hidden units over the
+// tile, on the input projection xp = (ar, az, an) at the thread's
+// fragment positions (input bias included): r and z on xp + Whh dt(h) +
+// bh, n = tanh(xp_n + r (Whh_n dt(h) + bh_n)), h = (1 - z) n + z h in f32.
+// dt(h_new) goes to the CTA's own columns of Hnxt [BT][ldh] in every CTA
+// of the cluster (distributed shared memory); with gates (the replay) h's
+// gate bundle [r; z; n; hn] goes to gates [4H, B].
+template <bool kStream>
+__device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
+                                        float (&ar)[MAXP][4],
+                                        float (&az)[MAXP][4],
+                                        const float (&an)[MAXP][4],
+                                        const bf16* Hcur, WSlice Wh, int ldh,
+                                        int H, int Hc, bf16* Hnxt,
+                                        const Warp& w, const Tiles& tl, int r,
+                                        bf16* gates, int B, int col0,
+                                        bf16* ring) {
+  float hn[MAXP][4];
   zero_acc(hn);
-  warp_mma3(ar, az, an, X, ldx, Wx, ldx, Hc, w, tl, KX);
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      ar[i][q] += R.bx[0][i][q & 1];
-      az[i][q] += R.bx[1][i][q & 1];
-      an[i][q] += R.bx[2][i][q & 1];
-      if (kRoundXP) {
-        ar[i][q] = rnd(ar[i][q]);
-        az[i][q] = rnd(az[i][q]);
-        an[i][q] = rnd(an[i][q]);
-      }
-    }
   // r and z take x + hh: the recurrent product accumulates onto x
-  warp_mma3(ar, az, hn, Hcur, ldh, Wh, ldh, Hc, w, tl, H);
+  warp_mma3<kStream>(ar, az, hn, Hcur, ldh, Wh, Hc, w, tl, H, ring);
   const size_t sB = B;
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
@@ -520,6 +624,39 @@ __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
   }
 }
 
+// One GRU level with its input projection: xp = X Wx^T + bx (rounded to
+// bf16 with kRoundXP, as the v6 forward stores it; f32 in the v4 forward
+// and the backward's replays), then gru_rec. X [BT][ldx] with KX inputs.
+template <bool kRoundXP, bool kStream>
+__device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
+                                          const bf16* X, int ldx, int KX,
+                                          WSlice Wx, const bf16* Hcur,
+                                          WSlice Wh, int ldh, int H, int Hc,
+                                          bf16* Hnxt, const Warp& w,
+                                          const Tiles& tl, int r, bf16* gates,
+                                          int B, int col0, bf16* ring) {
+  float ar[MAXP][4], az[MAXP][4], an[MAXP][4];
+  zero_acc(ar);
+  zero_acc(az);
+  zero_acc(an);
+  warp_mma3<kStream>(ar, az, an, X, ldx, Wx, Hc, w, tl, KX, ring);
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ar[i][q] += R.bx[0][i][q & 1];
+      az[i][q] += R.bx[1][i][q & 1];
+      an[i][q] += R.bx[2][i][q & 1];
+      if (kRoundXP) {
+        ar[i][q] = rnd(ar[i][q]);
+        az[i][q] = rnd(az[i][q]);
+        an[i][q] = rnd(an[i][q]);
+      }
+    }
+  gru_rec<kStream>(cl, R, ar, az, an, Hcur, Wh, ldh, H, Hc, Hnxt, w, tl, r,
+                   gates, B, col0, ring);
+}
+
 // The heads' small parameters into shared memory as f32: hw = [blat (nm);
 // wout (ny x nm); bout (ny)], ny 0 for the latent head alone.
 __device__ __forceinline__ void load_heads(float* hw, const bf16* blat,
@@ -532,21 +669,33 @@ __device__ __forceinline__ void load_heads(float* hw, const bf16* blat,
                                           : bout[e - nm - ny * nm]);
 }
 
+// Where a head writes its rows of one level: element (row m, column col)
+// at p[m ld + col] (channel-major [rows, B], ld B) or with kBM at
+// p[col ld + m] (batch-major [B, rows], ld rows); a level holds fewer than
+// 2^31 elements
+template <bool kBM>
+struct HeadOut {
+  bf16* p;
+  int ld;
+  __device__ bf16& at(int m, int col) const {
+    return kBM ? p[col * ld + m] : p[m * ld + col];
+  }
+};
+
 // The latent head on dt(h2) of one level, Hl [BT][ldh], for CTA r's
 // m16 tiles (r, r + C, ...), one warp each: mem = dt(Wlat dt(h2) + blat)
-// into om_mem's rows m < nm ([nm, B], channel-major) and, with om_out,
-// out = dt(Wout mem + bout) into its ny rows. Wl [nm8][ldh] and hw (as
-// load_heads) in shared memory (Wl's rows past nm zero), smem_mem an f32
-// [BT][nm8] scratch.
+// into om_mem's rows m < nm and, with om_out.p, out = dt(Wout mem + bout)
+// into its ny rows. Wl [nm8][ldh] and hw (as load_heads) in shared memory
+// (Wl's rows past nm zero), smem_mem an f32 [BT][nm8] scratch.
+template <bool kBM>
 __device__ __forceinline__ void heads(const bf16* Hl, int ldh, const bf16* Wl,
                                       int H, int nm, int nm8,
                                       const float* hw, int ny,
-                                      float* smem_mem, bf16* om_mem,
-                                      bf16* om_out, int B, int col0, int BT,
-                                      int r, int C) {
+                                      float* smem_mem, HeadOut<kBM> om_mem,
+                                      HeadOut<kBM> om_out, int B, int col0,
+                                      int BT, int r, int C) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const size_t sB = B;
   int k = 0;
   for (int mt = r; mt < BT / 16; mt += C, ++k) {
     if (warp != NW - 1 - (k % NW)) continue;
@@ -567,10 +716,10 @@ __device__ __forceinline__ void heads(const bf16* Hl, int ldh, const bf16* Wl,
         if (m >= nm) continue;
         const float v = rnd(acc[q] + hw[m]);
         smem_mem[b * nm8 + m] = v;
-        if (col0 + b < B) om_mem[m * sB + col0 + b] = __float2bfloat16_rn(v);
+        if (col0 + b < B) om_mem.at(m, col0 + b) = __float2bfloat16_rn(v);
       }
     }
-    if (om_out == nullptr) continue;
+    if (om_out.p == nullptr) continue;
     __syncwarp();
     for (int e = lane; e < 16 * ny; e += 32) {
       const int b = m0 + e % 16, o = e / 16;
@@ -578,11 +727,35 @@ __device__ __forceinline__ void heads(const bf16* Hl, int ldh, const bf16* Wl,
       for (int m = 0; m < nm; ++m)
         a = fmaf(hw[nm + o * nm + m], smem_mem[b * nm8 + m], a);
       if (col0 + b < B)
-        om_out[o * sB + col0 + b] =
-            __float2bfloat16_rn(a + hw[nm + ny * nm + o]);
+        om_out.at(o, col0 + b) = __float2bfloat16_rn(a + hw[nm + ny * nm + o]);
     }
     __syncwarp();
   }
+}
+
+// Launch a cluster kernel of C CTAs a tile over the tiles of B columns
+template <typename P>
+int launch_cluster(void (*kernel)(P), const P& p, int C, int BT, int B,
+                   size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + BT - 1) / BT) * C);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bmma

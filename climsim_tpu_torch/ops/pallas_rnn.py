@@ -383,16 +383,19 @@ def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
 
 
 # --------------------------------------------------------------------------
-# bf16 tensor-core design of B1 and B3 (csrc/bigru_mma.cuh): the cluster
-# plan, the zero-padding of widths the tiling does not divide, and the
-# packing of weights into the CTAs' slices. The constants mirror the CUDA
-# sources.
+# bf16 tensor-core design of B1, B3, B8 and B10 (csrc/bigru_mma.cuh): the
+# cluster plan, the zero-padding of widths the tiling does not divide, and
+# the packing of weights into the CTAs' slices. The constants mirror the
+# CUDA sources.
 # --------------------------------------------------------------------------
 
 _MMA_NTH, _MMA_MAXP, _MMA_PAD, _MMA_PF, _MMA_MAXI = 384, 2, 8, 8, 2
+_MMA_KC = 64            # k-chunk of a streamed weight slice
 _SMEM_MAX = 232448
 # (cluster CTAs C, tile columns BT), in order of preference
 _MMA_CONFIGS = ((4, 64), (4, 32), (8, 64), (8, 32), (8, 16), (4, 16))
+# the widest hidden layer every kind of the design takes (mma_plan)
+MMA_H_MAX = 832
 
 
 def _ceil(a: int, m: int) -> int:
@@ -405,71 +408,103 @@ def _regions(*sizes) -> int:
     return sum(_ceil(n * b, 16) for n, b in sizes)
 
 
-def _up_bytes(Hc, KX, H, BT, nraw, nf):
+def _ring(stream: bool, rows: int) -> int:
+    """Elements of the streamed mode's ring: two [rows][KC + PAD] slots."""
+    return 2 * rows * (_MMA_KC + _MMA_PAD) if stream else 0
+
+
+def _up_bytes(Hc, KX, H, BT, nraw, nf, CHc, stream):
     P = _MMA_PAD
-    return _regions((3 * Hc * (KX + P), 2), (3 * Hc * (H + P), 2),
-                    (2 * BT * (H + P), 2), (2 * BT * (KX + P), 2),
-                    (nraw * BT, 4), (Hc * nf, 4), (Hc if nf else 0, 4))
+    res = 0 if stream else 3 * Hc
+    kx = KX + P if KX else 0
+    return _regions((res * kx, 2), (res * (H + P), 2),
+                    (_ring(stream, 3 * Hc), 2), (2 * BT * (H + P), 2),
+                    (2 * BT * kx, 2), (nraw * BT, 4), (CHc * nf, 4),
+                    (CHc if nf else 0, 4))
 
 
-def _dn_bytes(Hc, H, BT, nm8, nhw):
+def _dn_bytes(Hc, H, BT, nm8, nhw, stream):
     P = _MMA_PAD
-    return _regions((3 * Hc * (H + P), 2), (3 * Hc * (H + P), 2),
-                    (2 * BT * (H + P), 2), (2 * BT * (H + P), 2),
-                    (nm8 * (H + P), 2), (BT * nm8, 4), (nhw, 4))
+    res = 0 if stream else 3 * Hc
+    return _regions((res * (H + P), 2), (res * (H + P), 2),
+                    (_ring(stream, 3 * Hc), 2), (2 * BT * (H + P), 2),
+                    (2 * BT * (H + P), 2), (nm8 * (H + P), 2),
+                    (BT * nm8, 4), (nhw, 4))
 
 
-def _bwd_bytes(Hc, H, BT, nm, ny, KXc, phase_c):
+def _bwd_bytes(Hc, H, BT, nm, ny, wu_rows, heads, stream):
     P, nm16 = _MMA_PAD, _ceil(nm, 16)
     ldt = 3 * H + P
     rows = max(nm + ny, nm16)
-    return _regions((Hc * ldt, 2), ((KXc if phase_c else Hc) * ldt, 2),
-                    (0 if phase_c else Hc * (nm16 + P), 2),
+    return _regions((0 if stream else Hc * ldt, 2),
+                    (0 if stream else wu_rows * ldt, 2),
+                    (_ring(stream, max(Hc, wu_rows)), 2),
+                    (Hc * (nm16 + P) if heads else 0, 2),
                     (BT * (4 * H + P), 2),
-                    (0 if phase_c else BT * (nm16 + P), 2),
-                    (0 if phase_c else rows * BT, 4), (BT // 16 * 4 * Hc, 4))
+                    (BT * (nm16 + P) if heads else 0, 2),
+                    (rows * BT if heads else 0, 4), (BT // 16 * 4 * Hc, 4))
+
+
+def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
+    """Dynamic shared memory of a CTA of the kind's kernel (the largest of
+    its phases), as the CUDA sources lay it out."""
+    nm8 = _ceil(nm, 8)
+    KX = CHp + nmip
+    if kind in ("b1", "b10"):
+        return max(_up_bytes(Hc, KX, Hp, BT, nf, nf, CHp // (Hp // Hc),
+                             stream),
+                   _dn_bytes(Hc, Hp, BT, nm8, nm + ny * nm + ny, stream))
+    if kind == "b3":
+        return max(_up_bytes(Hc, KX, Hp, BT, 0, 0, 0, stream),
+                   _dn_bytes(Hc, Hp, BT, nm8, nm, stream),
+                   _bwd_bytes(Hc, Hp, BT, nm, ny, Hc, True, stream),
+                   _bwd_bytes(Hc, Hp, BT, nm, ny, KXc, False, stream))
+    return max(_up_bytes(Hc, 0, Hp, BT, 0, 0, 0, stream),
+               _dn_bytes(Hc, Hp, BT, 0, 0, stream),
+               _bwd_bytes(Hc, Hp, BT, 0, 0, Hc, False, stream),
+               _bwd_bytes(Hc, Hp, BT, 0, 0, 0, False, stream))
 
 
 def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
              nf: int = 0) -> dict:
-    """The tensor-core design's tiling for B1 (``kind`` "b1") or B3
-    ("b3"): the first (C, BT) of ``_MMA_CONFIGS`` whose CTA fits in shared
-    memory and carries its state in one pass, with the padded widths (H
-    to a multiple of 8 C, CH and nm_in to 16; B1's stream is H wide) and
-    KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Raises
-    ``ValueError`` for widths no tiling holds."""
-    nmip = _ceil(nm_in, 16)
+    """The tensor-core design's tiling for B1 (``kind`` "b1"), B3 ("b3"),
+    B8 ("b8": CH, nm_in, nm, ny unused) or B10 ("b10"): the first (C, BT)
+    of ``_MMA_CONFIGS`` whose CTA carries its state in one pass and fits in
+    shared memory with its weight slices resident; else the first that
+    fits with them streamed through the ring (``stream`` True). With it
+    the padded widths (H to a multiple of 8 C; B1's stream is H wide,
+    B10's CH padded to a multiple of 8 C, B3's CH and nm_in to 16) and
+    KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Every kind takes
+    every H up to ``MMA_H_MAX`` (832) at the flagship's other widths;
+    beyond, where even 16-column tiles over clusters of 8 leave no room
+    for the state and input tiles, it raises ``ValueError``."""
+    nmip = 0 if kind == "b8" else _ceil(nm_in, 16)
     nw = _MMA_NTH // 32
     PF, MAXI = _MMA_PF * _MMA_NTH, _MMA_MAXI * _MMA_NTH
-    for C, BT in _MMA_CONFIGS:
-        Hp = _ceil(H, 8 * C)
-        CHp = Hp if kind == "b1" else _ceil(CH, 16)
-        nwm = BT // 16
-        Hc, nwn = Hp // C, nw // nwm
-        KX = CHp + nmip
-        KXc = _ceil(-(-KX // C), 8)
-        if nw % nwm or Hc // 8 > nwn * _MMA_MAXP or Hc // 8 * BT > MAXI:
-            continue
-        if kind == "b1":
-            if (nf + nmip) * BT > PF:
+    for stream in (False, True):
+        for C, BT in _MMA_CONFIGS:
+            Hp = _ceil(H, 8 * C)
+            CHp = {"b1": Hp, "b10": _ceil(CH, 8 * C),
+                   "b3": _ceil(CH, 16), "b8": 0}[kind]
+            nwm = BT // 16
+            Hc, nwn = Hp // C, nw // nwm
+            KXc = _ceil(-(-(CHp + nmip) // C), 8)
+            if nw % nwm or Hc // 8 > nwn * _MMA_MAXP or Hc // 8 * BT > MAXI:
                 continue
-            smem = max(_up_bytes(Hc, KX, Hp, BT, nf, nf),
-                       _dn_bytes(Hc, Hp, BT, _ceil(nm, 8),
-                                 nm + ny * nm + ny))
-        else:
-            if (max(nm + ny, _ceil(nm, 16)) * BT > PF
-                    or KXc // 8 * BT > MAXI):
+            if kind in ("b1", "b10") and (nf + nmip) * BT > PF:
                 continue
-            smem = max(_up_bytes(Hc, KX, Hp, BT, 0, 0),
-                       _dn_bytes(Hc, Hp, BT, _ceil(nm, 8), nm),
-                       _bwd_bytes(Hc, Hp, BT, nm, ny, KXc, False),
-                       _bwd_bytes(Hc, Hp, BT, nm, ny, KXc, True))
-        if smem <= _SMEM_MAX:
-            return dict(C=C, BT=BT, H=Hp, CH=CHp, nm_in=nmip, KXc=KXc,
-                        smem=smem)
+            if kind == "b3" and (max(nm + ny, _ceil(nm, 16)) * BT > PF
+                                 or KXc // 8 * BT > MAXI):
+                continue
+            smem = _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf,
+                         stream)
+            if smem <= _SMEM_MAX:
+                return dict(C=C, BT=BT, H=Hp, CH=CHp, nm_in=nmip, KXc=KXc,
+                            smem=smem, stream=stream)
     raise ValueError(f"{kind}: H {H}, CH {CH}, nm_in {nm_in}, nm {nm}, ny "
                      f"{ny}: no tiling of the bf16 tensor-core design "
-                     f"fits a CTA's shared memory")
+                     f"fits a CTA's shared memory, even with its weights "
+                     f"streamed (the design takes H up to {MMA_H_MAX})")
 
 
 def _pad(t: torch.Tensor, shape) -> torch.Tensor:
@@ -577,7 +612,8 @@ def _table(ptrs):
 
 
 def _launch_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """B1 in bf16 on the tensor-core design."""
+    """B1 in bf16 on the tensor-core design (weights resident or streamed,
+    as ``mma_plan`` chooses from the widths)."""
     L, nf, nm_in, H, nm, ny, B = dims
     pl = mma_plan("b1", H, H, nm_in, nm, ny, nf)
     C, Hp = pl["C"], pl["H"]
@@ -595,11 +631,11 @@ def _launch_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
             _flat(bin2), pack_rows(whh_dn_t, C), _flat(bhh_dn), wlat8,
             _flat(blat), wout_t.contiguous(), _flat(bout), outmem, lasth, up]
     fn = _build.load("bigru_heads_init_cm").bigru_heads_init_cm_mma
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(_table(ptrs), L, nf, pl["nm_in"], Hp, nm, ny, B, C, pl["BT"],
-            stream)
+            int(pl["stream"]), stream)
     _build.check_status(rc, "bigru_heads_init_cm_mma")
     fused_bigru_heads_init_cm.launches += 1
     return outmem, (lasth if Hp == H else lasth[:H].contiguous())
@@ -647,12 +683,12 @@ def _launch_bwd_mma(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
     ptrs = [x, mem_in, h0_up, h0_dn, d_outmem, _pad(d_lasth, (Hp, B)),
             *weights, *outs, *scratch, *grads]
     fn = _build.load("bigru_heads_cm_bwd").bigru_heads_cm_bwd_mma
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(len(ptrs), _table(ptrs), L, CHp, nmip, Hp, nm, ny, B, C, BT, KXc,
-            _SPLITS, stream)
+            _SPLITS, int(pl["stream"]), stream)
     _build.check_status(rc, "bigru_heads_cm_bwd_mma")
     bigru_heads_cm_bwd.launches += 1
     grads = [g if g.dim() == 2 else g[:, None] for g in grads]
@@ -1030,7 +1066,10 @@ def _validate_bwd_lbh(res, d_down, d_lasth) -> tuple[int, int, int]:
 _SPLITS_LBH = 64
 
 
-def _launch_bwd_lbh(res, d_down, d_lasth, dims) -> tuple[torch.Tensor, ...]:
+def _launch_bwd_lbh(res, d_down, d_lasth, dims, cudacore_bf16=False
+                    ) -> tuple[torch.Tensor, ...]:
+    """The CUDA-core design of B8: f32, or with ``cudacore_bf16`` its bf16
+    instantiation (``cudacore_bigru_bwd_lbh``, no launch counted)."""
     xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn = res
     L, B, H = dims
     dt, dev = xp.dtype, xp.device
@@ -1058,16 +1097,119 @@ def _launch_bwd_lbh(res, d_down, d_lasth, dims) -> tuple[torch.Tensor, ...]:
             d_down, d_lasth, *outs, *grads, *scratch]
     table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     lib = _build.load("bigru_lbh_bwd")
-    fn = lib.bigru_lbh_bwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] \
+    head = []
+    if cudacore_bf16:
+        fn = lib.bigru_lbh_bwd_cudacore
+    else:
+        fn = lib.bigru_lbh_bwd
+        head = [0 if dt == torch.float32 else 1]
+    fn.argtypes = [ctypes.c_int] * (len(head) + 1) + [ctypes.c_void_p] \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, len(ptrs), table, L, H, B,
-            _SPLITS_LBH, stream)
+    rc = fn(*head, len(ptrs), table, L, H, B, _SPLITS_LBH, stream)
     _build.check_status(rc, "bigru_lbh_bwd")
-    bigru_bwd_lbh.launches += 1
+    if not cudacore_bf16:
+        bigru_bwd_lbh.launches += 1
     return tuple(outs) + tuple(grads)
+
+
+def _pad_gates_last(t: torch.Tensor, Hp: int) -> torch.Tensor:
+    """A tensor whose last dimension stacks three gate blocks [..., 3H]
+    (the v2 layout: xp, the [in, out] weights' columns, the biases) padded
+    to [..., 3Hp] per gate block."""
+    H = t.shape[-1] // 3
+    return _pad(t.reshape(*t.shape[:-1], 3, H),
+                (*t.shape[:-1], 3, Hp)).reshape(*t.shape[:-1], 3 * Hp)
+
+
+def _unpad_gates_last(t: torch.Tensor, H: int) -> torch.Tensor:
+    """The real [..., 3H] blocks of a ``_pad_gates_last`` tensor."""
+    Hp = t.shape[-1] // 3
+    return t.reshape(*t.shape[:-1], 3, Hp)[..., :H] \
+        .reshape(*t.shape[:-1], 3 * H).contiguous()
+
+
+def pad_lbh_res(res, Hp: int) -> tuple:
+    """B8's residuals (the v2 forward's nine arguments, batch-major, [in,
+    out] weights) zero-padded to hidden width Hp per gate block. Padded
+    hidden units have a zero projection, state and weights, so r = z =
+    1/2, n = 0 and h stays 0 in both sweeps, and their gradients are zero:
+    the real outputs do not change."""
+    xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn = res
+    gl = lambda t: _pad_gates_last(t, Hp)
+    w = lambda t: gl(_pad(t, (Hp, t.shape[1])))
+    B = h0_up.shape[0]
+    return (gl(xp), _pad(h0_up, (B, Hp)), _pad(h0_dn, (B, Hp)), w(whh_up),
+            gl(bhh_up), w(win2), gl(bin2), w(whh_dn), gl(bhh_dn))
+
+
+def unpad_lbh_grads(grads, H: int) -> tuple:
+    """B8's nine outputs computed at a padded width, cut back to H."""
+    d_xp, dh0u, dh0d, dwhu, dbhu, dw2, db2, dwhd, dbhd = grads
+    gl = lambda t: _unpad_gates_last(t, H)
+    w = lambda t: gl(t[:H])
+    return (gl(d_xp), dh0u[:, :H].contiguous(), dh0d[:, :H].contiguous(),
+            w(dwhu), gl(dbhu), w(dw2), gl(db2), w(dwhd), gl(dbhd))
+
+
+def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims
+                        ) -> tuple[torch.Tensor, ...]:
+    """B8 in bf16 on the tensor-core design (weights resident or streamed,
+    as ``mma_plan`` chooses from the width)."""
+    L, B, H = dims
+    pl = mma_plan("b8", H, H, 0, 0, 0)
+    C, BT, Hp = pl["C"], pl["BT"], pl["H"]
+    Hc = Hp // C
+    (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
+     bhh_dn) = pad_lbh_res(res, Hp)
+    dt, dev = xp.dtype, xp.device
+    new = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    f32 = torch.float32
+    cm = lambda t: t.t().contiguous()           # [B, H] -> [H, B]
+    # [in, out] weights: their transposes' gate slices for the replay, and
+    # their input-row slices for the transposed products
+    wt = [w.t() for w in (whh_up, win2, whh_dn)]
+    weights = [pack_rows(wt[0], C), bhh_up.contiguous(), pack_rows(wt[1], C),
+               bin2.contiguous(), pack_rows(wt[2], C), bhh_dn.contiguous(),
+               pack_t(wt[2], C, Hc), pack_t(wt[1], C, Hc),
+               pack_t(wt[0], C, Hc)]
+    outs = [new(L, B, 3 * Hp), new(Hp, B), new(Hp, B)]
+    # scratch the TPU kernel kept in VMEM: h and the gate bundles of both
+    # sweeps (bf16; the gates overwritten by the rounded gradient bundles
+    # the weight gradients read) and d_up (f32); the tiles' bias partials
+    # and the weight-gradient GEMMs' per-split partials (f32)
+    tiles = -(-B // BT)
+    scratch = [new(L, Hp, B), new(L, Hp, B), new(L, 4 * Hp, B),
+               new(L, 4 * Hp, B), new(L, Hp, B, dtype=f32),
+               new(tiles, 8 * Hp, dtype=f32),
+               new(_SPLITS * 3 * Hp * Hp, dtype=f32)]
+    grads = [new(3 * Hp, Hp), new(3 * Hp), new(3 * Hp, Hp), new(3 * Hp),
+             new(3 * Hp, Hp), new(3 * Hp)]
+    # the pointer order of csrc/bigru_lbh_bwd.cu's bigru_lbh_bwd_mma
+    ptrs = [xp, cm(h0_up), cm(h0_dn), _pad(d_down, (L, B, Hp)),
+            _pad(cm(d_lasth), (Hp, B)), *weights, *outs, *scratch, *grads]
+    fn = _build.load("bigru_lbh_bwd").bigru_lbh_bwd_mma
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(len(ptrs), _table(ptrs), L, Hp, B, C, BT, _SPLITS,
+            int(pl["stream"]), stream)
+    _build.check_status(rc, "bigru_lbh_bwd_mma")
+    bigru_bwd_lbh.launches += 1
+    d_xp, dh0u, dh0d = outs
+    dwhu, dbhu, dw2, db2, dwhd, dbhd = grads
+    return unpad_lbh_grads((d_xp, dh0u.t(), dh0d.t(), dwhu.t(), dbhu,
+                            dw2.t(), db2, dwhd.t(), dbhd), H)
+
+
+def cudacore_bigru_bwd_lbh(res, d_down, d_lasth) -> tuple[torch.Tensor, ...]:
+    """B8's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch_bwd_lbh(res, d_down, d_lasth,
+                           _validate_bwd_lbh(res, d_down, d_lasth),
+                           cudacore_bf16=True)
 
 
 def bigru_bwd_lbh(res, d_down, d_lasth):
@@ -1075,13 +1217,16 @@ def bigru_bwd_lbh(res, d_down, d_lasth):
     forward's nine arguments, the cotangents of (down, last_h) in xp's type
     -> (d_xp, dh0_up, dh0_dn, dwhh_up, dbhh_up, dwin2, dbin2, dwhh_dn,
     dbhh_dn). A CPU tensor runs the plain version; a CUDA tensor launches
-    kernel B8 or raises."""
+    kernel B8 (bf16: the tensor-core design; f32: the CUDA-core one) or
+    raises."""
     dims = _validate_bwd_lbh(res, d_down, d_lasth)
     dev = res[0].device
     if dev.type == "cpu":
         return bigru_bwd_reference_lbh(res, d_down, d_lasth)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if res[0].dtype == torch.bfloat16:
+        return _launch_bwd_lbh_mma(res, d_down, d_lasth, dims)
     return _launch_bwd_lbh(res, d_down, d_lasth, dims)
 
 
@@ -1271,7 +1416,10 @@ def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
     return L, B, nx, ch, nm_in, H, nm, ny
 
 
-def _launch_heads_lbh(args, dims, init: bool):
+def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
+    """The CUDA-core design of B9 (both types) and B10 (f32), or with
+    ``cudacore_bf16`` B10's bf16 instantiation, which no wrapper selects
+    (``cudacore_bigru_heads_init_lbh``) and which counts no launch."""
     L, B, nx, ch, nm_in, H, nm, ny = dims
     dt, dev = args[0].dtype, args[0].device
     out = torch.empty((L, B, ny), dtype=dt, device=dev)
@@ -1298,8 +1446,72 @@ def _launch_heads_lbh(args, dims, init: bool):
             *ints, stream)
     name = "bigru_heads_init_lbh" if init else "bigru_heads_lbh"
     _build.check_status(rc, name)
-    wrapper.launches += 1
+    if not cudacore_bf16:
+        wrapper.launches += 1
     return out, mem, lasth
+
+
+def pad_heads_init_lbh(args, Hp: int, CHp: int, nmip: int) -> tuple:
+    """B10's 18 arguments zero-padded to hidden width Hp (per gate block),
+    initial-MLP width CHp and memory width nmip. A padded xi row is
+    tanh(0) = 0 and meets zero weights; padded hidden units stay 0 through
+    both sweeps and meet zero head weights: the outputs do not change."""
+    (feat, mem_in, h0_up, h0_dn, w_init, b_init, win1, bin1, whh_up, bhh_up,
+     win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout) = args
+    L, B, nf = feat.shape
+    CH = w_init.shape[1]
+    gl = lambda t: _pad_gates_last(t, Hp)
+    w = lambda t: gl(_pad(t, (Hp, t.shape[1])))
+    w1 = torch.cat([_pad(win1[:CH], (CHp, win1.shape[1])),
+                    _pad(win1[CH:], (nmip, win1.shape[1]))])
+    return (feat, _pad(mem_in, (L, B, nmip)), _pad(h0_up, (B, Hp)),
+            _pad(h0_dn, (B, Hp)), _pad(w_init, (nf, CHp)),
+            _pad(b_init, (CHp,)), gl(w1), gl(bin1), w(whh_up), gl(bhh_up),
+            w(win2), gl(bin2), w(whh_dn), gl(bhh_dn),
+            _pad(wlat, (Hp, wlat.shape[1])), blat, wout, bout)
+
+
+def _launch_heads_init_lbh_mma(args, dims):
+    """B10 in bf16 on the tensor-core design (bigru_mma_fwd.cuh's
+    batch-major instance; weights resident or streamed, as ``mma_plan``
+    chooses from the widths)."""
+    L, B, nf, ch, nm_in, H, nm, ny = dims
+    pl = mma_plan("b10", H, ch, nm_in, nm, ny, nf)
+    C, Hp, CHp, nmip = pl["C"], pl["H"], pl["CH"], pl["nm_in"]
+    (feat, mem_in, h0_up, h0_dn, w_init, b_init, win1, bin1, whh_up, bhh_up,
+     win2, bin2, whh_dn, bhh_dn, wlat, blat, wout,
+     bout) = pad_heads_init_lbh(args, Hp, CHp, nmip)
+    dt, dev = feat.dtype, feat.device
+    out = torch.empty((L, B, ny), dtype=dt, device=dev)
+    mem = torch.empty((L, B, nm), dtype=dt, device=dev)
+    lasth = torch.empty((Hp, B), dtype=dt, device=dev)
+    up = torch.empty((L, Hp, B), dtype=dt, device=dev)   # up-stream scratch
+    cm = lambda t: t.t().contiguous()
+    # [in, out] weights as the kernel's [out, in] gate slices and heads
+    ptrs = [feat, mem_in.contiguous(), cm(h0_up), cm(h0_dn), cm(w_init),
+            b_init.contiguous(), pack_rows(win1.t(), C), bin1.contiguous(),
+            pack_rows(whh_up.t(), C), bhh_up.contiguous(),
+            pack_rows(win2.t(), C), bin2.contiguous(),
+            pack_rows(whh_dn.t(), C), bhh_dn.contiguous(),
+            _pad(wlat.t(), (_ceil(nm, 8), Hp)).contiguous(),
+            blat.contiguous(), cm(wout), bout.contiguous(), out, mem, lasth,
+            up]
+    fn = _build.load("bigru_heads_lbh").bigru_heads_init_lbh_mma
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_table(ptrs), L, nf, CHp, nmip, Hp, nm, ny, B, C, pl["BT"],
+            int(pl["stream"]), stream)
+    _build.check_status(rc, "bigru_heads_init_lbh_mma")
+    fused_bigru_heads_init_lbh.launches += 1
+    return out, mem, lasth[:H].t().contiguous()
+
+
+def cudacore_bigru_heads_init_lbh(*args) -> tuple[torch.Tensor, ...]:
+    """B10's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch_heads_lbh(args, _validate_heads_lbh(args, True), True,
+                             cudacore_bf16=True)
 
 
 def _heads_compose_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
@@ -1346,6 +1558,8 @@ class _FusedHeadsLBH(torch.autograd.Function):
             return ref(*args)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
+        if init and args[0].dtype == torch.bfloat16:
+            return _launch_heads_init_lbh_mma(args, dims)
         return _launch_heads_lbh(args, dims, init)
 
     @staticmethod
@@ -1382,8 +1596,9 @@ def fused_bigru_heads_init_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
     feat [L, B, nf], mem_in [L, B, nm_in], w_init [nf, CH], b_init [CH],
     win1 [CH + nm_in, 3H], the rest as ``fused_bigru_heads_lbh`` -> (out,
     mem, last_h); differentiable in all 18. A CPU tensor runs the plain
-    versions; a CUDA tensor launches kernel B10 (and, for gradients, B7
-    and B8) or raises."""
+    versions; a CUDA tensor launches kernel B10 (bf16: the tensor-core
+    design; f32: the CUDA-core one) and, for gradients, B7 and B8, or
+    raises."""
     return _FusedHeadsLBH.apply(True, feat, mem_in, h0_up, h0_dn, w_init,
                                 b_init, win1, bin1, whh_up, bhh_up, win2,
                                 bin2, whh_dn, bhh_dn, wlat, blat, wout, bout)

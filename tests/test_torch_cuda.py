@@ -811,3 +811,240 @@ def test_phys_scan_trunk_on_card_matches_cpu(cuda):
         assert launched == ([0, 1, 1] if dev.type == "cuda" else [0, 0, 0])
     for c, p in zip(outs["cuda"], outs["cpu"]):
         assert _rel_err(c, p) <= 1e-4
+
+
+# ---------------------------------------- B8 and B10 on tensor cores, and
+# B1 and B3 past the width their weights stay resident at
+
+
+def _bf16_holds(got, want, want32):
+    """Each bf16 output within 4x the plain version's own bf16-vs-f32 error
+    of the plain bf16 result, plus 1e-3 of its scale (as B3's check)."""
+    for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, i
+        assert torch.isfinite(g.float()).all(), i
+        own = (w.float() - w32.float()).abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 4 * own + 1e-3 * w32.float().abs().max().item(), \
+            (i, err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 20])
+@pytest.mark.parametrize("B", EDGES)
+def test_b8_tensor_core_bf16_at_the_edges(cuda, B, H):
+    """B8 in bf16 (the tensor-core design) at the edges of its tiling (B 1,
+    below one 64-column tile, ragged against it, two tiles; H 20 padded to
+    32), per output against the plain version under the 4x gate."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, bigru_bwd_reference_lbh
+    res, dd, dl = _b8_inputs(20, H, B, torch.bfloat16, cuda)
+    before = bigru_bwd_lbh.launches
+    got = bigru_bwd_lbh(res, dd, dl)
+    assert bigru_bwd_lbh.launches == before + 1
+    _bf16_holds(got, bigru_bwd_reference_lbh(res, dd, dl),
+                bigru_bwd_reference_lbh([a.float() for a in res],
+                                        dd.float(), dl.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 20])
+@pytest.mark.parametrize("B", EDGES)
+def test_b10_tensor_core_bf16_at_the_edges(cuda, B, H):
+    """B10 in bf16 (the tensor-core design) at the edges of its tiling (H
+    16 and 20 padded to 32, memory 8 to 16), per output against the plain
+    version under the 4x gate."""
+    kern, ref = _b9_b10(True)
+    a = _b9_b10_inputs(True, 20, H, B, torch.bfloat16, cuda)
+    before = kern.launches
+    with torch.no_grad():
+        got = kern(*a)
+        assert kern.launches == before + 1
+        _bf16_holds(got, ref(*a), ref(*(t.float() for t in a)))
+    assert all(g.is_contiguous() for g in got)
+
+
+@pytest.mark.cuda
+def test_b8_bf16_is_deterministic(cuda):
+    """Two bf16 B8 calls on the same inputs are bit-identical: its weight
+    and bias gradients are fixed-order sums, no atomics."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh
+    res, dd, dl = _b8_inputs(20, 20, 150, torch.bfloat16, cuda)
+    first = bigru_bwd_lbh(res, dd, dl)
+    second = bigru_bwd_lbh(res, dd, dl)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cudacore_b8_b10_match_tensor_core_bf16(cuda):
+    """The CUDA-core bf16 designs of B8 and B10 that chip_smoke.py times
+    against the tensor-core ones agree with them under the same gate, and
+    only the wrappers count launches."""
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh, bigru_bwd_reference_lbh,
+                                       fused_bigru_heads_init_lbh)
+    from climsim_tpu_torch.ops.pallas_rnn import (
+        cudacore_bigru_bwd_lbh, cudacore_bigru_heads_init_lbh)
+    _, ref10 = _b9_b10(True)
+    res, dd, dl = _b8_inputs(20, 32, 150, torch.bfloat16, cuda)
+    a = _b9_b10_inputs(True, 20, 32, 150, torch.bfloat16, cuda)
+    counts = (bigru_bwd_lbh.launches, fused_bigru_heads_init_lbh.launches)
+    with torch.no_grad():
+        pairs = [(cudacore_bigru_heads_init_lbh(*a),
+                  fused_bigru_heads_init_lbh(*a), ref10(*a),
+                  ref10(*(t.float() for t in a)))]
+    pairs.append((cudacore_bigru_bwd_lbh(res, dd, dl),
+                  bigru_bwd_lbh(res, dd, dl),
+                  bigru_bwd_reference_lbh(res, dd, dl),
+                  bigru_bwd_reference_lbh([t.float() for t in res],
+                                          dd.float(), dl.float())))
+    assert (bigru_bwd_lbh.launches, fused_bigru_heads_init_lbh.launches) \
+        == (counts[0] + 1, counts[1] + 1)
+    for old, new, w, w32 in pairs:
+        for i, (o, n, p, p32) in enumerate(zip(old, new, w, w32)):
+            own = (p.float() - p32.float()).abs().max().item()
+            err = (o.float() - n.float()).abs().max().item()
+            assert err <= 4 * own + 1e-3 * p32.float().abs().max().item(), \
+                (i, err, own)
+
+
+def _lecun(t):
+    """A [out, in] weight of _b1_inputs' scale 0.25 rescaled to
+    1/sqrt(fan-in), so that the wide layers' gates do not saturate."""
+    return t / (0.25 * np.sqrt(t.shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [384, 512])
+def test_b1_b3_bf16_at_streamed_widths(cuda, H):
+    """B1 and B3 in bf16 at H 384 and 512 (L 60, 1,000 columns), where the
+    tensor-core design streams its weight slices through shared memory
+    (the plan says so), against their plain versions under the 4x gate."""
+    from climsim_tpu_torch.ops.pallas_rnn import mma_plan
+    for kind in ("b1", "b3"):
+        assert mma_plan(kind, H, H, 8, 8, 6, 6)["stream"]
+    a = _b1_inputs(60, H, 1000, torch.float32, cuda)
+    for i in (4, 6, 7, 9, 11, 13, 15):
+        a[i] = _lecun(a[i])
+    a16 = [t.bfloat16() for t in a]
+    with torch.no_grad():
+        _bf16_holds(fused_bigru_heads_init_cm(*a16),
+                    bigru_heads_init_cm_reference(*a16),
+                    bigru_heads_init_cm_reference(*(t.float() for t in a16)))
+    res = [torch.tanh(a16[1].new_tensor(np.random.default_rng(2).standard_normal(
+        (60, H, 1000)))), *a16[1:4], *a16[6:]]
+    dom = a16[0].new_tensor(np.random.default_rng(3).standard_normal(
+        (60, 14, 1000)))
+    dlh = a16[0].new_tensor(np.random.default_rng(4).standard_normal(
+        (H, 1000)))
+    _bf16_holds(bigru_heads_cm_bwd(res, dom, dlh),
+                bigru_heads_cm_bwd_reference(res, dom, dlh),
+                bigru_heads_cm_bwd_reference([t.float() for t in res],
+                                             dom.float(), dlh.float()))
+
+
+@pytest.mark.cuda
+def test_v4_trainer_update_on_card(cuda):
+    """One RolloutTrainer update (W 2, remat) of a small v4 model on the
+    card: B10 twice per step (forward and recompute), B7 and B8 once; f32
+    (the CUDA-core designs) against the CPU to 1e-4 of each gradient's
+    scale, bf16 (the tensor-core B8 and B10) with each gradient, the loss
+    and the memory within 4x the CPU's own bf16-vs-f32 difference plus
+    1e-3 of the scale."""
+    from climsim_tpu_torch.models import BF16, F32, RNNAutoreg
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh, fused_bigru_heads_init_lbh,
+                                       fused_bigru_lbh)
+    from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
+    L, B, W = 12, 40, 2
+    rng = np.random.default_rng(6)
+    r = lambda *s: rng.normal(0, 0.3, s).astype(np.float32)
+    chunk = {"x_lev": r(W, B, L, 6), "x_sfc": r(W, B, 24),
+             "y_lev": r(W, B, L, 6), "y_sfc": r(W, B, 8),
+             "sp": np.full((W, B), 1e5, np.float32)}
+    hy = np.linspace(0.0, 1.0, L + 1).astype(np.float32)
+    wrappers = (fused_bigru_heads_init_lbh, fused_bigru_lbh, bigru_bwd_lbh)
+    out = {}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        for dev in (cuda, torch.device("cpu")):
+            model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8,
+                               nneur=(32, 32), nh_mem=8, add_pres=False,
+                               policy=policy, use_pallas=True,
+                               fuse_heads=True, fuse_init=True, device=dev,
+                               seed=1)
+            assert model.arm == "v4"
+            cfg = RolloutConfig(rollout_schedule={0: W}, loss="mse",
+                                lr=1e-4, remat=True)
+            tr = RolloutTrainer(model, cfg, hy, hy, device=dev)
+            before = [w.launches for w in wrappers]
+            mem, rec = tr.run_epoch(None, [chunk], epoch=0)
+            launched = [w.launches - b for w, b in zip(wrappers, before)]
+            assert launched == ([2 * W, W, W] if dev.type == "cuda"
+                                else [0, 0, 0])
+            assert rec["updates"] == 1 and np.isfinite(rec["loss"])
+            out[name, dev.type] = [torch.tensor([rec["loss"]]),
+                                   mem.float().cpu()] + [
+                p.grad.float().cpu() for _, p in model.named_parameters()]
+    for c, p in zip(out["f32", "cuda"], out["f32", "cpu"]):
+        assert _rel_err(c, p) <= 1e-4
+    for c, p, p32 in zip(out["bf16", "cuda"], out["bf16", "cpu"],
+                         out["f32", "cpu"]):
+        own = (p - p32).abs().max().item()
+        err = (c - p).abs().max().item()
+        assert err <= 4 * own + 1e-3 * p32.abs().max().item(), (err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H", [
+    ("b8", 384), ("b8", 512), ("b10", 384), ("b10", 512),
+    ("b1", 256), ("b1", 320), ("b3", 256), ("b3", 320),
+    ("b8", 320), ("b10", 320),
+    ("b1", 832), ("b3", 832), ("b8", 832), ("b10", 832), ("b8", 960)])
+def test_bf16_tensor_core_at_the_plans_other_tilings(cuda, kind, H):
+    """The plans the flagship's widths do not reach, on the card: B8 and
+    B10 with streamed weights (H 384, 512), every kind on the resident
+    tilings of clusters of 8 (H 256: 32-column tiles, H 320: 16) and on
+    the streamed 16-column tiles at the widest H the plan promises
+    (``MMA_H_MAX`` 832; B8 960), L 60, 1,000 columns, each output against
+    the plain version under the 4x gate."""
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh, bigru_bwd_reference_lbh)
+    from climsim_tpu_torch.ops.pallas_rnn import mma_plan
+    p = mma_plan(kind, H, H, 8, 8, 6, 6)
+    assert p["stream"] == (H > 320) and (p["C"], p["BT"]) != (4, 64)
+    g = torch.Generator(device=cuda).manual_seed(H)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    if kind in ("b1", "b3"):
+        a = _b1_inputs(60, H, 1000, torch.float32, cuda)
+        for i in (4, 6, 7, 9, 11, 13, 15):
+            a[i] = _lecun(a[i])
+        a16 = [t.bfloat16() for t in a]
+        if kind == "b1":
+            with torch.no_grad():
+                _bf16_holds(fused_bigru_heads_init_cm(*a16),
+                            bigru_heads_init_cm_reference(*a16),
+                            bigru_heads_init_cm_reference(
+                                *(t.float() for t in a16)))
+            return
+        res = [torch.tanh(r(60, H, 1000)).bfloat16(), *a16[1:4], *a16[6:]]
+        dom, dlh = r(60, 14, 1000).bfloat16(), r(H, 1000).bfloat16()
+        _bf16_holds(bigru_heads_cm_bwd(res, dom, dlh),
+                    bigru_heads_cm_bwd_reference(res, dom, dlh),
+                    bigru_heads_cm_bwd_reference([t.float() for t in res],
+                                                 dom.float(), dlh.float()))
+        return
+    if kind == "b8":
+        res, dd, dl = _b8_inputs(60, H, 1000, torch.float32, cuda)
+        for i in (3, 5, 7):
+            res[i] = res[i] / (0.3 * np.sqrt(H))
+        r16 = [t.bfloat16() for t in res]
+        d16 = (dd.bfloat16(), dl.bfloat16())
+        _bf16_holds(bigru_bwd_lbh(r16, *d16),
+                    bigru_bwd_reference_lbh(r16, *d16),
+                    bigru_bwd_reference_lbh([t.float() for t in r16],
+                                            *(t.float() for t in d16)))
+        return
+    kern, ref = _b9_b10(True)
+    a = _b9_b10_inputs(True, 60, H, 1000, torch.float32, cuda)
+    for i in (4, 6, 8, 10, 12, 14):
+        a[i] = a[i] / (0.25 * np.sqrt(a[i].shape[0]))
+    a16 = [t.bfloat16() for t in a]
+    with torch.no_grad():
+        _bf16_holds(kern(*a16), ref(*a16), ref(*(t.float() for t in a16)))

@@ -1,22 +1,29 @@
-"""The Python around the bf16 tensor-core design of B1 and B3 on the CPU:
-the tiling plan, the zero-padding of widths the tiling does not divide,
-and the packing of weights into the cluster CTAs' slices, held against
-the plain versions and against the JAX package's Pallas kernels in
-interpret mode."""
+"""The Python around the bf16 tensor-core design of B1, B3, B8 and B10 on
+the CPU: the tiling plan (resident or streamed weights), the
+zero-padding of widths the tiling does not divide, and the packing of
+weights into the cluster CTAs' slices, held against the plain versions
+and against the JAX package's Pallas kernels in interpret mode."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from climsim_tpu.ops.pallas_rnn import (_bigru_heads_cm_bwd_pallas,
-                                        _bigru_heads_init_cm_pallas)
-from climsim_tpu_torch.ops.pallas_rnn import (_mm, _tmm,
+from climsim_tpu.ops.pallas_rnn import (_bigru_bwd_pallas_lbh,
+                                        _bigru_heads_cm_bwd_pallas,
+                                        _bigru_heads_init_cm_pallas,
+                                        _bigru_heads_init_pallas_lbh)
+from climsim_tpu_torch.ops.pallas_rnn import (_SMEM_MAX, MMA_H_MAX,
+                                              _mm, _pad_gates_last, _tmm,
+                                              _unpad_gates_last,
+                                              bigru_bwd_reference_lbh,
                                               bigru_heads_cm_bwd_reference,
                                               bigru_heads_init_cm_reference,
+                                              bigru_heads_init_lbh_reference,
                                               mma_plan, pack_rows, pack_t,
-                                              pad_init_args, pad_res,
-                                              unpack_rows, unpack_t,
-                                              unpad_grads)
+                                              pad_heads_init_lbh,
+                                              pad_init_args, pad_lbh_res,
+                                              pad_res, unpack_rows, unpack_t,
+                                              unpad_grads, unpad_lbh_grads)
 
 # widths the tiling does not divide: H 20 -> 32, CH 12 -> 16, nm_in 5 -> 16
 L, NF, NM_IN, H, CH, NM, NY = 12, 6, 5, 20, 12, 8, 6
@@ -62,11 +69,35 @@ def _j(arrays):
 def test_plan_at_flagship_shapes(kind):
     """The flagship (H 192, stream 192, memory 16, heads 16 + 6) takes
     the design's first choice, clusters of 4 CTAs over 64-column tiles,
-    inside the 227 KB a CTA may use, and needs no padding."""
+    with the weights resident, inside the 227 KB a CTA may use, and needs
+    no padding: the plan of the slice that brought the design in."""
     p = mma_plan(kind, 192, 192, 16, 16, 6, nf=6)
     assert (p["C"], p["BT"], p["H"], p["CH"], p["nm_in"]) == \
         (4, 64, 192, 192, 16)
-    assert p["KXc"] == 56 and p["smem"] <= 232448
+    assert p["KXc"] == 56 and p["smem"] <= 232448 and not p["stream"]
+    assert p["smem"] == {"b1": 229184, "b3": 228160}[kind]
+
+
+@pytest.mark.parametrize("kind,H", [("b8", 192), ("b10", 192), ("b8", 128)])
+def test_plan_resident_for_b8_b10(kind, H):
+    """B8 at the v4 arm's H 192 and the physics trunk's H 128, and B10 at
+    the v4 arm's widths (initial MLP 192, memory 16, heads 16 + 6), keep
+    their weights resident in clusters of 4 CTAs over 64-column tiles."""
+    p = mma_plan(kind, H, H, 16, 16, 6, nf=6)
+    assert (p["C"], p["BT"], p["H"], p["stream"]) == (4, 64, H, False)
+    assert p["smem"] <= _SMEM_MAX
+
+
+@pytest.mark.parametrize("H", [384, 448, 512])
+@pytest.mark.parametrize("kind", ["b1", "b3", "b8", "b10"])
+def test_plan_streams_wide_widths(kind, H):
+    """Past H 320 no CTA holds its weight slices next to the state and
+    input tiles: the plan streams them through the ring, inside the
+    227 KB a CTA may use, carrying the state in one pass."""
+    p = mma_plan(kind, H, H, 16, 16, 6, nf=6)
+    assert p["stream"] and p["smem"] <= _SMEM_MAX
+    assert p["H"] % (8 * p["C"]) == 0 and p["H"] >= H
+    assert p["H"] // p["C"] // 8 <= 12 // (p["BT"] // 16) * 2
 
 
 def test_plan_pads_small_widths():
@@ -76,10 +107,16 @@ def test_plan_pads_small_widths():
 
 
 def test_plan_refuses_what_no_tiling_holds():
-    """H 384 leaves no (C, BT) whose weight slices fit a CTA: the wrapper
-    raises rather than run another design."""
-    with pytest.raises(ValueError, match="no tiling"):
-        mma_plan("b1", 384, 384, 16, 16, 6, nf=6)
+    """Every kind has a plan up to MMA_H_MAX (832); one step past it, even
+    16-column tiles over clusters of 8 with streamed weights leave no room
+    for B1's, B3's and B10's state and input tiles, and the wrapper raises
+    rather than run another design."""
+    assert MMA_H_MAX == 832
+    for kind in ("b1", "b3", "b8", "b10"):
+        mma_plan(kind, MMA_H_MAX, MMA_H_MAX, 16, 16, 6, nf=6)
+    for kind in ("b1", "b3", "b10"):
+        with pytest.raises(ValueError, match="no tiling"):
+            mma_plan(kind, MMA_H_MAX + 32, MMA_H_MAX + 32, 16, 16, 6, nf=6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -203,3 +240,148 @@ def test_padded_plain_backward_matches_pallas_interpret(B):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-4,
                                    atol=2e-5)
+
+
+# ------------------------------------------------------------ B8 and B10
+# batch-major: widths the tiling does not divide, H 20 -> 32, the initial
+# MLP 12 -> 32 (B10 pads it to 8 C), memory 5 -> 16; ragged batches
+L8 = 6
+CH10P = 32
+
+
+def _b8_inputs(B, seed=5):
+    """B8's residuals (xp [L, B, 3H], h0s [B, H], [in, out] weights at
+    scale 0.3, flat biases) and the cotangents of (down, last_h)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(L8, B, 3 * H), (B, H), (B, H), (H, 3 * H), (3 * H,),
+              (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,), (L8, B, H),
+              (B, H)]
+    a = [(0.3 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    return a[:9], a[9], a[10]
+
+
+def _b10_inputs(B, seed=6):
+    rng = np.random.default_rng(seed)
+    shapes = [(L8, B, NF), (L8, B, NM_IN), (B, H), (B, H), (NF, CH), (CH,),
+              (CH + NM_IN, 3 * H), (3 * H,), (H, 3 * H), (3 * H,),
+              (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,), (H, NM), (NM,),
+              (NM, NY), (NY,)]
+    return [(0.25 * rng.standard_normal(s)).astype(np.float32)
+            for s in shapes]
+
+
+def _pad_b8(res, dd, dl):
+    """The residuals and cotangents as B8's wrapper pads them."""
+    return (pad_lbh_res(res, HP),
+            torch.nn.functional.pad(dd, (0, HP - H)),
+            torch.nn.functional.pad(dl, (0, HP - H)))
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 5)])
+def test_gate_padding_of_the_last_dimension_round_trips(lead):
+    """[..., 3H] -> [..., 3Hp] puts gate block g's unit j at g Hp + j, zero
+    elsewhere; cutting back gives the tensor itself."""
+    rng = np.random.default_rng(4)
+    t = torch.as_tensor(rng.standard_normal((*lead, 3 * H)),
+                        dtype=torch.float32)
+    p = _pad_gates_last(t, HP)
+    assert p.shape == (*lead, 3 * HP)
+    for g in range(3):
+        assert torch.equal(p[..., g * HP:g * HP + H], t[..., g * H:(g + 1) * H])
+        assert torch.count_nonzero(p[..., g * HP + H:(g + 1) * HP]) == 0
+    assert torch.equal(_unpad_gates_last(p, H), t)
+
+
+def test_b8_weight_slices_are_the_wrappers_layout():
+    """B8's wrapper hands the kernel pack_rows of each [in, out] weight's
+    transpose (the replay's gate slices) and pack_t of it, which is the
+    weight cut into C input-row slices [C, Hc, 3Hp]: the stacked
+    per-slice transposed products equal the whole one (exact)."""
+    rng = np.random.default_rng(7)
+    w = torch.as_tensor(rng.standard_normal((H, 3 * H)), dtype=torch.float32)
+    wp = pad_lbh_res((torch.zeros(1, 1, 3 * H), torch.zeros(1, H),
+                      torch.zeros(1, H), w, torch.zeros(3 * H), w,
+                      torch.zeros(3 * H), w, torch.zeros(3 * H)), HP)[3]
+    assert wp.shape == (HP, 3 * HP)
+    rows = pack_rows(wp.t(), C)
+    assert torch.equal(unpack_rows(rows), wp.t())
+    sl = pack_t(wp.t(), C, HP // C)
+    assert torch.equal(sl, wp.reshape(C, HP // C, 3 * HP))
+    d = torch.as_tensor(rng.standard_normal((3 * HP, 5)), dtype=torch.float32)
+    out = torch.cat([_mm(sl[r], d) for r in range(C)])
+    torch.testing.assert_close(out, _tmm(wp.t(), d), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b8_padding_leaves_gradients_unchanged(dtype):
+    """B8's nine outputs on the residuals padded as its wrapper pads them,
+    cut back, equal those on the real widths (f32 to 1e-6 of each
+    output's scale, bf16 to one bf16 ulp of it, 2**-8: summation order
+    over added zeros), and every padded row and column is exactly zero."""
+    res, dd, dl = _b8_inputs(13)
+    res, dd, dl = _t(res, dtype), *_t([dd, dl], dtype)
+    want = bigru_bwd_reference_lbh(res, dd, dl)
+    padded = bigru_bwd_reference_lbh(*_pad_b8(res, dd, dl))
+    got = unpad_lbh_grads(padded, H)
+    rel = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= rel * scale
+    d_xp, dh0u, dh0d = padded[:3]
+    blocks = d_xp.reshape(L8, 13, 3, HP)
+    assert torch.count_nonzero(blocks[..., H:]) == 0
+    assert torch.count_nonzero(dh0u[:, H:]) == 0
+    assert torch.count_nonzero(dh0d[:, H:]) == 0
+    for gw in padded[3::2]:                  # [Hp, 3Hp] weight gradients
+        assert torch.count_nonzero(gw[H:]) == 0
+        assert torch.count_nonzero(gw.reshape(HP, 3, HP)[..., H:]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b10_padding_leaves_forward_unchanged(dtype):
+    """B10's plain version on the arguments padded as its wrapper pads them
+    (H 20 -> 32, the initial MLP 12 -> 32, memory 5 -> 16) gives the same
+    out and mem and the same real columns of last_h, and zero padded
+    columns (f32 to 1e-6: summation order over added zeros; bf16 exactly:
+    the same values rounded at the same points)."""
+    a = _t(_b10_inputs(11), dtype)
+    out, mem, lh = bigru_heads_init_lbh_reference(*a)
+    p = pad_heads_init_lbh(a, HP, CH10P, NMIP)
+    assert p[4].shape == (NF, CH10P) and p[6].shape == (CH10P + NMIP, 3 * HP)
+    outp, memp, lhp = bigru_heads_init_lbh_reference(*p)
+    tol = 1e-6 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(outp, out, rtol=tol, atol=tol)
+    torch.testing.assert_close(memp, mem, rtol=tol, atol=tol)
+    torch.testing.assert_close(lhp[:, :H], lh, rtol=tol, atol=tol)
+    assert torch.count_nonzero(lhp[:, H:]) == 0
+
+
+@pytest.mark.parametrize("B", [16, 13])
+def test_padded_plain_b8_matches_pallas_interpret(B):
+    """B8's plain version at the padded width, cut back, against the JAX
+    Pallas backward (interpret mode, f32) on the real widths, B 13 ragged
+    against its 16-row tile: each output to 1e-5 of its scale, as
+    tests/test_torch_ops_rnn_v2_bwd.py holds the unpadded one."""
+    res, dd, dl = _b8_inputs(B)
+    got = unpad_lbh_grads(bigru_bwd_reference_lbh(
+        *_pad_b8(_t(res), *_t([dd, dl]))), H)
+    want = _bigru_bwd_pallas_lbh(_j(res), *_j([dd, dl]), None, True)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("B", [16, 13])
+def test_padded_plain_b10_matches_pallas_interpret(B):
+    """B10's plain version at the padded widths, cut back, against the JAX
+    Pallas forward (interpret mode, f32, 8-column tiles, B 13 ragged) on
+    the real widths; tolerance as tests/test_torch_ops_rnn_v34.py's."""
+    a = _b10_inputs(B)
+    out, mem, lh = bigru_heads_init_lbh_reference(
+        *pad_heads_init_lbh(_t(a), HP, CH10P, NMIP))
+    want = _bigru_heads_init_pallas_lbh(*_j(a), 8, True, True)
+    for g, w in zip((out, mem, lh[:, :H]), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-6)
