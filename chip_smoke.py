@@ -47,16 +47,18 @@ Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
      per source, all started together), print each kernel's registers and
      spills, and count the tensor-core instructions (HMMA/HGMMA) of the
-     bf16 designs of B1, B3, B8 and B10 in their SASS (cuobjdump): each
+     bf16 designs of B1, B3 and B7-B10 in their SASS (cuobjdump): each
      must have some;
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes (and a ragged batch): B1, B2, B3, then B7 (f32
-     and bf16 at 21,600 and 1,000 columns), B11 and B12 (21,600 x 60 x 8);
-     then B4 (f32 and bf16, projections hoisted and not, at 21,600 and
-     1,000 columns), B5 (6, 60, 120, 180), B6 (60, 120, 180), B7 at
-     the flagship's H 192 (f32 and bf16), B8 at the v4 arm's L 60, H 192
-     (f32 and bf16), B9 and B10 (f32 and bf16 at 21,600 and 1,000
-     columns);
+     main paths' shapes (and a ragged batch): B1, B2, B3, then B7 at the
+     physics trunk's L 50, H 128 (f32 and, as an extra tiling of the
+     tensor-core design, bf16, at 21,600 and 1,000 columns), B11 and B12
+     (21,600 x 60 x 8); then B4 (f32 and bf16, projections hoisted and
+     not, at 21,600 and 1,000 columns), B5 (6, 60, 120, 180), B6 (60,
+     120, 180), B7 at the v2 arm's L 60, H 192 (f32 and bf16), B8 at the
+     v4 arm's L 60, H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
+     21,600 and 1,000 columns); bf16 B1, B3 and B7-B10 run the
+     tensor-core designs, f32 the CUDA-core ones;
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
      no other kernel; then the same for each other serving arm, whose
@@ -72,8 +74,8 @@ Phases (any failure exits non-zero):
      2W and B7 and B8 W times (v4), no kernel (scan); finite loss and
      memory, parameters changed; then one update of each at 384 columns on
      the card and on the CPU, compared (v4's also on the card through the
-     CUDA-core designs of B10 and B8, a witness of the rounding noise in
-     its parameter steps); then the flagship at nneur (512,
+     CUDA-core designs of B10, B7 and B8, a witness of the rounding noise
+     in its parameter steps); then the flagship at nneur (512,
      512), past the resident-weight design's width: B1 and B3 (weights
      streamed) against their plain versions at 1,000 columns and timed, 3
      coupled steps and one training update at 384 columns with their
@@ -100,16 +102,23 @@ Phases (any failure exits non-zero):
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share, the three training arms,
-     both physics trunks, B4, B5, B6, B7 at H 192, B9; B1, B3, B8 (at
-     the v4 arm's shapes) and B10 in bf16 as the tensor-core design
-     against the CUDA-core design (f32's, instantiated in bf16 under a
-     second C symbol or called with the bf16 type by a function that no
-     wrapper selects), timed in turns (old, new, new, old), each with
-     every device kernel of one call by name beside the call's CUDA-event
-     time, and B1 and B3 in f32;
- 10. a JSON line of the kernels (B8's entry: the bf16 tensor-core design
-     at the v4 arm's shapes, with the f32 design at the physics trunk's
-     under "f32"), the card line, and the result line.
+     both physics trunks, B4, B5, B6; B1, B3, B7 and B8 (at the v2 and v4
+     arms' shapes), B9 and B10 in bf16 as the tensor-core design against
+     the CUDA-core design (f32's, instantiated in bf16 under a second C
+     symbol or called with the bf16 type by a function that no wrapper
+     selects), timed in turns (old, new, new, old), each with every device
+     kernel of one call by name beside the call's CUDA-event time, B7 also
+     on a wider column tile against its plan's, and B1, B3, B7 and B8 in
+     f32; the library yardstick of B7 and B8, cuDNN's GRU (gru_pair: two
+     torch.nn.GRU with the v2 layer's weights, which the port never
+     calls), first held to the plain version, then timed forward against
+     FusedBiGRULayer's forward and backward against B8, in bf16 (fp16
+     where cuDNN takes no bf16) at the v2 arm's shapes and in f32 (no
+     TF32) at the physics trunk's, each with its kernels by name;
+ 10. a JSON line of the kernels (B7's and B8's entries: the bf16
+     tensor-core design at the v2/v4 arms' shapes, with the f32 design at
+     the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
+     forward and backward), the card line, and the result line.
 The end of each phase prints the wall time since the start.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -223,12 +232,16 @@ def phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
 
 
-# the bf16 designs that must run their products on tensor cores: B1 and
-# B10 (one kernel body, bigru_mma_fwd.cuh), B3 and B8 (bigru_mma_bwd.cuh)
+# the bf16 designs that must run their products on tensor cores: B1, B9
+# and B10 (one kernel body, bigru_mma_fwd.cuh; B10's and B9's resident
+# instances by their template arguments <kBM, kRoundXP, kStream, kLoadX>),
+# B3 and B8 (bigru_mma_bwd.cuh), B7 (bigru_lbh.cu)
 MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernel",),
                "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel"),
                "bigru_lbh_bwd": ("b8_mma_kernel", "wgrad_mma_kernel"),
-               "bigru_heads_lbh": ("mma_fwd_kernel",)}
+               "bigru_heads_lbh": ("mma_fwd_kernelILb1ELb0ELb0ELb0E",
+                                   "mma_fwd_kernelILb1ELb0ELb0ELb1E"),
+               "bigru_lbh": ("b7_mma_kernel",)}
 
 
 def check_tensor_core_sass(card):
@@ -641,12 +654,15 @@ def kernel_split(fn, event_ms, card, label):
     activity as well (``profile_kernels``), B3's main kernel, launched
     from ctypes, went missing from the key averages."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted(((ev.key, ev.device_time_total / 1e3)
-                      for ev in prof.key_averages()
-                      if ev.device_time_total > 0), key=lambda kv: -kv[1])
+    for _ in range(2):          # once more where the profile came back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((ev.key, ev.device_time_total / 1e3)
+                          for ev in prof.key_averages()
+                          if ev.device_time_total > 0), key=lambda kv: -kv[1])
+        if kernels:
+            break
     busy = sum(ms for _, ms in kernels)
     if busy <= 0:
         print(f"{label} by kernel: the profiler saw no device time: not "
@@ -665,6 +681,19 @@ def in_turns(old, new, launches, repeats=3):
     for fn in (old, new, new, old):
         t[fn].append(median_ms(fn, launches, repeats=repeats))
     return t[old], t[new]
+
+
+def designs_in_turns(name, cudacore, tensor_core, card, launches=3,
+                     repeats=3) -> float:
+    """A bf16 kernel's CUDA-core and tensor-core designs at 21,600 columns
+    timed in turns and printed; returns the tensor-core design's mean
+    ms."""
+    old, new = in_turns(cudacore, tensor_core, launches, repeats)
+    print(f"{name} bf16 at {NLAT * NLON} columns in turns (CUDA-core, "
+          f"tensor-core, tensor-core, CUDA-core): CUDA-core design "
+          f"{old[0]:.4f} / {old[1]:.4f} ms, tensor-core design {new[0]:.4f} "
+          f"/ {new[1]:.4f} ms [{card}]")
+    return statistics.mean(new)
 
 
 def b4_args(model, B, dtype, seed):
@@ -783,8 +812,8 @@ def check_b9_b10(models, card):
             a32 = args_fn(model, B, torch.float32, seed=B + 3)
             got, want = kern(*a32), ref(*a32)
             e = max_err(got, want)
-            print(f"{name} f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
-                  f"1e-5*|x| [{card}]")
+            print(f"{name} f32 (CUDA-core design) B={B}: max_abs_err "
+                  f"{e:.3e}; tolerance 1e-5 + 1e-5*|x| [{card}]")
             for x, y in zip(got, want):
                 check(x.shape == y.shape and x.is_contiguous(),
                       f"{name} output layout")
@@ -793,8 +822,9 @@ def check_b9_b10(models, card):
             got16, want16 = kern(*a16), ref(*a16)
             e16 = max_err(got16, want16)
             own = max_err(want16, ref(*(t.float() for t in a16)))
-            print(f"{name} bf16 B={B}: max_abs_err {e16:.3e}, plain "
-                  f"bf16-vs-f32 {own:.3e}; tolerance 4x that [{card}]")
+            print(f"{name} bf16 (tensor-core design) B={B}: max_abs_err "
+                  f"{e16:.3e}, plain bf16-vs-f32 {own:.3e}; tolerance 4x "
+                  f"that [{card}]")
             check(e16 <= 4.0 * own, f"{name} bf16 B={B}: {e16} > 4 x {own}")
             errs[key] = max(errs[key], e, e16)
             del a32, a16, got, want, got16, want16
@@ -899,21 +929,41 @@ def make_trainer(model, device):
 
 
 @contextlib.contextmanager
+def b7_tiling(C, BT):
+    """Inside, B7's tensor-core design runs clusters of C CTAs over BT
+    columns in place of its plan's (the kernel refuses a tiling outside
+    the design): for timing another tiling against the plan's."""
+    from climsim_tpu_torch.ops import pallas_rnn as pr
+    plan = pr.mma_plan
+    pr.mma_plan = lambda kind, *a, **k: dict(plan(kind, *a, **k), C=C,
+                                             BT=BT) \
+        if kind == "b7" else plan(kind, *a, **k)
+    try:
+        yield
+    finally:
+        pr.mma_plan = plan
+
+
+@contextlib.contextmanager
 def cudacore_twins():
-    """Inside, bf16 B10 and B8 run their CUDA-core designs (the twins no
-    wrapper selects) in place of the tensor-core ones: a second card
+    """Inside, bf16 B10, B7 and B8 run their CUDA-core designs (the twins
+    no wrapper selects) in place of the tensor-core ones: a second card
     version of the v4 update that shares no code with the designs under
     test."""
     from climsim_tpu_torch.ops import pallas_rnn as pr
-    saved = pr._launch_heads_init_lbh_mma, pr._launch_bwd_lbh_mma
-    pr._launch_heads_init_lbh_mma = lambda args, dims: pr._launch_heads_lbh(
-        args, dims, True, cudacore_bf16=True)
+    saved = (pr._launch_heads_lbh_mma, pr._launch_lbh_mma,
+             pr._launch_bwd_lbh_mma)
+    pr._launch_heads_lbh_mma = lambda args, dims, init: pr._launch_heads_lbh(
+        args, dims, init, cudacore_bf16=True)
+    pr._launch_lbh_mma = lambda args, dims: pr._launch_lbh(
+        args, dims, cudacore_bf16=True)
     pr._launch_bwd_lbh_mma = lambda res, dd, dl, dims: pr._launch_bwd_lbh(
         res, dd, dl, dims, cudacore_bf16=True)
     try:
         yield
     finally:
-        pr._launch_heads_init_lbh_mma, pr._launch_bwd_lbh_mma = saved
+        (pr._launch_heads_lbh_mma, pr._launch_lbh_mma,
+         pr._launch_bwd_lbh_mma) = saved
 
 
 def compare_train_384(card, arm="v6"):
@@ -929,7 +979,8 @@ def compare_train_384(card, arm="v6"):
     v4_steps holds them."""
     from climsim_tpu_torch.models import BF16, F32
     from climsim_tpu_torch.ops import (bigru_bwd_lbh,
-                                       fused_bigru_heads_init_lbh)
+                                       fused_bigru_heads_init_lbh,
+                                       fused_bigru_lbh)
     runs = [("f32", F32, "cuda"), ("f32", F32, "cpu"),
             ("bf16", BF16, "cuda"), ("bf16", BF16, "cpu")]
     if arm == "v4":
@@ -942,6 +993,7 @@ def compare_train_384(card, arm="v6"):
               for n, p in model.named_parameters()}
         tr = make_trainer(model, dev)
         fused_bigru_heads_init_lbh.launches = bigru_bwd_lbh.launches = 0
+        fused_bigru_lbh.launches = 0
         with torch.enable_grad(), (cudacore_twins() if key == "twin"
                                    else contextlib.nullcontext()):
             mem, rec = tr.run_epoch(
@@ -950,6 +1002,7 @@ def compare_train_384(card, arm="v6"):
               f"{arm} 384 update {name} {key}: {rec}")
         if key == "twin":
             check(fused_bigru_heads_init_lbh.launches == 0
+                  and fused_bigru_lbh.launches == 0
                   and bigru_bwd_lbh.launches == 0,
                   "the twins' update launched a tensor-core design")
         prm = {n: p.detach().float().cpu()
@@ -1011,7 +1064,8 @@ def v4_steps(c16, twin, p16, p32, card):
     (lr), and their count must stay within 4x the larger of two witnesses
     that share nothing with the designs under test: the same update
     through the CUDA-core designs of B10 and B8 on the card
-    (``cudacore_twins``), and the CPU's bf16 run against its f32 one.
+    (``cudacore_twins``: B10, B7 and B8), and the CPU's bf16 run against
+    its f32 one.
     Every other element is held as the other arms' are. Printed beside:
     where the other arms' check and a per-element test (an element held
     where its f32 gradient exceeds 4x the CPU's and the other card
@@ -1070,7 +1124,7 @@ def v4_steps(c16, twin, p16, p32, card):
     print(f"v4, 384 columns, one update, bf16 parameter steps: "
           f"{flips['card']} of {n_el} of the other sign than the CPU's bf16 "
           f"ones (or zero) and more than lr / 2 away on the card (tolerance {bound}: "
-          f"4 x max({flips['twins']} with the CUDA-core twins of B10 and B8, {flips['cpu']} of the "
+          f"4 x max({flips['twins']} with the CUDA-core twins of B10, B7 and B8, {flips['cpu']} of the "
           f"CPU's bf16 against its f32), the others within {ratio:.3f} x "
           f"their own difference (tolerance 4x); the other arms' check of "
           f"every element would reach {every['card'][0]:.3f} of its "
@@ -1367,12 +1421,12 @@ def b7_args(model, B, dtype, seed, L=None):
 
 def check_b7(model, card, L=None):
     """B7 against its plain version on the card at (L 50, B 21,600,
-    H 128), or with ``L`` at the flagship v2 arm's (L 60, H 192, where a
-    block takes 96 KB of shared memory), and a ragged 1,000 columns (not
-    a multiple of the 32-column tile). f32 to 1e-5 + 1e-5*|x| (summation
-    order only, through 2L recurrent levels; the states are of order 1);
-    bf16 to 4x the plain version's own bf16-vs-f32 error on the same
-    inputs, as check_b1."""
+    H 128), or with ``L`` at the flagship v2 arm's (L 60, H 192), and a
+    ragged 1,000 columns (not a multiple of the 32- or 64-column tiles).
+    f32 (the CUDA-core design) to 1e-5 + 1e-5*|x| (summation order only,
+    through 2L recurrent levels; the states are of order 1); bf16 (the
+    tensor-core design) to 4x the plain version's own bf16-vs-f32 error on
+    the same inputs, as check_b1."""
     from climsim_tpu_torch.ops import (bigru_reference_lbh as ref,
                                        fused_bigru_lbh as kern)
     errs = []
@@ -1381,8 +1435,8 @@ def check_b7(model, card, L=None):
         a32 = b7_args(model, B, torch.float32, seed=B, L=L)
         got, want = kern(*a32), ref(*a32)
         e = max_err(got, want)
-        print(f"{label} f32 B={B}: max_abs_err {e:.3e}; tolerance 1e-5 + "
-              f"1e-5*|x| [{card}]")
+        print(f"{label} f32 (CUDA-core design) B={B}: max_abs_err {e:.3e}; "
+              f"tolerance 1e-5 + 1e-5*|x| [{card}]")
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
         errs.append(e)
@@ -1390,8 +1444,9 @@ def check_b7(model, card, L=None):
         got16, want16 = kern(*a16), ref(*a16)
         e16 = max_err(got16, want16)
         own = max_err(want16, ref(*(t.float() for t in a16)))
-        print(f"{label} bf16 B={B}: max_abs_err {e16:.3e}, plain "
-              f"bf16-vs-f32 {own:.3e}; tolerance 4x that [{card}]")
+        print(f"{label} bf16 (tensor-core design) B={B}: max_abs_err "
+              f"{e16:.3e}, plain bf16-vs-f32 {own:.3e}; tolerance 4x that "
+              f"[{card}]")
         check(e16 <= 4.0 * own, f"{label} bf16 B={B}: {e16} > 4 x {own}")
         errs.append(e16)
         del a32, got, want, a16, got16, want16
@@ -2124,6 +2179,121 @@ def serving_bounds(a4, flat, q6, a7h) -> dict:
     return res
 
 
+# ------------------------------------------------------------ the library
+# yardstick of B7 and B8
+
+
+LAYER_WEIGHTS = ("win1", "bin1", "whh_up", "bhh_up", "win2", "bin2",
+                 "whh_dn", "bhh_dn")
+
+
+def gru_pair(layer, dtype):
+    """cuDNN's GRU with a FusedBiGRULayer's weights: PyTorch's cell is JAX's
+    ``_gru_step`` (gates r, z, n; n = tanh(xn + r (Whh_n h + bhh_n)); h =
+    (1 - z) n + z h), so with weight_ih = win.T, weight_hh = whh.T, bias_ih
+    = bin and bias_hh = bhh the up GRU over the flipped levels, then the
+    down GRU over the up states compute what the layer's xp GEMM and B7
+    compute. Returns (run(x [L, B, nx], h0_up, h0_dn) -> (down [L, B, H],
+    last_h [B, H]), its parameters). The port never calls it."""
+    nx, H = layer.win1.shape[0], layer.hidden
+    up, dn = torch.nn.GRU(nx, H), torch.nn.GRU(H, H)
+    with torch.no_grad():
+        for gru, (win, bin_, whh, bhh) in ((up, LAYER_WEIGHTS[:4]),
+                                           (dn, LAYER_WEIGHTS[4:])):
+            gru.weight_ih_l0.copy_(getattr(layer, win).t())
+            gru.weight_hh_l0.copy_(getattr(layer, whh).t())
+            gru.bias_ih_l0.copy_(getattr(layer, bin_))
+            gru.bias_hh_l0.copy_(getattr(layer, bhh))
+    dev = layer.win1.device
+    up.to(dev, dtype)
+    dn.to(dev, dtype)
+
+    def run(x, h0_up, h0_dn):
+        ups = up(x.flip(0), h0_up[None])[0].flip(0)
+        down, last = dn(ups, h0_dn[None])
+        return down, last[0]
+
+    return run, [*up.parameters(), *dn.parameters()]
+
+
+def library_yardstick(layer, L, B, dtype, card, label):
+    """The cuDNN pair (gru_pair) at the layer's widths, L levels and B
+    columns, beside FusedBiGRULayer's forward (the xp GEMM and B7) on the
+    same inputs. First the pair's result is held to the plain version
+    (bigru_reference_lbh on the layer's projection, f32): in bf16 within
+    4x the plain version's own bf16-vs-f32 error, so that the yardstick
+    computes the same function to the bf16 class, in f32 to 1e-4 of the
+    states' scale. cuDNN takes no bf16 where
+    torch.backends.cudnn.is_acceptable refuses it; the pair then runs in
+    fp16, at the same tensor-core rate. Then the pair's forward and
+    autograd's backward through it (the gradients of x, the h0s and its
+    eight weights: B8's outputs and the up projection's) are timed, each
+    with its device kernels by name. Returns (forward ms, backward ms, the
+    layer's forward ms)."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh
+    g = torch.Generator(device="cuda").manual_seed(L + B)
+    H, nx = layer.hidden, layer.win1.shape[0]
+    x = torch.tanh(torch.randn((L, B, nx), generator=g, device="cuda"))
+    h0 = torch.tanh(torch.randn((2, B, H), generator=g, device="cuda"))
+    w = [getattr(layer, k).detach().float() for k in LAYER_WEIGHTS]
+
+    def plain(dt):
+        xp = torch.matmul(x.to(dt), w[0].to(dt)) + w[1].to(dt)
+        return bigru_reference_lbh(xp, h0[0].to(dt), h0[1].to(dt),
+                                   *(t.to(dt) for t in w[2:]))
+
+    want = plain(torch.float32)
+    pdt = dtype
+    if (dtype == torch.bfloat16
+            and not torch.backends.cudnn.is_acceptable(x.to(dtype))):
+        pdt = torch.float16
+    run, params = gru_pair(layer, pdt)
+    xin, hu, hd = x.to(pdt), h0[0].to(pdt), h0[1].to(pdt)
+    with torch.no_grad():
+        got = run(xin, hu, hd)
+    err = max_err(got, want)
+    if dtype == torch.float32:
+        tol = 1e-4 * max(t.abs().max().item() for t in want)
+        gate = "1e-4 of the states' scale"
+    else:
+        tol = 4.0 * max_err(plain(dtype), want)
+        gate = "4x the plain version's own bf16-vs-f32 error"
+    how = ("fp16: torch.backends.cudnn.is_acceptable refuses bf16"
+           if pdt != dtype else str(pdt).replace("torch.", ""))
+    print(f"cuDNN GRU pair {label} ({how}; torch.backends.cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}): against the plain f32 "
+          f"version max_abs_err {err:.3e} (tolerance {tol:.3e}: {gate}) "
+          f"[{card}]")
+    check(err <= tol, f"cuDNN GRU pair {label}: {err:.3e} > {tol:.3e}")
+    del got, want
+    with torch.no_grad():
+        fwd_ms = median_ms(lambda: run(xin, hu, hd), 3)
+        xbm = x.transpose(0, 1).to(dtype).contiguous()
+        hl = (h0[0].to(dtype), h0[1].to(dtype))
+        layer_ms = median_ms(lambda: layer(xbm, *hl), 3)
+    kernel_split(lambda: run(xin, hu, hd), fwd_ms, card,
+                 f"cuDNN GRU pair forward {label}")
+    ins = [xin.clone().requires_grad_(True), hu.clone().requires_grad_(True),
+           hd.clone().requires_grad_(True)]
+    with torch.enable_grad():
+        outs = run(*ins)
+    cts = [torch.randn(o.shape, generator=g, device="cuda").to(pdt)
+           for o in outs]
+
+    def bwd():
+        torch.autograd.grad(outs, ins + params, cts, retain_graph=True)
+
+    bwd_ms = median_ms(bwd, 3)
+    kernel_split(bwd, bwd_ms, card, f"cuDNN GRU pair backward {label}")
+    print(f"cuDNN GRU pair {label} (L {L}, H {H}, nx {nx}, B {B}, {how}): "
+          f"forward {fwd_ms:.4f} ms against FusedBiGRULayer's forward (the "
+          f"xp GEMM and B7, {str(dtype).replace('torch.', '')}) "
+          f"{layer_ms:.4f} ms; autograd's backward through the pair "
+          f"{bwd_ms:.4f} ms [{card}]")
+    del outs, ins, cts
+    return fwd_ms, bwd_ms, layer_ms
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2285,13 +2455,8 @@ def main() -> int:
     from climsim_tpu_torch.ops.pallas_rnn import (
         cudacore_bigru_heads_cm_bwd, cudacore_bigru_heads_init_cm)
     a1 = b1_args(model, ncol, torch.bfloat16, seed=7)
-    b1_old, b1_new = in_turns(lambda: cudacore_bigru_heads_init_cm(*a1),
-                              lambda: fused_bigru_heads_init_cm(*a1), 3)
-    b1_ms = statistics.mean(b1_new)
-    print(f"B1 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
-          f"tensor-core, CUDA-core): CUDA-core design {b1_old[0]:.4f} / "
-          f"{b1_old[1]:.4f} ms, tensor-core design {b1_new[0]:.4f} / "
-          f"{b1_new[1]:.4f} ms [{card}]")
+    b1_ms = designs_in_turns("B1", lambda: cudacore_bigru_heads_init_cm(*a1),
+                             lambda: fused_bigru_heads_init_cm(*a1), card)
     kernel_split(lambda: fused_bigru_heads_init_cm(*a1), b1_ms, card,
                  "B1 bf16")
     b1_plain = median_ms(lambda: bigru_heads_init_cm_reference(*a1), 1)
@@ -2343,14 +2508,8 @@ def main() -> int:
                       split=True)
     del arm_trainers, atr, achunk
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
-    b3_old, b3_new = in_turns(lambda: cudacore_bigru_heads_cm_bwd(*a3),
-                              lambda: bigru_heads_cm_bwd(*a3), 2,
-                              repeats=2)
-    b3_ms = statistics.mean(b3_new)
-    print(f"B3 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
-          f"tensor-core, CUDA-core): CUDA-core design {b3_old[0]:.4f} / "
-          f"{b3_old[1]:.4f} ms, tensor-core design {b3_new[0]:.4f} / "
-          f"{b3_new[1]:.4f} ms [{card}]")
+    b3_ms = designs_in_turns("B3", lambda: cudacore_bigru_heads_cm_bwd(*a3),
+                             lambda: bigru_heads_cm_bwd(*a3), card, 2, 2)
     b3_plain = median_ms(lambda: bigru_heads_cm_bwd_reference(*a3), 1)
     a3_32 = (tuple(t.float() for t in a3[0]), a3[1].float(), a3[2].float())
     b3_f32 = median_ms(lambda: bigru_heads_cm_bwd(*a3_32), 1, repeats=2)
@@ -2383,8 +2542,29 @@ def main() -> int:
     b6_ms = median_ms(lambda: fv_advect_levels(q6, u5, v5, dtx, dty), 50)
     b6_plain = median_ms(lambda: fv_tracers_reference(q6, u5, v5, dtx, dty),
                          5)
+    # B7 at the v2 arm's shapes (L 60, H 192, bf16): the tensor-core
+    # design in turns with the CUDA-core one, its kernels by name; then
+    # the lever of a wider column tile (clusters of 8 CTAs over 96
+    # columns, the widest the warp layout takes) in turns with the plan's
+    # (4 CTAs over 64 columns). Every output sums over k in the same order
+    # in both, so they must agree to the bit.
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_fused_bigru_lbh
     a7h = b7_args(v2model, ncol, torch.bfloat16, seed=29, L=NLEV)
-    b7h_ms = median_ms(lambda: fused_bigru_lbh(*a7h), 3)
+    b7h_ms = designs_in_turns("B7", lambda: cudacore_fused_bigru_lbh(*a7h),
+                              lambda: fused_bigru_lbh(*a7h), card)
+    kernel_split(lambda: fused_bigru_lbh(*a7h), b7h_ms, card, "B7 bf16")
+    def wide():
+        with b7_tiling(8, 96):
+            return fused_bigru_lbh(*a7h)
+
+    check(all(torch.equal(x, y) for x, y in zip(wide(), fused_bigru_lbh(*a7h))),
+          "B7 bf16 on 96-column tiles differs from the plan's tiling")
+    b7w_old, b7w_new = in_turns(lambda: fused_bigru_lbh(*a7h), wide, 3)
+    print(f"B7 bf16 tiling lever in turns (plan, wider, wider, plan): "
+          f"clusters of 4 over 64 columns {b7w_old[0]:.4f} / "
+          f"{b7w_old[1]:.4f} ms, clusters of 8 over 96 columns "
+          f"{b7w_new[0]:.4f} / {b7w_new[1]:.4f} ms (bit-identical "
+          f"outputs) [{card}]")
     b7h_plain = median_ms(lambda: bigru_reference_lbh(*a7h), 1)
     # B8 at the v4 arm's shapes (L 60, H 192, bf16): its residuals are
     # B7's inputs at H 192; the tensor-core design in turns with the
@@ -2396,19 +2576,14 @@ def main() -> int:
                             device="cuda").to(torch.bfloat16),
            torch.randn((ncol, a7h[1].shape[1]), generator=g8,
                        device="cuda").to(torch.bfloat16))
-    b8h_old, b8h_new = in_turns(lambda: cudacore_bigru_bwd_lbh(*a8h),
-                                lambda: bigru_bwd_lbh(*a8h), 2, repeats=2)
-    b8h_ms = statistics.mean(b8h_new)
+    b8h_ms = designs_in_turns("B8", lambda: cudacore_bigru_bwd_lbh(*a8h),
+                              lambda: bigru_bwd_lbh(*a8h), card, 2, 2)
     b8h_plain = median_ms(lambda: bigru_bwd_reference_lbh(*a8h), 1,
                           repeats=2)
     b8h_flops, b8h_bytes = b8_work(a8h)
     b8h_bound = max(b8h_flops / PEAK_BF16, b8h_bytes / PEAK_BYTES) * 1e3
     b8h_by = ("operations" if b8h_flops / PEAK_BF16 > b8h_bytes / PEAK_BYTES
               else "bytes")
-    print(f"B8 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
-          f"tensor-core, CUDA-core): CUDA-core design {b8h_old[0]:.4f} / "
-          f"{b8h_old[1]:.4f} ms, tensor-core design {b8h_new[0]:.4f} / "
-          f"{b8h_new[1]:.4f} ms [{card}]")
     print(f"B8 bf16 (L {NLEV}, H {a7h[1].shape[1]}, B {ncol}, the v4 "
           f"arm's shapes): kernel {b8h_ms:.4f} ms, plain {b8h_plain:.4f} "
           f"ms, bound {b8h_bound:.4f} "
@@ -2416,6 +2591,15 @@ def main() -> int:
           f"{b8h_bytes / 1e6:.1f} MB) [{card}]")
     kernel_split(lambda: bigru_bwd_lbh(*a8h), b8h_ms, card, "B8 bf16")
     del a8h
+    lib_fwd, lib_bwd, layer_ms = library_yardstick(
+        v2model.bigru_fused, NLEV, ncol, torch.bfloat16, card,
+        "at the v2 arm's shapes")
+    print(f"library yardstick, v2 arm's shapes: B7 bf16 (tensor-core) "
+          f"{b7h_ms:.4f} ms, FusedBiGRULayer forward {layer_ms:.4f} ms, "
+          f"cuDNN pair forward {lib_fwd:.4f} ms (layer / pair "
+          f"{layer_ms / lib_fwd:.3f}); B8 bf16 (tensor-core) {b8h_ms:.4f} "
+          f"ms, cuDNN pair backward {lib_bwd:.4f} ms (B8 / pair "
+          f"{b8h_ms / lib_bwd:.3f}) [{card}]")
     sb = serving_bounds(a4, (q5, u5, v5), q6, a7h)
     print(f"B4 bf16 (L {NLEV}, CH {a4[0].shape[1]}, H {a4[7].shape[1]}, "
           f"B {ncol}): kernel {b4_ms:.4f} ms (projections rounded, the "
@@ -2437,19 +2621,17 @@ def main() -> int:
                                        bigru_heads_lbh_reference,
                                        fused_bigru_heads_init_lbh,
                                        fused_bigru_heads_lbh)
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_bigru_heads_lbh
     a9 = b9_args(lbh_models["b9"], ncol, torch.bfloat16, seed=31)
-    b9_ms = median_ms(lambda: fused_bigru_heads_lbh(*a9), 3)
+    b9_ms = designs_in_turns("B9", lambda: cudacore_bigru_heads_lbh(*a9),
+                             lambda: fused_bigru_heads_lbh(*a9), card)
+    kernel_split(lambda: fused_bigru_heads_lbh(*a9), b9_ms, card, "B9 bf16")
     b9_plain = median_ms(lambda: bigru_heads_lbh_reference(*a9), 1)
     a10 = b10_args(lbh_models["b10"], ncol, torch.bfloat16, seed=37)
     from climsim_tpu_torch.ops.pallas_rnn import cudacore_bigru_heads_init_lbh
-    b10_old, b10_new = in_turns(
-        lambda: cudacore_bigru_heads_init_lbh(*a10),
-        lambda: fused_bigru_heads_init_lbh(*a10), 3)
-    b10_ms = statistics.mean(b10_new)
-    print(f"B10 bf16 at {ncol} columns in turns (CUDA-core, tensor-core, "
-          f"tensor-core, CUDA-core): CUDA-core design {b10_old[0]:.4f} / "
-          f"{b10_old[1]:.4f} ms, tensor-core design {b10_new[0]:.4f} / "
-          f"{b10_new[1]:.4f} ms [{card}]")
+    b10_ms = designs_in_turns(
+        "B10", lambda: cudacore_bigru_heads_init_lbh(*a10),
+        lambda: fused_bigru_heads_init_lbh(*a10), card)
     kernel_split(lambda: fused_bigru_heads_init_lbh(*a10), b10_ms, card,
                  "B10 bf16")
     b10_plain = median_ms(lambda: bigru_heads_init_lbh_reference(*a10), 1,
@@ -2486,6 +2668,9 @@ def main() -> int:
           f"{pb['b7'][2] / PEAK_TF32 * 1e3:.4f} ms at the 495 TFLOP/s TF32 "
           f"rate the f32 policy does not permit; {pb['b7'][3] / 1e6:.1f} MB)"
           f" [{card}]")
+    lib7_32, lib8_32, _ = library_yardstick(
+        pmodel.bigru_fused, L7, B7, torch.float32, card,
+        "at the physics trunk's shapes")
     for key, name, ms, plain in (("b11", "B11", sw_ms, sw_plain),
                                  ("b12", "B12", lw_ms, lw_plain)):
         print(f"{name} f32 ({ncol}, {NLEV}, 8): kernel {ms:.4f} ms, plain "
@@ -2554,9 +2739,12 @@ def main() -> int:
         {"name": "bigru_lbh", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_lbh.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:98",
-         "launches": p_launches["b7"], "max_abs_err": b7_err,
-         "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": pb["b7"][0],
-         "bound_by": pb["b7"][1], "library_ms": None},
+         "launches": arm_launches["v2"]["b7"], "max_abs_err": b7h_err,
+         "ms": b7h_ms, "plain_ms": b7h_plain, "bound_ms": sb["b7h"][0],
+         "bound_by": sb["b7h"][1], "library_ms": lib_fwd,
+         "f32": {"launches": p_launches["b7"], "max_abs_err": b7_err,
+                 "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": pb["b7"][0],
+                 "bound_by": pb["b7"][1], "library_ms": lib7_32}},
         {"name": "adding_sw", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/adding_sw.cu",
          "replaces": "climsim_tpu/ops/pallas_radiation.py:30",
@@ -2574,10 +2762,11 @@ def main() -> int:
          "replaces": "climsim_tpu/ops/pallas_rnn.py:391",
          "launches": v4_launches["b8"], "max_abs_err": b8h_err,
          "ms": b8h_ms, "plain_ms": b8h_plain, "bound_ms": b8h_bound,
-         "bound_by": b8h_by, "library_ms": None,
+         "bound_by": b8h_by, "library_ms": lib_bwd,
          "f32": {"launches": pt_launches["b8"], "max_abs_err": b8_err,
                  "ms": b8_ms, "plain_ms": b8_plain,
-                 "bound_ms": pbb["b8"][0], "bound_by": pbb["b8"][1]}},
+                 "bound_ms": pbb["b8"][0], "bound_by": pbb["b8"][1],
+                 "library_ms": lib8_32}},
         {"name": "adding_sw_bwd", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/adding_sw_bwd.cu",
          "replaces": "climsim_tpu/ops/pallas_radiation.py:189",

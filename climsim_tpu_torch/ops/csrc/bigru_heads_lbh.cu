@@ -32,7 +32,8 @@
 // out, mem, last_h out; weights) are 0.2-0.6 GB, 0.06-0.18 ms at 3.35 TB/s.
 // So it is bound by operations.
 //
-// What the CUDA-core design does about it (B9 in both types, B10 in f32):
+// What the CUDA-core design does about it (f32; in bf16 kept only to be
+// timed against the tensor-core designs below):
 // it is B1's CUDA-core design (bigru_heads_init_cm.cu), re-indexed
 // batch-major: a CUDA-core FMA kernel (f32
 // accumulation of dt products; floor ~18 ms at the card's 67 TFLOP/s f32
@@ -51,14 +52,17 @@
 // Built without --use_fast_math: expf/tanhf keep the 60-level recurrence
 // within tolerance of the plain version.
 //
-// B10 in bf16 (the v4 arm's policy) runs on tensor cores instead: the
-// kernel body of bigru_mma_fwd.cuh (B1's design) in its batch-major
-// instance, the raw inputs read and the heads written [L, B, C], both
-// sweeps' projections kept in f32 as the v4 TPU body keeps them. A CTA's
-// weight slices are resident up to H ~ 320 and streamed beyond
-// (bigru_mma.cuh). Its entry point is bigru_heads_init_lbh_mma at the end
-// of this file; the CUDA-core design's bf16 instance stays callable for
-// timing it against the tensor-core one, and no wrapper selects it.
+// B9 and B10 in bf16 (the v3 and v4 arms' policy) run on tensor cores
+// instead: the kernel body of bigru_mma_fwd.cuh (B1's design) in its
+// batch-major instances, the raw inputs read and the heads written
+// [L, B, C], both sweeps' projections kept in f32 as the v3 and v4 TPU
+// bodies keep them; B9's up sweep takes its level's x [B, 208] as the X
+// tile itself (copied with cp.async a level ahead) where B10 computes the
+// initial MLP. A CTA's weight slices are resident up to H ~ 320 and
+// streamed beyond (bigru_mma.cuh). Their entry points are
+// bigru_heads_lbh_mma and bigru_heads_init_lbh_mma at the end of this
+// file; the CUDA-core design's bf16 instances stay callable for timing
+// them against the tensor-core ones, and no wrapper selects them.
 #include "bigru_heads_cm.cuh"
 #include "bigru_mma_fwd.cuh"
 
@@ -284,4 +288,31 @@ extern "C" int bigru_heads_init_lbh_mma(void* const* ptrs, int L, int nf,
                     L, nf, CH, nmi, H, nm, ny, B, C, BT};
   return bmma::launch_fwd<true, false>(p, stream,
                                        static_cast<cudaStream_t>(st));
+}
+
+// B9 in bf16 on the tensor-core design. ptrs, in order: x [L, B, KX], h0u,
+// h0d [H, B] (channel-major), wx_up [C][3H/C][KX] (the gate slices of
+// W1^T, [out, in]), b1 [3H], wh_up [C][3H/C][H], bh_up [3H], wx_dn (W2^T)
+// and wh_dn like wh_up, b2, bh_dn [3H], wlat [nm8][H] (Wlat^T, rows past
+// nm zero), blat [nm], wout [ny, nm] (Wout^T), bout [ny], out [L, B, ny],
+// mem [L, B, nm], lasth [H, B], up [L, H, B] scratch; H already padded to
+// a multiple of 8 C, KX (x's width) to 16. stream: 1 for the
+// streamed-weights instantiation. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for shapes outside the design).
+extern "C" int bigru_heads_lbh_mma(void* const* ptrs, int L, int KX, int H,
+                                   int nm, int ny, int B, int C, int BT,
+                                   int stream, void* st) {
+  using bmma::bf16;
+  const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
+  const size_t sB = B;
+  bmma::FwdParams p{c[0], nullptr, c[1], c[2], nullptr, nullptr, c[3], c[4],
+                    c[5], c[6], c[7], c[8], c[9], c[10], c[11], c[12], c[13],
+                    c[14], static_cast<bf16*>(ptrs[16]),
+                    static_cast<bf16*>(ptrs[15]), static_cast<bf16*>(ptrs[17]),
+                    static_cast<bf16*>(ptrs[18]),
+                    static_cast<size_t>(nm) * sB, static_cast<size_t>(ny) * sB,
+                    nm, ny,
+                    L, 0, KX, 0, H, nm, ny, B, C, BT};
+  return bmma::launch_fwd<true, false, true>(p, stream,
+                                             static_cast<cudaStream_t>(st));
 }

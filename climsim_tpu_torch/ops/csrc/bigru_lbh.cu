@@ -22,7 +22,8 @@
 // the bytes it must move (xp, h0s in, down, last_h out, weights) are
 // ~2.2 GB in f32, 0.66 ms at 3.35 TB/s. So it is bound by operations.
 //
-// What this first design does about it: like B1 it is a CUDA-core FMA
+// What the CUDA-core design (f32; in bf16 kept only to be timed against
+// the tensor-core design below) does about it: it is a CUDA-core FMA
 // kernel. Columns are independent, so each block owns a tile of BT
 // columns and walks both sweeps level by level in an in-kernel loop (the
 // TPU's sequential grid). A thread owns one hidden unit j for CG columns:
@@ -37,7 +38,15 @@
 // columns (zero inputs, nothing stored) instead of padding.
 // Built without --use_fast_math: expf/tanhf keep the 100-level recurrence
 // within tolerance of the plain version.
+//
+// bf16 (the v2 arm's step at H 192, L 60, and the replay in the v3/v4
+// arms' backward) runs the tensor-core design at the end of this file:
+// 9 H^2 multiply-adds per column and level, 0.86 TFLOP per call at the v2
+// shapes, 0.87 ms at the 989 TFLOP/s bf16 peak, so still bound by
+// operations. It is B8's replay (bigru_mma_bwd.cuh's design, phase A of
+// bigru_lbh_bwd.cu) storing no gates.
 #include "bigru_lbh.cuh"
+#include "bigru_mma.cuh"
 
 namespace {
 
@@ -129,4 +138,172 @@ extern "C" int bigru_lbh(int dtype, const void* xp, const void* h0u,
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------ bf16: tensor-core design
+//
+// A cluster of C CTAs owns a tile of BT columns, CTA r hidden units
+// [r Hc, (r + 1) Hc) with its gate slices of the weights resident in
+// shared memory for a sweep (or streamed through the ring from H ~ 320
+// on, bigru_mma.cuh), the f32 state in the mma fragments and dt(h) sent
+// to every CTA's next buffer through distributed shared memory, one
+// cluster barrier a level (B1's and B8's design):
+//   up sweep: the recurrence on the given projection xp (read batch-major
+//     at the thread's fragment positions a level ahead; no product);
+//   down sweep: the projection W2 dt(up_l) + b2 kept f32 (gru_level with
+//     no rounding), then the recurrence.
+// The up states go into the `down` output itself, as the CUDA-core design
+// keeps them: batch-major from the fragments of the CTA that owns the
+// hidden units, read back by that CTA a level ahead of the down sweep's
+// level (through L2, ld.global.cg) and overwritten there by down_l; so
+// there is no scratch. down and last_h are written batch-major from the
+// fragments, a pair of neighbouring hidden units a 4-byte store. No heads,
+// no initial MLP and no gate bundle: B7's plan has the widths of B8's
+// replay.
+namespace bmma {
+namespace b7 {
+
+struct Params {
+  const bf16 *xp, *h0u, *h0d;
+  const bf16 *wh_up, *bh_up, *wx_dn, *b2, *wh_dn, *bh_dn;
+  bf16 *down, *lasth;
+  int L, H, B, C, BT;
+};
+
+__host__ __device__ inline size_t smem_bytes(int H, int C, int BT,
+                                             bool stream) {
+  const int Hc = H / C;
+  Smem su(nullptr), sd(nullptr);
+  up_bufs(su, Hc, 0, H, BT, 0, 0, 0, stream);
+  dn_bufs(sd, Hc, H, BT, 0, 0, stream);
+  return su.off > sd.off ? su.off : sd.off;
+}
+
+template <bool kStream>
+__global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
+  const int H = p.H, Hc = H / C, L = p.L, B = p.B;
+  const int LDH = H + PAD;
+  const int col0 = (blockIdx.x / C) * BT;
+  const size_t lvl = static_cast<size_t>(B) * H;     // a level of down
+  const Warp w(BT);
+  const Tiles tl(w, Hc / 8);
+  extern __shared__ __align__(16) char smem_raw[];
+  GruRegs R;
+
+  // ---- up sweep, surface (l = L-1) to top; up_l into down[l]
+  {
+    Smem s(smem_raw);
+    const UpBufs u = up_bufs(s, Hc, 0, H, BT, 0, 0, 0, kStream);
+    const bf16* gh = p.wh_up + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(u.wh, gh, 3 * Hc, H);
+    const WSlice whu = slice<kStream>(u.wh, gh, H);
+    load_tile_t(u.h, LDH, p.h0u, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, nullptr, p.bh_up, p.h0u, B, col0);
+    const auto xp_l = [&](int l) {
+      return p.xp + static_cast<size_t>(l) * B * 3 * H;
+    };
+    XpPF xq;
+    xq.fetch(xp_l(L - 1), w, tl, r, Hc, H, B, col0);
+    cp_async_wait_all();
+    __syncthreads();
+    cl.sync();
+    int cur = 0;
+    for (int s_ = 0; s_ < L; ++s_) {
+      const int l = L - 1 - s_;
+      float ar[MAXP][4], az[MAXP][4], an[MAXP][4];
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[i][q] = xq.v[0][i][q];
+          az[i][q] = xq.v[1][i][q];
+          an[i][q] = xq.v[2][i][q];
+        }
+      if (l > 0) xq.fetch(xp_l(l - 1), w, tl, r, Hc, H, B, col0);
+      gru_rec<kStream>(cl, R, ar, az, an, u.h + cur * BT * LDH, whu, LDH, H,
+                       Hc, u.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr, B,
+                       col0, u.ring);
+      store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
+      cl.sync();
+      cur ^= 1;
+    }
+  }
+  // the last barrier ended every access to another CTA's shared memory,
+  // and the down sweep reads back only what its own CTA stored
+
+  // ---- down sweep, top (l = 0) to surface
+  {
+    Smem s(smem_raw);
+    const DnBufs d = dn_bufs(s, Hc, H, BT, 0, 0, kStream);
+    const bf16* gx = p.wx_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    const bf16* gh = p.wh_dn + static_cast<size_t>(r) * 3 * Hc * H;
+    load_slice<kStream>(d.wx, gx, 3 * Hc, H);
+    load_slice<kStream>(d.wh, gh, 3 * Hc, H);
+    const WSlice wx = slice<kStream>(d.wx, gx, H);
+    const WSlice wh = slice<kStream>(d.wh, gh, H);
+    load_tile_t(d.h, LDH, p.h0d, H, B, col0, BT);
+    gru_regs_init(R, w, tl, r, Hc, H, p.b2, p.bh_dn, p.h0d, B, col0);
+    const int k0 = r * Hc, k1 = (r + 1) * Hc;
+    RowPF cp;
+    cp.fetch(p.down, H, k0, k1, B, col0, BT);
+    cp.commit(d.x, LDH, k0, k1, BT);
+    cp_async_wait_all();
+    __syncthreads();
+    bcast_cols(cl, d.x, LDH, k0, Hc, BT);
+    cl.sync();
+    int cur = 0;
+    for (int l = 0; l < L; ++l) {
+      const bool more = l + 1 < L;
+      bf16* xn = d.x + (cur ^ 1) * BT * LDH;
+      if (more) cp.fetch(p.down + (l + 1) * lvl, H, k0, k1, B, col0, BT);
+      gru_level<false, kStream>(cl, R, d.x + cur * BT * LDH, LDH, H, wx,
+                                d.h + cur * BT * LDH, wh, LDH, H, Hc,
+                                d.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr,
+                                B, col0, d.ring);
+      store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
+      if (more) {
+        cp.commit(xn, LDH, k0, k1, BT);
+        __syncthreads();
+        bcast_cols(cl, xn, LDH, k0, Hc, BT);
+      }
+      cl.sync();
+      cur ^= 1;
+    }
+    store_frag_bm(p.lasth, H, R.h, w, tl, r, Hc, B, col0);
+  }
+}
+
+int launch(const Params& p, int stream, cudaStream_t st) {
+  const int C = p.C, BT = p.BT, H = p.H;
+  if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
+      H % (8 * C) != 0 || H / C / 8 > NW / (BT / 16) * MAXP ||
+      H / C / 8 * BT > MAXI * NTH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(H, C, BT, stream != 0);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (stream)
+    return launch_cluster(b7_mma_kernel<true>, p, C, BT, p.B, smem, st);
+  return launch_cluster(b7_mma_kernel<false>, p, C, BT, p.B, smem, st);
+}
+
+}  // namespace b7
+}  // namespace bmma
+
+// bf16 tensor-core design. ptrs, in order (H already padded to a multiple
+// of 8 C, every tensor's gate blocks with it): xp [L, B, 3H], h0u, h0d
+// [H, B] (channel-major), wh_up [C][3H/C][H] (the gate slices of
+// Whh_up^T, [out, in]), bh_up [3H], wx_dn (W2^T) and wh_dn like wh_up,
+// b2, bh_dn [3H], down [L, B, H], lasth [B, H]. stream: 1 for the
+// streamed-weights instantiation. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for shapes outside the design).
+extern "C" int bigru_lbh_mma(void* const* q, int L, int H, int B, int C,
+                             int BT, int stream, void* st) {
+  using bmma::bf16;
+  const auto c = [&](int i) { return static_cast<const bf16*>(q[i]); };
+  bmma::b7::Params p{c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8),
+                     static_cast<bf16*>(q[9]), static_cast<bf16*>(q[10]),
+                     L, H, B, C, BT};
+  return bmma::b7::launch(p, stream, static_cast<cudaStream_t>(st));
 }

@@ -531,33 +531,6 @@ __host__ __device__ inline size_t smem_bytes(int H, int C, int BT,
   return m;
 }
 
-// The up sweep's projection of one level, xp_l [B, 3H] batch-major, at the
-// thread's fragment positions (pairs of neighbouring hidden units), f32,
-// zero past B: loaded into registers a level ahead of use.
-struct XpPF {
-  float v[3][MAXP][4];
-  __device__ void fetch(const bf16* xp_l, const Warp& w, const Tiles& tl,
-                        int r, int Hc, int H, int B, int col0) {
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
-        const int col = col0 + w.row(2 * h);
-        const bool ok = tl.on[i] && col < B;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          float2 f = make_float2(0.0f, 0.0f);
-          if (ok)
-            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                xp_l + static_cast<size_t>(col) * 3 * H + g * H + j));
-          v[g][i][2 * h] = f.x;
-          v[g][i][2 * h + 1] = f.y;
-        }
-      }
-  }
-};
-
 template <bool kStream>
 __global__ void __launch_bounds__(NTH, 1) b8_mma_kernel(Params p) {
   cg::cluster_group cl = cg::this_cluster();

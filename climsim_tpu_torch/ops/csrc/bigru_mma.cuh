@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 BiGRU kernels: the fused
-// forward of bigru_mma_fwd.cuh (v6, B1 in bigru_heads_init_cm.cu; v4, B10
-// in bigru_heads_lbh.cu) and the backward of bigru_mma_bwd.cuh (v6/v5, B3
-// in bigru_heads_cm_bwd.cu; v2, B8 in bigru_lbh_bwd.cu).
+// forward of bigru_mma_fwd.cuh (v6, B1 in bigru_heads_init_cm.cu; v4 and
+// v3, B10 and B9 in bigru_heads_lbh.cu), the v2 forward (B7 in
+// bigru_lbh.cu) and the backward of bigru_mma_bwd.cuh (v6/v5, B3 in
+// bigru_heads_cm_bwd.cu; v2, B8 in bigru_lbh_bwd.cu).
 //
 // A column tile of BT columns is owned by a thread-block cluster of C
 // CTAs; CTA r owns hidden units [r Hc, (r + 1) Hc), Hc = H / C. Products
@@ -409,6 +410,90 @@ struct ChunkPF {
     }
   }
 };
+
+// The columns [k0, k1) (multiples of 8) of a batch-major level [B][ld],
+// 16 bytes an item, loaded into registers ahead of use (fetch) and stored
+// into a [BT][ldx] smem tile at the same columns (commit); zero past B.
+// The loads go through L2 only (ld.global.cg): B7 reads its up states
+// back from the output the same kernel wrote them to. The launchers refuse
+// shapes with more than MAXI items a thread.
+struct RowPF {
+  uint4 v[MAXI];
+  __device__ void fetch(const bf16* src, int ld, int k0, int k1, int B,
+                        int col0, int BT) {
+    const int cpr = (k1 - k0) / 8, n = cpr * BT;
+#pragma unroll
+    for (int i = 0; i < MAXI; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      if (e >= n) continue;
+      const int col = col0 + e / cpr;
+      v[i] = col < B ? __ldcg(reinterpret_cast<const uint4*>(
+                           src + static_cast<size_t>(col) * ld + k0 +
+                           (e % cpr) * 8))
+                     : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ void commit(bf16* dst, int ldx, int k0, int k1, int BT) const {
+    const int cpr = (k1 - k0) / 8, n = cpr * BT;
+#pragma unroll
+    for (int i = 0; i < MAXI; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      if (e < n)
+        *reinterpret_cast<uint4*>(dst + (e / cpr) * ldx + k0 + (e % cpr) * 8) =
+            v[i];
+    }
+  }
+};
+
+// The up sweep's projection of one level, xp_l [B, 3H] batch-major, at the
+// thread's fragment positions (pairs of neighbouring hidden units), f32,
+// zero past B: loaded into registers a level ahead of use (B7, and B8's
+// replay).
+struct XpPF {
+  float v[3][MAXP][4];
+  __device__ void fetch(const bf16* xp_l, const Warp& w, const Tiles& tl,
+                        int r, int Hc, int H, int B, int col0) {
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
+        const int col = col0 + w.row(2 * h);
+        const bool ok = tl.on[i] && col < B;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          float2 f = make_float2(0.0f, 0.0f);
+          if (ok)
+            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                xp_l + static_cast<size_t>(col) * 3 * H + g * H + j));
+          v[g][i][2 * h] = f.x;
+          v[g][i][2 * h + 1] = f.y;
+        }
+      }
+  }
+};
+
+// dt(v) at the thread's fragment positions into a batch-major [B][ld]
+// array (CTA r's hidden units; a pair of neighbouring units a 4-byte
+// store), nothing past B
+__device__ __forceinline__ void store_frag_bm(bf16* dst, int ld,
+                                              const float (&v)[MAXP][4],
+                                              const Warp& w, const Tiles& tl,
+                                              int r, int Hc, int B,
+                                              int col0) {
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    if (!tl.on[i]) continue;
+    const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = col0 + w.row(2 * h);
+      if (col < B)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(col) * ld + j) =
+            pack2(v[i][2 * h], v[i][2 * h + 1]);
+    }
+  }
+}
 
 // A [rows, B] tile of one level that stacks s1 [n1, B] over s2 [rows -
 // n1, B], f32, loaded into registers ahead of use (fetch) and stored as

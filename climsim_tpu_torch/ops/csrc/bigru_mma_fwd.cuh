@@ -1,8 +1,9 @@
-// The bf16 tensor-core fused emulator forward, one kernel body for two
-// layouts: the v6 channel-major forward (B1, bigru_heads_init_cm.cu) and
-// the v4 batch-major one (B10, bigru_heads_lbh.cu). Per column: the
-// initial MLP xi_l = dt(tanh(dt(Winit feat_l + binit))), the up GRU sweep
-// on the projection of [xi_l || mem_l], the down GRU sweep on the
+// The bf16 tensor-core fused emulator forward, one kernel body for three
+// instances: the v6 channel-major forward (B1, bigru_heads_init_cm.cu),
+// the v4 batch-major one (B10) and the v3 batch-major one (B9, both
+// bigru_heads_lbh.cu). Per column: the initial MLP xi_l = dt(tanh(dt(Winit
+// feat_l + binit))) (B9: none), the up GRU sweep on the projection of
+// [xi_l || mem_l] (B9: of the given x_l), the down GRU sweep on the
 // projection of the up states, and the latent and output heads.
 //
 // A column tile of BT columns is owned by a cluster of C CTAs (BT 64, C 4
@@ -30,8 +31,9 @@
 // bounds a level is latency: with one CTA a SM, its 12 warps run the
 // products, the gates, xi and the barrier one after the other (PERF.md).
 //
-// The template picks the layout of the raw inputs and the heads' outputs
-// and the rounding of the projections:
+// The template picks the layout of the raw inputs and the heads' outputs,
+// the rounding of the projections and where the up sweep's input comes
+// from:
 //   kBM false (B1): feat [L, nf, B], mem_in [L, nmi, B] in, outmem
 //     [L, nm + ny, B] out; kRoundXP true: both sweeps' projections are
 //     rounded to bf16 before the gates, as the v6 TPU body stores them;
@@ -41,6 +43,13 @@
 //     product over the concatenated K = [xi || mem_in] where the TPU body
 //     sums two (K = CH and K = nm_in): the operands are the same bf16
 //     values, so only the f32 summation order differs.
+//   kLoadX true (B9, with kBM true, kRoundXP false as the v3 TPU body
+//     keeps its projections): no initial MLP and no memory rows; the
+//     level's x_l [B, KX] (KX = CH, a multiple of 16; nf = nmi = 0) is
+//     the X tile itself, copied by every CTA of the cluster from global
+//     memory with cp.async into its next X buffer one level ahead (64
+//     columns x 208 bf16, 27 KB a level at the v3 shapes), where B10 runs
+//     xi_own and the memory rows. The copy needs no cluster exchange.
 // h0u, h0d and lasth are channel-major [H, B] in both (the v4 wrapper
 // transposes its [B, H] ones: 8 MB each at the v4 shapes). Widths are
 // padded by the wrappers (H and CH to a multiple of 8 C, mem_in to 16)
@@ -97,7 +106,23 @@ __host__ __device__ inline size_t fwd_smem(int H, int C, int CH, int nmi,
   return su.off > sd.off ? su.off : sd.off;
 }
 
-template <bool kBM, bool kRoundXP, bool kStream>
+// The level's batch-major input x_l [B][K] (K a multiple of 8, rows 16-byte
+// aligned) into a [BT][ldx] smem tile with cp.async, zeros past B; the
+// caller commits and waits
+__device__ __forceinline__ void load_x_tile(bf16* X, int ldx, const bf16* x_l,
+                                            int K, int B, int col0, int BT) {
+  const int cpr = K / 8;
+  for (int e = threadIdx.x; e < BT * cpr; e += NTH) {
+    const int b = e / cpr, c = e % cpr, col = col0 + b;
+    bf16* dst = X + b * ldx + c * 8;
+    if (col < B)
+      cp_async16(dst, x_l + static_cast<size_t>(col) * K + c * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <bool kBM, bool kRoundXP, bool kStream, bool kLoadX>
 __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
   cg::cluster_group cl = cg::this_cluster();
   const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
@@ -122,19 +147,28 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
     load_slice<kStream>(u.wh, gh, 3 * Hc, H);
     const WSlice wx = slice<kStream>(u.wx, gx, KX);
     const WSlice wh = slice<kStream>(u.wh, gh, H);
-    for (int e = tid; e < CHc * nf; e += NTH)
-      u.wi[e] = b2f(p.winit[static_cast<size_t>(r) * CHc * nf + e]);
-    for (int e = tid; e < CHc; e += NTH) u.bi[e] = b2f(p.binit[r * CHc + e]);
+    if constexpr (!kLoadX) {       // B9 has no initial MLP
+      for (int e = tid; e < CHc * nf; e += NTH)
+        u.wi[e] = b2f(p.winit[static_cast<size_t>(r) * CHc * nf + e]);
+      for (int e = tid; e < CHc; e += NTH) u.bi[e] = b2f(p.binit[r * CHc + e]);
+    }
     load_tile_t(u.h, LDH, p.h0u, H, B, col0, BT);
     gru_regs_init(R, w, tl, r, Hc, H, p.b1, p.bh_up, p.h0u, B, col0);
     const auto feat_l = [&](int l) { return p.feat + l * nf * sB; };
     const auto mem_l = [&](int l) { return p.mem_in + l * nmi * sB; };
+    const auto x_l = [&](int l) { return p.feat + l * KX * sB; };
     RawPF pf;
-    pf.fetch<kBM>(feat_l(L - 1), nf, mem_l(L - 1), nf + nmi, B, col0, BT);
-    pf.commit_split(u.raw, nf, u.x, LDX, CH, nf + nmi, BT);
-    cp_async_wait_all();
-    __syncthreads();
-    xi_own(cl, u.x, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+    if constexpr (kLoadX) {
+      load_x_tile(u.x, LDX, x_l(L - 1), KX, B, col0, BT);
+      cp_async_wait_all();
+      __syncthreads();
+    } else {
+      pf.fetch<kBM>(feat_l(L - 1), nf, mem_l(L - 1), nf + nmi, B, col0, BT);
+      pf.commit_split(u.raw, nf, u.x, LDX, CH, nf + nmi, BT);
+      cp_async_wait_all();
+      __syncthreads();
+      xi_own(cl, u.x, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+    }
     cl.sync();
     int cur = 0;
     for (int s_ = 0; s_ < L; ++s_) {
@@ -144,17 +178,30 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       bf16* hn = u.h + (cur ^ 1) * BT * LDH;
       bf16* xc = u.x + cur * BT * LDX;
       bf16* xn = u.x + (cur ^ 1) * BT * LDX;
-      if (more)
-        pf.fetch<kBM>(feat_l(l - 1), nf, mem_l(l - 1), nf + nmi, B, col0, BT);
+      if (more) {
+        // B9: the next level's X tile is copied while this one runs (the
+        // buffer was last read before the previous level's barrier)
+        if constexpr (kLoadX) {
+          load_x_tile(xn, LDX, x_l(l - 1), KX, B, col0, BT);
+          cp_async_commit();
+        } else {
+          pf.fetch<kBM>(feat_l(l - 1), nf, mem_l(l - 1), nf + nmi, B, col0,
+                        BT);
+        }
+      }
       if (s_ > 0)
         store_tile_t(p.up + (static_cast<size_t>(l + 1) * H + r * Hc) * sB,
                      hc, LDH, r * Hc, Hc, B, col0, BT);
       gru_level<kRoundXP, kStream>(cl, R, xc, LDX, KX, wx, hc, wh, LDH, H, Hc,
                                    hn, w, tl, r, nullptr, B, col0, u.ring);
       if (more) {
-        pf.commit_split(u.raw, nf, xn, LDX, CH, nf + nmi, BT);
-        __syncthreads();
-        xi_own(cl, xn, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+        if constexpr (kLoadX) {
+          cp_async_wait_all();     // the barrier below publishes the tile
+        } else {
+          pf.commit_split(u.raw, nf, xn, LDX, CH, nf + nmi, BT);
+          __syncthreads();
+          xi_own(cl, xn, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+        }
       }
       cl.sync();
       cur ^= 1;
@@ -223,12 +270,17 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
 }
 
 // The launch of the forward: refuses (cudaErrorInvalidValue) the shapes
-// outside the design, picks the resident or the streamed instantiation
-template <bool kBM, bool kRoundXP>
+// outside the design, picks the resident or the streamed instantiation.
+// The initial MLP's rows split over the cluster (CH a multiple of 8 C);
+// a loaded X tile only needs whole k-steps (CH a multiple of 16).
+template <bool kBM, bool kRoundXP, bool kLoadX = false>
 int launch_fwd(const FwdParams& p, int stream, cudaStream_t st) {
   const int C = p.C, BT = p.BT;
+  const bool widths = kLoadX
+      ? p.CH % 16 == 0 && p.CH > 0 && p.nf == 0 && p.nmi == 0
+      : p.CH % (8 * C) == 0 && p.nmi % 16 == 0;
   if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
-      p.H % (8 * C) != 0 || p.CH % (8 * C) != 0 || p.nmi % 16 != 0 ||
+      p.H % (8 * C) != 0 || !widths ||
       p.H / C / 8 > NW / (BT / 16) * MAXP ||
       (p.nf + p.nmi) * BT > PF * NTH || p.H / C / 8 * BT > MAXI * NTH)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -236,10 +288,10 @@ int launch_fwd(const FwdParams& p, int stream, cudaStream_t st) {
                                stream != 0);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (stream)
-    return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, true>, p, C, BT, p.B,
-                          smem, st);
-  return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, false>, p, C, BT, p.B,
-                        smem, st);
+    return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, true, kLoadX>, p, C,
+                          BT, p.B, smem, st);
+  return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, false, kLoadX>, p, C,
+                        BT, p.B, smem, st);
 }
 
 }  // namespace bmma

@@ -383,7 +383,7 @@ def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
 
 
 # --------------------------------------------------------------------------
-# bf16 tensor-core design of B1, B3, B8 and B10 (csrc/bigru_mma.cuh): the
+# bf16 tensor-core design of B1, B3, B7-B10 (csrc/bigru_mma.cuh): the
 # cluster plan, the zero-padding of widths the tiling does not divide, and
 # the packing of weights into the CTAs' slices. The constants mirror the
 # CUDA sources.
@@ -450,7 +450,10 @@ def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
     its phases), as the CUDA sources lay it out."""
     nm8 = _ceil(nm, 8)
     KX = CHp + nmip
-    if kind in ("b1", "b10"):
+    if kind == "b7":
+        return max(_up_bytes(Hc, 0, Hp, BT, 0, 0, 0, stream),
+                   _dn_bytes(Hc, Hp, BT, 0, 0, stream))
+    if kind in ("b1", "b9", "b10"):
         return max(_up_bytes(Hc, KX, Hp, BT, nf, nf, CHp // (Hp // Hc),
                              stream),
                    _dn_bytes(Hc, Hp, BT, nm8, nm + ny * nm + ny, stream))
@@ -468,24 +471,25 @@ def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
 def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
              nf: int = 0) -> dict:
     """The tensor-core design's tiling for B1 (``kind`` "b1"), B3 ("b3"),
-    B8 ("b8": CH, nm_in, nm, ny unused) or B10 ("b10"): the first (C, BT)
-    of ``_MMA_CONFIGS`` whose CTA carries its state in one pass and fits in
+    B7 and B8 ("b7", "b8": CH, nm_in, nm, ny unused), B9 ("b9": CH is x's
+    width, nm_in 0, no initial MLP) or B10 ("b10"): the first (C, BT) of
+    ``_MMA_CONFIGS`` whose CTA carries its state in one pass and fits in
     shared memory with its weight slices resident; else the first that
     fits with them streamed through the ring (``stream`` True). With it
     the padded widths (H to a multiple of 8 C; B1's stream is H wide,
-    B10's CH padded to a multiple of 8 C, B3's CH and nm_in to 16) and
-    KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Every kind takes
-    every H up to ``MMA_H_MAX`` (832) at the flagship's other widths;
-    beyond, where even 16-column tiles over clusters of 8 leave no room
-    for the state and input tiles, it raises ``ValueError``."""
-    nmip = 0 if kind == "b8" else _ceil(nm_in, 16)
+    B10's CH padded to a multiple of 8 C, B9's to 16, B3's CH and nm_in to
+    16) and KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Every kind
+    takes every H up to ``MMA_H_MAX`` (832) at the flagship's other
+    widths; beyond, where even 16-column tiles over clusters of 8 leave no
+    room for the state and input tiles, it raises ``ValueError``."""
+    nmip = 0 if kind in ("b7", "b8", "b9") else _ceil(nm_in, 16)
     nw = _MMA_NTH // 32
     PF, MAXI = _MMA_PF * _MMA_NTH, _MMA_MAXI * _MMA_NTH
     for stream in (False, True):
         for C, BT in _MMA_CONFIGS:
             Hp = _ceil(H, 8 * C)
-            CHp = {"b1": Hp, "b10": _ceil(CH, 8 * C),
-                   "b3": _ceil(CH, 16), "b8": 0}[kind]
+            CHp = {"b1": Hp, "b10": _ceil(CH, 8 * C), "b9": _ceil(CH, 16),
+                   "b3": _ceil(CH, 16), "b7": 0, "b8": 0}[kind]
             nwm = BT // 16
             Hc, nwn = Hp // C, nw // nwm
             KXc = _ceil(-(-(CHp + nmip) // C), 8)
@@ -959,7 +963,11 @@ def _validate_lbh(args) -> tuple[int, int, int]:
     return L, B, H
 
 
-def _launch_lbh(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_lbh(args, dims, cudacore_bf16=False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core design of B7: f32, or with ``cudacore_bf16`` its bf16
+    instantiation, which no wrapper selects (``cudacore_fused_bigru_lbh``)
+    and which counts no launch."""
     xp = args[0]
     L, B, H = dims
     dt, dev = xp.dtype, xp.device
@@ -977,7 +985,8 @@ def _launch_lbh(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
     rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
             L, H, B, stream)
     _build.check_status(rc, "bigru_lbh")
-    fused_bigru_lbh.launches += 1
+    if not cudacore_bf16:
+        fused_bigru_lbh.launches += 1
     return down, lasth
 
 
@@ -1204,6 +1213,42 @@ def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims
                             dw2.t(), db2, dwhd.t(), dbhd), H)
 
 
+def _launch_lbh_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 in bf16 on the tensor-core design (B8's replay without the gate
+    bundle; weights resident or streamed, as ``mma_plan`` chooses from the
+    width). The kernel writes down and last_h batch-major and keeps the up
+    states in ``down`` (no scratch)."""
+    L, B, H = dims
+    pl = mma_plan("b7", H, H, 0, 0, 0)
+    C, Hp = pl["C"], pl["H"]
+    (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
+     bhh_dn) = pad_lbh_res(args, Hp)
+    dt, dev = xp.dtype, xp.device
+    down = torch.empty((L, B, Hp), dtype=dt, device=dev)
+    lasth = torch.empty((B, Hp), dtype=dt, device=dev)
+    cm = lambda t: t.t().contiguous()           # [B, H] -> [H, B]
+    # [in, out] weights as the kernel's [out, in] gate slices
+    ptrs = [xp, cm(h0_up), cm(h0_dn), pack_rows(whh_up.t(), C),
+            bhh_up.contiguous(), pack_rows(win2.t(), C), bin2.contiguous(),
+            pack_rows(whh_dn.t(), C), bhh_dn.contiguous(), down, lasth]
+    fn = _build.load("bigru_lbh").bigru_lbh_mma
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_table(ptrs), L, Hp, B, C, pl["BT"], int(pl["stream"]), stream)
+    _build.check_status(rc, "bigru_lbh_mma")
+    fused_bigru_lbh.launches += 1
+    if Hp == H:
+        return down, lasth
+    return down[..., :H].contiguous(), lasth[:, :H].contiguous()
+
+
+def cudacore_fused_bigru_lbh(*args) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch_lbh(args, _validate_lbh(args), cudacore_bf16=True)
+
+
 def cudacore_bigru_bwd_lbh(res, d_down, d_lasth) -> tuple[torch.Tensor, ...]:
     """B8's CUDA-core design in bf16, which no wrapper selects: for timing
     it against the tensor-core design on the card. Counts no launch."""
@@ -1231,9 +1276,10 @@ def bigru_bwd_lbh(res, d_down, d_lasth):
 
 
 class _FusedBiGRULBH(torch.autograd.Function):
-    """Forward: B7 (or its plain version on the CPU), saving the inputs, as
-    JAX's residuals are. Backward: ``bigru_bwd_lbh``, kernel B8 on the card
-    and its plain version on the CPU."""
+    """Forward: B7 (bf16: the tensor-core design; f32: the CUDA-core one;
+    the plain version on the CPU), saving the inputs, as JAX's residuals
+    are. Backward: ``bigru_bwd_lbh``, kernel B8 on the card and its plain
+    version on the CPU."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -1244,6 +1290,8 @@ class _FusedBiGRULBH(torch.autograd.Function):
             return bigru_reference_lbh(*args)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
+        if args[0].dtype == torch.bfloat16:
+            return _launch_lbh_mma(args, dims)
         return _launch_lbh(args, dims)
 
     @staticmethod
@@ -1262,8 +1310,9 @@ def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
     up-sweep projection, input bias included), h0_up/h0_dn [B, H], weights
     [H, 3H] and biases [3H], all float32 or all bfloat16 -> (down
     [L, B, H], last_h [B, H]); differentiable in all nine. A CPU tensor
-    runs the plain versions; a CUDA tensor launches kernel B7 (and, for
-    gradients, B8) or raises."""
+    runs the plain versions; a CUDA tensor launches kernel B7 (bf16: the
+    tensor-core design; f32: the CUDA-core one) and, for gradients, B8, or
+    raises."""
     return _FusedBiGRULBH.apply(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
                                 bin2, whh_dn, bhh_dn)
 
@@ -1417,9 +1466,10 @@ def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
 
 
 def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
-    """The CUDA-core design of B9 (both types) and B10 (f32), or with
-    ``cudacore_bf16`` B10's bf16 instantiation, which no wrapper selects
-    (``cudacore_bigru_heads_init_lbh``) and which counts no launch."""
+    """The CUDA-core design of B9 and B10 (f32), or with ``cudacore_bf16``
+    their bf16 instantiation, which no wrapper selects
+    (``cudacore_bigru_heads_lbh``, ``cudacore_bigru_heads_init_lbh``) and
+    which counts no launch."""
     L, B, nx, ch, nm_in, H, nm, ny = dims
     dt, dev = args[0].dtype, args[0].device
     out = torch.empty((L, B, ny), dtype=dt, device=dev)
@@ -1451,6 +1501,22 @@ def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
     return out, mem, lasth
 
 
+def pad_heads_lbh(args, Hp: int, KX: int) -> tuple:
+    """B9's 15 arguments zero-padded to hidden width Hp (per gate block)
+    and input width KX. A padded x channel meets zero weight rows; padded
+    hidden units stay 0 through both sweeps and meet zero head weights:
+    the outputs do not change."""
+    (x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn,
+     wlat, blat, wout, bout) = args
+    L, B, _ = x.shape
+    gl = lambda t: _pad_gates_last(t, Hp)
+    w = lambda t: gl(_pad(t, (Hp, t.shape[1])))
+    return (_pad(x, (L, B, KX)), _pad(h0_up, (B, Hp)), _pad(h0_dn, (B, Hp)),
+            gl(_pad(win1, (KX, win1.shape[1]))), gl(bin1), w(whh_up),
+            gl(bhh_up), w(win2), gl(bin2), w(whh_dn), gl(bhh_dn),
+            _pad(wlat, (Hp, wlat.shape[1])), blat, wout, bout)
+
+
 def pad_heads_init_lbh(args, Hp: int, CHp: int, nmip: int) -> tuple:
     """B10's 18 arguments zero-padded to hidden width Hp (per gate block),
     initial-MLP width CHp and memory width nmip. A padded xi row is
@@ -1471,40 +1537,65 @@ def pad_heads_init_lbh(args, Hp: int, CHp: int, nmip: int) -> tuple:
             _pad(wlat, (Hp, wlat.shape[1])), blat, wout, bout)
 
 
-def _launch_heads_init_lbh_mma(args, dims):
-    """B10 in bf16 on the tensor-core design (bigru_mma_fwd.cuh's
-    batch-major instance; weights resident or streamed, as ``mma_plan``
-    chooses from the widths)."""
-    L, B, nf, ch, nm_in, H, nm, ny = dims
-    pl = mma_plan("b10", H, ch, nm_in, nm, ny, nf)
-    C, Hp, CHp, nmip = pl["C"], pl["H"], pl["CH"], pl["nm_in"]
-    (feat, mem_in, h0_up, h0_dn, w_init, b_init, win1, bin1, whh_up, bhh_up,
-     win2, bin2, whh_dn, bhh_dn, wlat, blat, wout,
-     bout) = pad_heads_init_lbh(args, Hp, CHp, nmip)
-    dt, dev = feat.dtype, feat.device
+def _launch_heads_lbh_mma(args, dims, init: bool):
+    """B9 or, with ``init``, B10 in bf16 on the tensor-core design
+    (bigru_mma_fwd.cuh's batch-major instances: B9's X tile loaded, B10's
+    computed by the initial MLP; weights resident or streamed, as
+    ``mma_plan`` chooses from the widths)."""
+    L, B, nx, ch, nm_in, H, nm, ny = dims
+    if init:
+        pl = mma_plan("b10", H, ch, nm_in, nm, ny, nx)
+        a = pad_heads_init_lbh(args, pl["H"], pl["CH"], pl["nm_in"])
+        lead, weights = a[:6], a[6:]
+        widths = (nx, pl["CH"], pl["nm_in"])
+    else:
+        pl = mma_plan("b9", H, nx, 0, nm, ny)
+        a = pad_heads_lbh(args, pl["H"], pl["CH"])
+        lead, weights = a[:3], a[3:]
+        widths = (pl["CH"],)
+    C, Hp = pl["C"], pl["H"]
+    (win1, bin1, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat,
+     wout, bout) = weights
+    dt, dev = lead[0].dtype, lead[0].device
     out = torch.empty((L, B, ny), dtype=dt, device=dev)
     mem = torch.empty((L, B, nm), dtype=dt, device=dev)
     lasth = torch.empty((Hp, B), dtype=dt, device=dev)
     up = torch.empty((L, Hp, B), dtype=dt, device=dev)   # up-stream scratch
     cm = lambda t: t.t().contiguous()
-    # [in, out] weights as the kernel's [out, in] gate slices and heads
-    ptrs = [feat, mem_in.contiguous(), cm(h0_up), cm(h0_dn), cm(w_init),
-            b_init.contiguous(), pack_rows(win1.t(), C), bin1.contiguous(),
-            pack_rows(whh_up.t(), C), bhh_up.contiguous(),
-            pack_rows(win2.t(), C), bin2.contiguous(),
-            pack_rows(whh_dn.t(), C), bhh_dn.contiguous(),
-            _pad(wlat.t(), (_ceil(nm, 8), Hp)).contiguous(),
-            blat.contiguous(), cm(wout), bout.contiguous(), out, mem, lasth,
-            up]
-    fn = _build.load("bigru_heads_lbh").bigru_heads_init_lbh_mma
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    # the inputs (h0s [H, B], B10's w_init [CH, nf]), then the [in, out]
+    # weights as the kernel's [out, in] gate slices and heads
+    if init:
+        feat, mem_in, h0_up, h0_dn, w_init, b_init = lead
+        inputs = [feat, mem_in.contiguous(), cm(h0_up), cm(h0_dn),
+                  cm(w_init), b_init.contiguous()]
+    else:
+        x, h0_up, h0_dn = lead
+        inputs = [x, cm(h0_up), cm(h0_dn)]
+    ptrs = inputs + [
+        pack_rows(win1.t(), C), bin1.contiguous(), pack_rows(whh_up.t(), C),
+        bhh_up.contiguous(), pack_rows(win2.t(), C), bin2.contiguous(),
+        pack_rows(whh_dn.t(), C), bhh_dn.contiguous(),
+        _pad(wlat.t(), (_ceil(nm, 8), Hp)).contiguous(), blat.contiguous(),
+        cm(wout), bout.contiguous(), out, mem, lasth, up]
+    name = "bigru_heads_init_lbh_mma" if init else "bigru_heads_lbh_mma"
+    fn = getattr(_build.load("bigru_heads_lbh"), name)
+    ints = (L, *widths, Hp, nm, ny, B, C, pl["BT"], int(pl["stream"]))
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(ints) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_table(ptrs), L, nf, CHp, nmip, Hp, nm, ny, B, C, pl["BT"],
-            int(pl["stream"]), stream)
-    _build.check_status(rc, "bigru_heads_init_lbh_mma")
-    fused_bigru_heads_init_lbh.launches += 1
+    rc = fn(_table(ptrs), *ints, stream)
+    _build.check_status(rc, name)
+    (fused_bigru_heads_init_lbh if init else fused_bigru_heads_lbh) \
+        .launches += 1
     return out, mem, lasth[:H].t().contiguous()
+
+
+def cudacore_bigru_heads_lbh(*args) -> tuple[torch.Tensor, ...]:
+    """B9's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch_heads_lbh(args, _validate_heads_lbh(args, False), False,
+                             cudacore_bf16=True)
 
 
 def cudacore_bigru_heads_init_lbh(*args) -> tuple[torch.Tensor, ...]:
@@ -1538,8 +1629,9 @@ def _heads_init_compose_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
 
 
 class _FusedHeadsLBH(torch.autograd.Function):
-    """Forward: B9, or with ``init`` B10 (their plain versions on the CPU),
-    saving the inputs, as JAX's residuals are. Backward, as JAX's
+    """Forward: B9, or with ``init`` B10 (bf16: the tensor-core designs;
+    f32: the CUDA-core ones; their plain versions on the CPU), saving the
+    inputs, as JAX's residuals are. Backward, as JAX's
     ``_heads_bwd`` / ``_heads_init_bwd``: autograd through the composition,
     whose recurrent core replays with B7 and differentiates with B8 on the
     card. The composition rounds the up projection to the input type
@@ -1558,8 +1650,8 @@ class _FusedHeadsLBH(torch.autograd.Function):
             return ref(*args)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
-        if init and args[0].dtype == torch.bfloat16:
-            return _launch_heads_init_lbh_mma(args, dims)
+        if args[0].dtype == torch.bfloat16:
+            return _launch_heads_lbh_mma(args, dims, init)
         return _launch_heads_lbh(args, dims, init)
 
     @staticmethod
@@ -1582,8 +1674,9 @@ def fused_bigru_heads_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
     weights [in, out] (win1 [nx, 3H], wlat [H, nm], wout [nm, ny]) and flat
     biases, all float32 or all bfloat16 -> (out [L, B, ny], mem [L, B, nm],
     last_h [B, H]); differentiable in all 15. A CPU tensor runs the plain
-    versions; a CUDA tensor launches kernel B9 (and, for gradients, B7 and
-    B8) or raises."""
+    versions; a CUDA tensor launches kernel B9 (bf16: the tensor-core
+    design; f32: the CUDA-core one) and, for gradients, B7 and B8, or
+    raises."""
     return _FusedHeadsLBH.apply(False, x, h0_up, h0_dn, win1, bin1, whh_up,
                                 bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
                                 blat, wout, bout)

@@ -997,14 +997,18 @@ def test_v4_trainer_update_on_card(cuda):
     ("b8", 384), ("b8", 512), ("b10", 384), ("b10", 512),
     ("b1", 256), ("b1", 320), ("b3", 256), ("b3", 320),
     ("b8", 320), ("b10", 320),
-    ("b1", 832), ("b3", 832), ("b8", 832), ("b10", 832), ("b8", 960)])
+    ("b1", 832), ("b3", 832), ("b8", 832), ("b10", 832), ("b8", 960),
+    ("b7", 224), ("b7", 256), ("b7", 320), ("b7", 384), ("b7", 512),
+    ("b7", 832), ("b9", 224), ("b9", 256), ("b9", 320), ("b9", 384),
+    ("b9", 512), ("b9", 832)])
 def test_bf16_tensor_core_at_the_plans_other_tilings(cuda, kind, H):
-    """The plans the flagship's widths do not reach, on the card: B8 and
-    B10 with streamed weights (H 384, 512), every kind on the resident
-    tilings of clusters of 8 (H 256: 32-column tiles, H 320: 16) and on
-    the streamed 16-column tiles at the widest H the plan promises
-    (``MMA_H_MAX`` 832; B8 960), L 60, 1,000 columns, each output against
-    the plain version under the 4x gate."""
+    """The plans the flagship's widths do not reach, on the card: B7-B10
+    with streamed weights (H 384, 512), every kind on the resident tilings
+    of clusters of 4 over 32-column tiles (B7, B9: H 224) and of clusters
+    of 8 (H 256: 32-column tiles, H 320: 16) and on the streamed 16-column
+    tiles at the widest H the plan promises (``MMA_H_MAX`` 832; B8 960),
+    L 60, 1,000 columns, each output against the plain version under the
+    4x gate."""
     from climsim_tpu_torch.ops import (bigru_bwd_lbh, bigru_bwd_reference_lbh)
     from climsim_tpu_torch.ops.pallas_rnn import mma_plan
     p = mma_plan(kind, H, H, 8, 8, 6, 6)
@@ -1030,6 +1034,16 @@ def test_bf16_tensor_core_at_the_plans_other_tilings(cuda, kind, H):
                     bigru_heads_cm_bwd_reference([t.float() for t in res],
                                                  dom.float(), dlh.float()))
         return
+    if kind == "b7":
+        from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+        a = _b7_inputs(60, H, 1000, torch.float32, cuda)
+        for i in (3, 5, 7):
+            a[i] = a[i] / (0.3 * np.sqrt(H))
+        a16 = [t.bfloat16() for t in a]
+        with torch.no_grad():
+            _bf16_holds(fused_bigru_lbh(*a16), bigru_reference_lbh(*a16),
+                        bigru_reference_lbh(*(t.float() for t in a16)))
+        return
     if kind == "b8":
         res, dd, dl = _b8_inputs(60, H, 1000, torch.float32, cuda)
         for i in (3, 5, 7):
@@ -1041,10 +1055,143 @@ def test_bf16_tensor_core_at_the_plans_other_tilings(cuda, kind, H):
                     bigru_bwd_reference_lbh([t.float() for t in r16],
                                             *(t.float() for t in d16)))
         return
-    kern, ref = _b9_b10(True)
-    a = _b9_b10_inputs(True, 60, H, 1000, torch.float32, cuda)
-    for i in (4, 6, 8, 10, 12, 14):
+    init = kind == "b10"
+    kern, ref = _b9_b10(init)
+    a = _b9_b10_inputs(init, 60, H, 1000, torch.float32, cuda)
+    for i in ((4, 6, 8, 10, 12, 14) if init else (3, 5, 7, 9, 11, 13)):
         a[i] = a[i] / (0.25 * np.sqrt(a[i].shape[0]))
     a16 = [t.bfloat16() for t in a]
     with torch.no_grad():
         _bf16_holds(kern(*a16), ref(*a16), ref(*(t.float() for t in a16)))
+
+
+# ------------------------------------------------ B7 and B9 on tensor cores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 20])
+@pytest.mark.parametrize("B", EDGES)
+def test_b7_tensor_core_bf16_at_the_edges(cuda, B, H):
+    """B7 in bf16 (the tensor-core design) at the edges of its tiling (B 1,
+    below one 64-column tile, ragged against it, two tiles; H 20 padded to
+    32), down and last_h against the plain version under the 4x gate,
+    with one launch counted."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+    a = _b7_inputs(20, H, B, torch.bfloat16, cuda)
+    before = fused_bigru_lbh.launches
+    with torch.no_grad():
+        got = fused_bigru_lbh(*a)
+        assert fused_bigru_lbh.launches == before + 1
+        _bf16_holds(got, bigru_reference_lbh(*a),
+                    bigru_reference_lbh(*(t.float() for t in a)))
+    assert all(g.is_contiguous() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 20])
+@pytest.mark.parametrize("B", EDGES)
+def test_b9_tensor_core_bf16_at_the_edges(cuda, B, H):
+    """B9 in bf16 (the tensor-core design) at the edges of its tiling (H
+    16 and 20 padded to 32, x's width 24 to 32), per output against the
+    plain version under the 4x gate."""
+    kern, ref = _b9_b10(False)
+    a = _b9_b10_inputs(False, 20, H, B, torch.bfloat16, cuda)
+    before = kern.launches
+    with torch.no_grad():
+        got = kern(*a)
+        assert kern.launches == before + 1
+        _bf16_holds(got, ref(*a), ref(*(t.float() for t in a)))
+    assert all(g.is_contiguous() for g in got)
+
+
+@pytest.mark.cuda
+def test_b7_b9_bf16_are_deterministic(cuda):
+    """Two bf16 calls of B7 and of B9 on the same inputs are bit-identical
+    (fixed-order sums, no atomics)."""
+    from climsim_tpu_torch.ops import fused_bigru_lbh
+    kern9, _ = _b9_b10(False)
+    a7 = _b7_inputs(20, 32, 150, torch.bfloat16, cuda)
+    a9 = _b9_b10_inputs(False, 20, 32, 150, torch.bfloat16, cuda)
+    with torch.no_grad():
+        for fn, a in ((fused_bigru_lbh, a7), (kern9, a9)):
+            for i, (x, y) in enumerate(zip(fn(*a), fn(*a))):
+                assert torch.equal(x, y), (fn.__name__, i)
+
+
+@pytest.mark.cuda
+def test_cudacore_b7_b9_match_tensor_core_bf16(cuda):
+    """The CUDA-core bf16 designs of B7 and B9 that chip_smoke.py times
+    against the tensor-core ones agree with them under the same gate, and
+    only the wrappers count launches."""
+    from climsim_tpu_torch.ops import bigru_reference_lbh, fused_bigru_lbh
+    from climsim_tpu_torch.ops.pallas_rnn import (cudacore_bigru_heads_lbh,
+                                                  cudacore_fused_bigru_lbh)
+    kern9, ref9 = _b9_b10(False)
+    a7 = _b7_inputs(20, 32, 150, torch.bfloat16, cuda)
+    a9 = _b9_b10_inputs(False, 20, 32, 150, torch.bfloat16, cuda)
+    counts = (fused_bigru_lbh.launches, kern9.launches)
+    with torch.no_grad():
+        pairs = [(cudacore_fused_bigru_lbh(*a7), fused_bigru_lbh(*a7),
+                  bigru_reference_lbh(*a7),
+                  bigru_reference_lbh(*(t.float() for t in a7))),
+                 (cudacore_bigru_heads_lbh(*a9), kern9(*a9), ref9(*a9),
+                  ref9(*(t.float() for t in a9)))]
+    assert (fused_bigru_lbh.launches, kern9.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    for old, new, w, w32 in pairs:
+        for i, (o, n, p, p32) in enumerate(zip(old, new, w, w32)):
+            own = (p.float() - p32.float()).abs().max().item()
+            err = (o.float() - n.float()).abs().max().item()
+            assert err <= 4 * own + 1e-3 * p32.float().abs().max().item(), \
+                (i, err, own)
+
+
+@pytest.mark.cuda
+def test_b7_through_fused_layer_and_b9_through_v3_model(cuda):
+    """The callers reach the tensor-core designs in bf16: FusedBiGRULayer
+    (the v2 arm's and the fused physics trunk's layer) launches B7 once a
+    call, and the v3 RNNAutoreg B9 once a step; each output on the card
+    against the same module on the CPU under the 4x gate."""
+    from climsim_tpu_torch.models import BF16, F32, RNNAutoreg
+    from climsim_tpu_torch.models.cells import FusedBiGRULayer
+    from climsim_tpu_torch.ops import fused_bigru_heads_lbh, fused_bigru_lbh
+    g = torch.Generator().manual_seed(5)
+    layer = FusedBiGRULayer(24, 32, generator=g)
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.standard_normal((150, 20, 24)), dtype=torch.float32)
+    h0 = torch.as_tensor(0.5 * rng.standard_normal((2, 150, 32)),
+                         dtype=torch.float32)
+    with torch.no_grad():
+        want32 = layer(x, h0[0], h0[1])
+        want = layer(x.bfloat16(), h0[0].bfloat16(), h0[1].bfloat16())
+        layer.to(cuda)
+        before = fused_bigru_lbh.launches
+        got = layer(x.to(cuda, torch.bfloat16), h0[0].to(cuda),
+                    h0[1].to(cuda))
+        assert fused_bigru_lbh.launches == before + 1
+    _bf16_holds([t.cpu() for t in got], want, want32)
+    rng = np.random.default_rng(10)
+    L, B = 12, 40
+    xl = torch.as_tensor(rng.normal(0, 0.3, (B, L, 6)), dtype=torch.float32)
+    xs = torch.as_tensor(rng.normal(0, 0.3, (B, 24)), dtype=torch.float32)
+    mem = torch.zeros((B, L, 8))
+    out = {}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        for dev in (cuda, torch.device("cpu")):
+            model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8,
+                               nneur=(32, 32), nh_mem=8, add_pres=False,
+                               policy=policy, use_pallas=True,
+                               fuse_heads=True, device=dev, seed=1)
+            assert model.arm == "v3"
+            before = fused_bigru_heads_lbh.launches
+            with torch.no_grad():
+                res = model(xl.to(dev), xs.to(dev), mem.to(dev))
+            assert fused_bigru_heads_lbh.launches - before == \
+                (1 if dev.type == "cuda" else 0)
+            out[name, dev.type] = [t.float().cpu() for t in res]
+    # the model's outputs are f32 (the policy's output type)
+    for c, p, p32 in zip(out["bf16", "cuda"], out["bf16", "cpu"],
+                         out["f32", "cpu"]):
+        own = (p - p32).abs().max().item()
+        err = (c - p).abs().max().item()
+        assert err <= 4 * own + 1e-3 * p32.abs().max().item(), (err, own)

@@ -1,4 +1,4 @@
-"""The Python around the bf16 tensor-core design of B1, B3, B8 and B10 on
+"""The Python around the bf16 tensor-core design of B1, B3 and B7-B10 on
 the CPU: the tiling plan (resident or streamed weights), the
 zero-padding of widths the tiling does not divide, and the packing of
 weights into the cluster CTAs' slices, held against the plain versions
@@ -11,7 +11,9 @@ import torch
 from climsim_tpu.ops.pallas_rnn import (_bigru_bwd_pallas_lbh,
                                         _bigru_heads_cm_bwd_pallas,
                                         _bigru_heads_init_cm_pallas,
-                                        _bigru_heads_init_pallas_lbh)
+                                        _bigru_heads_init_pallas_lbh,
+                                        _bigru_heads_pallas_lbh,
+                                        _bigru_pallas_lbh)
 from climsim_tpu_torch.ops.pallas_rnn import (_SMEM_MAX, MMA_H_MAX,
                                               _mm, _pad_gates_last, _tmm,
                                               _unpad_gates_last,
@@ -19,8 +21,11 @@ from climsim_tpu_torch.ops.pallas_rnn import (_SMEM_MAX, MMA_H_MAX,
                                               bigru_heads_cm_bwd_reference,
                                               bigru_heads_init_cm_reference,
                                               bigru_heads_init_lbh_reference,
+                                              bigru_heads_lbh_reference,
+                                              bigru_reference_lbh,
                                               mma_plan, pack_rows, pack_t,
                                               pad_heads_init_lbh,
+                                              pad_heads_lbh,
                                               pad_init_args, pad_lbh_res,
                                               pad_res, unpack_rows, unpack_t,
                                               unpad_grads, unpad_lbh_grads)
@@ -382,6 +387,116 @@ def test_padded_plain_b10_matches_pallas_interpret(B):
     out, mem, lh = bigru_heads_init_lbh_reference(
         *pad_heads_init_lbh(_t(a), HP, CH10P, NMIP))
     want = _bigru_heads_init_pallas_lbh(*_j(a), 8, True, True)
+    for g, w in zip((out, mem, lh[:, :H]), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-6)
+
+
+# ------------------------------------------------------------ B7 and B9
+# B7's arguments are B8's residuals (pad_lbh_res); B9's input x [L, B, nx]
+# is the X tile itself, so only its width is padded, to whole 16-wide
+# k-steps (nx 12 -> 16)
+NX9, KX9 = 12, 16
+
+
+def _b9_inputs(B, seed=8):
+    rng = np.random.default_rng(seed)
+    shapes = [(L8, B, NX9), (B, H), (B, H), (NX9, 3 * H), (3 * H,),
+              (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,), (H, 3 * H),
+              (3 * H,), (H, NM), (NM,), (NM, NY), (NY,)]
+    return [(0.25 * rng.standard_normal(s)).astype(np.float32)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("kind,H_,CH_", [("b7", 192, 0), ("b7", 128, 0),
+                                         ("b9", 192, 208)])
+def test_plan_resident_for_b7_b9(kind, H_, CH_):
+    """B7 at the v2 arm's H 192 and the physics trunk's H 128, and B9 at
+    the v3 arm's widths (x 208 wide: the initial MLP's 192 and the memory's
+    16; heads 16 + 6), keep their weights resident in clusters of 4 CTAs
+    over 64-column tiles; B9's X tile needs no padding at 208. B7 has no
+    heads, initial MLP or input tile, so its CTA needs less than B8's and
+    B10's (the source's smem_bytes)."""
+    p = mma_plan(kind, H_, CH_, 0, 16, 6)
+    assert (p["C"], p["BT"], p["H"], p["stream"]) == (4, 64, H_, False)
+    assert p["nm_in"] == 0 and p["CH"] == CH_
+    assert p["smem"] == {("b7", 192): 217600, ("b7", 128): 121856,
+                         ("b9", 192): 228576}[kind, H_]
+
+
+@pytest.mark.parametrize("H_", [384, 640, 832])
+@pytest.mark.parametrize("kind", ["b7", "b9"])
+def test_plan_b7_b9_stream_up_to_the_widest(kind, H_):
+    """From H 384 to MMA_H_MAX (832) B7 and B9 stream their weight slices
+    through the ring, inside the 227 KB a CTA may use, carrying the state
+    in one pass; B9's 208-wide input stays unpadded."""
+    p = mma_plan(kind, H_, 208, 0, 16, 6)
+    assert p["stream"] and p["smem"] <= _SMEM_MAX
+    assert p["H"] % (8 * p["C"]) == 0 and p["H"] >= H_
+    assert p["H"] // p["C"] // 8 <= 12 // (p["BT"] // 16) * 2
+    assert p["CH"] == (208 if kind == "b9" else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_padding_leaves_forward_unchanged(dtype):
+    """B7's plain version on its arguments padded as B8's wrapper pads
+    them (pad_lbh_res, H 20 -> 32) gives the same down and last_h in the
+    real columns and zeros in the padded ones (f32 to 1e-6: summation
+    order over added zeros; bf16 exactly: the same values rounded at the
+    same points)."""
+    res, _, _ = _b8_inputs(13)
+    res = _t(res, dtype)
+    down, lh = bigru_reference_lbh(*res)
+    downp, lhp = bigru_reference_lbh(*pad_lbh_res(res, HP))
+    tol = 1e-6 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(downp[..., :H], down, rtol=tol, atol=tol)
+    torch.testing.assert_close(lhp[:, :H], lh, rtol=tol, atol=tol)
+    assert torch.count_nonzero(downp[..., H:]) == 0
+    assert torch.count_nonzero(lhp[:, H:]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b9_padding_leaves_forward_unchanged(dtype):
+    """B9's plain version on the arguments padded as its wrapper pads them
+    (H 20 -> 32, x's width 12 -> 16) gives the same out and mem and the
+    same real columns of last_h, and zero padded columns (f32 to 1e-6,
+    bf16 exactly, as B10's)."""
+    a = _t(_b9_inputs(11), dtype)
+    out, mem, lh = bigru_heads_lbh_reference(*a)
+    p = pad_heads_lbh(a, HP, KX9)
+    assert p[0].shape == (L8, 11, KX9) and p[3].shape == (KX9, 3 * HP)
+    assert torch.count_nonzero(p[0][..., NX9:]) == 0
+    outp, memp, lhp = bigru_heads_lbh_reference(*p)
+    tol = 1e-6 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(outp, out, rtol=tol, atol=tol)
+    torch.testing.assert_close(memp, mem, rtol=tol, atol=tol)
+    torch.testing.assert_close(lhp[:, :H], lh, rtol=tol, atol=tol)
+    assert torch.count_nonzero(lhp[:, H:]) == 0
+
+
+@pytest.mark.parametrize("B", [16, 13])
+def test_padded_plain_b7_matches_pallas_interpret(B):
+    """B7's plain version at the padded width, cut back, against the JAX
+    Pallas forward (interpret mode, f32, 8-column tiles, B 13 ragged) on
+    the real widths; tolerance as tests/test_torch_ops_rnn_v2.py's."""
+    res, _, _ = _b8_inputs(B)
+    down, lh = bigru_reference_lbh(*pad_lbh_res(_t(res), HP))
+    jd, jl = _bigru_pallas_lbh(*_j(res), 8, True, True)
+    np.testing.assert_allclose(down[..., :H].numpy(), np.asarray(jd),
+                               rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(lh[:, :H].numpy(), np.asarray(jl), rtol=2e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [16, 13])
+def test_padded_plain_b9_matches_pallas_interpret(B):
+    """B9's plain version at the padded widths, cut back, against the JAX
+    Pallas forward (interpret mode, f32, 8-column tiles, B 13 ragged) on
+    the real widths; tolerance as tests/test_torch_ops_rnn_v34.py's."""
+    a = _b9_inputs(B)
+    out, mem, lh = bigru_heads_lbh_reference(
+        *pad_heads_lbh(_t(a), HP, KX9))
+    want = _bigru_heads_pallas_lbh(*_j(a), 8, True, True)
     for g, w in zip((out, mem, lh[:, :H]), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
                                    atol=2e-6)
