@@ -47,8 +47,8 @@ Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
      per source, all started together), print each kernel's registers and
      spills, and count the tensor-core instructions (HMMA/HGMMA) of the
-     bf16 designs of B1, B3 and B7-B10 in their SASS (cuobjdump): each
-     must have some;
+     bf16 designs of B1, B3, B4 and B7-B10 in their SASS (cuobjdump):
+     each must have some;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 at the
      physics trunk's L 50, H 128 (f32 and, as an extra tiling of the
@@ -57,7 +57,7 @@ Phases (any failure exits non-zero):
      not, at 21,600 and 1,000 columns), B5 (6, 60, 120, 180), B6 (60,
      120, 180), B7 at the v2 arm's L 60, H 192 (f32 and bf16), B8 at the
      v4 arm's L 60, H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
-     21,600 and 1,000 columns); bf16 B1, B3 and B7-B10 run the
+     21,600 and 1,000 columns); bf16 B1, B3, B4 and B7-B10 run the
      tensor-core designs, f32 the CUDA-core ones;
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
@@ -88,7 +88,8 @@ Phases (any failure exits non-zero):
      card and on the CPU, compared after counting the McICA sample indices
      that differ, for each trunk;
   8. physics training: B8 (f32 and bf16 at 21,600 and 1,000 columns),
-     B13 and B14 (21,600 x 60 x 8) against their plain versions; one
+     B13 (21,600 x 60 x 8 and 1,000 x 50 x 8) and B14 (21,600 x 60 x 8)
+     against their plain versions; one
      chunk of 6 steps (2 updates of W 3) with each trunk, counters set to
      0 just before and read just after: B11, B12, B13 and B14 (and with
      the fused trunk B7 and B8) must each launch W times per update; finite
@@ -101,9 +102,11 @@ Phases (any failure exits non-zero):
      step and training update and the kernels; 2 for the other arms'
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
-     coupled step with its device idle share, the three training arms,
-     both physics trunks, B4, B5, B6; B1, B3, B7 and B8 (at the v2 and v4
-     arms' shapes), B9 and B10 in bf16 as the tensor-core design against
+     coupled step with its device idle share (v6 and v5 also at 384
+     columns), the three training arms, both physics trunks, B5, B6; B13
+     against its first design (device scratch, four sweeps) in turns; B1,
+     B3, B4, B7 and B8 (at the v2 and v4 arms' shapes), B9 and B10 in
+     bf16 as the tensor-core design against
      the CUDA-core design (f32's, instantiated in bf16 under a second C
      symbol or called with the bf16 type by a function that no wrapper
      selects), timed in turns (old, new, new, old), each with every device
@@ -114,11 +117,17 @@ Phases (any failure exits non-zero):
      calls), first held to the plain version, then timed forward against
      FusedBiGRULayer's forward and backward against B8, in bf16 (fp16
      where cuDNN takes no bf16) at the v2 arm's shapes and in f32 (no
-     TF32) at the physics trunk's, each with its kernels by name;
+     TF32) at the physics trunk's, each with its kernels by name; the
+     library yardstick of B4 and B9 (heads_yardstick: the same pair, in
+     fp16, then the latent and output heads as two torch.nn.Linear, for
+     B4 with its inputs and outputs permuted between the channel-major and
+     the pair's layout), first held to the plain version, then timed
+     beside the kernel;
  10. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
-     forward and backward), the card line, and the result line.
+     forward and backward, B4's and B9's the pair with the heads), the
+     card line, and the result line.
 The end of each phase prints the wall time since the start.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -232,11 +241,14 @@ def phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
 
 
-# the bf16 designs that must run their products on tensor cores: B1, B9
-# and B10 (one kernel body, bigru_mma_fwd.cuh; B10's and B9's resident
-# instances by their template arguments <kBM, kRoundXP, kStream, kLoadX>),
-# B3 and B8 (bigru_mma_bwd.cuh), B7 (bigru_lbh.cu)
+# the bf16 designs that must run their products on tensor cores: B1, B4,
+# B9 and B10 (one kernel body, bigru_mma_fwd.cuh; B4's two roundings and
+# B10's and B9's resident instances by their template arguments <kBM,
+# kRoundXP, kStream, kLoadX>), B3 and B8 (bigru_mma_bwd.cuh), B7
+# (bigru_lbh.cu)
 MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernel",),
+               "bigru_heads_cm": ("mma_fwd_kernelILb0ELb1ELb0ELb1E",
+                                  "mma_fwd_kernelILb0ELb0ELb0ELb1E"),
                "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel"),
                "bigru_lbh_bwd": ("b8_mma_kernel", "wgrad_mma_kernel"),
                "bigru_heads_lbh": ("mma_fwd_kernelILb1ELb0ELb0ELb0E",
@@ -719,8 +731,9 @@ def check_b4(model, card):
     """B4 against its plain version on the card at the v5 arm's shapes,
     at 21,600 and a ragged 1,000 columns, with the projections hoisted
     (rounded to the storage type, the serving default) and not (f32). f32
-    to 1e-5 + 1e-5*|x| as B1 (in f32 the two variants are one function);
-    bf16 to 4x the plain version's own bf16-vs-f32 error, as check_b1."""
+    (the CUDA-core design) to 1e-5 + 1e-5*|x| as B1 (in f32 the two
+    variants are one function); bf16 (the tensor-core design) to 4x the
+    plain version's own bf16-vs-f32 error, as check_b1."""
     from climsim_tpu_torch.ops import (bigru_heads_cm_reference as ref,
                                        fused_bigru_heads_cm as kern)
     errs = []
@@ -731,8 +744,8 @@ def check_b4(model, card):
             got = kern(*a32, hoist_proj=hoist)
             want = ref(*a32, hoist_proj=hoist)
             e = max_err(got, want)
-            print(f"B4 f32 B={B} hoist_proj={hoist}: max_abs_err {e:.3e}; "
-                  f"tolerance 1e-5 + 1e-5*|x| [{card}]")
+            print(f"B4 f32 (CUDA-core design) B={B} hoist_proj={hoist}: "
+                  f"max_abs_err {e:.3e}; tolerance 1e-5 + 1e-5*|x| [{card}]")
             for x, y in zip(got, want):
                 torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
             errs.append(e)
@@ -741,9 +754,9 @@ def check_b4(model, card):
             e16 = max_err(got16, want16)
             own = max_err(want16, ref(*(t.float() for t in a16),
                                       hoist_proj=hoist))
-            print(f"B4 bf16 B={B} hoist_proj={hoist}: max_abs_err "
-                  f"{e16:.3e}, plain bf16-vs-f32 {own:.3e}; tolerance 4x "
-                  f"that [{card}]")
+            print(f"B4 bf16 (tensor-core design) B={B} hoist_proj={hoist}: "
+                  f"max_abs_err {e16:.3e}, plain bf16-vs-f32 {own:.3e} "
+                  f"({e16 / max(own, 1e-30):.3f}x; tolerance 4x) [{card}]")
             check(e16 <= 4.0 * own, f"B4 bf16 B={B} hoist {hoist}: {e16} "
                   f"> 4 x {own}")
             errs.append(e16)
@@ -1453,16 +1466,16 @@ def check_b7(model, card, L=None):
     return max(errs)
 
 
-def radiation_args(ncol, device, seed=3):
-    """Solver inputs at the physics path's shapes (ncol, 60, 8) through
-    the plain optics: SW two-stream coefficients of random optical
-    properties (tau spanning clear to thick cloud), LW Pade sources of
-    random Planck terms. Returns (sw args, lw args)."""
+def radiation_args(ncol, device, seed=3, nlev=NLEV):
+    """Solver inputs at the physics path's shapes (ncol, 60, 8) (or nlev
+    layers) through the plain optics: SW two-stream coefficients of random
+    optical properties (tau spanning clear to thick cloud), LW Pade sources
+    of random Planck terms. Returns (sw args, lw args)."""
     from climsim_tpu_torch.physics import radiation as R
     g = torch.Generator(device=device).manual_seed(seed)
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(
         s, generator=g, device=device)
-    shape = (ncol, NLEV, 8)
+    shape = (ncol, nlev, 8)
     layers = R.calc_ref_trans_sw(u(0.05, 1.0, ncol, 1, 1),
                                  torch.exp(u(-6.0, 4.0, *shape)),
                                  u(0.3, 0.999, *shape), u(0.0, 0.85, *shape))
@@ -1775,25 +1788,28 @@ def radiation_cts(args, n_out, seed=4):
 
 def check_radiation_bwd(card):
     """B13 and B14 against their plain versions on the card at
-    (21,600, 60, 8) f32 on radiation_args' inputs: each gradient to 1e-5
-    of its largest magnitude (FMA contraction through the replay and both
+    (21,600, 60, 8) f32 on radiation_args' inputs, B13 (the two-pass
+    design) also at a ragged (1,000, 50, 8): each gradient to 1e-5 of its
+    largest magnitude (FMA contraction through the replay and both
     backward sweeps, the SW ones through 240 divisions)."""
     from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
                                        lw_solver_noscat_bwd,
                                        lw_solver_noscat_bwd_reference)
     sw, lw = radiation_args(NLAT * NLON, "cuda")
+    sw50, _ = radiation_args(1000, "cuda", seed=6, nlev=50)
     errs = {}
     for name, kern, ref, args, n_out in (
             ("B13", adding_sw_bwd, adding_sw_bwd_reference, sw, 3),
+            ("B13", adding_sw_bwd, adding_sw_bwd_reference, sw50, 3),
             ("B14", lw_solver_noscat_bwd, lw_solver_noscat_bwd_reference, lw,
              2)):
         cts = radiation_cts(args, n_out)
         got, want = kern(args, cts), ref(args, cts)
         rel = [rel_err(g, w) for g, w in zip(got, want)]
-        errs[name] = max_err(got, want)
-        print(f"{name} f32 ({NLAT * NLON}, {NLEV}, 8): max_abs_err "
-              f"{errs[name]:.3e}; worst relative to a gradient's scale "
-              f"{max(rel):.2e} (tolerance 1e-5) [{card}]")
+        errs[name] = max(errs.get(name, 0.0), max_err(got, want))
+        print(f"{name} f32 {tuple(args[3 if n_out == 3 else 0].shape)}: "
+              f"max_abs_err {max_err(got, want):.3e}; worst relative to a "
+              f"gradient's scale {max(rel):.2e} (tolerance 1e-5) [{card}]")
         for i, (e, g) in enumerate(zip(rel, got)):
             check(e <= 1e-5, f"{name} gradient {i}: {e:.3e}")
             check(bool(torch.isfinite(g).all()), f"{name} gradient {i}")
@@ -2294,6 +2310,66 @@ def library_yardstick(layer, L, B, dtype, card, label):
     return fwd_ms, bwd_ms, layer_ms
 
 
+def heads_yardstick(layer, a, cm, card, label):
+    """The library yardstick of B4 (``cm``: channel-major arguments ``a`` as
+    b4_args makes them) or B9 (batch-major, b9_args): cuDNN's GRU pair
+    with the fused layer's weights (gru_pair), then the latent head and
+    the output head as two torch.nn.Linear (weight = wlat.T, wout.T; bias
+    blat, bout), which the port never calls. For B4 the inputs are first
+    permuted to the pair's [L, B, CH + nm_in] and the heads' outputs back
+    to [L, nm + ny, B] (inside the timed call: they are part of what the
+    library needs to compute B4's function). In bf16, fp16 where
+    torch.backends.cudnn.is_acceptable refuses bf16. First held to the
+    plain f32 version within 4x the plain version's own bf16-vs-f32
+    error, then timed. Returns its ms."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       bigru_heads_lbh_reference)
+    pdt = a[0].dtype
+    if not torch.backends.cudnn.is_acceptable(a[0]):
+        pdt = torch.float16
+    pair, _ = gru_pair(layer, pdt)
+    H, (nm, ny) = layer.hidden, layer.wout.shape
+    lat, out = torch.nn.Linear(H, nm), torch.nn.Linear(nm, ny)
+    with torch.no_grad():
+        for lin, w, b in ((lat, "wlat", "blat"), (out, "wout", "bout")):
+            lin.weight.copy_(getattr(layer, w).t())
+            lin.bias.copy_(getattr(layer, b))
+    lat.to(a[0].device, pdt)
+    out.to(a[0].device, pdt)
+    ins = [t.to(pdt) for t in (a[:4] if cm else a[:3])]
+
+    def run():
+        if cm:
+            x, mem_in, h0u, h0d = ins
+            xb = torch.cat([x, mem_in], 1).permute(0, 2, 1).contiguous()
+            down, last = pair(xb, h0u.t().contiguous(), h0d.t().contiguous())
+            mem = lat(down)
+            om = torch.cat([mem, out(mem)], -1).permute(0, 2, 1).contiguous()
+            return om, last.t().contiguous()
+        down, last = pair(*ins)
+        mem = lat(down)
+        return out(mem), mem, last
+
+    ref = bigru_heads_cm_reference if cm else bigru_heads_lbh_reference
+    with torch.no_grad():
+        want = ref(*(t.float() for t in a))
+        own = max_err(ref(*a), want)
+        got = run()
+        err = max_err(got, want)
+        how = ("fp16: torch.backends.cudnn.is_acceptable refuses bf16"
+               if pdt != a[0].dtype else str(pdt).replace("torch.", ""))
+        print(f"library yardstick of {label} (cuDNN GRU pair + 2 Linear"
+              f"{', permuted' if cm else ''}; {how}): against the plain f32 "
+              f"version max_abs_err {err:.3e} (tolerance {4 * own:.3e}: 4x "
+              f"the plain version's own bf16-vs-f32 error) [{card}]")
+        check(err <= 4 * own, f"yardstick of {label}: {err:.3e} > 4 x "
+              f"{own:.3e}")
+        del got, want
+        ms = median_ms(run, 3)
+    kernel_split(run, ms, card, f"library yardstick of {label}")
+    return ms
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2445,6 +2521,12 @@ def main() -> int:
     arm_split(loop, (state, mem, x_sfc), hi_ms, card, "coupled step, arm v6")
     print(f"coupled step, {lo_ncol} columns: {lo_ms:.4f} ms, "
           f"{lo_ncol / lo_ms * 1e3:,.0f} columns/s [{card}]")
+    lo_v5 = make_loop(v5model, Grid.synthetic(lo_ncol, NLEV, device=dev),
+                      LO_NLAT, LO_NLON, None, "v5")
+    lo_v5_ms = step_ms(lo_v5, *initial_state(lo_ncol, NLEV, dev), REPEATS)
+    print(f"coupled step, {lo_ncol} columns, arm v5: {lo_v5_ms:.4f} ms, "
+          f"{lo_ncol / lo_v5_ms * 1e3:,.0f} columns/s [{card}]")
+    del lo_v5
     for arm, (aloop, ainputs, _) in arm_runs.items():
         ms = step_ms(aloop, *ainputs)
         print(f"coupled step, {ncol} columns, arm {arm}: {ms:.4f} ms, "
@@ -2529,11 +2611,21 @@ def main() -> int:
                                        fused_bigru_heads_cm,
                                        fv_advect_levels, fv_advect_tracers,
                                        fv_tracers_reference)
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_fused_bigru_heads_cm
     a4 = b4_args(v5model, ncol, torch.bfloat16, seed=23)
-    b4_ms = median_ms(lambda: fused_bigru_heads_cm(*a4), 3)
+    b4_ms = designs_in_turns("B4", lambda: cudacore_fused_bigru_heads_cm(*a4),
+                             lambda: fused_bigru_heads_cm(*a4), card)
+    kernel_split(lambda: fused_bigru_heads_cm(*a4), b4_ms, card, "B4 bf16")
     b4_f32xp_ms = median_ms(lambda: fused_bigru_heads_cm(
         *a4, hoist_proj=False), 3)
     b4_plain = median_ms(lambda: bigru_heads_cm_reference(*a4), 1)
+    a4_32 = tuple(t.float() for t in a4)
+    b4_f32 = median_ms(lambda: fused_bigru_heads_cm(*a4_32), 1, repeats=3)
+    print(f"B4 f32 (CUDA-core design) at {ncol} columns: kernel "
+          f"{b4_f32:.4f} ms [{card}]")
+    del a4_32
+    lib4 = heads_yardstick(v5model.bigru_fused, a4, True, card,
+                           "B4 (v5 arm's shapes)")
     q5, u5, v5, dtx, dty = flat_inputs
     q6 = q5[0].contiguous()
     b5_ms = median_ms(lambda: fv_advect_tracers(q5, u5, v5, dtx, dty), 50)
@@ -2602,11 +2694,12 @@ def main() -> int:
           f"{b8h_ms / lib_bwd:.3f}) [{card}]")
     sb = serving_bounds(a4, (q5, u5, v5), q6, a7h)
     print(f"B4 bf16 (L {NLEV}, CH {a4[0].shape[1]}, H {a4[7].shape[1]}, "
-          f"B {ncol}): kernel {b4_ms:.4f} ms (projections rounded, the "
-          f"serving default; {b4_f32xp_ms:.4f} ms with f32 projections), "
-          f"plain {b4_plain:.4f} ms, bound {sb['b4'][0]:.4f} ms "
-          f"({sb['b4'][2] / 1e12:.3f} TFLOP at 989 TFLOP/s; "
-          f"{sb['b4'][3] / 1e6:.1f} MB) [{card}]")
+          f"B {ncol}): kernel {b4_ms:.4f} ms (tensor-core design, "
+          f"projections rounded, the serving default; {b4_f32xp_ms:.4f} ms "
+          f"with f32 projections), plain {b4_plain:.4f} ms, bound "
+          f"{sb['b4'][0]:.4f} ms ({sb['b4'][2] / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s; {sb['b4'][3] / 1e6:.1f} MB), library yardstick "
+          f"{lib4:.4f} ms (B4 / yardstick {b4_ms / lib4:.3f}) [{card}]")
     for key, name, ms, plain, shape in (
             ("b5", "B5", b5_ms, b5_plain, tuple(q5.shape)),
             ("b6", "B6", b6_ms, b6_plain, tuple(q6.shape))):
@@ -2627,6 +2720,11 @@ def main() -> int:
                              lambda: fused_bigru_heads_lbh(*a9), card)
     kernel_split(lambda: fused_bigru_heads_lbh(*a9), b9_ms, card, "B9 bf16")
     b9_plain = median_ms(lambda: bigru_heads_lbh_reference(*a9), 1)
+    lib9 = heads_yardstick(lbh_models["b9"].bigru_fused, a9, False, card,
+                           "B9 (v3 arm's shapes)")
+    print(f"library yardstick, v3 arm's shapes: B9 bf16 (tensor-core) "
+          f"{b9_ms:.4f} ms, cuDNN pair + heads {lib9:.4f} ms (B9 / "
+          f"yardstick {b9_ms / lib9:.3f}) [{card}]")
     a10 = b10_args(lbh_models["b10"], ncol, torch.bfloat16, seed=37)
     from climsim_tpu_torch.ops.pallas_rnn import cudacore_bigru_heads_init_lbh
     b10_ms = designs_in_turns(
@@ -2698,7 +2796,15 @@ def main() -> int:
     b8_ms = median_ms(lambda: bigru_bwd_lbh(*a8), 3)
     b8_plain = median_ms(lambda: bigru_bwd_reference_lbh(*a8), 1)
     sw_cts, lw_cts = radiation_cts(sw_args, 3), radiation_cts(lw_args, 2)
-    b13_ms = median_ms(lambda: adding_sw_bwd(sw_args, sw_cts), 50)
+    from climsim_tpu_torch.ops.pallas_radiation import scratch_adding_sw_bwd
+    b13_old, b13_new = in_turns(lambda: scratch_adding_sw_bwd(sw_args, sw_cts),
+                                lambda: adding_sw_bwd(sw_args, sw_cts), 50)
+    b13_ms = statistics.mean(b13_new)
+    print(f"B13 f32 at ({ncol}, {NLEV}, 8) in turns (first, second, second, "
+          f"first): first design (device scratch, four sweeps) "
+          f"{b13_old[0]:.4f} / {b13_old[1]:.4f} ms, second design (two "
+          f"passes, the replay parked in shared memory) {b13_new[0]:.4f} / "
+          f"{b13_new[1]:.4f} ms [{card}]")
     b13_plain = median_ms(lambda: adding_sw_bwd_reference(sw_args, sw_cts), 3)
     b14_ms = median_ms(lambda: lw_solver_noscat_bwd(lw_args, lw_cts), 50)
     b14_plain = median_ms(lambda: lw_solver_noscat_bwd_reference(lw_args,
@@ -2784,7 +2890,7 @@ def main() -> int:
          "replaces": "climsim_tpu/ops/pallas_rnn.py:887",
          "launches": arm_launches["v5"]["b4"], "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": sb["b4"][0],
-         "bound_by": sb["b4"][1], "library_ms": None},
+         "bound_by": sb["b4"][1], "library_ms": lib4},
         {"name": "fv_tracers_flat", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/fv_tracers_flat.cu",
          "replaces": "climsim_tpu/ops/pallas_stencil.py:108",
@@ -2805,7 +2911,7 @@ def main() -> int:
          "launches": arm_launches["v3"]["b9"],
          "max_abs_err": b9_b10_errs["b9"], "ms": b9_ms, "plain_ms": b9_plain,
          "bound_ms": lb["b9"][0], "bound_by": lb["b9"][1],
-         "library_ms": None},
+         "library_ms": lib9},
         {"name": "bigru_heads_init_lbh", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_lbh.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:1650",

@@ -31,15 +31,30 @@
 // peak; the bytes it must move (x, mem_in, h0s in; outmem, lasth out;
 // bf16) are ~0.62 GB, 0.19 ms at 3.35 TB/s. So it is bound by operations.
 //
-// What this first design does about it: it is B1's design
-// (bigru_heads_init_cm.cu), with the initial MLP replaced by a load of the
-// level's x: a CUDA-core FMA kernel whose floor is the card's ~67 TFLOP/s
-// f32 FMA rate (~18 ms), one block per 32-column tile walking all L levels
-// of both sweeps, weights read k-major from L2, the state in shared memory,
-// the up stream in a scratch tensor, the ragged last tile masked. The GRU
-// level and the down sweep with the heads are B1's (bigru_heads_cm.cuh),
-// with the rounding of the projections a template flag.
+// What the CUDA-core design does about it (f32; in bf16 kept only to be
+// timed against the tensor-core design below): it is B1's CUDA-core
+// design (bigru_heads_init_cm.cu), with the initial MLP replaced by a load
+// of the level's x: a CUDA-core FMA kernel whose floor is the card's ~67
+// TFLOP/s f32 FMA rate (~18 ms), one block per 32-column tile walking all
+// L levels of both sweeps, weights read k-major from L2, the state in
+// shared memory, the up stream in a scratch tensor, the ragged last tile
+// masked. The GRU level and the down sweep with the heads are B1's
+// (bigru_heads_cm.cuh), with the rounding of the projections a template
+// flag.
+//
+// B4 in bf16 (the v5 arm's policy) runs on tensor cores instead: the
+// kernel body of bigru_mma_fwd.cuh (B9's design, a cluster of 4 CTAs over
+// 64 columns at H 192) in its channel-major instance with a loaded X tile:
+// every CTA copies the level's x [CH, B] and mem_in [nm_in, B] rows with
+// cp.async a level ahead into a transposed, XOR-swizzled [KX][BT] tile
+// and reads its product's fragments with ldmatrix.trans; the projections
+// are rounded to bf16 or kept f32 as hoist_proj says, and the heads are
+// written channel-major into outmem as B1 writes them. Its entry point is
+// bigru_heads_cm_mma at the end of this file; the CUDA-core design's bf16
+// instances stay callable as bigru_heads_cm_cudacore, and no wrapper
+// selects them.
 #include "bigru_heads_cm.cuh"
+#include "bigru_mma_fwd.cuh"
 
 namespace {
 
@@ -138,4 +153,48 @@ extern "C" int bigru_heads_cm(
   if (dtype == 1) return hoist ? launch<bf16, true>(p, s)
                                : launch<bf16, false>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same CUDA-core design in bf16 under a second name, kept to time it
+// against the tensor-core design; no wrapper selects it.
+extern "C" int bigru_heads_cm_cudacore(
+    int hoist, const void* x, const void* mem_in, const void* h0u,
+    const void* h0d, const void* win1h, const void* win1m, const void* bin1,
+    const void* whh_up, const void* bhh_up, const void* win2,
+    const void* bin2, const void* whh_dn, const void* bhh_dn,
+    const void* wlat, const void* blat, const void* wout, const void* bout,
+    void* outmem, void* lasth, void* up, int L, int CH, int nm_in, int H,
+    int nm, int ny, int B, void* stream) {
+  return bigru_heads_cm(1, hoist, x, mem_in, h0u, h0d, win1h, win1m, bin1,
+                        whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
+                        blat, wout, bout, outmem, lasth, up, L, CH, nm_in, H,
+                        nm, ny, B, stream);
+}
+
+// bf16 tensor-core design. ptrs, in order: x [L, CH, B], mem_in [L, nmi,
+// B], h0u, h0d [H, B], wx_up [C][3H/C][CH + nmi] (the gate slices of [W1h
+// | W1m], [out, in]), b1 [3H], wh_up [C][3H/C][H], bh_up [3H], wx_dn (W2)
+// and wh_dn like wh_up, b2, bh_dn [3H], wlat [nm8][H] (rows past nm zero),
+// blat [nm], wout [ny, nm], bout [ny], outmem [L, nm + ny, B], lasth
+// [H, B], up [L, H, B] scratch; H already padded to a multiple of 8 C,
+// nmi so that CH + nmi is a multiple of 16. stream: 1 for the
+// streamed-weights instantiation; hoist: 1 rounds both sweeps'
+// projections to bf16. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for shapes outside the design).
+extern "C" int bigru_heads_cm_mma(void* const* ptrs, int L, int CH, int nmi,
+                                  int H, int nm, int ny, int B, int C,
+                                  int BT, int stream, int hoist, void* st) {
+  using bmma::bf16;
+  const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
+  bf16* outmem = static_cast<bf16*>(ptrs[16]);
+  const size_t sB = B, nmo = static_cast<size_t>(nm + ny) * sB;
+  bmma::FwdParams p{c[0], c[1], c[2], c[3], nullptr, nullptr, c[4], c[5],
+                    c[6], c[7], c[8], c[9], c[10], c[11], c[12], c[13],
+                    c[14], c[15], outmem, outmem + nm * sB,
+                    static_cast<bf16*>(ptrs[17]), static_cast<bf16*>(ptrs[18]),
+                    nmo, nmo, B, B,
+                    L, 0, CH, nmi, H, nm, ny, B, C, BT};
+  cudaStream_t s = static_cast<cudaStream_t>(st);
+  return hoist ? bmma::launch_fwd<false, true, true>(p, stream, s)
+               : bmma::launch_fwd<false, false, true>(p, stream, s);
 }

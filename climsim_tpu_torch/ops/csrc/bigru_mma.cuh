@@ -85,6 +85,14 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(saddr(p)));
 }
+// the same, each 8 x 8 block transposed: the A fragments of a tile
+// stored [K][M] (B4's channel-major X tile, xt_chunk)
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p)));
+}
 __device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -157,6 +165,16 @@ struct Tiles {
   }
 };
 
+// A tile stored transposed, [K][M] (M = the tile's BT columns, a multiple
+// of 8), as 16-byte chunks of 8 columns with the chunk index q = k (M / 8)
+// + m / 8 swizzled to q ^ ((q >> 3) & 7): the 8 rows k .. k + 7 an
+// ldmatrix reads at one chunk then fall in distinct banks (for M 16, 32
+// and 64), with no padding. The element offset of chunk (k, c).
+__host__ __device__ __forceinline__ int xt_chunk(int k, int c, int cpr) {
+  const int q = k * cpr + c;
+  return (q ^ ((q >> 3) & 7)) * 8;
+}
+
 // One k-step's fragments of a warp's product: A's m16 x k16 tile and,
 // per tile i that is on, G weight n8 x k16 tiles (rows 8 nt[i] + g gstep).
 template <int G>
@@ -167,6 +185,10 @@ struct Frag {
                                        int ldw, int gstep, const Tiles& tl,
                                        int k) {
     ldsm4(a, pa + k);
+    load_b(pw, ldw, gstep, tl, k);
+  }
+  __device__ __forceinline__ void load_b(const bf16* pw, int ldw, int gstep,
+                                         const Tiles& tl, int k) {
 #pragma unroll
     for (int i = 0; i < MAXP; ++i) {
       if (!tl.on[i]) continue;
@@ -179,17 +201,31 @@ struct Frag {
 
 // The k-loop of a warp's product over K (a multiple of 16): ``run`` runs
 // the mma of one k-step's fragments. (Loading the next k-step's fragments
-// ahead costs registers and measured no faster at these widths.)
-template <int G, typename Run>
+// ahead costs registers and measured no faster at these widths.) With kAT
+// the A tile is stored transposed and swizzled (xt_chunk; lda = its
+// columns): lanes 8j .. 8j + 7 address the rows k + 8 (j >> 1) + i of
+// block j's columns m0 + 8 (j & 1), and ldmatrix.trans hands every lane
+// the row-major fragments of the non-transposed load.
+template <int G, bool kAT = false, typename Run>
 __device__ __forceinline__ void k_loop(const bf16* A, int lda, const bf16* W,
                                        int ldw, int gstep, const Warp& w,
                                        const Tiles& tl, int K, Run run) {
-  const bf16* pa = A + (w.m0 + (w.lane & 15)) * lda + ((w.lane >> 4) << 3);
   const bf16* pw = W + (w.lane & 7) * ldw + (((w.lane >> 3) & 1) << 3);
   Frag<G> f;
-  for (int k = 0; k < K; k += 16) {
-    f.load(pa, pw, ldw, gstep, tl, k);
-    run(f);
+  if constexpr (kAT) {
+    const int cpr = lda >> 3, row = ((w.lane >> 4) << 3) + (w.lane & 7);
+    const int ch = (w.m0 >> 3) + ((w.lane >> 3) & 1);
+    for (int k = 0; k < K; k += 16) {
+      ldsm4t(f.a, A + xt_chunk(k + row, ch, cpr));
+      f.load_b(pw, ldw, gstep, tl, k);
+      run(f);
+    }
+  } else {
+    const bf16* pa = A + (w.m0 + (w.lane & 15)) * lda + ((w.lane >> 4) << 3);
+    for (int k = 0; k < K; k += 16) {
+      f.load(pa, pw, ldw, gstep, tl, k);
+      run(f);
+    }
   }
 }
 
@@ -218,14 +254,15 @@ __device__ __forceinline__ void stage_chunk(bf16* slot, const bf16* W, int ld,
 // from column wk0. Resident: k_loop on the slice. Streamed: the slice's
 // columns [wk0, wk0 + K) in KC-wide chunks through the two ring slots,
 // chunk c + 1 loading while chunk c runs; every thread of the CTA calls
-// it (it synchronises the CTA), and no other cp.async is in flight.
-template <bool kStream, int G, typename Run>
+// it (it synchronises the CTA), and no other cp.async is in flight. kAT:
+// A is stored transposed (k_loop), a chunk's rows KC further down.
+template <bool kStream, int G, bool kAT = false, typename Run>
 __device__ __forceinline__ void k_run(const bf16* A, int lda, WSlice W,
                                       int wk0, int grows, int nrows, int K,
                                       bf16* ring, const Warp& w,
                                       const Tiles& tl, Run run) {
   if constexpr (!kStream) {
-    k_loop<G>(A, lda, W.p + wk0, W.ld, grows * W.ld, w, tl, K, run);
+    k_loop<G, kAT>(A, lda, W.p + wk0, W.ld, grows * W.ld, w, tl, K, run);
   } else {
     constexpr int LDR = KC + PAD;
     const int nch = (K + KC - 1) / KC;
@@ -244,8 +281,8 @@ __device__ __forceinline__ void k_run(const bf16* A, int lda, WSlice W,
         cp_async_wait<0>();
       }
       __syncthreads();
-      k_loop<G>(A + c * KC, lda, ring + (c & 1) * slot, LDR, grows * LDR, w,
-                tl, kc, run);
+      k_loop<G, kAT>(A + c * KC * (kAT ? lda : 1), lda,
+                     ring + (c & 1) * slot, LDR, grows * LDR, w, tl, kc, run);
       __syncthreads();
     }
   }
@@ -272,8 +309,9 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MAXP][4],
 // sweep keeps its resident slices with the row stride of the activation
 // tile they multiply (K + PAD), so the resident k-loop addresses both with
 // lda: with one stride for both operands the compiler shares their
-// address arithmetic in the hot loop (PERF.md §6).
-template <bool kStream>
+// address arithmetic in the hot loop (PERF.md §6). kAT: A is stored
+// transposed (k_loop), and the slice keeps its own stride.
+template <bool kStream, bool kAT = false>
 __device__ __forceinline__ void warp_mma3(float (&o0)[MAXP][4],
                                           float (&o1)[MAXP][4],
                                           float (&o2)[MAXP][4],
@@ -281,8 +319,8 @@ __device__ __forceinline__ void warp_mma3(float (&o0)[MAXP][4],
                                           int Hc, const Warp& w,
                                           const Tiles& tl, int K,
                                           bf16* ring) {
-  if constexpr (!kStream) W.ld = lda;
-  k_run<kStream, 3>(A, lda, W, 0, Hc, 3 * Hc, K, ring, w, tl,
+  if constexpr (!kStream && !kAT) W.ld = lda;
+  k_run<kStream, 3, kAT>(A, lda, W, 0, Hc, 3 * Hc, K, ring, w, tl,
                     [&](const Frag<3>& f) {
 #pragma unroll
                       for (int i = 0; i < MAXP; ++i) {
@@ -563,8 +601,9 @@ struct Smem {
 // replay): the CTA's weight slices (resident) or the ring they stream
 // through (rows 3 Hc), the double-buffered dt(h) [2][BT][H] and level
 // input [2][BT][KX] (KX 0: B8's up sweep takes its projection from global
-// memory). The up sweep adds the f32 raw inputs of a level and the CTA's
-// slice of the initial MLP (CHc of its rows; forward only: nraw, nf > 0);
+// memory; with xt, B4's, transposed: [2][KX][BT], unpadded). The up sweep
+// adds the f32 raw inputs of a level and the CTA's slice of the initial
+// MLP (CHc of its rows; forward only: nraw, nf > 0);
 // the down sweep the latent head's weight [nm8][H], an f32 [BT][nm8]
 // scratch and the heads' small f32 parameters [blat; wout; bout] (nhw of
 // them).
@@ -574,14 +613,15 @@ struct UpBufs {
 };
 __host__ __device__ inline UpBufs up_bufs(Smem& s, int Hc, int KX, int H,
                                           int BT, int nraw, int nf, int CHc,
-                                          bool stream) {
+                                          bool stream, bool xt = false) {
   UpBufs u;
   const size_t res = stream ? 0 : 3 * Hc;
   u.wx = s.take<bf16>(res * (KX > 0 ? KX + PAD : 0));
   u.wh = s.take<bf16>(res * (H + PAD));
   u.ring = s.take<bf16>(ring_elems(stream, 3 * Hc));
   u.h = s.take<bf16>(static_cast<size_t>(2 * BT) * (H + PAD));
-  u.x = s.take<bf16>(static_cast<size_t>(2 * BT) * (KX > 0 ? KX + PAD : 0));
+  u.x = s.take<bf16>(static_cast<size_t>(2 * BT) *
+                     (KX > 0 ? (xt ? KX : KX + PAD) : 0));
   u.raw = s.take<float>(static_cast<size_t>(nraw) * BT);
   u.wi = s.take<float>(static_cast<size_t>(CHc) * nf);
   u.bi = s.take<float>(nf > 0 ? CHc : 0);
@@ -711,8 +751,9 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
 
 // One GRU level with its input projection: xp = X Wx^T + bx (rounded to
 // bf16 with kRoundXP, as the v6 forward stores it; f32 in the v4 forward
-// and the backward's replays), then gru_rec. X [BT][ldx] with KX inputs.
-template <bool kRoundXP, bool kStream>
+// and the backward's replays), then gru_rec. X [BT][ldx] with KX inputs,
+// or with kXT stored transposed, [KX][BT] swizzled (xt_chunk; ldx BT).
+template <bool kRoundXP, bool kStream, bool kXT = false>
 __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
                                           const bf16* X, int ldx, int KX,
                                           WSlice Wx, const bf16* Hcur,
@@ -724,7 +765,7 @@ __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
   zero_acc(ar);
   zero_acc(az);
   zero_acc(an);
-  warp_mma3<kStream>(ar, az, an, X, ldx, Wx, Hc, w, tl, KX, ring);
+  warp_mma3<kStream, kXT>(ar, az, an, X, ldx, Wx, Hc, w, tl, KX, ring);
 #pragma unroll
   for (int i = 0; i < MAXP; ++i)
 #pragma unroll

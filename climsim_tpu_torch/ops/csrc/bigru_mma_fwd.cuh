@@ -1,10 +1,11 @@
-// The bf16 tensor-core fused emulator forward, one kernel body for three
+// The bf16 tensor-core fused emulator forward, one kernel body for four
 // instances: the v6 channel-major forward (B1, bigru_heads_init_cm.cu),
-// the v4 batch-major one (B10) and the v3 batch-major one (B9, both
-// bigru_heads_lbh.cu). Per column: the initial MLP xi_l = dt(tanh(dt(Winit
-// feat_l + binit))) (B9: none), the up GRU sweep on the projection of
-// [xi_l || mem_l] (B9: of the given x_l), the down GRU sweep on the
-// projection of the up states, and the latent and output heads.
+// the v5 channel-major one (B4, bigru_heads_cm.cu), the v4 batch-major
+// one (B10) and the v3 batch-major one (B9, both bigru_heads_lbh.cu). Per
+// column: the initial MLP xi_l = dt(tanh(dt(Winit feat_l + binit))) (B4,
+// B9: none), the up GRU sweep on the projection of [xi_l || mem_l] (B4:
+// of the given [x_l || mem_l]; B9: of the given x_l), the down GRU sweep
+// on the projection of the up states, and the latent and output heads.
 //
 // A column tile of BT columns is owned by a cluster of C CTAs (BT 64, C 4
 // at H 192: 338 clusters at 21,600 columns, ~10 waves of 33 on 132 SMs;
@@ -50,6 +51,22 @@
 //     memory with cp.async into its next X buffer one level ahead (64
 //     columns x 208 bf16, 27 KB a level at the v3 shapes), where B10 runs
 //     xi_own and the memory rows. The copy needs no cluster exchange.
+//   kLoadX true with kBM false (B4; kRoundXP as the caller's hoist_proj,
+//     the v5 TPU bodies' two roundings): the X tile is the level's
+//     channel-major x_l [CH, B] stacked over mem_l [nmi, B] (CH + nmi a
+//     multiple of 16; nf = 0), which B9's batch-major tile cannot take
+//     without a transposed copy. Every CTA copies it with cp.async a level
+//     ahead as it lies, a 16-byte chunk of 8 columns of one row at a time,
+//     into a [KX][BT] tile whose chunks are XOR-swizzled instead of padded
+//     (xt_chunk: 53 KB for both buffers at the v5 shapes, against 60 KB
+//     with padded [KX][BT + 8] rows and B9's 55 KB; at H 192 the down
+//     sweep's 229 KB is the CTA's largest phase either way), and the up
+//     product reads its A fragments with ldmatrix.trans. Neither a
+//     staging buffer for a transpose in shared memory nor a register
+//     prefetch of the tile fits the CTA (3.9 KB of shared memory and no
+//     registers to spare at 160 a thread), and neither the cluster
+//     exchange a split copy would need nor a transposing copy on the host
+//     is paid.
 // h0u, h0d and lasth are channel-major [H, B] in both (the v4 wrapper
 // transposes its [B, H] ones: 8 MB each at the v4 shapes). Widths are
 // padded by the wrappers (H and CH to a multiple of 8 C, mem_in to 16)
@@ -98,10 +115,10 @@ __device__ __forceinline__ void xi_own(cg::cluster_group& cl, bf16* X,
 
 __host__ __device__ inline size_t fwd_smem(int H, int C, int CH, int nmi,
                                            int nf, int nm, int ny, int BT,
-                                           bool stream) {
+                                           bool stream, bool xt) {
   const int Hc = H / C, nm8 = (nm + 7) / 8 * 8;
   Smem su(nullptr), sd(nullptr);
-  up_bufs(su, Hc, CH + nmi, H, BT, nf, nf, CH / C, stream);
+  up_bufs(su, Hc, CH + nmi, H, BT, nf, nf, CH / C, stream, xt);
   dn_bufs(sd, Hc, H, BT, nm8, nm + ny * nm + ny, stream);
   return su.off > sd.off ? su.off : sd.off;
 }
@@ -122,14 +139,51 @@ __device__ __forceinline__ void load_x_tile(bf16* X, int ldx, const bf16* x_l,
   }
 }
 
+// B4's level, x_l [CH, B] stacked over mem_l [KX - CH, B] (channel-major),
+// into a [KX][BT] smem tile in the swizzled layout of xt_chunk: a 16-byte
+// chunk of 8 columns of one row with cp.async where it lies inside the
+// batch and the rows are 16-byte aligned (al: B a multiple of 8), else
+// element by element with zeros past B (the ragged last tile, or any B
+// not a multiple of 8); the caller commits and waits
+__device__ __forceinline__ void load_x_tile_t(bf16* X, const bf16* x_l,
+                                              const bf16* m_l, int CH,
+                                              int KX, int B, int col0,
+                                              int BT, bool al) {
+  const int cpr = BT / 8;
+  for (int e = threadIdx.x; e < KX * cpr; e += NTH) {
+    const int k = e / cpr, c = e % cpr, col = col0 + c * 8;
+    const bf16* src = (k < CH ? x_l + static_cast<size_t>(k) * B
+                              : m_l + static_cast<size_t>(k - CH) * B) + col;
+    bf16* dst = X + xt_chunk(k, c, cpr);
+    if (al && col + 8 <= B) {
+      cp_async16(dst, src);
+    } else {
+      unsigned short u[8];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        u[kk] = col + kk < B
+                    ? __ldg(reinterpret_cast<const unsigned short*>(src) + kk)
+                    : 0;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(
+          u[0] | (static_cast<unsigned>(u[1]) << 16),
+          u[2] | (static_cast<unsigned>(u[3]) << 16),
+          u[4] | (static_cast<unsigned>(u[5]) << 16),
+          u[6] | (static_cast<unsigned>(u[7]) << 16));
+    }
+  }
+}
+
 template <bool kBM, bool kRoundXP, bool kStream, bool kLoadX>
 __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
+  // B4: the X tile loaded channel-major, stored transposed
+  constexpr bool kXT = kLoadX && !kBM;
   cg::cluster_group cl = cg::this_cluster();
   const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
   const int H = p.H, Hc = H / C, L = p.L, B = p.B, nf = p.nf, nmi = p.nmi;
   const int CH = p.CH, CHc = CH / C;
   const int nm = p.nm, ny = p.ny, nm8 = (nm + 7) / 8 * 8;
   const int KX = CH + nmi, LDX = KX + PAD, LDH = H + PAD;
+  const int XS = BT * (kXT ? KX : LDX);   // one X buffer
   const int col0 = (blockIdx.x / C) * BT, tid = threadIdx.x;
   const size_t sB = B;
   const Warp w(BT);
@@ -140,14 +194,14 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
   // ---- up sweep, surface (l = L-1) to top
   {
     Smem s(smem_raw);
-    const UpBufs u = up_bufs(s, Hc, KX, H, BT, nf, nf, CHc, kStream);
+    const UpBufs u = up_bufs(s, Hc, KX, H, BT, nf, nf, CHc, kStream, kXT);
     const bf16* gx = p.wx_up + static_cast<size_t>(r) * 3 * Hc * KX;
     const bf16* gh = p.wh_up + static_cast<size_t>(r) * 3 * Hc * H;
     load_slice<kStream>(u.wx, gx, 3 * Hc, KX);
     load_slice<kStream>(u.wh, gh, 3 * Hc, H);
     const WSlice wx = slice<kStream>(u.wx, gx, KX);
     const WSlice wh = slice<kStream>(u.wh, gh, H);
-    if constexpr (!kLoadX) {       // B9 has no initial MLP
+    if constexpr (!kLoadX) {       // B4 and B9 have no initial MLP
       for (int e = tid; e < CHc * nf; e += NTH)
         u.wi[e] = b2f(p.winit[static_cast<size_t>(r) * CHc * nf + e]);
       for (int e = tid; e < CHc; e += NTH) u.bi[e] = b2f(p.binit[r * CHc + e]);
@@ -156,10 +210,19 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
     gru_regs_init(R, w, tl, r, Hc, H, p.b1, p.bh_up, p.h0u, B, col0);
     const auto feat_l = [&](int l) { return p.feat + l * nf * sB; };
     const auto mem_l = [&](int l) { return p.mem_in + l * nmi * sB; };
-    const auto x_l = [&](int l) { return p.feat + l * KX * sB; };
+    const auto x_l = [&](int l) { return p.feat + l * CH * sB; };
+    const bool al = B % 8 == 0 &&
+        ((reinterpret_cast<uintptr_t>(p.feat) |
+          reinterpret_cast<uintptr_t>(p.mem_in)) & 15) == 0;
+    const auto load_x = [&](bf16* X, int l) {
+      if constexpr (kXT)
+        load_x_tile_t(X, x_l(l), mem_l(l), CH, KX, B, col0, BT, al);
+      else
+        load_x_tile(X, LDX, x_l(l), KX, B, col0, BT);
+    };
     RawPF pf;
     if constexpr (kLoadX) {
-      load_x_tile(u.x, LDX, x_l(L - 1), KX, B, col0, BT);
+      load_x(u.x, L - 1);
       cp_async_wait_all();
       __syncthreads();
     } else {
@@ -176,13 +239,13 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       const bool more = l > 0;
       bf16* hc = u.h + cur * BT * LDH;
       bf16* hn = u.h + (cur ^ 1) * BT * LDH;
-      bf16* xc = u.x + cur * BT * LDX;
-      bf16* xn = u.x + (cur ^ 1) * BT * LDX;
+      bf16* xc = u.x + cur * XS;
+      bf16* xn = u.x + (cur ^ 1) * XS;
       if (more) {
-        // B9: the next level's X tile is copied while this one runs (the
-        // buffer was last read before the previous level's barrier)
+        // B4, B9: the next level's X tile is copied while this one runs
+        // (the buffer was last read before the previous level's barrier)
         if constexpr (kLoadX) {
-          load_x_tile(xn, LDX, x_l(l - 1), KX, B, col0, BT);
+          load_x(xn, l - 1);
           cp_async_commit();
         } else {
           pf.fetch<kBM>(feat_l(l - 1), nf, mem_l(l - 1), nf + nmi, B, col0,
@@ -192,8 +255,9 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       if (s_ > 0)
         store_tile_t(p.up + (static_cast<size_t>(l + 1) * H + r * Hc) * sB,
                      hc, LDH, r * Hc, Hc, B, col0, BT);
-      gru_level<kRoundXP, kStream>(cl, R, xc, LDX, KX, wx, hc, wh, LDH, H, Hc,
-                                   hn, w, tl, r, nullptr, B, col0, u.ring);
+      gru_level<kRoundXP, kStream, kXT>(cl, R, xc, kXT ? BT : LDX, KX, wx,
+                                        hc, wh, LDH, H, Hc, hn, w, tl, r,
+                                        nullptr, B, col0, u.ring);
       if (more) {
         if constexpr (kLoadX) {
           cp_async_wait_all();     // the barrier below publishes the tile
@@ -272,20 +336,25 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
 // The launch of the forward: refuses (cudaErrorInvalidValue) the shapes
 // outside the design, picks the resident or the streamed instantiation.
 // The initial MLP's rows split over the cluster (CH a multiple of 8 C);
-// a loaded X tile only needs whole k-steps (CH a multiple of 16).
+// a loaded X tile only needs whole k-steps (B9: CH a multiple of 16; B4:
+// CH + nmi) and a swizzle period of the transposed one (B4: BT 16, 32 or
+// 64).
 template <bool kBM, bool kRoundXP, bool kLoadX = false>
 int launch_fwd(const FwdParams& p, int stream, cudaStream_t st) {
   const int C = p.C, BT = p.BT;
   const bool widths = kLoadX
-      ? p.CH % 16 == 0 && p.CH > 0 && p.nf == 0 && p.nmi == 0
-      : p.CH % (8 * C) == 0 && p.nmi % 16 == 0;
+      ? (kBM ? p.CH % 16 == 0 && p.nmi == 0
+             : (p.CH + p.nmi) % 16 == 0 && BT <= 64) &&
+            p.CH > 0 && p.nf == 0
+      : p.CH % (8 * C) == 0 && p.nmi % 16 == 0 &&
+            (p.nf + p.nmi) * BT <= PF * NTH;
   if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
       p.H % (8 * C) != 0 || !widths ||
       p.H / C / 8 > NW / (BT / 16) * MAXP ||
-      (p.nf + p.nmi) * BT > PF * NTH || p.H / C / 8 * BT > MAXI * NTH)
+      p.H / C / 8 * BT > MAXI * NTH)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(p.H, C, p.CH, p.nmi, p.nf, p.nm, p.ny, BT,
-                               stream != 0);
+                               stream != 0, kLoadX && !kBM);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (stream)
     return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, true, kLoadX>, p, C,

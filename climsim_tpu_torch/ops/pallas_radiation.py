@@ -25,7 +25,7 @@ from . import _build
 
 __all__ = ["adding_sw_fast", "lw_solver_noscat_fast", "adding_sw_bwd",
            "adding_sw_bwd_reference", "lw_solver_noscat_bwd",
-           "lw_solver_noscat_bwd_reference"]
+           "lw_solver_noscat_bwd_reference", "sw_bwd_geometry"]
 
 _SW_ARGS = ("incoming_toa", "albedo_surf_diffuse", "albedo_surf_direct",
             "R", "T", "ref_dir", "T_dir_diff", "T_dir_dir")
@@ -56,19 +56,19 @@ def _validate(names, args, is_sfc, cts=()) -> tuple[int, int, int]:
     return B, nlev, ng
 
 
-def _launch(name: str, ptrs, dims, extra=()) -> None:
-    """Call ``csrc/<name>.cu``'s entry point with the tensors ``ptrs``
-    (made contiguous), ``extra`` device buffers, then (B, nlev, ng) and the
-    current stream."""
+def _launch(name: str, ptrs, dims, extra=(), fn=None) -> None:
+    """Call ``csrc/<name>.cu``'s entry point (or its entry point ``fn``)
+    with the tensors ``ptrs`` (made contiguous), ``extra`` device buffers,
+    then (B, nlev, ng) and the current stream."""
     lib = _build.load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, fn or name)
     ptrs = [a.contiguous() for a in ptrs] + list(extra)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
     rc = fn(*[t.data_ptr() for t in ptrs], *dims, stream)
-    _build.check_status(rc, name)
+    _build.check_status(rc, fn.__name__)
 
 
 def _dispatch(args, plain, launch, *more):
@@ -214,17 +214,51 @@ def lw_solver_noscat_bwd_reference(args, cts):
     return lay(dtrans), lay(dsdn), lay(dsup), dssfc, demis
 
 
-def _launch_sw_bwd(args, cts):
+# the B13 kernel's block: one warp of items, each parking 4 floats every
+# chunk of levels in shared memory (csrc/adding_sw_bwd.cu)
+_SW_BWD_ITEMS, _SW_BWD_CHUNK = 32, 4
+_SMEM_MAX = 232448
+
+
+def sw_bwd_geometry(B: int, nlev: int, ng: int) -> tuple[int, int, int]:
+    """The launch of kernel B13 at (B, nlev, ng), as csrc/adding_sw_bwd.cu
+    makes it: (blocks, items a block, shared-memory bytes a block). Each
+    block is one warp of items (B ng of them in all, the last block
+    ragged) and parks 4 floats an item for every chunk of 4 levels (the
+    last chunk ragged); past a block's shared memory (nlev above 1,816)
+    the kernel refuses the shape, and so does this."""
+    chunks = -(-nlev // _SW_BWD_CHUNK)
+    smem = 4 * 4 * chunks * _SW_BWD_ITEMS
+    if smem > _SMEM_MAX:
+        raise ValueError(f"adding_sw_bwd: nlev {nlev} parks {smem} bytes a "
+                         f"block, above the {_SMEM_MAX} of shared memory")
+    return -(-B * ng // _SW_BWD_ITEMS), _SW_BWD_ITEMS, smem
+
+
+def _launch_sw_bwd(args, cts, scratch_design=False):
+    """B13; with ``scratch_design`` its first design, which keeps the
+    replay in a [4, B, nlev+1, ng] device scratch (for timing it against
+    the kernel on the card; counts no launch)."""
     B, nlev, ng = args[3].shape
     dev = args[0].device
     grads = _empty(dev, *[(B, ng)] * 3, *[(B, nlev, ng)] * 5)
-    # the replay's albedos and fluxes, which the TPU kept in VMEM
-    scratch = torch.empty((4, B, nlev + 1, ng), dtype=torch.float32,
-                          device=dev)
-    _launch("adding_sw_bwd", list(args) + list(cts) + grads, (B, nlev, ng),
-            extra=[scratch])
+    if scratch_design:
+        scratch = torch.empty((4, B, nlev + 1, ng), dtype=torch.float32,
+                              device=dev)
+        _launch("adding_sw_bwd", list(args) + list(cts) + grads,
+                (B, nlev, ng), extra=[scratch], fn="adding_sw_bwd_scratch")
+        return tuple(grads)
+    sw_bwd_geometry(B, nlev, ng)
+    _launch("adding_sw_bwd", list(args) + list(cts) + grads, (B, nlev, ng))
     adding_sw_bwd.launches += 1
     return tuple(grads)
+
+
+def scratch_adding_sw_bwd(args, cts):
+    """B13's first design on the card, which no wrapper selects: for
+    timing it against the kernel. Counts no launch."""
+    _validate(_SW_ARGS, args, _SW_SFC, cts)
+    return _launch_sw_bwd(args, cts, scratch_design=True)
 
 
 def _launch_lw_bwd(args, cts):

@@ -383,7 +383,7 @@ def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
 
 
 # --------------------------------------------------------------------------
-# bf16 tensor-core design of B1, B3, B7-B10 (csrc/bigru_mma.cuh): the
+# bf16 tensor-core design of B1, B3, B4, B7-B10 (csrc/bigru_mma.cuh): the
 # cluster plan, the zero-padding of widths the tiling does not divide, and
 # the packing of weights into the CTAs' slices. The constants mirror the
 # CUDA sources.
@@ -413,14 +413,16 @@ def _ring(stream: bool, rows: int) -> int:
     return 2 * rows * (_MMA_KC + _MMA_PAD) if stream else 0
 
 
-def _up_bytes(Hc, KX, H, BT, nraw, nf, CHc, stream):
+def _up_bytes(Hc, KX, H, BT, nraw, nf, CHc, stream, xt=False):
+    """The up sweep's regions (``bmma::up_bufs``); with ``xt`` B4's X tile,
+    stored transposed and unpadded."""
     P = _MMA_PAD
     res = 0 if stream else 3 * Hc
     kx = KX + P if KX else 0
     return _regions((res * kx, 2), (res * (H + P), 2),
                     (_ring(stream, 3 * Hc), 2), (2 * BT * (H + P), 2),
-                    (2 * BT * kx, 2), (nraw * BT, 4), (CHc * nf, 4),
-                    (CHc if nf else 0, 4))
+                    (2 * BT * (KX if xt else kx), 2), (nraw * BT, 4),
+                    (CHc * nf, 4), (CHc if nf else 0, 4))
 
 
 def _dn_bytes(Hc, H, BT, nm8, nhw, stream):
@@ -453,9 +455,9 @@ def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
     if kind == "b7":
         return max(_up_bytes(Hc, 0, Hp, BT, 0, 0, 0, stream),
                    _dn_bytes(Hc, Hp, BT, 0, 0, stream))
-    if kind in ("b1", "b9", "b10"):
+    if kind in ("b1", "b4", "b9", "b10"):
         return max(_up_bytes(Hc, KX, Hp, BT, nf, nf, CHp // (Hp // Hc),
-                             stream),
+                             stream, xt=kind == "b4"),
                    _dn_bytes(Hc, Hp, BT, nm8, nm + ny * nm + ny, stream))
     if kind == "b3":
         return max(_up_bytes(Hc, KX, Hp, BT, 0, 0, 0, stream),
@@ -471,6 +473,7 @@ def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
 def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
              nf: int = 0) -> dict:
     """The tensor-core design's tiling for B1 (``kind`` "b1"), B3 ("b3"),
+    B4 ("b4": CH is x's width, no initial MLP, the X tile channel-major),
     B7 and B8 ("b7", "b8": CH, nm_in, nm, ny unused), B9 ("b9": CH is x's
     width, nm_in 0, no initial MLP) or B10 ("b10"): the first (C, BT) of
     ``_MMA_CONFIGS`` whose CTA carries its state in one pass and fits in
@@ -478,18 +481,20 @@ def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
     fits with them streamed through the ring (``stream`` True). With it
     the padded widths (H to a multiple of 8 C; B1's stream is H wide,
     B10's CH padded to a multiple of 8 C, B9's to 16, B3's CH and nm_in to
+    16; B4's CH kept and nm_in padded so that CH + nm_in is a multiple of
     16) and KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Every kind
     takes every H up to ``MMA_H_MAX`` (832) at the flagship's other
     widths; beyond, where even 16-column tiles over clusters of 8 leave no
     room for the state and input tiles, it raises ``ValueError``."""
-    nmip = 0 if kind in ("b7", "b8", "b9") else _ceil(nm_in, 16)
+    nmip = (0 if kind in ("b7", "b8", "b9") else
+            _ceil(CH + nm_in, 16) - CH if kind == "b4" else _ceil(nm_in, 16))
     nw = _MMA_NTH // 32
     PF, MAXI = _MMA_PF * _MMA_NTH, _MMA_MAXI * _MMA_NTH
     for stream in (False, True):
         for C, BT in _MMA_CONFIGS:
             Hp = _ceil(H, 8 * C)
             CHp = {"b1": Hp, "b10": _ceil(CH, 8 * C), "b9": _ceil(CH, 16),
-                   "b3": _ceil(CH, 16), "b7": 0, "b8": 0}[kind]
+                   "b3": _ceil(CH, 16), "b4": CH, "b7": 0, "b8": 0}[kind]
             nwm = BT // 16
             Hc, nwn = Hp // C, nw // nwm
             KXc = _ceil(-(-(CHp + nmip) // C), 8)
@@ -795,7 +800,11 @@ bigru_heads_cm_bwd.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _launch_cm(args, dims, hoist_proj) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core design of B4: f32 (the wrapper's f32 path), or with
+    ``cudacore_bf16`` its bf16 instantiation, which no wrapper selects
+    (``cudacore_fused_bigru_heads_cm``) and which counts no launch."""
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
      win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = args
     L, CH, nm_in, H, nm, ny, B = dims
@@ -808,22 +817,79 @@ def _launch_cm(args, dims, hoist_proj) -> tuple[torch.Tensor, torch.Tensor]:
             _flat(bin2), _kmaj(whh_dn_t), _flat(bhh_dn), _kmaj(wlat_t),
             _flat(blat), _kmaj(wout_t), _flat(bout), outmem, lasth, up]
     lib = _build.load("bigru_heads_cm")
-    fn = lib.bigru_heads_cm
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 20 \
+    head = [int(hoist_proj)]
+    if cudacore_bf16:
+        fn = lib.bigru_heads_cm_cudacore
+    else:
+        fn = lib.bigru_heads_cm
+        head = [0 if dt == torch.float32 else 1] + head
+    fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 20 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, int(hoist_proj),
-            *[t.data_ptr() for t in ptrs], L, CH, nm_in, H, nm, ny, B,
+    rc = fn(*head, *[t.data_ptr() for t in ptrs], L, CH, nm_in, H, nm, ny, B,
             stream)
     _build.check_status(rc, "bigru_heads_cm")
-    fused_bigru_heads_cm.launches += 1
+    if not cudacore_bf16:
+        fused_bigru_heads_cm.launches += 1
     return outmem, lasth
 
 
+def pad_cm_args(args, Hp: int, nmip: int) -> tuple:
+    """B4's 17 arguments zero-padded for its tensor-core design: hidden
+    width Hp (per gate block) and memory width nmip, so that x's CH rows
+    and the memory's nmip stack into whole 16-row k-steps. x keeps its
+    width (the kernel reads its rows where they lie), so only the small
+    tensors are copied. A padded memory row meets zero weight columns;
+    padded hidden units stay 0 through both sweeps and meet zero head
+    weights: the outputs do not change."""
+    return pad_res(args, Hp, args[0].shape[1], nmip)
+
+
+def _launch_cm_mma(args, dims, hoist_proj
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B4 in bf16 on the tensor-core design (bigru_mma_fwd.cuh's
+    channel-major instance with a loaded X tile; weights resident or
+    streamed, as ``mma_plan`` chooses from the widths)."""
+    L, CH, nm_in, H, nm, ny, B = dims
+    pl = mma_plan("b4", H, CH, nm_in, nm, ny)
+    C, Hp, nmip = pl["C"], pl["H"], pl["nm_in"]
+    (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
+     win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
+     bout) = pad_cm_args(args, Hp, nmip)
+    dt, dev = x.dtype, x.device
+    outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
+    lasth = torch.empty((Hp, B), dtype=dt, device=dev)
+    up = torch.empty((L, Hp, B), dtype=dt, device=dev)   # up-stream scratch
+    ptrs = [x, mem_in, h0_up, h0_dn,
+            pack_rows(torch.cat([win1h_t, win1m_t], 1), C), _flat(bin1),
+            pack_rows(whh_up_t, C), _flat(bhh_up), pack_rows(win2_t, C),
+            _flat(bin2), pack_rows(whh_dn_t, C), _flat(bhh_dn),
+            _pad(wlat_t, (_ceil(nm, 8), Hp)).contiguous(), _flat(blat),
+            wout_t.contiguous(), _flat(bout), outmem, lasth, up]
+    fn = _build.load("bigru_heads_cm").bigru_heads_cm_mma
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_table(ptrs), L, CH, nmip, Hp, nm, ny, B, C, pl["BT"],
+            int(pl["stream"]), int(hoist_proj), stream)
+    _build.check_status(rc, "bigru_heads_cm_mma")
+    fused_bigru_heads_cm.launches += 1
+    return outmem, (lasth if Hp == H else lasth[:H].contiguous())
+
+
+def cudacore_fused_bigru_heads_cm(*args, hoist_proj=True
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B4's CUDA-core design in bf16, which no wrapper selects: for timing
+    it against the tensor-core design on the card. Counts no launch."""
+    return _launch_cm(args, _validate_cm(args), hoist_proj,
+                      cudacore_bf16=True)
+
+
 class _FusedHeadsCM(torch.autograd.Function):
-    """Forward: the B4 kernel (or its plain version on the CPU), saving
-    only the inputs. Backward, as JAX's ``_heads_cm_bwd``: with memory
+    """Forward: the B4 kernel (bf16: the tensor-core design; f32: the
+    CUDA-core one; its plain version on the CPU), saving only the inputs.
+    Backward, as JAX's ``_heads_cm_bwd``: with memory
     (nm_in > 0) ``bigru_heads_cm_bwd`` on the forward's arguments (kernel
     B3 on the card, which replays the sweeps with float32 projections
     whatever the forward rounded); without, autograd of the plain
@@ -839,6 +905,8 @@ class _FusedHeadsCM(torch.autograd.Function):
             return bigru_heads_cm_reference(*args, hoist_proj=hoist_proj)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
+        if args[0].dtype == torch.bfloat16:
+            return _launch_cm_mma(args, dims, hoist_proj)
         return _launch_cm(args, dims, hoist_proj)
 
     @staticmethod
@@ -867,8 +935,9 @@ def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
     (outmem [L, nm+ny, B] = mem || out, lasth [H, B]); differentiable in
     all 17. ``hoist_proj`` picks the TPU body whose roundings the kernel
     reproduces (see ``bigru_heads_cm_reference``). A CPU tensor runs the
-    plain versions; a CUDA tensor launches kernel B4 (and, for gradients,
-    B3) or raises."""
+    plain versions; a CUDA tensor launches kernel B4 (bf16: the
+    tensor-core design; f32: the CUDA-core one) and, for gradients, B3, or
+    raises."""
     return _FusedHeadsCM.apply(bool(hoist_proj), x, mem_in, h0_up, h0_dn,
                                win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
                                win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,

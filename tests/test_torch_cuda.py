@@ -1195,3 +1195,185 @@ def test_b7_through_fused_layer_and_b9_through_v3_model(cuda):
         own = (p - p32).abs().max().item()
         err = (c - p).abs().max().item()
         assert err <= 4 * own + 1e-3 * p32.abs().max().item(), (err, own)
+
+
+# ------------------------------------- B4 on tensor cores, B13 redesigned
+
+
+def _b4_plan_inputs(L, H, B, nm_in, seed, CH=192):
+    """B4's arguments at the v5 arm's widths (a tanh stream of CH rows,
+    memory of nm_in rows, heads 16 + 6) with lecun-scale weights, f32."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g)
+    lec = lambda o, i: r(o, i) / np.sqrt(i)
+    a = [torch.tanh(r(L, CH, B)), 0.5 * r(L, nm_in, B), torch.tanh(r(H, B)),
+         torch.tanh(r(H, B)), lec(3 * H, CH), lec(3 * H, max(nm_in, 1)),
+         0.1 * r(3 * H, 1), lec(3 * H, H), 0.1 * r(3 * H, 1), lec(3 * H, H),
+         0.1 * r(3 * H, 1), lec(3 * H, H), 0.1 * r(3 * H, 1), lec(16, H),
+         0.1 * r(16, 1), lec(6, 16), 0.1 * r(6, 1)]
+    a[5] = a[5][:, :nm_in].contiguous()
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoist", [True, False])
+@pytest.mark.parametrize("B", [1000, 1001])
+@pytest.mark.parametrize("H,nm_in", [(192, 16), (192, 0), (384, 16),
+                                     (832, 16)])
+def test_b4_tensor_core_bf16_at_every_plan(cuda, H, nm_in, B, hoist):
+    """B4 in bf16 (the tensor-core design) at each plan: weights resident
+    (H 192, with and without memory) and streamed (H 384, 32-column
+    tiles; H 832, clusters of 8 over 16-column tiles), L 60; B 1,000 (a
+    multiple of 8: the X tile's rows copied with cp.async, the last tile
+    ragged) and 1,001 (rows not 16-byte aligned: copied element by
+    element); projections rounded or not. Each output against the plain
+    version under the 4x gate, one launch counted."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm)
+    a16 = [t.to(cuda, torch.bfloat16)
+           for t in _b4_plan_inputs(60, H, B, nm_in, seed=H + B)]
+    before = fused_bigru_heads_cm.launches
+    with torch.no_grad():
+        got = fused_bigru_heads_cm(*a16, hoist_proj=hoist)
+        assert fused_bigru_heads_cm.launches == before + 1
+        _bf16_holds(got, bigru_heads_cm_reference(*a16, hoist_proj=hoist),
+                    bigru_heads_cm_reference(*(t.float() for t in a16),
+                                             hoist_proj=hoist))
+    assert all(g.is_contiguous() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,CH,nm_in", [(16, 16, 8), (20, 12, 5),
+                                        (20, 12, 0)])
+@pytest.mark.parametrize("B", EDGES)
+def test_b4_tensor_core_bf16_at_the_edges(cuda, B, H, CH, nm_in):
+    """B4 in bf16 at the edges of its tiling: B 1, below one 64-column
+    tile, ragged against it, two tiles; H 20 padded to 32, the memory
+    padded so that x's 12 or 16 rows and it fill whole k-steps (8 -> 16,
+    5 -> 20, 0 -> 4); each output against the plain version under the 4x
+    gate."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm)
+    a = [t.to(cuda, torch.bfloat16)
+         for t in _b4_plan_inputs(20, H, B, nm_in, seed=B, CH=CH)]
+    with torch.no_grad():
+        for hoist in (True, False):
+            _bf16_holds(fused_bigru_heads_cm(*a, hoist_proj=hoist),
+                        bigru_heads_cm_reference(*a, hoist_proj=hoist),
+                        bigru_heads_cm_reference(*(t.float() for t in a),
+                                                 hoist_proj=hoist))
+
+
+@pytest.mark.cuda
+def test_b4_bf16_is_deterministic_and_its_twin_agrees(cuda):
+    """Two bf16 B4 calls are bit-identical (fixed-order sums); the
+    CUDA-core bf16 design that chip_smoke.py times against it agrees with
+    it under the 4x gate, and only the wrapper counts launches."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm)
+    from climsim_tpu_torch.ops.pallas_rnn import cudacore_fused_bigru_heads_cm
+    a = [t.to(cuda, torch.bfloat16)
+         for t in _b4_plan_inputs(20, 32, 150, 8, seed=3, CH=24)]
+    before = fused_bigru_heads_cm.launches
+    with torch.no_grad():
+        first = fused_bigru_heads_cm(*a)
+        second = fused_bigru_heads_cm(*a)
+        twin = cudacore_fused_bigru_heads_cm(*a)
+        want = bigru_heads_cm_reference(*a)
+        want32 = bigru_heads_cm_reference(*(t.float() for t in a))
+    assert fused_bigru_heads_cm.launches == before + 2
+    for i, (x, y) in enumerate(zip(first, second)):
+        assert torch.equal(x, y), i
+    for i, (o, n, p, p32) in enumerate(zip(twin, first, want, want32)):
+        own = (p.float() - p32.float()).abs().max().item()
+        err = (o.float() - n.float()).abs().max().item()
+        assert err <= 4 * own + 1e-3 * p32.float().abs().max().item(), \
+            (i, err, own)
+
+
+@pytest.mark.cuda
+def test_b4_through_the_v5_model(cuda):
+    """The v5 RNNAutoreg (fuse_heads, level_major, no fuse_init) reaches
+    the tensor-core B4 in bf16, one launch a step, and its outputs on the
+    card hold against the same seeded model on the CPU under the 4x gate
+    (the CPU's own bf16-vs-f32 difference)."""
+    from climsim_tpu_torch.models import BF16, F32, RNNAutoreg
+    from climsim_tpu_torch.ops import fused_bigru_heads_cm
+    rng = np.random.default_rng(11)
+    L, B = 12, 40
+    xl = torch.as_tensor(rng.normal(0, 0.3, (L, 6, B)), dtype=torch.float32)
+    xs = torch.as_tensor(rng.normal(0, 0.3, (B, 24)), dtype=torch.float32)
+    mem = torch.as_tensor(rng.normal(0, 0.3, (L, 8, B)), dtype=torch.float32)
+    out = {}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        for dev in (cuda, torch.device("cpu")):
+            model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8,
+                               nneur=(32, 32), nh_mem=8, add_pres=False,
+                               policy=policy, use_pallas=True,
+                               fuse_heads=True, level_major=True,
+                               device=dev, seed=1)
+            assert model.arm == "v5"
+            before = fused_bigru_heads_cm.launches
+            with torch.no_grad():
+                res = model(xl.to(dev), xs.to(dev), mem.to(dev))
+            assert fused_bigru_heads_cm.launches - before == \
+                (1 if dev.type == "cuda" else 0)
+            out[name, dev.type] = [t.float().cpu() for t in res]
+    for c, p, p32 in zip(out["bf16", "cuda"], out["bf16", "cpu"],
+                         out["f32", "cpu"]):
+        own = (p - p32).abs().max().item()
+        err = (c - p).abs().max().item()
+        assert err <= 4 * own + 1e-3 * p32.abs().max().item(), (err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nlev,ng", [(21600, 60, 8), (1000, 50, 8),
+                                       (13, 13, 8), (7, 50, 3),
+                                       (40, 400, 8)])
+def test_b13_matches_plain_at_its_shapes(cuda, B, nlev, ng):
+    """B13 (two passes, pass 1's state parked every 4 levels in shared
+    memory) against its plain version: the physics update's shape, a
+    ragged 1,000 columns of 50 levels, a last block of items that is
+    ragged (104 items), nlev not a multiple of the 4-level chunk (13, 50),
+    ng 3, and nlev 400 (51,200 bytes of shared memory a block, past the
+    48 KB default). Each gradient to 1e-5 of its scale, as
+    check_radiation_bwd; one launch; no device scratch."""
+    from climsim_tpu_torch.ops import adding_sw_bwd, adding_sw_bwd_reference
+    sw, _ = _radiation_inputs(cuda, B=B, nlev=nlev, ng=ng, seed=B + nlev)
+    g = torch.Generator(device=cuda).manual_seed(nlev)
+    cts = [torch.randn((B, nlev + 1, ng), generator=g, device=cuda)
+           for _ in range(3)]
+    before = adding_sw_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = adding_sw_bwd(sw, cts)
+    grads = sum(t.numel() for t in got) * 4
+    # the gradients and the caching allocator's rounding, far below the
+    # first design's [4, B, nlev+1, ng] scratch (168 MB at the first shape)
+    assert torch.cuda.max_memory_allocated() - base <= grads + (8 << 20)
+    assert adding_sw_bwd.launches == before + 1
+    want = adding_sw_bwd_reference(sw, cts)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        assert _rel_err(a, b) <= 1e-5, (i, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+def test_b13_is_deterministic_and_its_first_design_agrees(cuda):
+    """Two B13 calls are bit-identical; the first design (device scratch,
+    four sweeps), which chip_smoke.py times against it, agrees with it to
+    1e-5 of each gradient's scale and counts no launch."""
+    from climsim_tpu_torch.ops import adding_sw_bwd
+    from climsim_tpu_torch.ops.pallas_radiation import scratch_adding_sw_bwd
+    sw, _ = _radiation_inputs(cuda, B=1000, nlev=60, ng=8, seed=21)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cts = [torch.randn((1000, 61, 8), generator=g, device=cuda)
+           for _ in range(3)]
+    before = adding_sw_bwd.launches
+    first, second = adding_sw_bwd(sw, cts), adding_sw_bwd(sw, cts)
+    old = scratch_adding_sw_bwd(sw, cts)
+    assert adding_sw_bwd.launches == before + 2
+    for i, (a, b, o) in enumerate(zip(first, second, old)):
+        assert torch.equal(a, b), i
+        assert _rel_err(o, a) <= 1e-5, (i, _rel_err(o, a))

@@ -19,16 +19,16 @@ from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
 NLEV = 60
 
 
-def _sw_inputs(B, ng, seed=0):
+def _sw_inputs(B, ng, seed=0, nlev=NLEV):
     """Optical properties through the JAX package's two-stream
     coefficients (float32), surface albedos and TOA flux, as
     tests/test_torch_ops_radiation.py makes them."""
     rng = np.random.default_rng(seed)
     f = lambda a: np.array(a, np.float32)
     mu0 = f(rng.uniform(0.2, 1.0, (B, 1, 1)))
-    od = f(rng.uniform(0.01, 2.0, (B, NLEV, ng)))
-    ssa = f(rng.uniform(0.3, 0.999, (B, NLEV, ng)))
-    g = f(rng.uniform(0.0, 0.8, (B, NLEV, ng)))
+    od = f(rng.uniform(0.01, 2.0, (B, nlev, ng)))
+    ssa = f(rng.uniform(0.3, 0.999, (B, nlev, ng)))
+    g = f(rng.uniform(0.0, 0.8, (B, nlev, ng)))
     layers = JR.calc_ref_trans_sw(*(jnp.asarray(a) for a in (mu0, od, ssa,
                                                              g)))
     sfc = [f(rng.uniform(100, 1300, (B, ng))),
@@ -139,3 +139,121 @@ def test_wrapper_rejects_what_the_kernel_would(solver, bad):
         cts[0] = cts[0][:, :-1]
     with pytest.raises(ValueError):
         SOLVERS[solver][2](args, cts)
+
+
+# ------------------------------------------------ B13's second design
+
+
+def _two_pass(args, cts):
+    """csrc/adding_sw_bwd.cu's two passes, level by level in torch: pass 1
+    (descending) replays the up sweep and runs the down sweep backward one
+    level behind it, parking alb[j+1], albdir[j+1] and the carries (gdiff,
+    gdir) at each layer; pass 2 (ascending) replays the down sweep and
+    runs the up sweep backward, adding the down sweep's terms, so each
+    gradient is formed once. Returns the eight gradients."""
+    toa, ad, adir, R, T, rd, tdd, tdir = args
+    dfup, dfdiff, dfdir = cts
+    nlev = R.shape[1]
+    park = [None] * nlev
+    alb, albdir = ad, adir
+    gdir = dfdir[:, nlev] + dfup[:, nlev] * albdir
+    gdiff = dfdiff[:, nlev] + dfup[:, nlev] * alb
+    for j in range(nlev - 1, -1, -1):
+        Rj, Tj, tdj, tddj = R[:, j], T[:, j], tdir[:, j], tdd[:, j]
+        park[j] = (alb, albdir, gdiff, gdir)
+        inv = 1.0 / (1.0 - alb * Rj)
+        adir0 = rd[:, j] + (tdj * albdir + tddj * alb) * Tj * inv
+        alb0 = Rj + Tj * Tj * alb * inv
+        dN = gdiff / (1.0 - Rj * alb)
+        K = tdj * albdir * Rj + tddj
+        gdir, gdiff = (gdir * tdj + dN * K + dfdir[:, j] + dfup[:, j] * adir0,
+                       dN * Tj + dfdiff[:, j] + dfup[:, j] * alb0)
+        alb, albdir = alb0, adir0
+    dtoa = gdir
+    fdir, fdiff = toa, torch.zeros_like(toa)
+    ga, gd = dfup[:, 0] * fdiff, dfup[:, 0] * fdir
+    out = [[None] * nlev for _ in range(5)]       # dR, dT, drd, dtdd, dtdir
+    for j in range(nlev):
+        Rj, Tj, tdj, tddj = R[:, j], T[:, j], tdir[:, j], tdd[:, j]
+        A1, Adir1, gdiff, gdir = park[j]
+        denom = 1.0 - Rj * A1
+        K = tdj * Adir1 * Rj + tddj
+        fdiff1 = (Tj * fdiff + fdir * K) / denom
+        fdir1 = fdir * tdj
+        dN = gdiff / denom
+        galb1 = dfup[:, j + 1] * fdiff1 + gdiff * fdiff1 * Rj / denom
+        galbdir1 = dfup[:, j + 1] * fdir1 + dN * fdir * tdj * Rj
+        inv = 1.0 / (1.0 - A1 * Rj)
+        M = tdj * Adir1 + tddj * A1
+        TAinv = Tj * A1 * inv
+        out[0][j] = (dN * fdir * tdj * Adir1 + gdiff * fdiff1 * A1 / denom
+                     + ga * (1.0 + TAinv * TAinv)
+                     + gd * M * Tj * A1 * inv * inv)
+        out[1][j] = dN * fdiff + (ga * 2.0 * Tj * A1 * inv + gd * M * inv)
+        out[2][j] = gd
+        out[3][j] = dN * fdir + gd * A1 * Tj * inv
+        out[4][j] = (gdir * fdir + dN * fdir * Adir1 * Rj
+                     + gd * Adir1 * Tj * inv)
+        Tinv = Tj * inv
+        ga, gd = (ga * Tj * Tinv * inv
+                  + gd * (tddj * Tinv + M * Tinv * Rj * inv) + galb1,
+                  gd * tdj * Tinv + galbdir1)
+        fdiff, fdir = fdiff1, fdir1
+    lay = lambda xs: torch.stack(xs, dim=1)
+    return (dtoa, ga, gd) + tuple(lay(o) for o in out)
+
+
+def _sw_case(B, nlev, ng, seed):
+    """SW inputs of nlev layers (the JAX package's two-stream
+    coefficients) and seeded cotangents, numpy."""
+    args = _sw_inputs(B, ng, seed=seed, nlev=nlev)
+    rng = np.random.default_rng(seed + 10)
+    cts = [rng.standard_normal((B, nlev + 1, ng)).astype(np.float32)
+           for _ in range(3)]
+    return args, cts
+
+
+# B 13 columns x 8 g-points: 104 items, not a multiple of the kernel's
+# 32-item block; nlev 13 and 50 are not multiples of its 4-level chunk
+@pytest.mark.parametrize("B,nlev,ng", [(13, 13, 8), (40, 60, 8),
+                                       (7, 50, 3)])
+def test_two_pass_order_is_the_plain_backward(B, nlev, ng):
+    """The kernel's reordering (the down sweep backward inside the up
+    sweep's replay, the down sweep's replay inside the up sweep backward,
+    each gradient formed once) computes the plain backward: every
+    gradient to 2e-6 of its scale (float32 rounding of the rearranged
+    sums)."""
+    args, cts = _sw_case(B, nlev, ng, seed=6)
+    _close(_two_pass(_t(args), _t(cts)),
+           [g.numpy() for g in adding_sw_bwd_reference(_t(args), _t(cts))],
+           2e-6)
+
+
+@pytest.mark.parametrize("B,nlev,ng", [(13, 13, 8), (7, 50, 3)])
+def test_plain_matches_jax_kernel_at_the_kernels_edges(B, nlev, ng):
+    """At the shapes B13's design treats specially (a ragged last block of
+    items, nlev not a multiple of the level chunk, ng other than 8) the
+    plain backward agrees with the JAX package's backward kernel in
+    interpret mode, every gradient to 2e-6 of its scale."""
+    args, cts = _sw_case(B, nlev, ng, seed=7)
+    got = adding_sw_bwd_reference(_t(args), _t(cts))
+    _close(got, JPR.adding_sw_bwd_fused(_j(args), _j(cts), block_b=8,
+                                        interpret=True), 2e-6)
+
+
+@pytest.mark.parametrize("B,nlev,ng,blocks,smem", [
+    (21600, 60, 8, 5400, 7680), (13, 13, 8, 4, 2048), (7, 50, 3, 1, 6656),
+    (1, 1816, 8, 1, 232448)])
+def test_sw_bwd_geometry(B, nlev, ng, blocks, smem):
+    """B13's launch: one warp of 32 items a block (the last one ragged),
+    4 parked floats an item for every chunk of 4 levels in shared memory
+    (7.5 KB at the physics model's nlev 60; nlev 13 and 50 end in a
+    ragged chunk), up to nlev 1,816."""
+    from climsim_tpu_torch.ops import sw_bwd_geometry
+    assert sw_bwd_geometry(B, nlev, ng) == (blocks, 32, smem)
+
+
+def test_sw_bwd_refuses_what_its_shared_memory_cannot_park():
+    from climsim_tpu_torch.ops import sw_bwd_geometry
+    with pytest.raises(ValueError, match="shared memory"):
+        sw_bwd_geometry(1, 1817, 8)

@@ -1,4 +1,4 @@
-"""The Python around the bf16 tensor-core design of B1, B3 and B7-B10 on
+"""The Python around the bf16 tensor-core design of B1, B3, B4 and B7-B10 on
 the CPU: the tiling plan (resident or streamed weights), the
 zero-padding of widths the tiling does not divide, and the packing of
 weights into the cluster CTAs' slices, held against the plain versions
@@ -10,6 +10,7 @@ import torch
 
 from climsim_tpu.ops.pallas_rnn import (_bigru_bwd_pallas_lbh,
                                         _bigru_heads_cm_bwd_pallas,
+                                        _bigru_heads_cm_pallas,
                                         _bigru_heads_init_cm_pallas,
                                         _bigru_heads_init_pallas_lbh,
                                         _bigru_heads_pallas_lbh,
@@ -19,11 +20,13 @@ from climsim_tpu_torch.ops.pallas_rnn import (_SMEM_MAX, MMA_H_MAX,
                                               _unpad_gates_last,
                                               bigru_bwd_reference_lbh,
                                               bigru_heads_cm_bwd_reference,
+                                              bigru_heads_cm_reference,
                                               bigru_heads_init_cm_reference,
                                               bigru_heads_init_lbh_reference,
                                               bigru_heads_lbh_reference,
                                               bigru_reference_lbh,
                                               mma_plan, pack_rows, pack_t,
+                                              pad_cm_args,
                                               pad_heads_init_lbh,
                                               pad_heads_lbh,
                                               pad_init_args, pad_lbh_res,
@@ -500,3 +503,79 @@ def test_padded_plain_b9_matches_pallas_interpret(B):
     for g, w in zip((out, mem, lh[:, :H]), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
                                    atol=2e-6)
+
+
+# ---------------------------------------- B4 on tensor cores
+
+
+@pytest.mark.parametrize("H_,nm_in", [(192, 16), (192, 0), (384, 16),
+                                      (384, 0), (832, 16), (832, 0)])
+def test_plan_b4(H_, nm_in):
+    """B4 at the v5 arm's widths (stream 192, memory 16 or none, heads
+    16 + 6): clusters of 4 CTAs over 64-column tiles with the weights
+    resident at H 192, in the 228,576 bytes B9 takes (the down sweep is
+    the largest phase of both); streamed from H 384 to MMA_H_MAX (832).
+    x keeps its 192 rows and the memory its 16 (none: 0), whole 16-row
+    k-steps already."""
+    p = mma_plan("b4", H_, 192, nm_in, 16, 6)
+    assert p["CH"] == 192 and p["nm_in"] == nm_in
+    assert p["smem"] <= _SMEM_MAX and p["H"] % (8 * p["C"]) == 0
+    assert p["H"] // p["C"] // 8 <= 12 // (p["BT"] // 16) * 2
+    assert p["stream"] == (H_ > 320)
+    if H_ == 192:
+        assert (p["C"], p["BT"], p["smem"]) == (4, 64, 228576)
+    assert p["BT"] <= 64          # the swizzle period of the X tile
+
+
+def test_plan_b4_pads_the_memory_to_whole_k_steps():
+    """x keeps its CH rows (the kernel reads them where they lie); the
+    memory takes the zero rows that make CH + nm_in a multiple of 16, so
+    the tile stacks both into whole k-steps: CH 12 + nm_in 5 -> 12 + 20."""
+    p = mma_plan("b4", H, CH, NM_IN, NM, NY)
+    assert (p["C"], p["H"], p["CH"], p["nm_in"]) == (C, HP, CH, 20)
+    assert mma_plan("b4", H, CH, 0, NM, NY)["nm_in"] == 4
+
+
+def _b4_args(B, seed=9):
+    """The v5 forward's 17 arguments at the widths the tiling pads (H 20,
+    CH 12, nm_in 5), numpy."""
+    return _bwd_inputs(B, seed)[0]
+
+
+@pytest.mark.parametrize("hoist", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_padding_leaves_forward_unchanged(dtype, hoist):
+    """B4's plain version on its arguments padded as its tensor-core
+    wrapper pads them (pad_cm_args: H 20 -> 32, the memory 5 -> 20 rows,
+    x unpadded and not copied) gives the same outmem and the same real
+    rows of lasth, and zero padded rows (f32 to 1e-6: summation order
+    over added zeros; bf16 exactly: the same values rounded at the same
+    points), with the projections rounded or not."""
+    a = _t(_b4_args(11), dtype)
+    om, lh = bigru_heads_cm_reference(*a, hoist_proj=hoist)
+    p = pad_cm_args(a, HP, 20)
+    assert p[0] is a[0] and p[1].shape == (L, 20, 11)
+    assert p[5].shape == (3 * HP, 20) and p[7].shape == (3 * HP, HP)
+    omp, lhp = bigru_heads_cm_reference(*p, hoist_proj=hoist)
+    tol = 1e-6 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(omp, om, rtol=tol, atol=tol)
+    torch.testing.assert_close(lhp[:H], lh, rtol=tol, atol=tol)
+    assert torch.count_nonzero(lhp[H:]) == 0
+
+
+@pytest.mark.parametrize("hoist", [False, True])
+@pytest.mark.parametrize("B", [16, 13])
+def test_padded_plain_b4_matches_pallas_interpret(B, hoist):
+    """B4's plain version at the padded widths, cut back, against the JAX
+    Pallas forward (``_bigru_heads_cm_pallas`` in interpret mode, f32,
+    8-column tiles, B 13 ragged) on the real widths, with the projections
+    hoisted (its second body) and not; tolerance as
+    tests/test_torch_ops_rnn_v5.py's."""
+    a = _b4_args(B)
+    om, lh = bigru_heads_cm_reference(*pad_cm_args(_t(a), HP, 20),
+                                      hoist_proj=hoist)
+    jom, jlh = _bigru_heads_cm_pallas(*_j(a), 8, True, True, hoist)
+    np.testing.assert_allclose(om.numpy(), np.asarray(jom), rtol=2e-5,
+                               atol=2e-6)
+    np.testing.assert_allclose(lh[:H].numpy(), np.asarray(jlh), rtol=2e-5,
+                               atol=2e-6)
