@@ -48,7 +48,8 @@ Phases (any failure exits non-zero):
      per source, all started together), print each kernel's registers and
      spills, and count the tensor-core instructions (HMMA/HGMMA) of the
      bf16 designs of B1, B3, B4 and B7-B10 in their SASS (cuobjdump):
-     each must have some;
+     each must have some; and the f32 cluster design of B7 and B8 must
+     have FFMA and no tensor-core (so no TF32) instruction;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 at the
      physics trunk's L 50, H 128 (f32 and, as an extra tiling of the
@@ -58,7 +59,8 @@ Phases (any failure exits non-zero):
      120, 180), B7 at the v2 arm's L 60, H 192 (f32 and bf16), B8 at the
      v4 arm's L 60, H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
      21,600 and 1,000 columns); bf16 B1, B3, B4 and B7-B10 run the
-     tensor-core designs, f32 the CUDA-core ones;
+     tensor-core designs, f32 B7 and B8 the cluster FFMA design (two calls
+     bit-identical), the other f32 kinds the CUDA-core ones;
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
      no other kernel; then the same for each other serving arm, whose
@@ -79,7 +81,12 @@ Phases (any failure exits non-zero):
      512), past the resident-weight design's width: B1 and B3 (weights
      streamed) against their plain versions at 1,000 columns and timed, 3
      coupled steps and one training update at 384 columns with their
-     launches counted;
+     launches counted; then the width phase (check_widths): every GRU
+     kind at 1,000 columns and L 60 in bf16 at H 840 (B7 and B8 also
+     968) and in f32 at H 384 and 512 against its plain version, with
+     the design the selector chose, its time and its launch count; one
+     f32 v6 update and one fused-trunk physics update at nneur (384,
+     384);
   7. the physics evaluation window at 21,600 columns with each trunk,
      every physics counter set to 0 just before and read just after: B11
      and B12 (and with the fused trunk B7) must launch W times each and no
@@ -117,7 +124,12 @@ Phases (any failure exits non-zero):
      calls), first held to the plain version, then timed forward against
      FusedBiGRULayer's forward and backward against B8, in bf16 (fp16
      where cuDNN takes no bf16) at the v2 arm's shapes and in f32 (no
-     TF32) at the physics trunk's, each with its kernels by name; the
+     TF32) at the physics trunk's, each with its kernels by name; f32 B7
+     and B8 at the physics trunk's shapes as the cluster FFMA design in
+     turns with the CUDA-core design (and that design's tiles in device
+     scratch in turns with shared memory), each with its kernels by name;
+     the f32 CUDA-core B9 and B10 and the f32 bounds of B1, B3, B4, B9
+     and B10; the
      library yardstick of B4 and B9 (heads_yardstick: the same pair, in
      fp16, then the latent and output heads as two torch.nn.Linear, for
      B4 with its inputs and outputs permuted between the channel-major and
@@ -256,10 +268,19 @@ MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernel",),
                "bigru_lbh": ("b7_mma_kernel",)}
 
 
+# the f32 cluster design of B7 and B8 (bigru_f32.cuh): FFMA on the CUDA
+# cores, no tensor-core (HMMA/HGMMA, and so no TF32) instruction
+F32_KERNELS = {"bigru_lbh": ("f32_sweep_kernel",),
+               "bigru_lbh_bwd": ("f32_sweep_kernel", "f32_bptt_kernel",
+                                 "f32_wgrad_kernel")}
+
+
 def check_tensor_core_sass(card):
     """Count the tensor-core instructions (HMMA, HGMMA) of each bf16
     tensor-core kernel in its built library (``cuobjdump -sass``); each
-    must have some. Without cuobjdump the count is not measured."""
+    must have some. Then the f32 cluster design's kernels: each must have
+    FFMA and no tensor-core instruction. Without cuobjdump the counts are
+    not measured."""
     from climsim_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
@@ -283,6 +304,25 @@ def check_tensor_core_sass(card):
         for k in kernels:
             check(any(kk == k for kk, _ in counts),
                   f"{k}: no HMMA/HGMMA instruction in its SASS")
+    for name, kernels in F32_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, fn = {k: {"FFMA": 0, "HMMA": 0} for k in kernels}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = next((k for k in kernels if k in line), None)
+            elif fn is not None:
+                for op in ("FFMA", "HMMA", "HGMMA"):
+                    if op in line:
+                        counts[fn][op[:4] if op != "HGMMA" else "HMMA"] += 1
+        print(f"f32 cluster design in {name}: "
+              + ", ".join(f"{k} FFMA x{c['FFMA']}, HMMA/HGMMA x{c['HMMA']}"
+                          for k, c in counts.items()) + f" [{card}]")
+        for k, c in counts.items():
+            check(c["FFMA"] > 0 and c["HMMA"] == 0,
+                  f"{k}: the f32 design must run FFMA and no tensor-core "
+                  f"instruction: {c}")
 
 
 def card_line() -> str:
@@ -696,16 +736,36 @@ def in_turns(old, new, launches, repeats=3):
 
 
 def designs_in_turns(name, cudacore, tensor_core, card, launches=3,
-                     repeats=3) -> float:
-    """A bf16 kernel's CUDA-core and tensor-core designs at 21,600 columns
-    timed in turns and printed; returns the tensor-core design's mean
-    ms."""
-    old, new = in_turns(cudacore, tensor_core, launches, repeats)
-    print(f"{name} bf16 at {NLAT * NLON} columns in turns (CUDA-core, "
-          f"tensor-core, tensor-core, CUDA-core): CUDA-core design "
-          f"{old[0]:.4f} / {old[1]:.4f} ms, tensor-core design {new[0]:.4f} "
-          f"/ {new[1]:.4f} ms [{card}]")
-    return statistics.mean(new)
+                     repeats=3, new="tensor-core", dt="bf16") -> float:
+    """A kernel's CUDA-core design and its redesign (bf16: the tensor-core
+    design; f32 B7 and B8: the cluster FFMA design) at 21,600 columns
+    timed in turns and printed; returns the redesign's mean ms."""
+    old, nw = in_turns(cudacore, tensor_core, launches, repeats)
+    print(f"{name} {dt} at {NLAT * NLON} columns in turns (CUDA-core, "
+          f"{new}, {new}, CUDA-core): CUDA-core design "
+          f"{old[0]:.4f} / {old[1]:.4f} ms, {new} design {nw[0]:.4f} "
+          f"/ {nw[1]:.4f} ms [{card}]")
+    return statistics.mean(nw)
+
+
+@contextlib.contextmanager
+def tiles_in_scratch():
+    """Inside, the CUDA-core designs keep their tiles in device scratch at
+    every width (their mode past the widths whose tiles fit a block's
+    shared memory): for timing that mode against shared memory."""
+    from climsim_tpu_torch.ops import pallas_rnn as pr
+    saved = pr._tile_scratch
+
+    def scratch(kind, dims, B, dev):
+        rows = pr.cudacore_rows(kind, *dims)
+        return torch.empty((-(-B // 32), rows, 32), dtype=torch.float32,
+                           device=dev)
+
+    pr._tile_scratch = scratch
+    try:
+        yield
+    finally:
+        pr._tile_scratch = saved
 
 
 def b4_args(model, B, dtype, seed):
@@ -947,14 +1007,14 @@ def b7_tiling(C, BT):
     columns in place of its plan's (the kernel refuses a tiling outside
     the design): for timing another tiling against the plan's."""
     from climsim_tpu_torch.ops import pallas_rnn as pr
-    plan = pr.mma_plan
-    pr.mma_plan = lambda kind, *a, **k: dict(plan(kind, *a, **k), C=C,
-                                             BT=BT) \
+    plan = pr.find_mma_plan
+    pr.find_mma_plan = lambda kind, *a, **k: dict(plan(kind, *a, **k), C=C,
+                                                  BT=BT) \
         if kind == "b7" else plan(kind, *a, **k)
     try:
         yield
     finally:
-        pr.mma_plan = plan
+        pr.find_mma_plan = plan
 
 
 @contextlib.contextmanager
@@ -966,12 +1026,12 @@ def cudacore_twins():
     from climsim_tpu_torch.ops import pallas_rnn as pr
     saved = (pr._launch_heads_lbh_mma, pr._launch_lbh_mma,
              pr._launch_bwd_lbh_mma)
-    pr._launch_heads_lbh_mma = lambda args, dims, init: pr._launch_heads_lbh(
-        args, dims, init, cudacore_bf16=True)
-    pr._launch_lbh_mma = lambda args, dims: pr._launch_lbh(
-        args, dims, cudacore_bf16=True)
-    pr._launch_bwd_lbh_mma = lambda res, dd, dl, dims: pr._launch_bwd_lbh(
-        res, dd, dl, dims, cudacore_bf16=True)
+    pr._launch_heads_lbh_mma = lambda args, dims, init, pl: \
+        pr._launch_heads_lbh(args, dims, init, cudacore_bf16=True)
+    pr._launch_lbh_mma = lambda args, dims, pl: pr._launch_lbh(
+        args, dims, twin=True)
+    pr._launch_bwd_lbh_mma = lambda res, dd, dl, dims, pl: \
+        pr._launch_bwd_lbh(res, dd, dl, dims, twin=True)
     try:
         yield
     finally:
@@ -1286,6 +1346,146 @@ def check_wide(card):
           f"{W_TRAIN}), launches {tl}, loss {rec['loss']:.6f} [{card}]")
 
 
+# the width phase: every GRU kind at the widths its earlier designs
+# refused (bf16 past the tensor-core plan's H 832, B7 and B8 also past
+# 960; f32 past the CUDA-core tiles' shared memory), with the arm whose
+# fused layer passes the kind its weights
+WIDTH_ARMS = {"b1": "v6", "b3": "v6", "b4": "v5", "b7": "v2", "b8": "v2",
+              "b9": "v3", "b10": "v4"}
+WIDTH_CASES = ([(k, torch.bfloat16, H) for k in WIDTH_ARMS
+                for H in ((840, 968) if k in ("b7", "b8") else (840,))]
+               + [(k, torch.float32, H) for k in WIDTH_ARMS
+                  for H in (384, 512)])
+WIDTH_B = 1000
+
+
+def width_case(kind, model, dtype, seed):
+    """(wrapper, plain version, arguments, is a backward) of one GRU kind
+    at the model's width, L 60 and WIDTH_B columns, from the arm's
+    (lecun-normal) weights."""
+    from climsim_tpu_torch import ops
+    B = WIDTH_B
+    if kind == "b1":
+        return (ops.fused_bigru_heads_init_cm,
+                ops.bigru_heads_init_cm_reference,
+                b1_args(model, B, dtype, seed), False)
+    if kind == "b3":
+        return (ops.bigru_heads_cm_bwd, ops.bigru_heads_cm_bwd_reference,
+                b3_args(model, B, dtype, seed), True)
+    if kind == "b4":
+        return (ops.fused_bigru_heads_cm, ops.bigru_heads_cm_reference,
+                b4_args(model, B, dtype, seed), False)
+    if kind == "b7":
+        return (ops.fused_bigru_lbh, ops.bigru_reference_lbh,
+                b7_args(model, B, dtype, seed, L=NLEV), False)
+    if kind == "b8":
+        return (ops.bigru_bwd_lbh, ops.bigru_bwd_reference_lbh,
+                b8_args(model, B, dtype, seed, L=NLEV), True)
+    if kind == "b9":
+        return (ops.fused_bigru_heads_lbh, ops.bigru_heads_lbh_reference,
+                b9_args(model, B, dtype, seed), False)
+    return (ops.fused_bigru_heads_init_lbh,
+            ops.bigru_heads_init_lbh_reference,
+            b10_args(model, B, dtype, seed), False)
+
+
+def check_widths(card):
+    """Every GRU kind at WIDTH_B columns and L 60 against its plain
+    version, in bf16 at H 840 (B7 and B8 also 968) and in f32 at H 384 and
+    512, under the existing gates (f32 forwards 1e-5 + 1e-5*|x|, backwards
+    2e-5 of each output's scale; bf16 4x the plain version's own
+    bf16-vs-f32 error), each printed with the design the selector chose,
+    its time (CUDA events) and its launch count. Then one v6 RNNAutoreg
+    update (W 4, 384 columns) and one PhysicalRNNAutoreg(use_pallas=True)
+    update (W 3, 384 columns) at f32 nneur (384, 384), with their
+    launches counted and finite loss and parameters."""
+    from climsim_tpu_torch.models import BF16, F32
+    model, key = None, None
+    for kind, dtype, H in WIDTH_CASES:
+        if key != (WIDTH_ARMS[kind], H):
+            del model
+            torch.cuda.empty_cache()
+            key = (WIDTH_ARMS[kind], H)
+            model = make_model(BF16, None, arm=key[0], H=H)
+        wrapper, plain, args, bwd = width_case(kind, model, dtype, seed=H)
+        before = wrapper.launches
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        n, design = wrapper.launches - before, wrapper.design
+        check(n == 1, f"{kind} H {H}: {n} launches")
+        want = plain(*args)
+        dt = str(dtype).replace("torch.", "")
+        if dtype == torch.bfloat16:
+            a32 = ([tuple(t.float() for t in args[0]), args[1].float(),
+                    args[2].float()] if bwd else [t.float() for t in args])
+            ratio = 0.0
+            for g, w, w32 in zip(got, want, plain(*a32)):
+                ok, e16, own = bf16_ok(g, w, w32)
+                check(ok, f"{kind} bf16 H {H}: {e16:.3e} > 4 x {own:.3e}")
+                ratio = max(ratio, e16 / max(own, 1e-30))
+            err = f"up to {ratio:.3f} x the plain version's own bf16-vs-f32 " \
+                  f"error (tolerance 4x)"
+        elif bwd:
+            worst = max(rel_err(g, w) for g, w in zip(got, want))
+            check(worst <= 2e-5, f"{kind} f32 H {H}: {worst:.3e}")
+            err = f"worst relative error {worst:.3e} (tolerance 2e-5)"
+        else:
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            err = f"max_abs_err {max_err(got, want):.3e} (tolerance " \
+                  f"1e-5 + 1e-5*|x|)"
+        del got, want
+        ms = median_ms(lambda: wrapper(*args), 1, repeats=1)
+        print(f"width phase: {kind.upper()} {dt} H {H} (L {NLEV}, "
+              f"{WIDTH_B} columns): {design} design, {n} launch, kernel "
+              f"{ms:.4f} ms; {err} [{card}]")
+        del args
+    del model
+    torch.cuda.empty_cache()
+    wrappers = all_wrappers()
+    ncol = LO_NLAT * LO_NLON
+    model = make_model(F32, None, arm="v6", H=384)
+    trainer = make_trainer(model, None)
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.enable_grad():
+        _, rec = trainer.run_epoch(
+            None, [train_chunk(W_TRAIN, ncol, "cuda", 4)], 0)
+    torch.cuda.synchronize()
+    tl = {k: w.launches for k, w in wrappers.items() if w.launches}
+    designs = {k: wrappers[k].design for k in tl}
+    check(tl == {"b1": 2 * W_TRAIN, "b3": W_TRAIN},
+          f"f32 (384, 384) v6 update: launches {tl}")
+    check(rec["updates"] == 1 and np.isfinite(rec["loss"])
+          and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"f32 (384, 384) v6 update: {rec}")
+    print(f"width phase: f32 RNNAutoreg v6 nneur (384, 384), one update (W "
+          f"{W_TRAIN}, {ncol} columns): loss {rec['loss']:.6f}, finite "
+          f"parameters; launches {tl}, designs {designs} [{card}]")
+    del model, trainer
+    pmodel = make_phys_model(None, use_pallas=True, H=384)
+    trainer = make_phys_trainer(pmodel, None, train=True)
+    pw = phys_wrappers()
+    for w in pw.values():
+        w.launches = 0
+    with torch.enable_grad():
+        _, rec = trainer.run_epoch(None, [phys_chunk(PHYS_W, ncol, "cuda",
+                                                     seed=7)], 0)
+    torch.cuda.synchronize()
+    pl = {k: w.launches for k, w in pw.items() if w.launches}
+    want = phys_launches(pmodel, True, PHYS_W)
+    check(pl == want, f"physics (384, 384) update: launches {pl}, want "
+          f"{want}")
+    check(rec["updates"] == 1 and np.isfinite(rec["loss"])
+          and all(bool(torch.isfinite(p).all())
+                  for p in pmodel.parameters()),
+          f"physics (384, 384) update: {rec}")
+    print(f"width phase: PhysicalRNNAutoreg(use_pallas=True) nneur (384, "
+          f"384), one update (W {PHYS_W}, {ncol} columns, f32): loss "
+          f"{rec['loss']:.6e}, finite parameters; launches {pl}, designs "
+          f"B7 {pw['b7'].design}, B8 {pw['b8'].design} [{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1344,19 +1544,19 @@ def compare_384(card, arm="v6"):
 # ------------------------------------------------------------ physics path
 
 
-def make_phys_model(device, seed=0, use_pallas=False):
+def make_phys_model(device, seed=0, use_pallas=False, H=128):
     """conf/autoreg_physrnn.yaml's model at full width (nx 15, nx_sfc 24 as
     tests/test_phys_rnn.py; the trunk on the 50 CRM levels), hybrid
     coefficients from Grid.synthetic, f32. The yaml sets no use_pallas, so
     cli/train_rollout.py:294 builds the scan trunk (two RNNLayer sweeps);
     ``use_pallas=True`` is the fused trunk (kernel B7, and B8 for its
-    gradients)."""
+    gradients); ``H`` another trunk width than the yaml's 128."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import PhysicalRNNAutoreg
     g = Grid.synthetic(4, NLEV)
     tt = lambda a: tuple(a.tolist())
     return PhysicalRNNAutoreg(
-        nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(128, 128), nh_mem=16,
+        nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(H, H), nh_mem=16,
         nreg=8, store_precip=True, ice_sedimentation=True, use_physrad=True,
         use_mcica=True, use_tc=False, use_qv_variability=True,
         learned_cloud_optics=False, ng_lw=8, ng_sw=8, use_pallas=use_pallas,
@@ -1436,7 +1636,8 @@ def check_b7(model, card, L=None):
     """B7 against its plain version on the card at (L 50, B 21,600,
     H 128), or with ``L`` at the flagship v2 arm's (L 60, H 192), and a
     ragged 1,000 columns (not a multiple of the 32- or 64-column tiles).
-    f32 (the CUDA-core design) to 1e-5 + 1e-5*|x| (summation order only,
+    f32 (the cluster FFMA design, which must run, and give the same bits
+    in a second call) to 1e-5 + 1e-5*|x| (summation order only,
     through 2L recurrent levels; the states are of order 1); bf16 (the
     tensor-core design) to 4x the plain version's own bf16-vs-f32 error on
     the same inputs, as check_b1."""
@@ -1447,9 +1648,14 @@ def check_b7(model, card, L=None):
     for B in (NLAT * NLON, 1000):
         a32 = b7_args(model, B, torch.float32, seed=B, L=L)
         got, want = kern(*a32), ref(*a32)
+        design = kern.design
+        check(design == "f32_cluster", f"{label} f32 ran {design}")
+        same = all(torch.equal(x, y) for x, y in zip(got, kern(*a32)))
+        check(same, f"{label} f32 B={B}: two calls differ")
         e = max_err(got, want)
-        print(f"{label} f32 (CUDA-core design) B={B}: max_abs_err {e:.3e}; "
-              f"tolerance 1e-5 + 1e-5*|x| [{card}]")
+        print(f"{label} f32 ({design} design) B={B}: max_abs_err {e:.3e}; "
+              f"tolerance 1e-5 + 1e-5*|x|; a second call bit-identical "
+              f"[{card}]")
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
         errs.append(e)
@@ -1739,8 +1945,9 @@ def b8_args(model, B, dtype, seed, L=None):
 def check_b8(model, card, L=None):
     """B8 against its plain version on the card at (L 50, B 21,600, H 128),
     or with ``L`` at the v4 arm's (L 60, H 192), and a ragged 1,000
-    columns, every one of its nine outputs. f32 (the CUDA-core design):
-    2e-5 of each output's largest magnitude, as B3 (summation order over
+    columns, every one of its nine outputs. f32 (the cluster FFMA design,
+    which must run, and give the same bits in a second call): 2e-5 of each
+    output's largest magnitude, as B3 (summation order over
     2 x 50 levels of BPTT and the 1.08 M-term gradient sums); bf16 (the
     tensor-core design): as check_b3, per output."""
     from climsim_tpu_torch.ops import (bigru_bwd_lbh as kern,
@@ -1750,11 +1957,15 @@ def check_b8(model, card, L=None):
     for B in (NLAT * NLON, 1000):
         res, dd, dl = b8_args(model, B, torch.float32, seed=B + 1, L=L)
         got, want = kern(res, dd, dl), ref(res, dd, dl)
+        design = kern.design
+        check(design == "f32_cluster", f"{label} f32 ran {design}")
+        check(all(torch.equal(x, y) for x, y in zip(got, kern(res, dd, dl))),
+              f"{label} f32 B={B}: two calls differ")
         rel = [rel_err(g, w) for g, w in zip(got, want)]
         worst = int(np.argmax(rel))
-        print(f"{label} f32 B={B}: worst relative error {rel[worst]:.3e} "
-              f"({B8_NAMES[worst]}); tolerance 2e-5 of each output's scale "
-              f"[{card}]")
+        print(f"{label} f32 ({design} design) B={B}: worst relative error "
+              f"{rel[worst]:.3e} ({B8_NAMES[worst]}); tolerance 2e-5 of each "
+              f"output's scale; a second call bit-identical [{card}]")
         for name, e in zip(B8_NAMES, rel):
             check(e <= 2e-5, f"{label} f32 B={B} {name}: {e:.3e}")
         errs.append(max_err(got, want))
@@ -2481,6 +2692,7 @@ def main() -> int:
     for arm in ("v6", "scan", "v4"):
         compare_train_384(card, arm)
     check_wide(card)
+    check_widths(card)
     phase_done(6)
 
     # ---- 7. the physics evaluation path at 21,600 columns, with the
@@ -2742,6 +2954,29 @@ def main() -> int:
               f"{plain:.4f} ms, bound {lb[key][0]:.4f} ms "
               f"({lb[key][2] / 1e12:.4f} TFLOP at 989 TFLOP/s; "
               f"{lb[key][3] / 1e6:.1f} MB) [{card}]")
+    # the f32 instances of B9 and B10 (the CUDA-core design), and the f32
+    # bounds of the kinds whose f32 runs that design: their operations at
+    # the card's f32 rate against twice the bf16 bytes
+    a9_32, a10_32 = tuple(t.float() for t in a9), tuple(t.float() for t in a10)
+    f32_ms = {"b9": median_ms(lambda: fused_bigru_heads_lbh(*a9_32), 1,
+                              repeats=3),
+              "b10": median_ms(lambda: fused_bigru_heads_init_lbh(*a10_32),
+                               1, repeats=3),
+              "b1": b1_f32, "b3": b3_f32, "b4": b4_f32}
+    del a9_32, a10_32
+    f32_bound = {}
+    for key, (flops, nbytes) in (("b1", (b1_flops, b1_bytes)),
+                                 ("b3", (b3_flops, b3_bytes)),
+                                 ("b4", (sb["b4"][2], sb["b4"][3])),
+                                 ("b9", (lb["b9"][2], lb["b9"][3])),
+                                 ("b10", (lb["b10"][2], lb["b10"][3]))):
+        t_ops, t_bytes = flops / PEAK_F32, 2 * nbytes / PEAK_BYTES
+        f32_bound[key] = (max(t_ops, t_bytes) * 1e3,
+                          "operations" if t_ops > t_bytes else "bytes")
+        print(f"{key.upper()} f32 (CUDA-core design, {ncol} columns): kernel "
+              f"{f32_ms[key]:.4f} ms, bound {f32_bound[key][0]:.4f} ms "
+              f"({flops / 1e12:.4f} TFLOP at 67 TFLOP/s f32; "
+              f"{2 * nbytes / 1e6:.1f} MB) [{card}]")
 
     # the physics path's inputs are made here, after the training peak, so
     # that peak counts what it counted before this path existed
@@ -2751,8 +2986,28 @@ def main() -> int:
     from climsim_tpu_torch.ops import adding_sw_fast, lw_solver_noscat_fast
     from climsim_tpu_torch.physics.radiation import (adding_sw,
                                                      lw_solver_noscat)
+    # B7 f32 at the physics trunk's shapes: the cluster FFMA design in
+    # turns with the CUDA-core design (its twin), its kernels by name; the
+    # CUDA-core design's tiles in device scratch in turns with shared
+    # memory (the cost of the scratch mode)
+    from climsim_tpu_torch.ops.pallas_rnn import (cudacore_bigru_bwd_lbh,
+                                                  cudacore_fused_bigru_lbh)
     a7 = b7_args(pmodel, ncol, torch.float32, seed=13)
-    b7_ms = median_ms(lambda: fused_bigru_lbh(*a7), 3)
+    b7_ms = designs_in_turns("B7", lambda: cudacore_fused_bigru_lbh(*a7),
+                             lambda: fused_bigru_lbh(*a7), card,
+                             new="cluster", dt="f32")
+    kernel_split(lambda: fused_bigru_lbh(*a7), b7_ms, card, "B7 f32")
+
+    def b7_scratch():
+        with tiles_in_scratch():
+            return cudacore_fused_bigru_lbh(*a7)
+
+    s7_old, s7_new = in_turns(lambda: cudacore_fused_bigru_lbh(*a7),
+                              b7_scratch, 3)
+    print(f"B7 f32 CUDA-core design, tiles in shared memory against device "
+          f"scratch, in turns (shared, scratch, scratch, shared): "
+          f"{s7_old[0]:.4f} / {s7_old[1]:.4f} ms against {s7_new[0]:.4f} / "
+          f"{s7_new[1]:.4f} ms [{card}]")
     b7_plain = median_ms(lambda: bigru_reference_lbh(*a7), 1)
     sw_ms = median_ms(lambda: adding_sw_fast(*sw_args), 50)
     sw_plain = median_ms(lambda: adding_sw(*sw_args), 3)
@@ -2793,7 +3048,21 @@ def main() -> int:
                                        lw_solver_noscat_bwd_reference)
     sw_args, lw_args = radiation_args(ncol, "cuda")
     a8 = b8_args(pmodel, ncol, torch.float32, seed=17)
-    b8_ms = median_ms(lambda: bigru_bwd_lbh(*a8), 3)
+    b8_ms = designs_in_turns("B8", lambda: cudacore_bigru_bwd_lbh(*a8),
+                             lambda: bigru_bwd_lbh(*a8), card, 2, 2,
+                             new="cluster", dt="f32")
+    kernel_split(lambda: bigru_bwd_lbh(*a8), b8_ms, card, "B8 f32")
+
+    def b8_scratch():
+        with tiles_in_scratch():
+            return cudacore_bigru_bwd_lbh(*a8)
+
+    s8_old, s8_new = in_turns(lambda: cudacore_bigru_bwd_lbh(*a8),
+                              b8_scratch, 1, 2)
+    print(f"B8 f32 CUDA-core design, tiles in shared memory against device "
+          f"scratch, in turns (shared, scratch, scratch, shared): "
+          f"{s8_old[0]:.4f} / {s8_old[1]:.4f} ms against {s8_new[0]:.4f} / "
+          f"{s8_new[1]:.4f} ms [{card}]")
     b8_plain = median_ms(lambda: bigru_bwd_reference_lbh(*a8), 1)
     sw_cts, lw_cts = radiation_cts(sw_args, 3), radiation_cts(lw_args, 2)
     from climsim_tpu_torch.ops.pallas_radiation import scratch_adding_sw_bwd
@@ -2920,6 +3189,15 @@ def main() -> int:
          "plain_ms": b10_plain, "bound_ms": lb["b10"][0],
          "bound_by": lb["b10"][1], "library_ms": None},
     ]
+    # the f32 instances of the kinds whose f32 runs the CUDA-core design
+    f32_of = {"bigru_heads_init_cm": "b1", "bigru_heads_cm_bwd": "b3",
+              "bigru_heads_cm": "b4", "bigru_heads_lbh": "b9",
+              "bigru_heads_init_lbh": "b10"}
+    for k in kernels:
+        if k["name"] in f32_of:
+            key = f32_of[k["name"]]
+            k["f32"] = {"ms": f32_ms[key], "bound_ms": f32_bound[key][0],
+                        "bound_by": f32_bound[key][1]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -65,10 +65,17 @@ struct Params {
   const void *win1h, *win1m, *bin1, *whh_up, *bhh_up;
   const void *win2, *bin2, *whh_dn, *bhh_dn, *wlat, *blat, *wout, *bout;
   void *outmem, *lasth, *up;
+  float* tiles;     // device scratch for the tiles, or null: shared memory
   int L, CH, nm_in, H, nm, ny, B;
 };
 
-template <typename T, bool kHoist>
+// the f32 rows of [BT] a block keeps in its tiles
+__host__ __device__ inline size_t tile_rows(const Params& p) {
+  const int xrows = p.CH + p.nm_in > p.H ? p.CH + p.nm_in : p.H;
+  return 3 * static_cast<size_t>(p.H) + xrows + p.nm;
+}
+
+template <typename T, bool kHoist, bool kTiles>
 __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x);
   const T* mem_in = static_cast<const T*>(p.mem_in);
@@ -77,7 +84,8 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
   const int col0 = blockIdx.x * BT;
 
   extern __shared__ float4 smem4[];
-  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* s_hc = kTiles ? p.tiles + blockIdx.x * tile_rows(p) * BT
+                       : reinterpret_cast<float*>(smem4);  // [H][BT] f32 state
   float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
   float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
   float* s_x = xh_nxt + H * BT;                     // [x rows][BT]
@@ -115,15 +123,17 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
 
 template <typename T, bool kHoist>
 int launch(const Params& p, cudaStream_t stream) {
-  const int xrows = p.CH + p.nm_in > p.H ? p.CH + p.nm_in : p.H;
-  const size_t rows = 3 * static_cast<size_t>(p.H) + xrows + p.nm;
-  const size_t smem = sizeof(float) * BT * rows;
+  const int blocks = (p.B + BT - 1) / BT;
+  if (p.tiles != nullptr) {
+    bigru_heads_cm_kernel<T, kHoist, true><<<blocks, NTH, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * BT * tile_rows(p);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_cm_kernel<T, kHoist>,
+      bigru_heads_cm_kernel<T, kHoist, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + BT - 1) / BT;
-  bigru_heads_cm_kernel<T, kHoist><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_cm_kernel<T, kHoist, false><<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,8 +143,12 @@ int launch(const Params& p, cudaStream_t stream) {
 // projections to dtype before the gates (the TPU's hoisted body), 0 keeps
 // them f32. Weights are k-major ([in, out]), biases flat; activations
 // channel-major [L, C, B] / [H, B], contiguous; nm_in may be 0. up is a
-// [L, H, B] scratch of the input type. Returns the cudaError_t of the
-// launch (0 on success).
+// [L, H, B] scratch of the input type. tiles: null to keep the block's
+// tiles in shared memory ((3H + max(CH + nm_in, H) + nm) x 32 f32, up to
+// H 440 at the flagship's other widths), or a device scratch of
+// ceil(B / 32) times that that takes them at any H (no dynamic shared
+// memory; __syncthreads orders a block's global accesses as its shared
+// ones). Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigru_heads_cm(
     int dtype, int hoist, const void* x, const void* mem_in,
     const void* h0u, const void* h0d, const void* win1h, const void* win1m,
@@ -142,10 +156,11 @@ extern "C" int bigru_heads_cm(
     const void* win2, const void* bin2, const void* whh_dn,
     const void* bhh_dn, const void* wlat, const void* blat,
     const void* wout, const void* bout, void* outmem, void* lasth, void* up,
-    int L, int CH, int nm_in, int H, int nm, int ny, int B, void* stream) {
+    int L, int CH, int nm_in, int H, int nm, int ny, int B, void* tiles,
+    void* stream) {
   Params p{x, mem_in, h0u, h0d, win1h, win1m, bin1, whh_up, bhh_up, win2,
            bin2, whh_dn, bhh_dn, wlat, blat, wout, bout, outmem, lasth, up,
-           L, CH, nm_in, H, nm, ny, B};
+           static_cast<float*>(tiles), L, CH, nm_in, H, nm, ny, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == 0) return hoist ? launch<float, true>(p, s)
@@ -164,11 +179,11 @@ extern "C" int bigru_heads_cm_cudacore(
     const void* bin2, const void* whh_dn, const void* bhh_dn,
     const void* wlat, const void* blat, const void* wout, const void* bout,
     void* outmem, void* lasth, void* up, int L, int CH, int nm_in, int H,
-    int nm, int ny, int B, void* stream) {
+    int nm, int ny, int B, void* tiles, void* stream) {
   return bigru_heads_cm(1, hoist, x, mem_in, h0u, h0d, win1h, win1m, bin1,
                         whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
                         blat, wout, bout, outmem, lasth, up, L, CH, nm_in, H,
-                        nm, ny, B, stream);
+                        nm, ny, B, tiles, stream);
 }
 
 // bf16 tensor-core design. ptrs, in order: x [L, CH, B], mem_in [L, nmi,

@@ -91,6 +91,8 @@ enum Slot {
   // scratch: dt [L, H, B] x2, [L, 4H, B] x2, [L, nm, B];
   // f32 [L, H, B], [L, 4H, B] x2, [L, nm, B], reduction partials
   UP_H, G_H, GATES_U, GATES_D, MEML, DUP, DGU, DGD, DMT, WORK,
+  // the block tiles in device memory (null: in shared memory)
+  TILES,
   NSLOT
 };
 
@@ -98,6 +100,15 @@ struct Params {
   void* p[NSLOT];
   int L, CH, nm_in, H, nm, ny, B;
 };
+
+// the f32 rows of [BT] a block keeps in its tiles (the larger of phase
+// A's and phase B's)
+__host__ __device__ inline size_t tile_rows(const Params& p) {
+  const int xrows = p.CH + p.nm_in > p.H ? p.CH + p.nm_in : p.H;
+  const size_t a = static_cast<size_t>(3 * p.H + xrows);
+  const size_t b = static_cast<size_t>(6 * p.H + 2 * p.nm + p.ny);
+  return a > b ? a : b;
+}
 
 // a[c] += sum_{j < n} W[j*ld + k] * D[j][c0 + c]: a product with the
 // transpose of an [out, in] weight (contracting its out axis); W starts
@@ -243,7 +254,7 @@ __device__ __forceinline__ void add_whh_t(float (&a)[CG],
          c0);
 }
 
-template <typename T>
+template <typename T, bool kTiles>
 __global__ void __launch_bounds__(NTH, 1)
 bigru_heads_cm_bwd_kernel(Params p) {
   const int L = p.L, CH = p.CH, nmi = p.nm_in, H = p.H, nm = p.nm,
@@ -262,7 +273,9 @@ bigru_heads_cm_bwd_kernel(Params p) {
   float* dgd = static_cast<float*>(p.p[DGD]);
   float* dmt = static_cast<float*>(p.p[DMT]);
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  float* sm = kTiles ? static_cast<float*>(p.p[TILES]) +
+                           blockIdx.x * tile_rows(p) * BT
+                     : reinterpret_cast<float*>(smem4);
 
   // ---- phase A: replay the up sweep (surface to top), then the down
   {
@@ -545,15 +558,18 @@ int launch(const Params& p, int S, cudaStream_t st) {
   const int L = p.L, CH = p.CH, nmi = p.nm_in, H = p.H, nm = p.nm,
             ny = p.ny, B = p.B;
   const size_t sB = B;
-  const int xrows = CH + nmi > H ? CH + nmi : H;
-  const size_t smA = static_cast<size_t>(3 * H + xrows);
-  const size_t smB = static_cast<size_t>(6 * H + 2 * nm + ny);
-  const size_t smem = sizeof(float) * BT * (smA > smB ? smA : smB);
-  cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_cm_bwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_heads_cm_bwd_kernel<T><<<(B + BT - 1) / BT, NTH, smem, st>>>(p);
+  const int blocks = (B + BT - 1) / BT;
+  cudaError_t err;
+  if (p.p[TILES] != nullptr) {
+    bigru_heads_cm_bwd_kernel<T, true><<<blocks, NTH, 0, st>>>(p);
+  } else {
+    const size_t smem = sizeof(float) * BT * tile_rows(p);
+    err = cudaFuncSetAttribute(bigru_heads_cm_bwd_kernel<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bigru_heads_cm_bwd_kernel<T, false><<<blocks, NTH, smem, st>>>(p);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -616,8 +632,12 @@ int launch(const Params& p, int S, cudaStream_t st) {
 // cotangents, outputs, gradients in the weights' layouts, scratch);
 // activations channel-major [L, C, B] / [H, B], contiguous. S: column
 // splits of the weight-gradient reductions (the WORK scratch holds S x
-// the largest weight in f32). Returns the cudaError_t of the launches (0
-// on success).
+// the largest weight in f32). TILES: null to keep the block's tiles in
+// shared memory (max(3H + max(CH + nm_in, H), 6H + 2 nm + ny) x 32 f32,
+// up to H 296 at the flagship's other widths), or a device scratch of
+// ceil(B / 32) times that that takes them at any H (no dynamic shared
+// memory; __syncthreads orders a block's global accesses as its shared
+// ones). Returns the cudaError_t of the launches (0 on success).
 extern "C" int bigru_heads_cm_bwd(int dtype, int nslot,
                                   void* const* ptrs, int L, int CH,
                                   int nm_in, int H, int nm, int ny, int B,

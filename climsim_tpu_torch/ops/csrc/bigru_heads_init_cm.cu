@@ -57,10 +57,16 @@ struct Params {
   const void *winit, *binit, *win1h, *win1m, *bin1, *whh_up, *bhh_up;
   const void *win2, *bin2, *whh_dn, *bhh_dn, *wlat, *blat, *wout, *bout;
   void *outmem, *lasth, *up;
+  float* tiles;     // device scratch for the tiles, or null: shared memory
   int L, nf, nm_in, H, nm, ny, B;
 };
 
-template <typename T>
+// the f32 rows of [BT] a block keeps in its tiles
+__host__ __device__ inline size_t tile_rows(const Params& p) {
+  return 4 * static_cast<size_t>(p.H) + p.nm_in + p.nf + p.nm;
+}
+
+template <typename T, bool kTiles>
 __global__ void __launch_bounds__(NTH, 2)
 bigru_heads_init_cm_kernel(Params p) {
   const T* feat = static_cast<const T*>(p.feat);
@@ -80,7 +86,8 @@ bigru_heads_init_cm_kernel(Params p) {
   const int tid = threadIdx.x;
 
   extern __shared__ float4 smem4[];
-  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* s_hc = kTiles ? p.tiles + blockIdx.x * tile_rows(p) * BT
+                       : reinterpret_cast<float*>(smem4);  // [H][BT] f32 state
   float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
   float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
   float* s_x = xh_nxt + H * BT;                     // [H + nm_in][BT]
@@ -127,14 +134,17 @@ bigru_heads_init_cm_kernel(Params p) {
 
 template <typename T>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * BT *
-      (4 * static_cast<size_t>(p.H) + p.nm_in + p.nf + p.nm);
+  const int blocks = (p.B + BT - 1) / BT;
+  if (p.tiles != nullptr) {
+    bigru_heads_init_cm_kernel<T, true><<<blocks, NTH, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * BT * tile_rows(p);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_init_cm_kernel<T>,
+      bigru_heads_init_cm_kernel<T, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + BT - 1) / BT;
-  bigru_heads_init_cm_kernel<T><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_init_cm_kernel<T, false><<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,8 +159,13 @@ int launch(const Params& p, cudaStream_t stream) {
 // H ~ 320 and streamed through a ring beyond (bigru_mma.cuh).
 // dtype: 0 = float32, 1 = bfloat16. Weights are k-major ([in, out]),
 // biases flat; activations channel-major [L, C, B] / [H, B], contiguous.
-// up is a [L, H, B] scratch of the input type. Returns the cudaError_t of
-// the launch (0 on success).
+// up is a [L, H, B] scratch of the input type. tiles: null to keep the
+// block's tiles in shared memory ((4H + nm_in + nf + nm) x 32 f32, up to
+// H 440 at the flagship's other widths), or a device scratch of
+// ceil(B / 32) times that (16-byte aligned) that takes them at any H: the
+// kernel then launches with no dynamic shared memory, and __syncthreads
+// orders a block's global accesses as its shared ones. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int bigru_heads_init_cm(
     int dtype, const void* feat, const void* mem_in, const void* h0u,
     const void* h0d, const void* winit, const void* binit,
@@ -159,10 +174,11 @@ extern "C" int bigru_heads_init_cm(
     const void* bin2, const void* whh_dn, const void* bhh_dn,
     const void* wlat, const void* blat, const void* wout, const void* bout,
     void* outmem, void* lasth, void* up, int L, int nf, int nm_in, int H,
-    int nm, int ny, int B, void* stream) {
+    int nm, int ny, int B, void* tiles, void* stream) {
   Params p{feat, mem_in, h0u, h0d, winit, binit, win1h, win1m, bin1,
            whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout,
-           bout, outmem, lasth, up, L, nf, nm_in, H, nm, ny, B};
+           bout, outmem, lasth, up, static_cast<float*>(tiles), L, nf,
+           nm_in, H, nm, ny, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);
@@ -179,11 +195,11 @@ extern "C" int bigru_heads_init_cm_cudacore(
     const void* whh_dn, const void* bhh_dn, const void* wlat,
     const void* blat, const void* wout, const void* bout, void* outmem,
     void* lasth, void* up, int L, int nf, int nm_in, int H, int nm, int ny,
-    int B, void* stream) {
+    int B, void* tiles, void* stream) {
   return bigru_heads_init_cm(1, feat, mem_in, h0u, h0d, winit, binit, win1h,
                              win1m, bin1, whh_up, bhh_up, win2, bin2, whh_dn,
                              bhh_dn, wlat, blat, wout, bout, outmem, lasth,
-                             up, L, nf, nm_in, H, nm, ny, B, stream);
+                             up, L, nf, nm_in, H, nm, ny, B, tiles, stream);
 }
 
 // bf16 tensor-core design. ptrs, in order: feat [L, nf, B], mem_in

@@ -79,7 +79,14 @@ struct Params {
   // projection's first part (v3: nx; v4: the initial MLP's); nm_in: its
   // second part (v3: 0)
   int L, nx, ch, nm_in, H, nm, ny, B;
+  float* tiles;     // device scratch for the tiles, or null: shared memory
 };
+
+// the f32 rows of [BT] a block of kernel <., kInit> keeps in its tiles
+__host__ __device__ inline size_t tile_rows(const Params& p, bool init) {
+  const int kx = p.H > p.ch + p.nm_in ? p.H : p.ch + p.nm_in;
+  return 3 * static_cast<size_t>(p.H) + kx + (init ? p.nx : 0) + p.nm;
+}
 
 // dst[k][c] = src[col0 + c][k] (a [B][K] level) for k < K, zero past the
 // ragged edge
@@ -103,7 +110,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float* src, int H,
   }
 }
 
-template <typename T, bool kInit>
+template <typename T, bool kInit, bool kTiles>
 __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x);
   const T* mem_in = static_cast<const T*>(p.mem_in);
@@ -124,7 +131,8 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
   const int kx = max(H, ch + nmi);
 
   extern __shared__ float4 smem4[];
-  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* s_hc = kTiles ? p.tiles + blockIdx.x * tile_rows(p, kInit) * BT
+                       : reinterpret_cast<float*>(smem4);  // [H][BT] f32 state
   float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
   float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
   float* s_x = xh_nxt + H * BT;                     // [kx][BT]
@@ -203,15 +211,17 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
 
 template <typename T, bool kInit>
 int launch(const Params& p, cudaStream_t stream) {
-  const int kx = p.H > p.ch + p.nm_in ? p.H : p.ch + p.nm_in;
-  const size_t smem = sizeof(float) * BT *
-      (3 * static_cast<size_t>(p.H) + kx + (kInit ? p.nx : 0) + p.nm);
+  const int blocks = (p.B + BT - 1) / BT;
+  if (p.tiles != nullptr) {
+    bigru_heads_lbh_kernel<T, kInit, true><<<blocks, NTH, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * BT * tile_rows(p, kInit);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_lbh_kernel<T, kInit>,
+      bigru_heads_lbh_kernel<T, kInit, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + BT - 1) / BT;
-  bigru_heads_lbh_kernel<T, kInit><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_lbh_kernel<T, kInit, false><<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,8 +238,13 @@ int dispatch(int dtype, const Params& p, void* stream) {
 // dtype: 0 = float32, 1 = bfloat16 (every tensor). Activations batch-major
 // and contiguous: x [L, B, nx], h0u/h0d [B, H]; weights k-major ([in,
 // out]), biases flat; out [L, B, ny], mem [L, B, nm], lasth [B, H]; up is
-// a [L, H, B] scratch of the input type. Returns the cudaError_t of the
-// launch (0 on success).
+// a [L, H, B] scratch of the input type. tiles: null to keep the block's
+// tiles in shared memory ((3H + max(H, ch + nm_in) + nm, v4 + nf) x 32
+// f32, up to H 448 (v3) and 440 (v4) at the flagship's other widths), or
+// a device scratch of ceil(B / 32) times that that takes them at any H
+// (no dynamic shared memory; __syncthreads orders a block's global
+// accesses as its shared ones). Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int bigru_heads_lbh(
     int dtype, const void* x, const void* h0u, const void* h0d,
     const void* win1, const void* bin1, const void* whh_up,
@@ -237,10 +252,11 @@ extern "C" int bigru_heads_lbh(
     const void* whh_dn, const void* bhh_dn, const void* wlat,
     const void* blat, const void* wout, const void* bout, void* out,
     void* mem, void* lasth, void* up, int L, int nx, int H, int nm, int ny,
-    int B, void* stream) {
+    int B, void* tiles, void* stream) {
   Params p{x, nullptr, h0u, h0d, nullptr, nullptr, win1, bin1, whh_up,
            bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
-           out, mem, lasth, up, L, nx, nx, 0, H, nm, ny, B};
+           out, mem, lasth, up, L, nx, nx, 0, H, nm, ny, B,
+           static_cast<float*>(tiles)};
   return dispatch<false>(dtype, p, stream);
 }
 
@@ -254,10 +270,12 @@ extern "C" int bigru_heads_init_lbh(
     const void* win2, const void* bin2, const void* whh_dn,
     const void* bhh_dn, const void* wlat, const void* blat, const void* wout,
     const void* bout, void* out, void* mem, void* lasth, void* up, int L,
-    int nf, int ch, int nm_in, int H, int nm, int ny, int B, void* stream) {
+    int nf, int ch, int nm_in, int H, int nm, int ny, int B, void* tiles,
+    void* stream) {
   Params p{feat, mem_in, h0u, h0d, winit, binit, win1, bin1, whh_up,
            bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
-           out, mem, lasth, up, L, nf, ch, nm_in, H, nm, ny, B};
+           out, mem, lasth, up, L, nf, ch, nm_in, H, nm, ny, B,
+           static_cast<float*>(tiles)};
   return dispatch<true>(dtype, p, stream);
 }
 

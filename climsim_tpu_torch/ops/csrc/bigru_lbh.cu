@@ -22,8 +22,15 @@
 // the bytes it must move (xp, h0s in, down, last_h out, weights) are
 // ~2.2 GB in f32, 0.66 ms at 3.35 TB/s. So it is bound by operations.
 //
-// What the CUDA-core design (f32; in bf16 kept only to be timed against
-// the tensor-core design below) does about it: it is a CUDA-core FMA
+// Which design runs is the wrapper's choice from the dtype and the width
+// (pallas_rnn.py::gru_design): f32 runs the cluster FFMA design at the end
+// of this file where its plan fits (H up to 192), bf16 the tensor-core
+// design below where its plan fits (H up to 960), and every other width
+// the CUDA-core design here, its tiles in shared memory up to H 448 and in
+// a device scratch past it; at the widths the other designs take it is
+// kept as their timing twin.
+//
+// What the CUDA-core design does about the bound: it is a CUDA-core FMA
 // kernel. Columns are independent, so each block owns a tile of BT
 // columns and walks both sweeps level by level in an in-kernel loop (the
 // TPU's sequential grid). A thread owns one hidden unit j for CG columns:
@@ -45,6 +52,7 @@
 // shapes, 0.87 ms at the 989 TFLOP/s bf16 peak, so still bound by
 // operations. It is B8's replay (bigru_mma_bwd.cuh's design, phase A of
 // bigru_lbh_bwd.cu) storing no gates.
+#include "bigru_f32.cuh"
 #include "bigru_lbh.cuh"
 #include "bigru_mma.cuh"
 
@@ -56,10 +64,16 @@ struct Params {
   const void *xp, *h0u, *h0d, *whh_up, *bhh_up, *win2, *bin2, *whh_dn,
       *bhh_dn;
   void *down, *lasth;
+  float* tiles;     // device scratch for the tiles, or null: shared memory
   int L, H, B;
 };
 
-template <typename T>
+// the f32 rows of [BT] a block keeps in its tiles
+__host__ __device__ inline size_t tile_rows(int H) {
+  return 4 * static_cast<size_t>(H);
+}
+
+template <typename T, bool kTiles>
 __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
   const T* xp = static_cast<const T*>(p.xp);
   const T* whh_up = static_cast<const T*>(p.whh_up);
@@ -75,7 +89,8 @@ __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
   const size_t level = static_cast<size_t>(B) * H;
 
   extern __shared__ float4 smem4[];
-  float* s_hc = reinterpret_cast<float*>(smem4);   // [H][BT] f32 state
+  float* s_hc = kTiles ? p.tiles + blockIdx.x * tile_rows(H) * BT
+                       : reinterpret_cast<float*>(smem4);  // [H][BT] f32 state
   float* xh_cur = s_hc + H * BT;                    // [H][BT] dt(h)
   float* xh_nxt = xh_cur + H * BT;                  // [H][BT]
   float* s_x = xh_nxt + H * BT;                     // [H][BT] dt(up_l)
@@ -110,13 +125,17 @@ __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
 
 template <typename T>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(p.H) * BT;
+  const int blocks = (p.B + BT - 1) / BT;
+  if (p.tiles != nullptr) {
+    bigru_lbh_kernel<T, true><<<blocks, NTH, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * tile_rows(p.H) * BT;
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_lbh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bigru_lbh_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + BT - 1) / BT;
-  bigru_lbh_kernel<T><<<blocks, NTH, smem, stream>>>(p);
+  bigru_lbh_kernel<T, false><<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -124,16 +143,20 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor). xp [L, B, 3H], h0u/h0d
 // [B, H], weights k-major [H, 3H], biases [3H], down [L, B, H], lasth
-// [B, H], all contiguous. Returns the cudaError_t of the launch (0 on
-// success).
+// [B, H], all contiguous. tiles: null to keep the block's tiles in
+// shared memory (4H x 32 f32, up to H 448), or a device scratch of
+// ceil(B / 32) x 4H x 32 f32 (16-byte aligned) that takes them at any H:
+// the kernel then launches with no dynamic shared memory, and
+// __syncthreads orders a block's global accesses as it orders its shared
+// ones. Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigru_lbh(int dtype, const void* xp, const void* h0u,
                          const void* h0d, const void* whh_up,
                          const void* bhh_up, const void* win2,
                          const void* bin2, const void* whh_dn,
                          const void* bhh_dn, void* down, void* lasth, int L,
-                         int H, int B, void* stream) {
+                         int H, int B, void* tiles, void* stream) {
   Params p{xp, h0u, h0d, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn,
-           down, lasth, L, H, B};
+           down, lasth, static_cast<float*>(tiles), L, H, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);
@@ -306,4 +329,34 @@ extern "C" int bigru_lbh_mma(void* const* q, int L, int H, int B, int C,
                      static_cast<bf16*>(q[9]), static_cast<bf16*>(q[10]),
                      L, H, B, C, BT};
   return bmma::b7::launch(p, stream, static_cast<cudaStream_t>(st));
+}
+
+// ------------------------------------------------ f32: cluster design
+//
+// f32 (the physics trunk, L 50, H 128, and any f32 v2/v3/v4 arm) runs the
+// cluster FFMA design of bigru_f32.cuh where its plan fits (H up to 192
+// at the flagship's widths; the CUDA-core design above takes the rest).
+// At the physics trunk's shapes its bound is the 0.3185 TFLOP above at
+// 67 TFLOP/s, 4.75 ms: the design keeps every operand of a level's
+// products in shared memory and the state in registers, so the level runs
+// FFMA from 128-bit shared loads (24 FMAs a 4-load k-step), one cluster
+// barrier a level, where the CUDA-core design reads three weights from L2
+// for every 8 FMAs and keeps the state in shared memory.
+//
+// ptrs, in order (H already padded to a multiple of 8 C, every tensor's
+// gate blocks with it): xp [L, B, 3H]; h0u, h0d [H, Bs] channel-major,
+// zero past B; wh_up [C][H][3H/C] (CTA r's gate columns of the k-major
+// Whh_up), bh_up [3H], wx_dn (W2) and wh_dn like wh_up, b2, bh_dn [3H];
+// up [L, H, Bs] f32 scratch (the up states the down sweep reads back);
+// down [L, B, H], lasth [B, H]. Bs: B rounded up to a multiple of 4.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for
+// shapes outside the design).
+extern "C" int bigru_lbh_f32(void* const* q, int L, int H, int B, int Bs,
+                             int C, int BT, void* st) {
+  const auto c = [&](int i) { return static_cast<const float*>(q[i]); };
+  const auto m = [&](int i) { return static_cast<float*>(q[i]); };
+  bf32::SweepParams p{c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8),
+                      m(9), nullptr, nullptr, nullptr, m(10), m(11),
+                      L, H, B, Bs, C, BT};
+  return bf32::launch_sweep<false>(p, static_cast<cudaStream_t>(st));
 }

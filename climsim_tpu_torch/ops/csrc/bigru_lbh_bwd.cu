@@ -29,9 +29,17 @@
 // must move (xp, d_down, h0s, d_lasth in; d_xp, dh0s, the gradients out)
 // are ~3.9 GB in f32, 1.16 ms at 3.35 TB/s. So it is bound by operations.
 //
-// What the CUDA-core design (f32; in bf16 kept only to be timed against
-// the tensor-core one below) does about it: it runs on the CUDA cores
-// (f32 accumulation of dt products), like B7. The work splits in two:
+// Which design runs is the wrapper's choice from the dtype and the width
+// (pallas_rnn.py::gru_design): f32 runs the cluster FFMA design at the end
+// of this file where its plan fits (H up to 192), bf16 the tensor-core
+// design below where its plan fits (H up to 960), and every other width
+// the CUDA-core design here, its tiles in shared memory up to H 360 and in
+// a device scratch past it; at the widths the other designs take it is
+// kept as their timing twin.
+//
+// What the CUDA-core design does about the bound: it runs on the CUDA
+// cores (f32 accumulation of dt products), like B7. The work splits in
+// two:
 //   1. bigru_lbh_bwd_kernel: one block per tile of BT columns walks the
 //      three phases in in-kernel loops (the TPU's sequential grid). Phase
 //      A is B7's level (bigru_lbh.cuh) with the gate bundle stored. The
@@ -65,6 +73,7 @@
 // peak, 2.6 ms; what it keeps from the CUDA-core design is the order of
 // the phases, and what it drops are the f32 [L, B, 3H] gradient streams
 // (3 x 3 GB at those shapes) and the CUDA-core reductions over them.
+#include "bigru_f32.cuh"
 #include "bigru_lbh.cuh"
 #include "bigru_mma_bwd.cuh"
 
@@ -87,10 +96,16 @@ enum Slot {
   DXP, DH0U, DH0D,
   DWHHU, DBHHU, DWIN2, DBIN2, DWHHD, DBHHD,
   // scratch: dt [L, B, H] x2, [L, B, 4H] x2; f32 [L, B, H], [L, B, 3H] x3,
-  // the reductions' partial sums
-  UP_H, G_H, GATES_U, GATES_D, DUP, DHHU, DHHD, DXP2, WORK,
+  // the reductions' partial sums; the block tiles in device memory (null:
+  // in shared memory)
+  UP_H, G_H, GATES_U, GATES_D, DUP, DHHU, DHHD, DXP2, WORK, TILES,
   NSLOT
 };
+
+// the f32 rows of [BT] a block keeps in its tiles
+__host__ __device__ inline size_t tile_rows(int H) {
+  return 5 * static_cast<size_t>(H);
+}
 
 struct Params {
   void* p[NSLOT];
@@ -197,7 +212,7 @@ __device__ __forceinline__ void gru_bwd_level(
   }
 }
 
-template <typename T>
+template <typename T, bool kTiles>
 __global__ void __launch_bounds__(NTH, 2) bigru_lbh_bwd_kernel(Params p) {
   const int L = p.L, H = p.H, B = p.B;
   const size_t lvl = static_cast<size_t>(B) * H;       // a [B][H] level
@@ -212,7 +227,9 @@ __global__ void __launch_bounds__(NTH, 2) bigru_lbh_bwd_kernel(Params p) {
   float* dhhd = static_cast<float*>(p.p[DHHD]);
   float* dxp2 = static_cast<float*>(p.p[DXP2]);
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  float* sm = kTiles ? static_cast<float*>(p.p[TILES]) +
+                           blockIdx.x * tile_rows(H) * BT
+                     : reinterpret_cast<float*>(smem4);
 
   // ---- phase A: replay the up sweep (surface to top), then the down
   {
@@ -420,12 +437,18 @@ int col_sum(const float* g, int rows, int N, int S, float* work, void* out,
 template <typename T>
 int launch(const Params& p, int S, cudaStream_t st) {
   const int L = p.L, H = p.H, B = p.B;
-  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(H) * BT;
-  cudaError_t err = cudaFuncSetAttribute(
-      bigru_lbh_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_lbh_bwd_kernel<T><<<(B + BT - 1) / BT, NTH, smem, st>>>(p);
+  const int blocks = (B + BT - 1) / BT;
+  cudaError_t err;
+  if (p.p[TILES] != nullptr) {
+    bigru_lbh_bwd_kernel<T, true><<<blocks, NTH, 0, st>>>(p);
+  } else {
+    const size_t smem = sizeof(float) * tile_rows(H) * BT;
+    err = cudaFuncSetAttribute(bigru_lbh_bwd_kernel<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bigru_lbh_bwd_kernel<T, false><<<blocks, NTH, smem, st>>>(p);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -459,8 +482,12 @@ int launch(const Params& p, int S, cudaStream_t st) {
 // order of enum Slot (inputs, k-major and [out, in] weights, biases,
 // cotangents, outputs, gradients in the weights' layouts, scratch), all
 // contiguous; activations level-major [L, B, C] / [B, H]. S: row splits of
-// the weight-gradient reductions (WORK holds S x H x 3H floats). Returns
-// the cudaError_t of the launches (0 on success).
+// the weight-gradient reductions (WORK holds S x H x 3H floats). TILES:
+// null to keep the block's tiles in shared memory (5H x 32 f32, up to H
+// 360), or a device scratch of ceil(B / 32) x 5H x 32 f32 that takes them
+// at any H (no dynamic shared memory; __syncthreads orders a block's
+// global accesses as its shared ones). Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int bigru_lbh_bwd(int dtype, int nslot, void* const* ptrs, int L,
                              int H, int B, int S, void* stream) {
   if (nslot != NSLOT || S < 1 || H < 4)
@@ -474,12 +501,6 @@ extern "C" int bigru_lbh_bwd(int dtype, int nslot, void* const* ptrs, int L,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CUDA-core design in bf16 under a second name, kept to time it
-// against the tensor-core design; no wrapper selects it.
-extern "C" int bigru_lbh_bwd_cudacore(int nslot, void* const* ptrs, int L,
-                                      int H, int B, int S, void* stream) {
-  return bigru_lbh_bwd(1, nslot, ptrs, L, H, B, S, stream);
-}
 
 // ------------------------------------------------ bf16: tensor-core design
 //
@@ -803,4 +824,505 @@ extern "C" int bigru_lbh_bwd_mma(int nptr, void* const* q, int L, int H,
   bmma::b8::Grads g{m(24), m(25), m(26), m(27), m(28), m(29)};
   return bmma::b8::launch(p, g, static_cast<float*>(q[23]), S, stream,
                           static_cast<cudaStream_t>(st));
+}
+
+// ------------------------------------------------ f32: cluster design
+//
+// B8's BPTT and weight-gradient kernels of the f32 cluster design; the
+// replay is bigru_f32.cuh's sweep kernel with the gate bundles stored.
+namespace bf32 {
+
+// ------------------------------------------------------------ BPTT sweeps
+
+// B8's two BPTT sweeps. Slices [C][3H][Hc]: CTA r's rows of a k-major
+// [H, 3H] weight transposed (slice[o][jl] = W[r Hc + jl][o]). The gate
+// bundles [L][4H][Bs] are overwritten in place by the gradient bundles
+// [dar; daz; dan; dhn], the left factor of the weight gradients. d_up
+// [L][H][Bs] f32 scratch; d_xp [L][B][3H], dh0s [B][H]; bpart [tiles][8H]
+// the tiles' sums of the down (first 4H) and up bundles.
+struct BpttParams {
+  const float *dd, *dlh, *h0u, *h0d, *up, *gh;
+  float *gates_u, *gates_d;
+  const float *whT_dn, *w2T, *whT_up;
+  float *dup, *dxp, *dh0u, *dh0d, *bpart;
+  int L, H, B, Bs, C, BT;
+};
+
+__host__ __device__ inline size_t bptt_smem(int H, int C, int BT) {
+  const size_t Hc = H / C;
+  return sizeof(float) * (2 * 3 * static_cast<size_t>(H) * Hc +
+                          4 * static_cast<size_t>(H) * BT);
+}
+
+// A level's inputs of the backward step at the thread's units and
+// columns: the stored gates [r, z, n, hn] (gl [4H][Bs]), the previous
+// state (hp [H][Bs]) and the gradient's addend (d_down, batch-major
+// [B][H], or d_up, channel-major [H][Bs]); fetched into registers a level
+// ahead, while the current level's products run.
+struct BwdIn {
+  float gt[4][2][4], h[2][4], add[2][4];
+  __device__ void fetch(const float* gl, const float* hp, const float* add_l,
+                        bool add_bm, int H, int B, int Bs, int j0, int col) {
+    const size_t lvl = static_cast<size_t>(H) * Bs;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) load_quads(gt[g], gl + g * lvl, Bs, j0, col);
+    load_quads(h, hp, Bs, j0, col);
+    if (!add_bm) {
+      load_quads(add, add_l, Bs, j0, col);
+      return;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float2 v = make_float2(0.f, 0.f);
+      if (col + c < B)
+        v = __ldg(reinterpret_cast<const float2*>(
+            add_l + static_cast<size_t>(col + c) * H + j0));
+      add[0][c] = v.x;
+      add[1][c] = v.y;
+    }
+  }
+};
+
+// The GRU backward step of the thread's units and columns: g the carried
+// gradient of h, plus the level's addend, with the level's gates and
+// previous state (in) -> the bundle d = [dar, daz, dan, dhn]; g becomes
+// g z (the first term of dh_prev).
+__device__ __forceinline__ void bwd_step(float (&g)[2][4], const BwdIn& in,
+                                         float (&d)[4][2][4]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float dh = g[u][c] + in.add[u][c];
+      const float rr = in.gt[0][u][c], zz = in.gt[1][u][c];
+      const float nn = in.gt[2][u][c];
+      const float dz = dh * (in.h[u][c] - nn);
+      const float dan = dh * (1.0f - zz) * (1.0f - nn * nn);
+      d[0][u][c] = dan * in.gt[3][u][c] * rr * (1.0f - rr);
+      d[1][u][c] = dz * zz * (1.0f - zz);
+      d[2][u][c] = dan;
+      d[3][u][c] = dan * rr;
+      g[u][c] = dh * zz;
+    }
+}
+
+// ah[u][c] += sum_o A[o][jl + u] Dhh[o][c] (Whh^T d_hh, d_hh = D's rows
+// [dar; daz; dhn]) and, with kW2, au[u][c] += sum_o W[o][jl + u] D[o][c]
+// (W2^T d_xp, d_xp = rows [dar; daz; dan]); A, W [3H][Hc] and D [4H][BT]
+// in shared memory. The two share the dar and daz rows' loads.
+template <bool kW2>
+__device__ __forceinline__ void prod_t(float (&ah)[2][4], float (&au)[2][4],
+                                       const float* A, const float* W,
+                                       const float* D, int H, int Hc, int BT,
+                                       const Map& m) {
+  const float* a = A + m.jl;
+  const float* w = W + m.jl;
+  const float* d = D + m.c0;
+#pragma unroll 4
+  for (int o = 0; o < 2 * H; ++o) {
+    const float4 dv = *reinterpret_cast<const float4*>(d + o * BT);
+    const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
+    const float2 av = *reinterpret_cast<const float2*>(a + o * Hc);
+    float2 wv = make_float2(0.f, 0.f);
+    if (kW2) wv = *reinterpret_cast<const float2*>(w + o * Hc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ah[0][c] = fmaf(av.x, ds[c], ah[0][c]);
+      ah[1][c] = fmaf(av.y, ds[c], ah[1][c]);
+      if (kW2) {
+        au[0][c] = fmaf(wv.x, ds[c], au[0][c]);
+        au[1][c] = fmaf(wv.y, ds[c], au[1][c]);
+      }
+    }
+  }
+#pragma unroll 4
+  for (int o = 2 * H; o < 3 * H; ++o) {
+    const float4 dv = *reinterpret_cast<const float4*>(d + (o + H) * BT);
+    const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
+    const float2 av = *reinterpret_cast<const float2*>(a + o * Hc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ah[0][c] = fmaf(av.x, ds[c], ah[0][c]);
+      ah[1][c] = fmaf(av.y, ds[c], ah[1][c]);
+    }
+    if (kW2) {
+      const float4 nv = *reinterpret_cast<const float4*>(d + o * BT);
+      const float ns[4] = {nv.x, nv.y, nv.z, nv.w};
+      const float2 wv = *reinterpret_cast<const float2*>(w + o * Hc);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        au[0][c] = fmaf(wv.x, ns[c], au[0][c]);
+        au[1][c] = fmaf(wv.y, ns[c], au[1][c]);
+      }
+    }
+  }
+}
+
+// The tile's sums of a sweep's bundles, in a fixed order: each thread's
+// sums s[g][u] (over its columns and the levels) go to red [BT/4][4][Hc]
+// in shared memory, then thread t < 4 Hc adds the column quads in order
+// into out[g H + r Hc + jl] (out = the tile's 4H sums).
+__device__ __forceinline__ void reduce_sums(const float (&s)[4][2], float* red,
+                                            float* out, int H, int Hc, int BT,
+                                            int r, const Map& m) {
+  const int q = m.c0 / 4, nq = BT / 4;
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) red[(q * 4 + g) * Hc + m.jl + u] = s[g][u];
+  __syncthreads();
+  for (int t = threadIdx.x; t < 4 * Hc; t += blockDim.x) {
+    const int g = t / Hc, jl = t % Hc;
+    float a = 0.0f;
+    for (int qq = 0; qq < nq; ++qq) a += red[(qq * 4 + g) * Hc + jl];
+    out[g * H + r * Hc + jl] = a;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(NTH_MAX, 1) f32_bptt_kernel(BpttParams p) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
+  const int H = p.H, Hc = H / C, L = p.L, B = p.B, Bs = p.Bs;
+  const int tile = blockIdx.x / C, col0 = tile * BT;
+  const Map m(BT);
+  const int j0 = r * Hc + m.jl, col = col0 + m.c0;
+  const size_t lvl = static_cast<size_t>(H) * Bs, wsz = static_cast<size_t>(3) * H * Hc;
+  float* part = p.bpart + static_cast<size_t>(tile) * 8 * H;
+  extern __shared__ __align__(16) float smem[];
+  float* wa = smem;                         // [3H][Hc]
+  float* wb = wa + wsz;                     // [3H][Hc]
+  float* D = wb + wsz;                      // [4H][BT] the level's bundle
+  float d[4][2][4], s[4][2];
+
+  // ---- the down-sweep BPTT (surface to top)
+  {
+    load_vec(wa, p.whT_dn + r * wsz, wsz);
+    load_vec(wb, p.w2T + r * wsz, wsz);
+    float dh[2][4];
+    load_quads(dh, p.dlh, Bs, j0, col);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) s[g][0] = s[g][1] = 0.0f;
+    BwdIn in;
+    const auto fetch = [&](int l) {
+      in.fetch(p.gates_d + 4 * l * lvl, l > 0 ? p.gh + (l - 1) * lvl : p.h0d,
+               p.dd + static_cast<size_t>(l) * B * H, true, H, B, Bs, j0,
+               col);
+    };
+    fetch(L - 1);
+    __syncthreads();
+    cluster_arrive();
+    for (int l = L - 1; l >= 0; --l) {
+      cluster_wait();       // every CTA has read the last level's bundle
+      float* gl = p.gates_d + 4 * l * lvl;
+      bwd_step(dh, in, d);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          s[g][u] += ((d[g][u][0] + d[g][u][1]) + d[g][u][2]) + d[g][u][3];
+        if (col < B) store_quads(gl + g * lvl, d[g], Bs, j0, col);
+        bcast_quads(cl, D + g * H * BT, d[g], BT, j0, m.c0, C);
+      }
+      cl.sync();
+      if (l > 0) fetch(l - 1);
+      // dh2_prev = dh2 z + Whh_dn^T d_hh; d_up = W2^T d_xp
+      float ah[2][4] = {}, au[2][4] = {};
+      prod_t<true>(ah, au, wa, wb, D, H, Hc, BT, m);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dh[u][c] += ah[u][c];
+      if (col < B) store_quads(p.dup + l * lvl, au, Bs, j0, col);
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_pairs(p.dh0d, dh, H, B, j0, col);
+    reduce_sums(s, D, part, H, Hc, BT, r, m);
+  }
+
+  // ---- the up-sweep BPTT (top to surface) from a zero carry
+  {
+    load_vec(wa, p.whT_up + r * wsz, wsz);
+    float du[2][4] = {};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) s[g][0] = s[g][1] = 0.0f;
+    BwdIn in;
+    const auto fetch = [&](int l) {
+      in.fetch(p.gates_u + 4 * l * lvl,
+               l < L - 1 ? p.up + (l + 1) * lvl : p.h0u, p.dup + l * lvl,
+               false, H, B, Bs, j0, col);
+    };
+    fetch(0);
+    __syncthreads();
+    cluster_arrive();
+    for (int l = 0; l < L; ++l) {
+      cluster_wait();
+      float* gl = p.gates_u + 4 * l * lvl;
+      bwd_step(du, in, d);
+      float* dxl = p.dxp + static_cast<size_t>(l) * B * 3 * H;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          s[g][u] += ((d[g][u][0] + d[g][u][1]) + d[g][u][2]) + d[g][u][3];
+        if (col < B) store_quads(gl + g * lvl, d[g], Bs, j0, col);
+        if (g < 3) store_pairs(dxl + g * H, d[g], 3 * H, B, j0, col);
+        if (g != 2) bcast_quads(cl, D + g * H * BT, d[g], BT, j0, m.c0, C);
+      }
+      cl.sync();
+      if (l + 1 < L) fetch(l + 1);
+      // du_prev = du z + Whh_up^T d_hh
+      float ah[2][4] = {}, unused[2][4];
+      prod_t<false>(ah, unused, wa, nullptr, D, H, Hc, BT, m);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) du[u][c] += ah[u][c];
+      cluster_arrive();
+    }
+    cluster_wait();
+    store_pairs(p.dh0u, du, H, B, j0, col);
+    reduce_sums(s, D, part + 4 * H, H, Hc, BT, r, m);
+  }
+  // no CTA leaves while another may still address its shared memory: the
+  // last remote store preceded the last level's barrier
+}
+
+// ------------------------------------------------------- weight gradients
+
+// A weight gradient out[m][n] = sum over levels l and columns b of
+// A_l[m][b] G_l[row(n)][b] (M = H, N = 3H): A_l = A[l + shift] ([L][H][Bs],
+// the states) or the edge state [H][Bs] where l + shift leaves 0 .. L-1;
+// G_l the level's gradient bundle [4H][Bs], row(n) = n below 2H and n + hi
+// from there (hi = H: d_hh = [dar; daz; dhn]; 0: d_xp = [dar; daz; dan]).
+struct GJob {
+  const float *A, *edge, *G;
+  int shift, hi;
+};
+struct GJobs {
+  GJob j[3];
+  float* out[3];    // the gradients [H][3H]
+};
+
+constexpr int TM = 128, TN = 128, TK = 16, GTH = 256;
+
+// One output tile TM x TN of one job over split s of the L x ceil(B / TK)
+// column chunks, written to part[s][job][M][N]: a register-blocked FFMA
+// GEMM, 8 x 8 outputs a thread, its A and G chunks staged through a
+// double-buffered shared-memory tile (the next chunk's 16-byte loads in
+// registers while the current one runs). Fixed order everywhere, no
+// atomics: two calls are bit-identical.
+__global__ void __launch_bounds__(GTH, 2)
+f32_wgrad_kernel(GJobs jobs, int L, int H, int B, int Bs, int S,
+                 float* part) {
+  __shared__ __align__(16) float As[2][TK][TM + 4];
+  __shared__ __align__(16) float Gs[2][TK][TN + 4];
+  const int M = H, N = 3 * H;
+  const int mt = (M + TM - 1) / TM, nt = (N + TN - 1) / TN;
+  const int job = blockIdx.x / (mt * nt), t = blockIdx.x % (mt * nt);
+  const int m0 = (t / nt) * TM, n0 = (t % nt) * TN, s = blockIdx.y;
+  const GJob jb = jobs.j[job];
+  const int nb = (B + TK - 1) / TK;
+  const long Q = static_cast<long>(L) * nb;
+  const long q0 = Q * s / S, q1 = Q * (s + 1) / S;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t lvl = static_cast<size_t>(H) * Bs;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  float4 ra[2], rg[2];
+  // loader e = tid + 256 i: tile row e / 4, columns 4 (e % 4) .. + 3
+  const auto fetch = [&](long q) {
+    const int l = static_cast<int>(q / nb);
+    const int b = static_cast<int>(q % nb) * TK;
+    const int ls = l + jb.shift;
+    const float* Al = (ls >= 0 && ls < L) ? jb.A + ls * lvl : jb.edge;
+    const float* Gl = jb.G + 4 * l * lvl;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + GTH * i, row = e / 4, c = b + 4 * (e % 4);
+      const int mm = m0 + row, nn = n0 + row;
+      const bool ok = c < B;
+      ra[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      rg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok && mm < M)
+        ra[i] = __ldcg(reinterpret_cast<const float4*>(
+            Al + static_cast<size_t>(mm) * Bs + c));
+      if (ok && nn < N) {
+        const int gr = nn < 2 * H ? nn : nn + jb.hi;
+        rg[i] = __ldcg(reinterpret_cast<const float4*>(
+            Gl + static_cast<size_t>(gr) * Bs + c));
+      }
+    }
+  };
+  const auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + GTH * i, row = e / 4, k = 4 * (e % 4);
+      As[buf][k][row] = ra[i].x;
+      As[buf][k + 1][row] = ra[i].y;
+      As[buf][k + 2][row] = ra[i].z;
+      As[buf][k + 3][row] = ra[i].w;
+      Gs[buf][k][row] = rg[i].x;
+      Gs[buf][k + 1][row] = rg[i].y;
+      Gs[buf][k + 2][row] = rg[i].z;
+      Gs[buf][k + 3][row] = rg[i].w;
+    }
+  };
+  int buf = 0;
+  if (q0 < q1) {
+    fetch(q0);
+    stash(0);
+  }
+  __syncthreads();
+  for (long q = q0; q < q1; ++q) {
+    if (q + 1 < q1) fetch(q + 1);
+#pragma unroll
+    for (int k = 0; k < TK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float4 g0 = *reinterpret_cast<const float4*>(&Gs[buf][k][tx * 4]);
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(&Gs[buf][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
+    }
+    if (q + 1 < q1) stash(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+  float* out = part + (static_cast<size_t>(s) * 3 + job) * M * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int mm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (mm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int nn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (nn < N) out[static_cast<size_t>(mm) * N + nn] = acc[i][j];
+    }
+  }
+}
+
+// out_job[i] = sum_s part[s][job][i], the splits added in order
+__global__ void f32_sum_parts_kernel(const float* part, int S, int MN,
+                                     GJobs jobs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 3 * MN) return;
+  const int job = i / MN, e = i % MN;
+  float a = 0.0f;
+  for (int s = 0; s < S; ++s)
+    a += part[(static_cast<size_t>(s) * 3 + job) * MN + e];
+  jobs.out[job][e] = a;
+}
+
+// The bias gradients from the tiles' bundle sums, the tiles added in
+// order: dbhh_up the up bundles' [dar; daz; dhn], dbin2 the down bundles'
+// [dar; daz; dan], dbhh_dn their [dar; daz; dhn].
+__global__ void f32_bias_kernel(const float* bpart, int tiles, int H,
+                                float* dbhh_up, float* dbin2,
+                                float* dbhh_dn) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 9 * H) return;
+  const int which = i / (3 * H), e = i % (3 * H), g = e / H, j = e % H;
+  const int row = (which == 1 || g < 2) ? g : 3;
+  const int off = (which == 0 ? 4 * H : 0) + row * H + j;
+  float a = 0.0f;
+  for (int t = 0; t < tiles; ++t) a += bpart[static_cast<size_t>(t) * 8 * H + off];
+  (which == 0 ? dbhh_up : which == 1 ? dbin2 : dbhh_dn)[e] = a;
+}
+
+inline int launch_bptt(const BpttParams& p, cudaStream_t st) {
+  if (!plan_ok(p.H, p.C, p.BT) || p.Bs % 4 != 0 || p.Bs < p.B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bptt_smem(p.H, p.C, p.BT);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(f32_bptt_kernel, p, p.C, (p.B + p.BT - 1) / p.BT,
+                        threads_of(p.H, p.C, p.BT), smem, st);
+}
+
+}  // namespace bf32
+
+// f32 (the physics trunk's training backward, L 50, H 128, and any f32
+// v2/v3/v4 arm's) runs the cluster FFMA design of bigru_f32.cuh where its
+// plan fits, in the order the bf16 design above uses:
+//   1. f32_sweep_kernel<true>: the replay (B7's cluster sweeps) storing h
+//      and the gate bundle [r; z; n; hn] of both sweeps, f32,
+//      channel-major;
+//   2. f32_bptt_kernel: the down-sweep and then the up-sweep BPTT on
+//      clusters of the same C, each CTA's [3H][Hc] slices of Whh^T (and
+//      W2^T) resident, the level's gradient bundle [dar; daz; dan; dhn]
+//      sent to every CTA over distributed shared memory, the carried
+//      gradient in registers; the bundle overwrites the stored gates, so
+//      it is the weight gradients' left factor and no [L, B, 3H] gradient
+//      stream is kept (6.07 GB of scratch at L 50, B 21,600, H 128, where
+//      the CUDA-core design took 11.05 GB);
+//   3. f32_wgrad_kernel: dWhh_up, dWin2 and dWhh_dn as one register-
+//      blocked FFMA GEMM over the L x B contraction, split in S fixed
+//      ranges; f32_sum_parts_kernel adds the splits in order and
+//      f32_bias_kernel the tiles' bias sums. No atomics: two calls are
+//      bit-identical.
+// Its bound at the physics trunk's shapes is the 0.9555 TFLOP above at
+// 67 TFLOP/s, 14.26 ms.
+//
+// ptrs, in order (H already padded to a multiple of 8 C, every tensor's
+// gate blocks with it; Bs = B rounded up to a multiple of 4):
+//   xp [L, B, 3H]; h0u, h0d [H, Bs] (channel-major, zero past B); d_down
+//   [L, B, H]; d_lasth [H, Bs] (channel-major, zero past B);
+//   wh_up, bh_up, wx_dn, b2, wh_dn, bh_dn as bigru_lbh_f32's;
+//   whT_dn, w2T, whT_up [C][3H][H/C] (CTA r's input rows of the k-major
+//   Whh_dn, W2, Whh_up, transposed);
+//   d_xp [L, B, 3H], dh0u, dh0d [B, H];
+//   scratch up, gh [L, H, Bs], gates_u, gates_d [L, 4H, Bs], d_up
+//   [L, H, Bs], bias sums [ceil(B / BTb), 8H], GEMM splits [S, 3, H, 3H];
+//   dwhh_up, dwin2, dwhh_dn [H, 3H] (k-major), dbhh_up, dbin2, dbhh_dn
+//   [3H].
+// BTa, BTb: the sweeps' and the BPTT's column tiles. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for shapes outside
+// the design).
+extern "C" int bigru_lbh_bwd_f32(int nptr, void* const* q, int L, int H,
+                                 int B, int Bs, int C, int BTa, int BTb,
+                                 int S, void* st) {
+  if (nptr != 30 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto c = [&](int i) { return static_cast<const float*>(q[i]); };
+  const auto m = [&](int i) { return static_cast<float*>(q[i]); };
+  cudaStream_t s = static_cast<cudaStream_t>(st);
+  const bf32::SweepParams sp{c(0), c(1), c(2), c(5), c(6), c(7), c(8),
+                             c(9), c(10), m(17), m(18), m(19), m(20),
+                             nullptr, nullptr, L, H, B, Bs, C, BTa};
+  int rc = bf32::launch_sweep<true>(sp, s);
+  if (rc != 0) return rc;
+  const bf32::BpttParams bp{c(3), c(4), c(1), c(2), m(17), m(18), m(19),
+                            m(20), c(11), c(12), c(13), m(21), m(14),
+                            m(15), m(16), m(22), L, H, B, Bs, C, BTb};
+  rc = bf32::launch_bptt(bp, s);
+  if (rc != 0) return rc;
+  const bf32::GJobs jobs{{{m(17), c(1), m(19), 1, H},
+                          {m(17), nullptr, m(20), 0, 0},
+                          {m(18), c(2), m(20), -1, H}},
+                         {m(24), m(25), m(26)}};
+  const int mt = (H + bf32::TM - 1) / bf32::TM;
+  const int nt = (3 * H + bf32::TN - 1) / bf32::TN;
+  float* part = m(23);
+  bf32::f32_wgrad_kernel<<<dim3(3 * mt * nt, S), bf32::GTH, 0, s>>>(
+      jobs, L, H, B, Bs, S, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int MN = 3 * H * H;
+  bf32::f32_sum_parts_kernel<<<(3 * MN + 255) / 256, 256, 0, s>>>(
+      part, S, MN, jobs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bf32::f32_bias_kernel<<<(9 * H + 255) / 256, 256, 0, s>>>(
+      c(22), (B + BTb - 1) / BTb, H, m(27), m(28), m(29));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -298,9 +298,11 @@ def _flat(b: torch.Tensor) -> torch.Tensor:
 
 def _launch(args, dims, cudacore_bf16=False
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA-core design of B1: f32 (the wrapper's f32 path), or with
-    ``cudacore_bf16`` its bf16 instantiation, which no wrapper selects
-    (``cudacore_bigru_heads_init_cm``) and which counts no launch."""
+    """The CUDA-core design of B1 (f32, and bf16 past the tensor-core
+    plan), its tiles in shared memory or, where they do not fit, in a
+    device scratch (``_tile_scratch``); with ``cudacore_bf16`` its bf16
+    instantiation under the timing twin's C symbol
+    (``cudacore_bigru_heads_init_cm``), which counts no launch."""
     (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
      whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
      bout) = args
@@ -309,6 +311,7 @@ def _launch(args, dims, cudacore_bf16=False
     outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
     lasth = torch.empty((H, B), dtype=dt, device=dev)
     up = torch.empty((L, H, B), dtype=dt, device=dev)   # up-stream scratch
+    tiles = _tile_scratch("b1", (H, H, nm_in, nm, ny, nf), B, dev)
     ptrs = [feat, mem_in, h0_up, h0_dn, _kmaj(winit_t), _flat(binit),
             _kmaj(win1h_t), _kmaj(win1m_t), _flat(bin1), _kmaj(whh_up_t),
             _flat(bhh_up), _kmaj(win2_t), _flat(bin2), _kmaj(whh_dn_t),
@@ -322,11 +325,11 @@ def _launch(args, dims, cudacore_bf16=False
         fn = lib.bigru_heads_init_cm
         head = [0 if dt == torch.float32 else 1]
     fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 22 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*head, *[t.data_ptr() for t in ptrs], L, nf, nm_in, H, nm, ny, B,
-            stream)
+            _ptr(tiles), stream)
     _build.check_status(rc, "bigru_heads_init_cm")
     if not cudacore_bf16:
         fused_bigru_heads_init_cm.launches += 1
@@ -335,8 +338,10 @@ def _launch(args, dims, cudacore_bf16=False
 
 def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
                 ) -> tuple[torch.Tensor, ...]:
-    """The CUDA-core design of B3: f32, or with ``cudacore_bf16`` its bf16
-    instantiation (``cudacore_bigru_heads_cm_bwd``, no launch counted)."""
+    """The CUDA-core design of B3 (f32, and bf16 past the tensor-core
+    plan), its tiles in shared memory or a device scratch, as ``_launch``;
+    with ``cudacore_bf16`` the timing twin (``cudacore_bigru_heads_cm_bwd``,
+    no launch counted)."""
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
      win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = res
     L, CH, nm_in, H, nm, ny, B = dims
@@ -353,7 +358,8 @@ def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
     scratch = [new(L, H, B), new(L, H, B), new(L, 4 * H, B),
                new(L, 4 * H, B), new(L, nm, B), new(L, H, B, dtype=f32),
                new(L, 4 * H, B, dtype=f32), new(L, 4 * H, B, dtype=f32),
-               new(L, nm, B, dtype=f32), new(_SPLITS * largest, dtype=f32)]
+               new(L, nm, B, dtype=f32), new(_SPLITS * largest, dtype=f32),
+               _tile_scratch("b3", (H, CH, nm_in, nm, ny), B, dev)]
     # the slot order of csrc/bigru_heads_cm_bwd.cu's enum Slot
     ptrs = [x, mem_in, h0_up, h0_dn,
             _kmaj(win1h_t), _kmaj(win1m_t), _kmaj(whh_up_t), _kmaj(win2_t),
@@ -362,7 +368,7 @@ def _launch_bwd(res, d_outmem, d_lasth, dims, cudacore_bf16=False
                                        whh_dn_t, wlat_t, wout_t)),
             *(_flat(b) for b in (bin1, bhh_up, bin2, bhh_dn, blat)),
             d_outmem, d_lasth, *outs, *grads, *scratch]
-    table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    table = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
     lib = _build.load("bigru_heads_cm_bwd")
     head = []
     if cudacore_bf16:
@@ -394,7 +400,9 @@ _MMA_KC = 64            # k-chunk of a streamed weight slice
 _SMEM_MAX = 232448
 # (cluster CTAs C, tile columns BT), in order of preference
 _MMA_CONFIGS = ((4, 64), (4, 32), (8, 64), (8, 32), (8, 16), (4, 16))
-# the widest hidden layer every kind of the design takes (mma_plan)
+# the widest hidden layer every kind of the tensor-core design takes at
+# the flagship's other widths (B7 and B8: 960); past it ``gru_design``
+# selects the CUDA-core design, which takes any width
 MMA_H_MAX = 832
 
 
@@ -470,8 +478,8 @@ def _smem(kind, Hc, Hp, CHp, nmip, KXc, BT, nm, ny, nf, stream) -> int:
                _bwd_bytes(Hc, Hp, BT, 0, 0, 0, False, stream))
 
 
-def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
-             nf: int = 0) -> dict:
+def find_mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
+                  nf: int = 0) -> dict | None:
     """The tensor-core design's tiling for B1 (``kind`` "b1"), B3 ("b3"),
     B4 ("b4": CH is x's width, no initial MLP, the X tile channel-major),
     B7 and B8 ("b7", "b8": CH, nm_in, nm, ny unused), B9 ("b9": CH is x's
@@ -485,7 +493,8 @@ def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
     16) and KXc, the rows of [W1h | W1m]^T each CTA owns in B3. Every kind
     takes every H up to ``MMA_H_MAX`` (832) at the flagship's other
     widths; beyond, where even 16-column tiles over clusters of 8 leave no
-    room for the state and input tiles, it raises ``ValueError``."""
+    room for the state and input tiles, it returns None (``gru_design``
+    then selects the CUDA-core design)."""
     nmip = (0 if kind in ("b7", "b8", "b9") else
             _ceil(CH + nm_in, 16) - CH if kind == "b4" else _ceil(nm_in, 16))
     nw = _MMA_NTH // 32
@@ -510,10 +519,159 @@ def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
             if smem <= _SMEM_MAX:
                 return dict(C=C, BT=BT, H=Hp, CH=CHp, nm_in=nmip, KXc=KXc,
                             smem=smem, stream=stream)
-    raise ValueError(f"{kind}: H {H}, CH {CH}, nm_in {nm_in}, nm {nm}, ny "
-                     f"{ny}: no tiling of the bf16 tensor-core design "
-                     f"fits a CTA's shared memory, even with its weights "
-                     f"streamed (the design takes H up to {MMA_H_MAX})")
+    return None
+
+
+def mma_plan(kind: str, H: int, CH: int, nm_in: int, nm: int, ny: int,
+             nf: int = 0) -> dict:
+    """``find_mma_plan`` for a caller that needs the tensor-core design
+    itself: raises ``ValueError`` where no tiling fits. The wrappers ask
+    ``gru_design``, which then runs the CUDA-core design."""
+    plan = find_mma_plan(kind, H, CH, nm_in, nm, ny, nf)
+    if plan is None:
+        raise ValueError(f"{kind}: H {H}, CH {CH}, nm_in {nm_in}, nm {nm}, "
+                         f"ny {ny}: no tiling of the bf16 tensor-core "
+                         f"design fits a CTA's shared memory, even with its "
+                         f"weights streamed; gru_design selects the "
+                         f"CUDA-core design for these widths")
+    return plan
+
+
+# --------------------------------------------------------------------------
+# f32 cluster design of B7 and B8 (csrc/bigru_f32.cuh): FFMA on the CUDA
+# cores, weight slices resident, the state in registers. The constants
+# mirror the CUDA source.
+# --------------------------------------------------------------------------
+
+_F32_NTH = 256          # threads of a CTA at most (bf32::NTH_MAX)
+# cluster sizes C and column tiles BT, in order of preference
+_F32_CS, _F32_BTS = (4, 8), (64, 32)
+
+
+def _f32_sweep_smem(Hp: int, C: int, BT: int) -> int:
+    """Bytes of the sweeps' shared memory (``bf32::sweep_smem``): the up
+    sweep's Whh slice [H][3Hc] and double-buffered state tile [2][H][BT],
+    the down sweep's W2 and Whh slices, state tile and up_l tile [H][BT]."""
+    w = Hp * 3 * (Hp // C)
+    return 4 * max(w + 2 * Hp * BT, 2 * w + 3 * Hp * BT)
+
+
+def _f32_bptt_smem(Hp: int, C: int, BT: int) -> int:
+    """Bytes of B8's BPTT kernel (``bf32::bptt_smem``): two [3H][Hc]
+    slices and the level's bundle tile [4H][BT]."""
+    return 4 * (2 * 3 * Hp * (Hp // C) + 4 * Hp * BT)
+
+
+def f32_plan(kind: str, H: int) -> dict | None:
+    """The f32 cluster design's tiling for B7 (``kind`` "b7") or B8
+    ("b8"): the first cluster size C of ``_F32_CS`` (H padded to a multiple
+    of 8 C) at which the sweeps (and, for B8, the BPTT kernel) each have a
+    column tile BT of ``_F32_BTS`` within a CTA's shared memory and
+    ``_F32_NTH`` threads (Hc / 2 x BT / 4: a thread owns 2 hidden units x
+    4 columns); each phase takes the widest. None where no C fits (from H
+    200 on): ``gru_design`` then selects the CUDA-core design."""
+    phases = [("sweep", _f32_sweep_smem)]
+    if kind == "b8":
+        phases.append(("bptt", _f32_bptt_smem))
+    for C in _F32_CS:
+        Hp = _ceil(H, 8 * C)
+        plan = dict(C=C, H=Hp)
+        for name, smem_of in phases:
+            fit = next(((BT, smem_of(Hp, C, BT)) for BT in _F32_BTS
+                        if Hp // C // 2 * (BT // 4) <= _F32_NTH
+                        and smem_of(Hp, C, BT) <= _SMEM_MAX), None)
+            if fit is None:
+                break
+            key = "" if name == "sweep" else "_bptt"
+            plan.update({"BT" + key: fit[0], "smem" + key: fit[1]})
+        else:
+            return plan
+    return None
+
+
+# --------------------------------------------------------------------------
+# The selector: which hand-written design a GRU wrapper launches, from the
+# dtype and the widths alone
+# --------------------------------------------------------------------------
+
+GRU_KINDS = ("b1", "b3", "b4", "b7", "b8", "b9", "b10")
+DESIGNS = ("tensor_core", "f32_cluster", "cudacore_smem", "cudacore_scratch")
+
+
+def cudacore_rows(kind: str, H: int, CH: int = 0, nm_in: int = 0,
+                  nm: int = 0, ny: int = 0, nf: int = 0) -> int:
+    """The f32 rows of 32 columns a block of the kind's CUDA-core design
+    keeps in its tiles (the launchers' shared-memory sizes in
+    csrc/*.cu); the arguments as ``find_mma_plan``'s."""
+    if kind == "b1":
+        return 4 * H + nm_in + nf + nm
+    if kind == "b3":
+        return max(3 * H + max(CH + nm_in, H), 6 * H + 2 * nm + ny)
+    if kind == "b4":
+        return 3 * H + max(CH + nm_in, H) + nm
+    if kind == "b7":
+        return 4 * H
+    if kind == "b8":
+        return 5 * H
+    if kind == "b9":
+        return 3 * H + max(H, CH) + nm
+    if kind == "b10":
+        return 3 * H + max(H, CH + nm_in) + nf + nm
+    raise ValueError(f"unknown GRU kernel kind {kind!r}")
+
+
+def gru_design(kind: str, dtype, H: int, CH: int = 0, nm_in: int = 0,
+               nm: int = 0, ny: int = 0, nf: int = 0) -> dict:
+    """The hand-written design that the kind's wrapper launches, from the
+    dtype and the widths (the arguments as ``find_mma_plan``'s), never
+    from a failed attempt:
+      * bf16: the tensor-core design ("tensor_core") where
+        ``find_mma_plan`` finds a tiling;
+      * f32 B7 and B8: the cluster FFMA design ("f32_cluster") where
+        ``f32_plan`` finds one;
+      * otherwise the CUDA-core design, its 32-column tiles in shared
+        memory ("cudacore_smem") where 4 x 32 x ``cudacore_rows`` bytes
+        fit a block, else in a device scratch ("cudacore_scratch"), which
+        takes any width.
+    Returns dict(design=..., plan=...) (plan None for the CUDA-core
+    design)."""
+    if kind not in GRU_KINDS:
+        raise ValueError(f"unknown GRU kernel kind {kind!r}")
+    plan = None
+    if dtype == torch.bfloat16:
+        plan = find_mma_plan(kind, H, CH, nm_in, nm, ny, nf)
+        design = "tensor_core"
+    elif kind in ("b7", "b8"):
+        plan = f32_plan(kind, H)
+        design = "f32_cluster"
+    if plan is None:
+        rows = cudacore_rows(kind, H, CH, nm_in, nm, ny, nf)
+        design = ("cudacore_smem" if 4 * 32 * rows <= _SMEM_MAX
+                  else "cudacore_scratch")
+    return dict(design=design, plan=plan)
+
+
+def _tile_scratch(kind: str, dims: tuple, B: int, dev) -> torch.Tensor | None:
+    """The CUDA-core design's tile scratch [blocks, rows, 32] f32 where
+    its tiles do not fit a block's shared memory (None where they do);
+    ``dims`` = (H, CH, nm_in, nm, ny, nf) as ``cudacore_rows``."""
+    rows = cudacore_rows(kind, *dims)
+    if 4 * 32 * rows <= _SMEM_MAX:
+        return None
+    return torch.empty((-(-B // 32), rows, 32), dtype=torch.float32,
+                       device=dev)
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _select(wrapper, kind: str, dtype, *widths) -> dict:
+    """``gru_design`` for a launch of ``wrapper``, recorded as
+    ``wrapper.design`` (the name of the design its last launch ran)."""
+    d = gru_design(kind, dtype, *widths)
+    wrapper.design = d["design"]
+    return d
 
 
 def _pad(t: torch.Tensor, shape) -> torch.Tensor:
@@ -620,11 +778,10 @@ def _table(ptrs):
     return (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
 
 
-def _launch_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """B1 in bf16 on the tensor-core design (weights resident or streamed,
-    as ``mma_plan`` chooses from the widths)."""
+def _launch_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 in bf16 on the tensor-core design with the plan ``pl`` (weights
+    resident or streamed, as ``find_mma_plan`` chooses from the widths)."""
     L, nf, nm_in, H, nm, ny, B = dims
-    pl = mma_plan("b1", H, H, nm_in, nm, ny, nf)
     C, Hp = pl["C"], pl["H"]
     (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
      whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
@@ -650,10 +807,10 @@ def _launch_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return outmem, (lasth if Hp == H else lasth[:H].contiguous())
 
 
-def _launch_bwd_mma(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
-    """B3 in bf16 on the tensor-core design."""
+def _launch_bwd_mma(res, d_outmem, d_lasth, dims, pl
+                    ) -> tuple[torch.Tensor, ...]:
+    """B3 in bf16 on the tensor-core design with the plan ``pl``."""
     L, CH, nm_in, H, nm, ny, B = dims
-    pl = mma_plan("b3", H, CH, nm_in, nm, ny)
     C, BT, Hp, CHp, nmip, KXc = (pl[k] for k in
                                  ("C", "BT", "H", "CH", "nm_in", "KXc"))
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
@@ -705,8 +862,9 @@ def _launch_bwd_mma(res, d_outmem, d_lasth, dims) -> tuple[torch.Tensor, ...]:
 
 
 def cudacore_bigru_heads_init_cm(*args) -> tuple[torch.Tensor, ...]:
-    """B1's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
+    """B1's CUDA-core design in bf16, which no wrapper selects where the
+    tensor-core design has a plan: for timing it against that design on
+    the card. Counts no launch."""
     return _launch(args, _validate(args), cudacore_bf16=True)
 
 
@@ -732,8 +890,10 @@ def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
         return bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if res[0].dtype == torch.bfloat16:
-        return _launch_bwd_mma(res, d_outmem, d_lasth, dims)
+    L, CH, nm_in, H, nm, ny, B = dims
+    d = _select(bigru_heads_cm_bwd, "b3", res[0].dtype, H, CH, nm_in, nm, ny)
+    if d["design"] == "tensor_core":
+        return _launch_bwd_mma(res, d_outmem, d_lasth, dims, d["plan"])
     return _launch_bwd(res, d_outmem, d_lasth, dims)
 
 
@@ -751,8 +911,11 @@ class _FusedHeadsInitCM(torch.autograd.Function):
             return bigru_heads_init_cm_reference(*args)
         if args[0].device.type != "cuda":
             raise ValueError(f"no kernel for device {args[0].device}")
-        if args[0].dtype == torch.bfloat16:
-            return _launch_mma(args, dims)
+        L, nf, nm_in, H, nm, ny, B = dims
+        d = _select(fused_bigru_heads_init_cm, "b1", args[0].dtype, H, H,
+                    nm_in, nm, ny, nf)
+        if d["design"] == "tensor_core":
+            return _launch_mma(args, dims, d["plan"])
         return _launch(args, dims)
 
     @staticmethod
@@ -791,6 +954,7 @@ def fused_bigru_heads_init_cm(feat, mem_in, h0_up, h0_dn, winit_t, binit,
 
 fused_bigru_heads_init_cm.launches = 0
 bigru_heads_cm_bwd.launches = 0
+fused_bigru_heads_init_cm.design = bigru_heads_cm_bwd.design = None
 
 
 # --------------------------------------------------------------------------
@@ -802,9 +966,10 @@ bigru_heads_cm_bwd.launches = 0
 
 def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA-core design of B4: f32 (the wrapper's f32 path), or with
-    ``cudacore_bf16`` its bf16 instantiation, which no wrapper selects
-    (``cudacore_fused_bigru_heads_cm``) and which counts no launch."""
+    """The CUDA-core design of B4 (f32, and bf16 past the tensor-core
+    plan), its tiles in shared memory or a device scratch, as ``_launch``;
+    with ``cudacore_bf16`` the timing twin
+    (``cudacore_fused_bigru_heads_cm``), which counts no launch."""
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
      win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout) = args
     L, CH, nm_in, H, nm, ny, B = dims
@@ -812,6 +977,7 @@ def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
     outmem = torch.empty((L, nm + ny, B), dtype=dt, device=dev)
     lasth = torch.empty((H, B), dtype=dt, device=dev)
     up = torch.empty((L, H, B), dtype=dt, device=dev)   # up-stream scratch
+    tiles = _tile_scratch("b4", (H, CH, nm_in, nm), B, dev)
     ptrs = [x, mem_in, h0_up, h0_dn, _kmaj(win1h_t), _kmaj(win1m_t),
             _flat(bin1), _kmaj(whh_up_t), _flat(bhh_up), _kmaj(win2_t),
             _flat(bin2), _kmaj(whh_dn_t), _flat(bhh_dn), _kmaj(wlat_t),
@@ -824,11 +990,11 @@ def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
         fn = lib.bigru_heads_cm
         head = [0 if dt == torch.float32 else 1] + head
     fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 20 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*head, *[t.data_ptr() for t in ptrs], L, CH, nm_in, H, nm, ny, B,
-            stream)
+            _ptr(tiles), stream)
     _build.check_status(rc, "bigru_heads_cm")
     if not cudacore_bf16:
         fused_bigru_heads_cm.launches += 1
@@ -846,13 +1012,13 @@ def pad_cm_args(args, Hp: int, nmip: int) -> tuple:
     return pad_res(args, Hp, args[0].shape[1], nmip)
 
 
-def _launch_cm_mma(args, dims, hoist_proj
+def _launch_cm_mma(args, dims, hoist_proj, pl
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """B4 in bf16 on the tensor-core design (bigru_mma_fwd.cuh's
-    channel-major instance with a loaded X tile; weights resident or
-    streamed, as ``mma_plan`` chooses from the widths)."""
+    """B4 in bf16 on the tensor-core design with the plan ``pl``
+    (bigru_mma_fwd.cuh's channel-major instance with a loaded X tile;
+    weights resident or streamed, as ``find_mma_plan`` chooses from the
+    widths)."""
     L, CH, nm_in, H, nm, ny, B = dims
-    pl = mma_plan("b4", H, CH, nm_in, nm, ny)
     C, Hp, nmip = pl["C"], pl["H"], pl["nm_in"]
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
      win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
@@ -880,15 +1046,16 @@ def _launch_cm_mma(args, dims, hoist_proj
 
 def cudacore_fused_bigru_heads_cm(*args, hoist_proj=True
                                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """B4's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
+    """B4's CUDA-core design in bf16, which no wrapper selects where the
+    tensor-core design has a plan: for timing it against that design on
+    the card. Counts no launch."""
     return _launch_cm(args, _validate_cm(args), hoist_proj,
                       cudacore_bf16=True)
 
 
 class _FusedHeadsCM(torch.autograd.Function):
-    """Forward: the B4 kernel (bf16: the tensor-core design; f32: the
-    CUDA-core one; its plain version on the CPU), saving only the inputs.
+    """Forward: the B4 kernel (the design ``gru_design`` selects; its
+    plain version on the CPU), saving only the inputs.
     Backward, as JAX's ``_heads_cm_bwd``: with memory
     (nm_in > 0) ``bigru_heads_cm_bwd`` on the forward's arguments (kernel
     B3 on the card, which replays the sweeps with float32 projections
@@ -905,8 +1072,11 @@ class _FusedHeadsCM(torch.autograd.Function):
             return bigru_heads_cm_reference(*args, hoist_proj=hoist_proj)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
-        if args[0].dtype == torch.bfloat16:
-            return _launch_cm_mma(args, dims, hoist_proj)
+        L, CH, nm_in, H, nm, ny, B = dims
+        d = _select(fused_bigru_heads_cm, "b4", args[0].dtype, H, CH, nm_in,
+                    nm, ny)
+        if d["design"] == "tensor_core":
+            return _launch_cm_mma(args, dims, hoist_proj, d["plan"])
         return _launch_cm(args, dims, hoist_proj)
 
     @staticmethod
@@ -935,9 +1105,8 @@ def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
     (outmem [L, nm+ny, B] = mem || out, lasth [H, B]); differentiable in
     all 17. ``hoist_proj`` picks the TPU body whose roundings the kernel
     reproduces (see ``bigru_heads_cm_reference``). A CPU tensor runs the
-    plain versions; a CUDA tensor launches kernel B4 (bf16: the
-    tensor-core design; f32: the CUDA-core one) and, for gradients, B3, or
-    raises."""
+    plain versions; a CUDA tensor launches kernel B4 (the design
+    ``gru_design`` selects) and, for gradients, B3, or raises."""
     return _FusedHeadsCM.apply(bool(hoist_proj), x, mem_in, h0_up, h0_dn,
                                win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
                                win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,
@@ -945,6 +1114,7 @@ def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
 
 
 fused_bigru_heads_cm.launches = 0
+fused_bigru_heads_cm.design = None
 
 
 # --------------------------------------------------------------------------
@@ -1032,11 +1202,10 @@ def _validate_lbh(args) -> tuple[int, int, int]:
     return L, B, H
 
 
-def _launch_lbh(args, dims, cudacore_bf16=False
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA-core design of B7: f32, or with ``cudacore_bf16`` its bf16
-    instantiation, which no wrapper selects (``cudacore_fused_bigru_lbh``)
-    and which counts no launch."""
+def _launch_lbh(args, dims, twin=False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core design of B7 (f32 or bf16), its tiles in shared memory
+    or, past H 448, in a device scratch; with ``twin`` the timing twin
+    (``cudacore_fused_bigru_lbh``), which counts no launch."""
     xp = args[0]
     L, B, H = dims
     dt, dev = xp.dtype, xp.device
@@ -1045,16 +1214,17 @@ def _launch_lbh(args, dims, cudacore_bf16=False
     # weights are [in, out] (flax's layout), the k-major order the kernel
     # reads; biases flat
     ptrs = [a.contiguous() for a in args] + [down, lasth]
+    tiles = _tile_scratch("b7", (H,), B, dev)
     lib = _build.load("bigru_lbh")
     fn = lib.bigru_lbh
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
-            L, H, B, stream)
+            L, H, B, _ptr(tiles), stream)
     _build.check_status(rc, "bigru_lbh")
-    if not cudacore_bf16:
+    if not twin:
         fused_bigru_lbh.launches += 1
     return down, lasth
 
@@ -1144,10 +1314,11 @@ def _validate_bwd_lbh(res, d_down, d_lasth) -> tuple[int, int, int]:
 _SPLITS_LBH = 64
 
 
-def _launch_bwd_lbh(res, d_down, d_lasth, dims, cudacore_bf16=False
+def _launch_bwd_lbh(res, d_down, d_lasth, dims, twin=False
                     ) -> tuple[torch.Tensor, ...]:
-    """The CUDA-core design of B8: f32, or with ``cudacore_bf16`` its bf16
-    instantiation (``cudacore_bigru_bwd_lbh``, no launch counted)."""
+    """The CUDA-core design of B8 (f32 or bf16), its tiles in shared memory
+    or, past H 360, in a device scratch; with ``twin`` the timing twin
+    (``cudacore_bigru_bwd_lbh``), which counts no launch."""
     xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn = res
     L, B, H = dims
     dt, dev = xp.dtype, xp.device
@@ -1164,7 +1335,8 @@ def _launch_bwd_lbh(res, d_down, d_lasth, dims, cudacore_bf16=False
                new(L, B, 4 * H), new(L, B, H, dtype=f32),
                new(L, B, 3 * H, dtype=f32), new(L, B, 3 * H, dtype=f32),
                new(L, B, 3 * H, dtype=f32),
-               new(_SPLITS_LBH * H * 3 * H, dtype=f32)]
+               new(_SPLITS_LBH * H * 3 * H, dtype=f32),
+               _tile_scratch("b8", (H,), B, dev)]
     # the slot order of csrc/bigru_lbh_bwd.cu's enum Slot: k-major weights
     # ([in, out], flax's layout) for the replay, [out, in] copies for the
     # transposed products of the BPTT
@@ -1173,21 +1345,16 @@ def _launch_bwd_lbh(res, d_down, d_lasth, dims, cudacore_bf16=False
             *(w.t().contiguous() for w in (whh_up, win2, whh_dn)),
             *(b.contiguous() for b in (bhh_up, bin2, bhh_dn)),
             d_down, d_lasth, *outs, *grads, *scratch]
-    table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
-    lib = _build.load("bigru_lbh_bwd")
-    head = []
-    if cudacore_bf16:
-        fn = lib.bigru_lbh_bwd_cudacore
-    else:
-        fn = lib.bigru_lbh_bwd
-        head = [0 if dt == torch.float32 else 1]
-    fn.argtypes = [ctypes.c_int] * (len(head) + 1) + [ctypes.c_void_p] \
+    table = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
+    fn = _build.load("bigru_lbh_bwd").bigru_lbh_bwd
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*head, len(ptrs), table, L, H, B, _SPLITS_LBH, stream)
+    rc = fn(0 if dt == torch.float32 else 1, len(ptrs), table, L, H, B,
+            _SPLITS_LBH, stream)
     _build.check_status(rc, "bigru_lbh_bwd")
-    if not cudacore_bf16:
+    if not twin:
         bigru_bwd_lbh.launches += 1
     return tuple(outs) + tuple(grads)
 
@@ -1231,12 +1398,11 @@ def unpad_lbh_grads(grads, H: int) -> tuple:
             w(dwhu), gl(dbhu), w(dw2), gl(db2), w(dwhd), gl(dbhd))
 
 
-def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims
+def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims, pl
                         ) -> tuple[torch.Tensor, ...]:
-    """B8 in bf16 on the tensor-core design (weights resident or streamed,
-    as ``mma_plan`` chooses from the width)."""
+    """B8 in bf16 on the tensor-core design with the plan ``pl`` (weights
+    resident or streamed, as ``find_mma_plan`` chooses from the width)."""
     L, B, H = dims
-    pl = mma_plan("b8", H, H, 0, 0, 0)
     C, BT, Hp = pl["C"], pl["BT"], pl["H"]
     Hc = Hp // C
     (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
@@ -1282,13 +1448,13 @@ def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims
                             dw2.t(), db2, dwhd.t(), dbhd), H)
 
 
-def _launch_lbh_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """B7 in bf16 on the tensor-core design (B8's replay without the gate
-    bundle; weights resident or streamed, as ``mma_plan`` chooses from the
-    width). The kernel writes down and last_h batch-major and keeps the up
-    states in ``down`` (no scratch)."""
+def _launch_lbh_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 in bf16 on the tensor-core design with the plan ``pl`` (B8's
+    replay without the gate bundle; weights resident or streamed, as
+    ``find_mma_plan`` chooses from the width). The kernel writes down and
+    last_h batch-major and keeps the up states in ``down`` (no
+    scratch)."""
     L, B, H = dims
-    pl = mma_plan("b7", H, H, 0, 0, 0)
     C, Hp = pl["C"], pl["H"]
     (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
      bhh_dn) = pad_lbh_res(args, Hp)
@@ -1312,18 +1478,121 @@ def _launch_lbh_mma(args, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return down[..., :H].contiguous(), lasth[:, :H].contiguous()
 
 
+def pack_k(w: torch.Tensor, C: int) -> torch.Tensor:
+    """A k-major gate-stacked [K, 3Hp] weight ([in, out], the v2 layout) as
+    C CTA slices [C, K, 3Hc]: slice r holds column g Hp + r Hc + jj at
+    g Hc + jj (the gate columns of CTA r's hidden units), the f32 cluster
+    design's resident layout."""
+    K, H3 = w.shape
+    Hc = H3 // 3 // C
+    return w.reshape(K, 3, C, Hc).permute(2, 0, 1, 3).reshape(C, K, 3 * Hc) \
+        .contiguous()
+
+
+def pack_kt(w: torch.Tensor, C: int) -> torch.Tensor:
+    """A k-major [Hp, 3Hp] weight's input rows as C CTA slices,
+    transposed: [C, 3Hp, Hc], slice r = w[r Hc:(r + 1) Hc]^T (the rows
+    whose gradient CTA r forms in the f32 BPTT)."""
+    K, N = w.shape
+    return w.reshape(C, K // C, N).transpose(1, 2).contiguous()
+
+
+def _lbh_f32_inputs(res, Hp: int, C: int, B: int) -> tuple:
+    """The v2 arguments as the f32 cluster kernels take them: padded to Hp
+    (``pad_lbh_res``), the initial states channel-major [Hp, Bs] (Bs = B
+    rounded up to 4, zero past B), the weights as ``pack_k`` slices."""
+    (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
+     bhh_dn) = pad_lbh_res(res, Hp)
+    Bs = _ceil(B, 4)
+    cm = lambda t: _pad(t.t(), (Hp, Bs)).contiguous()
+    sweeps = [xp, cm(h0_up), cm(h0_dn), pack_k(whh_up, C),
+              bhh_up.contiguous(), pack_k(win2, C), bin2.contiguous(),
+              pack_k(whh_dn, C), bhh_dn.contiguous()]
+    return sweeps, (whh_up, win2, whh_dn), Bs, cm
+
+
+def _launch_lbh_f32(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 in f32 on the cluster FFMA design with the plan ``pl``
+    (``f32_plan``): the up states go to a channel-major f32 scratch that
+    the down sweep reads back."""
+    L, B, H = dims
+    C, Hp = pl["C"], pl["H"]
+    sweeps, _, Bs, _ = _lbh_f32_inputs(args, Hp, C, B)
+    dev = sweeps[0].device
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    down, lasth = new(L, B, Hp), new(B, Hp)
+    ptrs = sweeps + [new(L, Hp, Bs), down, lasth]
+    fn = _build.load("bigru_lbh").bigru_lbh_f32
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_table(ptrs), L, Hp, B, Bs, C, pl["BT"], stream)
+    _build.check_status(rc, "bigru_lbh_f32")
+    fused_bigru_lbh.launches += 1
+    if Hp == H:
+        return down, lasth
+    return down[..., :H].contiguous(), lasth[:, :H].contiguous()
+
+
+def wgrad_splits(H: int, device) -> int:
+    """Column splits of the f32 weight-gradient GEMM: two blocks a SM over
+    its 3 jobs' 128 x 128 output tiles (fixed for a card and a width, so
+    two calls add the same partials in the same order)."""
+    tiles = 3 * -(-H // 128) * -(-3 * H // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, 2 * sms // tiles)
+
+
+def _launch_bwd_lbh_f32(res, d_down, d_lasth, dims, pl
+                        ) -> tuple[torch.Tensor, ...]:
+    """B8 in f32 on the cluster FFMA design with the plan ``pl``
+    (``f32_plan``): the replay, the two BPTT sweeps (the gradient bundles
+    overwrite the stored gates) and the weight-gradient GEMM over them."""
+    L, B, H = dims
+    C, Hp, BTb = pl["C"], pl["H"], pl["BT_bptt"]
+    sweeps, (whh_up, win2, whh_dn), Bs, cm = _lbh_f32_inputs(res, Hp, C, B)
+    dev = sweeps[0].device
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    S = wgrad_splits(Hp, dev)
+    outs = [new(L, B, 3 * Hp), new(B, Hp), new(B, Hp)]
+    # scratch: h of both sweeps, their gate bundles (overwritten by the
+    # gradient bundles), d_up, the tiles' bias sums, the GEMM's splits
+    scratch = [new(L, Hp, Bs), new(L, Hp, Bs), new(L, 4 * Hp, Bs),
+               new(L, 4 * Hp, Bs), new(L, Hp, Bs), new(-(-B // BTb), 8 * Hp),
+               new(S, 3, Hp, 3 * Hp)]
+    # dwhh_up, dwin2, dwhh_dn [Hp, 3Hp] (k-major), then their biases
+    grads = [new(Hp, 3 * Hp) for _ in range(3)] + [new(3 * Hp)
+                                                  for _ in range(3)]
+    # the pointer order of csrc/bigru_lbh_bwd.cu's bigru_lbh_bwd_f32
+    ptrs = sweeps[:3] + [_pad(d_down, (L, B, Hp)), cm(d_lasth)] \
+        + sweeps[3:] + [pack_kt(w, C) for w in (whh_dn, win2, whh_up)] \
+        + outs + scratch + grads
+    fn = _build.load("bigru_lbh_bwd").bigru_lbh_bwd_f32
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(len(ptrs), _table(ptrs), L, Hp, B, Bs, C, pl["BT"], BTb, S,
+            stream)
+    _build.check_status(rc, "bigru_lbh_bwd_f32")
+    bigru_bwd_lbh.launches += 1
+    dwhu, dw2, dwhd, dbhu, db2, dbhd = grads
+    return unpad_lbh_grads((*outs, dwhu, dbhu, dw2, db2, dwhd, dbhd), H)
+
+
 def cudacore_fused_bigru_lbh(*args) -> tuple[torch.Tensor, torch.Tensor]:
-    """B7's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
-    return _launch_lbh(args, _validate_lbh(args), cudacore_bf16=True)
+    """B7's CUDA-core design in bf16 or f32, which no wrapper selects at the
+    widths the tensor-core (bf16) and cluster (f32) designs take: for
+    timing it against them on the card. Counts no launch."""
+    return _launch_lbh(args, _validate_lbh(args), twin=True)
 
 
 def cudacore_bigru_bwd_lbh(res, d_down, d_lasth) -> tuple[torch.Tensor, ...]:
-    """B8's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
+    """B8's CUDA-core design in bf16 or f32, as
+    ``cudacore_fused_bigru_lbh``. Counts no launch."""
     return _launch_bwd_lbh(res, d_down, d_lasth,
                            _validate_bwd_lbh(res, d_down, d_lasth),
-                           cudacore_bf16=True)
+                           twin=True)
 
 
 def bigru_bwd_lbh(res, d_down, d_lasth):
@@ -1331,22 +1600,26 @@ def bigru_bwd_lbh(res, d_down, d_lasth):
     forward's nine arguments, the cotangents of (down, last_h) in xp's type
     -> (d_xp, dh0_up, dh0_dn, dwhh_up, dbhh_up, dwin2, dbin2, dwhh_dn,
     dbhh_dn). A CPU tensor runs the plain version; a CUDA tensor launches
-    kernel B8 (bf16: the tensor-core design; f32: the CUDA-core one) or
-    raises."""
+    kernel B8 (the design ``gru_design`` selects: bf16 the tensor-core
+    design, f32 the cluster FFMA design, each where its plan fits, else
+    the CUDA-core one) or raises."""
     dims = _validate_bwd_lbh(res, d_down, d_lasth)
     dev = res[0].device
     if dev.type == "cpu":
         return bigru_bwd_reference_lbh(res, d_down, d_lasth)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if res[0].dtype == torch.bfloat16:
-        return _launch_bwd_lbh_mma(res, d_down, d_lasth, dims)
+    d = _select(bigru_bwd_lbh, "b8", res[0].dtype, dims[2])
+    if d["design"] == "tensor_core":
+        return _launch_bwd_lbh_mma(res, d_down, d_lasth, dims, d["plan"])
+    if d["design"] == "f32_cluster":
+        return _launch_bwd_lbh_f32(res, d_down, d_lasth, dims, d["plan"])
     return _launch_bwd_lbh(res, d_down, d_lasth, dims)
 
 
 class _FusedBiGRULBH(torch.autograd.Function):
-    """Forward: B7 (bf16: the tensor-core design; f32: the CUDA-core one;
-    the plain version on the CPU), saving the inputs, as JAX's residuals
+    """Forward: B7 (the design ``gru_design`` selects; the plain version
+    on the CPU), saving the inputs, as JAX's residuals
     are. Backward: ``bigru_bwd_lbh``, kernel B8 on the card and its plain
     version on the CPU."""
 
@@ -1359,8 +1632,11 @@ class _FusedBiGRULBH(torch.autograd.Function):
             return bigru_reference_lbh(*args)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
-        if args[0].dtype == torch.bfloat16:
-            return _launch_lbh_mma(args, dims)
+        d = _select(fused_bigru_lbh, "b7", args[0].dtype, dims[2])
+        if d["design"] == "tensor_core":
+            return _launch_lbh_mma(args, dims, d["plan"])
+        if d["design"] == "f32_cluster":
+            return _launch_lbh_f32(args, dims, d["plan"])
         return _launch_lbh(args, dims)
 
     @staticmethod
@@ -1379,15 +1655,17 @@ def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
     up-sweep projection, input bias included), h0_up/h0_dn [B, H], weights
     [H, 3H] and biases [3H], all float32 or all bfloat16 -> (down
     [L, B, H], last_h [B, H]); differentiable in all nine. A CPU tensor
-    runs the plain versions; a CUDA tensor launches kernel B7 (bf16: the
-    tensor-core design; f32: the CUDA-core one) and, for gradients, B8, or
-    raises."""
+    runs the plain versions; a CUDA tensor launches kernel B7 (the design
+    ``gru_design`` selects: bf16 the tensor-core design, f32 the cluster
+    FFMA design, each where its plan fits, else the CUDA-core one) and,
+    for gradients, B8, or raises."""
     return _FusedBiGRULBH.apply(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
                                 bin2, whh_dn, bhh_dn)
 
 
 fused_bigru_lbh.launches = 0
 bigru_bwd_lbh.launches = 0
+fused_bigru_lbh.design = bigru_bwd_lbh.design = None
 
 
 def fused_bigru(x_proj_up, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
@@ -1535,10 +1813,11 @@ def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
 
 
 def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
-    """The CUDA-core design of B9 and B10 (f32), or with ``cudacore_bf16``
-    their bf16 instantiation, which no wrapper selects
-    (``cudacore_bigru_heads_lbh``, ``cudacore_bigru_heads_init_lbh``) and
-    which counts no launch."""
+    """The CUDA-core design of B9 and B10 (f32, and bf16 past the
+    tensor-core plan), its tiles in shared memory or a device scratch, as
+    ``_launch``; with ``cudacore_bf16`` the timing twins
+    (``cudacore_bigru_heads_lbh``, ``cudacore_bigru_heads_init_lbh``),
+    which count no launch."""
     L, B, nx, ch, nm_in, H, nm, ny = dims
     dt, dev = args[0].dtype, args[0].device
     out = torch.empty((L, B, ny), dtype=dt, device=dev)
@@ -1554,15 +1833,17 @@ def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
     if init:
         fn, wrapper = lib.bigru_heads_init_lbh, fused_bigru_heads_init_lbh
         ints = (L, nx, ch, nm_in, H, nm, ny, B)
+        tiles = _tile_scratch("b10", (H, ch, nm_in, nm, ny, nx), B, dev)
     else:
         fn, wrapper = lib.bigru_heads_lbh, fused_bigru_heads_lbh
         ints = (L, nx, H, nm, ny, B)
+        tiles = _tile_scratch("b9", (H, nx, 0, nm), B, dev)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(ptrs) \
-        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
-            *ints, stream)
+            *ints, _ptr(tiles), stream)
     name = "bigru_heads_init_lbh" if init else "bigru_heads_lbh"
     _build.check_status(rc, name)
     if not cudacore_bf16:
@@ -1606,19 +1887,17 @@ def pad_heads_init_lbh(args, Hp: int, CHp: int, nmip: int) -> tuple:
             _pad(wlat, (Hp, wlat.shape[1])), blat, wout, bout)
 
 
-def _launch_heads_lbh_mma(args, dims, init: bool):
-    """B9 or, with ``init``, B10 in bf16 on the tensor-core design
-    (bigru_mma_fwd.cuh's batch-major instances: B9's X tile loaded, B10's
-    computed by the initial MLP; weights resident or streamed, as
-    ``mma_plan`` chooses from the widths)."""
+def _launch_heads_lbh_mma(args, dims, init: bool, pl):
+    """B9 or, with ``init``, B10 in bf16 on the tensor-core design with the
+    plan ``pl`` (bigru_mma_fwd.cuh's batch-major instances: B9's X tile
+    loaded, B10's computed by the initial MLP; weights resident or
+    streamed, as ``find_mma_plan`` chooses from the widths)."""
     L, B, nx, ch, nm_in, H, nm, ny = dims
     if init:
-        pl = mma_plan("b10", H, ch, nm_in, nm, ny, nx)
         a = pad_heads_init_lbh(args, pl["H"], pl["CH"], pl["nm_in"])
         lead, weights = a[:6], a[6:]
         widths = (nx, pl["CH"], pl["nm_in"])
     else:
-        pl = mma_plan("b9", H, nx, 0, nm, ny)
         a = pad_heads_lbh(args, pl["H"], pl["CH"])
         lead, weights = a[:3], a[3:]
         widths = (pl["CH"],)
@@ -1661,15 +1940,17 @@ def _launch_heads_lbh_mma(args, dims, init: bool):
 
 
 def cudacore_bigru_heads_lbh(*args) -> tuple[torch.Tensor, ...]:
-    """B9's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
+    """B9's CUDA-core design in bf16, which no wrapper selects where the
+    tensor-core design has a plan: for timing it against that design on
+    the card. Counts no launch."""
     return _launch_heads_lbh(args, _validate_heads_lbh(args, False), False,
                              cudacore_bf16=True)
 
 
 def cudacore_bigru_heads_init_lbh(*args) -> tuple[torch.Tensor, ...]:
-    """B10's CUDA-core design in bf16, which no wrapper selects: for timing
-    it against the tensor-core design on the card. Counts no launch."""
+    """B10's CUDA-core design in bf16, which no wrapper selects where the
+    tensor-core design has a plan: for timing it against that design on
+    the card. Counts no launch."""
     return _launch_heads_lbh(args, _validate_heads_lbh(args, True), True,
                              cudacore_bf16=True)
 
@@ -1698,8 +1979,8 @@ def _heads_init_compose_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
 
 
 class _FusedHeadsLBH(torch.autograd.Function):
-    """Forward: B9, or with ``init`` B10 (bf16: the tensor-core designs;
-    f32: the CUDA-core ones; their plain versions on the CPU), saving the
+    """Forward: B9, or with ``init`` B10 (the designs ``gru_design``
+    selects; their plain versions on the CPU), saving the
     inputs, as JAX's residuals are. Backward, as JAX's
     ``_heads_bwd`` / ``_heads_init_bwd``: autograd through the composition,
     whose recurrent core replays with B7 and differentiates with B8 on the
@@ -1719,8 +2000,15 @@ class _FusedHeadsLBH(torch.autograd.Function):
             return ref(*args)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
-        if args[0].dtype == torch.bfloat16:
-            return _launch_heads_lbh_mma(args, dims, init)
+        L, B, nx, ch, nm_in, H, nm, ny = dims
+        if init:
+            d = _select(fused_bigru_heads_init_lbh, "b10", args[0].dtype, H,
+                        ch, nm_in, nm, ny, nx)
+        else:
+            d = _select(fused_bigru_heads_lbh, "b9", args[0].dtype, H, nx,
+                        0, nm, ny)
+        if d["design"] == "tensor_core":
+            return _launch_heads_lbh_mma(args, dims, init, d["plan"])
         return _launch_heads_lbh(args, dims, init)
 
     @staticmethod
@@ -1743,9 +2031,8 @@ def fused_bigru_heads_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
     weights [in, out] (win1 [nx, 3H], wlat [H, nm], wout [nm, ny]) and flat
     biases, all float32 or all bfloat16 -> (out [L, B, ny], mem [L, B, nm],
     last_h [B, H]); differentiable in all 15. A CPU tensor runs the plain
-    versions; a CUDA tensor launches kernel B9 (bf16: the tensor-core
-    design; f32: the CUDA-core one) and, for gradients, B7 and B8, or
-    raises."""
+    versions; a CUDA tensor launches kernel B9 (the design ``gru_design``
+    selects) and, for gradients, B7 and B8, or raises."""
     return _FusedHeadsLBH.apply(False, x, h0_up, h0_dn, win1, bin1, whh_up,
                                 bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
                                 blat, wout, bout)
@@ -1758,9 +2045,8 @@ def fused_bigru_heads_init_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
     feat [L, B, nf], mem_in [L, B, nm_in], w_init [nf, CH], b_init [CH],
     win1 [CH + nm_in, 3H], the rest as ``fused_bigru_heads_lbh`` -> (out,
     mem, last_h); differentiable in all 18. A CPU tensor runs the plain
-    versions; a CUDA tensor launches kernel B10 (bf16: the tensor-core
-    design; f32: the CUDA-core one) and, for gradients, B7 and B8, or
-    raises."""
+    versions; a CUDA tensor launches kernel B10 (the design ``gru_design``
+    selects) and, for gradients, B7 and B8, or raises."""
     return _FusedHeadsLBH.apply(True, feat, mem_in, h0_up, h0_dn, w_init,
                                 b_init, win1, bin1, whh_up, bhh_up, win2,
                                 bin2, whh_dn, bhh_dn, wlat, blat, wout, bout)
@@ -1768,3 +2054,4 @@ def fused_bigru_heads_init_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
 
 fused_bigru_heads_lbh.launches = 0
 fused_bigru_heads_init_lbh.launches = 0
+fused_bigru_heads_lbh.design = fused_bigru_heads_init_lbh.design = None

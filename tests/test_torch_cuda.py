@@ -1377,3 +1377,167 @@ def test_b13_is_deterministic_and_its_first_design_agrees(cuda):
     for i, (a, b, o) in enumerate(zip(first, second, old)):
         assert torch.equal(a, b), i
         assert _rel_err(o, a) <= 1e-5, (i, _rel_err(o, a))
+
+
+# ------------------------------------------------------------------------
+# the f32 cluster design of B7 and B8, and every GRU kind past the widths
+# its earlier designs refused (the selector's CUDA-core choices)
+
+def _lecun_km(t, scale):
+    """A k-major [in, out] weight of the given scale rescaled to
+    1/sqrt(fan-in)."""
+    return t / (scale * np.sqrt(t.shape[0]))
+
+
+def _v2_lecun(L, H, B, device, seed=7):
+    """B8's residuals (B7's inputs) with lecun-scale weights, so that the
+    gates stay of order 1 at any width, and the cotangents."""
+    res, dd, dl = _b8_inputs(L, H, B, torch.float32, device, seed)
+    for i in (3, 5, 7):
+        res[i] = _lecun_km(res[i], 0.3)
+    return res, dd, dl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,H,B", [(50, 128, 1000), (50, 128, 1001),
+                                   (60, 192, 1000), (60, 192, 1001),
+                                   (12, 20, 150), (12, 32, 1)])
+def test_b7_b8_f32_cluster_design(cuda, L, H, B):
+    """f32 B7 and B8 run the cluster FFMA design (the selector says so; one
+    launch each) at the physics trunk's widths (L 50, H 128), the v2 arm's
+    in f32 (L 60, H 192), a width the plan pads (H 20 to 32) and the
+    ragged edges (B 1,001, 150, 1): B7 to 1e-5 + 1e-5 |x| and each of B8's
+    nine outputs to 2e-5 of its scale against the plain versions, the
+    gates check_b7 and check_b8 apply."""
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh, bigru_bwd_reference_lbh,
+                                       bigru_reference_lbh, fused_bigru_lbh)
+    res, dd, dl = _v2_lecun(L, H, B, cuda)
+    b7, b8 = fused_bigru_lbh.launches, bigru_bwd_lbh.launches
+    with torch.no_grad():
+        got = fused_bigru_lbh(*res)
+    assert fused_bigru_lbh.design == "f32_cluster"
+    for g, w in zip(got, bigru_reference_lbh(*res)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    got8 = bigru_bwd_lbh(res, dd, dl)
+    assert bigru_bwd_lbh.design == "f32_cluster"
+    assert (fused_bigru_lbh.launches, bigru_bwd_lbh.launches) == (b7 + 1,
+                                                                   b8 + 1)
+    for i, (g, w) in enumerate(zip(got8, bigru_bwd_reference_lbh(res, dd,
+                                                                  dl))):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert _rel_err(g, w) <= 2e-5, (i, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_b7_b8_f32_cluster_deterministic_and_twin(cuda):
+    """Two calls of the f32 cluster design are bit-identical (fixed-order
+    GEMM splits and tile sums, no atomics); the CUDA-core twin, which
+    chip_smoke.py times against it and which counts no launch, agrees
+    within the f32 gates."""
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, fused_bigru_lbh
+    from climsim_tpu_torch.ops.pallas_rnn import (cudacore_bigru_bwd_lbh,
+                                                  cudacore_fused_bigru_lbh)
+    res, dd, dl = _v2_lecun(50, 128, 1000, cuda, seed=9)
+    with torch.no_grad():
+        f1, f2 = fused_bigru_lbh(*res), fused_bigru_lbh(*res)
+    g1, g2 = bigru_bwd_lbh(res, dd, dl), bigru_bwd_lbh(res, dd, dl)
+    before = (fused_bigru_lbh.launches, bigru_bwd_lbh.launches)
+    with torch.no_grad():
+        tw = cudacore_fused_bigru_lbh(*res)
+    tw8 = cudacore_bigru_bwd_lbh(res, dd, dl)
+    assert (fused_bigru_lbh.launches, bigru_bwd_lbh.launches) == before
+    for a, b, t in zip(f1, f2, tw):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(t, a, rtol=1e-5, atol=1e-5)
+    for i, (a, b, t) in enumerate(zip(g1, g2, tw8)):
+        assert torch.equal(a, b), i
+        assert _rel_err(t, a) <= 2e-5, (i, _rel_err(t, a))
+
+
+def _kind_case(kind, L, H, B, dtype, device):
+    """(wrapper, plain, args) of one GRU kind at width H with lecun-scale
+    weights: the forwards' arguments, or for B3 and B8 (res, cotangents)."""
+    from climsim_tpu_torch.ops import (bigru_bwd_lbh, bigru_bwd_reference_lbh,
+                                       bigru_reference_lbh,
+                                       bigru_heads_cm_reference,
+                                       fused_bigru_heads_cm, fused_bigru_lbh)
+    if kind == "b1":
+        a = _b1_inputs(L, H, B, torch.float32, device)
+        for i in (4, 6, 7, 9, 11, 13, 15):
+            a[i] = _lecun(a[i])
+        return (fused_bigru_heads_init_cm, bigru_heads_init_cm_reference,
+                [t.to(dtype) for t in a])
+    if kind in ("b3", "b4"):
+        res, dom, dlh = _b3_inputs(L, H, B, torch.float32, device)
+        res = list(res)
+        for i in (4, 5, 7, 9, 11, 13):
+            res[i] = _lecun(res[i])
+        res = [t.to(dtype) for t in res]
+        if kind == "b4":
+            return fused_bigru_heads_cm, bigru_heads_cm_reference, res
+        return (bigru_heads_cm_bwd, bigru_heads_cm_bwd_reference,
+                [res, dom.to(dtype), dlh.to(dtype)])
+    if kind in ("b7", "b8"):
+        res, dd, dl = _v2_lecun(L, H, B, device)
+        res = [t.to(dtype) for t in res]
+        if kind == "b7":
+            return fused_bigru_lbh, bigru_reference_lbh, res
+        return (bigru_bwd_lbh, bigru_bwd_reference_lbh,
+                [res, dd.to(dtype), dl.to(dtype)])
+    init = kind == "b10"
+    a = _b9_b10_inputs(init, L, H, B, torch.float32, device)
+    for i in range(len(a)):
+        if a[i].dim() == 2 and i >= (4 if init else 3):
+            a[i] = _lecun_km(a[i], 0.25)
+    wrapper, plain = _b9_b10(init)
+    return wrapper, plain, [t.to(dtype) for t in a]
+
+
+# the widths of chip_smoke.py's width phase: bf16 H 840 and 968 (past the
+# tensor-core plan at the flagship's other widths; at these tests' narrower
+# memory and heads H 840 still has a plan, 968 has none for any kind), f32
+# past the CUDA-core design's shared memory (H 384 and 512)
+WIDE_CASES = [(k, torch.bfloat16, H) for k in
+              ("b1", "b3", "b4", "b7", "b8", "b9", "b10")
+              for H in (840, 968)] \
+    + [(k, torch.float32, H) for k in
+       ("b1", "b3", "b4", "b7", "b8", "b9", "b10") for H in (384, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,H", WIDE_CASES)
+def test_every_kind_at_the_width_phase_widths(cuda, kind, dtype, H):
+    """Every GRU kind launches the design the selector names at these
+    widths (one launch counted) and agrees with its plain version (L 6,
+    150 columns): f32 forwards to 1e-5 + 1e-5 |x|, backwards to 2e-5 of
+    each output's scale; bf16 within 4x the plain version's own
+    bf16-vs-f32 error plus 1e-3 of its scale."""
+    from climsim_tpu_torch.ops.pallas_rnn import gru_design
+    wrapper, plain, args = _kind_case(kind, 6, H, 150, dtype, cuda)
+    bwd = kind in ("b3", "b8")
+    before = wrapper.launches
+    with torch.no_grad():
+        got = wrapper(*args)
+        want = plain(*args)
+    assert wrapper.launches == before + 1
+    want_design = gru_design(
+        kind, dtype, H, *{"b1": (H, 8, 8, 6, 6), "b3": (H, 8, 8, 6),
+                          "b4": (H, 8, 8, 6), "b7": (), "b8": (),
+                          "b9": (24, 0, 8, 6), "b10": (H, 8, 8, 6, 6)}[kind]
+    )["design"]
+    assert wrapper.design == want_design
+    # past the tensor-core plan and past the CUDA-core tiles' shared
+    # memory the tiles go to device scratch
+    if H in (512, 968):
+        assert want_design == "cudacore_scratch"
+    if dtype == torch.bfloat16:
+        f32 = ([[t.float() for t in args[0]], args[1].float(),
+                args[2].float()] if bwd else [t.float() for t in args])
+        with torch.no_grad():
+            _bf16_holds(got, want, plain(*f32))
+    elif bwd:
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert _rel_err(g, w) <= 2e-5, (i, _rel_err(g, w))
+    else:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -117,8 +117,9 @@ def test_plan_pads_small_widths():
 def test_plan_refuses_what_no_tiling_holds():
     """Every kind has a plan up to MMA_H_MAX (832); one step past it, even
     16-column tiles over clusters of 8 with streamed weights leave no room
-    for B1's, B3's and B10's state and input tiles, and the wrapper raises
-    rather than run another design."""
+    for B1's, B3's and B10's state and input tiles, and mma_plan raises
+    (the wrappers' selector, gru_design, then runs the CUDA-core design:
+    tests/test_torch_ops_rnn_select.py)."""
     assert MMA_H_MAX == 832
     for kind in ("b1", "b3", "b8", "b10"):
         mma_plan(kind, MMA_H_MAX, MMA_H_MAX, 16, 16, 6, nf=6)
