@@ -54,13 +54,19 @@ Phases (any failure exits non-zero):
      main paths' shapes (and a ragged batch): B1, B2, B3, then B7 at the
      physics trunk's L 50, H 128 (f32 and, as an extra tiling of the
      tensor-core design, bf16, at 21,600 and 1,000 columns), B11 and B12
-     (21,600 x 60 x 8); then B4 (f32 and bf16, projections hoisted and
-     not, at 21,600 and 1,000 columns), B5 (6, 60, 120, 180), B6 (60,
-     120, 180), B7 at the v2 arm's L 60, H 192 (f32 and bf16), B8 at the
-     v4 arm's L 60, H 192 (f32 and bf16), B9 and B10 (f32 and bf16 at
-     21,600 and 1,000 columns); bf16 B1, B3, B4 and B7-B10 run the
-     tensor-core designs, f32 B7 and B8 the cluster FFMA design (two calls
-     bit-identical), the other f32 kinds the CUDA-core ones;
+     (21,600 x 60 x 8), B11 through its wrapper also at RAD_SHAPES (the
+     staged design everywhere but ng 6, which runs the first; a second
+     call bit-identical; the design rad_design names recorded on the
+     wrapper; the first design, which the timings use, held to the same
+     tolerance against the staged one; the kernel's shared memory equal
+     to rad_tile_smem's); then B4 (f32
+     and bf16, projections hoisted and not, at 21,600 and 1,000 columns),
+     B5 (6, 60, 120, 180), B6 (60, 120, 180), B7 at the v2 arm's L 60,
+     H 192 (f32 and bf16), B8 at the v4 arm's L 60, H 192 (f32 and
+     bf16), B9 and B10 (f32 and bf16 at 21,600 and 1,000 columns);
+     bf16 B1, B3, B4 and B7-B10 run the tensor-core designs, f32 B7 and
+     B8 the cluster FFMA design (two calls bit-identical), the other f32
+     kinds the CUDA-core ones;
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
      no other kernel; then the same for each other serving arm, whose
@@ -95,8 +101,9 @@ Phases (any failure exits non-zero):
      card and on the CPU, compared after counting the McICA sample indices
      that differ, for each trunk;
   8. physics training: B8 (f32 and bf16 at 21,600 and 1,000 columns),
-     B13 (21,600 x 60 x 8 and 1,000 x 50 x 8) and B14 (21,600 x 60 x 8)
-     against their plain versions; one
+     B13 (21,600 x 60 x 8 and 1,000 x 50 x 8) and B14 (21,600 x 60 x 8,
+     and at RAD_SHAPES as B11 in phase 2) against their plain versions;
+     one
      chunk of 6 steps (2 updates of W 3) with each trunk, counters set to
      0 just before and read just after: B11, B12, B13 and B14 (and with
      the fused trunk B7 and B8) must each launch W times per update; finite
@@ -111,7 +118,8 @@ Phases (any failure exits non-zero):
      profiler splits; every serving arm's
      coupled step with its device idle share (v6 and v5 also at 384
      columns), the three training arms, both physics trunks, B5, B6; B13
-     against its first design (device scratch, four sweeps) in turns; B1,
+     against its first design (device scratch, four sweeps) in turns; B11
+     and B14 (the staged design) in turns with their first designs; B1,
      B3, B4, B7 and B8 (at the v2 and v4 arms' shapes), B9 and B10 in
      bf16 as the tensor-core design against
      the CUDA-core design (f32's, instantiated in bf16 under a second C
@@ -1672,27 +1680,126 @@ def check_b7(model, card, L=None):
     return max(errs)
 
 
-def radiation_args(ncol, device, seed=3, nlev=NLEV):
+def radiation_args(ncol, device, seed=3, nlev=NLEV, ng=8):
     """Solver inputs at the physics path's shapes (ncol, 60, 8) (or nlev
-    layers) through the plain optics: SW two-stream coefficients of random
-    optical properties (tau spanning clear to thick cloud), LW Pade sources
-    of random Planck terms. Returns (sw args, lw args)."""
+    layers, ng g-points) through the plain optics: SW two-stream
+    coefficients of random optical properties (tau spanning clear to thick
+    cloud), LW Pade sources of random Planck terms. Returns (sw args, lw
+    args)."""
     from climsim_tpu_torch.physics import radiation as R
     g = torch.Generator(device=device).manual_seed(seed)
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(
         s, generator=g, device=device)
-    shape = (ncol, nlev, 8)
+    shape = (ncol, nlev, ng)
     layers = R.calc_ref_trans_sw(u(0.05, 1.0, ncol, 1, 1),
                                  torch.exp(u(-6.0, 4.0, *shape)),
                                  u(0.3, 0.999, *shape), u(0.0, 0.85, *shape))
-    sw = (u(0.0, 300.0, ncol, 8), u(0.05, 0.8, ncol, 8),
-          u(0.05, 0.8, ncol, 8)) + tuple(layers)
+    sw = (u(0.0, 300.0, ncol, ng), u(0.05, 0.8, ncol, ng),
+          u(0.05, 0.8, ncol, ng)) + tuple(layers)
     sup, sdn, trans = R.reftrans_lw(u(1.0, 60.0, *shape),
                                     u(1.0, 60.0, *shape),
                                     torch.exp(u(-6.0, 3.0, *shape)))
-    lw = (trans, sdn, sup, u(10.0, 60.0, ncol, 8), torch.ones(
-        (ncol, 8), device=device))
+    lw = (trans, sdn, sup, u(10.0, 60.0, ncol, ng), torch.ones(
+        (ncol, ng), device=device))
     return sw, lw
+
+
+# the shapes at which B11's and B14's designs are gated: the physics path's,
+# a ragged batch at 50 levels, PhysRad's default ng 16, nlev 128, and ng 6,
+# which the staged tile does not take (the first design runs)
+RAD_SHAPES = ((NLAT * NLON, NLEV, 8), (1003, 50, 8), (NLAT * NLON, NLEV, 16),
+              (1000, 128, 8), (1000, NLEV, 6))
+
+
+def check_staged(card, kind):
+    """B11 (kind "b11") or B14 ("b14"), through its wrapper, against its
+    plain version at RAD_SHAPES: each output to 1e-5 of its scale (as
+    check_radiation), finite, a second call bit-identical, the design
+    recorded on the wrapper the one rad_design names (the staged tile at
+    every shape but ng 6, which runs the first design), and the kernel's
+    own shared-memory size (csrc's Geom::smem) rad_tile_smem's at the
+    geometry rad_design picks. At every staged shape the first design,
+    which the timings use, is held to the same tolerance against the
+    staged one (B11's staged down sweep multiplies by the up sweep's
+    reciprocal where the first divides, so they need not agree bit for
+    bit). Returns the worst max_abs_err of the wrapper."""
+    import ctypes
+    from climsim_tpu_torch.ops import _build, pallas_radiation as prad
+    from climsim_tpu_torch.physics.radiation import adding_sw
+    sw_kind = kind == "b11"
+    src = "adding_sw" if sw_kind else "lw_noscat_bwd"
+    smem_of = getattr(_build.load(src), src + "_staged_smem")
+    smem_of.restype = ctypes.c_longlong
+    wrapper = prad.adding_sw_fast if sw_kind else prad.lw_solver_noscat_bwd
+    worst = 0.0
+    for i, (B, nlev, ng) in enumerate(RAD_SHAPES):
+        sw, lw = radiation_args(B, "cuda", seed=30 + i, nlev=nlev, ng=ng)
+        args = sw if sw_kind else lw
+        cts = () if sw_kind else radiation_cts(args, 2, seed=40 + i)
+        if sw_kind:
+            call = lambda: wrapper(*args)
+            first = lambda: prad.first_adding_sw(*args)
+            want = adding_sw(*args)
+        else:
+            call = lambda: wrapper(args, cts)
+            first = lambda: prad.first_lw_solver_noscat_bwd(args, cts)
+            want = prad.lw_solver_noscat_bwd_reference(args, cts)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        design = prad.rad_design(kind, B, nlev, ng)
+        check(wrapper.design == design["design"]
+              == ("first" if ng % 4 else "staged"),
+              f"{kind} {(B, nlev, ng)}: launched {wrapper.design}, "
+              f"rad_design names {design['design']}")
+        rel = [rel_err(g, w) for g, w in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max_err(got, want)
+        if i == 0:
+            worst = err
+        print(f"{kind.upper()} f32 {(B, nlev, ng)}: {wrapper.design} design"
+              + (f" (C {design['C']}, {design['blocks']} CTAs, "
+                 f"{design['smem']} bytes of shared memory)"
+                 if design["design"] == "staged" else "")
+              + f", max_abs_err {err:.3e}, worst relative to an output's "
+              f"scale {max(rel):.2e} (tolerance 1e-5), a second call "
+              f"bit-identical {same} [{card}]")
+        check(same, f"{kind} {(B, nlev, ng)}: two calls differ")
+        for j, (e, g) in enumerate(zip(rel, got)):
+            check(e <= 1e-5, f"{kind} {(B, nlev, ng)} output {j}: {e:.3e}")
+            check(bool(torch.isfinite(g).all()),
+                  f"{kind} {(B, nlev, ng)} output {j} not finite")
+        if design["design"] == "staged":
+            kernel_smem = smem_of(nlev, ng, design["C"])
+            check(kernel_smem == design["smem"],
+                  f"{kind} {(B, nlev, ng)}: the kernel's shared memory "
+                  f"{kernel_smem} is not rad_tile_smem's {design['smem']}")
+            vs = [rel_err(a, b) for a, b in zip(got, first())]
+            print(f"{kind.upper()} staged against first design at "
+                  f"{(B, nlev, ng)}: worst relative to an output's scale "
+                  f"{max(vs):.2e} (tolerance 1e-5) [{card}]")
+            check(max(vs) <= 1e-5, f"{kind} {(B, nlev, ng)} staged against "
+                  f"first: {max(vs):.3e}")
+        del sw, lw, args, cts, got, again, want
+    return worst
+
+
+def time_staged(card, kind, args, cts=()):
+    """The staged design of B11 or B14 at the physics path's shape, in
+    turns with its first design (first, staged, staged, first), printed.
+    Returns (the wrapper's mean ms, the first design's mean ms)."""
+    from climsim_tpu_torch.ops import pallas_radiation as prad
+    if kind == "b11":
+        new = lambda: prad.adding_sw_fast(*args)
+        first = lambda: prad.first_adding_sw(*args)
+    else:
+        new = lambda: prad.lw_solver_noscat_bwd(args, cts)
+        first = lambda: prad.first_lw_solver_noscat_bwd(args, cts)
+    shape = tuple(args[3 if kind == "b11" else 0].shape)
+    old, nw = in_turns(first, new, 50)
+    print(f"{kind.upper()} f32 at {shape} in turns (first, staged, staged, "
+          f"first): first design {old[0]:.4f} / {old[1]:.4f} ms, staged "
+          f"design {nw[0]:.4f} / {nw[1]:.4f} ms [{card}]")
+    return statistics.mean(nw), statistics.mean(old)
 
 
 def check_radiation(card):
@@ -2594,7 +2701,8 @@ def main() -> int:
                                        fv_tracers_sphere_reference,
                                        bigru_heads_cm_bwd,
                                        bigru_heads_cm_bwd_reference,
-                                       bigru_reference_lbh, fused_bigru_lbh)
+                                       bigru_reference_lbh, fused_bigru_lbh,
+                                       adding_sw_fast, lw_solver_noscat_bwd)
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.models import BF16
 
@@ -2631,6 +2739,7 @@ def main() -> int:
     pmodel = make_phys_model(None, use_pallas=True)  # the fused trunk
     b7_err = check_b7(pmodel, card)
     rad_errs = check_radiation(card)
+    rad_errs["B11"] = max(rad_errs["B11"], check_staged(card, "b11"))
     v5model = make_model(BF16, None, arm="v5")
     b4_err = check_b4(v5model, card)
     flat_errs, flat_inputs = check_flat(card)
@@ -2699,7 +2808,11 @@ def main() -> int:
     # yaml's scan trunk and the fused trunk; 384 vs CPU
     smodel = make_phys_model(None)              # the scan trunk
     run_phys_eval(smodel, card)
+    adding_sw_fast.design = None
     p_launches = run_phys_eval(pmodel, card)
+    b11_design = adding_sw_fast.design
+    check(b11_design == "staged", f"the physics evaluation's B11 ran the "
+          f"{b11_design} design")
     for use_pallas in (False, True):
         compare_phys_384(card, use_pallas)
     phase_done(7)
@@ -2709,9 +2822,14 @@ def main() -> int:
     # each at 384 vs CPU
     b8_err = check_b8(pmodel, card)
     rad_bwd_errs = check_radiation_bwd(card)
+    rad_bwd_errs["B14"] = max(rad_bwd_errs["B14"], check_staged(card, "b14"))
     torch.cuda.empty_cache()
     s_ptrainer, s_pchunk, _, _, s_pcols = run_phys_training(card)
+    lw_solver_noscat_bwd.design = None
     ptrainer, pchunk, pt_launches, n_pupd, _ = run_phys_training(card, True)
+    b14_design = lw_solver_noscat_bwd.design
+    check(b14_design == "staged", f"the physics training's B14 ran the "
+          f"{b14_design} design")
     for use_pallas in (False, True):
         compare_phys_train_384(card, use_pallas)
 
@@ -3009,7 +3127,7 @@ def main() -> int:
           f"{s7_old[0]:.4f} / {s7_old[1]:.4f} ms against {s7_new[0]:.4f} / "
           f"{s7_new[1]:.4f} ms [{card}]")
     b7_plain = median_ms(lambda: bigru_reference_lbh(*a7), 1)
-    sw_ms = median_ms(lambda: adding_sw_fast(*sw_args), 50)
+    sw_ms, sw_first = time_staged(card, "b11", sw_args)
     sw_plain = median_ms(lambda: adding_sw(*sw_args), 3)
     lw_ms = median_ms(lambda: lw_solver_noscat_fast(*lw_args), 50)
     lw_plain = median_ms(lambda: lw_solver_noscat(*lw_args), 3)
@@ -3075,7 +3193,7 @@ def main() -> int:
           f"passes, the replay parked in shared memory) {b13_new[0]:.4f} / "
           f"{b13_new[1]:.4f} ms [{card}]")
     b13_plain = median_ms(lambda: adding_sw_bwd_reference(sw_args, sw_cts), 3)
-    b14_ms = median_ms(lambda: lw_solver_noscat_bwd(lw_args, lw_cts), 50)
+    b14_ms, b14_first = time_staged(card, "b14", lw_args, lw_cts)
     b14_plain = median_ms(lambda: lw_solver_noscat_bwd_reference(lw_args,
                                                                  lw_cts), 3)
     pbb = phys_bwd_bounds(a8, sw_args, lw_args)
@@ -3125,7 +3243,8 @@ def main() -> int:
          "replaces": "climsim_tpu/ops/pallas_radiation.py:30",
          "launches": p_launches["b11"], "max_abs_err": rad_errs["B11"],
          "ms": sw_ms, "plain_ms": sw_plain, "bound_ms": pb["b11"][0],
-         "bound_by": pb["b11"][1], "library_ms": None},
+         "bound_by": pb["b11"][1], "library_ms": None,
+         "design": b11_design, "first_design_ms": sw_first},
         {"name": "lw_noscat", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/lw_noscat.cu",
          "replaces": "climsim_tpu/ops/pallas_radiation.py:123",
@@ -3153,7 +3272,8 @@ def main() -> int:
          "replaces": "climsim_tpu/ops/pallas_radiation.py:336",
          "launches": pt_launches["b14"], "max_abs_err": rad_bwd_errs["B14"],
          "ms": b14_ms, "plain_ms": b14_plain, "bound_ms": pbb["b14"][0],
-         "bound_by": pbb["b14"][1], "library_ms": None},
+         "bound_by": pbb["b14"][1], "library_ms": None,
+         "design": b14_design, "first_design_ms": b14_first},
         {"name": "bigru_heads_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_cm.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:887",

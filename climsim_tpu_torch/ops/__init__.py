@@ -22,7 +22,7 @@ from .pallas_radiation import (adding_sw_fast, lw_solver_noscat_fast,
                                adding_sw_bwd, adding_sw_bwd_reference,
                                lw_solver_noscat_bwd,
                                lw_solver_noscat_bwd_reference,
-                               sw_bwd_geometry)
+                               sw_bwd_geometry, rad_design)
 from .pallas_stencil import (fv_advect_tracers_sphere,
                              fv_tracers_sphere_reference, fv_advect_tracers,
                              fv_tracers_reference, fv_advect_levels)
@@ -37,7 +37,7 @@ __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "adding_sw_fast",
            "lw_solver_noscat_fast", "adding_sw_bwd", "adding_sw_bwd_reference",
            "lw_solver_noscat_bwd", "lw_solver_noscat_bwd_reference",
-           "sw_bwd_geometry",
+           "sw_bwd_geometry", "rad_design",
            "fv_advect_tracers_sphere",
            "fv_tracers_sphere_reference", "fv_advect_tracers",
            "fv_tracers_reference", "fv_advect_levels", "resolve_device"]

@@ -25,16 +25,32 @@
 // 0.10 ms at 3.35 TB/s; the operations take a few microseconds at the f32
 // rate. So it is bound by bytes.
 //
-// What this design does about it: the recurrences are serial in the
-// level and independent across (b, g), so one thread walks one
-// (column, g-point) through both sweeps. The TPU wrapper transposed to
-// [nlev, ng, B] for its lanes; here the [B, nlev, ng] layout is read
-// directly: the 32 threads of a warp cover 4 columns x 8 g-points, so
-// each level's load is 4 full 32-byte sectors. The 61 albedo pairs of
-// the up sweep are parked in the fdiff/fdir outputs, which the down sweep
-// overwrites level by level after reading them; each thread reads back
-// only what it wrote itself. No shared memory, no synchronisation.
+// The second design (adding_sw_staged, chosen by pallas_radiation.py::
+// rad_design): the staged tile of rad_tile.cuh. A persistent CTA copies
+// the 5 layer and 3 surface arrays of C whole columns into its stage of
+// shared memory with bulk copies; one thread an item runs the up sweep
+// out of the stage, parks the 61 albedo pairs in the CTA's replay buffer
+// (never in an output), then runs the down sweep and writes each flux
+// once, from a register, through __restrict__ pointers. Each input leaves
+// device memory once and no load sits in the serial chain. What is left
+// in the chain is the arithmetic: the up sweep's reciprocal, and the down
+// sweep's division, which becomes a multiplication by that same
+// reciprocal (sw_item; a deliberate departure from the plain version's
+// operations, ROADMAP's port rules). The stage holds ~14 KB a column at
+// (60, 8), so a SM holds few items; several CTAs a SM, each copying while
+// the others compute, overlap the copies with the sweeps.
+//
+// The first design (adding_sw, kept to time the second against it and
+// for the shapes the stage does not take, ng % 4 != 0 or unaligned
+// tensors): one thread walks one (column, g-point) through both sweeps,
+// reading the [B, nlev, ng] layout directly (the 32 threads of a warp
+// cover 4 columns x 8 g-points, so each level's load is 4 full 32-byte
+// sectors). Its 61 albedo pairs are parked in the fdiff/fdir outputs,
+// which the down sweep reads back and overwrites; as the outputs are not
+// __restrict__, every level costs a round trip to device memory.
 #include <cuda_runtime.h>
+
+#include "rad_tile.cuh"
 
 namespace {
 
@@ -87,6 +103,81 @@ __global__ void __launch_bounds__(NTH) adding_sw_kernel(
   }
 }
 
+// The second design's item t of a tile whose stage is st: column b of the
+// arrays, c = t / ng of the tile. Inputs staged: toa, ad, adir (surface),
+// R, T, rd, tdd, tdir (layer); the replay rep is [nlev+1][C ng] of
+// (alb, albdir). The up sweep leaves in the stage what the down sweep
+// needs of each layer beside T and tdir: K_j = tdir_j albdir[j+1] R_j +
+// tdd_j over tdd_j, and inv_j = 1 / (1 - alb[j+1] R_j) over R_j. So the
+// down sweep's denominator is the up sweep's reciprocal (the plain
+// version's 1 / (1 - R_j alb[j+1]), rounded once) and its division a
+// multiplication: num inv_j is within 1.5 ulp of num / (1 - R_j alb[j+1]),
+// where the division is within 0.5. The division's IEEE slow path, which
+// the many zero or tiny fluxes under thick cloud take, set the pace of
+// an instance that divided: 0.3179 ms against 0.1512 ms at (21,600, 60, 8)
+// on the H100 (PERF.md §6).
+__device__ __forceinline__ void sw_item(
+    const rad::Geom& G, float* __restrict__ st, float2* __restrict__ rep,
+    int t, size_t b, float* __restrict__ fup, float* __restrict__ fdiff,
+    float* __restrict__ fdir) {
+  const int nlev = G.nlev, ng = G.ng, NT = G.items();
+  const int c = t / ng, g = t - c * ng;
+  const int o = c * G.str_lay() + g;              // + j ng
+  float *R = G.lay(st, 0) + o, *T = G.lay(st, 1) + o, *rd = G.lay(st, 2) + o,
+        *tdd = G.lay(st, 3) + o, *tdir = G.lay(st, 4) + o;
+  // ---- up sweep: system albedo below every half-level
+  float alb = G.sfc(st, 1)[t], albdir = G.sfc(st, 2)[t];
+  rep[nlev * NT + t] = make_float2(alb, albdir);
+#pragma unroll 4
+  for (int j = nlev - 1; j >= 0; --j) {
+    const float Rj = R[j * ng], Tj = T[j * ng], tddj = tdd[j * ng],
+                tdj = tdir[j * ng];
+    const float inv = 1.0f / (1.0f - alb * Rj);
+    tdd[j * ng] = tdj * albdir * Rj + tddj;       // K_j
+    R[j * ng] = inv;
+    albdir = rd[j * ng] + (tdj * albdir + tddj * alb) * Tj * inv;
+    alb = Rj + Tj * Tj * alb * inv;
+    if (j > 0) rep[j * NT + t] = make_float2(alb, albdir);
+  }
+  // ---- down sweep; albdir holds the albedo below half-level 0
+  const size_t half = b * (nlev + 1) * ng + g;    // + j ng
+  float fdndir = G.sfc(st, 0)[t], fdndiff = 0.0f;
+  fup[half] = fdndir * albdir;
+  fdiff[half] = 0.0f;
+  fdir[half] = fdndir;
+#pragma unroll 4
+  for (int j = 0; j < nlev; ++j) {
+    const float2 a1 = rep[(j + 1) * NT + t];      // (alb, albdir)[j+1]
+    const float Tj = T[j * ng], tdj = tdir[j * ng];
+    fdndiff = (Tj * fdndiff + fdndir * tdd[j * ng]) * R[j * ng];
+    fdndir = fdndir * tdj;
+    const size_t i = half + static_cast<size_t>(j + 1) * ng;
+    fup[i] = fdndir * a1.y + fdndiff * a1.x;
+    fdiff[i] = fdndiff;
+    fdir[i] = fdndir;
+  }
+}
+
+// The second design: one thread an item of a tile of C columns, every
+// sweep out of the tile's stage.
+__global__ void __launch_bounds__(rad::MAX_THREADS) adding_sw_staged_kernel(
+    rad::Srcs src, float* __restrict__ fup, float* __restrict__ fdiff,
+    float* __restrict__ fdir, int B, int nlev, int ng, int C) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const rad::Geom G{nlev, ng, C, 3, 5, 0};
+  const rad::Tile tl(G, smem, B);
+  const int t = threadIdx.x;
+  tl.start(src);
+  for (int k = 0, tile = blockIdx.x; tile < tl.ntiles;
+       ++k, tile += gridDim.x) {
+    float* st = tl.wait(k);
+    if (t < tl.cols(tile) * ng)
+      sw_item(G, st, tl.replay, t, static_cast<size_t>(tile) * C + t / ng,
+              fup, fdiff, fdir);
+    tl.refill(src, tile);
+  }
+}
+
 }  // namespace
 
 // Every array f32 and contiguous: toa, ad, adir [B, ng]; R, T, rd, tdd,
@@ -108,4 +199,31 @@ extern "C" int adding_sw(const void* toa, const void* ad, const void* adir,
       static_cast<float*>(fup), static_cast<float*>(fdiff),
       static_cast<float*>(fdir), B, nlev, ng);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The second design. The same arrays as adding_sw, then the tile
+// geometry: C columns a tile, `blocks` persistent CTAs (from
+// pallas_radiation.py::rad_design). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a geometry the stage does not take:
+// ng % 4 != 0, or its shared memory past 232,448 bytes).
+extern "C" int adding_sw_staged(const void* toa, const void* ad,
+                                const void* adir, const void* R,
+                                const void* T, const void* rd,
+                                const void* tdd, const void* tdir, void* fup,
+                                void* fdiff, void* fdir, int B, int nlev,
+                                int ng, int C, int blocks, void* stream) {
+  if (B == 0) return 0;
+  const rad::Geom G{nlev, ng, C, 3, 5, 0};
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  const rad::Srcs src{{f(toa), f(ad), f(adir), f(R), f(T), f(rd), f(tdd),
+                       f(tdir)}};
+  return rad::launch_staged(adding_sw_staged_kernel, G, blocks,
+                            static_cast<cudaStream_t>(stream), src, w(fup),
+                            w(fdiff), w(fdir), B, nlev, ng, C);
+}
+
+// The shared memory adding_sw_staged asks for at this geometry.
+extern "C" long long adding_sw_staged_smem(int nlev, int ng, int C) {
+  return static_cast<long long>(rad::Geom{nlev, ng, C, 3, 5, 0}.smem());
 }

@@ -6,6 +6,13 @@ solver (``csrc/adding_sw.cu``), and B12, the LW no-scattering solver
 (``csrc/adding_sw_bwd.cu``, ``adding_sw_bwd``) and B14
 (``csrc/lw_noscat_bwd.cu``, ``lw_solver_noscat_bwd``).
 
+B11 and B14 have two designs each, chosen by ``rad_design`` from the shape
+(and the tensors' alignment) before the launch and recorded on the
+wrapper as ``.design``: the staged tile of ``csrc/rad_tile.cuh``
+("staged") where it takes the shape, else the first design ("first").
+``first_adding_sw`` and ``first_lw_solver_noscat_bwd`` run the first
+designs at any shape, for timing them on the card; they count no launch.
+
 All take the solver-standard layout, layers [B, nlev, ng] and surface
 [B, ng], float32; fluxes and their cotangents are half-level
 [B, nlev+1, ng]. The forwards' plain versions are ``physics/radiation.py``'s
@@ -17,6 +24,7 @@ whose backward calls the backward wrapper on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,7 +33,9 @@ from . import _build
 
 __all__ = ["adding_sw_fast", "lw_solver_noscat_fast", "adding_sw_bwd",
            "adding_sw_bwd_reference", "lw_solver_noscat_bwd",
-           "lw_solver_noscat_bwd_reference", "sw_bwd_geometry"]
+           "lw_solver_noscat_bwd_reference", "sw_bwd_geometry",
+           "rad_design", "rad_tile_layout", "rad_tile_smem",
+           "first_adding_sw", "first_lw_solver_noscat_bwd"]
 
 _SW_ARGS = ("incoming_toa", "albedo_surf_diffuse", "albedo_surf_direct",
             "R", "T", "ref_dir", "T_dir_diff", "T_dir_dir")
@@ -59,12 +69,13 @@ def _validate(names, args, is_sfc, cts=()) -> tuple[int, int, int]:
 def _launch(name: str, ptrs, dims, extra=(), fn=None) -> None:
     """Call ``csrc/<name>.cu``'s entry point (or its entry point ``fn``)
     with the tensors ``ptrs`` (made contiguous), ``extra`` device buffers,
-    then (B, nlev, ng) and the current stream."""
+    then the ints ``dims`` ((B, nlev, ng), and a staged design's C and
+    blocks) and the current stream."""
     lib = _build.load(name)
     fn = getattr(lib, fn or name)
     ptrs = [a.contiguous() for a in ptrs] + list(extra)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
+        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
     rc = fn(*[t.data_ptr() for t in ptrs], *dims, stream)
@@ -84,12 +95,112 @@ def _empty(dev, *shapes):
     return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
 
 
-def _launch_sw(args):
+# ------------------------------------------------ the designs of B11, B14
+
+# surface, layer and half-level arrays a tile of each staged kernel copies
+_RAD_ARRAYS = {"b11": (3, 5, 0), "b14": (2, 3, 2)}
+# the staged designs' widest tile in columns (PERF.md §6: the fastest C
+# measured on the H100 at (21,600, 60, 8) for both kernels)
+_RAD_C = 4
+_RAD_MAX_THREADS = 512
+_SMEM_MAX = 232448           # dynamic shared memory a block
+_SM_SMEM = 233472            # shared memory of an H100 SM
+_SM_THREADS = 2048
+_FIRST_NTH = 256             # the first designs' block
+
+
+def rad_tile_layout(kind: str, nlev: int, ng: int, C: int) -> dict:
+    """The stage of kind's staged kernel at (nlev, ng) and C columns a
+    tile, as ``csrc/rad_tile.cuh::Geom`` lays it out, in floats: the
+    surface arrays [nsfc][C ng] first, then the layer arrays
+    [nlay][C][str_lay], then the half-level ones [nhalf][C][str_half]; a
+    column's stride is its length rounded up to the next count = ng
+    (mod 32), so item c ng + g reads level j in bank (c ng + g + j ng)
+    mod 32. Returns the strides, the offsets of the three groups and the
+    stage's size."""
+    nsfc, nlay, nhalf = _RAD_ARRAYS[kind]
+    pad = lambda n: n + (ng - n) % 32
+    str_lay, str_half = pad(nlev * ng), pad((nlev + 1) * ng)
+    lay0 = nsfc * C * ng
+    half0 = lay0 + nlay * C * str_lay
+    return dict(str_lay=str_lay, str_half=str_half, lay0=lay0, half0=half0,
+                stage=half0 + nhalf * C * str_half)
+
+
+def rad_tile_smem(kind: str, nlev: int, ng: int, C: int) -> int:
+    """The shared memory of a staged kernel's CTA (``Geom::smem``): 128
+    bytes for the mbarrier, the stage, and the replay of (nlev+1) float
+    pairs an item."""
+    stage = rad_tile_layout(kind, nlev, ng, C)["stage"]
+    return 128 + 4 * (stage + 2 * (nlev + 1) * C * ng)
+
+
+def rad_design(kind: str, B: int, nlev: int, ng: int, sms: int = 132,
+               aligned: bool = True) -> dict:
+    """The design of kernel ``kind`` ("b11" or "b14") at (B, nlev, ng),
+    from the shape alone (and whether the tensors are 16-byte aligned),
+    never from a failed attempt:
+      * "staged" (csrc/rad_tile.cuh's stage) where ng % 4 == 0, the
+        tensors are aligned and one column's stage and replay fit 232,448
+        bytes of shared memory: C columns a tile (``_RAD_C``, halved until
+        the tile fits), as many persistent CTAs a SM as the SM's shared
+        memory and threads hold (``sms`` SMs), at most one a tile;
+      * "first" otherwise.
+    Returns dict(design, C, threads, smem, blocks)."""
+    if kind not in _RAD_ARRAYS:
+        raise ValueError(f"unknown radiation kernel {kind!r}")
+    first = dict(design="first", C=None, threads=_FIRST_NTH, smem=0,
+                 blocks=-(-B * ng // _FIRST_NTH))
+    fits = lambda c: (rad_tile_smem(kind, nlev, ng, c) <= _SMEM_MAX
+                      and c * ng <= _RAD_MAX_THREADS)
+    if ng % 4 or not aligned:
+        return first
+    C = _RAD_C
+    while C > 1 and not fits(C):
+        C //= 2
+    if not fits(C):
+        return first
+    smem = rad_tile_smem(kind, nlev, ng, C)
+    threads = -(-C * ng // 32) * 32
+    per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads))
+    return dict(design="staged", C=C, threads=threads, smem=smem,
+                blocks=max(1, min(-(-B // C), sms * per_sm)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _rad_select(wrapper, kind, tensors, B, nlev, ng) -> dict:
+    """``rad_design`` for a launch of ``wrapper`` on ``tensors`` (made
+    contiguous), recorded as ``wrapper.design``."""
+    dev = tensors[0].device
+    d = rad_design(kind, B, nlev, ng, sms=_sms(dev.index or 0),
+                   aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+    wrapper.design = d["design"]
+    return d
+
+
+def _run_sw(args, d):
+    """B11 at design ``d`` (a ``rad_design`` dict) on contiguous CUDA
+    tensors; counts nothing."""
     B, nlev, ng = args[3].shape
     outs = _empty(args[0].device, *[(B, nlev + 1, ng)] * 3)
-    _launch("adding_sw", list(args) + outs, (B, nlev, ng))
-    adding_sw_fast.launches += 1
+    if d["design"] == "staged":
+        _launch("adding_sw", list(args) + outs,
+                (B, nlev, ng, d["C"], d["blocks"]), fn="adding_sw_staged")
+    else:
+        _launch("adding_sw", list(args) + outs, (B, nlev, ng))
     return tuple(outs)
+
+
+def _launch_sw(args):
+    args = [a.contiguous() for a in args]
+    d = _rad_select(adding_sw_fast, "b11", args, *args[3].shape)
+    outs = _run_sw(args, d)
+    adding_sw_fast.launches += 1
+    return outs
 
 
 def _launch_lw(args):
@@ -217,7 +328,6 @@ def lw_solver_noscat_bwd_reference(args, cts):
 # the B13 kernel's block: one warp of items, each parking 4 floats every
 # chunk of levels in shared memory (csrc/adding_sw_bwd.cu)
 _SW_BWD_ITEMS, _SW_BWD_CHUNK = 32, 4
-_SMEM_MAX = 232448
 
 
 def sw_bwd_geometry(B: int, nlev: int, ng: int) -> tuple[int, int, int]:
@@ -261,12 +371,45 @@ def scratch_adding_sw_bwd(args, cts):
     return _launch_sw_bwd(args, cts, scratch_design=True)
 
 
-def _launch_lw_bwd(args, cts):
+def _run_lw_bwd(args, cts, d):
+    """B14 at design ``d`` (a ``rad_design`` dict) on contiguous CUDA
+    tensors; counts nothing."""
     B, nlev, ng = args[0].shape
     grads = _empty(args[0].device, *[(B, nlev, ng)] * 3, *[(B, ng)] * 2)
-    _launch("lw_noscat_bwd", list(args) + list(cts) + grads, (B, nlev, ng))
-    lw_solver_noscat_bwd.launches += 1
+    ptrs = list(args) + list(cts) + grads
+    if d["design"] == "staged":
+        _launch("lw_noscat_bwd", ptrs,
+                (B, nlev, ng, d["C"], d["blocks"]), fn="lw_noscat_bwd_staged")
+    else:
+        _launch("lw_noscat_bwd", ptrs, (B, nlev, ng))
     return tuple(grads)
+
+
+def _launch_lw_bwd(args, cts):
+    args = [a.contiguous() for a in args]
+    cts = [c.contiguous() for c in cts]
+    d = _rad_select(lw_solver_noscat_bwd, "b14", args + cts,
+                    *args[0].shape)
+    grads = _run_lw_bwd(args, cts, d)
+    lw_solver_noscat_bwd.launches += 1
+    return grads
+
+
+def first_adding_sw(*args):
+    """B11's first design on the card, which the wrapper selects only
+    where the staged tile cannot take the shape: for timing the designs.
+    Counts no launch."""
+    _validate(_SW_ARGS, args, _SW_SFC)
+    return _run_sw([a.contiguous() for a in args], dict(design="first"))
+
+
+def first_lw_solver_noscat_bwd(args, cts):
+    """B14's first design on the card (four sweeps, the replay parked in
+    the outputs), which the wrapper selects only where the staged tile
+    cannot take the shape: for timing the designs. Counts no launch."""
+    _validate(_LW_ARGS, args, _LW_SFC, cts)
+    return _run_lw_bwd([a.contiguous() for a in args],
+                       [c.contiguous() for c in cts], dict(design="first"))
 
 
 def adding_sw_bwd(args, cts):
@@ -284,7 +427,8 @@ def lw_solver_noscat_bwd(args, cts):
     ``lw_solver_noscat_bwd_fused``): ``args`` = the forward's five
     arguments, ``cts`` = the cotangents of (flux_dn, flux_up)
     [B, nlev+1, ng] -> the five gradients. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel B14 or raises."""
+    version; a CUDA tensor launches kernel B14 (the design ``rad_design``
+    picks, recorded as ``lw_solver_noscat_bwd.design``) or raises."""
     _validate(_LW_ARGS, args, _LW_SFC, cts)
     return _dispatch(args, lw_solver_noscat_bwd_reference, _launch_lw_bwd,
                      cts)
@@ -328,7 +472,9 @@ def adding_sw_fast(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
     [B, ng], layer arguments [B, nlev, ng] -> (flux_up, flux_dn_diffuse,
     flux_dn_direct) [B, nlev+1, ng]. A CPU tensor runs
     ``physics.radiation.adding_sw`` (and ``adding_sw_bwd_reference`` for
-    gradients); a CUDA tensor launches kernel B11 (and B13) or raises."""
+    gradients); a CUDA tensor launches kernel B11 (the design
+    ``rad_design`` picks, recorded as ``adding_sw_fast.design``; and B13)
+    or raises."""
     return _AddingSW.apply(incoming_toa, albedo_surf_diffuse,
                            albedo_surf_direct, R, T, ref_dir, T_dir_diff,
                            T_dir_dir)
@@ -349,3 +495,5 @@ adding_sw_fast.launches = 0
 lw_solver_noscat_fast.launches = 0
 adding_sw_bwd.launches = 0
 lw_solver_noscat_bwd.launches = 0
+adding_sw_fast.design = None
+lw_solver_noscat_bwd.design = None

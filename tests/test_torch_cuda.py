@@ -1541,3 +1541,88 @@ def test_every_kind_at_the_width_phase_widths(cuda, kind, dtype, H):
     else:
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------------
+# B11 and B14: the staged tile ring, and the designs timed against it
+
+# a ragged batch, nlev 50, PhysRad's ng 16, nlev 128, and ng 6 (which the
+# ring does not take: the first design)
+RAD_SHAPES = [(150, 60, 8), (1003, 50, 8), (40, 60, 16), (20, 128, 8),
+              (30, 60, 6)]
+
+
+def _rad_case(kind, device, B, nlev, ng, seed):
+    """(wrapper call, plain call) of B11 (kind "b11") or B14 ("b14") on
+    _radiation_inputs and seeded cotangents."""
+    from climsim_tpu_torch.ops import (adding_sw_fast, lw_solver_noscat_bwd,
+                                       lw_solver_noscat_bwd_reference)
+    from climsim_tpu_torch.physics.radiation import adding_sw
+    sw, lw = _radiation_inputs(device, B=B, nlev=nlev, ng=ng, seed=seed)
+    if kind == "b11":
+        return (lambda: adding_sw_fast(*sw), lambda: adding_sw(*sw),
+                adding_sw_fast, sw, ())
+    g = torch.Generator(device=device).manual_seed(seed)
+    cts = [torch.randn((B, nlev + 1, ng), generator=g, device=device)
+           for _ in range(2)]
+    return (lambda: lw_solver_noscat_bwd(lw, cts),
+            lambda: lw_solver_noscat_bwd_reference(lw, cts),
+            lw_solver_noscat_bwd, lw, cts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b11", "b14"])
+@pytest.mark.parametrize("B,nlev,ng", RAD_SHAPES)
+def test_staged_radiation_kernels_match_plain(cuda, kind, B, nlev, ng):
+    """B11 and B14 through their wrappers launch the design rad_design
+    names (the staged ring, or at ng 6 the first design), record it as
+    ``.design``, count one launch, agree with their plain versions to 1e-5
+    of each output's scale (as chip_smoke.check_staged) and give the same
+    bits twice."""
+    from climsim_tpu_torch.ops import rad_design
+    call, plain, wrapper, _, _ = _rad_case(kind, cuda, B, nlev, ng, B + ng)
+    before = wrapper.launches
+    with torch.no_grad():
+        got, again, want = call(), call(), plain()
+    assert wrapper.launches == before + 2
+    assert wrapper.design == rad_design(kind, B, nlev, ng)["design"] \
+        == ("first" if ng % 4 else "staged")
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), i
+        assert torch.isfinite(a).all(), i
+        assert _rel_err(a, w) <= 1e-5, (i, _rel_err(a, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b11", "b14"])
+@pytest.mark.parametrize("B,nlev,ng", RAD_SHAPES[:4])
+def test_staged_and_first_radiation_designs_agree(cuda, kind, B, nlev, ng):
+    """At the same inputs, the staged design (through the wrapper) and the
+    first design (which chip_smoke.py times against it) agree to 1e-5 of
+    each output's scale, as each does with the plain version: B11's staged
+    down sweep multiplies by the up sweep's reciprocal where the first
+    design divides, so the two are not bit-identical. The first design
+    counts no launch; unaligned tensors run it through the wrapper."""
+    from climsim_tpu_torch.ops import pallas_radiation as prad
+    call, _, wrapper, args, cts = _rad_case(kind, cuda, B, nlev, ng, 5)
+    first = (lambda a: prad.first_adding_sw(*a)) if kind == "b11" else \
+        (lambda a: prad.first_lw_solver_noscat_bwd(a, cts))
+    with torch.no_grad():
+        staged = call()
+        assert wrapper.design == "staged"
+        before = wrapper.launches
+        old = first(args)
+        assert wrapper.launches == before
+        for i, (a, w) in enumerate(zip(staged, old)):
+            assert _rel_err(a, w) <= 1e-5, (i, _rel_err(a, w))
+        # a view 4 bytes past a 16-byte boundary: contiguous, not aligned
+        shifted = []
+        for a in args:
+            buf = torch.empty(a.numel() + 1, device=cuda)
+            shifted.append(buf[1:].view(a.shape).copy_(a))
+        got = (prad.adding_sw_fast(*shifted) if kind == "b11"
+               else prad.lw_solver_noscat_bwd(shifted, cts))
+    assert wrapper.design == "first"
+    assert wrapper.launches == before + 1
+    for i, (a, w) in enumerate(zip(got, old)):
+        assert torch.equal(a, w), i

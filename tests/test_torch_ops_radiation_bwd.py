@@ -14,7 +14,8 @@ from climsim_tpu.physics import radiation as JR
 from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
                                    adding_sw_fast, lw_solver_noscat_bwd,
                                    lw_solver_noscat_bwd_reference,
-                                   lw_solver_noscat_fast)
+                                   lw_solver_noscat_fast, rad_design)
+from test_torch_ops_radiation import _stage
 
 NLEV = 60
 
@@ -37,11 +38,11 @@ def _sw_inputs(B, ng, seed=0, nlev=NLEV):
     return sfc + [f(a) for a in layers]
 
 
-def _lw_inputs(B, ng, seed=1):
+def _lw_inputs(B, ng, seed=1, nlev=NLEV):
     rng = np.random.default_rng(seed)
     f = lambda a: np.array(a, np.float32)
-    pt, pb = (f(np.abs(rng.normal(50, 10, (B, NLEV, ng)))) for _ in "tb")
-    od = f(np.abs(rng.normal(0.3, 0.1, (B, NLEV, ng))))
+    pt, pb = (f(np.abs(rng.normal(50, 10, (B, nlev, ng)))) for _ in "tb")
+    od = f(np.abs(rng.normal(0.3, 0.1, (B, nlev, ng))))
     sup, sdn, trans = JR.reftrans_lw(*(jnp.asarray(a) for a in (pt, pb, od)))
     return [f(trans), f(sdn), f(sup),
             f(np.abs(rng.normal(400, 20, (B, ng)))),
@@ -257,3 +258,119 @@ def test_sw_bwd_refuses_what_its_shared_memory_cannot_park():
     from climsim_tpu_torch.ops import sw_bwd_geometry
     with pytest.raises(ValueError, match="shared memory"):
         sw_bwd_geometry(1, 1817, 8)
+
+
+# ------------------------------------------------ B14's staged design
+
+
+# (B, nlev, ng) -> rad_design("b14", ...) on 132 SMs, the shapes of
+# test_rad_design_b11: the staged ring where ng % 4 == 0 and one column
+# fits, else the first design
+@pytest.mark.parametrize("shape,want", [
+    ((21600, 60, 8), dict(design="staged", C=4, threads=32, smem=55040,
+                          blocks=528)),
+    ((1003, 50, 8), dict(design="staged", C=4, threads=32, smem=47360,
+                         blocks=251)),
+    ((21600, 60, 16), dict(design="staged", C=4, threads=64, smem=109952,
+                           blocks=264)),
+    ((1000, 128, 8), dict(design="staged", C=4, threads=32, smem=115968,
+                          blocks=132)),
+    ((1000, 500, 8), dict(design="staged", C=2, threads=32, smem=224704,
+                          blocks=132)),
+    ((1000, 1000, 8), dict(design="staged", C=1, threads=32, smem=224416,
+                           blocks=132)),
+    ((1000, 60, 6), dict(design="first", C=None, threads=256, smem=0,
+                         blocks=24)),
+    ((10, 4000, 8), dict(design="first", C=None, threads=256, smem=0,
+                         blocks=1))])
+def test_rad_design_b14(shape, want):
+    """B14's design from the shape alone: the staged ring (3 layer, 2
+    half-level and 2 surface arrays a column; C 4, halved until the tile
+    fits) or the first design."""
+    assert rad_design("b14", *shape) == want
+
+
+def _folded_lw_bwd(args, cts, C, K):
+    """B14's two passes, tile by tile in torch on the ring's stage layout
+    (csrc/lw_noscat_bwd.cu): pass 1 ascending carries (fdn, g), g the up
+    backward's carry, which needs dfup and trans only, and writes dsup_j =
+    g_j; it parks (fdn[j], g_j) at the top of every chunk of K levels (K 1:
+    the staged design's replay of every level; K 4: B13's chunked schedule,
+    measured slower on the card). Pass 2 descending, chunk by chunk, re-runs pass 1 over the
+    chunk from its park, then walks (fup, h) down, writing dsdn_j = h_j
+    and dtrans_j = g_j fup[j+1] + h_j fdn[j] once each."""
+    trans, sdn, sup, ssfc, emis = args
+    dfdn, dfup = cts
+    B, nlev, ng = trans.shape
+    grads = ([torch.empty((B, nlev, ng)) for _ in range(3)]
+             + [torch.empty((B, ng)) for _ in range(2)])
+    staged = [ssfc, emis, trans, sdn, sup, dfdn, dfup]
+    kinds = ["sfc"] * 2 + ["lay"] * 3 + ["half"] * 2
+    for tile in range(-(-B // C)):
+        st, lay, cols = _stage("b14", staged, tile, C, nlev, ng, kinds)
+        t = torch.arange(cols * ng)
+        c, g = t // ng, t % ng
+        at = lambda a, j: lay["lay0"] + (a * C + c) * lay["str_lay"] + g \
+            + j * ng
+        ath = lambda a, j: lay["half0"] + (a * C + c) * lay["str_half"] \
+            + g + j * ng
+        b = tile * C + c
+        f, gu = torch.zeros(cols * ng), st[ath(1, 0)]
+        park = {}
+        for j in range(nlev):
+            if j % K == 0:
+                park[j // K] = (f, gu)
+            grads[2][b, j, g] = gu
+            tj = st[at(0, j)]
+            gu = st[ath(1, j + 1)] + gu * tj
+            f = tj * f + st[at(1, j)]
+        e, s = st[C * ng + t], st[t]
+        grads[4][b, g] = gu * (s - f)
+        grads[3][b, g] = gu * e
+        u = e * s + (1.0 - e) * f
+        h = st[ath(0, nlev)] + gu * (1.0 - e)
+        for ch in range(-(-nlev // K) - 1, -1, -1):
+            f, gu = park[ch]
+            F, G = {}, {}
+            for j in range(ch * K, min(nlev, ch * K + K)):
+                F[j], G[j] = f, gu
+                tj = st[at(0, j)]
+                gu = st[ath(1, j + 1)] + gu * tj
+                f = tj * f + st[at(1, j)]
+            for j in range(min(nlev, ch * K + K) - 1, ch * K - 1, -1):
+                grads[0][b, j, g] = G[j] * u + h * F[j]
+                grads[1][b, j, g] = h
+                tj = st[at(0, j)]
+                u = tj * u + st[at(2, j)]
+                h = st[ath(0, j)] + h * tj
+    for x in grads:
+        assert not torch.isnan(x).any()
+    return tuple(grads)
+
+
+def _lw_case(B, nlev, ng, seed):
+    args = _lw_inputs(B, ng, seed=seed, nlev=nlev)
+    rng = np.random.default_rng(seed + 10)
+    cts = [rng.standard_normal((B, nlev + 1, ng)).astype(np.float32)
+           for _ in range(2)]
+    return args, cts
+
+
+# B 13 with C 4: a ragged last tile of one column; nlev 13 and 50 (ragged
+# last chunk of 4 levels); ng 4 (the fewest g-points the ring takes) and 16
+@pytest.mark.parametrize("B,nlev,ng,C", [(13, 13, 8, 4), (6, 50, 4, 4),
+                                         (5, 60, 16, 2), (9, 60, 8, 8)])
+@pytest.mark.parametrize("K", [1, 4])
+def test_folded_lw_bwd_is_the_plain_backward(B, nlev, ng, C, K):
+    """The folding of B14's four sweeps into two passes (the up backward's
+    carry beside the replay of fdn, the replay of fup beside the down
+    backward), on the ring's stage layout, with pass 1 parked at every
+    level (the staged design) or every 4 levels and re-run (B13's chunked
+    schedule), computes the plain backward and the JAX package's backward
+    kernel in interpret mode: every gradient to 2e-6 of its scale."""
+    args, cts = _lw_case(B, nlev, ng, seed=12)
+    got = _folded_lw_bwd(_t(args), _t(cts), C, K)
+    _close(got, [w.numpy() for w in
+                 lw_solver_noscat_bwd_reference(_t(args), _t(cts))], 2e-6)
+    _close(got, JPR.lw_solver_noscat_bwd_fused(_j(args), _j(cts), block_b=8,
+                                               interpret=True), 2e-6)
