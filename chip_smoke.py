@@ -51,7 +51,11 @@ Phases (any failure exits non-zero):
      each must have some; and the f32 cluster design of B7 and B8 must
      have FFMA and no tensor-core (so no TF32) instruction;
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes (and a ragged batch): B1, B2, B3, then B7 at the
+     main paths' shapes (and a ragged batch): B1, B2 (also at 384
+     columns; check_fv_design: the band tile that fv_design names,
+     recorded on the wrapper, a second call bit-identical, the kernel's
+     shared memory fv_design's, the first design within the gate of the
+     tile), B3, then B7 at the
      physics trunk's L 50, H 128 (f32 and, as an extra tiling of the
      tensor-core design, bf16, at 21,600 and 1,000 columns), B11 and B12
      (21,600 x 60 x 8), B11 through its wrapper also at RAD_SHAPES (the
@@ -61,7 +65,8 @@ Phases (any failure exits non-zero):
      tolerance against the staged one; the kernel's shared memory equal
      to rad_tile_smem's); then B4 (f32
      and bf16, projections hoisted and not, at 21,600 and 1,000 columns),
-     B5 (6, 60, 120, 180), B6 (60, 120, 180), B7 at the v2 arm's L 60,
+     B5 (6, 60, 120, 180), B6 (60, 120, 180; check_fv_design as B2),
+     B7 at the v2 arm's L 60,
      H 192 (f32 and bf16), B8 at the v4 arm's L 60, H 192 (f32 and
      bf16), B9 and B10 (f32 and bf16 at 21,600 and 1,000 columns);
      bf16 B1, B3, B4 and B7-B10 run the tensor-core designs, f32 B7 and
@@ -69,8 +74,9 @@ Phases (any failure exits non-zero):
      kinds the CUDA-core ones;
   3. 20 coupled steps at 21,600 columns, with every launch counter set to
      0 just before and read just after: B1 and B2 must launch 20 times and
-     no other kernel; then the same for each other serving arm, whose
-     kernels must each launch their count per step and no other kernel;
+     no other kernel, B2 in the band-tile design; then the same for each
+     other serving arm, whose kernels must each launch their count per
+     step and no other kernel (B6 in the band-tile design);
   4. 3 coupled steps at 384 columns on the card and on the CPU (plain
      versions), compared, for every serving arm;
   5. gradients through the differentiable fused layers (v6: B1 + B3; v5:
@@ -117,7 +123,9 @@ Phases (any failure exits non-zero):
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share (v6 and v5 also at 384
-     columns), the three training arms, both physics trunks, B5, B6; B13
+     columns), the three training arms, both physics trunks, B5; B2 (also
+     at 384 columns) and B6 (the band tile) in turns with their first
+     designs; B13
      against its first design (device scratch, four sweeps) in turns; B11
      and B14 (the staged design) in turns with their first designs; B1,
      B3, B4, B7 and B8 (at the v2 and v4 arms' shapes), B9 and B10 in
@@ -576,29 +584,90 @@ def check_b1(model, card):
     return max(errs)
 
 
+def check_fv_design(card, kind, wrapper, call, first, got, shape):
+    """B2 (kind "b2") or B6 ("b6") at shape (ntrac, L, nlat, nlon) after
+    a wrapper call that gave ``got``: the design it launched is the one
+    fv_design names, the band tile at every shape this script runs; a
+    second call is bit-identical; the kernel's own shared-memory size
+    (csrc's Geom::smem, <entry>_smem) is fv_design's; and the first
+    design, which the timings use, is within the gate 1e-5 + 1e-5*|x| of
+    the tile (both contract a*b+c into FMAs as nvcc chooses, so they need
+    not agree bit for bit). Returns the tile's max_abs_err against the
+    first design."""
+    import ctypes
+    from climsim_tpu_torch.ops import _build, pallas_stencil as pst
+    d = pst.fv_design(kind, *shape, sms=torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    check(wrapper.design == d["design"] == "tile",
+          f"{kind} {shape}: launched the {wrapper.design} design, "
+          f"fv_design names {d['design']}")
+    same = torch.equal(got, call())
+    src, entry = (("fv_tracers_sphere", "fv_tracers_sphere_tile")
+                  if kind == "b2" else ("fv_tracers_flat",
+                                        "fv_levels_flat_tile"))
+    smem_of = getattr(_build.load(src), entry + "_smem")
+    smem_of.restype = ctypes.c_longlong
+    kernel_smem = smem_of(*(shape[:1] if kind == "b2" else ()), shape[3],
+                          d["R"])
+    old = first()
+    e = (got - old).abs().max().item()
+    print(f"{kind.upper()} {shape}: tile design (R {d['R']}, {d['groups']} "
+          f"groups of {d['threads'] // d['groups']} threads, {d['blocks']} "
+          f"CTAs, {d['smem']} bytes of shared memory; the kernel's own "
+          f"{kernel_smem}), a second call "
+          f"bit-identical {same}; against the first design max_abs_err "
+          f"{e:.3e} [{card}]")
+    check(same, f"{kind} {shape}: two calls differ")
+    check(kernel_smem == d["smem"], f"{kind} {shape}: the kernel's shared "
+          f"memory {kernel_smem} is not fv_design's {d['smem']}")
+    torch.testing.assert_close(got, old, rtol=1e-5, atol=1e-5)
+    return e
+
+
 def check_b2(loop, card):
-    """B2 against its plain version on the card at (6, 60, 120, 180), with
-    winds strong enough to hit the Courant clip in both sweeps. nvcc
-    contracts a*b+c into FMAs, so the two differ by a few ulps: tolerance
-    1e-5 + 1e-5*|x| on fields of order 1."""
-    from climsim_tpu_torch.ops import (fv_advect_tracers_sphere as kern,
+    """B2 against its plain version on the card at (6, 60, 120, 180) and on
+    the 384-column grid's (6, 60, 16, 24), with winds strong enough to hit
+    the Courant clip in both sweeps. nvcc contracts a*b+c into FMAs, so the
+    two differ by a few ulps: tolerance 1e-5 + 1e-5*|x| on fields of order
+    1. Each shape also goes through check_fv_design. Returns the worst
+    max_abs_err against the plain version and the inputs of both shapes."""
+    from climsim_tpu_torch.constants import DT_STEP
+    from climsim_tpu_torch.online.advection import (metric_rows,
+                                                    spherical_metric)
+    from climsim_tpu_torch.ops import (first_fv_tracers_sphere,
+                                       fv_advect_tracers_sphere as kern,
                                        fv_tracers_sphere_reference as ref)
-    rows = loop.metric_rows
-    g = torch.Generator().manual_seed(2)
     dev = loop.device
-    qs = (1 + 0.3 * torch.randn((6, NLEV, NLAT, NLON), generator=g)).to(dev)
-    u = (60 * torch.randn((NLEV, NLAT, NLON), generator=g)).to(dev)
-    v = (100 * torch.randn((NLEV, NLAT, NLON), generator=g)).to(dev)
-    cz = (u * rows.dtdx[:, None]).abs() > rows.cfl_max
-    cm = (v * rows.cf_fac[:NLAT, None]).abs() > rows.cfl_max
-    check(bool(cz.any()) and bool(cm.any()), "the Courant clip never binds")
-    got, want = kern(qs, u, v, rows), ref(qs, u, v, rows)
-    e = (got - want).abs().max().item()
-    print(f"B2 {tuple(qs.shape)}: max_abs_err {e:.3e}; clipped zonal "
-          f"{cz.float().mean().item():.3f}, meridional "
-          f"{cm.float().mean().item():.3f} of faces [{card}]")
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    return e, (qs, u, v, rows)
+    lo_rows = metric_rows(spherical_metric(np.linspace(-88, 88, LO_NLAT),
+                                           LO_NLON, DT_STEP), dev)
+    worst, inputs = 0.0, []
+    for (nlat, nlon), rows in (((NLAT, NLON), loop.metric_rows),
+                               ((LO_NLAT, LO_NLON), lo_rows)):
+        g = torch.Generator().manual_seed(2)
+        qs = (1 + 0.3 * torch.randn((6, NLEV, nlat, nlon),
+                                    generator=g)).to(dev)
+        scale = NLAT / nlat
+        u = (60 * scale * torch.randn((NLEV, nlat, nlon),
+                                      generator=g)).to(dev)
+        v = (100 * scale * torch.randn((NLEV, nlat, nlon),
+                                       generator=g)).to(dev)
+        cz = (u * rows.dtdx[:, None]).abs() > rows.cfl_max
+        cm = (v * rows.cf_fac[:nlat, None]).abs() > rows.cfl_max
+        check(bool(cz.any()) and bool(cm.any()),
+              "the Courant clip never binds")
+        call = lambda: kern(qs, u, v, rows)
+        got, want = call(), ref(qs, u, v, rows)
+        e = (got - want).abs().max().item()
+        print(f"B2 {tuple(qs.shape)}: max_abs_err {e:.3e}; clipped zonal "
+              f"{cz.float().mean().item():.3f}, meridional "
+              f"{cm.float().mean().item():.3f} of faces [{card}]")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        check_fv_design(card, "b2", kern, call,
+                        lambda: first_fv_tracers_sphere(qs, u, v, rows),
+                        got, tuple(qs.shape))
+        worst = max(worst, e)
+        inputs.append((qs, u, v, rows))
+    return worst, inputs
 
 
 def b3_args(model, B, dtype, seed):
@@ -917,9 +986,11 @@ def check_flat(card):
     plain version on the card, on the flat arm's raster (flat_spacing,
     dt 1200 s) with winds of 60 and 40 m/s rms, whose Courant numbers
     reach past 1 (the flat stencil has no clip). nvcc contracts a*b+c into
-    FMAs: tolerance 1e-5 + 1e-5*|x|, as B2. Returns (errors, inputs)."""
+    FMAs: tolerance 1e-5 + 1e-5*|x|, as B2. B6 also goes through
+    check_fv_design. Returns (errors, inputs)."""
     from climsim_tpu_torch.constants import DT_STEP
-    from climsim_tpu_torch.ops import (fv_advect_levels, fv_advect_tracers,
+    from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       fv_advect_levels, fv_advect_tracers,
                                        fv_tracers_reference as ref)
     dx, dy = flat_spacing(NLAT, NLON)
     dt_dx, dt_dy = DT_STEP / dx, DT_STEP / dy
@@ -937,7 +1008,32 @@ def check_flat(card):
         print(f"{name} {tuple(q.shape)}: max_abs_err {errs[name]:.3e}; "
               f"Courant numbers up to {courant:.2f} [{card}]")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if name == "B6":
+            check_fv_design(card, "b6", kern,
+                            lambda: kern(q, u, v, dt_dx, dt_dy),
+                            lambda: first_fv_levels_flat(q, u, v, dt_dx,
+                                                         dt_dy),
+                            got, (1, *q.shape))
     return errs, (qs, u, v, dt_dx, dt_dy)
+
+
+def time_fv_designs(card, name, args):
+    """B2 (``args`` = (qs, u, v, rows)) or B6 ((q, u, v, dt_dx, dt_dy))
+    through its wrapper, the band tile at this script's shapes, in turns
+    with its first design (first, tile, tile, first; 50 launches each),
+    printed. Returns (the tile's mean ms, the first design's mean ms)."""
+    from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       first_fv_tracers_sphere,
+                                       fv_advect_levels,
+                                       fv_advect_tracers_sphere)
+    new, first = ((fv_advect_tracers_sphere, first_fv_tracers_sphere)
+                  if name == "B2" else (fv_advect_levels,
+                                        first_fv_levels_flat))
+    old, nw = in_turns(lambda: first(*args), lambda: new(*args), 50)
+    print(f"{name} f32 at {tuple(args[0].shape)} in turns (first, tile, "
+          f"tile, first): first design {old[0]:.4f} / {old[1]:.4f} ms, "
+          f"tile design {nw[0]:.4f} / {nw[1]:.4f} ms [{card}]")
+    return statistics.mean(nw), statistics.mean(old)
 
 
 def check_vjp_384(card, arm="v6"):
@@ -2756,11 +2852,15 @@ def main() -> int:
     wrappers = all_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    fv_advect_tracers_sphere.design = None
     t0 = time.perf_counter()
     st, mem1, diags = loop.rollout(state, mem, x_sfc, N_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    b2_design = fv_advect_tracers_sphere.design
+    check(b2_design == "tile", f"the main path's B2 ran the {b2_design} "
+          "design")
     print(f"main path: {N_STEPS} coupled steps at {ncol} columns in "
           f"{wall:.3f} s (first run); launches {launches} [{card}]")
     check(launches == {"b1": N_STEPS, "b2": N_STEPS},
@@ -2778,8 +2878,12 @@ def main() -> int:
           f"{mean_t[-1].item():.4f} K, energy_int "
           f"{diags['energy_int'][-1].item():.6e}")
     # the other serving arms, each with every counter set to 0 just before
+    wrappers["b6"].design = None
     arm_runs = {arm: run_arm(arm, card) for arm in ARMS if arm != "v6"}
     arm_launches = {arm: run[2] for arm, run in arm_runs.items()}
+    b6_design = wrappers["b6"].design
+    check(b6_design == "tile", f"the v6_flat_per_field arm's B6 ran the "
+          f"{b6_design} design")
     phase_done(3)
 
     # ---- 4. every serving arm at 384 columns, card against CPU
@@ -2882,8 +2986,9 @@ def main() -> int:
     b1_lo_ms = median_ms(lambda: fused_bigru_heads_init_cm(*a1_lo), 3)
     print(f"B1 bf16 at {lo_ncol} columns: kernel {b1_lo_ms:.4f} ms "
           f"[{card}]")
-    qs, u, v, rows = b2_inputs
-    b2_ms = median_ms(lambda: fv_advect_tracers_sphere(qs, u, v, rows), 50)
+    b2_ms, b2_first = time_fv_designs(card, "B2", b2_inputs[0])
+    time_fv_designs(card, "B2", b2_inputs[1])
+    qs, u, v, rows = b2_inputs[0]
     b2_plain = median_ms(lambda: fv_tracers_sphere_reference(qs, u, v, rows),
                          5)
 
@@ -2939,7 +3044,7 @@ def main() -> int:
     # counts what it counted before these inputs existed)
     from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
                                        fused_bigru_heads_cm,
-                                       fv_advect_levels, fv_advect_tracers,
+                                       fv_advect_tracers,
                                        fv_tracers_reference)
     from climsim_tpu_torch.ops.pallas_rnn import cudacore_fused_bigru_heads_cm
     a4 = b4_args(v5model, ncol, torch.bfloat16, seed=23)
@@ -2961,7 +3066,7 @@ def main() -> int:
     b5_ms = median_ms(lambda: fv_advect_tracers(q5, u5, v5, dtx, dty), 50)
     b5_plain = median_ms(lambda: fv_tracers_reference(q5, u5, v5, dtx, dty),
                          5)
-    b6_ms = median_ms(lambda: fv_advect_levels(q6, u5, v5, dtx, dty), 50)
+    b6_ms, b6_first = time_fv_designs(card, "B6", (q6, u5, v5, dtx, dty))
     b6_plain = median_ms(lambda: fv_tracers_reference(q6, u5, v5, dtx, dty),
                          5)
     # B7 at the v2 arm's shapes (L 60, H 192, bf16): the tensor-core
@@ -3222,7 +3327,8 @@ def main() -> int:
          "replaces": "climsim_tpu/ops/pallas_stencil.py:226",
          "launches": launches["b2"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "bound_by": b2_by, "library_ms": None, "design": b2_design,
+         "first_design_ms": b2_first},
         {"name": "bigru_heads_cm_bwd", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_cm_bwd.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:1281",
@@ -3293,7 +3399,8 @@ def main() -> int:
          "launches": arm_launches["v6_flat_per_field"]["b6"],
          "max_abs_err": flat_errs["B6"], "ms": b6_ms, "plain_ms": b6_plain,
          "bound_ms": sb["b6"][0], "bound_by": sb["b6"][1],
-         "library_ms": None},
+         "library_ms": None, "design": b6_design,
+         "first_design_ms": b6_first},
         {"name": "bigru_heads_lbh", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_lbh.cu",
          "replaces": "climsim_tpu/ops/pallas_rnn.py:635",

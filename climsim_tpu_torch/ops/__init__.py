@@ -25,7 +25,9 @@ from .pallas_radiation import (adding_sw_fast, lw_solver_noscat_fast,
                                sw_bwd_geometry, rad_design)
 from .pallas_stencil import (fv_advect_tracers_sphere,
                              fv_tracers_sphere_reference, fv_advect_tracers,
-                             fv_tracers_reference, fv_advect_levels)
+                             fv_tracers_reference, fv_advect_levels,
+                             fv_design, first_fv_tracers_sphere,
+                             first_fv_levels_flat)
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fused_bigru_heads_cm", "bigru_heads_cm_reference",
@@ -40,7 +42,9 @@ __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "sw_bwd_geometry", "rad_design",
            "fv_advect_tracers_sphere",
            "fv_tracers_sphere_reference", "fv_advect_tracers",
-           "fv_tracers_reference", "fv_advect_levels", "resolve_device"]
+           "fv_tracers_reference", "fv_advect_levels", "fv_design",
+           "first_fv_tracers_sphere", "first_fv_levels_flat",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:

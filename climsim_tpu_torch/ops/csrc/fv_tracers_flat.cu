@@ -21,15 +21,22 @@
 // (fv_levels_flat) reads u and v once per field, 20.7 MB for a
 // [60, 120, 180] field.
 //
-// What this design does about it: as the spherical kernel
-// (fv_tracers_sphere.cu), a block owns one (band of R rows, level) and all
-// tracers, stages the band plus a 2-row clamped halo on each side in
-// shared memory (the zonal winds once, then one tracer at a time), so the
-// post-zonal field never goes to device memory and q is read about
-// (R + 4) / R times from L2, once from DRAM. 15 bands x 60 levels = 900
-// blocks fill the 132 SMs. nvcc contracts a*b+c into FMAs, so results
-// differ from the plain PyTorch version by a few ulps.
+// B6's second design (fv_levels_flat_tile, chosen by pallas_stencil.py::
+// fv_design): the band tile of fv_tile.cuh in velocity units with
+// one field, its u, v and q spans copied at once so a tile waits one
+// latency, not three. B5 still launches the first design.
+//
+// The first design (fv_tracers_flat and fv_levels_flat): as the spherical
+// kernel's first design (fv_tracers_sphere.cu), a block owns one (band of
+// R rows, level) and all tracers, stages the band plus a 2-row clamped
+// halo on each side in shared memory (the zonal winds once, then one
+// tracer at a time), so the post-zonal field never goes to device memory
+// and q is read about (R + 4) / R times from L2, once from DRAM. 15 bands
+// x 60 levels = 900 blocks fill the 132 SMs. nvcc contracts a*b+c into
+// FMAs, so results differ from the plain PyTorch version by a few ulps.
 #include <cuda_runtime.h>
+
+#include "fv_tile.cuh"
 
 namespace {
 
@@ -171,4 +178,24 @@ extern "C" int fv_levels_flat(const void* q, const void* u, const void* v,
                               void* out, int L, int nlat, int nlon,
                               float dt_dx, float dt_dy, void* stream) {
   return launch(q, u, v, out, 1, L, nlat, nlon, dt_dx, dt_dy, stream);
+}
+
+// The second design of B6 (fv_levels_flat_tile): the band tile of
+// fv_tile.cuh in velocity units, one field. The arguments as
+// fv_levels_flat's, then the band's rows R and the CTAs, as
+// pallas_stencil.py::fv_design gives them.
+extern "C" int fv_levels_flat_tile(const void* q, const void* u,
+                                   const void* v, void* out, int L, int nlat,
+                                   int nlon, float dt_dx, float dt_dy, int R,
+                                   int blocks, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const fv::Geom G{1, L, nlat, nlon, R, 1};
+  const fv::Flat F{dt_dx, dt_dy, nlat};
+  return fv::launch_tile(f(q), f(u), f(v), static_cast<float*>(out), G,
+                         blocks, static_cast<cudaStream_t>(stream), F);
+}
+
+// The shared memory fv_levels_flat_tile asks for at this geometry.
+extern "C" long long fv_levels_flat_tile_smem(int nlon, int R) {
+  return static_cast<long long>(fv::Geom{1, 1, 1, nlon, R, 1}.smem());
 }

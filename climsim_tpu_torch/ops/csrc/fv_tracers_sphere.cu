@@ -13,16 +13,27 @@
 // write the result once (31.1 MB): 72.6 MB, 21.7 us at 3.35 TB/s, against
 // ~70 flops per element. So it is bound by bytes.
 //
-// What this design does about it: one TPU program held a whole level
-// (6 tracers + u + v = 691 KB) in VMEM, which does not fit one SM. Here a
-// block owns one (band of R rows, level) and all tracers: it stages the
-// band plus a 2-row halo on each side in shared memory (zonal Courant
-// numbers once, then one tracer at a time), so the post-zonal field never
-// goes to device memory and q is read about (R + 4) / R times from L2,
-// once from DRAM. 15 bands x 60 levels = 900 blocks fill the 132 SMs.
-// nvcc contracts a*b+c into FMAs, so results differ from the plain
-// PyTorch version by a few ulps.
+// The second design (fv_tracers_sphere_tile, chosen by pallas_stencil.py::
+// fv_design): the band tile of fv_tile.cuh in Courant units. A
+// persistent CTA copies a band's spans of u, v and every tracer into
+// shared memory with bulk copies on one mbarrier, forms the clipped
+// Courant numbers once a tile, and its threads, a pair of columns each
+// and in groups that share the tracers, stream down the band with both
+// sweeps in registers.
+//
+// The first design (fv_tracers_sphere, kept to time the second against it
+// and for the shapes the tile does not take: nlon % 4 != 0 or unaligned
+// tensors): one TPU program held a whole level (6 tracers + u + v = 691
+// KB) in VMEM, which does not fit one SM. Here a block owns one (band of
+// R rows, level) and all tracers: it stages the band plus a 2-row halo on
+// each side in shared memory (zonal Courant numbers once, then one tracer
+// at a time), so the post-zonal field never goes to device memory and q
+// is read about (R + 4) / R times from L2, once from DRAM. 15 bands x 60
+// levels = 900 blocks fill the 132 SMs. nvcc contracts a*b+c into FMAs,
+// so results differ from the plain PyTorch version by a few ulps.
 #include <cuda_runtime.h>
+
+#include "fv_tile.cuh"
 
 namespace {
 
@@ -161,4 +172,28 @@ extern "C" int fv_tracers_sphere(const void* qs, const void* u,
       static_cast<const float*>(wc), static_cast<float*>(out), ntrac, L,
       nlat, nlon, cfl);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The second design (fv_tracers_sphere_tile): the band tile of
+// fv_tile.cuh in Courant units. The arguments as fv_tracers_sphere's, then
+// the band's rows R, the CTAs and the thread groups (each taking every
+// groups-th tracer), as pallas_stencil.py::fv_design gives them.
+extern "C" int fv_tracers_sphere_tile(const void* qs, const void* u,
+                                      const void* v, const void* dtdx,
+                                      const void* cf_fac, const void* wf,
+                                      const void* wc, void* out, int ntrac,
+                                      int L, int nlat, int nlon, float cfl,
+                                      int R, int blocks, int groups,
+                                      void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const fv::Geom G{ntrac, L, nlat, nlon, R, groups};
+  const fv::Sphere F{f(dtdx), f(cf_fac), f(wf), f(wc), cfl};
+  return fv::launch_tile(f(qs), f(u), f(v), static_cast<float*>(out), G,
+                         blocks, static_cast<cudaStream_t>(stream), F);
+}
+
+// The shared memory fv_tracers_sphere_tile asks for at this geometry.
+extern "C" long long fv_tracers_sphere_tile_smem(int ntrac, int nlon,
+                                                 int R) {
+  return static_cast<long long>(fv::Geom{ntrac, 1, 1, nlon, R, 1}.smem());
 }

@@ -40,6 +40,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "bulk_copy.cuh"
+
 namespace rad {
 
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block
@@ -94,42 +96,10 @@ struct Srcs {
   const float* p[MAX_ARRAYS];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into this CTA's shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+using bulk::bulk_g2s;
+using bulk::mbar_expect_tx;
+using bulk::mbar_init;
+using bulk::mbar_wait;
 
 // The CTA's stage and replay over the dynamic shared memory `smem`.
 struct Tile {

@@ -1626,3 +1626,122 @@ def test_staged_and_first_radiation_designs_agree(cuda, kind, B, nlev, ng):
     assert wrapper.launches == before + 1
     for i, (a, w) in enumerate(zip(got, old)):
         assert torch.equal(a, w), i
+
+
+# ------------------------------------------------------------------------
+# B2 and B6: the band tile, and the first designs timed against it
+
+# (ntrac, L, nlat, nlon): a ragged last band (nlat 23: bands of 12 and
+# 11), both pole clamps in one band (nlat 5), the 384-column grid, the
+# main path's shape
+FV_SHAPES = [(3, 4, 23, 24), (2, 3, 5, 16), (6, 4, 16, 24),
+             (6, 60, 120, 180)]
+
+
+def _fv_case(kind, device, ntrac, L, nlat, nlon, seed):
+    """(wrapper, tile call, first-design call, plain call, tensors) of B2
+    (kind "b2", ``ntrac`` tracers, winds that clip the Courant numbers in
+    both sweeps) or B6 ("b6", one field, Courant numbers past 1) on
+    seeded inputs."""
+    from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       first_fv_tracers_sphere,
+                                       fv_advect_levels, fv_tracers_reference)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    if kind == "b2":
+        m = spherical_metric(np.linspace(-85.0, 85.0, nlat), nlon, 1200.0)
+        args = (t(rng.normal(1, 0.3, (ntrac, L, nlat, nlon))),
+                t(rng.normal(0, 150 * 24 / nlon, (L, nlat, nlon))),
+                t(rng.normal(0, 700 * 16 / nlat, (L, nlat, nlon))))
+        return (fv_advect_tracers_sphere,
+                lambda a: fv_advect_tracers_sphere(*a, m),
+                lambda a: first_fv_tracers_sphere(*a, m),
+                lambda a: fv_tracers_sphere_reference(*a, m), args)
+    args = (t(rng.normal(1, 0.3, (L, nlat, nlon))),
+            t(rng.normal(0, 1.5, (L, nlat, nlon))),
+            t(rng.normal(0, 1.5, (L, nlat, nlon))))
+    return (fv_advect_levels, lambda a: fv_advect_levels(*a, 0.4, 0.3),
+            lambda a: first_fv_levels_flat(*a, 0.4, 0.3),
+            lambda a: fv_tracers_reference(*a, 0.4, 0.3), args)
+
+
+def _fv_kernel_smem(kind, ntrac, nlon, R):
+    """The tile kernel's own shared memory (csrc's Geom::smem)."""
+    import ctypes
+    from climsim_tpu_torch.ops import _build
+    src, entry = (("fv_tracers_sphere", "fv_tracers_sphere_tile")
+                  if kind == "b2" else ("fv_tracers_flat",
+                                        "fv_levels_flat_tile"))
+    fn = getattr(_build.load(src), entry + "_smem")
+    fn.restype = ctypes.c_longlong
+    return fn(*((ntrac,) if kind == "b2" else ()), nlon, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b2", "b6"])
+@pytest.mark.parametrize("shape", FV_SHAPES)
+def test_fv_tile_kernels_match_plain(cuda, kind, shape):
+    """B2 and B6 through their wrappers launch the design fv_design names
+    (the band tile at these shapes), record it as ``.design``, count one
+    launch a call, agree with their plain versions to 1e-5 + 1e-5*|x|
+    (FMA contraction only, on fields of order 1), give the same bits
+    twice, and ask for the shared memory fv_design computes."""
+    from climsim_tpu_torch.ops import fv_design
+    ntrac = shape[0] if kind == "b2" else 1
+    wrapper, call, _, plain, args = _fv_case(kind, cuda, ntrac, *shape[1:],
+                                             seed=sum(shape))
+    before = wrapper.launches
+    with torch.no_grad():
+        got, again, want = call(args), call(args), plain(args)
+    d = fv_design(kind, ntrac, *shape[1:],
+                  sms=torch.cuda.get_device_properties(0)
+                  .multi_processor_count)
+    assert wrapper.launches == before + 2
+    assert wrapper.design == d["design"] == "tile"
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert _fv_kernel_smem(kind, ntrac, shape[3], d["R"]) == d["smem"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b2", "b6"])
+@pytest.mark.parametrize("shape", FV_SHAPES[:3])
+def test_fv_tile_and_first_designs_agree(cuda, kind, shape):
+    """At the same inputs the band tile (through the wrapper) and the
+    first design (which chip_smoke.py times against it) agree within the
+    gate 1e-5 + 1e-5*|x|; the first design counts no launch; an unaligned
+    view runs the first design through the wrapper, to the bit."""
+    ntrac = shape[0] if kind == "b2" else 1
+    wrapper, call, first, _, args = _fv_case(kind, cuda, ntrac, *shape[1:],
+                                             seed=7)
+    with torch.no_grad():
+        tile = call(args)
+        assert wrapper.design == "tile"
+        before = wrapper.launches
+        old = first(args)
+        assert wrapper.launches == before
+        torch.testing.assert_close(tile, old, rtol=1e-5, atol=1e-5)
+        # a view 4 bytes past a 16-byte boundary: contiguous, not aligned
+        shifted = []
+        for a in args:
+            buf = torch.empty(a.numel() + 1, device=cuda)
+            shifted.append(buf[1:].view(a.shape).copy_(a))
+        got = call(shifted)
+    assert wrapper.design == "first"
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b2", "b6"])
+def test_fv_first_design_where_a_row_is_not_16_bytes(cuda, kind):
+    """nlon 182 (a row of 728 bytes, no multiple of the bulk copy's 16):
+    the wrapper runs the first design, within the gate of the plain
+    version."""
+    wrapper, call, _, plain, args = _fv_case(kind, cuda, 2, 3, 12, 182,
+                                             seed=3)
+    with torch.no_grad():
+        got, want = call(args), plain(args)
+    assert wrapper.design == "first"
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
