@@ -41,7 +41,11 @@ The paths, each at full width with random weights from a seed:
   arms v3 (kernel B9) and v4 (kernel B10), and the flagship on the other
   transport configurations (flat FV through the fused B5 and one field at
   a time through B6, semi-Lagrangian transport on the sphere with
-  vertical advection).
+  vertical advection);
+* the coupled step's CLI, ``cli/run_hybrid.py``, as a user runs it on a
+  384-column grid file at its defaults: the JAX CLI's emulator (the
+  batch-major scan arm, nneur 192, f32) in ``HybridLoop`` with each
+  transport scheme, from ``data.synthetic.generate_state``'s state.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -65,7 +69,9 @@ Phases (any failure exits non-zero):
      tolerance against the staged one; the kernel's shared memory equal
      to rad_tile_smem's); then B4 (f32
      and bf16, projections hoisted and not, at 21,600 and 1,000 columns),
-     B5 (6, 60, 120, 180), B6 (60, 120, 180; check_fv_design as B2),
+     B5 (6, 60, 120, 180) and B6 (60, 120, 180), each through
+     check_fv_design as B2, and B5 on each tracer bit-identical to B6 on
+     that field alone,
      B7 at the v2 arm's L 60,
      H 192 (f32 and bf16), B8 at the v4 arm's L 60, H 192 (f32 and
      bf16), B9 and B10 (f32 and bf16 at 21,600 and 1,000 columns);
@@ -76,9 +82,17 @@ Phases (any failure exits non-zero):
      0 just before and read just after: B1 and B2 must launch 20 times and
      no other kernel, B2 in the band-tile design; then the same for each
      other serving arm, whose kernels must each launch their count per
-     step and no other kernel (B6 in the band-tile design);
+     step and no other kernel (B5 and B6 in the band-tile design, as
+     their arms' own tensors chose it);
   4. 3 coupled steps at 384 columns on the card and on the CPU (plain
-     versions), compared, for every serving arm;
+     versions), compared, for every serving arm; then the coupled step's
+     CLI (``python -m climsim_tpu_torch.cli.run_hybrid``, through its
+     main) on a 384-column grid file written under build/: at its
+     defaults on the card (nneur 192, 48 steps, scheme fv; no kernel may
+     launch, as its JAX counterpart launches no Pallas kernel), with its
+     wall time, then 4 steps of each scheme at nneur 32 on the card
+     against ``--device cpu``, and 4 at the defaults, there within 4x the
+     CPU's own movement under a 1e-6 change of the initial T (compare_cli);
   5. gradients through the differentiable fused layers (v6: B1 + B3; v5:
      B4 + B3; v3: B9 + B7 + B8; v4: B10 + B7 + B8) at 384 columns, on the
      card and on the CPU, compared;
@@ -123,8 +137,8 @@ Phases (any failure exits non-zero):
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share (v6 and v5 also at 384
-     columns), the three training arms, both physics trunks, B5; B2 (also
-     at 384 columns) and B6 (the band tile) in turns with their first
+     columns), the three training arms, both physics trunks; B2 (also
+     at 384 columns), B5 and B6 (the band tile) in turns with their first
      designs; B13
      against its first design (device scratch, four sweeps) in turns; B11
      and B14 (the staged design) in turns with their first designs; B1,
@@ -164,11 +178,14 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -585,7 +602,8 @@ def check_b1(model, card):
 
 
 def check_fv_design(card, kind, wrapper, call, first, got, shape):
-    """B2 (kind "b2") or B6 ("b6") at shape (ntrac, L, nlat, nlon) after
+    """B2 (kind "b2"), B5 ("b5") or B6 ("b6") at shape (ntrac, L, nlat,
+    nlon) after
     a wrapper call that gave ``got``: the design it launched is the one
     fv_design names, the band tile at every shape this script runs; a
     second call is bit-identical; the kernel's own shared-memory size
@@ -602,13 +620,11 @@ def check_fv_design(card, kind, wrapper, call, first, got, shape):
           f"{kind} {shape}: launched the {wrapper.design} design, "
           f"fv_design names {d['design']}")
     same = torch.equal(got, call())
-    src, entry = (("fv_tracers_sphere", "fv_tracers_sphere_tile")
-                  if kind == "b2" else ("fv_tracers_flat",
-                                        "fv_levels_flat_tile"))
+    src = "fv_tracers_sphere" if kind == "b2" else "fv_tracers_flat"
+    entry = src + "_tile"
     smem_of = getattr(_build.load(src), entry + "_smem")
     smem_of.restype = ctypes.c_longlong
-    kernel_smem = smem_of(*(shape[:1] if kind == "b2" else ()), shape[3],
-                          d["R"])
+    kernel_smem = smem_of(shape[0], shape[3], d["R"])
     old = first()
     e = (got - old).abs().max().item()
     print(f"{kind.upper()} {shape}: tile design (R {d['R']}, {d['groups']} "
@@ -986,10 +1002,13 @@ def check_flat(card):
     plain version on the card, on the flat arm's raster (flat_spacing,
     dt 1200 s) with winds of 60 and 40 m/s rms, whose Courant numbers
     reach past 1 (the flat stencil has no clip). nvcc contracts a*b+c into
-    FMAs: tolerance 1e-5 + 1e-5*|x|, as B2. B6 also goes through
-    check_fv_design. Returns (errors, inputs)."""
+    FMAs: tolerance 1e-5 + 1e-5*|x|, as B2. B5 and B6 also go through
+    check_fv_design, and B5 on each tracer must equal B6 on that field
+    alone bit for bit (one compiled tile kernel, the Flat form). Returns
+    (errors, inputs)."""
     from climsim_tpu_torch.constants import DT_STEP
     from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       first_fv_tracers_flat,
                                        fv_advect_levels, fv_advect_tracers,
                                        fv_tracers_reference as ref)
     dx, dy = flat_spacing(NLAT, NLON)
@@ -1000,35 +1019,44 @@ def check_flat(card):
     u, v = 60 * r(NLEV, NLAT, NLON), 40 * r(NLEV, NLAT, NLON)
     courant = max((u * dt_dx).abs().max().item(),
                   (v * dt_dy).abs().max().item())
-    errs = {}
-    for name, kern, q in (("B5", fv_advect_tracers, qs),
-                          ("B6", fv_advect_levels, qs[0].contiguous())):
+    errs, outs = {}, {}
+    for name, kern, first, q in (
+            ("B5", fv_advect_tracers, first_fv_tracers_flat, qs),
+            ("B6", fv_advect_levels, first_fv_levels_flat,
+             qs[0].contiguous())):
         got, want = kern(q, u, v, dt_dx, dt_dy), ref(q, u, v, dt_dx, dt_dy)
         errs[name] = (got - want).abs().max().item()
         print(f"{name} {tuple(q.shape)}: max_abs_err {errs[name]:.3e}; "
               f"Courant numbers up to {courant:.2f} [{card}]")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        if name == "B6":
-            check_fv_design(card, "b6", kern,
-                            lambda: kern(q, u, v, dt_dx, dt_dy),
-                            lambda: first_fv_levels_flat(q, u, v, dt_dx,
-                                                         dt_dy),
-                            got, (1, *q.shape))
+        check_fv_design(card, name.lower(), kern,
+                        lambda: kern(q, u, v, dt_dx, dt_dy),
+                        lambda: first(q, u, v, dt_dx, dt_dy), got,
+                        tuple(q.shape) if q.ndim == 4 else (1, *q.shape))
+        outs[name] = got
+    same = [torch.equal(outs["B5"][t], fv_advect_levels(
+        qs[t].contiguous(), u, v, dt_dx, dt_dy)) for t in range(len(qs))]
+    print(f"B5 against B6 tracer by tracer (both the tile): bit-identical "
+          f"{same} [{card}]")
+    check(all(same), f"B5's tracers differ from B6 on the same fields: "
+          f"{same}")
     return errs, (qs, u, v, dt_dx, dt_dy)
 
 
 def time_fv_designs(card, name, args):
-    """B2 (``args`` = (qs, u, v, rows)) or B6 ((q, u, v, dt_dx, dt_dy))
-    through its wrapper, the band tile at this script's shapes, in turns
-    with its first design (first, tile, tile, first; 50 launches each),
-    printed. Returns (the tile's mean ms, the first design's mean ms)."""
+    """B2 (``args`` = (qs, u, v, rows)), B5 ((qs, u, v, dt_dx, dt_dy)) or
+    B6 ((q, u, v, dt_dx, dt_dy)) through its wrapper, the band tile at
+    this script's shapes, in turns with its first design (first, tile,
+    tile, first; 50 launches each), printed. Returns (the tile's mean ms,
+    the first design's mean ms)."""
     from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       first_fv_tracers_flat,
                                        first_fv_tracers_sphere,
-                                       fv_advect_levels,
+                                       fv_advect_levels, fv_advect_tracers,
                                        fv_advect_tracers_sphere)
-    new, first = ((fv_advect_tracers_sphere, first_fv_tracers_sphere)
-                  if name == "B2" else (fv_advect_levels,
-                                        first_fv_levels_flat))
+    new, first = {"B2": (fv_advect_tracers_sphere, first_fv_tracers_sphere),
+                  "B5": (fv_advect_tracers, first_fv_tracers_flat),
+                  "B6": (fv_advect_levels, first_fv_levels_flat)}[name]
     old, nw = in_turns(lambda: first(*args), lambda: new(*args), 50)
     print(f"{name} f32 at {tuple(args[0].shape)} in turns (first, tile, "
           f"tile, first): first design {old[0]:.4f} / {old[1]:.4f} ms, "
@@ -1591,6 +1619,149 @@ def check_widths(card):
 
 
 # ------------------------------------------------------------ phase 4
+
+
+def write_grid_file(path, ncol):
+    """Grid.synthetic(ncol)'s arrays (lat, lon, area, hyai, hybi, hyam,
+    hybm) and P0 as a classic netCDF grid file, as the ClimSim grid file
+    holds them."""
+    from scipy.io import netcdf_file
+    from climsim_tpu_torch import Grid
+    g = Grid.synthetic(ncol, NLEV, dtype=torch.float64)
+    with netcdf_file(path, "w") as f:
+        for d, n in (("ncol", ncol), ("lev", NLEV), ("ilev", NLEV + 1)):
+            f.createDimension(d, n)
+        for k, d in (("lat", "ncol"), ("lon", "ncol"), ("area", "ncol"),
+                     ("hyai", "ilev"), ("hybi", "ilev"), ("hyam", "lev"),
+                     ("hybm", "lev")):
+            f.createVariable(k, "d", (d,))[:] = getattr(g, k).numpy()
+        f.createVariable("P0", "d", ())[...] = 1.0e5
+
+
+def cli_run(args):
+    """``cli/run_hybrid.py``'s main(args) as a user runs it, every launch
+    counter set to 0 just before and read just after. Returns (exit code,
+    its printed lines, the kernels launched, the wall seconds)."""
+    from climsim_tpu_torch.cli import run_hybrid
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run_hybrid.main(args)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    return rc, out.getvalue().splitlines(), launches, wall
+
+
+CLI_STEPS, CLI_COMPARE_STEPS, CLI_SMALL = 48, 4, 32
+
+
+def compare_cli(card, grid, tmp, nneur, scheme, witness=False):
+    """CLI_COMPARE_STEPS steps of the CLI at ``nneur`` with ``scheme`` on
+    the card and with --device cpu, no kernel launched on either, held to
+    tests/test_torch_run_hybrid.py's tolerances (T 1e-4 K; the other
+    fields rtol 1e-5 plus 1e-5 of their largest change; mean T and precc
+    1e-5 / 1e-6). With ``witness`` each field's tolerance also takes 4x
+    the CPU's own movement when the initial T is scaled by 1 + 1e-6
+    (through ``run_hybrid.run`` on the CLI's model and state, which must
+    first reproduce the CPU run to the bit): at the CLI's default width
+    the smoke-mode emulator (random weights fed raw units) amplifies
+    rounding past any fixed tolerance."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.cli import run_hybrid
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"{scheme}_{nneur}_{dev}.npz")
+        rc, lines, launches, _ = cli_run(
+            ["--grid", grid, "--steps", str(CLI_COMPARE_STEPS), "--nneur",
+             str(nneur), "--scheme", scheme, "--device", dev, "--out", path])
+        check(rc == 0 and "finite: True" in lines and not launches,
+              f"the CLI failed on {dev} (scheme {scheme}, nneur {nneur})")
+        runs[dev] = dict(np.load(path))
+    card_run, host = runs["cuda"], runs["cpu"]
+    cpu_grid = Grid.from_file(grid, device="cpu")
+    state, x_sfc = run_hybrid.initial_state(cpu_grid,
+                                            torch.Generator().manual_seed(0))
+    keys = (*run_hybrid.PROGNOSTIC, "mean_T", "precc")
+    move = dict.fromkeys(keys, 0.0)
+    if witness:
+        model = run_hybrid.build_model(cpu_grid, nneur, 16, "cpu")
+        fin, _, diags, _ = run_hybrid.run(model, cpu_grid, state, x_sfc,
+                                          CLI_COMPARE_STEPS, scheme, 1e-6,
+                                          "cpu")
+        base = {**{k: v.numpy() for k, v in fin.items()},
+                "mean_T": diags["mean_T"].numpy(),
+                "precc": diags["precc"].numpy()}
+        check(all(np.array_equal(base[k], host[k]) for k in keys),
+              "run_hybrid.run does not reproduce the CLI's CPU run")
+        bumped = dict(state, T=state["T"] * (1 + 1e-6))
+        fin, _, diags, _ = run_hybrid.run(model, cpu_grid, bumped, x_sfc,
+                                          CLI_COMPARE_STEPS, scheme, 1e-6,
+                                          "cpu")
+        moved = {**{k: v.numpy() for k, v in fin.items()},
+                 "mean_T": diags["mean_T"].numpy(),
+                 "precc": diags["precc"].numpy()}
+        move = {k: float(np.abs(moved[k] - base[k]).max()) for k in keys}
+    worst = {}
+    for k in keys:
+        rtol, atol = {"T": (1e-6, 1e-4), "u": (1e-5, 1e-5), "v": (1e-5, 1e-5),
+                      "mean_T": (1e-5, 1e-6),
+                      "precc": (1e-5, 1e-6)}.get(k, (1e-5, 1e-12))
+        if k in run_hybrid.PROGNOSTIC:
+            atol = max(atol, 1e-5 * np.abs(host[k] - state[k].numpy()).max())
+        worst[k] = float(np.abs(card_run[k] - host[k]).max())
+        np.testing.assert_allclose(card_run[k], host[k], rtol=rtol,
+                                   atol=atol + 4 * move[k],
+                                   err_msg=f"{scheme} nneur {nneur} {k}")
+    print(f"cli run_hybrid --scheme {scheme} --nneur {nneur}, "
+          f"{CLI_COMPARE_STEPS} steps, card against --device cpu: "
+          "max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+          + ("; the CPU's own movement under a 1e-6 change of the initial "
+             "T " + ", ".join(f"{k} {e:.3e}" for k, e in move.items())
+             if witness else "") + f" [{card}]")
+
+
+def check_cli(card):
+    """The port's coupled-step CLI on a 384-column grid file written into a
+    git-ignored directory (build/cli...): at its defaults (nneur 192, 60
+    levels, --scheme fv, 48 steps) on the card, where it must exit 0 with
+    finite fields and mean T in [150, 350] K and launch no kernel (its
+    emulator is the scan arm, its transport the plain per-field step, as
+    the JAX CLI launches no Pallas kernel); then compare_cli for every
+    scheme at nneur 32 and, with the witness, at the defaults. Returns the
+    defaults' wall seconds."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli", dir=root)
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        ncol = LO_NLAT * LO_NLON
+        write_grid_file(grid, ncol)
+        out = os.path.join(tmp, "defaults.npz")
+        rc, lines, launches, wall = cli_run(["--grid", grid, "--out", out])
+        for line in lines:
+            print(f"  cli: {line}")
+        d = np.load(out)
+        mean_t = d["mean_T"]
+        print(f"cli run_hybrid at its defaults ({CLI_STEPS} coupled steps, "
+              f"{ncol} columns, {NLEV} levels, nneur 192, scheme fv) on the "
+              f"card: wall {wall:.3f} s with the build of the model and the "
+              f"state, exit {rc}, launches {launches}, mean_T "
+              f"{mean_t[0]:.4f} -> {mean_t[-1]:.4f} K [{card}]")
+        check(rc == 0 and "finite: True" in lines, "the CLI failed")
+        check(launches == {}, f"the CLI launched kernels: {launches}")
+        check(d["mean_T"].shape == (CLI_STEPS,) and all(
+            np.isfinite(d[k]).all() for k in d.files), "the CLI's output")
+        check(bool(((mean_t > 150) & (mean_t < 350)).all()),
+              f"the CLI's mean_T out of [150, 350] K: {mean_t.tolist()}")
+        for scheme in ("fv", "semi_lagrangian", "none"):
+            compare_cli(card, grid, tmp, CLI_SMALL, scheme)
+        compare_cli(card, grid, tmp, 192, "fv", witness=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return wall
 
 
 def compare_384(card, arm="v6"):
@@ -2877,18 +3048,23 @@ def main() -> int:
     print(f"main path: mean_T {mean_t[0].item():.4f} -> "
           f"{mean_t[-1].item():.4f} K, energy_int "
           f"{diags['energy_int'][-1].item():.6e}")
-    # the other serving arms, each with every counter set to 0 just before
-    wrappers["b6"].design = None
+    # the other serving arms, each with every counter set to 0 just before;
+    # B5's and B6's designs as their arms' own tensors chose them
+    wrappers["b5"].design = wrappers["b6"].design = None
     arm_runs = {arm: run_arm(arm, card) for arm in ARMS if arm != "v6"}
     arm_launches = {arm: run[2] for arm, run in arm_runs.items()}
-    b6_design = wrappers["b6"].design
+    b5_design, b6_design = wrappers["b5"].design, wrappers["b6"].design
+    check(b5_design == "tile", f"the v6_flat arm's B5 ran the {b5_design} "
+          "design")
     check(b6_design == "tile", f"the v6_flat_per_field arm's B6 ran the "
           f"{b6_design} design")
     phase_done(3)
 
-    # ---- 4. every serving arm at 384 columns, card against CPU
+    # ---- 4. every serving arm at 384 columns, card against CPU; the
+    # coupled step's CLI on a 384-column grid file
     for arm in ARMS:
         compare_384(card, arm)
+    check_cli(card)
     phase_done(4)
 
     # ---- 5. gradients through the fused layers, card against CPU
@@ -3044,7 +3220,6 @@ def main() -> int:
     # counts what it counted before these inputs existed)
     from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
                                        fused_bigru_heads_cm,
-                                       fv_advect_tracers,
                                        fv_tracers_reference)
     from climsim_tpu_torch.ops.pallas_rnn import cudacore_fused_bigru_heads_cm
     a4 = b4_args(v5model, ncol, torch.bfloat16, seed=23)
@@ -3063,7 +3238,7 @@ def main() -> int:
                            "B4 (v5 arm's shapes)")
     q5, u5, v5, dtx, dty = flat_inputs
     q6 = q5[0].contiguous()
-    b5_ms = median_ms(lambda: fv_advect_tracers(q5, u5, v5, dtx, dty), 50)
+    b5_ms, b5_first = time_fv_designs(card, "B5", (q5, u5, v5, dtx, dty))
     b5_plain = median_ms(lambda: fv_tracers_reference(q5, u5, v5, dtx, dty),
                          5)
     b6_ms, b6_first = time_fv_designs(card, "B6", (q6, u5, v5, dtx, dty))
@@ -3392,7 +3567,8 @@ def main() -> int:
          "launches": arm_launches["v6_flat"]["b5"],
          "max_abs_err": flat_errs["B5"], "ms": b5_ms, "plain_ms": b5_plain,
          "bound_ms": sb["b5"][0], "bound_by": sb["b5"][1],
-         "library_ms": None},
+         "library_ms": None, "design": b5_design,
+         "first_design_ms": b5_first},
         {"name": "fv_levels_flat", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/fv_tracers_flat.cu",
          "replaces": "climsim_tpu/ops/pallas_stencil.py:35",

@@ -10,6 +10,9 @@ CP = 1.00464e3        # specific heat of dry air           [J kg-1 K-1]
 LV = 2.501e6          # latent heat of evaporation         [J kg-1]
 LF = 3.337e5          # latent heat of fusion              [J kg-1]
 LSUB = LV + LF        # latent heat of sublimation         [J kg-1]
+RHO_AIR = 101325.0 / (6.02214e26 * 1.38065e-23 / 28.966) / 273.15
+#                     density of dry air at STP ~ 1.29231  [kg m-3]
+RHO_H2O = 1.0e3       # density of fresh water             [kg m-3]
 
 RD = 287.0            # specific gas constant, dry air     [J kg-1 K-1]
 RV = 461.0            # specific gas constant, water vapor [J kg-1 K-1]

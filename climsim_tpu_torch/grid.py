@@ -6,7 +6,8 @@ Counterpart of ``climsim_tpu/grid.py``. Pressure contract:
     dp[l]    = p_int[l+1] - p_int[l]          (nlev layers)
     p_mid[l] = P0*hyam[l] + hybm[l]*ps        (nlev mid levels)
 
-``Grid.from_file`` (the CDF-5 grid file reader) is not ported yet.
+``Grid.from_file`` reads the ClimSim grid file (classic CDF-5 or HDF5)
+through the port's own ``io.read_netcdf``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .io import read_netcdf
 
 
 @dataclass(frozen=True)
@@ -39,6 +41,26 @@ class Grid:
     @property
     def nlev(self) -> int:
         return self.hyam.shape[0]
+
+    @classmethod
+    def from_file(cls, path: str, dtype: torch.dtype = torch.float32,
+                  device=None) -> "Grid":
+        """The grid of a netCDF grid file (lat, lon, area, hyai, hybi,
+        hyam, hybm and, if present, P0) as ``climsim_tpu.grid.Grid.
+        from_file`` reads it: area_wgt = area / mean(area) in float64,
+        then every array in ``dtype``. ``device=None`` means ``"cuda"``
+        and raises without a CUDA device."""
+        from .ops import resolve_device
+        dev = resolve_device(device)
+        raw = read_netcdf(path)
+        area = np.asarray(raw["area"], np.float64)
+        p0 = float(np.asarray(raw["P0"]).ravel()[0]) if "P0" in raw \
+            else C.P0
+        t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return cls(lat=t(raw["lat"]), lon=t(raw["lon"]), area=t(area),
+                   area_wgt=t(area / area.mean()), hyai=t(raw["hyai"]),
+                   hybi=t(raw["hybi"]), hyam=t(raw["hyam"]),
+                   hybm=t(raw["hybm"]), p0=p0)
 
     @classmethod
     def synthetic(cls, ncol: int = C.NCOL_LOWRES, nlev: int = C.NLEV,

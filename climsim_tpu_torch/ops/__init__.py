@@ -27,7 +27,7 @@ from .pallas_stencil import (fv_advect_tracers_sphere,
                              fv_tracers_sphere_reference, fv_advect_tracers,
                              fv_tracers_reference, fv_advect_levels,
                              fv_design, first_fv_tracers_sphere,
-                             first_fv_levels_flat)
+                             first_fv_tracers_flat, first_fv_levels_flat)
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fused_bigru_heads_cm", "bigru_heads_cm_reference",
@@ -43,7 +43,8 @@ __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fv_advect_tracers_sphere",
            "fv_tracers_sphere_reference", "fv_advect_tracers",
            "fv_tracers_reference", "fv_advect_levels", "fv_design",
-           "first_fv_tracers_sphere", "first_fv_levels_flat",
+           "first_fv_tracers_sphere", "first_fv_tracers_flat",
+           "first_fv_levels_flat",
            "resolve_device"]
 
 

@@ -1,5 +1,5 @@
-// The band tile of the second designs of B2 (fv_tracers_sphere.cu) and B6
-// (fv_tracers_flat.cu): the MC-limited flux-form FV step, zonal sweep
+// The band tile of the second designs of B2 (fv_tracers_sphere.cu), B5
+// and B6 (fv_tracers_flat.cu): the MC-limited flux-form FV step, zonal sweep
 // (periodic) then meridional sweep (clamped pole ghosts), on one (band of
 // R interior rows, level) at a time.
 //

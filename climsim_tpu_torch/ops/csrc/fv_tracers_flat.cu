@@ -10,29 +10,32 @@
 // compute the same per-field function: _fv_tracers_kernel (wrapper
 // _fv_advect_tracers_fwd_impl, all tracers of a level per program) and
 // _fv_level_kernel (wrapper fv_advect_levels, one field per level). Here
-// both are this kernel: fv_tracers_flat launches it with every tracer,
-// fv_levels_flat with one. The numerics are those of
-// climsim_tpu/online/advection.py::fv_advect_2d.
+// both are this kernel, launched through the same entry points: with
+// every tracer for B5, with one field (ntrac 1) for B6. The numerics are
+// those of climsim_tpu/online/advection.py::fv_advect_2d.
 //
 // What bounds it on an H100 at the main path's shapes (6 tracers, 60
 // levels, 120 x 180, f32): it must read qs, u and v once (41.5 MB) and
 // write the result once (31.1 MB): 72.6 MB, 21.7 us at 3.35 TB/s, against
 // ~80 flops per element. So it is bound by bytes; one field per level
-// (fv_levels_flat) reads u and v once per field, 20.7 MB for a
-// [60, 120, 180] field.
+// (B6) reads u and v once per field, 20.7 MB for a [60, 120, 180] field.
 //
-// B6's second design (fv_levels_flat_tile, chosen by pallas_stencil.py::
-// fv_design): the band tile of fv_tile.cuh in velocity units with
-// one field, its u, v and q spans copied at once so a tile waits one
-// latency, not three. B5 still launches the first design.
+// The second design (fv_tracers_flat_tile, chosen by pallas_stencil.py::
+// fv_design): the band tile of fv_tile.cuh in velocity units (its Flat
+// form). B6 runs it with one field, its u, v and q spans copied at once so
+// a tile waits one latency, not three; B5 with every tracer in the tile,
+// its threads in tracer groups (at the main shapes 3 groups of 96
+// threads, each taking every third tracer), as B2's spherical form does.
+// Tracer t of B5 runs the arithmetic B6 runs on that field alone, in the
+// same compiled kernel, so the two agree bit for bit.
 //
-// The first design (fv_tracers_flat and fv_levels_flat): as the spherical
-// kernel's first design (fv_tracers_sphere.cu), a block owns one (band of
-// R rows, level) and all tracers, stages the band plus a 2-row clamped
-// halo on each side in shared memory (the zonal winds once, then one
-// tracer at a time), so the post-zonal field never goes to device memory
-// and q is read about (R + 4) / R times from L2, once from DRAM. 15 bands
-// x 60 levels = 900 blocks fill the 132 SMs. nvcc contracts a*b+c into
+// The first design (fv_tracers_flat): as the spherical kernel's first
+// design (fv_tracers_sphere.cu), a block owns one (band of R rows, level)
+// and all tracers, stages the band plus a 2-row clamped halo on each side
+// in shared memory (the zonal winds once, then one tracer at a time), so
+// the post-zonal field never goes to device memory and q is read about
+// (R + 4) / R times from L2, once from DRAM. 15 bands x 60 levels = 900
+// blocks fill the 132 SMs. nvcc contracts a*b+c into
 // FMAs, so results differ from the plain PyTorch version by a few ulps.
 #include <cuda_runtime.h>
 
@@ -164,8 +167,9 @@ int launch(const void* qs, const void* u, const void* v, void* out,
 
 }  // namespace
 
-// qs [ntrac, L, nlat, nlon], u/v [L, nlat, nlon], out like qs; all float32
-// and contiguous. Returns the cudaError_t of the launch (0 on success).
+// qs [ntrac, L, nlat, nlon] (B6: ntrac 1), u/v [L, nlat, nlon], out like
+// qs; all float32 and contiguous. Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int fv_tracers_flat(const void* qs, const void* u, const void* v,
                                void* out, int ntrac, int L, int nlat,
                                int nlon, float dt_dx, float dt_dy,
@@ -173,29 +177,23 @@ extern "C" int fv_tracers_flat(const void* qs, const void* u, const void* v,
   return launch(qs, u, v, out, ntrac, L, nlat, nlon, dt_dx, dt_dy, stream);
 }
 
-// One field per level: q/u/v/out [L, nlat, nlon], float32 and contiguous.
-extern "C" int fv_levels_flat(const void* q, const void* u, const void* v,
-                              void* out, int L, int nlat, int nlon,
-                              float dt_dx, float dt_dy, void* stream) {
-  return launch(q, u, v, out, 1, L, nlat, nlon, dt_dx, dt_dy, stream);
-}
-
-// The second design of B6 (fv_levels_flat_tile): the band tile of
-// fv_tile.cuh in velocity units, one field. The arguments as
-// fv_levels_flat's, then the band's rows R and the CTAs, as
-// pallas_stencil.py::fv_design gives them.
-extern "C" int fv_levels_flat_tile(const void* q, const void* u,
-                                   const void* v, void* out, int L, int nlat,
-                                   int nlon, float dt_dx, float dt_dy, int R,
-                                   int blocks, void* stream) {
+// The second design (fv_tracers_flat_tile): the band tile of fv_tile.cuh
+// in velocity units, every tracer in the tile. The arguments as
+// fv_tracers_flat's, then the band's rows R, the tracer groups and the
+// CTAs, as pallas_stencil.py::fv_design gives them.
+extern "C" int fv_tracers_flat_tile(const void* qs, const void* u,
+                                    const void* v, void* out, int ntrac,
+                                    int L, int nlat, int nlon, float dt_dx,
+                                    float dt_dy, int R, int groups,
+                                    int blocks, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const fv::Geom G{1, L, nlat, nlon, R, 1};
+  const fv::Geom G{ntrac, L, nlat, nlon, R, groups};
   const fv::Flat F{dt_dx, dt_dy, nlat};
-  return fv::launch_tile(f(q), f(u), f(v), static_cast<float*>(out), G,
+  return fv::launch_tile(f(qs), f(u), f(v), static_cast<float*>(out), G,
                          blocks, static_cast<cudaStream_t>(stream), F);
 }
 
-// The shared memory fv_levels_flat_tile asks for at this geometry.
-extern "C" long long fv_levels_flat_tile_smem(int nlon, int R) {
-  return static_cast<long long>(fv::Geom{1, 1, 1, nlon, R, 1}.smem());
+// The shared memory fv_tracers_flat_tile asks for at this geometry.
+extern "C" long long fv_tracers_flat_tile_smem(int ntrac, int nlon, int R) {
+  return static_cast<long long>(fv::Geom{ntrac, 1, 1, nlon, R, 1}.smem());
 }

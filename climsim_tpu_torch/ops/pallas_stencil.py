@@ -7,13 +7,13 @@ the spherical multi-tracer step ``fv_advect_tracers_sphere``
 points). Each is differentiable: its backward differentiates the plain
 version, as the JAX ops' custom_vjp differentiates their jnp reference.
 
-B2 and B6 have two designs each, chosen by ``fv_design`` from the shape
-(and the tensors' alignment) before the launch and recorded on the
+B2, B5 and B6 have two designs each, chosen by ``fv_design`` from the
+shape (and the tensors' alignment) before the launch and recorded on the
 wrapper as ``.design``: the band tile of ``csrc/fv_tile.cuh`` ("tile")
 where it takes the shape, else the first design ("first").
-``first_fv_tracers_sphere`` and ``first_fv_levels_flat`` run the first
-designs at any shape, for timing them on the card; they count no launch.
-B5 runs its first design.
+``first_fv_tracers_sphere``, ``first_fv_tracers_flat`` and
+``first_fv_levels_flat`` run the first designs at any shape, for timing
+them on the card; they count no launch.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from .pallas_radiation import _SM_SMEM, _SM_THREADS, _SMEM_MAX, _sms
 __all__ = ["fv_advect_tracers_sphere", "fv_tracers_sphere_reference",
            "fv_advect_tracers", "fv_tracers_reference", "fv_advect_levels",
            "fv_design", "fv_tile_smem", "first_fv_tracers_sphere",
-           "first_fv_levels_flat"]
+           "first_fv_tracers_flat", "first_fv_levels_flat"]
 
 # the band tile's most rows a band (PERF.md §6: the fastest R measured on
 # the H100 for B2 at (6, 60, 120, 180), within 2.5% of B6's best)
@@ -48,9 +48,10 @@ def fv_tile_smem(ntrac: int, nlon: int, R: int) -> int:
 def fv_design(kind: str, ntrac: int, L: int, nlat: int, nlon: int,
               sms: int = 132, aligned: bool = True) -> dict:
     """The design of kernel ``kind`` ("b2": the spherical step of
-    ``ntrac`` tracers; "b6": one flat field, ntrac 1) at (L, nlat, nlon),
-    from the shape alone (and whether the tensors are 16-byte aligned),
-    never from a failed attempt:
+    ``ntrac`` tracers; "b5": the flat step of ``ntrac`` tracers; "b6":
+    one flat field, ntrac 1) at (L, nlat, nlon), from the shape alone
+    (and whether the tensors are 16-byte aligned), never from a failed
+    attempt:
       * "tile" (csrc/fv_tile.cuh's band tile) where nlon % 4 == 0 (a row
         is then a multiple of the bulk copy's 16 bytes), the tensors are
         aligned and a tile fits 232,448 bytes of shared memory: bands of
@@ -66,7 +67,8 @@ def fv_design(kind: str, ntrac: int, L: int, nlat: int, nlon: int,
       * "first" otherwise (bands of 8 rows, one block of 256 threads a
         band and level).
     Returns dict(design, R, groups, threads, smem, blocks)."""
-    if kind not in ("b2", "b6") or (kind == "b6" and ntrac != 1):
+    if kind not in ("b2", "b5", "b6") or ntrac < 1 \
+            or (kind == "b6" and ntrac != 1):
         raise ValueError(f"no band tile for kernel {kind!r} with {ntrac} "
                          "tracers")
     first = dict(design="first", R=_FIRST_R, groups=1, threads=_FIRST_NTH,
@@ -247,45 +249,37 @@ def _validate_flat(q, u, v, ndim: int) -> None:
                              f"{t.device} (contiguous={t.is_contiguous()})")
 
 
-def _run_levels(q, u, v, dt_dx, dt_dy, d: dict) -> torch.Tensor:
-    """B6 at design ``d`` (an ``fv_design`` dict) on validated CUDA
-    tensors [L, nlat, nlon]; counts nothing."""
-    L, nlat, nlon = q.shape
+def _run_flat(qs, u, v, dt_dx, dt_dy, d: dict) -> torch.Tensor:
+    """B5, or B6 as one tracer, at design ``d`` (an ``fv_design`` dict) on
+    validated CUDA tensors qs [ntrac, L, nlat, nlon]; counts nothing."""
+    ntrac, L, nlat, nlon = qs.shape
     lib = _build.load("fv_tracers_flat")
     tile = d["design"] == "tile"
-    fn = lib.fv_levels_flat_tile if tile else lib.fv_levels_flat
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_float] * 2 + [ctypes.c_int] * (2 if tile else 0) \
+    fn = lib.fv_tracers_flat_tile if tile else lib.fv_tracers_flat
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * (3 if tile else 0) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    geom = (d["R"], d["blocks"]) if tile else ()
-    rc = fn(q.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), L,
-            nlat, nlon, dt_dx, dt_dy, *geom, stream)
+    out = torch.empty_like(qs)
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    geom = (d["R"], d["groups"], d["blocks"]) if tile else ()
+    rc = fn(qs.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ntrac, L, nlat, nlon, dt_dx, dt_dy, *geom, stream)
     _build.check_status(rc, fn.__name__)
     return out
 
 
 def _launch_flat(q, u, v, dt_dx, dt_dy) -> torch.Tensor:
-    """B5 for q [ntrac, L, nlat, nlon], B6 (the design ``fv_design``
-    picks, recorded as ``fv_advect_levels.design``) for one field
-    [L, nlat, nlon]."""
+    """B5 for q [ntrac, L, nlat, nlon], B6 for one field [L, nlat, nlon],
+    each at the design ``fv_design`` picks, recorded as ``.design`` on
+    ``fv_advect_tracers`` or ``fv_advect_levels``."""
     if q.ndim == 3:
         d = _fv_select(fv_advect_levels, "b6", (q, u, v), 1)
-        out = _run_levels(q, u, v, dt_dx, dt_dy, d)
+        out = _run_flat(q[None], u, v, dt_dx, dt_dy, d)[0]
         fv_advect_levels.launches += 1
         return out
-    L, nlat, nlon = q.shape[-3:]
-    fn = _build.load("fv_tracers_flat").fv_tracers_flat
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q.shape[0], L, nlat, nlon, dt_dx, dt_dy, stream)
-    _build.check_status(rc, "fv_tracers_flat")
+    d = _fv_select(fv_advect_tracers, "b5", (q, u, v), q.shape[0])
+    out = _run_flat(q, u, v, dt_dx, dt_dy, d)
     fv_advect_tracers.launches += 1
     return out
 
@@ -323,7 +317,8 @@ def fv_advect_tracers(qs: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Fused multi-tracer flat-raster FV transport (kernel B5): qs [ntrac,
     nlev, nlat, nlon] advected by u/v [nlev, nlat, nlon], with the
     constant Courant factors dt_dx, dt_dy. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel (the design ``fv_design``
+    picks, recorded as ``fv_advect_tracers.design``) or raises."""
     return _flat_op(qs, u, v, dt_dx, dt_dy, 4)
 
 
@@ -345,10 +340,25 @@ def first_fv_levels_flat(q: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"the first design runs on the card, not "
                          f"{q.device}")
-    return _run_levels(q, u, v, float(dt_dx), float(dt_dy),
-                       dict(design="first"))
+    return _run_flat(q[None], u, v, float(dt_dx), float(dt_dy),
+                     dict(design="first"))[0]
+
+
+def first_fv_tracers_flat(qs: torch.Tensor, u: torch.Tensor,
+                          v: torch.Tensor, dt_dx: float,
+                          dt_dy: float) -> torch.Tensor:
+    """B5's first design on the card, which the wrapper selects only where
+    the band tile cannot take the shape: for timing the designs. Counts no
+    launch."""
+    _validate_flat(qs, u, v, 4)
+    if qs.device.type != "cuda":
+        raise ValueError(f"the first design runs on the card, not "
+                         f"{qs.device}")
+    return _run_flat(qs, u, v, float(dt_dx), float(dt_dy),
+                     dict(design="first"))
 
 
 fv_advect_tracers.launches = 0
+fv_advect_tracers.design = None
 fv_advect_levels.launches = 0
 fv_advect_levels.design = None

@@ -1629,7 +1629,7 @@ def test_staged_and_first_radiation_designs_agree(cuda, kind, B, nlev, ng):
 
 
 # ------------------------------------------------------------------------
-# B2 and B6: the band tile, and the first designs timed against it
+# B2, B5 and B6: the band tile, and the first designs timed against it
 
 # (ntrac, L, nlat, nlon): a ragged last band (nlat 23: bands of 12 and
 # 11), both pole clamps in one band (nlat 5), the 384-column grid, the
@@ -1641,11 +1641,13 @@ FV_SHAPES = [(3, 4, 23, 24), (2, 3, 5, 16), (6, 4, 16, 24),
 def _fv_case(kind, device, ntrac, L, nlat, nlon, seed):
     """(wrapper, tile call, first-design call, plain call, tensors) of B2
     (kind "b2", ``ntrac`` tracers, winds that clip the Courant numbers in
-    both sweeps) or B6 ("b6", one field, Courant numbers past 1) on
-    seeded inputs."""
+    both sweeps), B5 ("b5", ``ntrac`` flat tracers, Courant numbers past
+    1) or B6 ("b6", one field, the same winds) on seeded inputs."""
     from climsim_tpu_torch.ops import (first_fv_levels_flat,
+                                       first_fv_tracers_flat,
                                        first_fv_tracers_sphere,
-                                       fv_advect_levels, fv_tracers_reference)
+                                       fv_advect_levels, fv_advect_tracers,
+                                       fv_tracers_reference)
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     if kind == "b2":
@@ -1657,6 +1659,13 @@ def _fv_case(kind, device, ntrac, L, nlat, nlon, seed):
                 lambda a: fv_advect_tracers_sphere(*a, m),
                 lambda a: first_fv_tracers_sphere(*a, m),
                 lambda a: fv_tracers_sphere_reference(*a, m), args)
+    if kind == "b5":
+        args = (t(rng.normal(1, 0.3, (ntrac, L, nlat, nlon))),
+                t(rng.normal(0, 1.5, (L, nlat, nlon))),
+                t(rng.normal(0, 1.5, (L, nlat, nlon))))
+        return (fv_advect_tracers, lambda a: fv_advect_tracers(*a, 0.4, 0.3),
+                lambda a: first_fv_tracers_flat(*a, 0.4, 0.3),
+                lambda a: fv_tracers_reference(*a, 0.4, 0.3), args)
     args = (t(rng.normal(1, 0.3, (L, nlat, nlon))),
             t(rng.normal(0, 1.5, (L, nlat, nlon))),
             t(rng.normal(0, 1.5, (L, nlat, nlon))))
@@ -1669,25 +1678,24 @@ def _fv_kernel_smem(kind, ntrac, nlon, R):
     """The tile kernel's own shared memory (csrc's Geom::smem)."""
     import ctypes
     from climsim_tpu_torch.ops import _build
-    src, entry = (("fv_tracers_sphere", "fv_tracers_sphere_tile")
-                  if kind == "b2" else ("fv_tracers_flat",
-                                        "fv_levels_flat_tile"))
+    src = "fv_tracers_sphere" if kind == "b2" else "fv_tracers_flat"
+    entry = src + "_tile"
     fn = getattr(_build.load(src), entry + "_smem")
     fn.restype = ctypes.c_longlong
-    return fn(*((ntrac,) if kind == "b2" else ()), nlon, R)
+    return fn(ntrac, nlon, R)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["b2", "b6"])
+@pytest.mark.parametrize("kind", ["b2", "b6", "b5"])
 @pytest.mark.parametrize("shape", FV_SHAPES)
 def test_fv_tile_kernels_match_plain(cuda, kind, shape):
-    """B2 and B6 through their wrappers launch the design fv_design names
+    """B2, B5 and B6 through their wrappers launch the design fv_design names
     (the band tile at these shapes), record it as ``.design``, count one
     launch a call, agree with their plain versions to 1e-5 + 1e-5*|x|
     (FMA contraction only, on fields of order 1), give the same bits
     twice, and ask for the shared memory fv_design computes."""
     from climsim_tpu_torch.ops import fv_design
-    ntrac = shape[0] if kind == "b2" else 1
+    ntrac = shape[0] if kind != "b6" else 1
     wrapper, call, _, plain, args = _fv_case(kind, cuda, ntrac, *shape[1:],
                                              seed=sum(shape))
     before = wrapper.launches
@@ -1705,14 +1713,14 @@ def test_fv_tile_kernels_match_plain(cuda, kind, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["b2", "b6"])
+@pytest.mark.parametrize("kind", ["b2", "b6", "b5"])
 @pytest.mark.parametrize("shape", FV_SHAPES[:3])
 def test_fv_tile_and_first_designs_agree(cuda, kind, shape):
     """At the same inputs the band tile (through the wrapper) and the
     first design (which chip_smoke.py times against it) agree within the
     gate 1e-5 + 1e-5*|x|; the first design counts no launch; an unaligned
     view runs the first design through the wrapper, to the bit."""
-    ntrac = shape[0] if kind == "b2" else 1
+    ntrac = shape[0] if kind != "b6" else 1
     wrapper, call, first, _, args = _fv_case(kind, cuda, ntrac, *shape[1:],
                                              seed=7)
     with torch.no_grad():
@@ -1734,7 +1742,7 @@ def test_fv_tile_and_first_designs_agree(cuda, kind, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["b2", "b6"])
+@pytest.mark.parametrize("kind", ["b2", "b6", "b5"])
 def test_fv_first_design_where_a_row_is_not_16_bytes(cuda, kind):
     """nlon 182 (a row of 728 bytes, no multiple of the bulk copy's 16):
     the wrapper runs the first design, within the gate of the plain
@@ -1745,3 +1753,75 @@ def test_fv_first_design_where_a_row_is_not_16_bytes(cuda, kind):
         got, want = call(args), plain(args)
     assert wrapper.design == "first"
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FV_SHAPES)
+def test_b5_tracer_is_b6_on_that_field(cuda, shape):
+    """B5's tile on tracer t runs the arithmetic of B6's tile on that field
+    alone (one compiled kernel, the Flat form), so the two agree bit for
+    bit at every shape, whatever their bands and groups."""
+    from climsim_tpu_torch.ops import fv_advect_levels, fv_advect_tracers
+    _, _, _, _, (qs, u, v) = _fv_case("b5", cuda, *shape, seed=11)
+    with torch.no_grad():
+        got = fv_advect_tracers(qs, u, v, 0.4, 0.3)
+        assert fv_advect_tracers.design == "tile"
+        for t in range(qs.shape[0]):
+            one = fv_advect_levels(qs[t].contiguous(), u, v, 0.4, 0.3)
+            assert fv_advect_levels.design == "tile"
+            assert torch.equal(got[t], one), t
+
+
+# ------------------------------------------------------------------------
+# the coupled step's CLI on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["fv", "semi_lagrangian", "none"])
+def test_run_hybrid_cli_on_card_matches_cpu(cuda, tmp_path, scheme):
+    """``cli/run_hybrid.py`` on the card (its default device) against
+    ``--device cpu`` over 4 steps at nneur 32 on a 384-column grid file:
+    no kernel launches (the CLI's scan emulator and per-field plain
+    transport), finite fields, and tests/test_torch_run_hybrid.py's
+    tolerances: T to 1e-4 K, the other fields to rtol 1e-5 plus 1e-5 of
+    their largest change over the run, the diagnostics to 1e-5 / 1e-6."""
+    from scipy.io import netcdf_file
+
+    from climsim_tpu_torch import Grid, ops
+    from climsim_tpu_torch.cli import run_hybrid as cli
+    path = str(tmp_path / "grid.nc")
+    g = Grid.synthetic(384, 60, dtype=torch.float64)
+    with netcdf_file(path, "w") as f:
+        for d, n in (("ncol", 384), ("lev", 60), ("ilev", 61)):
+            f.createDimension(d, n)
+        for k, d in (("lat", "ncol"), ("lon", "ncol"), ("area", "ncol"),
+                     ("hyai", "ilev"), ("hybi", "ilev"), ("hyam", "lev"),
+                     ("hybm", "lev")):
+            f.createVariable(k, "d", (d,))[:] = getattr(g, k).numpy()
+        f.createVariable("P0", "d", ())[...] = 1.0e5
+    wrappers = [getattr(ops, n) for n in ops.__all__
+                if hasattr(getattr(ops, n), "launches")]
+    before = [w.launches for w in wrappers]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.npz")
+        args = ["--grid", path, "--steps", "4", "--nneur", "32", "--scheme",
+                scheme, "--out", out] + (["--device", "cpu"]
+                                         if dev == "cpu" else [])
+        assert cli.main(args) == 0
+        outs[dev] = np.load(out)
+    assert [w.launches for w in wrappers] == before
+    state, _ = cli.initial_state(Grid.from_file(path, device="cpu"),
+                                 torch.Generator().manual_seed(0))
+    card, host = outs["cuda"], outs["cpu"]
+    assert sorted(card.files) == sorted(host.files)
+    for k in cli.PROGNOSTIC:
+        assert np.isfinite(card[k]).all(), k
+        rtol, atol = {"T": (1e-6, 1e-4), "u": (1e-5, 1e-5),
+                      "v": (1e-5, 1e-5)}.get(k, (1e-5, 1e-12))
+        change = np.abs(host[k] - state[k].numpy()).max()
+        np.testing.assert_allclose(card[k], host[k], rtol=rtol,
+                                   atol=max(atol, 1e-5 * change), err_msg=k)
+    for k in ("mean_T", "precc"):
+        np.testing.assert_allclose(card[k], host[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)

@@ -1,5 +1,5 @@
-"""The band-tile designs of B2 (spherical multi-tracer FV step) and B6 (one
-flat field), on the CPU: ``fv_design``'s choice and geometry from the
+"""The band-tile designs of B2 (spherical multi-tracer FV step), B5 (flat
+multi-tracer FV step) and B6 (one flat field), on the CPU: ``fv_design``'s choice and geometry from the
 shape, and a torch emulation of ``csrc/fv_tile.cuh``'s order (the clipped
 span copies into a NaN-filled stage, the clamped reads, the in-place
 Courant numbers of the spherical form, then per column the zonal sweep of
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from climsim_tpu.online import advection as jadv
-from climsim_tpu.ops.pallas_stencil import _fv_sphere_fwd_impl
+from climsim_tpu.ops.pallas_stencil import (_fv_advect_tracers_fwd_impl,
+                                            _fv_sphere_fwd_impl)
 from climsim_tpu.ops.pallas_stencil import fv_advect_levels as jlevels
 from climsim_tpu_torch.online import advection as tadv
 from climsim_tpu_torch.online.advection import metric_rows
@@ -27,8 +28,9 @@ SMEM_MAX, SM_SMEM, SM_THREADS = 232448, 233472, 2048
 
 # ------------------------------------------------------------ fv_design
 
-# (kind, ntrac, L, nlat, nlon) -> fv_design on 132 SMs: the main path's B2
-# and B6; nlat 20, whose two bands even out to 10 rows; nlat 23, whose
+# (kind, ntrac, L, nlat, nlon) -> fv_design on 132 SMs: the main path's B2,
+# B5 (the v6_flat arm's: B2's geometry) and B6; B5 on the 384-column grid
+# (bands of 8, a group a tracer); nlat 20, whose two bands even out to 10 rows; nlat 23, whose
 # second band is one row short (a ragged last band); both pole clamps in
 # one band (nlat 5 < R + 4); the 384-column grid (two bands of 8); a
 # 0.25-degree grid's 1,440 columns (the most rows halved until the tile
@@ -37,8 +39,12 @@ SMEM_MAX, SM_SMEM, SM_THREADS = 232448, 233472, 2048
 @pytest.mark.parametrize("shape,want", [
     (("b2", 6, 60, 120, 180), dict(design="tile", R=12, groups=3,
                                    threads=288, smem=90128, blocks=264)),
+    (("b5", 6, 60, 120, 180), dict(design="tile", R=12, groups=3,
+                                   threads=288, smem=90128, blocks=264)),
     (("b6", 1, 60, 120, 180), dict(design="tile", R=12, groups=1,
                                    threads=96, smem=32528, blocks=600)),
+    (("b5", 6, 60, 16, 24), dict(design="tile", R=8, groups=6, threads=192,
+                                 smem=9056, blocks=120)),
     (("b2", 6, 60, 20, 180), dict(design="tile", R=10, groups=3,
                                   threads=288, smem=78608, blocks=120)),
     (("b2", 6, 60, 23, 180), dict(design="tile", R=12, groups=3,
@@ -54,7 +60,9 @@ SMEM_MAX, SM_SMEM, SM_THREADS = 232448, 233472, 2048
     (("b2", 6, 60, 120, 182), dict(design="first", R=8, groups=1,
                                    threads=256, smem=26208, blocks=900)),
     (("b6", 1, 60, 16, 26), dict(design="first", R=8, groups=1,
-                                 threads=256, smem=3744, blocks=120))])
+                                 threads=256, smem=3744, blocks=120)),
+    (("b5", 6, 60, 120, 182), dict(design="first", R=8, groups=1,
+                                   threads=256, smem=26208, blocks=900))])
 def test_fv_design(shape, want):
     """The band tile where nlon % 4 == 0 and a tile fits 232,448 bytes
     (bands of at most 12 rows, the most halved until the tile fits, then
@@ -65,7 +73,8 @@ def test_fv_design(shape, want):
     assert fv_design(*shape) == want
 
 
-@pytest.mark.parametrize("kind,ntrac", [("b2", 6), ("b2", 1), ("b6", 1)])
+@pytest.mark.parametrize("kind,ntrac", [("b2", 6), ("b2", 1), ("b6", 1),
+                                        ("b5", 6)])
 @pytest.mark.parametrize("nlat,nlon", [(120, 180), (20, 180), (5, 24),
                                        (16, 24), (120, 1440), (361, 720),
                                        (120, 4096)])
@@ -92,15 +101,15 @@ def test_fv_design_fits_the_card(kind, ntrac, nlat, nlon):
 
 
 def test_fv_design_refuses_what_the_tile_cannot_take():
-    """Unaligned tensors run the first design; B6 takes one field; an
-    unknown kernel raises; a tile that fits nowhere runs the first
-    design."""
-    assert fv_design("b2", 6, 60, 120, 180, aligned=False)["design"] == \
-        "first"
-    assert fv_design("b6", 1, 60, 120, 180, aligned=False)["design"] == \
-        "first"
+    """Unaligned tensors run the first design; B6 takes one field and B5
+    at least one; an unknown kernel raises; a tile that fits nowhere runs
+    the first design."""
+    for kind, ntrac in (("b2", 6), ("b5", 6), ("b6", 1)):
+        assert fv_design(kind, ntrac, 60, 120, 180,
+                         aligned=False)["design"] == "first"
     assert fv_design("b2", 60, 60, 120, 1440)["design"] == "first"
-    for bad in (("b6", 2), ("b5", 6), ("b1", 1)):
+    assert fv_design("b5", 60, 60, 120, 1440)["design"] == "first"
+    for bad in (("b6", 2), ("b5", 0), ("b1", 1)):
         with pytest.raises(ValueError):
             fv_design(bad[0], bad[1], 60, 120, 180)
 
@@ -226,11 +235,12 @@ TILE_SHAPES = [(2, 20, 24, 8), (2, 5, 16, 8), (1, 16, 24, 8), (2, 20, 12, 3),
 
 
 @pytest.mark.parametrize("L,nlat,nlon,R", TILE_SHAPES)
-@pytest.mark.parametrize("form", ["sphere", "flat"])
+@pytest.mark.parametrize("form", ["sphere", "flat", "flat_tracers"])
 def test_tile_order_is_the_plain_step(form, L, nlat, nlon, R):
     """The band tile's copies, clamped reads and streamed sweeps compute
     the plain step and the JAX package's Pallas kernel in interpret mode
-    (B2's _fv_sphere_fwd_impl, B6's fv_advect_levels) to 2e-6, as
+    (B2's _fv_sphere_fwd_impl, B6's fv_advect_levels, B5's
+    _fv_advect_tracers_fwd_impl with 6 tracers) to 2e-6, as
     tests/test_torch_ops_stencil.py holds the plain version to them; no
     read lands outside the copied rows."""
     if form == "sphere":
@@ -248,18 +258,25 @@ def test_tile_order_is_the_plain_step(form, L, nlat, nlon, R):
             jnp.asarray(qs), jnp.asarray(u), jnp.asarray(v), jm,
             interpret=True))
     else:
+        ntrac = 6 if form == "flat_tracers" else 1
         rng = np.random.default_rng(nlat + R)
-        q = np.abs(rng.normal(1, 0.3, (L, nlat, nlon))).astype(np.float32)
+        q = np.abs(rng.normal(1, 0.3, (ntrac, L, nlat, nlon))).astype(
+            np.float32)
         u, v = (rng.normal(0, 1.0, (L, nlat, nlon)).astype(np.float32)
                 for _ in range(2))
-        got = _tile_emulation(torch.as_tensor(q)[None], torch.as_tensor(u),
-                              torch.as_tensor(v), R,
-                              dt=(DT_DX, DT_DY))[0]
+        got = _tile_emulation(*map(torch.as_tensor, (q, u, v)), R,
+                              dt=(DT_DX, DT_DY))
         plain = fv_tracers_reference(*map(torch.as_tensor, (q, u, v)),
                                      DT_DX, DT_DY)
-        jax_out = np.asarray(jlevels(jnp.asarray(q), jnp.asarray(u),
-                                     jnp.asarray(v), DT_DX, DT_DY,
-                                     interpret=True))
+        if ntrac == 1:
+            got, plain = got[0], plain[0]
+            jax_out = np.asarray(jlevels(jnp.asarray(q[0]), jnp.asarray(u),
+                                         jnp.asarray(v), DT_DX, DT_DY,
+                                         interpret=True))
+        else:
+            jax_out = np.asarray(_fv_advect_tracers_fwd_impl(
+                jnp.asarray(q), jnp.asarray(u), jnp.asarray(v), DT_DX,
+                DT_DY, True))
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-6,
                                atol=2e-6)

@@ -38,7 +38,12 @@ def test_port_sources_exist():
                  "climsim_tpu_torch/physics/conservation.py",
                  "climsim_tpu_torch/physics/radiation.py",
                  "climsim_tpu_torch/ops/pallas_radiation.py",
-                 "climsim_tpu_torch/models/phys_rnn.py"):
+                 "climsim_tpu_torch/models/phys_rnn.py",
+                 "climsim_tpu_torch/io/cdf5.py",
+                 "climsim_tpu_torch/io/ncio.py",
+                 "climsim_tpu_torch/variables.py",
+                 "climsim_tpu_torch/data/synthetic.py",
+                 "climsim_tpu_torch/cli/run_hybrid.py"):
         assert want in names
     for cu in ("bigru_heads_init_cm.cu", "bigru_heads_cm_bwd.cu",
                "fv_tracers_sphere.cu", "bigru_lbh.cu", "adding_sw.cu",
