@@ -46,6 +46,10 @@ The paths, each at full width with random weights from a seed:
   384-column grid file at its defaults: the JAX CLI's emulator (the
   batch-major scan arm, nneur 192, f32) in ``HybridLoop`` with each
   transport scheme, from ``data.synthetic.generate_state``'s state.
+* the rollout-training CLI, ``cli/train_rollout.py``, as a user runs it on
+  the physics yaml and the GRU yaml: synthetic data, normalization, the
+  yaml's model, fused epochs through the curriculum, validation, the
+  scoreboard, checkpoints and resume.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -132,7 +136,26 @@ Phases (any failure exits non-zero):
      until its update fits in the card's memory, the cut printed); then
      one update of each trunk at 384 columns on the card and on the CPU,
      compared after counting the McICA sample indices that differ;
-  9. timings with CUDA events (median of 5 repeats for the v6 coupled
+  9. the rollout-training CLI (``python -m climsim_tpu_torch.cli.
+     train_rollout``, through its main) on a 384-column grid file under
+     build/, every launch counter set to 0 just before each run and read
+     just after: ``conf/autoreg_physrnn.yaml`` as written (scan trunk,
+     w_wcon read as the float 3e7) at 10,800 columns through W 1, 2 and 3
+     with validation, eval_report and best-K checkpoints (index.json
+     sorted, at most 3), B11 and B12 once per model step and B13 and B14
+     once per model step of an update (W per update) and no other kernel;
+     then resume=true, which must start at the best epoch + 1;
+     ``conf/autoreg_gru.yaml`` at 21,600 columns as written (the scan
+     arm: no kernel) and with model.use_pallas=true (the v2 arm: B7 per
+     model step, B8 W per update, both in the f32 cluster design); each
+     with its wall time, seconds per epoch, updates, column-steps/s and
+     peak memory, and one more epoch of each under torch.profiler (device
+     idle share; the host-to-device copies, which with the device cache
+     must hold no data window); then both yamls at 384 columns for one
+     epoch on the card and with device=cpu, loss and val_loss within 1e-4
+     plus 4x the CPU's own movement under a 1e-6 change of the learning
+     rate, with the McICA sample indices that differ counted;
+ 10. timings with CUDA events (median of 5 repeats for the v6 coupled
      step and training update and the kernels; 2 for the other arms'
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
@@ -165,7 +188,7 @@ Phases (any failure exits non-zero):
      B4 with its inputs and outputs permuted between the channel-major and
      the pair's layout), first held to the plain version, then timed
      beside the kernel;
- 10. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 11. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
@@ -2958,6 +2981,345 @@ def heads_yardstick(layer, a, cm, card, label):
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 9
+
+# the training CLI's full-width runs: the physics yaml at the widest data
+# whose scan-trunk W 3 update fits 80 GB, the GRU yaml at the full width;
+# each data set is the CLI's synthetic series (24 steps, 19 for training)
+PHYS_CLI_NCOL, GRU_CLI_NCOL = NLAT * NLON // 2, NLAT * NLON
+PHYS_CLI_SCHEDULE = "rollout.schedule={0: 1, 1: 2, 2: 3}"
+# the largest host-to-device copy an epoch may make with the device cache:
+# the model's index tensors are bytes; a data window is megabytes
+CLI_MAX_H2D_BYTES = 1 << 16
+
+
+class ForwardCounter:
+    """Counts the calls of a model class's forward with autograd on (the
+    training updates) and off (validation and the scoreboard); with
+    ``keep_area`` keeps each call's area fractions (the physics model's
+    aux), on the host."""
+
+    def __init__(self, cls, keep_area=False):
+        self.cls, self.grad, self.nograd = cls, 0, 0
+        self.keep_area, self.area_fracs = keep_area, []
+
+    def __enter__(self):
+        orig = self.orig = self.cls.forward
+        counter = self
+
+        def forward(model, *args, **kwargs):
+            out = orig(model, *args, **kwargs)
+            if torch.is_grad_enabled():
+                counter.grad += 1
+            else:
+                counter.nograd += 1
+            if counter.keep_area:
+                counter.area_fracs.append(out[3]["area_frac"].detach().cpu())
+            return out
+        self.cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def train_cli_run(args, model_cls, keep_area=False):
+    """``cli/train_rollout.py``'s main(args) as a user runs it, every launch
+    counter set to 0 just before and read just after, the peak memory
+    reset before, the model's forward calls counted (ForwardCounter) and
+    the CLI's Run (its trainer and chunk source) kept. Returns a
+    namespace: rc, lines, records, launches, wall, peak_gb, calls, run."""
+    import types
+    from climsim_tpu_torch.cli import train_rollout as cli
+    runs = []
+    orig_setup = cli.setup
+
+    def setup(cfg):
+        runs.append(orig_setup(cfg))
+        return runs[-1]
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    cli.setup = setup
+    try:
+        with ForwardCounter(model_cls, keep_area) as calls, \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cli.setup = orig_setup
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    lines = out.getvalue().splitlines()
+    records = [json.loads(ln) for ln in lines if ln.startswith('{"epoch"')]
+    return types.SimpleNamespace(
+        rc=rc, lines=lines, records=records, launches=launches, wall=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, calls=calls,
+        run=runs[0] if runs else None)
+
+
+def cli_summary(label, r, ncol, card):
+    """Print a run's records, wall time, seconds per epoch, updates,
+    column-steps/s of the training epochs and peak memory."""
+    for ln in r.lines:
+        if ln.startswith(('{"epoch"', "resumed", "init_from")):
+            print(f"  cli: {ln[:400]}")
+    steps = sum(rec["updates"] * rec["window"] for rec in r.records)
+    train_s = sum(rec["seconds"] for rec in r.records)
+    print(f"cli train_rollout {label}: wall {r.wall:.3f} s (data, model, "
+          f"{len(r.records)} epochs with validation), training "
+          f"{train_s / max(len(r.records), 1):.3f} s per epoch, "
+          f"{sum(rec['updates'] for rec in r.records)} updates, "
+          f"{steps * ncol / max(train_s, 1e-9):,.0f} column-steps/s in the "
+          f"training epochs, peak {r.peak_gb:.3f} GB, launches {r.launches} "
+          f"[{card}]")
+
+
+def check_cli_records(label, r, windows):
+    check(r.rc == 0, f"{label}: exit {r.rc}")
+    check([rec["window"] for rec in r.records] == windows,
+          f"{label}: windows {[rec['window'] for rec in r.records]}")
+    for rec in r.records:
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["val_loss"]),
+              f"{label}: record not finite: {rec}")
+
+
+def check_cli_launches(label, r, kernels):
+    """Per update W launches of each forward kernel and W of each backward
+    one (the counted training forward calls are the updates' model steps),
+    and one forward launch per validation or scoreboard model step; no
+    other kernel. ``kernels``: (forward ids, backward ids)."""
+    steps = sum(rec["updates"] * rec["window"] for rec in r.records)
+    check(r.calls.grad == steps, f"{label}: {r.calls.grad} training model "
+          f"steps, the records give {steps}")
+    fwd, bwd = kernels
+    want = {**{k: r.calls.grad + r.calls.nograd for k in fwd},
+            **{k: r.calls.grad for k in bwd}}
+    check(r.launches == want, f"{label}: launches {r.launches}, want {want}")
+
+
+def cli_epoch_profile(label, r, epoch, ncol, card, trace_path):
+    """One more training epoch of the run's own trainer and chunks (the
+    curriculum's window of ``epoch``) under torch.profiler, its launches
+    not counted: the device idle share (1 - kernel time / synchronized
+    wall time) and the host-to-device copies of the epoch (from the
+    trace's memcpy events), which with the device cache must not include
+    a data window."""
+    from torch.profiler import ProfilerActivity, profile
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    run = r.run
+    chunks = run.chunks(0, run.ntr, True, seed=epoch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, rec = run_epoch_fused(run.trainer, None, chunks, epoch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace_path)
+    busy = sum(e.get("dur", 0) for e in events
+               if e.get("cat") == "kernel") / 1e3
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    sizes = [e.get("args", {}).get("bytes") for e in h2d]
+    known = [b for b in sizes if b is not None]
+    window_bytes = rec["window"] * ncol * NLEV * 15 * 4
+    print(f"cli train_rollout {label}: one epoch (W {rec['window']}, "
+          f"{rec['updates']} updates) under torch.profiler: wall "
+          f"{wall:.3f} ms, kernels {busy:.3f} ms, device idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}; host-to-device copies "
+          f"{len(h2d)}, "
+          + (f"{sum(known)} bytes, the largest {max(known, default=0)} "
+             f"(one x_lev window is {window_bytes} bytes)"
+             if len(known) == len(sizes) else
+             "their bytes not in the trace: not measured") + f" [{card}]")
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    check(len(known) < len(sizes) or max(known, default=0)
+          <= CLI_MAX_H2D_BYTES,
+          f"{label}: an epoch copied {max(known)} bytes to the card at once")
+
+
+def compare_cli_384(card, grid, yaml, model_cls):
+    """One epoch of the CLI at its default 384 columns on the card and with
+    device=cpu (no kernel launched there), and two witnesses: the CPU runs
+    from the CLI's own initial weights times 1 + 1e-6 and 1 - 1e-6
+    (through init_from). The card's epoch-0 loss and val_loss must lie
+    within 1e-4 of the CPU's (the CPU tests hold the CLI to JAX at 1e-4)
+    plus 4x the larger witness movement: a change at the rounding level of
+    every weight moves the forward as the card's rounding does, and the
+    epoch's updates carry it on. With random weights on synthetic data
+    that movement depends on the data, which the hash-salted fill of the
+    v4_rnn set's dynamics inputs makes differ from process to process
+    (ROADMAP C): on one CPU the physics yaml's val_loss moved 1.5e-4 under
+    one salt and 3.1e-3 under another. With McICA the sample indices that
+    differ card vs CPU are counted over every model call of the epoch
+    (stratified_sample of each call's area fractions)."""
+    from climsim_tpu_torch.cli import train_rollout as cli
+    from climsim_tpu_torch.physics.radiation import stratified_sample
+    from climsim_tpu_torch.train.config import load_config
+    base = [yaml, f"grid_path={grid}", "epochs=1"]
+    run = cli.setup(load_config(yaml, base[1:] + ["device=cpu"]))
+    witnesses = []
+    for sign in (1, -1):
+        path = os.path.join(os.path.dirname(grid), f"witness{sign}.pt")
+        torch.save({k: v * (1 + sign * 1e-6) if v.is_floating_point() else v
+                    for k, v in run.trainer.model.state_dict().items()}, path)
+        witnesses.append((f"witness{sign}", ["device=cpu",
+                                             f"init_from={path}"]))
+    run = None
+    keep = model_cls.__name__ == "PhysicalRNNAutoreg"
+    runs = {}
+    for tag, extra in [("cuda", ["device=cuda"]), ("cpu", ["device=cpu"])] \
+            + witnesses:
+        r = train_cli_run(base + extra, model_cls, keep_area=keep)
+        check(r.rc == 0 and len(r.records) == 1, f"{yaml} 384 {tag}: exit "
+              f"{r.rc}")
+        if tag != "cuda":
+            check(not r.launches, f"{yaml} 384 {tag} launched {r.launches}")
+        r.run = None
+        runs[tag] = r
+    name = os.path.basename(yaml)
+    mc = ""
+    if keep:
+        fc, fp = runs["cuda"].calls.area_fracs, runs["cpu"].calls.area_fracs
+        check(len(fc) == len(fp) > 0, "model calls card vs CPU")
+        n_diff = n_idx = 0
+        for af_c, af_p in zip(fc, fp):
+            nreg = af_p.shape[-1]
+            for G in (8, 8):            # the yaml's ng_sw, ng_lw
+                ic = stratified_sample(af_c.cuda().reshape(-1, nreg), G)
+                ip = stratified_sample(af_p.reshape(-1, nreg), G)
+                n_diff += int((ic.cpu() != ip).sum())
+                n_idx += ip.numel()
+        mc = f"; {n_diff} of {n_idx} McICA sample indices differ card vs " \
+             f"CPU over the epoch's {len(fp)} model calls"
+        print(f"cli train_rollout {os.path.basename(yaml)} at 384 columns"
+              f"{mc} [{card}]")
+    worst = []
+    for k in ("loss", "val_loss"):
+        c, p = runs["cuda"].records[0][k], runs["cpu"].records[0][k]
+        move = max(abs(runs[t].records[0][k] - p) for t, _ in witnesses)
+        tol = 1e-4 * abs(p) + 4 * move
+        worst.append(f"{k} {c!r} vs {p!r} (difference {abs(c - p):.3e}, "
+                     f"witness movement {move:.3e}, tolerance {tol:.3e})")
+        print(f"cli train_rollout {name} at 384 columns: {worst[-1]}")
+        check(np.isfinite(c) and abs(c - p) <= tol,
+              f"{name} 384: {k} card {c} vs CPU {p}, tolerance {tol}")
+    print(f"cli train_rollout {name} at 384 columns, 1 epoch, card against "
+          f"device=cpu: " + "; ".join(worst) + mc + f" [{card}]")
+
+
+def check_train_cli(card):
+    """The training CLI (``python -m climsim_tpu_torch.cli.train_rollout``,
+    through its main) on a 384-column grid file under build/: the physics
+    yaml as written at 10,800 columns through the curriculum W 1, 2, 3
+    with validation, the scoreboard and best-K checkpoints, then resumed
+    from its best checkpoint; the GRU yaml as written (the scan arm, no
+    kernel) and with model.use_pallas=true (the v2 arm: B7 and B8 in the
+    f32 cluster design) at 21,600 columns; one epoch of each full-width
+    run under the profiler; both yamls at 384 columns card against CPU."""
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg, RNNAutoreg
+    from climsim_tpu_torch.ops import bigru_bwd_lbh, fused_bigru_lbh
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_cli", dir=root)
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
+    phys_yaml = os.path.join(conf, "autoreg_physrnn.yaml")
+    gru_yaml = os.path.join(conf, "autoreg_gru.yaml")
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        ck = os.path.join(tmp, "ck")
+        log = os.path.join(tmp, "phys.jsonl")
+        phys_args = [phys_yaml, f"grid_path={grid}",
+                     f"data.ncol={PHYS_CLI_NCOL}", "epochs=3",
+                     PHYS_CLI_SCHEDULE, "eval_report=true",
+                     f"checkpoint_dir={ck}", f"log_path={log}"]
+        torch.cuda.empty_cache()
+        r = train_cli_run(phys_args, PhysicalRNNAutoreg)
+        cli_summary(f"physics yaml, {PHYS_CLI_NCOL} columns", r,
+                    PHYS_CLI_NCOL, card)
+        check_cli_records("physics yaml", r, [1, 2, 3])
+        w_water = r.run.trainer.cfg.w_water
+        check(isinstance(w_water, float) and w_water == 3e7,
+              f"the physics yaml's w_wcon read as {w_water!r}")
+        check(r.run.trainer.model.use_pallas is False, "the physics yaml "
+              "must build the scan trunk")
+        check(any(ln.startswith('{"eval_report"') for ln in r.lines),
+              "no eval_report")
+        check_cli_launches("physics yaml", r,
+                           (("b11", "b12"), ("b13", "b14")))
+        with open(os.path.join(ck, "index.json")) as f:
+            index = json.load(f)
+        vals = [e["val_loss"] for e in index]
+        check(0 < len(index) <= 3 and vals == sorted(vals),
+              f"index.json {index}")
+        cli_epoch_profile("physics yaml", r, 2, PHYS_CLI_NCOL, card,
+                          os.path.join(tmp, "trace.json"))
+        best = index[0]["epoch"]
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = train_cli_run(phys_args[:3] + [
+            "epochs=4", PHYS_CLI_SCHEDULE, f"checkpoint_dir={ck}",
+            f"log_path={log}", "resume=true"], PhysicalRNNAutoreg)
+        cli_summary(f"physics yaml resumed, {PHYS_CLI_NCOL} columns", r,
+                    PHYS_CLI_NCOL, card)
+        check(f"resumed from {ck} at epoch {best}" in r.lines,
+              f"resume did not start from the best epoch {best}")
+        check_cli_records("physics yaml resumed", r,
+                          [min(e + 1, 3) for e in range(best + 1, 4)])
+        check([rec["epoch"] for rec in r.records] == list(range(best + 1, 4)),
+              "resumed epochs")
+        check_cli_launches("physics yaml resumed", r,
+                           (("b11", "b12"), ("b13", "b14")))
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gru_args = [gru_yaml, f"grid_path={grid}",
+                    f"data.ncol={GRU_CLI_NCOL}", "epochs=2"]
+        r = train_cli_run(gru_args, RNNAutoreg)
+        cli_summary(f"GRU yaml (scan arm), {GRU_CLI_NCOL} columns", r,
+                    GRU_CLI_NCOL, card)
+        check_cli_records("GRU yaml", r, [1, 1])
+        check(r.run.trainer.model.arm == "scan", r.run.trainer.model.arm)
+        check(r.launches == {}, f"the scan arm launched {r.launches}")
+        cli_epoch_profile("GRU yaml (scan arm)", r, 1, GRU_CLI_NCOL, card,
+                          os.path.join(tmp, "trace.json"))
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_bigru_lbh.design = bigru_bwd_lbh.design = None
+        r = train_cli_run(gru_args + ["model.use_pallas=true"], RNNAutoreg)
+        cli_summary(f"GRU yaml with model.use_pallas=true (v2 arm), "
+                    f"{GRU_CLI_NCOL} columns", r, GRU_CLI_NCOL, card)
+        check_cli_records("GRU yaml v2", r, [1, 1])
+        check(r.run.trainer.model.arm == "v2", r.run.trainer.model.arm)
+        check_cli_launches("GRU yaml v2", r, (("b7",), ("b8",)))
+        designs = (fused_bigru_lbh.design, bigru_bwd_lbh.design)
+        print(f"cli train_rollout GRU yaml v2: B7 design {designs[0]}, B8 "
+              f"design {designs[1]} [{card}]")
+        check(designs == ("f32_cluster", "f32_cluster"),
+              f"the v2 arm's designs {designs}")
+        cli_epoch_profile("GRU yaml (v2 arm)", r, 1, GRU_CLI_NCOL, card,
+                          os.path.join(tmp, "trace.json"))
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        compare_cli_384(card, grid, phys_yaml, PhysicalRNNAutoreg)
+        compare_cli_384(card, grid, gru_yaml, RNNAutoreg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3113,8 +3475,14 @@ def main() -> int:
     for use_pallas in (False, True):
         compare_phys_train_384(card, use_pallas)
 
-    # ---- 9. timings; the paths of earlier slices with OLD_REPEATS
     phase_done(8)
+
+    # ---- 9. the training CLI on both yamls: full width on the card, and
+    # 384 columns card against CPU
+    check_train_cli(card)
+    phase_done(9)
+
+    # ---- 10. timings; the paths of earlier slices with OLD_REPEATS
 
     def step_ms(lp, s, m, x, repeats=OLD_REPEATS):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
@@ -3488,8 +3856,8 @@ def main() -> int:
               f"({pbb[key][3] / 1e6:.1f} MB at 3.35 TB/s; "
               f"{pbb[key][2] / 1e9:.3f} GFLOP) [{card}]")
 
-    # ---- 10. the kernels line, the card line, the result
-    phase_done(9)
+    # ---- 11. the kernels line, the card line, the result
+    phase_done(10)
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",

@@ -1,24 +1,37 @@
-"""Synthetic ClimSim column states on tensors.
+"""Synthetic ClimSim column states, targets and time series on tensors.
 
-Counterpart of the state generator of ``climsim_tpu/data/synthetic.py``:
-``_profile``, ``SyntheticConfig`` and ``generate_state``, from which the
-coupled step's CLI (``cli/run_hybrid.py``) draws its initial state. The
-rest of that module (``synthetic_physics``, ``make_timeseries``,
-``equilibrium_physics``) waits for the data slice (ROADMAP A.8).
+Counterpart of ``climsim_tpu/data/synthetic.py``: ``_profile``,
+``SyntheticConfig``, ``generate_state`` (the initial state of the coupled
+step's CLI, ``cli/run_hybrid.py``), and ``synthetic_physics``,
+``pack_keeplev``, ``pack_flat`` and ``make_timeseries`` (the training data
+of the rollout-training CLI, ``cli/train_rollout.py``). The balanced
+physics of long coupled runs (``equilibrium_*``) waits (ROADMAP A.8).
 
-Randomness. JAX splits one key into 32 and draws each variable's noise
-from its own key. Here every standard-normal draw goes through one draw
-function ``draw(key, shape)``, indexed by the JAX key it replaces: ``i``
-for ``keys[i]``, and ``(0, 0)`` and ``(0, 1)`` for the two sub-keys that
-``_profile`` splits from ``keys[0]``. A key read twice gives the same
-numbers both times, as in JAX (``keys[17]`` drives both the land and the
-ocean fraction, ``keys[21]`` every filled scalar). The default draw takes
-normals from a ``torch.Generator`` on the CPU, in the order in which the
-keys are first read, and moves them to the grid's device, so one seed
-gives the same state on every device; a test passes JAX's own draws.
+Randomness. JAX splits keys and draws each noise field from its own key.
+Here every standard-normal draw goes through one draw function
+``draw(key, shape)``, indexed by the JAX key it replaces:
+
+* in ``generate_state``, ``i`` for ``keys[i]`` of its 32-way split, and
+  ``(0, 0)`` and ``(0, 1)`` for the two sub-keys that ``_profile`` splits
+  from ``keys[0]``. A key read twice gives the same numbers both times,
+  as in JAX (``keys[17]`` drives both the land and the ocean fraction,
+  ``keys[21]`` every filled scalar);
+* in ``synthetic_physics``, ``j`` for the j-th key of its 4-way split of
+  the noise key (dT, dq, dqc, dqi);
+* in ``make_timeseries``, which splits its key into ``k0`` (the initial
+  state) and ``kscan`` (one key per step, each split into ``k1``,
+  ``k2``, ``k3``): ``("k0", i)`` for generate_state's key ``i``,
+  ``("k1", t, j)`` for step t's physics noise j, ``("k2", t)`` for its
+  temperature noise and ``("k3", t)`` for its wind noise.
+
+The default draw takes normals from a ``torch.Generator`` on the CPU, in
+the order in which the keys are first read, and moves them to the grid's
+device, so one seed gives the same data on every device; a test passes
+JAX's own draws. JAX's ``lax.scan`` over the steps is a Python loop here.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -30,17 +43,20 @@ from ..physics import thermo
 
 
 def _linspace(start: float, stop: float, num: int, dtype: torch.dtype,
-              device) -> torch.Tensor:
-    """``jnp.linspace(start, stop, num)`` by JAX's formula, start (1 - s)
-    + stop s with s = i (1 / (num - 1)) and the last point ``stop``, so
-    the profiles below round as the reference's do."""
+              device, endpoint: bool = True) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, endpoint=endpoint)`` by JAX's
+    formula, start (1 - s) + stop s with s = i / div (div = num - 1 and
+    the last point ``stop``, or div = num without the endpoint), so the
+    profiles below round as the reference's do."""
     if num < 2:
         return torch.full((num,), start, dtype=dtype, device=device)
-    div = num - 1
-    s = torch.arange(div, dtype=dtype, device=device) \
-        * torch.tensor(1.0 / div, dtype=dtype)
-    stop_t = torch.full((1,), stop, dtype=dtype, device=device)
-    return torch.cat([start * (1 - s) + stop * s, stop_t])
+    div = num - 1 if endpoint else num
+    s = torch.arange(div, dtype=dtype, device=device) / div
+    out = start * (1 - s) + stop * s
+    if not endpoint:
+        return out
+    return torch.cat([out, torch.full((1,), stop, dtype=dtype,
+                                      device=device)])
 
 
 def _profile(normal, key, ncol, nlev, sfc_val, top_val, rel_noise, dtype,
@@ -158,3 +174,173 @@ def generate_state(generator: torch.Generator | None, cfg: SyntheticConfig,
                 state[name] = base if base is not None else \
                     0.01 * normal(21, (ncol,))
     return state
+
+
+def _default_draw(generator: torch.Generator | None, dtype: torch.dtype):
+    return lambda key, shape: torch.randn(shape, generator=generator,
+                                          dtype=dtype)
+
+
+def synthetic_physics(state: dict, grid: Grid,
+                      generator: torch.Generator | None,
+                      cfg: SyntheticConfig, draw=None) -> dict:
+    """Deterministic nonlinear 'CRM' producing targets from inputs, with
+    multiplicative target noise from ``draw(j, shape)`` (j = 0..3 for dT,
+    dq, dqc, dqi; by default normals from ``generator``). The tendencies
+    and surface fluxes of the reference's smooth surrogate: heating from
+    shortwave absorption and latent heating, moistening opposing the
+    humidity anomaly, condensate relaxation, damped winds, and
+    precipitation closing the column water budget."""
+    dt = getattr(torch, cfg.dtype)
+    if draw is None:
+        draw = _default_draw(generator, dt)
+    T, q = state["state_t"], state["state_q0001"]
+    dev = T.device
+    ps, solin = state["state_ps"], state["pbuf_SOLIN"]
+    pmid = grid.mid_pressure(ps)
+    rh = thermo.specific_to_relative_humidity(q, T, pmid)
+
+    s = _linspace(0.0, 1.0, cfg.nlev, dt, dev)[None, :]
+    sw_heat = (solin[:, None] / 1360.0) * 2e-5 * torch.exp(-2 * (1 - s))
+    lat_heat = 4e-5 * torch.tanh(3 * (rh - 0.7)) * s
+    dT = sw_heat + lat_heat \
+        + 1e-5 * torch.sin(3 * s) * (T / 280.0 - 1.0)
+    # diurnal convective moisture sink: every column's precc varies in
+    # time, so the time-TSS R2 convention stays finite
+    conv = (5e-9 + 2.5e-8 * state["pbuf_COSZRS"][:, None]) * s
+    dq = -2e-8 * torch.tanh(3 * (rh - 0.7)) * s \
+        - 5e-9 * (rh - 0.5) - conv
+    # micro-variability keeps the condensate channels' time-axis TSS
+    # nonzero at their structural zeros
+    micro = 1e-12 * (0.05 + s) * state["pbuf_COSZRS"][:, None]
+    fliq = thermo.liquid_fraction(T)
+    dqc = 5e-9 * torch.tanh(5 * (rh - 0.9)) * fliq * s + micro
+    dqi = 5e-9 * torch.tanh(5 * (rh - 0.9)) * (1 - fliq) * s + micro
+    du = -state["state_u"] * 1e-6
+    dv = -state["state_v"] * 1e-6
+
+    noise = cfg.target_noise
+    if noise > 0:
+        n = lambda j, a: draw(j, tuple(a.shape)).to(device=dev, dtype=dt)
+        dT = dT * (1 + noise * n(0, dT))
+        dq = dq * (1 + noise * n(1, dq))
+        dqc = dqc * (1 + noise * n(2, dqc))
+        dqi = dqi * (1 + noise * n(3, dqi))
+
+    # column water sink -> precip (closes the water budget by construction)
+    dp_g = grid.mass_weights(ps)
+    sink = -torch.sum(dp_g * (dq + dqc + dqi), dim=1)        # kg m-2 s-1
+    precc = torch.clamp(sink / C.RHO_H2O, min=0.0)          # m s-1
+    # 2% snow-fraction floor keeps PRECSC varying in warm columns
+    snow_frac = torch.clamp(thermo.snow_fraction(T[:, -1]), min=0.02)
+    precsc = precc * snow_frac
+
+    coszrs = state["pbuf_COSZRS"]
+    netsw = solin * (1.0 - 0.3) * coszrs
+    flwds = 5.67e-8 * (T[:, -1] ** 4) * 0.8
+    return {
+        "ptend_t": dT, "ptend_q0001": dq, "ptend_q0002": dqc,
+        "ptend_q0003": dqi, "ptend_qn": dqc + dqi,
+        "ptend_u": du, "ptend_v": dv,
+        "cam_out_NETSW": netsw, "cam_out_FLWDS": flwds,
+        "cam_out_PRECSC": precsc, "cam_out_PRECC": precc,
+        "cam_out_SOLS": netsw * 0.3, "cam_out_SOLL": netsw * 0.35,
+        "cam_out_SOLSD": netsw * 0.15, "cam_out_SOLLD": netsw * 0.2,
+    }
+
+
+def pack_keeplev(state: dict, target: dict, vset: V.VariableSet):
+    """Pack per-variable dicts into the keeplev 4-tuple
+    (x_lev, x_sfc, y_lev, y_sfc)."""
+    st = lambda src, names: torch.stack([src[n] for n in names], dim=-1)
+    return (st(state, vset.inputs.lev_names), st(state, vset.inputs.sfc_names),
+            st(target, vset.outputs.lev_names),
+            st(target, vset.outputs.sfc_names))
+
+
+def pack_flat(state: dict, target: dict, vset: V.VariableSet):
+    """Pack into flat (x [N, nx], y [N, ny]) vectors in registry order."""
+    col = lambda src, n: src[n] if V.var_len(n) == V.NLEV \
+        else src[n][:, None]
+    return (torch.cat([col(state, n) for n in vset.inputs.names], dim=1),
+            torch.cat([col(target, n) for n in vset.outputs.names], dim=1))
+
+
+def make_timeseries(generator: torch.Generator | None, cfg: SyntheticConfig,
+                    grid: Grid, nsteps: int, flat: bool = True, draw=None):
+    """``nsteps`` of (x, y) with temporal correlation, on the grid's
+    device: the state evolves by the synthetic tendencies, under a diurnal
+    insolation cycle (hour angle from the column longitudes), a slow
+    'seasonal' solar modulation, flux forcing that follows the sun and
+    evolving winds, so every channel varies in time per column. Returns
+    the keeplev 4-tuple stacked over time ([T, B, ...] each), or with
+    ``flat`` (x [T, B, nx], y [T, B, ny]). The draws: module docstring."""
+    vset = V.get(cfg.vset_name)
+    dt = getattr(torch, cfg.dtype)
+    dev = grid.lat.device
+    ncol = cfg.ncol
+    if draw is None:
+        draw = _default_draw(generator, dt)
+    f32 = torch.float32
+    lat = grid.lat[:ncol] if grid.ncol >= ncol \
+        else _linspace(-88.0, 88.0, ncol, f32, dev)
+    lon = grid.lon[:ncol] if grid.ncol >= ncol \
+        else _linspace(0.0, 360.0, ncol, f32, dev, endpoint=False)
+    coslat = torch.cos(torch.deg2rad(lat)).to(f32)
+    lonrad = torch.deg2rad(lon).to(f32)
+    # the angular rates rounded to float32 once, as JAX's weak-typed
+    # Python scalars meet the float32 step counter
+    omega_day = torch.tensor(2.0 * math.pi * C.DT_STEP / 86400.0, dtype=f32,
+                             device=dev)
+    omega_seas = torch.tensor(2.0 * math.pi / 2048.0, dtype=f32, device=dev)
+    n = lambda key, like: draw(key, tuple(like.shape)).to(device=dev,
+                                                          dtype=like.dtype)
+
+    state = generate_state(None, cfg, grid,
+                           draw=lambda key, shape: draw(("k0", key), shape))
+    t = torch.zeros((), dtype=f32, device=dev)
+    outs = []
+    for step in range(nsteps):
+        # time-varying boundary forcing BEFORE the physics so x and y see
+        # the same instant
+        mu = torch.clamp(coslat * torch.cos(lonrad + omega_day * t), 0.0, 1.0)
+        seas = 1.0 + 0.1 * torch.sin(omega_seas * t)
+        state = dict(state)
+        state["pbuf_COSZRS"] = mu
+        state["pbuf_SOLIN"] = 1360.0 * seas * torch.ones_like(mu)
+        state["pbuf_LHFLX"] = (80.0 * coslat + 20.0) * (0.7 + 0.6 * mu)
+        state["pbuf_SHFLX"] = (25.0 * coslat + 5.0) * (0.7 + 0.6 * mu)
+        target = synthetic_physics(
+            state, grid, None, cfg,
+            draw=lambda j, shape, step=step: draw(("k1", step, j), shape))
+        outs.append(pack_flat(state, target, vset) if flat
+                    else pack_keeplev(state, target, vset))
+        # advance the prognostic state by the tendencies (+ small noise)
+        new = dict(state)
+        new["state_t"] = state["state_t"] + C.DT_STEP * target["ptend_t"] \
+            + 0.1 * n(("k2", step), state["state_t"])
+        new["state_q0001"] = torch.clamp(
+            state["state_q0001"] + C.DT_STEP * target["ptend_q0001"],
+            min=1e-9)
+        if "state_q0002" in state:
+            new["state_q0002"] = torch.clamp(
+                state["state_q0002"] + C.DT_STEP * target["ptend_q0002"],
+                min=0)
+            new["state_q0003"] = torch.clamp(
+                state["state_q0003"] + C.DT_STEP * target["ptend_q0003"],
+                min=0)
+        # winds evolve too, so du/dv vary in time per column
+        new["state_u"] = state["state_u"] + C.DT_STEP * target["ptend_u"] \
+            + 2.0 * torch.sin(omega_day * t / 8.0) \
+            * n(("k3", step), state["state_u"]) * 0.2 \
+            + 0.3 * torch.cos(omega_seas * t)
+        new["state_v"] = state["state_v"] + C.DT_STEP * target["ptend_v"] \
+            + 0.1 * torch.sin(omega_day * t / 5.0)
+        pmid = grid.mid_pressure(new["state_ps"])
+        new["state_rh"] = thermo.specific_to_relative_humidity(
+            new["state_q0001"], new["state_t"], pmid)
+        if "state_qn" in state:
+            new["state_qn"] = new["state_q0002"] + new["state_q0003"]
+            new["liq_partition"] = thermo.liquid_fraction(new["state_t"])
+        state, t = new, t + 1.0
+    return tuple(torch.stack(a) for a in zip(*outs))

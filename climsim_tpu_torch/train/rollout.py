@@ -20,12 +20,17 @@ of ``climsim_tpu/train/rollout.py``).
   training updates.
 
 The model's parameters and the optimizer are state of the trainer and are
-updated in place; ``run_epoch`` returns the carried memory and a record.
+updated in place; ``run_epoch`` and ``run_epoch_fused`` (the epoch the
+training CLI runs) return the carried memory and a record, and
+``save_rollout_checkpoint``/``restore_rollout_checkpoint`` keep the best
+epochs by validation loss.
 Options of the JAX trainer that this package does not port yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -254,7 +259,10 @@ class RolloutTrainer:
         self.yscale_sca = None if yscale_sca is None \
             else t(yscale_sca).reshape(-1)
         self._schedule = make_schedule(cfg)
-        self.opt = make_optimizer(cfg, model.parameters())
+        # the parameters the optimizer updates (``finetune.freeze`` takes
+        # some out); every rebuilt optimizer takes the same ones
+        self.trainable = list(model.parameters())
+        self.opt = make_optimizer(cfg, self.trainable)
         self._last_W: int | None = None
 
     def maybe_rescale_optimizer(self, W: int) -> None:
@@ -265,7 +273,7 @@ class RolloutTrainer:
                 and W != self._last_W):
             self.cfg.lr = self.cfg.lr * (W / self._last_W)
             self._schedule = make_schedule(self.cfg)
-            self.opt = make_optimizer(self.cfg, self.model.parameters())
+            self.opt = make_optimizer(self.cfg, self.trainable)
         self._last_W = W
 
     def init(self, sample_window) -> torch.Tensor:
@@ -274,7 +282,7 @@ class RolloutTrainer:
         here the model's constructor did)."""
         x_lev = sample_window["x_lev"][0]
         B, nlev = x_lev.shape[0], x_lev.shape[1]
-        self.opt = make_optimizer(self.cfg, self.model.parameters())
+        self.opt = make_optimizer(self.cfg, self.trainable)
         return torch.zeros(self._mem_shape(B, nlev),
                            dtype=torch.as_tensor(x_lev).dtype,
                            device=self.device)
@@ -424,13 +432,14 @@ class RolloutTrainer:
 
     def update(self, window, mem, mix_mask):
         """One optimizer update on one window: (detached new memory,
-        detached loss)."""
+        detached loss). Autograd is on for it whatever the caller's mode."""
         step = next((int(s["step"]) for s in self.opt.state.values()), 0)
         for group in self.opt.param_groups:
             group["lr"] = self._schedule(step)
         self.opt.zero_grad(set_to_none=True)
-        loss, new_mem = self._window_loss(window, mem, mix_mask)
-        loss.backward()
+        with torch.enable_grad():
+            loss, new_mem = self._window_loss(window, mem, mix_mask)
+            loss.backward()
         self.opt.step()
         # the memory detaches here: the next window starts from its value
         return new_mem.detach(), loss.detach()
@@ -443,6 +452,28 @@ class RolloutTrainer:
         return new_mem, loss
 
     # ------------------------------------------------------------------
+
+    def _mix_mask(self, B: int, frac: float, gen: torch.Generator):
+        """The replay mask of ``mixed`` replay: each column replays with
+        probability ``frac``. The other modes never read it, so none is
+        drawn (and nothing is copied to the device)."""
+        if self.cfg.replay != "mixed":
+            return None
+        return (torch.rand(B, generator=gen) < frac).to(self.device,
+                                                        torch.float32)
+
+    def _fresh_mem(self, mem, chunk):
+        B = chunk["x_lev"].shape[1]
+        if mem is None or mem.shape[0] != B:
+            mem = torch.zeros(self._mem_shape(B, chunk["x_lev"].shape[2]),
+                              dtype=torch.float32, device=self.device)
+        return mem
+
+    def _window(self, chunk, s: int, W: int) -> dict:
+        """Steps s..s+W of a chunk on the device: a view where the chunk
+        already lives there (the CLI's device cache), else one copy."""
+        return {k: torch.as_tensor(v[s:s + W], device=self.device)
+                for k, v in chunk.items()}
 
     def run_epoch(self, mem, chunks, epoch: int, train: bool = True,
                   generator: torch.Generator | None = None):
@@ -461,14 +492,10 @@ class RolloutTrainer:
         t0 = time.time()
         for chunk in chunks:
             T, B = chunk["x_lev"].shape[0], chunk["x_lev"].shape[1]
-            if mem is None or mem.shape[0] != B:
-                mem = torch.zeros(self._mem_shape(B, chunk["x_lev"].shape[2]),
-                                  dtype=torch.float32, device=self.device)
+            mem = self._fresh_mem(mem, chunk)
             for s in range(0, T - W + 1, W):
-                window = {k: torch.as_tensor(v[s:s + W]).to(self.device)
-                          for k, v in chunk.items()}
-                mix_mask = (torch.rand(B, generator=gen) < frac).to(
-                    self.device, torch.float32)
+                window = self._window(chunk, s, W)
+                mix_mask = self._mix_mask(B, frac, gen)
                 if train:
                     mem, loss = self.update(window, mem, mix_mask)
                 else:
@@ -479,3 +506,104 @@ class RolloutTrainer:
                "loss": tot / max(n, 1), "updates": n,
                "seconds": time.time() - t0}
         return mem, rec
+
+
+def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
+                    generator: torch.Generator | None = None):
+    """The training epoch of the CLI (``fused: true``, its default), the
+    counterpart of JAX's one-dispatch-per-chunk epoch
+    (``make_fused_chunk_step``): each chunk of T steps is cut into
+    T // W windows (a remainder is dropped), ONE replay mask is drawn per
+    chunk, and the windows are updated in order with the optimizer
+    stepped after each; the loss is per window and the memory detaches at
+    window edges, as in the per-window path. The host reads the loss once
+    per chunk, as JAX's chunk scan returns it. Returns (memory, record)
+    with JAX's keys: ``loss`` is the mean over chunks of each chunk's mean
+    window loss, ``updates`` the windows updated, ``dispatches`` the
+    chunks."""
+    cfg = trainer.cfg
+    W = cfg.window_for_epoch(epoch)
+    frac = cfg.mix_fraction(epoch)
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(cfg.seed + epoch)
+    trainer.maybe_rescale_optimizer(W)
+    tot, n, updates = 0.0, 0, 0
+    t0 = time.time()
+    for chunk in chunks:
+        T, B = chunk["x_lev"].shape[0], chunk["x_lev"].shape[1]
+        nw = T // W
+        if nw == 0:
+            continue
+        mem = trainer._fresh_mem(mem, chunk)
+        mix_mask = trainer._mix_mask(B, frac, gen)
+        losses = []
+        for i in range(nw):
+            mem, loss = trainer.update(trainer._window(chunk, i * W, W), mem,
+                                       mix_mask)
+            losses.append(loss)
+        tot += float(torch.stack(losses).mean())
+        n += 1
+        updates += nw
+    rec = {"epoch": epoch, "window": W, "mix_frac": frac,
+           "loss": tot / max(n, 1), "updates": updates,
+           "dispatches": n, "seconds": time.time() - t0}
+    return mem, rec
+
+
+# ---------------------------------------------------------------- checkpoint
+
+def save_rollout_checkpoint(path: str, trainer: RolloutTrainer, mem,
+                            epoch: int, val_loss: float | None = None,
+                            keep_top_k: int = 3) -> str:
+    """Best-K checkpoint retention: ``{path}/ep{epoch}.pt`` holds the
+    model's and the optimizer's state dicts, the schedule's state (the
+    base learning rate, which ``timestepped_optimizer`` rescales, and the
+    last window length), the autoregressive memory and the epoch;
+    ``index.json`` lists the kept entries ({"name": "ep{epoch}", "epoch",
+    "val_loss"}) sorted by validation loss, as the JAX package's does, and
+    the files of entries past ``keep_top_k`` are deleted."""
+    os.makedirs(path, exist_ok=True)
+    name = f"ep{epoch}"
+    torch.save({"model": trainer.model.state_dict(),
+                "optimizer": trainer.opt.state_dict(),
+                "schedule": {"lr": trainer.cfg.lr,
+                             "last_window": trainer._last_W},
+                "mem": mem, "epoch": epoch},
+               os.path.join(path, f"{name}.pt"))
+    index_path = os.path.join(path, "index.json")
+    index = []
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            index = json.load(f)
+    index = [e for e in index if e["name"] != name]
+    index.append({"name": name, "epoch": epoch,
+                  "val_loss": val_loss if val_loss is not None else 1e30})
+    index.sort(key=lambda e: e["val_loss"])
+    for stale in index[keep_top_k:]:
+        stale_file = os.path.join(path, f"{stale['name']}.pt")
+        if os.path.exists(stale_file):
+            os.remove(stale_file)
+    index = index[:keep_top_k]
+    with open(index_path, "w") as f:
+        json.dump(index, f)
+    return name
+
+
+def restore_rollout_checkpoint(path: str, trainer: RolloutTrainer,
+                               name: str | None = None):
+    """Load the best (or named) checkpoint into ``trainer``'s model,
+    optimizer and schedule; returns (memory on the trainer's device,
+    epoch)."""
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)
+    entry = index[0] if name is None else \
+        next(e for e in index if e["name"] == name)
+    ck = torch.load(os.path.join(path, f"{entry['name']}.pt"),
+                    map_location=trainer.device, weights_only=True)
+    trainer.model.load_state_dict(ck["model"])
+    trainer.cfg.lr = ck["schedule"]["lr"]
+    trainer._schedule = make_schedule(trainer.cfg)
+    trainer._last_W = ck["schedule"]["last_window"]
+    trainer.opt = make_optimizer(trainer.cfg, trainer.trainable)
+    trainer.opt.load_state_dict(ck["optimizer"])
+    return ck["mem"], ck["epoch"]

@@ -1825,3 +1825,30 @@ def test_run_hybrid_cli_on_card_matches_cpu(cuda, tmp_path, scheme):
     for k in ("mean_T", "precc"):
         np.testing.assert_allclose(card[k], host[k], rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_card(cuda):
+    """data.loader.prefetch_to_device: items copied from pinned host memory
+    on a side stream arrive on the card in order and equal, the consumer's
+    stream waiting on each copy; an error in the source reaches the
+    consumer."""
+    import numpy as np
+    from climsim_tpu_torch.data import prefetch_to_device
+    items = [{"x": np.random.default_rng(i).standard_normal((64, 60, 15))
+              .astype(np.float32), "t": (np.arange(i + 1),)}
+             for i in range(5)]
+    got = list(prefetch_to_device(iter(items), size=2, device=cuda))
+    assert len(got) == 5
+    for g, w in zip(got, items):
+        assert g["x"].device.type == "cuda"
+        assert torch.equal(g["x"].cpu(), torch.from_numpy(w["x"]))
+        assert torch.equal(g["t"][0].cpu(), torch.from_numpy(w["t"][0]))
+
+    def failing():
+        yield np.zeros(3)
+        raise ValueError("bad batch")
+    it = prefetch_to_device(failing(), device=cuda)
+    assert next(it).device.type == "cuda"
+    with pytest.raises(ValueError, match="bad batch"):
+        next(it)
