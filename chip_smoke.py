@@ -49,7 +49,11 @@ The paths, each at full width with random weights from a seed:
 * the rollout-training CLI, ``cli/train_rollout.py``, as a user runs it on
   the physics yaml and the GRU yaml: synthetic data, normalization, the
   yaml's model, fused epochs through the curriculum, validation, the
-  scoreboard, checkpoints and resume.
+  scoreboard, checkpoints and resume;
+* the latitude-sharded coupled step, ``online/host_loop.py::
+  sharded_hybrid_step``, of the v4 arm (B10) on a one-rank NCCL group at
+  21,600 columns (two ranks where the machine has two cards), and the
+  scaling CLI ``cli/scale_bench.py``.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -111,7 +115,10 @@ Phases (any failure exits non-zero):
      512), past the resident-weight design's width: B1 and B3 (weights
      streamed) against their plain versions at 1,000 columns and timed, 3
      coupled steps and one training update at 384 columns with their
-     launches counted; then the width phase (check_widths): every GRU
+     launches counted; the scan arm's sweeps (RNNLayer, bf16, H 192) at
+     21,600 columns bit for bit against the earlier select loop
+     (check_c1_bits: outputs and every gradient); then the width phase
+     (check_widths): every GRU
      kind at 1,000 columns and L 60 in bf16 at H 840 (B7 and B8 also
      968) and in f32 at H 384 and 512 against its plain version, with
      the design the selector chose, its time and its launch count; one
@@ -154,8 +161,21 @@ Phases (any failure exits non-zero):
      must hold no data window); then both yamls at 384 columns for one
      epoch on the card and with device=cpu, loss and val_loss within 1e-4
      plus 4x the CPU's own movement under a 1e-6 change of the learning
-     rate, with the McICA sample indices that differ counted;
- 10. timings with CUDA events (median of 5 repeats for the v6 coupled
+     rate, with the McICA sample indices that differ counted; one chunk
+     of the GRU yaml's scan epoch with the earlier select loop in turns
+     with the unbind sweep (ms per update, peak memory);
+ 10. the sharded coupled step (check_sharded): ``sharded_hybrid_step`` of
+     the v4 arm on a one-rank NCCL group at 21,600 columns in the
+     production configuration, with and without the overlap, against
+     ``coupled_step`` (fields rtol 1e-5 / atol 1e-8, u and v atol 1e-5 of
+     their largest magnitude, memory atol 5e-7), every counter set to 0
+     just before 20 steps and read just after (B10 twice a step with the
+     overlap, once without, no other kernel), ms per step beside the
+     single-device step and the idle share; semi-Lagrangian and vertical
+     transport at 384 columns against ``coupled_step``; ``python -m
+     climsim_tpu_torch.cli.scale_bench --devices 1``; two NCCL ranks
+     against the single-device step where the machine has two cards;
+ 11. timings with CUDA events (median of 5 repeats for the v6 coupled
      step and training update and the kernels; 2 for the other arms'
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
@@ -187,8 +207,10 @@ Phases (any failure exits non-zero):
      fp16, then the latent and output heads as two torch.nn.Linear, for
      B4 with its inputs and outputs permuted between the channel-major and
      the pair's layout), first held to the plain version, then timed
-     beside the kernel;
- 11. a JSON line of the kernels (B7's and B8's entries: the bf16
+     beside the kernel; the scan arm's training update and the physics
+     scan trunk's update at 10,800 columns with the earlier select loop
+     in turns with the unbind sweep (C.1: ms per update, peak memory);
+ 12. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
@@ -200,6 +222,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -2978,6 +3001,363 @@ def heads_yardstick(layer, a, cm, card, label):
     return ms
 
 
+# ------------------------------------------------------------ C.1: the
+# scan sweep's backward (ROADMAP C.1), timed in turns with the earlier code
+
+@functools.lru_cache(maxsize=None)
+def select_layer_cls():
+    """``RNNLayer`` with its earlier forward, which indexed the projection
+    a level at a time (``xs_proj[:, l]``): each select's backward adds a
+    whole zero [B, L, 3H] gradient. Kept here only, to time against."""
+    from climsim_tpu_torch.models.cells import RNNLayer
+
+    class SelectRNNLayer(RNNLayer):
+        def forward(self, xs, h0):
+            xs_proj = self.input_proj(xs)
+            h = h0.to(xs_proj.dtype)
+            L = xs.shape[1]
+            ys = [None] * L
+            for l in (range(L - 1, -1, -1) if self.reverse else range(L)):
+                h = self.cell(h, xs_proj[:, l])
+                ys[l] = h
+            return torch.stack(ys, dim=1), h
+
+    return SelectRNNLayer
+
+
+@contextlib.contextmanager
+def select_loop(model):
+    """Every ``RNNLayer`` of ``model`` steps with the select loop inside."""
+    from climsim_tpu_torch.models.cells import RNNLayer
+    layers = [m for m in model.modules() if type(m) is RNNLayer]
+    check(bool(layers), "no RNNLayer to switch")
+    for m in layers:
+        m.__class__ = select_layer_cls()
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.__class__ = RNNLayer
+
+
+def check_c1_bits(model, card):
+    """The scan arm's sweeps (bf16, H 192) at 21,600 columns: outputs,
+    final carries and the gradients of the input, the carries and every
+    parameter, the unbind sweep against the select loop, bit for bit."""
+    from climsim_tpu_torch.models.cells import RNNLayer
+    ncol = NLAT * NLON
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for layer in [m for m in model.modules() if type(m) is RNNLayer]:
+        nx = layer.input_proj.kernel.shape[0]
+        H = layer.cell.hidden
+        x = torch.randn((ncol, NLEV, nx), generator=g, device="cuda")
+        h0 = torch.randn((ncol, H), generator=g, device="cuda")
+
+        def run():
+            xx, hh = x.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+            layer.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                ys, h = layer(xx, hh)
+                (ys.float().square().sum() + h.float().sum()).backward()
+            return [ys.detach(), h.detach(), xx.grad, hh.grad] + \
+                [p.grad.clone() for p in layer.parameters()]
+
+        new = run()
+        with select_loop(layer):
+            old = run()
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(new, old))
+        print(f"C.1: RNNLayer (reverse {layer.reverse}, {ncol} x {NLEV}, "
+              f"nx {nx}, H {H}, {new[0].dtype}): outputs and {len(new) - 2} "
+              f"gradients of the unbind sweep equal to the select loop's "
+              f"bit for bit: {same} [{card}]")
+        check(same, "C.1: the unbind sweep differs from the select loop")
+        del new, old, x, h0
+    model.zero_grad(set_to_none=True)
+
+
+def c1_in_turns(label, model, run, n_updates, card):
+    """``run()`` (n_updates training updates) with the select loop and with
+    the unbind sweep in turns (select, unbind, unbind, select) after one
+    run of each: ms per update from CUDA events, and each side's peak
+    memory."""
+    times, peaks = {True: [], False: []}, {True: 0.0, False: 0.0}
+    with select_loop(model):
+        run()
+    run()
+    for old in (True, False, False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = select_loop(model) if old else contextlib.nullcontext()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with ctx:
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+        times[old].append(e0.elapsed_time(e1) / n_updates)
+        peaks[old] = max(peaks[old], torch.cuda.max_memory_allocated() / 1e9)
+    print(f"C.1 in turns (select, unbind, unbind, select), {label}: select "
+          f"loop {times[True][0]:.4f} / {times[True][1]:.4f} ms per update "
+          f"(peak {peaks[True]:.3f} GB), unbind sweep {times[False][0]:.4f} "
+          f"/ {times[False][1]:.4f} ms (peak {peaks[False]:.3f} GB) [{card}]")
+
+
+def phys_c1_in_turns(card, ncol):
+    """The physics model's W 3 update with the yaml's scan trunk at
+    ``ncol`` columns, where the select loop's update fits the card, in
+    turns with the select loop."""
+    model = make_phys_model(None)
+    trainer = make_phys_trainer(model, None, train=True)
+    chunk = phys_chunk(PHYS_T_TRAIN, ncol, "cuda", seed=7)
+
+    def run():
+        with torch.enable_grad():
+            trainer.run_epoch(None, [chunk], 0)
+    c1_in_turns(f"physics update, scan trunk (W {PHYS_W}, {ncol} columns, "
+                f"f32)", model, run, PHYS_T_TRAIN // PHYS_W, card)
+
+
+# ------------------------------------------------------------ phase 10:
+# the sharded coupled step
+
+# the sharded step's other transports, at 384 columns against coupled_step
+SHARDED_OTHER = {"semi_lagrangian": dict(scheme="semi_lagrangian"),
+                 "vertical": dict(vertical_advection=True)}
+
+
+def sharded_loop(model, grid, nlat, nlon, device=None, **over):
+    """The v4 arm's coupled step in the production configuration (sphere
+    FV, both fixers, batch-major) with the per-field plain transport, the
+    one the sharded step runs (``use_pallas=False``)."""
+    import dataclasses
+    from climsim_tpu_torch.online import HybridLoop
+    loop = make_loop(model, grid, nlat, nlon, device, "v4")
+    cfg = dataclasses.replace(loop.cfg, use_pallas=False, **over)
+    return HybridLoop(loop.emulator, grid, cfg, device=device)
+
+
+def to_bands(loop, state, mem, x_sfc, rank=0, nranks=1):
+    """Rank ``rank``'s latitude band of the columns' state in the sharded
+    step's layout: fields [nlat/n, nlon, nlev], mem [nlat/n * nlon, L, nm]
+    (the band's columns in grid order), x_sfc [nlat/n, nlon, ns]."""
+    from climsim_tpu_torch.online import to_grid
+    nlat, nlon = loop.cfg.nlat, loop.cfg.nlon
+    n = nlat // nranks
+    rows = slice(rank * n, (rank + 1) * n)
+    tog = lambda a: to_grid(a, loop.gather_idx, nlat, nlon)[rows].contiguous()
+    return ({k: tog(v) for k, v in state.items()},
+            mem[loop.gather_idx][rank * n * nlon:(rank + 1) * n * nlon]
+            .contiguous(), tog(x_sfc))
+
+
+def sharded_rollout(step, state, mem, x_sfc, n):
+    for _ in range(n):
+        state, mem, diags = step(state, mem, x_sfc)
+    return state, mem, diags
+
+
+def sharded_err(loop, got, want):
+    """The largest error of the sharded step's bands ``got`` (state, mem,
+    diagnostics) against coupled_step's ``want`` in the bound of
+    tests/test_online.py:416-446 (fields rtol 1e-5 / atol 1e-8, u and v
+    atol 1e-5 of their largest magnitude; mem rtol 1e-5 / atol 5e-7), as a
+    multiple of the bound (<= 1 passes); and the largest absolute field
+    error."""
+    from climsim_tpu_torch.online import to_grid
+    nlat, nlon = loop.cfg.nlat, loop.cfg.nlon
+    tog = lambda a: to_grid(a, loop.gather_idx, nlat, nlon)
+    worst, abs_err = 0.0, 0.0
+    for k, w in want[0].items():
+        w = tog(w)
+        atol = 1e-5 * float(w.abs().max()) if k in ("u", "v") else 1e-8
+        d = (got[0][k] - w).abs()
+        abs_err = max(abs_err, float(d.max()))
+        worst = max(worst, float((d / (atol + 1e-5 * w.abs())).max()))
+    wm = want[1][loop.gather_idx]
+    worst = max(worst, float(((got[1] - wm).abs()
+                              / (5e-7 + 1e-5 * wm.abs())).max()))
+    return worst, abs_err
+
+
+def sharded_ranks(rank, nprocs, rendezvous, out_dir):
+    """One of ``nprocs`` NCCL ranks, one card each: the v4 arm's sharded
+    step at 21,600 columns on this rank's band (overlap on), one step
+    saved, then N_STEPS timed with CUDA events (rank 0 writes the ms)."""
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.online import sharded_hybrid_step
+    from climsim_tpu_torch.parallel import init_distributed, make_mesh
+    os.environ["LOCAL_RANK"] = str(rank)
+    init_distributed(rendezvous, nprocs, rank)
+    try:
+        dev = torch.device("cuda", rank)
+        model = make_model(BF16, None, arm="v4")
+        loop = sharded_loop(model, ProxyGrid(NLAT, NLON, NLEV, dev), NLAT,
+                            NLON)
+        bands = to_bands(loop, *initial_state(NLAT * NLON, NLEV, dev, False),
+                         rank=rank, nranks=nprocs)
+        step = sharded_hybrid_step(loop, make_mesh(nprocs, axis="col"))
+        with torch.no_grad():
+            out = step(*bands)
+            torch.save({"state": {k: v.cpu() for k, v in out[0].items()},
+                        "mem": out[1].cpu()},
+                       os.path.join(out_dir, f"rank{rank}.pt"))
+            ms = median_ms(lambda: sharded_rollout(step, *bands, N_STEPS), 1,
+                           repeats=OLD_REPEATS, queue_ahead=False) / N_STEPS
+        if rank == 0:
+            with open(os.path.join(out_dir, "ms.json"), "w") as f:
+                json.dump({"ms": ms}, f)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def check_sharded(card, model):
+    """Phase 10: ``sharded_hybrid_step`` of the v4 arm (B10, bf16) on a
+    one-rank NCCL group at 21,600 columns in the production configuration:
+    with and without the overlap against coupled_step (sharded_err's
+    bound), B10's launches per step (bulk and ghost rows with the overlap,
+    the bulk alone without), ms per step (N_STEPS steps, CUDA events,
+    median of OLD_REPEATS) beside the single-device step of the same
+    configuration, the device idle share; semi-Lagrangian and vertical
+    transport at 384 columns against coupled_step; the scaling benchmark's
+    CLI at its defaults on one card; and where the machine has two cards,
+    two NCCL ranks against the single-device step. Returns B10's launches
+    in the 20-step run with the overlap."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.online import sharded_hybrid_step
+    from climsim_tpu_torch.parallel import init_distributed, make_mesh
+    ncol = NLAT * NLON
+    dev = torch.device("cuda")
+    init_distributed()                       # one rank, NCCL, this card
+    try:
+        mesh = make_mesh(1, axis="col")
+        loop = sharded_loop(model, ProxyGrid(NLAT, NLON, NLEV, dev), NLAT,
+                            NLON)
+        inputs = initial_state(ncol, NLEV, dev, level_major=False)
+        bands = to_bands(loop, *inputs)
+        want = loop.coupled_step(*inputs)
+        wrappers = all_wrappers()
+        steps, ms, launches = {}, {}, {}
+        for overlap, per_step in ((True, 2), (False, 1)):
+            step = steps[overlap] = sharded_hybrid_step(loop, mesh,
+                                                        overlap=overlap)
+            worst, abs_err = sharded_err(loop, step(*bands), want)
+            print(f"sharded step, world size 1, overlap {overlap}, {ncol} "
+                  f"columns, v4 arm (B10 bf16): against coupled_step "
+                  f"{worst:.3f} of the bound, largest field error "
+                  f"{abs_err:.3e} [{card}]")
+            check(worst <= 1.0, f"sharded step (overlap {overlap}) against "
+                  f"coupled_step: {worst:.3f} of the bound")
+            for w in wrappers.values():
+                w.launches = 0
+            st, _, diags = sharded_rollout(step, *bands, N_STEPS)
+            torch.cuda.synchronize()
+            launches[overlap] = {k: w.launches for k, w in wrappers.items()
+                                 if w.launches}
+            check(launches[overlap] == {"b10": per_step * N_STEPS},
+                  f"sharded step (overlap {overlap}): launches "
+                  f"{launches[overlap]} in {N_STEPS} steps, want B10 "
+                  f"{per_step} a step")
+            check(all(bool(torch.isfinite(v).all()) for v in st.values()),
+                  "sharded state not finite")
+            mean_t = float(diags["mean_T"])
+            check(150 < mean_t < 350, f"sharded mean_T {mean_t}")
+            ms[overlap] = median_ms(
+                lambda: sharded_rollout(step, *bands, N_STEPS), 1,
+                repeats=OLD_REPEATS, queue_ahead=False) / N_STEPS
+        single = median_ms(lambda: loop.rollout(*inputs, N_STEPS), 1,
+                           repeats=OLD_REPEATS, queue_ahead=False) / N_STEPS
+        busy, top = profile_kernels(
+            lambda: sharded_rollout(steps[True], *bands, 3), top=4)
+        print(f"sharded step, world size 1, {ncol} columns: overlap "
+              f"{ms[True]:.4f} ms/step (B10 {launches[True]['b10']} launches "
+              f"in {N_STEPS} steps), no overlap {ms[False]:.4f} ms/step (B10 "
+              f"{launches[False]['b10']}), coupled_step of the same "
+              f"configuration {single:.4f} ms/step [{card}]")
+        print("sharded step, overlap, by kernel "
+              + (f"(torch.profiler device time, per step): busy "
+                 f"{busy / 3:.4f} ms of {ms[True]:.4f} ms, idle share "
+                 f"{max(0.0, 1 - busy / 3 / ms[True]):.3f}; "
+                 + "; ".join(f"{k[:40]} {t / 3:.4f} ms" for k, t in top)
+                 if busy > 0 else "(torch.profiler): the profiler saw no "
+                 "device time: not measured") + f" [{card}]")
+        del steps, want
+        lo = LO_NLAT * LO_NLON
+        grid = Grid.synthetic(lo, NLEV, device=dev)
+        for name, over in SHARDED_OTHER.items():
+            lloop = sharded_loop(model, grid, LO_NLAT, LO_NLON, **over)
+            lin = initial_state(lo, NLEV, dev, level_major=False)
+            worst, abs_err = sharded_err(lloop, sharded_hybrid_step(
+                lloop, mesh)(*to_bands(lloop, *lin)), lloop.coupled_step(*lin))
+            print(f"sharded step, {name}, {lo} columns: against coupled_step "
+                  f"{worst:.3f} of the bound, largest field error "
+                  f"{abs_err:.3e} [{card}]")
+            check(worst <= 1.0, f"sharded step, {name}: {worst:.3f} of the "
+                  "bound")
+        run_scale_bench(card)
+        n_cards = torch.cuda.device_count()
+        if n_cards < 2:
+            print(f"sharded step on 2 NCCL ranks: not run, this machine has "
+                  f"{n_cards} GPU and NCCL takes one rank a card [{card}]")
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                mp.spawn(sharded_ranks, nprocs=2, join=True,
+                         args=(2, "file://" + os.path.join(tmp, "rdv"), tmp))
+                parts = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                         for r in range(2)]
+                with open(os.path.join(tmp, "ms.json")) as f:
+                    ms2 = json.load(f)["ms"]
+            got = ({k: torch.cat([p["state"][k] for p in parts]).to(dev)
+                    for k in parts[0]["state"]},
+                   torch.cat([p["mem"] for p in parts]).to(dev))
+            worst, abs_err = sharded_err(loop, got, loop.coupled_step(*inputs))
+            print(f"sharded step on 2 NCCL ranks, {ncol} columns: against "
+                  f"coupled_step {worst:.3f} of the bound, largest field "
+                  f"error {abs_err:.3e}; {ms2:.4f} ms/step against "
+                  f"{ms[True]:.4f} on one card, scaling efficiency "
+                  f"{ms[True] / (2 * ms2):.3f} [{card}]")
+            check(worst <= 1.0, f"2 ranks: {worst:.3f} of the bound")
+    finally:
+        dist.destroy_process_group()
+    return launches[True]["b10"]
+
+
+def run_scale_bench(card):
+    """``python -m climsim_tpu_torch.cli.scale_bench --devices 1`` at its
+    defaults, from a directory holding a grid file at its default place."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="scale_bench", dir=root)
+    try:
+        path = os.path.join(tmp, "grid_info", "ClimSim_low-res_grid-info.nc")
+        os.makedirs(os.path.dirname(path))
+        write_grid_file(path, LO_NLAT * LO_NLON)
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m",
+                              "climsim_tpu_torch.cli.scale_bench",
+                              "--devices", "1"], cwd=tmp, env=env,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"scale_bench exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in out.stdout.splitlines()
+                 if ln.startswith("{")]
+        check(len(lines) == 1 and set(lines[0]) == {
+            "devices", "gridpoints_per_s", "scaling_efficiency"},
+            f"scale_bench printed {out.stdout[-500:]}")
+        print(f"cli scale_bench --devices 1 (64 x 128 x 60, 10 steps, one "
+              f"NCCL rank): {lines[0]}; wall {wall:.1f} s with the rank's "
+              f"start [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3215,6 +3595,19 @@ def compare_cli_384(card, grid, yaml, model_cls):
           f"device=cpu: " + "; ".join(worst) + mc + f" [{card}]")
 
 
+def gru_c1_in_turns(r, card):
+    """One chunk of the GRU yaml's scan-arm epoch (W 1) through the run's
+    own trainer, the select loop in turns with the unbind sweep."""
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    run = r.run
+    chunk = next(run.chunks(0, run.ntr, True, seed=1))
+    n = run_epoch_fused(run.trainer, None, [chunk], 1)[1]["updates"]
+    c1_in_turns(f"GRU yaml, scan arm (W 1, {GRU_CLI_NCOL} columns, f32, one "
+                f"chunk of {n} updates)", run.trainer.model,
+                lambda: run_epoch_fused(run.trainer, None, [chunk], 1), n,
+                card)
+
+
 def check_train_cli(card):
     """The training CLI (``python -m climsim_tpu_torch.cli.train_rollout``,
     through its main) on a 384-column grid file under build/: the physics
@@ -3293,6 +3686,7 @@ def check_train_cli(card):
         check(r.launches == {}, f"the scan arm launched {r.launches}")
         cli_epoch_profile("GRU yaml (scan arm)", r, 1, GRU_CLI_NCOL, card,
                           os.path.join(tmp, "trace.json"))
+        gru_c1_in_turns(r, card)
         r = None
         gc.collect()
         torch.cuda.empty_cache()
@@ -3442,6 +3836,7 @@ def main() -> int:
     v4_launches = arm_trainers["v4"][2]
     for arm in ("v6", "scan", "v4"):
         compare_train_384(card, arm)
+    check_c1_bits(arm_trainers["scan"][0].model, card)
     check_wide(card)
     check_widths(card)
     phase_done(6)
@@ -3482,7 +3877,12 @@ def main() -> int:
     check_train_cli(card)
     phase_done(9)
 
-    # ---- 10. timings; the paths of earlier slices with OLD_REPEATS
+    # ---- 10. the sharded coupled step (v4, B10) on a one-rank NCCL group
+    # at 21,600 columns, its other transports at 384, the scaling CLI
+    sharded_b10 = check_sharded(card, lbh_models["b10"])
+    phase_done(10)
+
+    # ---- 11. timings; the paths of earlier slices with OLD_REPEATS
 
     def step_ms(lp, s, m, x, repeats=OLD_REPEATS):
         return median_ms(lambda: lp.rollout(s, m, x, N_STEPS), 1,
@@ -3567,6 +3967,13 @@ def main() -> int:
     for arm, (atr, achunk, _, an) in arm_trainers.items():
         time_training(atr, achunk, an, arm, card, repeats=OLD_REPEATS,
                       split=True)
+        if arm == "scan":
+            def scan_epoch(tr=atr, c=achunk):
+                with torch.enable_grad():
+                    tr.run_epoch(None, [c], epoch=0)
+            c1_in_turns(f"training update, arm scan (W {W_TRAIN}, remat, "
+                        f"{ncol} columns, bf16)", atr.model, scan_epoch, an,
+                        card)
     del arm_trainers, atr, achunk
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
     b3_ms = designs_in_turns("B3", lambda: cudacore_bigru_heads_cm_bwd(*a3),
@@ -3806,6 +4213,10 @@ def main() -> int:
 
     time_phys_update(s_ptrainer, s_pchunk, n_pupd, s_pcols, card)
     del s_ptrainer, s_pchunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    phys_c1_in_turns(card, PHYS_CLI_NCOL)
+    gc.collect()
     torch.cuda.empty_cache()
     time_phys_update(ptrainer, pchunk, n_pupd, ncol, card)
     from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
@@ -3856,8 +4267,8 @@ def main() -> int:
               f"({pbb[key][3] / 1e6:.1f} MB at 3.35 TB/s; "
               f"{pbb[key][2] / 1e9:.3f} GFLOP) [{card}]")
 
-    # ---- 11. the kernels line, the card line, the result
-    phase_done(10)
+    # ---- 12. the kernels line, the card line, the result
+    phase_done(11)
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -3958,7 +4369,8 @@ def main() -> int:
          "launches": arm_launches["v4"]["b10"],
          "max_abs_err": b9_b10_errs["b10"], "ms": b10_ms,
          "plain_ms": b10_plain, "bound_ms": lb["b10"][0],
-         "bound_by": lb["b10"][1], "library_ms": None},
+         "bound_by": lb["b10"][1], "library_ms": None,
+         "sharded_step_launches": sharded_b10},
     ]
     # the f32 instances of the kinds whose f32 runs the CUDA-core design
     f32_of = {"bigru_heads_init_cm": "b1", "bigru_heads_cm_bwd": "b3",

@@ -102,10 +102,13 @@ class RNNLayer(nn.Module):
     def forward(self, xs, h0):
         xs_proj = self.input_proj(xs)                  # [B, L, 3H]
         h = h0.to(xs_proj.dtype)
-        L = xs.shape[1]
+        # one unbind, whose backward is one stack: a select per level would
+        # add a whole zero [B, L, 3H] gradient per level in the backward
+        levels = xs_proj.unbind(1)
+        L = len(levels)
         ys = [None] * L
         for l in (range(L - 1, -1, -1) if self.reverse else range(L)):
-            h = self.cell(h, xs_proj[:, l])
+            h = self.cell(h, levels[l])
             ys[l] = h
         return torch.stack(ys, dim=1), h
 

@@ -5,11 +5,10 @@ operators: the proxy-grid mapping (``build_proxy_grid``, ``to_grid``,
 ``to_columns``), the spherical metric, the MC-limited flux-form FV step on
 the flat raster (``fv_advect_2d``, ``fv_advect_2d_halo``) and on the
 sphere (``fv_advect_2d_sphere``, ``fv_advect_2d_sphere_halo``),
-semi-Lagrangian transport (``semi_lagrangian_2d``) and its halo monitor,
-the omega-diagnosed vertical transport (``diagnose_omega``,
+semi-Lagrangian transport (``semi_lagrangian_2d``, and
+``semi_lagrangian_2d_halo`` with its monitor for the latitude-sharded
+step), the omega-diagnosed vertical transport (``diagnose_omega``,
 ``vertical_advect_column``) and the multiplicative conservation fixer.
-``semi_lagrangian_2d_halo`` serves only the sharded step and waits for it
-(ROADMAP A.10).
 
 ClimSim's unstructured columns are mapped once to a structured
 [nlat, nlon] proxy grid (latitude bands, then longitude within a band).
@@ -241,6 +240,54 @@ def semi_lagrangian_2d(q: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     def at(ii, jj):
         idx = (ii * nlon + jj).expand(q.shape).reshape(flat.shape)
         return torch.gather(flat, -1, idx).reshape(q.shape)
+
+    return ((1 - fi) * ((1 - fj) * at(i0, j0) + fj * at(i0, j1))
+            + fi * ((1 - fj) * at(i1, j0) + fj * at(i1, j1)))
+
+
+def semi_lagrangian_2d_halo(q_ext: torch.Tensor, u_ext: torch.Tensor,
+                            v_ext: torch.Tensor, dt_dx_rows: torch.Tensor,
+                            dt_dy_rows: torch.Tensor, row0: int,
+                            nlat_total: int, halo: int = 2) -> torch.Tensor:
+    """Semi-Lagrangian transport of a latitude band on [..., nlat_local +
+    2*halo, nlon] fields extended by ``halo`` ghost rows; returns the
+    interior rows. ``dt_dx_rows``/``dt_dy_rows`` are per-extended-row
+    factors [n_ext, 1] (constant on the flat raster, the metric's rows,
+    edge-padded, on the sphere); ``row0`` is the global index of the first
+    interior row and ``nlat_total`` the global row count.
+
+    Equal to :func:`semi_lagrangian_2d` on the whole grid where the
+    meridional displacement stays within the halo (|v|*dt_dy <= halo - 1,
+    one more row for the interpolation); beyond it the trajectory clamps to
+    the outermost ghost row, silently:
+    :func:`semi_lagrangian_halo_clip_fraction` measures how often."""
+    n_ext, nlon = q_ext.shape[-2:]
+    n = n_ext - 2 * halo
+    f32, dev = torch.float32, q_ext.device
+    u = u_ext[..., halo:halo + n, :]
+    v = v_ext[..., halo:halo + n, :]
+    # global fractional row indices of the interior rows, in float32 as JAX
+    ig = torch.arange(n, dtype=f32, device=dev)[:, None] + row0
+    j = torch.arange(nlon, dtype=f32, device=dev)
+    dep_i = ig - v * dt_dy_rows[halo:halo + n]
+    dep_j = j - u * dt_dx_rows[halo:halo + n]
+    i0g = torch.clamp(torch.floor(dep_i), 0, nlat_total - 1)
+    fi = torch.clamp(dep_i - i0g, 0.0, 1.0)
+    i1g = torch.clamp(i0g + 1, 0, nlat_total - 1)
+    # global rows -> rows of the extended window, clamped to its ghosts
+    loc = lambda a: torch.clamp(a.to(torch.int64) - row0 + halo, 0, n_ext - 1)
+    i0, i1 = loc(i0g), loc(i1g)
+    j0f = torch.floor(dep_j)
+    fj = dep_j - j0f
+    j0 = torch.remainder(j0f.to(torch.int64), nlon)     # floor-mod
+    j1 = torch.remainder(j0 + 1, nlon)
+    lead = torch.broadcast_shapes(q_ext.shape[:-2], i0.shape[:-2])
+    flat = q_ext.expand(lead + (n_ext, nlon)).reshape(lead + (n_ext * nlon,))
+
+    def at(ii, jj):
+        idx = (ii * nlon + jj).expand(lead + (n, nlon))
+        return torch.gather(flat, -1, idx.reshape(lead + (n * nlon,))
+                            ).reshape(lead + (n, nlon))
 
     return ((1 - fi) * ((1 - fj) * at(i0, j0) + fj * at(i0, j1))
             + fi * ((1 - fj) * at(i1, j0) + fj * at(i1, j1)))

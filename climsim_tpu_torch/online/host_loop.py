@@ -14,8 +14,9 @@ spherical or flat geometry, finite-volume (``scheme="fv"``, per field or
 through the fused multi-tracer kernel with ``use_pallas``),
 semi-Lagrangian or no transport (``"none"``), vertical advection, both
 fixers, the channel-major and the batch-major emulator contracts and a
-caller's ``feature_builder``. ``sharded_hybrid_step`` waits for the
-multi-device slice (ROADMAP A.10).
+caller's ``feature_builder``; and ``sharded_hybrid_step``, the same step
+on latitude bands over the ranks of a ``torch.distributed`` mesh axis
+(halo exchange, ghost-row emulator, all-reduced fixers).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import constants as C
 from ..ops import (fv_advect_levels, fv_advect_tracers,
@@ -285,3 +287,227 @@ class HybridLoop:
         stacked = {k: torch.stack([d[k] for d in history])
                    for k in history[0]} if history else {}
         return state, mem, stacked
+
+
+FIELDS = ("T", "qv", "qc", "qi", "u", "v")
+
+
+def _updates(s, ptend, dt):
+    """The six fields stacked on the last axis, advanced by the physics
+    tendencies of the same layout; the three water species clamped at 0."""
+    upd = s + dt * ptend
+    upd[..., 1:4].clamp_(min=0.0)
+    return upd
+
+
+def sharded_hybrid_step(loop: HybridLoop, mesh, axis: str = "col",
+                        overlap: bool = True):
+    """The coupled step of ``loop`` on latitude bands over the ranks of the
+    mesh axis ``axis``, equal to :meth:`HybridLoop.coupled_step` on the
+    whole grid: the emulator runs on each rank's columns; the transport
+    (FV or semi-Lagrangian, flat or spherical) takes its 2 ghost rows a
+    side from the neighbours (``parallel.halo``); vertical advection
+    diagnoses omega from halo-1 updated winds; the water and energy
+    fixers and the diagnostics close their global sums with all-reduces.
+
+    Returns ``step(state, mem, x_sfc) -> (state, mem, diagnostics)``, which
+    every rank calls on its own rows: fields ``[nlat/n, nlon, nlev]`` (proxy
+    grid layout), ``x_sfc [nlat/n, nlon, ns]``, ``mem [nlat/n * nlon, L,
+    nm]`` (the batch-major emulator contract, the band's columns in grid
+    order); the rows of rank i are rows i nlat/n to (i + 1) nlat/n - 1. It
+    returns the rank's rows and diagnostics (``mean_T``, and with a fixer
+    ``energy_resid`` and ``energy_int``) equal on every rank. JAX takes and
+    returns the global arrays, being one controller over every device.
+
+    ``overlap=True`` starts the exchange of the inputs' ghost rows (state,
+    x_sfc, memory; width 2) before the emulator and waits for it after,
+    then runs the emulator again on the 4 x nlon ghost columns, so that no
+    exchange follows the emulator; with vertical advection the step runs
+    without it, as JAX's. The transport is the plain per-field operator
+    whatever ``cfg.use_pallas`` says, as in JAX. Only the batch-major
+    contract without a feature builder is taken, as JAX's sharded step
+    takes only that: the others raise."""
+    from ..parallel import axis_rank, exchange_halo
+
+    cfg = loop.cfg
+    if cfg.emulator_level_major:
+        raise ValueError("sharded_hybrid_step takes the batch-major emulator "
+                         "contract only (emulator_level_major=False)")
+    if loop.feature_builder is not None:
+        raise ValueError("sharded_hybrid_step feeds the six prognostic "
+                         "fields: a feature_builder is not taken")
+    idx, nsh = axis_rank(mesh, axis)
+    if cfg.nlat % nsh:
+        raise ValueError(f"nlat {cfg.nlat} does not divide over {nsh} ranks")
+    nlat_l, nlon = cfg.nlat // nsh, cfg.nlon
+    halo = 2
+    if nlat_l < halo:
+        raise ValueError(f"{nlat_l} rows a rank, fewer than the halo {halo}")
+    group = mesh.get_group(axis)
+    row0 = idx * nlat_l
+    dev = loop.device
+    transport = cfg.scheme != "none"
+    use_overlap = overlap and transport and not cfg.vertical_advection
+    fixing = (cfg.fix_water or cfg.fix_energy) and transport
+    rows = loop.metric_rows
+
+    def ext_rows(a, pad):
+        """A per-row metric tensor [nlat] at this band's rows with ``pad``
+        edge-clamped rows a side."""
+        i = torch.arange(-pad, nlat_l + pad, device=dev) + row0
+        return a[i.clamp(0, cfg.nlat - 1)]
+
+    # this band's per-cell area weights [nlat_l, nlon, 1]
+    aw = torch.ones((nlat_l, nlon, 1), dtype=torch.float32, device=dev)
+    if loop.area_wgt is not None:
+        band = loop.gather_idx.reshape(cfg.nlat, nlon)[row0:row0 + nlat_l]
+        aw = torch.as_tensor(loop.area_wgt, device=dev)[band][..., None]
+    if cfg.scheme == "semi_lagrangian":
+        if rows is not None:
+            sl_dx = ext_rows(rows.dtdx, halo)[:, None]
+            sl_dy = ext_rows(rows.dtdy, halo)[:, None]
+        else:
+            sl_dx = torch.full((nlat_l + 2 * halo, 1), cfg.dt_dx,
+                               device=dev)
+            sl_dy = torch.full((nlat_l + 2 * halo, 1), cfg.dt_dy,
+                               device=dev)
+
+    def psum(*scalars):
+        """The sums over the axis of local scalars, in one all-reduce."""
+        v = torch.stack(scalars)
+        dist.all_reduce(v, group=group)
+        return v.unbind()
+
+    def advect(x):
+        """x [6, nlev, nlat_l + 4, nlon] -> the interior rows transported
+        by the winds x[4], x[5]."""
+        u, v = x[4], x[5]
+        if cfg.scheme == "semi_lagrangian":
+            return adv.semi_lagrangian_2d_halo(x, u, v, sl_dx, sl_dy, row0,
+                                               cfg.nlat, halo)
+        if rows is not None:
+            return adv.fv_advect_2d_sphere_halo(x, u, v, rows, row0, halo)
+        return adv.fv_advect_2d_halo(x, u, v, cfg.dt_dx, cfg.dt_dy,
+                                     idx == 0, idx == nsh - 1, halo)
+
+    def vertical_advect(upd, dp):
+        """Omega-diagnosed vertical transport of T, qv, qc, qi in ``upd``
+        [nlat_l, nlon, nlev, 6]: diagnose_omega's divergence from the
+        updated winds with one ghost row a side (the global edges clamped,
+        as its one-sided difference)."""
+        uv = upd[..., 4:6]
+        if rows is not None:
+            e = exchange_halo(uv, mesh, axis, 1)
+            u_e, v_e = e[..., 0], e[..., 1]
+            col = lambda a: a[:, None, None]
+            cosc = col(ext_rows(rows.cosc, 1))
+            dudx = (torch.roll(u_e[1:-1], -1, 1)
+                    - torch.roll(u_e[1:-1], 1, 1)) * 0.5 \
+                * col(ext_rows(rows.dtdx, 0))
+            vcos = v_e * cosc
+            dvdy = (vcos[2:] - vcos[:-2]) * 0.5 \
+                * col(ext_rows(rows.dtdy, 0)) / cosc[1:-1]
+        else:
+            e = exchange_halo(uv * torch.tensor([cfg.dt_dx, cfg.dt_dy],
+                                                device=dev), mesh, axis, 1)
+            u_e, v_e = e[..., 0], e[..., 1]
+            dudx = (torch.roll(u_e[1:-1], -1, 1)
+                    - torch.roll(u_e[1:-1], 1, 1)) * 0.5
+            dvdy = (v_e[2:] - v_e[:-2]) * 0.5
+        col_int = torch.cumsum((dudx + dvdy) * dp, dim=-1)
+        omega = -torch.cat([torch.zeros_like(col_int[..., :1]), col_int],
+                           dim=-1)
+        flat = lambda a: a.reshape(nlat_l * nlon, a.shape[-1])
+        out = upd.clone()
+        for i in range(4):
+            out[..., i] = adv.vertical_advect_column(
+                flat(upd[..., i]), flat(omega), flat(dp), 1.0
+            ).reshape(nlat_l, nlon, -1)
+        return out
+
+    def step(state: dict, mem, x_sfc):
+        if state["T"].shape[:2] != (nlat_l, nlon):
+            raise ValueError(f"state rows {tuple(state['T'].shape[:2])}: "
+                             f"this rank holds ({nlat_l}, {nlon})")
+        s = torch.stack([state[k] for k in FIELDS], dim=-1)
+        nlev = s.shape[2]
+        flat = lambda a: a.reshape((nlat_l * nlon,) + tuple(a.shape[2:]))
+        if use_overlap:
+            # 1. start the exchange of the inputs' ghost rows: it does not
+            # depend on the emulator, so it runs beside step 2
+            edge = lambda a: torch.cat([a[:halo], a[-halo:]])
+            mem_rows = mem.reshape((nlat_l, nlon) + tuple(mem.shape[1:]))
+            pending = [exchange_halo(edge(a), mesh, axis, halo,
+                                     async_op=True)
+                       for a in (s, x_sfc, mem_rows)]
+
+        # 2. the emulator on this band's columns
+        ptend, sfc_fluxes, mem_new = loop.emulator(flat(s), flat(x_sfc), mem)
+        ptend = ptend.reshape(nlat_l, nlon, nlev, 6)
+        upd = _updates(s, ptend, cfg.dt)
+
+        ps = flat(x_sfc)[:, 0]
+        w = None
+        if fixing:
+            w = loop.grid.mass_weights(ps).reshape(nlat_l, nlon, nlev) * aw
+        if cfg.vertical_advection and transport:
+            dp = loop.grid.layer_thickness(ps).reshape(nlat_l, nlon, nlev)
+            upd = vertical_advect(upd, dp)
+
+        if transport:
+            if use_overlap:
+                # 3. the emulator on the 4 ghost rows: the neighbours'
+                # updated boundary rows, computed here rather than sent
+                # after their emulator
+                ghost = [torch.cat([e[:halo], e[-halo:]])
+                         for e in (p.wait() for p in pending)]
+                g = lambda a: a.reshape((2 * halo * nlon,)
+                                        + tuple(a.shape[2:]))
+                pt_g, _, _ = loop.emulator(*(g(a) for a in ghost))
+                gupd = _updates(ghost[0], pt_g.reshape(ghost[0].shape),
+                                cfg.dt)
+                upd_ext = torch.cat([gupd[:halo], upd, gupd[halo:]])
+            else:
+                upd_ext = exchange_halo(upd, mesh, axis, halo)
+            x = upd_ext.permute(3, 2, 0, 1).contiguous()
+            out = advect(x).permute(2, 3, 1, 0)     # [nlat_l, nlon, nlev, 6]
+        else:
+            out = upd
+        o = dict(zip(FIELDS, out.unbind(-1)))
+        before = dict(zip(FIELDS, upd.unbind(-1)))
+
+        if fixing:
+            water = ("qv", "qc", "qi") if cfg.fix_water else ()
+            qn = {k: torch.clamp(o[k], min=0.0) for k in water}
+            sums = psum(*[torch.sum(before[k] * w) for k in water],
+                        *[torch.sum(qn[k] * w) for k in water],
+                        _energy_integral(before["T"], before["qc"],
+                                         before["qi"], w),
+                        torch.sum(w))
+            nw = len(water)
+            for i, k in enumerate(water):
+                o[k] = qn[k] * (sums[i] / torch.clamp(sums[nw + i],
+                                                      min=1e-30))
+            if cfg.fix_energy:
+                e_pre, w_sum = sums[2 * nw], sums[2 * nw + 1]
+                (e_post,) = psum(_energy_integral(o["T"], o["qc"], o["qi"],
+                                                  w))
+                o["T"] = o["T"] + (e_pre - e_post) / (C.CP * w_sum)
+
+        local = [torch.mean(o["T"])]
+        if w is not None:
+            snow = 1000.0 * sfc_fluxes[:, 2]
+            rain = 1000.0 * sfc_fluxes[:, 3] - snow
+            pt = flat(ptend)
+            col = torch.sum(flat(w) * (C.CP * pt[:, :, 0] - C.LV * pt[:, :, 2]
+                                       - C.LSUB * pt[:, :, 3]), dim=1)
+            local += [torch.mean(col - C.LV * rain - C.LSUB * snow),
+                      _energy_integral(o["T"], o["qc"], o["qi"], w)]
+        tot = psum(*local)
+        diags = {"mean_T": tot[0] / nsh}
+        if w is not None:
+            diags["energy_resid"] = tot[1] / nsh
+            diags["energy_int"] = tot[2]
+        return ({k: o[k].contiguous() for k in FIELDS}, mem_new, diags)
+
+    return step

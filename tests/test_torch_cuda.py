@@ -1852,3 +1852,75 @@ def test_prefetch_to_device_on_card(cuda):
     assert next(it).device.type == "cuda"
     with pytest.raises(ValueError, match="bad batch"):
         next(it)
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_size_one_on_card(cuda):
+    """sharded_hybrid_step on a one-rank NCCL group, the v4 arm (B10) in
+    bf16 on 384 columns in the production configuration, with and without
+    the overlap, against HybridLoop.coupled_step on the same inputs (the
+    fields rtol 1e-5 / atol 1e-8, u and v atol 1e-5 of their largest
+    magnitude, the memory atol 5e-7); B10 launches twice a step with the
+    overlap (bulk and ghost rows), once without."""
+    import torch.distributed as dist
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import BF16, RNNAutoreg
+    from climsim_tpu_torch.online import (HostLoopConfig, HybridLoop,
+                                          sharded_hybrid_step, to_grid)
+    from climsim_tpu_torch.ops import fused_bigru_heads_init_lbh as b10
+    from climsim_tpu_torch.parallel import init_distributed, make_mesh
+    nlat, nlon, nlev = 16, 24, 60
+    ncol = nlat * nlon
+    model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(192, 192),
+                       nh_mem=16, add_pres=False, policy=BF16,
+                       use_pallas=True, fuse_heads=True, fuse_init=True,
+                       device=None)
+    xs = torch.tensor([250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0], device=cuda)
+    ys = torch.tensor([1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5], device=cuda)
+
+    def emulator(x, s, m):
+        out, out_sfc, m = model(x / xs, s, m)
+        return out * ys, out_sfc, m
+
+    cfg = HostLoopConfig(nlat=nlat, nlon=nlon, scheme="fv",
+                         geometry="sphere", fix_water=True, fix_energy=True)
+    loop = HybridLoop(emulator, Grid.synthetic(ncol, nlev, device=cuda),
+                      cfg, device=None)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    state = {"T": t(rng.uniform(220, 300, (ncol, nlev))),
+             "qv": t(np.abs(rng.normal(1e-3, 3e-4, (ncol, nlev)))),
+             "qc": t(np.abs(rng.normal(1e-5, 3e-6, (ncol, nlev)))),
+             "qi": t(np.abs(rng.normal(1e-5, 3e-6, (ncol, nlev)))),
+             "u": t(rng.normal(0, 10, (ncol, nlev))),
+             "v": t(rng.normal(0, 3, (ncol, nlev)))}
+    mem = torch.zeros((ncol, nlev, 16), device=cuda)
+    x_sfc = torch.cat([torch.full((ncol, 1), 1e5), torch.ones((ncol, 23))],
+                      dim=1).to(cuda)
+    init_distributed(device=None)
+    try:
+        mesh = make_mesh(1, axis="col")
+        gi = loop.gather_idx
+        tog = lambda a: to_grid(a, gi, nlat, nlon)
+        with torch.no_grad():
+            ref, ref_mem, ref_d = loop.coupled_step(state, mem, x_sfc)
+            for overlap, launches in ((True, 2), (False, 1)):
+                step = sharded_hybrid_step(loop, mesh, overlap=overlap)
+                b10.launches = 0
+                out, mem_new, diags = step({k: tog(v) for k, v in
+                                            state.items()}, mem[gi],
+                                           tog(x_sfc))
+                assert b10.launches == launches, (overlap, b10.launches)
+                for k, v in ref.items():
+                    want = tog(v)
+                    atol = (1e-5 * float(want.abs().max())
+                            if k in ("u", "v") else 1e-8)
+                    torch.testing.assert_close(out[k], want, rtol=1e-5,
+                                               atol=atol)
+                torch.testing.assert_close(mem_new, ref_mem[gi], rtol=1e-5,
+                                           atol=5e-7)
+                torch.testing.assert_close(diags["energy_int"],
+                                           ref_d["energy_int"], rtol=1e-6,
+                                           atol=0)
+    finally:
+        dist.destroy_process_group()
