@@ -53,7 +53,13 @@ The paths, each at full width with random weights from a seed:
 * the latitude-sharded coupled step, ``online/host_loop.py::
   sharded_hybrid_step``, of the v4 arm (B10) on a one-rank NCCL group at
   21,600 columns (two ranks where the machine has two cards), and the
-  scaling CLI ``cli/scale_bench.py``.
+  scaling CLI ``cli/scale_bench.py``;
+* the offline baselines' trainer, ``cli/train_offline.py``, on
+  ``conf/mlp_v1.yaml`` and ``conf/cnn_v1.yaml`` as written (BASELINE.json
+  configs 1 and 2: the MLP 768-640-512-640-640 at batch 1536, the CNN of
+  12 blocks of 406 channels at batch 768, f32), the weighted scoreboard's
+  CLI ``cli/evaluate.py``, the data-parallel rollout epoch and the
+  multi-device dry run ``cli/dryrun_multichip.py``.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -210,12 +216,31 @@ Phases (any failure exits non-zero):
      beside the kernel; the scan arm's training update and the physics
      scan trunk's update at 10,800 columns with the earlier select loop
      in turns with the unbind sweep (C.1: ms per update, peak memory);
- 12. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 12. the offline baselines (check_offline): ``python -m
+     climsim_tpu_torch.cli.train_offline`` through its main on
+     conf/mlp_v1.yaml and conf/cnn_v1.yaml as written (f32, TF32 off), the
+     MLP yaml with model.name=ed, and the MLP yaml at 500 steps (100
+     updates an epoch), each with no kernel of the port launched, its
+     wall time, seconds an epoch, samples/s, FLOP rate against the f32
+     bound and peak memory, and one more epoch of the CNN and of the
+     500-step MLP under torch.profiler (idle share; host-to-device bytes,
+     the shuffle's permutation alone); the
+     MLP run's validation block exported and scored by ``cli/evaluate``
+     (equal to the training CLI's scoreboard within rtol 1e-5); the
+     rollout CLI's ``pred_export`` scored by ``cli/evaluate --raw``; both
+     yamls small on the card against device=cpu within 1e-4 plus 4x the
+     movement of one witness (initial weights x (1 + 1e-6)); the
+     data-parallel fused epoch (A.17) of the v4 arm at 21,600 columns, W
+     4, on a one-rank NCCL group against the single-device epoch (its
+     launches counted, ms an update of each), and on 2 NCCL ranks where
+     the machine has two GPUs; ``cli.dryrun_multichip --devices 1``;
+ 13. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
      card line, and the result line.
-The end of each phase prints the wall time since the start.
+The end of each phase prints the wall time since the start and the
+phase's own; phase 12 prints each of its steps' seconds.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -324,12 +349,16 @@ def check(cond: bool, msg: str) -> None:
 
 
 T_START = time.perf_counter()
+PHASE_START = [T_START]
 
 
 def phase_done(n: int) -> None:
-    """Print the wall time since the script started, at the end of phase
-    n."""
-    print(f"phase {n} done at {time.perf_counter() - T_START:.1f} s")
+    """Print the wall time since the script started and the phase's own,
+    at the end of phase n."""
+    now = time.perf_counter()
+    print(f"phase {n} done at {now - T_START:.1f} s (the phase took "
+          f"{now - PHASE_START[0]:.1f} s)")
+    PHASE_START[0] = now
 
 
 # the bf16 designs that must run their products on tensor cores: B1, B4,
@@ -3482,6 +3511,39 @@ def check_cli_launches(label, r, kernels):
     check(r.launches == want, f"{label}: launches {r.launches}, want {want}")
 
 
+def profile_epoch(fn, trace_path):
+    """``fn()`` once under torch.profiler (device activity only): returns
+    (its result, synchronized wall ms, kernel ms, kernels launched, the
+    byte counts of its host-to-device copies, None where the trace gives
+    none), read from the exported chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace_path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return out, wall, busy, len(kernels), sizes
+
+
+def h2d_text(sizes, detail):
+    """The host-to-device copies of a profiled epoch for a summary line:
+    their count and bytes (``detail(known sizes)`` appended), or "not
+    measured" where the trace left their bytes out."""
+    known = [b for b in sizes if b is not None]
+    return f"host-to-device copies {len(sizes)}, " + (
+        f"{sum(known)} bytes{detail(known)}" if len(known) == len(sizes)
+        else "their bytes not in the trace: not measured")
+
+
 def cli_epoch_profile(label, r, epoch, ncol, card, trace_path):
     """One more training epoch of the run's own trainer and chunks (the
     curriculum's window of ``epoch``) under torch.profiler, its launches
@@ -3489,40 +3551,48 @@ def cli_epoch_profile(label, r, epoch, ncol, card, trace_path):
     wall time) and the host-to-device copies of the epoch (from the
     trace's memcpy events), which with the device cache must not include
     a data window."""
-    from torch.profiler import ProfilerActivity, profile
     from climsim_tpu_torch.train.rollout import run_epoch_fused
     run = r.run
     chunks = run.chunks(0, run.ntr, True, seed=epoch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, rec = run_epoch_fused(run.trainer, None, chunks, epoch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(trace_path)
-    busy = sum(e.get("dur", 0) for e in events
-               if e.get("cat") == "kernel") / 1e3
-    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
-           and "HtoD" in e.get("name", "")]
-    sizes = [e.get("args", {}).get("bytes") for e in h2d]
+    (_, rec), wall, busy, _, sizes = profile_epoch(
+        lambda: run_epoch_fused(run.trainer, None, chunks, epoch), trace_path)
     known = [b for b in sizes if b is not None]
     window_bytes = rec["window"] * ncol * NLEV * 15 * 4
     print(f"cli train_rollout {label}: one epoch (W {rec['window']}, "
           f"{rec['updates']} updates) under torch.profiler: wall "
           f"{wall:.3f} ms, kernels {busy:.3f} ms, device idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}; host-to-device copies "
-          f"{len(h2d)}, "
-          + (f"{sum(known)} bytes, the largest {max(known, default=0)} "
-             f"(one x_lev window is {window_bytes} bytes)"
-             if len(known) == len(sizes) else
-             "their bytes not in the trace: not measured") + f" [{card}]")
+          f"{max(0.0, 1 - busy / wall):.3f}; "
+          + h2d_text(sizes, lambda k: f", the largest {max(k, default=0)} "
+                     f"(one x_lev window is {window_bytes} bytes)")
+          + f" [{card}]")
     check(busy > 0, f"{label}: the profiler saw no device time")
     check(len(known) < len(sizes) or max(known, default=0)
           <= CLI_MAX_H2D_BYTES,
           f"{label}: an epoch copied {max(known)} bytes to the card at once")
+
+
+def witness_compare(name, records, witnesses, keys):
+    """Hold a run on the card to the same run with device=cpu, given
+    ``records``: each run's epoch records by tag ("cuda", "cpu" and the
+    tags in ``witnesses``, CPU runs from the CPU run's initial weights
+    times 1 +- 1e-6). Every epoch's value of each of ``keys`` on the card
+    must lie within 1e-4 of the CPU's plus 4x the largest witness
+    movement: a change at the rounding level of every weight moves the
+    run as the card's rounding does, and the updates carry it on. Returns
+    a description of each comparison."""
+    out = []
+    for e, (c_rec, p_rec) in enumerate(zip(records["cuda"], records["cpu"])):
+        for k in keys:
+            c, p = c_rec[k], p_rec[k]
+            move = max(abs(records[t][e][k] - p) for t in witnesses)
+            tol = 1e-4 * abs(p) + 4 * move
+            out.append(f"epoch {e} {k} {c!r} vs {p!r} (difference "
+                       f"{abs(c - p):.3e}, witness movement {move:.3e}, "
+                       f"tolerance {tol:.3e})")
+            check(np.isfinite(c) and abs(c - p) <= tol,
+                  f"{name}: epoch {e} {k} card {c} vs CPU {p}, tolerance "
+                  f"{tol}")
+    return out
 
 
 def compare_cli_384(card, grid, yaml, model_cls):
@@ -3581,16 +3651,9 @@ def compare_cli_384(card, grid, yaml, model_cls):
              f"CPU over the epoch's {len(fp)} model calls"
         print(f"cli train_rollout {os.path.basename(yaml)} at 384 columns"
               f"{mc} [{card}]")
-    worst = []
-    for k in ("loss", "val_loss"):
-        c, p = runs["cuda"].records[0][k], runs["cpu"].records[0][k]
-        move = max(abs(runs[t].records[0][k] - p) for t, _ in witnesses)
-        tol = 1e-4 * abs(p) + 4 * move
-        worst.append(f"{k} {c!r} vs {p!r} (difference {abs(c - p):.3e}, "
-                     f"witness movement {move:.3e}, tolerance {tol:.3e})")
-        print(f"cli train_rollout {name} at 384 columns: {worst[-1]}")
-        check(np.isfinite(c) and abs(c - p) <= tol,
-              f"{name} 384: {k} card {c} vs CPU {p}, tolerance {tol}")
+    worst = witness_compare(f"{name} 384",
+                            {t: r.records for t, r in runs.items()},
+                            [t for t, _ in witnesses], ("loss", "val_loss"))
     print(f"cli train_rollout {name} at 384 columns, 1 epoch, card against "
           f"device=cpu: " + "; ".join(worst) + mc + f" [{card}]")
 
@@ -3710,6 +3773,561 @@ def check_train_cli(card):
 
         compare_cli_384(card, grid, phys_yaml, PhysicalRNNAutoreg)
         compare_cli_384(card, grid, gru_yaml, RNNAutoreg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ phase 12
+
+# the offline baselines (BASELINE.json configs 1 and 2) as written, the ED
+# arm on the MLP yaml, and the MLP yaml with enough data for 100 updates an
+# epoch (500 steps: 153,600 training rows at batch 1536), 3 epochs
+MLP_STEADY_STEPS, MLP_STEADY_EPOCHS = 500, 3
+# the card-vs-CPU runs: the MLP yaml at 6 steps, and the CNN yaml at 6
+# steps, depth 2 and 32 channels (its full width takes minutes a CPU
+# update)
+OFFLINE_SMALL = {"mlp_v1.yaml": ["data.steps=6", "epochs=2"],
+                 "cnn_v1.yaml": ["data.steps=6", "epochs=2", "model.depth=2",
+                                 "model.channels=32"]}
+
+
+def offline_run(args, scale=None):
+    """``cli/train_offline.py``'s main(args) as a user runs it, every
+    launch counter set to 0 just before and read just after, the peak
+    memory reset before, and the CLI's setup (its Offline: data, model,
+    normalizer) kept; with ``scale`` every floating parameter of the model
+    is multiplied by it after setup (the witnesses). Returns a namespace:
+    rc, lines, records, launches, wall, peak_gb (above the memory held
+    before the run, which earlier phases may leave), run."""
+    import types
+    from climsim_tpu_torch.cli import train_offline as cli
+    runs = []
+    orig_setup = cli.setup
+
+    def setup(cfg):
+        runs.append(orig_setup(cfg))
+        if scale is not None:
+            with torch.no_grad():
+                for p in runs[-1].model.parameters():
+                    p.mul_(scale)
+        return runs[-1]
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    cli.setup = setup
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cli.setup = orig_setup
+    lines = out.getvalue().splitlines()
+    return types.SimpleNamespace(
+        rc=rc, lines=lines, wall=wall, run=runs[0] if runs else None,
+        records=[json.loads(ln) for ln in lines if ln.startswith('{"epoch"')],
+        launches={k: w.launches for k, w in wrappers.items() if w.launches},
+        peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def offline_flops(model, batch):
+    """Multiply-adds x 2 of one forward of ``model``'s dense and
+    convolution layers on ``batch`` flat columns (60 levels for the
+    convolutions and the CNN's per-level heads)."""
+    from climsim_tpu_torch.models.cells import Dense
+    from climsim_tpu_torch.models.cnn import CNN, Conv
+    per_level = NLEV if isinstance(model, CNN) else 1
+    total = 0
+    for m in model.modules():
+        if isinstance(m, Conv):
+            k, nin, nout = m.kernel.shape
+            total += 2 * batch * NLEV * k * nin * nout
+        elif isinstance(m, Dense):
+            nin, nout = m.kernel.shape
+            total += 2 * batch * per_level * nin * nout
+    return float(total)
+
+
+def offline_summary(label, r, card):
+    """Check a run (exit 0, finite records, no kernel launched, the
+    scoreboard printed) and print its records, wall time, seconds an
+    epoch (the first and the mean of the rest), samples/s, the training
+    FLOP rate against the f32 CUDA-core bound, and peak memory."""
+    run = r.run
+    check(r.rc == 0, f"{label}: exit {r.rc}")
+    check(len(r.records) == run.fc.epochs, f"{label}: {len(r.records)} "
+          f"records for {run.fc.epochs} epochs")
+    for rec in r.records:
+        check(np.isfinite(rec["train_loss"]) and np.isfinite(rec["val_loss"]),
+              f"{label}: record not finite: {rec}")
+    check(not r.launches, f"{label} launched {r.launches}")
+    check(any(ln.startswith("ptend_t ") for ln in r.lines),
+          f"{label}: no scoreboard")
+    for ln in r.lines:
+        if ln.startswith('{"epoch"'):
+            print(f"  cli: {ln[:300]}")
+    bs = run.fc.batch_size
+    updates = run.ntr // bs
+    secs = [rec["seconds"] for rec in r.records]
+    rest = secs[1:] or secs
+    upd_flop = 3 * offline_flops(run.model, bs)
+    rate = updates * bs / statistics.mean(rest)
+    ms_update = statistics.mean(rest) / updates * 1e3
+    print(f"cli train_offline {label}: wall {r.wall:.3f} s ({len(secs)} "
+          f"epochs with validation and the scoreboard), training epoch "
+          f"{secs[0]:.4f} s first, {statistics.mean(rest):.4f} s mean of the "
+          f"rest; {updates} updates an epoch at batch {bs} ({ms_update:.3f} "
+          f"ms an update), {rate:,.0f} samples/s; an update "
+          f"{upd_flop / 1e9:.2f} GFLOP, {upd_flop / ms_update / 1e9:.2f} "
+          f"TFLOP/s, bound {upd_flop / PEAK_F32 * 1e3:.3f} ms at the f32 "
+          f"CUDA-core peak; peak {r.peak_gb:.3f} GB above the memory held "
+          f"before the run; no kernel of the port "
+          f"launched [{card}]")
+    return ms_update
+
+
+def offline_epoch_profile(label, r, card, trace_path):
+    """One more training epoch of the run's model (a fresh Adam state, the
+    run's batches) under torch.profiler: the device idle share (1 - kernel
+    time / synchronized wall time) and the host-to-device copies the
+    trace records (the shuffle's permutation, ntr x 8 bytes, and the
+    512-byte feature weights are expected; the trace has been seen to
+    leave such small pageable copies out)."""
+    from dataclasses import replace
+    from climsim_tpu_torch.train import fit, init_state
+    run = r.run
+    fc = replace(run.fc, epochs=1, log_path=None)
+    state = init_state(run.model, fc)
+    rng = np.random.default_rng(1)
+    _, wall, busy, n_kernels, sizes = profile_epoch(
+        lambda: fit(run.model, run.vset, fc, lambda: run.train_batches(rng),
+                    None, state=state), trace_path)
+    known = [b for b in sizes if b is not None]
+    updates = run.ntr // fc.batch_size
+    print(f"cli train_offline {label}: one training epoch ({updates} "
+          f"updates) under torch.profiler: wall {wall:.3f} ms, kernels "
+          f"{busy:.3f} ms ({n_kernels} launches, "
+          f"{n_kernels / max(updates, 1):.1f} an update), device idle "
+          f"share {max(0.0, 1 - busy / wall):.3f}; "
+          + h2d_text(sizes, lambda k: f" (the permutation is {run.ntr * 8})")
+          + f" [{card}]")
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    check(len(known) < len(sizes) or sum(known) <= run.ntr * 8 + 4096,
+          f"{label}: an epoch copied {sum(known)} bytes to the card")
+
+
+@contextlib.contextmanager
+def conv_through_cudnn():
+    """Within: ``models.cnn.Conv`` computes its function through cuDNN's
+    ``conv1d`` on the [B, C, L] transpose (the library call the port's one
+    GEMM of the shifted copies replaces)."""
+    import torch.nn.functional as F
+    from climsim_tpu_torch.models.cnn import Conv
+    gemm = Conv.forward
+
+    def cudnn(self, x):
+        dt = self.dtype
+        return F.conv1d(x.to(dt).transpose(1, 2),
+                        self.kernel.to(dt).permute(2, 1, 0),
+                        self.bias.to(dt), padding="same").transpose(1, 2)
+    Conv.forward = cudnn
+    try:
+        yield
+    finally:
+        Conv.forward = gemm
+
+
+def cnn_conv_yardstick(card, r):
+    """The CNN yaml's model (12 blocks, 406 channels, f32, no TF32): its
+    forward on one batch through cuDNN's conv1d held to the port's GEMM
+    (within 1e-4 of the output's scale), then one training update (MAE,
+    Adam) each way timed in turns with CUDA events, and the GEMM update's
+    kernels with the most device time."""
+    run = r.run
+    bs = run.fc.batch_size
+    x, y = run.xn[:bs], run.yn[:bs]
+    model = run.model
+    opt = torch.optim.Adam(model.parameters(), lr=1e-6)
+
+    def update():
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            (model(x) - y).abs().mean().backward()
+        opt.step()
+
+    def cudnn_update():
+        with conv_through_cudnn():
+            update()
+    want = model(x)
+    with conv_through_cudnn():
+        got = model(x)
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= 1e-4, f"the CNN through cuDNN's conv1d differs from the "
+          f"GEMM by {err:.3e} of the output's scale")
+    lib, gemm = in_turns(cudnn_update, update, 1, repeats=1)
+    busy, top = profile_kernels(update, top=4)
+    print(f"cli train_offline cnn_v1.yaml: one update (batch {bs}) with the "
+          f"convolutions as one GEMM each {gemm[0]:.3f} / {gemm[1]:.3f} ms "
+          f"in turns with cuDNN's conv1d {lib[0]:.3f} / {lib[1]:.3f} ms "
+          f"(forward differs by {err:.2e} of its scale); the GEMM update's "
+          f"kernels: " + "; ".join(f"{k[:50]} {t:.3f} ms" for k, t in top)
+          + f" of {busy:.3f} ms [{card}]")
+
+
+def compare_offline_small(card, grid, yaml, over):
+    """The CLI on ``yaml`` at a small size on the card and with device=cpu
+    (no kernel launched on either), and one CPU witness whose initial
+    weights are the CLI's times 1 + 1e-6: every epoch's train_loss and
+    val_loss held by ``witness_compare`` (one witness: on an H100 either
+    sign moved these losses by 0 to 1 ulp)."""
+    base = [yaml, f"grid_path={grid}"] + over
+    runs = {"cuda": offline_run(base + ["device=cuda"]),
+            "cpu": offline_run(base + ["device=cpu"]),
+            "witness": offline_run(base + ["device=cpu"], scale=1 + 1e-6)}
+    for tag, r in runs.items():
+        check(r.rc == 0 and len(r.records) == 2, f"{yaml} small {tag}: exit "
+              f"{r.rc}")
+        check(not r.launches, f"{yaml} small {tag} launched {r.launches}")
+    name = os.path.basename(yaml)
+    worst = witness_compare(f"{name} small",
+                            {t: r.records for t, r in runs.items()},
+                            ["witness"], ("train_loss", "val_loss"))
+    print(f"cli train_offline {name} {' '.join(over)}, card against "
+          f"device=cpu: " + "; ".join(worst) + f" [{card}]")
+
+
+def write_norm_files(root, vset, nz):
+    """The normalizer ``nz`` as the ClimSim norm files under
+    ``root/preprocessing/normalizations`` (input mean, max = the divisor,
+    min = 0, output scale), from which ``Normalizer.from_files`` gives
+    ``nz`` back exactly."""
+    from scipy.io import netcdf_file
+    base = os.path.join(root, "preprocessing", "normalizations")
+    for sub in ("inputs", "outputs"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    flat = lambda t: np.asarray(t.cpu().numpy(), np.float64)
+    files = {"inputs/input_mean.nc": (vset.inputs, flat(nz.mean)),
+             "inputs/input_max.nc": (vset.inputs, flat(nz.div)),
+             "inputs/input_min.nc": (vset.inputs, 0 * flat(nz.div)),
+             "outputs/output_scale.nc": (vset.outputs, flat(nz.scale))}
+    for name, (layout, values) in files.items():
+        with netcdf_file(os.path.join(base, name), "w") as f:
+            f.createDimension("lev", NLEV)
+            for var in layout.names:
+                sl = layout.slices[var]
+                dims = ("lev",) if sl.stop - sl.start == NLEV else ()
+                f.createVariable(var, "d", dims)[...] = values[sl]
+
+
+def boards_close(got, want, rtol=1e-5):
+    """The largest difference of two scoreboards in units of rtol x |want|
+    + 1e-6 x the column's largest finite magnitude (<= 1 passes); NaN and
+    infinities must match."""
+    worst = 0.0
+    for col in next(iter(want.values())):
+        w = np.array([row[col] for row in want.values()])
+        g = np.array([got[n][col] for n in want])
+        fin = np.isfinite(w)
+        check(np.array_equal(fin, np.isfinite(g))
+              and np.array_equal(w[~fin], g[~fin], equal_nan=True),
+              f"scoreboard {col}: non-finite entries differ")
+        scale = np.abs(w[fin]).max(initial=0.0)
+        tol = rtol * np.abs(w[fin]) + 1e-6 * scale
+        worst = max(worst, float(np.max(np.abs(g[fin] - w[fin])
+                                        / np.maximum(tol, 1e-300),
+                                        initial=0.0)))
+    return worst
+
+
+def check_evaluate(card, r, tmp):
+    """``cli/evaluate.py`` on the MLP yaml run's validation block exported
+    as flat npy files (normalized inputs, scaled targets, the trained
+    model's predictions) with the run's normalizer as norm files, on the
+    card: its scoreboard must equal the training CLI's (rtol 1e-5; it
+    recovers ps from the normalized inputs). Its CSV path needs pandas,
+    which this machine may not have."""
+    import importlib.util
+    from climsim_tpu_torch.cli import evaluate as ev
+    from climsim_tpu_torch.cli import train_offline as cli
+    run = r.run
+    nval = (len(run.xn) - run.ntr) // 384 * 384
+    lo, hi = run.ntr, run.ntr + nval
+    with torch.no_grad():
+        pred = run.model(run.xn[lo:hi])
+    for name, t in (("x", run.xn[lo:hi]), ("y", run.yn[lo:hi]), ("p", pred)):
+        np.save(os.path.join(tmp, f"{name}.npy"), t.cpu().numpy())
+    write_norm_files(tmp, run.vset, run.nz)
+    want = cli.score(run)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        board, levels, _ = ev.score(["--input", "x.npy", "--target", "y.npy",
+                                     "--pred", "p.npy", "--out-lev", "l.csv",
+                                     "--grid", "grid.nc"])
+        wall = time.perf_counter() - t0
+        has_pandas = importlib.util.find_spec("pandas") is not None
+        if has_pandas:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = ev.main(["--input", "x.npy", "--target", "y.npy",
+                              "--pred", "p.npy", "--grid", "grid.nc"])
+            check(rc == 0 and os.path.getsize("metrics.csv") > 0,
+                  "cli evaluate main")
+    finally:
+        os.chdir(cwd)
+    worst = boards_close(board, want)
+    check(worst <= 1.0, f"cli evaluate against train_offline's scoreboard: "
+          f"{worst:.3f} of the bound")
+    check(len(levels) == 8 and all(v.shape == (NLEV,)
+                                   for v in levels.values()), "levels")
+    print(f"cli evaluate on the MLP yaml's exported validation block "
+          f"({nval} rows): scoreboard {worst:.3f} of the bound (rtol 1e-5) "
+          f"against train_offline's, in {wall:.3f} s; ptend_t "
+          f"{board['ptend_t']}; "
+          + ("the CSV written through pandas" if has_pandas else
+             "pandas is not installed here: the CSV path not run")
+          + f" [{card}]")
+
+
+def check_scoreboard_pipeline(card, grid, tmp):
+    """The published scoreboard's pipeline: the rollout CLI's GRU yaml at
+    384 columns for one epoch with ``pred_export`` (the raw one-step
+    predictions of the validation split, flat), then ``cli/evaluate.py
+    --raw --ps`` on them (v4_rnn) on the card: finite MAE and RMSE for
+    every variable."""
+    from climsim_tpu_torch.cli import evaluate as ev
+    from climsim_tpu_torch.models import RNNAutoreg
+    gru = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                       "autoreg_gru.yaml")
+    out = os.path.join(tmp, "pred")
+    r = train_cli_run([gru, f"grid_path={grid}", "epochs=1",
+                       f"pred_export={out}"], RNNAutoreg)
+    check(r.rc == 0, f"train_rollout pred_export: exit {r.rc}")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        board, _, _ = ev.score(["--vset", "v4_rnn", "--raw", "--ps",
+                                "pred/scoring_ps.npy", "--target",
+                                "pred/scoring_target.npy", "--pred",
+                                "pred/scoring_pred.npy", "--grid", "grid.nc"])
+    finally:
+        os.chdir(cwd)
+    check(len(board) == 14 and all(np.isfinite(v["MAE"])
+                                   and np.isfinite(v["RMSE"])
+                                   for v in board.values()),
+          f"pred_export scoreboard {board}")
+    print(f"scoreboard pipeline (train_rollout GRU yaml, 384 columns, "
+          f"pred_export, then cli evaluate --raw --ps, v4_rnn): ptend_t "
+          f"{board['ptend_t']}, cam_out_PRECC {board['cam_out_PRECC']} "
+          f"[{card}]")
+
+
+def epoch_ranks(rank, nprocs, rendezvous, out_dir):
+    """One of ``nprocs`` NCCL ranks: the v4 arm's data-parallel fused
+    epoch at 21,600 columns on this rank's columns; rank 0 saves the
+    record and the parameters."""
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.parallel import init_distributed, make_mesh
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    os.environ["LOCAL_RANK"] = str(rank)
+    init_distributed(rendezvous, nprocs, rank)
+    try:
+        tr = make_trainer(make_model(BF16, None, arm="v4"), None)
+        chunk = train_chunk(T_CHUNK, NLAT * NLON, torch.device("cuda", rank))
+        _, rec = run_epoch_fused(tr, None, [chunk], 0,
+                                 mesh=make_mesh(nprocs, axis="data"))
+        if rank == 0:
+            torch.save({"rec": rec, "params": {
+                k: v.cpu() for k, v in tr.model.state_dict().items()}},
+                os.path.join(out_dir, "rank0.pt"))
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def param_distance(model, ref):
+    """The largest parameter difference in units of rtol 1e-5 x |ref| +
+    0.02 x LR (<= 1 passes), and the largest absolute difference."""
+    worst = largest = 0.0
+    p1 = ref.state_dict()
+    for k, v in model.state_dict().items():
+        d = (v - p1[k]).abs()
+        largest = max(largest, float(d.max()))
+        worst = max(worst, float((d / (1e-5 * p1[k].abs()
+                                       + 0.02 * LR)).max()))
+    return worst, largest
+
+
+def check_sharded_epoch(card):
+    """A.17: ``run_epoch_fused(mesh=)`` of the v4 arm (bf16, B10 forward,
+    B7/B8 backward) at 21,600 columns, W 4, one 16-step chunk (4
+    updates), on a one-rank NCCL group against the single-device epoch
+    from the same weights: the records' loss within rtol 1e-5 and every
+    parameter within rtol 1e-5 plus 2% of one update's size (the learning
+    rate), as tests/test_torch_train.py holds two Adam runs (at world
+    size 1 the all-reduce divides by 1, so only a kernel that is not
+    bit-reproducible could move them; the largest difference is printed),
+    the launches (B10 2W, B7 W, B8 W an update), ms an update of each; and
+    on 2 NCCL ranks where the machine has 2 cards."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.parallel import init_distributed, make_mesh
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    ncol = NLAT * NLON
+    chunk = train_chunk(T_CHUNK, ncol, "cuda")
+    init_distributed()                       # one rank, NCCL, this card
+    try:
+        mesh = make_mesh(1, axis="data")
+        single = make_trainer(make_model(BF16, None, arm="v4"), None)
+        sharded = make_trainer(make_model(BF16, None, arm="v4"), None)
+        _, rec1 = run_epoch_fused(single, None, [chunk], 0)
+        wrappers = all_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        _, rec2 = run_epoch_fused(sharded, None, [chunk], 0, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        n = rec2["updates"]
+        want = {k: c * W_TRAIN * n for k, c in TRAIN_LAUNCHES["v4"].items()}
+        check(launches == want, f"sharded epoch launches {launches}, want "
+              f"{want}")
+        worst, largest = param_distance(sharded.model, single.model)
+        check(rec1["updates"] == n == T_CHUNK // W_TRAIN, "updates")
+        check(abs(rec2["loss"] - rec1["loss"]) <= 1e-5 * abs(rec1["loss"])
+              and worst <= 1.0, f"sharded epoch against single-device: "
+              f"loss {rec2['loss']!r} vs {rec1['loss']!r}, parameters "
+              f"{worst:.3f} of the bound")
+        ms = {}
+        for label, fn in (("single", lambda: run_epoch_fused(
+                single, None, [chunk], 0)), ("sharded", lambda: run_epoch_fused(
+                sharded, None, [chunk], 0, mesh=mesh))):
+            ms[label] = median_ms(fn, 1, repeats=OLD_REPEATS,
+                                  queue_ahead=False) / n
+        print(f"sharded fused epoch (A.17), world size 1, v4 arm bf16, "
+              f"{ncol} columns, W {W_TRAIN}, {n} updates: loss "
+              f"{rec2['loss']!r} vs single-device {rec1['loss']!r}, "
+              f"parameters {worst:.3f} of the bound (largest difference "
+              f"{largest:.3e}); launches "
+              f"{launches}; {ms['sharded']:.3f} ms an update against "
+              f"{ms['single']:.3f} single-device [{card}]")
+        n_cards = torch.cuda.device_count()
+        if n_cards < 2:
+            print(f"sharded fused epoch on 2 NCCL ranks: not run, this "
+                  f"machine has {n_cards} GPU and NCCL takes one rank a card "
+                  f"[{card}]")
+        else:
+            fresh = make_trainer(make_model(BF16, None, arm="v4"), None)
+            _, rec0 = run_epoch_fused(fresh, None, [chunk], 0)
+            with tempfile.TemporaryDirectory() as tmp:
+                mp.spawn(epoch_ranks, nprocs=2, join=True,
+                         args=(2, "file://" + os.path.join(tmp, "rdv"), tmp))
+                got = torch.load(os.path.join(tmp, "rank0.pt"))
+            p0 = fresh.model.state_dict()
+            worst2 = max(float(((v.cuda() - p0[k]).abs()
+                                / (1e-5 * p0[k].abs() + 0.02 * LR)).max())
+                         for k, v in got["params"].items())
+            print(f"sharded fused epoch on 2 NCCL ranks, {ncol} columns: "
+                  f"loss {got['rec']['loss']!r} vs {rec0['loss']!r}, "
+                  f"parameters {worst2:.3f} of the bound [{card}]")
+            check(worst2 <= 1.0, "2-rank sharded epoch")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dryrun(card):
+    """``python -m climsim_tpu_torch.cli.dryrun_multichip --devices 1``
+    from a directory holding a grid file at its default place: its three
+    OK lines."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dryrun", dir=os.path.join(repo, "build"))
+    try:
+        path = os.path.join(tmp, "grid_info", "ClimSim_low-res_grid-info.nc")
+        os.makedirs(os.path.dirname(path))
+        write_grid_file(path, LO_NLAT * LO_NLON)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m",
+                              "climsim_tpu_torch.cli.dryrun_multichip",
+                              "--devices", "1"], cwd=tmp,
+                             env=dict(os.environ, PYTHONPATH=repo),
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"dryrun_multichip exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("dryrun_multichip(1)")]
+        check(len(lines) == 3 and all(ln.endswith("OK") for ln in lines),
+              f"dryrun_multichip printed {out.stdout[-1000:]}")
+        for ln in lines:
+            print(f"  {ln}")
+        print(f"cli dryrun_multichip --devices 1 (one NCCL rank): 3 parts OK, "
+              f"wall {wall:.1f} s with the rank's start [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_offline(card):
+    """Phase 12: the offline baselines through ``python -m
+    climsim_tpu_torch.cli.train_offline``'s main on a 384-column grid file
+    under build/: conf/mlp_v1.yaml and conf/cnn_v1.yaml as written
+    (f32, TF32 off), the MLP yaml with model.name=ed, and the MLP yaml at
+    MLP_STEADY_STEPS steps (100 updates an epoch); one more epoch of the
+    CNN and of the steady MLP under the profiler (the MLP yaml's 8
+    updates and the ED's are launch-bound as the steady MLP's 100 are);
+    both yamls small card against CPU; cli/evaluate on the MLP run's
+    exported arrays and on the rollout CLI's pred_export; the
+    data-parallel fused epoch (A.17); the dry run. Each step's seconds
+    are printed."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="offline", dir=root)
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
+    mlp, cnn = (os.path.join(conf, y) for y in ("mlp_v1.yaml", "cnn_v1.yaml"))
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"  phase 12: {what} took {now - last[0]:.1f} s")
+        last[0] = now
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        trace = os.path.join(tmp, "trace.json")
+        steady = (f"mlp_v1.yaml data.steps={MLP_STEADY_STEPS} "
+                  f"epochs={MLP_STEADY_EPOCHS}")
+        for label, args in (
+                ("mlp_v1.yaml", [mlp]), ("cnn_v1.yaml", [cnn]),
+                ("mlp_v1.yaml model.name=ed", [mlp, "model.name=ed"]),
+                (steady, [mlp, f"data.steps={MLP_STEADY_STEPS}",
+                          f"epochs={MLP_STEADY_EPOCHS}"])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            r = offline_run(args + [f"grid_path={grid}"])
+            offline_summary(label, r, card)
+            if label in ("cnn_v1.yaml", steady):
+                offline_epoch_profile(label, r, card, trace)
+            if label == "mlp_v1.yaml":
+                check_evaluate(card, r, tmp)
+            if label == "cnn_v1.yaml":
+                cnn_conv_yardstick(card, r)
+            r = None
+            lap(label)
+        check_scoreboard_pipeline(card, grid, tmp)
+        lap("the scoreboard pipeline")
+        for yaml, over in OFFLINE_SMALL.items():
+            compare_offline_small(card, grid, os.path.join(conf, yaml), over)
+            lap(f"{yaml} small, card against CPU")
+        check_sharded_epoch(card)
+        lap("the sharded epoch")
+        run_dryrun(card)
+        lap("dryrun_multichip")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4267,8 +4885,14 @@ def main() -> int:
               f"({pbb[key][3] / 1e6:.1f} MB at 3.35 TB/s; "
               f"{pbb[key][2] / 1e9:.3f} GFLOP) [{card}]")
 
-    # ---- 12. the kernels line, the card line, the result
     phase_done(11)
+
+    # ---- 12. the offline baselines and their scoreboard, the
+    # data-parallel rollout epoch and the dry run
+    check_offline(card)
+    phase_done(12)
+
+    # ---- 13. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",

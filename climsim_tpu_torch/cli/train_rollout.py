@@ -24,10 +24,12 @@ data, normalization, model and trainer, with these differences:
 * ``model.scan_unroll`` (an XLA unrolling hint) is accepted and has no
   effect.
 * Options that are not ported raise ``NotImplementedError`` naming their
-  ROADMAP item before any data is built: ``plots_dir`` (A.15),
-  ``export_path`` (A.16), ``rollout.ensemble_size > 1`` and ``loss.w_det``
-  (A.7), ``optimizer.name`` soap, muon or schedule-free (A.13) and the
+  ROADMAP item before any data is built: ``export_path`` (A.16),
+  ``rollout.ensemble_size > 1`` and ``loss.w_det`` (A.7),
+  ``optimizer.name`` soap, muon or schedule-free (A.13) and the
   stochastic layer (A.12).
+* ``plots_dir`` without matplotlib prints that no plot was made, where
+  the JAX CLI prints any exception of its plot and goes on.
 
 The normalized series live on the card when they fit in 4 GiB
 (``data.device_cache: auto``), and the epochs then chunk them there.
@@ -72,8 +74,6 @@ def check_unported(cfg) -> None:
     if ocfg.get("name", "adam") in ("soap", "muon", "adamwschedulefree",
                                     "schedulefree"):
         raise _unported(f"optimizer.name {ocfg['name']!r}", "A.13")
-    if cfg.get("plots_dir"):
-        raise _unported("plots_dir (the profile plots)", "A.15")
     if cfg.get("export_path"):
         raise _unported("export_path (the deployment export)", "A.16")
 
@@ -663,8 +663,9 @@ def train(run: Run, mem, start_epoch: int):
 
 
 def final_report(run: Run, mem) -> None:
-    """``eval_report`` (the validation scoreboard, printed and logged) and
-    ``pred_export`` (teacher-forced one-step predictions over the
+    """``eval_report`` (the validation scoreboard, printed and logged,
+    and with ``plots_dir`` the per-level R2 profile of every output
+    channel, ``val_r2_profile.png``) and ``pred_export`` (teacher-forced one-step predictions over the
     validation split in the flat registry layout, raw units:
     scoring_{pred,target,ps}.npy)."""
     cfg = run.cfg
@@ -675,6 +676,8 @@ def final_report(run: Run, mem) -> None:
         print(json.dumps({"eval_report": {k: v for k, v in met.items()
                                           if k != "r2_lev"}}))
         _log(cfg, {"eval_report": met})
+        if cfg.get("plots_dir"):
+            plot_r2_profile(cfg["plots_dir"], cache[1][0], cache[1][2])
     pred_dir = cfg.get("pred_export")
     if pred_dir:
         from ..data.ingest import keeplev_to_flat
@@ -690,6 +693,22 @@ def final_report(run: Run, mem) -> None:
                 np.asarray(SP, np.float32))
         print(f"pred_export: wrote scoring_{{pred,target,ps}}.npy to "
               f"{pred_dir}")
+
+
+def plot_r2_profile(pdir: str, pred, true) -> None:
+    """The validation R2 of each level and output channel (pred/true
+    [N, L, ny]) as ``{pdir}/val_r2_profile.png``; without matplotlib it
+    prints that no plot was made."""
+    os.makedirs(pdir, exist_ok=True)
+    try:
+        from ..metrics.plots import profile_plot
+        r2 = 1.0 - ((pred - true) ** 2).sum(0) / torch.clamp(
+            ((true - true.mean(0)) ** 2).sum(0), min=1e-30)
+        profile_plot({f"ch{j}": r2[:, j] for j in range(r2.shape[1])},
+                     metric_name="R2",
+                     save_path=os.path.join(pdir, "val_r2_profile.png"))
+    except ImportError as e:
+        print(f"(no plot: {e})")
 
 
 def main(argv=None):

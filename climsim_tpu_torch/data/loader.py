@@ -228,16 +228,21 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
         yield moved
 
 
-def flat_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
-                 seed: int = 0, shuffle: bool = True,
-                 drop_remainder: bool = True):
-    """Shuffled minibatch iterator over flat arrays (the offline
-    baselines' path), usable inside ``prefetch_to_device``."""
+def flat_batches(x, y, batch_size: int, seed: int = 0,
+                 shuffle: bool = True, drop_remainder: bool = True):
+    """Shuffled minibatch iterator over flat arrays or tensors (the
+    offline baselines' path), the order drawn by
+    ``np.random.default_rng(seed)`` as the JAX package draws it. Tensors
+    are cut where they live: the permutation is copied to their device
+    once, and each batch is gathered there; unshuffled batches are
+    slices."""
     n = x.shape[0]
     idx = np.arange(n)
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
+        if isinstance(x, torch.Tensor):
+            idx = torch.as_tensor(idx, device=x.device)
     stop = n - batch_size + 1 if drop_remainder else n
     for i in range(0, stop, batch_size):
-        j = idx[i:i + batch_size]
+        j = idx[i:i + batch_size] if shuffle else slice(i, i + batch_size)
         yield x[j], y[j]

@@ -7,7 +7,11 @@ leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
 ``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``, and for
 ``PhysicalRNNAutoreg`` ``radiation/gas_lw/h0/kernel`` ->
 ``radiation.gas_lw.h0.kernel`` and the scalar ``radiation/gas_sw/sigma``
--> ``radiation.gas_sw.sigma``. An optax Adam state
+-> ``radiation.gas_sw.sigma``; for the offline baselines
+``dense_0/kernel`` -> ``dense_0.kernel`` (``MLP``), ``enc_3/bias`` ->
+``enc_3.bias`` (``ED``) and ``block_2/Conv_1/kernel`` ->
+``block_2.Conv_1.kernel`` (``CNN``, kernels [k, in, out] as flax's).
+An optax Adam state
 (its moments are trees of the same shape) carries across the same way,
 so a JAX training run can be resumed in the port.
 """

@@ -161,24 +161,33 @@ def data_parallel_step(model: torch.nn.Module, optimizer, loss_fn,
     stay so. The reduction follows the backward rather than DDP's hooks,
     so it composes with ``torch.utils.checkpoint``."""
     group = mesh.get_group(axis)
-    n = dist.get_world_size(group)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(x_local, y_local):
         optimizer.zero_grad()
         loss = loss_fn(model(x_local), y_local)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [loss.detach().reshape(1).to(grads[0].dtype)])
-        dist.all_reduce(flat, group=group)
-        flat /= n
-        off = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[off:off + g.numel()].view_as(g)
-            off += g.numel()
+        loss = all_reduce_mean_(params, loss.detach(), group)
         optimizer.step()
-        return flat[-1]
+        return loss
 
     return step
+
+
+def all_reduce_mean_(params, loss: torch.Tensor, group) -> torch.Tensor:
+    """Average the gradients of ``params`` (those that have one; every
+    rank has the same set) and ``loss`` over the ranks of ``group`` in one
+    ``all_reduce``; the gradients are replaced in place. Returns the mean
+    loss."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    off = 0
+    for p in params:
+        if p.grad is not None:
+            n = p.grad.numel()
+            p.grad = flat[off:off + n].view_as(p.grad)
+            off += n
+    return flat[-1]

@@ -21,7 +21,8 @@ of ``climsim_tpu/train/rollout.py``).
 
 The model's parameters and the optimizer are state of the trainer and are
 updated in place; ``run_epoch`` and ``run_epoch_fused`` (the epoch the
-training CLI runs) return the carried memory and a record, and
+training CLI runs; with a mesh, data-parallel over its ranks) return the
+carried memory and a record, and
 ``save_rollout_checkpoint``/``restore_rollout_checkpoint`` keep the best
 epochs by validation loss.
 Options of the JAX trainer that this package does not port yet raise
@@ -36,10 +37,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch.utils.checkpoint import checkpoint
 
 from ..constants import DT_STEP
 from ..ops import resolve_device
+from ..parallel.mesh import all_reduce_mean_, axis_rank
 from ..physics import conservation
 from . import losses as L
 from .schedules import one_cycle, step_decay, warmup_constant
@@ -205,6 +209,32 @@ def channel_major_apply(model, x_lev, x_sfc, mem, x_raw=None):
     return out.permute(2, 0, 1), out_sfc, new_mem.permute(2, 0, 1)
 
 
+class GlobalBatch:
+    """Reductions over the columns of every rank of ``group``, for the
+    loss terms of a data-parallel window that are not means of per-column
+    terms (the bias penalty's batch means, the GEL exponent's mean): the
+    sums go through the differentiable ``all_reduce``, whose backward sums
+    the ranks' gradients, so after the trainer averages the gradients
+    each term's gradient is the global batch's. Every rank holds an equal
+    block of columns."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def mean(self, a: torch.Tensor) -> torch.Tensor:
+        """The mean over dim 0 of the global batch."""
+        n = a.shape[0] * dist.get_world_size(self.group)
+        return dist_nn.all_reduce(a.sum(dim=0), group=self.group) / n
+
+    def nanmean(self, a: torch.Tensor) -> torch.Tensor:
+        """The nanmean over dim 0 of the global batch: the NaNs of every
+        rank are left out of the global count."""
+        count = (~torch.isnan(a)).sum(dim=0).to(a.dtype)
+        dist.all_reduce(count, group=self.group)
+        return dist_nn.all_reduce(torch.nansum(a, dim=0),
+                                  group=self.group) / count
+
+
 class RolloutTrainer:
     """Drives window updates of an RNNAutoreg-style model.
 
@@ -289,9 +319,11 @@ class RolloutTrainer:
 
     # ------------------------------------------------------------------
 
-    def _window_loss(self, window, mem, mix_mask, train: bool = True):
+    def _window_loss(self, window, mem, mix_mask, train: bool = True,
+                     batch: GlobalBatch | None = None):
         """Loop over the window's W coupled steps; returns (total loss,
-        new memory)."""
+        new memory). ``batch`` takes the bias and GEL terms' batch
+        reductions over every rank's columns."""
         cfg = self.cfg
         r0, r1 = cfg.replay_slice
         p0, p1 = cfg.pred_slice
@@ -392,11 +424,13 @@ class RolloutTrainer:
                 window["y_lev"].reshape((-1,)
                                         + tuple(window["y_lev"].shape[2:])),
                 out_sfcs.reshape(W * B, -1),
-                window["y_sfc"].reshape(W * B, -1))
+                window["y_sfc"].reshape(W * B, -1),
+                batch_nanmean=None if batch is None else batch.nanmean)
         if cfg.w_gel_precip > 0:
             loss = loss + cfg.w_gel_precip * L.gel_precip_loss(
                 window["y_sfc"].reshape(W * B, -1),
-                out_sfcs.reshape(W * B, -1), W, lam=cfg.gel_lambda)
+                out_sfcs.reshape(W * B, -1), W, lam=cfg.gel_lambda,
+                batch_mean=None if batch is None else batch.mean)
         if cfg.w_precip > 0:
             # accumulated-precipitation MSE over the window
             prec_pred = out_sfcs[..., 3].sum(0)
@@ -430,16 +464,26 @@ class RolloutTrainer:
                 rh_max=cfg.rh_max)
         return extra
 
-    def update(self, window, mem, mix_mask):
+    def update(self, window, mem, mix_mask, group=None):
         """One optimizer update on one window: (detached new memory,
-        detached loss). Autograd is on for it whatever the caller's mode."""
+        detached loss). Autograd is on for it whatever the caller's mode.
+        With a process ``group`` whose ranks each hold an equal block of
+        the window's columns (and of the memory and mask), the loss is the
+        global batch's: its batch terms reduce over every rank
+        (``GlobalBatch``), and every gradient and the loss are averaged
+        over the ranks in one ``all_reduce`` after the backward, before
+        the step."""
         step = next((int(s["step"]) for s in self.opt.state.values()), 0)
-        for group in self.opt.param_groups:
-            group["lr"] = self._schedule(step)
+        for g in self.opt.param_groups:
+            g["lr"] = self._schedule(step)
         self.opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            loss, new_mem = self._window_loss(window, mem, mix_mask)
+            loss, new_mem = self._window_loss(
+                window, mem, mix_mask,
+                batch=None if group is None else GlobalBatch(group))
             loss.backward()
+        if group is not None:
+            loss = all_reduce_mean_(self.trainable, loss.detach(), group)
         self.opt.step()
         # the memory detaches here: the next window starts from its value
         return new_mem.detach(), loss.detach()
@@ -509,7 +553,7 @@ class RolloutTrainer:
 
 
 def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None, mesh=None):
     """The training epoch of the CLI (``fused: true``, its default), the
     counterpart of JAX's one-dispatch-per-chunk epoch
     (``make_fused_chunk_step``): each chunk of T steps is cut into
@@ -520,13 +564,31 @@ def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
     per chunk, as JAX's chunk scan returns it. Returns (memory, record)
     with JAX's keys: ``loss`` is the mean over chunks of each chunk's mean
     window loss, ``updates`` the windows updated, ``dispatches`` the
-    chunks."""
+    chunks.
+
+    With a ``mesh`` (a ``parallel.make_mesh`` over the ranks, one device
+    each) the epoch is data-parallel over its 'data' axis, SPMD: every rank
+    is given the same global chunks and the same trainer (parameters and
+    optimizer state equal on every rank, e.g. through
+    ``parallel.replicate``) and takes its block of each chunk's B columns
+    (B must divide over the ranks); ``mem`` is this rank's block of the
+    memory, and so is the memory returned. The replay mask is drawn over
+    the global batch from the same generator on every rank, then sliced.
+    Each update averages the gradients over the ranks after the backward
+    (``RolloutTrainer.update(group=)``; no DDP hooks, which clash with the
+    remat of ``torch.utils.checkpoint``), so the parameters stay equal
+    and the epoch equals the single-device one on the global batch, its
+    record included."""
     cfg = trainer.cfg
     W = cfg.window_for_epoch(epoch)
     frac = cfg.mix_fraction(epoch)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(cfg.seed + epoch)
     trainer.maybe_rescale_optimizer(W)
+    group, rank, nranks = None, 0, 1
+    if mesh is not None:
+        group = mesh.get_group("data")
+        rank, nranks = axis_rank(mesh, "data")
     tot, n, updates = 0.0, 0, 0
     t0 = time.time()
     for chunk in chunks:
@@ -534,12 +596,21 @@ def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
         nw = T // W
         if nw == 0:
             continue
+        if B % nranks:
+            raise ValueError(f"{B} columns do not divide over {nranks} "
+                             f"ranks of 'data'")
+        b = B // nranks
+        cols = slice(rank * b, (rank + 1) * b)
+        if mesh is not None:
+            chunk = {k: v[:, cols] for k, v in chunk.items()}
         mem = trainer._fresh_mem(mem, chunk)
         mix_mask = trainer._mix_mask(B, frac, gen)
+        if mix_mask is not None:
+            mix_mask = mix_mask[cols]
         losses = []
         for i in range(nw):
             mem, loss = trainer.update(trainer._window(chunk, i * W, W), mem,
-                                       mix_mask)
+                                       mix_mask, group=group)
             losses.append(loss)
         tot += float(torch.stack(losses).mean())
         n += 1

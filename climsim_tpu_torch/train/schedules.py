@@ -110,3 +110,23 @@ def warmup_constant(lr: float, warmup_steps: int) -> Schedule:
     """Linear warmup to a constant lr."""
     return _join([_linear(0.0, lr, warmup_steps), lambda step: lr],
                  [warmup_steps])
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Schedule:
+    """optax.warmup_cosine_decay_schedule: linear from init to peak over
+    ``warmup_steps``, then a cosine from peak to ``end_value`` at
+    ``decay_steps`` (counted from 0, warmup included), then end."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError("the cosine decay needs decay_steps > warmup_steps")
+
+    def cosine(step):
+        frac = min(step, span) / span
+        return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * frac))
+                             + alpha)
+
+    return _join([_linear(init_value, peak_value, warmup_steps), cosine],
+                 [warmup_steps])

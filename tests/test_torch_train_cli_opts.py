@@ -37,7 +37,7 @@ def files(tmp_path_factory):
     ("autoreg_gru.yaml", ["optimizer.name=muon"], "A.13"),
     ("autoreg_gru.yaml", ["rollout.ensemble_size=2"], "A.7"),
     ("autoreg_gru.yaml", ["loss.w_det=0.1"], "A.7"),
-    ("autoreg_gru.yaml", ["plots_dir=p"], "A.15"),
+    ("autoreg_gru.yaml", ["optimizer.name=schedulefree"], "A.13"),
     ("autoreg_gru.yaml", ["export_path=e"], "A.16")])
 def test_unported_options_raise_before_data(yaml, over, item, monkeypatch):
     """Each raises NotImplementedError naming its item before any data is

@@ -1,5 +1,5 @@
 """Rank functions for the port's multi-process CPU tests
-(``tests/test_torch_{parallel,sharded_step}.py``): each test file spawns
+(``tests/test_torch_{parallel,sharded_step,sharded_epoch}.py``): each test file spawns
 its ranks once per rank count with ``spawn``, every rank joins a gloo group
 through a ``file://`` rendezvous in the test's temporary directory (so
 concurrent test workers never share a port) with one torch thread, runs
@@ -243,5 +243,91 @@ def sharded_ranks(rank, nprocs, rendezvous, out_dir, params, state, mem,
                     device="cpu"), mesh)),
         }
         _save(out_dir, "errors", rank, raised)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- sharded epoch
+
+EPOCH_L, EPOCH_T, EPOCH_B = 20, 8, 16
+# case -> RolloutConfig fields; W 2 on chunks of 4 steps: 4 updates
+EPOCH_CASES = {
+    "base": dict(loss="mse", rollout_schedule={0: 2}, lr=1e-3),
+    # the terms that are not means of per-column terms: the bias
+    # penalty's batch means and the GEL exponent; with w_precip and remat
+    "bias": dict(loss="huber", rollout_schedule={0: 2}, lr=1e-3, w_bias=0.5,
+                 w_gel_precip=0.1, w_precip=0.01, remat=True),
+    # the replay mask drawn over the global batch, then sliced
+    "mixed": dict(loss="mse", rollout_schedule={0: 2}, lr=1e-3,
+                  replay="mixed", replay_slice=(0, 3), pred_slice=(0, 3),
+                  gradual_mixing_end_epoch=2),
+}
+
+
+def epoch_hybrid():
+    """The hybrid coefficients of the epoch cases' EPOCH_L levels."""
+    return (np.linspace(2e-3, 0.0, EPOCH_L + 1).astype(np.float32),
+            np.linspace(0.0, 1.0, EPOCH_L + 1).astype(np.float32))
+
+
+def epoch_data(B=EPOCH_B, seed=21):
+    """A [T, B, ...] keeplev series: normalized-scale inputs, targets a
+    smooth function of them, surface pressure in Pa."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: np.asarray(a, np.float32)
+    xl = f(rng.normal(0, 1, (EPOCH_T, B, EPOCH_L, 6)))
+    xs = f(rng.normal(0, 1, (EPOCH_T, B, 24)))
+    return {"x_lev": xl, "x_sfc": xs, "y_lev": f(0.5 * np.tanh(xl)),
+            "y_sfc": f(np.abs(xs[..., :8])),
+            "sp": f(rng.uniform(9.6e4, 1.03e5, (EPOCH_T, B)))}
+
+
+def epoch_chunks(data):
+    from climsim_tpu_torch.data import keeplev_chunks
+    return keeplev_chunks(data["x_lev"], data["x_sfc"], data["y_lev"],
+                          data["y_sfc"], data["sp"], chunk_size=4,
+                          shuffle=False)
+
+
+def epoch_trainer(params, case):
+    """The scan-arm RNNAutoreg of the dry run on the flax parameters and
+    its RolloutTrainer for ``case``, on the CPU."""
+    from climsim_tpu_torch.models import F32, RNNAutoreg, from_flax_params
+    from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
+    model = RNNAutoreg(policy=F32, device="cpu", **EMULATOR)
+    model.load_state_dict(from_flax_params(params, model))
+    return RolloutTrainer(model, RolloutConfig(**EPOCH_CASES[case]),
+                          *epoch_hybrid(), yscale_lev=np.ones((1, 1, 6)),
+                          yscale_sca=np.ones(8), device="cpu")
+
+
+def run_epoch(params, case, mesh=None):
+    """One fused epoch of ``case`` on epoch_data: (record, parameters,
+    memory)."""
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    tr = epoch_trainer(params, case)
+    mem, rec = run_epoch_fused(tr, None, epoch_chunks(epoch_data()), 0,
+                               mesh=mesh)
+    return rec, {k: v.detach().clone() for k, v
+                 in tr.model.state_dict().items()}, mem
+
+
+def sharded_epoch_ranks(rank, nprocs, rendezvous, out_dir, params):
+    """Every EPOCH_CASES case's data-parallel fused epoch on this rank's
+    block of the columns; then the ValueError of a batch that does not
+    divide over the ranks."""
+    from climsim_tpu_torch.parallel import make_mesh
+    from climsim_tpu_torch.train.rollout import run_epoch_fused
+    _init(rank, nprocs, rendezvous)
+    try:
+        mesh = make_mesh(nprocs, axis="data")
+        for case in EPOCH_CASES:
+            rec, state, mem = run_epoch(params, case, mesh)
+            _save(out_dir, case, rank, {"rec": rec, "params": state,
+                                        "mem": mem})
+        odd = epoch_data(B=nprocs + 1)
+        _save(out_dir, "errors", rank, _raises(lambda: run_epoch_fused(
+            epoch_trainer(params, "base"), None, epoch_chunks(odd), 0,
+            mesh=mesh)))
     finally:
         dist.destroy_process_group()
