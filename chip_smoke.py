@@ -60,6 +60,11 @@ The paths, each at full width with random weights from a seed:
   12 blocks of 406 channels at batch 768, f32), the weighted scoreboard's
   CLI ``cli/evaluate.py``, the data-parallel rollout epoch and the
   multi-device dry run ``cli/dryrun_multichip.py``.
+* the deployment export: the rollout CLI's emulator at
+  conf/autoreg_gru.yaml's widths in the raw-units ``OnlineWrapper``,
+  exported as a ``torch.export`` program whose kernel is a ``climsim::``
+  custom op, reloaded in a fresh process, validated, and served in int8;
+  the physics yaml's ``export_path``.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -159,17 +164,17 @@ Phases (any failure exits non-zero):
      once per model step of an update (W per update) and no other kernel;
      then resume=true, which must start at the best epoch + 1;
      ``conf/autoreg_gru.yaml`` at 21,600 columns as written (the scan
-     arm: no kernel) and with model.use_pallas=true (the v2 arm: B7 per
+     arm: no kernel; one epoch) and with model.use_pallas=true (the v2 arm: B7 per
      model step, B8 W per update, both in the f32 cluster design); each
      with its wall time, seconds per epoch, updates, column-steps/s and
      peak memory, and one more epoch of each under torch.profiler (device
      idle share; the host-to-device copies, which with the device cache
      must hold no data window); then both yamls at 384 columns for one
-     epoch on the card and with device=cpu, loss and val_loss within 1e-4
-     plus 4x the CPU's own movement under a 1e-6 change of the learning
-     rate, with the McICA sample indices that differ counted; one chunk
-     of the GRU yaml's scan epoch with the earlier select loop in turns
-     with the unbind sweep (ms per update, peak memory);
+     epoch on the card, held to device=cpu in lockstep
+     (compare_cli_384): from the card's state before each update the
+     CPU's loss and gradients, the CPU's Adam step from the card's
+     gradients, and the CPU's validation of the card's final weights,
+     with the physics model's discrete choices replayed;
  10. the sharded coupled step (check_sharded): ``sharded_hybrid_step`` of
      the v4 arm on a one-rank NCCL group at 21,600 columns in the
      production configuration, with and without the overlap, against
@@ -181,7 +186,7 @@ Phases (any failure exits non-zero):
      transport at 384 columns against ``coupled_step``; ``python -m
      climsim_tpu_torch.cli.scale_bench --devices 1``; two NCCL ranks
      against the single-device step where the machine has two cards;
- 11. timings with CUDA events (median of 5 repeats for the v6 coupled
+ 11. timings with CUDA events (median of 3 repeats for the v6 coupled
      step and training update and the kernels; 2 for the other arms'
      coupled steps and training and the physics paths), peak memory and
      profiler splits; every serving arm's
@@ -213,9 +218,7 @@ Phases (any failure exits non-zero):
      fp16, then the latent and output heads as two torch.nn.Linear, for
      B4 with its inputs and outputs permuted between the channel-major and
      the pair's layout), first held to the plain version, then timed
-     beside the kernel; the scan arm's training update and the physics
-     scan trunk's update at 10,800 columns with the earlier select loop
-     in turns with the unbind sweep (C.1: ms per update, peak memory);
+     beside the kernel;
  12. the offline baselines (check_offline): ``python -m
      climsim_tpu_torch.cli.train_offline`` through its main on
      conf/mlp_v1.yaml and conf/cnn_v1.yaml as written (f32, TF32 off), the
@@ -234,13 +237,34 @@ Phases (any failure exits non-zero):
      4, on a one-rank NCCL group against the single-device epoch (its
      launches counted, ms an update of each), and on 2 NCCL ranks where
      the machine has two GPUs; ``cli.dryrun_multichip --devices 1``;
- 13. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 13. the deployment export (check_export): the rollout CLI's v4_rnn
+     emulator at conf/autoreg_gru.yaml's widths (nneur 192/192, nh_mem
+     16, add_pres, nx 15, ny 5, bf16) in its v4, v2 and v3 arms, each in
+     ``export.OnlineWrapper`` (mp_mode 1) and exported with
+     ``export_wrapper`` at 384 and 21,600 columns: the graph holds the
+     arm's kernel as one climsim:: node, the eager wrapper launches it
+     once a call (ms a step, and the pre-processing's and the model's);
+     all six artifacts reloaded in one fresh process that builds no model
+     (reload_exports): the kernel once a call, the outputs bit-equal to
+     the eager wrapper's (or within 1e-6 of their scale), ms a step;
+     ``validate_export`` of the reloaded 384-column v4 artifact over an
+     8-step synthetic raw series against the eager wrapper (passed, no
+     error); ``conf/autoreg_physrnn.yaml`` as written through the rollout
+     CLI at 384 columns, 1 epoch, with export_path: the artifact reloaded
+     launches B11 and B12 as the eager forward and equals it; the v6 (B1)
+     and v5 (B4) models' forward through ``export_step`` at 21,600
+     columns, reloaded equal; ``QuantGRUForward`` at 21,600 columns
+     against the f32 scan forward (JAX's gates: relative RMS < 0.05,
+     correlation > 0.99; ms of each); ``cli.profile --steps 3`` (its trace
+     holds device kernels); each forward kernel through its climsim:: op
+     in turns with its CUDA implementation called directly;
+ 14. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
      card line, and the result line.
 The end of each phase prints the wall time since the start and the
-phase's own; phase 12 prints each of its steps' seconds.
+phase's own; phases 12 and 13 print each of their steps' seconds.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -275,7 +299,7 @@ LO_NLAT, LO_NLON = 16, 24                # 384 columns
 # timing repeats; the coupled steps and training of the arms other than
 # v6 (earlier slices' paths) take fewer, to hold the run's time as the
 # paths grow
-N_STEPS, REPEATS, OLD_REPEATS = 20, 5, 2
+N_STEPS, REPEATS, OLD_REPEATS = 20, 3, 2
 W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
@@ -3031,7 +3055,7 @@ def heads_yardstick(layer, a, cm, card, label):
 
 
 # ------------------------------------------------------------ C.1: the
-# scan sweep's backward (ROADMAP C.1), timed in turns with the earlier code
+# scan sweep's backward (ROADMAP C.1) against the earlier code
 
 @functools.lru_cache(maxsize=None)
 def select_layer_cls():
@@ -3103,49 +3127,6 @@ def check_c1_bits(model, card):
         check(same, "C.1: the unbind sweep differs from the select loop")
         del new, old, x, h0
     model.zero_grad(set_to_none=True)
-
-
-def c1_in_turns(label, model, run, n_updates, card):
-    """``run()`` (n_updates training updates) with the select loop and with
-    the unbind sweep in turns (select, unbind, unbind, select) after one
-    run of each: ms per update from CUDA events, and each side's peak
-    memory."""
-    times, peaks = {True: [], False: []}, {True: 0.0, False: 0.0}
-    with select_loop(model):
-        run()
-    run()
-    for old in (True, False, False, True):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ctx = select_loop(model) if old else contextlib.nullcontext()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        with ctx:
-            e0.record()
-            run()
-            e1.record()
-            torch.cuda.synchronize()
-        times[old].append(e0.elapsed_time(e1) / n_updates)
-        peaks[old] = max(peaks[old], torch.cuda.max_memory_allocated() / 1e9)
-    print(f"C.1 in turns (select, unbind, unbind, select), {label}: select "
-          f"loop {times[True][0]:.4f} / {times[True][1]:.4f} ms per update "
-          f"(peak {peaks[True]:.3f} GB), unbind sweep {times[False][0]:.4f} "
-          f"/ {times[False][1]:.4f} ms (peak {peaks[False]:.3f} GB) [{card}]")
-
-
-def phys_c1_in_turns(card, ncol):
-    """The physics model's W 3 update with the yaml's scan trunk at
-    ``ncol`` columns, where the select loop's update fits the card, in
-    turns with the select loop."""
-    model = make_phys_model(None)
-    trainer = make_phys_trainer(model, None, train=True)
-    chunk = phys_chunk(PHYS_T_TRAIN, ncol, "cuda", seed=7)
-
-    def run():
-        with torch.enable_grad():
-            trainer.run_epoch(None, [chunk], 0)
-    c1_in_turns(f"physics update, scan trunk (W {PHYS_W}, {ncol} columns, "
-                f"f32)", model, run, PHYS_T_TRAIN // PHYS_W, card)
 
 
 # ------------------------------------------------------------ phase 10:
@@ -3404,13 +3385,10 @@ CLI_MAX_H2D_BYTES = 1 << 16
 
 class ForwardCounter:
     """Counts the calls of a model class's forward with autograd on (the
-    training updates) and off (validation and the scoreboard); with
-    ``keep_area`` keeps each call's area fractions (the physics model's
-    aux), on the host."""
+    training updates) and off (validation and the scoreboard)."""
 
-    def __init__(self, cls, keep_area=False):
+    def __init__(self, cls):
         self.cls, self.grad, self.nograd = cls, 0, 0
-        self.keep_area, self.area_fracs = keep_area, []
 
     def __enter__(self):
         orig = self.orig = self.cls.forward
@@ -3422,8 +3400,6 @@ class ForwardCounter:
                 counter.grad += 1
             else:
                 counter.nograd += 1
-            if counter.keep_area:
-                counter.area_fracs.append(out[3]["area_frac"].detach().cpu())
             return out
         self.cls.forward = forward
         return self
@@ -3432,7 +3408,92 @@ class ForwardCounter:
         self.cls.forward = self.orig
 
 
-def train_cli_run(args, model_cls, keep_area=False):
+class ChoiceReplay:
+    """The discrete choices of the physics model in call order: McICA's
+    sample indices (``radiation.stratified_sample``, SW then LW each
+    forward) and the qv variability's two largest regions
+    (``phys_rnn.largest_regions``). Without ``recorded`` each call's
+    result is kept in ``calls`` as (name, indices on the CPU); with it
+    each call returns the recorded result of the same call instead of its
+    own, after checking name and shape, and counts how many of its own
+    indices differ (``n_diff`` of ``n_idx``). Used as a context manager
+    around a run; ``done()`` checks that every recorded call was
+    replayed."""
+
+    def __init__(self, recorded=None):
+        self.recorded, self.calls = recorded, []
+        self.n_diff = self.n_idx = 0
+
+    def __enter__(self):
+        from climsim_tpu_torch.models import phys_rnn
+        from climsim_tpu_torch.physics import radiation
+        self.orig = [(radiation, "stratified_sample"),
+                     (phys_rnn, "largest_regions")]
+        self.orig = [(m, n, getattr(m, n)) for m, n in self.orig]
+        for mod, name, fn in self.orig:
+            setattr(mod, name, functools.partial(self._call, name, fn))
+        return self
+
+    def _call(self, name, fn, *args):
+        own = fn(*args)
+        if self.recorded is None:
+            self.calls.append((name, own.detach().cpu()))
+            return own
+        i = len(self.calls)
+        check(i < len(self.recorded) and self.recorded[i][0] == name
+              and self.recorded[i][1].shape == own.shape,
+              f"choice replay: call {i} {name} {tuple(own.shape)} against "
+              f"{len(self.recorded)} recorded calls")
+        rec = self.recorded[i][1].to(own.device)
+        self.calls.append(self.recorded[i])
+        self.n_diff += int((own != rec).sum())
+        self.n_idx += own.numel()
+        return rec
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+    def done(self, what):
+        check(len(self.calls) == len(self.recorded), f"{what}: replayed "
+              f"{len(self.calls)} of {len(self.recorded)} recorded choices")
+
+
+class UpdateLog:
+    """Records every ``RolloutTrainer.update`` of a run, on the CPU: the
+    model's state before it, its window, memory and mix mask, its loss
+    and gradients, and the range of ``choices.calls`` (a recording
+    ChoiceReplay) that it made. Used as a context manager around a run."""
+
+    def __init__(self, choices):
+        self.choices, self.updates = choices, []
+
+    def __enter__(self):
+        import types
+        from climsim_tpu_torch.train.rollout import RolloutTrainer
+        self.cls, orig = RolloutTrainer, RolloutTrainer.update
+        self.orig, log = orig, self
+        cpu = lambda t: None if t is None else t.detach().cpu().clone()
+
+        def update(tr, window, mem, mix_mask, group=None):
+            state = {k: cpu(v) for k, v in tr.model.state_dict().items()}
+            start = len(log.choices.calls)
+            new_mem, loss = orig(tr, window, mem, mix_mask, group=group)
+            log.updates.append(types.SimpleNamespace(
+                state=state, window={k: cpu(v) for k, v in window.items()},
+                mem=cpu(mem), mask=cpu(mix_mask), loss=float(loss),
+                grads={n: cpu(p.grad)
+                       for n, p in tr.model.named_parameters()},
+                calls=(start, len(log.choices.calls))))
+            return new_mem, loss
+        RolloutTrainer.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.orig
+
+
+def train_cli_run(args, model_cls):
     """``cli/train_rollout.py``'s main(args) as a user runs it, every launch
     counter set to 0 just before and read just after, the peak memory
     reset before, the model's forward calls counted (ForwardCounter) and
@@ -3454,7 +3515,7 @@ def train_cli_run(args, model_cls, keep_area=False):
     out = io.StringIO()
     cli.setup = setup
     try:
-        with ForwardCounter(model_cls, keep_area) as calls, \
+        with ForwardCounter(model_cls) as calls, \
                 contextlib.redirect_stdout(out):
             t0 = time.perf_counter()
             rc = cli.main(args)
@@ -3596,79 +3657,143 @@ def witness_compare(name, records, witnesses, keys):
 
 
 def compare_cli_384(card, grid, yaml, model_cls):
-    """One epoch of the CLI at its default 384 columns on the card and with
-    device=cpu (no kernel launched there), and two witnesses: the CPU runs
-    from the CLI's own initial weights times 1 + 1e-6 and 1 - 1e-6
-    (through init_from). The card's epoch-0 loss and val_loss must lie
-    within 1e-4 of the CPU's (the CPU tests hold the CLI to JAX at 1e-4)
-    plus 4x the larger witness movement: a change at the rounding level of
-    every weight moves the forward as the card's rounding does, and the
-    epoch's updates carry it on. With random weights on synthetic data
-    that movement depends on the data, which the hash-salted fill of the
-    v4_rnn set's dynamics inputs makes differ from process to process
-    (ROADMAP C): on one CPU the physics yaml's val_loss moved 1.5e-4 under
-    one salt and 3.1e-3 under another. With McICA the sample indices that
-    differ card vs CPU are counted over every model call of the epoch
-    (stratified_sample of each call's area fractions)."""
+    """One epoch of the CLI at its default 384 columns on the card, held to
+    device=cpu in lockstep: from the card's own state at each step the
+    CPU computes what the card computed, so the comparison is
+    well-conditioned. One epoch of Adam is not: on the CPU alone, initial
+    weights times 1 +- 1e-6 moved the physics yaml's val_loss by up to 7%
+    and its epoch loss by up to 2.7e-4 (tests/torch_witness_sweep.py),
+    since rounding-level gradients take steps of the full learning rate.
+
+    The card run records every update (UpdateLog) and the physics model's
+    discrete choices (ChoiceReplay), which the CPU replays. For each
+    update, from the card's weights before it, on its window, memory and
+    mask, the card's loss must lie within 1e-4 of the CPU's (the CPU tests
+    hold the CLI to JAX at 1e-4) plus 4x the larger movement of two
+    witnesses, the same weights times 1 +- 1e-6 on the CPU; and each
+    parameter's gradient, in the norm of its difference, within 1e-4 of
+    the CPU's norm plus 4x the witness movement plus 1e-6 of the whole
+    gradient's norm (the level of a float32 residue, where a gradient is
+    zero in exact arithmetic). The CPU's Adam, fed the card's gradient
+    from the card's weights, must give the card's next weights within
+    1e-5 of (|w| + lr) elementwise. The card's val_loss is held like the
+    loss to the CPU's validation of the card's final weights. No kernel
+    launches on the CPU."""
     from climsim_tpu_torch.cli import train_rollout as cli
-    from climsim_tpu_torch.physics.radiation import stratified_sample
     from climsim_tpu_torch.train.config import load_config
     base = [yaml, f"grid_path={grid}", "epochs=1"]
-    run = cli.setup(load_config(yaml, base[1:] + ["device=cpu"]))
-    witnesses = []
-    for sign in (1, -1):
-        path = os.path.join(os.path.dirname(grid), f"witness{sign}.pt")
-        torch.save({k: v * (1 + sign * 1e-6) if v.is_floating_point() else v
-                    for k, v in run.trainer.model.state_dict().items()}, path)
-        witnesses.append((f"witness{sign}", ["device=cpu",
-                                             f"init_from={path}"]))
-    run = None
-    keep = model_cls.__name__ == "PhysicalRNNAutoreg"
-    runs = {}
-    for tag, extra in [("cuda", ["device=cuda"]), ("cpu", ["device=cpu"])] \
-            + witnesses:
-        r = train_cli_run(base + extra, model_cls, keep_area=keep)
-        check(r.rc == 0 and len(r.records) == 1, f"{yaml} 384 {tag}: exit "
-              f"{r.rc}")
-        if tag != "cuda":
-            check(not r.launches, f"{yaml} 384 {tag} launched {r.launches}")
-        r.run = None
-        runs[tag] = r
     name = os.path.basename(yaml)
-    mc = ""
-    if keep:
-        fc, fp = runs["cuda"].calls.area_fracs, runs["cpu"].calls.area_fracs
-        check(len(fc) == len(fp) > 0, "model calls card vs CPU")
-        n_diff = n_idx = 0
-        for af_c, af_p in zip(fc, fp):
-            nreg = af_p.shape[-1]
-            for G in (8, 8):            # the yaml's ng_sw, ng_lw
-                ic = stratified_sample(af_c.cuda().reshape(-1, nreg), G)
-                ip = stratified_sample(af_p.reshape(-1, nreg), G)
-                n_diff += int((ic.cpu() != ip).sum())
-                n_idx += ip.numel()
-        mc = f"; {n_diff} of {n_idx} McICA sample indices differ card vs " \
-             f"CPU over the epoch's {len(fp)} model calls"
-        print(f"cli train_rollout {os.path.basename(yaml)} at 384 columns"
-              f"{mc} [{card}]")
-    worst = witness_compare(f"{name} 384",
-                            {t: r.records for t, r in runs.items()},
-                            [t for t, _ in witnesses], ("loss", "val_loss"))
+    with ChoiceReplay() as choices, UpdateLog(choices) as log:
+        r = train_cli_run(base + ["device=cuda"], model_cls)
+    check(r.rc == 0 and len(r.records) == 1,
+          f"{name} 384 cuda: exit {r.rc}")
+    rec = r.records[0]
+    check(rec["updates"] == len(log.updates) > 0, f"{name} 384: "
+          f"{len(log.updates)} updates logged, the record gives "
+          f"{rec['updates']}")
+    final = {k: v.detach().cpu().clone()
+             for k, v in r.run.trainer.model.state_dict().items()}
+    r = None
+    run = cli.setup(load_config(yaml, base[1:] + ["device=cpu"]))
+    tr, model = run.trainer, run.trainer.model
+    params = dict(model.named_parameters())
+    scaled = lambda st, f: {k: v * f if v.is_floating_point() else v
+                            for k, v in st.items()}
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    replays = []
+
+    def replay(calls):
+        rp = ChoiceReplay(calls)
+        replays.append(rp)
+        return rp
+
+    def grad_at(state, u):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        calls = choices.calls[u.calls[0]:u.calls[1]]
+        with replay(calls) as rp, torch.enable_grad():
+            loss, _ = tr._window_loss(u.window, u.mem, u.mask)
+            loss.backward()
+        rp.done(f"{name} 384 update")
+        return float(loss.detach()), {n: p.grad.clone()
+                                      for n, p in params.items()}
+
+    def held(what, diff, p, moves, floor=0.0):
+        """``diff`` (the card's difference from the CPU's ``p``) within
+        1e-4 of |p| plus 4x the larger witness movement plus ``floor``;
+        returns its share of that tolerance."""
+        tol = 1e-4 * abs(p) + 4 * max(moves) + floor
+        check(np.isfinite(diff) and diff <= tol,
+              f"{name} 384: {what}: the card differs from the CPU's {p!r} "
+              f"by {diff!r}, tolerance {tol!r}")
+        return diff / max(tol, 1e-300)
+
+    worst = {"loss": 0.0, "grad": 0.0, "adam": 0.0}
+    worst_grad = ""
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    for k, u in enumerate(log.updates):
+        lp, gp = grad_at(u.state, u)
+        wit = [grad_at(scaled(u.state, 1 + s * 1e-6), u) for s in (1, -1)]
+        worst["loss"] = max(worst["loss"], held(
+            f"update {k} loss", abs(u.loss - lp), lp,
+            [abs(lw - lp) for lw, _ in wit]))
+        gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                     for g in gp.values())))
+        for n, g in gp.items():
+            share = held(f"update {k} gradient of {n} (norm {norm(g)!r})",
+                         norm(u.grads[n] - g), norm(g),
+                         [norm(gw[n] - g) for _, gw in wit], 1e-6 * gnorm)
+            if share > worst["grad"]:
+                worst["grad"], worst_grad = share, f" ({n}, update {k})"
+        # the step: the CPU's Adam fed the card's gradient
+        model.load_state_dict(u.state)
+        for n, p in params.items():
+            p.grad = u.grads[n].clone()
+        lr = tr._schedule(k)
+        for g in tr.opt.param_groups:
+            g["lr"] = lr
+        tr.opt.step()
+        nxt = final if k + 1 == len(log.updates) \
+            else log.updates[k + 1].state
+        for n, p in params.items():
+            d = (p.detach() - nxt[n]).abs()
+            tol = 1e-5 * (nxt[n].abs() + lr)
+            worst["adam"] = max(worst["adam"], float((d / tol).max()))
+            check(bool((d <= tol).all()), f"{name} 384: update {k} Adam "
+                  f"step of {n} differs by {float(d.max()):.3e} from the "
+                  f"card's")
+    # validation of the card's final weights
+    vcalls = choices.calls[log.updates[-1].calls[1]:]
+
+    def val_at(state):
+        model.load_state_dict(state)
+        with replay(vcalls) as rp:
+            _, v = tr.run_epoch(None, run.chunks(run.ntr, None, False), 0,
+                                train=False)
+        rp.done(f"{name} 384 validation")
+        return v["loss"]
+    vp = val_at(final)
+    vw = [val_at(scaled(final, 1 + s * 1e-6)) for s in (1, -1)]
+    vc = rec["val_loss"]
+    held("val_loss on the card's final weights", abs(vc - vp), vp,
+         [abs(v - vp) for v in vw])
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(not launched, f"{name} 384 on the CPU launched {launched}")
+    n_diff = sum(rp.n_diff for rp in replays)
+    n_idx = sum(rp.n_idx for rp in replays)
     print(f"cli train_rollout {name} at 384 columns, 1 epoch, card against "
-          f"device=cpu: " + "; ".join(worst) + mc + f" [{card}]")
-
-
-def gru_c1_in_turns(r, card):
-    """One chunk of the GRU yaml's scan-arm epoch (W 1) through the run's
-    own trainer, the select loop in turns with the unbind sweep."""
-    from climsim_tpu_torch.train.rollout import run_epoch_fused
-    run = r.run
-    chunk = next(run.chunks(0, run.ntr, True, seed=1))
-    n = run_epoch_fused(run.trainer, None, [chunk], 1)[1]["updates"]
-    c1_in_turns(f"GRU yaml, scan arm (W 1, {GRU_CLI_NCOL} columns, f32, one "
-                f"chunk of {n} updates)", run.trainer.model,
-                lambda: run_epoch_fused(run.trainer, None, [chunk], 1), n,
-                card)
+          f"device=cpu in lockstep: {len(log.updates)} updates, loss "
+          f"{rec['loss']!r}; the largest difference as a share of its "
+          f"tolerance: update loss {worst['loss']:.3f}, gradient "
+          f"{worst['grad']:.3f}{worst_grad}, Adam step "
+          f"{worst['adam']:.3f}; val_loss {vc!r} vs the CPU's on the card's "
+          f"weights {vp!r} (difference "
+          f"{abs(vc - vp):.3e}, witness movement "
+          f"{max(abs(v - vp) for v in vw):.3e}); {len(choices.calls)} "
+          f"discrete choices replayed, {n_diff} of {n_idx} of the CPU's "
+          f"own indices (with witnesses) differ from the card's [{card}]")
 
 
 def check_train_cli(card):
@@ -3740,16 +3865,15 @@ def check_train_cli(card):
         torch.cuda.empty_cache()
 
         gru_args = [gru_yaml, f"grid_path={grid}",
-                    f"data.ncol={GRU_CLI_NCOL}", "epochs=2"]
+                    f"data.ncol={GRU_CLI_NCOL}", "epochs=1"]
         r = train_cli_run(gru_args, RNNAutoreg)
         cli_summary(f"GRU yaml (scan arm), {GRU_CLI_NCOL} columns", r,
                     GRU_CLI_NCOL, card)
-        check_cli_records("GRU yaml", r, [1, 1])
+        check_cli_records("GRU yaml", r, [1])
         check(r.run.trainer.model.arm == "scan", r.run.trainer.model.arm)
         check(r.launches == {}, f"the scan arm launched {r.launches}")
         cli_epoch_profile("GRU yaml (scan arm)", r, 1, GRU_CLI_NCOL, card,
                           os.path.join(tmp, "trace.json"))
-        gru_c1_in_turns(r, card)
         r = None
         gc.collect()
         torch.cuda.empty_cache()
@@ -3757,7 +3881,7 @@ def check_train_cli(card):
         r = train_cli_run(gru_args + ["model.use_pallas=true"], RNNAutoreg)
         cli_summary(f"GRU yaml with model.use_pallas=true (v2 arm), "
                     f"{GRU_CLI_NCOL} columns", r, GRU_CLI_NCOL, card)
-        check_cli_records("GRU yaml v2", r, [1, 1])
+        check_cli_records("GRU yaml v2", r, [1])
         check(r.run.trainer.model.arm == "v2", r.run.trainer.model.arm)
         check_cli_launches("GRU yaml v2", r, (("b7",), ("b8",)))
         designs = (fused_bigru_lbh.design, bigru_bwd_lbh.design)
@@ -4332,6 +4456,596 @@ def check_offline(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 13
+
+# the deployment export (climsim_tpu_torch/export): the rollout CLI's
+# v4_rnn emulator at conf/autoreg_gru.yaml's widths (nneur 192/192,
+# nh_mem 16, add_pres, output_prune; nx 15, nx_sfc 24, ny 5 for mp_mode
+# 1, ny_sfc 8) in bf16, in the arm whose kernel the wrapper reaches, in
+# OnlineWrapper, exported at the ne4 contract's 384 columns and at 21,600
+EXPORT_NX, EXPORT_NX_SFC, EXPORT_NY, EXPORT_NM = 15, 24, 5, 16
+EXPORT_ARMS = {"v4": (dict(use_pallas=True, fuse_heads=True, fuse_init=True),
+                      "b10", "fused_bigru_heads_init_lbh"),
+               "v2": (dict(use_pallas=True), "b7", "fused_bigru_lbh"),
+               "v3": (dict(use_pallas=True, fuse_heads=True), "b9",
+                      "fused_bigru_heads_lbh")}
+EXPORT_NCOLS = (LO_NLAT * LO_NLON, NLAT * NLON)
+# the v4_rnn level outputs' scales (dT, dqv, dqn, du, dv): tendencies of
+# 1e-4 K/s and 1e-7 kg/kg/s at a scaled output of order 1
+EXPORT_SCALE_LEV = [1e4, 1e7, 1e7, 1e4, 1e4]
+VALIDATE_STEPS = 8
+# the fresh process that reloads the wrapper artifacts (reload_exports)
+RELOAD_CHILD = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.reload_exports(sys.argv[1]))")
+
+
+def counted(fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after (synchronized): (its result, the launches)."""
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def raw_state(ncol, seed, device="cuda"):
+    """Raw-unit wrapper inputs of realistic magnitudes, the same numbers
+    in every process from ``seed``: T 220-300 K, RH 0-1.4, cloud liquid
+    and ice |N(0, 1e-5)|, winds N(0, 10) m/s, the other level inputs
+    N(0, 1); surface inputs |N(0.5, 0.2)| with the surface pressure
+    9.6e4-1.03e5 Pa; memory N(0, 0.5)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = lambda sd, *s: sd * torch.randn(s, generator=g, device=device)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(
+        s, generator=g, device=device)
+    x = n(1.0, ncol, NLEV, EXPORT_NX)
+    x[..., 0] = u(220.0, 300.0, ncol, NLEV)
+    x[..., 1] = u(0.0, 1.4, ncol, NLEV)
+    x[..., 2:4] = n(1e-5, ncol, NLEV, 2).abs()
+    x[..., 4:6] = n(10.0, ncol, NLEV, 2)
+    xs = (0.5 + n(0.2, ncol, EXPORT_NX_SFC)).abs()
+    xs[:, 0] = u(9.6e4, 1.03e5, ncol)
+    return x, xs, n(0.5, ncol, NLEV, EXPORT_NM)
+
+
+def export_norm():
+    """A LevelNormalizer for raw_state's inputs: per-level means and 3x
+    the standard deviations of a 384-column draw (the condensates 0 and 1:
+    they are normalized after their exp transform), the output scales
+    EXPORT_SCALE_LEV and 1 at the surface."""
+    from climsim_tpu_torch.data import LevelNormalizer
+    x, xs, _ = raw_state(LO_NLAT * LO_NLON, seed=99)
+    mean_lev, div_lev = x.mean(0), 3 * x.std(0) + 1e-3
+    mean_lev[:, 2:4], div_lev[:, 2:4] = 0.0, 1.0
+    return LevelNormalizer(mean_lev, div_lev, xs.mean(0),
+                           3 * xs.std(0) + 1e-3,
+                           torch.tensor([EXPORT_SCALE_LEV], device="cuda"),
+                           torch.ones(8, device="cuda"))
+
+
+def export_wrapper_of(arm, norm):
+    """The wrapper of arm's emulator at the yaml's widths, bf16, on the
+    card (device=None), seeded weights; per-level exp-transform
+    coefficients from 1e3 at the top to 1e5 at the surface."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.export import OnlineWrapper, WrapperConfig
+    from climsim_tpu_torch.models import BF16, RNNAutoreg
+    g = Grid.synthetic(LO_NLAT * LO_NLON, NLEV)
+    model = RNNAutoreg(nx=EXPORT_NX, nx_sfc=EXPORT_NX_SFC, ny=EXPORT_NY,
+                       ny_sfc=8, nneur=(192, 192), nh_mem=EXPORT_NM,
+                       add_pres=True, output_prune=True,
+                       hyam=tuple(g.hyam.tolist()),
+                       hybm=tuple(g.hybm.tolist()),
+                       sp_mean=float(norm.mean_sfc[0]),
+                       sp_div=float(norm.div_sfc[0]), policy=BF16,
+                       device=None, **EXPORT_ARMS[arm][0])
+    check(model.arm == arm, f"the {arm} flags built the {model.arm} arm")
+    lbd = torch.logspace(3.0, 5.0, NLEV)
+    return OnlineWrapper(model, norm, lbd, lbd, lbd, WrapperConfig(mp_mode=1))
+
+
+def host_syncs(fn) -> list[str]:
+    """The synchronizing CUDA operations of one call of ``fn``
+    (``torch.cuda.set_sync_debug_mode("warn")``), each as the file:line
+    of the Python frame that made it."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def reload_exports(manifest_path) -> int:
+    """The fresh process of phase 13: load each wrapper artifact of the
+    manifest through ``load_step`` (building no model: the constructors
+    and ``load_state_dict`` raise here), read the climsim:: ops its graph
+    calls, call it on raw_state's inputs with every counter set to 0 just
+    before, hold its outputs to the eager
+    wrapper's (saved by the parent), time it, and write the results
+    beside the manifest."""
+    from climsim_tpu_torch import models as M
+
+    def refuse(*a, **k):
+        raise RuntimeError("the reloading process built a model or loaded "
+                           "parameters")
+    M.RNNAutoreg.__init__ = M.PhysicalRNNAutoreg.__init__ = refuse
+    torch.nn.Module.load_state_dict = refuse
+    from climsim_tpu_torch.export import load_step
+    from climsim_tpu_torch.ops.library import exported_ops
+    torch.set_grad_enabled(False)
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    results = []
+    for e in manifest:
+        t0 = time.perf_counter()
+        step = load_step(e["path"])
+        load_s = time.perf_counter() - t0
+        inputs = raw_state(e["ncol"], seed=e["ncol"])
+        outs, launches = counted(lambda: step(*inputs))
+        want = torch.load(e["eager"], map_location="cuda")
+        results.append(dict(
+            e, ops=exported_ops(step.graph), launches=launches, load_s=load_s,
+            equal=all(torch.equal(a, b) for a, b in zip(outs, want)),
+            max_abs_diff=max_err(outs, want),
+            scale=max(t.abs().max().item() for t in want),
+            ms=median_ms(lambda: step(*inputs), 1, repeats=3)))
+    with open(manifest_path.replace(".json", "_reloaded.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def check_wrapper_exports(card, root):
+    """The v4, v2 and v3 wrappers: exported at 384 and 21,600 columns,
+    called eagerly (the kernel once a call; ms a step, and at 21,600
+    columns the pre-processing's and the model's ms), then all reloaded in
+    one fresh process (the graph one climsim:: node, the arm's kernel; the
+    kernel once a call; outputs bit-equal to the eager wrapper's, or
+    within 1e-6 of their scale; ms a step). Returns the wrappers by
+    arm."""
+    from climsim_tpu_torch.export import export_wrapper
+    norm = export_norm()
+    wrappers, manifest = {}, []
+    inputs = {n: raw_state(n, seed=n) for n in EXPORT_NCOLS}
+    for arm, (_, kernel, op) in EXPORT_ARMS.items():
+        w = wrappers[arm] = export_wrapper_of(arm, norm)
+        for ncol in EXPORT_NCOLS:
+            x, xs, mem = inputs[ncol]
+            path = os.path.join(root, f"{arm}_{ncol}.pt2")
+            t0 = time.perf_counter()
+            nbytes = export_wrapper(w, ncol, NLEV, EXPORT_NX, EXPORT_NX_SFC,
+                                    EXPORT_NM, path)
+            export_s = time.perf_counter() - t0
+            outs, launches = counted(lambda: w(x, xs, mem))
+            check(launches == {kernel: 1}, f"{arm} {ncol}: the eager "
+                  f"wrapper launched {launches}")
+            check(all(bool(torch.isfinite(t).all()) for t in outs),
+                  f"{arm} {ncol}: eager outputs not finite")
+            check(outs[0].shape == (ncol, NLEV, 6), f"{arm}: out shape")
+            eager = os.path.join(root, f"{arm}_{ncol}_eager.pt")
+            torch.save(outs, eager)
+            if ncol == LO_NLAT * LO_NLON:
+                syncs = host_syncs(lambda: w(x, xs, mem))
+                print(f"export wrapper {arm}: {len(syncs)} synchronizing "
+                      f"operations in one eager step, at {syncs}")
+            ms = median_ms(lambda: w(x, xs, mem), 1, repeats=3)
+            split = ""
+            if ncol == NLAT * NLON:
+                xn, xsn = w.preprocess(x, xs)
+                pre = median_ms(lambda: w.preprocess(x, xs), 1, repeats=3)
+                core = median_ms(lambda: w.model(xn, xsn, mem), 1,
+                                 repeats=3)
+                split = (f"; pre-processing {pre:.4f} ms, the model "
+                         f"{core:.4f} ms, post-processing and scrub (the "
+                         f"rest) {ms - pre - core:.4f} ms")
+            print(f"export wrapper {arm} ({kernel.upper()}), {ncol} columns:"
+                  f" {nbytes} bytes of torch.export program, exported in "
+                  f"{export_s:.2f} s; eager {ms:.4f} ms a step{split} "
+                  f"[{card}]")
+            manifest.append(dict(arm=arm, ncol=ncol, path=path, eager=eager,
+                                 kernel=kernel, op=op, bytes=nbytes,
+                                 eager_ms=ms))
+    mpath = os.path.join(root, "manifest.json")
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", RELOAD_CHILD, mpath], cwd=here,
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"the reloading process failed:\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    with open(mpath.replace(".json", "_reloaded.json")) as f:
+        results = json.load(f)
+    check(len(results) == len(manifest), "reloaded results")
+    for res in results:
+        label = f"reloaded {res['arm']} {res['ncol']}"
+        check(res["ops"] == [f"climsim.{res['op']}.default"],
+              f"{label}: the exported graph calls {res['ops']}")
+        check(res["launches"] == {res["kernel"]: 1},
+              f"{label}: launched {res['launches']}")
+        check(res["equal"] or res["max_abs_diff"] <= 1e-6 * res["scale"],
+              f"{label}: differs from the eager wrapper by "
+              f"{res['max_abs_diff']} (scale {res['scale']})")
+        print(f"export wrapper {res['arm']}, {res['ncol']} columns, "
+              f"reloaded in a fresh process (no model built): loaded in "
+              f"{res['load_s']:.2f} s, {res['kernel'].upper()} launched "
+              f"{res['launches'][res['kernel']]} a call, outputs "
+              f"{'bit-equal to' if res['equal'] else 'within 1e-6 of scale of'}"
+              f" the eager wrapper's (max |diff| {res['max_abs_diff']:.3e}); "
+              f"{res['ms']:.4f} ms a step against eager "
+              f"{res['eager_ms']:.4f} [{card}]")
+    print(f"export: the fresh process took {time.perf_counter() - t0:.1f} s "
+          f"wall")
+    return wrappers
+
+
+def check_validate_export(card, root, w):
+    """validate_export of the reloaded v4 384-column artifact over an
+    8-step synthetic raw series, against the eager wrapper's teacher-forced
+    rollout as truth: it must pass, with no error."""
+    from climsim_tpu_torch.export import load_step
+    from climsim_tpu_torch.export.validate import (offline_rollout,
+                                                   validate_export)
+    ncol = LO_NLAT * LO_NLON
+    series = [raw_state(ncol, seed=1000 + t) for t in range(VALIDATE_STEPS)]
+    xm = torch.stack([s[0] for s in series])
+    xs = torch.stack([s[1] for s in series])
+    mem0 = series[0][2]
+    outs, sfcs, _ = offline_rollout(w, xm, xs, mem0)
+    step = load_step(os.path.join(root, f"v4_{ncol}.pt2"))
+    t0 = time.perf_counter()
+    rep = validate_export(step, xm, xs, outs, sfcs, mem0)
+    wall = time.perf_counter() - t0
+    worst = max(rep["rel_rmse"])
+    print(f"validate_export of the reloaded v4 artifact, {VALIDATE_STEPS} "
+          f"steps x {ncol} columns: passed {rep['passed']}, nan_frac "
+          f"{rep['nan_frac']}, worst rel_rmse against the eager wrapper "
+          f"{worst:.3e}, {wall:.3f} s [{card}]")
+    check(rep["passed"] and worst <= 1e-6, f"validate_export: {rep}")
+
+
+def check_phys_cli_export(card, tmp, grid):
+    """conf/autoreg_physrnn.yaml as written (the scan trunk) through the
+    rollout CLI at its default 384 columns, 1 epoch (W 1), with
+    export_path: the artifact reloaded (load_step) holds B11 and B12 as
+    climsim:: nodes, launches them as the eager forward does, and equals
+    it."""
+    from climsim_tpu_torch.export import load_step, serialize
+    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    from climsim_tpu_torch.ops.library import exported_ops
+    yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                        "autoreg_physrnn.yaml")
+    path = os.path.join(tmp, "physrnn.pt2")
+    seen, orig = {}, serialize.export_step
+
+    def spy(fn, example_args, p):
+        seen.update(fn=fn, args=example_args)
+        return orig(fn, example_args, p)
+    serialize.export_step = spy
+    try:
+        r = train_cli_run([yaml, f"grid_path={grid}", "epochs=1",
+                           f"export_path={path}"], PhysicalRNNAutoreg)
+    finally:
+        serialize.export_step = orig
+    check_cli_records("physics yaml export", r, [1])
+    nbytes = os.path.getsize(path)
+    check(f"exported {nbytes} bytes of torch.export program to {path}"
+          in r.lines, "the CLI's export line")
+    step = load_step(path)
+    ops = sorted(set(exported_ops(step.graph)))
+    check(ops == ["climsim.adding_sw_fast.default",
+                  "climsim.lw_solver_noscat_fast.default"],
+          f"the physics artifact calls {ops}")
+    fn, args = seen["fn"], seen["args"]
+    want, e_launch = counted(lambda: fn(*args))
+    got, r_launch = counted(lambda: step(*args))
+    check(set(r_launch) == {"b11", "b12"} and r_launch == e_launch,
+          f"the reloaded physics step launched {r_launch}, eager {e_launch}")
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    diff = max_err(got, want)
+    scale = max(t.abs().max().item() for t in want)
+    check(equal or diff <= 1e-6 * scale, f"the reloaded physics step "
+          f"differs by {diff} (scale {scale})")
+    e_ms = median_ms(lambda: fn(*args), 1, repeats=3, queue_ahead=False)
+    r_ms = median_ms(lambda: step(*args), 1, repeats=3, queue_ahead=False)
+    print(f"cli train_rollout physics yaml, {args[0].shape[0]} columns, 1 "
+          f"epoch, export_path: {nbytes} bytes (scan trunk unrolled), "
+          f"wall {r.wall:.2f} s; reloaded: launches {r_launch} a call as "
+          f"eager, outputs {'bit-equal' if equal else 'within 1e-6 of scale'}"
+          f" (max |diff| {diff:.3e}); {r_ms:.4f} ms a step against eager "
+          f"{e_ms:.4f} (host clock included) [{card}]")
+
+
+def check_level_major_export(card, root, models):
+    """export_step of the v6 (B1) and v5 (B4) models' channel-major
+    forward at 21,600 columns, reloaded in process: one climsim:: node,
+    the kernel once a call, outputs equal to the eager forward's."""
+    from climsim_tpu_torch.export import export_step, load_step
+    from climsim_tpu_torch.ops.library import exported_ops
+    ncol = NLAT * NLON
+    g = torch.Generator(device="cuda").manual_seed(43)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    args = (r(NLEV, 6, ncol), r(ncol, 24), 0.5 * r(NLEV, 16, ncol))
+    for name, model, kernel, op in models:
+        path = os.path.join(root, f"{name}_{ncol}.pt2")
+        nbytes = export_step(model.forward, args, path)
+        step = load_step(path)
+        ops = exported_ops(step.graph)
+        check(ops == [f"climsim.{op}.default"], f"{name}: {ops}")
+        want, e_launch = counted(lambda: model(*args))
+        got, r_launch = counted(lambda: step(*args))
+        check(r_launch == e_launch == {kernel: 1}, f"{name}: launches "
+              f"{r_launch}, eager {e_launch}")
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        diff = max_err(got, want)
+        scale = max(t.abs().max().item() for t in want)
+        check(equal or diff <= 1e-6 * scale, f"{name}: reloaded differs by "
+              f"{diff}")
+        e_ms = median_ms(lambda: model(*args), 1, repeats=3)
+        r_ms = median_ms(lambda: step(*args), 1, repeats=3)
+        print(f"export_step of the {name} model ({kernel.upper()}), {ncol} "
+              f"columns: {nbytes} bytes, {kernel.upper()} once a call, "
+              f"outputs {'bit-equal' if equal else 'within 1e-6 of scale'}; "
+              f"{r_ms:.4f} ms a step against eager {e_ms:.4f} [{card}]")
+
+
+# the int8 forward's (relative RMS, correlation) against the f32 scan
+# forward at 21,600 columns and the GRU yaml's widths, on this script's
+# seeded weights and inputs (out, out_sfc, mem), as three runs of
+# check_quantized on an H100 read them alike to every printed digit; at
+# 384 columns the card's and the CPU's readings agree within 1.1%, and
+# the CPU's equal JAX's (tests/test_torch_quantize.py)
+INT8_FULL_WIDTH = ((0.0788, 0.99690), (0.0204, 0.99979), (0.0620, 0.99806))
+
+
+def int8_accuracy(got, want) -> list:
+    """(relative RMS error, correlation) of each int8 output against the
+    float32 one, as JAX's accuracy test computes them."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.flatten().double(), b.flatten().double()
+        rel = ((a - b).square().mean().sqrt()
+               / b.square().mean().sqrt().clamp(min=1e-12)).item()
+        out.append((rel, torch.corrcoef(torch.stack([a, b]))[0, 1].item()))
+    return out
+
+
+def check_quantized(card):
+    """QuantGRUForward (int8 weights and activations, torch._int_mm on the
+    card): JAX's accuracy gates (relative RMS below 0.05, correlation
+    above 0.99 on every output) at the configuration JAX's test sets them
+    for (nneur 64/64, nh_mem 8, ny 6, 32 columns); at the yaml's widths
+    (nneur 192/192, nh_mem 16, ny 5) the int8 products on the card equal
+    the CPU's bit for bit (int32, on the same int8 operands, at the input
+    projection's and the recurrence's shapes of 21,600 columns and the
+    TOA MLP's K 2), and at 384 columns the card's int8 forward is as
+    accurate against its f32 forward as the CPU's against its own (the
+    two relative RMS errors within 5% of each other: a value within an
+    ulp of a rounding boundary lands on either int8 step, and the
+    recurrence carries each such flip on, so the two int8 forwards differ
+    elementwise by more than the accuracy they share; the readings
+    differed by 1.1% at most); then at 21,600 columns its accuracy
+    against the f32 scan forward, held to INT8_FULL_WIDTH, and the ms of
+    each, host clock included (both are launch-bound). At the yaml's
+    widths the two packages' int8 accuracy is the same
+    (tests/test_torch_quantize.py), so what 21,600 columns shows is the
+    reference algorithm's."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.export.quantize import QuantGRUForward, _int_mm
+    from climsim_tpu_torch.models import RNNAutoreg
+    g = Grid.synthetic(LO_NLAT * LO_NLON, NLEV)
+    gen = torch.Generator().manual_seed(47)
+
+    def build(nneur, nh_mem, ny, device):
+        return RNNAutoreg(nx=EXPORT_NX, nx_sfc=EXPORT_NX_SFC, ny=ny, ny_sfc=8,
+                          nneur=nneur, nh_mem=nh_mem,
+                          hyam=tuple(g.hyam.tolist()),
+                          hybm=tuple(g.hybm.tolist()), sp_mean=9.8e4,
+                          sp_div=1e4, device=device)
+
+    def inputs(ncol, nh_mem):
+        r = lambda sd, *s: sd * torch.randn(s, generator=gen)
+        return (r(1.0, ncol, NLEV, EXPORT_NX), r(1.0, ncol, EXPORT_NX_SFC),
+                r(0.3, ncol, NLEV, nh_mem))
+
+    text = []
+    model = build((64, 64), 8, 6, None)
+    args = [t.cuda() for t in inputs(32, 8)]
+    acc = int8_accuracy(QuantGRUForward(model)(*args), model(*args))
+    for name, (rel, corr) in zip(("out", "out_sfc", "mem"), acc):
+        check(rel < 0.05 and corr > 0.99, f"int8 {name} at JAX's test "
+              f"configuration: rel {rel}, corr {corr}")
+    text.append("JAX's test configuration (nneur 64, 32 columns): "
+                + ", ".join(f"rel RMS {r:.4f} corr {c:.5f}" for r, c in acc)
+                + " (gates 0.05, 0.99: met)")
+    ncol = NLAT * NLON
+    for M, K, N in ((ncol * NLEV, 208, 576), (ncol, 192, 576), (ncol, 2, 192)):
+        a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+        got = _int_mm(a.cuda(), b.cuda()).cpu()
+        check(torch.equal(got, _int_mm(a, b)), f"int8 product {M}x{K}x{N}: "
+              f"card and CPU differ")
+    text.append("int8 products card vs CPU bit-equal at (M, K, N) = "
+                f"({ncol * NLEV}, 208, 576), ({ncol}, 192, 576), ({ncol}, 2, "
+                f"192)")
+    cpu = build((192, 192), EXPORT_NM, EXPORT_NY, "cpu")
+    model = build((192, 192), EXPORT_NM, EXPORT_NY, None)
+    check(model.arm == "scan", model.arm)
+    model.load_state_dict(cpu.state_dict())
+    args = inputs(LO_NLAT * LO_NLON, EXPORT_NM)
+    acc_cpu = int8_accuracy(QuantGRUForward(cpu)(*args), cpu(*args))
+    args = [t.cuda() for t in args]
+    acc_card = int8_accuracy(QuantGRUForward(model)(*args), model(*args))
+    for name, (rc, _), (rg, _) in zip(("out", "out_sfc", "mem"), acc_cpu,
+                                      acc_card):
+        check(abs(rg - rc) <= 0.05 * rc, f"int8 {name} at 384 columns: "
+              f"relative RMS {rg} on the card, {rc} on the CPU")
+        text.append(f"{name} at 384 columns rel RMS against f32 {rg:.4f} on "
+                    f"the card, {rc:.4f} on the CPU")
+    args = [t.cuda() for t in inputs(ncol, EXPORT_NM)]
+    q = QuantGRUForward(model)
+    (want, got), launches = counted(lambda: (model(*args), q(*args)))
+    check(not launches, f"the scan forwards launched {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in got), "int8 not finite")
+    acc = int8_accuracy(got, want)
+    for name, (rel, corr), (rel0, corr0) in zip(
+            ("out", "out_sfc", "mem"), acc, INT8_FULL_WIDTH):
+        check(abs(rel - rel0) <= 0.05 * rel0 and corr >= corr0 - 1e-3,
+              f"int8 {name} at {ncol} columns: rel RMS {rel} (reading "
+              f"{rel0}, band 5%), corr {corr} (reading {corr0}, band 1e-3)")
+    q_ms = median_ms(lambda: q(*args), 1, repeats=3, queue_ahead=False)
+    f_ms = median_ms(lambda: model(*args), 1, repeats=3, queue_ahead=False)
+    print(f"QuantGRUForward (int8): {'; '.join(text)} [{card}]")
+    print(f"QuantGRUForward (int8) at {ncol} columns, the yaml's widths, "
+          f"against the f32 scan forward: " + ", ".join(
+              f"{n} rel RMS {r:.4f} corr {c:.5f}" for n, (r, c) in
+              zip(("out", "out_sfc", "mem"), acc))
+          + f"; int8 {q_ms:.4f} ms, f32 scan {f_ms:.4f} ms a forward "
+          f"[{card}]")
+
+
+def run_profile_cli(card, tmp):
+    """``python -m climsim_tpu_torch.cli.profile --steps 3`` through its
+    main, from a directory holding a 384-column grid file at
+    run_hybrid.DEFAULT_GRID: its trace must hold device kernels."""
+    from climsim_tpu_torch.cli import profile, run_hybrid
+    d = os.path.join(tmp, "profile")
+    os.makedirs(os.path.join(d, os.path.dirname(run_hybrid.DEFAULT_GRID)))
+    write_grid_file(os.path.join(d, run_hybrid.DEFAULT_GRID),
+                    LO_NLAT * LO_NLON)
+    here, out = os.getcwd(), io.StringIO()
+    os.chdir(d)
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = profile.main(["--steps", "3", "--logdir", "trace"])
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    traces = [f for f in os.listdir(os.path.join(d, "trace"))
+              if f.startswith("trace_")]
+    check(rc == 0 and len(traces) == 1, f"cli.profile: exit {rc}, traces "
+          f"{traces}")
+    with open(os.path.join(d, "trace", traces[0])) as f:
+        kernels = sum(e.get("cat") == "kernel"
+                      for e in json.load(f)["traceEvents"])
+    check(kernels > 0, "cli.profile's trace holds no device kernel")
+    for ln in out.getvalue().splitlines():
+        print(f"  cli.profile: {ln}")
+    print(f"cli.profile --steps 3 (batch 1536, scan arm, f32): wall "
+          f"{wall:.2f} s, {kernels} device kernels in its trace [{card}]")
+
+
+def host_us(fn, n) -> float:
+    """Host microseconds a call of ``fn`` over ``n`` calls enqueued
+    without a synchronize (the card syncs before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def op_hop_in_turns(card, model, v5model, v2model, lbh_models):
+    """Each forward kernel through its climsim:: op against its CUDA
+    implementation called directly (the launch path before the ops were
+    registered), device ms in turns (direct, op, op, direct) at the main
+    paths' shapes: the op adds a dispatch on the host and nothing on the
+    card."""
+    from climsim_tpu_torch.ops import pallas_radiation as PRad
+    from climsim_tpu_torch.ops import pallas_rnn as PR
+    ncol, bf = NLAT * NLON, torch.bfloat16
+    ops = torch.ops.climsim
+    a = {"b1": list(b1_args(model, ncol, bf, seed=7)),
+         "b4": list(b4_args(v5model, ncol, bf, seed=23)),
+         "b7": list(b7_args(v2model, ncol, bf, seed=29, L=NLEV)),
+         "b9": list(b9_args(lbh_models["b9"], ncol, bf, seed=31)),
+         "b10": list(b10_args(lbh_models["b10"], ncol, bf, seed=37))}
+    sw, lw = radiation_args(ncol, "cuda")
+    a["b11"], a["b12"] = list(sw), list(lw)
+    pairs = {
+        "b1": (lambda: PR._b1_cuda(a["b1"]),
+               lambda: ops.fused_bigru_heads_init_cm(a["b1"]), 3),
+        "b4": (lambda: PR._b4_cuda(True, a["b4"]),
+               lambda: ops.fused_bigru_heads_cm(True, a["b4"]), 3),
+        "b7": (lambda: PR._b7_cuda(a["b7"]),
+               lambda: ops.fused_bigru_lbh(a["b7"]), 3),
+        "b9": (lambda: PR._heads_lbh_cuda(a["b9"], False),
+               lambda: ops.fused_bigru_heads_lbh(a["b9"]), 3),
+        "b10": (lambda: PR._heads_lbh_cuda(a["b10"], True),
+                lambda: ops.fused_bigru_heads_init_lbh(a["b10"]), 3),
+        "b11": (lambda: PRad._b11_cuda(a["b11"]),
+                lambda: ops.adding_sw_fast(a["b11"]), 50),
+        "b12": (lambda: PRad._b12_cuda(a["b12"]),
+                lambda: ops.lw_solver_noscat_fast(a["b12"]), 50)}
+    for k, (direct, op, n) in pairs.items():
+        old, new = in_turns(direct, op, n)
+        ratio = statistics.mean(new) / statistics.mean(old)
+        print(f"{k.upper()} through its climsim:: op in turns with its CUDA "
+              f"implementation called directly (direct, op, op, direct): "
+              f"{old[0]:.4f} / {old[1]:.4f} ms direct, {new[0]:.4f} / "
+              f"{new[1]:.4f} ms through the op ({ratio:.4f}x) [{card}]")
+    # the host's side: B10 at 384 columns, whose device time covers the
+    # enqueueing of 100 calls, timed on the host clock in turns
+    a10 = list(b10_args(lbh_models["b10"], LO_NLAT * LO_NLON, bf, seed=37))
+    host = {"direct": [], "op": []}
+    for name in ("direct", "op", "op", "direct"):
+        fn = (lambda: PR._heads_lbh_cuda(a10, True)) if name == "direct" \
+            else (lambda: ops.fused_bigru_heads_init_lbh(a10))
+        host[name].append(host_us(fn, 100))
+    print(f"B10 at {LO_NLAT * LO_NLON} columns, host time a call in turns "
+          f"(direct, op, op, direct): {host['direct'][0]:.1f} / "
+          f"{host['direct'][1]:.1f} us direct, {host['op'][0]:.1f} / "
+          f"{host['op'][1]:.1f} us through the op [{card}]")
+
+
+@torch.no_grad()
+def check_export(card, model, v5model, v2model, lbh_models):
+    """Phase 13, the deployment export on the card: the wrappers
+    (check_wrapper_exports), validate_export, the physics yaml's CLI
+    export, the level-major models' export, the int8 forward, the
+    profiling CLI and the op dispatch in turns; each step's seconds
+    printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="export", dir=os.path.join(here, "build"))
+    try:
+        steps = []
+
+        def step(name, fn, *args):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            steps.append(f"{name} {time.perf_counter() - t0:.1f} s")
+            return res
+        wrappers = step("wrappers", check_wrapper_exports, card, tmp)
+        step("validate_export", check_validate_export, card, tmp,
+             wrappers["v4"])
+        del wrappers
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        step("physics CLI export", check_phys_cli_export, card, tmp, grid)
+        step("v6 and v5 export", check_level_major_export, card, tmp,
+             (("v6", model, "b1", "fused_bigru_heads_init_cm"),
+              ("v5", v5model, "b4", "fused_bigru_heads_cm")))
+        step("int8 forward", check_quantized, card)
+        step("cli.profile", run_profile_cli, card, tmp)
+        step("op dispatch in turns", op_hop_in_turns, card, model, v5model,
+             v2model, lbh_models)
+        print("phase 13 steps: " + ", ".join(steps))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4585,13 +5299,6 @@ def main() -> int:
     for arm, (atr, achunk, _, an) in arm_trainers.items():
         time_training(atr, achunk, an, arm, card, repeats=OLD_REPEATS,
                       split=True)
-        if arm == "scan":
-            def scan_epoch(tr=atr, c=achunk):
-                with torch.enable_grad():
-                    tr.run_epoch(None, [c], epoch=0)
-            c1_in_turns(f"training update, arm scan (W {W_TRAIN}, remat, "
-                        f"{ncol} columns, bf16)", atr.model, scan_epoch, an,
-                        card)
     del arm_trainers, atr, achunk
     a3 = b3_args(model, ncol, torch.bfloat16, seed=11)
     b3_ms = designs_in_turns("B3", lambda: cudacore_bigru_heads_cm_bwd(*a3),
@@ -4833,9 +5540,6 @@ def main() -> int:
     del s_ptrainer, s_pchunk
     gc.collect()
     torch.cuda.empty_cache()
-    phys_c1_in_turns(card, PHYS_CLI_NCOL)
-    gc.collect()
-    torch.cuda.empty_cache()
     time_phys_update(ptrainer, pchunk, n_pupd, ncol, card)
     from climsim_tpu_torch.ops import (adding_sw_bwd, adding_sw_bwd_reference,
                                        bigru_bwd_lbh, bigru_bwd_reference_lbh,
@@ -4892,7 +5596,14 @@ def main() -> int:
     check_offline(card)
     phase_done(12)
 
-    # ---- 13. the kernels line, the card line, the result
+    # ---- 13. the deployment export: wrappers exported and reloaded in a
+    # fresh process, validate_export, the physics yaml's export_path, the
+    # v6 and v5 models, the int8 forward, cli.profile, the ops in turns
+    torch.cuda.empty_cache()
+    check_export(card, model, v5model, v2model, lbh_models)
+    phase_done(13)
+
+    # ---- 14. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",

@@ -24,12 +24,15 @@ data, normalization, model and trainer, with these differences:
 * ``model.scan_unroll`` (an XLA unrolling hint) is accepted and has no
   effect.
 * Options that are not ported raise ``NotImplementedError`` naming their
-  ROADMAP item before any data is built: ``export_path`` (A.16),
-  ``rollout.ensemble_size > 1`` and ``loss.w_det`` (A.7),
+  ROADMAP item before any data is built: ``rollout.ensemble_size > 1``
+  and ``loss.w_det`` (A.7),
   ``optimizer.name`` soap, muon or schedule-free (A.13) and the
   stochastic layer (A.12).
 * ``plots_dir`` without matplotlib prints that no plot was made, where
   the JAX CLI prints any exception of its plot and goes on.
+* ``export_path`` writes a ``torch.export`` program (``.pt2``, loaded by
+  ``export.load_step``) of the trained model's forward, where the JAX CLI
+  writes StableHLO.
 
 The normalized series live on the card when they fit in 4 GiB
 (``data.device_cache: auto``), and the epochs then chunk them there.
@@ -74,8 +77,6 @@ def check_unported(cfg) -> None:
     if ocfg.get("name", "adam") in ("soap", "muon", "adamwschedulefree",
                                     "schedulefree"):
         raise _unported(f"optimizer.name {ocfg['name']!r}", "A.13")
-    if cfg.get("export_path"):
-        raise _unported("export_path (the deployment export)", "A.16")
 
 
 def cli_device(cfg) -> torch.device:
@@ -695,6 +696,41 @@ def final_report(run: Run, mem) -> None:
               f"{pred_dir}")
 
 
+class _PhysStep(torch.nn.Module):
+    """The physics model's forward with the raw level state, its first
+    three outputs (the exported step of ``type: physrnn``)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x_lev, x_sfc, mem, x_raw):
+        return self.model(x_lev, x_sfc, mem, x_raw)[:3]
+
+
+def export_model(run: Run, mem) -> None:
+    """``export_path``: the trained model's forward as a ``torch.export``
+    program (the deployment artifact, weights baked in) at the first
+    training step's shapes: (x_lev, x_sfc, mem), the memory being the
+    training memory or zeros, and for ``physrnn`` the raw level state as
+    well, keeping the outputs [:3]."""
+    from ..export.serialize import export_step
+    path = run.cfg["export_path"]
+    tr = run.trainer
+    first = next(iter(run.chunks(0, run.ntr, False)))
+    arg = lambda k: torch.as_tensor(first[k][0], dtype=torch.float32,
+                                    device=tr.device)
+    xm0, xs0 = arg("x_lev"), arg("x_sfc")
+    m0 = mem.detach() if mem is not None else torch.zeros(
+        tr._mem_shape(xm0.shape[0], xm0.shape[1]), device=tr.device)
+    if run.is_phys:
+        n = export_step(_PhysStep(tr.model), (xm0, xs0, m0, arg("x_lev_raw")),
+                        path)
+    else:
+        n = export_step(tr.model, (xm0, xs0, m0), path)
+    print(f"exported {n} bytes of torch.export program to {path}")
+
+
 def plot_r2_profile(pdir: str, pred, true) -> None:
     """The validation R2 of each level and output channel (pred/true
     [N, L, ny]) as ``{pdir}/val_r2_profile.png``; without matplotlib it
@@ -725,6 +761,8 @@ def main(argv=None):
     if rc:
         return rc
     final_report(run, mem)
+    if cfg.get("export_path"):
+        export_model(run, mem)
     return 0
 
 

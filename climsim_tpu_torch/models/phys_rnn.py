@@ -60,6 +60,13 @@ def _pad_top(x: torch.Tensor, ic: int) -> torch.Tensor:
     return torch.cat([z, x], dim=1)
 
 
+def largest_regions(area_frac: torch.Tensor) -> torch.Tensor:
+    """The indices of the two largest subgrid regions [..., 2], the lower
+    index first among equal fractions (jax.lax.top_k's order): a stable
+    descending sort."""
+    return torch.argsort(-area_frac, dim=-1, stable=True)[..., :2]
+
+
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"PhysicalRNNAutoreg {what} is not ported "
                                f"yet (ROADMAP A.11)")
@@ -474,9 +481,7 @@ class PhysicalRNNAutoreg(nn.Module):
         gases = {"o3": full(2e-6), "ch4": full(9.7e-7), "n2o": full(4.8e-7),
                  "h2o": vmr_col}
         if self.use_qv_variability:
-            # the two largest regions, the lower index first among equal
-            # fractions (jax.lax.top_k's order): a stable descending sort
-            top2 = torch.argsort(-area_frac, dim=-1, stable=True)[..., :2]
+            top2 = largest_regions(area_frac)
             qv2 = torch.clamp(RAD.take_small_axis(qv_crm, top2), 0.0, 0.05)
             vmr2 = qv2 / (1.0 - qv2) * _VMR
             for key, i in (("h2o_a", 0), ("h2o_b", 1)):

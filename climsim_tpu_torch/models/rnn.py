@@ -47,7 +47,10 @@ from .common import Policy, F32
 
 __all__ = ["RNNAutoreg", "Dense", "ChannelDense", "params_unfused_to_fused",
            "params_fused_to_unfused", "temperature_scaling",
-           "temperature_scaling_precip"]
+           "temperature_scaling_precip", "postprocess_mp", "DT", "INV_DT"]
+
+DT = 1200.0
+INV_DT = 1.0 / DT
 
 
 class ChannelDense(nn.Module):
@@ -287,3 +290,72 @@ def temperature_scaling(T_raw: torch.Tensor) -> torch.Tensor:
 def temperature_scaling_precip(t_sfc: torch.Tensor) -> torch.Tensor:
     """Snow fraction (283.3-T)/14.6 clamped to [0,1] (models.py:268-271)."""
     return torch.clamp((283.3 - t_sfc) / 14.6, 0.0, 1.0)
+
+
+def postprocess_mp(out, out_sfc, x_denorm, yscale_lev, yscale_sca,
+                   mp_mode: int = 0, qv_index: int = -1):
+    """Un-scale outputs and re-split qn into (dqliq, dqice).
+
+    out/out_sfc: scaled model outputs [B, L, ny], [B, ny_sfc].
+    x_denorm:    raw (un-normalized) level inputs with T at channel 0,
+                 qliq at 2, qice at 3 (v4 ordering).
+    mp_mode semantics (models.py:200-227):
+      0: passthrough un-scaling (6 raw tendency outputs)
+      1: 5 outputs [dT, dqv, dqn, du, dv]; liq fraction diagnosed from T_new
+     -1: 6 outputs [dT, dqv, dqn, liq_frac, du, dv]; predicted fraction
+         clamped to +-0.2 of the T-diagnosed value (Hu et al. Fig 2b).
+         (The reference contains a leftover line discarding the clamp,
+         models.py:318-320; the documented clamped behavior is kept, as
+         in the JAX package.)
+     -2: [dT, dqtot, cld_water_frac, liq_frac, ...]: total-water split,
+         qv read at channel ``qv_index`` of x_denorm (the last channel
+         when negative).
+    Returns raw-unit (out_denorm [B, L, 6], out_sfc_denorm).
+    """
+    out_denorm = out / yscale_lev
+    out_sfc_denorm = out_sfc / yscale_sca
+    if mp_mode == 0:
+        return out_denorm, out_sfc_denorm
+
+    T_old = x_denorm[:, :, 0:1]
+    qliq_old = x_denorm[:, :, 2:3]
+    qice_old = x_denorm[:, :, 3:4]
+    qn_old = qliq_old + qice_old
+
+    if mp_mode == -2:
+        dqtot = out_denorm[:, :, 1:2]
+        cwf = torch.clamp(torch.square(torch.square(out_denorm[:, :, 2:3])),
+                          0.0, 1.0)
+        qv_old = x_denorm[:, :, qv_index:qv_index + 1] if qv_index >= 0 \
+            else x_denorm[:, :, -1:]
+        qtot_old = qn_old + qv_old
+        qtot_new = qtot_old + dqtot * DT
+        qv_new = (1.0 - cwf) * qtot_new
+        qn_new_tot = cwf * qtot_new
+        dqv = (qv_new - qv_old) * INV_DT
+        dqn = (qn_new_tot - qn_old) * INV_DT
+        out_denorm = torch.cat([out_denorm[:, :, 0:1], dqv, dqn,
+                                out_denorm[:, :, 3:]], dim=2)
+
+    T_new = T_old + out_denorm[:, :, 0:1] * DT
+    liq_frac = temperature_scaling(T_new)
+
+    if mp_mode in (-1, -2):
+        liq_frac_pred = out_denorm[:, :, 3:4]
+        max_frac = torch.clamp(liq_frac + 0.2, max=1.0)
+        min_frac = torch.clamp(liq_frac - 0.2, min=0.0)
+        # jnp.clip(x, lo, hi) = min(max(x, lo), hi)
+        liq_frac = torch.minimum(torch.maximum(liq_frac_pred, min_frac),
+                                 max_frac)
+
+    qn_new = qn_old + out_denorm[:, :, 2:3] * DT
+    qliq_new = liq_frac * qn_new
+    qice_new = (1.0 - liq_frac) * qn_new
+    dqliq = (qliq_new - qliq_old) * INV_DT
+    dqice = (qice_new - qice_old) * INV_DT
+
+    rest = out_denorm[:, :, 4:] if mp_mode in (-1, -2) \
+        else out_denorm[:, :, 3:]
+    out_denorm = torch.cat([out_denorm[:, :, 0:2], dqliq, dqice, rest],
+                           dim=2)
+    return out_denorm, out_sfc_denorm

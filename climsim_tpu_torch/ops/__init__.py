@@ -3,7 +3,9 @@
 Dispatch goes by the tensor's device, with no fallback: a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises. Each
 wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``.
+``<wrapper>.launches``. Importing this package registers the forward
+kernels' ``torch.library`` ops (``library.py``), which a loaded
+``torch.export`` program calls.
 """
 from __future__ import annotations
 

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from .library import refuse_export
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -104,7 +106,9 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    Raises under ``torch.export``, which cannot trace a ctypes launch."""
+    refuse_export(name)
     with _lock:
         lib = _libs.get(name)
         if lib is not None:

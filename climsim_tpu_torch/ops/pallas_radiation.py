@@ -19,7 +19,9 @@ All take the solver-standard layout, layers [B, nlev, ng] and surface
 level loops; the backwards' are ``adding_sw_bwd_reference`` and
 ``lw_solver_noscat_bwd_reference`` here, which follow the TPU bodies
 level by level. Each forward wrapper is a ``torch.autograd.Function``
-whose backward calls the backward wrapper on every device.
+whose forward calls its ``torch.library`` op (``climsim::adding_sw_fast``,
+``climsim::lw_solver_noscat_fast``; ``ops/library.py``) and whose
+backward calls the backward wrapper on every device.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from ..physics.radiation import adding_sw, lw_solver_noscat
 from . import _build
+from .library import fresh
 
 __all__ = ["adding_sw_fast", "lw_solver_noscat_fast", "adding_sw_bwd",
            "adding_sw_bwd_reference", "lw_solver_noscat_bwd",
@@ -438,12 +441,62 @@ def _needed(grads, needs):
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
+@torch.library.custom_op("climsim::adding_sw_fast", mutates_args=(),
+                         device_types="cpu")
+def _b11_op(args: list[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B11 as a custom op: on the CPU its plain version,
+    ``physics.radiation.adding_sw``."""
+    _validate(_SW_ARGS, args, _SW_SFC)
+    return fresh(adding_sw(*args), args)
+
+
+@torch.library.custom_op("climsim::lw_solver_noscat_fast", mutates_args=(),
+                         device_types="cpu")
+def _b12_op(args: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """B12 as a custom op: on the CPU its plain version,
+    ``physics.radiation.lw_solver_noscat``."""
+    _validate(_LW_ARGS, args, _LW_SFC)
+    return fresh(lw_solver_noscat(*args), args)
+
+
+def _fluxes_fake(args, n: int, layer: int):
+    B, nlev, ng = args[layer].shape
+    return tuple(args[layer].new_empty((B, nlev + 1, ng)) for _ in range(n))
+
+
+@_b11_op.register_kernel("cuda")
+def _b11_cuda(args):
+    _validate(_SW_ARGS, args, _SW_SFC)
+    return _launch_sw(args)
+
+
+@_b12_op.register_kernel("cuda")
+def _b12_cuda(args):
+    _validate(_LW_ARGS, args, _LW_SFC)
+    return _launch_lw(args)
+
+
+@_b11_op.register_fake
+def _b11_fake(args):
+    _validate(_SW_ARGS, args, _SW_SFC)
+    return _fluxes_fake(args, 3, 3)
+
+
+@_b12_op.register_fake
+def _b12_fake(args):
+    _validate(_LW_ARGS, args, _LW_SFC)
+    return _fluxes_fake(args, 2, 0)
+
+
 class _AddingSW(torch.autograd.Function):
+    """Forward: the op ``climsim::adding_sw_fast``; backward:
+    ``adding_sw_bwd``."""
+
     @staticmethod
     def forward(ctx, *args):
-        _validate(_SW_ARGS, args, _SW_SFC)
         ctx.save_for_backward(*args)
-        return _dispatch(args, lambda a: adding_sw(*a), _launch_sw)
+        return torch.ops.climsim.adding_sw_fast(list(args))
 
     @staticmethod
     def backward(ctx, *cts):
@@ -453,11 +506,13 @@ class _AddingSW(torch.autograd.Function):
 
 
 class _LWNoScat(torch.autograd.Function):
+    """Forward: the op ``climsim::lw_solver_noscat_fast``; backward:
+    ``lw_solver_noscat_bwd``."""
+
     @staticmethod
     def forward(ctx, *args):
-        _validate(_LW_ARGS, args, _LW_SFC)
         ctx.save_for_backward(*args)
-        return _dispatch(args, lambda a: lw_solver_noscat(*a), _launch_lw)
+        return torch.ops.climsim.lw_solver_noscat_fast(list(args))
 
     @staticmethod
     def backward(ctx, *cts):

@@ -25,6 +25,11 @@ down-sweep BPTT, up-sweep BPTT, weight gradients) and applies the
 initial MLP's VJP, as JAX's ``_heads_init_cm_bwd`` does.
 ``fused_bigru_heads_cm`` (v5) takes that stream as its input, so its
 backward is ``bigru_heads_cm_bwd`` alone, as JAX's ``_heads_cm_bwd``.
+
+The forward kernels B1, B4, B7, B9 and B10 are ``torch.library`` custom
+ops (``torch.ops.climsim.*``, ``ops/library.py``): each wrapper's
+``autograd.Function`` calls its op, whose CPU implementation is the plain
+version and whose CUDA implementation the launch.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import ctypes
 import torch
 
 from . import _build
+from .library import fresh
 
 __all__ = ["fused_bigru_heads_init_cm", "bigru_heads_init_cm_reference",
            "fused_bigru_heads_cm", "bigru_heads_cm_reference",
@@ -897,26 +903,42 @@ def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
     return _launch_bwd(res, d_outmem, d_lasth, dims)
 
 
+@torch.library.custom_op("climsim::fused_bigru_heads_init_cm",
+                         mutates_args=(), device_types="cpu")
+def _b1_op(args: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 as a custom op: on the CPU its plain version."""
+    _validate(args)
+    return fresh(bigru_heads_init_cm_reference(*args), args)
+
+
+@_b1_op.register_kernel("cuda")
+def _b1_cuda(args):
+    dims = _validate(args)
+    L, nf, nm_in, H, nm, ny, B = dims
+    d = _select(fused_bigru_heads_init_cm, "b1", args[0].dtype, H, H,
+                nm_in, nm, ny, nf)
+    if d["design"] == "tensor_core":
+        return _launch_mma(args, dims, d["plan"])
+    return _launch(args, dims)
+
+
+@_b1_op.register_fake
+def _b1_fake(args):
+    L, nf, nm_in, H, nm, ny, B = _validate(args)
+    return args[0].new_empty((L, nm + ny, B)), args[0].new_empty((H, B))
+
+
 class _FusedHeadsInitCM(torch.autograd.Function):
-    """Forward: the B1 kernel (or its plain version on the CPU), saving
-    only the inputs, as JAX's residuals are. Backward: the initial-MLP
-    recompute, ``bigru_heads_cm_bwd``, and the initial MLP's VJP, which
-    JAX leaves to XLA einsums outside the kernel."""
+    """Forward: the op ``climsim::fused_bigru_heads_init_cm`` (the B1
+    kernel, or its plain version on the CPU), saving only the inputs, as
+    JAX's residuals are. Backward: the initial-MLP recompute,
+    ``bigru_heads_cm_bwd``, and the initial MLP's VJP, which JAX leaves to
+    XLA einsums outside the kernel."""
 
     @staticmethod
     def forward(ctx, *args):
-        dims = _validate(args)
         ctx.save_for_backward(*args)
-        if args[0].device.type == "cpu":
-            return bigru_heads_init_cm_reference(*args)
-        if args[0].device.type != "cuda":
-            raise ValueError(f"no kernel for device {args[0].device}")
-        L, nf, nm_in, H, nm, ny, B = dims
-        d = _select(fused_bigru_heads_init_cm, "b1", args[0].dtype, H, H,
-                    nm_in, nm, ny, nf)
-        if d["design"] == "tensor_core":
-            return _launch_mma(args, dims, d["plan"])
-        return _launch(args, dims)
+        return torch.ops.climsim.fused_bigru_heads_init_cm(list(args))
 
     @staticmethod
     def backward(ctx, d_outmem, d_lasth):
@@ -1053,9 +1075,37 @@ def cudacore_fused_bigru_heads_cm(*args, hoist_proj=True
                       cudacore_bf16=True)
 
 
+@torch.library.custom_op("climsim::fused_bigru_heads_cm", mutates_args=(),
+                         device_types="cpu")
+def _b4_op(hoist_proj: bool, args: list[torch.Tensor]
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B4 as a custom op: on the CPU its plain version."""
+    _validate_cm(args)
+    return fresh(bigru_heads_cm_reference(*args, hoist_proj=hoist_proj),
+                 args)
+
+
+@_b4_op.register_kernel("cuda")
+def _b4_cuda(hoist_proj, args):
+    dims = _validate_cm(args)
+    L, CH, nm_in, H, nm, ny, B = dims
+    d = _select(fused_bigru_heads_cm, "b4", args[0].dtype, H, CH, nm_in, nm,
+                ny)
+    if d["design"] == "tensor_core":
+        return _launch_cm_mma(args, dims, hoist_proj, d["plan"])
+    return _launch_cm(args, dims, hoist_proj)
+
+
+@_b4_op.register_fake
+def _b4_fake(hoist_proj, args):
+    L, CH, nm_in, H, nm, ny, B = _validate_cm(args)
+    return args[0].new_empty((L, nm + ny, B)), args[0].new_empty((H, B))
+
+
 class _FusedHeadsCM(torch.autograd.Function):
-    """Forward: the B4 kernel (the design ``gru_design`` selects; its
-    plain version on the CPU), saving only the inputs.
+    """Forward: the op ``climsim::fused_bigru_heads_cm`` (the B4 kernel in
+    the design ``gru_design`` selects; its plain version on the CPU),
+    saving only the inputs.
     Backward, as JAX's ``_heads_cm_bwd``: with memory
     (nm_in > 0) ``bigru_heads_cm_bwd`` on the forward's arguments (kernel
     B3 on the card, which replays the sweeps with float32 projections
@@ -1064,20 +1114,9 @@ class _FusedHeadsCM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hoist_proj, *args):
-        dims = _validate_cm(args)
         ctx.save_for_backward(*args)
         ctx.hoist_proj = hoist_proj
-        dev = args[0].device
-        if dev.type == "cpu":
-            return bigru_heads_cm_reference(*args, hoist_proj=hoist_proj)
-        if dev.type != "cuda":
-            raise ValueError(f"no kernel for device {dev}")
-        L, CH, nm_in, H, nm, ny, B = dims
-        d = _select(fused_bigru_heads_cm, "b4", args[0].dtype, H, CH, nm_in,
-                    nm, ny)
-        if d["design"] == "tensor_core":
-            return _launch_cm_mma(args, dims, hoist_proj, d["plan"])
-        return _launch_cm(args, dims, hoist_proj)
+        return torch.ops.climsim.fused_bigru_heads_cm(hoist_proj, list(args))
 
     @staticmethod
     def backward(ctx, d_outmem, d_lasth):
@@ -1617,27 +1656,41 @@ def bigru_bwd_lbh(res, d_down, d_lasth):
     return _launch_bwd_lbh(res, d_down, d_lasth, dims)
 
 
+@torch.library.custom_op("climsim::fused_bigru_lbh", mutates_args=(),
+                         device_types="cpu")
+def _b7_op(args: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 as a custom op: on the CPU its plain version."""
+    _validate_lbh(args)
+    return fresh(bigru_reference_lbh(*args), args)
+
+
+@_b7_op.register_kernel("cuda")
+def _b7_cuda(args):
+    dims = _validate_lbh(args)
+    d = _select(fused_bigru_lbh, "b7", args[0].dtype, dims[2])
+    if d["design"] == "tensor_core":
+        return _launch_lbh_mma(args, dims, d["plan"])
+    if d["design"] == "f32_cluster":
+        return _launch_lbh_f32(args, dims, d["plan"])
+    return _launch_lbh(args, dims)
+
+
+@_b7_op.register_fake
+def _b7_fake(args):
+    L, B, H = _validate_lbh(args)
+    return args[0].new_empty((L, B, H)), args[0].new_empty((B, H))
+
+
 class _FusedBiGRULBH(torch.autograd.Function):
-    """Forward: B7 (the design ``gru_design`` selects; the plain version
-    on the CPU), saving the inputs, as JAX's residuals
-    are. Backward: ``bigru_bwd_lbh``, kernel B8 on the card and its plain
-    version on the CPU."""
+    """Forward: the op ``climsim::fused_bigru_lbh`` (B7 in the design
+    ``gru_design`` selects; the plain version on the CPU), saving the
+    inputs, as JAX's residuals are. Backward: ``bigru_bwd_lbh``, kernel B8
+    on the card and its plain version on the CPU."""
 
     @staticmethod
     def forward(ctx, *args):
-        dims = _validate_lbh(args)
         ctx.save_for_backward(*args)
-        dev = args[0].device
-        if dev.type == "cpu":
-            return bigru_reference_lbh(*args)
-        if dev.type != "cuda":
-            raise ValueError(f"no kernel for device {dev}")
-        d = _select(fused_bigru_lbh, "b7", args[0].dtype, dims[2])
-        if d["design"] == "tensor_core":
-            return _launch_lbh_mma(args, dims, d["plan"])
-        if d["design"] == "f32_cluster":
-            return _launch_lbh_f32(args, dims, d["plan"])
-        return _launch_lbh(args, dims)
+        return torch.ops.climsim.fused_bigru_lbh(list(args))
 
     @staticmethod
     def backward(ctx, d_down, d_lasth):
@@ -1978,9 +2031,54 @@ def _heads_init_compose_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
                               *rest)
 
 
+def _heads_lbh_cuda(args, init: bool):
+    dims = _validate_heads_lbh(args, init)
+    L, B, nx, ch, nm_in, H, nm, ny = dims
+    if init:
+        d = _select(fused_bigru_heads_init_lbh, "b10", args[0].dtype, H, ch,
+                    nm_in, nm, ny, nx)
+    else:
+        d = _select(fused_bigru_heads_lbh, "b9", args[0].dtype, H, nx, 0, nm,
+                    ny)
+    if d["design"] == "tensor_core":
+        return _launch_heads_lbh_mma(args, dims, init, d["plan"])
+    return _launch_heads_lbh(args, dims, init)
+
+
+def _heads_lbh_fake(args, init: bool):
+    L, B, nx, ch, nm_in, H, nm, ny = _validate_heads_lbh(args, init)
+    new = args[0].new_empty
+    return new((L, B, ny)), new((L, B, nm)), new((B, H))
+
+
+@torch.library.custom_op("climsim::fused_bigru_heads_lbh", mutates_args=(),
+                         device_types="cpu")
+def _b9_op(args: list[torch.Tensor]
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B9 as a custom op: on the CPU its plain version."""
+    _validate_heads_lbh(args, False)
+    return fresh(bigru_heads_lbh_reference(*args), args)
+
+
+@torch.library.custom_op("climsim::fused_bigru_heads_init_lbh",
+                         mutates_args=(), device_types="cpu")
+def _b10_op(args: list[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B10 as a custom op: on the CPU its plain version."""
+    _validate_heads_lbh(args, True)
+    return fresh(bigru_heads_init_lbh_reference(*args), args)
+
+
+_b9_op.register_kernel("cuda")(lambda args: _heads_lbh_cuda(args, False))
+_b9_op.register_fake(lambda args: _heads_lbh_fake(args, False))
+_b10_op.register_kernel("cuda")(lambda args: _heads_lbh_cuda(args, True))
+_b10_op.register_fake(lambda args: _heads_lbh_fake(args, True))
+
+
 class _FusedHeadsLBH(torch.autograd.Function):
-    """Forward: B9, or with ``init`` B10 (the designs ``gru_design``
-    selects; their plain versions on the CPU), saving the
+    """Forward: the op ``climsim::fused_bigru_heads_lbh`` (B9), or with
+    ``init`` ``climsim::fused_bigru_heads_init_lbh`` (B10), in the designs
+    ``gru_design`` selects (their plain versions on the CPU), saving the
     inputs, as JAX's residuals are. Backward, as JAX's
     ``_heads_bwd`` / ``_heads_init_bwd``: autograd through the composition,
     whose recurrent core replays with B7 and differentiates with B8 on the
@@ -1990,26 +2088,11 @@ class _FusedHeadsLBH(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, init, *args):
-        dims = _validate_heads_lbh(args, init)
         ctx.save_for_backward(*args)
         ctx.init = init
-        dev = args[0].device
-        if dev.type == "cpu":
-            ref = (bigru_heads_init_lbh_reference if init
-                   else bigru_heads_lbh_reference)
-            return ref(*args)
-        if dev.type != "cuda":
-            raise ValueError(f"no kernel for device {dev}")
-        L, B, nx, ch, nm_in, H, nm, ny = dims
-        if init:
-            d = _select(fused_bigru_heads_init_lbh, "b10", args[0].dtype, H,
-                        ch, nm_in, nm, ny, nx)
-        else:
-            d = _select(fused_bigru_heads_lbh, "b9", args[0].dtype, H, nx,
-                        0, nm, ny)
-        if d["design"] == "tensor_core":
-            return _launch_heads_lbh_mma(args, dims, init, d["plan"])
-        return _launch_heads_lbh(args, dims, init)
+        op = (torch.ops.climsim.fused_bigru_heads_init_lbh if init
+              else torch.ops.climsim.fused_bigru_heads_lbh)
+        return op(list(args))
 
     @staticmethod
     def backward(ctx, d_out, d_mem, d_lasth):

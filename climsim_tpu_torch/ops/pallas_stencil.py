@@ -24,6 +24,7 @@ import torch
 from ..online.advection import (MetricRows, fv_advect_2d,
                                 fv_advect_2d_sphere, metric_rows)
 from . import _build
+from .library import refuse_export
 from .pallas_radiation import _SM_SMEM, _SM_THREADS, _SMEM_MAX, _sms
 
 __all__ = ["fv_advect_tracers_sphere", "fv_tracers_sphere_reference",
@@ -191,6 +192,7 @@ def fv_advect_tracers_sphere(qs: torch.Tensor, u: torch.Tensor,
     the plain version; a CUDA tensor launches kernel B2 (the design
     ``fv_design`` picks, recorded as ``fv_advect_tracers_sphere.design``)
     or raises."""
+    refuse_export("fv_advect_tracers_sphere")
     rows = metric_rows(m, qs.device)
     _validate(qs, u, v, rows)
     if qs.device.type == "cpu":
@@ -304,6 +306,7 @@ class _FVFlat(torch.autograd.Function):
 
 
 def _flat_op(q, u, v, dt_dx, dt_dy, ndim):
+    refuse_export("fv_advect_tracers" if ndim == 4 else "fv_advect_levels")
     _validate_flat(q, u, v, ndim)
     if q.device.type == "cpu":
         return fv_tracers_reference(q, u, v, dt_dx, dt_dy)

@@ -1,6 +1,8 @@
 """Physics of the ported paths (counterpart of ``climsim_tpu/physics``):
 conservation residuals of the training loss, saturation thermodynamics,
-the radiation solvers and their helpers, and E3SM cloud optics."""
-from . import cloud_optics, conservation, radiation, thermo
+the radiation solvers and their helpers, E3SM cloud optics, and the
+cloud-condensate feature transforms."""
+from . import cloud_optics, conservation, radiation, thermo, transforms
 
-__all__ = ["cloud_optics", "conservation", "radiation", "thermo"]
+__all__ = ["cloud_optics", "conservation", "radiation", "thermo",
+           "transforms"]
