@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, ending in the result line
+    python3 chip_smoke.py 14       # the build, then phase 14 alone
 
 The paths, each at full width with random weights from a seed:
 
@@ -65,6 +66,12 @@ The paths, each at full width with random weights from a seed:
   exported as a ``torch.export`` program whose kernel is a ``climsim::``
   custom op, reloaded in a fresh process, validated, and served in int8;
   the physics yaml's ``export_path``.
+* stochastic ensemble training and the optimizers: the rollout CLI on
+  ``conf/autoreg_srnn.yaml`` (the stochastic third layer, AR(1) noise, a
+  4-member ensemble on CRPS) and ``conf/autoreg_longwindows.yaml`` (SOAP,
+  windows up to 11 steps with remat); both run the scan trunk and launch
+  no kernel, as in JAX. Before them, C.2's repair: no coupled step or
+  wrapper step waits on the host.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -186,9 +193,9 @@ Phases (any failure exits non-zero):
      transport at 384 columns against ``coupled_step``; ``python -m
      climsim_tpu_torch.cli.scale_bench --devices 1``; two NCCL ranks
      against the single-device step where the machine has two cards;
- 11. timings with CUDA events (median of 3 repeats for the v6 coupled
-     step and training update and the kernels; 2 for the other arms'
-     coupled steps and training and the physics paths), peak memory and
+ 11. timings with CUDA events (median of 2 repeats everywhere; the v6
+     coupled step and training update and the kernels took 3 to PR 18),
+     peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share (v6 and v5 also at 384
      columns), the three training arms, both physics trunks; B2 (also
@@ -258,7 +265,28 @@ Phases (any failure exits non-zero):
      correlation > 0.99; ms of each); ``cli.profile --steps 3`` (its trace
      holds device kernels); each forward kernel through its climsim:: op
      in turns with its CUDA implementation called directly;
- 14. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 14. the slice of the stochastic ensemble and the optimizers
+     (check_stochastic_slice): C.2 first, a coupled step of every
+     RNNAutoreg arm (v6, v5, v4, v3, v2, scan) at 21,600 columns and the
+     eager wrapper step (v4, v2, v3 at 384 and 21,600 columns) with no
+     synchronizing CUDA operation (``set_sync_debug_mode`` "warn" lists
+     none, "error" raises none), each timed in turns against the list
+     index of before (ListToaIndex), the coupled steps at 384 columns;
+     ``conf/autoreg_srnn.yaml`` (stochastic sgru layer, AR(1) noise rho
+     0.95, a 4-member ensemble on CRPS) through the CLI with
+     model.use_pallas=true at the widest of 21,600, 10,800, 5,400 or
+     2,700 columns whose W 3 update fits (srnn_width: one update measured
+     at 2,700 columns, its peak scaled), its curriculum compressed to
+     W 1, 2, 3, no kernel launched, ms an update for each W, member
+     column-steps/s, the peak, and one more epoch under the profiler (the
+     idle share); ``conf/autoreg_longwindows.yaml`` (SOAP, remat, mixed
+     replay) through the CLI at 21,600 columns with W 1, 5 and 11, no
+     kernel launched, ms an update for each W and the peak; SOAP's plain
+     and refresh steps, Muon's, schedule-free AdamW's and Adam's on that
+     model's parameters; both yamls at 384 columns held to device=cpu in
+     lockstep (compare_cli_384: the ensemble's noise draws replayed on the
+     CPU, SOAP fed the card's state and gradient);
+ 15. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
@@ -296,10 +324,9 @@ PEAK_BYTES = 3.35e12        # B/s, HBM3
 
 NLAT, NLON, NLEV = 120, 180, 60          # 21,600 columns
 LO_NLAT, LO_NLON = 16, 24                # 384 columns
-# timing repeats; the coupled steps and training of the arms other than
-# v6 (earlier slices' paths) take fewer, to hold the run's time as the
-# paths grow
-N_STEPS, REPEATS, OLD_REPEATS = 20, 3, 2
+# timing repeats: 2 for every timing (REPEATS was 3 to PR 18 and 5 to
+# PR 17), to hold the run's time as the paths grow
+N_STEPS, REPEATS, OLD_REPEATS = 20, 2, 2
 W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
@@ -918,7 +945,7 @@ def kernel_split(fn, event_ms, card, label):
           f"events [{card}]")
 
 
-def in_turns(old, new, launches, repeats=3):
+def in_turns(old, new, launches, repeats=REPEATS):
     """Device ms per call of two versions of one function, timed in turns
     (old, new, new, old) with CUDA events: ([old, old], [new, new])."""
     t = {old: [], new: []}
@@ -928,7 +955,7 @@ def in_turns(old, new, launches, repeats=3):
 
 
 def designs_in_turns(name, cudacore, tensor_core, card, launches=3,
-                     repeats=3, new="tensor-core", dt="bf16") -> float:
+                     repeats=REPEATS, new="tensor-core", dt="bf16") -> float:
     """A kernel's CUDA-core design and its redesign (bf16: the tensor-core
     design; f32 B7 and B8: the cluster FFMA design) at 21,600 columns
     timed in turns and printed; returns the redesign's mean ms."""
@@ -1533,8 +1560,8 @@ def check_wide(card):
         check(ok, f"B3 bf16 H {WIDE_H} {name}: {e16:.3e} > 4 x {own3:.3e}")
         ratio = max(ratio, e16 / max(own3, 1e-30))
     del got3, want3, want32
-    ms1 = median_ms(lambda: fused_bigru_heads_init_cm(*a1), 3, repeats=3)
-    ms3 = median_ms(lambda: bigru_heads_cm_bwd(*a3), 2, repeats=3)
+    ms1 = median_ms(lambda: fused_bigru_heads_init_cm(*a1), 3, repeats=REPEATS)
+    ms3 = median_ms(lambda: bigru_heads_cm_bwd(*a3), 2, repeats=REPEATS)
     print(f"H {WIDE_H} bf16, {B} columns, weights streamed (B1 plan "
           f"C {plans['b1']['C']}, BT {plans['b1']['BT']}, "
           f"{plans['b1']['smem']} B smem; B3 C {plans['b3']['C']}, BT "
@@ -3459,14 +3486,70 @@ class ChoiceReplay:
               f"{len(self.calls)} of {len(self.recorded)} recorded choices")
 
 
+def cpu_copy(obj):
+    """``obj`` (a state dict: nested dicts and lists of tensors and
+    numbers) with every tensor copied to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: cpu_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(cpu_copy(v) for v in obj)
+    return obj
+
+
+@contextlib.contextmanager
+def recorded_draws(draws):
+    """Every ensemble noise draw of the trainers' default source
+    (``KeyedNoise``) appended to ``draws`` in call order, as (step,
+    member, the draw on the CPU)."""
+    from climsim_tpu_torch.train.rollout import KeyedNoise
+    orig = KeyedNoise.__call__
+
+    def call(self, step, member, shape):
+        out = orig(self, step, member, shape)
+        draws.append((step, member, out.detach().cpu().clone()))
+        return out
+    KeyedNoise.__call__ = call
+    try:
+        yield draws
+    finally:
+        KeyedNoise.__call__ = orig
+
+
+class ReplayDraws:
+    """A trainer's ``noise_source`` that returns recorded draws in order,
+    each checked against the (step, member, shape) asked for."""
+
+    def __init__(self, draws):
+        self.draws, self.i = draws, 0
+
+    def __call__(self, step, member, shape):
+        check(self.i < len(self.draws), "noise replay: more draws asked "
+              f"for than the {len(self.draws)} recorded")
+        s, m, d = self.draws[self.i]
+        self.i += 1
+        check((s, m, tuple(d.shape)) == (step, member, tuple(shape)),
+              f"noise replay: draw {self.i - 1} was ({s}, {m}, "
+              f"{tuple(d.shape)}), asked for ({step}, {member}, {shape})")
+        return d.clone()
+
+    def done(self, what):
+        check(self.i == len(self.draws), f"{what}: replayed {self.i} of "
+              f"{len(self.draws)} recorded draws")
+
+
 class UpdateLog:
     """Records every ``RolloutTrainer.update`` of a run, on the CPU: the
     model's state before it, its window, memory and mix mask, its loss
-    and gradients, and the range of ``choices.calls`` (a recording
-    ChoiceReplay) that it made. Used as a context manager around a run."""
+    and gradients, the range of ``choices.calls`` (a recording
+    ChoiceReplay) and of ``draws`` (recorded_draws) that it made, and with
+    ``opt_state`` the optimizer's state before it. Used as a context
+    manager around a run."""
 
-    def __init__(self, choices):
+    def __init__(self, choices, draws=(), opt_state=False):
         self.choices, self.updates = choices, []
+        self.draws, self.opt_state = draws, opt_state
 
     def __enter__(self):
         import types
@@ -3477,20 +3560,46 @@ class UpdateLog:
 
         def update(tr, window, mem, mix_mask, group=None):
             state = {k: cpu(v) for k, v in tr.model.state_dict().items()}
-            start = len(log.choices.calls)
+            opt = cpu_copy(tr.opt.state_dict()) if log.opt_state else None
+            start, d0 = len(log.choices.calls), len(log.draws)
             new_mem, loss = orig(tr, window, mem, mix_mask, group=group)
             log.updates.append(types.SimpleNamespace(
                 state=state, window={k: cpu(v) for k, v in window.items()},
                 mem=cpu(mem), mask=cpu(mix_mask), loss=float(loss),
                 grads={n: cpu(p.grad)
                        for n, p in tr.model.named_parameters()},
-                calls=(start, len(log.choices.calls))))
+                calls=(start, len(log.choices.calls)),
+                draws=(d0, len(log.draws)), opt=opt))
             return new_mem, loss
         RolloutTrainer.update = update
         return self
 
     def __exit__(self, *exc):
         self.cls.update = self.orig
+
+
+# the witnesses of a lockstep optimizer step: 3 random patterns, each
+# with both signs
+STEP_WITNESSES = [(seed, sign) for seed in (11, 12, 13) for sign in (1, -1)]
+
+
+def jittered(state, grads, jitter=None):
+    """Copies of an optimizer state dict and of the gradients (the
+    tensors cloned: a loaded state is stepped in place); with ``jitter``
+    (seed, sign) each floating tensor of the per-parameter state and each
+    gradient times 1 + sign 1e-6 r, r a random +-1 pattern from the seed:
+    a witness of rounding-level changes of both."""
+    state, grads = cpu_copy(state), cpu_copy(grads)
+    if jitter is not None:
+        seed, sign = jitter
+        g = torch.Generator().manual_seed(seed)
+        tensors = [v for st in state["state"].values() for v in st.values()
+                   if torch.is_tensor(v) and v.is_floating_point()
+                   and v.dim() > 0] + list(grads.values())
+        for v in tensors:
+            v.mul_(1 + sign * 1e-6 * (2 * torch.randint(
+                0, 2, v.shape, generator=g) - 1))
+    return state, grads
 
 
 def train_cli_run(args, model_cls):
@@ -3629,7 +3738,8 @@ def cli_epoch_profile(label, r, epoch, ncol, card, trace_path):
     check(busy > 0, f"{label}: the profiler saw no device time")
     check(len(known) < len(sizes) or max(known, default=0)
           <= CLI_MAX_H2D_BYTES,
-          f"{label}: an epoch copied {max(known)} bytes to the card at once")
+          f"{label}: an epoch copied {max(known, default=0)} bytes to the "
+          f"card at once")
 
 
 def witness_compare(name, records, witnesses, keys):
@@ -3656,7 +3766,8 @@ def witness_compare(name, records, witnesses, keys):
     return out
 
 
-def compare_cli_384(card, grid, yaml, model_cls):
+def compare_cli_384(card, grid, yaml, model_cls, extra=(),
+                    lockstep_opt=False):
     """One epoch of the CLI at its default 384 columns on the card, held to
     device=cpu in lockstep: from the card's own state at each step the
     CPU computes what the card computed, so the comparison is
@@ -3678,12 +3789,27 @@ def compare_cli_384(card, grid, yaml, model_cls):
     from the card's weights, must give the card's next weights within
     1e-5 of (|w| + lr) elementwise. The card's val_loss is held like the
     loss to the CPU's validation of the card's final weights. No kernel
-    launches on the CPU."""
+    launches on the CPU.
+
+    An ensemble's noise draws on the card are recorded and replayed on the
+    CPU (recorded_draws, ReplayDraws), update by update and in the
+    validation. With ``lockstep_opt`` the CPU's optimizer is fed the
+    card's optimizer state before each step too (SOAP's bases: a
+    degenerate eigenvalue leaves the CPU's own eigh free to rotate
+    them), and its step is held within 1e-5 of (|w| + lr) plus 4x the
+    largest movement of the step when that state and the gradient are
+    jittered elementwise by 1e-6 (jittered, STEP_WITNESSES): SOAP's Adam
+    in the eigenbasis turns a rounding-level component of the projected
+    gradient into a step of up to the learning rate's size. (On the CPU,
+    a float64 step differs from the float32 one by up to 5,400x the
+    plain tolerance and by 0.31x this one, at the long-window yaml's
+    first SOAP steps.) ``extra``: overrides for both runs."""
     from climsim_tpu_torch.cli import train_rollout as cli
     from climsim_tpu_torch.train.config import load_config
-    base = [yaml, f"grid_path={grid}", "epochs=1"]
+    base = [yaml, f"grid_path={grid}", "epochs=1", *extra]
     name = os.path.basename(yaml)
-    with ChoiceReplay() as choices, UpdateLog(choices) as log:
+    with ChoiceReplay() as choices, recorded_draws([]) as draws, \
+            UpdateLog(choices, draws, lockstep_opt) as log:
         r = train_cli_run(base + ["device=cuda"], model_cls)
     check(r.rc == 0 and len(r.records) == 1,
           f"{name} 384 cuda: exit {r.rc}")
@@ -3696,6 +3822,9 @@ def compare_cli_384(card, grid, yaml, model_cls):
     r = None
     run = cli.setup(load_config(yaml, base[1:] + ["device=cpu"]))
     tr, model = run.trainer, run.trainer.model
+    # remat recomputes the same bits on the CPU (tests/test_torch_train.py::
+    # test_remat_changes_nothing); without it the CPU's side takes less time
+    tr.cfg.remat = False
     params = dict(model.named_parameters())
     scaled = lambda st, f: {k: v * f if v.is_floating_point() else v
                             for k, v in st.items()}
@@ -3713,10 +3842,12 @@ def compare_cli_384(card, grid, yaml, model_cls):
         model.load_state_dict(state)
         model.zero_grad(set_to_none=True)
         calls = choices.calls[u.calls[0]:u.calls[1]]
+        tr.noise_source = noise = ReplayDraws(draws[u.draws[0]:u.draws[1]])
         with replay(calls) as rp, torch.enable_grad():
             loss, _ = tr._window_loss(u.window, u.mem, u.mask)
             loss.backward()
         rp.done(f"{name} 384 update")
+        noise.done(f"{name} 384 update")
         return float(loss.detach()), {n: p.grad.clone()
                                       for n, p in params.items()}
 
@@ -3747,32 +3878,51 @@ def compare_cli_384(card, grid, yaml, model_cls):
                          [norm(gw[n] - g) for _, gw in wit], 1e-6 * gnorm)
             if share > worst["grad"]:
                 worst["grad"], worst_grad = share, f" ({n}, update {k})"
-        # the step: the CPU's Adam fed the card's gradient
-        model.load_state_dict(u.state)
-        for n, p in params.items():
-            p.grad = u.grads[n].clone()
-        lr = tr._schedule(k)
-        for g in tr.opt.param_groups:
-            g["lr"] = lr
-        tr.opt.step()
+        # the step: the CPU's optimizer fed the card's gradient (and with
+        # lockstep_opt the card's optimizer state, and two witnesses of
+        # that state jittered at the rounding level)
+        lr = tr._schedule(k + getattr(tr.opt, "schedule_offset", 0))
+
+        def step_at(jitter=None):
+            model.load_state_dict(u.state)
+            grads = u.grads
+            if lockstep_opt:
+                opt, grads = jittered(u.opt, u.grads, jitter)
+                tr.opt.load_state_dict(opt)
+            for n, p in params.items():
+                p.grad = grads[n].clone()
+            for g in tr.opt.param_groups:
+                g["lr"] = lr
+            tr.opt.step()
+            return {n: p.detach().clone() for n, p in params.items()}
+        stepped = step_at()
+        moved = {n: 0.0 for n in params}
+        for jitter in (STEP_WITNESSES if lockstep_opt else ()):
+            w = step_at(jitter)
+            moved = {n: torch.maximum(torch.as_tensor(moved[n]),
+                                      (w[n] - stepped[n]).abs())
+                     for n in params}
         nxt = final if k + 1 == len(log.updates) \
             else log.updates[k + 1].state
-        for n, p in params.items():
-            d = (p.detach() - nxt[n]).abs()
-            tol = 1e-5 * (nxt[n].abs() + lr)
+        for n in params:
+            d = (stepped[n] - nxt[n]).abs()
+            tol = 1e-5 * (nxt[n].abs() + lr) + 4 * moved[n]
             worst["adam"] = max(worst["adam"], float((d / tol).max()))
-            check(bool((d <= tol).all()), f"{name} 384: update {k} Adam "
-                  f"step of {n} differs by {float(d.max()):.3e} from the "
-                  f"card's")
+            check(bool((d <= tol).all()), f"{name} 384: update {k} "
+                  f"{type(tr.opt).__name__} step of {n} differs by "
+                  f"{float(d.max()):.3e} from the card's")
     # validation of the card's final weights
     vcalls = choices.calls[log.updates[-1].calls[1]:]
+    vdraws = draws[log.updates[-1].draws[1]:]
 
     def val_at(state):
         model.load_state_dict(state)
+        tr.noise_source = noise = ReplayDraws(vdraws)
         with replay(vcalls) as rp:
             _, v = tr.run_epoch(None, run.chunks(run.ntr, None, False), 0,
                                 train=False)
         rp.done(f"{name} 384 validation")
+        noise.done(f"{name} 384 validation")
         return v["loss"]
     vp = val_at(final)
     vw = [val_at(scaled(final, 1 + s * 1e-6)) for s in (1, -1)]
@@ -3783,12 +3933,14 @@ def compare_cli_384(card, grid, yaml, model_cls):
     check(not launched, f"{name} 384 on the CPU launched {launched}")
     n_diff = sum(rp.n_diff for rp in replays)
     n_idx = sum(rp.n_idx for rp in replays)
-    print(f"cli train_rollout {name} at 384 columns, 1 epoch, card against "
-          f"device=cpu in lockstep: {len(log.updates)} updates, loss "
-          f"{rec['loss']!r}; the largest difference as a share of its "
-          f"tolerance: update loss {worst['loss']:.3f}, gradient "
-          f"{worst['grad']:.3f}{worst_grad}, Adam step "
-          f"{worst['adam']:.3f}; val_loss {vc!r} vs the CPU's on the card's "
+    print(f"cli train_rollout {name} {' '.join(extra)} at 384 columns, 1 "
+          f"epoch, card against device=cpu in lockstep: {len(log.updates)} "
+          f"updates, loss {rec['loss']!r}; the largest difference as a "
+          f"share of its tolerance: update loss {worst['loss']:.3f}, "
+          f"gradient {worst['grad']:.3f}{worst_grad}, "
+          f"{type(tr.opt).__name__} step {worst['adam']:.3f} (fed the "
+          f"card's {'state and ' if lockstep_opt else ''}gradient); "
+          f"{len(draws)} noise draws replayed; val_loss {vc!r} vs the CPU's on the card's "
           f"weights {vp!r} (difference "
           f"{abs(vc - vp):.3e}, witness movement "
           f"{max(abs(v - vp) for v in vw):.3e}); {len(choices.calls)} "
@@ -4596,7 +4748,7 @@ def reload_exports(manifest_path) -> int:
             equal=all(torch.equal(a, b) for a, b in zip(outs, want)),
             max_abs_diff=max_err(outs, want),
             scale=max(t.abs().max().item() for t in want),
-            ms=median_ms(lambda: step(*inputs), 1, repeats=3)))
+            ms=median_ms(lambda: step(*inputs), 1, repeats=REPEATS)))
     with open(manifest_path.replace(".json", "_reloaded.json"), "w") as f:
         json.dump(results, f)
     return 0
@@ -4635,13 +4787,13 @@ def check_wrapper_exports(card, root):
                 syncs = host_syncs(lambda: w(x, xs, mem))
                 print(f"export wrapper {arm}: {len(syncs)} synchronizing "
                       f"operations in one eager step, at {syncs}")
-            ms = median_ms(lambda: w(x, xs, mem), 1, repeats=3)
+            ms = median_ms(lambda: w(x, xs, mem), 1, repeats=REPEATS)
             split = ""
             if ncol == NLAT * NLON:
                 xn, xsn = w.preprocess(x, xs)
-                pre = median_ms(lambda: w.preprocess(x, xs), 1, repeats=3)
+                pre = median_ms(lambda: w.preprocess(x, xs), 1, repeats=REPEATS)
                 core = median_ms(lambda: w.model(xn, xsn, mem), 1,
-                                 repeats=3)
+                                 repeats=REPEATS)
                 split = (f"; pre-processing {pre:.4f} ms, the model "
                          f"{core:.4f} ms, post-processing and scrub (the "
                          f"rest) {ms - pre - core:.4f} ms")
@@ -4753,8 +4905,8 @@ def check_phys_cli_export(card, tmp, grid):
     scale = max(t.abs().max().item() for t in want)
     check(equal or diff <= 1e-6 * scale, f"the reloaded physics step "
           f"differs by {diff} (scale {scale})")
-    e_ms = median_ms(lambda: fn(*args), 1, repeats=3, queue_ahead=False)
-    r_ms = median_ms(lambda: step(*args), 1, repeats=3, queue_ahead=False)
+    e_ms = median_ms(lambda: fn(*args), 1, repeats=REPEATS, queue_ahead=False)
+    r_ms = median_ms(lambda: step(*args), 1, repeats=REPEATS, queue_ahead=False)
     print(f"cli train_rollout physics yaml, {args[0].shape[0]} columns, 1 "
           f"epoch, export_path: {nbytes} bytes (scan trunk unrolled), "
           f"wall {r.wall:.2f} s; reloaded: launches {r_launch} a call as "
@@ -4788,8 +4940,8 @@ def check_level_major_export(card, root, models):
         scale = max(t.abs().max().item() for t in want)
         check(equal or diff <= 1e-6 * scale, f"{name}: reloaded differs by "
               f"{diff}")
-        e_ms = median_ms(lambda: model(*args), 1, repeats=3)
-        r_ms = median_ms(lambda: step(*args), 1, repeats=3)
+        e_ms = median_ms(lambda: model(*args), 1, repeats=REPEATS)
+        r_ms = median_ms(lambda: step(*args), 1, repeats=REPEATS)
         print(f"export_step of the {name} model ({kernel.upper()}), {ncol} "
               f"columns: {nbytes} bytes, {kernel.upper()} once a call, "
               f"outputs {'bit-equal' if equal else 'within 1e-6 of scale'}; "
@@ -4900,8 +5052,8 @@ def check_quantized(card):
         check(abs(rel - rel0) <= 0.05 * rel0 and corr >= corr0 - 1e-3,
               f"int8 {name} at {ncol} columns: rel RMS {rel} (reading "
               f"{rel0}, band 5%), corr {corr} (reading {corr0}, band 1e-3)")
-    q_ms = median_ms(lambda: q(*args), 1, repeats=3, queue_ahead=False)
-    f_ms = median_ms(lambda: model(*args), 1, repeats=3, queue_ahead=False)
+    q_ms = median_ms(lambda: q(*args), 1, repeats=REPEATS, queue_ahead=False)
+    f_ms = median_ms(lambda: model(*args), 1, repeats=REPEATS, queue_ahead=False)
     print(f"QuantGRUForward (int8): {'; '.join(text)} [{card}]")
     print(f"QuantGRUForward (int8) at {ncol} columns, the yaml's widths, "
           f"against the f32 scan forward: " + ", ".join(
@@ -5046,6 +5198,326 @@ def check_export(card, model, v5model, v2model, lbh_models):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 14
+
+# C.2's arms (every batch- and channel-major RNNAutoreg arm of ARMS)
+C2_ARMS = ("v6", "v5", "v4", "v3", "v2", "scan")
+# conf/autoreg_srnn.yaml: the widths to try, widest first; the W 3 update
+# of the widest whose peak, scaled from one measured at the narrowest,
+# stays under SRNN_PEAK_GB runs (the card holds 80 GB)
+SRNN_NCOLS = (NLAT * NLON, NLAT * NLON // 2, NLAT * NLON // 4,
+              NLAT * NLON // 8)
+SRNN_PEAK_GB = 72.0
+# the curricula compressed so that each yaml's windows run in 3 epochs:
+# the stochastic yaml's W 1, 2, 3 and the long-window yaml's W 1, 5, 11
+SRNN_SCHEDULE = "rollout.schedule={0: 1, 1: 2, 2: 3}"
+LW_SCHEDULE = "rollout.schedule={0: 1, 1: 5, 2: 11}"
+# the long-window yaml at 21,600 columns on 24 steps of data for its 48
+# (19 training steps: one chunk of 12, so 12, 2 and 1 updates at W 1, 5
+# and 11), to hold the phase's time
+LW_STEPS = "data.steps=24"
+# the card-vs-CPU lockstep runs at 384 columns: the stochastic yaml at 3
+# steps (2 W 1 updates of the 4-member ensemble; the CPU's side of each
+# costs 3 evaluations of 1,536 model columns), the long-window yaml at 14
+# (11 W 1 SOAP updates: the first basis, 9 preconditioned steps and the
+# refresh at step 10)
+SRNN_384 = ("data.steps=3", "model.use_pallas=true")
+LW_384 = ("data.steps=14",)
+# the optimizers' steps timed on the long-window yaml's model: SOAP's
+# plain steps apart from its refresh steps (every 10th), and beside it
+# Muon, schedule-free AdamW and Adam
+OPT_STEPS = 21
+
+
+class ListToaIndex:
+    """``RNNAutoreg``'s TOA input as it was before C.2's repair, switched
+    on for the calls of ``fn`` wrapped by ``old(fn)``: ``x_sfc[:, [1,
+    6]]``, the list index that becomes a host index tensor copied to the
+    card at every call. Hooks on the model (capturing x_sfc) and on
+    ``mlp_toa1`` (replacing its input) do it; off, they change nothing."""
+
+    def __init__(self, model):
+        self.on, self.box = False, {}
+        self.hooks = [
+            model.register_forward_pre_hook(self._capture),
+            model.mlp_toa1.register_forward_pre_hook(self._replace)]
+        self.cast = model.policy.cast_in
+
+    def _capture(self, module, args):
+        self.box["x_sfc"] = args[1]
+
+    def _replace(self, module, args):
+        if self.on:
+            return (self.cast(self.box["x_sfc"])[:, [1, 6]],)
+        return None
+
+    def old(self, fn):
+        def run():
+            self.on = True
+            try:
+                return fn()
+            finally:
+                self.on = False
+        return run
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def no_host_sync(fn, label):
+    """``fn()`` holds no synchronizing CUDA operation: listed with
+    ``set_sync_debug_mode("warn")`` (host_syncs), then run once more under
+    ``"error"``, where one would raise."""
+    syncs = host_syncs(fn)
+    check(not syncs, f"{label}: synchronizing operations at {syncs}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def check_c2(card):
+    """C.2: a coupled step of every arm at 21,600 columns and the eager
+    wrapper step (v4, v2, v3 at 384 and 21,600 columns) with no
+    synchronizing operation (no_host_sync); then each timed in turns
+    against the list index of before (ListToaIndex), the coupled steps at
+    384 columns: (old, new, new, old) with CUDA events behind a queued
+    wait (median_ms, 2 repeats), as phase 13 timed the eager wrapper.
+    Returns the timings by label."""
+    from climsim_tpu_torch.models import BF16
+    dev = torch.device("cuda")
+    out = {}
+    for arm in C2_ARMS:
+        model = make_model(BF16, None, arm=arm)
+        check(model.arm == arm, f"{arm} flags built {model.arm}")
+        toa = ListToaIndex(model)
+        for nlat, nlon in ((NLAT, NLON), (LO_NLAT, LO_NLON)):
+            ncol = nlat * nlon
+            loop = make_loop(model, ProxyGrid(nlat, nlon, NLEV, dev), nlat,
+                             nlon, None, arm)
+            inputs = initial_state(ncol, NLEV, dev, model.level_major)
+            step = functools.partial(loop.coupled_step, *inputs)
+            step()
+            if ncol == NLAT * NLON:
+                no_host_sync(step, f"coupled step {arm}")
+                old_syncs = host_syncs(toa.old(step))
+                check(len(old_syncs) > 0, f"{arm}: the list index made no "
+                      f"synchronizing operation")
+                print(f"C.2 coupled step {arm} at {ncol} columns: no "
+                      f"synchronizing operation (the list index of before: "
+                      f"{len(old_syncs)}, at {old_syncs[0]})")
+                continue
+            old, new = in_turns(toa.old(step), step, 1, 2)
+            out[f"coupled {arm} {ncol}"] = (old, new)
+            print(f"C.2 coupled step {arm} at {ncol} columns in turns (list "
+                  f"index, view, view, list index): {old[0]:.4f} / "
+                  f"{old[1]:.4f} ms against {new[0]:.4f} / {new[1]:.4f} ms "
+                  f"[{card}]")
+        toa.remove()
+        del model, loop, inputs
+    norm = export_norm()
+    for arm in EXPORT_ARMS:
+        w = export_wrapper_of(arm, norm)
+        toa = ListToaIndex(w.model)
+        for ncol in EXPORT_NCOLS:
+            x, xs, mem = raw_state(ncol, seed=ncol)
+            step = functools.partial(w, x, xs, mem)
+            step()
+            no_host_sync(step, f"eager wrapper {arm} {ncol}")
+            old, new = in_turns(toa.old(step), step, 1, 2)
+            out[f"wrapper {arm} {ncol}"] = (old, new)
+            print(f"C.2 eager wrapper step {arm} at {ncol} columns, no "
+                  f"synchronizing operation; in turns (list index, view, "
+                  f"view, list index): {old[0]:.4f} / {old[1]:.4f} ms "
+                  f"against {new[0]:.4f} / {new[1]:.4f} ms [{card}]")
+        toa.remove()
+    torch.cuda.empty_cache()
+    return out
+
+
+def srnn_width(grid, card):
+    """The widest of SRNN_NCOLS whose W 3 update of conf/autoreg_srnn.yaml
+    (model.use_pallas=true: the scan trunk all the same) should stay
+    under SRNN_PEAK_GB: one update measured at the narrowest, its peak
+    scaled by the columns."""
+    from climsim_tpu_torch.cli import train_rollout as cli
+    from climsim_tpu_torch.train.config import load_config
+    n0 = SRNN_NCOLS[-1]
+    run = cli.setup(load_config(SRNN_YAML, [
+        f"grid_path={grid}", f"data.ncol={n0}", "model.use_pallas=true",
+        "device=cuda"]))
+    tr = run.trainer
+    chunk = next(iter(run.chunks(0, run.ntr, False)))
+    mem = tr.init(chunk)
+    window = tr._window(chunk, 0, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.update(window, mem, None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fits = [n for n in SRNN_NCOLS if peak * n / n0 <= SRNN_PEAK_GB]
+    print(f"srnn yaml: one W 3 update at {n0} columns peaks at "
+          f"{peak:.3f} GB; scaled by the columns: "
+          + ", ".join(f"{n} {peak * n / n0:.1f} GB" for n in SRNN_NCOLS)
+          + f"; runs at {fits[0]} columns [{card}]")
+    del run, tr, chunk, mem, window
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fits[0]
+
+
+def yaml_run(label, args, ncol, members, card):
+    """The rollout CLI on ``args`` as a user runs it (train_cli_run), three
+    epochs: no kernel may launch (as in JAX, both yamls' models run the
+    scan trunk); ms per update for each window, member column-steps/s and
+    the peak. Returns the run."""
+    from climsim_tpu_torch.models import RNNAutoreg
+    r = train_cli_run(args, RNNAutoreg)
+    check(r.rc == 0, f"{label}: exit {r.rc}")
+    check(r.run.trainer.model.arm == "scan", f"{label}: arm "
+          f"{r.run.trainer.model.arm}")
+    check(r.launches == {}, f"{label}: launched {r.launches}")
+    for rec in r.records:
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["val_loss"]),
+              f"{label}: record not finite: {rec}")
+        ms = rec["seconds"] / rec["updates"] * 1e3
+        rate = rec["updates"] * rec["window"] * ncol * members \
+            / rec["seconds"]
+        print(f"cli train_rollout {label}, {ncol} columns: epoch "
+              f"{rec['epoch']}, W {rec['window']}: {rec['updates']} updates "
+              f"in {rec['seconds']:.3f} s, {ms:.2f} ms an update, "
+              f"{rate:,.0f} member column-steps/s [{card}]")
+    print(f"cli train_rollout {label}, {ncol} columns: wall {r.wall:.3f} s "
+          f"for {len(r.records)} epochs with validation, peak "
+          f"{r.peak_gb:.3f} GB [{card}]")
+    check(r.peak_gb < 80.0, f"{label}: peak {r.peak_gb} GB")
+    return r
+
+
+def time_optimizers(model, card):
+    """One step of each optimizer on ``model``'s parameters from fixed
+    random gradients, synchronized wall ms (the host's per-parameter loop
+    included): SOAP's first step (its first basis, eigh), its plain steps
+    and its refresh steps (every 10th: power iteration, QR and a host
+    synchronization of eigh/qr's checks) apart, Muon, schedule-free AdamW
+    and Adam (torch's, as the port runs optax's adam)."""
+    from climsim_tpu_torch.train.muon import Muon
+    from climsim_tpu_torch.train.schedule_free import ScheduleFreeAdamW
+    from climsim_tpu_torch.train.soap import SOAP
+    params = [p for p in model.parameters()]
+    saved = [p.detach().clone() for p in params]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    grads = [1e-3 * torch.randn(p.shape, generator=g, device="cuda")
+             for p in params]
+    made = {"SOAP": lambda ps: SOAP(ps, lr=5e-4),
+            "Muon": lambda ps: Muon(ps, lr=5e-4),
+            "schedule-free AdamW": lambda ps: ScheduleFreeAdamW(ps, lr=5e-4),
+            "Adam": lambda ps: torch.optim.Adam(ps, lr=5e-4, eps=1e-8)}
+    res = {}
+    for name, make in made.items():
+        opt = make(params)
+        times = []
+        for _ in range(OPT_STEPS):
+            for p, gr in zip(params, grads):
+                p.grad = gr
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if name == "SOAP":
+            res["SOAP first step (eigh)"] = times[0]
+            res["SOAP refresh step"] = statistics.median(times[10::10])
+            res["SOAP plain step"] = statistics.median(
+                [t for i, t in enumerate(times) if i % 10])
+        else:
+            res[name] = statistics.median(times[1:])
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+    n = sum(p.numel() for p in params)
+    print(f"optimizer steps on the long-window yaml's model ({len(params)} "
+          f"parameters, {n:,} weights), synchronized wall ms a step: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.items())
+          + f" [{card}]")
+    for p in params:
+        p.grad = None
+    return res
+
+
+SRNN_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                         "autoreg_srnn.yaml")
+LW_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                       "autoreg_longwindows.yaml")
+
+
+def check_stochastic_slice(card):
+    """Phase 14: C.2 (check_c2); conf/autoreg_srnn.yaml through the CLI at
+    the widest width that fits (srnn_width) with model.use_pallas=true
+    (no kernel launches: the stochastic model runs the scan trunk) and
+    one more epoch under the profiler; conf/autoreg_longwindows.yaml
+    through the CLI at 21,600 columns; the optimizers' steps; both yamls
+    at 384 columns held to device=cpu in lockstep (compare_cli_384, the
+    ensemble's noise replayed, SOAP fed the card's state)."""
+    from climsim_tpu_torch.models import RNNAutoreg
+    t0 = time.perf_counter()
+    c2 = check_c2(card)
+    print(f"phase 14: C.2 took {time.perf_counter() - t0:.1f} s")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stoch_cli", dir=root)
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        t0 = time.perf_counter()
+        ncol = srnn_width(grid, card)
+        r = yaml_run("srnn yaml (model.use_pallas=true)", [
+            SRNN_YAML, f"grid_path={grid}", f"data.ncol={ncol}", "epochs=3",
+            SRNN_SCHEDULE, "model.use_pallas=true"], ncol, 4, card)
+        check([rec["window"] for rec in r.records] == [1, 2, 3],
+              "srnn windows")
+        check(r.run.trainer.cfg.ensemble_size == 4
+              and r.run.trainer.model.add_stochastic_layer
+              and r.run.trainer.model.ar_noise_rho == 0.95,
+              "the srnn yaml's ensemble, stochastic layer and rho")
+        cli_epoch_profile("srnn yaml", r, 2, ncol, card,
+                          os.path.join(tmp, "trace.json"))
+        srnn = (ncol, r.records, r.peak_gb)
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 14: the srnn yaml took {time.perf_counter() - t0:.1f} "
+              f"s")
+        t0 = time.perf_counter()
+        r = yaml_run("long-window yaml", [
+            LW_YAML, f"grid_path={grid}", f"data.ncol={NLAT * NLON}",
+            "epochs=3", LW_SCHEDULE, LW_STEPS], NLAT * NLON, 1, card)
+        check([rec["window"] for rec in r.records] == [1, 5, 11],
+              "long-window windows")
+        check(type(r.run.trainer.opt).__name__ == "SOAP",
+              f"the long-window yaml's optimizer {type(r.run.trainer.opt)}")
+        lw = (r.records, r.peak_gb)
+        opts = time_optimizers(r.run.trainer.model, card)
+        r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 14: the long-window yaml took "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        compare_cli_384(card, grid, SRNN_YAML, RNNAutoreg, SRNN_384, True)
+        compare_cli_384(card, grid, LW_YAML, RNNAutoreg, LW_384, True)
+        print(f"phase 14: the 384-column lockstep took "
+              f"{time.perf_counter() - t0:.1f} s ({torch.get_num_threads()} "
+              f"CPU threads)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return c2, srnn, lw, opts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5079,6 +5551,12 @@ def main() -> int:
                 print(f"  {name}: {fn}: {line.strip()}")
     check_tensor_core_sass(card)
     phase_done(1)
+    if sys.argv[1:] == ["14"]:
+        # phase 14 alone (a shorter run while it is developed): no result
+        # line
+        check_stochastic_slice(card)
+        phase_done(14)
+        return 0
 
     torch.set_grad_enabled(False)
     dev = torch.device("cuda")
@@ -5254,7 +5732,7 @@ def main() -> int:
     b1_plain = median_ms(lambda: bigru_heads_init_cm_reference(*a1), 1)
     a1_32 = tuple(t.float() for t in a1)
     b1_f32 = median_ms(lambda: fused_bigru_heads_init_cm(*a1_32), 3,
-                       repeats=3)
+                       repeats=REPEATS)
     print(f"B1 f32 (CUDA-core design) at {ncol} columns: kernel "
           f"{b1_f32:.4f} ms [{card}]")
     del a1_32
@@ -5330,7 +5808,7 @@ def main() -> int:
         *a4, hoist_proj=False), 3)
     b4_plain = median_ms(lambda: bigru_heads_cm_reference(*a4), 1)
     a4_32 = tuple(t.float() for t in a4)
-    b4_f32 = median_ms(lambda: fused_bigru_heads_cm(*a4_32), 1, repeats=3)
+    b4_f32 = median_ms(lambda: fused_bigru_heads_cm(*a4_32), 1, repeats=REPEATS)
     print(f"B4 f32 (CUDA-core design) at {ncol} columns: kernel "
           f"{b4_f32:.4f} ms [{card}]")
     del a4_32
@@ -5457,9 +5935,9 @@ def main() -> int:
     # the card's f32 rate against twice the bf16 bytes
     a9_32, a10_32 = tuple(t.float() for t in a9), tuple(t.float() for t in a10)
     f32_ms = {"b9": median_ms(lambda: fused_bigru_heads_lbh(*a9_32), 1,
-                              repeats=3),
+                              repeats=REPEATS),
               "b10": median_ms(lambda: fused_bigru_heads_init_lbh(*a10_32),
-                               1, repeats=3),
+                               1, repeats=REPEATS),
               "b1": b1_f32, "b3": b3_f32, "b4": b4_f32}
     del a9_32, a10_32
     f32_bound = {}
@@ -5603,7 +6081,17 @@ def main() -> int:
     check_export(card, model, v5model, v2model, lbh_models)
     phase_done(13)
 
-    # ---- 14. the kernels line, the card line, the result
+    # ---- 14. C.2 (no host synchronization in any arm's step, timed in
+    # turns with the list index of before), the stochastic ensemble yaml
+    # and the long-window yaml (SOAP) through the CLI, the optimizers'
+    # steps, both yamls at 384 columns in lockstep with the CPU
+    del model, v5model, v2model, lbh_models
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_stochastic_slice(card)
+    phase_done(14)
+
+    # ---- 15. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",

@@ -29,9 +29,9 @@ data, normalization, model and loop, with these differences:
 * The CNN trains without dropout, as JAX's ``fit`` calls it
   (deterministic).
 * ``model.name`` unet, classifier and classifier_gradout (ROADMAP A.13,
-  the rest), hsr, rpn and cvae (A.13, the stochastic stack) and
-  ``optimizer.name`` soap or muon (A.13, the optimizers) raise
-  ``NotImplementedError`` before any data is built.
+  the rest), hsr, rpn and cvae (A.13, the stochastic stack) raise
+  ``NotImplementedError`` before any data is built. ``optimizer.name``
+  soap and muon run the port's ``train/soap.py`` and ``train/muon.py``.
 """
 from __future__ import annotations
 
@@ -52,18 +52,13 @@ NCOL = 384
 
 
 def check_unported(cfg) -> None:
-    """Raise for the models and optimizers this port does not run yet,
-    before any data is built."""
+    """Raise for the models this port does not run yet, before any data
+    is built."""
     name = cfg.get("model", {}).get("name", "mlp")
     if name in UNPORTED_MODELS:
         raise NotImplementedError(
             f"train_offline: model.name {name!r} is not ported yet (ROADMAP "
             f"{UNPORTED_MODELS[name]})")
-    opt = cfg.get("optimizer", {}).get("name", "adam")
-    if opt in ("soap", "muon"):
-        raise NotImplementedError(
-            f"train_offline: optimizer.name {opt!r} is not ported yet "
-            f"(ROADMAP A.13, the optimizers)")
 
 
 def build_model(name: str, vset, mcfg, device, seed: int = 0):

@@ -24,10 +24,18 @@ data, normalization, model and trainer, with these differences:
 * ``model.scan_unroll`` (an XLA unrolling hint) is accepted and has no
   effect.
 * Options that are not ported raise ``NotImplementedError`` naming their
-  ROADMAP item before any data is built: ``rollout.ensemble_size > 1``
-  and ``loss.w_det`` (A.7),
-  ``optimizer.name`` soap, muon or schedule-free (A.13) and the
-  stochastic layer (A.12).
+  ROADMAP item before any data is built: ``model.cell`` other than gru,
+  ``model.stochastic_cell: sln_lstm``, ``model.separate_radiation`` and
+  ``model.memory: None`` (A.12).
+* ``model.stochastic_cell`` (sgru | slstm) is read, where the JAX CLI
+  always builds its default sgru.
+* An ensemble run (``rollout.ensemble_size > 1``) carries the memory
+  [M, B, ...], which the JAX CLI's scoreboard and export feed to the
+  model as [B, ...], so they fail there; here ``eval_report``,
+  ``eval_report_every``, ``pred_export`` and ``export_path`` raise
+  ``ValueError`` with an ensemble before any data is built. The members'
+  noise comes from the trainer's ``noise_source`` (by default keyed by
+  ``seed``, the step in the window and the member, as JAX's keys are).
 * ``plots_dir`` without matplotlib prints that no plot was made, where
   the JAX CLI prints any exception of its plot and goes on.
 * ``export_path`` writes a ``torch.export`` program (``.pt2``, loaded by
@@ -61,22 +69,31 @@ def _unported(what: str, item: str) -> NotImplementedError:
                                f"(ROADMAP {item})")
 
 
+ENSEMBLE_REFUSES = ("eval_report", "eval_report_every", "pred_export",
+                    "export_path")
+
+
 def check_unported(cfg) -> None:
-    """Raise for the options this port does not run yet, before any data
-    is built."""
+    """Raise for the options this port does not run yet, and for the
+    outputs an ensemble run cannot give, before any data is built."""
     mcfg, rcfg = cfg.get("model", {}), cfg.get("rollout", {})
-    ocfg, lcfg = cfg.get("optimizer", {}), cfg.get("loss", {})
-    if mcfg.get("add_stochastic_layer", False):
-        raise _unported("the stochastic layer (model.add_stochastic_layer)",
-                        "A.12")
+    if mcfg.get("type", "rnn") == "rnn":
+        if mcfg.get("cell", "gru") != "gru":
+            raise _unported(f"model.cell {mcfg['cell']!r}", "A.12")
+        if mcfg.get("add_stochastic_layer", False) \
+                and mcfg.get("stochastic_cell", "sgru") == "sln_lstm":
+            raise _unported("model.stochastic_cell 'sln_lstm'", "A.12")
+        if mcfg.get("separate_radiation", False):
+            raise _unported("model.separate_radiation", "A.12")
+        if str(mcfg.get("memory", "Hidden")).lower() == "none":
+            raise _unported("model.memory None", "A.12")
     if rcfg.get("ensemble_size", 1) > 1:
-        raise _unported("ensemble training (rollout.ensemble_size > 1)",
-                        "A.7")
-    if lcfg.get("w_det", 0.0) > 0:
-        raise _unported("the ensemble loss term loss.w_det", "A.7")
-    if ocfg.get("name", "adam") in ("soap", "muon", "adamwschedulefree",
-                                    "schedulefree"):
-        raise _unported(f"optimizer.name {ocfg['name']!r}", "A.13")
+        for key in ENSEMBLE_REFUSES:
+            if cfg.get(key):
+                raise ValueError(
+                    f"{key} runs the model on the [B, ...] memory; an "
+                    f"ensemble's is [M, B, ...] (the JAX CLI fails there "
+                    f"too)")
 
 
 def cli_device(cfg) -> torch.device:
@@ -331,6 +348,14 @@ def build_model(cfg, grid, nx: int, nx_sfc: int, ny: int, ny_sfc: int,
         # the reference's `memory: None` is the non-autoregressive model
         use_memory=str(mcfg.get("memory", "Hidden")).lower() != "none",
         cell=mcfg.get("cell", "gru"),
+        add_stochastic_layer=mcfg.get("add_stochastic_layer", False),
+        stochastic_cell=mcfg.get("stochastic_cell", "sgru"),
+        # the AR(1) noise modes: 0 uncorrelated, 1/2 correlated in time
+        # with vertical structure, 3 one draw for every level; rho 0.5
+        # for a correlated mode unless given
+        ar_noise_rho=mcfg.get(
+            "ar_noise_rho", 0.5 if mcfg.get("ar_noise_mode", 0) > 0 else 0.0),
+        ar_noise_vertical=mcfg.get("ar_noise_mode", 0) != 3,
         separate_radiation=mcfg.get("separate_radiation", False),
         use_pallas=mcfg.get("use_pallas", False),
         output_prune=mcfg.get("output_prune", True),

@@ -70,8 +70,18 @@ def load_step(path: str):
 def export_wrapper(wrapper, batch: int, nlev: int, nx: int, nx_sfc: int,
                    nh_mem: int, path: str) -> int:
     """Export an OnlineWrapper's raw-units step for fixed shapes (the
-    384-column ne4 contract), at zeros on the wrapper's device."""
+    384-column ne4 contract), at zeros on the wrapper's device. A
+    stochastic model with ``ar_noise_rho > 0`` is exported in its AR(1)
+    signature ``(x, xs, mem, eps_prev, noise) -> (out, out_sfc, mem,
+    eps)`` with ``noise`` the draw as a tensor [Le, batch, nneur[-1]]: a
+    generator cannot be an input of an exported program, so the caller
+    draws (where the JAX artifact takes a key)."""
     dev = next(wrapper.parameters()).device
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
-    return export_step(wrapper, (z(batch, nlev, nx), z(batch, nx_sfc),
-                                 z(batch, nlev, nh_mem)), path)
+    args = (z(batch, nlev, nx), z(batch, nx_sfc), z(batch, nlev, nh_mem))
+    model = wrapper.model
+    if getattr(model, "add_stochastic_layer", False) \
+            and model.ar_noise_rho > 0.0:
+        shape = model.noise_shape(batch, nlev)
+        args = args + (z(*shape), z(*shape))
+    return export_step(wrapper, args, path)

@@ -110,18 +110,27 @@ class OnlineWrapper(nn.Module):
         return x_main, x_sfc
 
     def forward(self, x_main_raw, x_sfc_raw, mem, eps_prev=None,
-                noise_key=None):
-        """Raw-units step. The stochastic signature ``(x, xs, mem,
-        eps_prev, noise_key) -> (out, out_sfc, mem, eps)`` of the JAX
-        wrapper waits for the stochastic layer (ROADMAP A.12) and
-        raises."""
-        if eps_prev is not None or noise_key is not None:
-            raise NotImplementedError(
-                "OnlineWrapper's stochastic signature (eps_prev, noise_key) "
-                "is not ported yet (ROADMAP A.12)")
+                noise=None):
+        """Raw-units step. A stochastic model with ``ar_noise_rho > 0``
+        takes the AR(1) signature ``(x, xs, mem, eps_prev, noise) -> (out,
+        out_sfc, mem, eps)``, threading the noise across coupled steps;
+        ``noise`` stands for the JAX wrapper's ``noise_key``: a
+        ``torch.Generator`` on the model's device, or the standard-normal
+        draw [Le, B, nneur[-1]] itself (the form an exported step takes).
+        Without ``eps_prev`` the step is deterministic, as in JAX."""
         x_main, x_sfc = self.preprocess(x_main_raw, x_sfc_raw)
-        # AR-noise models return a 4-tuple even deterministically
-        out, out_sfc, mem = self.model(x_main, x_sfc, mem)[:3]
+        eps_out = None
+        if eps_prev is not None:
+            if not (getattr(self.model, "add_stochastic_layer", False)
+                    and self.model.ar_noise_rho > 0.0):
+                raise ValueError("eps_prev takes a stochastic model with "
+                                 "ar_noise_rho > 0")
+            out, out_sfc, mem, eps_out = self.model(
+                x_main, x_sfc, mem, deterministic=False, eps_prev=eps_prev,
+                noise=noise)
+        else:
+            # AR-noise models return a 4-tuple even deterministically
+            out, out_sfc, mem = self.model(x_main, x_sfc, mem)[:3]
         if self.cfg.mp_constraint:
             out, out_sfc = postprocess_mp(
                 out, out_sfc, x_main_raw, self.scale_lev[None],
@@ -131,6 +140,8 @@ class OnlineWrapper(nn.Module):
             out_sfc = out_sfc / self.scale_sfc
         out = torch.where(torch.isfinite(out), out, 0.0)
         out_sfc = torch.where(torch.isfinite(out_sfc), out_sfc, 0.0)
+        if eps_out is not None:
+            return out, out_sfc, mem, eps_out
         return out, out_sfc, mem
 
 

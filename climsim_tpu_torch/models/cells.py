@@ -1,10 +1,13 @@
 """Recurrent layers of the ported paths (counterpart of
 ``climsim_tpu/models/cells.py``): the GRU cell and the scanned
 ``RNNLayer`` (the flagship's unfused path and the physics model's scan
-trunk), the fused BiGRU + heads layer with the initial MLP inside the
-kernel or outside it (channel-major v6 and v5, batch-major v4 and v3),
-and the v2 fused BiGRU layer (the physics model's fused trunk and the
-batch-major flagship). The other cells wait for ROADMAP A.12.
+trunk), the stochastic GRU and LSTM cells that ``RNNLayer(noise=True)``
+steps with per-level noise (the stochastic third layer of
+``RNNAutoreg``), the fused BiGRU + heads layer with the initial MLP
+inside the kernel or outside it (channel-major v6 and v5, batch-major v4
+and v3), and the v2 fused BiGRU layer (the physics model's fused trunk
+and the batch-major flagship). The other cells (LSTM, LN-LSTM, SRU, the
+stochastic LayerNorm LSTM) wait for ROADMAP A.12.
 """
 from __future__ import annotations
 
@@ -39,18 +42,21 @@ def flax_param(shape, generator: torch.Generator | None) -> nn.Parameter:
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` with a compute dtype: ``kernel`` [in, out] and
-    ``bias`` [out] in float32, applied as x @ kernel + bias in ``dtype``."""
+    ``bias`` [out] in float32, applied as x @ kernel + bias in ``dtype``.
+    ``use_bias=False`` has no bias, as flax's has none then."""
 
     def __init__(self, nin: int, nout: int, dtype: torch.dtype,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = flax_param((nin, nout), generator)
-        self.bias = flax_param((nout,), generator)
+        self.bias = flax_param((nout,), generator) if use_bias else None
 
     def forward(self, x):
         dt = self.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class GRUCell(nn.Module):
@@ -75,6 +81,66 @@ class GRUCell(nn.Module):
         return (1.0 - z) * n + z * h
 
 
+class StochasticGRUCell(nn.Module):
+    """flax's ``StochasticGRUCell`` (``sgru``): the hidden state gives
+    (mean, logvar) through the bias-free ``encoder`` (H -> 2H), the sample
+    z = mean + exp(logvar / 2) * noise_scale * eps drives all three gates
+    through the bias-free ``zh`` (H -> 3H):
+    r = sigmoid(x_r + z_r), g = sigmoid(x_z + z_z), n = tanh(x_n + r z_n),
+    h' = n + g (h - n). ``eps`` [B, H] is a standard-normal draw."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None,
+                 noise_scale: float = 1.0):
+        super().__init__()
+        self.hidden = hidden
+        self.noise_scale = noise_scale
+        self.encoder = Dense(hidden, 2 * hidden, dtype, generator,
+                             use_bias=False)
+        self.zh = Dense(hidden, 3 * hidden, dtype, generator, use_bias=False)
+
+    def forward(self, h, x_proj, eps):
+        mean, logvar = self.encoder(h).split(self.hidden, dim=-1)
+        z = mean + torch.exp(0.5 * logvar) * (self.noise_scale * eps)
+        zr, zz, zn = self.zh(z).split(self.hidden, dim=-1)
+        xr, xz, xn = x_proj.split(self.hidden, dim=-1)
+        r = torch.sigmoid(xr + zr)
+        g = torch.sigmoid(xz + zz)
+        n = torch.tanh(xn + r * zn)
+        return n + g * (h - n)
+
+
+class StochasticLSTMCell(nn.Module):
+    """flax's ``StochasticLSTMCell`` (``slstm``) on the carry (h, c): the
+    input projection plus the bias-free ``hh`` (H -> 5H) give (mean,
+    logvar, i, f, g); the output gate is the stochastic part,
+    o = sigmoid(mean + exp(logvar / 2) * noise_scale * eps),
+    c' = sigmoid(f) c + sigmoid(i) tanh(g), h' = o tanh(c')."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype,
+                 generator: torch.Generator | None = None,
+                 noise_scale: float = 1.0):
+        super().__init__()
+        self.hidden = hidden
+        self.noise_scale = noise_scale
+        self.hh = Dense(hidden, 5 * hidden, dtype, generator, use_bias=False)
+
+    def forward(self, carry, x_proj, eps):
+        h, c = carry
+        mean, logvar, i, f, g = (x_proj + self.hh(h)).split(self.hidden,
+                                                            dim=-1)
+        o = torch.sigmoid(mean + torch.exp(0.5 * logvar)
+                          * (self.noise_scale * eps))
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return o * torch.tanh(c_new), c_new
+
+
+# the ported cells: (class, input-projection width in units of hidden,
+# whether it steps with per-level noise)
+CELLS = {"gru": (GRUCell, 3, False), "sgru": (StochasticGRUCell, 3, True),
+         "slstm": (StochasticLSTMCell, 5, True)}
+
+
 def needs_cell_state(kind: str) -> bool:
     return kind in ("lstm", "ln_lstm", "slstm")
 
@@ -84,33 +150,50 @@ class RNNLayer(nn.Module):
     projection ``input_proj`` and the cell ``cell`` stepped level by level
     (JAX's ``nn.scan``). Input [B, L, nx] -> (outputs [B, L, hidden],
     final carry). ``reverse=True`` steps from the last level (the surface,
-    since TOA is level 0) upward. The carry is cast to the projection's
-    dtype, as JAX unifies it for its scan. Only the GRU cell is ported;
-    the others wait for ROADMAP A.12."""
+    since TOA is level 0) upward. The carry ((h, c) for the cells with a
+    cell state) is cast to the projection's dtype, as JAX unifies it for
+    its scan. The stochastic cells (``sgru``, ``slstm``; ``noise=True``)
+    take ``eps`` [L, B, hidden], level l's noise stepping with level l.
+    The other cells wait for ROADMAP A.12."""
 
     def __init__(self, nx: int, hidden: int, kind: str = "gru",
-                 reverse: bool = False, dtype: torch.dtype = torch.float32,
+                 reverse: bool = False, noise: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if kind != "gru":
+        if kind not in CELLS:
             raise NotImplementedError(f"RNNLayer kind={kind!r} is not "
                                       "ported yet (ROADMAP A.12)")
+        cell_cls, width, stochastic = CELLS[kind]
+        if noise != stochastic:
+            raise ValueError(f"RNNLayer kind={kind!r} takes noise="
+                             f"{stochastic}")
         self.reverse = reverse
-        self.input_proj = Dense(nx, 3 * hidden, dtype, generator)
-        self.cell = GRUCell(hidden, dtype, generator)
+        self.noise = noise
+        self.cell_state = needs_cell_state(kind)
+        self.input_proj = Dense(nx, width * hidden, dtype, generator)
+        self.cell = cell_cls(hidden, dtype, generator)
 
-    def forward(self, xs, h0):
-        xs_proj = self.input_proj(xs)                  # [B, L, 3H]
-        h = h0.to(xs_proj.dtype)
+    def forward(self, xs, h0, eps=None):
+        xs_proj = self.input_proj(xs)                  # [B, L, kH]
+        dt = xs_proj.dtype
+        carry = tuple(a.to(dt) for a in h0) if self.cell_state \
+            else h0.to(dt)
+        if self.noise and eps is None:
+            raise ValueError("a stochastic cell needs eps [L, B, hidden]")
         # one unbind, whose backward is one stack: a select per level would
         # add a whole zero [B, L, 3H] gradient per level in the backward
         levels = xs_proj.unbind(1)
+        noise = eps.to(dt).unbind(0) if self.noise else None
         L = len(levels)
         ys = [None] * L
         for l in (range(L - 1, -1, -1) if self.reverse else range(L)):
-            h = self.cell(h, levels[l])
-            ys[l] = h
-        return torch.stack(ys, dim=1), h
+            if noise is None:
+                carry = self.cell(carry, levels[l])
+            else:
+                carry = self.cell(carry, levels[l], noise[l])
+            ys[l] = carry[0] if self.cell_state else carry
+        return torch.stack(ys, dim=1), carry
 
 
 class FusedBiGRULayer(nn.Module):

@@ -10,7 +10,11 @@ leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
 -> ``radiation.gas_sw.sigma``; for the offline baselines
 ``dense_0/kernel`` -> ``dense_0.kernel`` (``MLP``), ``enc_3/bias`` ->
 ``enc_3.bias`` (``ED``) and ``block_2/Conv_1/kernel`` ->
-``block_2.Conv_1.kernel`` (``CNN``, kernels [k, in, out] as flax's).
+``block_2.Conv_1.kernel`` (``CNN``, kernels [k, in, out] as flax's); the
+stochastic layer's ``rnn_stoch/input_proj/{kernel,bias}`` and its cell's
+bias-free ``rnn_stoch/cell/{encoder,zh}/kernel`` (``sgru``) or
+``rnn_stoch/cell/hh/kernel`` (``slstm``) -> ``rnn_stoch.cell.zh.kernel``
+and so on.
 An optax Adam state
 (its moments are trees of the same shape) carries across the same way,
 so a JAX training run can be resumed in the port.

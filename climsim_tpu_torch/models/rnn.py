@@ -29,7 +29,16 @@ channel-major:
         -> (out [L, ny, B], out_sfc [B, ny_sfc], new_mem [L, nh_mem, B])
 
 and batch-major ``x_main [B, L, nx]``, ``mem`` and the outputs
-``[B, L, .]``. The other cells, the stochastic layer,
+``[B, L, .]``.
+
+``add_stochastic_layer`` adds JAX's stochastic third sweep ``rnn_stoch``
+(an ``RNNLayer`` of the ``sgru`` or ``slstm`` cell, TOA -> surface, from
+a zero carry) on the down sweep's output, driven by per-level noise
+``eps [L, B, nneur[-1]]`` (one level's draw shared by every level with
+``ar_noise_vertical=False``); as in JAX a stochastic model always runs
+the scan trunk. With ``ar_noise_rho > 0`` the noise is AR(1) in time,
+``eps = rho * eps_prev + sqrt(1 - rho^2) * fresh``, and the forward
+returns ``eps`` as a fourth output. The other cells, ``sln_lstm``,
 ``separate_radiation`` and ``use_memory=False`` wait for ROADMAP A.12.
 """
 from __future__ import annotations
@@ -42,7 +51,7 @@ from torch import nn
 
 from ..ops import resolve_device
 from .cells import (Dense, FusedBiGRUHeadsLayer, FusedBiGRULayer, RNNLayer,
-                    flax_param)
+                    flax_param, needs_cell_state)
 from .common import Policy, F32
 
 __all__ = ["RNNAutoreg", "Dense", "ChannelDense", "params_unfused_to_fused",
@@ -91,6 +100,11 @@ class RNNAutoreg(nn.Module):
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     parameters get flax's init (lecun-normal kernels, zero biases) from a
     ``torch.Generator`` seeded with ``seed``.
+
+    The stochastic layer's fresh draw comes in through ``forward``'s
+    ``noise``: a ``torch.Generator`` on the model's device, or the
+    standard-normal draw [Le, B, nneur[-1]] itself (Le = L, or 1 with
+    ``ar_noise_vertical=False``). Nothing is drawn from the global RNG.
     """
 
     def __init__(self, nx: int, nx_sfc: int, ny: int, ny_sfc: int,
@@ -100,25 +114,31 @@ class RNNAutoreg(nn.Module):
                  output_prune: bool = True,
                  separate_radiation: bool = False,
                  add_stochastic_layer: bool = False,
+                 stochastic_cell: str = "sgru",
                  use_pallas: bool = False, fuse_heads: bool = False,
                  fuse_init: bool = False,
                  pallas_hoist_proj: bool = True, level_major: bool = False,
                  hyam: Sequence[float] = (), hybm: Sequence[float] = (),
+                 ar_noise_rho: float = 0.0, ar_noise_vertical: bool = True,
                  sp_mean: float = 0.0, sp_div: float = 1.0,
                  policy: Policy = F32, device=None, seed: int = 0):
         super().__init__()
-        nh1, nh2 = nneur[0], nneur[1]
+        nh1, nh2, nh3 = nneur[0], nneur[1], nneur[-1]
         if separate_radiation:
             raise _unported("separate_radiation", "A.12")
-        if add_stochastic_layer:
-            raise _unported("add_stochastic_layer", "A.12")
         if not use_memory:
             raise _unported("memory=None (use_memory=False)", "A.12")
         if cell != "gru":
             raise _unported(f"cell={cell!r}", "A.12")
-        # the JAX model's choice of trunk (rnn.py:196-236)
+        if add_stochastic_layer and stochastic_cell not in ("sgru", "slstm"):
+            if stochastic_cell == "sln_lstm":
+                raise _unported("stochastic_cell='sln_lstm'", "A.12")
+            raise ValueError(f"stochastic_cell={stochastic_cell!r} is not a "
+                             "stochastic cell (sgru | slstm | sln_lstm)")
+        # the JAX model's choice of trunk (rnn.py:196-236): a stochastic
+        # model runs the scan, whatever use_pallas says
         fused_heads = use_pallas and fuse_heads and nh1 == nh2 \
-            and nh_mem != nh2
+            and nh_mem != nh2 and not add_stochastic_layer
         if level_major and not fused_heads:
             raise ValueError("level_major requires the fused-heads path "
                              "(use_pallas + fuse_heads with gru cell)")
@@ -128,8 +148,14 @@ class RNNAutoreg(nn.Module):
                         (False, True): "v4",
                         (False, False): "v3"}[level_major, init_inside]
         else:
-            self.arm = "v2" if use_pallas and nh1 == nh2 else "scan"
+            self.arm = "v2" if use_pallas and nh1 == nh2 \
+                and not add_stochastic_layer else "scan"
         self.device = resolve_device(device)
+        self.add_stochastic_layer = add_stochastic_layer
+        self.stochastic_cell = stochastic_cell
+        self.ar_noise_rho = float(ar_noise_rho)
+        self.ar_noise_vertical = ar_noise_vertical
+        self.nneur = tuple(nneur)
         self.ny, self.ny_sfc, self.nh_mem = ny, ny_sfc, nh_mem
         self.level_major = level_major
         self.use_initial_mlp = use_initial_mlp
@@ -175,16 +201,24 @@ class RNNAutoreg(nn.Module):
             self.rnn_up = RNNLayer(nh_in + nh_mem, nh1, reverse=True,
                                    dtype=cdt, generator=g)
             self.rnn_down = RNNLayer(nh1, nh2, dtype=cdt, generator=g)
+        if add_stochastic_layer:
+            self.rnn_stoch = RNNLayer(nh2, nh3, stochastic_cell, noise=True,
+                                      dtype=cdt, generator=g)
         if self.arm in ("v2", "scan"):
             # the latent head exists only when the memory width differs
             # from the last RNN's (rnn.py:326-337)
-            self.mlp_latent = Dense(nh2, nh_mem, cdt, g) \
-                if nh_mem != nh2 else None
+            nh_last = nh3 if add_stochastic_layer else nh2
+            self.mlp_latent = Dense(nh_last, nh_mem, cdt, g) \
+                if nh_mem != nh_last else None
             self.mlp_output = Dense(nh_mem, ny, cdt, g)
         self.mlp_surface_output = Dense(nh2, ny_sfc, cdt, g)
         self.to(self.device)
 
-    def forward(self, x_main, x_sfc, mem):
+    def forward(self, x_main, x_sfc, mem, deterministic: bool = True,
+                eps_prev=None, noise=None):
+        """One step; ``deterministic``, ``eps_prev`` and ``noise`` drive
+        the stochastic layer (see the class) and are ignored without
+        it."""
         lm = self.level_major
         L = x_main.shape[0] if lm else x_main.shape[1]
         pol = self.policy
@@ -205,7 +239,9 @@ class RNNAutoreg(nn.Module):
                 pres = torch.sqrt(pres) / 314.0
                 x_main = torch.cat([x_main, pres[..., None]], dim=-1)
         hx1 = torch.tanh(self.mlp_surface1(x_sfc))
-        hx2 = self.mlp_toa1(x_sfc[:, [1, 6]])
+        # SOLIN and COSZRS (columns 1 and 6) as a strided view: a list
+        # index would copy a host index tensor to the device every call
+        hx2 = self.mlp_toa1(x_sfc[:, 1:7:5])
         h = x_main
         if self.use_initial_mlp and self.arm not in _INIT_INSIDE:
             h = torch.tanh(self.mlp_initial(h))
@@ -221,6 +257,10 @@ class RNNAutoreg(nn.Module):
             else:
                 up_out, _ = self.rnn_up(h, hx1)
                 down_out, last_h = self.rnn_down(up_out, hx2)
+            eps_out = eps_prev
+            if self.add_stochastic_layer:
+                down_out, eps_out = self._stochastic(
+                    down_out, deterministic, eps_prev, noise)
             new_mem = down_out if self.mlp_latent is None \
                 else self.mlp_latent(down_out)
             out = self.mlp_output(new_mem)
@@ -236,8 +276,53 @@ class RNNAutoreg(nn.Module):
                                   device=out.device)
                 mask[:, :12, 1:] = 0.0
             out = out * mask
+        if self.add_stochastic_layer and self.ar_noise_rho > 0.0:
+            return pol.cast_out(out), pol.cast_out(out_sfc), \
+                pol.cast_out(new_mem), eps_out
         return pol.cast_out(out), pol.cast_out(out_sfc), \
             pol.cast_out(new_mem)
+
+    def noise_shape(self, B: int, L: int) -> tuple:
+        """The shape of the stochastic layer's draw for B columns of L
+        levels: [Le, B, nneur[-1]]."""
+        return (L if self.ar_noise_vertical else 1, B, self.nneur[-1])
+
+    def _stochastic(self, down_out, deterministic, eps_prev, noise):
+        """The stochastic third sweep (rnn.py:294-319): (its output
+        [B, L, nneur[-1]], the noise it used, or ``eps_prev`` when
+        deterministic)."""
+        B, L = down_out.shape[0], down_out.shape[1]
+        shape = self.noise_shape(B, L)
+        dt = down_out.dtype
+        if deterministic:
+            eps = down_out.new_zeros(shape)
+            eps_out = eps_prev
+        else:
+            if isinstance(noise, torch.Generator):
+                fresh = torch.randn(shape, generator=noise, dtype=dt,
+                                    device=down_out.device)
+            elif isinstance(noise, torch.Tensor):
+                if tuple(noise.shape) != shape:
+                    raise ValueError(f"noise shape {tuple(noise.shape)}, "
+                                     f"the layer draws {shape}")
+                fresh = noise.to(dt)
+            else:
+                raise ValueError("a stochastic forward needs noise=: a "
+                                 "torch.Generator on the model's device "
+                                 f"or the standard-normal draw {shape}")
+            rho = self.ar_noise_rho
+            if rho > 0.0 and eps_prev is not None:
+                eps = rho * eps_prev.to(dt) + (1.0 - rho * rho) ** 0.5 * fresh
+            else:
+                eps = fresh
+            eps_out = eps
+        h0 = down_out.new_zeros((B, self.nneur[-1]))
+        carry = (h0, torch.zeros_like(h0)) \
+            if needs_cell_state(self.stochastic_cell) else h0
+        eps_lev = eps if self.ar_noise_vertical \
+            else eps.expand(L, B, self.nneur[-1])
+        out, _ = self.rnn_stoch(down_out, carry, eps_lev)
+        return out, eps_out
 
 
 # fused <-> unfused checkpoint conversion (rnn.py:407-450): ``fuse_heads``

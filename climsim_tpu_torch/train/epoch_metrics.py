@@ -101,14 +101,12 @@ def epoch_metrics(pred_lev, pred_sfc, true_lev, true_sfc, sp, hyai, hybi,
     pred/true_lev: [N, L, ny] raw-unit tendencies, pred/true_sfc [N, ns],
     sp [N] raw surface pressure. Optional x_denorm [N, L, >=4] raw state
     (v4 channel order: T at 0, qliq at 2, qice at 3, qv last) for
-    positivity and clear-sky diagnostics; ens_pred_lev [M, N, L, ny] for
-    spread-skill, whose metrics are not ported yet (ROADMAP A.13).
+    positivity and clear-sky diagnostics; ens_pred_lev [M, N, L, ny] the
+    members' predictions, for the spread-skill ratio (``spread_skill``)
+    and the squared correlation of two members' qv errors
+    (``q_err_corr``).
     Returns {name: float | list}.
     """
-    if ens_pred_lev is not None:
-        raise NotImplementedError("epoch_metrics with ens_pred_lev (the "
-                                  "ensemble spread-skill metrics) is not "
-                                  "ported yet (ROADMAP A.13)")
     out: dict = {}
     P = _host(pred_lev)
     T = _host(true_lev)
@@ -215,4 +213,15 @@ def epoch_metrics(pred_lev, pred_sfc, true_lev, true_sfc, sp, hyai, hybi,
     if ns >= 4:
         out["neg_precip_frac"] = float((Ps[:, 3] < 0).mean())
 
+    if ens_pred_lev is not None:
+        from .probabilistic import spread_skill_ratio
+        E = _dev(ens_pred_lev)
+        Tt = torch.as_tensor(T, dtype=E.dtype, device=E.device)
+        out["spread_skill"] = float(spread_skill_ratio(
+            E.reshape(E.shape[0], -1), Tt.reshape(-1)))
+        # squared correlation of two members' error fields
+        if E.shape[0] >= 2 and ny >= 2:
+            En = _host(E)
+            out["q_err_corr"] = _corr2(En[0][..., 1] - T[..., 1],
+                                       En[1][..., 1] - T[..., 1])
     return out

@@ -47,7 +47,7 @@ from .schedules import (one_cycle, step_decay, warmup_constant,
 class FitConfig:
     lr: float = 1e-3
     weight_decay: float = 0.0
-    optimizer: str = "adam"          # adam | adamw (soap, muon: A.13)
+    optimizer: str = "adam"          # adam | adamw | soap | muon
     loss: str = "huber"
     epochs: int = 10
     batch_size: int = 1536
@@ -91,7 +91,10 @@ def make_schedule(cfg: FitConfig) -> Callable[[int], float] | None:
 
 def make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
     """optax's adam/adamw as torch optimizers with optax's defaults (b1
-    0.9, b2 0.999, eps 1e-8) at the schedule's first learning rate."""
+    0.9, b2 0.999, eps 1e-8), or the JAX package's soap and muon
+    (``train/soap.py``, ``train/muon.py``), at the schedule's first
+    learning rate; the training step clips the gradients before each of
+    them, as JAX chains ``clip_by_global_norm`` before each."""
     if cfg.plateau_patience:
         if cfg.lr_schedule is not None:
             raise ValueError("plateau excludes a per-step lr_schedule")
@@ -99,15 +102,21 @@ def make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
             raise ValueError(f"plateau supports adam/adamw, "
                              f"not {cfg.optimizer}")
     sched = make_schedule(cfg)
-    lr = cfg.lr if sched is None else sched(0)
+    lr_at = lambda count: cfg.lr if sched is None else sched(count)
+    if cfg.optimizer == "soap":
+        from .soap import SOAP
+        return SOAP(params, lr=lr_at(SOAP.schedule_offset),
+                    weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "muon":
+        from .muon import Muon
+        return Muon(params, lr=lr_at(Muon.schedule_offset),
+                    weight_decay=cfg.weight_decay)
+    lr = lr_at(0)
     if cfg.optimizer == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if cfg.optimizer == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=cfg.weight_decay)
-    if cfg.optimizer in ("soap", "muon"):
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
-                                  f"ported yet (ROADMAP A.13)")
     raise ValueError(f"unknown optimizer {cfg.optimizer}")
 
 
@@ -159,8 +168,10 @@ def make_train_step(vset: V.VariableSet, cfg: FitConfig,
                                   for p in g["params"]
                                   if p.grad is not None], cfg.max_grad_norm)
         if schedule is not None:
+            # soap and muon read the schedule at the 1-based count
+            at = state.step + getattr(opt, "schedule_offset", 0)
             for g in opt.param_groups:
-                g["lr"] = schedule(state.step)
+                g["lr"] = schedule(at)
         opt.step()
         state.step += 1
         return state, loss.detach()

@@ -17,7 +17,19 @@ of ``climsim_tpu/train/rollout.py``).
 * with ``pass_x_raw`` the raw level state rides along to ``apply_fn``
   (the physics-constrained model reads it: ``phys_apply``,
   ``phys_mem_shape``), and with ``pass_y_true`` the true tendencies do in
-  training updates.
+  training updates;
+* with ``ensemble_size`` M > 1 each member runs the model from its own
+  memory [M, B, L, nm] and its own noise, and the window trains on a
+  CRPS-family loss over the members (``ens_loss``; before
+  ``crps_start_epoch`` the deterministic loss of the member mean), plus
+  ``w_det`` times the member mean's squared error; the M members go
+  through the model as one batch of M x B columns (the model is
+  column-wise, so this computes what JAX's vmap over members computes),
+  and with ``ar_noise_rho > 0`` the AR(1) noise is carried through the
+  window;
+* the optimizers are optax's adam and adamw (as torch's Adam and AdamW),
+  and the JAX package's soap, muon and schedule-free AdamW
+  (``train/soap.py``, ``train/muon.py``, ``train/schedule_free.py``).
 
 The model's parameters and the optimizer are state of the trainer and are
 updated in place; ``run_epoch`` and ``run_epoch_fused`` (the epoch the
@@ -25,8 +37,15 @@ training CLI runs; with a mesh, data-parallel over its ranks) return the
 carried memory and a record, and
 ``save_rollout_checkpoint``/``restore_rollout_checkpoint`` keep the best
 epochs by validation loss.
-Options of the JAX trainer that this package does not port yet raise
-``NotImplementedError`` naming their ROADMAP item.
+
+The ensemble's noise comes from the trainer's ``noise_source(step,
+member, shape)``: by default ``KeyedNoise``, a generator keyed by
+(``cfg.seed``, the step's index in the window, the member), as JAX keys
+its draws by ``fold_in(PRNGKey(seed), step)`` split M ways, so that every
+window draws the same noise, as in JAX. Nothing is drawn from the global
+RNG. Options of the JAX trainer that this package does not port yet
+(semi-online training) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -46,7 +65,11 @@ from ..ops import resolve_device
 from ..parallel.mesh import all_reduce_mean_, axis_rank
 from ..physics import conservation
 from . import losses as L
+from . import probabilistic as P
+from .muon import Muon
+from .schedule_free import ScheduleFreeAdamW
 from .schedules import one_cycle, step_decay, warmup_constant
+from .soap import SOAP
 
 
 @dataclass
@@ -79,8 +102,10 @@ class RolloutConfig:
     # cloud-water-path MSE between predicted and true tendencies
     w_cld: float = 0.0
     # the physics model's negative-precipitation penalty (its aux
-    # 'prec_negative'); the ensemble term w_det is not ported
+    # 'prec_negative')
     w_precip_neg: float = 0.0
+    # ensemble training: w_det x the squared error of the member mean over
+    # the level and surface outputs
     w_det: float = 0.0
     # static loss-weight factors: heating tendencies in the top
     # strat_weight_levels levels x strat_temp_weight_factor; all surface
@@ -115,7 +140,11 @@ class RolloutConfig:
     # argument
     pass_y_true: bool = False
     n_prog: int = 6
-    # stochastic/ensemble training: not ported (ensemble_size 1 only)
+    # stochastic/ensemble training: ensemble_size members, each with its
+    # own memory and noise, trained on ens_loss over the members: crps |
+    # crps_af | crps_sorted | energy | variogram | ds; ens_sumvar sums the
+    # score over each column's features; ens_beta weighs the skill term;
+    # before crps_start_epoch the deterministic loss of the member mean
     ensemble_size: int = 1
     ens_loss: str = "crps"
     ens_sumvar: bool = False
@@ -170,20 +199,80 @@ def make_schedule(cfg: RolloutConfig):
     return lambda step: lr
 
 
+SCHEDULE_FREE = ("adamwschedulefree", "schedulefree")
+
+
+def optimizer_schedule(cfg: RolloutConfig):
+    """The learning rate of each update as the trainer sets it: the
+    schedule, except for schedule-free AdamW, which JAX gives ``cfg.lr``
+    whatever the schedule (rollout.py:195-203)."""
+    if cfg.optimizer in SCHEDULE_FREE:
+        lr = cfg.lr
+        return lambda step: lr
+    return make_schedule(cfg)
+
+
 def make_optimizer(cfg: RolloutConfig, params) -> torch.optim.Optimizer:
     """optax's adam/adamw as torch optimizers, with optax's defaults (b1
-    0.9, b2 0.999, eps 1e-8) and the schedule's first learning rate."""
-    lr = make_schedule(cfg)(0)
+    0.9, b2 0.999, eps 1e-8), or the JAX package's soap, muon and
+    schedule-free AdamW with their defaults and ``cfg.weight_decay``, at
+    the schedule's first learning rate."""
+    sched = optimizer_schedule(cfg)
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=sched(0), betas=(0.9, 0.999),
+                                eps=1e-8)
     if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
+        return torch.optim.AdamW(params, lr=sched(0), betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=cfg.weight_decay)
-    if cfg.optimizer in ("adamwschedulefree", "schedulefree", "soap",
-                         "muon"):
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
-                                  f"ported yet (ROADMAP A.13)")
+    if cfg.optimizer in SCHEDULE_FREE:
+        return ScheduleFreeAdamW(params, lr=cfg.lr,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.optimizer in ("soap", "muon"):
+        cls = SOAP if cfg.optimizer == "soap" else Muon
+        return cls(params, lr=sched(cls.schedule_offset),
+                   weight_decay=cfg.weight_decay)
     raise ValueError(cfg.optimizer)
+
+
+def _ensemble_score(cfg: RolloutConfig):
+    """The probabilistic loss of ``cfg.ens_loss`` as f(members [M, B,
+    ...], truth [B, ...]) (rollout.py:441-467)."""
+    bb = cfg.ens_beta
+    flat = lambda a: a.reshape(a.shape[0], a.shape[1], -1) \
+        if a.dim() > 3 else a
+    fn = {"crps": lambda e, o: P.crps_kernel(e, o, beta=bb),
+          "crps_af": lambda e, o: P.crps_almost_fair(e, o, beta=bb),
+          "crps_sorted": lambda e, o: P.crps_sample_sorted(e, o, beta=bb),
+          "energy": lambda e, o: P.energy_score(
+              e.reshape(e.shape[0], -1, e.shape[-1]),
+              o.reshape(-1, o.shape[-1])),
+          # over each column's flattened features
+          "variogram": lambda e, o: P.variogram_score(
+              flat(e), o.reshape(o.shape[0], -1)),
+          "ds": lambda e, o: P.dawid_sebastiani(e, o)}[cfg.ens_loss]
+    if not cfg.ens_sumvar:
+        return fn
+    # summed over each column's features before the batch mean: the mean
+    # times the feature count
+    return lambda e, o: fn(e, o) * (o.numel() // o.shape[0])
+
+
+class KeyedNoise:
+    """The ensemble's default noise source: ``(step, member, shape) ->``
+    a standard-normal float32 draw on ``device`` from a generator seeded
+    by (``seed``, the step's index in the window, the member), as JAX
+    keys a member's draw by ``split(fold_in(PRNGKey(seed), step),
+    M)[member]``. Every window draws the same noise, as in JAX."""
+
+    def __init__(self, seed: int, device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def __call__(self, step: int, member: int, shape) -> torch.Tensor:
+        key = ((self.seed * 1_000_003 + step) * 1_000_033 + member) \
+            % (1 << 63)
+        g = torch.Generator(device=self.device).manual_seed(key)
+        return torch.randn(shape, generator=g, device=self.device)
 
 
 def phys_apply(model, x_lev, x_sfc, mem, x_raw, y_true=None):
@@ -247,6 +336,13 @@ class RolloutTrainer:
     [W, B, nys], sp [W, B] raw surface pressure, and with ``pass_x_raw``
     x_lev_raw [W, B, L, C] the raw level state.
 
+    With ``cfg.ensemble_size`` M > 1 the memory is [M, B, ...] and the
+    model is called directly (as JAX's trainer applies it) as
+    ``model(x, x_sfc, mem, deterministic=False, eps_prev=, noise=)`` on
+    the M members folded into one batch; ``noise_source(step, member,
+    shape)`` gives each member's fresh draw (default ``KeyedNoise``;
+    the tests replace it to replay other draws).
+
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     the model's parameters must already live on that device.
     """
@@ -254,14 +350,14 @@ class RolloutTrainer:
     def __init__(self, model, cfg: RolloutConfig, hyai, hybi,
                  yscale_lev=None, yscale_sca=None,
                  xmean_prog=None, xdiv_prog=None, lbd_qc=None, lbd_qi=None,
-                 apply_fn=None, mem_shape=None, device=None):
+                 apply_fn=None, mem_shape=None, device=None,
+                 noise_source=None):
         if cfg.semi_online or any(a is not None for a in (
                 xmean_prog, xdiv_prog, lbd_qc, lbd_qi)):
             raise _unported("semi-online training", "A.7")
-        if cfg.w_det > 0:
-            raise _unported("loss term w_det", "A.7")
-        if cfg.ensemble_size > 1:
-            raise _unported("ensemble training (ensemble_size > 1)", "A.7")
+        if cfg.ensemble_size > 1 and apply_fn is not None:
+            raise ValueError("ensemble training calls the model directly "
+                             "(as JAX's trainer does); it takes no apply_fn")
         self.device = resolve_device(device)
         pdev = next(model.parameters()).device
         if pdev.type != self.device.type:
@@ -288,12 +384,22 @@ class RolloutTrainer:
         self.yscale_lev = yscale_lev
         self.yscale_sca = None if yscale_sca is None \
             else t(yscale_sca).reshape(-1)
-        self._schedule = make_schedule(cfg)
+        self._schedule = optimizer_schedule(cfg)
         # the parameters the optimizer updates (``finetune.freeze`` takes
         # some out); every rebuilt optimizer takes the same ones
         self.trainable = list(model.parameters())
         self.opt = make_optimizer(cfg, self.trainable)
         self._last_W: int | None = None
+        self.noise_source = noise_source if noise_source is not None \
+            else KeyedNoise(cfg.seed, self.device)
+        # the probabilistic loss's weight (0 before crps_start_epoch) and
+        # the columns of the global batch this rank holds (cols, B), set
+        # per epoch
+        self._ens_w = 1.0
+        self._noise_block = None
+
+    def _set_epoch_state(self, epoch: int) -> None:
+        self._ens_w = 0.0 if epoch < self.cfg.crps_start_epoch else 1.0
 
     def maybe_rescale_optimizer(self, W: int) -> None:
         """timestepped_optimizer: when the curriculum changes the window
@@ -302,20 +408,25 @@ class RolloutTrainer:
         if (self.cfg.timestepped_optimizer and self._last_W is not None
                 and W != self._last_W):
             self.cfg.lr = self.cfg.lr * (W / self._last_W)
-            self._schedule = make_schedule(self.cfg)
+            self._schedule = optimizer_schedule(self.cfg)
             self.opt = make_optimizer(self.cfg, self.trainable)
         self._last_W = W
 
     def init(self, sample_window) -> torch.Tensor:
         """Fresh optimizer state, and the zero memory for the window's
-        batch (the JAX trainer's ``init`` also initialises the parameters;
-        here the model's constructor did)."""
+        batch ([M, B, ...] for an ensemble; the JAX trainer's ``init``
+        also initialises the parameters; here the model's constructor
+        did)."""
         x_lev = sample_window["x_lev"][0]
         B, nlev = x_lev.shape[0], x_lev.shape[1]
         self.opt = make_optimizer(self.cfg, self.trainable)
-        return torch.zeros(self._mem_shape(B, nlev),
+        return torch.zeros(self._lead() + self._mem_shape(B, nlev),
                            dtype=torch.as_tensor(x_lev).dtype,
                            device=self.device)
+
+    def _lead(self) -> tuple:
+        M = self.cfg.ensemble_size
+        return (M,) if M > 1 else ()
 
     # ------------------------------------------------------------------
 
@@ -346,8 +457,33 @@ class RolloutTrainer:
             return L.weighted_loss(out, y_lev, w_lev, kind=cfg.loss) \
                 + L.weighted_loss(out_sfc, y_sfc, w_sfc, kind=cfg.loss)
 
+        M = cfg.ensemble_size
+        ens_fn = _ensemble_score(cfg) if M > 1 else None
+        model = self.model
+        stochastic = getattr(model, "add_stochastic_layer", False)
+        # AR(1) noise carried through the window (rollout.py:376-380)
+        ar_noise = M > 1 and stochastic \
+            and getattr(model, "ar_noise_rho", 0.0) > 0.0
+
+        def members(x_lev, x_sfc, mem, eps_c, fresh):
+            """The M members as one batch of M x B columns, member-major:
+            (out [M, B, ...], out_sfc [M, B, ...], memory [M, B, ...],
+            eps)."""
+            B = x_lev.shape[0]
+            fold = lambda a: a.repeat((M,) + (1,) * (a.dim() - 1))
+            kw = {}
+            if stochastic:
+                kw = dict(deterministic=False, noise=fresh)
+                if ar_noise:
+                    kw["eps_prev"] = eps_c
+            res = model(fold(x_lev), fold(x_sfc),
+                        mem.reshape((M * B,) + tuple(mem.shape[2:])), **kw)
+            unfold = lambda a: a.reshape((M, B) + tuple(a.shape[1:]))
+            return unfold(res[0]), unfold(res[1]), unfold(res[2]), \
+                (res[3] if ar_noise else eps_c)
+
         def step(mem, prev_out, have_prev, x_lev, x_sfc, y_lev, y_sfc, sp,
-                 x_raw):
+                 x_raw, eps_c=None, fresh=None):
             if cfg.replay in ("full", "mixed"):
                 use = have_prev * (mix_mask[:, None, None]
                                    if cfg.replay == "mixed" else 1.0)
@@ -355,16 +491,36 @@ class RolloutTrainer:
                     + (1.0 - use) * x_lev[..., r0:r1]
                 x_lev = torch.cat([x_lev[..., :r0], repl, x_lev[..., r1:]],
                                   dim=-1)
-            if cfg.pass_y_true and train:
-                res = self._apply(self.model, x_lev, x_sfc, mem, x_raw,
-                                  y_lev)
+            aux = None
+            if M > 1:
+                out_e, out_sfc_e, mem, eps_c = members(x_lev, x_sfc, mem,
+                                                       eps_c, fresh)
+                out, out_sfc = out_e.mean(0), out_sfc_e.mean(0)
+                if self._ens_w < 1.0:
+                    # before crps_start_epoch: the deterministic loss of
+                    # the member mean
+                    main = main_loss(out, y_lev, out_sfc, y_sfc)
+                else:
+                    main = ens_fn(out_e, y_lev) + ens_fn(out_sfc_e, y_sfc)
             else:
-                res = self._apply(self.model, x_lev, x_sfc, mem, x_raw)
-            out, out_sfc, mem = res[:3]
-            aux = res[3] if len(res) > 3 else None
+                if cfg.pass_y_true and train:
+                    res = self._apply(model, x_lev, x_sfc, mem, x_raw,
+                                      y_lev)
+                else:
+                    res = self._apply(model, x_lev, x_sfc, mem, x_raw)
+                out, out_sfc, mem = res[:3]
+                aux = res[3] if len(res) > 3 else None
+                main = main_loss(out, y_lev, out_sfc, y_sfc)
             # the extra terms are summed apart and added to the weighted
             # main loss last, in the JAX trainer's order
             extra = 0.0
+            if M > 1 and cfg.w_det > 0:
+                # the member mean's squared error over the level and
+                # surface outputs
+                se = torch.sum(torch.square(out - y_lev)) \
+                    + torch.sum(torch.square(out_sfc - y_sfc))
+                extra = extra + cfg.w_det * se / (y_lev.numel()
+                                                  + y_sfc.numel())
             if aux is not None and cfg.w_precip_neg > 0 \
                     and "prec_negative" in aux:
                 extra = extra + cfg.w_precip_neg * torch.mean(
@@ -394,8 +550,8 @@ class RolloutTrainer:
                         torch.square(cwp_p - cwp_t))
                 if raw_terms:
                     extra = extra + self._raw_state_terms(od, x_raw, sp)
-            loss = cfg.w_main * main_loss(out, y_lev, out_sfc, y_sfc) + extra
-            return mem, out, out_sfc, loss
+            loss = cfg.w_main * main + extra
+            return mem, out, out_sfc, loss, eps_c
 
         run = step
         if cfg.remat and torch.is_grad_enabled():
@@ -403,13 +559,24 @@ class RolloutTrainer:
         W = window["x_lev"].shape[0]
         prev_out = torch.zeros_like(window["y_lev"][0])
         have_prev = 0.0
+        eps_c = None
+        if ar_noise:
+            B, nlev = window["x_lev"].shape[1], window["x_lev"].shape[2]
+            Le, _, nh3 = model.noise_shape(B, nlev)
+            eps_c = torch.zeros((Le, M * B, nh3),
+                                dtype=window["x_lev"].dtype,
+                                device=self.device)
         step_losses, outs, out_sfcs = [], [], []
         for i in range(W):
-            mem, prev_out, out_sfc, loss = run(
+            # the draws come in as an argument, so that a remat recompute
+            # reuses them
+            fresh = self._draw(i, window) if M > 1 and stochastic else None
+            mem, prev_out, out_sfc, loss, eps_c = run(
                 mem, prev_out, have_prev, window["x_lev"][i],
                 window["x_sfc"][i], window["y_lev"][i], window["y_sfc"][i],
                 window["sp"][i],
-                window["x_lev_raw"][i] if cfg.pass_x_raw else None)
+                window["x_lev_raw"][i] if cfg.pass_x_raw else None, eps_c,
+                fresh)
             have_prev = 1.0
             step_losses.append(loss)
             outs.append(prev_out)
@@ -438,6 +605,18 @@ class RolloutTrainer:
             loss = loss + cfg.w_precip * torch.mean(
                 torch.square(prec_pred - prec_true)) / (W * W)
         return loss, mem
+
+    def _draw(self, step: int, window) -> torch.Tensor:
+        """The members' fresh draws for the window's step ``step``, member
+        m at columns m B .. (m + 1) B: [Le, M B, nh3]. On a data-parallel
+        rank each member's draw is made for the global batch and this
+        rank's columns are taken, so the ranks together draw what one
+        device draws."""
+        B, nlev = window["x_lev"].shape[1], window["x_lev"].shape[2]
+        cols, Bg = self._noise_block or (slice(None), B)
+        shape = self.model.noise_shape(Bg, nlev)
+        return torch.cat([self.noise_source(step, m, shape)[:, cols]
+                          for m in range(self.cfg.ensemble_size)], dim=1)
 
     def _raw_state_terms(self, od, x_raw, sp):
         """The weighted raw-state terms of one step: the positivity of qv
@@ -474,6 +653,8 @@ class RolloutTrainer:
         over the ranks in one ``all_reduce`` after the backward, before
         the step."""
         step = next((int(s["step"]) for s in self.opt.state.values()), 0)
+        # soap and muon read their schedule at the 1-based count
+        step += getattr(self.opt, "schedule_offset", 0)
         for g in self.opt.param_groups:
             g["lr"] = self._schedule(step)
         self.opt.zero_grad(set_to_none=True)
@@ -507,10 +688,14 @@ class RolloutTrainer:
                                                         torch.float32)
 
     def _fresh_mem(self, mem, chunk):
+        """``mem``, or zeros where it does not fit the chunk's batch
+        ([M, B, ...] for an ensemble)."""
         B = chunk["x_lev"].shape[1]
-        if mem is None or mem.shape[0] != B:
-            mem = torch.zeros(self._mem_shape(B, chunk["x_lev"].shape[2]),
-                              dtype=torch.float32, device=self.device)
+        lead = self._lead()
+        if mem is None or tuple(mem.shape[:len(lead) + 1]) != lead + (B,):
+            mem = torch.zeros(lead + self._mem_shape(
+                B, chunk["x_lev"].shape[2]), dtype=torch.float32,
+                device=self.device)
         return mem
 
     def _window(self, chunk, s: int, W: int) -> dict:
@@ -530,6 +715,7 @@ class RolloutTrainer:
         frac = cfg.mix_fraction(epoch)
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(cfg.seed + epoch)
+        self._set_epoch_state(epoch)
         if train:
             self.maybe_rescale_optimizer(W)
         tot, n = 0.0, 0
@@ -573,8 +759,9 @@ def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
     ``parallel.replicate``) and takes its block of each chunk's B columns
     (B must divide over the ranks); ``mem`` is this rank's block of the
     memory, and so is the memory returned. The replay mask is drawn over
-    the global batch from the same generator on every rank, then sliced.
-    Each update averages the gradients over the ranks after the backward
+    the global batch from the same generator on every rank, then sliced;
+    so is an ensemble's noise, and an ensemble's memory [M, B, ...] is
+    the rank's block on axis 1. Each update averages the gradients over the ranks after the backward
     (``RolloutTrainer.update(group=)``; no DDP hooks, which clash with the
     remat of ``torch.utils.checkpoint``), so the parameters stay equal
     and the epoch equals the single-device one on the global batch, its
@@ -584,6 +771,7 @@ def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
     frac = cfg.mix_fraction(epoch)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(cfg.seed + epoch)
+    trainer._set_epoch_state(epoch)
     trainer.maybe_rescale_optimizer(W)
     group, rank, nranks = None, 0, 1
     if mesh is not None:
@@ -607,11 +795,15 @@ def run_epoch_fused(trainer: RolloutTrainer, mem, chunks, epoch: int,
         mix_mask = trainer._mix_mask(B, frac, gen)
         if mix_mask is not None:
             mix_mask = mix_mask[cols]
+        trainer._noise_block = (cols, B) if mesh is not None else None
         losses = []
-        for i in range(nw):
-            mem, loss = trainer.update(trainer._window(chunk, i * W, W), mem,
-                                       mix_mask, group=group)
-            losses.append(loss)
+        try:
+            for i in range(nw):
+                mem, loss = trainer.update(trainer._window(chunk, i * W, W),
+                                           mem, mix_mask, group=group)
+                losses.append(loss)
+        finally:
+            trainer._noise_block = None
         tot += float(torch.stack(losses).mean())
         n += 1
         updates += nw
@@ -673,7 +865,7 @@ def restore_rollout_checkpoint(path: str, trainer: RolloutTrainer,
                     map_location=trainer.device, weights_only=True)
     trainer.model.load_state_dict(ck["model"])
     trainer.cfg.lr = ck["schedule"]["lr"]
-    trainer._schedule = make_schedule(trainer.cfg)
+    trainer._schedule = optimizer_schedule(trainer.cfg)
     trainer._last_W = ck["schedule"]["last_window"]
     trainer.opt = make_optimizer(trainer.cfg, trainer.trainable)
     trainer.opt.load_state_dict(ck["optimizer"])

@@ -1924,3 +1924,138 @@ def test_sharded_step_world_size_one_on_card(cuda):
                                            atol=0)
     finally:
         dist.destroy_process_group()
+
+
+# C.2: the RNNAutoreg arms (flags on top of use_pallas, bf16, nneur 192)
+# and whether each is channel-major
+C2_ARMS = {"v6": dict(fuse_heads=True, fuse_init=True, level_major=True),
+           "v5": dict(fuse_heads=True, level_major=True),
+           "v4": dict(fuse_heads=True, fuse_init=True),
+           "v3": dict(fuse_heads=True), "v2": {},
+           "scan": dict(use_pallas=False)}
+
+
+def _no_sync(fn):
+    """fn() once to warm up, then again under set_sync_debug_mode
+    ("error"), where a synchronizing CUDA operation raises."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", list(C2_ARMS))
+def test_coupled_step_has_no_host_sync(cuda, arm):
+    """C.2: one coupled step of each arm (384 columns, the production
+    configuration) and the arm's RNNAutoreg forward with no synchronizing
+    CUDA operation: the TOA input is a view, no host index tensor."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import BF16, RNNAutoreg
+    from climsim_tpu_torch.online import HostLoopConfig, HybridLoop
+    nlat, nlon, nlev = 16, 24, 60
+    ncol = nlat * nlon
+    flags = {"use_pallas": True, **C2_ARMS[arm]}
+    model = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(192, 192),
+                       nh_mem=16, add_pres=False, policy=BF16, device=None,
+                       **flags)
+    assert model.arm == arm
+    lm = model.level_major
+    cfg = HostLoopConfig(nlat=nlat, nlon=nlon, scheme="fv",
+                         geometry="sphere", fix_water=True, fix_energy=True,
+                         emulator_level_major=lm)
+    loop = HybridLoop(lambda x, s, m: model(x, s, m), Grid.synthetic(
+        ncol, nlev, device=cuda), cfg, device=None)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    r = lambda lo, hi: lo + (hi - lo) * torch.rand((ncol, nlev), generator=g,
+                                                   device=cuda)
+    state = {"T": r(220, 300), "qv": r(0, 2e-3), "qc": r(0, 1e-5),
+             "qi": r(0, 1e-5), "u": r(-10, 10), "v": r(-3, 3)}
+    mem = torch.zeros((nlev, 16, ncol) if lm else (ncol, nlev, 16),
+                      device=cuda)
+    x_sfc = torch.cat([torch.full((ncol, 1), 1e5), torch.ones((ncol, 23))],
+                      dim=1).to(cuda)
+    with torch.no_grad():
+        _no_sync(lambda: loop.coupled_step(state, mem, x_sfc))
+        xm = torch.randn(((nlev, 6, ncol) if lm else (ncol, nlev, 6)),
+                         device=cuda)
+        _no_sync(lambda: model(xm, x_sfc, mem))
+
+
+@pytest.mark.cuda
+def test_eager_wrapper_step_has_no_host_sync(cuda):
+    """C.2: the raw-units wrapper's eager step (the v4 arm, bf16) with no
+    synchronizing CUDA operation; and the stochastic wrapper's AR(1) step
+    with its noise as a tensor."""
+    from climsim_tpu_torch.data import LevelNormalizer
+    from climsim_tpu_torch.export import OnlineWrapper
+    from climsim_tpu_torch.models import BF16, RNNAutoreg
+    B, L, nx = 384, 60, 15
+    hy = tuple(np.linspace(0.0, 0.01, L))
+    norm = LevelNormalizer(torch.zeros(L, nx, device=cuda),
+                           torch.ones(L, nx, device=cuda),
+                           torch.zeros(24, device=cuda),
+                           torch.ones(24, device=cuda),
+                           torch.ones(1, 5, device=cuda),
+                           torch.ones(8, device=cuda))
+    lbd = torch.full((L,), 1e4)
+    x = torch.rand(B, L, nx, device=cuda)
+    x[..., 0] += 250.0
+    xs = torch.rand(B, 24, device=cuda)
+    xs[:, 0] = 1e5
+    for flags in (dict(use_pallas=True, fuse_heads=True, fuse_init=True,
+                       policy=BF16),
+                  dict(add_stochastic_layer=True, ar_noise_rho=0.9)):
+        model = RNNAutoreg(nx=nx, nx_sfc=24, ny=5, ny_sfc=8,
+                           nneur=(192, 192), nh_mem=16, add_pres=True,
+                           hyam=hy, hybm=hy, sp_mean=1e5, sp_div=1e3,
+                           device=None, **flags)
+        w = OnlineWrapper(model, norm, lbd, lbd, lbd)
+        mem = torch.zeros(B, L, 16, device=cuda)
+        with torch.no_grad():
+            if "add_stochastic_layer" in flags:
+                eps = torch.zeros(model.noise_shape(B, L), device=cuda)
+                noise = torch.randn(model.noise_shape(B, L), device=cuda)
+                out = _no_sync(lambda: w(x, xs, mem, eps, noise))
+                assert len(out) == 4 and torch.isfinite(out[3]).all()
+            else:
+                out = _no_sync(lambda: w(x, xs, mem))
+        assert all(bool(torch.isfinite(t).all()) for t in out[:3])
+
+
+@pytest.mark.cuda
+def test_ensemble_update_on_card_launches_no_kernel(cuda):
+    """A stochastic 4-member ensemble update (the srnn yaml's model at
+    nneur 64, with use_pallas: the scan trunk all the same) on the card:
+    no kernel of the port launches, the memory is [4, B, L, nm] and
+    finite, and the default noise source draws on the card."""
+    from climsim_tpu_torch import ops
+    from climsim_tpu_torch.models import RNNAutoreg
+    from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
+    B, L, W = 64, 60, 2
+    model = RNNAutoreg(nx=16, nx_sfc=24, ny=6, ny_sfc=8, nneur=(64, 64),
+                       nh_mem=16, add_pres=False, add_stochastic_layer=True,
+                       ar_noise_rho=0.95, use_pallas=True, device=None)
+    assert model.arm == "scan"
+    hy = np.linspace(0.0, 1.0, L + 1)
+    tr = RolloutTrainer(model, RolloutConfig(ensemble_size=4, optimizer="soap",
+                                             rollout_schedule={0: W}),
+                        hy * 1e-3, hy, device=None)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rn = lambda *s: 0.3 * torch.randn(s, generator=g, device=cuda)
+    window = {"x_lev": rn(W, B, L, 16), "x_sfc": rn(W, B, 24),
+              "y_lev": rn(W, B, L, 6), "y_sfc": rn(W, B, 8),
+              "sp": 1e5 + rn(W, B)}
+    mem = tr.init(window)
+    wrappers = [getattr(ops, n) for n in dir(ops)
+                if hasattr(getattr(ops, n), "launches")]
+    before = [w.launches for w in wrappers]
+    for _ in range(2):
+        mem, loss = tr.update(window, mem, None)
+    assert [w.launches for w in wrappers] == before
+    assert mem.shape == (4, B, L, 16) and torch.isfinite(mem).all()
+    assert torch.isfinite(loss)

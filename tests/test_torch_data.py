@@ -511,6 +511,17 @@ def test_epoch_metrics_match_jax(with_state):
                              "cldpath_err") else 1e-12
         np.testing.assert_allclose(np.asarray(got[k]), np.asarray(w),
                                    rtol=rtol, atol=1e-30, err_msg=k)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        TM.epoch_metrics(t(pred_l), t(pred_s), t(true_l), t(true_s), t(sp),
-                         t(hyai), t(hybi), ens_pred_lev=t(pred_l)[None])
+    # the ensemble branch: three members' predictions
+    ens = np.stack([pred_l, pred_l + f(N, NLEV, 6) * 2e-6,
+                    pred_l - f(N, NLEV, 6) * 1e-6])
+    with jax.enable_x64(False):
+        want = JM.epoch_metrics(jnp.asarray(pred_l), jnp.asarray(pred_s),
+                                jnp.asarray(true_l), jnp.asarray(true_s),
+                                jnp.asarray(sp), hyai, hybi,
+                                ens_pred_lev=jnp.asarray(ens))
+    got = TM.epoch_metrics(t(pred_l), t(pred_s), t(true_l), t(true_s), t(sp),
+                           t(hyai), t(hybi), ens_pred_lev=t(ens))
+    assert {"spread_skill", "q_err_corr"} <= set(got)
+    assert list(got) == list(want)
+    for k in ("spread_skill", "q_err_corr"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)

@@ -102,19 +102,27 @@ def test_from_flax_params_rejects_wrong_trees():
 
 def test_unported_options_raise():
     """What is still to port raises naming its ROADMAP item: the other
-    cells, the stochastic layer, separate radiation and memory None; a
-    channel-major model without the fused heads is refused as JAX refuses
-    it. The batch-major fused heads (level_major=False with fuse_heads)
-    are ported: they build as the v4 and v3 arms."""
+    cells, the stochastic LayerNorm LSTM, separate radiation and memory
+    None; a channel-major model without the fused heads is refused as JAX
+    refuses it, and so is a channel-major stochastic model (JAX's
+    stochastic model turns the fused heads off). The batch-major fused
+    heads (level_major=False with fuse_heads) are ported: they build as
+    the v4 and v3 arms; the stochastic layer is ported: with the same
+    flags, batch-major, it builds the scan arm."""
     base = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=NNEUR,
                 nh_mem=NH_MEM, device="cpu", **FLAGS)
     for over in ({"separate_radiation": True},
-                 {"add_stochastic_layer": True}, {"cell": "qrnn"},
+                 {"add_stochastic_layer": True,
+                  "stochastic_cell": "sln_lstm"}, {"cell": "qrnn"},
                  {"cell": "lstm"}, {"use_memory": False}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RNNAutoreg(**{**base, **over})
     with pytest.raises(ValueError, match="level_major"):
         RNNAutoreg(**{**base, "fuse_heads": False})
+    with pytest.raises(ValueError, match="level_major"):
+        RNNAutoreg(**{**base, "add_stochastic_layer": True})
+    assert RNNAutoreg(**{**base, "level_major": False,
+                         "add_stochastic_layer": True}).arm == "scan"
     for over, arm in (({"level_major": False}, "v4"),
                       ({"level_major": False, "fuse_init": False}, "v3")):
         assert RNNAutoreg(**{**base, **over}).arm == arm

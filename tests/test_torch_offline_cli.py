@@ -8,7 +8,8 @@ row for row at rtol 1e-5 (the float32 chain in another order; an
 absolute floor of 1e-6 of each column's largest magnitude). The port's
 evaluation also reproduces the training CLI's own scoreboard (rtol 1e-5:
 it recovers ps from the normalized inputs). The unported arms raise
-naming their ROADMAP ids before any data is built."""
+naming their ROADMAP ids before any data is built; the MLP yaml also
+trains with ``optimizer.name`` soap and muon."""
 import json
 import os
 
@@ -30,7 +31,12 @@ CONF = os.path.join(REPO, "conf")
 COMMON = ["device=cpu", "epochs=2", "data.steps=6"]
 ARMS = {"mlp": ("mlp_v1.yaml", ["model.features=[32,32]"]),
         "cnn": ("cnn_v1.yaml", ["model.depth=2", "model.channels=16"]),
-        "ed": ("mlp_v1.yaml", ["model.name=ed", "model.intermediate_dim=64"])}
+        "ed": ("mlp_v1.yaml", ["model.name=ed", "model.intermediate_dim=64"]),
+        # the optimizers that raised before they were ported
+        "mlp_soap": ("mlp_v1.yaml", ["model.features=[32,32]",
+                                     "optimizer.name=soap"]),
+        "mlp_muon": ("mlp_v1.yaml", ["model.features=[32,32]",
+                                     "optimizer.name=muon"])}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,7 +101,8 @@ def test_train_offline_runs_the_yamls(tmp_path, arm, capsys, monkeypatch):
         assert set(r) == {"epoch", "train_loss", "seconds", "val_loss",
                           "val_r2"}
         assert np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
-    assert run.ntr == 1536 and run.model.__class__.__name__ == arm.upper()
+    assert run.ntr == 1536
+    assert run.model.__class__.__name__ == arm.split("_")[0].upper()
     df = pd.read_csv(f"{arm}.csv", index_col=0)
     assert list(df.index) == list(V.get("v1").outputs.names)
     assert list(df.columns) == ["MAE", "RMSE", "R2", "bias"]
@@ -155,9 +162,7 @@ def test_evaluate_matches_jax_csv(tmp_path, capsys, monkeypatch):
     (["model.name=classifier_gradout"], "A.13, the rest"),
     (["model.name=hsr"], "A.13, the stochastic stack"),
     (["model.name=rpn"], "A.13, the stochastic stack"),
-    (["model.name=cvae"], "A.13, the stochastic stack"),
-    (["optimizer.name=soap"], "A.13, the optimizers"),
-    (["optimizer.name=muon"], "A.13, the optimizers")])
+    (["model.name=cvae"], "A.13, the stochastic stack")])
 def test_unported_arms_raise_before_data(over, item, monkeypatch):
     def no_data(*a, **k):
         raise AssertionError("data was built")

@@ -18,6 +18,9 @@ two chunks of 4 steps of 16 columns at 20 levels, W 2 (4 updates):
 * with mixed replay (the mask drawn over the global batch and sliced;
   torch's generator is not JAX's, so against the port's single-device
   epoch only);
+* a 3-member ensemble of the stochastic model (the memory [M, B, ...]
+  split on axis 1, each member's noise drawn for the global batch and
+  sliced), against the port's single-device epoch;
 * a batch that does not divide over the ranks raises ValueError;
 
 and ``python -m climsim_tpu_torch.cli.dryrun_multichip --devices 2
@@ -132,7 +135,8 @@ def test_sharded_epoch_matches_single_device(runs, case, ranks):
     for k, v in parts[0]["params"].items():
         close(v.numpy(), params1[k].numpy(), 1e-5, 1e-6, err_msg=k)
         assert not torch.equal(v, init[k]), f"{k} did not move"
-    mem = torch.cat([r["mem"] for r in parts])
+    # each rank's block of the columns: axis 1 of an ensemble's memory
+    mem = torch.cat([r["mem"] for r in parts], dim=mem1.dim() - 3)
     close(mem.numpy(), mem1.numpy(), 1e-5, 1e-6, err_msg="memory")
 
 

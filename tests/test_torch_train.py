@@ -394,18 +394,65 @@ def test_init_gives_zero_memory_and_fresh_optimizer():
     assert not tt.opt.state
 
 
-UNPORTED = [dict(semi_online=True), dict(w_det=1.0),
-            dict(ensemble_size=2), dict(optimizer="soap"),
-            dict(optimizer="muon"), dict(optimizer="schedulefree")]
+UNPORTED = [dict(semi_online=True)]
+# options that raised before the ensemble training and the optimizers were
+# ported; each now runs
+PORTED = [dict(w_det=1.0), dict(ensemble_size=2), dict(optimizer="soap"),
+          dict(optimizer="muon"), dict(optimizer="schedulefree")]
+_ids = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
 
 
-@pytest.mark.parametrize("over", UNPORTED, ids=lambda d: "-".join(
-    f"{k}={v}" for k, v in d.items()))
+@pytest.mark.parametrize("over", UNPORTED, ids=_ids)
 def test_unported_options_raise(over):
     _, _, tm = _models()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RolloutTrainer(tm, RolloutConfig(**over), HYAI, HYBI,
                        apply_fn=channel_major_apply, device="cpu")
+
+
+@pytest.mark.parametrize("over", PORTED, ids=_ids)
+def test_ported_options_run(over):
+    """Two updates of the channel-major model against JAX's trainer: the
+    epoch's loss within 1e-5, the parameters within 1e-5 relative plus 2%
+    of one update's size (muon, schedule-free; w_det, which JAX reads
+    only in ensemble training). SOAP's first update moves nothing, in
+    both; its second preconditions with the first gradient's
+    eigenbases, which a degenerate eigenvalue of these rectangular
+    weights leaves free, so only the loss is held here (SOAP against JAX:
+    test_torch_optimizers.py, and through the CLI with JAX's bases
+    replayed: test_torch_train_cli_stoch.py). The ensemble runs a
+    batch-major stochastic model (its trainer calls the model directly,
+    as JAX's does) and carries the [M, B, ...] memory (against JAX:
+    test_torch_ensemble_rollout.py)."""
+    lr = 1e-3
+    if "ensemble_size" in over:
+        tm = RNNAutoreg(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC,
+                        nneur=NNEUR, nh_mem=NH_MEM, add_pres=False,
+                        add_stochastic_layer=True, device="cpu")
+        tt = RolloutTrainer(tm, RolloutConfig(
+            loss="mse", lr=lr, rollout_schedule={0: 2}, **over), HYAI, HYBI,
+            device="cpu")
+        mem, rec = tt.run_epoch(None, [_data(4)], epoch=0)
+        assert mem.shape == (2, B, L, NH_MEM) and rec["updates"] == 2
+        assert np.isfinite(rec["loss"])
+        return
+    jt, params, tt = _trainers(loss="mse", lr=lr, rollout_schedule={0: 1},
+                               **over)
+    flat = _flat(params["params"])
+    chunk = _data(2, seed=5)
+    jp, _, _, jrec = jt.run_epoch(params, jt.tx.init(params), None,
+                                  [chunk], epoch=0)
+    _, trec = tt.run_epoch(None, [chunk], epoch=0)
+    assert trec["updates"] == jrec["updates"] == 2
+    np.testing.assert_allclose(trec["loss"], jrec["loss"], rtol=1e-5)
+    jflat = _flat(jp["params"])
+    for name, p in tt.model.named_parameters():
+        got = p.detach().numpy()
+        assert np.all(np.isfinite(got)) and \
+            np.abs(got - flat[name]).max() > 0.01 * lr, name
+        if over.get("optimizer") != "soap":
+            np.testing.assert_allclose(got, jflat[name], rtol=1e-5,
+                                       atol=0.02 * lr, err_msg=name)
 
 
 def test_trainer_defaults_to_cuda():

@@ -1,6 +1,7 @@
 """The port's rollout-training CLI (``climsim_tpu_torch/cli/train_rollout.py``)
 on its own, on the CPU: the options that are not ported yet raise before
-any data is built, the device rules, training on its synthetic series
+any data is built, the options that raised before they were ported now
+train, an ensemble refuses the single-member outputs, the device rules, training on its synthetic series
 (with autograd off around it too), ``val_epoch_start``,
 ``eval_report_every`` and the two-strikes exit."""
 import os
@@ -32,13 +33,10 @@ def files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("yaml,over,item", [
-    ("autoreg_srnn.yaml", [], "A.12"),
-    ("autoreg_longwindows.yaml", [], "A.13"),
-    ("autoreg_gru.yaml", ["optimizer.name=muon"], "A.13"),
-    ("autoreg_gru.yaml", ["rollout.ensemble_size=2"], "A.7"),
-    ("autoreg_gru.yaml", ["loss.w_det=0.1"], "A.7"),
-    ("autoreg_gru.yaml", ["optimizer.name=schedulefree"], "A.13"),
-    ("autoreg_gru.yaml", ["model.add_stochastic_layer=true"], "A.12")])
+    ("autoreg_srnn.yaml", ["model.stochastic_cell=sln_lstm"], "A.12"),
+    ("autoreg_gru.yaml", ["model.cell=lstm"], "A.12"),
+    ("autoreg_gru.yaml", ["model.separate_radiation=true"], "A.12"),
+    ("autoreg_gru.yaml", ["model.memory=None"], "A.12")])
 def test_unported_options_raise_before_data(yaml, over, item, monkeypatch):
     """Each raises NotImplementedError naming its item before any data is
     built (the data loader must not be reached; no grid file exists)."""
@@ -48,6 +46,49 @@ def test_unported_options_raise_before_data(yaml, over, item, monkeypatch):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         cli.main([os.path.join(REPO, "conf", yaml), "device=cpu",
                   "grid_path=/nonexistent/grid.nc"] + over)
+
+
+# the options that raised before the stochastic layer, ensemble training
+# and the optimizers were ported: each now trains
+FORMER = [("autoreg_srnn.yaml", []), ("autoreg_longwindows.yaml", []),
+          ("autoreg_gru.yaml", ["optimizer.name=muon"]),
+          ("autoreg_gru.yaml", ["rollout.ensemble_size=2"]),
+          ("autoreg_gru.yaml", ["loss.w_det=0.1"]),
+          ("autoreg_gru.yaml", ["optimizer.name=schedulefree"]),
+          ("autoreg_gru.yaml", ["model.add_stochastic_layer=true"])]
+
+
+@pytest.mark.parametrize("yaml,over", FORMER)
+def test_former_unported_options_train(files, tmp_path, yaml, over):
+    """One epoch of each on the synthetic series at nneur 8: a finite
+    record; an ensemble keeps the [M, B, ...] memory."""
+    log = str(tmp_path / "log.jsonl")
+    run = cli.setup(load_config(os.path.join(REPO, "conf", yaml), [
+        "device=cpu", "model.nneur=[8,8]", f"grid_path={files['grid']}",
+        f"data.ncol={NCOL}", "data.steps=6"] + over))
+    mem = cli.initial_memory(run)
+    M = run.trainer.cfg.ensemble_size
+    assert mem.shape[:2] == ((M, NCOL) if M > 1 else (NCOL, 60))
+    assert cli.main([os.path.join(REPO, "conf", yaml), "device=cpu",
+                     "epochs=1", "model.nneur=[8,8]",
+                     f"grid_path={files['grid']}", f"data.ncol={NCOL}",
+                     "data.steps=6", f"log_path={log}"] + over) == 0
+    (rec,) = read_log(log)
+    assert np.isfinite(rec["loss"]) and np.isfinite(rec["val_loss"])
+
+
+@pytest.mark.parametrize("key", cli.ENSEMBLE_REFUSES)
+def test_ensemble_refuses_single_member_outputs(key, monkeypatch):
+    """The scoreboard, the prediction export and the model export run the
+    model on the [B, ...] memory, where an ensemble's is [M, B, ...] (in
+    the JAX CLI they fail): refused before any data is built."""
+    def no_data(*a, **k):
+        raise AssertionError("data was built")
+    monkeypatch.setattr(cli, "load_data", no_data)
+    with pytest.raises(ValueError, match=key):
+        cli.main([os.path.join(REPO, "conf", "autoreg_srnn.yaml"),
+                  "device=cpu", "grid_path=/nonexistent/grid.nc",
+                  f"{key}=1"])
 
 
 def test_device_rules(monkeypatch):

@@ -202,13 +202,70 @@ def test_nan_abort_matches_jax():
         assert np.isnan(j["train_loss"]) and np.isnan(t["train_loss"])
 
 
+def fresh_both(over, epochs=3):
+    """JAX and the port ``fit`` ``epochs`` epochs from JAX's initial
+    parameters, each with a fresh optimizer; returns (jax history, port
+    history, jax state, port model)."""
+    train, val = batches()
+    jvs = JV.get("v1")
+    cfg = dict(epochs=epochs, batch_size=BATCH, **over)
+    with jax.enable_x64(False):
+        jm = jax_mlp_for(jvs, FEATURES)
+        js = jax_init_state(jm, jvs, JaxFitConfig(**cfg),
+                            jnp.asarray(train[0][0][:2]))
+        tm = mlp_for(V.get("v1"), FEATURES, device="cpu")
+        tm.load_state_dict(from_flax_params(
+            jax.tree_util.tree_map(np.asarray, js.params), tm))
+        js, jh = jax_fit(jm, jvs, JaxFitConfig(**cfg), lambda: train,
+                         lambda: val, state=js)
+    _, th = loop.fit(tm, V.get("v1"), loop.FitConfig(**cfg), lambda: train,
+                     lambda: val)
+    return jh, th, js, tm
+
+
 def test_unported_and_refused_optimizers():
-    """soap and muon raise naming A.13; the plateau rule refuses a
-    schedule and another optimizer, as JAX's make_optimizer does."""
+    """soap and muon, which raised before they were ported, train as
+    JAX's do: 3 epochs (12 updates, so SOAP's first basis and one
+    refresh) from JAX's initial parameters, clipped by the global norm
+    as JAX chains it, with a step schedule; records and parameters held
+    as test_fit_matches_jax holds them. The MLP's weights are
+    rectangular, so SOAP's first bases have a degenerate eigenvalue whose
+    free rotation changes the update: the port replays JAX's bases
+    (tests/torch_soap_replay.py). The plateau rule refuses a schedule and
+    another optimizer, as JAX's make_optimizer does."""
+    from torch_soap_replay import BasisLog, record_jax, replay_port
+    over = dict(max_grad_norm=0.05, lr_schedule="step", decay_every=5,
+                lr_gamma=0.7, loss="mse")
+    jh, th, js, tm = fresh_both(dict(optimizer="muon", lr=1e-3, **over))
+    check_records(jh, th)
+    check_params(js, tm)
+    log = BasisLog()
+    with record_jax(log):
+        train, val = batches()
+        jvs = JV.get("v1")
+        cfg = dict(epochs=3, batch_size=BATCH, optimizer="soap", lr=1e-3,
+                   **over)
+        with jax.enable_x64(False):
+            jm = jax_mlp_for(jvs, FEATURES)
+            js = jax_init_state(jm, jvs, JaxFitConfig(**cfg),
+                                jnp.asarray(train[0][0][:2]))
+            js, jh = jax_fit(jm, jvs, JaxFitConfig(**cfg), lambda: train,
+                             lambda: val, state=js)
+    # 3 matrices: a first basis each side, and one refresh's QR each side
+    assert sorted(k for k, _, _ in log.entries) == ["eigh"] * 6 + ["qr"] * 6
+    with jax.enable_x64(False):
+        js0 = jax_init_state(jm, jvs, JaxFitConfig(**cfg),
+                             jnp.asarray(train[0][0][:2]))
     tm = mlp_for(V.get("v1"), FEATURES, device="cpu")
-    for name in ("soap", "muon"):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            loop.init_state(tm, loop.FitConfig(optimizer=name))
+    tm.load_state_dict(from_flax_params(
+        jax.tree_util.tree_map(np.asarray, js0.params), tm))
+    with replay_port(log):
+        _, th = loop.fit(tm, V.get("v1"), loop.FitConfig(**cfg),
+                         lambda: train, lambda: val)
+    assert log.replayed == 12
+    check_records(jh, th)
+    check_params(js, tm)
+    tm = mlp_for(V.get("v1"), FEATURES, device="cpu")
     with pytest.raises(ValueError, match="plateau excludes"):
         loop.init_state(tm, loop.FitConfig(plateau_patience=1,
                                            lr_schedule="cosine"))

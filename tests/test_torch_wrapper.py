@@ -199,7 +199,9 @@ def test_flat_output_layout():
 def test_wrapper_refusals():
     _, tw = build("scan")
     x, xs, mem = [torch.tensor(a) for a in raw_inputs()]
-    with pytest.raises(NotImplementedError, match=r"A\.12"):
+    # the AR(1) signature needs a stochastic model with rho > 0 (JAX's
+    # wrapper fails unpacking the deterministic model's 3 outputs)
+    with pytest.raises(ValueError, match="stochastic"):
         tw(x, xs, mem, eps_prev=torch.zeros_like(mem))
     lm = RNNAutoreg(nx=NX, nx_sfc=NX_SFC, ny=5, ny_sfc=NY_SFC, nneur=NNEUR,
                     nh_mem=NH_MEM, add_pres=False, use_pallas=True,
@@ -209,3 +211,61 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match="level_major"):
         OnlineWrapper(lm, LevelNormalizer(*[torch.tensor(a) for a in na]),
                       *lambdas())
+
+
+@pytest.mark.parametrize("vertical", [True, False])
+def test_stochastic_wrapper_matches_jax(vertical, tmp_path):
+    """The AR(1) signature (x, xs, mem, eps_prev, noise) -> (out, out_sfc,
+    mem, eps) against JAX's (x, xs, mem, eps_prev, noise_key), JAX's draw
+    for the key fed in as the noise tensor; without eps_prev both are
+    deterministic and return 3 outputs; the exported step (the tensor
+    form) gives the eager step's outputs."""
+    from climsim_tpu_torch.export import load_step
+    from climsim_tpu_torch.export.serialize import export_wrapper
+    kw = dict(nx=NX, nx_sfc=NX_SFC, ny=5, ny_sfc=NY_SFC, nneur=NNEUR,
+              nh_mem=NH_MEM, add_stochastic_layer=True, ar_noise_rho=0.8,
+              ar_noise_vertical=vertical, **PRES)
+    jm = jrnn.RNNAutoreg(**kw)
+    x, xs, mem = raw_inputs()
+    ja = [jnp.asarray(a) for a in (x, xs, mem)]
+    params = jm.init({"params": jax.random.PRNGKey(0),
+                      "noise": jax.random.PRNGKey(1)}, *ja,
+                     deterministic=False)
+    tm = RNNAutoreg(device="cpu", **kw)
+    tm.load_state_dict(from_flax_params(
+        jax.tree_util.tree_map(np.asarray, params), tm))
+    na, lbd = norm_arrays(5), lambdas()
+    jw = JWrapper(jm, params, JNorm(*[jnp.asarray(a) for a in na]), *lbd,
+                  JConfig())
+    tw = OnlineWrapper(tm, LevelNormalizer(*[torch.tensor(a) for a in na]),
+                       *lbd, WrapperConfig())
+    key = jax.random.PRNGKey(5)
+    # JAX's draw for the key: the model's eps output without eps_prev
+    xn, xsn = jw.preprocess(*ja[:2])
+    fresh = np.array(jm.apply(params, xn, xsn, ja[2], deterministic=False,
+                              rngs={"noise": key})[3])
+    assert fresh.shape == tm.noise_shape(B, L)
+    eps_prev = np.random.default_rng(4).normal(0, 1, fresh.shape).astype(
+        np.float32)
+    jout = jw(*ja, eps_prev=jnp.asarray(eps_prev), noise_key=key)
+    t = [torch.tensor(a) for a in (x, xs, mem)]
+    with torch.no_grad():
+        tout = tw(*t, torch.tensor(eps_prev), torch.tensor(fresh))
+    assert len(tout) == len(jout) == 4
+    assert_close([a.numpy() for a in tout[:3]], [np.asarray(a)
+                                                 for a in jout[:3]], "ar1")
+    np.testing.assert_allclose(tout[3].numpy(), np.asarray(jout[3]),
+                               rtol=1e-5, atol=1e-6)
+    jdet = jw(*ja)
+    with torch.no_grad():
+        tdet = tw(*t)
+    assert len(tdet) == len(jdet) == 3
+    assert_close([a.numpy() for a in tdet], [np.asarray(a) for a in jdet],
+                 "deterministic")
+    path = str(tmp_path / "stoch.pt2")
+    assert export_wrapper(tw, B, L, NX, NX_SFC, NH_MEM, path) > 0
+    step = load_step(path)
+    with torch.no_grad():
+        got = step(*t, torch.tensor(eps_prev), torch.tensor(fresh))
+    for a, b in zip(got, tout):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

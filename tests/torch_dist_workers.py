@@ -261,6 +261,11 @@ EPOCH_CASES = {
     "mixed": dict(loss="mse", rollout_schedule={0: 2}, lr=1e-3,
                   replay="mixed", replay_slice=(0, 3), pred_slice=(0, 3),
                   gradual_mixing_end_epoch=2),
+    # a 3-member ensemble of the stochastic model (seeded weights): the
+    # memory [M, B, ...] split on axis 1, each member's noise drawn for
+    # the global batch and sliced; AR(1) noise through each W 2 window
+    "ensemble": dict(loss="mse", rollout_schedule={0: 2}, lr=1e-3,
+                     ensemble_size=3, w_det=0.1),
 }
 
 
@@ -290,12 +295,18 @@ def epoch_chunks(data):
 
 
 def epoch_trainer(params, case):
-    """The scan-arm RNNAutoreg of the dry run on the flax parameters and
-    its RolloutTrainer for ``case``, on the CPU."""
+    """The scan-arm RNNAutoreg of the dry run on the flax parameters (for
+    the ensemble case its stochastic twin, weights from a seed) and its
+    RolloutTrainer for ``case``, on the CPU."""
     from climsim_tpu_torch.models import F32, RNNAutoreg, from_flax_params
     from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
-    model = RNNAutoreg(policy=F32, device="cpu", **EMULATOR)
-    model.load_state_dict(from_flax_params(params, model))
+    if case == "ensemble":
+        model = RNNAutoreg(policy=F32, device="cpu", seed=5,
+                           add_stochastic_layer=True, ar_noise_rho=0.9,
+                           **EMULATOR)
+    else:
+        model = RNNAutoreg(policy=F32, device="cpu", **EMULATOR)
+        model.load_state_dict(from_flax_params(params, model))
     return RolloutTrainer(model, RolloutConfig(**EPOCH_CASES[case]),
                           *epoch_hybrid(), yscale_lev=np.ones((1, 1, 6)),
                           yscale_sca=np.ones(8), device="cpu")
