@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase, ending in the result line
     python3 chip_smoke.py 14       # the build, then phase 14 alone
+    python3 chip_smoke.py 15       # the build, then phase 15 alone
 
 The paths, each at full width with random weights from a seed:
 
@@ -72,6 +73,14 @@ The paths, each at full width with random weights from a seed:
   windows up to 11 steps with remat); both run the scan trunk and launch
   no kernel, as in JAX. Before them, C.2's repair: no coupled step or
   wrapper step waits on the host.
+* the offline trainer's other arms, ``cli/train_offline.py`` on
+  ``conf/mlp_v1.yaml``: the stochastic stack (RPN ensembles of 8 and 32
+  members, HSR, cVAE; BASELINE.json config 4's offline half) ending in
+  the CRPS scoreboard, the ClimSim-Online U-Net on v4 at its published
+  width and the v5 cloud classifier with its checkpoint and
+  ``init_from``; none reaches a Pallas kernel in JAX, so no kernel of the
+  port may launch. The dry run's ensemble-parallel RPN step on a (1, 1)
+  NCCL mesh.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -286,13 +295,42 @@ Phases (any failure exits non-zero):
      model's parameters; both yamls at 384 columns held to device=cpu in
      lockstep (compare_cli_384: the ensemble's noise draws replayed on the
      CPU, SOAP fed the card's state and gradient);
- 15. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 15. the offline CLI's other arms (check_offline_new_arms): through
+     ``python -m climsim_tpu_torch.cli.train_offline``'s main on a
+     384-column grid file, conf/mlp_v1.yaml as written (10 epochs, 40
+     steps, batch 1536) with model.name=rpn (8 members, and 32), hsr and
+     cvae (each ending in the scoreboard with CRPS), vset=v4
+     model.name=unet at the published width (128 channels, (1, 2, 2, 2),
+     4 blocks, attention at 16, output prune), and vset=v5
+     model.name=classifier_gradout with max_grad_norm 1.0 and a
+     checkpoint, then init_from that checkpoint for 1 epoch (its first
+     train_ce below the cold start's); each with no kernel of the port
+     launched, seconds an epoch, ms an update, samples/s (member
+     samples/s for RPN), the update's FLOP rate (FlopCounterMode) against
+     the f32 bound and the peak; one more epoch of RPN, HSR, cVAE and the
+     classifier through the CLI's own epoch (``stochastic_epoch``,
+     ``classifier_epoch``) under the profiler (idle share), with the
+     classifier's kernels by name and its update timed with and without
+     the gradout statistics and clipping; one more U-Net epoch under the
+     profiler (idle share) and one update's kernels by name (GEMMs, no
+     FFT kernel); each arm small (6 steps, narrow; HSR 3 epochs) on the
+     card against device=cpu, the stochastic arms' draws replayed
+     (NoiseLog, through main's ``noise_source``), every epoch's losses
+     within 1e-4 plus 4x the movement of a witness (the weights x (1 +
+     1e-6)) and every scoreboard entry (CRPS included) within 1e-4 plus
+     4x the larger movement of that witness and a data witness (the CPU
+     run on the card's data); the dry run's ensemble step
+     (``dryrun_multichip.ensemble_step``) on a one-rank NCCL group, a
+     (1, 1) mesh, bit-equal to the single-device step; ``python3
+     chip_smoke.py 15`` runs the build and phase 15 alone;
+ 16. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads), the
      card line, and the result line.
 The end of each phase prints the wall time since the start and the
-phase's own; phases 12 and 13 print each of their steps' seconds.
+phase's own; phases 12, 13, 14 and 15 print each of their steps'
+seconds.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -4067,12 +4105,15 @@ OFFLINE_SMALL = {"mlp_v1.yaml": ["data.steps=6", "epochs=2"],
                                  "model.channels=32"]}
 
 
-def offline_run(args, scale=None):
+def offline_run(args, scale=None, noise_source=None, data=None):
     """``cli/train_offline.py``'s main(args) as a user runs it, every
     launch counter set to 0 just before and read just after, the peak
     memory reset before, and the CLI's setup (its Offline: data, model,
     normalizer) kept; with ``scale`` every floating parameter of the model
-    is multiplied by it after setup (the witnesses). Returns a namespace:
+    is multiplied by it after setup (the witnesses); with ``data`` (another
+    run's Offline) the run trains and scores that run's data, normalizer
+    and labels, moved to its device (the data witness); ``noise_source``
+    goes to main (the stochastic arms' draws). Returns a namespace:
     rc, lines, records, launches, wall, peak_gb (above the memory held
     before the run, which earlier phases may leave), run."""
     import types
@@ -4082,6 +4123,14 @@ def offline_run(args, scale=None):
 
     def setup(cfg):
         runs.append(orig_setup(cfg))
+        if data is not None:
+            run = runs[-1]
+            dev = run.xn.device
+            run.x, run.xn, run.yn = (t.to(dev) for t in (data.x, data.xn,
+                                                         data.yn))
+            run.nz = data.nz.to(dev)
+            if data.labels is not None:
+                run.labels = data.labels.to(dev)
         if scale is not None:
             with torch.no_grad():
                 for p in runs[-1].model.parameters():
@@ -4098,7 +4147,7 @@ def offline_run(args, scale=None):
     try:
         with contextlib.redirect_stdout(out):
             t0 = time.perf_counter()
-            rc = cli.main(args)
+            rc = cli.main(args, noise_source=noise_source)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -5518,6 +5567,455 @@ def check_stochastic_slice(card):
     return c2, srnn, lw, opts
 
 
+# ------------------------------------------------------------ phase 15
+
+# the offline CLI's other arms at their published widths: the stochastic
+# stack on conf/mlp_v1.yaml as written (BASELINE.json config 4's offline
+# half; RPN at the CLI's 8 members and at RPNEnsemble's own 32), the
+# ClimSim-Online U-Net on v4 at its defaults (128 channels, (1, 2, 2, 2),
+# 4 blocks, attention at 16, output prune) and the v5 cloud classifier's
+# gradout variant at its defaults (64 channels, (1, 2, 2), 2 blocks)
+NEW_ARMS = {
+    "rpn": ["model.name=rpn"],
+    "rpn members=32": ["model.name=rpn", "model.members=32"],
+    "hsr": ["model.name=hsr"],
+    "cvae": ["model.name=cvae"],
+    "unet": ["vset=v4", "model.name=unet"],
+    "classifier_gradout": ["vset=v5", "model.name=classifier_gradout",
+                           "optimizer.max_grad_norm=1.0"],
+}
+# each arm small (6 steps, 2 epochs, narrow; HSR 3 epochs, so that its
+# NLL follows the warm epoch) on the card against device=cpu
+NEW_ARMS_SMALL = {
+    "hsr": ["model.name=hsr", "model.hidden=64", "epochs=3"],
+    "rpn": ["model.name=rpn", "model.features=[64,64]", "model.members=4"],
+    "cvae": ["model.name=cvae", "model.hidden=64"],
+    "unet": ["vset=v4", "model.name=unet", "model.model_channels=16",
+             "model.num_blocks=1"],
+    "classifier": ["vset=v5", "model.name=classifier", "batch_size=384",
+                   "model.model_channels=16", "model.num_blocks=1"],
+    "classifier_gradout": ["vset=v5", "model.name=classifier_gradout",
+                           "batch_size=384", "model.model_channels=16",
+                           "model.num_blocks=1",
+                           "optimizer.max_grad_norm=1.0"],
+}
+
+
+class NoiseLog:
+    """The stochastic arms' draws, recorded from the card's run
+    (``recorder(inner)``, a noise source that draws from ``inner``) and
+    replayed, in order, to a CPU run (``replayer()``)."""
+
+    def __init__(self):
+        self.draws = []
+
+    def recorder(self, inner):
+        def draw(what, shape):
+            t = inner(what, shape)
+            self.draws.append((what, t.cpu()))
+            return t
+        return draw
+
+    def replayer(self):
+        queue = list(self.draws)
+
+        def draw(what, shape):
+            want, t = queue.pop(0)
+            check(want == what and tuple(t.shape) == tuple(shape),
+                  f"replayed draw {want} {tuple(t.shape)} for {what} {shape}")
+            return t
+        return draw
+
+
+def update_closure(run):
+    """One training update's loss of the run's arm on its first batch, as
+    a closure (for the FLOP count): the CLI's own loss for the stochastic
+    arms (``stochastic_loss``, after the warm phase) and the classifiers
+    (``classifier_ce``); the U-Net's squared error (the FLOP count sees
+    only its products and convolutions)."""
+    from climsim_tpu_torch.cli import train_offline as cli
+    bs = run.fc.batch_size
+    xb, yb = run.xn[:bs], run.yn[:bs]
+    if run.name in cli.STOCHASTIC:
+        loss_fn = cli.stochastic_loss(run, cli.SeededNoise(1, xb.device))
+        return lambda: loss_fn(xb, yb, run.fc.epochs)
+    if run.name in cli.CLASSIFIERS:
+        return lambda: cli.classifier_ce(run, 0)
+    return lambda: torch.mean(torch.square(run.model(xb) - yb))
+
+
+def update_flops(run) -> float:
+    """The FLOPs of one update's forward and backward (products,
+    convolutions and attention; torch's FlopCounterMode), the prior's
+    forward included for RPN."""
+    from torch.utils.flop_counter import FlopCounterMode
+    loss = update_closure(run)
+    with torch.enable_grad(), FlopCounterMode(display=False) as fc:
+        loss().backward()
+    run.model.zero_grad(set_to_none=True)
+    return float(fc.get_total_flops())
+
+
+def new_arm_summary(label, r, card):
+    """Check a run of a new arm (exit 0, a finite record an epoch, no port
+    kernel launched, JAX's final lines) and print its wall time, seconds
+    an epoch, ms an update, samples/s (member samples/s for RPN), the
+    update's FLOP rate against the f32 bound, and the peak. Returns ms an
+    update."""
+    run = r.run
+    name = run.name
+    check(r.rc == 0, f"{label}: exit {r.rc}")
+    check(len(run.history) == run.fc.epochs, f"{label}: {len(run.history)} "
+          f"records for {run.fc.epochs} epochs")
+    for rec in run.history:
+        check(all(np.isfinite(v) for v in rec.values()),
+              f"{label}: record not finite: {rec}")
+    check(not r.launches, f"{label} launched {r.launches}")
+    if name.startswith("classifier"):
+        check(r.lines[-1].startswith('{"val_accuracy"'), f"{label}: no "
+              "accuracy line")
+        print(f"  cli: {r.lines[-1][:300]}")
+    else:
+        check(any(ln.startswith("ptend_t ") for ln in r.lines),
+              f"{label}: no scoreboard")
+        if name in ("hsr", "rpn", "cvae"):
+            check("CRPS" in run.scores.columns, f"{label}: no CRPS column")
+    for rec in run.history[:1] + run.history[-1:]:
+        print(f"  cli: {json.dumps(rec)[:300]}")
+    bs = run.fc.batch_size
+    updates = run.ntr // bs
+    secs = [rec["seconds"] for rec in run.history]
+    rest = statistics.mean(secs[1:] or secs)
+    ms = rest / updates * 1e3
+    flop = update_flops(run)
+    members = getattr(run.model, "num_members", 1)
+    rate = updates * bs / rest
+    print(f"cli train_offline {label}: wall {r.wall:.3f} s ({len(secs)} "
+          f"epochs and the final scoring), training epoch {secs[0]:.4f} s "
+          f"first, {rest:.4f} s mean of the rest; {updates} updates an "
+          f"epoch at batch {bs}: {ms:.3f} ms an update"
+          + (" (the epoch's validation included)"
+             if name.startswith("classifier") else "")
+          + f", {rate:,.0f} samples/s"
+          + (f" ({rate * members:,.0f} member samples/s, {members} members)"
+             if name == "rpn" else "")
+          + f"; an update {flop / 1e9:.2f} GFLOP (FlopCounterMode), "
+          f"{flop / ms / 1e9:.3f} TFLOP/s, bound {flop / PEAK_F32 * 1e3:.3f} "
+          f"ms at the f32 CUDA-core peak ({flop / PEAK_F32 * 1e3 / ms:.3f} "
+          f"of it); peak {r.peak_gb:.3f} GB above the memory held before "
+          f"the run; no kernel of the port launched [{card}]")
+    return ms
+
+
+def arm_epoch_profile(card, label, r, trace_path):
+    """One more training epoch of a stochastic or classifier arm through
+    the CLI's own epoch (``stochastic_epoch``, ``classifier_epoch``; a
+    fresh Adam, no validation) under torch.profiler: the device idle
+    share (1 - kernel time / synchronized wall time) and launches an
+    update. For the classifiers also one update's kernels with the most
+    device time, and its epoch timed without the profiler in turns (as run,
+    with the clipping but not the gradout statistics, with neither, then
+    back; synchronized wall time): ms an update, and what the statistics
+    and the clipping cost."""
+    from dataclasses import replace
+    from climsim_tpu_torch.cli import train_offline as cli
+    run = r.run
+    updates = run.ntr // run.fc.batch_size
+    opt = torch.optim.Adam(run.model.parameters(), lr=run.fc.lr)
+    if run.name in cli.STOCHASTIC:
+        noise = cli.SeededNoise(1, run.xn.device)
+        loss_fn = cli.stochastic_loss(run, noise)
+        epoch = lambda: cli.stochastic_epoch(run, opt, loss_fn,
+                                             run.fc.epochs)
+    else:
+        gradout = run.name == "classifier_gradout"
+        epoch = lambda: cli.classifier_epoch(run, opt, gradout)
+    epoch()
+    _, wall, busy, n_kernels, _ = profile_epoch(epoch, trace_path)
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    print(f"cli train_offline {label}: one training epoch ({updates} "
+          f"updates, the CLI's own epoch, no validation) under "
+          f"torch.profiler: wall {wall:.3f} ms, kernels {busy:.3f} ms "
+          f"({n_kernels / updates:.1f} launches an update), device idle "
+          f"share {max(0.0, 1 - busy / wall):.3f} [{card}]")
+    if run.name in cli.STOCHASTIC:
+        return
+    one = replace(run, ntr=run.fc.batch_size)       # the first batch alone
+    busy, top = profile_kernels(
+        lambda: cli.classifier_epoch(one, opt, gradout), top=6)
+    print(f"cli train_offline {label}: one update's kernels with the most "
+          f"device time: " + "; ".join(f"{k[:60]} {t:.3f} ms"
+                                       for k, t in top)
+          + f", of {busy:.3f} ms [{card}]")
+    bare_run = replace(run, fc=replace(run.fc, max_grad_norm=None))
+    arms = {"as run": epoch,
+            "clipping only": lambda: cli.classifier_epoch(run, opt, False),
+            "neither": lambda: cli.classifier_epoch(bare_run, opt, False)}
+    ms = {k: [] for k in arms}
+    for k in list(arms) + list(arms)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arms[k]()
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) * 1e3 / updates)
+    print(f"cli train_offline {label}: ms an update without validation, "
+          f"epochs timed in turns on the synchronized wall clock (gradout "
+          f"statistics and clipping at {run.fc.max_grad_norm}): "
+          + "; ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in ts)
+                      for k, ts in ms.items()) + f" [{card}]")
+
+
+def unet_kernels(card, r):
+    """One U-Net update (fit's train step) under torch.profiler: every
+    kernel by name; the convolutions must run as GEMMs, with no FFT
+    kernel."""
+    from climsim_tpu_torch.train.loop import init_state, make_train_step
+    run = r.run
+    bs = run.fc.batch_size
+    state = init_state(run.model, run.fc)
+    step = make_train_step(run.vset, run.fc, run.xn.device)
+    xb, yb = run.xn[:bs], run.yn[:bs]
+    step(state, xb, yb)
+    busy, kernels = profile_kernels(lambda: step(state, xb, yb), top=None)
+    names = [k for k, _ in kernels]
+    check(not any("fft" in k.lower() for k in names),
+          f"an FFT kernel in the U-Net update: {names}")
+    check(any("gemm" in k.lower() or "sm90" in k.lower() for k in names),
+          f"no GEMM kernel in the U-Net update: {names[:8]}")
+    print(f"cli train_offline unet (v4): one update's kernels ({len(names)} "
+          f"kinds, {busy:.3f} ms on the device, no FFT kernel): "
+          + "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in kernels[:6])
+          + f" [{card}]")
+
+
+@contextlib.contextmanager
+def scored_inputs(store):
+    """Within: the offline CLI's scoreboard (``metrics.evaluate``) appends
+    its arguments, (args, kwargs), to ``store``."""
+    from climsim_tpu_torch import metrics
+    orig = metrics.evaluate
+
+    def evaluate(*args, **kw):
+        store.append((args, kw))
+        return orig(*args, **kw)
+    metrics.evaluate = evaluate
+    try:
+        yield
+    finally:
+        metrics.evaluate = orig
+
+
+def score_on_cpu(scored, grid, sign=0):
+    """``metrics.evaluate`` of a run's scoreboard arguments (``scored``,
+    from ``scored_inputs``) on the CPU, with ``grid`` the CPU's. With
+    ``sign`` +-1 every input with a leading time axis is first multiplied
+    by 1 + sign (-1)^t 2^-23 at step t (a rounding witness: about one ulp,
+    in the direction that moves a sum of squares about the time mean
+    most)."""
+    from climsim_tpu_torch.metrics import evaluate
+    (pred, target, ps_raw, vset, _), kw = scored
+    alt = sign * (-1.0) ** torch.arange(pred.shape[0], dtype=torch.float64)
+
+    def cpu(t, timed=True):
+        t = t.detach().cpu()
+        if not (sign and timed):
+            return t
+        u = alt.to(t.dtype).view((-1,) + (1,) * (t.dim() - 1))
+        return t * (1 + u * 2.0 ** -23)
+    kw = {k: None if v is None else cpu(v, k != "scale")
+          for k, v in kw.items()}
+    return evaluate(cpu(pred), cpu(target), cpu(ps_raw), vset, grid, **kw)
+
+
+def frame_compare(name, frames, witnesses):
+    """Hold the card's scoreboard frame to the CPU's as ``witness_compare``
+    holds a record: given ``frames`` by tag ("cuda", "cpu" and the tags in
+    ``witnesses``), every entry (MAE, RMSE, R2, bias, and CRPS where the
+    arm samples) on the card within 1e-4 of the CPU's plus 4x the largest
+    witness movement; an entry that is not finite on the CPU (R2 where a
+    target is constant) must be the same on the card. R2 divides by a
+    target's sum of squares over the validation steps, which for a
+    near-constant target is set by the last bits of the data and of the
+    weighting, so the witnesses must move those too; an entry that a
+    witness makes not finite is bounded by nothing, and is named. Returns
+    a description of the comparison."""
+    cuda, cpu = frames["cuda"], frames["cpu"]
+    check(list(cuda.index) == list(cpu.index)
+          and list(cuda.columns) == list(cpu.columns),
+          f"{name}: the card's scoreboard has other rows or columns")
+    c, p = cuda.to_numpy(float), cpu.to_numpy(float)
+    fin = np.isfinite(p)
+    with np.errstate(invalid="ignore"):       # inf - inf where not finite
+        moves = [np.abs(frames[t].to_numpy(float) - p) for t in witnesses]
+        diff = np.where(fin, np.abs(c - p), 0.0)
+    # a witness that leaves an entry not finite bounds it by nothing
+    move = np.where(fin, np.nan_to_num(np.max(moves, axis=0), nan=np.inf,
+                                       posinf=np.inf), 0.0)
+    tol = 1e-4 * np.abs(p) + 4 * move
+    free = fin & np.isinf(tol)
+    check(np.array_equal(c[~fin], p[~fin], equal_nan=True),
+          f"{name}: non-finite scoreboard entries differ")
+    bad = fin & ~(diff <= tol)
+    where = lambda ij: f"{cpu.index[ij[0]]} {cpu.columns[ij[1]]}"
+    check(not bad.any(), f"{name}: scoreboard entries outside tolerance: "
+          + "; ".join(f"{where(ij)} card {float(c[ij])!r} vs CPU "
+                      f"{float(p[ij])!r}, tolerance {float(tol[ij])!r}"
+                      for ij in zip(*np.nonzero(bad))))
+    ratio = np.where(fin & ~free, diff / np.maximum(tol, 1e-300), 0.0)
+    ij = np.unravel_index(np.argmax(ratio), ratio.shape)
+    return (f"scoreboard {int(fin.sum())} finite entries of "
+            f"{'/'.join(cpu.columns)} within tolerance ({int((~fin).sum())} "
+            f"not finite, equal; {int(free.sum())} made not finite by a "
+            f"witness: " + (", ".join(where(ij) for ij in zip(
+                *np.nonzero(free))) or "none")
+            + f"), the closest {where(ij)}: card "
+            f"{float(c[ij])!r} vs CPU {float(p[ij])!r}, tolerance "
+            f"{tol[ij]:.3e}")
+
+
+def compare_new_arm_small(card, grid, yaml, arm, over):
+    """An arm small on the card and with device=cpu, the card's draws
+    replayed to the CPU, and two CPU witnesses with the same draws: the
+    initial weights x (1 + 1e-6), and the CPU run on the card's data,
+    normalizer and labels (the data witness). Every epoch's losses held by
+    ``witness_compare`` with the weight witness; no kernel launched on any
+    run. For the arms that end in the scoreboard, every entry (CRPS of
+    the samples included) is held by ``frame_compare`` twice: the card's
+    model and sampler, as the card run's predictions, samples and targets
+    scored on the CPU against the CPU run, with both witnesses; and the
+    metric code on the card, as the card's own frame against that CPU
+    scoring of the same inputs, with two rounding witnesses (every input
+    x (1 +- (-1)^t 2^-23) at step t)."""
+    from climsim_tpu_torch.cli.train_offline import SeededNoise
+    base = [yaml, f"grid_path={grid}", "data.steps=6", "epochs=2"] + over
+    log = NoiseLog()
+    scored = []
+    with scored_inputs(scored):
+        runs = {"cuda": offline_run(base + ["device=cuda"], noise_source=(
+            log.recorder(SeededNoise(0, "cuda"))))}
+    runs["cpu"] = offline_run(base + ["device=cpu"],
+                              noise_source=log.replayer())
+    runs["witness"] = offline_run(base + ["device=cpu"], scale=1 + 1e-6,
+                                  noise_source=log.replayer())
+    runs["data"] = offline_run(base + ["device=cpu"],
+                               noise_source=log.replayer(),
+                               data=runs["cuda"].run)
+    epochs = runs["cpu"].run.fc.epochs
+    for tag, r in runs.items():
+        check(r.rc == 0 and len(r.run.history) == epochs, f"{arm} small "
+              f"{tag}: exit {r.rc}")
+        check(not r.launches, f"{arm} small {tag} launched {r.launches}")
+    keys = (("train_ce", "val_ce") if arm.startswith("classifier") else
+            ("train_loss", "val_loss") if arm == "unet" else
+            ("train_loss",))
+    worst = witness_compare(f"{arm} small",
+                            {t: r.run.history for t, r in runs.items()},
+                            ["witness"], keys)
+    if not arm.startswith("classifier"):
+        frames = {t: r.run.scores for t, r in runs.items()}
+        grid_cpu = runs["cpu"].run.grid
+        frames["cuda"] = score_on_cpu(scored[-1], grid_cpu)
+        worst.append("the card's samples scored on the CPU: " + frame_compare(
+            f"{arm} small", frames, ["witness", "data"]))
+        metric = {"cuda": runs["cuda"].run.scores, "cpu": frames["cuda"]}
+        for sign in (1, -1):
+            metric[sign] = score_on_cpu(scored[-1], grid_cpu, sign)
+        worst.append("the metric on the card: " + frame_compare(
+            f"{arm} small, the metric on the card", metric, [1, -1]))
+    print(f"cli train_offline {arm} small ({epochs} epochs), card against "
+          f"device=cpu ({len(log.draws)} draws replayed): "
+          + "; ".join(worst) + f" [{card}]")
+
+
+def check_ensemble_dryrun(card):
+    """The dry run's fourth part (``dryrun_multichip.ensemble_step``) on a
+    one-rank NCCL group, a (1, 1) (data, ensemble) mesh: the step of the
+    4-member RPN (each member's averaged gradient, then its weights after
+    the Adam step) must equal the single-device step bit for bit."""
+    import torch.distributed as dist
+    from climsim_tpu_torch.cli import dryrun_multichip
+    from climsim_tpu_torch.parallel import init_distributed
+    init_distributed()                       # one rank, NCCL, this card
+    try:
+        loss = dryrun_multichip.ensemble_step(1, 1, torch.device("cuda"),
+                                              np.random.default_rng(0))
+    finally:
+        dist.destroy_process_group()
+    print(f"dryrun_multichip ensemble-parallel part on a (1, 1) NCCL mesh: "
+          f"loss={loss:.4f}, every member's gradient and step bit-equal to "
+          f"the single-device step's [{card}]")
+
+
+def check_offline_new_arms(card):
+    """Phase 15: the offline CLI's stochastic and U-Net arms, through
+    ``python -m climsim_tpu_torch.cli.train_offline``'s main on a
+    384-column grid file: NEW_ARMS at their published widths
+    (conf/mlp_v1.yaml's 10 epochs, 40 steps, batch 1536), each with no
+    kernel of the port launched, its seconds an epoch, ms an update,
+    samples/s, FLOP rate and peak; one more epoch of each stochastic arm
+    and of the classifier through the CLI's own epoch under the profiler
+    (idle share; the classifier's kernels and its update timed with and
+    without the gradout statistics and clipping); one more U-Net epoch
+    under the profiler (idle share) and its update's kernels (GEMMs, no
+    FFT); the classifier's checkpoint, then ``init_from`` it for 1 epoch
+    (its first train_ce below the cold start's); each arm small against
+    device=cpu (NEW_ARMS_SMALL, the draws replayed, the scoreboards
+    held); the dry run's ensemble step on a (1, 1) NCCL mesh.
+    Each step's seconds are printed."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="offline_new", dir=root)
+    mlp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                       "mlp_v1.yaml")
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"  phase 15: {what} took {now - last[0]:.1f} s")
+        last[0] = now
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        ck = os.path.join(tmp, "ck")
+        for label, over in NEW_ARMS.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            extra = [f"checkpoint_dir={ck}"] \
+                if label == "classifier_gradout" else []
+            r = offline_run([mlp, f"grid_path={grid}"] + over + extra)
+            new_arm_summary(label, r, card)
+            if label in ("rpn", "hsr", "cvae", "classifier_gradout"):
+                arm_epoch_profile(card, label, r,
+                                  os.path.join(tmp, "trace.json"))
+            if label == "unet":
+                offline_epoch_profile("unet (v4)", r, card,
+                                      os.path.join(tmp, "trace.json"))
+                unet_kernels(card, r)
+            if label == "classifier_gradout":
+                cold = r.run.history[0]["train_ce"]
+                w = offline_run([mlp, f"grid_path={grid}", "epochs=1",
+                                 f"init_from={ck}"] + over)
+                check(w.rc == 0 and any(ln.startswith("init_from: loaded")
+                                        for ln in w.lines), "init_from")
+                warm = w.run.history[0]["train_ce"]
+                check(warm < cold, f"init_from: first train_ce {warm} not "
+                      f"below the cold start's {cold}")
+                print(f"cli train_offline classifier_gradout init_from the "
+                      f"checkpoint, 1 epoch: "
+                      f"{[ln for ln in w.lines if ln.startswith('init_from')]}"
+                      f", first train_ce {warm!r} against the cold start's "
+                      f"{cold!r} [{card}]")
+            r = None
+            lap(label)
+        for arm, over in NEW_ARMS_SMALL.items():
+            compare_new_arm_small(card, grid, mlp, arm, over)
+        lap("each arm small, card against CPU")
+        check_ensemble_dryrun(card)
+        lap("the ensemble dry run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5556,6 +6054,12 @@ def main() -> int:
         # line
         check_stochastic_slice(card)
         phase_done(14)
+        return 0
+    if sys.argv[1:] == ["15"]:
+        # phase 15 alone, as phase 14, with autograd off as in the whole run
+        torch.set_grad_enabled(False)
+        check_offline_new_arms(card)
+        phase_done(15)
         return 0
 
     torch.set_grad_enabled(False)
@@ -6091,7 +6595,15 @@ def main() -> int:
     check_stochastic_slice(card)
     phase_done(14)
 
-    # ---- 15. the kernels line, the card line, the result
+    # ---- 15. the offline CLI's other arms: the stochastic stack (RPN,
+    # HSR, cVAE with CRPS), the U-Net and the cloud classifier, each small
+    # against the CPU; the dry run's ensemble step
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_offline_new_arms(card)
+    phase_done(15)
+
+    # ---- 16. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",

@@ -1,7 +1,8 @@
 """Multi-device dry run: one data-parallel training step of the MLP
 baseline, the latitude-sharded production coupled step with a real
-emulator held against the single-device step, and one data-parallel
-rollout-training epoch, on N ranks (counterpart of
+emulator held against the single-device step, one data-parallel
+rollout-training epoch, and with 4 or more ranks (an even number) one
+ensemble-parallel RPN training step, on N ranks (counterpart of
 ``__graft_entry__.py::dryrun_multichip``).
 
 Usage:
@@ -24,12 +25,20 @@ default and gloo ranks with ``--device cpu``. Each rank runs:
    ``coupled_step``'s on the whole grid (fields rtol 1e-5 / atol 5e-7,
    JAX's bound);
 3. ``train.rollout.run_epoch_fused(mesh=)`` of the same model, W 2, on a
-   4-step chunk of 8 N columns.
+   4-step chunk of 8 N columns;
+4. where N >= 4 and even, ``ensemble_step``: ``RPNEnsemble(out_dim 8,
+   features (16, 16), 4 members)`` on a ``make_mesh_2d(N / 2, 2)``
+   (data, ensemble) mesh, each rank holding its ensemble block's members
+   and its data block's rows of a batch of 8 N; one Adam step with the
+   gradients averaged over the rank's data group in one ``all_reduce``;
+   the loss is the mean over every member and row (the ranks' shares
+   summed); the members must equal those of the same step on one device
+   (bit for bit at world size 1).
 
 Rank 0 prints JAX's lines (``dryrun_multichip(N): dp train loss=... OK``
-and the others). JAX's fourth part, ensemble-parallel RPN training on a
-(data, ensemble) mesh, waits for the RPN model (ROADMAP A.13, the
-stochastic stack). Any failed check raises.
+and the others). The steps are SPMD: every rank runs its part and holds
+its blocks, where JAX's one controller holds global arrays. Any failed
+check raises.
 """
 from __future__ import annotations
 
@@ -166,6 +175,73 @@ def dp_rollout_epoch(n, dev, grid_path, rng):
     return rec["loss"]
 
 
+def ensemble_step(n_data, n_ens, dev, rng, members=4):
+    """Part 4 on a (``n_data``, ``n_ens``) mesh of every rank: returns the
+    global loss of one ensemble-parallel Adam step. This rank's members
+    are held to the same step of the whole ensemble on the whole batch:
+    the gradient averaged over the data group, before the step, against
+    the matching members' slice of the whole ensemble's gradient, then
+    the weights after the step. Where the mesh has one rank both are
+    equal bits; else the gradient lies within rtol 1e-6 plus 1e-6 of the
+    tensor's largest |g| (the all-reduce sums in another order), and the
+    weights within rtol 1e-6 plus 1e-3 of the learning rate."""
+    import torch.distributed as dist
+    from ..models import RPNEnsemble
+    from ..parallel import axis_rank, make_mesh_2d, shard_batch
+    from ..train.loop import zero_missing_grads_
+
+    lr = 1e-3
+    mesh = make_mesh_2d(n_data, n_ens)
+    batch = 8 * n_data * n_ens
+    x = torch.as_tensor(rng.normal(0, 1, (batch, 12)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(np.tanh(rng.normal(0, 1, (batch, 8))),
+                        dtype=torch.float32, device=dev)
+    whole = RPNEnsemble(12, 8, features=(16, 16), num_members=members,
+                        device=dev, seed=1)
+    e, _ = axis_rank(mesh, "ensemble")
+    per = members // n_ens
+    mine = whole.member_block(e * per, (e + 1) * per)
+    one = dist.get_world_size() == 1
+
+    def backward(model, loss_fn):
+        with torch.enable_grad():
+            loss = loss_fn()
+            loss.backward()
+        return zero_missing_grads_(list(model.parameters())), loss.detach()
+
+    def close(got, want, atol):
+        return torch.equal(got, want) if one else bool(
+            ((got - want).abs() <= 1e-6 * want.abs() + atol).all())
+
+    xb, yb = shard_batch(mesh, x, y, axis="data")
+    # this rank's share of the mean over every member and row
+    grads, loss = backward(mine, lambda: mine.loss(xb, yb) * (per / members))
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.get_group("data"))
+    flat /= n_data
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view_as(g))
+    dist.all_reduce(loss)
+    loss /= n_data
+    _, want_loss = backward(whole, lambda: whole.loss(x, y))
+    for (k, p), w in zip(mine.named_parameters(), whole.parameters()):
+        want = w.grad[e * per:(e + 1) * per]
+        _check(close(p.grad, want, 1e-6 * float(want.abs().max())),
+               f"ensemble step: the gradient of {k} differs from the "
+               "single-device step's")
+    for model in (mine, whole):
+        torch.optim.Adam(model.parameters(), lr=lr).step()
+    want = whole.member_block(e * per, (e + 1) * per).state_dict()
+    for k, v in mine.state_dict().items():
+        _check(close(v, want[k], 1e-3 * lr),
+               f"ensemble step: {k} differs from the single-device step")
+    _check(torch.equal(loss, want_loss) if one else
+           abs(float(loss) - float(want_loss)) <= 1e-6 * abs(float(want_loss)),
+           f"ensemble loss {float(loss)!r} against {float(want_loss)!r}")
+    return float(loss)
+
+
 def _rank(rank, n, device, grid_path, rendezvous):
     import torch.distributed as dist
     from ..parallel import init_distributed, local_device, make_mesh
@@ -189,6 +265,10 @@ def _rank(rank, n, device, grid_path, rendezvous):
         loss = dp_rollout_epoch(n, dev, grid_path, rng)
         say(f"dryrun_multichip({n}): dp rollout train loss={loss:.4f} OK",
             flush=True)
+        if n >= 4 and n % 2 == 0:
+            loss = ensemble_step(n // 2, 2, dev, rng)
+            say(f"dryrun_multichip({n}): ensemble-parallel (data={n // 2} "
+                f"x ens=2) loss={loss:.4f} OK", flush=True)
     finally:
         dist.destroy_process_group()
 

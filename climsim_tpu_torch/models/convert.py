@@ -14,7 +14,15 @@ leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
 stochastic layer's ``rnn_stoch/input_proj/{kernel,bias}`` and its cell's
 bias-free ``rnn_stoch/cell/{encoder,zh}/kernel`` (``sgru``) or
 ``rnn_stoch/cell/hh/kernel`` (``slstm``) -> ``rnn_stoch.cell.zh.kernel``
-and so on.
+and so on; the stochastic models' and U-Nets' trees the same way:
+``HSR``'s ``mean/hidden_0/kernel`` -> ``mean.hidden_0.kernel``, ``CVAE``'s
+``enc/ln1/scale`` -> ``enc.ln1.scale``, ``ClimsimUNet``'s
+``enc_16_block0/AttnBlock_0/qkv/kernel`` -> ``enc_16_block0.AttnBlock_0.
+qkv.kernel`` (the classifier's under ``backbone``). ``RPNEnsemble``'s
+tree ``{"net": {"params": ...}, "prior": {"params": ...}}`` (each leaf
+with its leading member axis) loads as it is: a ``params`` level is
+dropped wherever it stands, so ``net/params/dense_0/kernel`` ->
+``net.dense_0.kernel``.
 An optax Adam state
 (its moments are trees of the same shape) carries across the same way,
 so a JAX training run can be resumed in the port.
@@ -33,7 +41,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
-            flat.update(_flatten(v, key + "."))
+            flat.update(_flatten(v, prefix if k == "params" else key + "."))
         else:
             flat[key] = np.asarray(v)
     return flat
@@ -44,8 +52,6 @@ def from_flax_params(tree: Mapping, model: nn.Module) -> dict:
     (nested mappings of arrays, with ``params`` at the top or already
     stripped). Raises ``ValueError`` on a missing or extra key or a shape
     that differs from ``model``'s."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
     flat = _flatten(tree)
     want = model.state_dict()
     missing = sorted(set(want) - set(flat))

@@ -136,6 +136,19 @@ def init_state(model: nn.Module, cfg: FitConfig) -> TrainState:
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 
+def zero_missing_grads_(params) -> list[torch.Tensor]:
+    """Give every parameter the loss did not reach a zero gradient, as
+    JAX's ``grad`` gives one to every leaf of the tree (a frozen
+    ``IdentityConv``, an RPN prior): Adam then leaves it exactly as it
+    is and ``adamw`` decays it, as optax does. Returns the gradients."""
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    return grads
+
+
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float):
     """optax.clip_by_global_norm in place: g -> g / norm x max_norm for
     every g where the global norm is not below ``max_norm``; no host
@@ -163,10 +176,10 @@ def make_train_step(vset: V.VariableSet, cfg: FitConfig,
         with torch.enable_grad():
             loss = L.weighted_loss(model(x), y, feat_w, cfg.loss)
             loss.backward()
+        grads = zero_missing_grads_(p for g in opt.param_groups
+                                    for p in g["params"])
         if cfg.max_grad_norm:
-            clip_by_global_norm_([p.grad for g in opt.param_groups
-                                  for p in g["params"]
-                                  if p.grad is not None], cfg.max_grad_norm)
+            clip_by_global_norm_(grads, cfg.max_grad_norm)
         if schedule is not None:
             # soap and muon read the schedule at the 1-based count
             at = state.step + getattr(opt, "schedule_offset", 0)

@@ -2059,3 +2059,133 @@ def test_ensemble_update_on_card_launches_no_kernel(cuda):
     assert [w.launches for w in wrappers] == before
     assert mem.shape == (4, B, L, 16) and torch.isfinite(mem).all()
     assert torch.isfinite(loss)
+
+
+# ------------------------------------------------------------------------
+# the offline CLI's stochastic stack, U-Net and classifier on the card
+
+
+def _new_offline_models(device):
+    """Each new offline model at a narrow width from one seed, and its
+    loss: {name: (model, loss(model) on inputs moved to its device)}."""
+    from climsim_tpu_torch import models as M
+    g = torch.Generator().manual_seed(11)
+    x1 = torch.randn(64, 124, generator=g)
+    y1 = torch.randn(64, 128, generator=g)
+    eps = torch.randn(64, 5, generator=g)
+    xu = torch.randn(16, 25 * 60 + 25 + 1, generator=g)
+    xu[:, -1] = torch.arange(16) * 20 + 1
+    lab = torch.randint(0, 3, (16, 1, 60), generator=g)
+
+    def on(m, *ts):
+        dev = next(m.parameters()).device
+        return [t.to(dev) for t in ts]
+    return {
+        "hsr": (M.HSR(124, 128, hidden=64, layers=2, device=device),
+                lambda m: M.hsr_nll(*m(on(m, x1)[0]), on(m, y1)[0])),
+        "cvae": (M.CVAE(124, 128, hidden=64, device=device),
+                 lambda m: M.cvae_loss(m, *on(m, y1, x1, eps), 0.5)),
+        "rpn": (M.RPNEnsemble(124, 128, features=(64, 64), num_members=4,
+                              device=device),
+                lambda m: m.loss(*on(m, x1, y1))),
+        "unet": (M.unet_v4(num_vars_scalar=25, model_channels=16,
+                           num_blocks=1, loc_embedding=True, device=device),
+                 lambda m: torch.mean(torch.square(m(*on(m, xu)) - 0.1))),
+        "classifier": (M.ClimsimUNetClassifier(
+            25, 25, model_channels=16, num_blocks=1, channel_mult=(1, 2),
+            device=device),
+            lambda m: M.classifier_loss(m(*on(m, xu)), *on(m, lab))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hsr", "cvae", "rpn", "unet",
+                                  "classifier"])
+def test_offline_model_on_card_matches_cpu(cuda, name):
+    """The forward's loss and every parameter gradient on the card against
+    the CPU from the same weights (perturbed at random, so the U-Nets'
+    zero-initialized convolutions do not hide the path), f32 without
+    TF32: loss to rtol 1e-5, gradients to 1e-4 of each array's scale."""
+    from climsim_tpu_torch.train.loop import zero_missing_grads_
+    cpu_model, loss_fn = _new_offline_models("cpu")[name]
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in cpu_model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    card_model = _new_offline_models(cuda)[name][0]
+    card_model.load_state_dict(cpu_model.state_dict())
+    grads = {}
+    for tag, m in (("cpu", cpu_model), ("cuda", card_model)):
+        loss = loss_fn(m)
+        loss.backward()
+        zero_missing_grads_(m.parameters())
+        grads[tag] = (loss.item(), {n: p.grad.cpu()
+                                    for n, p in m.named_parameters()})
+    (lc, gc_), (lg, gg) = grads["cpu"], grads["cuda"]
+    assert np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc)
+    for n, want in gc_.items():
+        scale = float(want.abs().max()) or 1.0
+        assert float((gg[n] - want).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+def test_rpn_batched_members_match_a_loop(cuda):
+    """The ensemble's one batched product a layer against each member run
+    alone (``member_block``) on the card."""
+    from climsim_tpu_torch.models import RPNEnsemble
+    ens = RPNEnsemble(124, 128, num_members=8, device=cuda)
+    x = torch.randn(1536, 124, device=cuda)
+    with torch.no_grad():
+        full = ens(x)
+        for m in range(8):
+            one = ens.member_block(m, m + 1)(x)[0]
+            err = float((one - full[m]).abs().max())
+            assert err <= 1e-5 * float(full[m].abs().max()), (m, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    ["model.name=hsr", "model.hidden=64"],
+    ["model.name=rpn", "model.features=[64,64]", "model.members=4"],
+    ["model.name=cvae", "model.hidden=64"],
+    ["vset=v4", "model.name=unet", "model.model_channels=16",
+     "model.num_blocks=1"],
+    ["vset=v5", "model.name=classifier", "batch_size=384",
+     "model.model_channels=16", "model.num_blocks=1"],
+    ["vset=v5", "model.name=classifier_gradout", "batch_size=384",
+     "model.model_channels=16", "model.num_blocks=1",
+     "optimizer.max_grad_norm=1.0"]])
+def test_offline_new_arms_on_card(cuda, tmp_path, over, capsys):
+    """Each new arm of ``cli/train_offline.py`` on the card (its default
+    device), 2 epochs of 6 steps: exit 0, two finite records, and no
+    kernel of the port launched (none of these paths is a Pallas kernel
+    in JAX)."""
+    import json
+    import os
+
+    from scipy.io import netcdf_file
+
+    from climsim_tpu_torch import Grid, ops
+    from climsim_tpu_torch.cli import train_offline as cli
+    grid = str(tmp_path / "grid.nc")
+    g = Grid.synthetic(384, 60, dtype=torch.float64)
+    with netcdf_file(grid, "w") as f:
+        for d, n in (("ncol", 384), ("lev", 60), ("ilev", 61)):
+            f.createDimension(d, n)
+        for k, d in (("lat", "ncol"), ("lon", "ncol"), ("area", "ncol"),
+                     ("hyai", "ilev"), ("hybi", "ilev"), ("hyam", "lev"),
+                     ("hybm", "lev")):
+            f.createVariable(k, "d", (d,))[:] = getattr(g, k).numpy()
+        f.createVariable("P0", "d", ())[...] = 1.0e5
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    wrappers = [getattr(ops, n) for n in dir(ops)
+                if hasattr(getattr(ops, n), "launches")]
+    before = [w.launches for w in wrappers]
+    rc = cli.main([os.path.join(repo, "conf", "mlp_v1.yaml"),
+                   f"grid_path={grid}", "data.steps=6", "epochs=2"] + over)
+    assert rc == 0
+    assert [w.launches for w in wrappers] == before
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"epoch"')]
+    assert [r["epoch"] for r in recs] == [0, 1]
+    assert all(np.isfinite(v) for r in recs for v in r.values())

@@ -7,9 +7,10 @@ the JAX package's evaluation CLI on the same arrays and norm files, CSV
 row for row at rtol 1e-5 (the float32 chain in another order; an
 absolute floor of 1e-6 of each column's largest magnitude). The port's
 evaluation also reproduces the training CLI's own scoreboard (rtol 1e-5:
-it recovers ps from the normalized inputs). The unported arms raise
-naming their ROADMAP ids before any data is built; the MLP yaml also
-trains with ``optimizer.name`` soap and muon."""
+it recovers ps from the normalized inputs). The MLP yaml also trains
+with ``optimizer.name`` soap and muon, and with every other
+``model.name`` (HSR, RPN, cVAE, the U-Net on v4, the classifier and its
+gradout variant on v5), each ending in JAX's final lines."""
 import json
 import os
 
@@ -24,7 +25,6 @@ import climsim_tpu.cli.evaluate as jax_evaluate
 from climsim_tpu_torch import variables as V
 from climsim_tpu_torch.cli import evaluate as port_evaluate
 from climsim_tpu_torch.cli import train_offline as cli
-from climsim_tpu_torch.data import synthetic as S
 from test_torch_train_cli import REPO, write_grid
 
 CONF = os.path.join(REPO, "conf")
@@ -156,20 +156,66 @@ def test_evaluate_matches_jax_csv(tmp_path, capsys, monkeypatch):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("over,item", [
-    (["model.name=unet"], "A.13, the rest"),
-    (["model.name=classifier"], "A.13, the rest"),
-    (["model.name=classifier_gradout"], "A.13, the rest"),
-    (["model.name=hsr"], "A.13, the stochastic stack"),
-    (["model.name=rpn"], "A.13, the stochastic stack"),
-    (["model.name=cvae"], "A.13, the stochastic stack")])
-def test_unported_arms_raise_before_data(over, item, monkeypatch):
-    def no_data(*a, **k):
-        raise AssertionError("data was built")
-    monkeypatch.setattr(S, "make_timeseries", no_data)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        cli.main([os.path.join(CONF, "mlp_v1.yaml"), "device=cpu",
-                  "grid_path=/nonexistent/grid.nc"] + over)
+# the arms beyond the MLP, CNN and ED, each at a narrow width: the
+# records' keys and the line each ends in
+NEW_ARMS = {
+    "hsr": (["model.name=hsr", "model.hidden=32"], {"epoch", "train_loss"}),
+    "rpn": (["model.name=rpn", "model.features=[32,32]"],
+            {"epoch", "train_loss"}),
+    "cvae": (["model.name=cvae", "model.hidden=32"], {"epoch", "train_loss"}),
+    "unet": (["vset=v4", "model.name=unet", "model.model_channels=16",
+              "model.num_blocks=1"],
+             {"epoch", "train_loss", "seconds", "val_loss", "val_r2"}),
+    "classifier": (["vset=v5", "model.name=classifier", "batch_size=384",
+                    "model.model_channels=16", "model.num_blocks=1"],
+                   {"epoch", "train_ce", "val_ce"}),
+    "classifier_gradout": (
+        ["vset=v5", "model.name=classifier_gradout", "batch_size=384",
+         "model.model_channels=16", "model.num_blocks=1",
+         "optimizer.max_grad_norm=1.0"],
+        {"epoch", "train_ce", "val_ce", "max_grad", "mean_grad_l2",
+         "total_norm"})}
+
+
+@pytest.mark.parametrize("arm", list(NEW_ARMS))
+def test_train_offline_runs_every_new_arm(tmp_path, arm, capsys,
+                                          monkeypatch):
+    """``python -m climsim_tpu_torch.cli.train_offline conf/mlp_v1.yaml
+    device=cpu`` with each arm beyond the MLP, CNN and ED (2 epochs, 6
+    steps, narrow): exit 0, 2 finite records with JAX's keys, and JAX's
+    final lines: the scoreboard (with CRPS for the stochastic arms; the
+    U-Net's also as its CSV, one row an output variable of v4) or the
+    classifier's accuracy line."""
+    over, keys = NEW_ARMS[arm]
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("grid_info")
+    write_grid("grid_info/ClimSim_low-res_grid-info.nc", 384)
+    rc = cli.main([os.path.join(CONF, "mlp_v1.yaml")] + COMMON + over
+                  + ["metrics_csv=m.csv"])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0
+    records = [json.loads(ln) for ln in lines if ln.startswith('{"epoch"')]
+    assert [r["epoch"] for r in records] == [0, 1]
+    for r in records:
+        assert set(r) == keys
+        assert all(np.isfinite(v) for v in r.values())
+    if arm.startswith("classifier"):
+        last = json.loads(lines[-1])
+        assert set(last) == {"val_accuracy", "per_class"}
+        assert 0.0 <= last["val_accuracy"] <= 1.0
+        return
+    assert lines[-1].startswith("cam_out_SOLLD")
+    header = lines[-len(V.get("v4" if arm == "unet" else "v1").outputs.names)
+                   - 1].split()
+    assert header == ["MAE", "RMSE", "R2", "bias"] + (
+        [] if arm == "unet" else ["CRPS"])
+    if arm == "unet":
+        df = pd.read_csv("m.csv", index_col=0)
+        assert list(df.index) == list(V.get("v4").outputs.names)
+        assert lines[-len(df) - 1:] == df.round(4).to_string().splitlines()
+    else:
+        # the stochastic arms write no CSV, as JAX's
+        assert not os.path.exists("m.csv")
 
 
 def test_device_rules(tmp_path, monkeypatch):
