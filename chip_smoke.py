@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase, ending in the result line
     python3 chip_smoke.py 14       # the build, then phase 14 alone
     python3 chip_smoke.py 15       # the build, then phase 15 alone
+    python3 chip_smoke.py 16       # the build, then phase 16 alone
 
 The paths, each at full width with random weights from a seed:
 
@@ -202,8 +203,8 @@ Phases (any failure exits non-zero):
      transport at 384 columns against ``coupled_step``; ``python -m
      climsim_tpu_torch.cli.scale_bench --devices 1``; two NCCL ranks
      against the single-device step where the machine has two cards;
- 11. timings with CUDA events (median of 2 repeats everywhere; the v6
-     coupled step and training update and the kernels took 3 to PR 18),
+ 11. timings with CUDA events (one repeat after a warm-up call
+     everywhere; earlier versions of this script took 2 to 5),
      peak memory and
      profiler splits; every serving arm's
      coupled step with its device idle share (v6 and v5 also at 384
@@ -323,10 +324,41 @@ Phases (any failure exits non-zero):
      (``dryrun_multichip.ensemble_step``) on a one-rank NCCL group, a
      (1, 1) mesh, bit-equal to the single-device step; ``python3
      chip_smoke.py 15`` runs the build and phase 15 alone;
- 16. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 16. the GRU forwards' bf16-gate mode (check_gate_mode_and_a12): in each
+     fused arm (v6, v5 with both hoist_proj bodies, v2, v3, v4) built with
+     pallas_acc32=False on the acc32=True model's weights, one coupled step
+     at 21,600 columns with every counter at 0 (the arm's kernel once, its
+     design "tensor_core+bf16_gates"), each field held to the same step
+     run through the plain bf16-gate version on the card (plain_kernels)
+     by g16_ok: its mean distance from it at most half the mean distance
+     between the plain bf16-gate and f32-gate steps and below its own
+     distance from the f32-gate step (a launch that ran f32 gates fails),
+     its largest within 4x the modes' largest plus 1e-3 of scale; the v6
+     step timed in turns with f32 gates; each of B1, B4 (both bodies), B7,
+     B9 and B10 alone at the flagship's bf16 shapes against its plain
+     bf16-gate version (g16_ok), timed in turns with its f32-gate mode; the v6 model's gradients at 2,700 columns under both
+     modes bit-equal (fixed cotangents; B3 linearises the f32-gate
+     forward); a v4 OnlineWrapper over a pallas_acc32=False model exported
+     at 384 columns, its climsim:: node carrying acc32=False, reloaded
+     bit-equal with the bf16-gate B10 once; the library yardsticks of B1
+     and B10 (the cuDNN pair, the initial MLP and the heads as torch
+     modules) and B3 (autograd's backward through B4's yardstick); then
+     RNNAutoreg's other options (ROADMAP A.12: lstm, ln_lstm, sru, qrnn,
+     separate_radiation with 16 level inputs and a 50-level memory,
+     memory None) at nneur 192/192, f32, A12_STEPS coupled steps at
+     21,600 columns (no emulator kernel: B2 once a step) and 2 steps at
+     384 columns card against device=cpu within 1e-5 of scale plus 4x the
+     CPU's movement under weights x (1 + 1e-6); the training CLI on
+     conf/autoreg_gru.yaml with model.cell=lstm and with
+     model.memory=None, one epoch at 384 columns each; ``python3
+     chip_smoke.py 16`` runs the build and phase 16 alone;
+ 17. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
-     forward and backward, B4's and B9's the pair with the heads), the
+     forward and backward, B4's and B9's the pair with the heads, B1's and
+     B10's the pair with the heads and the initial MLP, B3's autograd's
+     backward through B4's; the five forwards' bf16-gate mode under
+     "bf16_gates", B4's other body under its "hoist_proj_false"), the
      card line, and the result line.
 The end of each phase prints the wall time since the start and the
 phase's own; phases 12, 13, 14 and 15 print each of their steps'
@@ -362,9 +394,11 @@ PEAK_BYTES = 3.35e12        # B/s, HBM3
 
 NLAT, NLON, NLEV = 120, 180, 60          # 21,600 columns
 LO_NLAT, LO_NLON = 16, 24                # 384 columns
-# timing repeats: 2 for every timing (REPEATS was 3 to PR 18 and 5 to
-# PR 17), to hold the run's time as the paths grow
-N_STEPS, REPEATS, OLD_REPEATS = 20, 2, 2
+# timing repeats: 1 for every timing after a warm-up call (earlier
+# versions of this script took 2 to 5), to hold the run's time as the
+# paths grow: with 2 the whole run took 1,183 s of its 1,200 on a slow
+# host; comparisons stay in turns (old, new, new, old)
+N_STEPS, REPEATS, OLD_REPEATS = 20, 1, 1
 W_TRAIN, T_CHUNK, LR = 4, 16, 1e-4      # bench.py::build_train
 XSCALE = [250.0, 1e-3, 1e-5, 1e-5, 10.0, 10.0]
 YSCALE = [1e-5, 1e-8, 1e-9, 1e-9, 1e-5, 1e-5]
@@ -453,16 +487,21 @@ def phase_done(n: int) -> None:
 # the bf16 designs that must run their products on tensor cores: B1, B4,
 # B9 and B10 (one kernel body, bigru_mma_fwd.cuh; B4's two roundings and
 # B10's and B9's resident instances by their template arguments <kBM,
-# kRoundXP, kStream, kLoadX>), B3 and B8 (bigru_mma_bwd.cuh), B7
-# (bigru_lbh.cu)
-MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernel",),
-               "bigru_heads_cm": ("mma_fwd_kernelILb0ELb1ELb0ELb1E",
+# kRoundXP, kStream, kLoadX, kG16>), B3 and B8 (bigru_mma_bwd.cuh), B7
+# (bigru_lbh.cu); the forwards' bf16-gate (kG16) resident instances are
+# listed first, so that the names they extend do not take them
+MMA_KERNELS = {"bigru_heads_init_cm": ("mma_fwd_kernelILb0ELb1ELb0ELb0ELb1E",
+                                       "mma_fwd_kernel"),
+               "bigru_heads_cm": ("mma_fwd_kernelILb0ELb1ELb0ELb1ELb1E",
+                                  "mma_fwd_kernelILb0ELb1ELb0ELb1E",
                                   "mma_fwd_kernelILb0ELb0ELb0ELb1E"),
                "bigru_heads_cm_bwd": ("b3_mma_kernel", "wgrad_mma_kernel"),
                "bigru_lbh_bwd": ("b8_mma_kernel", "wgrad_mma_kernel"),
-               "bigru_heads_lbh": ("mma_fwd_kernelILb1ELb0ELb0ELb0E",
+               "bigru_heads_lbh": ("mma_fwd_kernelILb1ELb1ELb0ELb0ELb1E",
+                                   "mma_fwd_kernelILb1ELb1ELb0ELb1ELb1E",
+                                   "mma_fwd_kernelILb1ELb0ELb0ELb0E",
                                    "mma_fwd_kernelILb1ELb0ELb0ELb1E"),
-               "bigru_lbh": ("b7_mma_kernel",)}
+               "bigru_lbh": ("b7_mma_kernelILb0ELb1E", "b7_mma_kernel")}
 
 
 # the f32 cluster design of B7 and B8 (bigru_f32.cuh): FFMA on the CUDA
@@ -576,11 +615,11 @@ class ProxyGrid:
         return torch.full((ps.shape[0], self.nlev), 1e3, device=ps.device)
 
 
-def make_model(policy, device, seed=0, arm="v6", H=192):
+def make_model(policy, device, seed=0, arm="v6", H=192, **over):
     """bench.py's emulator (nx 6, nneur 192/192, nh_mem 16) with the
-    arm's flags (or another hidden width H)."""
+    arm's flags (or another hidden width H) and the options ``over``."""
     from climsim_tpu_torch.models import RNNAutoreg
-    flags = {"use_pallas": True, **ARMS[arm][0]}
+    flags = {"use_pallas": True, **ARMS[arm][0], **over}
     return RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(H, H),
                       nh_mem=16, add_pres=False, policy=policy,
                       device=device, seed=seed, **flags)
@@ -892,6 +931,29 @@ def bf16_ok(got, want, want32):
     err = (got.float() - want.float()).abs().max().item()
     return err <= 4.0 * own + 1e-3 * want32.float().abs().max().item(), \
         err, own
+
+
+def g16_ok(got, want16, want32):
+    """A bf16-gate launch's output against the plain bf16-gate version
+    (``want16``) and the plain float32-gate version on the same bf16
+    inputs (``want32``). The mean |got - want16| must be at most half the
+    modes' own mean distance, mean |want16 - want32|, and below mean
+    |got - want32|: a launch that ran float32 gates would land about the
+    modes' distance from want16 and near want32. The largest differences
+    cannot tell the modes apart (where one rounding of the same bf16
+    operation flips with the summation order, a 60-level recurrence
+    carries it about as far as the modes' difference), so they are held
+    as bf16_ok holds them. A tensor the mode does not change (distance 0)
+    is held by bf16_ok alone. Returns (ok, ratio, err, separates): ratio
+    the mean distance over the modes', err the largest difference."""
+    g, w, w32 = got.float(), want16.float(), want32.float()
+    gap = (w - w32).abs().mean().item()
+    m16 = (g - w).abs().mean().item()
+    m32 = (g - w32).abs().mean().item()
+    ok, err, _ = bf16_ok(got, want16, want32)
+    if gap == 0.0:
+        return ok, 0.0, err, False
+    return ok and m16 <= 0.5 * gap and m16 < m32, m16 / gap, err, True
 
 
 def check_b3(model, card):
@@ -1322,10 +1384,10 @@ def cudacore_twins():
     from climsim_tpu_torch.ops import pallas_rnn as pr
     saved = (pr._launch_heads_lbh_mma, pr._launch_lbh_mma,
              pr._launch_bwd_lbh_mma)
-    pr._launch_heads_lbh_mma = lambda args, dims, init, pl: \
-        pr._launch_heads_lbh(args, dims, init, cudacore_bf16=True)
-    pr._launch_lbh_mma = lambda args, dims, pl: pr._launch_lbh(
-        args, dims, twin=True)
+    pr._launch_heads_lbh_mma = lambda args, dims, init, pl, g16=False: \
+        pr._launch_heads_lbh(args, dims, init, cudacore_bf16=True, g16=g16)
+    pr._launch_lbh_mma = lambda args, dims, pl, g16=False: pr._launch_lbh(
+        args, dims, twin=True, g16=g16)
     pr._launch_bwd_lbh_mma = lambda res, dd, dl, dims, pl: \
         pr._launch_bwd_lbh(res, dd, dl, dims, twin=True)
     try:
@@ -3059,7 +3121,7 @@ def library_yardstick(layer, L, B, dtype, card, label):
     return fwd_ms, bwd_ms, layer_ms
 
 
-def heads_yardstick(layer, a, cm, card, label):
+def heads_yardstick(layer, a, cm, card, label, init=False, backward=False):
     """The library yardstick of B4 (``cm``: channel-major arguments ``a`` as
     b4_args makes them) or B9 (batch-major, b9_args): cuDNN's GRU pair
     with the fused layer's weights (gru_pair), then the latent head and
@@ -3067,16 +3129,24 @@ def heads_yardstick(layer, a, cm, card, label):
     blat, bout), which the port never calls. For B4 the inputs are first
     permuted to the pair's [L, B, CH + nm_in] and the heads' outputs back
     to [L, nm + ny, B] (inside the timed call: they are part of what the
-    library needs to compute B4's function). In bf16, fp16 where
-    torch.backends.cudnn.is_acceptable refuses bf16. First held to the
-    plain f32 version within 4x the plain version's own bf16-vs-f32
-    error, then timed. Returns its ms."""
+    library needs to compute B4's function). With ``init``, B1's (``cm``,
+    b1_args) or B10's (b10_args): the initial MLP first, a torch.nn.Linear
+    (weight = w_init.T, bias b_init) and tanh on the raw features,
+    concatenated with the memory. With ``backward``, B3's: autograd's
+    backward through B4's yardstick (``a`` the residuals of b3_args) to
+    the inputs, the pair's weights and the heads', with seeded
+    cotangents, timed in place of the forward. In bf16, fp16 where
+    torch.backends.cudnn.is_acceptable refuses bf16. First the forward is
+    held to the plain f32 version within 4x the plain version's own
+    bf16-vs-f32 error, then timed. Returns its ms."""
     from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
+                                       bigru_heads_init_cm_reference,
+                                       bigru_heads_init_lbh_reference,
                                        bigru_heads_lbh_reference)
     pdt = a[0].dtype
     if not torch.backends.cudnn.is_acceptable(a[0]):
         pdt = torch.float16
-    pair, _ = gru_pair(layer, pdt)
+    pair, params = gru_pair(layer, pdt)
     H, (nm, ny) = layer.hidden, layer.wout.shape
     lat, out = torch.nn.Linear(H, nm), torch.nn.Linear(nm, ny)
     with torch.no_grad():
@@ -3085,37 +3155,72 @@ def heads_yardstick(layer, a, cm, card, label):
             lin.bias.copy_(getattr(layer, b))
     lat.to(a[0].device, pdt)
     out.to(a[0].device, pdt)
-    ins = [t.to(pdt) for t in (a[:4] if cm else a[:3])]
+    heads = [*lat.parameters(), *out.parameters()]
+    if init:
+        ini = torch.nn.Linear(*layer.w_init.shape)
+        with torch.no_grad():
+            ini.weight.copy_(layer.w_init.t())
+            ini.bias.copy_(layer.b_init)
+        ini.to(a[0].device, pdt)
+        heads += list(ini.parameters())
+    ins = [t.to(pdt) for t in (a[:4] if cm or init else a[:3])]
 
-    def run():
+    def run(*ins):
         if cm:
             x, mem_in, h0u, h0d = ins
-            xb = torch.cat([x, mem_in], 1).permute(0, 2, 1).contiguous()
+            x = x.permute(0, 2, 1)
+            if init:
+                x = torch.tanh(ini(x))
+            xb = torch.cat([x, mem_in.permute(0, 2, 1)], -1).contiguous()
             down, last = pair(xb, h0u.t().contiguous(), h0d.t().contiguous())
             mem = lat(down)
             om = torch.cat([mem, out(mem)], -1).permute(0, 2, 1).contiguous()
             return om, last.t().contiguous()
+        if init:
+            feat, mem_in, h0u, h0d = ins
+            ins = (torch.cat([torch.tanh(ini(feat)), mem_in], -1), h0u, h0d)
         down, last = pair(*ins)
         mem = lat(down)
         return out(mem), mem, last
 
-    ref = bigru_heads_cm_reference if cm else bigru_heads_lbh_reference
+    ref = {(True, False): bigru_heads_cm_reference,
+           (False, False): bigru_heads_lbh_reference,
+           (True, True): bigru_heads_init_cm_reference,
+           (False, True): bigru_heads_init_lbh_reference}[cm, init]
     with torch.no_grad():
         want = ref(*(t.float() for t in a))
         own = max_err(ref(*a), want)
-        got = run()
+        got = run(*ins)
         err = max_err(got, want)
         how = ("fp16: torch.backends.cudnn.is_acceptable refuses bf16"
                if pdt != a[0].dtype else str(pdt).replace("torch.", ""))
         print(f"library yardstick of {label} (cuDNN GRU pair + 2 Linear"
+              f"{' + the initial MLP' if init else ''}"
               f"{', permuted' if cm else ''}; {how}): against the plain f32 "
               f"version max_abs_err {err:.3e} (tolerance {4 * own:.3e}: 4x "
               f"the plain version's own bf16-vs-f32 error) [{card}]")
         check(err <= 4 * own, f"yardstick of {label}: {err:.3e} > 4 x "
               f"{own:.3e}")
         del got, want
-        ms = median_ms(run, 3)
-    kernel_split(run, ms, card, f"library yardstick of {label}")
+        if not backward:
+            ms = median_ms(lambda: run(*ins), 3)
+    if not backward:
+        kernel_split(lambda: run(*ins), ms, card,
+                     f"library yardstick of {label}")
+        return ms
+    ins = [t.clone().requires_grad_(True) for t in ins]
+    with torch.enable_grad():
+        outs = run(*ins)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cts = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+           for o in outs]
+
+    def bwd():
+        torch.autograd.grad(outs, ins + params + heads, cts,
+                            retain_graph=True)
+
+    ms = median_ms(bwd, 2)
+    kernel_split(bwd, ms, card, f"library yardstick of {label}")
     return ms
 
 
@@ -3443,6 +3548,7 @@ def run_scale_bench(card):
 # each data set is the CLI's synthetic series (24 steps, 19 for training)
 PHYS_CLI_NCOL, GRU_CLI_NCOL = NLAT * NLON // 2, NLAT * NLON
 PHYS_CLI_SCHEDULE = "rollout.schedule={0: 1, 1: 2, 2: 3}"
+CLI_384 = ("data.steps=14",)
 # the largest host-to-device copy an epoch may make with the device cache:
 # the model's index tensors are bytes; a data window is megabytes
 CLI_MAX_H2D_BYTES = 1 << 16
@@ -4085,8 +4191,11 @@ def check_train_cli(card):
         gc.collect()
         torch.cuda.empty_cache()
 
-        compare_cli_384(card, grid, phys_yaml, PhysicalRNNAutoreg)
-        compare_cli_384(card, grid, gru_yaml, RNNAutoreg)
+        # 14 steps of data for the yamls' 24 (about half the updates), to
+        # hold the run's time: the lockstep's CPU side is most of the phase
+        compare_cli_384(card, grid, phys_yaml, PhysicalRNNAutoreg,
+                        CLI_384)
+        compare_cli_384(card, grid, gru_yaml, RNNAutoreg, CLI_384)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4726,10 +4835,11 @@ def export_norm():
                            torch.ones(8, device="cuda"))
 
 
-def export_wrapper_of(arm, norm):
+def export_wrapper_of(arm, norm, **over):
     """The wrapper of arm's emulator at the yaml's widths, bf16, on the
-    card (device=None), seeded weights; per-level exp-transform
-    coefficients from 1e3 at the top to 1e5 at the surface."""
+    card (device=None), seeded weights, with the model options ``over``;
+    per-level exp-transform coefficients from 1e3 at the top to 1e5 at the
+    surface."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.export import OnlineWrapper, WrapperConfig
     from climsim_tpu_torch.models import BF16, RNNAutoreg
@@ -4741,7 +4851,7 @@ def export_wrapper_of(arm, norm):
                        hybm=tuple(g.hybm.tolist()),
                        sp_mean=float(norm.mean_sfc[0]),
                        sp_div=float(norm.div_sfc[0]), policy=BF16,
-                       device=None, **EXPORT_ARMS[arm][0])
+                       device=None, **EXPORT_ARMS[arm][0], **over)
     check(model.arm == arm, f"the {arm} flags built the {model.arm} arm")
     lbd = torch.logspace(3.0, 5.0, NLEV)
     return OnlineWrapper(model, norm, lbd, lbd, lbd, WrapperConfig(mp_mode=1))
@@ -5175,16 +5285,16 @@ def op_hop_in_turns(card, model, v5model, v2model, lbh_models):
     sw, lw = radiation_args(ncol, "cuda")
     a["b11"], a["b12"] = list(sw), list(lw)
     pairs = {
-        "b1": (lambda: PR._b1_cuda(a["b1"]),
-               lambda: ops.fused_bigru_heads_init_cm(a["b1"]), 3),
-        "b4": (lambda: PR._b4_cuda(True, a["b4"]),
-               lambda: ops.fused_bigru_heads_cm(True, a["b4"]), 3),
-        "b7": (lambda: PR._b7_cuda(a["b7"]),
-               lambda: ops.fused_bigru_lbh(a["b7"]), 3),
+        "b1": (lambda: PR._b1_cuda(True, a["b1"]),
+               lambda: ops.fused_bigru_heads_init_cm(True, a["b1"]), 3),
+        "b4": (lambda: PR._b4_cuda(True, True, a["b4"]),
+               lambda: ops.fused_bigru_heads_cm(True, True, a["b4"]), 3),
+        "b7": (lambda: PR._b7_cuda(True, a["b7"]),
+               lambda: ops.fused_bigru_lbh(True, a["b7"]), 3),
         "b9": (lambda: PR._heads_lbh_cuda(a["b9"], False),
-               lambda: ops.fused_bigru_heads_lbh(a["b9"]), 3),
+               lambda: ops.fused_bigru_heads_lbh(True, a["b9"]), 3),
         "b10": (lambda: PR._heads_lbh_cuda(a["b10"], True),
-                lambda: ops.fused_bigru_heads_init_lbh(a["b10"]), 3),
+                lambda: ops.fused_bigru_heads_init_lbh(True, a["b10"]), 3),
         "b11": (lambda: PRad._b11_cuda(a["b11"]),
                 lambda: ops.adding_sw_fast(a["b11"]), 50),
         "b12": (lambda: PRad._b12_cuda(a["b12"]),
@@ -5202,7 +5312,7 @@ def op_hop_in_turns(card, model, v5model, v2model, lbh_models):
     host = {"direct": [], "op": []}
     for name in ("direct", "op", "op", "direct"):
         fn = (lambda: PR._heads_lbh_cuda(a10, True)) if name == "direct" \
-            else (lambda: ops.fused_bigru_heads_init_lbh(a10))
+            else (lambda: ops.fused_bigru_heads_init_lbh(True, a10))
         host[name].append(host_us(fn, 100))
     print(f"B10 at {LO_NLAT * LO_NLON} columns, host time a call in turns "
           f"(direct, op, op, direct): {host['direct'][0]:.1f} / "
@@ -6016,6 +6126,450 @@ def check_offline_new_arms(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 16
+
+# the forwards' bf16-gate mode (pallas_acc32=False) in each fused arm: the
+# arm of chip_smoke.ARMS, its kernel, and the model's other flags
+G16_ARMS = {"v6": ("v6", "b1", {}), "v5": ("v5", "b4", {}),
+            "v5_unhoisted": ("v5", "b4", {"pallas_hoist_proj": False}),
+            "v2": ("v2", "b7", {}), "v3": ("v3", "b9", {}),
+            "v4": ("v4", "b10", {})}
+# the plain version of each fused layer's wrapper, by its name in
+# models/cells.py
+PLAIN_OF = {"fused_bigru_heads_init_cm": "bigru_heads_init_cm_reference",
+            "fused_bigru_heads_cm": "bigru_heads_cm_reference",
+            "fused_bigru_lbh": "bigru_reference_lbh",
+            "fused_bigru_heads_lbh": "bigru_heads_lbh_reference",
+            "fused_bigru_heads_init_lbh": "bigru_heads_init_lbh_reference"}
+# the other options of RNNAutoreg (ROADMAP A.12), each at nneur 192/192,
+# f32 (JAX's LayerNorm cells cannot run bf16); separate radiation takes 16
+# level inputs and keeps its memory on the CRM's 50 bottom levels
+A12_ARMS = {"lstm": dict(cell="lstm"), "ln_lstm": dict(cell="ln_lstm"),
+            "sru": dict(cell="sru"), "qrnn": dict(cell="qrnn"),
+            "separate_radiation": dict(separate_radiation=True),
+            "memory_none": dict(use_memory=False)}
+A12_STEPS, A12_NX_RAD, A12_L_CRM = 3, 16, 50
+
+
+def _plain_of(name, acc32):
+    """The plain version of the wrapper ``name`` in the gate mode
+    ``acc32``, whatever mode its caller asks for."""
+    from climsim_tpu_torch import ops
+    ref = getattr(ops, PLAIN_OF[name])
+
+    def call(*args, **kw):
+        return ref(*args, **{**kw, "acc32": acc32})
+    return call
+
+
+@contextlib.contextmanager
+def plain_kernels(acc32):
+    """Inside, the fused layers run their kernels' plain versions on the
+    card in the gate mode ``acc32`` (the wrappers' names in
+    models/cells.py rebound): the plain coupled step."""
+    from climsim_tpu_torch.models import cells
+    old = {k: getattr(cells, k) for k in PLAIN_OF}
+    try:
+        for k in PLAIN_OF:
+            setattr(cells, k, _plain_of(k, acc32))
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(cells, k, f)
+
+
+def step_fields(out) -> dict:
+    """A rollout's (state, mem, diagnostics) as one flat dict, float32."""
+    st, mem, diags = out
+    return {**{f"state.{k}": v for k, v in st.items()}, "mem": mem,
+            **{f"diag.{k}": v for k, v in diags.items()}}
+
+
+def steps_in_turns(old, new, steps, repeats=REPEATS):
+    """Host ms a coupled step of two rollouts of ``steps`` steps, in turns
+    (old, new, new, old), each synchronized: ([old, old], [new, new])."""
+    t = {old: [], new: []}
+    for fn in (old, new, new, old):
+        t[fn].append(median_ms(fn, 1, repeats=repeats, queue_ahead=False)
+                     / steps)
+    return t[old], t[new]
+
+
+def g16_arm(card, name, res):
+    """One fused arm with pallas_acc32=False at 21,600 columns: one coupled
+    step with every counter at 0 (its kernel launched once, in the
+    bf16-gate design), held field by field to the same step with the plain
+    bf16-gate version on the card by g16_ok (against the plain step with
+    float32 gates); the v6 step also timed in turns with the acc32=True
+    model on the same weights."""
+    from climsim_tpu_torch.models import BF16
+    arm, kernel, over = G16_ARMS[name]
+    ncol, dev = NLAT * NLON, torch.device("cuda")
+    mt = make_model(BF16, None, arm=arm, **over)
+    mf = make_model(BF16, None, arm=arm, pallas_acc32=False, **over)
+    mf.load_state_dict(mt.state_dict())
+    grid = ProxyGrid(NLAT, NLON, NLEV, dev)
+    lt, lf = (make_loop(m, grid, NLAT, NLON, None, arm) for m in (mt, mf))
+    inputs = initial_state(ncol, NLEV, dev, mf.level_major)
+    wrapper = all_wrappers()[kernel]
+    wrapper.design = None
+    got, launches = counted(lambda: lf.rollout(*inputs, 1))
+    design = wrapper.design
+    want = dict(ARMS[arm][2])
+    print(f"bf16 gates, arm {name}: one coupled step at {ncol} columns, "
+          f"launches {launches}, {kernel.upper()} design {design} [{card}]")
+    check(launches == want, f"bf16 gates {name}: launches {launches}, "
+          f"want {want}")
+    check(design == "tensor_core+bf16_gates", f"bf16 gates {name}: "
+          f"{kernel.upper()} ran {design}")
+    with plain_kernels(False):
+        plain, pl_launches = counted(lambda: lf.rollout(*inputs, 1))
+    with plain_kernels(True):
+        plain32 = lf.rollout(*inputs, 1)
+    check(kernel not in pl_launches, f"the plain step launched {kernel}")
+    got, plain, plain32 = (step_fields(o) for o in (got, plain, plain32))
+    worst, moved = 0.0, 0
+    for key, w in plain.items():
+        g = got[key]
+        check(bool(torch.isfinite(g.float()).all()),
+              f"bf16 gates {name}: {key}")
+        ok, ratio, err, sep = g16_ok(g, w, plain32[key])
+        check(ok, f"bf16 gates {name} {key}: kernel vs plain bf16 gates "
+              f"{err:.3e}, mean distance {ratio:.3f} of the modes'")
+        worst, moved = max(worst, ratio), moved + sep
+    check(moved > 0, f"bf16 gates {name}: no field tells the modes apart")
+    print(f"bf16 gates, arm {name}: the step against the plain bf16-gate "
+          f"step on the card: in each of the {moved} fields the modes "
+          f"change, the mean distance is at most {worst:.4f} of the "
+          f"modes' own (tolerance 0.5, and nearer the bf16 gates than the "
+          f"float32 ones) [{card}]")
+    res.setdefault("launches", {})[kernel] = launches[kernel]
+    if name == "v6":
+        old, new = steps_in_turns(lambda: lt.rollout(*inputs, 5),
+                                  lambda: lf.rollout(*inputs, 5), 5)
+        print(f"coupled step, {ncol} columns, arm v6 in turns (f32 gates, "
+              f"bf16 gates, bf16 gates, f32 gates): f32 gates {old[0]:.4f} "
+              f"/ {old[1]:.4f} ms, bf16 gates {new[0]:.4f} / {new[1]:.4f} "
+              f"ms [{card}]")
+        res["v6_step"] = (old, new)
+    return mf
+
+
+def g16_kernel(card, kind, model, res, hoist=True):
+    """One kernel at the flagship bf16 shapes (21,600 columns): its
+    bf16-gate launch against its plain bf16-gate version on the card
+    (g16_ok, against the plain float32-gate version on the same inputs),
+    then timed in turns with its float32-gate mode and its plain version
+    timed."""
+    from climsim_tpu_torch import ops
+    ncol, bf = NLAT * NLON, torch.bfloat16
+    kern, plain, a = {
+        "b1": (ops.fused_bigru_heads_init_cm,
+               ops.bigru_heads_init_cm_reference, lambda: b1_args(
+                   model, ncol, bf, seed=7)),
+        "b4": (ops.fused_bigru_heads_cm, ops.bigru_heads_cm_reference,
+               lambda: b4_args(model, ncol, bf, seed=23)),
+        "b7": (ops.fused_bigru_lbh, ops.bigru_reference_lbh,
+               lambda: b7_args(model, ncol, bf, seed=29, L=NLEV)),
+        "b9": (ops.fused_bigru_heads_lbh, ops.bigru_heads_lbh_reference,
+               lambda: b9_args(model, ncol, bf, seed=31)),
+        "b10": (ops.fused_bigru_heads_init_lbh,
+                ops.bigru_heads_init_lbh_reference,
+                lambda: b10_args(model, ncol, bf, seed=37))}[kind]
+    a = a()
+    kw = {} if hoist else {"hoist_proj": False}
+    label = kind.upper() + ("" if hoist else " (hoist_proj=False)")
+    got = kern(*a, acc32=False, **kw)
+    want = plain(*a, acc32=False, **kw)
+    want32 = plain(*a, acc32=True, **kw)
+    errs, ratios = [], []
+    for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+        ok, ratio, err, sep = g16_ok(g, w, w32)
+        check(ok and sep, f"{label} bf16 gates output {i}: {err:.3e}, mean "
+              f"distance {ratio:.3f} of the modes'")
+        errs.append(err)
+        ratios.append(ratio)
+    del got, want, want32
+    old, new = in_turns(lambda: kern(*a, **kw),
+                        lambda: kern(*a, acc32=False, **kw), 3)
+    plain_ms = median_ms(lambda: plain(*a, acc32=False, **kw), 1,
+                         repeats=1)
+    print(f"{label} bf16 at {ncol} columns against its plain bf16-gate "
+          f"version: max_abs_err {max(errs):.3e}, mean distance "
+          f"{max(ratios):.4f} of the modes' (tolerance 0.5); in turns "
+          f"(f32 gates, "
+          f"bf16 gates, bf16 gates, f32 gates): f32 gates {old[0]:.4f} / "
+          f"{old[1]:.4f} ms, bf16 gates {new[0]:.4f} / {new[1]:.4f} ms; "
+          f"plain bf16-gate version {plain_ms:.4f} ms [{card}]")
+    key = kind if hoist else "b4_unhoisted"
+    res.setdefault("kernels", {})[key] = dict(
+        max_abs_err=max(errs), ms=statistics.mean(new),
+        f32_gates_ms=statistics.mean(old), plain_ms=plain_ms)
+
+
+def g16_grads(card, model16, model32):
+    """One update's gradients of the v6 model at 2,700 columns under
+    pallas_acc32=False and True, on the same weights, inputs and output
+    cotangents: B3 linearises the float32-gate forward from the saved
+    inputs in both modes, so the gradient of every parameter of the fused
+    layer and of the layers before it is the same bits. The surface head
+    ``mlp_surface_output`` reads the kernel's last state, which the modes
+    compute differently, so its gradient differs (printed)."""
+    dev, B = torch.device("cuda"), NLAT * NLON // 8
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((NLEV, 6, B), generator=g, device=dev)
+    xs = torch.randn((B, 24), generator=g, device=dev)
+    mem = 0.5 * torch.randn((NLEV, 16, B), generator=g, device=dev)
+    grads = []
+    with torch.enable_grad():
+        for m in (model32, model16):
+            m.zero_grad(set_to_none=True)
+            outs, launches = counted(lambda: m(x, xs, mem))
+            cg = torch.Generator(device=dev).manual_seed(43)
+            cts = [torch.randn(o.shape, generator=cg, device=dev).to(o.dtype)
+                   for o in outs]
+            _, bl = counted(lambda: torch.autograd.backward(outs, cts))
+            check(launches == {"b1": 1} and bl == {"b3": 1},
+                  f"v6 update launches {launches}, {bl}")
+            grads.append({k: p.grad.clone() for k, p in
+                          m.named_parameters() if p.grad is not None})
+    check(set(grads[0]) == set(grads[1]) and len(grads[0]) > 0,
+          "the two modes' gradients cover different parameters")
+    head = [k for k in grads[0] if k.startswith("mlp_surface_output.")]
+    rest = [k for k in grads[0] if k not in head]
+    same = [k for k in rest if torch.equal(grads[0][k], grads[1][k])]
+    moved = max(rel_err(grads[1][k], grads[0][k]) for k in head)
+    print(f"v6 update at {B} columns: {len(same)} of the {len(rest)} "
+          f"gradients of the fused layer and the layers before it under "
+          f"pallas_acc32=False equal those under True, bit for bit; the "
+          f"surface head's ({len(head)}, on the kernel's last state) moved "
+          f"by {moved:.3e} of scale (B1 1, B3 1 launch each) [{card}]")
+    check(len(same) == len(rest), "v6 gradients differ between the gate "
+          f"modes: {sorted(set(rest) - set(same))}")
+
+
+def g16_export(card):
+    """A v4 OnlineWrapper at the GRU yaml's widths over a pallas_acc32=False
+    bf16 model, exported at 384 columns: its graph's climsim:: node carries
+    acc32=False, and the program loaded in this process launches the
+    bf16-gate B10 once and gives the eager wrapper's bits."""
+    from climsim_tpu_torch.export import export_wrapper, load_step
+    from climsim_tpu_torch.ops import fused_bigru_heads_init_lbh, library
+    norm = export_norm()
+    w = export_wrapper_of("v4", norm, pallas_acc32=False)
+    ncol = LO_NLAT * LO_NLON
+    x, xs, mem = raw_state(ncol, seed=ncol)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="export16", dir=root)
+    try:
+        path = os.path.join(tmp, "v4_bf16_gates.pt2")
+        export_wrapper(w, ncol, NLEV, EXPORT_NX, EXPORT_NX_SFC, EXPORT_NM,
+                       path)
+        program = torch.export.load(path)
+        nodes = [n for n in program.graph.nodes if str(n.target) in
+                 library.exported_ops(program.graph)]
+        check(len(nodes) == 1 and nodes[0].args[0] is False,
+              f"the exported node's gate mode: "
+              f"{[(str(n.target), n.args[0]) for n in nodes]}")
+        step = load_step(path)
+        fused_bigru_heads_init_lbh.design = None
+        got, launches = counted(lambda: step(x, xs, mem))
+        design = fused_bigru_heads_init_lbh.design
+        eager = w(x, xs, mem)
+        same = all(torch.equal(a, b) for a, b in zip(got, eager))
+        print(f"export of a pallas_acc32=False v4 wrapper at {ncol} columns: "
+              f"node {nodes[0].target} with acc32={nodes[0].args[0]}; the "
+              f"loaded program launched {launches} ({design}); "
+              f"{'bit-equal to' if same else 'DIFFERS FROM'} the eager "
+              f"wrapper [{card}]")
+        check(launches == {"b10": 1} and design == "tensor_core+bf16_gates",
+              f"the loaded program launched {launches}, {design}")
+        check(same, "the loaded program differs from the eager wrapper")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def a12_model(flags, device, seed=0):
+    from climsim_tpu_torch.models import F32, RNNAutoreg
+    nx = A12_NX_RAD if flags.get("separate_radiation") else 6
+    return RNNAutoreg(nx=nx, nx_sfc=24, ny=6, ny_sfc=8, nneur=(192, 192),
+                      nh_mem=16, add_pres=False, policy=F32, device=device,
+                      seed=seed, **flags)
+
+
+def a12_loop(model, grid, nlat, nlon, device):
+    """The coupled step around an A.12 model, batch-major, with the
+    production transport (B2 and both fixers). Separate radiation reads
+    16 level inputs: the six fields and ten fixed profiles (its gases are
+    channels 12-14), which the loop's feature hook makes from the state."""
+    from climsim_tpu_torch.online import HostLoopConfig, HybridLoop
+    dev = next(model.parameters()).device
+    cfg = HostLoopConfig(nlat=nlat, nlon=nlon, scheme="fv",
+                         geometry="sphere", use_pallas=True, fix_water=True,
+                         fix_energy=True, emulator_level_major=False)
+    xsc = torch.tensor(XSCALE, device=dev)
+    ysc = torch.tensor(YSCALE, device=dev)
+    sepr = model.separate_radiation
+
+    def features(state, x_sfc):
+        six = torch.stack([state[k] for k in ("T", "qv", "qc", "qi", "u",
+                                              "v")], dim=-1)
+        ncol, L = six.shape[:2]
+        lev = torch.linspace(0.0, 1.0, L, device=six.device)
+        extra = torch.stack([lev * (c + 1) / 10 for c in range(10)], -1)
+        return torch.cat([six, extra.expand(ncol, L, 10)], -1), x_sfc
+
+    def emulator(x_main_raw, x_sfc_raw, mem):
+        x = torch.cat([x_main_raw[..., :6] / xsc, x_main_raw[..., 6:]], -1)
+        out, out_sfc, mem = model(x, x_sfc_raw, mem)
+        return out * ysc, out_sfc, mem
+
+    return HybridLoop(emulator, grid, cfg,
+                      feature_builder=features if sepr else None,
+                      device=device)
+
+
+def a12_inputs(model, ncol, device):
+    state, mem, x_sfc = initial_state(ncol, NLEV, device, False)
+    if model.separate_radiation:
+        mem = torch.zeros((ncol, A12_L_CRM, 16), device=device)
+    return state, mem, x_sfc
+
+
+def a12_arm(card, name):
+    """One A.12 option at 21,600 columns: A12_STEPS coupled steps, every
+    counter at 0 (no emulator kernel: the transport's B2 once a step, as
+    JAX's scan runs no kernel), finite, then their ms a step (the median of
+    REPEATS synchronized runs); then 2 steps at 384 columns on the
+    card against device="cpu" by the file's witness rule: each field
+    within 1e-5 of its scale plus 4x the CPU's own movement when every
+    weight is scaled by 1 + 1e-6."""
+    from climsim_tpu_torch import Grid
+    flags = A12_ARMS[name]
+    ncol, dev = NLAT * NLON, torch.device("cuda")
+    model = a12_model(flags, None)
+    loop = a12_loop(model, ProxyGrid(NLAT, NLON, NLEV, dev), NLAT, NLON,
+                    None)
+    inputs = a12_inputs(model, ncol, dev)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: loop.rollout(*inputs, A12_STEPS))
+    wall = time.perf_counter() - t0
+    check(launches == {"b2": A12_STEPS}, f"A.12 {name}: launches "
+          f"{launches}")
+    fields = step_fields(out)
+    for k, v in fields.items():
+        check(bool(torch.isfinite(v).all()), f"A.12 {name}: {k}")
+    ms = median_ms(lambda: loop.rollout(*inputs, A12_STEPS), 1,
+                   repeats=REPEATS, queue_ahead=False) / A12_STEPS
+    print(f"A.12 arm {name} ({model.arm} trunk, nneur 192/192, f32): "
+          f"{A12_STEPS} coupled steps at {ncol} columns in {wall:.3f} s "
+          f"(first run), then {ms:.4f} ms a step, launches {launches}, "
+          f"mean_T {out[2]['mean_T'][-1].item():.4f} K [{card}]")
+    lo = LO_NLAT * LO_NLON
+    res = {}
+    for key, device, bump in (("card", "cuda", 1.0), ("cpu", "cpu", 1.0),
+                              ("witness", "cpu", 1.0 + 1e-6)):
+        m = a12_model(flags, device)
+        if bump != 1.0:
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(bump)
+        lp = a12_loop(m, Grid.synthetic(lo, NLEV, device=device), LO_NLAT,
+                      LO_NLON, device)
+        res[key] = {k: v.float().cpu() for k, v in step_fields(
+            lp.rollout(*a12_inputs(m, lo, device), 2)).items()}
+    worst = 0.0
+    for k, want in res["cpu"].items():
+        got = res["card"][k]
+        wit = (res["witness"][k] - want).abs().max().item()
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item() + 4.0 * wit
+        check(err <= tol, f"A.12 {name} 384 {k}: card vs CPU {err:.3e} > "
+              f"{tol:.3e}")
+        worst = max(worst, err / max(tol, 1e-30))
+    print(f"A.12 arm {name}, 384 columns, 2 steps: card vs CPU within "
+          f"{worst:.3f} of the witness tolerance [{card}]")
+
+
+def a12_cli(card):
+    """The training CLI on conf/autoreg_gru.yaml with model.cell=lstm and
+    with model.memory=None: one epoch each on a 384-column grid file at
+    the yaml's widths, finite records, no kernel launched (the scan
+    trunk)."""
+    from climsim_tpu_torch.models import RNNAutoreg
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_cli16", dir=root)
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
+    try:
+        grid = os.path.join(tmp, "grid.nc")
+        write_grid_file(grid, LO_NLAT * LO_NLON)
+        for over in (["model.cell=lstm"], ["model.memory=None"]):
+            args = [os.path.join(conf, "autoreg_gru.yaml"),
+                    f"grid_path={grid}", f"data.ncol={LO_NLAT * LO_NLON}",
+                    "epochs=1", "data.steps=12"] + over
+            r = train_cli_run(args, RNNAutoreg)
+            cli_summary(f"GRU yaml with {over[0]}", r, LO_NLAT * LO_NLON,
+                        card)
+            check_cli_records(f"GRU yaml {over[0]}", r, [1])
+            check(r.run.trainer.model.arm == "scan", r.run.trainer.model.arm)
+            check(r.launches == {}, f"{over[0]} launched {r.launches}")
+            r = None
+            gc.collect()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_gate_mode_and_a12(card) -> dict:
+    """Phase 16: the forwards' bf16-gate mode in every fused arm and each
+    kernel alone, the v6 update's gradients in both modes, the export with
+    the mode; the yardsticks of B1, B3 and B10; RNNAutoreg's other options
+    at full width and at 384 columns against the CPU, and two of them
+    through the training CLI. Returns the measurements for the kernels
+    line."""
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.ops import bigru_heads_cm_bwd
+    res = {}
+    models = {}
+    for name in G16_ARMS:
+        models[name] = g16_arm(card, name, res)
+        gc.collect()
+    for kind, name in (("b1", "v6"), ("b4", "v5"), ("b7", "v2"),
+                       ("b9", "v3"), ("b10", "v4")):
+        g16_kernel(card, kind, models[name], res)
+    g16_kernel(card, "b4", models["v5"], res, hoist=False)
+    m32 = make_model(BF16, None, arm="v6")
+    m32.load_state_dict(models["v6"].state_dict())
+    g16_grads(card, models["v6"], m32)
+    g16_export(card)
+    ncol, bf = NLAT * NLON, torch.bfloat16
+    v6, v4 = models["v6"], models["v4"]
+    a1 = b1_args(v6, ncol, bf, seed=7)
+    res["library_b1"] = heads_yardstick(v6.bigru_fused, a1, True, card,
+                                        "B1 (v6 arm's shapes)", init=True)
+    a10 = b10_args(v4, ncol, bf, seed=37)
+    res["library_b10"] = heads_yardstick(v4.bigru_fused, a10, False, card,
+                                         "B10 (v4 arm's shapes)", init=True)
+    a3 = b3_args(v6, ncol, bf, seed=11)
+    res["library_b3"] = heads_yardstick(v6.bigru_fused, a3[0], True, card,
+                                        "B3 (v6 arm's shapes)",
+                                        backward=True)
+    b3_ms = median_ms(lambda: bigru_heads_cm_bwd(*a3), 2)
+    print(f"library yardstick: B1 bf16 at {ncol} columns, cuDNN pair + "
+          f"initial MLP + 2 Linear {res['library_b1']:.4f} ms; B10 "
+          f"{res['library_b10']:.4f} ms; B3 {b3_ms:.4f} ms against "
+          f"autograd's backward through the pair + 2 Linear "
+          f"{res['library_b3']:.4f} ms [{card}]")
+    del models, a1, a10, a3, v6, v4, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in A12_ARMS:
+        a12_arm(card, name)
+    a12_cli(card)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6060,6 +6614,12 @@ def main() -> int:
         torch.set_grad_enabled(False)
         check_offline_new_arms(card)
         phase_done(15)
+        return 0
+    if sys.argv[1:] == ["16"]:
+        # phase 16 alone, as phase 14
+        torch.set_grad_enabled(False)
+        check_gate_mode_and_a12(card)
+        phase_done(16)
         return 0
 
     torch.set_grad_enabled(False)
@@ -6603,7 +7163,17 @@ def main() -> int:
     check_offline_new_arms(card)
     phase_done(15)
 
-    # ---- 16. the kernels line, the card line, the result
+    # ---- 16. the forwards' bf16-gate mode (pallas_acc32=False) in every
+    # fused arm and each kernel alone, timed in turns with the f32 gates;
+    # the v6 update's gradients in both modes; the export with the mode;
+    # the library yardsticks of B1, B3 and B10; RNNAutoreg's other options
+    # (ROADMAP A.12) at full width and against the CPU, and through the CLI
+    gc.collect()
+    torch.cuda.empty_cache()
+    g16 = check_gate_mode_and_a12(card)
+    phase_done(16)
+
+    # ---- 17. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -6716,6 +7286,29 @@ def main() -> int:
             key = f32_of[k["name"]]
             k["f32"] = {"ms": f32_ms[key], "bound_ms": f32_bound[key][0],
                         "bound_by": f32_bound[key][1]}
+    # the library yardsticks of phase 16, and the forwards' bf16-gate mode
+    # (acc32=False) beside each: its launches on its arm's coupled step,
+    # its error against its plain bf16-gate version and its times there;
+    # its bound is the float32-gate mode's, the same products
+    by_name = {k["name"]: k for k in kernels}
+    for name, key in (("bigru_heads_init_cm", "library_b1"),
+                      ("bigru_heads_cm_bwd", "library_b3"),
+                      ("bigru_heads_init_lbh", "library_b10")):
+        by_name[name]["library_ms"] = g16[key]
+    for name, key in (("bigru_heads_init_cm", "b1"),
+                      ("bigru_heads_cm", "b4"), ("bigru_lbh", "b7"),
+                      ("bigru_heads_lbh", "b9"),
+                      ("bigru_heads_init_lbh", "b10")):
+        k, m = by_name[name], g16["kernels"][key]
+        k["bf16_gates"] = {
+            "launches": g16["launches"][key], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "f32_gates_ms": m["f32_gates_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+    m = g16["kernels"]["b4_unhoisted"]
+    by_name["bigru_heads_cm"]["bf16_gates"]["hoist_proj_false"] = {
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "f32_gates_ms": m["f32_gates_ms"], "plain_ms": m["plain_ms"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

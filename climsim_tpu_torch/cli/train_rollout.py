@@ -23,12 +23,14 @@ data, normalization, model and trainer, with these differences:
   (``train/rollout.py::save_rollout_checkpoint``).
 * ``model.scan_unroll`` (an XLA unrolling hint) is accepted and has no
   effect.
-* Options that are not ported raise ``NotImplementedError`` naming their
-  ROADMAP item before any data is built: ``model.cell`` other than gru,
-  ``model.stochastic_cell: sln_lstm``, ``model.separate_radiation`` and
-  ``model.memory: None`` (A.12).
+* Every model option of the JAX CLI runs: ``model.cell`` (gru, lstm,
+  ln_lstm, sru, qrnn), ``model.memory: None`` and
+  ``model.separate_radiation`` (its memory on the CRM's 50 bottom levels,
+  as JAX's trainer keeps it).
 * ``model.stochastic_cell`` (sgru | slstm) is read, where the JAX CLI
-  always builds its default sgru.
+  always builds its default sgru; ``sln_lstm`` raises ``ValueError`` when
+  the model is built, because JAX's model cannot run it
+  (``models/rnn.py::SLN_LSTM_FAULT``).
 * An ensemble run (``rollout.ensemble_size > 1``) carries the memory
   [M, B, ...], which the JAX CLI's scoreboard and export feed to the
   model as [B, ...], so they fail there; here ``eval_report``,
@@ -64,29 +66,14 @@ PAST_SFC = (17, 18, 19, 20, 21)
 DEVICE_CACHE_BYTES = 4 * 1024 ** 3
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"train_rollout: {what} is not ported yet "
-                               f"(ROADMAP {item})")
-
-
 ENSEMBLE_REFUSES = ("eval_report", "eval_report_every", "pred_export",
                     "export_path")
 
 
 def check_unported(cfg) -> None:
-    """Raise for the options this port does not run yet, and for the
-    outputs an ensemble run cannot give, before any data is built."""
-    mcfg, rcfg = cfg.get("model", {}), cfg.get("rollout", {})
-    if mcfg.get("type", "rnn") == "rnn":
-        if mcfg.get("cell", "gru") != "gru":
-            raise _unported(f"model.cell {mcfg['cell']!r}", "A.12")
-        if mcfg.get("add_stochastic_layer", False) \
-                and mcfg.get("stochastic_cell", "sgru") == "sln_lstm":
-            raise _unported("model.stochastic_cell 'sln_lstm'", "A.12")
-        if mcfg.get("separate_radiation", False):
-            raise _unported("model.separate_radiation", "A.12")
-        if str(mcfg.get("memory", "Hidden")).lower() == "none":
-            raise _unported("model.memory None", "A.12")
+    """Raise for the outputs an ensemble run cannot give, before any data
+    is built (every model option runs)."""
+    rcfg = cfg.get("rollout", {})
     if rcfg.get("ensemble_size", 1) > 1:
         for key in ENSEMBLE_REFUSES:
             if cfg.get(key):
@@ -360,6 +347,7 @@ def build_model(cfg, grid, nx: int, nx_sfc: int, ny: int, ny_sfc: int,
         use_pallas=mcfg.get("use_pallas", False),
         output_prune=mcfg.get("output_prune", True),
         add_pres=mcfg.get("add_pres", True),
+        scan_unroll=mcfg.get("scan_unroll", 1),
         hyam=tt(grid.hyam), hybm=tt(grid.hybm),
         sp_mean=float(xms[0]), sp_div=float(xss[0]), policy=policy,
         device=device, seed=seed)

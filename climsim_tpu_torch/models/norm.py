@@ -31,17 +31,23 @@ def _stats(xf: torch.Tensor, dims):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm()`` over the last axis of ``features``."""
+    """flax ``nn.LayerNorm()`` over the last axis of ``features``; with a
+    tuple of sizes, over that many trailing axes together, its scale and
+    bias of that shape (flax's ``reduction_axes=feature_axes=(-2, -1)``
+    for two)."""
 
-    def __init__(self, features: int, epsilon: float = 1e-6):
+    def __init__(self, features: int | tuple, epsilon: float = 1e-6):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        shape = tuple(features) if isinstance(features, tuple) \
+            else (features,)
+        self.dims = tuple(range(-len(shape), 0))
+        self.scale = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, torch.float32)
-        mean, var = _stats(x.to(torch.float32), (-1,))
+        mean, var = _stats(x.to(torch.float32), self.dims)
         return _normalize(x.to(dt), mean, var, self.scale, self.bias,
                           self.epsilon)
 

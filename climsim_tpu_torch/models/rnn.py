@@ -38,8 +38,16 @@ a zero carry) on the down sweep's output, driven by per-level noise
 ``ar_noise_vertical=False``); as in JAX a stochastic model always runs
 the scan trunk. With ``ar_noise_rho > 0`` the noise is AR(1) in time,
 ``eps = rho * eps_prev + sqrt(1 - rho^2) * fresh``, and the forward
-returns ``eps`` as a fourth output. The other cells, ``sln_lstm``,
-``separate_radiation`` and ``use_memory=False`` wait for ROADMAP A.12.
+returns ``eps`` as a fourth output.
+
+The scan trunk takes every cell of JAX's trunk (``cell``: gru, lstm,
+ln_lstm, sru; lstm and ln_lstm start their cell states from the Dense
+layers ``mlp_surface2`` and ``mlp_toa2``), and ``cell="qrnn"`` runs two
+``QRNNLayer`` sweeps; none reaches a kernel, as in JAX.
+``use_memory=False`` (the yaml's ``memory: None``) feeds no memory and
+passes ``mem`` through; ``separate_radiation`` runs the CRM trunk on the
+bottom levels without the gases and adds the radiation BiGRU on every
+level (``_radiation``).
 """
 from __future__ import annotations
 
@@ -50,8 +58,8 @@ import torch
 from torch import nn
 
 from ..ops import resolve_device
-from .cells import (Dense, FusedBiGRUHeadsLayer, FusedBiGRULayer, RNNLayer,
-                    flax_param, needs_cell_state)
+from .cells import (Dense, FusedBiGRUHeadsLayer, FusedBiGRULayer, QRNNLayer,
+                    RNNLayer, flax_param, needs_cell_state)
 from .common import Policy, F32
 
 __all__ = ["RNNAutoreg", "Dense", "ChannelDense", "params_unfused_to_fused",
@@ -83,19 +91,26 @@ class ChannelDense(nn.Module):
 
 # the arms whose fused layer evaluates the initial MLP inside its kernel
 _INIT_INSIDE = ("v6", "v4")
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"RNNAutoreg {what} is not ported yet "
-                               f"(ROADMAP {item})")
+# the trunk cells of JAX's RNNAutoreg (rnn.py:74, :254)
+TRUNK_CELLS = ("gru", "lstm", "ln_lstm", "sru", "qrnn")
+# the radiation BiGRU's width (rnn.py:349)
+NH_RAD = 96
+# JAX's RNNAutoreg cannot run this option: its needs_cell_state leaves out
+# sln_lstm, so the stochastic layer's carry is a bare array, which the
+# cell unpacks as (h, c); the port refuses it at construction
+SLN_LSTM_FAULT = (
+    "stochastic_cell='sln_lstm' fails in JAX's RNNAutoreg (its carry is a "
+    "bare array, climsim_tpu/models/rnn.py:312-313, which the cell unpacks "
+    "as h, c = carry at climsim_tpu/models/cells.py:119), so the port "
+    "refuses it; RNNLayer(kind='sln_lstm', noise=True) with an (h, c) "
+    "carry runs the cell")
 
 
 class RNNAutoreg(nn.Module):
     """Bi-directional vertical RNN emulator with latent convective memory.
-    Keyword names and defaults follow the flax module; options outside the
-    ported trunks raise ``NotImplementedError`` naming the ROADMAP item
-    that ports them. ``arm`` says which trunk the flags selected ("v6",
-    "v5", "v4", "v3", "v2" or "scan").
+    Keyword names and defaults follow the flax module, every field of it.
+    ``arm`` says which trunk the flags selected ("v6", "v5", "v4", "v3",
+    "v2", "qrnn" or "scan").
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
     parameters get flax's init (lecun-normal kernels, zero biases) from a
@@ -105,6 +120,14 @@ class RNNAutoreg(nn.Module):
     ``noise``: a ``torch.Generator`` on the model's device, or the
     standard-normal draw [Le, B, nneur[-1]] itself (Le = L, or 1 with
     ``ar_noise_vertical=False``). Nothing is drawn from the global RNG.
+
+    ``pallas_acc32=False`` runs the fused arms' gates in bf16 under the
+    BF16 policy (the kernels' bf16-gate mode). ``pallas_block_b`` (the TPU
+    kernels' column tile) and ``scan_unroll`` (the level scan's unroll
+    factor) change no result in JAX and are accepted and unused here: the
+    port's plans pick their own tiles, and its sweeps step one level at a
+    time. ``stochastic_cell='sln_lstm'`` raises ``ValueError``, because
+    JAX's model cannot run it (see ``SLN_LSTM_FAULT``).
     """
 
     def __init__(self, nx: int, nx_sfc: int, ny: int, ny_sfc: int,
@@ -115,30 +138,33 @@ class RNNAutoreg(nn.Module):
                  separate_radiation: bool = False,
                  add_stochastic_layer: bool = False,
                  stochastic_cell: str = "sgru",
-                 use_pallas: bool = False, fuse_heads: bool = False,
-                 fuse_init: bool = False,
+                 use_pallas: bool = False, pallas_acc32: bool = True,
+                 fuse_heads: bool = False, fuse_init: bool = False,
                  pallas_hoist_proj: bool = True, level_major: bool = False,
-                 hyam: Sequence[float] = (), hybm: Sequence[float] = (),
+                 pallas_block_b: int | None = None,
                  ar_noise_rho: float = 0.0, ar_noise_vertical: bool = True,
+                 hyam: Sequence[float] = (), hybm: Sequence[float] = (),
                  sp_mean: float = 0.0, sp_div: float = 1.0,
+                 scan_unroll: int = 1,
                  policy: Policy = F32, device=None, seed: int = 0):
         super().__init__()
         nh1, nh2, nh3 = nneur[0], nneur[1], nneur[-1]
-        if separate_radiation:
-            raise _unported("separate_radiation", "A.12")
-        if not use_memory:
-            raise _unported("memory=None (use_memory=False)", "A.12")
-        if cell != "gru":
-            raise _unported(f"cell={cell!r}", "A.12")
-        if add_stochastic_layer and stochastic_cell not in ("sgru", "slstm"):
+        if cell not in TRUNK_CELLS:
+            raise ValueError(f"cell={cell!r} is not a trunk cell "
+                             f"({' | '.join(TRUNK_CELLS)})")
+        if add_stochastic_layer:
             if stochastic_cell == "sln_lstm":
-                raise _unported("stochastic_cell='sln_lstm'", "A.12")
-            raise ValueError(f"stochastic_cell={stochastic_cell!r} is not a "
-                             "stochastic cell (sgru | slstm | sln_lstm)")
-        # the JAX model's choice of trunk (rnn.py:196-236): a stochastic
+                raise ValueError(SLN_LSTM_FAULT)
+            if stochastic_cell not in ("sgru", "slstm"):
+                raise ValueError(f"stochastic_cell={stochastic_cell!r} is "
+                                 "not a stochastic cell (sgru | slstm | "
+                                 "sln_lstm)")
+        # the JAX model's choice of trunk (rnn.py:196-290): a stochastic
         # model runs the scan, whatever use_pallas says
-        fused_heads = use_pallas and fuse_heads and nh1 == nh2 \
-            and nh_mem != nh2 and not add_stochastic_layer
+        gru_kernel = use_pallas and cell == "gru" and nh1 == nh2 \
+            and not add_stochastic_layer
+        fused_heads = gru_kernel and fuse_heads and use_memory \
+            and nh_mem != nh2 and not separate_radiation
         if level_major and not fused_heads:
             raise ValueError("level_major requires the fused-heads path "
                              "(use_pallas + fuse_heads with gru cell)")
@@ -148,9 +174,12 @@ class RNNAutoreg(nn.Module):
                         (False, True): "v4",
                         (False, False): "v3"}[level_major, init_inside]
         else:
-            self.arm = "v2" if use_pallas and nh1 == nh2 \
-                and not add_stochastic_layer else "scan"
+            self.arm = "v2" if gru_kernel else \
+                "qrnn" if cell == "qrnn" else "scan"
         self.device = resolve_device(device)
+        self.cell = cell
+        self.use_memory = use_memory
+        self.separate_radiation = separate_radiation
         self.add_stochastic_layer = add_stochastic_layer
         self.stochastic_cell = stochastic_cell
         self.ar_noise_rho = float(ar_noise_rho)
@@ -172,53 +201,87 @@ class RNNAutoreg(nn.Module):
         g = torch.Generator().manual_seed(seed)
         cdt = policy.compute_dtype
         nx_in = nx + (1 if add_pres else 0)
-        nh_in = nh1 if use_initial_mlp else nx_in
+        # separate radiation: the CRM trunk sees the level inputs without
+        # the three gases and the surface inputs without the six radiative
+        # ones (rnn.py:184-194)
+        nx_crm = nx_in - 3 if separate_radiation else nx_in
+        nx_sfc_crm = nx_sfc - 6 if separate_radiation else nx_sfc
+        nh_in = nh1 if use_initial_mlp else nx_crm
+        nm_cat = nh_mem if use_memory else 0
         # creation order = flax's module order (init streams differ from
         # JAX's anyway; from_flax_params carries JAX weights across)
         if use_initial_mlp and self.arm not in _INIT_INSIDE:
             dense = ChannelDense if level_major else Dense
-            self.mlp_initial = dense(nx_in, nh1, cdt, g)
-        self.mlp_surface1 = Dense(nx_sfc, nh1, cdt, g)
+            self.mlp_initial = dense(nx_crm, nh1, cdt, g)
+        self.mlp_surface1 = Dense(nx_sfc_crm, nh1, cdt, g)
         self.mlp_toa1 = Dense(2, nh2, cdt, g)
         if self.arm in _INIT_INSIDE:
             self.bigru_fused = FusedBiGRUHeadsLayer(
                 nx_in, nh_mem, nh1, nh_mem, ny, init_width=nh1,
-                level_major=level_major, generator=g)
+                level_major=level_major, acc32=pallas_acc32, generator=g)
         elif self.arm == "v5":
             self.bigru_fused = FusedBiGRUHeadsLayer(
                 nh_in, nh_mem, nh1, nh_mem, ny, level_major=True,
-                hoist_proj=pallas_hoist_proj, generator=g)
+                hoist_proj=pallas_hoist_proj, acc32=pallas_acc32,
+                generator=g)
         elif self.arm == "v3":
             # the memory is concatenated by the model, as JAX's
             # batch-major v3 (rnn.py:218-247)
             self.bigru_fused = FusedBiGRUHeadsLayer(
                 nh_in + nh_mem, 0, nh1, nh_mem, ny, level_major=False,
-                generator=g)
+                acc32=pallas_acc32, generator=g)
         elif self.arm == "v2":
-            self.bigru_fused = FusedBiGRULayer(nh_in + nh_mem, nh1,
+            self.bigru_fused = FusedBiGRULayer(nh_in + nm_cat, nh1,
+                                               acc32=pallas_acc32,
                                                generator=g)
+        elif self.arm == "qrnn":
+            self.rnn_up = QRNNLayer(nh_in + nm_cat, nh1, reverse=True,
+                                    dtype=cdt, generator=g)
+            self.rnn_down = QRNNLayer(nh1, nh2, dtype=cdt, generator=g)
         else:
-            self.rnn_up = RNNLayer(nh_in + nh_mem, nh1, reverse=True,
+            if needs_cell_state(cell):
+                self.mlp_surface2 = Dense(nx_sfc_crm, nh1, cdt, g)
+            self.rnn_up = RNNLayer(nh_in + nm_cat, nh1, cell, reverse=True,
                                    dtype=cdt, generator=g)
-            self.rnn_down = RNNLayer(nh1, nh2, dtype=cdt, generator=g)
+            if needs_cell_state(cell):
+                self.mlp_toa2 = Dense(2, nh2, cdt, g)
+            self.rnn_down = RNNLayer(nh1, nh2, cell, dtype=cdt, generator=g)
         if add_stochastic_layer:
             self.rnn_stoch = RNNLayer(nh2, nh3, stochastic_cell, noise=True,
                                       dtype=cdt, generator=g)
-        if self.arm in ("v2", "scan"):
+        if self.arm in ("v2", "qrnn", "scan"):
             # the latent head exists only when the memory width differs
-            # from the last RNN's (rnn.py:326-337)
+            # from the last RNN's (rnn.py:326-337); without memory the
+            # output head reads the RNN stream
             nh_last = nh3 if add_stochastic_layer else nh2
             self.mlp_latent = Dense(nh_last, nh_mem, cdt, g) \
-                if nh_mem != nh_last else None
-            self.mlp_output = Dense(nh_mem, ny, cdt, g)
-        self.mlp_surface_output = Dense(nh2, ny_sfc, cdt, g)
+                if use_memory and nh_mem != nh_last else None
+            self.mlp_output = Dense(nh_mem if use_memory else nh_last, ny,
+                                    cdt, g)
+        self.mlp_surface_output = Dense(
+            nh2, 2 if separate_radiation else ny_sfc, cdt, g)
+        if separate_radiation:
+            # the radiation BiGRU on every level (rnn.py:361-393): its
+            # Dense layers in the compute dtype, its sweeps in float32
+            # (JAX's RNNLayer without a dtype promotes to the float32
+            # parameters)
+            f32 = torch.float32
+            self.mlp_surface_rad = Dense(6, NH_RAD, cdt, g)
+            self.rnn1_rad = RNNLayer(3 + nh_mem, NH_RAD, reverse=True,
+                                     dtype=f32, generator=g)
+            self.mlp_toa_rad = Dense(2, NH_RAD, cdt, g)
+            self.rnn2_rad = RNNLayer(NH_RAD, NH_RAD, dtype=f32, generator=g)
+            self.mlp_output_rad = Dense(NH_RAD, 1, cdt, g)
+            self.mlp_surface_output_rad = Dense(NH_RAD, ny_sfc - 2, cdt, g)
         self.to(self.device)
 
     def forward(self, x_main, x_sfc, mem, deterministic: bool = True,
                 eps_prev=None, noise=None):
         """One step; ``deterministic``, ``eps_prev`` and ``noise`` drive
         the stochastic layer (see the class) and are ignored without
-        it."""
+        it. With ``use_memory=False`` ``mem`` passes through as the third
+        output; with ``separate_radiation`` it covers the CRM's bottom
+        levels (fewer than x_main's), as the new memory does."""
         lm = self.level_major
         L = x_main.shape[0] if lm else x_main.shape[1]
         pol = self.policy
@@ -238,11 +301,19 @@ class RNNAutoreg(nn.Module):
                 pres = hyam * 1.0e5 + sp[:, None] * hybm
                 pres = torch.sqrt(pres) / 314.0
                 x_main = torch.cat([x_main, pres[..., None]], dim=-1)
-        hx1 = torch.tanh(self.mlp_surface1(x_sfc))
+        x_sfc_crm, h = x_sfc, x_main
+        if self.separate_radiation:
+            # the CRM: no radiative surface inputs, no gases, the bottom
+            # levels the memory covers (rnn.py:184-194)
+            x_sfc_crm = torch.cat([x_sfc[:, 0:6], x_sfc[:, 12:]], dim=1)
+            gases = x_main[:, :, 12:15]
+            h = torch.cat([x_main[:, :, :12], x_main[:, :, 15:]],
+                          dim=-1)[:, L - mem.shape[1]:, :]
+        hx1 = torch.tanh(self.mlp_surface1(x_sfc_crm))
         # SOLIN and COSZRS (columns 1 and 6) as a strided view: a list
         # index would copy a host index tensor to the device every call
-        hx2 = self.mlp_toa1(x_sfc[:, 1:7:5])
-        h = x_main
+        x_toa = x_sfc[:, 1:7:5]
+        hx2 = self.mlp_toa1(x_toa)
         if self.use_initial_mlp and self.arm not in _INIT_INSIDE:
             h = torch.tanh(self.mlp_initial(h))
         if self.arm in ("v6", "v5", "v4"):
@@ -251,21 +322,34 @@ class RNNAutoreg(nn.Module):
             out, new_mem, last_h = self.bigru_fused(
                 torch.cat([h, mem], dim=-1), hx1, hx2)
         else:
-            h = torch.cat([h, mem], dim=-1)
+            if self.use_memory:
+                h = torch.cat([h, mem], dim=-1)
             if self.arm == "v2":
                 down_out, last_h = self.bigru_fused(h, hx1, hx2)
-            else:
+            elif self.arm == "qrnn":
                 up_out, _ = self.rnn_up(h, hx1)
                 down_out, last_h = self.rnn_down(up_out, hx2)
+            else:
+                cs = needs_cell_state(self.cell)
+                carry1 = (hx1, self.mlp_surface2(x_sfc_crm)) if cs else hx1
+                up_out, _ = self.rnn_up(h, carry1)
+                carry2 = (hx2, self.mlp_toa2(x_toa)) if cs else hx2
+                down_out, carry_dn = self.rnn_down(up_out, carry2)
+                last_h = carry_dn[0] if cs else carry_dn
             eps_out = eps_prev
             if self.add_stochastic_layer:
                 down_out, eps_out = self._stochastic(
                     down_out, deterministic, eps_prev, noise)
-            new_mem = down_out if self.mlp_latent is None \
-                else self.mlp_latent(down_out)
-            out = self.mlp_output(new_mem)
+            if not self.use_memory:
+                # memory None: the output head reads the RNN stream and
+                # the memory passes through
+                head_in, new_mem = down_out, mem
+            else:
+                head_in = new_mem = down_out if self.mlp_latent is None \
+                    else self.mlp_latent(down_out)
+            out = self.mlp_output(head_in)
         out_sfc = self.mlp_surface_output(last_h)
-        if self.output_prune:
+        if self.output_prune and not self.separate_radiation:
             # only dT is nonzero in the top 12 levels (rnn.py:348-356)
             if lm:
                 mask = torch.ones((L, self.ny, 1), dtype=out.dtype,
@@ -276,11 +360,37 @@ class RNNAutoreg(nn.Module):
                                   device=out.device)
                 mask[:, :12, 1:] = 0.0
             out = out * mask
+        if self.separate_radiation:
+            out, out_sfc = self._radiation(x_sfc, gases, new_mem, out,
+                                           out_sfc)
         if self.add_stochastic_layer and self.ar_noise_rho > 0.0:
             return pol.cast_out(out), pol.cast_out(out_sfc), \
                 pol.cast_out(new_mem), eps_out
         return pol.cast_out(out), pol.cast_out(out_sfc), \
             pol.cast_out(new_mem)
+
+    def _radiation(self, x_sfc, gases, mem, out_crm, out_sfc_crm):
+        """JAX's ``_radiation`` (rnn.py:361-393): the radiation BiGRU on
+        every level from the gases and the CRM's memory (zero above the
+        CRM's levels) adds its heating to the CRM's dT there and predicts
+        the six radiative surface outputs; PRECSC and PRECC stay the
+        CRM's."""
+        L50, L = mem.shape[1], gases.shape[1]
+        pad = L - L50 if L != L50 else 10
+        above = lambda t: nn.functional.pad(t, (0, 0, pad, 0))
+        x_rad = torch.cat([gases, above(mem)], dim=-1)
+        hx = self.mlp_surface_rad(x_sfc[:, 6:12])
+        up, _ = self.rnn1_rad(x_rad, hx)
+        hx2 = self.mlp_toa_rad(x_sfc[:, 1:7:5])
+        down, last_h = self.rnn2_rad(up, hx2)
+        d_t_rad = self.mlp_output_rad(down)
+        out_sfc_rad = self.mlp_surface_output_rad(last_h)
+        out = above(out_crm)
+        out = torch.cat([out[..., :1] + d_t_rad, out[..., 1:]], dim=-1)
+        # [NETSW, FLWDS, PRECSC, PRECC, SOLS, SOLL, SOLSD, SOLLD]
+        out_sfc = torch.cat([out_sfc_rad[:, 0:2], out_sfc_crm,
+                             out_sfc_rad[:, 2:]], dim=1)
+        return out, out_sfc
 
     def noise_shape(self, B: int, L: int) -> tuple:
         """The shape of the stochastic layer's draw for B columns of L

@@ -75,7 +75,7 @@ __host__ __device__ inline size_t tile_rows(const Params& p) {
   return 3 * static_cast<size_t>(p.H) + xrows + p.nm;
 }
 
-template <typename T, bool kHoist, bool kTiles>
+template <typename T, bool kHoist, bool kTiles, bool kG16>
 __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x);
   const T* mem_in = static_cast<const T*>(p.mem_in);
@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
     load_tile(s_x + CH * BT, mem_in + static_cast<size_t>(l) * nmi * B, nmi,
               B, col0);
     __syncthreads();
-    gru_level<T, kHoist>(static_cast<const T*>(p.win1h), s_x, CH,
+    gru_level<T, kHoist, kG16>(static_cast<const T*>(p.win1h), s_x, CH,
                          static_cast<const T*>(p.win1m), s_x + CH * BT, nmi,
                          static_cast<const T*>(p.bin1),
                          static_cast<const T*>(p.whh_up),
@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
   }
 
   // ---- down sweep, top (l = 0) to surface, and the heads
-  down_sweep_heads<T, kHoist>(
+  down_sweep_heads<T, kHoist, kG16>(
       up, static_cast<const T*>(p.h0d), static_cast<const T*>(p.win2),
       static_cast<const T*>(p.bin2), static_cast<const T*>(p.whh_dn),
       static_cast<const T*>(p.bhh_dn), static_cast<const T*>(p.wlat),
@@ -121,27 +121,31 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_cm_kernel(Params p) {
       p.ny, B, col0);
 }
 
-template <typename T, bool kHoist>
+template <typename T, bool kHoist, bool kG16 = false>
 int launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.B + BT - 1) / BT;
   if (p.tiles != nullptr) {
-    bigru_heads_cm_kernel<T, kHoist, true><<<blocks, NTH, 0, stream>>>(p);
+    bigru_heads_cm_kernel<T, kHoist, true, kG16>
+        <<<blocks, NTH, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * BT * tile_rows(p);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_cm_kernel<T, kHoist, false>,
+      bigru_heads_cm_kernel<T, kHoist, false, kG16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_heads_cm_kernel<T, kHoist, false><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_cm_kernel<T, kHoist, false, kG16>
+      <<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hoist: 1 rounds the sweeps' input
-// projections to dtype before the gates (the TPU's hoisted body), 0 keeps
-// them f32. Weights are k-major ([in, out]), biases flat; activations
+// dtype: 0 = float32, 1 = bfloat16; g16: 1 for the bf16 gates
+// (acc32=False, bfloat16 only: both projections rounded whatever hoist
+// says, gates16.cuh); hoist: 1 rounds the sweeps' input projections to
+// dtype before the gates (the TPU's hoisted body), 0 keeps them f32.
+// Weights are k-major ([in, out]), biases flat; activations
 // channel-major [L, C, B] / [H, B], contiguous; nm_in may be 0. up is a
 // [L, H, B] scratch of the input type. tiles: null to keep the block's
 // tiles in shared memory ((3H + max(CH + nm_in, H) + nm) x 32 f32, up to
@@ -156,15 +160,16 @@ extern "C" int bigru_heads_cm(
     const void* win2, const void* bin2, const void* whh_dn,
     const void* bhh_dn, const void* wlat, const void* blat,
     const void* wout, const void* bout, void* outmem, void* lasth, void* up,
-    int L, int CH, int nm_in, int H, int nm, int ny, int B, void* tiles,
-    void* stream) {
+    int L, int CH, int nm_in, int H, int nm, int ny, int B, int g16,
+    void* tiles, void* stream) {
   Params p{x, mem_in, h0u, h0d, win1h, win1m, bin1, whh_up, bhh_up, win2,
            bin2, whh_dn, bhh_dn, wlat, blat, wout, bout, outmem, lasth, up,
            static_cast<float*>(tiles), L, CH, nm_in, H, nm, ny, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  if (dtype == 0) return hoist ? launch<float, true>(p, s)
-                               : launch<float, false>(p, s);
+  if (dtype == 0 && !g16) return hoist ? launch<float, true>(p, s)
+                                       : launch<float, false>(p, s);
+  if (dtype == 1 && g16) return launch<bf16, true, true>(p, s);
   if (dtype == 1) return hoist ? launch<bf16, true>(p, s)
                                : launch<bf16, false>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -183,7 +188,7 @@ extern "C" int bigru_heads_cm_cudacore(
   return bigru_heads_cm(1, hoist, x, mem_in, h0u, h0d, win1h, win1m, bin1,
                         whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
                         blat, wout, bout, outmem, lasth, up, L, CH, nm_in, H,
-                        nm, ny, B, tiles, stream);
+                        nm, ny, B, 0, tiles, stream);
 }
 
 // bf16 tensor-core design. ptrs, in order: x [L, CH, B], mem_in [L, nmi,
@@ -194,11 +199,13 @@ extern "C" int bigru_heads_cm_cudacore(
 // [H, B], up [L, H, B] scratch; H already padded to a multiple of 8 C,
 // nmi so that CH + nmi is a multiple of 16. stream: 1 for the
 // streamed-weights instantiation; hoist: 1 rounds both sweeps'
-// projections to bf16. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for shapes outside the design).
+// projections to bf16; g16: 1 for the bf16 gates (acc32=False, which
+// rounds both projections whatever hoist says). Returns the cudaError_t
+// of the launch (cudaErrorInvalidValue for shapes outside the design).
 extern "C" int bigru_heads_cm_mma(void* const* ptrs, int L, int CH, int nmi,
                                   int H, int nm, int ny, int B, int C,
-                                  int BT, int stream, int hoist, void* st) {
+                                  int BT, int stream, int hoist, int g16,
+                                  void* st) {
   using bmma::bf16;
   const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
   bf16* outmem = static_cast<bf16*>(ptrs[16]);
@@ -210,6 +217,7 @@ extern "C" int bigru_heads_cm_mma(void* const* ptrs, int L, int CH, int nmi,
                     nmo, nmo, B, B,
                     L, 0, CH, nmi, H, nm, ny, B, C, BT};
   cudaStream_t s = static_cast<cudaStream_t>(st);
-  return hoist ? bmma::launch_fwd<false, true, true>(p, stream, s)
-               : bmma::launch_fwd<false, false, true>(p, stream, s);
+  return hoist || g16
+             ? bmma::launch_fwd<false, true, true>(p, stream, g16, s)
+             : bmma::launch_fwd<false, false, true>(p, stream, 0, s);
 }

@@ -8,6 +8,7 @@
 // when it hoists the projections, as the TPU kernels store them).
 #pragma once
 #include "bigru_common.cuh"
+#include "gates16.cuh"
 
 namespace bigru {
 
@@ -16,7 +17,10 @@ namespace bigru {
 // input projection (K2 = 0 for the down sweep); xh = dt(h) [H][BT] is the
 // recurrent operand; hc [H][BT] the f32 state, updated in place (each
 // element is read and written by one thread); xh_new receives dt(h_new).
-template <typename T, bool kRoundXP>
+// kG16 (acc32=False, T bf16): the projection is rounded, the state is a
+// bf16 value and the gates run in bf16 arithmetic (gates16.cuh), the
+// recurrent product with its bias rounded on its own before the sums.
+template <typename T, bool kRoundXP, bool kG16 = false>
 __device__ __forceinline__ void gru_level(
     const T* __restrict__ W1, const float* X1, int K1,
     const T* __restrict__ W2, const float* X2, int K2,
@@ -38,16 +42,31 @@ __device__ __forceinline__ void gru_level(
       ar[q] += br;
       az[q] += bz;
       an[q] += bn;
-      if (kRoundXP) {                   // the projection is stored in dt
+      if (kRoundXP || kG16) {           // the projection is stored in dt
         ar[q] = rnd<T>(ar[q]);
         az[q] = rnd<T>(az[q]);
         an[q] = rnd<T>(an[q]);
       }
     }
-    // r and z take x + hh: accumulate the recurrent product onto x
-    gate_mv<T>(ar, az, hn, whh, H, H, j, xh, c0);
     const float cr = ldw(bhh + j), cz = ldw(bhh + H + j),
                 cn = ldw(bhh + 2 * H + j);
+    if constexpr (kG16) {
+      float hr[CG], hz[CG];
+#pragma unroll
+      for (int q = 0; q < CG; ++q) hr[q] = hz[q] = 0.0f;
+      gate_mv<T>(hr, hz, hn, whh, H, H, j, xh, c0);
+#pragma unroll
+      for (int q = 0; q < CG; ++q) {
+        const int e = j * BT + c0 + q;
+        const float h = gates16::step(ar[q], az[q], an[q], hr[q], hz[q],
+                                      hn[q], cr, cz, cn, hc[e]);
+        hc[e] = h;
+        xh_new[e] = h;
+      }
+      continue;
+    }
+    // r and z take x + hh: accumulate the recurrent product onto x
+    gate_mv<T>(ar, az, hn, whh, H, H, j, xh, c0);
 #pragma unroll
     for (int q = 0; q < CG; ++q) {
       const float r = sigmoidf_(ar[q] + cr);
@@ -75,8 +94,9 @@ __device__ __forceinline__ void store_up(T* up_l, const float* xh, int H,
 // with the heads: mem_l = dt(Wlat dt(h2) + blat), out_l = dt(Wout mem_l +
 // bout), outmem[l] = [mem_l; out_l]; lasth = dt(h2). Shared memory: s_hc,
 // xh0, xh1 [H][BT], s_x [H][BT], s_mem [nm][BT]. Starts with a barrier, so
-// the caller's up sweep may still be reading shared memory.
-template <typename T, bool kRoundXP>
+// the caller's up sweep may still be reading shared memory. kG16 as
+// gru_level's.
+template <typename T, bool kRoundXP, bool kG16 = false>
 __device__ __forceinline__ void down_sweep_heads(
     const T* up, const T* h0d, const T* win2, const T* bin2,
     const T* whh_dn, const T* bhh_dn, const T* __restrict__ wlat,
@@ -92,8 +112,8 @@ __device__ __forceinline__ void down_sweep_heads(
   for (int l = 0; l < L; ++l) {
     load_tile(s_x, up + static_cast<size_t>(l) * H * B, H, B, col0);
     __syncthreads();
-    gru_level<T, kRoundXP>(win2, s_x, H, win2, s_x, 0, bin2, whh_dn, bhh_dn,
-                           xh_cur, s_hc, xh_nxt, H);
+    gru_level<T, kRoundXP, kG16>(win2, s_x, H, win2, s_x, 0, bin2, whh_dn,
+                                 bhh_dn, xh_cur, s_hc, xh_nxt, H);
     __syncthreads();
     float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
     T* om = outmem + static_cast<size_t>(l) * nmo * B;

@@ -66,7 +66,7 @@ __host__ __device__ inline size_t tile_rows(const Params& p) {
   return 4 * static_cast<size_t>(p.H) + p.nm_in + p.nf + p.nm;
 }
 
-template <typename T, bool kTiles>
+template <typename T, bool kTiles, bool kG16>
 __global__ void __launch_bounds__(NTH, 2)
 bigru_heads_init_cm_kernel(Params p) {
   const T* feat = static_cast<const T*>(p.feat);
@@ -103,15 +103,17 @@ bigru_heads_init_cm_kernel(Params p) {
               B, col0);
     __syncthreads();
     // initial MLP: the pre-activation is rounded to dt before the tanh
+    // (with kG16 the TPU body's typed bf16 tanh, 2 sigmoid(2x) - 1)
     for (int e = tid; e < H * BT; e += NTH) {
       const int j = e / BT, c = e % BT;
       float a = 0.0f;
       for (int f = 0; f < nf; ++f)
         a = fmaf(ldw(winit + f * H + j), s_feat[f * BT + c], a);
-      s_x[e] = rnd<T>(tanhf(rnd<T>(a + ldw(binit + j))));
+      const float pre = rnd<T>(a + ldw(binit + j));
+      s_x[e] = kG16 ? gates16::tanh(pre) : rnd<T>(tanhf(pre));
     }
     __syncthreads();
-    gru_level<T, true>(static_cast<const T*>(p.win1h), s_x, H,
+    gru_level<T, true, kG16>(static_cast<const T*>(p.win1h), s_x, H,
                        static_cast<const T*>(p.win1m), s_x + H * BT, nmi,
                        static_cast<const T*>(p.bin1),
                        static_cast<const T*>(p.whh_up),
@@ -123,7 +125,7 @@ bigru_heads_init_cm_kernel(Params p) {
   }
 
   // ---- down sweep, top (l = 0) to surface, and the heads
-  down_sweep_heads<T, true>(up, static_cast<const T*>(p.h0d),
+  down_sweep_heads<T, true, kG16>(up, static_cast<const T*>(p.h0d),
                             static_cast<const T*>(p.win2),
                             static_cast<const T*>(p.bin2),
                             static_cast<const T*>(p.whh_dn),
@@ -132,19 +134,20 @@ bigru_heads_init_cm_kernel(Params p) {
                             s_x, s_mem, L, H, nm, ny, B, col0);
 }
 
-template <typename T>
+template <typename T, bool kG16 = false>
 int launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.B + BT - 1) / BT;
   if (p.tiles != nullptr) {
-    bigru_heads_init_cm_kernel<T, true><<<blocks, NTH, 0, stream>>>(p);
+    bigru_heads_init_cm_kernel<T, true, kG16><<<blocks, NTH, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * BT * tile_rows(p);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_init_cm_kernel<T, false>,
+      bigru_heads_init_cm_kernel<T, false, kG16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_heads_init_cm_kernel<T, false><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_init_cm_kernel<T, false, kG16>
+      <<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,7 +160,8 @@ int launch(const Params& p, cudaStream_t stream) {
 // sweeps' projections rounded to bf16 before the gates, as the v6 TPU
 // body stores them. Its weight slices are resident in shared memory up to
 // H ~ 320 and streamed through a ring beyond (bigru_mma.cuh).
-// dtype: 0 = float32, 1 = bfloat16. Weights are k-major ([in, out]),
+// dtype: 0 = float32, 1 = bfloat16; g16: 1 for the bf16 gates (acc32=False,
+// gates16.cuh; bfloat16 only). Weights are k-major ([in, out]),
 // biases flat; activations channel-major [L, C, B] / [H, B], contiguous.
 // up is a [L, H, B] scratch of the input type. tiles: null to keep the
 // block's tiles in shared memory ((4H + nm_in + nf + nm) x 32 f32, up to
@@ -174,14 +178,15 @@ extern "C" int bigru_heads_init_cm(
     const void* bin2, const void* whh_dn, const void* bhh_dn,
     const void* wlat, const void* blat, const void* wout, const void* bout,
     void* outmem, void* lasth, void* up, int L, int nf, int nm_in, int H,
-    int nm, int ny, int B, void* tiles, void* stream) {
+    int nm, int ny, int B, int g16, void* tiles, void* stream) {
   Params p{feat, mem_in, h0u, h0d, winit, binit, win1h, win1m, bin1,
            whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout,
            bout, outmem, lasth, up, static_cast<float*>(tiles), L, nf,
            nm_in, H, nm, ny, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  if (dtype == 0 && !g16) return launch<float>(p, s);
+  if (dtype == 1) return g16 ? launch<__nv_bfloat16, true>(p, s)
+                             : launch<__nv_bfloat16>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -199,7 +204,8 @@ extern "C" int bigru_heads_init_cm_cudacore(
   return bigru_heads_init_cm(1, feat, mem_in, h0u, h0d, winit, binit, win1h,
                              win1m, bin1, whh_up, bhh_up, win2, bin2, whh_dn,
                              bhh_dn, wlat, blat, wout, bout, outmem, lasth,
-                             up, L, nf, nm_in, H, nm, ny, B, tiles, stream);
+                             up, L, nf, nm_in, H, nm, ny, B, 0, tiles,
+                             stream);
 }
 
 // bf16 tensor-core design. ptrs, in order: feat [L, nf, B], mem_in
@@ -209,12 +215,13 @@ extern "C" int bigru_heads_init_cm_cudacore(
 // b2, bh_dn [3H], wlat [nm8][H] (rows past nm zero), blat [nm], wout
 // [ny, nm], bout [ny], outmem [L, nm + ny, B], lasth [H, B], up [L, H, B]
 // scratch; H and nmi already padded. stream: 1 for the streamed-weights
-// instantiation. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for shapes outside the design).
+// instantiation; g16: 1 for the bf16 gates (acc32=False, gates16.cuh).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for shapes
+// outside the design).
 extern "C" int bigru_heads_init_cm_mma(void* const* ptrs, int L, int nf,
                                        int nmi, int H, int nm, int ny,
                                        int B, int C, int BT, int stream,
-                                       void* st) {
+                                       int g16, void* st) {
   using bmma::bf16;
   const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
   bf16* outmem = static_cast<bf16*>(ptrs[18]);
@@ -225,6 +232,6 @@ extern "C" int bigru_heads_init_cm_mma(void* const* ptrs, int L, int nf,
                     static_cast<bf16*>(ptrs[19]), static_cast<bf16*>(ptrs[20]),
                     nmo, nmo, B, B,
                     L, nf, H, nmi, H, nm, ny, B, C, BT};
-  return bmma::launch_fwd<false, true>(p, stream,
+  return bmma::launch_fwd<false, true>(p, stream, g16,
                                        static_cast<cudaStream_t>(st));
 }

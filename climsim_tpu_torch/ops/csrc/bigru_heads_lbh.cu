@@ -110,7 +110,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float* src, int H,
   }
 }
 
-template <typename T, bool kInit, bool kTiles>
+template <typename T, bool kInit, bool kTiles, bool kG16>
 __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x);
   const T* mem_in = static_cast<const T*>(p.mem_in);
@@ -149,18 +149,21 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
       load_rows(s_x + ch * BT, mem_in + lev * nmi, nmi, B, col0);
       __syncthreads();
       // initial MLP: the pre-activation is rounded to dt before the tanh
+      // (with kG16 the TPU body's typed bf16 tanh, 2 sigmoid(2x) - 1)
       for (int e = tid; e < ch * BT; e += NTH) {
         const int j = e / BT, c = e % BT;
         float a = 0.0f;
         for (int f = 0; f < nx; ++f)
           a = fmaf(ldw(winit + f * ch + j), s_feat[f * BT + c], a);
-        s_x[e] = rnd<T>(tanhf(rnd<T>(a + ldw(binit + j))));
+        const float pre = rnd<T>(a + ldw(binit + j));
+        s_x[e] = kG16 ? gates16::tanh(pre) : rnd<T>(tanhf(pre));
       }
     } else {
       load_rows(s_x, x + lev * nx, nx, B, col0);
     }
     __syncthreads();
-    gru_level<T, false>(win1, s_x, ch, win1 + static_cast<size_t>(ch) * 3 * H,
+    gru_level<T, false, kG16>(win1, s_x, ch,
+                              win1 + static_cast<size_t>(ch) * 3 * H,
                         s_x + ch * BT, nmi, static_cast<const T*>(p.bin1),
                         static_cast<const T*>(p.whh_up),
                         static_cast<const T*>(p.bhh_up), xh_cur, s_hc, xh_nxt,
@@ -177,8 +180,8 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
   for (int l = 0; l < L; ++l) {
     load_tile(s_x, up + static_cast<size_t>(l) * H * B, H, B, col0);
     __syncthreads();
-    gru_level<T, false>(static_cast<const T*>(p.win2), s_x, H,
-                        static_cast<const T*>(p.win2), s_x, 0,
+    gru_level<T, false, kG16>(static_cast<const T*>(p.win2), s_x, H,
+                              static_cast<const T*>(p.win2), s_x, 0,
                         static_cast<const T*>(p.bin2),
                         static_cast<const T*>(p.whh_dn),
                         static_cast<const T*>(p.bhh_dn), xh_cur, s_hc, xh_nxt,
@@ -209,33 +212,38 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
   store_rows(static_cast<T*>(p.lasth), xh_cur, H, B, col0);
 }
 
-template <typename T, bool kInit>
+template <typename T, bool kInit, bool kG16 = false>
 int launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.B + BT - 1) / BT;
   if (p.tiles != nullptr) {
-    bigru_heads_lbh_kernel<T, kInit, true><<<blocks, NTH, 0, stream>>>(p);
+    bigru_heads_lbh_kernel<T, kInit, true, kG16>
+        <<<blocks, NTH, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * BT * tile_rows(p, kInit);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_heads_lbh_kernel<T, kInit, false>,
+      bigru_heads_lbh_kernel<T, kInit, false, kG16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_heads_lbh_kernel<T, kInit, false><<<blocks, NTH, smem, stream>>>(p);
+  bigru_heads_lbh_kernel<T, kInit, false, kG16>
+      <<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kInit>
-int dispatch(int dtype, const Params& p, void* stream) {
+int dispatch(int dtype, int g16, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, kInit>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16, kInit>(p, s);
+  if (dtype == 0 && !g16) return launch<float, kInit>(p, s);
+  if (dtype == 1) return g16 ? launch<__nv_bfloat16, kInit, true>(p, s)
+                             : launch<__nv_bfloat16, kInit>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor). Activations batch-major
+// dtype: 0 = float32, 1 = bfloat16 (every tensor); g16: 1 for the bf16
+// gates (acc32=False, bfloat16 only: both projections rounded,
+// gates16.cuh). Activations batch-major
 // and contiguous: x [L, B, nx], h0u/h0d [B, H]; weights k-major ([in,
 // out]), biases flat; out [L, B, ny], mem [L, B, nm], lasth [B, H]; up is
 // a [L, H, B] scratch of the input type. tiles: null to keep the block's
@@ -252,12 +260,12 @@ extern "C" int bigru_heads_lbh(
     const void* whh_dn, const void* bhh_dn, const void* wlat,
     const void* blat, const void* wout, const void* bout, void* out,
     void* mem, void* lasth, void* up, int L, int nx, int H, int nm, int ny,
-    int B, void* tiles, void* stream) {
+    int B, int g16, void* tiles, void* stream) {
   Params p{x, nullptr, h0u, h0d, nullptr, nullptr, win1, bin1, whh_up,
            bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
            out, mem, lasth, up, L, nx, nx, 0, H, nm, ny, B,
            static_cast<float*>(tiles)};
-  return dispatch<false>(dtype, p, stream);
+  return dispatch<false>(dtype, g16, p, stream);
 }
 
 // The v4 entry: feat [L, B, nf] and mem_in [L, B, nm_in] in, the initial
@@ -270,13 +278,13 @@ extern "C" int bigru_heads_init_lbh(
     const void* win2, const void* bin2, const void* whh_dn,
     const void* bhh_dn, const void* wlat, const void* blat, const void* wout,
     const void* bout, void* out, void* mem, void* lasth, void* up, int L,
-    int nf, int ch, int nm_in, int H, int nm, int ny, int B, void* tiles,
-    void* stream) {
+    int nf, int ch, int nm_in, int H, int nm, int ny, int B, int g16,
+    void* tiles, void* stream) {
   Params p{feat, mem_in, h0u, h0d, winit, binit, win1, bin1, whh_up,
            bhh_up, win2, bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
            out, mem, lasth, up, L, nf, ch, nm_in, H, nm, ny, B,
            static_cast<float*>(tiles)};
-  return dispatch<true>(dtype, p, stream);
+  return dispatch<true>(dtype, g16, p, stream);
 }
 
 // B10 in bf16 on the tensor-core design. ptrs, in order: feat [L, B, nf],
@@ -287,12 +295,13 @@ extern "C" int bigru_heads_init_lbh(
 // blat [nm], wout [ny, nm] (Wout^T), bout [ny], out [L, B, ny], mem [L,
 // B, nm], lasth [H, B], up [L, H, B] scratch; H, CH and nmi already padded
 // (H and CH to a multiple of 8 C, nmi to 16). stream: 1 for the
-// streamed-weights instantiation. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for shapes outside the design).
+// streamed-weights instantiation; g16: 1 for the bf16 gates (acc32=False:
+// both projections rounded, gates16.cuh). Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for shapes outside the design).
 extern "C" int bigru_heads_init_lbh_mma(void* const* ptrs, int L, int nf,
                                         int CH, int nmi, int H, int nm,
                                         int ny, int B, int C, int BT,
-                                        int stream, void* st) {
+                                        int stream, int g16, void* st) {
   using bmma::bf16;
   const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
   const size_t sB = B;
@@ -304,7 +313,7 @@ extern "C" int bigru_heads_init_lbh_mma(void* const* ptrs, int L, int nf,
                     static_cast<size_t>(nm) * sB, static_cast<size_t>(ny) * sB,
                     nm, ny,
                     L, nf, CH, nmi, H, nm, ny, B, C, BT};
-  return bmma::launch_fwd<true, false>(p, stream,
+  return bmma::launch_fwd<true, false>(p, stream, g16,
                                        static_cast<cudaStream_t>(st));
 }
 
@@ -315,11 +324,12 @@ extern "C" int bigru_heads_init_lbh_mma(void* const* ptrs, int L, int nf,
 // nm zero), blat [nm], wout [ny, nm] (Wout^T), bout [ny], out [L, B, ny],
 // mem [L, B, nm], lasth [H, B], up [L, H, B] scratch; H already padded to
 // a multiple of 8 C, KX (x's width) to 16. stream: 1 for the
-// streamed-weights instantiation. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for shapes outside the design).
+// streamed-weights instantiation; g16 as bigru_heads_init_lbh_mma's.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for shapes
+// outside the design).
 extern "C" int bigru_heads_lbh_mma(void* const* ptrs, int L, int KX, int H,
                                    int nm, int ny, int B, int C, int BT,
-                                   int stream, void* st) {
+                                   int stream, int g16, void* st) {
   using bmma::bf16;
   const bf16* const* c = reinterpret_cast<const bf16* const*>(ptrs);
   const size_t sB = B;
@@ -331,6 +341,6 @@ extern "C" int bigru_heads_lbh_mma(void* const* ptrs, int L, int KX, int H,
                     static_cast<size_t>(nm) * sB, static_cast<size_t>(ny) * sB,
                     nm, ny,
                     L, 0, KX, 0, H, nm, ny, B, C, BT};
-  return bmma::launch_fwd<true, false, true>(p, stream,
+  return bmma::launch_fwd<true, false, true>(p, stream, g16,
                                              static_cast<cudaStream_t>(st));
 }

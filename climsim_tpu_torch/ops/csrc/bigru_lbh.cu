@@ -73,7 +73,7 @@ __host__ __device__ inline size_t tile_rows(int H) {
   return 4 * static_cast<size_t>(H);
 }
 
-template <typename T, bool kTiles>
+template <typename T, bool kTiles, bool kG16>
 __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
   const T* xp = static_cast<const T*>(p.xp);
   const T* whh_up = static_cast<const T*>(p.whh_up);
@@ -100,9 +100,10 @@ __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
   load_level(xh_cur, static_cast<const T*>(p.h0u), H, B, col0);
   __syncthreads();
   for (int l = L - 1; l >= 0; --l) {
-    gru_level<T, false>(xp + static_cast<size_t>(l) * B * 3 * H, nullptr,
-                        nullptr, nullptr, whh_up, bhh_up, xh_cur, s_hc,
-                        xh_nxt, down + l * level, nullptr, H, B, col0);
+    gru_level<T, false, kG16>(xp + static_cast<size_t>(l) * B * 3 * H,
+                              nullptr, nullptr, nullptr, whh_up, bhh_up,
+                              xh_cur, s_hc, xh_nxt, down + l * level, nullptr,
+                              H, B, col0);
     __syncthreads();
     float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
   }
@@ -114,34 +115,36 @@ __global__ void __launch_bounds__(NTH, 2) bigru_lbh_kernel(Params p) {
   for (int l = 0; l < L; ++l) {
     load_level(s_x, down + l * level, H, B, col0);
     __syncthreads();
-    gru_level<T, false>(nullptr, win2, bin2, s_x, whh_dn, bhh_dn, xh_cur,
-                        s_hc, xh_nxt, down + l * level, nullptr, H, B,
-                        col0);
+    gru_level<T, false, kG16>(nullptr, win2, bin2, s_x, whh_dn, bhh_dn, xh_cur,
+                              s_hc, xh_nxt, down + l * level, nullptr, H, B,
+                              col0);
     __syncthreads();
     float* t = xh_cur; xh_cur = xh_nxt; xh_nxt = t;
   }
   store_level(lasth, xh_cur, H, B, col0);
 }
 
-template <typename T>
+template <typename T, bool kG16 = false>
 int launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.B + BT - 1) / BT;
   if (p.tiles != nullptr) {
-    bigru_lbh_kernel<T, true><<<blocks, NTH, 0, stream>>>(p);
+    bigru_lbh_kernel<T, true, kG16><<<blocks, NTH, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * tile_rows(p.H) * BT;
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_lbh_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      bigru_lbh_kernel<T, false, kG16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_lbh_kernel<T, false><<<blocks, NTH, smem, stream>>>(p);
+  bigru_lbh_kernel<T, false, kG16><<<blocks, NTH, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor). xp [L, B, 3H], h0u/h0d
+// dtype: 0 = float32, 1 = bfloat16 (every tensor); g16: 1 for the bf16
+// gates (acc32=False, bfloat16 only: the down projection rounded,
+// gates16.cuh). xp [L, B, 3H], h0u/h0d
 // [B, H], weights k-major [H, 3H], biases [3H], down [L, B, H], lasth
 // [B, H], all contiguous. tiles: null to keep the block's tiles in
 // shared memory (4H x 32 f32, up to H 448), or a device scratch of
@@ -154,12 +157,13 @@ extern "C" int bigru_lbh(int dtype, const void* xp, const void* h0u,
                          const void* bhh_up, const void* win2,
                          const void* bin2, const void* whh_dn,
                          const void* bhh_dn, void* down, void* lasth, int L,
-                         int H, int B, void* tiles, void* stream) {
+                         int H, int B, int g16, void* tiles, void* stream) {
   Params p{xp, h0u, h0d, whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn,
            down, lasth, static_cast<float*>(tiles), L, H, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  if (dtype == 0 && !g16) return launch<float>(p, s);
+  if (dtype == 1) return g16 ? launch<__nv_bfloat16, true>(p, s)
+                             : launch<__nv_bfloat16>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -202,7 +206,7 @@ __host__ __device__ inline size_t smem_bytes(int H, int C, int BT,
   return su.off > sd.off ? su.off : sd.off;
 }
 
-template <bool kStream>
+template <bool kStream, bool kG16>
 __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
   cg::cluster_group cl = cg::this_cluster();
   const int C = p.C, BT = p.BT, r = static_cast<int>(cl.block_rank());
@@ -245,9 +249,9 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
           an[i][q] = xq.v[2][i][q];
         }
       if (l > 0) xq.fetch(xp_l(l - 1), w, tl, r, Hc, H, B, col0);
-      gru_rec<kStream>(cl, R, ar, az, an, u.h + cur * BT * LDH, whu, LDH, H,
-                       Hc, u.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr, B,
-                       col0, u.ring);
+      gru_rec<kStream, kG16>(cl, R, ar, az, an, u.h + cur * BT * LDH, whu,
+                             LDH, H, Hc, u.h + (cur ^ 1) * BT * LDH, w, tl, r,
+                             nullptr, B, col0, u.ring);
       store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
       cl.sync();
       cur ^= 1;
@@ -281,10 +285,10 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
       const bool more = l + 1 < L;
       bf16* xn = d.x + (cur ^ 1) * BT * LDH;
       if (more) cp.fetch(p.down + (l + 1) * lvl, H, k0, k1, B, col0, BT);
-      gru_level<false, kStream>(cl, R, d.x + cur * BT * LDH, LDH, H, wx,
-                                d.h + cur * BT * LDH, wh, LDH, H, Hc,
-                                d.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr,
-                                B, col0, d.ring);
+      gru_level<false, kStream, false, kG16>(
+          cl, R, d.x + cur * BT * LDH, LDH, H, wx, d.h + cur * BT * LDH, wh,
+          LDH, H, Hc, d.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr, B, col0,
+          d.ring);
       store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
       if (more) {
         cp.commit(xn, LDH, k0, k1, BT);
@@ -298,7 +302,7 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
   }
 }
 
-int launch(const Params& p, int stream, cudaStream_t st) {
+int launch(const Params& p, int stream, int g16, cudaStream_t st) {
   const int C = p.C, BT = p.BT, H = p.H;
   if (C < 1 || C > 8 || BT % 16 != 0 || BT < 16 || NW % (BT / 16) != 0 ||
       H % (8 * C) != 0 || H / C / 8 > NW / (BT / 16) * MAXP ||
@@ -306,9 +310,15 @@ int launch(const Params& p, int stream, cudaStream_t st) {
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H, C, BT, stream != 0);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (g16)
+    return stream
+               ? launch_cluster(b7_mma_kernel<true, true>, p, C, BT, p.B,
+                                smem, st)
+               : launch_cluster(b7_mma_kernel<false, true>, p, C, BT, p.B,
+                                smem, st);
   if (stream)
-    return launch_cluster(b7_mma_kernel<true>, p, C, BT, p.B, smem, st);
-  return launch_cluster(b7_mma_kernel<false>, p, C, BT, p.B, smem, st);
+    return launch_cluster(b7_mma_kernel<true, false>, p, C, BT, p.B, smem, st);
+  return launch_cluster(b7_mma_kernel<false, false>, p, C, BT, p.B, smem, st);
 }
 
 }  // namespace b7
@@ -319,16 +329,17 @@ int launch(const Params& p, int stream, cudaStream_t st) {
 // [H, B] (channel-major), wh_up [C][3H/C][H] (the gate slices of
 // Whh_up^T, [out, in]), bh_up [3H], wx_dn (W2^T) and wh_dn like wh_up,
 // b2, bh_dn [3H], down [L, B, H], lasth [B, H]. stream: 1 for the
-// streamed-weights instantiation. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for shapes outside the design).
+// streamed-weights instantiation; g16: 1 for the bf16 gates (acc32=False:
+// the down projection rounded, gates16.cuh). Returns the cudaError_t of
+// the launch (cudaErrorInvalidValue for shapes outside the design).
 extern "C" int bigru_lbh_mma(void* const* q, int L, int H, int B, int C,
-                             int BT, int stream, void* st) {
+                             int BT, int stream, int g16, void* st) {
   using bmma::bf16;
   const auto c = [&](int i) { return static_cast<const bf16*>(q[i]); };
   bmma::b7::Params p{c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8),
                      static_cast<bf16*>(q[9]), static_cast<bf16*>(q[10]),
                      L, H, B, C, BT};
-  return bmma::b7::launch(p, stream, static_cast<cudaStream_t>(st));
+  return bmma::b7::launch(p, stream, g16, static_cast<cudaStream_t>(st));
 }
 
 // ------------------------------------------------ f32: cluster design

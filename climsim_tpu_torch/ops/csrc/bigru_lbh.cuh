@@ -9,6 +9,7 @@
 // are read and written at neighbouring j.
 #pragma once
 #include "bigru_common.cuh"
+#include "gates16.cuh"
 
 namespace bigru_v2 {
 
@@ -57,8 +58,10 @@ __device__ __forceinline__ void gates_mv(float (&a)[3][CG],
 // element is read and written by one thread); xh_new receives dt(h_new)
 // and out_l [B][H] the stored dt(h_new). With kGates the gate bundle
 // [r; z; n; hn] (hn with its bias) goes to gates_l [B][4H] in dt, as the
-// backward's replay stores it.
-template <typename T, bool kGates>
+// backward's replay stores it. kG16 (the forward's acc32=False, T bf16,
+// no kGates): the down sweep's projection is rounded, the state is a bf16
+// value and the gates run in bf16 arithmetic (gates16.cuh).
+template <typename T, bool kGates, bool kG16 = false>
 __device__ __forceinline__ void gru_level(
     const T* __restrict__ xp_l, const T* __restrict__ W2,
     const T* __restrict__ b2, const float* X2, const T* __restrict__ whh,
@@ -79,7 +82,8 @@ __device__ __forceinline__ void gru_level(
       for (int g = 0; g < 3; ++g) {
         const float bg = ldw(b2 + g * H + j);
 #pragma unroll
-        for (int q = 0; q < CG; ++q) x[g][q] += bg;
+        for (int q = 0; q < CG; ++q)
+          x[g][q] = kG16 ? rnd<T>(x[g][q] + bg) : x[g][q] + bg;
       }
     } else {
 #pragma unroll
@@ -94,6 +98,19 @@ __device__ __forceinline__ void gru_level(
     }
     const float cr = ldw(bhh + j), cz = ldw(bhh + H + j),
                 cn = ldw(bhh + 2 * H + j);
+    if constexpr (kG16) {
+#pragma unroll
+      for (int q = 0; q < CG; ++q) {
+        const int e = j * BT + c0 + q;
+        const float h = gates16::step(x[0][q], x[1][q], x[2][q], hh[0][q],
+                                      hh[1][q], hh[2][q], cr, cz, cn, hc[e]);
+        hc[e] = h;
+        xh_new[e] = h;
+        const int col = col0 + c0 + q;
+        if (col < B) out_l[static_cast<size_t>(col) * H + j] = from_f<T>(h);
+      }
+      continue;
+    }
 #pragma unroll
     for (int q = 0; q < CG; ++q) {
       const float r = sigmoidf_(x[0][q] + (hh[0][q] + cr));

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gates16.cuh"
+
 namespace bmma {
 
 namespace cg = cooperative_groups;
@@ -699,8 +701,11 @@ __device__ __forceinline__ void gru_regs_init(GruRegs& R, const Warp& w,
 // bh, n = tanh(xp_n + r (Whh_n dt(h) + bh_n)), h = (1 - z) n + z h in f32.
 // dt(h_new) goes to the CTA's own columns of Hnxt [BT][ldh] in every CTA
 // of the cluster (distributed shared memory); with gates (the replay) h's
-// gate bundle [r; z; n; hn] goes to gates [4H, B].
-template <bool kStream>
+// gate bundle [r; z; n; hn] goes to gates [4H, B]. kG16 (the forwards'
+// acc32=False): xp is bf16-rounded, the state is a bf16 value and the
+// gates run in bf16 arithmetic (gates16.cuh), the recurrent product with
+// its bias rounded on its own before the sums; no gate bundle.
+template <bool kStream, bool kG16 = false>
 __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
                                         float (&ar)[MAXP][4],
                                         float (&az)[MAXP][4],
@@ -710,10 +715,18 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
                                         const Warp& w, const Tiles& tl, int r,
                                         bf16* gates, int B, int col0,
                                         bf16* ring) {
-  float hn[MAXP][4];
+  float hn[MAXP][4], hr[MAXP][4], hz[MAXP][4];
   zero_acc(hn);
-  // r and z take x + hh: the recurrent product accumulates onto x
-  warp_mma3<kStream>(ar, az, hn, Hcur, ldh, Wh, Hc, w, tl, H, ring);
+  if constexpr (kG16) {
+    // the recurrent product of r and z on its own: it takes its bias and
+    // is rounded before the sum with x
+    zero_acc(hr);
+    zero_acc(hz);
+    warp_mma3<kStream>(hr, hz, hn, Hcur, ldh, Wh, Hc, w, tl, H, ring);
+  } else {
+    // r and z take x + hh: the recurrent product accumulates onto x
+    warp_mma3<kStream>(ar, az, hn, Hcur, ldh, Wh, Hc, w, tl, H, ring);
+  }
   const size_t sB = B;
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
@@ -721,6 +734,14 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
     float hv[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      if constexpr (kG16) {
+        hv[q] = gates16::step(ar[i][q], az[i][q], an[i][q], hr[i][q],
+                              hz[i][q], hn[i][q], R.bh[0][i][q & 1],
+                              R.bh[1][i][q & 1], R.bh[2][i][q & 1],
+                              R.h[i][q]);
+        R.h[i][q] = hv[q];
+        continue;
+      }
       const float rr = sigm(ar[i][q] + R.bh[0][i][q & 1]);
       const float zz = sigm(az[i][q] + R.bh[1][i][q & 1]);
       const float hq = hn[i][q] + R.bh[2][i][q & 1];
@@ -750,10 +771,12 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
 }
 
 // One GRU level with its input projection: xp = X Wx^T + bx (rounded to
-// bf16 with kRoundXP, as the v6 forward stores it; f32 in the v4 forward
-// and the backward's replays), then gru_rec. X [BT][ldx] with KX inputs,
-// or with kXT stored transposed, [KX][BT] swizzled (xt_chunk; ldx BT).
-template <bool kRoundXP, bool kStream, bool kXT = false>
+// bf16 with kRoundXP, as the v6 forward stores it, and always with kG16,
+// as every TPU body rounds it to its bf16 gate type; f32 in the v4
+// forward and the backward's replays), then gru_rec. X [BT][ldx] with KX
+// inputs, or with kXT stored transposed, [KX][BT] swizzled (xt_chunk;
+// ldx BT).
+template <bool kRoundXP, bool kStream, bool kXT = false, bool kG16 = false>
 __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
                                           const bf16* X, int ldx, int KX,
                                           WSlice Wx, const bf16* Hcur,
@@ -773,14 +796,14 @@ __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
       ar[i][q] += R.bx[0][i][q & 1];
       az[i][q] += R.bx[1][i][q & 1];
       an[i][q] += R.bx[2][i][q & 1];
-      if (kRoundXP) {
+      if (kRoundXP || kG16) {
         ar[i][q] = rnd(ar[i][q]);
         az[i][q] = rnd(az[i][q]);
         an[i][q] = rnd(an[i][q]);
       }
     }
-  gru_rec<kStream>(cl, R, ar, az, an, Hcur, Wh, ldh, H, Hc, Hnxt, w, tl, r,
-                   gates, B, col0, ring);
+  gru_rec<kStream, kG16>(cl, R, ar, az, an, Hcur, Wh, ldh, H, Hc, Hnxt, w,
+                         tl, r, gates, B, col0, ring);
 }
 
 // The heads' small parameters into shared memory as f32: hw = [blat (nm);

@@ -34,7 +34,8 @@
 //
 // The template picks the layout of the raw inputs and the heads' outputs,
 // the rounding of the projections and where the up sweep's input comes
-// from:
+// from (and kG16 the gate arithmetic: f32, or with acc32=False bf16, every
+// projection then rounded to bf16 as the TPU bodies round it):
 //   kBM false (B1): feat [L, nf, B], mem_in [L, nmi, B] in, outmem
 //     [L, nm + ny, B] out; kRoundXP true: both sweeps' projections are
 //     rounded to bf16 before the gates, as the v6 TPU body stores them;
@@ -90,7 +91,9 @@ struct FwdParams {
 
 // xi for the CTA's rows [k0, k0 + CHc) of the level whose raw features are
 // raw [nf][BT] f32: dt(tanh(dt(Winit feat + binit))), into X[b][k0 + .]
-// of every CTA of the cluster
+// of every CTA of the cluster; with kG16 the tanh is the TPU body's typed
+// bf16 one (gates16::tanh), as its bf16 input gives it
+template <bool kG16>
 __device__ __forceinline__ void xi_own(cg::cluster_group& cl, bf16* X,
                                        int ldx, const float* raw,
                                        const float* wi, const float* bi,
@@ -103,7 +106,8 @@ __device__ __forceinline__ void xi_own(cg::cluster_group& cl, bf16* X,
       const int jj = c * 8 + kk;
       float a = 0.0f;
       for (int f = 0; f < nf; ++f) a = fmaf(wi[jj * nf + f], raw[f * BT + b], a);
-      v[kk] = rnd(tanh_(rnd(a + bi[jj])));
+      v[kk] = kG16 ? gates16::tanh(rnd(a + bi[jj]))
+                   : rnd(tanh_(rnd(a + bi[jj])));
     }
     const uint4 v4 = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
                                 pack2(v[4], v[5]), pack2(v[6], v[7]));
@@ -173,7 +177,7 @@ __device__ __forceinline__ void load_x_tile_t(bf16* X, const bf16* x_l,
   }
 }
 
-template <bool kBM, bool kRoundXP, bool kStream, bool kLoadX>
+template <bool kBM, bool kRoundXP, bool kStream, bool kLoadX, bool kG16>
 __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
   // B4: the X tile loaded channel-major, stored transposed
   constexpr bool kXT = kLoadX && !kBM;
@@ -230,7 +234,7 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       pf.commit_split(u.raw, nf, u.x, LDX, CH, nf + nmi, BT);
       cp_async_wait_all();
       __syncthreads();
-      xi_own(cl, u.x, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+      xi_own<kG16>(cl, u.x, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
     }
     cl.sync();
     int cur = 0;
@@ -255,16 +259,17 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       if (s_ > 0)
         store_tile_t(p.up + (static_cast<size_t>(l + 1) * H + r * Hc) * sB,
                      hc, LDH, r * Hc, Hc, B, col0, BT);
-      gru_level<kRoundXP, kStream, kXT>(cl, R, xc, kXT ? BT : LDX, KX, wx,
-                                        hc, wh, LDH, H, Hc, hn, w, tl, r,
-                                        nullptr, B, col0, u.ring);
+      gru_level<kRoundXP, kStream, kXT, kG16>(cl, R, xc, kXT ? BT : LDX, KX,
+                                              wx, hc, wh, LDH, H, Hc, hn, w,
+                                              tl, r, nullptr, B, col0,
+                                              u.ring);
       if (more) {
         if constexpr (kLoadX) {
           cp_async_wait_all();     // the barrier below publishes the tile
         } else {
           pf.commit_split(u.raw, nf, xn, LDX, CH, nf + nmi, BT);
           __syncthreads();
-          xi_own(cl, xn, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
+          xi_own<kG16>(cl, xn, LDX, u.raw, u.wi, u.bi, nf, CHc, r * CHc, BT);
         }
       }
       cl.sync();
@@ -314,8 +319,9 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
       if (l > 0)
         heads(hc, LDH, d.wl, H, nm, nm8, d.hw, ny, d.mem, mem_o(l - 1),
               out_o(l - 1), B, col0, BT, r, C);
-      gru_level<kRoundXP, kStream>(cl, R, xc, LDH, H, wx, hc, wh, LDH, H, Hc,
-                                   hn, w, tl, r, nullptr, B, col0, d.ring);
+      gru_level<kRoundXP, kStream, false, kG16>(cl, R, xc, LDH, H, wx, hc,
+                                                wh, LDH, H, Hc, hn, w, tl, r,
+                                                nullptr, B, col0, d.ring);
       if (more) {
         cp.commit(xn, LDH, r * Hc, (r + 1) * Hc, BT);
         __syncthreads();
@@ -334,13 +340,15 @@ __global__ void __launch_bounds__(NTH, 1) mma_fwd_kernel(FwdParams p) {
 }
 
 // The launch of the forward: refuses (cudaErrorInvalidValue) the shapes
-// outside the design, picks the resident or the streamed instantiation.
+// outside the design, picks the resident or the streamed instantiation,
+// and with g16 the bf16-gate one (acc32=False: every projection rounded,
+// the gates in bf16 arithmetic, gates16.cuh).
 // The initial MLP's rows split over the cluster (CH a multiple of 8 C);
 // a loaded X tile only needs whole k-steps (B9: CH a multiple of 16; B4:
 // CH + nmi) and a swizzle period of the transposed one (B4: BT 16, 32 or
 // 64).
 template <bool kBM, bool kRoundXP, bool kLoadX = false>
-int launch_fwd(const FwdParams& p, int stream, cudaStream_t st) {
+int launch_fwd(const FwdParams& p, int stream, int g16, cudaStream_t st) {
   const int C = p.C, BT = p.BT;
   const bool widths = kLoadX
       ? (kBM ? p.CH % 16 == 0 && p.nmi == 0
@@ -356,11 +364,20 @@ int launch_fwd(const FwdParams& p, int stream, cudaStream_t st) {
   const size_t smem = fwd_smem(p.H, C, p.CH, p.nmi, p.nf, p.nm, p.ny, BT,
                                stream != 0, kLoadX && !kBM);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (g16) {
+    // the bf16-gate mode rounds every projection whatever kRoundXP says,
+    // so it has one instantiation
+    if (stream)
+      return launch_cluster(mma_fwd_kernel<kBM, true, true, kLoadX, true>, p,
+                            C, BT, p.B, smem, st);
+    return launch_cluster(mma_fwd_kernel<kBM, true, false, kLoadX, true>, p,
+                          C, BT, p.B, smem, st);
+  }
   if (stream)
-    return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, true, kLoadX>, p, C,
-                          BT, p.B, smem, st);
-  return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, false, kLoadX>, p, C,
-                        BT, p.B, smem, st);
+    return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, true, kLoadX, false>,
+                          p, C, BT, p.B, smem, st);
+  return launch_cluster(mma_fwd_kernel<kBM, kRoundXP, false, kLoadX, false>,
+                        p, C, BT, p.B, smem, st);
 }
 
 }  // namespace bmma

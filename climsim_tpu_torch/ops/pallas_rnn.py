@@ -30,6 +30,15 @@ The forward kernels B1, B4, B7, B9 and B10 are ``torch.library`` custom
 ops (``torch.ops.climsim.*``, ``ops/library.py``): each wrapper's
 ``autograd.Function`` calls its op, whose CPU implementation is the plain
 version and whose CUDA implementation the launch.
+
+Each forward takes the TPU bodies' ``acc32`` (its op carries it in its
+schema, so an exported program keeps it). ``acc32=False`` with a bf16
+input carries the hidden state in bf16 and rounds every gate operation
+to bf16, sigmoid and tanh built from exp and division as JAX's typed
+helpers build them (``_gates_typed``; ``csrc/gates16.cuh``); every
+projection is then rounded before the gates. With a float32 input the
+mode is the float32 computation. The backward kernels linearise the
+float32-gate forward in both modes, as JAX's do.
 """
 from __future__ import annotations
 
@@ -90,9 +99,41 @@ def _gru_step_gates_cm(h, xp, whh_t, bhh, H: int):
     return (1.0 - z) * n + z * h, (r, z, n, hn)
 
 
+def _sigmoid_typed(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_sigmoid_typed`` on a sub-f32 tensor: 1 / (1 + exp(-x)),
+    every operation rounded to x's type (``torch.sigmoid`` rounds once)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _tanh_typed(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_tanh_typed``: 2 sigmoid(2x) - 1, each operation in x's
+    type."""
+    return 2.0 * _sigmoid_typed(2.0 * x) - 1.0
+
+
+def _gates_typed(x, hh, h, H: int, dim: int):
+    """The GRU gates in the input type (JAX's ``_gru_step`` under
+    ``acc32=False``): x the projection (input bias included) and hh the
+    recurrent product with its bias, both rounded to h's type, h the
+    carried state; every sum, product and transcendental rounds."""
+    xr, xz, xn = x.split(H, dim)
+    hr, hz, hn = hh.split(H, dim)
+    r = _sigmoid_typed(xr + hr)
+    z = _sigmoid_typed(xz + hz)
+    n = _tanh_typed(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
 def _gru_step_cm(h, xp, whh_t, bhh, H: int):
-    """``_gru_step_gates_cm`` without the gates: the new h (float32)."""
-    return _gru_step_gates_cm(h, xp, whh_t, bhh, H)[0]
+    """``_gru_step_gates_cm`` without the gates: the new h. The state's
+    type is the gate arithmetic's: float32, or with ``acc32=False`` the
+    input type (bf16), where the recurrent product accumulates in float32,
+    takes its bias there and is rounded, and every gate operation rounds
+    (``_gates_typed``)."""
+    if h.dtype == torch.float32:
+        return _gru_step_gates_cm(h, xp, whh_t, bhh, H)[0]
+    hh = (_mm(whh_t, h) + bhh.float()).to(h.dtype)
+    return _gates_typed(xp.to(h.dtype), hh, h, H, 0)
 
 
 def _gru_bwd_step_cm(dh, gates, h_prev, whh_t, H: int):
@@ -113,23 +154,27 @@ def _gru_bwd_step_cm(dh, gates, h_prev, whh_t, H: int):
 def bigru_heads_cm_reference(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t,
                              bin1, whh_up_t, bhh_up, win2_t, bin2, whh_dn_t,
                              bhh_dn, wlat_t, blat, wout_t, bout,
-                             hoist_proj=True):
+                             hoist_proj=True, acc32=True):
     """Plain version of the v5 forward kernel (B4), level by level: x
     [L, CH, B] is the initial-MLP stream. With ``hoist_proj`` the sweeps'
     input projections are rounded to x's type before the gates, as the
-    TPU's hoisted body stores them; without, they stay float32."""
+    TPU's hoisted body stores them; without, they stay float32.
+    ``acc32=False`` runs the gates and carries the states in x's type
+    (both TPU bodies then round the projections, so ``hoist_proj`` changes
+    nothing); with a float32 x it is the float32 computation."""
     dt = x.dtype
-    rnd = (lambda t: t.to(dt)) if hoist_proj else (lambda t: t)
+    acc = torch.float32 if acc32 else dt
+    rnd = (lambda t: t.to(dt)) if hoist_proj or not acc32 else (lambda t: t)
     L = x.shape[0]
     H = whh_up_t.shape[1]
-    h = h0_up.float()
+    h = h0_up.to(acc)
     up = [None] * L
     for l in range(L - 1, -1, -1):
         xp = rnd(_mm(win1h_t, x[l]) + _mm(win1m_t, mem_in[l])
                  + bin1.float())
         h = _gru_step_cm(h, xp, whh_up_t, bhh_up, H)
         up[l] = h.to(dt)
-    h2 = h0_dn.float()
+    h2 = h0_dn.to(acc)
     outmem = []
     for l in range(L):
         xp2 = rnd(_mm(win2_t, up[l]) + bin2.float())
@@ -140,19 +185,32 @@ def bigru_heads_cm_reference(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t,
     return torch.stack(outmem), h2.to(dt)
 
 
+def _xi_tanh(pre: torch.Tensor, acc32: bool) -> torch.Tensor:
+    """The initial MLP's tanh of its pre-activation ``pre``, already
+    rounded to the input type: float32 tanh rounded once, or with
+    ``acc32=False`` and a sub-f32 input the TPU bodies' typed tanh. (The
+    TPU bodies take the typed tanh for a bf16 input in both modes; the
+    float32-gate kernels keep the float32 one, a departure of at most a
+    few bf16 ulps: ROADMAP C.)"""
+    if acc32 or pre.dtype == torch.float32:
+        return torch.tanh(pre.float()).to(pre.dtype)
+    return _tanh_typed(pre)
+
+
 def bigru_heads_init_cm_reference(feat, mem_in, h0_up, h0_dn, winit_t,
-                                  binit, *weights):
+                                  binit, *weights, acc32=True):
     """Plain version of the v6 forward kernel (B1): the initial MLP's
-    stream xi = dt(tanh(dt(Winit feat_l + binit))), then the v5 sweeps and
-    heads with the projections rounded, as the v6 kernel stores them.
-    ``weights`` are (win1h_t, win1m_t, bin1, whh_up_t, bhh_up, win2_t,
-    bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout)."""
+    stream xi = dt(tanh(dt(Winit feat_l + binit))) (``_xi_tanh``), then
+    the v5 sweeps and heads with the projections rounded, as the v6 kernel
+    stores them. ``weights`` are (win1h_t, win1m_t, bin1, whh_up_t,
+    bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t, bout);
+    ``acc32`` as ``bigru_heads_cm_reference``'s."""
     dt = feat.dtype
     xi = torch.stack([
-        torch.tanh((_mm(winit_t, feat[l]) + binit.float()).to(dt).float())
-        .to(dt) for l in range(feat.shape[0])])
+        _xi_tanh((_mm(winit_t, feat[l]) + binit.float()).to(dt), acc32)
+        for l in range(feat.shape[0])])
     return bigru_heads_cm_reference(xi, mem_in, h0_up, h0_dn, *weights,
-                                    hoist_proj=True)
+                                    hoist_proj=True, acc32=acc32)
 
 
 def bigru_heads_cm_bwd_reference(res, d_outmem, d_lasth):
@@ -302,13 +360,20 @@ def _flat(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(-1).contiguous()
 
 
-def _launch(args, dims, cudacore_bf16=False
+def _dtype_code(dt) -> int:
+    """The CUDA-core entries' dtype argument: 0 float32, 1 bf16 (the gate
+    mode is their ``g16`` argument, as the tensor-core entries')."""
+    return 0 if dt == torch.float32 else 1
+
+
+def _launch(args, dims, cudacore_bf16=False, g16=False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA-core design of B1 (f32, and bf16 past the tensor-core
-    plan), its tiles in shared memory or, where they do not fit, in a
-    device scratch (``_tile_scratch``); with ``cudacore_bf16`` its bf16
-    instantiation under the timing twin's C symbol
-    (``cudacore_bigru_heads_init_cm``), which counts no launch."""
+    plan; ``g16``: its bf16-gate instantiation), its tiles in shared
+    memory or, where they do not fit, in a device scratch
+    (``_tile_scratch``); with ``cudacore_bf16`` its bf16 instantiation
+    under the timing twin's C symbol (``cudacore_bigru_heads_init_cm``),
+    which counts no launch."""
     (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
      whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat, wout_t,
      bout) = args
@@ -326,16 +391,18 @@ def _launch(args, dims, cudacore_bf16=False
     lib = _build.load("bigru_heads_init_cm")
     head = []
     if cudacore_bf16:
+        if g16:
+            raise ValueError("the timing twin runs float32 gates only")
         fn = lib.bigru_heads_init_cm_cudacore
     else:
         fn = lib.bigru_heads_init_cm
-        head = [0 if dt == torch.float32 else 1]
+        head = [_dtype_code(dt)]
+    ints = [L, nf, nm_in, H, nm, ny, B] + [int(g16)] * (not cudacore_bf16)
     fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 22 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*head, *[t.data_ptr() for t in ptrs], L, nf, nm_in, H, nm, ny, B,
-            _ptr(tiles), stream)
+    rc = fn(*head, *[t.data_ptr() for t in ptrs], *ints, _ptr(tiles), stream)
     _build.check_status(rc, "bigru_heads_init_cm")
     if not cudacore_bf16:
         fused_bigru_heads_init_cm.launches += 1
@@ -627,7 +694,8 @@ def cudacore_rows(kind: str, H: int, CH: int = 0, nm_in: int = 0,
 
 
 def gru_design(kind: str, dtype, H: int, CH: int = 0, nm_in: int = 0,
-               nm: int = 0, ny: int = 0, nf: int = 0) -> dict:
+               nm: int = 0, ny: int = 0, nf: int = 0,
+               acc32: bool = True) -> dict:
     """The hand-written design that the kind's wrapper launches, from the
     dtype and the widths (the arguments as ``find_mma_plan``'s), never
     from a failed attempt:
@@ -639,10 +707,20 @@ def gru_design(kind: str, dtype, H: int, CH: int = 0, nm_in: int = 0,
         memory ("cudacore_smem") where 4 x 32 x ``cudacore_rows`` bytes
         fit a block, else in a device scratch ("cudacore_scratch"), which
         takes any width.
-    Returns dict(design=..., plan=...) (plan None for the CUDA-core
-    design)."""
+    ``acc32=False`` with a bf16 input asks for the gates in bf16 (the TPU
+    bodies' ``acc32=False``): every forward design above takes that mode
+    as a template parameter of its gate step, so the choice of design is
+    the same; the backward kinds B3 and B8 linearise the float32-gate
+    forward in both modes and take no such mode. A float32 input's gates
+    are float32 in both modes.
+    Returns dict(design=..., plan=..., gates="f32" or "bf16") (plan None
+    for the CUDA-core design)."""
     if kind not in GRU_KINDS:
         raise ValueError(f"unknown GRU kernel kind {kind!r}")
+    gates = "f32" if acc32 or dtype == torch.float32 else "bf16"
+    if gates == "bf16" and kind in ("b3", "b8"):
+        raise ValueError(f"{kind} has no bf16-gate mode: the backward "
+                         "linearises the float32-gate forward")
     plan = None
     if dtype == torch.bfloat16:
         plan = find_mma_plan(kind, H, CH, nm_in, nm, ny, nf)
@@ -654,7 +732,7 @@ def gru_design(kind: str, dtype, H: int, CH: int = 0, nm_in: int = 0,
         rows = cudacore_rows(kind, H, CH, nm_in, nm, ny, nf)
         design = ("cudacore_smem" if 4 * 32 * rows <= _SMEM_MAX
                   else "cudacore_scratch")
-    return dict(design=design, plan=plan)
+    return dict(design=design, plan=plan, gates=gates)
 
 
 def _tile_scratch(kind: str, dims: tuple, B: int, dev) -> torch.Tensor | None:
@@ -672,11 +750,13 @@ def _ptr(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _select(wrapper, kind: str, dtype, *widths) -> dict:
+def _select(wrapper, kind: str, dtype, *widths, acc32: bool = True) -> dict:
     """``gru_design`` for a launch of ``wrapper``, recorded as
-    ``wrapper.design`` (the name of the design its last launch ran)."""
-    d = gru_design(kind, dtype, *widths)
-    wrapper.design = d["design"]
+    ``wrapper.design`` (the name of the design its last launch ran, with
+    ``+bf16_gates`` where its gates ran in bf16)."""
+    d = gru_design(kind, dtype, *widths, acc32=acc32)
+    wrapper.design = d["design"] + ("+bf16_gates" if d["gates"] == "bf16"
+                                    else "")
     return d
 
 
@@ -784,9 +864,11 @@ def _table(ptrs):
     return (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
 
 
-def _launch_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_mma(args, dims, pl, g16=False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """B1 in bf16 on the tensor-core design with the plan ``pl`` (weights
-    resident or streamed, as ``find_mma_plan`` chooses from the widths)."""
+    resident or streamed, as ``find_mma_plan`` chooses from the widths);
+    ``g16``: the gates in bf16."""
     L, nf, nm_in, H, nm, ny, B = dims
     C, Hp = pl["C"], pl["H"]
     (feat, mem_in, h0_up, h0_dn, winit_t, binit, win1h_t, win1m_t, bin1,
@@ -803,11 +885,11 @@ def _launch_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
             _flat(bin2), pack_rows(whh_dn_t, C), _flat(bhh_dn), wlat8,
             _flat(blat), wout_t.contiguous(), _flat(bout), outmem, lasth, up]
     fn = _build.load("bigru_heads_init_cm").bigru_heads_init_cm_mma
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(_table(ptrs), L, nf, pl["nm_in"], Hp, nm, ny, B, C, pl["BT"],
-            int(pl["stream"]), stream)
+            int(pl["stream"]), int(g16), stream)
     _build.check_status(rc, "bigru_heads_init_cm_mma")
     fused_bigru_heads_init_cm.launches += 1
     return outmem, (lasth if Hp == H else lasth[:H].contiguous())
@@ -905,25 +987,28 @@ def bigru_heads_cm_bwd(res, d_outmem, d_lasth):
 
 @torch.library.custom_op("climsim::fused_bigru_heads_init_cm",
                          mutates_args=(), device_types="cpu")
-def _b1_op(args: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
-    """B1 as a custom op: on the CPU its plain version."""
+def _b1_op(acc32: bool, args: list[torch.Tensor]
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 as a custom op, its gate mode in the schema: on the CPU its plain
+    version."""
     _validate(args)
-    return fresh(bigru_heads_init_cm_reference(*args), args)
+    return fresh(bigru_heads_init_cm_reference(*args, acc32=acc32), args)
 
 
 @_b1_op.register_kernel("cuda")
-def _b1_cuda(args):
+def _b1_cuda(acc32, args):
     dims = _validate(args)
     L, nf, nm_in, H, nm, ny, B = dims
     d = _select(fused_bigru_heads_init_cm, "b1", args[0].dtype, H, H,
-                nm_in, nm, ny, nf)
+                nm_in, nm, ny, nf, acc32=acc32)
+    g16 = d["gates"] == "bf16"
     if d["design"] == "tensor_core":
-        return _launch_mma(args, dims, d["plan"])
-    return _launch(args, dims)
+        return _launch_mma(args, dims, d["plan"], g16)
+    return _launch(args, dims, g16=g16)
 
 
 @_b1_op.register_fake
-def _b1_fake(args):
+def _b1_fake(acc32, args):
     L, nf, nm_in, H, nm, ny, B = _validate(args)
     return args[0].new_empty((L, nm + ny, B)), args[0].new_empty((H, B))
 
@@ -933,12 +1018,14 @@ class _FusedHeadsInitCM(torch.autograd.Function):
     kernel, or its plain version on the CPU), saving only the inputs, as
     JAX's residuals are. Backward: the initial-MLP recompute,
     ``bigru_heads_cm_bwd``, and the initial MLP's VJP, which JAX leaves to
-    XLA einsums outside the kernel."""
+    XLA einsums outside the kernel. The backward linearises the
+    float32-gate forward whatever ``acc32`` the forward ran, as JAX's
+    does."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, acc32, *args):
         ctx.save_for_backward(*args)
-        return torch.ops.climsim.fused_bigru_heads_init_cm(list(args))
+        return torch.ops.climsim.fused_bigru_heads_init_cm(acc32, list(args))
 
     @staticmethod
     def backward(ctx, d_outmem, d_lasth):
@@ -957,21 +1044,22 @@ class _FusedHeadsInitCM(torch.autograd.Function):
         dwinit = torch.einsum("lhb,lfb->hf", dpre,
                               feat.float()).to(winit_t.dtype)
         dbinit = dpre.sum(dim=(0, 2))[:, None].to(binit.dtype)
-        return (dfeat, dmem, dh0u, dh0d, dwinit, dbinit, *wgrads)
+        return (None, dfeat, dmem, dh0u, dh0d, dwinit, dbinit, *wgrads)
 
 
 def fused_bigru_heads_init_cm(feat, mem_in, h0_up, h0_dn, winit_t, binit,
                               win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
                               win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,
-                              wout_t, bout):
+                              wout_t, bout, acc32=True):
     """v6 channel-major fused initial-MLP + BiGRU + heads, differentiable
     in all 19 arguments. A CPU tensor runs the plain versions; a CUDA
     tensor launches the forward kernel (and, for gradients, the backward
-    kernel) or raises."""
-    return _FusedHeadsInitCM.apply(feat, mem_in, h0_up, h0_dn, winit_t,
-                                   binit, win1h_t, win1m_t, bin1, whh_up_t,
-                                   bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
-                                   wlat_t, blat, wout_t, bout)
+    kernel) or raises. ``acc32=False`` runs a bf16 input's gates in bf16
+    (JAX's ``acc32``); the gradients are the float32-gate forward's."""
+    return _FusedHeadsInitCM.apply(bool(acc32), feat, mem_in, h0_up, h0_dn,
+                                   winit_t, binit, win1h_t, win1m_t, bin1,
+                                   whh_up_t, bhh_up, win2_t, bin2, whh_dn_t,
+                                   bhh_dn, wlat_t, blat, wout_t, bout)
 
 
 fused_bigru_heads_init_cm.launches = 0
@@ -986,10 +1074,11 @@ fused_bigru_heads_init_cm.design = bigru_heads_cm_bwd.design = None
 # --------------------------------------------------------------------------
 
 
-def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
+def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False, g16=False
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA-core design of B4 (f32, and bf16 past the tensor-core
-    plan), its tiles in shared memory or a device scratch, as ``_launch``;
+    plan; ``g16``: the gates in bf16), its tiles in shared memory or a
+    device scratch, as ``_launch``;
     with ``cudacore_bf16`` the timing twin
     (``cudacore_fused_bigru_heads_cm``), which counts no launch."""
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
@@ -1007,16 +1096,18 @@ def _launch_cm(args, dims, hoist_proj, cudacore_bf16=False
     lib = _build.load("bigru_heads_cm")
     head = [int(hoist_proj)]
     if cudacore_bf16:
+        if g16:
+            raise ValueError("the timing twin runs float32 gates only")
         fn = lib.bigru_heads_cm_cudacore
     else:
         fn = lib.bigru_heads_cm
-        head = [0 if dt == torch.float32 else 1] + head
+        head = [_dtype_code(dt)] + head
+    ints = [L, CH, nm_in, H, nm, ny, B] + [int(g16)] * (not cudacore_bf16)
     fn.argtypes = [ctypes.c_int] * len(head) + [ctypes.c_void_p] * 20 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*head, *[t.data_ptr() for t in ptrs], L, CH, nm_in, H, nm, ny, B,
-            _ptr(tiles), stream)
+    rc = fn(*head, *[t.data_ptr() for t in ptrs], *ints, _ptr(tiles), stream)
     _build.check_status(rc, "bigru_heads_cm")
     if not cudacore_bf16:
         fused_bigru_heads_cm.launches += 1
@@ -1034,12 +1125,12 @@ def pad_cm_args(args, Hp: int, nmip: int) -> tuple:
     return pad_res(args, Hp, args[0].shape[1], nmip)
 
 
-def _launch_cm_mma(args, dims, hoist_proj, pl
+def _launch_cm_mma(args, dims, hoist_proj, pl, g16=False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """B4 in bf16 on the tensor-core design with the plan ``pl``
     (bigru_mma_fwd.cuh's channel-major instance with a loaded X tile;
     weights resident or streamed, as ``find_mma_plan`` chooses from the
-    widths)."""
+    widths); ``g16``: the gates in bf16."""
     L, CH, nm_in, H, nm, ny, B = dims
     C, Hp, nmip = pl["C"], pl["H"], pl["nm_in"]
     (x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
@@ -1056,11 +1147,11 @@ def _launch_cm_mma(args, dims, hoist_proj, pl
             _pad(wlat_t, (_ceil(nm, 8), Hp)).contiguous(), _flat(blat),
             wout_t.contiguous(), _flat(bout), outmem, lasth, up]
     fn = _build.load("bigru_heads_cm").bigru_heads_cm_mma
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(_table(ptrs), L, CH, nmip, Hp, nm, ny, B, C, pl["BT"],
-            int(pl["stream"]), int(hoist_proj), stream)
+            int(pl["stream"]), int(hoist_proj), int(g16), stream)
     _build.check_status(rc, "bigru_heads_cm_mma")
     fused_bigru_heads_cm.launches += 1
     return outmem, (lasth if Hp == H else lasth[:H].contiguous())
@@ -1077,27 +1168,29 @@ def cudacore_fused_bigru_heads_cm(*args, hoist_proj=True
 
 @torch.library.custom_op("climsim::fused_bigru_heads_cm", mutates_args=(),
                          device_types="cpu")
-def _b4_op(hoist_proj: bool, args: list[torch.Tensor]
+def _b4_op(hoist_proj: bool, acc32: bool, args: list[torch.Tensor]
            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """B4 as a custom op: on the CPU its plain version."""
+    """B4 as a custom op, its gate mode in the schema: on the CPU its plain
+    version."""
     _validate_cm(args)
-    return fresh(bigru_heads_cm_reference(*args, hoist_proj=hoist_proj),
-                 args)
+    return fresh(bigru_heads_cm_reference(*args, hoist_proj=hoist_proj,
+                                          acc32=acc32), args)
 
 
 @_b4_op.register_kernel("cuda")
-def _b4_cuda(hoist_proj, args):
+def _b4_cuda(hoist_proj, acc32, args):
     dims = _validate_cm(args)
     L, CH, nm_in, H, nm, ny, B = dims
     d = _select(fused_bigru_heads_cm, "b4", args[0].dtype, H, CH, nm_in, nm,
-                ny)
+                ny, acc32=acc32)
+    g16 = d["gates"] == "bf16"
     if d["design"] == "tensor_core":
-        return _launch_cm_mma(args, dims, hoist_proj, d["plan"])
-    return _launch_cm(args, dims, hoist_proj)
+        return _launch_cm_mma(args, dims, hoist_proj, d["plan"], g16)
+    return _launch_cm(args, dims, hoist_proj, g16=g16)
 
 
 @_b4_op.register_fake
-def _b4_fake(hoist_proj, args):
+def _b4_fake(hoist_proj, acc32, args):
     L, CH, nm_in, H, nm, ny, B = _validate_cm(args)
     return args[0].new_empty((L, nm + ny, B)), args[0].new_empty((H, B))
 
@@ -1110,13 +1203,15 @@ class _FusedHeadsCM(torch.autograd.Function):
     (nm_in > 0) ``bigru_heads_cm_bwd`` on the forward's arguments (kernel
     B3 on the card, which replays the sweeps with float32 projections
     whatever the forward rounded); without, autograd of the plain
-    version."""
+    version. Both linearise the float32-gate forward whatever ``acc32``
+    the forward ran, as JAX's do."""
 
     @staticmethod
-    def forward(ctx, hoist_proj, *args):
+    def forward(ctx, hoist_proj, acc32, *args):
         ctx.save_for_backward(*args)
         ctx.hoist_proj = hoist_proj
-        return torch.ops.climsim.fused_bigru_heads_cm(hoist_proj, list(args))
+        return torch.ops.climsim.fused_bigru_heads_cm(hoist_proj, acc32,
+                                                      list(args))
 
     @staticmethod
     def backward(ctx, d_outmem, d_lasth):
@@ -1132,12 +1227,13 @@ class _FusedHeadsCM(torch.autograd.Function):
                                                hoist_proj=ctx.hoist_proj)
                 grads = torch.autograd.grad(out, a, (d_outmem, d_lasth),
                                             allow_unused=True)
-        return (None, *grads)
+        return (None, None, *grads)
 
 
 def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
                          whh_up_t, bhh_up, win2_t, bin2, whh_dn_t, bhh_dn,
-                         wlat_t, blat, wout_t, bout, hoist_proj=True):
+                         wlat_t, blat, wout_t, bout, hoist_proj=True,
+                         acc32=True):
     """v5 channel-major fused BiGRU + heads with the split up projection:
     x [L, CH, B] (the initial-MLP stream), mem_in [L, nm_in, B] (nm_in may
     be 0), h0_up/h0_dn [H, B], weights [out, in], biases [ch, 1] ->
@@ -1145,11 +1241,13 @@ def fused_bigru_heads_cm(x, mem_in, h0_up, h0_dn, win1h_t, win1m_t, bin1,
     all 17. ``hoist_proj`` picks the TPU body whose roundings the kernel
     reproduces (see ``bigru_heads_cm_reference``). A CPU tensor runs the
     plain versions; a CUDA tensor launches kernel B4 (the design
-    ``gru_design`` selects) and, for gradients, B3, or raises."""
-    return _FusedHeadsCM.apply(bool(hoist_proj), x, mem_in, h0_up, h0_dn,
-                               win1h_t, win1m_t, bin1, whh_up_t, bhh_up,
-                               win2_t, bin2, whh_dn_t, bhh_dn, wlat_t, blat,
-                               wout_t, bout)
+    ``gru_design`` selects) and, for gradients, B3, or raises.
+    ``acc32=False`` runs a bf16 input's gates in bf16; the gradients are
+    the float32-gate forward's."""
+    return _FusedHeadsCM.apply(bool(hoist_proj), bool(acc32), x, mem_in,
+                               h0_up, h0_dn, win1h_t, win1m_t, bin1,
+                               whh_up_t, bhh_up, win2_t, bin2, whh_dn_t,
+                               bhh_dn, wlat_t, blat, wout_t, bout)
 
 
 fused_bigru_heads_cm.launches = 0
@@ -1182,8 +1280,12 @@ def _gru_step_gates_lbh(h, xp, whh, bhh, H: int):
 
 
 def _gru_step_lbh(h, xp, whh, bhh, H: int):
-    """``_gru_step_gates_lbh`` without the gates: the new h (float32)."""
-    return _gru_step_gates_lbh(h, xp, whh, bhh, H)[0]
+    """``_gru_step_gates_lbh`` without the gates: the new h, in the state's
+    type (float32, or bf16 gates as ``_gru_step_cm``)."""
+    if h.dtype == torch.float32:
+        return _gru_step_gates_lbh(h, xp.float(), whh, bhh, H)[0]
+    hh = (torch.matmul(h.float(), whh.float()) + bhh.float()).to(h.dtype)
+    return _gates_typed(xp.to(h.dtype), hh, h, H, -1)
 
 
 def _gru_bwd_step_lbh(dh, gates, h_prev, whh, H: int):
@@ -1205,24 +1307,28 @@ def _gru_bwd_step_lbh(dh, gates, h_prev, whh, H: int):
 
 
 def bigru_reference_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
-                        whh_dn, bhh_dn):
-    """Plain version of B7 (JAX's ``_bigru_reference_lbh``): xp [L, B, 3H]
-    -> (down [L, B, H], last_h [B, H]) in xp's type. The carries are
-    float32; the up states are stored in xp's type and the down sweep's
-    input projection reads them rounded, in float32 without rounding its
-    result."""
+                        whh_dn, bhh_dn, acc32=True):
+    """Plain version of B7 (JAX's ``_bigru_reference_lbh``, and with
+    ``acc32=False`` the TPU body ``_bigru_kernel``'s bf16 gates): xp
+    [L, B, 3H] -> (down [L, B, H], last_h [B, H]) in xp's type. The
+    carries are float32; the up states are stored in xp's type and the
+    down sweep's input projection reads them rounded, in float32 without
+    rounding its result. With ``acc32=False`` the carries and the gates
+    are in xp's type and the down projection is rounded to it; with a
+    float32 xp that is the float32 computation."""
     dt = xp.dtype
+    acc = torch.float32 if acc32 else dt
     L, H = xp.shape[0], h0_up.shape[-1]
-    h = h0_up.float()
+    h = h0_up.to(acc)
     up = [None] * L
     for l in range(L - 1, -1, -1):
-        h = _gru_step_lbh(h, xp[l].float(), whh_up, bhh_up, H)
+        h = _gru_step_lbh(h, xp[l], whh_up, bhh_up, H)
         up[l] = h.to(dt)
-    h2 = h0_dn.float()
+    h2 = h0_dn.to(acc)
     down = []
     for l in range(L):
-        xp2 = torch.matmul(up[l].to(win2.dtype).float(), win2.float()) \
-            + bin2.float()
+        xp2 = (torch.matmul(up[l].to(win2.dtype).float(), win2.float())
+               + bin2.float()).to(acc)
         h2 = _gru_step_lbh(h2, xp2, whh_dn, bhh_dn, H)
         down.append(h2.to(dt))
     return torch.stack(down), h2.to(dt)
@@ -1241,10 +1347,12 @@ def _validate_lbh(args) -> tuple[int, int, int]:
     return L, B, H
 
 
-def _launch_lbh(args, dims, twin=False) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA-core design of B7 (f32 or bf16), its tiles in shared memory
-    or, past H 448, in a device scratch; with ``twin`` the timing twin
-    (``cudacore_fused_bigru_lbh``), which counts no launch."""
+def _launch_lbh(args, dims, twin=False, g16=False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core design of B7 (f32 or bf16; ``g16``: the gates in
+    bf16), its tiles in shared memory or, past H 448, in a device scratch;
+    with ``twin`` the timing twin (``cudacore_fused_bigru_lbh``), which
+    counts no launch."""
     xp = args[0]
     L, B, H = dims
     dt, dev = xp.dtype, xp.device
@@ -1257,11 +1365,11 @@ def _launch_lbh(args, dims, twin=False) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load("bigru_lbh")
     fn = lib.bigru_lbh
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
-            L, H, B, _ptr(tiles), stream)
+    rc = fn(_dtype_code(dt), *[t.data_ptr() for t in ptrs],
+            L, H, B, int(g16), _ptr(tiles), stream)
     _build.check_status(rc, "bigru_lbh")
     if not twin:
         fused_bigru_lbh.launches += 1
@@ -1487,12 +1595,13 @@ def _launch_bwd_lbh_mma(res, d_down, d_lasth, dims, pl
                             dw2.t(), db2, dwhd.t(), dbhd), H)
 
 
-def _launch_lbh_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_lbh_mma(args, dims, pl, g16=False
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """B7 in bf16 on the tensor-core design with the plan ``pl`` (B8's
     replay without the gate bundle; weights resident or streamed, as
-    ``find_mma_plan`` chooses from the width). The kernel writes down and
-    last_h batch-major and keeps the up states in ``down`` (no
-    scratch)."""
+    ``find_mma_plan`` chooses from the width; ``g16``: the gates in bf16).
+    The kernel writes down and last_h batch-major and keeps the up states
+    in ``down`` (no scratch)."""
     L, B, H = dims
     C, Hp = pl["C"], pl["H"]
     (xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
@@ -1506,10 +1615,11 @@ def _launch_lbh_mma(args, dims, pl) -> tuple[torch.Tensor, torch.Tensor]:
             bhh_up.contiguous(), pack_rows(win2.t(), C), bin2.contiguous(),
             pack_rows(whh_dn.t(), C), bhh_dn.contiguous(), down, lasth]
     fn = _build.load("bigru_lbh").bigru_lbh_mma
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_table(ptrs), L, Hp, B, C, pl["BT"], int(pl["stream"]), stream)
+    rc = fn(_table(ptrs), L, Hp, B, C, pl["BT"], int(pl["stream"]), int(g16),
+            stream)
     _build.check_status(rc, "bigru_lbh_mma")
     fused_bigru_lbh.launches += 1
     if Hp == H:
@@ -1658,25 +1768,28 @@ def bigru_bwd_lbh(res, d_down, d_lasth):
 
 @torch.library.custom_op("climsim::fused_bigru_lbh", mutates_args=(),
                          device_types="cpu")
-def _b7_op(args: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
-    """B7 as a custom op: on the CPU its plain version."""
+def _b7_op(acc32: bool, args: list[torch.Tensor]
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 as a custom op, its gate mode in the schema: on the CPU its plain
+    version."""
     _validate_lbh(args)
-    return fresh(bigru_reference_lbh(*args), args)
+    return fresh(bigru_reference_lbh(*args, acc32=acc32), args)
 
 
 @_b7_op.register_kernel("cuda")
-def _b7_cuda(args):
+def _b7_cuda(acc32, args):
     dims = _validate_lbh(args)
-    d = _select(fused_bigru_lbh, "b7", args[0].dtype, dims[2])
+    d = _select(fused_bigru_lbh, "b7", args[0].dtype, dims[2], acc32=acc32)
+    g16 = d["gates"] == "bf16"
     if d["design"] == "tensor_core":
-        return _launch_lbh_mma(args, dims, d["plan"])
+        return _launch_lbh_mma(args, dims, d["plan"], g16)
     if d["design"] == "f32_cluster":
         return _launch_lbh_f32(args, dims, d["plan"])
-    return _launch_lbh(args, dims)
+    return _launch_lbh(args, dims, g16=g16)
 
 
 @_b7_op.register_fake
-def _b7_fake(args):
+def _b7_fake(acc32, args):
     L, B, H = _validate_lbh(args)
     return args[0].new_empty((L, B, H)), args[0].new_empty((B, H))
 
@@ -1685,12 +1798,14 @@ class _FusedBiGRULBH(torch.autograd.Function):
     """Forward: the op ``climsim::fused_bigru_lbh`` (B7 in the design
     ``gru_design`` selects; the plain version on the CPU), saving the
     inputs, as JAX's residuals are. Backward: ``bigru_bwd_lbh``, kernel B8
-    on the card and its plain version on the CPU."""
+    on the card and its plain version on the CPU, which linearise the
+    float32-gate forward whatever ``acc32`` the forward ran, as JAX's
+    ``_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, acc32, *args):
         ctx.save_for_backward(*args)
-        return torch.ops.climsim.fused_bigru_lbh(list(args))
+        return torch.ops.climsim.fused_bigru_lbh(acc32, list(args))
 
     @staticmethod
     def backward(ctx, d_down, d_lasth):
@@ -1698,12 +1813,12 @@ class _FusedBiGRULBH(torch.autograd.Function):
         dt = args[0].dtype
         grads = bigru_bwd_lbh(args, d_down.to(dt).contiguous(),
                               d_lasth.to(dt).contiguous())
-        return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad))
+        return (None,) + tuple(g if need else None for g, need in
+                               zip(grads, ctx.needs_input_grad[1:]))
 
 
 def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
-                    bhh_dn):
+                    bhh_dn, acc32=True):
     """v2 fused bidirectional GRU, level-major: xp [L, B, 3H] (the hoisted
     up-sweep projection, input bias included), h0_up/h0_dn [B, H], weights
     [H, 3H] and biases [3H], all float32 or all bfloat16 -> (down
@@ -1711,9 +1826,10 @@ def fused_bigru_lbh(xp, h0_up, h0_dn, whh_up, bhh_up, win2, bin2, whh_dn,
     runs the plain versions; a CUDA tensor launches kernel B7 (the design
     ``gru_design`` selects: bf16 the tensor-core design, f32 the cluster
     FFMA design, each where its plan fits, else the CUDA-core one) and,
-    for gradients, B8, or raises."""
-    return _FusedBiGRULBH.apply(xp, h0_up, h0_dn, whh_up, bhh_up, win2,
-                                bin2, whh_dn, bhh_dn)
+    for gradients, B8, or raises. ``acc32=False`` runs a bf16 input's
+    gates in bf16; the gradients are the float32-gate forward's."""
+    return _FusedBiGRULBH.apply(bool(acc32), xp, h0_up, h0_dn, whh_up,
+                                bhh_up, win2, bin2, whh_dn, bhh_dn)
 
 
 fused_bigru_lbh.launches = 0
@@ -1779,24 +1895,27 @@ _ARGS_HEADS_INIT_LBH = ("feat", "mem_in", "h0_up", "h0_dn", "w_init",
 
 
 def _heads_sweeps_lbh(xp_of, L, dt, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
-                      whh_dn, bhh_dn, wlat, blat, wout, bout):
+                      whh_dn, bhh_dn, wlat, blat, wout, bout, acc32=True):
     """The v3/v4 TPU bodies' sweeps and heads level by level, batch-major:
     ``xp_of(l)`` gives the up sweep's float32 projection [B, 3H] (bias
     included, not rounded). The up states are stored in dt, the down
     sweep's projection reads them and stays float32; mem_l = dt(dt(h2) Wlat
-    + blat), out_l = dt(mem_l Wout + bout). Returns (out [L, B, ny], mem
-    [L, B, nm], last_h [B, H]) in dt."""
+    + blat), out_l = dt(mem_l Wout + bout). With ``acc32=False`` both
+    projections are rounded to dt and the carries and gates are in dt (the
+    bodies' ``acc``). Returns (out [L, B, ny], mem [L, B, nm], last_h
+    [B, H]) in dt."""
     H = h0_up.shape[-1]
+    acc = torch.float32 if acc32 else dt
     f = lambda t: t.float()
-    h = f(h0_up)
+    h = h0_up.to(acc)
     up = [None] * L
     for l in range(L - 1, -1, -1):
-        h = _gru_step_lbh(h, xp_of(l), whh_up, bhh_up, H)
+        h = _gru_step_lbh(h, xp_of(l).to(acc), whh_up, bhh_up, H)
         up[l] = h.to(dt)
-    h2 = f(h0_dn)
+    h2 = h0_dn.to(acc)
     outs, mems = [], []
     for l in range(L):
-        xp2 = torch.matmul(f(up[l]), f(win2)) + f(bin2)
+        xp2 = (torch.matmul(f(up[l]), f(win2)) + f(bin2)).to(acc)
         h2 = _gru_step_lbh(h2, xp2, whh_dn, bhh_dn, H)
         mem_l = (torch.matmul(f(h2.to(dt)), f(wlat)) + f(blat)).to(dt)
         outs.append((torch.matmul(f(mem_l), f(wout)) + f(bout)).to(dt))
@@ -1804,36 +1923,36 @@ def _heads_sweeps_lbh(xp_of, L, dt, h0_up, h0_dn, whh_up, bhh_up, win2, bin2,
     return torch.stack(outs), torch.stack(mems), h2.to(dt)
 
 
-def bigru_heads_lbh_reference(x, h0_up, h0_dn, win1, bin1, *weights):
+def bigru_heads_lbh_reference(x, h0_up, h0_dn, win1, bin1, *weights,
+                              acc32=True):
     """Plain version of B9 (the TPU body ``_bigru_heads_kernel``'s
     roundings, not the composition's): x [L, B, nx] -> (out [L, B, ny],
     mem [L, B, nm], last_h [B, H]) in x's type; the up projection x_l win1
-    + bin1 stays float32. ``weights`` are (whh_up, bhh_up, win2, bin2,
-    whh_dn, bhh_dn, wlat, blat, wout, bout), [in, out] and flat."""
+    + bin1 stays float32 (``acc32=False``: rounded, gates in x's type).
+    ``weights`` are (whh_up, bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
+    blat, wout, bout), [in, out] and flat."""
     return _heads_sweeps_lbh(
         lambda l: torch.matmul(x[l].float(), win1.float()) + bin1.float(),
-        x.shape[0], x.dtype, h0_up, h0_dn, *weights)
+        x.shape[0], x.dtype, h0_up, h0_dn, *weights, acc32=acc32)
 
 
 def bigru_heads_init_lbh_reference(feat, mem_in, h0_up, h0_dn, w_init,
-                                   b_init, win1, bin1, *weights):
+                                   b_init, win1, bin1, *weights, acc32=True):
     """Plain version of B10 (the TPU body ``_bigru_heads_init_kernel_merged``):
-    per level xi = dt(tanh(dt(feat_l w_init + b_init))), then the up
-    projection on [xi || mem_in_l] as two products (K = init width and
-    K = nm_in, no concatenation), float32; the rest as B9. On the TPU the
-    bf16 tanh is 2 sigmoid(2x) - 1 evaluated in bf16, which differs from
-    this float32 tanh by a bf16 rounding."""
+    per level xi = dt(tanh(dt(feat_l w_init + b_init))) (``_xi_tanh``),
+    then the up projection on [xi || mem_in_l] as two products (K = init
+    width and K = nm_in, no concatenation), float32; the rest as B9."""
     dt, CH = feat.dtype, w_init.shape[1]
     f = lambda t: t.float()
 
     def xp_of(l):
-        xi = torch.tanh(f((torch.matmul(f(feat[l]), f(w_init))
-                           + f(b_init)).to(dt))).to(dt)
+        xi = _xi_tanh((torch.matmul(f(feat[l]), f(w_init))
+                       + f(b_init)).to(dt), acc32)
         return (torch.matmul(f(xi), f(win1[:CH]))
                 + torch.matmul(f(mem_in[l]), f(win1[CH:])) + f(bin1))
 
     return _heads_sweeps_lbh(xp_of, feat.shape[0], dt, h0_up, h0_dn,
-                             *weights)
+                             *weights, acc32=acc32)
 
 
 def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
@@ -1865,9 +1984,11 @@ def _validate_heads_lbh(args, init: bool) -> tuple[int, ...]:
     return L, B, nx, ch, nm_in, H, nm, ny
 
 
-def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
+def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False,
+                      g16=False):
     """The CUDA-core design of B9 and B10 (f32, and bf16 past the
-    tensor-core plan), its tiles in shared memory or a device scratch, as
+    tensor-core plan; ``g16``: the gates in bf16), its tiles in shared
+    memory or a device scratch, as
     ``_launch``; with ``cudacore_bf16`` the timing twins
     (``cudacore_bigru_heads_lbh``, ``cudacore_bigru_heads_init_lbh``),
     which count no launch."""
@@ -1885,17 +2006,17 @@ def _launch_heads_lbh(args, dims, init: bool, cudacore_bf16=False):
     lib = _build.load("bigru_heads_lbh")
     if init:
         fn, wrapper = lib.bigru_heads_init_lbh, fused_bigru_heads_init_lbh
-        ints = (L, nx, ch, nm_in, H, nm, ny, B)
+        ints = (L, nx, ch, nm_in, H, nm, ny, B, int(g16))
         tiles = _tile_scratch("b10", (H, ch, nm_in, nm, ny, nx), B, dev)
     else:
         fn, wrapper = lib.bigru_heads_lbh, fused_bigru_heads_lbh
-        ints = (L, nx, H, nm, ny, B)
+        ints = (L, nx, H, nm, ny, B, int(g16))
         tiles = _tile_scratch("b9", (H, nx, 0, nm), B, dev)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(ptrs) \
         + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(0 if dt == torch.float32 else 1, *[t.data_ptr() for t in ptrs],
+    rc = fn(_dtype_code(dt), *[t.data_ptr() for t in ptrs],
             *ints, _ptr(tiles), stream)
     name = "bigru_heads_init_lbh" if init else "bigru_heads_lbh"
     _build.check_status(rc, name)
@@ -1940,11 +2061,12 @@ def pad_heads_init_lbh(args, Hp: int, CHp: int, nmip: int) -> tuple:
             _pad(wlat, (Hp, wlat.shape[1])), blat, wout, bout)
 
 
-def _launch_heads_lbh_mma(args, dims, init: bool, pl):
+def _launch_heads_lbh_mma(args, dims, init: bool, pl, g16=False):
     """B9 or, with ``init``, B10 in bf16 on the tensor-core design with the
     plan ``pl`` (bigru_mma_fwd.cuh's batch-major instances: B9's X tile
     loaded, B10's computed by the initial MLP; weights resident or
-    streamed, as ``find_mma_plan`` chooses from the widths)."""
+    streamed, as ``find_mma_plan`` chooses from the widths; ``g16``: the
+    gates in bf16)."""
     L, B, nx, ch, nm_in, H, nm, ny = dims
     if init:
         a = pad_heads_init_lbh(args, pl["H"], pl["CH"], pl["nm_in"])
@@ -1980,7 +2102,8 @@ def _launch_heads_lbh_mma(args, dims, init: bool, pl):
         cm(wout), bout.contiguous(), out, mem, lasth, up]
     name = "bigru_heads_init_lbh_mma" if init else "bigru_heads_lbh_mma"
     fn = getattr(_build.load("bigru_heads_lbh"), name)
-    ints = (L, *widths, Hp, nm, ny, B, C, pl["BT"], int(pl["stream"]))
+    ints = (L, *widths, Hp, nm, ny, B, C, pl["BT"], int(pl["stream"]),
+            int(g16))
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(ints) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2031,18 +2154,19 @@ def _heads_init_compose_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
                               *rest)
 
 
-def _heads_lbh_cuda(args, init: bool):
+def _heads_lbh_cuda(args, init: bool, acc32: bool = True):
     dims = _validate_heads_lbh(args, init)
     L, B, nx, ch, nm_in, H, nm, ny = dims
     if init:
         d = _select(fused_bigru_heads_init_lbh, "b10", args[0].dtype, H, ch,
-                    nm_in, nm, ny, nx)
+                    nm_in, nm, ny, nx, acc32=acc32)
     else:
         d = _select(fused_bigru_heads_lbh, "b9", args[0].dtype, H, nx, 0, nm,
-                    ny)
+                    ny, acc32=acc32)
+    g16 = d["gates"] == "bf16"
     if d["design"] == "tensor_core":
-        return _launch_heads_lbh_mma(args, dims, init, d["plan"])
-    return _launch_heads_lbh(args, dims, init)
+        return _launch_heads_lbh_mma(args, dims, init, d["plan"], g16)
+    return _launch_heads_lbh(args, dims, init, g16=g16)
 
 
 def _heads_lbh_fake(args, init: bool):
@@ -2053,26 +2177,30 @@ def _heads_lbh_fake(args, init: bool):
 
 @torch.library.custom_op("climsim::fused_bigru_heads_lbh", mutates_args=(),
                          device_types="cpu")
-def _b9_op(args: list[torch.Tensor]
+def _b9_op(acc32: bool, args: list[torch.Tensor]
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B9 as a custom op: on the CPU its plain version."""
+    """B9 as a custom op, its gate mode in the schema: on the CPU its plain
+    version."""
     _validate_heads_lbh(args, False)
-    return fresh(bigru_heads_lbh_reference(*args), args)
+    return fresh(bigru_heads_lbh_reference(*args, acc32=acc32), args)
 
 
 @torch.library.custom_op("climsim::fused_bigru_heads_init_lbh",
                          mutates_args=(), device_types="cpu")
-def _b10_op(args: list[torch.Tensor]
+def _b10_op(acc32: bool, args: list[torch.Tensor]
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B10 as a custom op: on the CPU its plain version."""
+    """B10 as a custom op, its gate mode in the schema: on the CPU its
+    plain version."""
     _validate_heads_lbh(args, True)
-    return fresh(bigru_heads_init_lbh_reference(*args), args)
+    return fresh(bigru_heads_init_lbh_reference(*args, acc32=acc32), args)
 
 
-_b9_op.register_kernel("cuda")(lambda args: _heads_lbh_cuda(args, False))
-_b9_op.register_fake(lambda args: _heads_lbh_fake(args, False))
-_b10_op.register_kernel("cuda")(lambda args: _heads_lbh_cuda(args, True))
-_b10_op.register_fake(lambda args: _heads_lbh_fake(args, True))
+_b9_op.register_kernel("cuda")(
+    lambda acc32, args: _heads_lbh_cuda(args, False, acc32))
+_b9_op.register_fake(lambda acc32, args: _heads_lbh_fake(args, False))
+_b10_op.register_kernel("cuda")(
+    lambda acc32, args: _heads_lbh_cuda(args, True, acc32))
+_b10_op.register_fake(lambda acc32, args: _heads_lbh_fake(args, True))
 
 
 class _FusedHeadsLBH(torch.autograd.Function):
@@ -2084,15 +2212,17 @@ class _FusedHeadsLBH(torch.autograd.Function):
     whose recurrent core replays with B7 and differentiates with B8 on the
     card. The composition rounds the up projection to the input type
     before the v2 kernel, so in bf16 the replay differs from the forward
-    kernel by that rounding, as on the TPU."""
+    kernel by that rounding, as on the TPU. The replay runs float32 gates
+    whatever ``acc32`` the forward ran, so the gradients are the
+    float32-gate forward's in both modes."""
 
     @staticmethod
-    def forward(ctx, init, *args):
+    def forward(ctx, init, acc32, *args):
         ctx.save_for_backward(*args)
         ctx.init = init
         op = (torch.ops.climsim.fused_bigru_heads_init_lbh if init
               else torch.ops.climsim.fused_bigru_heads_lbh)
-        return op(list(args))
+        return op(acc32, list(args))
 
     @staticmethod
     def backward(ctx, d_out, d_mem, d_lasth):
@@ -2103,36 +2233,42 @@ class _FusedHeadsLBH(torch.autograd.Function):
             outs = compose(*a)
             grads = torch.autograd.grad(outs, a, (d_out, d_mem, d_lasth),
                                         allow_unused=True)
-        return (None,) + tuple(g if need else None for g, need in
-                               zip(grads, ctx.needs_input_grad[1:]))
+        return (None, None) + tuple(g if need else None for g, need in
+                                     zip(grads, ctx.needs_input_grad[2:]))
 
 
 def fused_bigru_heads_lbh(x, h0_up, h0_dn, win1, bin1, whh_up, bhh_up, win2,
-                          bin2, whh_dn, bhh_dn, wlat, blat, wout, bout):
+                          bin2, whh_dn, bhh_dn, wlat, blat, wout, bout,
+                          acc32=True):
     """v3 fused BiGRU with the up-sweep input projection and the latent and
     output heads inside, batch-major: x [L, B, nx], h0_up/h0_dn [B, H],
     weights [in, out] (win1 [nx, 3H], wlat [H, nm], wout [nm, ny]) and flat
     biases, all float32 or all bfloat16 -> (out [L, B, ny], mem [L, B, nm],
     last_h [B, H]); differentiable in all 15. A CPU tensor runs the plain
     versions; a CUDA tensor launches kernel B9 (the design ``gru_design``
-    selects) and, for gradients, B7 and B8, or raises."""
-    return _FusedHeadsLBH.apply(False, x, h0_up, h0_dn, win1, bin1, whh_up,
-                                bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
-                                blat, wout, bout)
+    selects) and, for gradients, B7 and B8, or raises. ``acc32=False``
+    runs a bf16 input's gates in bf16; the gradients are the float32-gate
+    forward's."""
+    return _FusedHeadsLBH.apply(False, bool(acc32), x, h0_up, h0_dn, win1,
+                                bin1, whh_up, bhh_up, win2, bin2, whh_dn,
+                                bhh_dn, wlat, blat, wout, bout)
 
 
 def fused_bigru_heads_init_lbh(feat, mem_in, h0_up, h0_dn, w_init, b_init,
                                win1, bin1, whh_up, bhh_up, win2, bin2,
-                               whh_dn, bhh_dn, wlat, blat, wout, bout):
+                               whh_dn, bhh_dn, wlat, blat, wout, bout,
+                               acc32=True):
     """v4: v3 with the initial tanh MLP and the memory concat inside:
     feat [L, B, nf], mem_in [L, B, nm_in], w_init [nf, CH], b_init [CH],
     win1 [CH + nm_in, 3H], the rest as ``fused_bigru_heads_lbh`` -> (out,
     mem, last_h); differentiable in all 18. A CPU tensor runs the plain
     versions; a CUDA tensor launches kernel B10 (the design ``gru_design``
-    selects) and, for gradients, B7 and B8, or raises."""
-    return _FusedHeadsLBH.apply(True, feat, mem_in, h0_up, h0_dn, w_init,
-                                b_init, win1, bin1, whh_up, bhh_up, win2,
-                                bin2, whh_dn, bhh_dn, wlat, blat, wout, bout)
+    selects) and, for gradients, B7 and B8, or raises. ``acc32`` as
+    ``fused_bigru_heads_lbh``'s."""
+    return _FusedHeadsLBH.apply(True, bool(acc32), feat, mem_in, h0_up,
+                                h0_dn, w_init, b_init, win1, bin1, whh_up,
+                                bhh_up, win2, bin2, whh_dn, bhh_dn, wlat,
+                                blat, wout, bout)
 
 
 fused_bigru_heads_lbh.launches = 0

@@ -366,8 +366,12 @@ class RolloutTrainer:
         self.model = model
         self._apply = apply_fn or (
             lambda m, xl, xs, mem, xr: m(xl, xs, mem))
+        # the default memory: one per level, or with separate radiation
+        # the CRM's 50 bottom levels (JAX's trainer, rollout.py:250-256)
         self._mem_shape = mem_shape or (
-            lambda B, nlev: (B, nlev, getattr(model, "nh_mem", 16)))
+            lambda B, nlev: (B, 50 if getattr(model, "separate_radiation",
+                                              False) else nlev,
+                             getattr(model, "nh_mem", 16)))
         self.cfg = cfg
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                       device=self.device)

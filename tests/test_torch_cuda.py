@@ -2189,3 +2189,124 @@ def test_offline_new_arms_on_card(cuda, tmp_path, over, capsys):
             if ln.startswith('{"epoch"')]
     assert [r["epoch"] for r in recs] == [0, 1]
     assert all(np.isfinite(v) for r in recs for v in r.values())
+
+
+# ------------------------------------------------------------------------
+# the forwards' bf16-gate mode (acc32=False): every design the selector can
+# choose for a bf16 input takes it
+
+G16_KINDS = ["b1", "b4", "b4_unhoisted", "b7", "b9", "b10"]
+
+
+def _g16_case(kind, L, H, B, device):
+    """(wrapper, plain, args, kw) of a forward kind in bf16, kw the v5
+    body's hoist_proj where the kind has it."""
+    base = "b4" if kind.startswith("b4") else kind
+    wrapper, plain, args = _kind_case(base, L, H, B, torch.bfloat16, device)
+    kw = {"hoist_proj": False} if kind == "b4_unhoisted" else {}
+    return wrapper, plain, args, kw
+
+
+def _g16_holds(got, want16, want32):
+    """Each output of a bf16-gate launch against the plain bf16-gate
+    version (want16) and the plain float32-gate version on the same bf16
+    inputs (want32): its mean distance from want16 at most half the
+    modes' own mean distance and below its mean distance from want32 (a
+    launch that ran float32 gates lands near want32 and fails), its
+    largest difference as _bf16_holds holds it. The largest differences
+    alone cannot tell the modes apart: a rounding that flips with the
+    summation order travels as far as the modes' difference."""
+    _bf16_holds(got, want16, want32)
+    for i, (g, w, w32) in enumerate(zip(got, want16, want32)):
+        g, w, w32 = g.float(), w.float(), w32.float()
+        gap = (w - w32).abs().mean().item()
+        m16 = (g - w).abs().mean().item()
+        assert gap > 0, i
+        assert m16 <= 0.5 * gap and m16 < (g - w32).abs().mean().item(), \
+            (i, m16, gap)
+
+
+def _g16_launch(kind, args, kw):
+    """The kind's CUDA-core design in its bf16-gate instantiation, called
+    directly (the selector picks it only past the tensor-core plan)."""
+    from climsim_tpu_torch.ops import pallas_rnn as PR
+    if kind == "b1":
+        return PR._launch(args, PR._validate(args), g16=True)
+    if kind.startswith("b4"):
+        return PR._launch_cm(args, PR._validate_cm(args),
+                             kw.get("hoist_proj", True), g16=True)
+    if kind == "b7":
+        return PR._launch_lbh(args, PR._validate_lbh(args), g16=True)
+    init = kind == "b10"
+    return PR._launch_heads_lbh(args, PR._validate_heads_lbh(args, init),
+                                init, g16=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", G16_KINDS)
+@pytest.mark.parametrize("H", [32, 968])
+def test_bf16_gate_mode_matches_plain(cuda, kind, H):
+    """acc32=False through the wrapper (H 32: the tensor-core design; H 968:
+    the CUDA-core design with its tiles in device scratch), one launch
+    counted and the design recorded with its gate mode, and at H 32 the
+    CUDA-core design's shared-memory instantiation called directly: each
+    against the plain bf16-gate version (L 12, 150 columns, ragged) by
+    _g16_holds; both do the same bf16 operations, and differ by the f32
+    summation order of the products."""
+    wrapper, plain, args, kw = _g16_case(kind, 12 if H == 32 else 4, H, 150,
+                                         cuda)
+    before = wrapper.launches
+    with torch.no_grad():
+        got = wrapper(*args, acc32=False, **kw)
+        want = plain(*args, acc32=False, **kw)
+        want32 = plain(*args, acc32=True, **kw)
+    assert wrapper.launches == before + 1
+    base = "tensor_core" if H == 32 else "cudacore_scratch"
+    assert wrapper.design == base + "+bf16_gates"
+    _g16_holds(got, want, want32)
+    if H == 32:
+        with torch.no_grad():
+            _g16_holds(_g16_launch(kind, args, kw), want, want32)
+
+
+@pytest.mark.cuda
+def test_bf16_gate_mode_is_its_own_and_deterministic(cuda):
+    """The bf16-gate B1 differs from the float32-gate one (the mode really
+    runs), gives the same bits twice, and B4's two hoist_proj bodies are
+    one computation in this mode, as in the plain version."""
+    from climsim_tpu_torch.ops import fused_bigru_heads_cm
+    _, _, a1, _ = _g16_case("b1", 12, 32, 150, cuda)
+    with torch.no_grad():
+        g1 = fused_bigru_heads_init_cm(*a1, acc32=False)
+        g2 = fused_bigru_heads_init_cm(*a1, acc32=False)
+        f = fused_bigru_heads_init_cm(*a1)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+    assert not torch.equal(g1[0], f[0])
+    _, _, a4, _ = _g16_case("b4", 12, 32, 150, cuda)
+    with torch.no_grad():
+        h = fused_bigru_heads_cm(*a4, acc32=False)
+        u = fused_bigru_heads_cm(*a4, acc32=False, hoist_proj=False)
+    assert all(torch.equal(x, y) for x, y in zip(h, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b1", "b4", "b7", "b10"])
+def test_bf16_gate_mode_gradients_are_the_f32_gate_ones(cuda, kind):
+    """The backward kernels linearise the float32-gate forward from the
+    saved inputs in both modes (as JAX's do), so acc32=False gives the
+    gradients of acc32=True to the bit."""
+    wrapper, _, args, _ = _g16_case(kind, 12, 32, 150, cuda)
+    g = torch.Generator(device=cuda)
+    res = []
+    for acc32 in (True, False):
+        a = [t.detach().clone().requires_grad_(True) for t in args]
+        outs = wrapper(*a, acc32=acc32)
+        cts = [torch.randn(o.shape, generator=g.manual_seed(5 + i),
+                           device=cuda).to(o.dtype)
+               for i, o in enumerate(outs)]
+        torch.autograd.backward(outs, cts)
+        res.append([t.grad for t in a])
+    for x, y in zip(*res):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)

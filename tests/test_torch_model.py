@@ -101,22 +101,20 @@ def test_from_flax_params_rejects_wrong_trees():
 
 
 def test_unported_options_raise():
-    """What is still to port raises naming its ROADMAP item: the other
-    cells, the stochastic LayerNorm LSTM, separate radiation and memory
-    None; a channel-major model without the fused heads is refused as JAX
-    refuses it, and so is a channel-major stochastic model (JAX's
-    stochastic model turns the fused heads off). The batch-major fused
-    heads (level_major=False with fuse_heads) are ported: they build as
-    the v4 and v3 arms; the stochastic layer is ported: with the same
-    flags, batch-major, it builds the scan arm."""
+    """No option is left to port: the stochastic LayerNorm LSTM raises
+    ValueError naming the JAX lines where JAX's model fails with it; a
+    channel-major model without the fused heads is refused as JAX refuses
+    it, and so is a channel-major stochastic model (JAX's stochastic model
+    turns the fused heads off). The batch-major fused heads
+    (level_major=False with fuse_heads) build as the v4 and v3 arms; the
+    stochastic layer, with the same flags, batch-major, builds the scan
+    arm."""
     base = dict(nx=NX, nx_sfc=NX_SFC, ny=NY, ny_sfc=NY_SFC, nneur=NNEUR,
                 nh_mem=NH_MEM, device="cpu", **FLAGS)
-    for over in ({"separate_radiation": True},
-                 {"add_stochastic_layer": True,
-                  "stochastic_cell": "sln_lstm"}, {"cell": "qrnn"},
-                 {"cell": "lstm"}, {"use_memory": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RNNAutoreg(**{**base, **over})
+    with pytest.raises(ValueError, match="rnn.py:312-313"):
+        RNNAutoreg(**{**base, "level_major": False,
+                      "add_stochastic_layer": True,
+                      "stochastic_cell": "sln_lstm"})
     with pytest.raises(ValueError, match="level_major"):
         RNNAutoreg(**{**base, "fuse_heads": False})
     with pytest.raises(ValueError, match="level_major"):

@@ -167,6 +167,3 @@ def test_fused_layer_matches_jax():
                                atol=2e-6)
 
 
-def test_fused_layer_refuses_bf16_gates():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedBiGRULayer(8, H, acc32=False)

@@ -100,8 +100,8 @@ def test_noise_layer_refuses_mismatch():
         tcells.RNNLayer(4, 8, "sgru")
     with pytest.raises(ValueError, match="noise"):
         tcells.RNNLayer(4, 8, "gru", noise=True)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tcells.RNNLayer(4, 8, "sln_lstm", noise=True)
+    with pytest.raises(ValueError, match="noise"):
+        tcells.RNNLayer(4, 8, "sln_lstm")
     layer = tcells.RNNLayer(4, 8, "sgru", noise=True)
     with pytest.raises(ValueError, match="eps"):
         layer(torch.zeros(2, 3, 4), torch.zeros(2, 8))
@@ -210,7 +210,7 @@ def test_generator_noise_is_reproducible_and_required():
 
 def test_stochastic_options():
     kw = _kw("sgru", 0.0)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="sln_lstm"):
         RNNAutoreg(device="cpu", **{**kw, "stochastic_cell": "sln_lstm"})
     with pytest.raises(ValueError, match="stochastic cell"):
         RNNAutoreg(device="cpu", **{**kw, "stochastic_cell": "gru"})

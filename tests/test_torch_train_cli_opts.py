@@ -32,20 +32,34 @@ def files(tmp_path_factory):
     return {"grid": grid}
 
 
-@pytest.mark.parametrize("yaml,over,item", [
-    ("autoreg_srnn.yaml", ["model.stochastic_cell=sln_lstm"], "A.12"),
-    ("autoreg_gru.yaml", ["model.cell=lstm"], "A.12"),
-    ("autoreg_gru.yaml", ["model.separate_radiation=true"], "A.12"),
-    ("autoreg_gru.yaml", ["model.memory=None"], "A.12")])
-def test_unported_options_raise_before_data(yaml, over, item, monkeypatch):
-    """Each raises NotImplementedError naming its item before any data is
-    built (the data loader must not be reached; no grid file exists)."""
+@pytest.mark.parametrize("key", cli.ENSEMBLE_REFUSES)
+def test_unported_options_raise_before_data(key, monkeypatch):
+    """check_unported refuses no model option now; what it still refuses,
+    each output an ensemble run cannot give, raises ValueError before any
+    data is built (the data loader must not be reached; no grid file
+    exists)."""
     def no_data(*a, **k):
         raise AssertionError("data was built")
     monkeypatch.setattr(cli, "load_data", no_data)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        cli.main([os.path.join(REPO, "conf", yaml), "device=cpu",
-                  "grid_path=/nonexistent/grid.nc"] + over)
+    value = "true" if key == "eval_report" else \
+        "1" if key == "eval_report_every" else "out.npz"
+    with pytest.raises(ValueError, match=key):
+        cli.main([os.path.join(REPO, "conf", "autoreg_gru.yaml"),
+                  "device=cpu", "grid_path=/nonexistent/grid.nc",
+                  "rollout.ensemble_size=2", f"{key}={value}"])
+
+
+@pytest.mark.parametrize("yaml,over", [
+    ("autoreg_srnn.yaml", ["model.stochastic_cell=slstm"]),
+    ("autoreg_gru.yaml", ["model.cell=lstm"]),
+    ("autoreg_gru.yaml", ["model.separate_radiation=true"]),
+    ("autoreg_gru.yaml", ["model.memory=None"])])
+def test_model_options_pass_the_check(yaml, over):
+    """The model options check_unported refused until they were ported
+    (the cells, separate radiation, memory None) pass it; they train in
+    tests/test_torch_train_cli_a12.py."""
+    assert cli.check_unported(load_config(
+        os.path.join(REPO, "conf", yaml), ["device=cpu"] + over)) is None
 
 
 # the options that raised before the stochastic layer, ensemble training
