@@ -5,6 +5,7 @@
     python3 chip_smoke.py 14       # the build, then phase 14 alone
     python3 chip_smoke.py 15       # the build, then phase 15 alone
     python3 chip_smoke.py 16       # the build, then phase 16 alone
+    python3 chip_smoke.py 17       # the build, then phase 17 alone
 
 The paths, each at full width with random weights from a seed:
 
@@ -82,6 +83,10 @@ The paths, each at full width with random weights from a seed:
   ``init_from``; none reaches a Pallas kernel in JAX, so no kernel of the
   port may launch. The dry run's ensemble-parallel RPN step on a (1, 1)
   NCCL mesh.
+* the physics model's other options (TripleClouds, learned cloud optics,
+  the BF16 policy, the ML radiation heads, separate radiation) in
+  evaluation and training at 10,800 columns, and semi-online rollout
+  training of the v4 arm at 21,600 columns.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc
@@ -352,14 +357,32 @@ Phases (any failure exits non-zero):
      conf/autoreg_gru.yaml with model.cell=lstm and with
      model.memory=None, one epoch at 384 columns each; ``python3
      chip_smoke.py 16`` runs the build and phase 16 alone;
- 17. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 17. the physics model's other options (check_phys_options, ROADMAP
+     A.11): six arms of conf/autoreg_physrnn.yaml's model at 10,800
+     columns (PHYS17_ARMS: TripleClouds, learned cloud optics and the BF16
+     policy with the fused trunk on the yaml as written; the ML radiation
+     heads with the fused trunk on all 60 levels, separate radiation with
+     the scan and the fused trunk), each a W 3 evaluation window and a W 1
+     update with every counter at 0 (the arm's kernels once a model step:
+     B7/B8 for the fused trunk, B12/B14 with physical radiation and
+     B11/B13 but under TripleClouds, whose SW is the plain adding_sw_tc),
+     the first launch of each kernel held to its plain version on the same
+     inputs (captured_launches, held_to_plain), ms a model step and a W 1
+     update, peak GB and idle share; each arm's W 1 update at 384 columns
+     and nneur 32 against device=cpu in lockstep (the McICA and top-2
+     choices replayed); then the semi-online update (A.7) of the v4 arm
+     (bf16, W 3, remat) at 21,600 columns (B10 6, B7 3, B8 3 launches,
+     each held to its plain version); ``python3 chip_smoke.py 17`` runs
+     the build and phase 17 alone;
+ 18. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads, B1's and
      B10's the pair with the heads and the initial MLP, B3's autograd's
      backward through B4's; the five forwards' bf16-gate mode under
-     "bf16_gates", B4's other body under its "hoist_proj_false"), the
-     card line, and the result line.
+     "bf16_gates", B4's other body under its "hoist_proj_false"; the
+     launches and errors of phase 17 under "phys_options"), the card
+     line, and the result line.
 The end of each phase prints the wall time since the start and the
 phase's own; phases 12, 13, 14 and 15 print each of their steps'
 seconds.
@@ -1021,20 +1044,8 @@ def kernel_split(fn, event_ms, card, label):
     """Every device kernel of one call of ``fn`` by name (torch.profiler's
     full kernel list, no name filter) and their sum beside the call's
     CUDA-event time, so a kernel missing from the profile shows as a gap
-    between the two. The profile records device activity alone: with CPU
-    activity as well (``profile_kernels``), B3's main kernel, launched
-    from ctypes, went missing from the key averages."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):          # once more where the profile came back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = sorted(((ev.key, ev.device_time_total / 1e3)
-                          for ev in prof.key_averages()
-                          if ev.device_time_total > 0), key=lambda kv: -kv[1])
-        if kernels:
-            break
-    busy = sum(ms for _, ms in kernels)
+    between the two (``profile_kernels``)."""
+    busy, kernels = profile_kernels(fn, top=None)
     if busy <= 0:
         print(f"{label} by kernel: the profiler saw no device time: not "
               f"measured [{card}]")
@@ -2045,25 +2056,28 @@ def compare_384(card, arm="v6"):
 # ------------------------------------------------------------ physics path
 
 
-def make_phys_model(device, seed=0, use_pallas=False, H=128):
+def make_phys_model(device, seed=0, use_pallas=False, H=128, **over):
     """conf/autoreg_physrnn.yaml's model at full width (nx 15, nx_sfc 24 as
     tests/test_phys_rnn.py; the trunk on the 50 CRM levels), hybrid
     coefficients from Grid.synthetic, f32. The yaml sets no use_pallas, so
     cli/train_rollout.py:294 builds the scan trunk (two RNNLayer sweeps);
     ``use_pallas=True`` is the fused trunk (kernel B7, and B8 for its
-    gradients); ``H`` another trunk width than the yaml's 128."""
+    gradients); ``H`` another trunk width than the yaml's 128; ``over``
+    the model's other options (``policy="bf16"`` the BF16 policy)."""
     from climsim_tpu_torch import Grid
-    from climsim_tpu_torch.models import PhysicalRNNAutoreg
+    from climsim_tpu_torch.models import BF16, F32, PhysicalRNNAutoreg
     g = Grid.synthetic(4, NLEV)
     tt = lambda a: tuple(a.tolist())
-    return PhysicalRNNAutoreg(
-        nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(H, H), nh_mem=16,
-        nreg=8, store_precip=True, ice_sedimentation=True, use_physrad=True,
-        use_mcica=True, use_tc=False, use_qv_variability=True,
-        learned_cloud_optics=False, ng_lw=8, ng_sw=8, use_pallas=use_pallas,
-        pallas_acc32=True, hyai=tt(g.hyai), hybi=tt(g.hybi),
-        hyam=tt(g.hyam), hybm=tt(g.hybm), sp_mean=9.8e4, sp_div=1e3,
-        **PHYS_YSCALE, device=device, seed=seed)
+    kw = dict(nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(H, H), nh_mem=16,
+              nreg=8, store_precip=True, ice_sedimentation=True,
+              use_physrad=True, use_mcica=True, use_tc=False,
+              use_qv_variability=True, learned_cloud_optics=False, ng_lw=8,
+              ng_sw=8, use_pallas=use_pallas, pallas_acc32=True,
+              hyai=tt(g.hyai), hybi=tt(g.hybi), hyam=tt(g.hyam),
+              hybm=tt(g.hybm), sp_mean=9.8e4, sp_div=1e3, **PHYS_YSCALE)
+    kw.update(over)
+    kw["policy"] = BF16 if kw.get("policy") == "bf16" else F32
+    return PhysicalRNNAutoreg(**kw, device=device, seed=seed)
 
 
 def phys_chunk(T, ncol, device, seed=5):
@@ -2083,14 +2097,14 @@ def phys_chunk(T, ncol, device, seed=5):
     return {k: torch.as_tensor(v).to(device) for k, v in chunk.items()}
 
 
-def make_phys_trainer(model, device, record=None, train=False):
+def make_phys_trainer(model, device, record=None, train=False, W=PHYS_W):
     """The evaluation path as cli/train_rollout.py wires the physics model:
     pass_x_raw (and pass_y_true, which evaluation does not use), the
     physics memory shape, huber loss, the yaml's W 3 window. With
     ``train`` the training path: the yaml's energy and water terms and
     Adam (PHYS_TRAIN) and the per-channel output scales. With ``record``
     (a list) every model call appends its outputs, memory and area
-    fractions."""
+    fractions. ``W``: the window (the yaml's last, 3, by default)."""
     from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
                                          phys_apply, phys_mem_shape)
 
@@ -2099,7 +2113,7 @@ def make_phys_trainer(model, device, record=None, train=False):
         record.append((res[0], res[1], res[2], res[3]["area_frac"]))
         return res
 
-    cfg = RolloutConfig(rollout_schedule={0: PHYS_W}, loss="huber",
+    cfg = RolloutConfig(rollout_schedule={0: W}, loss="huber",
                         pass_x_raw=True, pass_y_true=True,
                         **(PHYS_TRAIN if train else {}))
     scales = dict(yscale_lev=np.array(PHYS_YSCALE_LEV, np.float32)[None, None],
@@ -2442,21 +2456,24 @@ def compare_phys_384(card, use_pallas=False):
 
 
 def profile_kernels(fn, top=8):
-    """``fn()`` under torch.profiler: the device time of every kernel
-    summed (busy ms), and the kernels with the most device time. Returns
-    (busy ms, [(name, ms), ...]). Only the device-side events count: an
-    operator's own event repeats its kernels' time."""
-    from torch.autograd import DeviceType
+    """``fn()`` under torch.profiler, recording device activity alone: the
+    device time of every kernel summed (busy ms), and the kernels with the
+    most device time (all with ``top`` None). Returns (busy ms, [(name,
+    ms), ...]). With host activity as well, B3's main kernel, launched
+    from ctypes, went missing from the key averages, and the host's
+    events took seconds to average where a call launches tens of
+    thousands of kernels (TripleClouds' sweeps). A profile that comes back
+    empty is taken once more."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [(ev.key, ev.self_device_time_total / 1e3)
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
-    kernels.sort(key=lambda kv: -kv[1])
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((ev.key, ev.device_time_total / 1e3)
+                          for ev in prof.key_averages()
+                          if ev.device_time_total > 0), key=lambda kv: -kv[1])
+        if kernels:
+            break
     return sum(ms for _, ms in kernels), kernels[:top]
 
 
@@ -2880,13 +2897,21 @@ def time_training(trainer, chunk, n, arm, card, repeats=REPEATS,
     return ms
 
 
-def time_phys_eval(model, card):
-    """ms per model step of the physics evaluation window (W 3, 21,600
-    columns) with the model's trunk, its peak memory, and the window's
-    device idle share and largest kernels (torch.profiler). Returns the ms
-    per model step."""
-    ncol = NLAT * NLON
-    chunk = phys_chunk(PHYS_W, ncol, "cuda")
+def policy_of(model) -> str:
+    """The name of the model's compute dtype: bf16 or f32."""
+    return "bf16" if model.policy.compute_dtype == torch.bfloat16 else "f32"
+
+
+def time_phys_eval(model, card, ncol=NLAT * NLON, chunk=None,
+                   label="physics evaluation", profile=True):
+    """ms per model step of a physics evaluation window (W 3 of ``chunk``,
+    or of ``ncol`` seeded columns) with the model's trunk, its peak
+    memory, and with ``profile`` the window's device idle share and
+    largest kernels (torch.profiler, which takes seconds where a window
+    launches tens of thousands of kernels). Returns the ms per model
+    step."""
+    if chunk is None:
+        chunk = phys_chunk(PHYS_W, ncol, "cuda")
     trainer = make_phys_trainer(model, None)
     ms = median_ms(lambda: trainer.run_epoch(
         None, [chunk], 0, train=False), 1, repeats=OLD_REPEATS,
@@ -2897,13 +2922,15 @@ def time_phys_eval(model, card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
     trunk = trunk_of(model)
-    print(f"physics evaluation, {trunk} trunk (W {PHYS_W}, {ncol} columns, "
-          f"f32): {ms:.4f} ms per model step, {ncol / ms * 1e3:,.0f} "
-          f"column-steps/s; peak memory {peak:.3f} GB ({resident:.3f} GB "
-          f"resident before the window) [{card}]")
+    print(f"{label}, {trunk} trunk (W {PHYS_W}, {ncol} columns, "
+          f"{policy_of(model)}): {ms:.4f} ms per model step, "
+          f"{ncol / ms * 1e3:,.0f} column-steps/s; peak memory {peak:.3f} GB "
+          f"({resident:.3f} GB resident before the window) [{card}]")
+    if not profile:
+        return ms
     busy, top = phys_profile(trainer, chunk)
     window = ms * PHYS_W
-    print(f"physics evaluation window, {trunk} trunk, by kernel "
+    print(f"{label} window, {trunk} trunk, by kernel "
           + (f"(torch.profiler device time): busy {busy:.4f} ms of the "
              f"window's {window:.4f} ms unprofiled, idle share "
              f"{max(0.0, 1 - busy / window):.3f}; "
@@ -2913,10 +2940,14 @@ def time_phys_eval(model, card):
     return ms
 
 
-def time_phys_update(trainer, chunk, n, ncol, card):
-    """ms per physics training update (W 3, f32) of the trainer's model on
-    ``chunk`` (n updates, ncol columns), its peak memory, and one update's
-    device idle share and largest kernels. Returns the ms per update."""
+def time_phys_update(trainer, chunk, n, ncol, card,
+                     label="physics training update"):
+    """ms per physics training update (W of the trainer's schedule, huber
+    + energy + water, Adam) of the trainer's model on ``chunk`` (n
+    updates, ncol columns), its peak memory, and one update's device idle
+    share and largest kernels. Returns the ms per update."""
+    W = trainer.cfg.rollout_schedule[0]
+
     def epoch():
         with torch.enable_grad():
             trainer.run_epoch(None, [chunk], 0)
@@ -2928,14 +2959,14 @@ def time_phys_update(trainer, chunk, n, ncol, card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
     trunk = trunk_of(trainer.model)
-    print(f"physics training update, {trunk} trunk (W {PHYS_W}, huber + "
-          f"energy + water, Adam, {ncol} columns, f32): {ms:.4f} ms/update, "
-          f"{ncol * PHYS_W / ms * 1e3:,.0f} column-steps/s; peak memory "
+    print(f"{label}, {trunk} trunk (W {W}, huber + energy + water, Adam, "
+          f"{ncol} columns, {policy_of(trainer.model)}): {ms:.4f} ms/update, "
+          f"{ncol * W / ms * 1e3:,.0f} column-steps/s; peak memory "
           f"{peak:.3f} GB ({resident:.3f} GB resident before the epoch) "
           f"[{card}]")
-    busy, top = phys_profile(trainer, {k: v[:PHYS_W] for k, v in
-                                       chunk.items()}, top=12, train=True)
-    print(f"physics training update, {trunk} trunk, by kernel "
+    busy, top = phys_profile(trainer, {k: v[:W] for k, v in chunk.items()},
+                             top=12, train=True)
+    print(f"{label}, {trunk} trunk, by kernel "
           + (f"(torch.profiler device time): busy {busy:.4f} ms of the "
              f"update's {ms:.4f} ms unprofiled, idle share "
              f"{max(0.0, 1 - busy / ms):.3f}; "
@@ -3548,7 +3579,9 @@ def run_scale_bench(card):
 # each data set is the CLI's synthetic series (24 steps, 19 for training)
 PHYS_CLI_NCOL, GRU_CLI_NCOL = NLAT * NLON // 2, NLAT * NLON
 PHYS_CLI_SCHEDULE = "rollout.schedule={0: 1, 1: 2, 2: 3}"
-CLI_384 = ("data.steps=14",)
+# the lockstep at 384 columns: 6 steps of data (4 training steps, one
+# chunk of 4 W 1 updates; 2 validation steps), to hold the run's time
+CLI_384 = ("data.steps=6",)
 # the largest host-to-device copy an epoch may make with the device cache:
 # the model's index tensors are bytes; a data window is megabytes
 CLI_MAX_H2D_BYTES = 1 << 16
@@ -4191,8 +4224,8 @@ def check_train_cli(card):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 14 steps of data for the yamls' 24 (about half the updates), to
-        # hold the run's time: the lockstep's CPU side is most of the phase
+        # 6 steps of data for the yamls' 24 (4 updates), to hold the run's
+        # time: the lockstep's CPU side is most of the phase
         compare_cli_384(card, grid, phys_yaml, PhysicalRNNAutoreg,
                         CLI_384)
         compare_cli_384(card, grid, gru_yaml, RNNAutoreg, CLI_384)
@@ -5694,7 +5727,7 @@ NEW_ARMS = {
     "classifier_gradout": ["vset=v5", "model.name=classifier_gradout",
                            "optimizer.max_grad_norm=1.0"],
 }
-# each arm small (6 steps, 2 epochs, narrow; HSR 3 epochs, so that its
+# each arm small (6 steps, 1 epoch, narrow; HSR 3 epochs, so that its
 # NLL follows the warm epoch) on the card against device=cpu
 NEW_ARMS_SMALL = {
     "hsr": ["model.name=hsr", "model.hidden=64", "epochs=3"],
@@ -5997,7 +6030,7 @@ def compare_new_arm_small(card, grid, yaml, arm, over):
     scoring of the same inputs, with two rounding witnesses (every input
     x (1 +- (-1)^t 2^-23) at step t)."""
     from climsim_tpu_torch.cli.train_offline import SeededNoise
-    base = [yaml, f"grid_path={grid}", "data.steps=6", "epochs=2"] + over
+    base = [yaml, f"grid_path={grid}", "data.steps=6", "epochs=1"] + over
     log = NoiseLog()
     scored = []
     with scored_inputs(scored):
@@ -6570,6 +6603,367 @@ def check_gate_mode_and_a12(card) -> dict:
     return res
 
 
+# ------------------------------------------ phase 17: A.11's options, A.7
+
+# conf/autoreg_physrnn.yaml's model with each option of ROADMAP A.11, at
+# the yaml's widths: arms 1, 2 and 6 on the yaml as written (physical
+# radiation, McICA, qv variability, the scan trunk) plus their option, 3-5
+# without physical radiation (the ML radiation heads; the separate
+# radiation BiGRU); 10,800 columns, the widest at which the yaml's W 3
+# update fits 80 GB (PERF.md §4)
+PHYS17_ARMS = {
+    "use_tc": dict(use_tc=True),
+    "learned_cloud_optics": dict(learned_cloud_optics=True),
+    "ml_radiation_fused": dict(use_physrad=False, use_pallas=True),
+    "separate_radiation_scan": dict(use_physrad=False,
+                                    separate_radiation=True),
+    "separate_radiation_fused": dict(use_physrad=False,
+                                     separate_radiation=True,
+                                     use_pallas=True),
+    "bf16_fused": dict(policy="bf16", use_pallas=True),
+}
+PHYS17_NCOL = NLAT * NLON // 2
+# the semi-online update of the v4 arm (bf16, W 3, remat): per window step
+# B10 forward and in the remat recompute, B7 and B8 in its backward
+SEMI_W, SEMI_LAUNCHES = 3, {"b10": 2, "b7": 1, "b8": 1}
+
+
+def phys17_step_launches(model, train: bool) -> dict:
+    """The kernels of one model step of a physics option arm (and of its
+    backward with ``train``): the fused trunk B7 (B8); with physical
+    radiation B12 (B14) and, but with TripleClouds, whose SW is the plain
+    adding_sw_tc, B11 (B13)."""
+    keys = []
+    if model.use_pallas:
+        keys += ["b7"] + (["b8"] if train else [])
+    if model.use_physrad:
+        keys += ["b12"] + (["b14"] if train else [])
+        if not model.use_tc:
+            keys += ["b11"] + (["b13"] if train else [])
+    return {k: 1 for k in keys}
+
+
+class _Captured:
+    """A kernel wrapper that keeps the inputs, keyword arguments and
+    outputs of its first call (detached copies) and forwards every
+    attribute to the wrapper, so that its launch counter and design
+    record stay the wrapper's own."""
+
+    def __init__(self, fn, store, kind):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_store", store)
+        object.__setattr__(self, "_kind", kind)
+
+    def __call__(self, *args, **kw):
+        out = self._fn(*args, **kw)
+        if self._kind not in self._store:
+            copy = lambda x: [copy(y) for y in x] \
+                if isinstance(x, (list, tuple)) else (
+                    x.detach().clone() if torch.is_tensor(x) else x)
+            self._store[self._kind] = (copy(args), dict(kw), copy(out))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Inside, the first call of every kernel wrapper on the physics and
+    v4 training paths is kept (kind -> (args, kwargs, outputs)): the
+    names the models and autograd functions call are rebound."""
+    from climsim_tpu_torch.models import cells, phys_rad
+    from climsim_tpu_torch.ops import pallas_radiation, pallas_rnn
+    store = {}
+    targets = [("b7", cells, "fused_bigru_lbh"),
+               ("b7", pallas_rnn, "fused_bigru_lbh"),
+               ("b8", pallas_rnn, "bigru_bwd_lbh"),
+               ("b10", cells, "fused_bigru_heads_init_lbh"),
+               ("b11", phys_rad, "adding_sw_fast"),
+               ("b12", phys_rad, "lw_solver_noscat_fast"),
+               ("b13", pallas_radiation, "adding_sw_bwd"),
+               ("b14", pallas_radiation, "lw_solver_noscat_bwd")]
+    old = [(mod, name, getattr(mod, name)) for _, mod, name in targets]
+    try:
+        for kind, mod, name in targets:
+            setattr(mod, name, _Captured(getattr(mod, name), store, kind))
+        yield store
+    finally:
+        for mod, name, fn in old:
+            setattr(mod, name, fn)
+
+
+def _plain_call(kind):
+    """The plain version of kernel ``kind`` as its wrapper is called."""
+    from climsim_tpu_torch import ops
+    from climsim_tpu_torch.physics import radiation as R
+    return {"b7": ops.bigru_reference_lbh, "b8": ops.bigru_bwd_reference_lbh,
+            "b10": ops.bigru_heads_init_lbh_reference, "b11": R.adding_sw,
+            "b12": R.lw_solver_noscat, "b13": ops.adding_sw_bwd_reference,
+            "b14": ops.lw_solver_noscat_bwd_reference}[kind]
+
+
+def held_to_plain(card, label, store) -> dict:
+    """Each kept launch's outputs against its plain version on the same
+    inputs, on the card: float32 B7 to 1e-5 + 1e-5 |x| (check_b7), B8 to
+    2e-5 of each output's scale (check_b8), B11-B14 to 1e-5 (check_
+    radiation); bfloat16 by bf16_ok (4x the plain version's own
+    bf16-vs-f32 difference). Returns kind -> max_abs_err."""
+    errs = {}
+    f32 = lambda x: [f32(y) for y in x] if isinstance(x, (list, tuple)) \
+        else (x.float() if torch.is_tensor(x) and x.is_floating_point()
+              else x)
+    with torch.no_grad():
+        for kind, (args, kw, got) in sorted(store.items()):
+            ref = _plain_call(kind)
+            want = ref(*args, **kw)
+            got, want = list(got), list(want)
+            bf16 = got[0].dtype == torch.bfloat16
+            if bf16:
+                want32 = list(ref(*f32(args), **kw))
+                for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+                    ok, e, own = bf16_ok(g, w, w32)
+                    check(ok, f"{label} {kind.upper()} bf16 output {i}: "
+                          f"{e:.3e} > 4 x {own:.3e}")
+            else:
+                for i, (g, w) in enumerate(zip(got, want)):
+                    check(bool(torch.isfinite(g).all()),
+                          f"{label} {kind.upper()} output {i} not finite")
+                    if kind == "b7":
+                        torch.testing.assert_close(g, w, rtol=1e-5,
+                                                   atol=1e-5)
+                    else:
+                        e = rel_err(g, w)
+                        tol = 2e-5 if kind == "b8" else 1e-5
+                        check(e <= tol, f"{label} {kind.upper()} output "
+                              f"{i}: {e:.3e} of its scale > {tol}")
+            errs[kind] = max_err(got, want)
+            flat = lambda x: [t for y in x for t in flat(y)] \
+                if isinstance(x, (list, tuple)) else (
+                    [x] if torch.is_tensor(x) else [])
+            shape = tuple(max(flat(args), key=lambda t: t.numel()).shape)
+            print(f"{label}: {kind.upper()} {'bf16' if bf16 else 'f32'} "
+                  f"{shape} against its plain version on the same inputs: "
+                  f"max_abs_err {errs[kind]:.3e} [{card}]")
+    return errs
+
+
+def phys17_arm(card, name) -> dict:
+    """One physics option arm at PHYS17_NCOL columns: a W 3 evaluation
+    window and a W 1 update, each with every counter at 0 just before and
+    read just after (the arm's kernels once a model step, none other),
+    each kernel's first launch held to its plain version, finite values;
+    then time_phys_eval on the window (ms a model step, peak memory; its
+    profile would double the phase's time) and time_phys_update on the
+    update (ms a W 1 update, peak memory, idle share)."""
+    over = PHYS17_ARMS[name]
+    ncol = PHYS17_NCOL
+    t = [time.perf_counter()]
+    model = make_phys_model(None, **over)
+    ev = make_phys_trainer(model, None)
+    up = make_phys_trainer(model, None, train=True, W=1)
+    chunk = phys_chunk(PHYS_W, ncol, "cuda")
+    one = phys_chunk(1, ncol, "cuda", seed=7)
+    per = phys17_step_launches(model, False)
+    per_t = phys17_step_launches(model, True)
+    t.append(time.perf_counter())
+    with captured_launches() as store:
+        (mem, rec), launches = counted(
+            lambda: ev.run_epoch(None, [chunk], 0, train=False))
+        check(launches == {k: PHYS_W * c for k, c in per.items()},
+              f"phys17 {name} evaluation: launches {launches}, want "
+              f"{PHYS_W} x {per}")
+        check(np.isfinite(rec["loss"]) and bool(torch.isfinite(mem).all()),
+              f"phys17 {name} evaluation: loss {rec['loss']}")
+        with torch.enable_grad():
+            (mem1, rec1), launches_t = counted(
+                lambda: up.run_epoch(None, [one], 0))
+        check(launches_t == per_t, f"phys17 {name} update: launches "
+              f"{launches_t}, want {per_t}")
+        check(rec1["updates"] == 1 and np.isfinite(rec1["loss"])
+              and all(bool(torch.isfinite(p).all())
+                      for p in model.parameters()),
+              f"phys17 {name} update: {rec1}")
+    t.append(time.perf_counter())
+    errs = held_to_plain(card, f"phys17 {name}", store)
+    del store
+    t.append(time.perf_counter())
+    label = f"phys17 arm {name}"
+    time_phys_eval(model, card, ncol, chunk, label, profile=False)
+    t.append(time.perf_counter())
+    time_phys_update(up, one, 1, ncol, card, label)
+    t.append(time.perf_counter())
+    print(f"{label} ({trunk_of(model)} trunk, nneur 128/128, "
+          f"{policy_of(model)} policy, {ncol} columns): launches a W "
+          f"{PHYS_W} window {launches}, a W 1 update {launches_t}; steps: "
+          + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in zip(
+              ("model and data", "counted runs", "held to plain",
+               "evaluation timing", "update timing"), t, t[1:]))
+          + f" [{card}]")
+    return {"launches_window": launches, "launches_update": launches_t,
+            "errs": errs}
+
+
+def phys17_lockstep(card, name):
+    """One W 1 update of the arm at 384 columns and nneur 32 on the card
+    and on the CPU from the same seeded model and data, the card's McICA
+    and top-2 choices replayed on the CPU (ChoiceReplay), held as
+    compare_cli_384 holds an update: the loss within 1e-4 of the CPU's
+    plus 4x the larger movement of two witnesses (the CPU's weights times
+    1 +- 1e-6); each parameter's gradient, in the norm of its difference,
+    within 1e-4 of the CPU's norm plus 4x the witness movement plus 1e-6
+    of the whole gradient's norm; the card's Adam step from the common
+    initial weights within 1e-5 of (|w| + lr) of the first Adam step
+    lr g / (|g| + eps) of the card's own gradient."""
+    over = PHYS17_ARMS[name]
+    ncol = LO_NLAT * LO_NLON
+    runs, calls, init = {}, None, None
+    for key, dev, scale in (("cuda", "cuda", 1.0), ("cpu", "cpu", 1.0),
+                            ("plus", "cpu", 1 + 1e-6),
+                            ("minus", "cpu", 1 - 1e-6)):
+        model = make_phys_model(dev, H=32, **over)
+        if init is None:
+            init = {n: p.detach().cpu().clone()
+                    for n, p in model.named_parameters()}
+        if scale != 1.0:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(scale)
+        tr = make_phys_trainer(model, dev, train=True, W=1)
+        chunk = phys_chunk(1, ncol, dev, seed=8)
+        with ChoiceReplay(calls) as ch, torch.enable_grad():
+            _, rec = tr.run_epoch(None, [chunk], 0)
+        if calls is None:
+            calls = ch.calls
+        else:
+            ch.done(f"phys17 {name} 384 {key}")
+        runs[key] = {"loss": rec["loss"],
+                     "grads": {n: p.grad.detach().cpu().double()
+                               for n, p in model.named_parameters()},
+                     "params": {n: p.detach().cpu()
+                                for n, p in model.named_parameters()}}
+    c, p = runs["cuda"], runs["cpu"]
+    wit = [runs["plus"], runs["minus"]]
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    tol = 1e-4 * abs(p["loss"]) + 4 * max(abs(w["loss"] - p["loss"])
+                                          for w in wit)
+    check(abs(c["loss"] - p["loss"]) <= tol, f"phys17 {name} 384: loss "
+          f"{c['loss']!r} vs the CPU's {p['loss']!r} (tolerance {tol!r})")
+    gnorm = float(torch.sqrt(sum((g ** 2).sum()
+                                 for g in p["grads"].values())))
+    worst = worst_step = 0.0
+    for n, gp in p["grads"].items():
+        gc_ = c["grads"][n]
+        check(bool(torch.isfinite(gc_).all()), f"phys17 {name} 384 {n}")
+        tol = 1e-4 * norm(gp) + 4 * max(norm(w["grads"][n] - gp)
+                                        for w in wit) + 1e-6 * gnorm
+        err = norm(gc_ - gp)
+        check(err <= tol, f"phys17 {name} 384 gradient {n}: {err:.3e} > "
+              f"{tol:.3e}")
+        worst = max(worst, err / max(tol, 1e-300))
+        # Adam's first step from the common initial weights
+        g32 = gc_.float()
+        want = init[n] - PHYS_LR * g32 / (g32.abs() + 1e-8)
+        d = (c["params"][n] - want).abs()
+        steptol = 1e-5 * (want.abs() + PHYS_LR)
+        check(bool((d <= steptol).all()), f"phys17 {name} 384: the Adam "
+              f"step of {n} differs by {float(d.max()):.3e}")
+        worst_step = max(worst_step, float((d / steptol).max()))
+    print(f"phys17 arm {name}, 384 columns, nneur 32, one W 1 update card "
+          f"vs CPU in lockstep ({len(calls)} choices replayed): loss "
+          f"{c['loss']:.7e} vs {p['loss']:.7e}; gradients within "
+          f"{worst:.3f} and the Adam step within {worst_step:.3f} of their "
+          f"tolerances [{card}]")
+
+
+def semi_online_v4(card) -> dict:
+    """The semi-online update of the v4 arm (bench.py's model, bf16, W 3,
+    remat, MSE, Adam) at 21,600 columns: the raw state and raw true
+    tendencies of seeded numpy series in physical ranges, the state
+    normalizer and the cloud-exp coefficients; the launches of one update
+    (every counter at 0: B10 twice, B7 and B8 once a window step), each
+    kernel's first launch held to its plain version (bf16_ok), finite;
+    then its ms (one synchronized update after the counted one) and peak
+    memory."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import BF16
+    from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
+    ncol = NLAT * NLON
+    model = make_model(BF16, None, arm="v4")
+    grid = Grid.synthetic(4, NLEV)
+    cfg = RolloutConfig(rollout_schedule={0: SEMI_W}, loss="mse", lr=LR,
+                        optimizer="adam", remat=True, semi_online=True,
+                        n_prog=6)
+    tr = RolloutTrainer(
+        model, cfg, grid.hyai.numpy(), grid.hybi.numpy(),
+        yscale_lev=1.0 / np.array(YSCALE, np.float32),
+        xmean_prog=np.array([[250.0, 1e-3, 0.5, 0.5, 0.0, 0.0]], np.float32),
+        xdiv_prog=np.array([[20.0, 1e-3, 0.5, 0.5, 10.0, 10.0]], np.float32),
+        lbd_qc=np.full(NLEV, 1e5, np.float32),
+        lbd_qi=np.full(NLEV, 1e5, np.float32), device=None)
+    chunk = train_chunk(SEMI_W, ncol, "cuda", seed=12)
+    rng = np.random.default_rng(13)
+    shape = (SEMI_W, ncol, NLEV)
+    raw = np.stack([rng.uniform(200, 300, shape),
+                    np.abs(rng.normal(1e-3, 3e-4, shape)),
+                    np.abs(rng.normal(0, 1e-5, shape)),
+                    np.abs(rng.normal(0, 1e-5, shape)),
+                    rng.normal(0, 10, shape), rng.normal(0, 5, shape)], -1)
+    chunk["x_lev_raw"] = torch.as_tensor(raw, dtype=torch.float32,
+                                         device="cuda")
+    chunk["y_lev_raw"] = torch.as_tensor(
+        rng.normal(0, 1, shape + (6,)) * np.array(YSCALE), dtype=torch.float32,
+        device="cuda")
+    mem = tr.init(chunk)
+    window = tr._window(chunk, 0, SEMI_W)
+    with captured_launches() as store:
+        torch.cuda.reset_peak_memory_stats()
+        (mem1, loss), launches = counted(lambda: tr.update(window, mem,
+                                                           None))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: c * SEMI_W for k, c in SEMI_LAUNCHES.items()}
+    check(launches == want, f"semi-online v4 update: launches {launches}, "
+          f"want {want}")
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(mem1).all())
+          and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"semi-online v4 update: loss {loss}")
+    errs = held_to_plain(card, "semi-online v4 update", store)
+    del store
+    ms = median_ms(lambda: tr.update(window, mem, None), 1,
+                   repeats=OLD_REPEATS, queue_ahead=False)
+    print(f"semi-online update, arm v4 (bf16, W {SEMI_W}, remat, {ncol} "
+          f"columns): {ms:.4f} ms an update, peak {peak:.3f} GB, loss "
+          f"{float(loss):.6f}; launches {launches} [{card}]")
+    return {"ms": ms, "peak_gb": peak, "launches": launches, "errs": errs}
+
+
+def check_phys_options(card) -> dict:
+    """Phase 17: each physics option arm at PHYS17_NCOL columns (launches,
+    each kernel against its plain version, times, peak memory, idle
+    share) and at 384 columns card against CPU in lockstep, then the
+    semi-online update of the v4 arm. Returns the measurements for the
+    kernels line."""
+    res = {"arms": {}}
+    for name in PHYS17_ARMS:
+        t0 = time.perf_counter()
+        res["arms"][name] = phys17_arm(card, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phys17_lockstep(card, name)
+        print(f"phys17 arm {name}: {t1 - t0:.1f} s on the card, "
+              f"{time.perf_counter() - t1:.1f} s in lockstep")
+    t0 = time.perf_counter()
+    res["semi_online"] = semi_online_v4(card)
+    print(f"semi-online v4 update: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6620,6 +7014,11 @@ def main() -> int:
         torch.set_grad_enabled(False)
         check_gate_mode_and_a12(card)
         phase_done(16)
+        return 0
+    if sys.argv[1:] == ["17"]:
+        torch.set_grad_enabled(False)
+        check_phys_options(card)
+        phase_done(17)
         return 0
 
     torch.set_grad_enabled(False)
@@ -7173,7 +7572,14 @@ def main() -> int:
     g16 = check_gate_mode_and_a12(card)
     phase_done(16)
 
-    # ---- 17. the kernels line, the card line, the result
+    # ---- 17. the physics model's other options (ROADMAP A.11) at 10,800
+    # columns and against the CPU, and the semi-online update (A.7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17 = check_phys_options(card)
+    phase_done(17)
+
+    # ---- 18. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -7309,6 +7715,24 @@ def main() -> int:
     by_name["bigru_heads_cm"]["bf16_gates"]["hoist_proj_false"] = {
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "f32_gates_ms": m["f32_gates_ms"], "plain_ms": m["plain_ms"]}
+    # phase 17: each kernel's launches on the physics option arms (a W 3
+    # evaluation window, a W 1 update) and in the semi-online v4 update,
+    # with its first launch's error against its plain version
+    for name, key in (("bigru_lbh", "b7"), ("bigru_lbh_bwd", "b8"),
+                      ("adding_sw", "b11"), ("lw_noscat", "b12"),
+                      ("adding_sw_bwd", "b13"), ("lw_noscat_bwd", "b14"),
+                      ("bigru_heads_init_lbh", "b10")):
+        arms = {arm: {"window": r["launches_window"].get(key, 0),
+                      "update": r["launches_update"].get(key, 0),
+                      "max_abs_err": r["errs"].get(key)}
+                for arm, r in p17["arms"].items()
+                if key in r["launches_window"] or key in r["launches_update"]}
+        semi = p17["semi_online"]
+        if key in semi["launches"]:
+            arms["semi_online_v4"] = {"update": semi["launches"][key],
+                                      "max_abs_err": semi["errs"].get(key)}
+        if arms:
+            by_name[name]["phys_options"] = arms
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ Counterpart of ``climsim_tpu/data/synthetic.py``: ``_profile``,
 ``SyntheticConfig``, ``generate_state`` (the initial state of the coupled
 step's CLI, ``cli/run_hybrid.py``), and ``synthetic_physics``,
 ``pack_keeplev``, ``pack_flat`` and ``make_timeseries`` (the training data
-of the rollout-training CLI, ``cli/train_rollout.py``). The balanced
-physics of long coupled runs (``equilibrium_*``) waits (ROADMAP A.8).
+of the rollout-training CLI, ``cli/train_rollout.py``), and the balanced
+physics of long coupled runs: ``EquilibriumConfig``,
+``equilibrium_forcing``, ``equilibrium_physics`` and
+``equilibrium_emulator`` (the ``HybridLoop`` emulator contract).
 
 Randomness. JAX splits keys and draws each noise field from its own key.
 Here every standard-normal draw goes through one draw function
@@ -18,6 +20,8 @@ Here every standard-normal draw goes through one draw function
   ``keys[21]`` every filled scalar);
 * in ``synthetic_physics``, ``j`` for the j-th key of its 4-way split of
   the noise key (dT, dq, dqc, dqi);
+* in ``equilibrium_forcing``, ``i`` for the i-th key of its 4-way split
+  (ps, LHFLX, SHFLX, LANDFRAC);
 * in ``make_timeseries``, which splits its key into ``k0`` (the initial
   state) and ``kscan`` (one key per step, each split into ``k1``,
   ``k2``, ``k3``): ``("k0", i)`` for generate_state's key ``i``,
@@ -264,6 +268,163 @@ def pack_flat(state: dict, target: dict, vset: V.VariableSet):
         else src[n][:, None]
     return (torch.cat([col(state, n) for n in vset.inputs.names], dim=1),
             torch.cat([col(target, n) for n in vset.outputs.names], dim=1))
+
+
+@dataclass(frozen=True)
+class EquilibriumConfig:
+    """Balanced moist 'CRM' physics for long coupled runs: Newtonian
+    relaxation toward a solar-dependent radiative-convective profile,
+    saturation-adjustment condensation with latent heating,
+    autoconversion precipitation, surface evaporation and sensible flux,
+    and Rayleigh friction toward a jet, so the hybrid loop has a stable
+    truth climate (the role of E3SM-MMF in the reference's online
+    evaluation, online_testing/README.md §5-6). The timescales are
+    explicit-Euler stable at DT_STEP = 1200 s and the tendencies of the
+    ClimSim dataset's magnitudes."""
+    tau_rad: float = 1.296e6     # radiative relaxation, 15 days      [s]
+    tau_cond: float = 3600.0     # condensation relaxation            [s]
+    tau_evap: float = 7200.0     # cloud re-evaporation               [s]
+    tau_auto_liq: float = 7200.0   # qc -> precip autoconversion      [s]
+    tau_auto_ice: float = 10800.0  # qi -> precip autoconversion      [s]
+    tau_fric: float = 4.32e5     # Rayleigh friction, 5 days          [s]
+    rain_eff: float = 0.5        # fraction of condensate raining out
+    #                              directly (convective precipitation)
+    rh_cond: float = 0.9         # condensation onset relative humidity
+    rh_evap: float = 0.8         # cloud evaporation below this rh
+    t_top: float = 205.0         # equilibrium TOA temperature        [K]
+    t_sfc_base: float = 235.0    # equilibrium surface T at solin_eff=0
+    t_sfc_solar: float = 62.0    # dT_sfc per unit (solin_eff/1360)
+    n_sfc_levels: int = 5        # levels receiving surface fluxes
+    u_jet: float = 25.0          # equilibrium jet amplitude       [m/s]
+    # stationary-wave meridional forcing: v relaxes toward
+    # v_wave * sin(4 lon) cos(lat) * sin(pi sigma) (the pattern in x_sfc
+    # channel 8)
+    v_wave: float = 6.0          # meridional wave amplitude       [m/s]
+
+
+def equilibrium_forcing(generator: torch.Generator | None, grid: Grid,
+                        ncol: int, dtype: torch.dtype = torch.float32,
+                        draw=None) -> torch.Tensor:
+    """Fixed per-column boundary forcing x_sfc [ncol, 24] on the grid's
+    device, raw units: 0 ps, 1 SOLIN, 2 COSZRS, 3 LHFLX, 4 SHFLX,
+    5 sin(lat), 6 cos(lat), 7 LANDFRAC, 8 the stationary-wave pattern
+    sin(4 lon) cos(lat), 9..23 zero (channel 0 must be the surface
+    pressure: the host loop reads it). The normals come from ``draw(i,
+    shape)`` (module docstring), by default from ``generator``."""
+    if draw is None:
+        draw = _default_draw(generator, dtype)
+    dev = grid.lat.device
+    normal = lambda i: draw(i, (ncol,)).to(dtype=dtype, device=dev)
+    lat, lon = grid.lat[:ncol], grid.lon[:ncol]
+    coslat = torch.cos(torch.deg2rad(lat)).to(dtype)
+    ps = 1.0e5 + 3e3 * (coslat - coslat.mean()) + 300.0 * normal(0)
+    solin = torch.clamp(1360.0 * coslat, min=0.0)
+    coszrs = torch.clamp(coslat, 0.05, 1.0)
+    lhflx = torch.clamp(90.0 * coslat + 10.0 + 8.0 * normal(1), min=5.0)
+    shflx = torch.clamp(25.0 * coslat + 5.0 + 4.0 * normal(2), min=2.0)
+    landfrac = torch.clamp(0.3 + 0.4 * normal(3), 0.0, 1.0)
+    cols = [ps, solin, coszrs, lhflx, shflx,
+            torch.sin(torch.deg2rad(lat)).to(dtype), coslat, landfrac,
+            (torch.sin(4.0 * torch.deg2rad(lon)) * coslat).to(dtype)]
+    zero = torch.zeros((ncol,), dtype=dtype, device=dev)
+    return torch.stack(cols + [zero] * (24 - len(cols)), dim=1)
+
+
+def equilibrium_physics(T, qv, qc, qi, u, v, x_sfc, grid: Grid,
+                        cfg: EquilibriumConfig = EquilibriumConfig()):
+    """Balanced column physics: (state [B, L] fields, forcing [B, 24]) ->
+    (ptend [B, L, 6], sfc_out [B, 8]). Smooth (tanh/exp gates, no hard
+    switches) and water-closed by construction: column precipitation is
+    the autoconversion and direct-rain sink, surface evaporation an
+    explicit source. sfc_out follows the v1 output scalars (NETSW, FLWDS,
+    PRECSC, PRECC, SOLS, SOLL, SOLSD, SOLLD)."""
+    ps, solin, coszrs = x_sfc[:, 0], x_sfc[:, 1], x_sfc[:, 2]
+    lhflx, shflx = x_sfc[:, 3], x_sfc[:, 4]
+    B, L = T.shape
+    pmid = grid.mid_pressure(ps)
+    dp = grid.layer_thickness(ps)
+    sigma = pmid / ps[:, None]
+
+    # 1. Newtonian relaxation toward a solar-dependent RCE profile; the
+    # quadratic boost (tau/2 at |T-Teq| = 30 K) keeps local heating
+    # bursts from running away
+    solin_eff = solin * coszrs
+    t_sfc_eq = cfg.t_sfc_base + cfg.t_sfc_solar * (solin_eff / 1360.0)
+    Teq = cfg.t_top + (t_sfc_eq[:, None] - cfg.t_top) * sigma ** 1.1
+    dT = (Teq - T) * (1.0 + ((T - Teq) / 30.0) ** 2) / cfg.tau_rad
+
+    # 2. saturation adjustment, implicit in the latent heating (the
+    # moist-adjustment denominator 1 + L^2 qs / (cp Rv T^2))
+    qs = thermo.qsat(T, pmid)
+    fliq = thermo.liquid_fraction(T)
+    L_eff = C.LV * fliq + C.LSUB * (1.0 - fliq)
+    gamma = 1.0 + L_eff ** 2 * qs / (C.CP * C.RV * T ** 2)
+    cond = torch.clamp(qv - cfg.rh_cond * qs, min=0.0) \
+        / (cfg.tau_cond * gamma)
+    cloud = qc + qi
+    subsat = torch.clamp(cfg.rh_evap * qs - qv, min=0.0) \
+        / torch.clamp(qs, min=1e-8)
+    evap = cloud * subsat / (cfg.tau_evap * gamma)
+    wc = qc / torch.clamp(cloud, min=1e-12)
+    dqv = -cond + evap
+    dT = dT + (C.LV * (cond * fliq - evap * wc)
+               + C.LSUB * (cond * (1 - fliq) - evap * (1 - wc))) / C.CP
+
+    # 3. precipitation: a rain_eff share of fresh condensate falls out
+    # directly; the stored cloud autoconverts slowly
+    auto_c = qc / cfg.tau_auto_liq
+    auto_i = qi / cfg.tau_auto_ice
+    store = 1.0 - cfg.rain_eff
+    dqc = store * cond * fliq - evap * wc - auto_c
+    dqi = store * cond * (1 - fliq) - evap * (1 - wc) - auto_i
+
+    # 4. surface fluxes into the lowest n_sfc_levels (mass-weighted)
+    nb = cfg.n_sfc_levels
+    mask = torch.zeros((L,), dtype=T.dtype, device=T.device)
+    mask[-nb:] = 1.0
+    mask = mask[None, :]
+    mcol = torch.sum(dp * mask, dim=1, keepdim=True) / C.GRAV  # kg m-2
+    E = lhflx[:, None] / C.LV                                   # kg m-2 s-1
+    # evaporation shuts off as the boundary layer saturates
+    dryness = torch.clamp(1.0 - qv / torch.clamp(qs, min=1e-8), 0.0, 1.0)
+    dqv = dqv + mask * dryness * E / mcol
+    dT = dT + mask * shflx[:, None] / (C.CP * mcol)
+
+    # 5. Rayleigh friction toward the jet (baroclinic: peaks mid-column
+    # at mid-latitudes) and the stationary wave
+    sinl, cosl = x_sfc[:, 5], x_sfc[:, 6]
+    ujet = cfg.u_jet * (2 * sinl * cosl)[:, None] \
+        * torch.sin(math.pi * sigma)
+    veq = cfg.v_wave * x_sfc[:, 8][:, None] * torch.sin(math.pi * sigma)
+    du = (ujet - u) / cfg.tau_fric
+    dv = (veq - v) / cfg.tau_fric
+
+    ptend = torch.stack([dT, dqv, dqc, dqi, du, dv], dim=-1)
+
+    # surface scalars: precip = direct convective rain + autoconversion,
+    # exactly the column water sink
+    sink = torch.sum((dp / C.GRAV) * (auto_c + auto_i
+                                      + cfg.rain_eff * cond), dim=1)
+    precc = sink / C.RHO_H2O                                   # m s-1
+    precsc = precc * thermo.snow_fraction(T[:, -1])
+    netsw = solin_eff * 0.7
+    flwds = 5.67e-8 * 0.8 * T[:, -1] ** 4
+    sfc_out = torch.stack([netsw, flwds, precsc, precc, netsw * 0.3,
+                           netsw * 0.35, netsw * 0.15, netsw * 0.2], dim=-1)
+    return ptend, sfc_out
+
+
+def equilibrium_emulator(grid: Grid,
+                         cfg: EquilibriumConfig = EquilibriumConfig()):
+    """:func:`equilibrium_physics` in the ``HybridLoop`` emulator contract
+    (online/host_loop.py): (x_main_raw [B, L, 6], x_sfc_raw [B, 24], mem)
+    -> (ptend, sfc_out, mem)."""
+    def emulator(x_main, x_sfc, mem):
+        ptend, sfc = equilibrium_physics(
+            x_main[..., 0], x_main[..., 1], x_main[..., 2], x_main[..., 3],
+            x_main[..., 4], x_main[..., 5], x_sfc, grid, cfg)
+        return ptend, sfc, mem
+    return emulator
 
 
 def make_timeseries(generator: torch.Generator | None, cfg: SyntheticConfig,

@@ -7,7 +7,13 @@ leaf: ``bigru_fused/win1`` -> ``bigru_fused.win1``,
 ``mlp_surface1/kernel`` -> ``mlp_surface1.kernel``, and for
 ``PhysicalRNNAutoreg`` ``radiation/gas_lw/h0/kernel`` ->
 ``radiation.gas_lw.h0.kernel`` and the scalar ``radiation/gas_sw/sigma``
--> ``radiation.gas_sw.sigma``; for the offline baselines
+-> ``radiation.gas_sw.sigma``, and its options' leaves the same way
+(``mlp_output_rad``, ``mlp_surface_output_rad``, ``rnn1_rad``/``rnn2_rad``
+with ``input_proj`` and ``cell/hh``, ``mlp_surface_init_rad``,
+``mlp_toa_rad``, ``mlp_overlap``, ``radiation/{cld_lw,cld_sw1,cld_sw2}``,
+``radiation/{band_expand_kernel,band_expand_bias}``; ``RRTMGPGasOptics``'
+``mlp1``..``mlp3`` and a reduced LW head's ``ymean``/``ystd``); for the
+offline baselines
 ``dense_0/kernel`` -> ``dense_0.kernel`` (``MLP``), ``enc_3/bias`` ->
 ``enc_3.bias`` (``ED``) and ``block_2/Conv_1/kernel`` ->
 ``block_2.Conv_1.kernel`` (``CNN``, kernels [k, in, out] as flax's); the

@@ -11,7 +11,13 @@ equations with the model's own latent heats, and precipitation is
 semi-prognostic (a stored pool in the last memory slot). With
 ``use_physrad`` the ``RadiationModule`` computes heating on all 60 levels
 and the radiative surface scalars from the updated state and the sub-grid
-condensate (McICA-sampled when ``use_mcica``).
+condensate (McICA-sampled when ``use_mcica``, region-resolved with
+overlap when ``use_tc``, with learned optics when
+``learned_cloud_optics``). Without it, heads on the trunk emulate the
+radiation: the trunk then runs on all levels with the memory zero-padded
+above the CRM, or, with ``separate_radiation``, a second GRU pair
+(``rnn1_rad``/``rnn2_rad``, width ``nh_rad``) on all levels takes the
+gas channels and the padded latent memory (models_phys.py:1585-1690).
 
 Layout is batch-first [B, L, ...]; the CRM occupies the bottom
 ``L - ilev_crm`` levels. The trunk is either two ``RNNLayer`` GRU sweeps
@@ -22,10 +28,12 @@ fused BiGRU (``use_pallas=True``, kernel B7 on the card; parameters
 ``bigru_fused``; equal ``nneur``). The radiation solvers are kernels B11
 and B12.
 
-Ported: every option of the physical-radiation path (``use_physrad=True``,
-either trunk, the F32 policy), and ``y_true`` teacher forcing of the
-radiation state. Options outside it raise ``NotImplementedError`` naming
-their ROADMAP item.
+Policies: under ``BF16`` the inputs are cast to bfloat16 and, as in
+JAX, every array the model builds in the input's dtype is bfloat16 too
+(the hybrid coefficients and so the pressures, the yscales, the output
+buffer, the cloud paths and the constant gases); the Dense layers
+promote to the float32 parameters, so the trunk (B7 with the fused one)
+and the radiation solvers (B11, B12) run in float32.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from ..ops import resolve_device
 from ..physics import radiation as RAD
 from ..physics import thermo
 from .cells import FusedBiGRULayer, RNNLayer
-from .common import F32, Policy
+from .common import F32, Policy, weak
 from .phys_rad import RadiationModule
 from .rnn import Dense, temperature_scaling, temperature_scaling_precip
 
@@ -53,11 +61,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _pad_top(x: torch.Tensor, ic: int) -> torch.Tensor:
-    """[B, Lc, ...] -> [B, ic + Lc, ...] with zeros above the CRM."""
-    z = torch.zeros((x.shape[0], ic) + tuple(x.shape[2:]), dtype=x.dtype,
+def _pad_top(x: torch.Tensor, ic: int, dtype: torch.dtype) -> torch.Tensor:
+    """[B, Lc, ...] -> [B, ic + Lc, ...] in ``dtype`` with zeros above the
+    CRM (JAX's ``zeros(..., dtype).at[:, ic:].set(x)``)."""
+    z = torch.zeros((x.shape[0], ic) + tuple(x.shape[2:]), dtype=dtype,
                     device=x.device)
-    return torch.cat([z, x], dim=1)
+    return torch.cat([z, x.to(dtype)], dim=1)
 
 
 def largest_regions(area_frac: torch.Tensor) -> torch.Tensor:
@@ -67,11 +76,6 @@ def largest_regions(area_frac: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-area_frac, dim=-1, stable=True)[..., :2]
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"PhysicalRNNAutoreg {what} is not ported "
-                               f"yet (ROADMAP A.11)")
-
-
 class PhysicalRNNAutoreg(nn.Module):
     """Flux-predicting physical emulator. Keyword names and defaults follow
     the flax module; ``device=None`` means ``"cuda"`` (and raises without a
@@ -79,8 +83,8 @@ class PhysicalRNNAutoreg(nn.Module):
     biases, the radiation's constants) from a ``torch.Generator`` seeded
     with ``seed``.
 
-    ``separate_radiation`` only matters without ``use_physrad`` (as in
-    JAX), which is not ported.
+    ``separate_radiation`` only matters without ``use_physrad``, as in
+    JAX.
 
     Call: (x_main [B, L, nx] normalized, x_sfc [B, nx_sfc] normalized,
            mem [B, L - ilev_crm, nh_mem + 1] with the stored precip in the
@@ -98,7 +102,7 @@ class PhysicalRNNAutoreg(nn.Module):
                  allow_extra_heating: bool = False,
                  condense_supersaturated: bool = False,
                  use_physrad: bool = False, separate_radiation: bool = False,
-                 gas_channels: tuple = (12, 13, 14),
+                 gas_channels: tuple = (12, 13, 14), nh_rad: int = 96,
                  update_states_for_rad: bool = True, use_mcica: bool = False,
                  use_tc: bool = False, use_qv_variability: bool = False,
                  learned_cloud_optics: bool = False, ng_lw: int = 8,
@@ -114,15 +118,6 @@ class PhysicalRNNAutoreg(nn.Module):
                  device=None, seed: int = 0):
         super().__init__()
         nh1, nh2 = nneur[0], nneur[1]
-        if not use_physrad:
-            raise _unported("without use_physrad (the ML radiation heads "
-                            "and separate_radiation)")
-        if use_tc:
-            raise _unported("use_tc (TripleClouds)")
-        if learned_cloud_optics:
-            raise _unported("learned_cloud_optics")
-        if policy != F32:
-            raise _unported("with a policy other than F32")
         if use_pallas and nh1 != nh2:
             # the fused kernel requires nh1 == nh2 and owns a different
             # parameter tree (bigru_fused vs rnn_up/rnn_down)
@@ -134,6 +129,9 @@ class PhysicalRNNAutoreg(nn.Module):
         self.ny, self.ny_sfc, self.nh_mem, self.nreg = ny, ny_sfc, nh_mem, nreg
         self.ilev_crm, self.qv_channel = ilev_crm, qv_channel
         self.gas_channels = tuple(gas_channels)
+        self.use_physrad = use_physrad
+        # separate radiation only without physical radiation, as in JAX
+        self.separate_radiation = separate_radiation and not use_physrad
         self.use_clear_sky_region = use_clear_sky_region
         self.pred_subgrid_temp = pred_subgrid_temp
         self.pred_subgrid_liq_frac = pred_subgrid_liq_frac
@@ -143,6 +141,7 @@ class PhysicalRNNAutoreg(nn.Module):
         self.condense_supersaturated = condense_supersaturated
         self.update_states_for_rad = update_states_for_rad
         self.use_mcica, self.use_qv_variability = use_mcica, use_qv_variability
+        self.use_tc, self.learned_cloud_optics = use_tc, learned_cloud_optics
         self.ng_lw, self.ng_sw = ng_lw, ng_sw
         self.add_pres = add_pres
         self.grav, self.lv, self.ls = grav, lv, ls
@@ -161,11 +160,13 @@ class PhysicalRNNAutoreg(nn.Module):
         g = torch.Generator().manual_seed(seed)
         d = lambda a, b: Dense(a, b, f32, g)
         # creation order = flax's module order
+        crm_trunk = use_physrad or self.separate_radiation
         nx_in = nx + (1 if add_pres else 0)
-        n_keep = len([c for c in range(nx_in) if c not in self.gas_channels])
+        n_keep = len([c for c in range(nx_in)
+                      if not (crm_trunk and c in self.gas_channels)])
         nreg_q = nreg - 1 if use_clear_sky_region else nreg
         self.mlp_initial = d(n_keep, nh1)
-        self.mlp_surface1 = d(nx_sfc - 5, nh1)
+        self.mlp_surface1 = d(nx_sfc - 5 if crm_trunk else nx_sfc, nh1)
         self.mlp_toa1 = d(2, nh2)
         if use_pallas:
             self.bigru_fused = FusedBiGRULayer(nh1 + nh_mem, nh1,
@@ -176,6 +177,17 @@ class PhysicalRNNAutoreg(nn.Module):
                                    dtype=f32, generator=g)
             self.rnn_down = RNNLayer(nh1, nh2, dtype=f32, generator=g)
         self.mlp_latent = d(nh2, nh_mem)
+        if self.separate_radiation:
+            self.mlp_surface_init_rad = d(5, nh_rad)
+            self.rnn1_rad = RNNLayer(len(self.gas_channels) + nh_mem, nh_rad,
+                                     reverse=True, dtype=f32, generator=g)
+            self.mlp_toa_rad = d(2, nh_rad)
+            self.rnn2_rad = RNNLayer(nh_rad, nh_rad, dtype=f32, generator=g)
+            self.mlp_output_rad = d(nh_rad, 1)
+            self.mlp_surface_output_rad = d(nh_rad, ny_sfc - 2)
+        elif not use_physrad:
+            self.mlp_output_rad = d(nh2, 1)
+            self.mlp_surface_output_rad = d(nh2, ny_sfc - 2)
         self.mlp_output = d(nh_mem, ny)
         self.mlp_qv_crm = d(nh2, nreg)
         self.mlp_qn_crm = d(nh2, nreg_q)
@@ -194,9 +206,14 @@ class PhysicalRNNAutoreg(nn.Module):
             self.mlp_liq_frac_crm = d(nh2, nreg)
         if store_precip:
             self.mlp_precip_release = d(nh2, 1)
-        self.mlp_surface_output = d(nh2, ny_sfc)
-        self.radiation = RadiationModule(ng_lw=ng_lw, ng_sw=ng_sw,
-                                         generator=g)
+        if use_physrad:
+            self.mlp_surface_output = d(nh2, ny_sfc)
+            if use_tc:
+                self.mlp_overlap = d(nh_mem, 1)
+            self.radiation = RadiationModule(
+                ng_lw=ng_lw, ng_sw=ng_sw, use_tc=use_tc,
+                learned_cloud_optics=learned_cloud_optics,
+                n_latent=nh_mem if learned_cloud_optics else 0, generator=g)
         self.to(self.device)
 
     def forward(self, x_main, x_sfc, mem, x_denorm, y_true=None,
@@ -212,41 +229,71 @@ class PhysicalRNNAutoreg(nn.Module):
         ic = self.ilev_crm
         Lc = L - ic
         nreg = self.nreg
-        dt = x_main.dtype
+        dev = x_main.device
 
         x_main = pol.cast_in(x_main)
         x_sfc = pol.cast_in(x_sfc)
         mem_lat = pol.cast_in(mem[..., :self.nh_mem])
         P_old = mem[:, -1, -1]                       # stored precip pool
+        # the arrays JAX builds in the input's dtype (bf16 under BF16)
+        dt = x_main.dtype
 
-        # ---- pressure geometry from raw ps
-        sp = x_sfc[:, 0] * self.sp_div + self.sp_mean
-        plev = 1e5 * self.hyai + sp[:, None] * self.hybi     # [B, L+1]
-        play = 1e5 * self.hyam + sp[:, None] * self.hybm     # [B, L]
+        # ---- pressure geometry from raw ps, in the input's dtype
+        sp = x_sfc[:, 0] * weak(self.sp_div, dt) + weak(self.sp_mean, dt)
+        p0 = weak(1e5, dt)
+        plev = p0 * self.hyai.to(dt) + sp[:, None] * self.hybi.to(dt)
+        play = p0 * self.hyam.to(dt) + sp[:, None] * self.hybm.to(dt)
         if self.add_pres:
             # sqrt(p)/314 appended as the LAST input channel
             # (rnn/layers.py:101-121); the gas channels keep their places
             x_main = torch.cat(
                 [x_main, (torch.sqrt(play) / 314.0)[..., None]], dim=-1)
 
-        # ---- bi-RNN trunk on the CRM levels; radiation takes the gas
-        # channels and the radiation surface inputs
-        # (models_phys.py:1581-1584,1607-1610)
-        keep = [c for c in range(x_main.shape[-1])
-                if c not in self.gas_channels]
-        trunk_in = x_main[:, ic:, keep]
-        x_sfc_crm = torch.cat([x_sfc[:, 0:6], x_sfc[:, 11:]], dim=1)
+        # ---- bi-RNN trunk. With physical or separate radiation it sees
+        # the CRM levels without the gas channels and the radiation
+        # surface inputs (models_phys.py:1581-1584,1607-1610); otherwise
+        # every level, the memory zero-padded above the CRM (:1585-1599)
+        sep = self.separate_radiation
+        if self.use_physrad or sep:
+            keep = [c for c in range(x_main.shape[-1])
+                    if c not in self.gas_channels]
+            trunk_in = x_main[:, ic:, keep]
+            x_sfc_crm = torch.cat([x_sfc[:, 0:6], x_sfc[:, 11:]], dim=1)
+            mem_in = mem_lat
+        else:
+            trunk_in, x_sfc_crm = x_main, x_sfc
+            mem_in = _pad_top(mem_lat, ic, mem_lat.dtype)
         h = torch.tanh(self.mlp_initial(trunk_in))
-        h = torch.cat([h, mem_lat], dim=-1)
+        h = torch.cat([h, mem_in], dim=-1)
         hx1 = torch.tanh(self.mlp_surface1(x_sfc_crm))
         x_toa = torch.cat([x_sfc[:, 1:2], x_sfc[:, 6:7]], dim=1)
         hx2 = self.mlp_toa1(x_toa)
         if self.use_pallas:
-            rnn2out, last_h = self.bigru_fused(h, hx1, hx2)
+            rnn2out_full, last_h = self.bigru_fused(h, hx1, hx2)
         else:
             up, _ = self.rnn_up(h, hx1)
-            rnn2out, last_h = self.rnn_down(up, hx2)
-        new_mem_lat = self.mlp_latent(rnn2out)
+            rnn2out_full, last_h = self.rnn_down(up, hx2)
+        new_mem_full = self.mlp_latent(rnn2out_full)
+        if self.use_physrad:
+            rnn2out, new_mem_lat = rnn2out_full, new_mem_full
+        elif sep:
+            # the radiation BiGRU on every level: the gas channels and
+            # the zero-padded latent
+            rnn2out, new_mem_lat = rnn2out_full, new_mem_full
+            gases_in = torch.stack([x_main[:, :, c]
+                                    for c in self.gas_channels], dim=-1)
+            x_rad = torch.cat([gases_in, _pad_top(new_mem_lat, ic,
+                                                  new_mem_lat.dtype)], dim=-1)
+            upr, _ = self.rnn1_rad(x_rad,
+                                   self.mlp_surface_init_rad(x_sfc[:, 6:11]))
+            rad_out, last_h_rad = self.rnn2_rad(upr, self.mlp_toa_rad(x_toa))
+            dT_rad_ml = self.mlp_output_rad(rad_out)
+            sfc_rad_ml = F.relu(self.mlp_surface_output_rad(last_h_rad))
+        else:
+            rnn2out = rnn2out_full[:, ic:]
+            new_mem_lat = new_mem_full[:, ic:]
+            dT_rad_ml = self.mlp_output_rad(rnn2out_full)
+            sfc_rad_ml = F.relu(self.mlp_surface_output_rad(last_h))
         out_raw = self.mlp_output(new_mem_lat)
 
         dp = (plev[:, 1:] - plev[:, :-1])[:, ic:]    # [B, Lc]
@@ -265,7 +312,7 @@ class PhysicalRNNAutoreg(nn.Module):
         latent = rnn2out
         qv_crm = _softplus(self.mlp_qv_crm(latent))
         qn_crm = _softplus(self.mlp_qn_crm(latent))
-        zreg = torch.zeros((B, Lc, 1), dtype=dt, device=x_main.device)
+        zreg = torch.zeros((B, Lc, 1), dtype=qn_crm.dtype, device=dev)
         if self.use_clear_sky_region:
             qn_crm = torch.cat([zreg, qn_crm], dim=-1)
         area_frac = torch.softmax(self.mlp_subgrid_area_frac(latent), dim=-1)
@@ -295,9 +342,9 @@ class PhysicalRNNAutoreg(nn.Module):
         play_crm = play[:, ic:]
         pd0 = (play_crm - play[:, ic - 1:-1])[..., None]
         flux_H = eddy * (C.CP / g) * T_crm * pd0
-        zer1 = torch.zeros((B, 1, nreg), dtype=dt, device=x_main.device)
-        zerH = torch.zeros((B, 1, flux_H.shape[-1]), dtype=dt,
-                           device=x_main.device)
+        zer1 = torch.zeros((B, 1, nreg), dtype=flux_H.dtype, device=dev)
+        zerH = torch.zeros((B, 1, flux_H.shape[-1]), dtype=flux_H.dtype,
+                           device=dev)
         flux_H = torch.cat([zerH, flux_H[:, :-1], zerH], dim=1)
         flux_t_dp = (sf / C.CP) * (flux_H[:, 1:] - flux_H[:, :-1]) * inv_dp
 
@@ -309,13 +356,16 @@ class PhysicalRNNAutoreg(nn.Module):
         flux_qv_dp = sf * (fqv[:, 1:] - fqv[:, :-1]) * inv_dp
         flux_qn_dp = sf * (fqn[:, 1:] - fqn[:, :-1]) * inv_dp
 
-        # yscales: scalars or per-level columns of length L, sliced to the
-        # CRM levels for [B, Lc, nreg] and [B, Lc] contexts
+        # yscales in the input's dtype: scalars or per-level columns of
+        # length L, sliced to the CRM levels for [B, Lc, nreg] and [B, Lc]
+        ys_t_full, ys_qv_full, ys_qn_full = (
+            self.yscale_t.to(dt), self.yscale_qv.to(dt),
+            self.yscale_qn.to(dt))
         crm3 = lambda a: a if a.ndim == 0 else a[ic:].reshape(1, -1, 1)
         crm2 = lambda a: a if a.ndim == 0 else a[ic:].reshape(1, -1)
-        ys_t, ys_qv, ys_qn = (crm3(self.yscale_t), crm3(self.yscale_qv),
-                              crm3(self.yscale_qn))
-        ys_t2, ys_qv2 = crm2(self.yscale_t), crm2(self.yscale_qv)
+        ys_t, ys_qv, ys_qn = crm3(ys_t_full), crm3(ys_qv_full), \
+            crm3(ys_qn_full)
+        ys_t2, ys_qv2 = crm2(ys_t_full), crm2(ys_qv_full)
         if self.ice_sedimentation:
             qice_crm = _softplus(self.mlp_qice_crm(latent))
             qice_crm = rescale(qice_crm, qice_gcm)
@@ -325,14 +375,15 @@ class PhysicalRNNAutoreg(nn.Module):
             sed = torch.cat([zer1, sed], dim=1)
             sed_qn_dp = sf * (sed[:, 1:] - sed[:, :-1]) * inv_dp
         else:
-            sedimentation = torch.zeros((B,), dtype=dt, device=x_main.device)
+            sedimentation = torch.zeros((B,), dtype=dt, device=dev)
             sed_qn_dp = 0.0
 
         # ---- 3. process rates + ORDERED positivity clamps (:535-559)
         dqv_evap_prec = F.relu(self.mlp_evap_prec_crm(rnn2out)) + 1.0e-6
         dq_cond = self.mlp_evap_cond_vapor_crm(rnn2out)
         if self.use_clear_sky_region:
-            dq_cond = torch.cat([zreg, dq_cond], dim=-1)
+            dq_cond = torch.cat([torch.zeros((B, Lc, 1), dtype=dq_cond.dtype,
+                                             device=dev), dq_cond], dim=-1)
         if self.store_precip:
             # distribute the stored pool over levels, weight evaporation
             P_vert = torch.softmax(out_raw[:, :, 2], dim=1) * P_old[:, None]
@@ -397,7 +448,7 @@ class PhysicalRNNAutoreg(nn.Module):
                 * qv_excess * ys_t
 
         # ---- 5. semi-prognostic precipitation (:647-677)
-        one_over_g = 1.0 / g
+        one_over_g = weak(1.0 / g, dt)
         water_new = torch.sum(one_over_g * dp * d_prec, dim=1)
         if self.store_precip:
             water_new = P_old + water_new
@@ -422,14 +473,24 @@ class PhysicalRNNAutoreg(nn.Module):
         snowfrac = temperature_scaling_precip(x_denorm[:, -1, 0])
         precsc = snowfrac * precc
 
-        # ---- assemble outputs (winds stay pure-ML); precc/precsc enter
-        # the outputs raw (models_phys.py:678,1758)
-        out = torch.zeros((B, L, self.ny), dtype=dt, device=x_main.device)
+        # ---- assemble outputs (winds stay pure-ML) in the input's dtype,
+        # as JAX's buffer; precc/precsc enter raw (models_phys.py:678,1758)
+        out = torch.zeros((B, L, self.ny), dtype=dt, device=dev)
         out[:, ic + 2:, -2:] = out_raw[:, 2:, -2:]
         out[:, ic:, 0:1] = out_raw[:, :, 0:1] + dT \
             if self.allow_extra_heating else dT
         out[:, ic:, 1:2] = dqv
         out[:, ic:, 2:3] = dqn
+        if not self.use_physrad:
+            # ML radiation (models_phys.py:1688-1690,1758): heating on
+            # every level, ReLU'd scalars around the diagnosed precip
+            # pair; JAX's .at[].add casts the addend to the buffer's dtype
+            out[:, :, 0:1] = out[:, :, 0:1] + dT_rad_ml.to(dt)
+            out_sfc = torch.cat([sfc_rad_ml[:, 0:2], precsc[:, None],
+                                 precc[:, None], sfc_rad_ml[:, 2:]], dim=1)
+            return self._finish(out, out_sfc, new_mem_lat, water_stored,
+                                prec_negative, area_frac, liq_frac_crm,
+                                qv_crm, qn_crm, T_crm)
         out_sfc = self.mlp_surface_output(last_h).clone()
         out_sfc[:, 2] = precsc
         out_sfc[:, 3] = precc
@@ -453,15 +514,30 @@ class PhysicalRNNAutoreg(nn.Module):
         else:
             T_full = x_denorm[:, :, 0]
         # sub-grid condensate -> grid-mean water paths [g/m2] with the
-        # area-weighted liquid fraction split
+        # area-weighted liquid fraction split, in the input's dtype
         lf_r = liq_frac_crm * torch.ones_like(qn_crm)
         qn_mean = torch.sum(area_frac * qn_crm, -1)           # [B, Lc]
         lf_mean = torch.sum(area_frac * lf_r, -1) \
             / torch.clamp(torch.sum(area_frac, -1), min=1e-9)
         clouds = {
-            "lwp": _pad_top(1000.0 * qn_mean * lf_mean * dp / C.GRAV, ic),
-            "iwp": _pad_top(1000.0 * qn_mean * (1.0 - lf_mean) * dp / C.GRAV,
-                            ic)}
+            "lwp": _pad_top(1000.0 * qn_mean * lf_mean * dp / C.GRAV, ic,
+                            dt),
+            "iwp": _pad_top(1000.0 * qn_mean * (1.0 - lf_mean) * dp
+                            / C.GRAV, ic, dt)}
+        if self.use_tc:
+            # per-region paths; above the CRM everything is the clear
+            # region 0; the overlap parameter of each interior interface
+            # from the latent memory (op 1 above the CRM, irrelevant there)
+            path_r = 1000.0 * qn_crm * dp[..., None] / C.GRAV
+            clouds["lwp_r"] = _pad_top(path_r * lf_r, ic, dt)
+            clouds["iwp_r"] = _pad_top(path_r * (1.0 - lf_r), ic, dt)
+            top = torch.zeros((B, ic, nreg), dtype=dt, device=dev)
+            top[:, :, 0] = 1.0
+            clouds["region_frac"] = torch.cat([top, area_frac.to(dt)], dim=1)
+            op_crm = torch.sigmoid(self.mlp_overlap(new_mem_lat[:, :-1, :]))
+            clouds["overlap_param"] = torch.cat(
+                [torch.ones((B, ic), dtype=dt, device=dev),
+                 op_crm[..., 0].to(dt)], dim=1)
         if self.use_mcica:
             # stratified sampling of g-points among the subgrid regions by
             # area (models_phys.py:862-886)
@@ -471,13 +547,13 @@ class PhysicalRNNAutoreg(nn.Module):
                 qn_g = RAD.take_small_axis(qn_crm, idx)
                 lf_g = RAD.take_small_axis(lf_r, idx)
                 path_g = 1000.0 * qn_g * dp[..., None] / C.GRAV
-                clouds[f"lwp_{tag}_g"] = _pad_top(path_g * lf_g, ic)
-                clouds[f"iwp_{tag}_g"] = _pad_top(path_g * (1.0 - lf_g), ic)
+                clouds[f"lwp_{tag}_g"] = _pad_top(path_g * lf_g, ic, dt)
+                clouds[f"iwp_{tag}_g"] = _pad_top(path_g * (1.0 - lf_g), ic,
+                                                  dt)
         # grid-mean water vapor as vmr (models_phys.py:946)
         qv_col = torch.clamp(qv_col, 0.0, 0.05)
         vmr_col = qv_col / (1.0 - qv_col) * _VMR
-        full = lambda v: torch.full((B, L), v, dtype=dt,
-                                    device=x_main.device)
+        full = lambda v: torch.full((B, L), v, dtype=dt, device=dev)
         gases = {"o3": full(2e-6), "ch4": full(9.7e-7), "n2o": full(4.8e-7),
                  "h2o": vmr_col}
         if self.use_qv_variability:
@@ -489,6 +565,8 @@ class PhysicalRNNAutoreg(nn.Module):
                                        dim=1)
         clouds.update({"landfrac": x_sfc[:, 13], "icefrac": x_sfc[:, 12],
                        "snowh": F.relu(x_sfc[:, 16])})
+        if self.learned_cloud_optics:
+            clouds["latent"] = _pad_top(new_mem_lat, ic, dt)
         sfc_rad = {"coszrs": F.relu(x_sfc[:, 6]),
                    "solin": F.relu(x_sfc[:, 1]) * 1360.0,
                    "lwup": 5.67e-8 * RAD.pow4(torch.clamp(
@@ -499,13 +577,23 @@ class PhysicalRNNAutoreg(nn.Module):
                    "asdir": torch.sigmoid(x_sfc[:, 10])}
         heating, scalars = self.radiation(T_full, play, plev, gases, clouds,
                                           sfc_rad, generator)
-        ys_line = self.yscale_t if self.yscale_t.ndim == 0 \
-            else self.yscale_t.reshape(1, -1)
-        out[:, :, 0] = out[:, :, 0] + heating * ys_line
+        ys_line = ys_t_full if ys_t_full.ndim == 0 \
+            else ys_t_full.reshape(1, -1)
+        out[:, :, 0] = out[:, :, 0] + (heating * ys_line).to(dt)
         for i, k in ((0, "NETSW"), (1, "FLWDS"), (4, "SOLS"), (5, "SOLL"),
                      (6, "SOLSD"), (7, "SOLLD")):
             out_sfc[:, i] = scalars[k]
+        return self._finish(out, out_sfc, new_mem_lat, water_stored,
+                            prec_negative, area_frac, liq_frac_crm, qv_crm,
+                            qn_crm, T_crm)
 
+    def _finish(self, out, out_sfc, new_mem_lat, water_stored,
+                prec_negative, area_frac, liq_frac_crm, qv_crm, qn_crm,
+                T_crm):
+        """(out, out_sfc, new memory with the stored pool, aux) in the
+        policy's output dtype."""
+        B, Lc = new_mem_lat.shape[:2]
+        pol = self.policy
         new_mem = torch.cat(
             [new_mem_lat, water_stored[:, None, None].expand(B, Lc, 1)],
             dim=-1)

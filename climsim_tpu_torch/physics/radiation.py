@@ -5,7 +5,9 @@ adding, with their helpers.
 The two solvers here, ``lw_solver_noscat`` and ``adding_sw``, are the
 plain versions of the CUDA kernels behind
 ``ops/pallas_radiation.py::lw_solver_noscat_fast`` and ``adding_sw_fast``:
-a Python loop over levels where JAX has ``lax.scan``.
+a Python loop over levels where JAX has ``lax.scan``. The TripleClouds
+pair ``calc_overlap_matrices`` and ``adding_sw_tc`` is plain JAX in the
+JAX package and plain torch here.
 
 Shapes are batch-first: layers [B, nlev(, ng)], half-levels
 [B, nlev+1(, ng)] with level 0 = TOA; the spectral axis ng rides along as
@@ -16,6 +18,7 @@ from __future__ import annotations
 from functools import reduce
 
 import torch
+from torch.nn import functional as F
 
 SIGMA_SB = 5.670374419e-8
 LW_DIFFUSIVITY = 1.66
@@ -188,17 +191,107 @@ def adding_sw(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
             torch.stack(fdirs, dim=1))
 
 
-def calc_overlap_matrices(region_fracs, overlap_param,
-                          cloud_fraction_threshold: float = 1.0e-20):
-    """TripleClouds overlap matrices: not ported yet."""
-    raise NotImplementedError("calc_overlap_matrices (TripleClouds, use_tc) "
-                              "is not ported yet (ROADMAP A.11)")
+def calc_overlap_matrices(region_fracs: torch.Tensor,
+                          overlap_param: torch.Tensor,
+                          cloud_fraction_threshold: float = 1.0e-20
+                          ) -> torch.Tensor:
+    """Directional TripleClouds overlap matrices (Shonk et al. 2010;
+    physics_rad.py:688-872), built for every interface at once: each
+    interface needs only the region fractions of its two layers.
+
+    region_fracs [B, nlev, nreg] (region 0 the clear sky, TOA first);
+    overlap_param [B, nlev-1], the beta overlap of each interior
+    interface. Returns v [B, nlev+1, nreg, nreg] with ``v[..., jl, ju]``
+    the share of the downwelling flux leaving region ``ju`` of the layer
+    above interface ``jlev`` that enters region ``jl`` below it;
+    interface 0 is the TOA and interface nlev the surface, each with a
+    single clear region on its far side."""
+    B, nlev, nreg = region_fracs.shape
+    dt, dev = region_fracs.dtype, region_fracs.device
+    # the threshold rounds to a half-precision input's dtype, as JAX's
+    # weakly typed scalar does
+    th = float(torch.tensor(cloud_fraction_threshold, dtype=dt))
+    clear = torch.zeros((B, 1, nreg), dtype=dt, device=dev)
+    clear[:, :, 0] = 1.0
+    frac_upper = torch.cat([clear, region_fracs], dim=1)     # [B, L+1, R]
+    frac_lower = torch.cat([region_fracs, clear], dim=1)
+    # the TOA and the surface take op 1 (one region on the far side);
+    # cloudy regions op0^2 where op0 >= 0, else op0 (physics_rad.py:
+    # 768-773)
+    op0 = F.pad(overlap_param, (1, 1), value=1.0)
+    op_cld = torch.where(op0 >= 0.0, op0 * op0, op0)
+    op = torch.cat([op0[..., None],
+                    op_cld[..., None].expand(B, nlev + 1, nreg - 1)],
+                   dim=-1)                                   # [B, L+1, R]
+    oxm = op * torch.minimum(frac_upper, frac_lower)
+    denom = 1.0 - oxm.sum(-1)
+    factor = torch.where(denom >= th,
+                         1.0 / torch.clamp(denom, min=th),
+                         torch.zeros((), dtype=dt, device=dev))
+    ru = frac_upper - oxm
+    rl = frac_lower - oxm
+    eye = torch.eye(nreg, dtype=dt, device=dev)
+    # overlap[ju, jl] = factor ru[ju] rl[jl] + diag(oxm)
+    overlap = factor[..., None, None] * ru[..., :, None] * rl[..., None, :] \
+        + oxm[..., :, None] * eye
+    # v[jl, ju] = overlap[ju, jl] / max(frac_upper[ju], th)
+    inv_fu = 1.0 / torch.clamp(frac_upper, min=th)
+    return overlap.transpose(-1, -2) * inv_fu[..., None, :]
 
 
-def adding_sw_tc(*args):
-    """TripleClouds SW adding solver: not ported yet."""
-    raise NotImplementedError("adding_sw_tc (TripleClouds, use_tc) is not "
-                              "ported yet (ROADMAP A.11)")
+def adding_sw_tc(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
+                 R, T, ref_dir, T_dir_diff, T_dir_dir, V):
+    """TripleClouds SW adding solver with inter-region overlap mixing
+    (physics_rad.py:421-532 ``adding_tc_sw_batchlast_opt``). The up sweep
+    maps the albedos below an interface into the regions of the layer
+    above it (``a V``), the down sweep the downwelling direct and diffuse
+    fluxes into the regions of the layer below (``V f``); with ``V = I``
+    it is the ICA solver but for the down sweep's direct-reflection term,
+    which keeps the reference's T*albedodir*R here, as the JAX package's
+    does.
+
+    incoming_toa, albedo_surf_* [B, nreg] (g-points folded into B);
+    R, T, ref_dir, T_dir_diff, T_dir_dir [B, nlev, nreg], TOA first;
+    V [B, nlev+1, nreg, nreg] from :func:`calc_overlap_matrices` (the
+    surface interface unused). Returns (flux_up, flux_dn_diffuse,
+    flux_dn_direct), each [B, nlev+1, nreg]. The level loops run on one
+    ``unbind`` of each input (ROADMAP C.1)."""
+    (incoming_toa, albedo_surf_diffuse, albedo_surf_direct, R, T, ref_dir,
+     T_dir_diff, T_dir_dir, V) = _common(
+        incoming_toa, albedo_surf_diffuse, albedo_surf_direct, R, T,
+        ref_dir, T_dir_diff, T_dir_dir, V)
+    nlev = R.shape[1]
+    Rl, Tl, rdir, tdd, tdir = (a.unbind(1) for a in (R, T, ref_dir,
+                                                     T_dir_diff, T_dir_dir))
+    Vl = V[:, :-1].unbind(1)                     # nlev x [B, nreg, nreg]
+    # up sweep; new[ju] = sum_jl a[jl] V[jl, ju]
+    alb, albdir = albedo_surf_diffuse, albedo_surf_direct
+    albs, albdirs = [alb] * (nlev + 1), [albdir] * (nlev + 1)
+    for j in range(nlev - 1, -1, -1):
+        Rj, Tj = Rl[j], Tl[j]
+        inv = 1.0 / (1.0 - alb * Rj)
+        albdir_new = rdir[j] + (tdir[j] * albdir + tdd[j] * alb) * Tj * inv
+        alb_new = Rj + Tj * Tj * alb * inv
+        albdir = torch.einsum("bl,blu->bu", albdir_new, Vl[j])
+        alb = torch.einsum("bl,blu->bu", alb_new, Vl[j])
+        albs[j], albdirs[j] = alb, albdir
+    # down sweep; new[jl] = sum_ju V[jl, ju] f[ju]
+    fdndir = incoming_toa
+    fdndiff = torch.zeros_like(incoming_toa)
+    fups, fdiffs, fdirs = [incoming_toa * albdirs[0]], [fdndiff], [fdndir]
+    for j in range(nlev):
+        Rj, Tj = Rl[j], Tl[j]
+        alb1, adir1 = albs[j + 1], albdirs[j + 1]
+        fdndiff = (Tj * fdndiff + fdndir * (Tj * adir1 * Rj + tdd[j])) \
+            / (1.0 - Rj * alb1)
+        fdndir = fdndir * tdir[j]
+        fdndir = torch.einsum("blu,bu->bl", Vl[j], fdndir)
+        fdndiff = torch.einsum("blu,bu->bl", Vl[j], fdndiff)
+        fups.append(fdndir * adir1 + fdndiff * alb1)
+        fdiffs.append(fdndiff)
+        fdirs.append(fdndir)
+    return (torch.stack(fups, dim=1), torch.stack(fdiffs, dim=1),
+            torch.stack(fdirs, dim=1))
 
 
 def stratified_sample(p: torch.Tensor, G: int) -> torch.Tensor:

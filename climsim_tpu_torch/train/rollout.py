@@ -14,6 +14,14 @@ of ``climsim_tpu/train/rollout.py``).
 * the curriculum ``rollout_schedule`` maps epoch -> W;
 * ``remat`` checkpoints each window step (activations are recomputed in
   the backward pass);
+* semi-online training (``semi_online``, rnn/utils.py:994-1060): the
+  prognostic input channels are rebuilt from the model's own previous
+  prediction plus the dynamics increment of the true series,
+  X_pred[k] = X_pred[k-1] + dt y_pred[k-1] + dX_dyn[k] with
+  dX_dyn[k] = (X_true[k] - X_true[k-1]) - dt y_true[k-1], then
+  normalized (the cloud-exp transform with ``lbd_qc``/``lbd_qi``, the
+  state normalizer ``xmean_prog``/``xdiv_prog``); windows carry
+  'x_lev_raw' and 'y_lev_raw' [W, B, L, >= n_prog];
 * with ``pass_x_raw`` the raw level state rides along to ``apply_fn``
   (the physics-constrained model reads it: ``phys_apply``,
   ``phys_mem_shape``), and with ``pass_y_true`` the true tendencies do in
@@ -43,9 +51,7 @@ member, shape)``: by default ``KeyedNoise``, a generator keyed by
 (``cfg.seed``, the step's index in the window, the member), as JAX keys
 its draws by ``fold_in(PRNGKey(seed), step)`` split M ways, so that every
 window draws the same noise, as in JAX. Nothing is drawn from the global
-RNG. Options of the JAX trainer that this package does not port yet
-(semi-online training) raise ``NotImplementedError`` naming their ROADMAP
-item.
+RNG.
 """
 from __future__ import annotations
 
@@ -130,7 +136,10 @@ class RolloutConfig:
     replay_slice: tuple = (15, 20)   # input channels holding prev tendencies
     pred_slice: tuple = (0, 5)       # output channels substituted in
     gradual_mixing_end_epoch: int = 10
-    # semi-online training: not ported
+    # semi-online training: the first n_prog input channels rebuilt from
+    # the model's previous prediction and the true dynamics increment;
+    # windows carry 'x_lev_raw' and 'y_lev_raw' (raw state and raw true
+    # tendencies)
     semi_online: bool = False
     # the raw level state: windows carry 'x_lev_raw' [W, B, L, C], passed
     # to apply_fn as x_raw (the physics model reads it)
@@ -169,11 +178,6 @@ class RolloutConfig:
         if self.replay != "mixed":
             return 1.0 if self.replay == "full" else 0.0
         return min(1.0, (epoch + 1) / max(1, self.gradual_mixing_end_epoch))
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"RolloutTrainer {what} is not ported yet "
-                               f"(ROADMAP {item})")
 
 
 def make_schedule(cfg: RolloutConfig):
@@ -334,7 +338,11 @@ class RolloutTrainer:
     windows are dicts of arrays or tensors with a leading window axis W:
     x_lev [W, B, L, nx], x_sfc [W, B, ns], y_lev [W, B, L, ny], y_sfc
     [W, B, nys], sp [W, B] raw surface pressure, and with ``pass_x_raw``
-    x_lev_raw [W, B, L, C] the raw level state.
+    x_lev_raw [W, B, L, C] the raw level state; with ``semi_online`` also
+    y_lev_raw [W, B, L, C] the raw true tendencies, and the state
+    normalization of the rebuilt channels: ``xmean_prog``/``xdiv_prog``
+    [L or 1, n_prog] and the cloud-exp coefficients ``lbd_qc``/``lbd_qi``
+    [L] (each optional, as in JAX).
 
     With ``cfg.ensemble_size`` M > 1 the memory is [M, B, ...] and the
     model is called directly (as JAX's trainer applies it) as
@@ -352,9 +360,6 @@ class RolloutTrainer:
                  xmean_prog=None, xdiv_prog=None, lbd_qc=None, lbd_qi=None,
                  apply_fn=None, mem_shape=None, device=None,
                  noise_source=None):
-        if cfg.semi_online or any(a is not None for a in (
-                xmean_prog, xdiv_prog, lbd_qc, lbd_qi)):
-            raise _unported("semi-online training", "A.7")
         if cfg.ensemble_size > 1 and apply_fn is not None:
             raise ValueError("ensemble training calls the model directly "
                              "(as JAX's trainer does); it takes no apply_fn")
@@ -388,6 +393,10 @@ class RolloutTrainer:
         self.yscale_lev = yscale_lev
         self.yscale_sca = None if yscale_sca is None \
             else t(yscale_sca).reshape(-1)
+        # semi-online state normalization of the prognostic channels
+        self.xmean_prog, self.xdiv_prog, self.lbd_qc, self.lbd_qi = (
+            None if a is None else t(a)
+            for a in (xmean_prog, xdiv_prog, lbd_qc, lbd_qi))
         self._schedule = optimizer_schedule(cfg)
         # the parameters the optimizer updates (``finetune.freeze`` takes
         # some out); every rebuilt optimizer takes the same ones
@@ -461,6 +470,21 @@ class RolloutTrainer:
             return L.weighted_loss(out, y_lev, w_lev, kind=cfg.loss) \
                 + L.weighted_loss(out_sfc, y_sfc, w_sfc, kind=cfg.loss)
 
+        np_ = cfg.n_prog
+
+        def normalize_prog(x_raw):
+            """Raw prognostic state -> normalized input channels, with the
+            exp cloud transform on qc/qi (rnn/utils.py:1038-1050)."""
+            x = torch.clamp(x_raw, min=0.0)
+            if self.lbd_qc is not None:
+                qc = 1.0 - torch.exp(-x[..., 2] * self.lbd_qc)
+                qi = 1.0 - torch.exp(-x[..., 3] * self.lbd_qi)
+                x = torch.cat([x[..., :2], qc[..., None], qi[..., None],
+                               x[..., 4:]], dim=-1)
+            if self.xmean_prog is not None:
+                x = (x - self.xmean_prog) / self.xdiv_prog
+            return x
+
         M = cfg.ensemble_size
         ens_fn = _ensemble_score(cfg) if M > 1 else None
         model = self.model
@@ -487,8 +511,25 @@ class RolloutTrainer:
                 (res[3] if ar_noise else eps_c)
 
         def step(mem, prev_out, have_prev, x_lev, x_sfc, y_lev, y_sfc, sp,
-                 x_raw, eps_c=None, fresh=None):
-            if cfg.replay in ("full", "mixed"):
+                 x_raw, eps_c=None, fresh=None, semi=None):
+            if cfg.semi_online:
+                # the dynamics increment of the true series, applied to the
+                # model-advanced state (rnn/utils.py:1014-1056)
+                x_pred, x_true_prev, y_true_prev, y_raw = semi
+                dx_dyn = (x_raw[..., :np_] - x_true_prev) \
+                    - DT_STEP * y_true_prev
+                ysl = self.yscale_lev[..., :np_] \
+                    if self.yscale_lev is not None else 1.0
+                x_adv = x_pred + DT_STEP * (prev_out[..., :np_] / ysl) \
+                    + dx_dyn
+                use = have_prev * (mix_mask[:, None, None]
+                                   if cfg.replay == "mixed" else 1.0)
+                x_pred = use * x_adv + (1.0 - use) * x_raw[..., :np_]
+                x_lev = torch.cat([normalize_prog(x_pred), x_lev[..., np_:]],
+                                  dim=-1)
+                semi = (x_pred.to(x_raw.dtype), x_raw[..., :np_],
+                        y_raw[..., :np_])
+            elif cfg.replay in ("full", "mixed"):
                 use = have_prev * (mix_mask[:, None, None]
                                    if cfg.replay == "mixed" else 1.0)
                 repl = use * prev_out[..., p0:p1] \
@@ -555,7 +596,7 @@ class RolloutTrainer:
                 if raw_terms:
                     extra = extra + self._raw_state_terms(od, x_raw, sp)
             loss = cfg.w_main * main + extra
-            return mem, out, out_sfc, loss, eps_c
+            return mem, out, out_sfc, loss, eps_c, semi
 
         run = step
         if cfg.remat and torch.is_grad_enabled():
@@ -570,17 +611,23 @@ class RolloutTrainer:
             eps_c = torch.zeros((Le, M * B, nh3),
                                 dtype=window["x_lev"].dtype,
                                 device=self.device)
+        # the semi-online carry (x_pred, x_true_prev, y_true_prev) from zeros
+        zprog = torch.zeros(tuple(window["x_lev"].shape[1:3]) + (np_,),
+                            dtype=window["x_lev"].dtype, device=self.device)
+        carry = (zprog, zprog, zprog) if cfg.semi_online else None
+        raw = cfg.pass_x_raw or cfg.semi_online
         step_losses, outs, out_sfcs = [], [], []
         for i in range(W):
             # the draws come in as an argument, so that a remat recompute
             # reuses them
             fresh = self._draw(i, window) if M > 1 and stochastic else None
-            mem, prev_out, out_sfc, loss, eps_c = run(
+            semi = carry + (window["y_lev_raw"][i],) if cfg.semi_online \
+                else None
+            mem, prev_out, out_sfc, loss, eps_c, carry = run(
                 mem, prev_out, have_prev, window["x_lev"][i],
                 window["x_sfc"][i], window["y_lev"][i], window["y_sfc"][i],
-                window["sp"][i],
-                window["x_lev_raw"][i] if cfg.pass_x_raw else None, eps_c,
-                fresh)
+                window["sp"][i], window["x_lev_raw"][i] if raw else None,
+                eps_c, fresh, semi)
             have_prev = 1.0
             step_losses.append(loss)
             outs.append(prev_out)

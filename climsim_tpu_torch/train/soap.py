@@ -55,6 +55,12 @@ def _qr_q(A: torch.Tensor) -> torch.Tensor:
     return torch.linalg.qr(A).Q
 
 
+def _desc_order(est: torch.Tensor) -> torch.Tensor:
+    """The order of the eigenvalue estimates ``est``, largest first (the
+    refresh's sort, soap.py:152-160)."""
+    return torch.argsort(-est)
+
+
 class SOAP(torch.optim.Optimizer):
     """SOAP with the JAX package's defaults (b1 0.95, b2 0.95,
     shampoo_beta 0.95, eps 1e-8, a refresh every 10 steps, max_precond_dim
@@ -148,8 +154,8 @@ class SOAP(torch.optim.Optimizer):
         elif step % group["precondition_frequency"] == 0:
             L32, R32, QL32, QR32 = L.float(), R.float(), QL.float(), \
                 QR.float()
-            sortL = torch.argsort(-torch.diagonal(QL32.t() @ L32 @ QL32))
-            sortR = torch.argsort(-torch.diagonal(QR32.t() @ R32 @ QR32))
+            sortL = _desc_order(torch.diagonal(QL32.t() @ L32 @ QL32))
+            sortR = _desc_order(torch.diagonal(QR32.t() @ R32 @ QR32))
             v = v[sortL][:, sortR]
             QLn = _qr_q(L32 @ QL32[:, sortL]).to(g2.dtype)
             QRn = _qr_q(R32 @ QR32[:, sortR]).to(g2.dtype)

@@ -2310,3 +2310,136 @@ def test_bf16_gate_mode_gradients_are_the_f32_gate_ones(cuda, kind):
         assert (x is None) == (y is None)
         if x is not None:
             assert torch.equal(x, y)
+
+
+def _phys_small(device, **over):
+    """conf/autoreg_physrnn.yaml's model narrow (nneur 16, nh_mem 8), with
+    Grid.synthetic's coefficients; McICA off, so the card's and the CPU's
+    discrete choices cannot part."""
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch.models import BF16, F32, PhysicalRNNAutoreg
+    g = Grid.synthetic(4, 60)
+    tt = lambda a: tuple(a.tolist())
+    kw = dict(nx=15, nx_sfc=24, ny=5, ny_sfc=8, nneur=(16, 16), nh_mem=8,
+              nreg=6, use_physrad=True, ng_lw=8, ng_sw=8, hyai=tt(g.hyai),
+              hybi=tt(g.hybi), hyam=tt(g.hyam), hybm=tt(g.hybm),
+              sp_mean=9.8e4, sp_div=1e3, yscale_t=1e5, yscale_qv=1e8,
+              yscale_qn=1e8, yscale_precc=1e12)
+    kw.update(over)
+    kw["policy"] = BF16 if kw.get("policy") == "bf16" else F32
+    return PhysicalRNNAutoreg(**kw, device=device, seed=4)
+
+
+def _phys_inputs(B, device, seed=5):
+    rng = np.random.default_rng(seed)
+    xd = np.zeros((B, 60, 6), np.float32)
+    xd[..., 0] = rng.uniform(200, 300, (B, 60))
+    xd[..., 2:4] = np.abs(rng.normal(0, 1e-5, (B, 60, 2)))
+    xd[..., 5] = np.abs(rng.normal(1e-3, 3e-4, (B, 60)))
+    arrays = (rng.normal(0, 1, (B, 60, 15)), rng.normal(0, 1, (B, 24)),
+              np.abs(rng.normal(0, 0.1, (B, 50, 9))), xd)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(use_tc=True), dict(learned_cloud_optics=True),
+    dict(use_physrad=False, use_pallas=True),
+    dict(use_physrad=False, separate_radiation=True, use_pallas=True),
+    dict(policy="bf16", use_pallas=True)],
+    ids=["use_tc", "learned", "ml_radiation", "separate", "bf16"])
+def test_phys_options_on_card_match_cpu(cuda, over):
+    """The physics model's other options on the card (B7 for the fused
+    trunk, B11/B12 with physical radiation but TripleClouds' SW) against
+    the same model on the CPU: every output to 1e-4 of its scale, as
+    chip_smoke.py's physics checks hold it."""
+    from climsim_tpu_torch.ops import fused_bigru_lbh, lw_solver_noscat_fast
+    tc, tp = _phys_small("cuda", **over), _phys_small("cpu", **over)
+    b7, b12 = fused_bigru_lbh.launches, lw_solver_noscat_fast.launches
+    with torch.no_grad():
+        got = tc(*_phys_inputs(12, cuda))
+        want = tp(*_phys_inputs(12, "cpu"))
+    assert (fused_bigru_lbh.launches > b7) == bool(over.get("use_pallas"))
+    assert (lw_solver_noscat_fast.launches > b12) == tc.use_physrad
+    for g, w in zip(got[:3], want[:3]):
+        e = ((g.cpu() - w).abs().max() / w.abs().max()).item()
+        assert e <= 1e-4, e
+
+
+@pytest.mark.cuda
+def test_semi_online_update_on_card_matches_cpu(cuda):
+    """One semi-online W 3 update of the v4 arm (f32, remat) on the card
+    (B10, B7, B8) against the CPU's from the same weights, as chip_smoke.py
+    holds the physics model's updates in lockstep: the loss to 1e-5; each
+    parameter's gradient, in the norm of its difference, within 1e-4 of
+    the CPU's norm plus 4x the movement of a witness (the CPU's weights
+    times 1 + 1e-6 noise) plus 1e-6 of the whole gradient's norm; and
+    Adam's first step on the card, from the gradient the card computed,
+    within 1e-5 of (|w| + lr) of w - lr g / (|g| + eps)."""
+    from climsim_tpu_torch.models import F32, RNNAutoreg
+    from climsim_tpu_torch.ops import fused_bigru_heads_init_lbh
+    from climsim_tpu_torch.train import RolloutConfig, RolloutTrainer
+    rng = np.random.default_rng(6)
+    T, B, L, lr = 3, 24, 60, 1e-3
+    data = {"x_lev": rng.normal(0, 0.3, (T, B, L, 6)),
+            "x_sfc": rng.normal(0, 0.3, (T, B, 24)),
+            "y_lev": rng.normal(0, 0.3, (T, B, L, 6)),
+            "y_sfc": rng.normal(0, 0.3, (T, B, 8)),
+            "sp": np.full((T, B), 1e5),
+            "x_lev_raw": np.abs(rng.normal(1.0, 0.1, (T, B, L, 6))),
+            "y_lev_raw": rng.normal(0, 1e-4, (T, B, L, 6))}
+
+    def trainer(dev, jitter=False):
+        m = RNNAutoreg(nx=6, nx_sfc=24, ny=6, ny_sfc=8, nneur=(32, 32),
+                       nh_mem=8, add_pres=False, use_pallas=True,
+                       fuse_heads=True, fuse_init=True, policy=F32,
+                       device=dev, seed=2)
+        if jitter:
+            g = torch.Generator().manual_seed(7)
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+        tr = RolloutTrainer(m, RolloutConfig(
+            rollout_schedule={0: T}, loss="mse", lr=lr, remat=True,
+            semi_online=True), np.linspace(1e-3, 0, L + 1),
+            np.linspace(0, 1, L + 1), xmean_prog=np.zeros((1, 6)),
+            xdiv_prog=np.ones((1, 6)), lbd_qc=np.full(L, 10.0),
+            lbd_qi=np.full(L, 10.0), device=dev)
+        window = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                  for k, v in data.items()}
+        return m, tr, window, tr.init(window)
+
+    def cpu_gradients(jitter):
+        m, tr, window, mem = trainer("cpu", jitter)
+        loss, _ = tr._window_loss(window, mem, None)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in m.named_parameters()}
+
+    m, tr, window, mem = trainer("cuda")
+    w0 = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+    seen = {}
+    hook = tr.opt.register_step_pre_hook(lambda *_: seen.update(
+        {n: p.grad.detach().cpu().clone()
+         for n, p in m.named_parameters()}))
+    before = fused_bigru_heads_init_lbh.launches
+    _, loss = tr.update(window, mem, None)
+    launches = fused_bigru_heads_init_lbh.launches - before
+    hook.remove()
+    assert launches == 2 * T, launches
+    cpu_loss, cpu = cpu_gradients(False)
+    _, witness = cpu_gradients(True)
+    np.testing.assert_allclose(loss.item(), cpu_loss, rtol=1e-5)
+    total = torch.sqrt(sum((g * g).sum() for g in cpu.values())).item()
+    assert set(seen) == set(cpu)
+    for n, g in cpu.items():
+        err = (seen[n] - g).norm().item()
+        bound = (1e-4 * g.norm().item() + 4 * (witness[n] - g).norm().item()
+                 + 1e-6 * total)
+        assert err <= bound, (n, err, bound)
+    for n, p in m.named_parameters():
+        g = seen[n]
+        want = w0[n] - lr * g / (g.abs() + 1e-8)
+        assert ((p.detach().cpu() - want).abs()
+                <= 1e-5 * (w0[n].abs() + lr)).all(), n

@@ -338,17 +338,28 @@ def test_y_true_reaches_the_model_only_in_training():
 @pytest.mark.parametrize("over", [
     dict(use_physrad=False), dict(use_tc=True),
     dict(learned_cloud_optics=True), dict(policy=BF16)])
-def test_unported_options_raise(over):
-    """Options still to port raise naming their ROADMAP item (the scan
-    trunk, use_pallas=False, is ported: see test_scan_trunk_matches_jax)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PhysicalRNNAutoreg(**{**FUSED, **over}, device="cpu")
+def test_other_options_run(over):
+    """The options that raised before ROADMAP A.11 was ported now build
+    and give finite outputs of the contract's shapes (against JAX:
+    test_torch_phys_options.py)."""
+    tm = PhysicalRNNAutoreg(**{**FUSED, **over}, device="cpu")
+    with torch.no_grad():
+        out, out_sfc, mem, _ = tm(*map(torch.as_tensor, _inputs(3)))
+    assert out.shape == (3, L, NY) and out_sfc.shape == (3, NY_SFC)
+    assert mem.shape == (3, L - 10, FUSED["nh_mem"] + 1)
+    for a in (out, out_sfc, mem):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
 
 
-def test_unported_radiation_options_raise():
-    for flag in ("learned_cloud_optics", "map_bands", "use_tc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RadiationModule(**{flag: True})
+def test_radiation_options_build():
+    """learned_cloud_optics, map_bands and use_tc, which raised before,
+    build their parameters (against JAX: test_torch_radiation_tc.py)."""
+    names = {flag: set(RadiationModule(**{flag: True}).state_dict())
+             for flag in ("learned_cloud_optics", "map_bands", "use_tc")}
+    assert {"cld_lw.kernel", "cld_sw1.bias", "cld_sw2.kernel"} \
+        <= names["learned_cloud_optics"]
+    assert {"band_expand_kernel", "band_expand_bias"} <= names["map_bands"]
+    assert names["use_tc"] == set(RadiationModule().state_dict())
 
 
 def test_defaults_to_cuda():

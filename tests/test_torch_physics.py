@@ -199,8 +199,18 @@ def test_take_small_axis_is_nan_safe():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_tripleclouds_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.calc_overlap_matrices(torch.zeros(2, 3, 4), torch.zeros(2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.adding_sw_tc()
+def test_tripleclouds_runs():
+    """calc_overlap_matrices and adding_sw_tc, which raised before
+    TripleClouds was ported, run and give JAX's numbers (against JAX in
+    detail: test_torch_radiation_tc.py)."""
+    f = np.full((2, 3, 4), 0.25, np.float32)
+    op = np.full((2, 2), 0.5, np.float32)
+    v = R.calc_overlap_matrices(torch.as_tensor(f), torch.as_tensor(op))
+    _same(v, JR.calc_overlap_matrices(jnp.asarray(f), jnp.asarray(op)),
+          atol=1e-7)
+    ones = np.full((2, 4), 0.5, np.float32)
+    lay = np.full((2, 3, 4), 0.3, np.float32)
+    args = (ones, ones, ones, lay, lay, lay, lay, lay, v.numpy())
+    for g, w in zip(R.adding_sw_tc(*map(torch.as_tensor, args)),
+                    JR.adding_sw_tc(*map(jnp.asarray, args))):
+        _same(g, w, rtol=1e-6)

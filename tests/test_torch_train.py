@@ -394,20 +394,12 @@ def test_init_gives_zero_memory_and_fresh_optimizer():
     assert not tt.opt.state
 
 
-UNPORTED = [dict(semi_online=True)]
-# options that raised before the ensemble training and the optimizers were
-# ported; each now runs
+# options that raised before the ensemble training, the optimizers and
+# semi-online training were ported; each now runs
 PORTED = [dict(w_det=1.0), dict(ensemble_size=2), dict(optimizer="soap"),
-          dict(optimizer="muon"), dict(optimizer="schedulefree")]
+          dict(optimizer="muon"), dict(optimizer="schedulefree"),
+          dict(semi_online=True)]
 _ids = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
-
-
-@pytest.mark.parametrize("over", UNPORTED, ids=_ids)
-def test_unported_options_raise(over):
-    _, _, tm = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RolloutTrainer(tm, RolloutConfig(**over), HYAI, HYBI,
-                       apply_fn=channel_major_apply, device="cpu")
 
 
 @pytest.mark.parametrize("over", PORTED, ids=_ids)
@@ -440,6 +432,13 @@ def test_ported_options_run(over):
                                **over)
     flat = _flat(params["params"])
     chunk = _data(2, seed=5)
+    if over.get("semi_online"):
+        # the raw state and raw true tendencies of the rebuilt channels
+        rng = np.random.default_rng(6)
+        chunk["x_lev_raw"] = np.abs(rng.normal(1.0, 0.1, (2, B, L, NX))
+                                    ).astype(np.float32)
+        chunk["y_lev_raw"] = rng.normal(0, 1e-5, (2, B, L, NY)).astype(
+            np.float32)
     jp, _, _, jrec = jt.run_epoch(params, jt.tx.init(params), None,
                                   [chunk], epoch=0)
     _, trec = tt.run_epoch(None, [chunk], epoch=0)
