@@ -6,6 +6,7 @@
     python3 chip_smoke.py 15       # the build, then phase 15 alone
     python3 chip_smoke.py 16       # the build, then phase 16 alone
     python3 chip_smoke.py 17       # the build, then phase 17 alone
+    python3 chip_smoke.py 18       # the build, then phase 18 alone
 
 The paths, each at full width with random weights from a seed:
 
@@ -374,17 +375,40 @@ Phases (any failure exits non-zero):
      (bf16, W 3, remat) at 21,600 columns (B10 6, B7 3, B8 3 launches,
      each held to its plain version); ``python3 chip_smoke.py 17`` runs
      the build and phase 17 alone;
- 18. a JSON line of the kernels (B7's and B8's entries: the bf16
+ 18. the last modules of the JAX package (check_last_modules, ROADMAP
+     A.13, A.14): the CfC liquid network (models/ncp.py) dense and wired
+     over AutoNCP(192, 6, 0.5), both with the LSTM memory, at 21,600
+     columns x 60 levels x 6 inputs (units 192, backbone 128, f32, TF32
+     off): a forward (its kernels counted by torch.profiler) and an Adam
+     update timed, the update's peak memory, and at 384 columns outputs
+     and gradients against device=cpu within 1e-5 of scale;
+     train/hpo.py's random_search over the flagship v6 model (bf16):
+     four trials of two W 1 updates at 2,700 columns and a validation
+     window, each with every counter at 0 (a solo update's B1 and B3
+     launches x 2, B1 2 in validation), every score finite and one attempt
+     a trial, B1 and B3 held to their plain versions at those shapes;
+     parallel_random_search of 16 dense-CfC trials (SGD through
+     torch.func at 2,700 columns) in vmapped batches of 8 grouped by
+     width, its device passes counted and each score within 1e-4 of the
+     sequential search's; the data tools at 21,600 columns against
+     device=cpu: pack_pair of two classic netCDF v5 pairs (relative
+     humidity and a LevelNormalizer on the card), expand_features on 24
+     steps (bit-equal), export_kaggle_files from a Normalizer on the card
+     (byte-equal); whether tensorstore and h5py are present (their paths
+     run in the CPU tests only); ``python3 chip_smoke.py 18`` runs the
+     build and phase 18 alone;
+ 19. a JSON line of the kernels (B7's and B8's entries: the bf16
      tensor-core design at the v2/v4 arms' shapes, with the f32 design at
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads, B1's and
      B10's the pair with the heads and the initial MLP, B3's autograd's
      backward through B4's; the five forwards' bf16-gate mode under
      "bf16_gates", B4's other body under its "hoist_proj_false"; the
-     launches and errors of phase 17 under "phys_options"), the card
-     line, and the result line.
+     launches and errors of phase 17 under "phys_options"; B1's and B3's
+     launches a trial of phase 18's search under "hpo"), the card line,
+     and the result line.
 The end of each phase prints the wall time since the start and the
-phase's own; phases 12, 13, 14 and 15 print each of their steps'
+phase's own; phases 12, 13, 14, 15 and 18 print each of their steps'
 seconds.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1355,15 +1379,16 @@ def train_chunk(T, ncol, device, seed=3):
     return {k: v.to(device) for k, v in chunk.items()}
 
 
-def make_trainer(model, device):
-    """bench.py::build_train's update: W 4 window, remat, MSE, Adam 1e-4,
-    with a channel-major model behind the trainer's [B, L, C] layout (a
-    batch-major one takes it as it is)."""
+def make_trainer(model, device, W=W_TRAIN, lr=LR):
+    """bench.py::build_train's update: W 4 window, remat, MSE, Adam 1e-4
+    (or the window W and the learning rate lr), with a channel-major model
+    behind the trainer's [B, L, C] layout (a batch-major one takes it as
+    it is)."""
     from climsim_tpu_torch import Grid
     from climsim_tpu_torch.train import (RolloutConfig, RolloutTrainer,
                                          channel_major_apply)
     grid = Grid.synthetic(4, NLEV)
-    cfg = RolloutConfig(rollout_schedule={0: W_TRAIN}, loss="mse", lr=LR,
+    cfg = RolloutConfig(rollout_schedule={0: W}, loss="mse", lr=lr,
                         optimizer="adam", remat=True)
     return RolloutTrainer(model, cfg, grid.hyai.numpy(), grid.hybi.numpy(),
                           apply_fn=(channel_major_apply if model.level_major
@@ -6964,6 +6989,516 @@ def check_phys_options(card) -> dict:
     return res
 
 
+# ------------------------------------ phase 18: A.13's and A.14's modules
+
+# the CfC liquid network (models/ncp.py) at the flagship's column shape:
+# 21,600 columns as the batch, the 60 levels as the sequence, the 6 level
+# inputs; units 192 and backbone 128, the LSTM memory, a 6-wide head
+P18_NCOL, P18_UNITS, P18_BACKBONE, P18_NX = NLAT * NLON, 192, 128, 6
+# the hyperparameter search (train/hpo.py) over the flagship: four trials
+# of two W 1 updates at 2,700 columns, then a validation loss
+HPO_NCOL, HPO_TRIALS, HPO_UPDATES = NLAT * NLON // 8, 4, 2
+HPO_SPACE = {"lr": ("loguniform", 1e-4, 1e-2)}
+# the vmapped search over dense CfCs: the learning rate batched, the width
+# the static field (its groups run as separate passes)
+VMAP_SPACE = {"lr": ("loguniform", 1e-3, 1e-1),
+              "units": ("choice", [64, 128])}
+VMAP_TRIALS, VMAP_BATCH, VMAP_STEPS = 16, 8, 2
+# the data tools at 21,600 columns: two v5 file pairs through pack_pair,
+# 24 steps through expand_features, the Kaggle files of the v2 set
+P18_PAIRS, EXPAND_T = 2, 24
+P18_SMALL = LO_NLAT * LO_NLON
+
+
+def check_launches(got, want, label):
+    check(got == want, f"{label}: launches {got}, want {want}")
+
+
+def cfc_models(device, seed=0):
+    """The dense CfC and the CfC wired over AutoNCP(192, 6, 0.5), both
+    with the LSTM memory, from one seed."""
+    from climsim_tpu_torch.models import AutoNCP, CfC
+    dense = CfC(P18_NX, P18_UNITS, proj_size=6, mixed_memory=True,
+                backbone_units=P18_BACKBONE, device=device, seed=seed)
+    wired = CfC.wired(AutoNCP(P18_UNITS, 6, sparsity_level=0.5), P18_NX,
+                      mixed_memory=True, device=device, seed=seed)
+    return {"dense": dense, "wired": wired}
+
+
+def cfc_data(ncol, device, seed=18):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(ncol, NLEV, P18_NX, generator=g)
+    y = 0.5 * torch.randn(ncol, NLEV, 6, generator=g)
+    return x.to(device), y.to(device)
+
+
+def cfc_update_fn(model, x, y, lr=1e-3):
+    """One Adam update of ``model`` on the MSE of its outputs."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+
+    def update():
+        with torch.enable_grad():
+            opt.zero_grad(set_to_none=True)
+            loss = torch.mean((model(x)[0] - y) ** 2)
+            loss.backward()
+        opt.step()
+        return loss
+    return update
+
+
+def cfc_flops(model, ncol) -> float:
+    """Multiply-adds x 2 of one forward: every Dense of a step (the masked
+    kernels counted dense, as they run) over the levels."""
+    macs = sum(p.numel() for n, p in model.named_parameters()
+               if n.endswith("kernel"))
+    return 2.0 * macs * ncol * NLEV
+
+
+def kernel_count(fn):
+    """The kernels ``fn()`` launches on the card and their device time in
+    ms (torch.profiler, device activity alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+    return (sum(ev.count for ev in kernels),
+            sum(ev.device_time_total for ev in kernels) / 1e3)
+
+
+def check_cfc(card, device="cuda", ncol=P18_NCOL) -> None:
+    """The dense and the wired CfC at 21,600 columns on the card: a
+    forward and one Adam update timed, the update's peak memory, the
+    kernels a forward launches (torch.profiler); then at 384 columns
+    outputs and parameter gradients against device=cpu on the same
+    weights, within 1e-5 of each array's scale."""
+    x, y = cfc_data(ncol, device)
+    for name, model in cfc_models(device).items():
+        with torch.no_grad():
+            out, _ = model(x)
+        check(tuple(out.shape) == (ncol, NLEV, 6)
+              and bool(torch.isfinite(out).all()), f"CfC {name} forward")
+        fwd_ms = median_ms(lambda: model(x), 1)
+        n_kernels, busy = kernel_count(lambda: model(x))
+        update = cfc_update_fn(model, x, y)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        upd_ms = median_ms(update, 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = float(update())
+        check(np.isfinite(loss), f"CfC {name} update loss {loss}")
+        flops = cfc_flops(model, ncol)
+        print(f"CfC {name} (units {P18_UNITS}, f32, TF32 off) at "
+              f"{ncol} columns x {NLEV} levels: forward {fwd_ms:.4f} ms "
+              f"({n_kernels} kernels, device busy {busy:.4f} ms; bound "
+              f"{flops / PEAK_F32 * 1e3:.4f} ms by f32 operations), Adam "
+              f"update {upd_ms:.4f} ms (bound {3 * flops / PEAK_F32 * 1e3:.4f}"
+              f" ms), peak {peak:.2f} GB, loss {loss:.6f} [{card}]")
+        del update
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 384 columns: the card against the CPU on the same weights
+    xs, ys = cfc_data(P18_SMALL, "cpu", seed=19)
+    ct = torch.randn(P18_SMALL, NLEV, 6,
+                     generator=torch.Generator().manual_seed(20))
+    cpu_models = cfc_models("cpu", seed=1)
+    for name, model in cfc_models(device, seed=1).items():
+        cm = cpu_models[name]
+        outs, grads = {}, {}
+        for tag, m, dev in (("card", model, device), ("cpu", cm, "cpu")):
+            with torch.enable_grad():
+                out, _ = m(xs.to(dev))
+                (out * ct.to(dev)).sum().backward()
+            outs[tag] = out.detach().cpu()
+            grads[tag] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        err = rel_err(outs["card"], outs["cpu"])
+        gerr = max(rel_err(grads["card"][n], grads["cpu"][n])
+                   for n in grads["cpu"])
+        print(f"CfC {name} at {P18_SMALL} columns, card against CPU: output "
+              f"{err:.3e}, gradients up to {gerr:.3e} of their scale "
+              f"(tolerance 1e-5) [{card}]")
+        check(err <= 1e-5 and gerr <= 1e-5, f"CfC {name} card vs CPU: "
+              f"{err:.3e}, gradients {gerr:.3e}")
+
+
+
+def hpo_trainer(lr, device):
+    """A fresh flagship v6 model (bf16, nneur 192/192, nh_mem 16, seed 0)
+    behind bench.py::build_train's trainer with a W 1 window and the
+    trial's learning rate."""
+    from climsim_tpu_torch.models import BF16
+    return make_trainer(make_model(BF16, device), device, W=1, lr=lr)
+
+
+def hold_b1_b3(model, card, B):
+    """B1 and B3 at the trials' shapes (bf16, B columns) against their
+    plain versions, as check_b1 and check_b3 hold them."""
+    from climsim_tpu_torch.ops import (bigru_heads_cm_bwd,
+                                       bigru_heads_cm_bwd_reference,
+                                       bigru_heads_init_cm_reference,
+                                       fused_bigru_heads_init_cm)
+    a16 = tuple(t.to(torch.bfloat16)
+                for t in b1_args(model, B, torch.float32, seed=B))
+    got = fused_bigru_heads_init_cm(*a16)
+    want = bigru_heads_init_cm_reference(*a16)
+    own = max_err(want, bigru_heads_init_cm_reference(
+        *(t.float() for t in a16)))
+    e1 = max_err(got, want)
+    check(e1 <= 4.0 * own, f"B1 bf16 B={B}: {e1} > 4 x {own}")
+    res, dom, dlh = b3_args(model, B, torch.float32, seed=B)
+    r16 = tuple(t.to(torch.bfloat16) for t in res)
+    d16 = (dom.to(torch.bfloat16), dlh.to(torch.bfloat16))
+    got3 = bigru_heads_cm_bwd(r16, *d16)
+    want3 = bigru_heads_cm_bwd_reference(r16, *d16)
+    want32 = bigru_heads_cm_bwd_reference(tuple(t.float() for t in r16),
+                                          *(t.float() for t in d16))
+    for name, g, w, w32 in zip(B3_NAMES, got3, want3, want32):
+        ok, e, own3 = bf16_ok(g, w, w32)
+        check(ok, f"B3 bf16 B={B} {name}: {e:.3e} > 4 x {own3:.3e}")
+    e3 = max_err(got3, want3)
+    print(f"B1 and B3 bf16 at the trials' {B} columns against their plain "
+          f"versions: max_abs_err {e1:.3e} (plain bf16-vs-f32 {own:.3e}; "
+          f"tolerance 4x) and {e3:.3e} (each output within 4x its own) "
+          f"[{card}]")
+    return e1, e3
+
+
+def check_hpo_flagship(card, device="cuda", ncol=HPO_NCOL) -> dict:
+    """random_search over the flagship: a solo W 1 update counts B1's and
+    B3's launches; each of HPO_TRIALS trials (lr log-uniform in [1e-4,
+    1e-2]) trains a fresh model by HPO_UPDATES W 1 updates at HPO_NCOL
+    columns with every counter at 0 just before and read just after (the
+    solo update's launches x HPO_UPDATES, no other kernel), then takes a
+    validation loss (B1 once a step); every score finite and every trial
+    one attempt (a CUDA error inside a trial would become an inf score).
+    B1 and B3 held to their plain versions at the trials' shapes."""
+    from climsim_tpu_torch.train import SearchSpace, random_search
+    wrappers = all_wrappers()
+    data = train_chunk(HPO_UPDATES, ncol, device, seed=3)
+    val = train_chunk(2, ncol, device, seed=4)
+    solo = hpo_trainer(LR, device)
+    one = {k: v[:1] for k, v in data.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.enable_grad():
+        solo.run_epoch(None, [one], 0)
+    torch.cuda.synchronize()
+    per_update = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check_launches(per_update, {"b1": 2, "b3": 1}, "a W 1 update of the v6 "
+                   "model")
+    errs = hold_b1_b3(solo.model, card, ncol)
+    del solo
+    attempts, log = [], []
+
+    def trial(cfg):
+        attempts.append(cfg)
+        t0 = time.perf_counter()
+        trainer = hpo_trainer(cfg["lr"], device)
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.enable_grad():
+            _, rec = trainer.run_epoch(None, [data], 0)
+        torch.cuda.synchronize()
+        train_l = {k: w.launches for k, w in wrappers.items() if w.launches}
+        for w in wrappers.values():
+            w.launches = 0
+        _, vrec = trainer.run_epoch(None, [val], 0, train=False)
+        val_l = {k: w.launches for k, w in wrappers.items() if w.launches}
+        log.append({"lr": cfg["lr"], "train_loss": rec["loss"],
+                    "updates": rec["updates"], "val_loss": vrec["loss"],
+                    "train_launches": train_l, "val_launches": val_l,
+                    "seconds": time.perf_counter() - t0})
+        return vrec["loss"]
+
+    t0 = time.perf_counter()
+    top = random_search(trial, SearchSpace(HPO_SPACE),
+                        num_trials=HPO_TRIALS, top_k=HPO_TRIALS, seed=0)
+    wall = time.perf_counter() - t0
+    check(len(attempts) == HPO_TRIALS, f"{len(attempts)} attempts for "
+          f"{HPO_TRIALS} trials: a trial raised")
+    check(len(top) == HPO_TRIALS, f"{HPO_TRIALS - len(top)} trials scored "
+          f"inf or nan")
+    want = {k: v * HPO_UPDATES for k, v in per_update.items()}
+    for i, r in enumerate(log):
+        print(f"hpo trial {i}: lr {r['lr']:.6g}, {r['updates']} W 1 updates "
+              f"at {ncol} columns, train loss {r['train_loss']:.6f}, "
+              f"validation loss {r['val_loss']:.6f}, {r['seconds']:.3f} s"
+              f"{' (with its warm-up)' if i == 0 else ''}; launches "
+              f"{r['train_launches']} training, {r['val_launches']} "
+              f"validation [{card}]")
+        check(r["updates"] == HPO_UPDATES, f"trial {i}: {r['updates']}")
+        check_launches(r["train_launches"], want, f"hpo trial {i} training")
+        check_launches(r["val_launches"], {"b1": 2},
+                       f"hpo trial {i} validation")
+    print(f"random_search over the flagship: {HPO_TRIALS} trials in "
+          f"{wall:.3f} s, best lr {top[0]['config']['lr']:.6g} (validation "
+          f"loss {top[0]['score']:.6f}) [{card}]")
+    return {"training": want, "validation": {"b1": 2}, "b1_err": errs[0],
+            "b3_err": errs[1], "trials": HPO_TRIALS}
+
+
+def cfc_trial_fn(units, x, y, device, steps=VMAP_STEPS):
+    """The vmapped search's trial: a dense CfC of ``units`` (built once,
+    seed 0) trained by ``steps`` SGD steps through torch.func at a
+    learning rate, then its loss; a function of the learning rate."""
+    from climsim_tpu_torch.models import CfC
+    model = CfC(x.shape[-1], units, proj_size=y.shape[-1], mixed_memory=True,
+                backbone_units=P18_BACKBONE, device=device, seed=0)
+    params0 = {k: v.detach() for k, v in model.named_parameters()}
+
+    def loss(p):
+        out, _ = torch.func.functional_call(model, (p,), (x,))
+        return torch.mean((out - y) ** 2)
+
+    def train(lr):
+        params = params0
+        for _ in range(steps):
+            g = torch.func.grad(loss)(params)
+            params = {k: params[k] - lr * g[k] for k in params}
+        return loss(params)
+    return train
+
+
+def check_hpo_vmap(card, device="cuda", ncol=HPO_NCOL) -> None:
+    """parallel_random_search of VMAP_TRIALS dense-CfC trials in batches of
+    VMAP_BATCH, each batch one torch.func.vmap over the learning rate: the
+    device passes one per batch of each width's group, and every score
+    equal to the sequential random_search of the same trials within 1e-4
+    (relative)."""
+    from climsim_tpu_torch.train import (SearchSpace,
+                                         parallel_random_search,
+                                         random_search)
+    x, y = cfc_data(ncol, device, seed=21)
+    passes = []
+
+    def batched(static_cfg, vec_cfg):
+        passes.append(len(vec_cfg["lr"]))
+        lrs = torch.as_tensor(vec_cfg["lr"], dtype=torch.float32,
+                              device=device)
+        train = cfc_trial_fn(static_cfg["units"], x, y, device)
+        return torch.func.vmap(train)(lrs).detach().cpu().numpy()
+
+    t0 = time.perf_counter()
+    top = parallel_random_search(batched, SearchSpace(VMAP_SPACE),
+                                 num_trials=VMAP_TRIALS,
+                                 batch_size=VMAP_BATCH, top_k=VMAP_TRIALS,
+                                 seed=0)
+    t_vmap = time.perf_counter() - t0
+    groups = {}
+    for i in range(VMAP_TRIALS):
+        u = SearchSpace(VMAP_SPACE).sample(np.random.default_rng((0, i)))
+        groups[u["units"]] = groups.get(u["units"], 0) + 1
+    want_passes = sum(-(-n // VMAP_BATCH) for n in groups.values())
+    check(len(passes) == want_passes and sum(passes) == VMAP_TRIALS,
+          f"vmapped search: passes {passes}, want {want_passes}")
+    check(len(top) == VMAP_TRIALS, "vmapped search: a score not finite")
+    t0 = time.perf_counter()
+    seq = random_search(
+        lambda cfg: float(cfc_trial_fn(cfg["units"], x, y, device)(
+            torch.tensor(cfg["lr"], dtype=torch.float32, device=device))),
+        SearchSpace(VMAP_SPACE), num_trials=VMAP_TRIALS,
+        top_k=VMAP_TRIALS, seed=0)
+    t_seq = time.perf_counter() - t0
+    check(len(seq) == VMAP_TRIALS, "sequential search: a score not finite")
+    by_trial = {r["trial"]: r["score"] for r in seq}
+    worst = max(abs(r["score"] - by_trial[r["trial"]])
+                / abs(by_trial[r["trial"]]) for r in top)
+    print(f"parallel_random_search (torch.func.vmap): {VMAP_TRIALS} CfC "
+          f"trials ({VMAP_STEPS} SGD steps at {ncol} columns) in "
+          f"{len(passes)} device passes {passes} (groups {groups}), "
+          f"{t_vmap:.3f} s; sequential random_search {t_seq:.3f} s; scores "
+          f"within {worst:.3e} (relative; tolerance 1e-4) of the sequential "
+          f"ones; best lr {top[0]['config']['lr']:.6g} units "
+          f"{top[0]['config']['units']} [{card}]")
+    check(worst <= 1e-4, f"vmapped scores {worst:.3e} from the sequential")
+
+
+P18_DERIVED = {"state_rh", "state_qn", "liq_partition", "icol", "clat",
+               "slat", "state_qn_prvphy", "tm_state_qn_prvphy"}
+P18_CAM_OUT = ("cam_out_NETSW", "cam_out_FLWDS", "cam_out_PRECSC",
+               "cam_out_PRECC", "cam_out_SOLS", "cam_out_SOLL",
+               "cam_out_SOLSD", "cam_out_SOLLD")
+
+
+def write_v5_pair(path_mli, ncol, seed):
+    """A classic netCDF mli/mlo pair of the v5 set at ``ncol`` columns,
+    float64 as E3SM writes them: the state, the surface fluxes and every
+    input that ingestion does not derive."""
+    from scipy.io import netcdf_file
+    from climsim_tpu_torch import variables as V
+    rng = np.random.default_rng(seed)
+    lev = (ncol, NLEV)
+    base = {"state_t": rng.uniform(200, 300, lev),
+            "state_q0001": np.abs(rng.normal(1e-3, 3e-4, lev)),
+            "state_q0002": np.abs(rng.normal(1e-5, 3e-6, lev)),
+            "state_q0003": np.abs(rng.normal(1e-5, 3e-6, lev)),
+            "state_u": rng.normal(0, 10, lev),
+            "state_v": rng.normal(0, 3, lev),
+            "state_ps": rng.uniform(9.6e4, 1.03e5, ncol)}
+    need = (set(V.get("v5").inputs.names) - P18_DERIVED) | {
+        "state_q0002_prvphy", "state_q0003_prvphy",
+        "tm_state_q0002_prvphy", "tm_state_q0003_prvphy"}
+    mli = dict(base)
+    for n in sorted(need - set(mli)):
+        mli[n] = np.abs(rng.normal(0.5, 0.2, lev if V.var_len(n) == NLEV
+                                   else (ncol,)))
+    mlo = {k: v + rng.normal(0, 1e-3 * np.abs(v).mean(), v.shape)
+           for k, v in base.items()}
+    for n in P18_CAM_OUT:
+        mlo[n] = np.abs(rng.normal(100, 40, ncol))
+    for path, d in ((path_mli, mli),
+                    (path_mli.replace(".mli.", ".mlo."), mlo)):
+        with netcdf_file(path, "w") as f:
+            f.createDimension("ncol", ncol)
+            f.createDimension("lev", NLEV)
+            for k, v in d.items():
+                f.createVariable(k, "d", ("ncol", "lev") if v.ndim == 2
+                                 else ("ncol",))[:] = v
+
+
+def v5_level_normalizer():
+    from climsim_tpu_torch import variables as V
+    from climsim_tpu_torch.data import LevelNormalizer
+    vs = V.get("v5")
+    rng = np.random.default_rng(5)
+    size = lambda n: NLEV if V.var_len(n) == NLEV else 1
+    mean = {n: rng.uniform(-1, 1, size(n)) for n in vs.inputs.names}
+    maxv = {n: v + rng.uniform(1, 2, v.shape) for n, v in mean.items()}
+    minv = {n: v - rng.uniform(1, 2, v.shape) for n, v in mean.items()}
+    scale = {n: rng.uniform(0.5, 2, size(n)) for n in vs.outputs.names}
+    return LevelNormalizer.from_var_stats(vs, mean, maxv, minv, scale)
+
+
+def check_data_tools(card, device="cuda", ncol=P18_NCOL) -> None:
+    """The data tools at ``ncol`` columns, each on the card (ms) against the
+    same call with device="cpu": pack_pair of P18_PAIRS classic netCDF v5
+    pairs (the relative humidity and a LevelNormalizer on the card) within
+    1e-6 of each array's scale; expand_features on [EXPAND_T, ncol, 60]
+    for its five default variables bit-equal; export_kaggle_files from a
+    Normalizer on the card byte-equal. tensorstore and h5py are looked up
+    and reported: their paths (tsstore, ingest's keeplev H5, save_as_npy's
+    h5 twins) are not run here."""
+    import filecmp
+    import importlib.util
+    from climsim_tpu_torch import Grid
+    from climsim_tpu_torch import variables as V
+    from climsim_tpu_torch.data import (Normalizer, expand_features,
+                                        export_kaggle_files, pack_pair)
+    with tempfile.TemporaryDirectory() as tmp:
+        gpath = os.path.join(tmp, "grid.nc")
+        write_grid_file(gpath, ncol)
+        t0 = time.perf_counter()
+        mlis = [os.path.join(tmp, f"E3SM-MMF.mli.0001-02-0{i + 1}-00000.nc")
+                for i in range(P18_PAIRS)]
+        for i, p in enumerate(mlis):
+            write_v5_pair(p, ncol, seed=i)
+        print(f"data tools: {P18_PAIRS} v5 pairs of {ncol} columns written "
+              f"in {time.perf_counter() - t0:.1f} s")
+        grid, cgrid = Grid.from_file(gpath, device=device), \
+            Grid.from_file(gpath, device="cpu")
+        nz = v5_level_normalizer()
+        vs = V.get("v5")
+        ms, errs = [], []
+        for p in mlis:
+            t0 = time.perf_counter()
+            got = pack_pair(p, p.replace(".mli.", ".mlo."), vs, grid,
+                            nz.to(device), device=device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want = pack_pair(p, p.replace(".mli.", ".mlo."), vs, cgrid, nz,
+                             device="cpu")
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and np.isfinite(g).all(),
+                      f"pack_pair {g.shape}")
+                errs.append(float(np.abs(g - w).max()
+                                  / max(np.abs(w).max(), 1e-30)))
+            print(f"pack_pair (v5, {ncol} columns) on the card "
+                  f"{ms[-1]:.1f} ms, with device=cpu {cpu_ms:.1f} ms "
+                  f"(file reads included); shapes "
+                  f"{[tuple(a.shape) for a in got]} [{card}]")
+        err = max(errs)
+        print(f"pack_pair card against CPU: up to {err:.3e} of each array's "
+              f"scale (tolerance 1e-6) [{card}]")
+        check(err <= 1e-6, f"pack_pair card vs CPU {err:.3e}")
+        # expand_features: 24 steps of the five default variables
+        g = torch.Generator(device=device).manual_seed(24)
+        names = ("state_t", "state_q0001", "state_q0002", "state_q0003",
+                 "state_u")
+        shape = (EXPAND_T, ncol, NLEV)
+        mli = {n: torch.rand(shape, generator=g, device=device)
+               for n in names}
+        mlo = {n: mli[n] + 1e-3 * torch.rand(shape, generator=g,
+                                             device=device) for n in names}
+        got = expand_features(mli, mlo)
+        ex_ms = median_ms(lambda: expand_features(mli, mlo), 1)
+        t0 = time.perf_counter()
+        want = expand_features({k: v.cpu() for k, v in mli.items()},
+                               {k: v.cpu() for k, v in mlo.items()})
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        check(list(got) == list(want), "expand_features keys")
+        for k in want:
+            check(torch.equal(got[k].cpu(), want[k]),
+                  f"expand_features {k}: card and CPU differ")
+        nbytes = sum(t.numel() * 4 for t in (*mli.values(), *mlo.values(),
+                                            *got.values()))
+        print(f"expand_features [{EXPAND_T}, {ncol}, {NLEV}] x "
+              f"{len(names)} variables -> {len(got)} features: "
+              f"{ex_ms:.3f} ms on the card (bound "
+              f"{nbytes / PEAK_BYTES * 1e3:.3f} ms by bytes), {cpu_ms:.1f} "
+              f"ms on the CPU, bit-equal [{card}]")
+        del mli, mlo, got, want
+        # the Kaggle files from a normalizer on the card
+        v2 = V.get("v2")
+        rng = np.random.default_rng(6)
+        mean = rng.normal(0, 100, v2.input_feature_len)
+        span = rng.uniform(1, 50, v2.input_feature_len)
+        scale = 10.0 ** rng.uniform(-3, 8, v2.target_feature_len)
+        nzf = Normalizer.from_arrays(mean, mean + span, mean - span, scale)
+        t0 = time.perf_counter()
+        info = export_kaggle_files(nzf.to(device), os.path.join(tmp, "kc"))
+        k_ms = (time.perf_counter() - t0) * 1e3
+        export_kaggle_files(nzf, os.path.join(tmp, "kh"))
+        names = sorted(os.listdir(os.path.join(tmp, "kh")))
+        same = [filecmp.cmp(os.path.join(tmp, "kc", f),
+                            os.path.join(tmp, "kh", f), shallow=False)
+                for f in names]
+        print(f"export_kaggle_files from a Normalizer on the card: {info}, "
+              f"{k_ms:.1f} ms; {sum(same)} of {len(names)} files "
+              f"byte-equal to the CPU's [{card}]")
+        check(len(names) == 5 and all(same), "Kaggle files differ")
+    for mod, paths in (("tensorstore", "data/tsstore.py"),
+                       ("h5py", "data/ingest.py::ingest (the keeplev H5) "
+                        "and save_as_npy(save_h5=True)")):
+        found = importlib.util.find_spec(mod) is not None
+        print(f"{mod}: {'present' if found else 'absent'} on this machine; "
+              f"{paths} not run here (CPU tests only)")
+
+
+def check_last_modules(card) -> dict:
+    """Phase 18: the CfC networks, the hyperparameter search over the
+    flagship and over vmapped CfCs, the data tools. Returns the flagship
+    search's launches and errors for the kernels line."""
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"  phase 18: {what} took {now - last[0]:.1f} s")
+        last[0] = now
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    check_cfc(card)
+    lap("CfC")
+    hpo = check_hpo_flagship(card)
+    lap("random_search over the flagship")
+    check_hpo_vmap(card)
+    lap("the vmapped search")
+    check_data_tools(card)
+    lap("the data tools")
+    return hpo
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7019,6 +7554,11 @@ def main() -> int:
         torch.set_grad_enabled(False)
         check_phys_options(card)
         phase_done(17)
+        return 0
+    if sys.argv[1:] == ["18"]:
+        torch.set_grad_enabled(False)
+        check_last_modules(card)
+        phase_done(18)
         return 0
 
     torch.set_grad_enabled(False)
@@ -7579,7 +8119,15 @@ def main() -> int:
     p17 = check_phys_options(card)
     phase_done(17)
 
-    # ---- 18. the kernels line, the card line, the result
+    # ---- 18. the last modules of the JAX package (ROADMAP A.13, A.14): the
+    # CfC networks, the hyperparameter search over the flagship (B1, B3)
+    # and over vmapped CfCs, the data tools
+    gc.collect()
+    torch.cuda.empty_cache()
+    hpo = check_last_modules(card)
+    phase_done(18)
+
+    # ---- 19. the kernels line, the card line, the result
     kernels = [
         {"name": "bigru_heads_init_cm", "route": "cuda",
          "source": "climsim_tpu_torch/ops/csrc/bigru_heads_init_cm.cu",
@@ -7733,6 +8281,16 @@ def main() -> int:
                                       "max_abs_err": semi["errs"].get(key)}
         if arms:
             by_name[name]["phys_options"] = arms
+    # phase 18: B1's and B3's launches in each trial of the search over the
+    # flagship (two W 1 updates, then a validation window of 2 steps), and
+    # their error at the trials' shapes
+    for name, key in (("bigru_heads_init_cm", "b1"),
+                      ("bigru_heads_cm_bwd", "b3")):
+        by_name[name]["hpo"] = {
+            "trials": hpo["trials"],
+            "launches_per_trial": hpo["training"].get(key, 0)
+            + hpo["validation"].get(key, 0),
+            "max_abs_err": hpo[f"{key}_err"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ from .rpn import RPNEnsemble
 from .unet import (ClimsimUNet, ClimsimUNetClassifier, classifier_loss,
                    cloud_class_labels, unet_v4, unet_v5)
 from .convert import from_flax_params, from_optax_adam
+from .ncp import (AutoNCP, CfC, CfCCell, MixedMemoryLSTMCell, NCP,
+                  WiredCfCCell, Wiring)
 from .common import Policy, F32, BF16
 
 __all__ = ["RNNAutoreg", "PhysicalRNNAutoreg", "RadiationModule", "MLP",
@@ -19,4 +21,6 @@ __all__ = ["RNNAutoreg", "PhysicalRNNAutoreg", "RadiationModule", "MLP",
            "cvae_samples", "RPNEnsemble", "ClimsimUNet",
            "ClimsimUNetClassifier", "classifier_loss", "cloud_class_labels",
            "unet_v4", "unet_v5",
-           "from_flax_params", "from_optax_adam", "Policy", "F32", "BF16"]
+           "from_flax_params", "from_optax_adam", "Policy", "F32", "BF16",
+           "Wiring", "NCP", "AutoNCP", "CfCCell", "WiredCfCCell",
+           "MixedMemoryLSTMCell", "CfC"]

@@ -137,3 +137,15 @@ def test_import_needs_no_nvcc_or_triton(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Each module of the JAX package (listed from the filesystem, not
+    imported), ``__init__.py`` files apart, has its counterpart at the
+    same path in the port."""
+    jax_pkg = ROOT / "climsim_tpu"
+    modules = [p.relative_to(jax_pkg) for p in sorted(jax_pkg.rglob("*.py"))
+               if p.name != "__init__.py"]
+    assert len(modules) > 50
+    missing = [m.as_posix() for m in modules if not (PORT / m).is_file()]
+    assert not missing, f"no counterpart in climsim_tpu_torch: {missing}"
