@@ -7,6 +7,9 @@
     python3 chip_smoke.py 16       # the build, then phase 16 alone
     python3 chip_smoke.py 17       # the build, then phase 17 alone
     python3 chip_smoke.py 18       # the build, then phase 18 alone
+    python3 chip_smoke.py previous DIR   # B1 and B10 against the build of
+                                         # an earlier checkout at DIR, in
+                                         # turns; then phase 16
 
 The paths, each at full width with random weights from a seed:
 
@@ -95,7 +98,10 @@ Phases (any failure exits non-zero):
      spills, and count the tensor-core instructions (HMMA/HGMMA) of the
      bf16 designs of B1, B3, B4 and B7-B10 in their SASS (cuobjdump):
      each must have some; and the f32 cluster design of B7 and B8 must
-     have FFMA and no tensor-core (so no TF32) instruction;
+     have FFMA and no tensor-core (so no TF32) instruction; B1's and
+     B10's libraries: every bf16-gate instance packed bf16 arithmetic,
+     MUFU.EX2 and MUFU.RCP, the f32-gate instances' listing unchanged
+     (F32_GATE_SASS);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and a ragged batch): B1, B2 (also at 384
      columns; check_fv_design: the band tile that fv_design names,
@@ -330,25 +336,31 @@ Phases (any failure exits non-zero):
      (``dryrun_multichip.ensemble_step``) on a one-rank NCCL group, a
      (1, 1) mesh, bit-equal to the single-device step; ``python3
      chip_smoke.py 15`` runs the build and phase 15 alone;
- 16. the GRU forwards' bf16-gate mode (check_gate_mode_and_a12): in each
-     fused arm (v6, v5 with both hoist_proj bodies, v2, v3, v4) built with
-     pallas_acc32=False on the acc32=True model's weights, one coupled step
-     at 21,600 columns with every counter at 0 (the arm's kernel once, its
-     design "tensor_core+bf16_gates"), each field held to the same step
-     run through the plain bf16-gate version on the card (plain_kernels)
-     by g16_ok: its mean distance from it at most half the mean distance
+ 16. the GRU forwards' bf16-gate mode (check_gate_mode_and_a12): the
+     bf16-gate step (ops/csrc/gates16.cuh) against the accurate forms it
+     replaced on all 65,536 bf16 inputs of the sigmoid and the typed tanh
+     and on 10^7 seeded operand sets, 0 mismatches (check_gate_step);
+     in each fused arm (v6, v5 with both hoist_proj bodies, v2, v3, v4)
+     built with pallas_acc32=False on the acc32=True model's weights, one
+     coupled step at 21,600 columns with every counter at 0 (the arm's
+     kernel once, its design "tensor_core+bf16_gates"), each field held to
+     the same step run through the plain bf16-gate version on the card
+     (plain_kernels) by g16_ok: its mean distance from it at most half the mean distance
      between the plain bf16-gate and f32-gate steps and below its own
      distance from the f32-gate step (a launch that ran f32 gates fails),
      its largest within 4x the modes' largest plus 1e-3 of scale; the v6
      step timed in turns with f32 gates; each of B1, B4 (both bodies), B7,
      B9 and B10 alone at the flagship's bf16 shapes against its plain
-     bf16-gate version (g16_ok), timed in turns with its f32-gate mode; the v6 model's gradients at 2,700 columns under both
+     bf16-gate version (g16_ok), timed in turns with its f32-gate mode,
+     the tie rule's expf inputs among the plain version's counted; the
+     v6 model's gradients at 2,700 columns under both
      modes bit-equal (fixed cotangents; B3 linearises the f32-gate
      forward); a v4 OnlineWrapper over a pallas_acc32=False model exported
      at 384 columns, its climsim:: node carrying acc32=False, reloaded
      bit-equal with the bf16-gate B10 once; the library yardsticks of B1
      and B10 (the cuDNN pair, the initial MLP and the heads as torch
-     modules) and B3 (autograd's backward through B4's yardstick); then
+     modules) and B3 (autograd's backward through B4's yardstick), and
+     with TF32 off those of the f32 B1, B4, B9, B10 and B3; then
      RNNAutoreg's other options (ROADMAP A.12: lstm, ln_lstm, sru, qrnn,
      separate_radiation with 16 level inputs and a 50-level memory,
      memory None) at nneur 192/192, f32, A12_STEPS coupled steps at
@@ -402,8 +414,11 @@ Phases (any failure exits non-zero):
      the physics trunk's under "f32"; their "library_ms" the cuDNN pair's
      forward and backward, B4's and B9's the pair with the heads, B1's and
      B10's the pair with the heads and the initial MLP, B3's autograd's
-     backward through B4's; the five forwards' bf16-gate mode under
-     "bf16_gates", B4's other body under its "hoist_proj_false"; the
+     backward through B4's, the f32 CUDA-core instances of B1, B3, B4, B9
+     and B10 under "f32" with their f32 yardsticks; the five forwards'
+     bf16-gate mode under "bf16_gates" (with the share of its
+     exponentials the tie rule sends to expf), B4's other body under its
+     "hoist_proj_false"; the
      launches and errors of phase 17 under "phys_options"; B1's and B3's
      launches a trial of phase 18's search under "hpo"), the card line,
      and the result line.
@@ -416,11 +431,13 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import gc
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -558,12 +575,88 @@ F32_KERNELS = {"bigru_lbh": ("f32_sweep_kernel",),
                                  "f32_wgrad_kernel")}
 
 
+# B1's and B10's libraries, whose bf16-gate step check_gate_sass reads
+GATE_LIBS = ("bigru_heads_init_cm", "bigru_heads_lbh")
+# a GRU forward kernel's last template argument, kG16, in its mangled name
+G16_OF = re.compile(r"Lb([01])EEEv")
+# an instruction of cuobjdump's listing, its address and encoding dropped
+SASS_INSN = re.compile(r"/\*[0-9a-f]+\*/\s+(.*?)\s*;")
+# the f32-gate instances of GATE_LIBS as they were before the bf16-gate
+# step's redesign, which leaves them alone: (functions, instructions), the
+# same from every build directory (the listing itself and its mix of
+# opcodes are not: constants move with the source's path), H100 80GB
+# HBM3, torch 2.11.0+cu128, CUDA 12.8 (``chip_smoke.py previous`` prints
+# them for an earlier checkout)
+F32_GATE_SASS = {"bigru_heads_init_cm": (6, 59480),
+                 "bigru_heads_lbh": (12, 108696)}
+
+
+def sass_functions(tool, path) -> dict:
+    """Each function of a built library's SASS (``cuobjdump -sass``) by its
+    mangled name: its instructions, without addresses or encodings."""
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            funcs[fn] = []
+        elif fn is not None:
+            m = SASS_INSN.search(line)
+            if m:
+                funcs[fn].append(m.group(1))
+    return funcs
+
+
+def gate_sass(funcs):
+    """The GRU forwards of one library split by kG16: for each bf16-gate
+    instance the count of its packed bf16 operations (HADD2, HMUL2, HFMA2
+    on BF16), MUFU.EX2, MUFU.RCP and instructions; for the f32-gate
+    instances together (functions, instructions)."""
+    g16, f32 = {}, []
+    for name, ins in sorted(funcs.items()):
+        flag = G16_OF.findall(name)
+        if not flag:
+            continue
+        if flag[-1] == "1":
+            g16[name] = {
+                "packed_bf16": sum(op in i and "BF16" in i for i in ins
+                                   for op in ("HADD2", "HMUL2", "HFMA2")),
+                "MUFU.EX2": sum("MUFU.EX2" in i for i in ins),
+                "MUFU.RCP": sum("MUFU.RCP" in i for i in ins),
+                "instructions": len(ins)}
+        else:
+            f32.append((name, ins))
+    return g16, (len(f32), sum(len(i) for _, i in f32))
+
+
+def check_gate_sass(card, tool):
+    """B1's and B10's libraries: every bf16-gate instance runs packed bf16
+    arithmetic and the SFU's exp2 and reciprocal; the f32-gate instances'
+    listing is F32_GATE_SASS's."""
+    from climsim_tpu_torch.ops import _build
+    for name in GATE_LIBS:
+        g16, f32 = gate_sass(sass_functions(tool, _build._lib_path(name)))
+        print(f"bf16-gate step in {name}: " + "; ".join(
+            f"{k[-48:]} " + ", ".join(f"{op} x{n}" for op, n in c.items())
+            for k, c in g16.items()) + f"; the f32-gate instances: {f32[0]} "
+            f"functions, {f32[1]} instructions (before the redesign "
+            f"{F32_GATE_SASS.get(name)}) [{card}]")
+        for k, c in g16.items():
+            check(c["packed_bf16"] > 0 and c["MUFU.EX2"] > 0
+                  and c["MUFU.RCP"] > 0, f"{k}: the bf16-gate step's SASS "
+                  f"lacks packed bf16 or SFU operations: {c}")
+        check(f32 == F32_GATE_SASS.get(name), f"{name}: the f32-gate "
+              f"instances' SASS changed: {f32}")
+
+
 def check_tensor_core_sass(card):
     """Count the tensor-core instructions (HMMA, HGMMA) of each bf16
     tensor-core kernel in its built library (``cuobjdump -sass``); each
     must have some. Then the f32 cluster design's kernels: each must have
-    FFMA and no tensor-core instruction. Without cuobjdump the counts are
-    not measured."""
+    FFMA and no tensor-core instruction; and B1's and B10's bf16-gate
+    step (check_gate_sass). Without cuobjdump the counts are not
+    measured."""
     from climsim_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
@@ -606,6 +699,7 @@ def check_tensor_core_sass(card):
             check(c["FFMA"] > 0 and c["HMMA"] == 0,
                   f"{k}: the f32 design must run FFMA and no tensor-core "
                   f"instruction: {c}")
+    check_gate_sass(card, tool)
 
 
 def card_line() -> str:
@@ -3194,7 +3288,9 @@ def heads_yardstick(layer, a, cm, card, label, init=False, backward=False):
     cotangents, timed in place of the forward. In bf16, fp16 where
     torch.backends.cudnn.is_acceptable refuses bf16. First the forward is
     held to the plain f32 version within 4x the plain version's own
-    bf16-vs-f32 error, then timed. Returns its ms."""
+    bf16-vs-f32 error (f32 arguments: within 1e-4 of 1 + the outputs'
+    scale, cuDNN's f32 sums taken in another order over 120 serial
+    steps), then timed. Returns its ms."""
     from climsim_tpu_torch.ops import (bigru_heads_cm_reference,
                                        bigru_heads_init_cm_reference,
                                        bigru_heads_init_lbh_reference,
@@ -3250,13 +3346,19 @@ def heads_yardstick(layer, a, cm, card, label, init=False, backward=False):
         err = max_err(got, want)
         how = ("fp16: torch.backends.cudnn.is_acceptable refuses bf16"
                if pdt != a[0].dtype else str(pdt).replace("torch.", ""))
+        if pdt == torch.float32:
+            how += ", TF32 off" if not torch.backends.cudnn.allow_tf32 \
+                else ", TF32 on"
+            scale = max(t.abs().max().item() for t in want)
+            tol, why = 1e-4 * (1.0 + scale), "1e-4 of 1 + the outputs' scale"
+        else:
+            tol, why = 4 * own, "4x the plain version's own bf16-vs-f32 error"
         print(f"library yardstick of {label} (cuDNN GRU pair + 2 Linear"
               f"{' + the initial MLP' if init else ''}"
               f"{', permuted' if cm else ''}; {how}): against the plain f32 "
-              f"version max_abs_err {err:.3e} (tolerance {4 * own:.3e}: 4x "
-              f"the plain version's own bf16-vs-f32 error) [{card}]")
-        check(err <= 4 * own, f"yardstick of {label}: {err:.3e} > 4 x "
-              f"{own:.3e}")
+              f"version max_abs_err {err:.3e} (tolerance {tol:.3e}: {why}) "
+              f"[{card}]")
+        check(err <= tol, f"yardstick of {label}: {err:.3e} > {tol:.3e}")
         del got, want
         if not backward:
             ms = median_ms(lambda: run(*ins), 3)
@@ -6338,7 +6440,10 @@ def g16_kernel(card, kind, model, res, hoist=True):
     kw = {} if hoist else {"hoist_proj": False}
     label = kind.upper() + ("" if hoist else " (hoist_proj=False)")
     got = kern(*a, acc32=False, **kw)
-    want = plain(*a, acc32=False, **kw)
+    tally = torch.zeros(2, dtype=torch.int64, device="cuda")
+    with expf_lanes(res["expf_table"], tally):
+        want = plain(*a, acc32=False, **kw)
+    sent, lanes = (int(t) for t in tally)
     want32 = plain(*a, acc32=True, **kw)
     errs, ratios = [], []
     for i, (g, w, w32) in enumerate(zip(got, want, want32)):
@@ -6357,12 +6462,16 @@ def g16_kernel(card, kind, model, res, hoist=True):
           f"{max(ratios):.4f} of the modes' (tolerance 0.5); in turns "
           f"(f32 gates, "
           f"bf16 gates, bf16 gates, f32 gates): f32 gates {old[0]:.4f} / "
-          f"{old[1]:.4f} ms, bf16 gates {new[0]:.4f} / {new[1]:.4f} ms; "
-          f"plain bf16-gate version {plain_ms:.4f} ms [{card}]")
+          f"{old[1]:.4f} ms, bf16 gates {new[0]:.4f} / {new[1]:.4f} ms "
+          f"({statistics.mean(new) / statistics.mean(old):.3f}x); plain "
+          f"bf16-gate version {plain_ms:.4f} ms; the tie rule sends "
+          f"{sent:,} of the plain version's {lanes:,} typed-sigmoid inputs "
+          f"to expf ({sent / max(lanes, 1):.2e}) [{card}]")
     key = kind if hoist else "b4_unhoisted"
     res.setdefault("kernels", {})[key] = dict(
         max_abs_err=max(errs), ms=statistics.mean(new),
-        f32_gates_ms=statistics.mean(old), plain_ms=plain_ms)
+        f32_gates_ms=statistics.mean(old), plain_ms=plain_ms,
+        expf_share=sent / max(lanes, 1))
 
 
 def g16_grads(card, model16, model32):
@@ -6579,6 +6688,144 @@ def a12_cli(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the bf16-gate step's card checks (ops/gates16.py): operand sets of the
+# step, and the special values among them
+G16_STEP_SETS = 10_000_000
+G16_SPECIALS = (0.0, -0.0, 1.0, -1.0, 2.0 ** -133, -2.0 ** -133,
+                2.0 ** -126, 1.0 + 2.0 ** -7, 1.0 - 2.0 ** -8, 2.0 ** -9,
+                44.0, -44.0, 88.0, -88.0, 1e30, -1e30)
+# gates16.cuh's bound on the SFU exponential, in float32 ulps: 2.5 +
+# 1.223 S |x| (ex2.approx, then the rounded argument)
+G16_EX2_ULPS, G16_ARG_ULPS = 2.5, 1.223
+
+
+def g16_operands(n, seed):
+    """n seeded operand sets of the bf16-gate step on the card (sums [n, 6]
+    float32, bf [n, 4] bf16 bits as int16; ops/gates16.py::check_step):
+    each value of order 2^-12 to 2^4 (80%), a random finite bf16 bit
+    pattern (10%) or one of G16_SPECIALS (10%)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sp = torch.tensor(G16_SPECIALS, device=dev)
+
+    def mix(shape):
+        scale = torch.exp2(torch.randint(-12, 5, shape, generator=g,
+                                         device=dev).float())
+        v = torch.randn(shape, generator=g, device=dev) * scale
+        b = torch.randint(-32768, 32768, shape, generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int16)
+        b = b.view(torch.bfloat16).float()
+        b = torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+        pick = sp[torch.randint(0, sp.numel(), shape, generator=g,
+                                device=dev)]
+        u = torch.rand(shape, generator=g, device=dev)
+        return torch.where(u < 0.8, v, torch.where(u < 0.9, b, pick))
+    sums = mix((n, 6)).contiguous()
+    bf = mix((n, 4)).to(torch.bfloat16).view(torch.int16).contiguous()
+    return sums, bf
+
+
+def check_gate_step(card) -> torch.Tensor:
+    """The bf16-gate step of ops/csrc/gates16.cuh against the accurate
+    forms it replaced (every operation in f32, then rounded; IEEE expf and
+    division): the sigmoid and the typed tanh on all 65,536 bf16 inputs
+    (0 mismatches; NaNs match any NaN), the SFU exponential's error within
+    gates16.cuh's bound wherever exp(-S x) is a normal float32, the tie
+    rule's expf inputs counted; then the step on G16_STEP_SETS seeded
+    operand sets (0 mismatches). Returns the tie rule's table: for each
+    bf16 bit pattern, whether the sigmoid's exponential takes expf."""
+    from climsim_tpu_torch.ops import gates16
+    x = gates16.all_bf16()
+    out, slow, ulps = gates16.check_unary(x)
+    bad_s = int((~gates16.same_bits(out[:, 0], out[:, 1])).sum())
+    bad_t = int((~gates16.same_bits(out[:, 2], out[:, 3])).sum())
+    xv = x.view(torch.bfloat16).float().abs()
+    worst, sent = [], []
+    for S in (1, 2):
+        e, normal = ulps[:, S - 1], ulps[:, S - 1] >= 0
+        worst.append((e[normal] / (G16_EX2_ULPS + G16_ARG_ULPS * S
+                                   * xv[normal])).max().item())
+        sent.append((int(slow[normal, S - 1].sum()), int(normal.sum()),
+                     int(slow[:, S - 1].sum())))
+    print(f"bf16-gate step, all 65,536 bf16 inputs against the accurate "
+          f"forms: sigmoid {bad_s} mismatches, typed tanh {bad_t}; "
+          f"the SFU exponential at most {worst[0]:.3f} (sigmoid) and "
+          f"{worst[1]:.3f} (tanh) of gates16.cuh's bound 2.5 + 1.223 S |x| "
+          f"ulps; the tie rule sends {sent[0][0]} of {sent[0][1]} inputs "
+          f"with a normal exp(-x) to expf (sigmoid; {sent[0][2]} of all "
+          f"65,536) and {sent[1][0]} of {sent[1][1]} (tanh; {sent[1][2]}) "
+          f"[{card}]")
+    check(bad_s == 0 and bad_t == 0, f"the bf16-gate sigmoid / tanh differ "
+          f"from the accurate forms on {bad_s} / {bad_t} inputs")
+    check(max(worst) <= 1.0, f"the SFU exponential exceeds gates16.cuh's "
+          f"bound: {worst}")
+    sums, bf = g16_operands(G16_STEP_SETS, seed=24)
+    st = gates16.check_step(sums, bf)
+    bad = int((~gates16.same_bits(st[:, 0], st[:, 1])).sum())
+    moved = int((st[:, 1] != bf[:, 3]).sum())
+    print(f"bf16-gate step on {G16_STEP_SETS:,} seeded operand sets "
+          f"(pairs as the kernels pack them) against the accurate step: "
+          f"{bad} mismatches ({moved:,} states moved) [{card}]")
+    check(bad == 0, f"the bf16-gate step differs from the accurate one on "
+          f"{bad} operand sets")
+    table = torch.zeros(65536, dtype=torch.bool, device=x.device)
+    table[x.long() & 0xFFFF] = slow[:, 0].bool()
+    del sums, bf, st
+    return table
+
+
+@contextlib.contextmanager
+def expf_lanes(table, tally):
+    """Inside, the plain bf16-gate versions count, in ``tally`` (a
+    [2] int64 tensor on the card: the exponentials whose bf16 input the
+    tie rule sends to expf, and all of them), the inputs of every typed
+    sigmoid they take (ops/pallas_rnn.py::_sigmoid_typed, which the typed
+    tanh reaches with 2x)."""
+    from climsim_tpu_torch.ops import pallas_rnn
+    typed = pallas_rnn._sigmoid_typed
+
+    def counted(x):
+        if x.dtype == torch.bfloat16:
+            tally[0] += table[x.view(torch.int16).long() & 0xFFFF].sum()
+            tally[1] += x.numel()
+        return typed(x)
+    pallas_rnn._sigmoid_typed = counted
+    try:
+        yield
+    finally:
+        pallas_rnn._sigmoid_typed = typed
+
+
+def f32_yardsticks(card, models) -> dict:
+    """The library yardsticks of the f32 instances of B1, B4, B9, B10 (the
+    forwards) and B3 (autograd's backward through B4's) at 21,600 columns:
+    cuDNN's f32 GRU pair with TF32 off (main turns it off for the whole
+    run), since the f32 policy rules it out and cuDNN's RNN takes it by
+    default. Returns {kind: ms}."""
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    ncol, f32 = NLAT * NLON, torch.float32
+    v6, v5, v3, v4 = (models[k] for k in ("v6", "v5", "v3", "v4"))
+    out = {
+        "b1": heads_yardstick(v6.bigru_fused, b1_args(v6, ncol, f32, 7),
+                              True, card, "B1 f32 (v6 arm's shapes)",
+                              init=True),
+        "b4": heads_yardstick(v5.bigru_fused, b4_args(v5, ncol, f32, 23),
+                              True, card, "B4 f32 (v5 arm's shapes)"),
+        "b9": heads_yardstick(v3.bigru_fused, b9_args(v3, ncol, f32, 31),
+                              False, card, "B9 f32 (v3 arm's shapes)"),
+        "b10": heads_yardstick(v4.bigru_fused, b10_args(v4, ncol, f32, 37),
+                               False, card, "B10 f32 (v4 arm's shapes)",
+                               init=True),
+        "b3": heads_yardstick(v6.bigru_fused, b3_args(v6, ncol, f32, 11)[0],
+                              True, card, "B3 f32 (v6 arm's shapes)",
+                              backward=True)}
+    print("library yardsticks, f32 at 21600 columns (cuDNN FMA math, TF32 "
+          "off): " + ", ".join(f"{k.upper()} {v:.4f} ms"
+                               for k, v in out.items()) + f" [{card}]")
+    return out
+
+
 def check_gate_mode_and_a12(card) -> dict:
     """Phase 16: the forwards' bf16-gate mode in every fused arm and each
     kernel alone, the v6 update's gradients in both modes, the export with
@@ -6588,7 +6835,7 @@ def check_gate_mode_and_a12(card) -> dict:
     line."""
     from climsim_tpu_torch.models import BF16
     from climsim_tpu_torch.ops import bigru_heads_cm_bwd
-    res = {}
+    res = {"expf_table": check_gate_step(card)}
     models = {}
     for name in G16_ARMS:
         models[name] = g16_arm(card, name, res)
@@ -6619,13 +6866,141 @@ def check_gate_mode_and_a12(card) -> dict:
           f"{res['library_b10']:.4f} ms; B3 {b3_ms:.4f} ms against "
           f"autograd's backward through the pair + 2 Linear "
           f"{res['library_b3']:.4f} ms [{card}]")
-    del models, a1, a10, a3, v6, v4, m32
+    for kind in ("b1", "b10"):
+        m = res["kernels"][kind]
+        lib = res[f"library_{kind}"]
+        print(f"{kind.upper()} bf16 gates at {ncol} columns: "
+              f"{m['ms']:.4f} ms, {m['ms'] / m['f32_gates_ms']:.3f}x its "
+              f"f32-gate mode in turns ({m['f32_gates_ms']:.4f} ms), "
+              f"{m['ms'] / lib:.3f}x its library yardstick ({lib:.4f} ms) "
+              f"[{card}]")
+    del a1, a10, a3
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["library_f32"] = f32_yardsticks(card, models)
+    del models, v6, v4, m32
     gc.collect()
     torch.cuda.empty_cache()
     for name in A12_ARMS:
         a12_arm(card, name)
     a12_cli(card)
     return res
+
+
+# ------------------------------- an earlier checkout's B1 and B10, in turns
+
+# the kernels of GATE_LIBS by kind: library, arm, arguments and their seed
+PREVIOUS = {"b1": ("bigru_heads_init_cm", "v6", b1_args, 7),
+            "b10": ("bigru_heads_lbh", "v4", b10_args, 37)}
+
+
+def build_previous(root) -> dict:
+    """GATE_LIBS from an earlier checkout's sources (``root`` its top
+    directory), built as _build builds them into build/previous/; returns
+    {name: (CDLL, library path)}."""
+    from climsim_tpu_torch.ops import _build
+    src = os.path.join(root, "climsim_tpu_torch", "ops", "csrc")
+    out = os.path.join(os.path.dirname(str(_build.BUILD_DIR)), "previous")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name in GATE_LIBS:
+        lib = os.path.join(out, f"lib{name}.so")
+        procs[name] = lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+             os.path.join(src, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"the earlier {name}.cu: {log}")
+        libs[name] = ctypes.CDLL(lib), lib
+    return libs
+
+
+@contextlib.contextmanager
+def previous_libs(libs):
+    """Inside, the wrappers launch the earlier build's kernels."""
+    from climsim_tpu_torch.ops import _build
+    saved = {n: _build._libs.get(n) for n in libs}
+    _build._libs.update({n: lib for n, (lib, _) in libs.items()})
+    try:
+        yield
+    finally:
+        for n, lib in saved.items():
+            if lib is None:
+                _build._libs.pop(n, None)
+            else:
+                _build._libs[n] = lib
+
+
+def previous_in_turns(card, root) -> None:
+    """B1 and B10 against the same kernels built from an earlier checkout
+    (``root``), on the card: the SASS of both builds (the f32-gate
+    instances' F32_GATE_SASS values, the bf16-gate step's counts); at
+    21,600 and 1,000 columns, both gate modes' outputs bit-equal to the
+    earlier build's; at 21,600 columns the bf16-gate mode timed in turns
+    with the earlier build's and with the f32-gate mode, beside the
+    library yardstick."""
+    from climsim_tpu_torch import ops
+    from climsim_tpu_torch.ops import _build
+    from climsim_tpu_torch.models import BF16
+    libs = build_previous(root)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(tool):
+        for name, (_, path) in libs.items():
+            for when, lib in (("earlier", path), ("this", _build._lib_path(
+                    name))):
+                g16, f32 = gate_sass(sass_functions(tool, lib))
+                print(f"{name}, {when} build: f32-gate instances {f32}; "
+                      f"bf16-gate instances " + "; ".join(
+                          f"{k[-48:]} {c}" for k, c in g16.items())
+                      + f" [{card}]")
+    wrappers = {"b1": ops.fused_bigru_heads_init_cm,
+                "b10": ops.fused_bigru_heads_init_lbh}
+    for kind, (name, arm, args, seed) in PREVIOUS.items():
+        kern = wrappers[kind]
+        model = make_model(BF16, None, arm=arm)
+        for B in (1000, NLAT * NLON):
+            a = args(model, B, torch.bfloat16, seed)
+            a32 = tuple(t.float() for t in a)
+            new = [kern(*a, acc32=False), kern(*a), kern(*a32)]
+            with previous_libs(libs):
+                old = [kern(*a, acc32=False), kern(*a), kern(*a32)]
+            same = [all(torch.equal(x, y) for x, y in zip(n, o))
+                    for n, o in zip(new, old)]
+            print(f"{kind.upper()} at {B} columns against the earlier "
+                  f"build: bf16 gates {'bit-equal' if same[0] else 'DIFFER'}"
+                  f", f32 gates {'bit-equal' if same[1] else 'DIFFER'}, "
+                  f"f32 {'bit-equal' if same[2] else 'DIFFER'} [{card}]")
+            check(all(same), f"{kind.upper()} at {B} columns differs from "
+                  f"the earlier build: {same}")
+            del new, old
+        kern.design = None
+        kern(*a, acc32=False)
+        check(kern.design == "tensor_core+bf16_gates", f"{kind}: "
+              f"{kern.design}")
+
+        def earlier():
+            with previous_libs(libs):
+                kern(*a, acc32=False)
+        prev, now = in_turns(earlier, lambda: kern(*a, acc32=False), 3)
+        f32g, now2 = in_turns(lambda: kern(*a), lambda: kern(*a, acc32=False),
+                              3)
+        lib = heads_yardstick(model.bigru_fused, a, kind == "b1", card,
+                              f"{kind.upper()} ({arm} arm's shapes)",
+                              init=True)
+        print(f"{kind.upper()} bf16 gates at {NLAT * NLON} columns in turns "
+              f"(earlier, this, this, earlier): earlier build "
+              f"{prev[0]:.4f} / {prev[1]:.4f} ms, this build {now[0]:.4f} / "
+              f"{now[1]:.4f} ms "
+              f"({statistics.mean(now) / statistics.mean(prev):.3f}x); "
+              f"in turns with f32 gates: f32 gates {f32g[0]:.4f} / "
+              f"{f32g[1]:.4f} ms, bf16 gates {now2[0]:.4f} / {now2[1]:.4f} "
+              f"ms ({statistics.mean(now2) / statistics.mean(f32g):.3f}x); "
+              f"library yardstick {lib:.4f} ms [{card}]")
+        del a, a32, model
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------ phase 17: A.11's options, A.7
@@ -7530,6 +7905,14 @@ def main() -> int:
                 fn = line.split("'")[1][-60:]
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {fn}: {line.strip()}")
+    if sys.argv[1:2] == ["previous"]:
+        # B1 and B10 against an earlier checkout's build (its top directory
+        # the next argument), then phase 16; no result line
+        torch.set_grad_enabled(False)
+        previous_in_turns(card, sys.argv[2])
+        check_gate_mode_and_a12(card)
+        phase_done(16)
+        return 0
     check_tensor_core_sass(card)
     phase_done(1)
     if sys.argv[1:] == ["14"]:
@@ -8249,6 +8632,8 @@ def main() -> int:
                       ("bigru_heads_cm_bwd", "library_b3"),
                       ("bigru_heads_init_lbh", "library_b10")):
         by_name[name]["library_ms"] = g16[key]
+    for name, key in f32_of.items():
+        by_name[name]["f32"]["library_ms"] = g16["library_f32"][key]
     for name, key in (("bigru_heads_init_cm", "b1"),
                       ("bigru_heads_cm", "b4"), ("bigru_lbh", "b7"),
                       ("bigru_heads_lbh", "b9"),
@@ -8258,7 +8643,8 @@ def main() -> int:
             "launches": g16["launches"][key], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "f32_gates_ms": m["f32_gates_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "expf_share": m["expf_share"]}
     m = g16["kernels"]["b4_unhoisted"]
     by_name["bigru_heads_cm"]["bf16_gates"]["hoist_proj_false"] = {
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("bigru_heads_init_cm", "bigru_heads_cm_bwd", "fv_tracers_sphere",
            "bigru_lbh", "bigru_lbh_bwd", "adding_sw", "adding_sw_bwd",
            "lw_noscat", "lw_noscat_bwd", "bigru_heads_cm", "fv_tracers_flat",
-           "bigru_heads_lbh")
+           "bigru_heads_lbh", "gates16_check")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

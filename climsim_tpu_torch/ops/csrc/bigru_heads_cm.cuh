@@ -18,8 +18,9 @@ namespace bigru {
 // recurrent operand; hc [H][BT] the f32 state, updated in place (each
 // element is read and written by one thread); xh_new receives dt(h_new).
 // kG16 (acc32=False, T bf16): the projection is rounded, the state is a
-// bf16 value and the gates run in bf16 arithmetic (gates16.cuh), the
-// recurrent product with its bias rounded on its own before the sums.
+// bf16 value and the gates run in packed bf16 arithmetic (gates16.cuh,
+// two columns a step), the recurrent product with its bias rounded on its
+// own before the sums.
 template <typename T, bool kRoundXP, bool kG16 = false>
 __device__ __forceinline__ void gru_level(
     const T* __restrict__ W1, const float* X1, int K1,
@@ -55,13 +56,16 @@ __device__ __forceinline__ void gru_level(
 #pragma unroll
       for (int q = 0; q < CG; ++q) hr[q] = hz[q] = 0.0f;
       gate_mv<T>(hr, hz, hn, whh, H, H, j, xh, c0);
+      using gates16::pk;
 #pragma unroll
-      for (int q = 0; q < CG; ++q) {
+      for (int q = 0; q < CG; q += 2) {       // two columns a step
         const int e = j * BT + c0 + q;
-        const float h = gates16::step(ar[q], az[q], an[q], hr[q], hz[q],
-                                      hn[q], cr, cz, cn, hc[e]);
-        hc[e] = h;
-        xh_new[e] = h;
+        const float2 h = __bfloat1622float2(gates16::step2(
+            pk(ar[q], ar[q + 1]), pk(az[q], az[q + 1]), pk(an[q], an[q + 1]),
+            pk(hr[q] + cr, hr[q + 1] + cr), pk(hz[q] + cz, hz[q + 1] + cz),
+            pk(hn[q] + cn, hn[q + 1] + cn), pk(hc[e], hc[e + 1])));
+        hc[e] = xh_new[e] = h.x;
+        hc[e + 1] = xh_new[e + 1] = h.y;
       }
       continue;
     }

@@ -110,7 +110,7 @@ bigru_heads_init_cm_kernel(Params p) {
       for (int f = 0; f < nf; ++f)
         a = fmaf(ldw(winit + f * H + j), s_feat[f * BT + c], a);
       const float pre = rnd<T>(a + ldw(binit + j));
-      s_x[e] = kG16 ? gates16::tanh(pre) : rnd<T>(tanhf(pre));
+      s_x[e] = kG16 ? gates16::tanh1(pre) : rnd<T>(tanhf(pre));
     }
     __syncthreads();
     gru_level<T, true, kG16>(static_cast<const T*>(p.win1h), s_x, H,

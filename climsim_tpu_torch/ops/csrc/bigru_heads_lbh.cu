@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(NTH, 2) bigru_heads_lbh_kernel(Params p) {
         for (int f = 0; f < nx; ++f)
           a = fmaf(ldw(winit + f * ch + j), s_feat[f * BT + c], a);
         const float pre = rnd<T>(a + ldw(binit + j));
-        s_x[e] = kG16 ? gates16::tanh(pre) : rnd<T>(tanhf(pre));
+        s_x[e] = kG16 ? gates16::tanh1(pre) : rnd<T>(tanhf(pre));
       }
     } else {
       load_rows(s_x, x + lev * nx, nx, B, col0);

@@ -252,7 +252,7 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
       gru_rec<kStream, kG16>(cl, R, ar, az, an, u.h + cur * BT * LDH, whu,
                              LDH, H, Hc, u.h + (cur ^ 1) * BT * LDH, w, tl, r,
                              nullptr, B, col0, u.ring);
-      store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
+      store_state_bm<kG16>(p.down + l * lvl, H, R, w, tl, r, Hc, B, col0);
       cl.sync();
       cur ^= 1;
     }
@@ -289,7 +289,7 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
           cl, R, d.x + cur * BT * LDH, LDH, H, wx, d.h + cur * BT * LDH, wh,
           LDH, H, Hc, d.h + (cur ^ 1) * BT * LDH, w, tl, r, nullptr, B, col0,
           d.ring);
-      store_frag_bm(p.down + l * lvl, H, R.h, w, tl, r, Hc, B, col0);
+      store_state_bm<kG16>(p.down + l * lvl, H, R, w, tl, r, Hc, B, col0);
       if (more) {
         cp.commit(xn, LDH, k0, k1, BT);
         __syncthreads();
@@ -298,7 +298,7 @@ __global__ void __launch_bounds__(NTH, 1) b7_mma_kernel(Params p) {
       cl.sync();
       cur ^= 1;
     }
-    store_frag_bm(p.lasth, H, R.h, w, tl, r, Hc, B, col0);
+    store_state_bm<kG16>(p.lasth, H, R, w, tl, r, Hc, B, col0);
   }
 }
 

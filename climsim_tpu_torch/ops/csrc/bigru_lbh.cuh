@@ -60,7 +60,8 @@ __device__ __forceinline__ void gates_mv(float (&a)[3][CG],
 // [r; z; n; hn] (hn with its bias) goes to gates_l [B][4H] in dt, as the
 // backward's replay stores it. kG16 (the forward's acc32=False, T bf16,
 // no kGates): the down sweep's projection is rounded, the state is a bf16
-// value and the gates run in bf16 arithmetic (gates16.cuh).
+// value and the gates run in packed bf16 arithmetic (gates16.cuh, two
+// columns a step).
 template <typename T, bool kGates, bool kG16 = false>
 __device__ __forceinline__ void gru_level(
     const T* __restrict__ xp_l, const T* __restrict__ W2,
@@ -99,15 +100,21 @@ __device__ __forceinline__ void gru_level(
     const float cr = ldw(bhh + j), cz = ldw(bhh + H + j),
                 cn = ldw(bhh + 2 * H + j);
     if constexpr (kG16) {
+      using gates16::pk;
 #pragma unroll
-      for (int q = 0; q < CG; ++q) {
+      for (int q = 0; q < CG; q += 2) {       // two columns a step
         const int e = j * BT + c0 + q;
-        const float h = gates16::step(x[0][q], x[1][q], x[2][q], hh[0][q],
-                                      hh[1][q], hh[2][q], cr, cz, cn, hc[e]);
-        hc[e] = h;
-        xh_new[e] = h;
+        const float2 h = __bfloat1622float2(gates16::step2(
+            pk(x[0][q], x[0][q + 1]), pk(x[1][q], x[1][q + 1]),
+            pk(x[2][q], x[2][q + 1]), pk(hh[0][q] + cr, hh[0][q + 1] + cr),
+            pk(hh[1][q] + cz, hh[1][q + 1] + cz),
+            pk(hh[2][q] + cn, hh[2][q + 1] + cn), pk(hc[e], hc[e + 1])));
+        hc[e] = xh_new[e] = h.x;
+        hc[e + 1] = xh_new[e + 1] = h.y;
         const int col = col0 + c0 + q;
-        if (col < B) out_l[static_cast<size_t>(col) * H + j] = from_f<T>(h);
+        if (col < B) out_l[static_cast<size_t>(col) * H + j] = from_f<T>(h.x);
+        if (col + 1 < B)
+          out_l[static_cast<size_t>(col + 1) * H + j] = from_f<T>(h.y);
       }
       continue;
     }

@@ -513,28 +513,6 @@ struct XpPF {
   }
 };
 
-// dt(v) at the thread's fragment positions into a batch-major [B][ld]
-// array (CTA r's hidden units; a pair of neighbouring units a 4-byte
-// store), nothing past B
-__device__ __forceinline__ void store_frag_bm(bf16* dst, int ld,
-                                              const float (&v)[MAXP][4],
-                                              const Warp& w, const Tiles& tl,
-                                              int r, int Hc, int B,
-                                              int col0) {
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (!tl.on[i]) continue;
-    const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = col0 + w.row(2 * h);
-      if (col < B)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(col) * ld + j) =
-            pack2(v[i][2 * h], v[i][2 * h + 1]);
-    }
-  }
-}
-
 // A [rows, B] tile of one level that stacks s1 [n1, B] over s2 [rows -
 // n1, B], f32, loaded into registers ahead of use (fetch) and stored as
 // [rows][BT] f32 in shared memory (commit); the launchers refuse shapes
@@ -662,12 +640,38 @@ __device__ __forceinline__ void load_slice(bf16* smem, const bf16* glob,
   if constexpr (!kStream) load_rows(smem, K + PAD, glob, rows, K);
 }
 
-// A thread's registers over a sweep: the f32 state h and the input and
-// recurrent biases at its fragment columns.
+// A thread's registers over a sweep: the f32 state h (the bf16-gate mode
+// carries it packed in h2, the pairs q = (0, 1) and (2, 3)) and the input
+// and recurrent biases at its fragment columns.
 struct GruRegs {
   float h[MAXP][4];
+  gates16::bf2 h2[MAXP][2];
   float bx[3][MAXP][2], bh[3][MAXP][2];
 };
+
+// The state of R at the thread's fragment positions into a batch-major
+// [B][ld] array (CTA r's hidden units; a pair of neighbouring units a
+// 4-byte store), nothing past B: dt(R.h), or with kG16 R.h2 as it is
+template <bool kG16>
+__device__ __forceinline__ void store_state_bm(bf16* dst, int ld,
+                                               const GruRegs& R,
+                                               const Warp& w, const Tiles& tl,
+                                               int r, int Hc, int B,
+                                               int col0) {
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    if (!tl.on[i]) continue;
+    const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = col0 + w.row(2 * h);
+      if (col < B)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(col) * ld + j) =
+            kG16 ? gates16::bits(R.h2[i][h])
+                 : pack2(R.h[i][2 * h], R.h[i][2 * h + 1]);
+    }
+  }
+}
 
 // h from h0 [H, B] and the biases bx (none: zero), bh [3H] at the
 // thread's fragment positions of CTA r's hidden units
@@ -684,6 +688,8 @@ __device__ __forceinline__ void gru_regs_init(GruRegs& R, const Warp& w,
       R.h[i][q] = tl.on[i] && col < B
                       ? b2f(h0[static_cast<size_t>(j) * B + col]) : 0.0f;
     }
+    R.h2[i][0] = gates16::pk(R.h[i][0], R.h[i][1]);
+    R.h2[i][1] = gates16::pk(R.h[i][2], R.h[i][3]);
 #pragma unroll
     for (int g = 0; g < 3; ++g)
 #pragma unroll
@@ -702,8 +708,8 @@ __device__ __forceinline__ void gru_regs_init(GruRegs& R, const Warp& w,
 // dt(h_new) goes to the CTA's own columns of Hnxt [BT][ldh] in every CTA
 // of the cluster (distributed shared memory); with gates (the replay) h's
 // gate bundle [r; z; n; hn] goes to gates [4H, B]. kG16 (the forwards'
-// acc32=False): xp is bf16-rounded, the state is a bf16 value and the
-// gates run in bf16 arithmetic (gates16.cuh), the recurrent product with
+// acc32=False): xp is rounded to bf16 here, the state is R.h2 and the gates
+// run in packed bf16 arithmetic (gates16.cuh), the recurrent product with
 // its bias rounded on its own before the sums; no gate bundle.
 template <bool kStream, bool kG16 = false>
 __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
@@ -731,36 +737,47 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
     if (!tl.on[i]) continue;
-    float hv[4];
+    uint32_t p0, p1;
+    if constexpr (kG16) {
+      using gates16::pk;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if constexpr (kG16) {
-        hv[q] = gates16::step(ar[i][q], az[i][q], an[i][q], hr[i][q],
-                              hz[i][q], hn[i][q], R.bh[0][i][q & 1],
-                              R.bh[1][i][q & 1], R.bh[2][i][q & 1],
-                              R.h[i][q]);
-        R.h[i][q] = hv[q];
-        continue;
+      for (int p = 0; p < 2; ++p) {
+        const int q = 2 * p;
+        R.h2[i][p] = gates16::step2(
+            pk(ar[i][q], ar[i][q + 1]), pk(az[i][q], az[i][q + 1]),
+            pk(an[i][q], an[i][q + 1]),
+            pk(hr[i][q] + R.bh[0][i][0], hr[i][q + 1] + R.bh[0][i][1]),
+            pk(hz[i][q] + R.bh[1][i][0], hz[i][q + 1] + R.bh[1][i][1]),
+            pk(hn[i][q] + R.bh[2][i][0], hn[i][q + 1] + R.bh[2][i][1]),
+            R.h2[i][p]);
       }
-      const float rr = sigm(ar[i][q] + R.bh[0][i][q & 1]);
-      const float zz = sigm(az[i][q] + R.bh[1][i][q & 1]);
-      const float hq = hn[i][q] + R.bh[2][i][q & 1];
-      const float nn = tanh_(an[i][q] + rr * hq);
-      hv[q] = (1.0f - zz) * nn + zz * R.h[i][q];
-      R.h[i][q] = hv[q];
-      if (gates != nullptr) {
-        const int j = r * Hc + w.col(tl.nt[i] * 8, q);
-        const int col = col0 + w.row(q);
-        if (col < B) {
-          gates[j * sB + col] = __float2bfloat16_rn(rr);
-          gates[(H + j) * sB + col] = __float2bfloat16_rn(zz);
-          gates[(2 * H + j) * sB + col] = __float2bfloat16_rn(nn);
-          gates[(3 * H + j) * sB + col] = __float2bfloat16_rn(hq);
+      p0 = gates16::bits(R.h2[i][0]);
+      p1 = gates16::bits(R.h2[i][1]);
+    } else {
+      float hv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float rr = sigm(ar[i][q] + R.bh[0][i][q & 1]);
+        const float zz = sigm(az[i][q] + R.bh[1][i][q & 1]);
+        const float hq = hn[i][q] + R.bh[2][i][q & 1];
+        const float nn = tanh_(an[i][q] + rr * hq);
+        hv[q] = (1.0f - zz) * nn + zz * R.h[i][q];
+        R.h[i][q] = hv[q];
+        if (gates != nullptr) {
+          const int j = r * Hc + w.col(tl.nt[i] * 8, q);
+          const int col = col0 + w.row(q);
+          if (col < B) {
+            gates[j * sB + col] = __float2bfloat16_rn(rr);
+            gates[(H + j) * sB + col] = __float2bfloat16_rn(zz);
+            gates[(2 * H + j) * sB + col] = __float2bfloat16_rn(nn);
+            gates[(3 * H + j) * sB + col] = __float2bfloat16_rn(hq);
+          }
         }
       }
+      p0 = pack2(hv[0], hv[1]);
+      p1 = pack2(hv[2], hv[3]);
     }
     const int j = r * Hc + w.col(tl.nt[i] * 8, 0);
-    const uint32_t p0 = pack2(hv[0], hv[1]), p1 = pack2(hv[2], hv[3]);
     for (int q = 0; q < static_cast<int>(cl.num_blocks()); ++q) {
       *reinterpret_cast<uint32_t*>(
           cl.map_shared_rank(Hnxt + w.row(0) * ldh + j, q)) = p0;
@@ -772,10 +789,10 @@ __device__ __forceinline__ void gru_rec(cg::cluster_group& cl, GruRegs& R,
 
 // One GRU level with its input projection: xp = X Wx^T + bx (rounded to
 // bf16 with kRoundXP, as the v6 forward stores it, and always with kG16,
-// as every TPU body rounds it to its bf16 gate type; f32 in the v4
-// forward and the backward's replays), then gru_rec. X [BT][ldx] with KX
-// inputs, or with kXT stored transposed, [KX][BT] swizzled (xt_chunk;
-// ldx BT).
+// as every TPU body rounds it to its bf16 gate type, there by gru_rec's
+// packing; f32 in the v4 forward and the backward's replays), then
+// gru_rec. X [BT][ldx] with KX inputs, or with kXT stored transposed,
+// [KX][BT] swizzled (xt_chunk; ldx BT).
 template <bool kRoundXP, bool kStream, bool kXT = false, bool kG16 = false>
 __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
                                           const bf16* X, int ldx, int KX,
@@ -796,7 +813,7 @@ __device__ __forceinline__ void gru_level(cg::cluster_group& cl, GruRegs& R,
       ar[i][q] += R.bx[0][i][q & 1];
       az[i][q] += R.bx[1][i][q & 1];
       an[i][q] += R.bx[2][i][q & 1];
-      if (kRoundXP || kG16) {
+      if (kRoundXP && !kG16) {
         ar[i][q] = rnd(ar[i][q]);
         az[i][q] = rnd(az[i][q]);
         an[i][q] = rnd(an[i][q]);

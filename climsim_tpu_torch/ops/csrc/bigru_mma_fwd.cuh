@@ -92,7 +92,8 @@ struct FwdParams {
 // xi for the CTA's rows [k0, k0 + CHc) of the level whose raw features are
 // raw [nf][BT] f32: dt(tanh(dt(Winit feat + binit))), into X[b][k0 + .]
 // of every CTA of the cluster; with kG16 the tanh is the TPU body's typed
-// bf16 one (gates16::tanh), as its bf16 input gives it
+// bf16 one (gates16::tanh2, four pairs a thread), as its bf16 input gives
+// it
 template <bool kG16>
 __device__ __forceinline__ void xi_own(cg::cluster_group& cl, bf16* X,
                                        int ldx, const float* raw,
@@ -106,11 +107,18 @@ __device__ __forceinline__ void xi_own(cg::cluster_group& cl, bf16* X,
       const int jj = c * 8 + kk;
       float a = 0.0f;
       for (int f = 0; f < nf; ++f) a = fmaf(wi[jj * nf + f], raw[f * BT + b], a);
-      v[kk] = kG16 ? gates16::tanh(rnd(a + bi[jj]))
-                   : rnd(tanh_(rnd(a + bi[jj])));
+      v[kk] = kG16 ? a + bi[jj] : rnd(tanh_(rnd(a + bi[jj])));
     }
-    const uint4 v4 = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
-                                pack2(v[4], v[5]), pack2(v[6], v[7]));
+    uint4 v4;
+    if constexpr (kG16) {
+      using gates16::bits, gates16::pk, gates16::tanh2;
+      v4 = make_uint4(
+          bits(tanh2(pk(v[0], v[1]))), bits(tanh2(pk(v[2], v[3]))),
+          bits(tanh2(pk(v[4], v[5]))), bits(tanh2(pk(v[6], v[7]))));
+    } else {
+      v4 = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                      pack2(v[4], v[5]), pack2(v[6], v[7]));
+    }
     for (int q = 0; q < static_cast<int>(cl.num_blocks()); ++q)
       *reinterpret_cast<uint4*>(
           cl.map_shared_rank(X + b * ldx + k0 + c * 8, q)) = v4;

@@ -2443,3 +2443,57 @@ def test_semi_online_update_on_card_matches_cpu(cuda):
         want = w0[n] - lr * g / (g.abs() + 1e-8)
         assert ((p.detach().cpu() - want).abs()
                 <= 1e-5 * (w0[n].abs() + lr)).all(), n
+
+
+# the bf16-gate step's card checks (ops/gates16.py): its special operands,
+# and gates16.cuh's bound on the SFU exponential, 2.5 + 1.223 S |x| ulps
+G16_SPECIALS = (0.0, -0.0, 1.0, -1.0, 2.0 ** -133, -2.0 ** -133,
+                2.0 ** -126, 1.0 + 2.0 ** -7, 1.0 - 2.0 ** -8, 2.0 ** -9,
+                44.0, -44.0, 88.0, -88.0, 1e30, -1e30)
+
+
+@pytest.mark.cuda
+def test_gates16_sigmoid_and_tanh_on_every_bf16_input(cuda):
+    """The packed sigmoid and typed tanh give the accurate forms' bits
+    (f32 operations rounded to bf16, IEEE expf and division) on all
+    65,536 bf16 inputs, and the SFU exponential stays within the bound
+    that the tie rule assumes."""
+    from climsim_tpu_torch.ops import gates16
+    x = gates16.all_bf16()
+    out, slow, ulps = gates16.check_unary(x)
+    assert gates16.same_bits(out[:, 0], out[:, 1]).all()
+    assert gates16.same_bits(out[:, 2], out[:, 3]).all()
+    ax = x.view(torch.bfloat16).float().abs()
+    for S in (1, 2):
+        e = ulps[:, S - 1]
+        normal = e >= 0
+        assert (e[normal] <= 2.5 + 1.223 * S * ax[normal]).all()
+        assert 0 < int(slow[normal, S - 1].sum()) < 100
+
+
+@pytest.mark.cuda
+def test_gates16_step_on_seeded_operand_sets(cuda):
+    """The packed step against the accurate one on 10^6 seeded operand
+    sets, pairs of lanes as the kernels pack them: values of order 2^-12
+    to 2^4, random finite bf16 bit patterns and special values."""
+    from climsim_tpu_torch.ops import gates16
+    rng = np.random.default_rng(24)
+    n = 1_000_000
+
+    def mix(shape):
+        v = rng.standard_normal(shape) * np.exp2(rng.integers(-12, 5, shape))
+        b = (rng.integers(0, 65536, shape, dtype=np.uint32)
+             << 16).view(np.float32)
+        with np.errstate(invalid="ignore"):
+            b = np.where(np.isfinite(b), b, 0.0)
+        sp = np.asarray(G16_SPECIALS)[rng.integers(0, len(G16_SPECIALS),
+                                                   shape)]
+        u = rng.random(shape)
+        return np.where(u < 0.8, v, np.where(u < 0.9, b, sp)).astype(
+            np.float32)
+
+    sums = torch.from_numpy(mix((n, 6))).to(cuda)
+    bf = torch.from_numpy(mix((n, 4))).to(cuda).to(torch.bfloat16).view(
+        torch.int16).contiguous()
+    out = gates16.check_step(sums, bf)
+    assert gates16.same_bits(out[:, 0], out[:, 1]).all()
